@@ -1,0 +1,301 @@
+"""Paged decode attention and the paged K/V write, for the decode hot path.
+
+Counterpart of ``polyrl_tpu/ops/paged_attention.py``. For each of the three
+TPU kernels of that module this file holds:
+
+- the plain PyTorch version (``*_ref``), the same arithmetic as the JAX
+  oracle: the CPU path and the yardstick the CUDA kernel is held to;
+- the wrapper the model calls, which takes the plain version only for
+  tensors on the CPU and otherwise launches the hand-written Hopper kernel
+  (``csrc/*.cu``) or raises -- it never falls back for a CUDA tensor;
+- a plain-integer launch count in ``LAUNCHES`` that the wrapper bumps
+  where it launches its kernel and nowhere else.
+
+Pools are head-major ``[Hkv, N_pages, page_size, D]`` with page 0 the null
+page (the layout ``decoder.make_paged_pools`` allocates). ``NEG_INF`` is
+the finite float32 minimum, as in the JAX code: with ``-inf`` an empty
+row's ``exp(m_prev - m_new)`` would be NaN.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from polyrl_tpu_torch.ops import cuda_build
+
+NEG_INF = float(np.finfo(np.float32).min)
+
+# kernel name -> launches since the last reset (one per wrapper call that
+# launched its CUDA kernel; plain-version calls do not count)
+LAUNCHES: dict[str, int] = {name: 0 for name in cuda_build.KERNELS}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# -- plain versions ------------------------------------------------------------
+
+
+def paged_attention_ref(q: torch.Tensor,           # [S, Hq, D]
+                        k_pool: torch.Tensor,      # [Hkv, N, ps, D]
+                        v_pool: torch.Tensor,
+                        page_table: torch.Tensor,  # [S, P] page ids
+                        seq_lens: torch.Tensor,    # [S] valid tokens
+                        scale: float | None = None) -> torch.Tensor:
+    """Gather + dense f32 softmax. Returns [S, Hq, D] in q.dtype."""
+    s, hq, d = q.shape
+    hkv, _n, ps, _ = k_pool.shape
+    p = page_table.shape[1]
+    rep = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    pt = page_table.long()
+    k = k_pool[:, pt].reshape(hkv, s, p * ps, d)
+    v = v_pool[:, pt].reshape(hkv, s, p * ps, d)
+    qr = q.reshape(s, hkv, rep, d).float()
+    logits = torch.einsum("shrd,hstd->shrt", qr, k.float()) * scale
+    pos = torch.arange(p * ps, device=q.device)[None, :]
+    valid = pos < seq_lens.clamp(min=1)[:, None]  # empty rows stay finite
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("shrt,hstd->shrd", probs, v.float())
+    return out.reshape(s, hq, d).to(q.dtype)
+
+
+def _group_slot_maps(group_slots: torch.Tensor, group_prefix_lens: torch.Tensor,
+                     s: int, page_size: int):
+    """Invert the group table [NG, G] (-1 = empty seat) into per-slot maps:
+    group row (-1 = ungrouped), seat column, and the number of leading
+    page-table columns phase 1 covers.
+
+    A -1 seat must never be used as an index: in PyTorch it would wrap to
+    the last slot and silently overwrite it. Seats are masked to a dump
+    index ``s`` one past the end, written into an ``s + 1`` buffer, and
+    the dump entry is sliced off (the JAX ``mode="drop"`` scatter)."""
+    ng, gmax = group_slots.shape
+    dev = group_slots.device
+    flat = group_slots.reshape(-1).long()
+    gidx = torch.arange(ng, device=dev).repeat_interleave(gmax)
+    gcol = torch.arange(gmax, device=dev).repeat(ng)
+    tgt = torch.where(flat >= 0, flat, s)
+    slot_grp = torch.full((s + 1,), -1, dtype=torch.long, device=dev)
+    slot_grp.scatter_(0, tgt, gidx)
+    slot_col = torch.zeros((s + 1,), dtype=torch.long, device=dev)
+    slot_col.scatter_(0, tgt, gcol)
+    slot_grp, slot_col = slot_grp[:s], slot_col[:s]
+    pre_tok = group_prefix_lens.long()[slot_grp.clamp(0, ng - 1)]
+    slot_npre = torch.where(slot_grp >= 0, pre_tok // page_size, 0)
+    return slot_grp, slot_col, slot_npre
+
+
+def grouped_paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens,
+                                group_slots,         # [NG, G], -1 = empty seat
+                                group_prefix_pages,  # [NG, P_pre]
+                                group_prefix_lens,   # [NG] prefix tokens (page mult.)
+                                scale: float | None = None) -> torch.Tensor:
+    """Two-phase plain version: prefix/suffix split and LSE merge.
+
+    Contract (what the engine guarantees): every seated slot's leading
+    page-table columns equal its group's prefix pages and its seq_len
+    exceeds the prefix length, so the result equals ``paged_attention_ref``
+    on the full tables up to float reduction order."""
+    s, hq, d = q.shape
+    hkv, _n, ps, _ = k_pool.shape
+    p = page_table.shape[1]
+    ng = group_slots.shape[0]
+    p_pre = group_prefix_pages.shape[1]
+    rep = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    dev = q.device
+
+    slot_grp, _col, slot_npre = _group_slot_maps(group_slots, group_prefix_lens,
+                                                 s, ps)
+    pre_tok = (slot_npre * ps)[:, None]
+    qr = q.reshape(s, hkv, rep, d).float()
+
+    # phase 1: every slot against its group's shared prefix
+    gi = slot_grp.clamp(0, ng - 1)
+    gpp = group_prefix_pages.long()
+    kp = k_pool[:, gpp].reshape(hkv, ng, p_pre * ps, d)[:, gi]
+    vp = v_pool[:, gpp].reshape(hkv, ng, p_pre * ps, d)[:, gi]
+    logits1 = torch.einsum("shrd,hstd->shrt", qr, kp.float()) * scale
+    valid1 = torch.arange(p_pre * ps, device=dev)[None, :] < pre_tok
+    logits1 = torch.where(valid1[:, None, None, :], logits1, NEG_INF)
+    m1 = logits1.amax(dim=-1)
+    e1 = torch.exp(logits1 - m1[..., None])
+    e1 = torch.where(valid1[:, None, None, :], e1, 0.0)
+    l1 = e1.sum(dim=-1)
+    acc1 = torch.einsum("shrt,hstd->shrd", e1, vp.float())
+    grouped = (slot_grp >= 0)[:, None, None]
+    m1 = torch.where(grouped, m1, NEG_INF)
+    l1 = torch.where(grouped, l1, 0.0)
+    acc1 = torch.where(grouped[..., None], acc1, 0.0)
+
+    # phase 2: each slot's own pages past the prefix
+    pt = page_table.long()
+    k2 = k_pool[:, pt].reshape(hkv, s, p * ps, d)
+    v2 = v_pool[:, pt].reshape(hkv, s, p * ps, d)
+    logits2 = torch.einsum("shrd,hstd->shrt", qr, k2.float()) * scale
+    pos2 = torch.arange(p * ps, device=dev)[None, :]
+    valid2 = (pos2 >= pre_tok) & (pos2 < seq_lens.clamp(min=1)[:, None])
+    logits2 = torch.where(valid2[:, None, None, :], logits2, NEG_INF)
+    m2 = logits2.amax(dim=-1)
+    e2 = torch.exp(logits2 - m2[..., None])
+    e2 = torch.where(valid2[:, None, None, :], e2, 0.0)
+    l2 = e2.sum(dim=-1)
+    acc2 = torch.einsum("shrt,hstd->shrd", e2, v2.float())
+
+    # LSE merge (finite NEG_INF keeps both alphas NaN-free)
+    m = torch.maximum(m1, m2)
+    a1, a2 = torch.exp(m1 - m), torch.exp(m2 - m)
+    l_tot = a1 * l1 + a2 * l2
+    acc = a1[..., None] * acc1 + a2[..., None] * acc2
+    out = acc / l_tot.clamp(min=1e-30)[..., None]
+    return out.reshape(s, hq, d).to(q.dtype)
+
+
+def paged_kv_write_ref(k_pool, v_pool, write_page, write_off, k_upd, v_upd):
+    """Row scatter of one token's K/V per slot into the pools, in place
+    (``_scatter_token_kv`` of the JAX decoder, applied to K and V)."""
+    for pool, upd in ((k_pool, k_upd), (v_pool, v_upd)):
+        hkv, n, ps, d = pool.shape
+        s = write_page.shape[0]
+        flat = pool.view(hkv * n * ps, d)
+        head_off = torch.arange(hkv, device=pool.device)[:, None] * (n * ps)
+        idx = (head_off + (write_page.long() * ps + write_off.long())[None, :])
+        rows = upd.transpose(0, 1).reshape(hkv * s, d).to(pool.dtype)
+        flat.index_copy_(0, idx.reshape(-1), rows)
+    return k_pool, v_pool
+
+
+# -- wrappers ------------------------------------------------------------------
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device} (cuda or cpu)")
+    return False
+
+
+def _cuda_operand(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
+    """Contiguous, 16-byte aligned tensor on ``device`` (cast to ``dtype``)."""
+    if t.device != device:
+        raise ValueError(f"operand on {t.device}, expected {device}")
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t
+
+
+def _check_head_dim(d: int, name: str) -> None:
+    if d % 32 or d > 256:
+        raise ValueError(f"{name}: head_dim {d} unsupported by the CUDA kernel "
+                         "(a multiple of 32, at most 256)")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def paged_kv_write(k_pool, v_pool, write_page, write_off, k_upd, v_upd):
+    """Write one token's K/V per slot into the pools in place; returns the
+    pools. K1 (``csrc/paged_kv_write.cu``) on CUDA tensors."""
+    if _on_cpu(k_pool):
+        return paged_kv_write_ref(k_pool, v_pool, write_page, write_off,
+                                  k_upd, v_upd)
+    dev = k_pool.device
+    hkv, n, ps, d = k_pool.shape
+    if (v_pool.shape != k_pool.shape or v_pool.dtype != k_pool.dtype
+            or not k_pool.is_contiguous() or not v_pool.is_contiguous()):
+        raise ValueError("paged_kv_write: pools must be contiguous and alike")
+    row_bytes = d * k_pool.element_size()
+    if row_bytes % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_kv_write: rows must be 16-byte multiples/aligned")
+    s = write_page.shape[0]
+    k_upd = _cuda_operand(k_upd, dev, k_pool.dtype)
+    v_upd = _cuda_operand(v_upd, dev, k_pool.dtype)
+    if k_upd.shape != (s, hkv, d) or v_upd.shape != (s, hkv, d):
+        raise ValueError(f"paged_kv_write: updates must be [{s}, {hkv}, {d}]")
+    page = _cuda_operand(write_page, dev, torch.int32)
+    off = _cuda_operand(write_off, dev, torch.int32)
+    cuda_build.launch("paged_kv_write", k_pool.data_ptr(), v_pool.data_ptr(),
+                      page.data_ptr(), off.data_ptr(), k_upd.data_ptr(),
+                      v_upd.data_ptr(), s, hkv, n, ps, row_bytes, _stream(dev))
+    LAUNCHES["paged_kv_write"] += 1
+    return k_pool, v_pool
+
+
+def _attn_operands(name, q, k_pool, v_pool, page_table, seq_lens):
+    dev = k_pool.device
+    if k_pool.dtype not in _DTYPE_CODE or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"{name}: pool dtype {k_pool.dtype} unsupported")
+    if q.shape[1] % k_pool.shape[0]:
+        raise ValueError(f"{name}: Hq must be a multiple of Hkv")
+    _check_head_dim(q.shape[2], name)
+    return (_cuda_operand(q, dev, k_pool.dtype), _cuda_operand(k_pool, dev),
+            _cuda_operand(v_pool, dev),
+            _cuda_operand(page_table, dev, torch.int32),
+            _cuda_operand(seq_lens, dev, torch.int32))
+
+
+def paged_attention(q, k_pool, v_pool, page_table, seq_lens, scale=None):
+    """Decode attention over each slot's page row; [S, Hq, D] in q.dtype.
+    K2 (``csrc/paged_attention.cu``) on CUDA tensors."""
+    if _on_cpu(q):
+        return paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens, scale)
+    s, hq, d = q.shape
+    hkv, n, ps, _ = k_pool.shape
+    scale = scale if scale is not None else d ** -0.5
+    qc, kp, vp, pt, lens = _attn_operands("paged_attention", q, k_pool, v_pool,
+                                          page_table, seq_lens)
+    out = torch.empty((s, hq, d), dtype=k_pool.dtype, device=q.device)
+    cuda_build.launch("paged_attention", qc.data_ptr(), kp.data_ptr(),
+                      vp.data_ptr(), pt.data_ptr(), lens.data_ptr(),
+                      out.data_ptr(), _DTYPE_CODE[k_pool.dtype], s, hq, hkv, n,
+                      ps, d, pt.shape[1], float(scale), _stream(q.device))
+    LAUNCHES["paged_attention"] += 1
+    return out.to(q.dtype)
+
+
+def grouped_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
+                            group_slots, group_prefix_pages, group_prefix_lens,
+                            scale=None):
+    """Shared-prefix grouped decode attention; [S, Hq, D] in q.dtype.
+    K3 (``csrc/grouped_paged_attention.cu``, two launches) on CUDA
+    tensors; the f32 phase-1 stats live in scratch allocated here."""
+    if _on_cpu(q):
+        return grouped_paged_attention_ref(
+            q, k_pool, v_pool, page_table, seq_lens, group_slots,
+            group_prefix_pages, group_prefix_lens, scale)
+    s, hq, d = q.shape
+    hkv, n, ps, _ = k_pool.shape
+    ng, gmax = group_slots.shape
+    rep = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qc, kp, vp, pt, lens = _attn_operands("grouped_paged_attention", q, k_pool,
+                                          v_pool, page_table, seq_lens)
+    dev = q.device
+    gs = _cuda_operand(group_slots, dev, torch.int32)
+    gpp = _cuda_operand(group_prefix_pages, dev, torch.int32)
+    gpl = _cuda_operand(group_prefix_lens, dev, torch.int32)
+    m1 = torch.empty((ng, hkv, gmax * rep), dtype=torch.float32, device=dev)
+    l1 = torch.empty_like(m1)
+    acc1 = torch.empty((ng, hkv, gmax * rep, d), dtype=torch.float32, device=dev)
+    out = torch.empty((s, hq, d), dtype=k_pool.dtype, device=dev)
+    cuda_build.launch("grouped_paged_attention", qc.data_ptr(), kp.data_ptr(),
+                      vp.data_ptr(), pt.data_ptr(), lens.data_ptr(),
+                      gs.data_ptr(), gpp.data_ptr(), gpl.data_ptr(),
+                      m1.data_ptr(), l1.data_ptr(), acc1.data_ptr(),
+                      out.data_ptr(), _DTYPE_CODE[k_pool.dtype], s, hq, hkv, n,
+                      ps, d, pt.shape[1], ng, gmax, gpp.shape[1], float(scale),
+                      _stream(dev))
+    LAUNCHES["grouped_paged_attention"] += 1
+    return out.to(q.dtype)

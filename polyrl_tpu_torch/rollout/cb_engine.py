@@ -1,0 +1,972 @@
+"""Continuous-batching rollout engine over a paged KV pool, in PyTorch.
+
+Counterpart of the core of ``polyrl_tpu/rollout/cb_engine.py``:
+
+- A fixed array of ``max_slots`` decode slots; per-slot sampling params,
+  budgets and stop tokens are tensors, so any request mix shares one
+  decode path.
+- Paged KV: slots own page lists from a shared pool
+  (``decoder.make_paged_pools``). Decode attention and the per-token KV
+  write are the hand-written CUDA kernels of ``ops/paged_attention.py``.
+  Dispatches with live GRPO groups (>= 2 active members sharing a prompt
+  chain) route through the grouped shared-prefix kernel.
+- Admission: waves of fresh prompts prefill in one batched forward; GRPO
+  siblings of a published prompt batch-attach to its cached pages
+  (group-shared prefill, ``prefix_cache.py``).
+- Decode: each dispatch runs ``steps_per_dispatch`` fused steps as a
+  Python loop over device tensors (the JAX ``lax.scan``), with the same
+  active / done / budget / stop logic, then emits synchronously -- the JAX
+  engine's ``pipeline_depth=0`` behaviour. Host numpy mirrors are the
+  truth between dispatches and are uploaded at each dispatch.
+
+Where the JAX engine donates pools and state, this one updates the pools
+in place. Not ported yet (see ROADMAP.md): the fetcher thread and
+run-ahead pipeline, speculation, chunked prefill, salvage publishing, the
+KV ledger, spill tier, flight deck and loop profiler, and TP meshes.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import logging
+import queue
+import threading
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from polyrl_tpu_torch.device import resolve_device
+from polyrl_tpu_torch.models import decoder
+from polyrl_tpu_torch.ops.paged_attention import grouped_paged_attention
+from polyrl_tpu_torch.rollout.flightdeck import ThroughputEWMA
+from polyrl_tpu_torch.rollout.prefix_cache import PrefixCache
+from polyrl_tpu_torch.rollout.sampling import SamplingParams, sample_token_vec
+
+log = logging.getLogger(__name__)
+
+STREAM_END = object()  # terminal marker on every request's output queue
+
+MAX_STOP_TOKENS = 8
+
+
+def next_bucket(n: int, buckets: tuple[int, ...]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"{n} exceeds largest bucket {buckets[-1]}")
+
+
+def _pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+@dataclasses.dataclass
+class _Request:
+    rid: str
+    input_ids: list[int]
+    sampling: SamplingParams
+    out: queue.Queue
+    abort: Any  # threading.Event-like or None
+    t_submit: float = 0.0
+    # group-shared prefill hint (GRPO: the completions of one prompt share
+    # group_id; group_size is the expected member count). A missing or
+    # wrong hint degrades to per-request admission, never corrupts.
+    group_id: str = ""
+    group_size: int = 0
+
+
+@dataclasses.dataclass
+class _SlotInfo:
+    req: _Request
+    pages: list[int]            # slot-PRIVATE pages (freed on finalize)
+    stop_set: set
+    cache_entries: list = dataclasses.field(default_factory=list)
+    emitted: list = dataclasses.field(default_factory=list)
+    admit_version: int = 0
+
+
+class PageAllocator:
+    """Free-list allocator over pages 1..n-1 (page 0 = reserved null page)."""
+
+    def __init__(self, num_pages: int):
+        self.num_pages = num_pages
+        self._free = list(range(num_pages - 1, 0, -1))
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> list[int] | None:
+        if n > len(self._free):
+            return None
+        out = self._free[-n:]
+        del self._free[-n:]
+        return out
+
+    def free(self, pages: list[int]) -> None:
+        self._free.extend(pages)
+
+
+def _params_to(tree: dict, device: torch.device) -> dict:
+    return {k: (_params_to(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in tree.items()}
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+class CBEngine:
+    """Continuous-batching engine; the serving backend of RolloutServer."""
+
+    ADMIT_WAVE = 8  # max admissions fused into one batched prefill
+    GROUP_PREREF_TTL_S = 30.0
+
+    def __init__(
+        self,
+        cfg: decoder.ModelConfig,
+        params: dict,
+        max_slots: int = 64,
+        page_size: int = 64,
+        num_pages: int | None = None,
+        max_seq_len: int = 8192,
+        prompt_buckets: tuple[int, ...] = (128, 256, 512, 1024, 2048, 4096),
+        kv_cache_dtype: torch.dtype | None = None,
+        pad_token_id: int = 0,
+        seed: int = 0,
+        enable_prefix_cache: bool = True,
+        steps_per_dispatch: int = 8,
+        admit_wave: int | None = None,
+        admit_reorder_window: int = 8,
+        group_share: bool = True,
+        decode_group_share: bool = True,
+        group_preref_ttl_s: float | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        if any(b % page_size for b in prompt_buckets):
+            raise ValueError("prompt buckets must be page-aligned")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = _params_to(params, self.device)
+        self.max_slots = max_slots
+        self.page_size = page_size
+        self.max_seq_len = max_seq_len
+        self.pages_per_slot = -(-max_seq_len // page_size)
+        # default pool: enough for half the slots at full length + slack
+        self.num_pages = num_pages or (max_slots * self.pages_per_slot // 2 + 1)
+        self.prompt_buckets = tuple(prompt_buckets)
+        self.kv_cache_dtype = kv_cache_dtype or cfg.dtype
+        self.pad_token_id = pad_token_id
+
+        s, p = max_slots, self.pages_per_slot
+        self._page_table = np.zeros((s, p), np.int32)
+        self._seq_lens = np.zeros((s,), np.int32)
+        self._last_tokens = np.full((s,), pad_token_id, np.int32)
+        self._n_generated = np.zeros((s,), np.int32)
+        self._budgets = np.zeros((s,), np.int32)
+        self._active = np.zeros((s,), bool)
+        self._temps = np.ones((s,), np.float32)
+        self._top_ps = np.ones((s,), np.float32)
+        self._top_ks = np.zeros((s,), np.int32)
+        self._stop_table = np.full((s, MAX_STOP_TOKENS), -1, np.int32)
+        self._slots: list[_SlotInfo | None] = [None] * s
+        # per-slot admission generation: an emission recorded against an
+        # older generation of a reused slot is dropped
+        self._slot_gen = np.zeros((s,), np.int64)
+
+        self.allocator = PageAllocator(self.num_pages)
+        self.prefix_cache = (PrefixCache(page_size, self.allocator.free)
+                             if enable_prefix_cache else None)
+        self._pools = decoder.make_paged_pools(
+            cfg, self.num_pages, page_size, dtype=self.kv_cache_dtype,
+            device=self.device)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+
+        self._queue: "queue.Queue[_Request]" = queue.Queue()
+        self._pending: collections.deque = collections.deque()
+        self._stop = threading.Event()
+        self._idle = threading.Event()
+        self._idle.set()
+        # serializes dispatches against in-place weight updates
+        self._pool_lock = threading.Lock()
+        self._loop_thread: threading.Thread | None = None
+
+        self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        self.admit_wave = max(1, int(admit_wave if admit_wave is not None
+                                     else self.ADMIT_WAVE))
+        self.admit_reorder_window = max(0, int(admit_reorder_window))
+        self.group_share = bool(group_share)
+        self.prefill_dispatches = 0
+        self.sibling_attach_dispatches = 0
+        self.group_forked_requests = 0
+        self._group_prerefs: dict[str, dict] = {}
+        self.group_preref_ttl_s = float(
+            group_preref_ttl_s if group_preref_ttl_s is not None
+            else self.GROUP_PREREF_TTL_S)
+        # shared-prefix decode groups: group_id -> {"n_pre", "pages",
+        # "slots"}; loop thread only
+        self.decode_group_share = bool(decode_group_share)
+        self._decode_groups: dict[str, dict] = {}
+        self._slot_decode_gid: dict[int, str] = {}
+        self.grouped_decode_dispatches = 0
+        self.decode_dispatches = 0
+
+        self.weight_version = 0
+        self.num_running = 0
+        self.num_queued = 0
+        self.last_gen_throughput = 0.0
+        self.total_tokens_served = 0
+        self._tok_window: collections.deque = collections.deque(maxlen=64)
+        self._tput_ewma = ThroughputEWMA()
+
+    # -- submission API (server-facing) -------------------------------------
+
+    def submit(self, rid: str, input_ids: list[int], sampling: SamplingParams,
+               out: queue.Queue | None = None, abort=None,
+               group_id: str = "", group_size: int = 0) -> queue.Queue:
+        out = out if out is not None else queue.Queue()
+        self._queue.put(_Request(rid, list(input_ids), sampling, out, abort,
+                                 time.monotonic(), group_id=str(group_id),
+                                 group_size=int(group_size)))
+        self.num_queued = self._queue.qsize() + len(self._pending)
+        return out
+
+    def start(self) -> "CBEngine":
+        if self._loop_thread is None:
+            self._stop.clear()
+            self._loop_thread = threading.Thread(
+                target=self._loop, name="cb-engine-loop", daemon=True)
+            self._loop_thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop and join the loop thread; every in-flight and queued request
+        gets a terminal line (in-flight ones end in an ``abort`` partial,
+        as the JAX engine's salvage default does) and ``STREAM_END``."""
+        self._stop.set()
+        if self._loop_thread is not None:
+            self._loop_thread.join(timeout=60.0)
+            if self._loop_thread.is_alive():
+                raise RuntimeError("engine loop thread did not stop")
+            self._loop_thread = None
+        with self._pool_lock:
+            self._fail_all("engine shutdown", finish_reason="abort")
+            self._decode_groups.clear()
+            self._slot_decode_gid.clear()
+            if self.prefix_cache is not None:
+                self._disband_group_prerefs()
+                self.prefix_cache.flush()
+        self._drain_queue()
+        while self._pending:
+            self._emit_error(self._pending.popleft(), "engine shutdown")
+
+    # -- weights -------------------------------------------------------------
+
+    def update_weights(self, params: dict, version: int | None = None) -> None:
+        """Copy ``params`` into the engine's tensors in place (same names,
+        shapes; any device/dtype) and bump ``weight_version``. Runs between
+        dispatches (under the dispatch lock) and flushes the prefix cache:
+        cached KV belongs to the old weights."""
+        new = dict(_leaves(params))
+        cur = dict(_leaves(self.params))
+        if new.keys() != cur.keys() or any(
+                tuple(new[k].shape) != tuple(cur[k].shape) for k in cur):
+            raise ValueError("update_weights: parameter names/shapes differ "
+                             "from the engine's")
+        with self._pool_lock, torch.no_grad():
+            for k, dst in cur.items():
+                dst.copy_(new[k])
+            self.weight_version = (self.weight_version + 1 if version is None
+                                   else int(version))
+            if self.prefix_cache is not None:
+                self._disband_group_prerefs()
+                self.prefix_cache.flush()
+
+    def flush_prefix_cache(self) -> None:
+        with self._pool_lock:
+            if self.prefix_cache is not None:
+                self._disband_group_prerefs()
+                self.prefix_cache.flush()
+
+    # -- engine loop ---------------------------------------------------------
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self._loop_iter()
+            except Exception:  # noqa: BLE001 — a dead loop wedges every
+                # connected HTTP handler; fail the running requests instead
+                log.exception("engine iteration failed; failing active requests")
+                self._recover()
+
+    def _loop_iter(self) -> None:
+        self._drain_queue()
+        if not self._pending and not self._active.any():
+            self._idle.set()
+            try:
+                self._pending.append(self._queue.get(timeout=0.05))
+            except queue.Empty:
+                pass
+            return
+        self._idle.clear()
+        with self._pool_lock:
+            self._admit()
+            if self._active.any():
+                self._step_once()
+            elif self._pending:
+                time.sleep(0.005)  # pending but blocked on pages/slots
+
+    def _recover(self) -> None:
+        """After a failed iteration: error every running request and
+        release its pages. The pools are updated in place (nothing was
+        donated), so they stay valid for the next admissions."""
+        with self._pool_lock:
+            self._fail_all("engine error")
+            self._decode_groups.clear()
+            self._slot_decode_gid.clear()
+            if self.prefix_cache is not None:
+                self._disband_group_prerefs()
+                self.prefix_cache.flush()
+
+    def _drain_queue(self) -> None:
+        while True:
+            try:
+                self._pending.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        self.num_queued = len(self._pending)
+
+    # -- admission -------------------------------------------------------------
+
+    def _admit(self) -> None:
+        self._sweep_group_prerefs()
+        while self._pending:
+            wave, kind = self._collect_wave()
+            if not wave:
+                break
+            try:
+                if kind == "attach" and len(wave) > 1:
+                    self._prefill_attach_wave(wave)
+                elif len(wave) == 1:
+                    req, slot, pages, budget, mp, me = wave[0]
+                    self._prefill_request(slot, req, pages, budget, mp, me)
+                else:
+                    self._prefill_wave(wave)
+                self.prefill_dispatches += 1
+            except Exception:
+                for req, slot, pages, _b, _mp, me in wave:
+                    if self._slots[slot] is not None and self._slots[slot].req is req:
+                        continue  # admitted before the failure: _recover owns it
+                    self.allocator.free(pages)
+                    if self.prefix_cache is not None:
+                        self.prefix_cache.release(me)
+                    self._emit_error(req, "prefill failed")
+                raise
+        self.num_queued = len(self._pending)
+
+    def _collect_wave(self) -> tuple[list, str]:
+        """Collect up to ``admit_wave`` admissible requests, reserving a slot
+        and pages for each: (req, slot, pages, budget, matched_pages,
+        matched_entries), plus the wave kind — ``"fresh"`` (no cached
+        prefix: one batched full-prompt prefill) or ``"attach"`` (every
+        member a FULL prefix hit with the same prefix page count, e.g. the
+        GRPO siblings of a published prompt: one batched suffix prefill).
+
+        A head that cannot join the forming wave is skipped, up to
+        ``admit_reorder_window`` skips; page exhaustion ends the scan."""
+        wave: list = []
+        kind = "fresh"
+        attach_len = -1
+        assigned: set[int] = set()
+        wave_page_keys: set = set()
+        skipped = 0
+        scan = 0
+        while len(wave) < self.admit_wave and scan < len(self._pending):
+            free = [int(i) for i in np.flatnonzero(
+                        ~self._active & np.asarray(
+                            [s is None for s in self._slots]))
+                    if int(i) not in assigned]
+            if not free:
+                break
+            req = self._pending[scan]
+            if req.abort is not None and req.abort.is_set():
+                del self._pending[scan]
+                self._emit_abort(req)
+                self._consume_group_preref(req)
+                continue
+            n_prompt = len(req.input_ids)
+            if n_prompt == 0 or n_prompt > min(self.max_seq_len - 1,
+                                               self.prompt_buckets[-1]):
+                del self._pending[scan]
+                self._emit_error(req, f"prompt length {n_prompt} unsupported")
+                self._consume_group_preref(req)
+                continue
+            budget = min(req.sampling.max_new_tokens,
+                         self.max_seq_len - n_prompt)
+            n_pages = -(-(n_prompt + budget) // self.page_size)
+            n_full = max(0, (n_prompt - 1) // self.page_size)
+            matched_pages: list[int] = []
+            matched_entries: list = []
+            first_key = None
+            if self.prefix_cache is not None:
+                matched_pages, matched_entries = self.prefix_cache.match(
+                    req.input_ids)
+                if n_full > 0:
+                    first_key = self.prefix_cache._keys_for(req.input_ids, 1)[0]
+            full_hit = bool(matched_pages) and len(matched_pages) == n_full
+            # sibling wait: the prompt's first full page is being computed
+            # by a request already in this wave (siblings of an unpublished
+            # leader) — admitting it now would recompute the shared prefix
+            blocked = (not matched_pages and first_key is not None
+                       and first_key in wave_page_keys)
+            if wave:
+                if kind == "attach":
+                    blocked = blocked or not (
+                        full_hit and len(matched_pages) == attach_len)
+                else:
+                    blocked = blocked or bool(matched_pages)
+            if blocked:
+                if self.prefix_cache is not None:
+                    self.prefix_cache.release(matched_entries)
+                if skipped >= self.admit_reorder_window:
+                    break
+                skipped += 1
+                scan += 1
+                continue
+            pages = self._try_alloc(n_pages - len(matched_pages),
+                                    matched_entries)
+            if pages is None:
+                break  # pages exhausted: wait (no skip — alloc fairness)
+            del self._pending[scan]
+            slot = free[0]
+            assigned.add(slot)
+            if self.prefix_cache is not None:
+                self.prefix_cache.note_request(bool(matched_pages))
+            if not wave and matched_pages:
+                if full_hit and self.group_share:
+                    kind, attach_len = "attach", len(matched_pages)
+                else:
+                    # partial hit (or sharing disabled): singleton suffix
+                    wave.append((req, slot, pages, budget, matched_pages,
+                                 matched_entries))
+                    break
+            if not matched_pages and first_key is not None:
+                wave_page_keys.add(first_key)
+            wave.append((req, slot, pages, budget, matched_pages,
+                         matched_entries))
+        return wave, kind
+
+    def _try_alloc(self, need: int, matched_entries: list):
+        pages = self.allocator.alloc(need)
+        if pages is None and self.prefix_cache is not None:
+            if self.prefix_cache.evict(need - self.allocator.free_count):
+                pages = self.allocator.alloc(need)
+            if pages is None:
+                self.prefix_cache.release(matched_entries)
+        return pages
+
+    # -- prefill dispatches ------------------------------------------------------
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _prefill_dispatch(self, reqs: list[_Request], ids, lens, page_ids,
+                          prefix_len: int = 0, prefix_ids=None):
+        """One batched prefill (fresh, or suffix over cached prefix pages)
+        plus first-token sampling. Returns host (tokens, logprobs)."""
+        params, cfg, pools = self.params, self.cfg, self._pools
+        if prefix_ids is None:
+            _, last = decoder.prefill_batch_into_pages(
+                params, cfg, self._tensor(ids), self._tensor(lens), pools,
+                self._tensor(page_ids))
+        else:
+            _, last = decoder.prefill_suffix_batch_into_pages(
+                params, cfg, self._tensor(ids), self._tensor(lens), prefix_len,
+                pools, self._tensor(prefix_ids), self._tensor(page_ids))
+        sps = [r.sampling for r in reqs]
+        token, logp = sample_token_vec(
+            last, self._gen,
+            self._tensor(np.array([sp.temperature for sp in sps], np.float32)),
+            self._tensor(np.array([sp.top_p for sp in sps], np.float32)),
+            self._tensor(np.array([sp.top_k for sp in sps], np.int32)),
+            use_filters=any(sp.top_p < 1.0 or sp.top_k > 0 for sp in sps))
+        return token.cpu().numpy(), logp.cpu().numpy()
+
+    def _stops_row(self, sp: SamplingParams) -> np.ndarray:
+        stops = np.full((MAX_STOP_TOKENS,), -1, np.int32)
+        for i, t in enumerate(sp.stop_token_ids[:MAX_STOP_TOKENS]):
+            stops[i] = t
+        return stops
+
+    def _page_row(self, pages: list[int]) -> np.ndarray:
+        row = np.zeros((self.pages_per_slot,), np.int32)
+        row[:len(pages)] = pages
+        return row
+
+    def _install_slot(self, slot: int, req: _Request, row: np.ndarray,
+                      budget: int, private: list[int], entries: list) -> None:
+        """Host mirrors + slot record of a freshly prefilled request (its
+        first token is emitted right after by ``_emit_prefill``)."""
+        sp = req.sampling
+        self._page_table[slot] = row
+        self._seq_lens[slot] = len(req.input_ids)
+        self._last_tokens[slot] = self.pad_token_id
+        self._n_generated[slot] = 1
+        self._budgets[slot] = budget
+        self._active[slot] = True
+        self._temps[slot] = sp.temperature
+        self._top_ps[slot] = sp.top_p
+        self._top_ks[slot] = sp.top_k
+        self._stop_table[slot] = self._stops_row(sp)
+        self._slots[slot] = _SlotInfo(req, list(private), set(sp.stop_token_ids),
+                                      cache_entries=list(entries),
+                                      admit_version=self.weight_version)
+        self._slot_gen[slot] += 1
+
+    def _publish(self, req: _Request, all_pages: list[int], pages: list[int],
+                 n_cached: int, matched_entries: list) -> tuple[list, list]:
+        """Publish the prompt's freshly computed full pages; returns (the
+        slot-private pages, the slot's cache refs)."""
+        if self.prefix_cache is None:
+            return list(pages), list(matched_entries)
+        published = self.prefix_cache.publish(
+            req.input_ids, all_pages, n_cached=n_cached,
+            matched_entries=matched_entries)
+        pub_pages = {e.page for _, e in published}
+        return ([p for p in pages if p not in pub_pages],
+                list(matched_entries) + [e for _, e in published])
+
+    def _prefill_request(self, slot: int, req: _Request, pages: list[int],
+                         budget: int, matched_pages: list[int] | None = None,
+                         matched_entries: list | None = None) -> None:
+        """Singleton admission: a fresh prompt, or the suffix of a (partial
+        or full) prefix-cache hit attending over the matched pages."""
+        matched_pages = matched_pages or []
+        matched_entries = list(matched_entries or [])
+        n_prompt = len(req.input_ids)
+        prefix_len = len(matched_pages) * self.page_size
+        all_pages = matched_pages + pages
+        suffix_len = n_prompt - prefix_len
+        pb = next_bucket(suffix_len, self.prompt_buckets)
+        n_sfx = -(-suffix_len // self.page_size)
+        page_ids = np.zeros((1, pb // self.page_size), np.int32)
+        page_ids[0, :n_sfx] = pages[:n_sfx]
+        ids = np.full((1, pb), self.pad_token_id, np.int32)
+        ids[0, :suffix_len] = req.input_ids[prefix_len:]
+        tok, lp = self._prefill_dispatch(
+            [req], ids, np.array([suffix_len], np.int32), page_ids,
+            prefix_len=prefix_len,
+            prefix_ids=(np.asarray([matched_pages], np.int32)
+                        if matched_pages else None))
+        private, entries = self._publish(req, all_pages, pages,
+                                         len(matched_pages), matched_entries)
+        self._consume_group_preref(req)
+        self._register_group_prerefs(req, entries)
+        row = self._page_row(all_pages)
+        self._register_decode_group(
+            req, slot, max(0, (n_prompt - 1) // self.page_size), row)
+        self._install_slot(slot, req, row, budget, private, entries)
+        self._emit_prefill(slot, int(tok[0]), float(lp[0]))
+
+    def _prefill_wave(self, wave: list) -> None:
+        """Batched fresh admission: ONE forward prefills every prompt."""
+        pb = next_bucket(max(len(r.input_ids) for r, *_ in wave),
+                         self.prompt_buckets)
+        b = len(wave)
+        ids = np.full((b, pb), self.pad_token_id, np.int32)
+        lens = np.zeros((b,), np.int32)
+        page_ids = np.zeros((b, pb // self.page_size), np.int32)
+        for j, (req, _slot, pages, *_rest) in enumerate(wave):
+            n_prompt = len(req.input_ids)
+            n_pp = -(-n_prompt // self.page_size)
+            ids[j, :n_prompt] = req.input_ids
+            lens[j] = n_prompt
+            page_ids[j, :n_pp] = pages[:n_pp]
+        tok, lp = self._prefill_dispatch([w[0] for w in wave], ids, lens,
+                                         page_ids)
+        for j, (req, slot, pages, budget, _mp, _me) in enumerate(wave):
+            private, entries = self._publish(req, pages, pages, 0, [])
+            self._consume_group_preref(req)
+            self._register_group_prerefs(req, entries)
+            row = self._page_row(pages)
+            # leader seat: its first full prompt pages ARE the chain the
+            # siblings will attach to (publish keeps the ids)
+            self._register_decode_group(
+                req, slot, max(0, (len(req.input_ids) - 1) // self.page_size),
+                row)
+            self._install_slot(slot, req, row, budget, private, entries)
+            self._emit_prefill(slot, int(tok[j]), float(lp[j]))
+
+    def _prefill_attach_wave(self, wave: list) -> None:
+        """Batched sibling attach: every member is a FULL prefix hit with
+        the same prefix page count; one suffix forward admits them all.
+        Full hits publish nothing, so their pages stay slot-private and
+        their cache refs are exactly the ``match()`` entries."""
+        attach_pages = len(wave[0][4])
+        prefix_len = attach_pages * self.page_size
+        pb = next_bucket(max(len(r.input_ids) - prefix_len for r, *_ in wave),
+                         self.prompt_buckets)
+        b = len(wave)
+        ids = np.full((b, pb), self.pad_token_id, np.int32)
+        lens = np.zeros((b,), np.int32)
+        page_ids = np.zeros((b, pb // self.page_size), np.int32)
+        prefix_ids = np.zeros((b, attach_pages), np.int32)
+        for j, (req, _slot, pages, _b, mp, _me) in enumerate(wave):
+            sfx = len(req.input_ids) - prefix_len
+            ids[j, :sfx] = req.input_ids[prefix_len:]
+            lens[j] = sfx
+            n_sfx = -(-sfx // self.page_size)
+            page_ids[j, :n_sfx] = pages[:n_sfx]
+            prefix_ids[j] = mp
+        tok, lp = self._prefill_dispatch([w[0] for w in wave], ids, lens,
+                                         page_ids, prefix_len=prefix_len,
+                                         prefix_ids=prefix_ids)
+        for j, (req, slot, pages, budget, mp, me) in enumerate(wave):
+            self._consume_group_preref(req)
+            row = self._page_row(mp + pages)
+            # sibling seat: the matched pages are the leader's chain
+            self._register_decode_group(req, slot, attach_pages, row)
+            self._install_slot(slot, req, row, budget, pages, me)
+            self._emit_prefill(slot, int(tok[j]), float(lp[j]))
+        self.sibling_attach_dispatches += 1
+        self.group_forked_requests += len(wave)
+
+    # -- group-shared prefill pre-refs ---------------------------------------
+
+    def _register_group_prerefs(self, req: _Request, entries: list) -> None:
+        """After a group leader's prompt pages publish, pre-take
+        ``group_size - 1`` refs on the chain so pool-pressure eviction can't
+        reclaim the shared prefix before the siblings attach."""
+        if (not self.group_share or self.prefix_cache is None
+                or not req.group_id or req.group_size <= 1 or not entries
+                or req.group_id in self._group_prerefs):
+            return
+        n = req.group_size - 1
+        self.prefix_cache.retain(entries, n)
+        self._group_prerefs[req.group_id] = {
+            "entries": list(entries), "remaining": n, "t": time.monotonic()}
+
+    def _consume_group_preref(self, req: _Request) -> None:
+        """One group member accounted for (admitted, aborted or refused):
+        drop one pre-ref unit on the group's chain."""
+        if not req.group_id:
+            return
+        g = self._group_prerefs.get(req.group_id)
+        if g is None:
+            return
+        if self.prefix_cache is not None:
+            self.prefix_cache.release(g["entries"])
+        g["remaining"] -= 1
+        if g["remaining"] <= 0:
+            del self._group_prerefs[req.group_id]
+
+    def _sweep_group_prerefs(self) -> None:
+        """Expire pre-refs of groups whose siblings never arrived."""
+        now = time.monotonic()
+        for gid in [g for g, v in self._group_prerefs.items()
+                    if now - v["t"] > self.group_preref_ttl_s]:
+            g = self._group_prerefs.pop(gid)
+            if self.prefix_cache is not None:
+                for _ in range(max(0, g["remaining"])):
+                    self.prefix_cache.release(g["entries"], cause="preref_ttl")
+
+    def _disband_group_prerefs(self) -> None:
+        """Release every outstanding pre-ref (before any cache flush)."""
+        for g in self._group_prerefs.values():
+            if self.prefix_cache is not None:
+                for _ in range(max(0, g["remaining"])):
+                    self.prefix_cache.release(g["entries"])
+        self._group_prerefs.clear()
+
+    # -- shared-prefix decode groups -----------------------------------------
+
+    def _register_decode_group(self, req: _Request, slot: int,
+                               n_pre_pages: int, prefix_pages) -> None:
+        """Seat ``slot`` in its GRPO group's decode-sharing table, only when
+        its leading page-table columns are the group's exact physical
+        prefix chain (a member re-prefilled onto fresh pages after a cache
+        flush decodes solo, still correctly)."""
+        if (not self.decode_group_share or not self.group_share
+                or self.prefix_cache is None or not req.group_id
+                or req.group_size <= 1 or n_pre_pages <= 0):
+            return
+        pages_t = tuple(int(p) for p in list(prefix_pages)[:n_pre_pages])
+        if len(pages_t) < n_pre_pages:
+            return
+        g = self._decode_groups.get(req.group_id)
+        if g is None or not g["slots"]:
+            g = {"n_pre": int(n_pre_pages), "pages": pages_t, "slots": set()}
+            self._decode_groups[req.group_id] = g
+        if g["n_pre"] != n_pre_pages or g["pages"] != pages_t:
+            return
+        g["slots"].add(slot)
+        self._slot_decode_gid[slot] = req.group_id
+
+    def _drop_decode_seat(self, slot: int) -> None:
+        gid = self._slot_decode_gid.pop(slot, None)
+        if gid is None:
+            return
+        g = self._decode_groups.get(gid)
+        if g is not None:
+            g["slots"].discard(slot)
+            if not g["slots"]:
+                del self._decode_groups[gid]
+
+    def _decode_group_pack(self):
+        """This dispatch's decode-group tables (group_slots [NG, G] with -1
+        empty seats, prefix pages [NG, P_pre], prefix token counts [NG]),
+        or None when no group has >= 2 active members. Every dimension is
+        bucketed to a power of two, as in the JAX engine."""
+        if not self.decode_group_share:
+            return None
+        rows = []
+        for g in self._decode_groups.values():
+            live = sorted(s for s in g["slots"] if self._active[s])
+            if len(live) >= 2:
+                rows.append((live, g["n_pre"], g["pages"]))
+        if not rows:
+            return None
+        ng = _pow2(len(rows))
+        gmax = _pow2(max(len(r[0]) for r in rows))
+        p_pre = _pow2(max(r[1] for r in rows))
+        g_slots = np.full((ng, gmax), -1, np.int32)
+        g_pages = np.zeros((ng, p_pre), np.int32)
+        g_lens = np.zeros((ng,), np.int32)
+        for i, (live, n_pre, pages) in enumerate(rows):
+            g_slots[i, :len(live)] = live
+            g_pages[i, :n_pre] = pages[:n_pre]
+            g_lens[i] = n_pre * self.page_size
+        return g_slots, g_pages, g_lens
+
+    # -- decode --------------------------------------------------------------
+
+    def _step_once(self) -> None:
+        if any(info is not None and self._active[i]
+               and info.req.abort is not None and info.req.abort.is_set()
+               for i, info in enumerate(self._slots)):
+            self._abort_flagged()
+        if not self._active.any():
+            return
+        use_filters = bool(np.any((self._top_ps[self._active] < 1.0)
+                                  | (self._top_ks[self._active] > 0)))
+        tables = self._decode_group_pack()
+        idxs = [(int(i), int(self._slot_gen[i]))
+                for i in np.flatnonzero(self._active)]
+        token, logp, done = self._decode_dispatch(use_filters, tables)
+        self.decode_dispatches += 1
+        if tables is not None:
+            self.grouped_decode_dispatches += 1
+        self._emit_fetched(token, logp, done, idxs)
+
+    def _decode_dispatch(self, use_filters: bool, tables):
+        """``steps_per_dispatch`` fused decode steps with the state advanced
+        on the device (the JAX ``_get_step`` scan body). Slots that finish
+        mid-dispatch go inactive: their later rows carry pad tokens and
+        their KV writes go to the null page. Returns host [k, S] arrays."""
+        t = self._tensor
+        params, cfg, pad = self.params, self.cfg, self.pad_token_id
+        page_table = t(self._page_table)
+        seq_lens = t(self._seq_lens)
+        last = t(self._last_tokens)
+        n_gen = t(self._n_generated)
+        budgets = t(self._budgets)
+        active = t(self._active)
+        temps, top_ps, top_ks = t(self._temps), t(self._top_ps), t(self._top_ks)
+        stop_table = t(self._stop_table)
+        attn = None  # forward_paged_decode's default: paged_attention
+        if tables is not None:
+            g_slots, g_pages, g_lens = (t(a) for a in tables)
+
+            def attn(q, kp, vp, pt, lens):
+                return grouped_paged_attention(q, kp, vp, pt, lens, g_slots,
+                                               g_pages, g_lens)
+        toks, lps, dones = [], [], []
+        for _ in range(self.steps_per_dispatch):
+            logits, _ = decoder.forward_paged_decode(
+                params, cfg, last, seq_lens, self._pools, page_table, seq_lens,
+                attn_fn=attn, active=active)
+            token, logp = sample_token_vec(logits, self._gen, temps, top_ps,
+                                           top_ks, use_filters=use_filters)
+            n_gen = n_gen + active.int()
+            hit_stop = (token[:, None] == stop_table).any(dim=-1)
+            done = active & (hit_stop | (n_gen >= budgets))
+            token = torch.where(active, token, pad)
+            logp = torch.where(active, logp, 0.0)
+            seq_lens = seq_lens + active.int()
+            last = torch.where(active, token, last)
+            active = active & ~done
+            toks.append(token)
+            lps.append(logp)
+            dones.append(done)
+        return (torch.stack(toks).cpu().numpy(), torch.stack(lps).cpu().numpy(),
+                torch.stack(dones).cpu().numpy())
+
+    def _abort_flagged(self) -> None:
+        """Abort every active slot whose request's abort event is set: the
+        terminal ``abort`` line, then the slot's pages go back."""
+        for i, info in enumerate(self._slots):
+            if info is None or not self._active[i]:
+                continue
+            if info.req.abort is not None and info.req.abort.is_set():
+                self._active[i] = False
+                self._slot_gen[i] += 1
+                try:
+                    self._finalize(i)
+                finally:
+                    self._emit_abort(info.req)
+        self.num_running = int(self._active.sum())
+
+    # -- emission ------------------------------------------------------------
+
+    def _emit_prefill(self, slot: int, t: int, lp: float) -> None:
+        """Deliver an admitted request's first token."""
+        info = self._slots[slot]
+        stop_hit = t in info.stop_set
+        fin = bool(stop_hit or self._budgets[slot] <= 1)
+        reason = "stop" if stop_hit else ("length" if fin else "")
+        info.req.out.put({"token_ids": [t], "logprobs": [lp],
+                          "finished": fin, "finish_reason": reason,
+                          "weight_version": self.weight_version})
+        self._last_tokens[slot] = t
+        info.emitted.append(t)
+        self._count_tokens(1)
+        if fin:
+            self._active[slot] = False
+            try:
+                self._finalize(slot)
+            finally:
+                info.req.out.put(STREAM_END)
+        self.num_running = int(self._active.sum())
+
+    def _emit_fetched(self, token, logp, done, idxs) -> None:
+        """Stream one dispatch's [k, S] rows to the requests. Slots that
+        finished in an earlier row (the pad tail) and reused slots
+        (generation mismatch) are skipped."""
+        n_emitted = 0
+        finished: list[int] = []
+        for r in range(token.shape[0]):
+            for i, gen in idxs:
+                info = self._slots[i]
+                if info is None or not self._active[i] or self._slot_gen[i] != gen:
+                    continue
+                t = int(token[r, i])
+                # the host check is authoritative: stop tokens beyond the
+                # MAX_STOP_TOKENS device table finish here too
+                fin = bool(done[r, i]) or t in info.stop_set
+                reason = ""
+                if fin:
+                    reason = "stop" if t in info.stop_set else "length"
+                info.req.out.put({"token_ids": [t],
+                                  "logprobs": [float(logp[r, i])],
+                                  "finished": fin, "finish_reason": reason,
+                                  "weight_version": self.weight_version})
+                n_emitted += 1
+                self._seq_lens[i] += 1
+                self._last_tokens[i] = t
+                self._n_generated[i] += 1
+                info.emitted.append(t)
+                if fin:
+                    self._active[i] = False
+                    finished.append(i)
+        self._count_tokens(n_emitted)
+        for i in finished:
+            info = self._slots[i]
+            try:
+                self._finalize(i)
+            finally:
+                info.req.out.put(STREAM_END)
+        self.num_running = int(self._active.sum())
+
+    def _finalize(self, slot: int) -> None:
+        self._drop_decode_seat(slot)
+        info = self._slots[slot]
+        if info is not None:
+            self.allocator.free(info.pages)
+            if self.prefix_cache is not None and info.cache_entries:
+                self.prefix_cache.release(info.cache_entries)
+        self._slots[slot] = None
+        self._page_table[slot] = 0
+        self._seq_lens[slot] = 0
+        self._last_tokens[slot] = self.pad_token_id
+        self._n_generated[slot] = 0
+        self._budgets[slot] = 0
+
+    def _emit_abort(self, req: _Request) -> None:
+        req.out.put({"token_ids": [], "logprobs": [], "finished": True,
+                     "finish_reason": "abort"})
+        req.out.put(STREAM_END)
+
+    def _emit_error(self, req: _Request, msg: str) -> None:
+        req.out.put({"token_ids": [], "logprobs": [], "finished": True,
+                     "finish_reason": "error", "error": msg})
+        req.out.put(STREAM_END)
+
+    def _fail_all(self, msg: str, finish_reason: str = "error") -> None:
+        for i in np.flatnonzero(self._active):
+            info = self._slots[i]
+            self._active[i] = False
+            try:
+                self._finalize(i)
+            finally:
+                if info is not None:
+                    if finish_reason == "abort":
+                        self._emit_abort(info.req)
+                    else:
+                        self._emit_error(info.req, msg)
+        self.num_running = 0
+
+    def _count_tokens(self, n: int) -> None:
+        self.total_tokens_served += n
+        now = time.monotonic()
+        self._tok_window.append((now, n))
+        horizon = now - 10.0
+        toks = sum(c for t, c in self._tok_window if t >= horizon)
+        t_old = min((t for t, _ in self._tok_window if t >= horizon),
+                    default=now)
+        # a rate over a sub-0.2 s burst is meaningless: only update over a
+        # meaningful span
+        if now - t_old >= 0.2:
+            self.last_gen_throughput = self._tput_ewma.update(
+                toks / (now - t_old), now)
+
+    # -- convenience (tests / bench) ----------------------------------------
+
+    def generate(self, prompt_ids: list[list[int]], sampling: SamplingParams,
+                 timeout: float = 300.0) -> list[dict]:
+        """Submit all, start the loop if needed, collect full sequences:
+        per-prompt dicts with token_ids / logprobs / weight_versions /
+        finish_reason."""
+        outs = [self.submit(f"gen-{i}", p, sampling)
+                for i, p in enumerate(prompt_ids)]
+        self.start()
+        results = []
+        deadline = time.monotonic() + timeout
+        for out_q in outs:
+            toks: list[int] = []
+            lps: list[float] = []
+            wvs: list[int] = []
+            reason = "error"
+            while True:
+                item = out_q.get(timeout=max(0.0, deadline - time.monotonic()))
+                if item is STREAM_END:
+                    break
+                toks.extend(item["token_ids"])
+                lps.extend(item["logprobs"])
+                wvs.extend([int(item.get("weight_version", -1))]
+                           * len(item["token_ids"]))
+                if item["finished"]:
+                    reason = item["finish_reason"]
+            results.append({"token_ids": toks, "logprobs": lps,
+                            "weight_versions": wvs, "finish_reason": reason})
+        return results

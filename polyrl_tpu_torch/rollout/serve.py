@@ -1,0 +1,117 @@
+"""Rollout server launcher: ``python -m polyrl_tpu_torch.rollout.serve``.
+
+Counterpart of ``polyrl_tpu/rollout/serve.py`` for the knobs this slice
+implements: a preset model random-initialised from ``--seed`` (no
+checkpoint loading yet), the paged continuous-batching engine and the
+HTTP server. Registration with the rollout manager and the weight
+receiver are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+
+import torch
+
+log = logging.getLogger(__name__)
+
+
+def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
+                  port: int = 0, advertise_host: str = "127.0.0.1",
+                  dtype: str = "bfloat16", seed: int = 0,
+                  prompt_buckets: tuple[int, ...] | None = None,
+                  model_overrides: dict | None = None,
+                  max_slots: int = 64, page_size: int = 64,
+                  max_seq_len: int = 16384, num_pages: int | None = None,
+                  steps_per_dispatch: int = 8,
+                  admit_wave: int | None = None,
+                  admit_reorder_window: int = 8,
+                  group_share: bool = True,
+                  decode_group_share: bool = True,
+                  group_preref_ttl_s: float | None = None):
+    """Build engine + server and start serving. ``device`` defaults to
+    ``"cuda"`` and raises when CUDA is absent; pass ``"cpu"`` explicitly to
+    serve from the CPU (tests)."""
+    from polyrl_tpu_torch.device import resolve_device
+    from polyrl_tpu_torch.models import decoder
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.server import RolloutServer
+
+    dev = resolve_device(device)
+    torch_dtype = getattr(torch, dtype)
+    cfg = decoder.get_config(model, dtype=torch_dtype, **(model_overrides or {}))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = decoder.init_params(gen, cfg)
+    engine = CBEngine(
+        cfg, params, pad_token_id=0, kv_cache_dtype=torch_dtype,
+        max_slots=max_slots, page_size=page_size, max_seq_len=max_seq_len,
+        num_pages=num_pages, steps_per_dispatch=steps_per_dispatch,
+        prompt_buckets=tuple(prompt_buckets) if prompt_buckets
+        else (128, 256, 512, 1024, 2048, 4096), seed=seed,
+        admit_wave=admit_wave, admit_reorder_window=admit_reorder_window,
+        group_share=group_share, decode_group_share=decode_group_share,
+        group_preref_ttl_s=group_preref_ttl_s, device=dev)
+    server = RolloutServer(engine, host=host, port=port,
+                           advertise_host=advertise_host)
+    return server.start()
+
+
+def main() -> None:
+    p = argparse.ArgumentParser(description="polyrl rollout server (PyTorch/CUDA)")
+    p.add_argument("--model", default="qwen3-1.7b")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=30000)
+    p.add_argument("--advertise-host", default="127.0.0.1")
+    p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--seed", type=int, default=0,
+                   help="random-init seed of the preset's weights")
+    p.add_argument("--max-slots", type=int, default=64)
+    p.add_argument("--page-size", type=int, default=64)
+    p.add_argument("--max-seq-len", type=int, default=16384)
+    p.add_argument("--num-pages", type=int, default=None,
+                   help="KV pool pages (default: half the slots at full length)")
+    p.add_argument("--steps-per-dispatch", type=int, default=8,
+                   help="fused decode steps per dispatch")
+    p.add_argument("--prompt-buckets", type=int, nargs="+", default=None,
+                   help="prompt-length padding buckets (default "
+                        "128 256 512 1024 2048 4096)")
+    p.add_argument("--admit-wave", type=int, default=None,
+                   help="max admissions fused into one batched prefill (default 8)")
+    p.add_argument("--admit-reorder-window", type=int, default=8,
+                   help="blocked queue heads admission may skip past while "
+                        "forming a wave (0 = strict FIFO)")
+    p.add_argument("--no-group-share", action="store_true",
+                   help="disable group-shared prefill (siblings admit alone)")
+    p.add_argument("--no-decode-group-share", action="store_true",
+                   help="disable shared-prefix grouped decode attention")
+    p.add_argument("--group-preref-ttl-s", type=float, default=None,
+                   help="sibling-wait pre-ref expiry (default 30)")
+    args = p.parse_args()
+
+    logging.basicConfig(level=logging.INFO)
+    server = create_server(
+        args.model, device=args.device, host=args.host, port=args.port,
+        advertise_host=args.advertise_host, dtype=args.dtype, seed=args.seed,
+        prompt_buckets=args.prompt_buckets, max_slots=args.max_slots,
+        page_size=args.page_size, max_seq_len=args.max_seq_len,
+        num_pages=args.num_pages, steps_per_dispatch=args.steps_per_dispatch,
+        admit_wave=args.admit_wave,
+        admit_reorder_window=args.admit_reorder_window,
+        group_share=not args.no_group_share,
+        decode_group_share=not args.no_decode_group_share,
+        group_preref_ttl_s=args.group_preref_ttl_s)
+    log.info("rollout server on %s (%s)", server.endpoint, server.engine.device)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        server.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,167 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions.
+
+These tests need the card and skip without one. The file imports neither
+JAX nor the JAX package, so it runs on a machine that has only PyTorch:
+
+    python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q
+
+(``--noconftest``: the suite's conftest sets up JAX). The case helper
+below is shared with ``test_torch_paged_attention.py``, which holds the
+plain versions against the JAX oracles on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from polyrl_tpu_torch.ops import paged_attention as tpa
+
+PAGE = 8
+
+
+def grouped_case(rng, groups=((4, 2, (3, 9, 1, 5)),), hkv=2, rep=2, d=16,
+                  ungrouped_lens=(11,), n_pool=128, page=PAGE):
+    """Pools + per-slot FULL page tables where each group's members share
+    one physical prefix chain followed by private suffix pages; ``groups``
+    is a tuple of (g, n_pre_pages, suffix_lens). The group table is
+    padded to powers of two with -1 seats, as the engine packs it."""
+    hq = hkv * rep
+    k_pool = rng.standard_normal((hkv, n_pool, page, d)).astype(np.float32)
+    v_pool = rng.standard_normal((hkv, n_pool, page, d)).astype(np.float32)
+    free = list(range(1, n_pool))
+    rng.shuffle(free)
+    rows, lens, seats, g_pages, g_lens = [], [], [], [], []
+    max_pre = max((n for _g, n, _s in groups), default=1)
+    max_pages = max_pre + 3
+    for g, n_pre, sfx_lens in groups:
+        pre = [free.pop() for _ in range(n_pre)]
+        seat_row = []
+        for i in range(g):
+            sfx = sfx_lens[i % len(sfx_lens)]
+            own = [free.pop() for _ in range(-(-sfx // page))]
+            row = np.zeros((max_pages,), np.int32)
+            row[:n_pre] = pre
+            row[n_pre:n_pre + len(own)] = own
+            seat_row.append(len(rows))
+            rows.append(row)
+            lens.append(n_pre * page + sfx)
+        seats.append(seat_row)
+        g_pages.append(pre)
+        g_lens.append(n_pre * page)
+    for ln in ungrouped_lens:
+        own = [free.pop() for _ in range(-(-ln // page))]
+        row = np.zeros((max_pages,), np.int32)
+        row[:len(own)] = own
+        rows.append(row)
+        lens.append(ln)
+
+    def pow2(n):
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    ng = pow2(max(1, len(seats)))
+    gmax = pow2(max((len(sr) for sr in seats), default=1))
+    group_slots = np.full((ng, gmax), -1, np.int32)
+    group_prefix_pages = np.zeros((ng, pow2(max_pre)), np.int32)
+    group_prefix_lens = np.zeros((ng,), np.int32)
+    for i, sr in enumerate(seats):
+        group_slots[i, :len(sr)] = sr
+        group_prefix_pages[i, :len(g_pages[i])] = g_pages[i]
+        group_prefix_lens[i] = g_lens[i]
+    q = rng.standard_normal((len(rows), hq, d)).astype(np.float32)
+    return (q, k_pool, v_pool, np.stack(rows), np.asarray(lens, np.int32),
+            group_slots, group_prefix_pages, group_prefix_lens)
+
+
+def _t(case, device):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in case]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_match_plain(cuda_device, dtype):
+    """Each kernel against its plain version at real head widths (D=128,
+    page 64): K1 bitwise; K2/K3 within 2e-5 in f32 (reduction order only)
+    and rtol 1e-2 / atol 2e-3 in bf16 (outputs are rounded to bf16 once:
+    one ulp is at most 2^-7 of the value)."""
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=2e-3))
+    rng = np.random.default_rng(11)
+    case = grouped_case(rng, groups=((8, 2, (3, 90, 1, 65)), (3, 1, (6, 2))),
+                        hkv=4, rep=2, d=128, ungrouped_lens=(11, 0, 130),
+                        page=64, n_pool=64)
+    case[5][0, 5] = -1  # a finished sibling's seat mid-row
+    case = _t(case, cuda_device)
+    for i in (0, 1, 2):
+        case[i] = case[i].to(dtype)
+    tpa.reset_launch_counts()
+    full = tpa.paged_attention(*case[:5])
+    grouped = tpa.grouped_paged_attention(*case)
+    torch.cuda.synchronize()
+    cpu = [a.cpu() for a in case]
+    torch.testing.assert_close(full.cpu().float(),
+                               tpa.paged_attention_ref(*cpu[:5]).float(), **tol)
+    torch.testing.assert_close(grouped.cpu().float(),
+                               tpa.grouped_paged_attention_ref(*cpu).float(),
+                               **tol)
+    torch.testing.assert_close(grouped.float(), full.float(), **tol)
+
+    kp, vp = case[1].clone(), case[2].clone()
+    s = case[0].shape[0]
+    page = torch.randperm(63, device=cuda_device)[:s].int() + 1
+    page[1] = 0  # two inactive slots routed to the null page
+    page[3] = 0
+    off = torch.randint(0, 64, (s,), device=cuda_device, dtype=torch.int32)
+    off[1] = off[3] = 0
+    ku = torch.randn((s, kp.shape[0], 128), device=cuda_device).to(dtype)
+    vu = torch.randn_like(ku)
+    ku[3], vu[3] = ku[1], vu[1]
+    tpa.paged_kv_write(kp, vp, page, off, ku, vu)
+    rk, rv = tpa.paged_kv_write_ref(case[1].clone(), case[2].clone(), page, off,
+                                    ku, vu)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, rk) and torch.equal(vp, rv)
+    assert tpa.LAUNCHES == {"paged_kv_write": 1, "paged_attention": 1,
+                            "grouped_paged_attention": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_kernel_splits_wide_groups(cuda_device):
+    """A group of 20 members (32 seats after padding) at rep 4 stacks 128
+    query rows, which phase 1 spreads over blocks of at most 32 rows; the
+    result still equals the plain version and paged attention."""
+    rng = np.random.default_rng(12)
+    case = grouped_case(rng, groups=((20, 2, (3, 70, 1, 64)),), hkv=2, rep=4,
+                        d=128, ungrouped_lens=(5,), page=64, n_pool=64)
+    case = _t(case, cuda_device)
+    grouped = tpa.grouped_paged_attention(*case)
+    full = tpa.paged_attention(*case[:5])
+    torch.cuda.synchronize()
+    cpu = [a.cpu() for a in case]
+    tol = dict(rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(grouped.cpu(),
+                               tpa.grouped_paged_attention_ref(*cpu), **tol)
+    torch.testing.assert_close(grouped, full, **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
+    q = torch.zeros((2, 4, 48), device=cuda_device)  # D not a multiple of 32
+    pool = torch.zeros((2, 4, 64, 48), device=cuda_device)
+    pt = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    lens = torch.ones((2,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        tpa.paged_attention(q, pool, pool, pt, lens)
+    q16 = torch.zeros((2, 4, 64), device=cuda_device, dtype=torch.float16)
+    pool16 = torch.zeros((2, 4, 64, 64), device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError):  # no kernel is built for float16
+        tpa.paged_attention(q16, pool16, pool16, pt, lens)

@@ -1,0 +1,113 @@
+"""The port's HTTP rollout server on the CPU: /generate NDJSON round trip
+with GRPO group hints, /health, /get_server_info, /abort_request, and a
+clean stop."""
+
+import http.client
+import json
+import threading
+
+import pytest
+import torch
+
+from polyrl_tpu_torch.rollout.serve import create_server
+
+
+def _post(port, path, body, timeout=120):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request("POST", path, json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data
+
+
+def _get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    out = resp.status, json.loads(resp.read())
+    conn.close()
+    return out
+
+
+def _generate(port, body):
+    status, data = _post(port, "/generate", body)
+    assert status == 200
+    lines = [json.loads(x) for x in data.decode().splitlines() if x.strip()]
+    toks = [t for ln in lines for t in ln["token_ids"]]
+    return toks, lines
+
+
+@pytest.fixture
+def server():
+    srv = create_server("tiny", device="cpu", host="127.0.0.1", port=0,
+                        dtype="float32", max_slots=8, page_size=8,
+                        max_seq_len=96, num_pages=128, prompt_buckets=(16, 32),
+                        steps_per_dispatch=2)
+    yield srv
+    srv.stop()
+
+
+def test_generate_round_trip_with_group_hints(server):
+    port = server.port
+    assert _get(port, "/health") == (200, {"status": "ok"})
+    assert _get(port, "/health_generate")[0] == 200
+    prompt = list(range(3, 24))
+    results = [None] * 4
+
+    def run(i):
+        results[i] = _generate(port, {
+            "rid": f"r{i}", "input_ids": prompt, "group_id": "grp",
+            "group_size": 4,
+            "sampling_params": {"temperature": 0.0, "max_new_tokens": 6}})
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    for toks, lines in results:
+        assert len(toks) == 6
+        assert toks == results[0][0]  # greedy: every sample identical
+        assert lines[-1]["finished"] and lines[-1]["finish_reason"] == "length"
+        assert all(len(ln["logprobs"]) == len(ln["token_ids"]) for ln in lines)
+        assert all(ln["weight_version"] == 0 for ln in lines)
+    status, info = _get(port, "/get_server_info")
+    assert status == 200
+    assert info["weight_version"] == 0 and info["num_running_reqs"] == 0
+    assert info["num_queued_reqs"] == 0 and "last_gen_throughput" in info
+    assert info["device"] == "cpu" and info["total_tokens_served"] == 24
+    assert info["group_forked_requests"] >= 1
+    # the CPU path runs the plain versions: no CUDA kernel launched
+    assert all(info[f"kernel_launches/{k}"] == 0 for k in (
+        "paged_kv_write", "paged_attention", "grouped_paged_attention"))
+    assert _post(port, "/flush_cache", {})[0] == 200
+    assert _post(port, "/abort_request", {"rid": "nobody"})[0] == 200
+
+
+def test_abort_request_ends_stream_with_abort(server):
+    port = server.port
+    out = {}
+
+    def run():
+        out["res"] = _generate(port, {
+            "rid": "long", "input_ids": list(range(5, 15)),
+            "sampling_params": {"temperature": 0.0, "max_new_tokens": 80}})
+
+    t = threading.Thread(target=run)
+    t.start()
+    while not server._aborts:
+        threading.Event().wait(0.01)
+    _post(port, "/abort_request", {"rid": ""})
+    t.join(timeout=120)
+    toks, lines = out["res"]
+    assert lines[-1]["finish_reason"] in ("abort", "length")
+    assert len(toks) <= 80
+
+
+def test_default_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_server("tiny", port=0)
