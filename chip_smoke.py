@@ -6,8 +6,8 @@
 Needs one CUDA device and ``nvcc``; exits non-zero and prints no result
 when CUDA is unavailable or any phase fails. Phases:
 
-1. build   -- compile every kernel of the serving path from ``csrc/``
-              (one nvcc per source, all started together).
+1. build   -- compile every kernel library from ``csrc/`` (K1-K4; one nvcc
+              per source, all started together).
 2. kernels -- each kernel against its plain PyTorch version at the serving
               path's shapes (Hq 16, Hkv 8, D 128, page 64, 64 slots, bf16
               pools, lengths 1..4096, a G=8 group table with a padded -1
@@ -16,9 +16,20 @@ when CUDA is unavailable or any phase fails. Phases:
               of the value), K3 also against K2 on the full page tables.
               The same calls with two slots missing their last page must
               fail that tolerance. K2 and K3 are also timed on the tables
-              the serving phase gives them. Times are device time per
-              call: CUDA events around replays of a CUDA graph of
-              back-to-back calls, median over several replays.
+              the serving phase gives them. K4 (training flash attention)
+              through its wrapper ``flash_attention_train`` and autograd,
+              forward and backward, against autograd through its plain
+              version, at the train phase's shapes (B 4, T 512, Hq 16,
+              Hkv 8, D 128, bf16) and at a long case (B 1, T 4096),
+              with left- and right-padded rows and a row packed with 3
+              segments: out within rtol 1e-2 / atol 2e-3, each of dq, dk,
+              dv within a relative Frobenius error of 1e-2; the kernel
+              with each row's first real token marked as pad must fail
+              both. Times are device time per call: CUDA events around
+              replays of a CUDA graph of back-to-back calls, median over
+              several replays (backward passes through autograd -- the
+              plain version's and SDPA's -- by CUDA events around
+              back-to-back calls instead).
 3. serve   -- ``create_server("qwen3-1.7b", device="cuda")`` at full width
               and depth with random weights from a seed; over HTTP, the
               main path: two GRPO groups of 8 samples (temperature 1.0,
@@ -32,7 +43,24 @@ when CUDA is unavailable or any phase fails. Phases:
               its logprobs against the port's dense ``forward`` on the
               card; sent again with the engine's decode attention missing
               each slot's last page, it must fail that check.
-4. result  -- the card's name and power limit, a ``{"kernels": [...]}``
+4. train   -- ``build_trainer`` of ``polyrl_tpu_torch.train``:
+              ``qwen3-1.7b`` at full width and depth in bf16, random
+              weights from seed 0, the colocated CB engine (64 slots,
+              page 64, 512 pages), 2 GRPO steps of 2 prompts x 8 samples
+              at T = 64 + 448, KL loss against a reference policy, remat
+              on, a reward that varies within a group (the response's
+              byte length). Gates: finite losses and grad norms, no
+              skipped updates, weight_version 3 and the engine's weights
+              bitwise the actor's, K4 fwd/bwd and K1/K2 launched (counted
+              from zero just before the fit), the trainer's step-1 old
+              logprobs (K4) against the engine's rollout logprobs (paged
+              decode), and the full-model loss gradient of one micro
+              through K4 against the same through the plain attention
+              (cosine >= 0.98 on the bf16 weights, >= 0.99 on an f32
+              copy; norm ratio within 2%). Each must fail with K4 fed
+              tile-local segment ids (every query loses the keys of
+              earlier tiles).
+5. result  -- the card's name and power limit, a ``{"kernels": [...]}``
               line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -40,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import http.client
 import json
 import os
@@ -54,6 +83,7 @@ import torch
 
 from polyrl_tpu_torch.models import decoder
 from polyrl_tpu_torch.ops import cuda_build
+from polyrl_tpu_torch.ops import flash
 from polyrl_tpu_torch.ops import paged_attention as pa
 
 MODEL = "qwen3-1.7b"
@@ -70,11 +100,22 @@ KERNEL_TOL = dict(rtol=1e-2, atol=2e-3)
 # dense forward itself lands about 0.08 nats from f32 at the worst of 64
 # tokens; the limit is about twice that
 DENSE_LOGP_TOL = 0.15
+# K4 against its plain version: out as K2/K3 (bf16 output rounded once);
+# each gradient by relative Frobenius error, which a one-ulp bf16 rounding
+# of every element keeps near 2^-9
+FLASH_OUT_TOL = dict(rtol=1e-2, atol=2e-3)
+FLASH_GRAD_TOL = 1e-2
 REPLACES = {
     "paged_kv_write": "polyrl_tpu/ops/paged_attention.py:671",
     "paged_attention": "polyrl_tpu/ops/paged_attention.py:160",
     "grouped_paged_attention": "polyrl_tpu/ops/paged_attention.py:462",
+    "flash_attention_fwd": "polyrl_tpu/ops/flash.py:60",
+    "flash_attention_bwd": "polyrl_tpu/ops/flash.py:60",
 }
+# the kernels each phase's main path must launch
+SERVE_KERNELS = ("paged_kv_write", "paged_attention", "grouped_paged_attention")
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "paged_kv_write",
+                 "paged_attention")
 
 
 class SmokeFailure(RuntimeError):
@@ -349,6 +390,182 @@ def serving_times(dev, kp, vp) -> None:
         f"grouped_paged_attention ms {ms3:.4f} (bound {b3:.4f})")
 
 
+# -- phase 2b: K4, training flash attention, forward and backward ---------------
+
+
+def flash_inputs(dev, b: int, t: int, seed: int):
+    """bf16 q/k/v/dout ([B, T, H, D], the model's layout) and f32 / int32
+    [B, T] mask and segment ids. Row 0 is left-padded (prompt-style), the
+    last row right-padded (response-style) and row 1 (or the only row)
+    packs 3 segments followed by pads."""
+    rng = np.random.default_rng(seed)
+    mask = np.ones((b, t), np.float32)
+    seg = np.ones((b, t), np.int32)
+    if b > 1:
+        mask[0, :t // 8] = 0
+        mask[b - 1, t - t // 5:] = 0
+    packed = 1 if b > 1 else 0
+    cuts = (t // 5, t // 2, t - t // 16)
+    seg[packed] = 0
+    seg[packed, :cuts[0]], seg[packed, cuts[0]:cuts[1]] = 1, 2
+    seg[packed, cuts[1]:cuts[2]] = 3
+    mask[packed] = (seg[packed] > 0).astype(np.float32)
+    for i in range(b):
+        if i != packed:
+            seg[i] = mask[i].astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev,  # noqa: E731
+                                   dtype=torch.bfloat16)
+    return dict(q=r(b, t, HQ, D), k=r(b, t, HKV, D), v=r(b, t, HKV, D),
+                do=r(b, t, HQ, D), mask=torch.from_numpy(mask).to(dev),
+                seg=torch.from_numpy(seg).to(dev))
+
+
+def visible_pairs(seg: torch.Tensor) -> int:
+    """(query, key) pairs the causal segment mask lets through, per head:
+    what this input's work is (a causal kernel skips the tiles above the
+    diagonal; what it then masks inside a tile is not work it needs)."""
+    t = seg.shape[1]
+    causal = torch.ones((t, t), dtype=torch.bool, device=seg.device).tril()
+    same = seg[:, :, None] == seg[:, None, :]
+    return int((same & causal).sum())
+
+
+def events_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Per-call device ms of back-to-back calls between CUDA events, for
+    work a CUDA graph cannot capture (autograd backward passes)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def wrapper_grads(fn, q, k, v, mask, seg, do):
+    """``fn(q, k, v, mask, segment_ids=seg)`` on fresh leaves, and the
+    gradients of ``<out, do>``: (out, (dq, dk, dv))."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = fn(*leaves, mask, segment_ids=seg)
+    return out.detach(), torch.autograd.grad(out, leaves, do)
+
+
+def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int):
+    """K4 through its public wrapper (``flash_attention_train`` and its
+    autograd Function) against autograd through its plain version on one
+    case; the planted fault (each row's first real token marked as pad)
+    must fail both the output and the gradient tolerances. Returns (fwd
+    row, bwd row) without launches."""
+    c = flash_inputs(dev, b, t, seed)
+    q, k, v, do, mask, seg = (c[x] for x in ("q", "k", "v", "do", "mask", "seg"))
+    o, (dq, dk, dv) = wrapper_grads(flash.flash_attention_train, q, k, v, mask,
+                                    seg, do)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    ref = flash.flash_attention_train_ref(*leaves, mask, segment_ids=seg)
+    rdq, rdk, rdv = torch.autograd.grad(ref, leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+
+    def rel(g, rg):
+        return ((g.float() - rg.float()).norm() / rg.float().norm()).item()
+
+    err_o = (o.float() - ref.float()).abs().max().item()
+    check(o.dtype == q.dtype and torch.allclose(o.float(), ref.float(),
+                                                **FLASH_OUT_TOL),
+          f"K4 forward ({label}) differs from its plain version (max {err_o})")
+    grad_err = {}
+    for name, g, rg, x in (("dq", dq, rdq, q), ("dk", dk, rdk, k),
+                           ("dv", dv, rdv, v)):
+        grad_err[name] = rel(g, rg)
+        check(g.dtype == x.dtype and g.shape == x.shape
+              and grad_err[name] <= FLASH_GRAD_TOL
+              and torch.isfinite(g).all().item(),
+              f"K4 backward ({label}) {name} relative error "
+              f"{grad_err[name]:.3g} > {FLASH_GRAD_TOL}")
+    err_g = max((g.float() - rg.float()).abs().max().item()
+                for g, rg in ((dq, rdq), (dk, rdk), (dv, rdv)))
+    # planted fault: each row's first real token marked as pad
+    bad_seg = seg.clone()
+    first = (seg > 0).int().argmax(dim=1)
+    bad_seg[torch.arange(b, device=dev), first] = 0
+    bo, bad_grads = wrapper_grads(flash.flash_attention_train, q, k, v, mask,
+                                  bad_seg, do)
+    torch.cuda.synchronize()
+    bad_o = (bo.float() - ref.float()).abs().max().item()
+    bad_g = {n: rel(g, rg) for n, g, rg in zip(("dq", "dk", "dv"), bad_grads,
+                                                (rdq, rdk, rdv))}
+    check(not torch.allclose(bo.float(), ref.float(), **FLASH_OUT_TOL),
+          f"K4 ({label}): the output tolerance passes a missing first token")
+    check(max(bad_g.values()) > FLASH_GRAD_TOL,
+          f"K4 ({label}): the gradient tolerance passes a missing first token")
+    log(f"kernel flash_attention ({label}, B {b} T {t}): out max_abs_err "
+        f"{err_o:.3g}; grads relative error "
+        + ", ".join(f"{n} {e:.3g}" for n, e in grad_err.items())
+        + f"; planted fault (first real token as pad): out {bad_o:.3g}, "
+        + ", ".join(f"{n} {e:.3g}" for n, e in bad_g.items())
+        + " (fails the out and the gradient checks)")
+    del bo, bad_grads
+
+    # times: the kernels' launchers by graph replay (the backward needs the
+    # forward's LSE); autograd backward passes by events
+    _, lse = flash.flash_fwd_cuda(q, k, v, seg, True)
+    inner = max(1, 2048 // t)
+    ms_f = cuda_ms(lambda: flash.flash_fwd_cuda(q, k, v, seg, True), reps, inner)
+    ms_b = cuda_ms(lambda: flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True),
+                   reps, inner)
+    plain_f = cuda_ms(lambda: flash.flash_attention_train_ref(
+        q, k, v, mask, segment_ids=seg), reps)
+    plain_b = events_ms(lambda: torch.autograd.grad(ref, leaves, do,
+                                                    retain_graph=True), reps)
+    del ref
+    vis = ((seg[:, :, None] == seg[:, None, :])
+           & torch.ones((t, t), dtype=torch.bool, device=dev).tril())[:, None]
+    qt, kt_, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_f = cuda_ms(lambda: sdpa(qt, kt_, vt, attn_mask=vis, enable_gqa=True),
+                    reps, inner)
+    lleaves = [x.detach().clone().requires_grad_(True) for x in (qt, kt_, vt)]
+    lout = sdpa(*lleaves, attn_mask=vis, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_b = events_ms(lambda: torch.autograd.grad(lout, lleaves, dot,
+                                                  retain_graph=True), reps)
+    lerr = (lout.detach().transpose(1, 2).float() - o.float()).abs().max().item()
+    del lout, lleaves
+
+    pairs = visible_pairs(seg)
+    es = 2
+    io_f = (2 * q.numel() + k.numel() + v.numel()) * es + lse.numel() * 4 + seg.numel() * 4
+    io_b = (4 * q.numel() + 2 * (k.numel() + v.numel())) * es + lse.numel() * 4 \
+        + seg.numel() * 4
+    bf, hf = bound_ms(io_f, 4.0 * D * HQ * pairs)
+    bb, hb = bound_ms(io_b, 10.0 * D * HQ * pairs)
+    log(f"kernel flash_attention ({label}): fwd ms {ms_f:.4f} (plain {plain_f:.4f}, "
+        f"SDPA {lib_f:.4f}, bound {bf:.4f} by {hf}); bwd ms {ms_b:.4f} (plain "
+        f"{plain_b:.4f}, SDPA {lib_b:.4f}, bound {bb:.4f} by {hb}); "
+        f"{pairs} visible pairs per head; SDPA vs K4 out max diff {lerr:.3g}; "
+        f"plain and SDPA backward timed by CUDA events around {reps} "
+        f"back-to-back autograd calls")
+    fwd = dict(name="flash_attention_fwd", max_abs_err=err_o, ms=ms_f,
+               plain_ms=plain_f, bound_ms=bf, bound_by=hf, library_ms=lib_f)
+    bwd = dict(name="flash_attention_bwd", max_abs_err=err_g, ms=ms_b,
+               plain_ms=plain_b, bound_ms=bb, bound_by=hb, library_ms=lib_b)
+    return fwd, bwd
+
+
+def check_flash(dev) -> list[dict]:
+    """K4 at the train phase's shapes (its rows in the kernels line) and at
+    the long case (logged)."""
+    rows = flash_case_check(dev, 4, 512, 7, "train phase shapes", reps=10)
+    torch.cuda.empty_cache()
+    flash_case_check(dev, 1, 4096, 8, "long case", reps=3)
+    torch.cuda.empty_cache()
+    return list(rows)
+
+
 # -- phase 3: the engine over HTTP -------------------------------------------------
 
 
@@ -474,14 +691,14 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
 
         # the main path: counts zeroed just before it and read just after
         info0 = post(port, "/get_server_info", None)
-        pa.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         t_start = time.monotonic()
         with profiled(profile):
             outs = run_requests(port, bodies)
         wall = time.monotonic() - t_start
-        launches = dict(pa.LAUNCHES)
+        launches = dict(cuda_build.LAUNCHES)
         info = post(port, "/get_server_info", None)
-        for name in REPLACES:
+        for name in SERVE_KERNELS:
             check(launches[name] > 0,
                   f"{name} was not launched on the serving path")
             check(info[f"kernel_launches/{name}"] == launches[name],
@@ -504,7 +721,7 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
         # the same greedy request twice, alone, from an empty prefix cache:
         # identical inputs and batch shapes must give identical tokens
         rep = []
-        pa.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         for i in range(2):
             post(port, "/flush_cache", {})
             rep.append(run_requests(port, [{
@@ -516,7 +733,7 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
         single = (rep[0]["lines"][-1][0] - rep[0]["lines"][0][0]) / 63
         log(f"serve: one stream alone (twice): TTFT {(rep[0]['lines'][0][0] - rep[0]['t0']) * 1e3:.1f} ms, "
             f"{single * 1e3:.2f} ms per decode step (64 slots computed); "
-            f"launches {json.dumps(dict(pa.LAUNCHES))}")
+            f"launches {json.dumps(dict(cuda_build.LAUNCHES))}")
         log(f"serve: {len(outs)} streams, {n_tok} tokens in {wall:.2f} s")
         # decode vs dense: the engine's greedy logprobs against the port's
         # dense forward over prompt + generated tokens, on the card, in f32
@@ -527,7 +744,8 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
             x = torch.tensor([greedy_prompts[0] + tokens], device=dev)
             pos = torch.arange(x.shape[1], device=dev)[None]
             logits, _ = decoder.forward(params, cfg, x, pos,
-                                        torch.ones_like(x, dtype=torch.float32))
+                                        torch.ones_like(x, dtype=torch.float32),
+                                        attn_fn=flash.flash_attention_train_ref)
             return torch.log_softmax(logits[0, n_p - 1:-1].float(), dim=-1)
 
         params32 = {k: ({kk: vv.float() for kk, vv in v.items()}
@@ -597,6 +815,270 @@ def missing_last_page():
         decoder.paged_attention, cb_engine.grouped_paged_attention = k2, k3
 
 
+# -- phase 4: two GRPO steps through the trainer's entry point ------------------
+
+
+TRAIN_OVERRIDES = [
+    "device=cuda", f"model.preset={MODEL}", "model.dtype=bfloat16",
+    "tokenizer.kind=byte", "data.train_path=arithmetic",
+    "rollout.max_slots=64", "rollout.page_size=64", "rollout.num_pages=512",
+    "rollout.max_seq_len=512", "rollout.prompt_buckets=64",
+    "trainer.train_batch_size=2", "trainer.rollout_n=8",
+    "trainer.ppo_mini_batch_size=16", "trainer.micro_batch_size=4",
+    "trainer.min_stream_batch_size=16", "trainer.max_prompt_length=64",
+    "trainer.max_response_length=448", "trainer.adv_estimator=grpo",
+    "trainer.total_steps=2", "trainer.temperature=1.0", "trainer.seed=0",
+    # lr 1e-4: Adam's first step moves a weight by about lr, and a bf16
+    # weight of 0.02 only moves when that exceeds half an ulp (6e-5)
+    "actor.use_kl_loss=true", "actor.remat=true", "actor.lr=1e-4",
+    "reward.num_workers=1",
+]
+# step-1 old logprobs (trainer forward, K4) against the engine's sampling
+# logprobs (paged decode, K1/K2), in nats over every response token: both
+# run the same bf16 weights through other kernels and another bf16
+# rounding order; the limit is about twice the largest gap measured on the
+# card (0.105 nats over 7,168 tokens)
+LOGP_AGREE_TOL = 0.2
+# the flattened full-model gradient of one micro, K4 against the plain
+# attention: on an f32 copy of the weights the kernel alone shows (cosine
+# 1.000000 measured); on the bf16 weights both attentions' 1-ulp roundings
+# compound through 28 random-init layers (0.990338 and 0.991368 measured,
+# the tile-local fault 0.008 in f32), so its limit sits between the two
+GRAD_COS_MIN = 0.99
+GRAD_COS_MIN_BF16 = 0.98
+GRAD_NORM_RATIO_TOL = 0.02
+
+
+def byte_length_score(data_source, text, ground_truth, extra_info) -> float:
+    """A reward that varies within a GRPO group at random weights: the
+    response's UTF-8 length (about 1 byte in 448 random tokens at vocab
+    151,936), so the group-relative advantages are not all 0."""
+    return float(len(text.encode("utf-8")))
+
+
+def tile_local_attention(q, k, v, attn_mask):
+    """K4 fed wrong segment ids, a planted fault for the train gates: every
+    real token's segment is its 64-row tile, so each query loses the keys
+    of all earlier tiles (the kernel still launches)."""
+    t = attn_mask.shape[1]
+    tile = torch.arange(t, device=attn_mask.device) // 64 + 1
+    seg = (attn_mask.to(torch.int32) * tile[None].to(torch.int32)).contiguous()
+    return flash.flash_attention_train(q, k, v, attn_mask, segment_ids=seg)
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for key, val in sorted(tree.items()):
+        if isinstance(val, dict):
+            yield from _leaves(val, prefix + key + ".")
+        else:
+            yield prefix + key, val
+
+
+@contextlib.contextmanager
+def launches_apart(store: dict):
+    """Run gate-only work without adding to the main path's counts: its
+    launches go to ``store``."""
+    before = dict(cuda_build.LAUNCHES)
+    try:
+        yield
+    finally:
+        for k_, n in cuda_build.LAUNCHES.items():
+            store[k_] = store.get(k_, 0) + n - before[k_]
+            cuda_build.LAUNCHES[k_] = before[k_]
+
+
+def micro_loss_grads(actor, feed, attn_fn) -> list[torch.Tensor]:
+    """The full-model gradient of the actor's loss on one micro with
+    ``attn_fn`` as every layer's attention (the parameters are left as
+    they are)."""
+    keep = actor.attn_fn
+    actor.attn_fn = attn_fn
+    try:
+        for _, p in _leaves(actor.params):
+            p.grad = None
+        with torch.enable_grad():
+            loss, _ = actor._loss_fn(feed, 1.0)
+            loss.backward()
+        grads = [p.grad for _, p in _leaves(actor.params)]
+        for _, p in _leaves(actor.params):
+            p.grad = None
+        return grads
+    finally:
+        actor.attn_fn = keep
+
+
+def _tree_map_f32(tree: dict) -> dict:
+    """An f32 copy of a parameter tree, as autograd leaves."""
+    return {k_: (_tree_map_f32(v) if isinstance(v, dict)
+                 else v.detach().float().requires_grad_(True))
+            for k_, v in tree.items()}
+
+
+def grad_agreement(ga, gb) -> tuple[float, float]:
+    """Cosine of the flattened gradients and the ratio of their norms."""
+    dot = sum(torch.sum(a.float() * b.float()) for a, b in zip(ga, gb)).item()
+    na = sum(torch.sum(a.float() ** 2) for a in ga).item() ** 0.5
+    nb = sum(torch.sum(b.float() ** 2) for b in gb).item() ** 0.5
+    return dot / (na * nb), na / nb
+
+
+def gradient_gate(actor, micro, cos_min: float, label: str) -> str:
+    """The micro's full-model gradient through K4, and through K4 fed
+    tile-local segment ids, each against the same through the plain
+    attention, on the actor's current parameters. K4 must pass (cosine >=
+    ``cos_min``, norm ratio within GRAD_NORM_RATIO_TOL) and the fault must
+    fail. Returns the log line's readings."""
+    g_plain = micro_loss_grads(actor, micro, plain_attention)
+    g = micro_loss_grads(actor, micro, flash.auto_train_attention())
+    cos, ratio = grad_agreement(g, g_plain)
+    del g
+    g = micro_loss_grads(actor, micro, tile_local_attention)
+    bad_cos, bad_ratio = grad_agreement(g, g_plain)
+    del g, g_plain
+    check(cos >= cos_min and abs(ratio - 1) <= GRAD_NORM_RATIO_TOL,
+          f"K4 gradient on {label} weights disagrees with the plain "
+          f"attention's (cosine {cos:.6f}, norm ratio {ratio:.5f})")
+    check(bad_cos < cos_min or abs(bad_ratio - 1) > GRAD_NORM_RATIO_TOL,
+          f"the gradient gate on {label} weights passes tile-local segment ids")
+    return (f"{label} weights: cosine {cos:.6f}, norm ratio {ratio:.5f} "
+            f"(limits >= {cos_min}, within {GRAD_NORM_RATIO_TOL}); with "
+            f"tile-local segment ids: cosine {bad_cos:.4f}, norm ratio "
+            f"{bad_ratio:.4f} (fails)")
+
+
+def plain_attention(q, k, v, attn_mask):
+    return flash.flash_attention_train_ref(q, k, v, attn_mask)
+
+
+def train_phase(dev) -> dict:
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.trainer.actor import _to_device
+    from polyrl_tpu_torch.train import build_trainer
+
+    cfg = load_config(None, TRAIN_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cleanup: list = []
+    t0 = time.monotonic()
+    trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+    try:
+        actor, engine = trainer.actor, trainer.rollout
+        log(f"train: {MODEL} trainer up in {time.monotonic() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+        gate_launches: dict = {}
+        step1: dict = {}
+        process = trainer._process_ibatch
+
+        def first_ibatch_gates(ibatch, metrics):
+            """Step 1, after the old/ref passes and before any update: the
+            logprob agreement and its planted fault, on the weights the
+            engine sampled with."""
+            out = process(ibatch, metrics)
+            if step1:
+                return out
+            mask = np.asarray(out["response_mask"]) > 0
+            gap = np.abs(np.asarray(out["old_log_probs"])
+                         - np.asarray(out["rollout_log_probs"]))[mask]
+            feed = {k_: np.array(out[k_]) for k_ in (
+                "input_ids", "positions", "attention_mask", "responses",
+                "response_mask", "advantages", "old_log_probs",
+                "ref_log_probs", "rollout_log_probs")}
+            with launches_apart(gate_launches):
+                keep = actor.attn_fn
+                actor.attn_fn = tile_local_attention
+                try:
+                    bad_lp, _ = actor.compute_log_prob(feed, compute_entropy=False)
+                finally:
+                    actor.attn_fn = keep
+            bad_gap = np.abs(bad_lp.float().cpu().numpy()
+                             - feed["rollout_log_probs"])[mask]
+            step1.update(feed=feed, gap_max=float(gap.max()),
+                         gap_mean=float(gap.mean()), bad_max=float(bad_gap.max()),
+                         bad_mean=float(bad_gap.mean()), tokens=int(mask.sum()))
+            return out
+
+        trainer._process_ibatch = first_ibatch_gates
+        cuda_build.reset_launch_counts()
+        t_fit = time.monotonic()
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        fit_wall = time.monotonic() - t_fit
+        launches = dict(cuda_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        trainer._process_ibatch = process
+
+        # gates on the run itself
+        check(len(history) == 2, "the fit did not run 2 steps")
+        for i, rec in enumerate(history, 1):
+            for key in ("actor/pg_loss", "actor/kl_loss", "actor/grad_norm"):
+                check(key in rec and np.isfinite(rec[key]),
+                      f"step {i}: {key} missing or not finite")
+            check(rec["actor/grad_norm"] > 0, f"step {i}: zero gradient")
+            check(rec["actor/nonfinite_skips"] == 0,
+                  f"step {i}: a non-finite update was skipped")
+        check(engine.weight_version == 3,
+              f"weight_version {engine.weight_version} after 2 steps, not 3")
+        for (name, a), (_, e) in zip(_leaves(actor.params), _leaves(engine.params)):
+            check(torch.equal(a.detach(), e),
+                  f"the engine's {name} differs from the actor's after the push")
+        for name in TRAIN_KERNELS:
+            check(launches[name] > 0, f"{name} was not launched in the train phase")
+        moved = sum(int((a.detach() != r).sum()) for (_, a), (_, r) in
+                    zip(_leaves(actor.params), _leaves(trainer.ref_policy.params)))
+        n_params = sum(p.numel() for _, p in _leaves(actor.params))
+
+        # logprob agreement on step 1, and its planted fault
+        log(f"train: step-1 old logprobs (K4) vs the engine's rollout logprobs "
+            f"over {step1['tokens']} response tokens: max {step1['gap_max']:.4f}, "
+            f"mean {step1['gap_mean']:.5f} nats (tolerance {LOGP_AGREE_TOL}); "
+            f"with tile-local segment ids: max {step1['bad_max']:.4f}, mean "
+            f"{step1['bad_mean']:.4f} (must fail)")
+        check(step1["gap_max"] <= LOGP_AGREE_TOL,
+              f"old logprobs disagree with the engine's ({step1['gap_max']:.4f} "
+              f"nats > {LOGP_AGREE_TOL})")
+        check(step1["bad_max"] > LOGP_AGREE_TOL,
+              "the logprob gate passes tile-local segment ids")
+
+        # gradient gate: one micro, K4 against the plain attention, on the
+        # final weights, gated in bf16 (the kernel instance the main path
+        # runs) and on an f32 copy (where the comparison sees the kernel's
+        # error alone). The micro is the 4 rows of step 1 with the largest
+        # positive advantages (same-sign terms: no cancellation in the
+        # policy gradient)
+        feed = step1["feed"]
+        rows = np.argsort(-feed["advantages"].sum(-1))[:4]
+        micro = _to_device({k_: v[rows] for k_, v in feed.items()
+                            if k_ != "rollout_log_probs"}, dev)
+        with launches_apart(gate_launches):
+            bf16_line = gradient_gate(actor, micro, GRAD_COS_MIN_BF16, "bf16")
+            bf16_params = actor.params
+            actor.params = _tree_map_f32(bf16_params)
+            try:
+                f32_line = gradient_gate(actor, micro, GRAD_COS_MIN, "f32")
+            finally:
+                actor.params = bf16_params
+        log(f"train: micro gradient, K4 vs plain attention on {f32_line}; on "
+            f"the {bf16_line}")
+
+        for i, rec in enumerate(history, 1):
+            log(f"train: step {i}: wall {rec['perf/step_time_s']:.2f} s; "
+                + ", ".join(f"{k_} {rec.get('timing_s/' + k_, 0.0):.2f}" for k_ in (
+                    "gen", "reward", "old_log_prob", "ref_log_prob", "adv",
+                    "update_actor", "update_weight"))
+                + f"; tokens/s {rec['perf/throughput_tokens_per_s']:.1f}, mfu "
+                f"{rec['perf/mfu']:.5f}, pg_loss {rec['actor/pg_loss']:.5f}, "
+                f"kl_loss {rec['actor/kl_loss']:.3g}, grad_norm "
+                f"{rec['actor/grad_norm']:.4f}, reward/mean {rec['reward/mean']:.3f}")
+        log(f"train: fit wall {fit_wall:.1f} s; peak memory {peak_gb:.2f} GB "
+            f"(torch.cuda.max_memory_allocated); {moved} of {n_params} weights "
+            f"moved from the reference copy; main-path launches "
+            f"{json.dumps(launches)}; the gates' own launches "
+            f"{json.dumps(gate_launches)}")
+        return dict(launches=launches, history=history, peak_gb=peak_gb)
+    finally:
+        for fn in reversed(cleanup):
+            fn()
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -625,18 +1107,22 @@ def main() -> int:
     log(f"build: {time.monotonic() - t0:.1f} s wall, per kernel "
         + json.dumps({k: round(v, 1) for k, v in secs.items()}))
 
-    rows = check_kernels(dev)
+    rows = check_kernels(dev) + check_flash(dev)
     torch.cuda.empty_cache()
     served = serve_phase(dev, profile=args.profile)
     log(f"serve ({smi}, this run): decode {served['decode_tok_s']:.1f} tok/s "
         f"over 18 concurrent streams; TTFT median "
         f"{statistics.median(served['ttft']) * 1e3:.1f} ms, max "
         f"{max(served['ttft']) * 1e3:.1f} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_phase(dev)
 
     for r in rows:
+        phase = trained if r["name"].startswith("flash") else served
         r.update(route="cuda", source=f"polyrl_tpu_torch/csrc/{r['name']}.cu",
                  replaces=REPLACES[r["name"]],
-                 launches=served["launches"][r["name"]])
+                 launches=phase["launches"][r["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)

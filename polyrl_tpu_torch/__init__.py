@@ -3,8 +3,12 @@
 The package mirrors ``polyrl_tpu``'s module paths so each counterpart is
 easy to find, but it is self-contained: it imports ``torch`` and numpy,
 never ``jax`` and never a module of ``polyrl_tpu``. The decode hot path
-runs through CUDA kernels written by hand for ``sm_90a``
-(``polyrl_tpu_torch/csrc``), built with ``nvcc`` at first use.
+(paged K/V write, paged and grouped decode attention) and the training
+attention (flash attention, forward and backward) run through CUDA
+kernels written by hand for ``sm_90a`` (``polyrl_tpu_torch/csrc``), built
+with ``nvcc`` at first use. ``python -m polyrl_tpu_torch.train`` runs the
+colocated GRPO trainer; ``python -m polyrl_tpu_torch.rollout.serve`` the
+rollout server.
 
 Entry points take a ``device`` argument that defaults to ``"cuda"`` and
 raise when CUDA is absent; only an explicit ``device="cpu"`` runs on the

@@ -1,0 +1,194 @@
+"""Config system: dataclass tree + YAML + dotted CLI overrides.
+
+Counterpart of ``polyrl_tpu/config.py`` for the sections this port runs:
+model, tokenizer, data, the colocated ``cb`` rollout, reward, trainer and
+actor, plus the ``device`` every entry point takes (``cuda`` by default;
+it raises without a card). Nested dataclasses are the schema and the
+defaults, a YAML file overlays them, and ``key.sub=value`` dotted CLI
+arguments overlay that (CLI > file > default). Unknown keys raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import typing
+from dataclasses import dataclass, field
+from typing import Any
+
+from polyrl_tpu_torch.trainer.actor import ActorConfig
+from polyrl_tpu_torch.trainer.stream_trainer import TrainerConfig
+
+
+@dataclass
+class ModelSection:
+    preset: str = "tiny"                  # any decoder.PRESETS key
+    dtype: str = "bfloat16"
+    hf_path: str = ""                     # pretrained checkpoints: not ported yet
+    overrides: dict = field(default_factory=dict)  # raw ModelConfig fields
+
+
+@dataclass
+class TokenizerSection:
+    kind: str = "byte"                    # byte | hf
+    name_or_path: str = ""
+
+
+@dataclass
+class DataSection:
+    train_path: str = "arithmetic"        # .jsonl/.parquet path, or "arithmetic"
+    prompt_key: str = "prompt"
+    shuffle: bool = True
+    seed: int = 0
+    arithmetic_size: int = 512
+
+
+@dataclass
+class RolloutSection:
+    mode: str = "colocated"               # colocated (disaggregated: not ported)
+    backend: str = "cb"                   # cb (step: not ported)
+    prompt_buckets: tuple = ()            # () -> the engine's default buckets
+    max_slots: int = 64
+    page_size: int = 64
+    max_seq_len: int = 16384
+    num_pages: int = 0                    # 0 -> the engine's default pool
+    kv_cache_dtype: str = ""              # "" -> model dtype
+    steps_per_dispatch: int = 8
+    admit_wave: int = 8
+    admit_reorder_window: int = 8
+    group_share: bool = True
+    decode_group_share: bool = True
+    group_preref_ttl_s: float = 30.0
+
+
+@dataclass
+class RewardSection:
+    manager: str = "naive"
+    custom_score_path: str = ""           # python file defining compute_score
+    num_workers: int = 8
+
+
+@dataclass
+class RunConfig:
+    device: str = "cuda"
+    model: ModelSection = field(default_factory=ModelSection)
+    tokenizer: TokenizerSection = field(default_factory=TokenizerSection)
+    data: DataSection = field(default_factory=DataSection)
+    rollout: RolloutSection = field(default_factory=RolloutSection)
+    reward: RewardSection = field(default_factory=RewardSection)
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
+    actor: ActorConfig = field(default_factory=ActorConfig)
+
+
+# -- dict <-> dataclass -------------------------------------------------------
+
+
+def _build(cls, data: dict):
+    """Construct dataclass ``cls`` from a (possibly partial) dict, recursing
+    into dataclass-typed fields. Unknown keys raise."""
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = set(data) - set(fields)
+    if unknown:
+        raise KeyError(f"unknown config keys for {cls.__name__}: {sorted(unknown)}")
+    hints = typing.get_type_hints(cls)
+    kwargs = {}
+    for name, value in data.items():
+        ftype = hints.get(name, str)
+        if dataclasses.is_dataclass(ftype) and isinstance(value, dict):
+            kwargs[name] = _build(ftype, value)
+        elif ftype is tuple or typing.get_origin(ftype) is tuple:
+            kwargs[name] = tuple(value) if isinstance(value, (list, tuple)) else (value,)
+        else:
+            kwargs[name] = value
+    return cls(**kwargs)
+
+
+def to_dict(cfg: Any) -> dict:
+    def clean(x):
+        if isinstance(x, dict):
+            return {k: clean(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return list(x)
+        return x
+
+    return clean(dataclasses.asdict(cfg))
+
+
+# -- overrides ------------------------------------------------------------------
+
+
+def _coerce(text: str, current: Any) -> Any:
+    """Parse a CLI string by the type of the value it replaces."""
+    if isinstance(current, bool):
+        if text.lower() in ("true", "1", "yes"):
+            return True
+        if text.lower() in ("false", "0", "no"):
+            return False
+        raise ValueError(f"not a bool: {text!r}")
+    if isinstance(current, int):
+        return int(text)
+    if isinstance(current, float):
+        return float(text)
+    if isinstance(current, tuple):
+        text = text.strip()
+        if text[:1] == "[" and text[-1:] == "]":
+            text = text[1:-1]
+        if not text:
+            return ()
+        items = [t.strip() for t in text.split(",") if t.strip()]
+        conv = int if all(i.lstrip("-").isdigit() for i in items) else str
+        return tuple(conv(i) for i in items)
+    if isinstance(current, dict):
+        return json.loads(text)
+    if current is None:
+        if text.lower() in ("null", "none", ""):
+            return None
+        for conv in (int, float):
+            try:
+                return conv(text)
+            except ValueError:
+                pass
+        return text
+    return text
+
+
+def _set_path(obj: Any, parts: list[str], raw: str, full: str) -> Any:
+    """Return ``obj`` with the dotted path set; frozen dataclasses are
+    rebuilt via ``dataclasses.replace`` instead of mutated."""
+    name = parts[0]
+    if not dataclasses.is_dataclass(obj) or not hasattr(obj, name):
+        raise KeyError(f"no config field {name!r} in {full!r}")
+    cur = getattr(obj, name)
+    new = _coerce(raw, cur) if len(parts) == 1 else _set_path(cur, parts[1:], raw, full)
+    try:
+        setattr(obj, name, new)
+        return obj
+    except dataclasses.FrozenInstanceError:
+        return dataclasses.replace(obj, **{name: new})
+
+
+def apply_overrides(cfg: RunConfig, overrides: list[str]) -> RunConfig:
+    """``a.b.c=value`` dotted assignments, validated against the schema."""
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        key, _, raw = ov.partition("=")
+        cfg = _set_path(cfg, key.strip().split("."), raw, key)
+    return cfg
+
+
+def load_config(path: str | None = None,
+                overrides: list[str] | None = None) -> RunConfig:
+    """YAML file (optional) overlaid on defaults, then dotted overrides;
+    the trainer's validation re-runs on the final values."""
+    data: dict = {}
+    if path:
+        import yaml
+
+        with open(path) as f:
+            data = yaml.safe_load(f) or {}
+    cfg = _build(RunConfig, data)
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
+    cfg.trainer.__post_init__()
+    return cfg

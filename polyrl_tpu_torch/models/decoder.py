@@ -12,7 +12,11 @@ is an f32-output product (``unembed``).
 
 Where the JAX code donates buffers, the port updates in place: the KV
 cache of ``forward`` and the paged pools are written in place and
-returned for symmetry. MoE, int8 weights and LoRA are not ported yet.
+returned for symmetry. The no-cache ``forward`` (training and logprob
+scoring) is differentiable, with per-layer rematerialisation
+(``torch.utils.checkpoint``) in place of ``jax.checkpoint``; the cached
+and paged serving paths run under ``torch.no_grad``. MoE, int8 weights
+and LoRA are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from polyrl_tpu_torch.ops.attention import attention, causal_mask
+from polyrl_tpu_torch.ops import flash
+from polyrl_tpu_torch.ops.attention import attention
 from polyrl_tpu_torch.ops.paged_attention import paged_attention, paged_kv_write
 
 
@@ -290,6 +296,30 @@ def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
     return (gate * (h @ lp["w_up"])) @ lp["w_down"]
 
 
+class _UnembedF32(torch.autograd.Function):
+    """bf16/f16 operands, f32 accumulation and an f32 output on the card
+    (``torch.mm(..., out_dtype=torch.float32)``), with its gradient written
+    out: the f32 cotangent is rounded to the operands' type and each
+    gradient product accumulates in f32, as a bf16 mixed-precision matmul's
+    backward does."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        g = g.to(head.dtype)
+        dx = dh = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, head.t(), out_dtype=torch.float32).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dh = torch.mm(x2.t(), g, out_dtype=torch.float32).to(head.dtype)
+        return dx, dh
+
+
 def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """Logits head ``x @ head`` with an f32 result ([..., d] -> [..., V]).
 
@@ -298,17 +328,19 @@ def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     which is the JAX ``preferred_element_type=f32`` product, without ever
     holding an f32 copy of the head (311M entries for qwen3's tied
     embedding would be 1.2 GB). Elsewhere (the CPU tests, f32 weights) the
-    operands are upcast, which changes nothing for f32."""
+    operands are upcast, which changes nothing for f32. Both are
+    differentiable."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if x2.is_cuda and head.dtype in (torch.bfloat16, torch.float16):
-        out = torch.mm(x2, head, out_dtype=torch.float32)
+        out = _UnembedF32.apply(x2, head)
     else:
         out = x2.float() @ head.float()
     return out.reshape(*shape[:-1], head.shape[-1])
 
 
-def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
+def head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The [d, V] logits head: the tied embedding's transpose or lm_head."""
     return params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
 
 
@@ -351,7 +383,37 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-@torch.no_grad()
+def forward_hidden(params: dict, cfg: ModelConfig,
+                   input_ids: torch.Tensor,   # [B, T]
+                   positions: torch.Tensor,   # [B, T] absolute positions
+                   attn_mask: torch.Tensor,   # [B, T] 1 = valid
+                   remat: bool = False,
+                   attn_fn=None) -> torch.Tensor:
+    """Full-sequence forward up to the final RMSNorm: [B, T, d] hidden
+    states, differentiable. ``attn_fn(q, k, v, attn_mask)`` is the layer
+    attention, by default ``flash.auto_train_attention()`` (K4 on the
+    card, its plain version on the CPU), as the JAX actor passes it.
+    ``remat`` recomputes each layer in the backward
+    (``checkpoint(..., use_reentrant=False)``, the JAX ``jax.checkpoint``
+    of the scan body); it applies only while autograd records."""
+    _check_dense(cfg)
+    attn_fn = attn_fn or flash.auto_train_attention()
+    x = params["embed"][input_ids]
+    cos, sin = rope_cos_sin(cfg, positions)
+
+    def layer(x, lp):
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        return _post_attn(cfg, x, attn_fn(q, k, v, attn_mask), lp)
+
+    for i in range(cfg.num_layers):
+        lp = layer_params(params, i)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, lp, use_reentrant=False)
+        else:
+            x = layer(x, lp)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
 def forward(params: dict, cfg: ModelConfig,
             input_ids: torch.Tensor,   # [B, T]
             positions: torch.Tensor,   # [B, T] absolute positions
@@ -359,46 +421,49 @@ def forward(params: dict, cfg: ModelConfig,
             cache: tuple | None = None,  # (k, v) each [L, B, S, Hkv, D]
             write_idx: int = 0,
             logits_for: torch.Tensor | None = None,  # [B] — unembed only this position
+            remat: bool = False,
+            attn_fn=None,
             ) -> tuple[torch.Tensor, tuple | None]:
     """Returns (logits [B, T, V] f32 — or [B, V] with ``logits_for`` — and
     the cache or None).
 
-    Without cache: full-sequence causal forward. With cache: the chunk's KV
-    is written IN PLACE at ``write_idx`` (the JAX version returns a new
-    buffer) and attention runs over the whole cache buffer under
-    ``attn_mask`` [B, S], which must mark the chunk's slots valid too."""
+    Without cache: full-sequence causal forward through ``attn_fn(q, k, v,
+    attn_mask)`` (default K4 / its plain version, ``forward_hidden``),
+    differentiable, with optional per-layer ``remat``. With cache (the
+    prefill path, no grad): the chunk's KV is written IN PLACE at
+    ``write_idx`` (the JAX version returns a new buffer) and dense
+    attention runs over the whole cache buffer under ``attn_mask`` [B, S],
+    which must mark the chunk's slots valid too."""
     _check_dense(cfg)
     b, t = input_ids.shape
     dev = input_ids.device
-    x = params["embed"][input_ids]
-    cos, sin = rope_cos_sin(cfg, positions)
-    valid = attn_mask > 0
     if cache is None:
-        mask = causal_mask(t, t, device=dev)[None, None] & valid[:, None, None, :]
-    else:
+        x = forward_hidden(params, cfg, input_ids, positions, attn_mask,
+                           remat=remat, attn_fn=attn_fn)
+        if logits_for is not None:
+            x = x[torch.arange(b, device=dev), logits_for.long()]
+        return unembed(x, head_weight(params, cfg)), None
+
+    with torch.no_grad():
+        x = params["embed"][input_ids]
+        cos, sin = rope_cos_sin(cfg, positions)
+        valid = attn_mask > 0
         s = cache[0].shape[2]
         kv_pos = torch.arange(s, device=dev)[None, None, None, :]
         slot_written = kv_pos <= (write_idx + t - 1)
         causal = kv_pos <= (write_idx + torch.arange(t, device=dev)[None, None, :, None])
         mask = causal & slot_written & valid[:, None, None, :]
-
-    for layer in range(cfg.num_layers):
-        lp = layer_params(params, layer)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        if cache is None:
-            attn_out = attention(q, k, v, mask=mask)
-        else:
+        for layer in range(cfg.num_layers):
+            lp = layer_params(params, layer)
+            q, k, v = _qkv(cfg, x, lp, cos, sin)
             kc, vc = cache[0][layer], cache[1][layer]
             kc[:, write_idx:write_idx + t] = k.to(kc.dtype)
             vc[:, write_idx:write_idx + t] = v.to(vc.dtype)
-            attn_out = attention(q, kc, vc, mask=mask)
-        x = _post_attn(cfg, x, attn_out, lp)
-
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    head = _head(params, cfg)
-    if logits_for is not None:
-        x = x[torch.arange(b, device=dev), logits_for.long()]
-    return unembed(x, head), cache
+            x = _post_attn(cfg, x, attention(q, kc, vc, mask=mask), lp)
+        x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        if logits_for is not None:
+            x = x[torch.arange(b, device=dev), logits_for.long()]
+        return unembed(x, head_weight(params, cfg)), cache
 
 
 # -- paged KV (continuous batching) -----------------------------------------
@@ -559,4 +624,4 @@ def forward_paged_decode(params: dict, cfg: ModelConfig,
                            page_table, attn_lens)  # [S, Hq, D]
         x = _post_attn(cfg, x, attn_out[:, None], lp)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_norm_eps)
-    return unembed(x, _head(params, cfg)), pools
+    return unembed(x, head_weight(params, cfg)), pools

@@ -1,14 +1,21 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels, and count launches.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface and loaded with ``ctypes``
-(pointers and the stream as ``c_void_p``). Libraries are built at first
-use from the package's sources only, into ``polyrl_tpu_torch/build/``
-(git-ignored), under a name that carries a digest of the sources and
-flags, so an edited kernel is rebuilt and never silently reused.
+Each kernel library is one ``csrc/<name>.cu`` (plus the headers it
+includes), compiled by ``nvcc`` for ``sm_90a`` into its own shared library
+with a plain C interface and loaded with ``ctypes`` (pointers and the
+stream as ``c_void_p``). A library may export several entry points (the
+flash-attention backward has three). Libraries are built at first use from
+the package's sources only, into ``polyrl_tpu_torch/build/`` (git-ignored),
+under a name that carries a digest of the flags and of every source the
+library is built from, its headers included, so an edited kernel is
+rebuilt and never silently reused.
 
-Nothing here runs at import time: the CPU tests import this module and
-never build.
+``LAUNCHES`` is the one launch counter of the port: every kernel wrapper
+adds one to its library's entry where it launches the kernel, and nowhere
+else (plain-version calls on the CPU do not count).
+
+Nothing here builds or loads at import time: the CPU tests import this
+module and never build.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -31,19 +40,58 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# kernel name -> (C entry point, argtypes)
-KERNELS: dict[str, tuple[str, list]] = {
-    "paged_kv_write": ("polyrl_paged_kv_write",
-                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "paged_attention": ("polyrl_paged_attention",
-                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _F, _P]),
-    "grouped_paged_attention": ("polyrl_grouped_paged_attention",
-                                [_P] * 12 + [_I] * 11 + [_F, _P]),
+# library name -> (sources: the .cu first, then the headers it includes,
+#                  {C entry point: argtypes})
+KERNELS: dict[str, tuple[tuple[str, ...], dict[str, list]]] = {
+    "paged_kv_write": (
+        ("paged_kv_write.cu",),
+        {"polyrl_paged_kv_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P]}),
+    "paged_attention": (
+        ("paged_attention.cu", "paged_common.cuh"),
+        {"polyrl_paged_attention": [_P] * 6 + [_I] * 8 + [_F, _P]}),
+    "grouped_paged_attention": (
+        ("grouped_paged_attention.cu", "paged_common.cuh"),
+        {"polyrl_grouped_paged_attention": [_P] * 12 + [_I] * 11 + [_F, _P]}),
+    "flash_attention_fwd": (
+        ("flash_attention_fwd.cu", "flash_common.cuh"),
+        {"polyrl_flash_attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _P]}),
+    "flash_attention_bwd": (
+        ("flash_attention_bwd.cu", "flash_common.cuh"),
+        {"polyrl_flash_attention_bwd_delta": [_P] * 3 + [_I] * 5 + [_P],
+         "polyrl_flash_attention_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _P],
+         "polyrl_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 7 + [_F, _P]}),
 }
+
+# library name -> launches since the last reset (one per wrapper call that
+# launched its kernel; plain-version calls do not count)
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+
+# the ``dtype`` argument of every entry point
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (its wrapper takes the plain version), False
+    for a CUDA tensor (the kernel); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device} (cuda or cpu)")
+    return False
+
+
+def stream_of(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as the int ctypes takes."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def nvcc_path() -> str:
@@ -63,20 +111,21 @@ def nvcc_path() -> str:
 
 
 def _sources(name: str) -> list[Path]:
-    return [CSRC_DIR / f"{name}.cu", CSRC_DIR / "paged_common.cuh"]
+    return [CSRC_DIR / f for f in KERNELS[name][0]]
 
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources(name):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, float]:
-    """Compile the named kernels (all by default) that are not built yet,
+    """Compile the named libraries (all by default) that are not built yet,
     one ``nvcc`` process per source, all started together. Returns the
-    wall seconds of each kernel's build (0.0 when already built). The
+    wall seconds of each library's build (0.0 when already built). The
     compiler's ``-Xptxas -v`` report lands in ``<lib>.log``."""
     names = list(names or KERNELS)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -91,7 +140,7 @@ def build(names=None) -> dict[str, float]:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
+               str(_sources(name)[0])]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT),
                        tmp, out, log)
@@ -113,29 +162,34 @@ def build(names=None) -> dict[str, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built first if needed), with
-    its C entry point's argtypes set."""
+    """The loaded library ``name`` (built first if needed), with every C
+    entry point's argtypes set."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(lib_path(name)))
-            fn_name, argtypes = KERNELS[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in KERNELS[name][1].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.polyrl_cuda_error_string.argtypes = [ctypes.c_int]
             lib.polyrl_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry point; raise on a non-zero
-    ``cudaGetLastError()`` (a refused launch never runs, and a later
-    synchronize would not report it)."""
+def launch(name: str, *args, entry: str | None = None) -> None:
+    """Call C entry point ``entry`` of library ``name`` (its only entry
+    point by default); raise on a non-zero ``cudaGetLastError()`` (a
+    refused launch never runs, and a later synchronize would not report
+    it). Counting is the wrapper's job: it bumps ``LAUNCHES`` once per
+    call of the function it stands for."""
     lib = library(name)
-    rc = getattr(lib, KERNELS[name][0])(*args)
+    entries = KERNELS[name][1]
+    if entry is None:
+        (entry,) = entries
+    rc = getattr(lib, entry)(*args)
     if rc != 0:
         msg = lib.polyrl_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")

@@ -8,8 +8,9 @@ TPU kernels of that module this file holds:
 - the wrapper the model calls, which takes the plain version only for
   tensors on the CPU and otherwise launches the hand-written Hopper kernel
   (``csrc/*.cu``) or raises -- it never falls back for a CUDA tensor;
-- a plain-integer launch count in ``LAUNCHES`` that the wrapper bumps
-  where it launches its kernel and nowhere else.
+- a plain-integer launch count in ``cuda_build.LAUNCHES`` (the port's one
+  counter) that the wrapper bumps where it launches its kernel and
+  nowhere else.
 
 Pools are head-major ``[Hkv, N_pages, page_size, D]`` with page 0 the null
 page (the layout ``decoder.make_paged_pools`` allocates). ``NEG_INF`` is
@@ -25,18 +26,6 @@ import torch
 from polyrl_tpu_torch.ops import cuda_build
 
 NEG_INF = float(np.finfo(np.float32).min)
-
-# kernel name -> launches since the last reset (one per wrapper call that
-# launched its CUDA kernel; plain-version calls do not count)
-LAUNCHES: dict[str, int] = {name: 0 for name in cuda_build.KERNELS}
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
 
 # -- plain versions ------------------------------------------------------------
 
@@ -175,14 +164,6 @@ def paged_kv_write_ref(k_pool, v_pool, write_page, write_off, k_upd, v_upd):
 # -- wrappers ------------------------------------------------------------------
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device} (cuda or cpu)")
-    return False
-
-
 def _cuda_operand(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
     """Contiguous, 16-byte aligned tensor on ``device`` (cast to ``dtype``)."""
     if t.device != device:
@@ -201,14 +182,10 @@ def _check_head_dim(d: int, name: str) -> None:
                          "(a multiple of 32, at most 256)")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def paged_kv_write(k_pool, v_pool, write_page, write_off, k_upd, v_upd):
     """Write one token's K/V per slot into the pools in place; returns the
     pools. K1 (``csrc/paged_kv_write.cu``) on CUDA tensors."""
-    if _on_cpu(k_pool):
+    if cuda_build.on_cpu(k_pool):
         return paged_kv_write_ref(k_pool, v_pool, write_page, write_off,
                                   k_upd, v_upd)
     dev = k_pool.device
@@ -228,14 +205,16 @@ def paged_kv_write(k_pool, v_pool, write_page, write_off, k_upd, v_upd):
     off = _cuda_operand(write_off, dev, torch.int32)
     cuda_build.launch("paged_kv_write", k_pool.data_ptr(), v_pool.data_ptr(),
                       page.data_ptr(), off.data_ptr(), k_upd.data_ptr(),
-                      v_upd.data_ptr(), s, hkv, n, ps, row_bytes, _stream(dev))
-    LAUNCHES["paged_kv_write"] += 1
+                      v_upd.data_ptr(), s, hkv, n, ps, row_bytes,
+                      cuda_build.stream_of(dev))
+    cuda_build.LAUNCHES["paged_kv_write"] += 1
     return k_pool, v_pool
 
 
 def _attn_operands(name, q, k_pool, v_pool, page_table, seq_lens):
     dev = k_pool.device
-    if k_pool.dtype not in _DTYPE_CODE or v_pool.dtype != k_pool.dtype:
+    if (k_pool.dtype not in cuda_build.DTYPE_CODE
+            or v_pool.dtype != k_pool.dtype):
         raise ValueError(f"{name}: pool dtype {k_pool.dtype} unsupported")
     if q.shape[1] % k_pool.shape[0]:
         raise ValueError(f"{name}: Hq must be a multiple of Hkv")
@@ -249,7 +228,7 @@ def _attn_operands(name, q, k_pool, v_pool, page_table, seq_lens):
 def paged_attention(q, k_pool, v_pool, page_table, seq_lens, scale=None):
     """Decode attention over each slot's page row; [S, Hq, D] in q.dtype.
     K2 (``csrc/paged_attention.cu``) on CUDA tensors."""
-    if _on_cpu(q):
+    if cuda_build.on_cpu(q):
         return paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens, scale)
     s, hq, d = q.shape
     hkv, n, ps, _ = k_pool.shape
@@ -259,9 +238,10 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, scale=None):
     out = torch.empty((s, hq, d), dtype=k_pool.dtype, device=q.device)
     cuda_build.launch("paged_attention", qc.data_ptr(), kp.data_ptr(),
                       vp.data_ptr(), pt.data_ptr(), lens.data_ptr(),
-                      out.data_ptr(), _DTYPE_CODE[k_pool.dtype], s, hq, hkv, n,
-                      ps, d, pt.shape[1], float(scale), _stream(q.device))
-    LAUNCHES["paged_attention"] += 1
+                      out.data_ptr(), cuda_build.DTYPE_CODE[k_pool.dtype], s,
+                      hq, hkv, n, ps, d, pt.shape[1], float(scale),
+                      cuda_build.stream_of(q.device))
+    cuda_build.LAUNCHES["paged_attention"] += 1
     return out.to(q.dtype)
 
 
@@ -271,7 +251,7 @@ def grouped_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
     """Shared-prefix grouped decode attention; [S, Hq, D] in q.dtype.
     K3 (``csrc/grouped_paged_attention.cu``, two launches) on CUDA
     tensors; the f32 phase-1 stats live in scratch allocated here."""
-    if _on_cpu(q):
+    if cuda_build.on_cpu(q):
         return grouped_paged_attention_ref(
             q, k_pool, v_pool, page_table, seq_lens, group_slots,
             group_prefix_pages, group_prefix_lens, scale)
@@ -294,8 +274,8 @@ def grouped_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
                       vp.data_ptr(), pt.data_ptr(), lens.data_ptr(),
                       gs.data_ptr(), gpp.data_ptr(), gpl.data_ptr(),
                       m1.data_ptr(), l1.data_ptr(), acc1.data_ptr(),
-                      out.data_ptr(), _DTYPE_CODE[k_pool.dtype], s, hq, hkv, n,
-                      ps, d, pt.shape[1], ng, gmax, gpp.shape[1], float(scale),
-                      _stream(dev))
-    LAUNCHES["grouped_paged_attention"] += 1
+                      out.data_ptr(), cuda_build.DTYPE_CODE[k_pool.dtype], s,
+                      hq, hkv, n, ps, d, pt.shape[1], ng, gmax, gpp.shape[1],
+                      float(scale), cuda_build.stream_of(dev))
+    cuda_build.LAUNCHES["grouped_paged_attention"] += 1
     return out.to(q.dtype)

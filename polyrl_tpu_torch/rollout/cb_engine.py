@@ -114,7 +114,13 @@ class PageAllocator:
 
 
 def _params_to(tree: dict, device: torch.device) -> dict:
-    return {k: (_params_to(v, device) if isinstance(v, dict) else v.to(device))
+    """The engine's own copy of ``tree`` on ``device``. Always a copy, even
+    when a tensor already lies there: a colocated actor updates its
+    parameters in place, and an alias would change the engine's weights
+    with no version bump while the prefix cache still held KV of the old
+    ones (JAX arrays are immutable, so the JAX engine may share them)."""
+    return {k: (_params_to(v, device) if isinstance(v, dict)
+                else v.detach().to(device, copy=True))
             for k, v in tree.items()}
 
 
@@ -943,10 +949,12 @@ class CBEngine:
     # -- convenience (tests / bench) ----------------------------------------
 
     def generate(self, prompt_ids: list[list[int]], sampling: SamplingParams,
-                 timeout: float = 300.0) -> list[dict]:
+                 timeout: float = 300.0, rng=None) -> list[dict]:
         """Submit all, start the loop if needed, collect full sequences:
         per-prompt dicts with token_ids / logprobs / weight_versions /
-        finish_reason."""
+        finish_reason. ``rng`` is accepted for interface parity and
+        ignored, as in the JAX engine: the engine owns its sampling
+        generator."""
         outs = [self.submit(f"gen-{i}", p, sampling)
                 for i, p in enumerate(prompt_ids)]
         self.start()

@@ -24,7 +24,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from polyrl_tpu_torch.ops.paged_attention import LAUNCHES
+from polyrl_tpu_torch.ops.cuda_build import LAUNCHES
 from polyrl_tpu_torch.rollout.cb_engine import STREAM_END
 from polyrl_tpu_torch.rollout.sampling import SamplingParams
 

@@ -1,0 +1,181 @@
+"""Trainer entry point: ``python -m polyrl_tpu_torch.train [--config run.yaml]
+[section.field=value ...]``.
+
+Counterpart of ``polyrl_tpu/train.py`` for the default main path,
+``rollout.mode=colocated`` with ``backend=cb``: compose the config, build
+the tokenizer, model (random weights from ``trainer.seed``), the
+in-process CB engine, reward manager, dataset, actor and (with a KL term)
+the reference policy, assemble the trainer and run ``fit``. ``device``
+defaults to ``cuda`` and raises without a card; ``device=cpu`` runs the
+same path on the CPU with the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import logging
+import sys
+
+import torch
+
+from polyrl_tpu_torch.config import RunConfig, load_config, to_dict
+from polyrl_tpu_torch.device import resolve_device
+
+log = logging.getLogger("polyrl_tpu_torch.train")
+
+
+def build_tokenizer(cfg: RunConfig):
+    from polyrl_tpu_torch.utils.tokenizer import ByteTokenizer, load_tokenizer
+
+    if cfg.tokenizer.kind == "byte":
+        return ByteTokenizer()
+    return load_tokenizer(cfg.tokenizer.name_or_path)
+
+
+def build_dataset(cfg: RunConfig):
+    """The training prompts (validation is not ported yet)."""
+    from polyrl_tpu_torch.data.dataset import RLDataset, make_arithmetic_dataset
+
+    path = cfg.data.train_path
+    if path == "arithmetic":
+        return make_arithmetic_dataset(cfg.data.arithmetic_size, seed=cfg.data.seed)
+    if path.endswith(".jsonl"):
+        return RLDataset.from_jsonl(path)
+    if path.endswith(".parquet"):
+        return RLDataset.from_parquet(path, prompt_key=cfg.data.prompt_key)
+    raise ValueError(f"unsupported dataset path {path!r}")
+
+
+def load_custom_score(path: str):
+    """``compute_score`` from a user file."""
+    spec = importlib.util.spec_from_file_location("polyrl_custom_reward", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.compute_score
+
+
+def _build_model(cfg: RunConfig, device: torch.device):
+    from polyrl_tpu_torch.models import decoder
+
+    if cfg.model.hf_path:
+        raise NotImplementedError("pretrained checkpoints (model.hf_path) are "
+                                  "not ported yet (ROADMAP A')")
+    mcfg = decoder.get_config(cfg.model.preset,
+                              dtype=getattr(torch, cfg.model.dtype),
+                              **cfg.model.overrides)
+    gen = torch.Generator(device=device).manual_seed(cfg.trainer.seed)
+    return mcfg, decoder.init_params(gen, mcfg)
+
+
+def _build_rollout(cfg: RunConfig, mcfg, params, tokenizer, device):
+    if cfg.rollout.mode != "colocated" or cfg.rollout.backend != "cb":
+        raise NotImplementedError(
+            f"rollout.mode={cfg.rollout.mode!r} backend={cfg.rollout.backend!r}"
+            " is not ported yet: only colocated cb (ROADMAP A')")
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+
+    r = cfg.rollout
+    kwargs = {}
+    if r.prompt_buckets:
+        kwargs["prompt_buckets"] = tuple(r.prompt_buckets)
+    return CBEngine(
+        mcfg, params, pad_token_id=tokenizer.pad_token_id,
+        kv_cache_dtype=getattr(torch, r.kv_cache_dtype or cfg.model.dtype),
+        max_slots=r.max_slots, page_size=r.page_size, max_seq_len=r.max_seq_len,
+        num_pages=r.num_pages or None, steps_per_dispatch=r.steps_per_dispatch,
+        admit_wave=r.admit_wave, admit_reorder_window=r.admit_reorder_window,
+        group_share=r.group_share, decode_group_share=r.decode_group_share,
+        group_preref_ttl_s=r.group_preref_ttl_s, seed=cfg.trainer.seed,
+        device=device, **kwargs)
+
+
+def build_trainer(cfg: RunConfig, cleanup: list | None = None,
+                  compute_score=None):
+    """Assemble the trainer from a RunConfig. ``cleanup`` collects teardown
+    callables (the engine's loop thread); ``compute_score`` overrides the
+    reward function (else ``reward.custom_score_path`` or the default
+    per-dataset scorers)."""
+    from polyrl_tpu_torch.data.dataset import PromptDataLoader
+    from polyrl_tpu_torch.rewards.manager import load_reward_manager
+    from polyrl_tpu_torch.trainer.actor import ReferencePolicy, StreamActor
+    from polyrl_tpu_torch.trainer.stream_trainer import StreamRLTrainer
+
+    cleanup = [] if cleanup is None else cleanup
+    device = resolve_device(cfg.device)
+    if cfg.trainer.adv_estimator == "gae":
+        raise NotImplementedError("the critic (GAE) is not ported yet (ROADMAP A')")
+    tokenizer = build_tokenizer(cfg)
+    mcfg, params = _build_model(cfg, device)
+    rollout = _build_rollout(cfg, mcfg, params, tokenizer, device)  # own copy
+    cleanup.append(rollout.stop)
+    if compute_score is None and cfg.reward.custom_score_path:
+        compute_score = load_custom_score(cfg.reward.custom_score_path)
+    reward_manager = load_reward_manager(cfg.reward.manager, tokenizer,
+                                         compute_score=compute_score,
+                                         num_workers=cfg.reward.num_workers)
+    loader = PromptDataLoader(build_dataset(cfg),
+                              cfg.trainer.train_batch_size,
+                              shuffle=cfg.data.shuffle, seed=cfg.data.seed)
+    ref_policy = (ReferencePolicy(mcfg, params)  # a copy, before training
+                  if (cfg.trainer.use_kl_in_reward or cfg.actor.use_kl_loss)
+                  else None)
+    actor = StreamActor(mcfg, cfg.actor, params)  # takes the tensors as its own
+    return StreamRLTrainer(cfg.trainer, actor, rollout, tokenizer,
+                           reward_manager, loader, ref_policy=ref_policy,
+                           logger=_ConsoleLogger())
+
+
+class _ConsoleLogger:
+    """One line per step: wall, reward and policy loss."""
+
+    KEYS = ("perf/step_time_s", "reward/mean", "actor/pg_loss")
+
+    def log(self, metrics: dict, step: int) -> None:
+        brief = {k: round(metrics[k], 4) for k in self.KEYS if k in metrics}
+        print(f"[step {step}] {brief}", flush=True)
+
+
+def _dump(cfg: RunConfig) -> str:
+    try:
+        import yaml
+    except ImportError:  # the config prints as JSON where PyYAML is absent
+        return json.dumps(to_dict(cfg), indent=2)
+    return yaml.safe_dump(to_dict(cfg), sort_keys=False)
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m polyrl_tpu_torch.train",
+        description="Streaming GRPO/PPO trainer on one CUDA device (colocated)")
+    parser.add_argument("--config", default=None, help="YAML run config")
+    parser.add_argument("--print-config", action="store_true",
+                        help="resolve the config, print it, exit")
+    parser.add_argument("overrides", nargs="*",
+                        help="dotted overrides: trainer.total_steps=100 ...")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    cfg = load_config(args.config, args.overrides)
+    if args.print_config:
+        print(_dump(cfg))
+        return 0
+    cleanup: list = []
+    try:
+        trainer = build_trainer(cfg, cleanup)
+        history = trainer.fit()
+        if history:
+            log.info("finished %d steps; final metrics: %s", trainer.global_step,
+                     {k: round(v, 5) for k, v in sorted(history[-1].items())})
+        return 0
+    finally:
+        for fn in reversed(cleanup):
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — teardown must run to the end
+                log.exception("cleanup failed")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,400 @@
+"""Stream PPO/GRPO actor: per-micro forward/backward with gradient
+accumulation, and the optimizer step at minibatch boundaries.
+
+Counterpart of ``polyrl_tpu/trainer/actor.py``: ``ActorConfig``, the
+optimizer of ``make_optimizer``, ``_model_logprobs_entropy``,
+``StreamActor`` (``update_stream``, ``flush_opt_step``,
+``compute_log_prob``) and ``ReferencePolicy``. The attention of every
+forward is ``flash.auto_train_attention()`` by default: K4 on the card.
+
+Where the JAX actor donates its buffers to a jitted update, this one
+updates in place: the actor takes the tensors it is given as its own
+parameters (``requires_grad``), gradients accumulate in ``.grad``, and the
+optimizer writes the new values into the same storage. Whoever needs the
+initial weights afterwards must copy them first, as ``ReferencePolicy``
+and the engine do.
+
+Not ported yet (each raises ``NotImplementedError``): LoRA, meshes
+(sharded parameters), packed rows, pipeline layer stacks and optimizer
+offload.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from polyrl_tpu_torch.models import decoder
+from polyrl_tpu_torch.ops import core_algos, flash
+
+# rows per unembed chunk in no-grad logprob passes: [rows, T_resp, V] f32
+# logits for 4 rows of 448 tokens at vocab 151,936 are 1.1 GB
+_NOGRAD_ROW_CHUNK = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ActorConfig:
+    policy_loss: str = "vanilla"          # vanilla | gpg | clip_cov
+    clip_ratio: float = 0.2
+    clip_ratio_low: float | None = None
+    clip_ratio_high: float | None = None
+    clip_ratio_c: float = 3.0
+    entropy_coeff: float = 0.0
+    use_kl_loss: bool = False             # GRPO-style in-loss KL
+    kl_loss_coef: float = 0.001
+    kl_loss_type: str = "low_var_kl"
+    loss_agg_mode: str = "token-mean"
+    lr: float = 1e-6
+    lr_warmup_steps: int = 0
+    weight_decay: float = 0.01
+    max_grad_norm: float = 1.0
+    offload_optimizer: bool = False       # not ported yet
+    lora_rank: int = 0                    # not ported yet
+    lora_alpha: float = 16.0
+    # skip (do not apply) optimizer updates holding non-finite values, up to
+    # this many in a row; 0 disables the guard
+    max_nonfinite_skips: int = 100
+    ppo_epochs: int = 1
+    remat: bool = True
+
+
+# -- optimizer: optax.chain(clip_by_global_norm, adamw), apply_if_finite ------
+
+
+def _f32(x) -> np.float32:
+    return np.float32(x)
+
+
+def make_schedule(cfg: ActorConfig, total_steps: int = 0) -> Callable[[int], np.float32]:
+    """The learning rate at optimizer count ``c``, in f32 as optax computes
+    it: warmup-cosine when ``total_steps > 0``, else linear warmup from 0
+    (0 at count 0) when ``lr_warmup_steps > 0``, else constant."""
+    lr = _f32(cfg.lr)
+
+    def linear(c, steps):
+        c = min(max(c, 0), steps)
+        return (_f32(0.0) - lr) * (_f32(1) - _f32(c) / _f32(steps)) + lr
+
+    if total_steps > 0:
+        warm = max(cfg.lr_warmup_steps, 1)
+        decay = total_steps - warm
+        if decay <= 0:
+            raise ValueError("warmup-cosine needs total_steps > warmup steps")
+
+        def sched(c):
+            if c < warm:
+                return linear(c, warm)
+            t = _f32(min(c - warm, decay))
+            cos = _f32(0.5) * (_f32(1) + _f32(math.cos(math.pi * float(t) / decay)))
+            return lr * cos
+        return sched
+    if cfg.lr_warmup_steps > 0:
+        return lambda c: linear(c, cfg.lr_warmup_steps)
+    return lambda c: lr
+
+
+@dataclasses.dataclass
+class OptState:
+    count: int                   # AdamW (and schedule) step count
+    mu: list[torch.Tensor]       # first moment, in each parameter's dtype
+    nu: list[torch.Tensor]       # second moment, in each parameter's dtype
+    notfinite_count: int = 0     # consecutive non-finite updates
+    total_notfinite: int = 0     # all non-finite updates seen
+
+
+class Optimizer:
+    """The JAX actor's ``make_optimizer``, step for step:
+    ``clip_by_global_norm(max_norm)`` (scale by ``max_norm / g_norm`` only
+    when ``g_norm >= max_norm``, no epsilon), then AdamW (b1 0.9, b2 0.999,
+    eps 1e-8, decoupled decay on every leaf, the learning rate from the
+    schedule at the optimizer's count), the state in the parameters' dtype,
+    and optionally ``apply_if_finite``: a non-finite gradient is skipped
+    and counted, and applied anyway after ``max_consecutive_errors`` skips
+    in a row. Parameters are updated in place."""
+
+    def __init__(self, max_norm: float, schedule: Callable[[int], np.float32],
+                 weight_decay: float, max_consecutive_errors: int = 0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.max_norm = float(max_norm)
+        self.schedule = schedule
+        self.weight_decay = float(weight_decay)
+        self.max_consecutive_errors = int(max_consecutive_errors)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    @property
+    def guards_nonfinite(self) -> bool:
+        return self.max_consecutive_errors > 0
+
+    def init(self, params: list[torch.Tensor]) -> OptState:
+        return OptState(0, [torch.zeros_like(p) for p in params],
+                        [torch.zeros_like(p) for p in params])
+
+    @staticmethod
+    def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+        """sqrt of the sum of squares of every leaf, in f32."""
+        return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+
+    @torch.no_grad()
+    def step(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+             state: OptState) -> None:
+        if self.guards_nonfinite:
+            finite = bool(torch.stack([torch.isfinite(g).all()
+                                       for g in grads]).all())
+            state.notfinite_count = 0 if finite else state.notfinite_count + 1
+            if not finite:
+                state.total_notfinite += 1
+                if state.notfinite_count <= self.max_consecutive_errors:
+                    return  # rejected: zero update, inner state unchanged
+        g_norm = self.global_norm(grads)
+        clip = not bool(g_norm < self.max_norm)
+        count = state.count + 1
+        bc1 = _f32(1) - _f32(self.b1) ** _f32(count)
+        bc2 = _f32(1) - _f32(self.b2) ** _f32(count)
+        neg_lr = float(-self.schedule(state.count))
+        for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+            dt = p.dtype
+            if clip:
+                g = (g / g_norm.to(dt)) * self.max_norm
+            mu.mul_(self.b1).add_(g * (1 - self.b1))
+            nu.mul_(self.b2).add_(g * g * (1 - self.b2))
+            # optax casts the bias correction to the moment's dtype first
+            mu_hat = mu / float(torch.tensor(bc1).to(dt))
+            nu_hat = nu / float(torch.tensor(bc2).to(dt))
+            u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+            u = u + self.weight_decay * p
+            p.add_(u * neg_lr)
+        state.count = count
+
+
+def make_optimizer(cfg: ActorConfig, total_steps: int = 0) -> Optimizer:
+    """AdamW with gradient clipping; warmup (+ cosine decay when
+    ``total_steps > 0``); the non-finite guard unless
+    ``max_nonfinite_skips == 0``."""
+    return Optimizer(cfg.max_grad_norm, make_schedule(cfg, total_steps),
+                     cfg.weight_decay, cfg.max_nonfinite_skips)
+
+
+# -- forward passes ---------------------------------------------------------------
+
+
+def default_train_attention():
+    """K4 on the card, its plain version on the CPU."""
+    return flash.auto_train_attention()
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: (_tree_map(fn, v) if isinstance(v, dict) else fn(v))
+            for k, v in tree.items()}
+
+
+def _logprobs_entropy_of(h, head, responses, response_mask, compute_entropy):
+    """Logits of the response predictors ``h`` [B, Tr, d] and their
+    logprobs (and entropy), with the finiteness guard of the JAX actor:
+    positions outside the mask are zeroed in the LOGITS before the
+    log-softmax (double where), so a NaN there reaches neither the value
+    nor, through the backward, the shared weight gradients."""
+    keep = response_mask > 0
+    logits = decoder.unembed(h, head)
+    logits = torch.where(keep[..., None], logits, 0.0)
+    logprobs = torch.where(
+        keep, core_algos.logprobs_from_logits(logits, responses), 0.0)
+    entropy = (torch.where(keep, core_algos.entropy_from_logits(logits), 0.0)
+               if compute_entropy else None)
+    return logprobs, entropy
+
+
+def _model_logprobs_entropy(params, model_cfg, input_ids, positions, attn_mask,
+                            responses, response_mask, remat, compute_entropy,
+                            attn_fn=None):
+    """Forward over [B, T_total]; logprobs of the response tokens
+    [B, T_resp] (and their entropy). Logits at position i predict token
+    i + 1, so the predictors of the responses (the last T_resp positions)
+    are the T_resp positions before them. Only those hidden states are
+    unembedded (the same values as slicing the full logits); without
+    autograd, a few rows at a time."""
+    h = decoder.forward_hidden(params, model_cfg, input_ids, positions,
+                               attn_mask, remat=remat, attn_fn=attn_fn)
+    t_resp = responses.shape[1]
+    h = h[:, -t_resp - 1:-1]
+    head = decoder.head_weight(params, model_cfg)
+    if torch.is_grad_enabled():
+        return _logprobs_entropy_of(h, head, responses, response_mask,
+                                    compute_entropy)
+    parts = [_logprobs_entropy_of(h[i:i + _NOGRAD_ROW_CHUNK], head,
+                                  responses[i:i + _NOGRAD_ROW_CHUNK],
+                                  response_mask[i:i + _NOGRAD_ROW_CHUNK],
+                                  compute_entropy)
+             for i in range(0, h.shape[0], _NOGRAD_ROW_CHUNK)]
+    lp = torch.cat([p[0] for p in parts])
+    ent = torch.cat([p[1] for p in parts]) if compute_entropy else None
+    return lp, ent
+
+
+_FEED_DTYPES = {"input_ids": torch.long, "responses": torch.long,
+                "positions": torch.int32}
+
+
+def _to_device(batch: dict, device: torch.device) -> dict:
+    """Host arrays (or tensors) -> tensors on ``device``; ids as int64,
+    positions int32, everything else f32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+        out[k] = t.to(device=device, dtype=_FEED_DTYPES.get(k, torch.float32))
+    return out
+
+
+class StreamActor:
+    """Owns params, optimizer state and accumulated gradients; stream-update
+    semantics: gradients accumulate over ``update_stream`` calls scaled by
+    ``loss_scale``, and the optimizer steps only when ``is_opt_step``."""
+
+    def __init__(self, model_cfg: decoder.ModelConfig, cfg: ActorConfig,
+                 params: Any, mesh=None, attn_fn=None, layers_fn=None,
+                 packed_attn_fn=None):
+        if cfg.lora_rank > 0:
+            raise NotImplementedError("LoRA is not ported yet (ROADMAP A')")
+        if mesh is not None or layers_fn is not None or packed_attn_fn is not None:
+            raise NotImplementedError(
+                "meshes, pipeline stacks and packed attention are not ported "
+                "yet (ROADMAP A')")
+        if cfg.offload_optimizer:
+            raise NotImplementedError("optimizer offload is not ported yet")
+        self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.mesh = None
+        self.attn_fn = attn_fn if attn_fn is not None else default_train_attention()
+        self.params = _tree_map(lambda t: t.detach().requires_grad_(True), params)
+        self._named = list(_leaves(self.params))
+        self.device = self._named[0][1].device
+        self.optimizer = make_optimizer(cfg)
+        self.opt_state = self.optimizer.init([p for _, p in self._named])
+        # sum of loss_scales accumulated since the last optimizer step: a
+        # tail flush renormalizes by it (mean over the micros it holds)
+        self._accum_scale = 0.0
+
+    def export_params(self) -> dict:
+        """The parameters in the plain layout the rollout engine takes."""
+        return self.params
+
+    def _loss_fn(self, batch: dict, loss_scale: float):
+        cfg = self.cfg
+        if "segment_ids" in batch:
+            raise NotImplementedError("packed rows are not ported yet")
+        logprobs, entropy = _model_logprobs_entropy(
+            self.params, self.model_cfg, batch["input_ids"], batch["positions"],
+            batch["attention_mask"], batch["responses"], batch["response_mask"],
+            cfg.remat, cfg.entropy_coeff != 0.0, attn_fn=self.attn_fn)
+        loss_fn = core_algos.get_policy_loss_fn(cfg.policy_loss)
+        if cfg.policy_loss != "gpg":
+            pg_loss, clipfrac, approx_kl, clipfrac_lower = loss_fn(
+                batch["old_log_probs"], logprobs, batch["advantages"],
+                batch["response_mask"], clip_ratio=cfg.clip_ratio,
+                clip_ratio_low=cfg.clip_ratio_low,
+                clip_ratio_high=cfg.clip_ratio_high,
+                clip_ratio_c=cfg.clip_ratio_c, loss_agg_mode=cfg.loss_agg_mode)
+        else:
+            pg_loss, clipfrac, approx_kl, clipfrac_lower = loss_fn(
+                batch["old_log_probs"], logprobs, batch["advantages"],
+                batch["response_mask"], loss_agg_mode=cfg.loss_agg_mode)
+        loss = pg_loss
+        metrics = {"actor/pg_loss": pg_loss, "actor/clipfrac": clipfrac,
+                   "actor/approx_kl": approx_kl,
+                   "actor/clipfrac_lower": clipfrac_lower}
+        if cfg.entropy_coeff != 0.0:
+            ent = core_algos.agg_loss(entropy, batch["response_mask"],
+                                      cfg.loss_agg_mode)
+            loss = loss - cfg.entropy_coeff * ent
+            metrics["actor/entropy"] = ent
+        if cfg.use_kl_loss:
+            kld = core_algos.kl_penalty(logprobs, batch["ref_log_probs"],
+                                        cfg.kl_loss_type)
+            kl_loss = core_algos.agg_loss(kld, batch["response_mask"],
+                                          cfg.loss_agg_mode)
+            loss = loss + cfg.kl_loss_coef * kl_loss
+            metrics["actor/kl_loss"] = kl_loss
+        return loss * loss_scale, metrics
+
+    def _grads(self) -> list[torch.Tensor]:
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for _, p in self._named]
+
+    def _opt_step(self, inv_scale: float = 1.0) -> dict:
+        grads = self._grads()
+        if inv_scale != 1.0:
+            grads = [g * inv_scale for g in grads]
+        metrics = {"actor/grad_norm": float(self.optimizer.global_norm(grads))}
+        self.optimizer.step([p for _, p in self._named], grads, self.opt_state)
+        if self.optimizer.guards_nonfinite:
+            metrics["actor/nonfinite_skips"] = float(
+                self.opt_state.total_notfinite)
+        for _, p in self._named:
+            p.grad = None
+        return metrics
+
+    def update_stream(self, batch: dict, is_opt_step: bool,
+                      loss_scale: float = 1.0) -> dict:
+        """One sub-minibatch forward/backward (+ optimizer step at the
+        boundary). ``batch`` holds input_ids, positions, attention_mask,
+        responses, response_mask, advantages, old_log_probs [,
+        ref_log_probs] as host arrays or tensors. Returns float metrics."""
+        feed = _to_device(batch, self.device)
+        with torch.enable_grad():
+            loss, metrics = self._loss_fn(feed, loss_scale)
+            loss.backward()
+        metrics = {k: float(v.detach()) for k, v in metrics.items()}
+        if is_opt_step:
+            metrics.update(self._opt_step())
+        self._accum_scale = 0.0 if is_opt_step else self._accum_scale + loss_scale
+        return metrics
+
+    def flush_opt_step(self) -> dict:
+        """Apply the accumulated gradients without new data (a short batch
+        ending mid-minibatch), renormalized by the summed loss_scale so the
+        partial minibatch's update has the scale of a full one."""
+        inv = 1.0 / self._accum_scale if self._accum_scale > 0 else 1.0
+        metrics = self._opt_step(inv)
+        self._accum_scale = 0.0
+        return {"actor/grad_norm": metrics["actor/grad_norm"]}
+
+    @torch.no_grad()
+    def compute_log_prob(self, batch: dict, compute_entropy: bool = True):
+        """Old-logprob pass (no grad, no remat). Returns (logprobs,
+        entropy | None) as tensors on the actor's device."""
+        feed = _to_device(batch, self.device)
+        return _model_logprobs_entropy(
+            self.params, self.model_cfg, feed["input_ids"], feed["positions"],
+            feed["attention_mask"], feed["responses"], feed["response_mask"],
+            remat=False, compute_entropy=compute_entropy, attn_fn=self.attn_fn)
+
+
+class ReferencePolicy:
+    """Frozen reference policy for the KL terms. Owns a COPY of the params:
+    the actor updates its tensors in place."""
+
+    def __init__(self, model_cfg: decoder.ModelConfig, params: Any, attn_fn=None):
+        self.model_cfg = model_cfg
+        self.params = _tree_map(lambda t: t.detach().clone(), params)
+        self.device = next(iter(_leaves(self.params)))[1].device
+        self.attn_fn = attn_fn if attn_fn is not None else default_train_attention()
+
+    @torch.no_grad()
+    def compute_log_prob(self, batch: dict) -> torch.Tensor:
+        feed = _to_device(batch, self.device)
+        lp, _ = _model_logprobs_entropy(
+            self.params, self.model_cfg, feed["input_ids"], feed["positions"],
+            feed["attention_mask"], feed["responses"], feed["response_mask"],
+            remat=False, compute_entropy=False, attn_fn=self.attn_fn)
+        return lp

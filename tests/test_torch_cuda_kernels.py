@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops import paged_attention as tpa
 
 PAGE = 8
@@ -103,7 +104,7 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     case = _t(case, cuda_device)
     for i in (0, 1, 2):
         case[i] = case[i].to(dtype)
-    tpa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     full = tpa.paged_attention(*case[:5])
     grouped = tpa.grouped_paged_attention(*case)
     torch.cuda.synchronize()
@@ -130,8 +131,9 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
                                     ku, vu)
     torch.cuda.synchronize()
     assert torch.equal(kp, rk) and torch.equal(vp, rv)
-    assert tpa.LAUNCHES == {"paged_kv_write": 1, "paged_attention": 1,
-                            "grouped_paged_attention": 1}
+    assert {k: cuda_build.LAUNCHES[k] for k in (
+        "paged_kv_write", "paged_attention", "grouped_paged_attention")} == {
+        "paged_kv_write": 1, "paged_attention": 1, "grouped_paged_attention": 1}
 
 
 @pytest.mark.cuda
@@ -165,3 +167,133 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     pool16 = torch.zeros((2, 4, 64, 64), device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError):  # no kernel is built for float16
         tpa.paged_attention(q16, pool16, pool16, pt, lens)
+
+
+# -- K4: training flash attention, forward and backward --------------------------
+
+
+def flash_case(rng, b=3, t=200, hq=8, hkv=2, d=128, pad=(0, 37, 0), tail=(0, 0, 23),
+               packed=None):
+    """q/k/v/dout from a numpy seed and a [B, T] mask: row i has ``pad[i]``
+    left pads and ``tail[i]`` right pads; ``packed`` (a row index) gets
+    segment ids 1/2/3 over three stretches instead (pads 0)."""
+    q = rng.standard_normal((b, t, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
+    do = rng.standard_normal((b, t, hq, d)).astype(np.float32)
+    mask = np.ones((b, t), np.float32)
+    for i in range(b):
+        mask[i, :pad[i]] = 0
+        if tail[i]:
+            mask[i, t - tail[i]:] = 0
+    seg = mask.astype(np.int32)
+    if packed is not None:
+        cuts = sorted(rng.choice(np.arange(8, t - 8), 2, replace=False))
+        seg[packed] = np.concatenate([np.full(cuts[0], 1), np.full(cuts[1] - cuts[0], 2),
+                                      np.full(t - cuts[1], 3)]).astype(np.int32)
+        seg[packed, t - 5:] = 0  # pads after the last segment
+    return q, k, v, do, mask, seg
+
+
+def rel_err(a, b):
+    """Relative Frobenius error ||a - b|| / ||b||."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _flash_both(case, device, dtype, causal=True):
+    from polyrl_tpu_torch.ops import flash
+
+    q, k, v, do, mask, seg = _t(case, device)
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    outs = []
+    for fn in (flash.flash_attention_train, flash.flash_attention_train_ref):
+        qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+        o = fn(qq, kk, vv, mask, causal=causal, segment_ids=seg)
+        o.backward(do)
+        outs.append((o.detach(), qq.grad, kk.grad, vv.grad))
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,hkv", [(torch.float32, 128, 2),
+                                         (torch.float32, 64, 8),
+                                         (torch.bfloat16, 128, 4),
+                                         (torch.bfloat16, 64, 2)])
+def test_cuda_flash_matches_plain(cuda_device, dtype, d, hkv):
+    """K4 forward and backward against the plain version (autograd through
+    it, f32 softmax) at a T that tiles by no block (200), with left and
+    right pads and a packed row of 3 segments. f32: out within 2e-4, each
+    gradient within 1e-4 relative Frobenius error (reduction order only).
+    bf16: out within rtol 1e-2 / atol 2e-3 (rounded to bf16 once, one ulp
+    is at most 2^-7 of the value), gradients within 1e-2."""
+    rng = np.random.default_rng(21)
+    case = flash_case(rng, d=d, hkv=hkv, packed=0)
+    cuda_build.reset_launch_counts()
+    (o, dq, dk, dv), (ro, rdq, rdk, rdv) = _flash_both(case, cuda_device, dtype)
+    assert cuda_build.LAUNCHES["flash_attention_fwd"] == 1
+    assert cuda_build.LAUNCHES["flash_attention_bwd"] == 1
+    tol = (dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=2e-3))
+    gtol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    for name, g, rg in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        assert rel_err(g, rg) <= gtol, (name, rel_err(g, rg))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_non_causal_and_long_rows(cuda_device):
+    """Non-causal attention (every K/V tile) and a row of 1,000 tokens
+    (16 tiles, the last ragged), in f32."""
+    rng = np.random.default_rng(22)
+    for causal, t in ((False, 130), (True, 1000)):
+        case = flash_case(rng, b=2, t=t, hq=4, hkv=2, d=64, pad=(5, 0),
+                          tail=(0, 9), packed=1)
+        (o, dq, dk, dv), (ro, rdq, rdk, rdv) = _flash_both(
+            case, cuda_device, torch.float32, causal=causal)
+        torch.testing.assert_close(o, ro, rtol=2e-4, atol=2e-4)
+        for g, rg in ((dq, rdq), (dk, rdk), (dv, rdv)):
+            assert rel_err(g, rg) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_flash_survives_checkpoint_recompute(cuda_device):
+    """Under torch.utils.checkpoint (the decoder's remat) the forward runs
+    twice and the gradients equal the plain autograd ones."""
+    from torch.utils.checkpoint import checkpoint
+
+    from polyrl_tpu_torch.ops import flash
+
+    rng = np.random.default_rng(23)
+    q, k, v, do, mask, _seg = _t(flash_case(rng, b=2, t=96, hq=4, hkv=2, d=64,
+                                            pad=(3, 0), tail=(0, 4)), cuda_device)
+    grads = []
+    cuda_build.reset_launch_counts()
+    for remat in (True, False):
+        qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+        def f(a, b_, c):
+            return flash.flash_attention_train(a * 1.5, b_, c, mask)
+        o = checkpoint(f, qq, kk, vv, use_reentrant=False) if remat else f(qq, kk, vv)
+        o.backward(do)
+        grads.append((qq.grad, kk.grad, vv.grad))
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["flash_attention_fwd"] == 3
+    assert cuda_build.LAUNCHES["flash_attention_bwd"] == 2
+    for a, b_ in zip(*grads):
+        torch.testing.assert_close(a, b_, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
+    from polyrl_tpu_torch.ops import flash
+
+    mask = torch.ones((1, 16), device=cuda_device)
+    for d, dtype in ((96, torch.float32), (64, torch.float16)):
+        x = torch.zeros((1, 16, 2, d), device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError):
+            flash.flash_attention_train(x, x, x, mask)
+    x = torch.zeros((1, 2, 16, 64), device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError):  # not contiguous
+        flash.flash_attention_train(x, x, x, mask)

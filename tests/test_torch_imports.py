@@ -92,3 +92,21 @@ def test_chip_smoke_refuses_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_train_cli_prints_config_and_refuses_missing_cuda():
+    """``--print-config`` resolves dotted overrides without a card; a run
+    without one fails instead of training on the CPU."""
+    out = subprocess.run(
+        [sys.executable, "-m", "polyrl_tpu_torch.train", "--print-config",
+         "trainer.total_steps=7"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "total_steps: 7" in out.stdout or '"total_steps": 7' in out.stdout
+    assert "device: cuda" in out.stdout or '"device": "cuda"' in out.stdout
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "polyrl_tpu_torch.train", "model.preset=tiny"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "cuda" in out.stderr

@@ -15,6 +15,7 @@ import torch
 
 from polyrl_tpu.models.decoder import _scatter_token_kv
 from polyrl_tpu.ops import paged_attention as jpa
+from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops import paged_attention as tpa
 from test_torch_cuda_kernels import PAGE, grouped_case as _grouped_case
 
@@ -119,9 +120,9 @@ def test_kv_write_bitwise_vs_pallas_and_scatter():
 
 
 def test_cpu_wrappers_do_not_count_launches():
-    tpa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     rng = np.random.default_rng(0)
     case = _grouped_case(rng)
     tpa.grouped_paged_attention(*_t(case))
     tpa.paged_attention(*_t(case[:5]))
-    assert all(v == 0 for v in tpa.LAUNCHES.values())
+    assert all(v == 0 for v in cuda_build.LAUNCHES.values())

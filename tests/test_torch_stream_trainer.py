@@ -1,0 +1,268 @@
+"""The port's colocated trainer on the CPU: a torch copy of the JAX
+end-to-end GRPO test on ``CBEngine(device="cpu")``, the config checks,
+the ReMax baseline semantics, one fixed ibatch through both packages'
+``_process_ibatch``, and the engine's ownership of its weights.
+
+Parity tolerance (old/ref logprobs, rewards, advantages): rtol=atol=1e-4,
+exact f32 on both sides in another reduction order (the advantage is a
+z-score of per-sequence rewards, which are equal on both sides).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from polyrl_tpu.data.dataset import make_arithmetic_dataset as j_make_dataset
+from polyrl_tpu.models import decoder as jdec
+from polyrl_tpu.rewards.manager import load_reward_manager as j_load_rm
+from polyrl_tpu.trainer import actor as jactor
+from polyrl_tpu.trainer import stream_trainer as jst
+from polyrl_tpu.utils.tokenizer import ByteTokenizer as JByteTokenizer
+from polyrl_tpu_torch.data.dataset import PromptDataLoader, make_arithmetic_dataset
+from polyrl_tpu_torch.models import decoder
+from polyrl_tpu_torch.models.convert import params_from_numpy
+from polyrl_tpu_torch.rewards.manager import load_reward_manager
+from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+from polyrl_tpu_torch.trainer.actor import ActorConfig, ReferencePolicy, StreamActor
+from polyrl_tpu_torch.trainer.stream_trainer import StreamRLTrainer, TrainerConfig
+from polyrl_tpu_torch.utils.metrics import MetricsTracker
+from polyrl_tpu_torch.utils.tokenizer import ByteTokenizer
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _tiny(seed=0):
+    cfg = decoder.get_config("tiny", dtype=torch.float32, vocab_size=512,
+                             max_position_embeddings=128)
+    params = decoder.init_params(torch.Generator().manual_seed(seed), cfg)
+    return cfg, params
+
+
+def make_parts():
+    cfg, params = _tiny()
+    tok = ByteTokenizer()
+    engine = CBEngine(cfg, params, pad_token_id=tok.pad_token_id, max_slots=8,
+                      page_size=8, max_seq_len=32, prompt_buckets=(16,),
+                      num_pages=64, kv_cache_dtype=torch.float32, device="cpu")
+    return cfg, params, tok, engine
+
+
+def _snapshot(tree):
+    return {k: (_snapshot(v) if isinstance(v, dict) else v.detach().clone())
+            for k, v in tree.items()}
+
+
+def _leaves(tree, prefix=""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def test_grpo_e2e_two_steps():
+    cfg, params, tok, engine = make_parts()
+    tcfg = TrainerConfig(
+        train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
+        micro_batch_size=4, min_stream_batch_size=4,
+        max_prompt_length=16, max_response_length=8,
+        adv_estimator="grpo", total_steps=2, temperature=1.0)
+    params0 = _snapshot(params)
+    actor = StreamActor(cfg, ActorConfig(lr=1e-4, remat=False, use_kl_loss=True),
+                        params)
+    ref = ReferencePolicy(cfg, params)
+    trainer = StreamRLTrainer(
+        tcfg, actor, engine, tok, load_reward_manager("naive", tok, num_workers=1),
+        PromptDataLoader(make_arithmetic_dataset(64), tcfg.train_batch_size),
+        ref_policy=ref)
+    try:
+        history = trainer.fit()
+    finally:
+        engine.stop()
+    assert len(history) == 2
+    for h in history:
+        assert "actor/pg_loss" in h
+        assert "reward/mean" in h
+        assert h["perf/step_time_s"] > 0
+        assert "timing_s/gen" in h and "timing_s/update_actor" in h
+        assert "perf/mfu" in h and "actor/kl_loss" in h
+    assert trainer.global_step == 2
+    assert engine.weight_version == 3  # bootstrap + one push per step
+    diff = sum(float((a - b.detach()).abs().sum()) for (_, a), (_, b) in
+               zip(_leaves(params0), _leaves(actor.params)))
+    assert diff > 0.0
+    # the engine holds the actor's last weights, in its own storage
+    for (name, a), (_, e) in zip(_leaves(actor.params), _leaves(engine.params)):
+        assert torch.equal(a.detach(), e), name
+        assert a.data_ptr() != e.data_ptr(), name
+
+
+def test_config_validation():
+    with pytest.raises(ValueError):
+        TrainerConfig(train_batch_size=3, rollout_n=3, ppo_mini_batch_size=8)
+    with pytest.raises(ValueError):  # group split across ibatches
+        TrainerConfig(train_batch_size=8, rollout_n=3, ppo_mini_batch_size=24,
+                      micro_batch_size=1, min_stream_batch_size=4)
+    with pytest.raises(ValueError):
+        TrainerConfig(staleness_limit=2)
+    with pytest.raises(ValueError):
+        TrainerConfig(weight_sync="bogus")
+
+
+def test_gae_and_unported_features_are_refused():
+    cfg, params, tok, engine = make_parts()
+    actor = StreamActor(cfg, ActorConfig(remat=False), params)
+    base = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
+                micro_batch_size=4, min_stream_batch_size=4)
+    with pytest.raises(ValueError):
+        StreamRLTrainer(TrainerConfig(adv_estimator="gae", **base), actor, engine,
+                        tok, None, None)
+    for extra in (dict(pipeline_depth=1), dict(use_remove_padding=True),
+                  dict(ckpt_dir="ckpt"), dict(test_freq=2)):
+        with pytest.raises(NotImplementedError):
+            StreamRLTrainer(TrainerConfig(**base, **extra), actor, engine, tok,
+                            None, None)
+
+
+def test_remax_e2e_and_baseline_semantics():
+    """advantages = (sampled reward - greedy-baseline reward) * mask, with
+    ONE greedy rollout per prompt group."""
+    cfg, params, tok, engine = make_parts()
+    tcfg = TrainerConfig(
+        train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
+        micro_batch_size=4, min_stream_batch_size=8,
+        max_prompt_length=16, max_response_length=8,
+        adv_estimator="remax", total_steps=1, temperature=1.0)
+    actor = StreamActor(cfg, ActorConfig(lr=1e-4, remat=False), params)
+    trainer = StreamRLTrainer(
+        tcfg, actor, engine, tok, load_reward_manager(
+            "naive", tok, compute_score=lambda ds, txt, gt, ex: float(len(txt)),
+            num_workers=1),
+        PromptDataLoader(make_arithmetic_dataset(64), tcfg.train_batch_size))
+    try:
+        records = make_arithmetic_dataset(8).records[:4]
+        metrics = MetricsTracker()
+        ibatch = next(trainer._ibatch_iter(records, None, metrics))
+        out = trainer._process_ibatch(ibatch, metrics)
+        adv = np.asarray(out["advantages"])
+        mask = np.asarray(out["response_mask"])
+        scores = np.asarray(out["token_level_rewards"]).sum(-1)
+        gids = np.asarray(out["group_ids"])
+        row_adv = np.where(mask.sum(-1) > 0,
+                           adv.sum(-1) / np.maximum(mask.sum(-1), 1), 0.0)
+        base = scores - row_adv
+        for g in np.unique(gids):
+            vals = base[gids == g]
+            np.testing.assert_allclose(vals, vals[0], atol=1e-5)
+        history = trainer.fit()
+    finally:
+        engine.stop()
+    assert "reward/remax_baseline_mean" in history[0]
+    assert "timing_s/remax_baseline" in history[0]
+
+
+def _fake_outputs(rng, n, tr, vocab=256):
+    outs = []
+    for i in range(n):
+        ln = int(rng.integers(1, tr + 1))
+        outs.append({"token_ids": rng.integers(1, vocab, ln).tolist(),
+                     "logprobs": (-5.5 + 0.3 * rng.standard_normal(ln)).tolist(),
+                     "weight_versions": [1] * ln})
+    return outs
+
+
+class _StubRollout:
+    """What ``_process_ibatch`` and the batch assembly read of a rollout."""
+
+    pad_token_id = 256
+    weight_version = 1
+    last_gen_throughput = 0.0
+
+    def generate(self, *a, **k):  # never called here
+        raise AssertionError
+
+
+@pytest.mark.parametrize("est", ["grpo", "rloo", "reinforce_plus_plus"])
+def test_process_ibatch_matches_jax_trainer(est):
+    """One fixed ibatch (prompts, sampled responses and their behavior
+    logprobs) through both trainers' ``_process_ibatch``: rewards, old and
+    ref logprobs, KL-in-reward, advantages and the TIS weights agree."""
+    jcfg = jdec.get_config("tiny", dtype=jnp.float32, vocab_size=512,
+                           max_position_embeddings=128)
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  jdec.init_params(jax.random.PRNGKey(3), jcfg))
+    tcfg = decoder.get_config("tiny", dtype=torch.float32, vocab_size=512,
+                              max_position_embeddings=128)
+    kw = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
+              micro_batch_size=4, min_stream_batch_size=8, max_prompt_length=16,
+              max_response_length=8, adv_estimator=est, use_kl_in_reward=True,
+              kl_coef=0.05, rollout_is_correction=True, rollout_is_cap=1.5)
+
+    def score(ds, txt, gt, ex):
+        return float(len(txt)) + (1.0 if gt in txt else 0.0)
+
+    jt = jst.StreamRLTrainer(
+        jst.TrainerConfig(**kw),
+        jactor.StreamActor(jcfg, jactor.ActorConfig(remat=False),
+                           jax.tree_util.tree_map(jnp.asarray, tree)),
+        _StubRollout(), JByteTokenizer(),
+        j_load_rm("naive", JByteTokenizer(), compute_score=score, num_workers=1),
+        None, ref_policy=jactor.ReferencePolicy(
+            jcfg, jax.tree_util.tree_map(jnp.asarray, tree)), health=False)
+    tp = params_from_numpy(tree, "cpu", torch.float32)
+    tt = StreamRLTrainer(
+        TrainerConfig(**kw), StreamActor(tcfg, ActorConfig(remat=False), tp),
+        _StubRollout(), ByteTokenizer(),
+        load_reward_manager("naive", ByteTokenizer(), compute_score=score,
+                            num_workers=1),
+        None, ref_policy=ReferencePolicy(tcfg, params_from_numpy(tree, "cpu",
+                                                                 torch.float32)))
+    records = j_make_dataset(8, seed=4).records[:4]
+    rng = np.random.default_rng(5)
+    outs = _fake_outputs(rng, 8, 8)
+    jp, jg, js = jt._prepare_prompts(records)
+    tp_, tg, ts = tt._prepare_prompts(records)
+    assert jp == tp_ and jg == tg and js == ts
+    gids = np.repeat(np.arange(4, dtype=np.int32), 2)
+    jb = jt._assemble_batch(jp, jg, js, [jst._ResultView(o) for o in outs], gids)
+    from polyrl_tpu_torch.trainer.stream_trainer import _ResultView
+    tb = tt._assemble_batch(tp_, tg, ts, [_ResultView(o) for o in outs], gids)
+    for k in jb.tensors:
+        np.testing.assert_array_equal(np.asarray(tb[k]), np.asarray(jb[k]), err_msg=k)
+    from polyrl_tpu.utils.metrics import MetricsTracker as JMetrics
+
+    jm, tm = JMetrics(), MetricsTracker()
+    jb = jt._process_ibatch(jb, jm)
+    tb = tt._process_ibatch(tb, tm)
+    for k in ("old_log_probs", "ref_log_probs", "token_level_rewards",
+              "advantages", "returns"):
+        np.testing.assert_allclose(np.asarray(tb[k]), np.asarray(jb[k]), err_msg=k,
+                                   **TOL)
+    jd, td = jm.as_dict(), tm.as_dict()
+    for k in ("reward/mean", "reward/max", "actor/entropy_rollout",
+              "critic/kl_in_reward", "actor/tis_weight_mean", "actor/tis_clip_frac"):
+        np.testing.assert_allclose(td[k], jd[k], err_msg=k, **TOL)
+
+
+def test_engine_owns_its_weights():
+    """The engine copies its parameters at construction: an in-place
+    change to the caller's tensors (a colocated actor's optimizer step)
+    leaves the engine's weights alone; ``update_weights`` still copies
+    and bumps ``weight_version``."""
+    cfg, params, tok, engine = make_parts()
+    before = engine.params["layers"]["wq"].clone()
+    with torch.no_grad():
+        params["layers"]["wq"].add_(1.0)
+        params["embed"].mul_(2.0)
+    assert torch.equal(engine.params["layers"]["wq"], before)
+    assert engine.params["layers"]["wq"].data_ptr() != params["layers"]["wq"].data_ptr()
+    v0 = engine.weight_version
+    engine.update_weights(params)
+    assert engine.weight_version == v0 + 1
+    assert torch.equal(engine.params["layers"]["wq"], params["layers"]["wq"])
+    assert engine.params["embed"].data_ptr() != params["embed"].data_ptr()
+    with torch.no_grad():
+        params["embed"].zero_()
+    assert not torch.equal(engine.params["embed"], params["embed"])
