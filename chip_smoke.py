@@ -7,7 +7,9 @@ Needs one CUDA device and ``nvcc``; exits non-zero and prints no result
 when CUDA is unavailable or any phase fails. Phases:
 
 1. build   -- compile every kernel library from ``csrc/`` (K1-K4; one nvcc
-              per source, all started together).
+              per source, all started together), and log each K4 kernel's
+              registers per thread and spill bytes from the compiler's
+              ``-Xptxas -v`` report: a spill in a bf16 K4 kernel fails.
 2. kernels -- each kernel against its plain PyTorch version at the serving
               path's shapes (Hq 16, Hkv 8, D 128, page 64, 64 slots, bf16
               pools, lengths 1..4096, a G=8 group table with a padded -1
@@ -25,11 +27,14 @@ when CUDA is unavailable or any phase fails. Phases:
               segments: out within rtol 1e-2 / atol 2e-3, each of dq, dk,
               dv within a relative Frobenius error of 1e-2; the kernel
               with each row's first real token marked as pad must fail
-              both. Times are device time per call: CUDA events around
-              replays of a CUDA graph of back-to-back calls, median over
-              several replays (backward passes through autograd -- the
-              plain version's and SDPA's -- by CUDA events around
-              back-to-back calls instead).
+              both; at the train shapes K4's backward run twice on the
+              same inputs must give bitwise equal dq, dk, dv (no atomics,
+              a fixed summation order). Times are device time per call:
+              CUDA events around replays of a CUDA graph of back-to-back
+              calls, median over several replays (backward passes through
+              autograd -- the plain version's and SDPA's -- by CUDA events
+              around back-to-back calls queued behind a spin kernel
+              instead); K4's backward is also timed kernel by kernel.
 3. serve   -- ``create_server("qwen3-1.7b", device="cuda")`` at full width
               and depth with random weights from a seed; over HTTP, the
               main path: two GRPO groups of 8 samples (temperature 1.0,
@@ -431,20 +436,61 @@ def visible_pairs(seg: torch.Tensor) -> int:
     return int((same & causal).sum())
 
 
+SPIN_CYCLES = 100_000_000  # about 50 ms of the SM clock
+
+
 def events_ms(fn, reps: int, warmup: int = 1) -> float:
     """Per-call device ms of back-to-back calls between CUDA events, for
-    work a CUDA graph cannot capture (autograd backward passes)."""
+    work a CUDA graph cannot capture (autograd backward passes). The calls
+    are queued behind a spin kernel, so the device runs them back to back
+    even where the host issues them slower than the device runs them
+    (autograd's host cost can exceed a short backward's device time); a
+    check fails if the host took longer to queue them than the spin
+    lasted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    s = torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(SPIN_CYCLES)
     a.record()
+    t0 = time.monotonic()
     for _ in range(reps):
         fn()
+    host_ms = (time.monotonic() - t0) * 1e3
     b.record()
     b.synchronize()
+    check(host_ms < s.elapsed_time(a),
+          f"events_ms: queueing took {host_ms:.1f} ms, longer than the "
+          f"{s.elapsed_time(a):.1f} ms spin")
     return a.elapsed_time(b) / reps
+
+
+def flash_bwd_parts_ms(q, k, v, seg, o, lse, do, reps: int, inner: int) -> dict:
+    """Device ms of each of K4's three backward kernels, launched with the
+    arguments ``flash.flash_bwd_cuda`` gives them (through the raw entry
+    points, so they are not counted as launches)."""
+    b, t, hq, d = q.shape
+    code, scale = cuda_build.DTYPE_CODE[q.dtype], float(d ** -0.5)
+    delta = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    shape = (code, b, t, hq, k.shape[2], d, 1, scale)
+
+    def call(entry, *args):
+        return lambda: cuda_build.launch(  # the stream is the capturing one
+            "flash_attention_bwd", *args, cuda_build.stream_of(q.device),
+            entry=f"polyrl_flash_attention_bwd_{entry}")
+
+    calls = {"delta": call("delta", o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                           code, b, t, hq, d),
+             "dq": call("dq", *ptrs, dq.data_ptr(), *shape),
+             "dk/dv": call("dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), *shape)}
+    calls["delta"]()
+    return {name: cuda_ms(fn, reps, inner) for name, fn in calls.items()}
 
 
 def wrapper_grads(fn, q, k, v, mask, seg, do):
@@ -455,12 +501,14 @@ def wrapper_grads(fn, q, k, v, mask, seg, do):
     return out.detach(), torch.autograd.grad(out, leaves, do)
 
 
-def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int):
+def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int,
+                     repeat: bool = False):
     """K4 through its public wrapper (``flash_attention_train`` and its
     autograd Function) against autograd through its plain version on one
     case; the planted fault (each row's first real token marked as pad)
-    must fail both the output and the gradient tolerances. Returns (fwd
-    row, bwd row) without launches."""
+    must fail both the output and the gradient tolerances; with
+    ``repeat``, two backward calls on the same inputs must agree bitwise.
+    Returns (fwd row, bwd row) without launches."""
     c = flash_inputs(dev, b, t, seed)
     q, k, v, do, mask, seg = (c[x] for x in ("q", "k", "v", "do", "mask", "seg"))
     o, (dq, dk, dv) = wrapper_grads(flash.flash_attention_train, q, k, v, mask,
@@ -510,13 +558,25 @@ def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int):
         + " (fails the out and the gradient checks)")
     del bo, bad_grads
 
+    _, lse = flash.flash_fwd_cuda(q, k, v, seg, True)
+    if repeat:
+        # determinism: the backward twice on the same inputs, bitwise
+        first = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True)
+        second = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b_) for a, b_ in zip(first, second)),
+              f"K4 backward ({label}) differs between two calls on the same inputs")
+        log(f"kernel flash_attention ({label}): the backward twice on the "
+            f"same inputs gives bitwise equal dq, dk, dv")
+        del first, second
+
     # times: the kernels' launchers by graph replay (the backward needs the
     # forward's LSE); autograd backward passes by events
-    _, lse = flash.flash_fwd_cuda(q, k, v, seg, True)
     inner = max(1, 2048 // t)
     ms_f = cuda_ms(lambda: flash.flash_fwd_cuda(q, k, v, seg, True), reps, inner)
     ms_b = cuda_ms(lambda: flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True),
                    reps, inner)
+    parts = flash_bwd_parts_ms(q, k, v, seg, o, lse, do, reps, inner)
     plain_f = cuda_ms(lambda: flash.flash_attention_train_ref(
         q, k, v, mask, segment_ids=seg), reps)
     plain_b = events_ms(lambda: torch.autograd.grad(ref, leaves, do,
@@ -546,9 +606,10 @@ def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int):
     log(f"kernel flash_attention ({label}): fwd ms {ms_f:.4f} (plain {plain_f:.4f}, "
         f"SDPA {lib_f:.4f}, bound {bf:.4f} by {hf}); bwd ms {ms_b:.4f} (plain "
         f"{plain_b:.4f}, SDPA {lib_b:.4f}, bound {bb:.4f} by {hb}); "
-        f"{pairs} visible pairs per head; SDPA vs K4 out max diff {lerr:.3g}; "
+        f"bwd by kernel: " + ", ".join(f"{n} {ms:.4f}" for n, ms in parts.items())
+        + f"; {pairs} visible pairs per head; SDPA vs K4 out max diff {lerr:.3g}; "
         f"plain and SDPA backward timed by CUDA events around {reps} "
-        f"back-to-back autograd calls")
+        f"back-to-back autograd calls queued behind a spin kernel")
     fwd = dict(name="flash_attention_fwd", max_abs_err=err_o, ms=ms_f,
                plain_ms=plain_f, bound_ms=bf, bound_by=hf, library_ms=lib_f)
     bwd = dict(name="flash_attention_bwd", max_abs_err=err_g, ms=ms_b,
@@ -559,11 +620,27 @@ def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int):
 def check_flash(dev) -> list[dict]:
     """K4 at the train phase's shapes (its rows in the kernels line) and at
     the long case (logged)."""
-    rows = flash_case_check(dev, 4, 512, 7, "train phase shapes", reps=10)
+    rows = flash_case_check(dev, 4, 512, 7, "train phase shapes", reps=10,
+                            repeat=True)
     torch.cuda.empty_cache()
     flash_case_check(dev, 1, 4096, 8, "long case", reps=3)
     torch.cuda.empty_cache()
     return list(rows)
+
+
+def flash_build_report() -> None:
+    """Each K4 kernel's registers per thread and spill bytes, from the
+    ``-Xptxas -v`` report of its library's build; the bf16 kernels (the
+    training path) must not spill."""
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        rows = cuda_build.ptxas_report(name)
+        check(rows, f"{name}: no ptxas report in its build log")
+        log(f"build {name}: " + "; ".join(
+            f"{r['kernel']} {r['registers']} registers, spill stores/loads "
+            f"{r['spill_stores']}/{r['spill_loads']} B" for r in rows))
+        for r in rows:
+            check("bf16" not in r["kernel"] or r["spill_stores"] + r["spill_loads"] == 0,
+                  f"{r['kernel']} spills {r['spill_stores']}/{r['spill_loads']} bytes")
 
 
 # -- phase 3: the engine over HTTP -------------------------------------------------
@@ -1106,6 +1183,7 @@ def main() -> int:
     secs = cuda_build.build()
     log(f"build: {time.monotonic() - t0:.1f} s wall, per kernel "
         + json.dumps({k: round(v, 1) for k, v in secs.items()}))
+    flash_build_report()
 
     rows = check_kernels(dev) + check_flash(dev)
     torch.cuda.empty_cache()

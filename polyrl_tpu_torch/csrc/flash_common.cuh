@@ -1,5 +1,8 @@
 // Shared device code of the training flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu).
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): layout, mask and the
+// launch helpers both instances use. The bf16 instance's tensor-core
+// helpers are in flash_mma.cuh, the f32 instance's CUDA-core helpers in
+// flash_f32.cuh.
 //
 // Layout (the JAX package's, never transposed in memory): q, o, dq, do are
 // [B, T, Hq, D]; k, v, dk, dv are [B, T, Hkv, D]; segment ids [B, T] int32;
@@ -11,16 +14,6 @@
 // rows attend pad keys and every row sees at least itself: no row is
 // fully masked. Masked logits take the TPU kernel's finite mask value
 // (-0.7 * f32 max) in the max, and a probability of exactly 0.
-//
-// Tiles: 64 query rows x 64 key rows, 256 threads. A tile of one tensor is
-// staged in shared memory as f32 [64][D + 1]: the +1 makes the row stride
-// 1 mod 32 banks, so 16 threads reading 16 different rows at one column hit
-// 16 different banks. Thread (ty, tx) = (tid / 16, tid % 16) owns rows
-// ty + 16 i (i < 4) and columns tx + 16 j of every 64 x 64 score tile and
-// of every 64 x D accumulator: the score rows a thread computes are the
-// accumulator rows it updates, so the online softmax needs only a
-// reduction across the 16 threads of a half-warp. Rows past T are staged
-// as zeros and masked; the ragged last tile needs no padding by the caller.
 #pragma once
 
 #include <cfloat>
@@ -29,111 +22,15 @@
 
 namespace polyrl_flash {
 
-constexpr int kTile = 64;       // query rows and key rows per tile
-constexpr int kThreads = 256;
-constexpr int kPLd = kTile + 1;  // row stride of a 64 x 64 f32 tile in smem
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 constexpr size_t kMaxSmem = 232448;  // per block on sm_90 (227 KB)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ int tx_of() { return threadIdx.x & 15; }
-__device__ __forceinline__ int ty_of() { return threadIdx.x >> 4; }
-
-// Reductions over the 16 threads of a half-warp (the threads that share ty).
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // Element offset of row t, head h, batch b of a [B, T, H, D] tensor.
 __device__ __forceinline__ size_t row_off(int b, int t, int h, int T_, int H, int D) {
   return (((size_t)b * T_ + t) * H + h) * D;
-}
-
-// Stage rows [row0, row0 + 64) of head h, batch b of a [B, T, H, D] tensor
-// into dst as f32 [64][D + 1]; rows >= T are zeros. Consecutive threads
-// read consecutive columns (coalesced).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int b, int row0,
-                                          int h, int T_, int H, float* dst) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, d = i - r * D, t = row0 + r;
-    dst[r * (D + 1) + d] = t < T_ ? to_f32(src[row_off(b, t, h, T_, H, D) + d]) : 0.f;
-  }
-}
-
-// Segment ids of rows [row0, row0 + 64) of batch b; -1 past T.
-__device__ __forceinline__ void load_seg(const int* __restrict__ seg, int b, int row0,
-                                         int T_, int* dst) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads)
-    dst[i] = row0 + i < T_ ? seg[(size_t)b * T_ + row0 + i] : -1;
-}
-
-// f32 [B, H, T] values of rows [row0, row0 + 64) of (b, h); 0 past T.
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, int b, int h,
-                                          int row0, int T_, int H, float* dst) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads)
-    dst[i] = row0 + i < T_ ? src[((size_t)b * H + h) * T_ + row0 + i] : 0.f;
-}
-
-// s[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two staged tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B, float (&s)[4][4]) {
-  constexpr int LD = D + 1;
-  const float* a = A + ty_of() * LD;
-  const float* bb = B + tx_of() * LD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[16 * i * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = bb[16 * j * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// acc[i][jd] += sum_c P[ty + 16 i][c] * V[c][tx + 16 jd], P a 64 x 64 tile
-// (row stride kPLd) and V a staged [64][D + 1] tile.
-template <int D>
-__device__ __forceinline__ void tile_acc(const float* P, const float* V,
-                                         float (&acc)[4][D / 16]) {
-  constexpr int LD = D + 1;
-  const float* p = P + ty_of() * kPLd;
-  const float* v = V + tx_of();
-#pragma unroll 2
-  for (int c = 0; c < kTile; ++c) {
-    float pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p[16 * i * kPLd + c];
-#pragma unroll
-    for (int jd = 0; jd < D / 16; ++jd) {
-      const float vv = v[c * LD + 16 * jd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][jd] = fmaf(pv[i], vv, acc[i][jd]);
-    }
-  }
 }
 
 // Query row qpos may see key row kpos (both inside [0, T)).
@@ -142,17 +39,14 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int T_, int seg_q, i
   return qpos < T_ && kpos < T_ && seg_q == seg_k && (!causal || kpos <= qpos);
 }
 
-// Shared memory of a block with n_big staged [64][D + 1] tiles and n_p
-// 64 x 64 tiles, plus 4 x 64 words of row data (segment ids, LSE, delta).
-template <int D> __host__ __device__ constexpr size_t smem_bytes(int n_big, int n_p) {
-  return sizeof(float) * ((size_t)n_big * kTile * (D + 1) + (size_t)n_p * kTile * kPLd +
-                          4 * kTile);
-}
-
+// Allow `bytes` of dynamic shared memory, and ask for the SM's largest
+// shared-memory carveout so that several blocks fit on one SM.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess || bytes <= 48 * 1024) return e;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }

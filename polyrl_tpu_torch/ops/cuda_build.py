@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -54,10 +55,12 @@ KERNELS: dict[str, tuple[tuple[str, ...], dict[str, list]]] = {
         ("grouped_paged_attention.cu", "paged_common.cuh"),
         {"polyrl_grouped_paged_attention": [_P] * 12 + [_I] * 11 + [_F, _P]}),
     "flash_attention_fwd": (
-        ("flash_attention_fwd.cu", "flash_common.cuh"),
+        ("flash_attention_fwd.cu", "flash_common.cuh", "flash_f32.cuh",
+         "flash_mma.cuh"),
         {"polyrl_flash_attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _P]}),
     "flash_attention_bwd": (
-        ("flash_attention_bwd.cu", "flash_common.cuh"),
+        ("flash_attention_bwd.cu", "flash_common.cuh", "flash_f32.cuh",
+         "flash_mma.cuh"),
         {"polyrl_flash_attention_bwd_delta": [_P] * 3 + [_I] * 5 + [_P],
          "polyrl_flash_attention_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _P],
          "polyrl_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 7 + [_F, _P]}),
@@ -126,7 +129,8 @@ def build(names=None) -> dict[str, float]:
     """Compile the named libraries (all by default) that are not built yet,
     one ``nvcc`` process per source, all started together. Returns the
     wall seconds of each library's build (0.0 when already built). The
-    compiler's ``-Xptxas -v`` report lands in ``<lib>.log``."""
+    compiler's ``-Xptxas -v`` report lands in ``<lib>.log``
+    (``ptxas_report`` reads it)."""
     names = list(names or KERNELS)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
@@ -177,6 +181,53 @@ def library(name: str) -> ctypes.CDLL:
             lib.polyrl_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_dq_bf16_kernel<128>`` for the mangled name of a kernel
+    template instance of this package (the mangled name otherwise)."""
+    for m in re.finditer(r"\d+", mangled):  # <length><identifier>I<args>E
+        ident = mangled[m.end():m.end() + int(m.group())]
+        rest = mangled[m.end() + len(ident):]
+        if ident.endswith("_kernel") and rest.startswith("I"):
+            targs = rest[1:rest.find("EE")]
+            args = (["bf16"] if "bfloat16" in targs
+                    else ["float"] if targs.startswith("f") else [])
+            args += re.findall(r"Li(\d+)", targs)
+            return f"{ident}<{', '.join(args)}>"
+    return mangled
+
+
+def parse_ptxas(text: str) -> list[dict]:
+    """Each kernel of an ``nvcc -Xptxas -v`` report: ``{"kernel",
+    "registers", "spill_stores", "spill_loads"}`` (bytes)."""
+    rows: dict[str, dict] = {}
+    entry = props = None
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            entry = m.group(1)
+            rows.setdefault(entry, dict(kernel=kernel_name(entry), registers=0,
+                                        spill_stores=0, spill_loads=0))
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif (m := _SPILL.search(line)) and props in rows:
+            rows[props].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        elif (m := _REGS.search(line)) and entry in rows:
+            rows[entry]["registers"] = int(m.group(1))
+    return list(rows.values())
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Registers and spill bytes of each kernel of library ``name``, read
+    from the ``-Xptxas -v`` report its build left in ``<lib>.log``."""
+    return parse_ptxas(lib_path(name).with_suffix(".log").read_text())
 
 
 def launch(name: str, *args, entry: str | None = None) -> None:

@@ -2,7 +2,15 @@
 
 Counterpart of ``polyrl_tpu/ops/flash.py``. The JAX package trains with
 JAX's bundled TPU flash kernel behind a wrapper; here the kernel is K4,
-written by hand for Hopper (``csrc/flash_attention_{fwd,bwd}.cu``):
+written by hand for Hopper (``csrc/flash_attention_{fwd,bwd}.cu``). Each of
+its libraries holds one instance per dtype, chosen by the ``dtype``
+argument of the same C entry points: bf16, the training path, runs its
+products on the tensor cores (``mma.sync`` on bf16 tiles staged by
+``cp.async``, probabilities kept in registers, ``csrc/flash_mma.cuh``);
+f32, used by gradient checks on an f32 copy of the weights, keeps exact f32
+products on CUDA cores (``csrc/flash_f32.cuh``), since the tensor cores
+have no f32 mode without TF32 and the port keeps TF32 off. Neither is a
+fallback of the other: a launch that fails raises.
 
 - ``flash_attention_train_ref``: the plain PyTorch version, the TPU
   kernel's semantics with f32 logits and softmax. The CPU path, and the
@@ -13,8 +21,9 @@ written by hand for Hopper (``csrc/flash_attention_{fwd,bwd}.cu``):
   (delta, dq, dk/dv). It survives ``torch.utils.checkpoint`` recompute.
 - ``flash_attention_train`` / ``auto_train_attention``: the JAX signatures.
   CPU tensors go to the plain version; CUDA tensors go to the kernel, or
-  the wrapper raises (unsupported head dim or dtype, non-contiguous
-  input). There is no fallback, and unlike the TPU wrapper a T that does
+  the wrapper raises (unsupported head dim or dtype, non-contiguous or
+  not 16-byte aligned input: the bf16 kernels copy rows 16 bytes at a
+  time). There is no fallback, and unlike the TPU wrapper a T that does
   not tile is no reason to leave the kernel: it masks its ragged last
   tile itself.
 
@@ -92,6 +101,9 @@ def _check_cuda(q, k, v, seg) -> None:
         if not x.is_contiguous():
             raise ValueError(f"flash_attention_train: {name} is not "
                              "contiguous")
+        if x is not seg and x.data_ptr() % 16:
+            raise ValueError(f"flash_attention_train: {name} is not "
+                             "16-byte aligned")
 
 
 def flash_fwd_cuda(q, k, v, seg, causal: bool):
@@ -153,6 +165,8 @@ class FlashAttentionTrain(torch.autograd.Function):
         dout = dout.contiguous()
         if dout.dtype != q.dtype:
             dout = dout.to(q.dtype)
+        if dout.data_ptr() % 16:  # a view into a larger gradient buffer
+            dout = dout.clone()
         dq, dk, dv = flash_bwd_cuda(q, k, v, seg, o, lse, dout, ctx.causal)
         return dq, dk, dv, None, None
 
