@@ -7,18 +7,22 @@ Needs one CUDA device and ``nvcc``; exits non-zero and prints no result
 when CUDA is unavailable or any phase fails. Phases:
 
 1. build   -- compile every kernel library from ``csrc/`` (K1-K4; one nvcc
-              per source, all started together), and log each K4 kernel's
-              registers per thread and spill bytes from the compiler's
-              ``-Xptxas -v`` report: a spill in a bf16 K4 kernel fails.
+              per source, all started together), and log each K2, K3 and
+              K4 kernel's registers per thread and spill bytes from the
+              compiler's ``-Xptxas -v`` report: a spill in a bf16 kernel
+              fails.
 2. kernels -- each kernel against its plain PyTorch version at the serving
               path's shapes (Hq 16, Hkv 8, D 128, page 64, 64 slots, bf16
               pools, lengths 1..4096, a G=8 group table with a padded -1
               seat): K1 bitwise, K2/K3 within rtol 1e-2 / atol 2e-3
               (outputs are rounded to bf16 once: one ulp is at most 2^-7
-              of the value), K3 also against K2 on the full page tables.
-              The same calls with two slots missing their last page must
-              fail that tolerance. K2 and K3 are also timed on the tables
-              the serving phase gives them. K4 (training flash attention)
+              of the value), K3 also against K2 on the full page tables,
+              and K2 and K3 each twice on the same inputs, bitwise. The
+              same calls with two slots missing their last page must fail
+              that tolerance. K2 and K3 are also timed on the tables the
+              serving phase gives them, K2 on those the train phase gives
+              it, and each of their two launches (split, combine) on its
+              own. K4 (training flash attention)
               through its wrapper ``flash_attention_train`` and autograd,
               forward and backward, against autograd through its plain
               version, at the train phase's shapes (B 4, T 512, Hq 16,
@@ -281,6 +285,8 @@ def check_kernels(dev) -> list[dict]:
     err2 = (out2.float() - ref2.float()).abs().max().item()
     check(torch.allclose(out2.float(), ref2.float(), **KERNEL_TOL),
           f"paged_attention differs from its plain version (max {err2})")
+    check(torch.equal(out2, pa.paged_attention(q, kp, vp, table, lens)),
+          "paged_attention differs between two calls on the same inputs")
     toks = int(np.maximum(lens_np, 1).sum())
     io = 2 * S * HQ * D * es + S * 4 + 4 * int(np.ceil(np.maximum(lens_np, 1) / PS).sum())
     b, how = bound_ms(io + 2 * HKV * D * es * toks, 4.0 * HQ * D * toks)
@@ -301,6 +307,10 @@ def check_kernels(dev) -> list[dict]:
     err32 = (out3.float() - out2.float()).abs().max().item()
     check(torch.allclose(out3.float(), out2.float(), **KERNEL_TOL),
           f"grouped_paged_attention differs from paged_attention (max {err32})")
+    check(torch.equal(out3, pa.grouped_paged_attention(q, kp, vp, table, lens, *gargs)),
+          "grouped_paged_attention differs between two calls on the same inputs")
+    log("kernel paged_attention, grouped_paged_attention: two calls on the "
+        "same inputs give bitwise equal outputs")
     # the tolerance's power: the full 4,096-token row (slot 32) and a grouped
     # slot each missing their last page must fail it
     cut = lens.clone()
@@ -342,8 +352,28 @@ def check_kernels(dev) -> list[dict]:
     log(f"kernel grouped_paged_attention vs paged_attention: max_abs_err {err32:.3g}")
     log(f"kernel gate power: max_abs_err with two slots missing their last "
         f"page: {', '.join(miss)} (each fails the tolerance)")
+    log("kernel case by launch: " + launch_times(q, kp, vp, table, lens, gargs))
     serving_times(dev, kp, vp)
+    train_table_times(dev, kp, vp)
     return rows
+
+
+def launch_times(q, kp, vp, table, lens, gargs) -> str:
+    """Device ms of each of K2's and K3's two launches (split, combine),
+    through the wrappers' launchers, which count no launches; K2 alone
+    without ``gargs``."""
+    parts = []
+    cases = [("paged_attention", pa.paged_attention_launcher(q, kp, vp, table, lens))]
+    if gargs is not None:
+        cases.append(("grouped_paged_attention", pa.grouped_paged_attention_launcher(
+            q, kp, vp, table, lens, *gargs)))
+    for name, (out, run) in cases:
+        run(1)
+        ms = {part: cuda_ms(lambda: run(phases), 10, inner=10)
+              for part, phases in (("split", 1), ("combine", 2))}
+        parts.append(f"{name} split {ms['split']:.4f}, combine {ms['combine']:.4f}")
+        del out
+    return "; ".join(parts)
 
 
 def serving_times(dev, kp, vp) -> None:
@@ -392,7 +422,32 @@ def serving_times(dev, kp, vp) -> None:
     b3, _ = bound_ms(2 * HKV * D * 2 * (toks - 14 * 3 * PS),
                      4.0 * HQ * D * toks)
     log(f"kernel serving tables: paged_attention ms {ms2:.4f} (bound {b2:.4f}), "
-        f"grouped_paged_attention ms {ms3:.4f} (bound {b3:.4f})")
+        f"grouped_paged_attention ms {ms3:.4f} (bound {b3:.4f}); by launch: "
+        + launch_times(q, kp, vp, table, lens, gargs))
+
+
+def train_table_times(dev, kp, vp) -> None:
+    """K2 on the tables the train phase gives it (64 slots, page 64,
+    max_seq_len 512: 8 page-table columns; 16 live sequences at 64-512
+    tokens, 48 idle slots), where it is launched 25,088 times a run."""
+    rng = np.random.default_rng(2)
+    p = 512 // PS
+    table = np.zeros((S, p), np.int32)
+    lens = np.zeros((S,), np.int32)
+    lens[:16] = rng.integers(64, 513, 16)
+    table[:16] = 1 + rng.permutation(kp.shape[1] - 1)[:16 * p].reshape(16, p)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    table, lens_t = t(table), t(lens)
+    q = torch.randn((S, HQ, D), device=dev, dtype=torch.bfloat16)
+    out = pa.paged_attention(q, kp, vp, table, lens_t)
+    check(torch.allclose(out.float(), pa.paged_attention_ref(
+        q, kp, vp, table, lens_t).float(), **KERNEL_TOL),
+        "train tables: paged_attention disagrees")
+    ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, table, lens_t), 20, inner=20)
+    toks = int(np.maximum(lens, 1).sum())
+    b, _ = bound_ms(2 * HKV * D * 2 * toks, 4.0 * HQ * D * toks)
+    log(f"kernel train-phase tables: paged_attention ms {ms:.4f} (bound {b:.4f}, "
+        f"{toks} tokens); by launch: {launch_times(q, kp, vp, table, lens_t, None)}")
 
 
 # -- phase 2b: K4, training flash attention, forward and backward ---------------
@@ -628,11 +683,12 @@ def check_flash(dev) -> list[dict]:
     return list(rows)
 
 
-def flash_build_report() -> None:
-    """Each K4 kernel's registers per thread and spill bytes, from the
-    ``-Xptxas -v`` report of its library's build; the bf16 kernels (the
-    training path) must not spill."""
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+def build_report() -> None:
+    """Each K2, K3 and K4 kernel's registers per thread and spill bytes,
+    from the ``-Xptxas -v`` report of its library's build; the bf16
+    kernels (the serving and training paths) must not spill."""
+    for name in ("paged_attention", "grouped_paged_attention",
+                 "flash_attention_fwd", "flash_attention_bwd"):
         rows = cuda_build.ptxas_report(name)
         check(rows, f"{name}: no ptxas report in its build log")
         log(f"build {name}: " + "; ".join(
@@ -1183,7 +1239,7 @@ def main() -> int:
     secs = cuda_build.build()
     log(f"build: {time.monotonic() - t0:.1f} s wall, per kernel "
         + json.dumps({k: round(v, 1) for k, v in secs.items()}))
-    flash_build_report()
+    build_report()
 
     rows = check_kernels(dev) + check_flash(dev)
     torch.cuda.empty_cache()

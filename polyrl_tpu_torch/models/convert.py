@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from polyrl_tpu_torch.device import resolve_device
+
 
 def _leaf(a, device, dtype) -> torch.Tensor:
     arr = np.asarray(a)
@@ -24,10 +26,14 @@ def _leaf(a, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree: dict, device="cpu",
+def params_from_numpy(tree: dict, device="cuda",
                       dtype: torch.dtype | None = None) -> dict:
     """Nested dict of numpy arrays -> the same nesting of tensors on
-    ``device`` (floating leaves cast to ``dtype`` when given)."""
-    return {k: (params_from_numpy(v, device, dtype) if isinstance(v, dict)
-                else _leaf(v, device, dtype))
+    ``device`` (floating leaves cast to ``dtype`` when given). The default
+    is the card, as for every entry point of the port: it raises when CUDA
+    is absent (``device.resolve_device``); pass ``"cpu"`` to convert for
+    the CPU."""
+    dev = resolve_device(device)
+    return {k: (params_from_numpy(v, dev, dtype) if isinstance(v, dict)
+                else _leaf(v, dev, dtype))
             for k, v in tree.items()}

@@ -49,11 +49,13 @@ KERNELS: dict[str, tuple[tuple[str, ...], dict[str, list]]] = {
         {"polyrl_paged_kv_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _P]}),
     "paged_attention": (
-        ("paged_attention.cu", "paged_common.cuh"),
-        {"polyrl_paged_attention": [_P] * 6 + [_I] * 8 + [_F, _P]}),
+        ("paged_attention.cu", "paged_common.cuh", "flash_mma.cuh",
+         "flash_common.cuh"),
+        {"polyrl_paged_attention": [_P] * 7 + [_I] * 10 + [_F, _P]}),
     "grouped_paged_attention": (
-        ("grouped_paged_attention.cu", "paged_common.cuh"),
-        {"polyrl_grouped_paged_attention": [_P] * 12 + [_I] * 11 + [_F, _P]}),
+        ("grouped_paged_attention.cu", "paged_common.cuh", "flash_mma.cuh",
+         "flash_common.cuh"),
+        {"polyrl_grouped_paged_attention": [_P] * 11 + [_I] * 13 + [_F, _P]}),
     "flash_attention_fwd": (
         ("flash_attention_fwd.cu", "flash_common.cuh", "flash_f32.cuh",
          "flash_mma.cuh"),
@@ -191,10 +193,13 @@ _REGS = re.compile(r"Used (\d+) registers")
 
 def kernel_name(mangled: str) -> str:
     """``flash_dq_bf16_kernel<128>`` for the mangled name of a kernel
-    template instance of this package (the mangled name otherwise)."""
+    template instance of this package, ``paged_split_f32_kernel`` for a
+    plain kernel in a namespace (the mangled name otherwise)."""
     for m in re.finditer(r"\d+", mangled):  # <length><identifier>I<args>E
         ident = mangled[m.end():m.end() + int(m.group())]
         rest = mangled[m.end() + len(ident):]
+        if ident.endswith("_kernel") and rest.startswith("E"):
+            return ident
         if ident.endswith("_kernel") and rest.startswith("I"):
             targs = rest[1:rest.find("EE")]
             args = (["bf16"] if "bfloat16" in targs

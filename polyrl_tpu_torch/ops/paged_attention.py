@@ -182,6 +182,26 @@ def _check_head_dim(d: int, name: str) -> None:
                          "(a multiple of 32, at most 256)")
 
 
+# K2 and K3 split each page-table row into chunks of C columns, one work
+# item per (chunk, slot, kv head) (csrc/paged_common.cuh)
+CHUNK_POSITIONS = 256  # key positions one work item aims to cover; C stays
+                       # within it, the kernels' kMaxCols columns
+FILL_ITEMS = 4 * 132   # items the grid offers at least: 4 per SM of an H100
+
+
+def chunk_pages(s: int, hkv: int, p: int, page_size: int) -> int:
+    """Page-table columns per work item of K2/K3, from the shapes alone:
+    ``seq_lens`` lives on the device and advances between the steps of a
+    dispatch, so reading it here would stall the step and break CUDA-graph
+    capture. About CHUNK_POSITIONS positions an item, halved while the
+    ``s * hkv * ceil(p / C)`` items would not fill the card's SMs four
+    times over."""
+    c = max(1, min(p, CHUNK_POSITIONS // page_size))
+    while c > 1 and s * hkv * -(-p // c) < FILL_ITEMS:
+        c //= 2
+    return c
+
+
 def paged_kv_write(k_pool, v_pool, write_page, write_off, k_upd, v_upd):
     """Write one token's K/V per slot into the pools in place; returns the
     pools. K1 (``csrc/paged_kv_write.cu``) on CUDA tensors."""
@@ -219,42 +239,59 @@ def _attn_operands(name, q, k_pool, v_pool, page_table, seq_lens):
     if q.shape[1] % k_pool.shape[0]:
         raise ValueError(f"{name}: Hq must be a multiple of Hkv")
     _check_head_dim(q.shape[2], name)
+    if k_pool.dtype == torch.bfloat16 and q.shape[2] not in (64, 128):
+        raise ValueError(f"{name}: the bf16 kernel (tensor cores) takes head_dim "
+                         f"64 or 128, not {q.shape[2]}")
     return (_cuda_operand(q, dev, k_pool.dtype), _cuda_operand(k_pool, dev),
             _cuda_operand(v_pool, dev),
             _cuda_operand(page_table, dev, torch.int32),
             _cuda_operand(seq_lens, dev, torch.int32))
 
 
-def paged_attention(q, k_pool, v_pool, page_table, seq_lens, scale=None):
-    """Decode attention over each slot's page row; [S, Hq, D] in q.dtype.
-    K2 (``csrc/paged_attention.cu``) on CUDA tensors."""
-    if cuda_build.on_cpu(q):
-        return paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens, scale)
+def paged_attention_launcher(q, k_pool, v_pool, page_table, seq_lens, scale=None):
+    """K2's checked operands, scratch and output for CUDA tensors: returns
+    ``(out, run)``, where ``run(phases)`` launches the split kernel (1),
+    the combine kernel (2) or both (3), and counts nothing. ``out`` is in
+    the pools' dtype."""
     s, hq, d = q.shape
     hkv, n, ps, _ = k_pool.shape
     scale = scale if scale is not None else d ** -0.5
     qc, kp, vp, pt, lens = _attn_operands("paged_attention", q, k_pool, v_pool,
                                           page_table, seq_lens)
+    p = pt.shape[1]
+    c = chunk_pages(s, hkv, p, ps)
+    stats = torch.empty((s * hkv * -(-p // c) * (hq // hkv) * (d + 2),),
+                        dtype=torch.float32, device=q.device)
     out = torch.empty((s, hq, d), dtype=k_pool.dtype, device=q.device)
-    cuda_build.launch("paged_attention", qc.data_ptr(), kp.data_ptr(),
-                      vp.data_ptr(), pt.data_ptr(), lens.data_ptr(),
-                      out.data_ptr(), cuda_build.DTYPE_CODE[k_pool.dtype], s,
-                      hq, hkv, n, ps, d, pt.shape[1], float(scale),
-                      cuda_build.stream_of(q.device))
+
+    def run(phases: int = 3) -> None:
+        cuda_build.launch(
+            "paged_attention", qc.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            pt.data_ptr(), lens.data_ptr(), stats.data_ptr(), out.data_ptr(),
+            cuda_build.DTYPE_CODE[k_pool.dtype], s, hq, hkv, n, ps, d, p, c,
+            phases, float(scale), cuda_build.stream_of(q.device))
+
+    return out, run
+
+
+def paged_attention(q, k_pool, v_pool, page_table, seq_lens, scale=None):
+    """Decode attention over each slot's page row; [S, Hq, D] in q.dtype.
+    K2 (``csrc/paged_attention.cu``: a split and a combine launch) on
+    CUDA tensors; the f32 partial stats live in scratch allocated here."""
+    if cuda_build.on_cpu(q):
+        return paged_attention_ref(q, k_pool, v_pool, page_table, seq_lens, scale)
+    out, run = paged_attention_launcher(q, k_pool, v_pool, page_table, seq_lens,
+                                        scale)
+    run()
     cuda_build.LAUNCHES["paged_attention"] += 1
     return out.to(q.dtype)
 
 
-def grouped_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
-                            group_slots, group_prefix_pages, group_prefix_lens,
-                            scale=None):
-    """Shared-prefix grouped decode attention; [S, Hq, D] in q.dtype.
-    K3 (``csrc/grouped_paged_attention.cu``, two launches) on CUDA
-    tensors; the f32 phase-1 stats live in scratch allocated here."""
-    if cuda_build.on_cpu(q):
-        return grouped_paged_attention_ref(
-            q, k_pool, v_pool, page_table, seq_lens, group_slots,
-            group_prefix_pages, group_prefix_lens, scale)
+def grouped_paged_attention_launcher(q, k_pool, v_pool, page_table, seq_lens,
+                                     group_slots, group_prefix_pages,
+                                     group_prefix_lens, scale=None):
+    """K3's checked operands, scratch and output for CUDA tensors, as
+    ``paged_attention_launcher``."""
     s, hq, d = q.shape
     hkv, n, ps, _ = k_pool.shape
     ng, gmax = group_slots.shape
@@ -266,16 +303,40 @@ def grouped_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
     gs = _cuda_operand(group_slots, dev, torch.int32)
     gpp = _cuda_operand(group_prefix_pages, dev, torch.int32)
     gpl = _cuda_operand(group_prefix_lens, dev, torch.int32)
-    m1 = torch.empty((ng, hkv, gmax * rep), dtype=torch.float32, device=dev)
-    l1 = torch.empty_like(m1)
-    acc1 = torch.empty((ng, hkv, gmax * rep, d), dtype=torch.float32, device=dev)
+    p, p_pre = pt.shape[1], gpp.shape[1]
+    c = chunk_pages(s, hkv, p, ps)
+    n_own = s * hkv * -(-p // c) * rep * (d + 2)
+    n_pre = ng * hkv * -(-p_pre // c) * gmax * rep * (d + 2)
+    stats = torch.empty((n_own + n_pre,), dtype=torch.float32, device=dev)
     out = torch.empty((s, hq, d), dtype=k_pool.dtype, device=dev)
-    cuda_build.launch("grouped_paged_attention", qc.data_ptr(), kp.data_ptr(),
-                      vp.data_ptr(), pt.data_ptr(), lens.data_ptr(),
-                      gs.data_ptr(), gpp.data_ptr(), gpl.data_ptr(),
-                      m1.data_ptr(), l1.data_ptr(), acc1.data_ptr(),
-                      out.data_ptr(), cuda_build.DTYPE_CODE[k_pool.dtype], s,
-                      hq, hkv, n, ps, d, pt.shape[1], ng, gmax, gpp.shape[1],
-                      float(scale), cuda_build.stream_of(dev))
+
+    def run(phases: int = 3) -> None:
+        cuda_build.launch(
+            "grouped_paged_attention", qc.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            pt.data_ptr(), lens.data_ptr(), gs.data_ptr(), gpp.data_ptr(),
+            gpl.data_ptr(), stats.data_ptr(), stats.data_ptr() + 4 * n_own,
+            out.data_ptr(), cuda_build.DTYPE_CODE[k_pool.dtype], s, hq, hkv, n,
+            ps, d, p, ng, gmax, p_pre, c, phases, float(scale),
+            cuda_build.stream_of(dev))
+
+    return out, run
+
+
+def grouped_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
+                            group_slots, group_prefix_pages, group_prefix_lens,
+                            scale=None):
+    """Shared-prefix grouped decode attention; [S, Hq, D] in q.dtype.
+    K3 (``csrc/grouped_paged_attention.cu``: a split launch holding the
+    groups' prefix items and every slot's own items, and a combine launch)
+    on CUDA tensors; the f32 partial stats live in scratch allocated
+    here."""
+    if cuda_build.on_cpu(q):
+        return grouped_paged_attention_ref(
+            q, k_pool, v_pool, page_table, seq_lens, group_slots,
+            group_prefix_pages, group_prefix_lens, scale)
+    out, run = grouped_paged_attention_launcher(
+        q, k_pool, v_pool, page_table, seq_lens, group_slots,
+        group_prefix_pages, group_prefix_lens, scale)
+    run()
     cuda_build.LAUNCHES["grouped_paged_attention"] += 1
     return out.to(q.dtype)

@@ -97,6 +97,17 @@ def test_parse_ptxas_reads_registers_and_spills():
     ]
     assert cuda_build.parse_ptxas("") == []
     assert cuda_build.kernel_name("not_mangled") == "not_mangled"
+    # the paged kernels live in namespace polyrl; the f32 split kernel is
+    # no template
+    assert cuda_build.kernel_name(
+        "_ZN6polyrl22paged_split_f32_kernelENS_4ArgsIfEENS_4PlanE") == \
+        "paged_split_f32_kernel"
+    assert cuda_build.kernel_name(
+        "_ZN6polyrl23paged_split_bf16_kernelILi128EEEvNS_4ArgsI13__nv_bfloat16EENS_4PlanE"
+    ) == "paged_split_bf16_kernel<128>"
+    assert cuda_build.kernel_name(
+        "_ZN6polyrl20paged_combine_kernelI13__nv_bfloat16EEvNS_4ArgsIT_EENS_4PlanE"
+    ) == "paged_combine_kernel<bf16>"
 
 
 def test_bf16_flash_kernels_use_the_tensor_core_helpers_only():
@@ -113,3 +124,34 @@ def test_bf16_flash_kernels_use_the_tensor_core_helpers_only():
     mma_header = (cuda_build.CSRC_DIR / "flash_mma.cuh").read_text()
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma_header
     assert "cp.async" in mma_header and '#include "flash_f32.cuh"' not in mma_header
+
+
+def _body(text, head):
+    """The text of the function whose definition starts with ``head``, to
+    its closing brace at column 0."""
+    start = text.index(head)
+    return text[start:text.index("\n}\n", start)]
+
+
+def test_bf16_paged_kernels_use_the_tensor_core_helpers_only():
+    """K2's and K3's bf16 instance, prefix items included, runs every item
+    through attend_item_bf16, whose products are flash_mma.cuh's mma.sync
+    helpers; the CUDA-core attend_tile stays in the f32 instance."""
+    text = (cuda_build.CSRC_DIR / "paged_common.cuh").read_text()
+    attend = _body(text, "__device__ void attend_item_bf16(")
+    assert "fm::gemm_nt_reg<" in attend and "fm::gemm_pv<" in attend
+    assert "fm::cp_async16(" in _body(text, "__device__ __forceinline__ void load_kv_tile(")
+    split = _body(text, "    paged_split_bf16_kernel(")
+    assert "for_each_item(" in split and "attend_item_bf16<D>(" in split
+    assert "decode_item(" in _body(text, "__device__ __forceinline__ void for_each_item(")
+    for body in (attend, split):
+        assert "attend_tile" not in body and "attend_item_f32" not in body
+    # decode_item hands the bf16 kernel both kinds of item: a prefix item
+    # is (chunk, group, kv head, row block) over the group's prefix pages
+    decode = _body(text, "__device__ __forceinline__ bool decode_item(")
+    assert "it.prefix = true" in decode and "group_prefix_pages" in decode
+    # both libraries launch the bf16 split kernel for dtype 1 (bfloat16)
+    launch = _body(text, "inline int launch_attention(")
+    assert "paged_split_bf16_kernel<128>" in launch and "case 1:" in launch
+    for src in ("paged_attention.cu", "grouped_paged_attention.cu"):
+        assert "polyrl::launch_attention(" in (cuda_build.CSRC_DIR / src).read_text()

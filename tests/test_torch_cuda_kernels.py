@@ -25,7 +25,9 @@ def grouped_case(rng, groups=((4, 2, (3, 9, 1, 5)),), hkv=2, rep=2, d=16,
     """Pools + per-slot FULL page tables where each group's members share
     one physical prefix chain followed by private suffix pages; ``groups``
     is a tuple of (g, n_pre_pages, suffix_lens). The group table is
-    padded to powers of two with -1 seats, as the engine packs it."""
+    padded to powers of two with -1 seats, as the engine packs it. The
+    page table has three columns more than the longest prefix, or as many
+    as the longest row needs."""
     hq = hkv * rep
     k_pool = rng.standard_normal((hkv, n_pool, page, d)).astype(np.float32)
     v_pool = rng.standard_normal((hkv, n_pool, page, d)).astype(np.float32)
@@ -33,7 +35,9 @@ def grouped_case(rng, groups=((4, 2, (3, 9, 1, 5)),), hkv=2, rep=2, d=16,
     rng.shuffle(free)
     rows, lens, seats, g_pages, g_lens = [], [], [], [], []
     max_pre = max((n for _g, n, _s in groups), default=1)
-    max_pages = max_pre + 3
+    max_pages = max([max_pre + 3]
+                    + [n + -(-x // page) for _g, n, sl in groups for x in sl]
+                    + [-(-x // page) for x in ungrouped_lens])
     for g, n_pre, sfx_lens in groups:
         pre = [free.pop() for _ in range(n_pre)]
         seat_row = []
@@ -136,23 +140,67 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
         "paged_kv_write": 1, "paged_attention": 1, "grouped_paged_attention": 1}
 
 
+def _tol(dtype):
+    """K2/K3 against their plain versions: f32 differs by reduction order
+    only; bf16 rounds its output once (one ulp is at most 2^-7 of the
+    value; atol covers values near 0)."""
+    return (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+            else dict(rtol=1e-2, atol=2e-3))
+
+
+def _both_against_plain(case, dtype):
+    """K2 and K3 on ``case`` (CUDA tensors), each twice, against their
+    plain versions on the CPU and against each other; the two calls of
+    each must be bitwise equal (no atomics, a fixed merge order)."""
+    case = list(case)
+    for i in (0, 1, 2):
+        case[i] = case[i].to(dtype)
+    full = tpa.paged_attention(*case[:5])
+    grouped = tpa.grouped_paged_attention(*case)
+    assert torch.equal(full, tpa.paged_attention(*case[:5]))
+    assert torch.equal(grouped, tpa.grouped_paged_attention(*case))
+    torch.cuda.synchronize()
+    cpu = [a.cpu() for a in case]
+    tol = _tol(dtype)
+    torch.testing.assert_close(full.cpu().float(),
+                               tpa.paged_attention_ref(*cpu[:5]).float(), **tol)
+    torch.testing.assert_close(grouped.cpu().float(),
+                               tpa.grouped_paged_attention_ref(*cpu).float(), **tol)
+    torch.testing.assert_close(grouped.float(), full.float(), **tol)
+
+
 @pytest.mark.cuda
-def test_cuda_grouped_kernel_splits_wide_groups(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_split_rows_over_chunks(cuda_device, dtype):
+    """Rows cut into chunks of 4 pages (256 positions at page 64, 8 kv
+    heads, D 128): a 64-page row; rows of exactly 1 and 2 chunks and one
+    token past each; prefixes of 6 and 8 pages (more than one chunk, the
+    second ending on a chunk boundary) with suffixes of 1 to 257 tokens;
+    idle length-0 slots and a -1 seat."""
+    rng = np.random.default_rng(13)
+    case = grouped_case(
+        rng, groups=((3, 6, (1, 64, 200)), (4, 8, (5, 256, 257, 130))), hkv=8,
+        rep=2, d=128, ungrouped_lens=(4096, 256, 257, 512, 513, 0, 0, 1),
+        page=64, n_pool=200)
+    case[5][1, 2] = -1  # a finished sibling's seat mid-row
+    s, p = case[0].shape[0], case[3].shape[1]
+    assert p == 64 and tpa.chunk_pages(s, 8, p, 64) == 4
+    cuda_build.reset_launch_counts()
+    _both_against_plain(_t(case, cuda_device), dtype)
+    assert cuda_build.LAUNCHES["paged_attention"] == 2
+    assert cuda_build.LAUNCHES["grouped_paged_attention"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_grouped_kernel_splits_wide_groups(cuda_device, dtype):
     """A group of 20 members (32 seats after padding) at rep 4 stacks 128
-    query rows, which phase 1 spreads over blocks of at most 32 rows; the
-    result still equals the plain version and paged attention."""
+    query rows, which the prefix items take 16 rows at a time; the result
+    still equals the plain version and paged attention."""
     rng = np.random.default_rng(12)
     case = grouped_case(rng, groups=((20, 2, (3, 70, 1, 64)),), hkv=2, rep=4,
                         d=128, ungrouped_lens=(5,), page=64, n_pool=64)
-    case = _t(case, cuda_device)
-    grouped = tpa.grouped_paged_attention(*case)
-    full = tpa.paged_attention(*case[:5])
-    torch.cuda.synchronize()
-    cpu = [a.cpu() for a in case]
-    tol = dict(rtol=2e-5, atol=2e-5)
-    torch.testing.assert_close(grouped.cpu(),
-                               tpa.grouped_paged_attention_ref(*cpu), **tol)
-    torch.testing.assert_close(grouped, full, **tol)
+    _both_against_plain(_t(case, cuda_device), dtype)
 
 
 @pytest.mark.cuda
@@ -167,6 +215,21 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     pool16 = torch.zeros((2, 4, 64, 64), device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError):  # no kernel is built for float16
         tpa.paged_attention(q16, pool16, pool16, pt, lens)
+    gargs = (torch.zeros((1, 2), dtype=torch.int32, device=cuda_device),
+             torch.zeros((1, 1), dtype=torch.int32, device=cuda_device),
+             torch.zeros((1,), dtype=torch.int32, device=cuda_device))
+    for d in (96, 256):  # the bf16 (tensor-core) kernels take D 64 and 128
+        qb = torch.zeros((2, 4, d), device=cuda_device, dtype=torch.bfloat16)
+        poolb = torch.zeros((2, 4, 64, d), device=cuda_device, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            tpa.paged_attention(qb, poolb, poolb, pt, lens)
+        with pytest.raises(ValueError, match="head_dim"):
+            tpa.grouped_paged_attention(qb, poolb, poolb, pt, lens, *gargs)
+    # the f32 (CUDA-core) kernels still take any multiple of 32
+    tpa.paged_attention(qb[..., :96].float().contiguous(),
+                        poolb[..., :96].float().contiguous(),
+                        poolb[..., :96].float().contiguous(), pt, lens)
+    torch.cuda.synchronize()
 
 
 # -- K4: training flash attention, forward and backward --------------------------

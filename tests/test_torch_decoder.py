@@ -178,3 +178,15 @@ def test_params_from_numpy_keeps_names_and_shapes():
     assert shapes(tp) == shapes(native)
     assert shapes(native) == jax.tree_util.tree_map(
         lambda a: tuple(a.shape), tree)
+
+
+def test_params_from_numpy_defaults_to_the_card(monkeypatch):
+    """Like every entry point of the port, the conversion defaults to the
+    card and raises when CUDA is absent instead of landing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"embed": np.ones((4, 2), np.float32),
+            "layers": {"w": np.zeros((2, 3), np.float32)}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(tree)
+    tp = params_from_numpy(tree, "cpu")
+    assert tp["layers"]["w"].device.type == "cpu" and tp["embed"].shape == (4, 2)

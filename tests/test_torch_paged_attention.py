@@ -8,6 +8,8 @@ differ in reduction order only. The K/V write is a copy and is compared
 bitwise.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,6 +99,76 @@ def test_grouped_masked_seat_and_empty_row():
                                           q_s := case[0].shape[0], PAGE)
     assert int(grp[q_s - 1]) == -1 and int(npre[q_s - 1]) == 0
     assert int(grp[2]) == -1  # the masked seat's slot runs ungrouped
+
+
+def test_paged_attention_plain_long_rows_match_jax():
+    """Rows over many pages (up to 40 of 8 positions), with lengths on,
+    just before and just past a page boundary, and an empty row."""
+    rng = np.random.default_rng(31)
+    hq, hkv, d, p = 8, 2, 32, 40
+    lens = np.asarray([320, 319, 161, 1, 0, 257], np.int32)
+    n_pool = len(lens) * p + 1
+    q = rng.standard_normal((len(lens), hq, d)).astype(np.float32)
+    kp = rng.standard_normal((hkv, n_pool, PAGE, d)).astype(np.float32)
+    vp = rng.standard_normal((hkv, n_pool, PAGE, d)).astype(np.float32)
+    table = rng.permutation(np.arange(1, n_pool))[:len(lens) * p].reshape(
+        len(lens), p).astype(np.int32)
+    ref = np.asarray(jpa.paged_attention_ref(q, kp, vp, table, lens))
+    out = tpa.paged_attention(*_t((q, kp, vp, table, lens))).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+    assert np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("n_pre,rep", [(5, 2), (12, 1)])
+def test_grouped_plain_multi_page_prefix_matches_jax(n_pre, rep):
+    """Prefixes of several pages (more than one chunk of K2/K3's split),
+    suffixes from one token to several pages, a -1 seat mid-row."""
+    rng = np.random.default_rng(40 + n_pre)
+    case = list(_grouped_case(rng, groups=((4, n_pre, (1, 17, 30, 8)),
+                                           (2, 3, (PAGE + 1, 2))),
+                              rep=rep, ungrouped_lens=(90, 0), n_pool=160))
+    case[5][0, 1] = -1
+    gref = np.asarray(jpa.grouped_paged_attention_ref(*case))
+    gpal = np.asarray(jpa.grouped_paged_attention_pallas(*case, interpret=True))
+    out = tpa.grouped_paged_attention(*_t(case)).numpy()
+    full = tpa.paged_attention(*_t(case[:5])).numpy()
+    np.testing.assert_allclose(out, gref, **TOL)
+    np.testing.assert_allclose(out, gpal, **TOL)
+    np.testing.assert_allclose(out, full, **TOL)
+
+
+@pytest.mark.parametrize("p", [1, 3, 64])
+@pytest.mark.parametrize("s,hkv,page", [(1, 1, 16), (64, 8, 64), (5, 4, 8),
+                                        (64, 8, 256)])
+def test_chunk_plan_covers_every_page_once(p, s, hkv, page):
+    """K2/K3's work items cut each page-table row into ceil(P / C) chunks of
+    C columns: every column of every row lies in exactly one chunk, C
+    follows from the shapes alone, an item covers at most 256 positions
+    (or one page), and C only shrinks below that to offer the card more
+    items."""
+    c = tpa.chunk_pages(s, hkv, p, page)
+    n_chunks = -(-p // c)
+    assert 1 <= c <= p
+    assert c * page <= max(page, tpa.CHUNK_POSITIONS)
+    seen = np.zeros((p,), np.int32)
+    for k in range(n_chunks):
+        seen[k * c:min((k + 1) * c, p)] += 1
+    assert (seen == 1).all()
+    bigger = max(1, min(p, tpa.CHUNK_POSITIONS // page))
+    while bigger > c:  # each bigger chunk passed over offered too few items
+        assert s * hkv * -(-p // bigger) < tpa.FILL_ITEMS
+        bigger //= 2
+    assert bigger == c
+
+
+def test_chunk_plan_fits_the_kernels_page_id_buffer():
+    """The split kernels read an item's page ids into a buffer of kMaxCols
+    entries and refuse a larger C; chunk_pages never asks for more, at any
+    page size."""
+    src = (cuda_build.CSRC_DIR / "paged_common.cuh").read_text()
+    max_cols = int(re.search(r"constexpr int kMaxCols = (\d+);", src).group(1))
+    for page in (1, 2, 16, 64, 512):
+        assert tpa.chunk_pages(1, 1, 4096, page) <= max_cols
 
 
 def test_kv_write_bitwise_vs_pallas_and_scatter():
