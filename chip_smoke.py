@@ -69,7 +69,33 @@ when CUDA is unavailable or any phase fails. Phases:
               copy; norm ratio within 2%). Each must fail with K4 fed
               tile-local segment ids (every query loses the keys of
               earlier tiles).
-5. result  -- the card's name and power limit, a ``{"kernels": [...]}``
+5. ppo     -- ``build_trainer`` again, on the slice's other half: PPO
+              with a critic (GAE) on packed rows (pack_len 1024, 4 rows
+              per micro), pipelined one step ahead (staleness limit 1,
+              truncated importance correction), validation before
+              training and after every step (8 arithmetic prompts,
+              greedy); ``qwen3-1.7b`` at full width and depth in bf16, 2
+              steps of 2 prompts x 8 samples, responses of 256 tokens.
+              Gates: K1, K2 and K4 (forward and backward) launched,
+              counted from zero; most packed rows carry 2 or more
+              segments; the step-1 packed old logprobs within 0.2 nats of
+              a padded pass over the same trajectories, and the packed
+              values within PACKED_VALUE_TOL of the padded ones, while the
+              same packs with each row's segments collapsed into one
+              must fail the logprob gate; finite losses and grad norms,
+              both grad norms > 0, no skipped update; step 2's tokens at
+              most ``staleness_limit`` versions behind the weights they
+              are trained against, finite importance weights <= the cap,
+              and the engine bitwise the actor after the fit; validation
+              finite, and twice on the same weights equal. Then on a
+              depth-2 copy of the same widths: save at step 1, a fresh
+              trainer resumes (step, dataloader and every parameter and
+              optimizer tensor of actor and critic bitwise) and trains
+              step 2. K4 is then timed at the packed rows' shapes and
+              segment ids. ``--ppo-ab`` also runs the configuration
+              without validation, unpipelined against pipelined in
+              turns, for their step walls.
+6. result  -- the card's name and power limit, a ``{"kernels": [...]}``
               line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -84,6 +110,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -276,6 +303,14 @@ def check_kernels(dev) -> list[dict]:
     b, how = bound_ms(4 * S * HKV * D * es + 2 * S * 4, 0.0)
     rows.append(dict(name="paged_kv_write", max_abs_err=0.0, ms=ms,
                      plain_ms=plain, bound_ms=b, bound_by=how, library_ms=lib))
+    # K1's launch floor: the device time of an empty kernel (a spin of 0
+    # cycles) and of a one-element add, timed as K1 is
+    one = torch.zeros(1, device=dev)
+    empty = cuda_ms(lambda: torch.cuda._sleep(0), 20, inner=20)
+    add1 = cuda_ms(lambda: one.add_(1.0), 20, inner=20)
+    log(f"kernel paged_kv_write: launch floor by CUDA-graph replay: empty "
+        f"kernel {empty:.5f} ms, one-element add {add1:.5f} ms; K1 "
+        f"{ms:.5f} ms = {ms / empty:.2f} x the empty kernel (bound {b:.5f})")
     del out_k, out_v
 
     # K2: decode attention over the full page rows
@@ -557,15 +592,20 @@ def wrapper_grads(fn, q, k, v, mask, seg, do):
 
 
 def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int,
-                     repeat: bool = False):
+                     repeat: bool = False, seg_np=None):
     """K4 through its public wrapper (``flash_attention_train`` and its
     autograd Function) against autograd through its plain version on one
     case; the planted fault (each row's first real token marked as pad)
     must fail both the output and the gradient tolerances; with
     ``repeat``, two backward calls on the same inputs must agree bitwise.
-    Returns (fwd row, bwd row) without launches."""
+    ``seg_np`` ([b, t] int32) replaces the case's segment ids and mask
+    (packed rows from the trainer). Returns (fwd row, bwd row) without
+    launches."""
     c = flash_inputs(dev, b, t, seed)
     q, k, v, do, mask, seg = (c[x] for x in ("q", "k", "v", "do", "mask", "seg"))
+    if seg_np is not None:
+        seg = torch.from_numpy(np.ascontiguousarray(seg_np, np.int32)).to(dev)
+        mask = (seg > 0).float()
     o, (dq, dk, dv) = wrapper_grads(flash.flash_attention_train, q, k, v, mask,
                                     seg, do)
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
@@ -1008,15 +1048,18 @@ def _leaves(tree: dict, prefix: str = ""):
 
 
 @contextlib.contextmanager
-def launches_apart(store: dict):
+def launches_apart(store: dict, names=None):
     """Run gate-only work without adding to the main path's counts: its
-    launches go to ``store``."""
-    before = dict(cuda_build.LAUNCHES)
+    launches of ``names`` (every kernel by default) go to ``store``. Name
+    only the kernels the gate launches where another thread of the main
+    path may launch others meanwhile."""
+    names = tuple(cuda_build.LAUNCHES) if names is None else names
+    before = {k_: cuda_build.LAUNCHES[k_] for k_ in names}
     try:
         yield
     finally:
-        for k_, n in cuda_build.LAUNCHES.items():
-            store[k_] = store.get(k_, 0) + n - before[k_]
+        for k_ in names:
+            store[k_] = store.get(k_, 0) + cuda_build.LAUNCHES[k_] - before[k_]
             cuda_build.LAUNCHES[k_] = before[k_]
 
 
@@ -1212,6 +1255,369 @@ def train_phase(dev) -> dict:
             fn()
 
 
+# -- phase 5: PPO with a critic on packed rows, pipelined, through the trainer --
+
+
+PACK_LEN = 1024
+PPO_RESPONSE = 256
+VAL_RESPONSE = 64
+PACK_KEYS = ("input_ids", "positions", "attention_mask", "segment_ids",
+             "loss_mask")
+K4_NAMES = ("flash_attention_fwd", "flash_attention_bwd")
+PPO_KERNELS = ("paged_kv_write", "paged_attention") + K4_NAMES
+# the critic's packed values against its padded ones, by relative Frobenius
+# error over the response tokens: both passes run the same bf16 weights
+# through K4 in another layout (other matrix shapes, so other bf16 rounding
+# orders) through 28 layers, which moves the logprobs by up to 0.1 nats in
+# the same comparison; an H100 reads 0.027, and the packs with collapsed
+# segments 1.08
+PACKED_VALUE_TOL = 5e-2
+
+
+def ppo_overrides(val_path: str) -> list[str]:
+    """The phase's configuration: the train phase's model, engine and batch
+    with the critic (GAE), packed rows of 1024 columns (4 per micro), the
+    pipeline one step ahead with importance correction, and validation
+    before training and after every step."""
+    return [
+        "device=cuda", f"model.preset={MODEL}", "model.dtype=bfloat16",
+        "tokenizer.kind=byte", "data.train_path=arithmetic",
+        f"data.val_path={val_path}",
+        "rollout.max_slots=64", "rollout.page_size=64", "rollout.num_pages=512",
+        "rollout.max_seq_len=512", "rollout.prompt_buckets=64",
+        "trainer.train_batch_size=2", "trainer.rollout_n=8",
+        "trainer.ppo_mini_batch_size=16", "trainer.micro_batch_size=4",
+        "trainer.min_stream_batch_size=16", "trainer.max_prompt_length=64",
+        f"trainer.max_response_length={PPO_RESPONSE}",
+        "trainer.adv_estimator=gae", "trainer.use_remove_padding=true",
+        f"trainer.pack_len={PACK_LEN}",
+        f"trainer.micro_token_budget={4 * PACK_LEN}",
+        "trainer.pipeline_depth=1", "trainer.staleness_limit=1",
+        "trainer.rollout_is_correction=true",
+        "trainer.val_before_train=true", "trainer.test_freq=1",
+        "trainer.val_temperature=0.0",
+        f"trainer.val_max_response_length={VAL_RESPONSE}",
+        "trainer.total_steps=2", "trainer.temperature=1.0", "trainer.seed=0",
+        "actor.remat=true", "actor.lr=1e-4", "critic.remat=true",
+        "critic.lr=1e-4", "reward.num_workers=1",
+    ]
+
+
+def _host32(x: torch.Tensor) -> np.ndarray:
+    return x.float().cpu().numpy()
+
+
+def packed_gates(actor, critic, ib) -> dict:
+    """Step 1, after the packed old-logprob and value passes and before any
+    update: those against a padded pass over the same trajectories (K4 on
+    one trajectory a row), the same packs with each row's segments
+    collapsed into one (the planted fault), and the packing itself."""
+    from polyrl_tpu_torch.data import packing
+
+    packs = ib.meta_info["packs"]
+    mask = np.asarray(ib["response_mask"]) > 0
+    feed = {k_: ib[k_] for k_ in ("input_ids", "positions", "attention_mask",
+                                  "responses", "response_mask")}
+    padded_lp = _host32(actor.compute_log_prob(feed, compute_entropy=False)[0])
+    padded_v = _host32(critic.compute_values(feed))
+    bad_lp, bad_v = np.zeros_like(padded_lp), np.zeros_like(padded_v)
+    for pack, spec in packs:
+        pf = {k_: np.array(pack[k_]) for k_ in PACK_KEYS}
+        pf["segment_ids"] = (pf["segment_ids"] > 0).astype(np.int32)
+        spec.gather_into(_host32(actor.compute_log_prob_packed(
+            pf, compute_entropy=False)[0]), bad_lp)
+        spec.gather_into(_host32(critic.compute_values_packed(pf)), bad_v)
+
+    def rel(v):
+        return float(np.linalg.norm((v - padded_v)[mask])
+                     / np.linalg.norm(padded_v[mask]))
+
+    gap = np.abs(np.asarray(ib["old_log_probs"]) - padded_lp)[mask]
+    bad_gap = np.abs(bad_lp - padded_lp)[mask]
+    segs = [int((spec.row == r).sum()) for _, spec in packs
+            for r in range(spec.n_rows)]
+    n_real = int(sum(np.asarray(p["attention_mask"]).sum() for p, _ in packs))
+    return dict(
+        gap_max=float(gap.max()), gap_mean=float(gap.mean()),
+        bad_max=float(bad_gap.max()), bad_mean=float(bad_gap.mean()),
+        v_rel=rel(np.asarray(ib["values"])), bad_v_rel=rel(bad_v),
+        v_max=float(np.abs(np.asarray(ib["values"]) - padded_v)[mask].max()),
+        v_scale=float(np.abs(padded_v[mask]).max()), tokens=int(mask.sum()),
+        segs=segs, n_packs=len(packs),
+        efficiency=packing.packing_efficiency([sp for _, sp in packs], n_real,
+                                              packs[0][1].n_rows, PACK_LEN),
+        seg_ids=np.array(packs[0][0]["segment_ids"]))
+
+
+def step_line(rec: dict) -> str:
+    return (f"wall {rec['perf/step_time_s']:.2f} s; " + ", ".join(
+        f"{k_} {rec.get('timing_s/' + k_, 0.0):.2f}" for k_ in (
+            "gen", "reward", "old_log_prob", "values", "adv", "update_actor",
+            "update_critic", "update_weight", "testing", "save_checkpoint")))
+
+
+def ppo_main_run(dev, cfg) -> dict:
+    from polyrl_tpu_torch.ops import core_algos
+    from polyrl_tpu_torch.train import build_trainer
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cleanup: list = []
+    t0 = time.monotonic()
+    trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+    try:
+        actor, critic, engine = trainer.actor, trainer.critic, trainer.rollout
+        log(f"ppo: {MODEL} trainer with critic up in {time.monotonic() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+        gate_launches: dict = {}
+        seen: list = []
+        step1: dict = {}
+        tis: list = []
+        process = trainer._process_ibatch
+        mixed_tis = core_algos.mixed_version_importance_weights
+
+        def gated_process(ibatch, metrics):
+            out = process(ibatch, metrics)
+            seen.append(dict(versions=np.array(out["rollout_weight_versions"]),
+                             mask=np.asarray(out["response_mask"]) > 0,
+                             current=int(engine.weight_version)))
+            if len(seen) == 1:  # the producer may be generating meanwhile:
+                # set apart only K4, which it never launches
+                with launches_apart(gate_launches, K4_NAMES):
+                    step1.update(packed_gates(actor, critic, out))
+            return out
+
+        def recording_tis(*args, **kwargs):
+            w, ratio, stats = mixed_tis(*args, **kwargs)
+            tis.append((np.array(w), np.asarray(args[2]) > 0))
+            return w, ratio, stats
+
+        trainer._process_ibatch = gated_process
+        core_algos.mixed_version_importance_weights = recording_tis
+        cuda_build.reset_launch_counts()
+        t_fit = time.monotonic()
+        try:
+            history = trainer.fit()
+        finally:
+            trainer._process_ibatch = process
+            core_algos.mixed_version_importance_weights = mixed_tis
+        torch.cuda.synchronize()
+        fit_wall = time.monotonic() - t_fit
+        launches = dict(cuda_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        # the path and the run
+        for name in PPO_KERNELS:
+            check(launches[name] > 0, f"{name} was not launched in the ppo phase")
+        check(len(history) == 3, f"{len(history)} records, not a validation "
+              "record and 2 steps")
+        check("val/test_score/mean" in history[0]
+              and np.isfinite(history[0]["val/test_score/mean"]),
+              "no finite validation score before training")
+        for i, rec in enumerate(history[1:], 1):
+            for key in ("actor/pg_loss", "critic/vf_loss", "actor/grad_norm",
+                        "critic/grad_norm", "val/test_score/mean"):
+                check(key in rec and np.isfinite(rec[key]),
+                      f"ppo step {i}: {key} missing or not finite")
+            check(rec["actor/grad_norm"] > 0 and rec["critic/grad_norm"] > 0,
+                  f"ppo step {i}: a zero gradient")
+            check(rec["actor/nonfinite_skips"] == 0,
+                  f"ppo step {i}: a non-finite update was skipped")
+        check(engine.weight_version == 3,
+              f"weight_version {engine.weight_version} after 2 steps, not 3")
+        trainer._wait_pushed()
+        for (name, a), (_, e) in zip(_leaves(actor.params), _leaves(engine.params)):
+            check(torch.equal(a.detach(), e),
+                  f"the engine's {name} differs from the actor's after the fit")
+
+        # packing, and packed against padded
+        segs = step1["segs"]
+        log(f"ppo: step 1 packed {len(seen[0]['mask'])} trajectories into "
+            f"{step1['n_packs']} packs of 4 x {PACK_LEN}: segments per row "
+            f"{segs}, packing_efficiency {step1['efficiency']:.4f}")
+        check(sum(n >= 2 for n in segs) * 2 > len(segs),
+              f"most packed rows should carry 2 or more segments: {segs}")
+        log(f"ppo: step-1 packed old logprobs vs a padded pass over the same "
+            f"{step1['tokens']} response tokens: max {step1['gap_max']:.4f}, "
+            f"mean {step1['gap_mean']:.5f} nats (tolerance {LOGP_AGREE_TOL}); "
+            f"each row's segments collapsed into one: max {step1['bad_max']:.4f}, "
+            f"mean {step1['bad_mean']:.4f} nats, margin "
+            f"{step1['bad_max'] - LOGP_AGREE_TOL:.4f} over the tolerance (must fail)")
+        check(step1["gap_max"] <= LOGP_AGREE_TOL,
+              f"packed old logprobs disagree with the padded pass "
+              f"({step1['gap_max']:.4f} nats > {LOGP_AGREE_TOL})")
+        check(step1["bad_max"] > LOGP_AGREE_TOL,
+              "the packed logprob gate passes collapsed segment ids")
+        log(f"ppo: step-1 packed values vs padded: relative error "
+            f"{step1['v_rel']:.5f} (tolerance {PACKED_VALUE_TOL}), max "
+            f"{step1['v_max']:.5f} of values up to {step1['v_scale']:.4f}; with "
+            f"collapsed segments {step1['bad_v_rel']:.5f}")
+        check(step1["v_rel"] <= PACKED_VALUE_TOL,
+              f"packed values disagree with the padded pass ({step1['v_rel']:.5f})")
+
+        # staleness and the importance weights
+        lim = cfg.trainer.staleness_limit
+        s2 = seen[1]
+        v2 = s2["versions"][s2["mask"]]
+        check((v2 >= 0).all(), "step 2 has tokens of unknown weight version")
+        lags = s2["current"] - v2
+        hist_lag = {int(x): int((lags == x).sum()) for x in np.unique(lags)}
+        log(f"ppo: step 2 trained against weight version {s2['current']}; its "
+            f"tokens' version lag (tokens per lag) {json.dumps(hist_lag)}; "
+            f"staleness_limit {lim}")
+        check(int(lags.max()) <= lim, f"step 2 tokens {int(lags.max())} versions "
+              f"stale, limit {lim}")
+        cap = cfg.trainer.rollout_is_cap
+        w_all = np.concatenate([w[m] for w, m in tis])
+        log(f"ppo: TIS weights over {len(w_all)} tokens in {len(tis)} ibatches: "
+            f"min {w_all.min():.4f}, mean {w_all.mean():.4f}, max "
+            f"{w_all.max():.4f} (cap {cap})")
+        check(len(tis) == 2 and np.isfinite(w_all).all()
+              and w_all.max() <= cap + 1e-6,
+              "importance weights not finite or above the cap")
+
+        # validation: repeatable on the same weights
+        m1, m2 = trainer._validate(), trainer._validate()
+        log(f"ppo: validation twice on the final weights: {json.dumps(m1)}; "
+            f"{json.dumps(m2)}")
+        check(m1 == m2, "two validations on the same weights disagree")
+
+        for i, rec in enumerate(history[1:], 1):
+            log(f"ppo: step {i}: {step_line(rec)}; tokens/s "
+                f"{rec['perf/throughput_tokens_per_s']:.1f}, mfu "
+                f"{rec['perf/mfu']:.5f}; pg_loss {rec['actor/pg_loss']:.5f}, "
+                f"vf_loss {rec['critic/vf_loss']:.5f}, grad_norm actor "
+                f"{rec['actor/grad_norm']:.4f} critic {rec['critic/grad_norm']:.4f}; "
+                + ", ".join(f"{k_} {v:.4f}" for k_, v in sorted(rec.items())
+                            if k_.startswith(("perf/pipeline_", "perf/staleness_",
+                                              "perf/weight_staleness")))
+                + f"; val/test_score/mean {rec['val/test_score/mean']:.4f}")
+        log(f"ppo: validation before training took "
+            f"{history[0]['timing_s/testing']:.2f} s; fit wall {fit_wall:.1f} s; "
+            f"peak memory {peak_gb:.2f} GB; main-path launches "
+            f"{json.dumps(launches)}; the gates' own K4 launches "
+            f"{json.dumps(gate_launches)}")
+        return dict(launches=launches, history=history, peak_gb=peak_gb,
+                    fit_wall=fit_wall, seg_ids=step1["seg_ids"])
+    finally:
+        for fn in reversed(cleanup):
+            fn()
+
+
+def ppo_ab() -> None:
+    """The phase's configuration without validation or gates, unpipelined
+    (``pipeline_depth=0``) against pipelined, in turns (serial, pipelined,
+    pipelined, serial), 3 steps each: their step walls and fit walls."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.train import build_trainer
+
+    walls: dict = {0: [], 1: []}
+    for depth in (0, 1, 1, 0):
+        cfg = load_config(None, ppo_overrides("") + [
+            "trainer.val_before_train=false", "trainer.test_freq=0",
+            f"trainer.pipeline_depth={depth}", "trainer.total_steps=3"])
+        cleanup: list = []
+        trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+        try:
+            t0 = time.monotonic()
+            history = trainer.fit()
+            torch.cuda.synchronize()
+            fit_wall = time.monotonic() - t0
+        finally:
+            for fn in reversed(cleanup):
+                fn()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        label = "pipelined" if depth else "serial"
+        walls[depth] += [rec["perf/step_time_s"] for rec in history[1:]]
+        for i, rec in enumerate(history, 1):
+            log(f"ppo a/b {label}: step {i}: {step_line(rec)}; overlap "
+                f"{rec.get('perf/pipeline_overlap_s', 0.0):.2f}")
+        log(f"ppo a/b {label}: fit wall {fit_wall:.1f} s for 3 steps")
+    med = {d: statistics.median(w) for d, w in walls.items()}
+    log(f"ppo a/b: median wall of steps 2-3, serial {med[0]:.2f} s, pipelined "
+        f"{med[1]:.2f} s ({med[1] / med[0]:.3f} x)")
+
+
+def ppo_resume(tmp: str) -> None:
+    """Save at step 1 on a depth-2 copy of the same widths; a fresh trainer
+    resumes it (step, dataloader position, and every parameter and
+    optimizer tensor of actor and critic bitwise the saved ones) and
+    trains step 2 to finite values."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.train import build_trainer
+
+    ck = os.path.join(tmp, "ckpt")
+    base = ppo_overrides("") + ['model.overrides={"num_layers": 2}',
+                                f"trainer.ckpt_dir={ck}",
+                                "trainer.val_before_train=false",
+                                "trainer.test_freq=0"]
+    cleanup: list = []
+    try:
+        ta = build_trainer(load_config(None, base + ["trainer.total_steps=1"]),
+                           cleanup, compute_score=byte_length_score)
+        ha = ta.fit()
+        step_dir = os.path.join(ck, "global_step_1")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        tb = build_trainer(load_config(None, base + ["trainer.total_steps=2"]),
+                           cleanup, compute_score=byte_length_score)
+        t0 = time.monotonic()
+        check(tb._load_checkpoint(), "no checkpoint to resume")
+        restore_s = time.monotonic() - t0
+        check(tb.global_step == 1, f"resumed at step {tb.global_step}, not 1")
+        check(tb.dataloader.consumed == ta.dataloader.consumed,
+              "the resumed dataloader's position differs")
+        n = 0
+        for name, a, b in (("actor", ta.actor, tb.actor),
+                           ("critic", ta.critic, tb.critic)):
+            sa, sb = a.state_dict(), b.state_dict()
+            check(sa.keys() == sb.keys(), f"{name}: other tensors after resume")
+            for k_ in sa:
+                check(torch.equal(sa[k_], sb[k_]),
+                      f"{name} {k_} differs from the saved one after resume")
+            n += len(sa)
+        # the resumed trainer trains on without saving again (disk)
+        tb._ckpt = None
+        hb = tb.fit()
+        check(len(hb) == 1 and tb.global_step == 2, "the resumed fit did not "
+              "run step 2 alone")
+        for key in ("actor/pg_loss", "critic/vf_loss", "actor/grad_norm",
+                    "critic/grad_norm"):
+            check(np.isfinite(hb[0][key]), f"resumed step 2: {key} not finite")
+        log(f"ppo resume (2 layers, same widths): checkpoint of step 1 "
+            f"{nbytes / 1e9:.3f} GB in {len(os.listdir(step_dir))} files; save: "
+            f"host snapshot {ha[0]['timing_s/save_checkpoint']:.2f} s, write "
+            f"{ta._ckpt.last_write_s:.2f} s; restore {restore_s:.2f} s; "
+            f"{n} tensors of actor and critic bitwise equal; dataloader at "
+            f"{tb.dataloader.consumed}; resumed step 2: pg_loss "
+            f"{hb[0]['actor/pg_loss']:.5f}, vf_loss {hb[0]['critic/vf_loss']:.5f}, "
+            f"wall {hb[0]['perf/step_time_s']:.2f} s")
+    finally:
+        for fn in reversed(cleanup):
+            fn()
+
+
+def ppo_phase(dev, ab: bool) -> dict:
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.data.dataset import make_arithmetic_dataset
+
+    with tempfile.TemporaryDirectory(prefix="ppo-smoke-") as tmp:
+        val_path = os.path.join(tmp, "val.jsonl")
+        with open(val_path, "w") as f:
+            for rec in make_arithmetic_dataset(8, seed=1).records:
+                f.write(json.dumps(rec) + "\n")
+        out = ppo_main_run(dev, load_config(None, ppo_overrides(val_path)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        if ab:
+            ppo_ab()
+        ppo_resume(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -1220,6 +1626,10 @@ def main() -> int:
     ap.add_argument("--profile", metavar="PATH", default=None,
                     help="trace the main path's 18 streams with torch.profiler "
                          "and write its kernel table to PATH")
+    ap.add_argument("--ppo-ab", action="store_true",
+                    help="also run the ppo phase's configuration without "
+                         "validation, unpipelined against pipelined in turns, "
+                         "and log their step walls")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -1251,6 +1661,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ppo = ppo_phase(dev, args.ppo_ab)
+    # K4 at the packed rows' shapes, with the packer's segment ids
+    flash_case_check(dev, 4, PACK_LEN, 9, "ppo packed rows", reps=5,
+                     seg_np=ppo["seg_ids"])
+    torch.cuda.empty_cache()
 
     for r in rows:
         phase = trained if r["name"].startswith("flash") else served

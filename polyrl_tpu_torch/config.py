@@ -1,8 +1,8 @@
 """Config system: dataclass tree + YAML + dotted CLI overrides.
 
 Counterpart of ``polyrl_tpu/config.py`` for the sections this port runs:
-model, tokenizer, data, the colocated ``cb`` rollout, reward, trainer and
-actor, plus the ``device`` every entry point takes (``cuda`` by default;
+model, tokenizer, data, the colocated ``cb`` rollout, reward, trainer,
+actor and critic, plus the ``device`` every entry point takes (``cuda`` by default;
 it raises without a card). Nested dataclasses are the schema and the
 defaults, a YAML file overlays them, and ``key.sub=value`` dotted CLI
 arguments overlay that (CLI > file > default). Unknown keys raise.
@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 from polyrl_tpu_torch.trainer.actor import ActorConfig
+from polyrl_tpu_torch.trainer.critic import CriticConfig
 from polyrl_tpu_torch.trainer.stream_trainer import TrainerConfig
 
 
@@ -37,6 +38,7 @@ class TokenizerSection:
 @dataclass
 class DataSection:
     train_path: str = "arithmetic"        # .jsonl/.parquet path, or "arithmetic"
+    val_path: str = ""                    # the same kinds; "" = no validation
     prompt_key: str = "prompt"
     shuffle: bool = True
     seed: int = 0
@@ -78,6 +80,7 @@ class RunConfig:
     reward: RewardSection = field(default_factory=RewardSection)
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
     actor: ActorConfig = field(default_factory=ActorConfig)
+    critic: CriticConfig = field(default_factory=CriticConfig)
 
 
 # -- dict <-> dataclass -------------------------------------------------------

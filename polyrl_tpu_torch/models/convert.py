@@ -1,9 +1,12 @@
 """Parameter conversion from the JAX package's tree, through numpy.
 
 The port keeps the reference's names and stacked shapes
-(``models/decoder.py``), so conversion is a leaf-by-leaf copy. Callers
-turn the JAX tree's leaves into numpy arrays first (``np.asarray`` on
-each ``jax.Array``); this module never imports JAX.
+(``models/decoder.py``), so conversion is a leaf-by-leaf copy, of the
+decoder's tree and of the critic's alike (``trainer/critic.py``: the
+decoder's leaves without ``lm_head``, plus a ``[hidden, 1]``
+``value_head``). Callers turn the JAX tree's leaves into numpy arrays
+first (``np.asarray`` on each ``jax.Array``); this module never imports
+JAX.
 """
 
 from __future__ import annotations

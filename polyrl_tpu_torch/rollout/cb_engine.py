@@ -207,6 +207,7 @@ class CBEngine:
         # serializes dispatches against in-place weight updates
         self._pool_lock = threading.Lock()
         self._loop_thread: threading.Thread | None = None
+        self._start_lock = threading.Lock()
 
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         self.admit_wave = max(1, int(admit_wave if admit_wave is not None
@@ -249,11 +250,14 @@ class CBEngine:
         return out
 
     def start(self) -> "CBEngine":
-        if self._loop_thread is None:
-            self._stop.clear()
-            self._loop_thread = threading.Thread(
-                target=self._loop, name="cb-engine-loop", daemon=True)
-            self._loop_thread.start()
+        # a pipelined trainer's producer and its validation may both call
+        # generate (and so start) from two threads
+        with self._start_lock:
+            if self._loop_thread is None:
+                self._stop.clear()
+                self._loop_thread = threading.Thread(
+                    target=self._loop, name="cb-engine-loop", daemon=True)
+                self._loop_thread.start()
         return self
 
     def stop(self) -> None:

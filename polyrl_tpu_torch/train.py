@@ -4,8 +4,11 @@
 Counterpart of ``polyrl_tpu/train.py`` for the default main path,
 ``rollout.mode=colocated`` with ``backend=cb``: compose the config, build
 the tokenizer, model (random weights from ``trainer.seed``), the
-in-process CB engine, reward manager, dataset, actor and (with a KL term)
-the reference policy, assemble the trainer and run ``fit``. ``device``
+in-process CB engine, reward manager, datasets (training and, with
+``data.val_path``, validation), actor, the critic (with
+``trainer.adv_estimator=gae``, from ``trainer.seed + 1``) and (with a KL
+term) the reference policy, assemble the trainer (its checkpoint manager
+with ``trainer.ckpt_dir``) and run ``fit``. ``device``
 defaults to ``cuda`` and raises without a card; ``device=cpu`` runs the
 same path on the CPU with the kernels' plain versions.
 """
@@ -34,11 +37,13 @@ def build_tokenizer(cfg: RunConfig):
     return load_tokenizer(cfg.tokenizer.name_or_path)
 
 
-def build_dataset(cfg: RunConfig):
-    """The training prompts (validation is not ported yet)."""
+def build_dataset(cfg: RunConfig, split: str = "train"):
+    """The training or validation prompts (None without a path)."""
     from polyrl_tpu_torch.data.dataset import RLDataset, make_arithmetic_dataset
 
-    path = cfg.data.train_path
+    path = cfg.data.train_path if split == "train" else cfg.data.val_path
+    if not path:
+        return None
     if path == "arithmetic":
         return make_arithmetic_dataset(cfg.data.arithmetic_size, seed=cfg.data.seed)
     if path.endswith(".jsonl"):
@@ -100,12 +105,11 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
     from polyrl_tpu_torch.data.dataset import PromptDataLoader
     from polyrl_tpu_torch.rewards.manager import load_reward_manager
     from polyrl_tpu_torch.trainer.actor import ReferencePolicy, StreamActor
+    from polyrl_tpu_torch.trainer.critic import StreamCritic, init_critic_params
     from polyrl_tpu_torch.trainer.stream_trainer import StreamRLTrainer
 
     cleanup = [] if cleanup is None else cleanup
     device = resolve_device(cfg.device)
-    if cfg.trainer.adv_estimator == "gae":
-        raise NotImplementedError("the critic (GAE) is not ported yet (ROADMAP A')")
     tokenizer = build_tokenizer(cfg)
     mcfg, params = _build_model(cfg, device)
     rollout = _build_rollout(cfg, mcfg, params, tokenizer, device)  # own copy
@@ -122,15 +126,30 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
                   if (cfg.trainer.use_kl_in_reward or cfg.actor.use_kl_loss)
                   else None)
     actor = StreamActor(mcfg, cfg.actor, params)  # takes the tensors as its own
+    critic = None
+    if cfg.trainer.adv_estimator == "gae":
+        gen = torch.Generator(device=device).manual_seed(cfg.trainer.seed + 1)
+        critic = StreamCritic(mcfg, cfg.critic, init_critic_params(gen, mcfg))
+    if cfg.trainer.pipeline_depth > 0:
+        log.info("pipelined rollout enabled: depth=%d, staleness_limit=%d "
+                 "(%s), stale-rollout IS correction=%s (cap=%.2f)",
+                 cfg.trainer.pipeline_depth, cfg.trainer.staleness_limit,
+                 "hard wait_pushed fence" if cfg.trainer.staleness_limit <= 1
+                 else "bounded-staleness admission gate",
+                 "on" if cfg.trainer.rollout_is_correction else "OFF",
+                 cfg.trainer.rollout_is_cap)
     return StreamRLTrainer(cfg.trainer, actor, rollout, tokenizer,
-                           reward_manager, loader, ref_policy=ref_policy,
-                           logger=_ConsoleLogger())
+                           reward_manager, loader, critic=critic,
+                           ref_policy=ref_policy, logger=_ConsoleLogger(),
+                           val_dataset=build_dataset(cfg, "val"))
 
 
 class _ConsoleLogger:
     """One line per step: wall, reward and policy loss."""
 
-    KEYS = ("perf/step_time_s", "reward/mean", "actor/pg_loss")
+    KEYS = ("perf/step_time_s", "reward/mean", "actor/pg_loss",
+            "critic/vf_loss", "val/test_score/mean",
+            "training/resumed_from_step")
 
     def log(self, metrics: dict, step: int) -> None:
         brief = {k: round(metrics[k], 4) for k in self.KEYS if k in metrics}

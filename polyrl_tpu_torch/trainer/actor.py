@@ -2,10 +2,13 @@
 accumulation, and the optimizer step at minibatch boundaries.
 
 Counterpart of ``polyrl_tpu/trainer/actor.py``: ``ActorConfig``, the
-optimizer of ``make_optimizer``, ``_model_logprobs_entropy``,
-``StreamActor`` (``update_stream``, ``flush_opt_step``,
-``compute_log_prob``) and ``ReferencePolicy``. The attention of every
-forward is ``flash.auto_train_attention()`` by default: K4 on the card.
+optimizer of ``make_optimizer``, ``_model_logprobs_entropy`` and its
+packed-row variant ``_packed_logprobs_entropy``, ``StreamActor``
+(``update_stream``, ``flush_opt_step``, ``compute_log_prob``,
+``compute_log_prob_packed``) and ``ReferencePolicy``. The attention of
+every forward is ``flash.auto_train_attention()`` by default, and on
+packed rows K4 with the rows' segment ids (``bind_packed_attention``):
+K4 on the card, its plain version on the CPU.
 
 Where the JAX actor donates its buffers to a jitted update, this one
 updates in place: the actor takes the tensors it is given as its own
@@ -15,18 +18,20 @@ initial weights afterwards must copy them first, as ``ReferencePolicy``
 and the engine do.
 
 Not ported yet (each raises ``NotImplementedError``): LoRA, meshes
-(sharded parameters), packed rows, pipeline layer stacks and optimizer
-offload.
+(sharded parameters), the sequence-parallel packed attention
+(``packed_attn_fn``), pipeline layer stacks and optimizer offload.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from polyrl_tpu_torch.models import decoder
 from polyrl_tpu_torch.ops import core_algos, flash
@@ -34,6 +39,9 @@ from polyrl_tpu_torch.ops import core_algos, flash
 # rows per unembed chunk in no-grad logprob passes: [rows, T_resp, V] f32
 # logits for 4 rows of 448 tokens at vocab 151,936 are 1.1 GB
 _NOGRAD_ROW_CHUNK = 4
+# response tokens per unembed chunk in no-grad packed passes (1.2 GB of f32
+# logits at vocab 151,936)
+_NOGRAD_TOKEN_CHUNK = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,8 +250,57 @@ def _model_logprobs_entropy(params, model_cfg, input_ids, positions, attn_mask,
     return lp, ent
 
 
+def bind_packed_attention(segment_ids: torch.Tensor):
+    """The layer attention of a packed batch on one device: K4 (its plain
+    version on the CPU), causal, with the rows' segment ids, so no token
+    attends another trajectory of its row."""
+    return functools.partial(flash.flash_attention_train, causal=True,
+                             segment_ids=segment_ids)
+
+
+def _packed_logprobs_entropy(params, model_cfg, input_ids, positions,
+                             attn_mask, segment_ids, remat, compute_entropy,
+                             loss_mask=None):
+    """Packed-row (remove-padding) variant: rows hold several trajectories
+    separated by segment ids. Returns per-COLUMN logprobs [R, L] (and
+    entropy): column t holds the logprob of ``input_ids[:, t]`` predicted
+    from column t - 1, so column 0 is 0 and the caller's ``loss_mask``
+    selects the response tokens (never at a segment's first column: a
+    segment starts with at least one prompt token).
+
+    With ``loss_mask`` only the predictors of masked columns are unembedded
+    (every column's otherwise): the other columns are 0 in both outputs,
+    the values the JAX version's double where gives them, and a NaN in an
+    unselected hidden state reaches neither the outputs nor, through the
+    backward, the weight gradients. Without autograd the selected tokens
+    are unembedded a chunk at a time."""
+    h = decoder.forward_hidden(params, model_cfg, input_ids, positions,
+                               attn_mask, remat=remat,
+                               attn_fn=bind_packed_attention(segment_ids))
+    r, l = input_ids.shape
+    keep = (torch.ones((r, l - 1), dtype=torch.bool, device=h.device)
+            if loss_mask is None else loss_mask[:, 1:] > 0)
+    hs = h[:, :-1][keep]                                   # [N, d]
+    targets = input_ids[:, 1:][keep]
+    head = decoder.head_weight(params, model_cfg)
+    step = (max(hs.shape[0], 1) if torch.is_grad_enabled()
+            else _NOGRAD_TOKEN_CHUNK)
+    lps, ents = [], []
+    for i in range(0, max(hs.shape[0], 1), step):
+        logits = decoder.unembed(hs[i:i + step], head)
+        lps.append(core_algos.logprobs_from_logits(logits, targets[i:i + step]))
+        if compute_entropy:
+            ents.append(core_algos.entropy_from_logits(logits))
+
+    def to_columns(vals):
+        flat = torch.zeros((r, l - 1), dtype=torch.float32, device=h.device)
+        return F.pad(flat.masked_scatter(keep, torch.cat(vals)), (1, 0))
+
+    return to_columns(lps), (to_columns(ents) if compute_entropy else None)
+
+
 _FEED_DTYPES = {"input_ids": torch.long, "responses": torch.long,
-                "positions": torch.int32}
+                "positions": torch.int32, "segment_ids": torch.int32}
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -254,6 +311,45 @@ def _to_device(batch: dict, device: torch.device) -> dict:
         t = torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
         out[k] = t.to(device=device, dtype=_FEED_DTYPES.get(k, torch.float32))
     return out
+
+
+_OPT_COUNTS = ("count", "notfinite_count", "total_notfinite")
+
+
+def train_state(named: list, opt_state: OptState) -> dict[str, torch.Tensor]:
+    """Parameters and optimizer state as one flat ``{name: tensor}`` dict
+    (the tensors themselves, not copies): ``params.<leaf>``,
+    ``opt.mu.<leaf>``, ``opt.nu.<leaf>`` and the counts (``opt.count`` is
+    AdamW's step and the schedule's)."""
+    out = {f"params.{n}": p.detach() for n, p in named}
+    for (n, _), mu, nu in zip(named, opt_state.mu, opt_state.nu):
+        out[f"opt.mu.{n}"] = mu
+        out[f"opt.nu.{n}"] = nu
+    for key in _OPT_COUNTS:
+        out[f"opt.{key}"] = torch.tensor(getattr(opt_state, key))
+    return out
+
+
+@torch.no_grad()
+def load_train_state(named: list, opt_state: OptState,
+                     flat: dict[str, torch.Tensor]) -> None:
+    """Copy a ``train_state`` dict into the live tensors, in place (their
+    device and dtype stay; a tensor of another dtype or shape, or a
+    missing name, raises)."""
+    want = train_state(named, opt_state)
+    if set(flat) != set(want):
+        raise KeyError(f"checkpoint state has other tensors: missing "
+                       f"{sorted(set(want) - set(flat))[:4]}, extra "
+                       f"{sorted(set(flat) - set(want))[:4]}")
+    for key, dst in want.items():
+        src = flat[key]
+        if src.dtype != dst.dtype or src.shape != dst.shape:
+            raise ValueError(f"checkpoint {key}: {src.dtype} {tuple(src.shape)}"
+                             f", live {dst.dtype} {tuple(dst.shape)}")
+        if key[4:] in _OPT_COUNTS:
+            setattr(opt_state, key[4:], int(src))
+        else:
+            dst.copy_(src)
 
 
 class StreamActor:
@@ -268,8 +364,8 @@ class StreamActor:
             raise NotImplementedError("LoRA is not ported yet (ROADMAP A')")
         if mesh is not None or layers_fn is not None or packed_attn_fn is not None:
             raise NotImplementedError(
-                "meshes, pipeline stacks and packed attention are not ported "
-                "yet (ROADMAP A')")
+                "meshes, pipeline stacks and the sequence-parallel packed "
+                "attention are not ported yet (ROADMAP A')")
         if cfg.offload_optimizer:
             raise NotImplementedError("optimizer offload is not ported yet")
         self.model_cfg = model_cfg
@@ -289,14 +385,30 @@ class StreamActor:
         """The parameters in the plain layout the rollout engine takes."""
         return self.params
 
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """Parameters and optimizer state (``train_state``)."""
+        return train_state(self._named, self.opt_state)
+
+    def load_state_dict(self, flat: dict[str, torch.Tensor]) -> None:
+        load_train_state(self._named, self.opt_state, flat)
+
     def _loss_fn(self, batch: dict, loss_scale: float):
         cfg = self.cfg
         if "segment_ids" in batch:
-            raise NotImplementedError("packed rows are not ported yet")
-        logprobs, entropy = _model_logprobs_entropy(
-            self.params, self.model_cfg, batch["input_ids"], batch["positions"],
-            batch["attention_mask"], batch["responses"], batch["response_mask"],
-            cfg.remat, cfg.entropy_coeff != 0.0, attn_fn=self.attn_fn)
+            # packed rows: loss_mask plays response_mask; advantages and
+            # old_log_probs already live in the packed [R, L] layout
+            logprobs, entropy = _packed_logprobs_entropy(
+                self.params, self.model_cfg, batch["input_ids"],
+                batch["positions"], batch["attention_mask"],
+                batch["segment_ids"], cfg.remat, cfg.entropy_coeff != 0.0,
+                loss_mask=batch["loss_mask"])
+            batch = dict(batch, response_mask=batch["loss_mask"])
+        else:
+            logprobs, entropy = _model_logprobs_entropy(
+                self.params, self.model_cfg, batch["input_ids"],
+                batch["positions"], batch["attention_mask"],
+                batch["responses"], batch["response_mask"], cfg.remat,
+                cfg.entropy_coeff != 0.0, attn_fn=self.attn_fn)
         loss_fn = core_algos.get_policy_loss_fn(cfg.policy_loss)
         if cfg.policy_loss != "gpg":
             pg_loss, clipfrac, approx_kl, clipfrac_lower = loss_fn(
@@ -379,6 +491,17 @@ class StreamActor:
             feed["attention_mask"], feed["responses"], feed["response_mask"],
             remat=False, compute_entropy=compute_entropy, attn_fn=self.attn_fn)
 
+    @torch.no_grad()
+    def compute_log_prob_packed(self, batch: dict, compute_entropy: bool = True):
+        """Packed-row logprob pass: [R, L] per-column logprobs (and
+        entropy) that ``loss_mask`` selects the response tokens of (see
+        ``_packed_logprobs_entropy``)."""
+        feed = _to_device(batch, self.device)
+        return _packed_logprobs_entropy(
+            self.params, self.model_cfg, feed["input_ids"], feed["positions"],
+            feed["attention_mask"], feed["segment_ids"], remat=False,
+            compute_entropy=compute_entropy, loss_mask=feed.get("loss_mask"))
+
 
 class ReferencePolicy:
     """Frozen reference policy for the KL terms. Owns a COPY of the params:
@@ -397,4 +520,13 @@ class ReferencePolicy:
             self.params, self.model_cfg, feed["input_ids"], feed["positions"],
             feed["attention_mask"], feed["responses"], feed["response_mask"],
             remat=False, compute_entropy=False, attn_fn=self.attn_fn)
+        return lp
+
+    @torch.no_grad()
+    def compute_log_prob_packed(self, batch: dict) -> torch.Tensor:
+        feed = _to_device(batch, self.device)
+        lp, _ = _packed_logprobs_entropy(
+            self.params, self.model_cfg, feed["input_ids"], feed["positions"],
+            feed["attention_mask"], feed["segment_ids"], remat=False,
+            compute_entropy=False, loss_mask=feed.get("loss_mask"))
         return lp

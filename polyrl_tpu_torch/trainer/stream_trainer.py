@@ -1,24 +1,34 @@
-"""StreamRLTrainer: the streaming PPO/GRPO fit loop, colocated and serial.
+"""StreamRLTrainer: the streaming PPO/GRPO fit loop, colocated.
 
-Counterpart of ``polyrl_tpu/trainer/stream_trainer.py`` for the default
-main path (``rollout.mode=colocated``, ``backend=cb``, ``pipeline_depth=0``):
-per training batch an in-process engine generates every rollout, the batch
-is cut into ibatches of ``min_stream_batch_size``, each ibatch flows
-reward -> old logprob -> ref logprob -> (KL in reward) -> advantage (->
-TIS), then the actor's micro forward/backward with gradient accumulation,
-with the optimizer stepping where the cumulative trajectory count crosses
-a minibatch boundary; after each step the weights go to the engine.
+Counterpart of ``polyrl_tpu/trainer/stream_trainer.py`` for the colocated
+``cb`` rollout: per training batch an in-process engine generates every
+rollout, the batch is cut into ibatches of ``min_stream_batch_size``, each
+ibatch flows reward -> old logprob -> ref logprob -> values -> (KL in
+reward) -> advantage (-> TIS), then the actor's (and the critic's) micro
+forward/backward with gradient accumulation, with the optimizer stepping
+where the cumulative trajectory count crosses a minibatch boundary; after
+each step the weights go to the engine.
 
-``TrainerConfig`` is the JAX one, validation included. Not ported yet,
-each refused with a clear error: remote (disaggregated) rollout, the
-pipelined loop, checkpoint/resume, validation, the critic and GAE, packed
-rows, LoRA delta sync, profiling, the observability planes (tracing,
-goodput, health ledger, flight recorder, statusz) and multi-host.
+Ported: the serial loop and the pipelined one (``pipeline_depth >= 1``,
+``trainer/pipeline.py``: generation up to ``depth`` steps ahead, the
+bounded-staleness admission gate, truncated importance correction), PPO
+with a critic and GAE (``trainer/critic.py``), packed rows
+(``use_remove_padding``, ``data/packing.py``: the logprob, value and update
+passes on ``[n_rows, pack_len]`` grids through K4 with segment ids),
+checkpoint/resume (``utils/checkpoint.py``) and validation.
+
+Not ported yet, each refused with a clear error: remote (disaggregated)
+rollout, LoRA delta sync, step profiling, the observability planes
+(tracing, goodput, health ledger, flight recorder, statusz) and
+multi-host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
+import os
 import time
 from typing import Callable
 
@@ -28,8 +38,14 @@ import torch
 from polyrl_tpu_torch.data.batch import TensorBatch
 from polyrl_tpu_torch.ops import core_algos
 from polyrl_tpu_torch.rollout.sampling import SamplingParams
+from polyrl_tpu_torch.utils import checkpoint as ckpt_lib
 from polyrl_tpu_torch.utils.flops import FlopsCounter
 from polyrl_tpu_torch.utils.metrics import MetricsTracker, marked_timer
+
+log = logging.getLogger(__name__)
+
+_PACK_KEYS = ("input_ids", "positions", "attention_mask", "segment_ids",
+              "loss_mask")
 
 
 class _ResultView:
@@ -57,10 +73,12 @@ class TrainerConfig:
     # lengths
     max_prompt_length: int = 128
     max_response_length: int = 128
-    # packed-sequence (remove-padding) training: not ported yet
+    # packed-sequence (remove-padding) training: the logprob, value and
+    # update passes run on fixed [n_rows, pack_len] packed grids instead of
+    # [B, Tp+Tr] padded rows
     use_remove_padding: bool = False
-    pack_len: int = 0
-    micro_token_budget: int = 0
+    pack_len: int = 0                     # 0 -> max_prompt + max_response
+    micro_token_budget: int = 0           # 0 -> micro_batch_size rows
     # algorithm
     adv_estimator: str = "grpo"           # grpo | gae | rloo | reinforce_plus_plus | remax
     gamma: float = 1.0
@@ -70,8 +88,13 @@ class TrainerConfig:
     kl_penalty: str = "kl"
     norm_adv_by_std_in_grpo: bool = True
     weight_sync: str = "full"             # full | lora_delta (not ported)
-    # pipelined rollout and bounded staleness: not ported yet (0 / 1 only)
+    # pipelined rollout (trainer/pipeline.py): 0 = the serial loop; N >= 1
+    # lets a background lane generate up to N steps ahead of training, so
+    # rollouts arrive weight-version stale (see rollout_is_correction)
     pipeline_depth: int = 0
+    # bounded-staleness admission gate: a prefetched stream may start while
+    # up to staleness_limit - 1 weight pushes are in flight; 1 = the hard
+    # wait_pushed() fence
     staleness_limit: int = 1
     # truncated importance-sampling correction of stale rollouts
     rollout_is_correction: bool = False
@@ -81,18 +104,18 @@ class TrainerConfig:
     seed: int = 0
     profile_steps: tuple = ()             # not ported yet
     profile_dir: str = "/tmp/polyrl_profile"
-    # validation: not ported yet
-    test_freq: int = 0
+    # validation
+    test_freq: int = 0                    # validate every N steps (0 = off)
     val_before_train: bool = False
-    val_temperature: float = 0.0
-    val_max_response_length: int = 0
-    rollout_data_dir: str = ""
-    val_generations_to_log: int = 0
-    # checkpoint/resume: not ported yet
+    val_temperature: float = 0.0          # greedy by default
+    val_max_response_length: int = 0      # 0 -> max_response_length
+    rollout_data_dir: str = ""            # dump val generations as jsonl
+    val_generations_to_log: int = 0       # echo the first K to the logger
+    # checkpoint/resume
     ckpt_dir: str | None = None
-    save_freq: int = 0
+    save_freq: int = 0                    # 0 = only the last step (+ESI)
     max_ckpt_keep: int = 3
-    resume: str = "auto"
+    resume: str = "auto"                  # auto | disable
     esi_margin_s: float = 300.0
     # sampling
     temperature: float = 1.0
@@ -142,18 +165,12 @@ class TrainerConfig:
                 " advantages would silently use partial groups)")
 
 
-def _unported(cfg: TrainerConfig, rollout, critic) -> str | None:
+def _unported(cfg: TrainerConfig, rollout) -> str | None:
     """The first configured feature this port does not run yet, or None."""
-    if critic is not None:
-        return "the critic (PPO with GAE)"
     if not hasattr(rollout, "generate") or hasattr(rollout, "generate_stream"):
         return "remote (disaggregated) rollout"
     for bad, what in (
-            (cfg.pipeline_depth > 0, "the pipelined trainer (pipeline_depth > 0)"),
-            (cfg.use_remove_padding, "packed rows (use_remove_padding)"),
             (cfg.weight_sync != "full", "LoRA delta weight sync"),
-            (bool(cfg.ckpt_dir), "checkpoint/resume (ckpt_dir)"),
-            (cfg.test_freq > 0 or cfg.val_before_train, "validation"),
             (bool(cfg.profile_steps), "step profiling (profile_steps)")):
         if bad:
             return what
@@ -169,28 +186,88 @@ def _host(x) -> np.ndarray:
         else np.asarray(x)
 
 
+def _clone_tree(tree: dict) -> dict:
+    return {k: (_clone_tree(v) if isinstance(v, dict) else v.detach().clone())
+            for k, v in tree.items()}
+
+
+def _pack_feed(pack) -> dict:
+    return {k: pack[k] for k in _PACK_KEYS}
+
+
 class StreamRLTrainer:
     def __init__(self, cfg: TrainerConfig, actor, rollout, tokenizer,
                  reward_manager, dataloader, critic=None, ref_policy=None,
-                 logger=None):
+                 logger=None, val_dataset=None):
         if cfg.adv_estimator == "gae" and critic is None:
             raise ValueError("GAE requires a critic")
-        missing = _unported(cfg, rollout, critic)
+        missing = _unported(cfg, rollout)
         if missing is not None:
             raise NotImplementedError(
                 f"{missing} is not ported to polyrl_tpu_torch yet (ROADMAP A')")
+        if cfg.pipeline_depth > 0 and not cfg.rollout_is_correction:
+            log.warning(
+                "pipeline_depth=%d without rollout_is_correction: rollouts "
+                "arrive up to one weight version stale and advantages are "
+                "NOT importance-corrected", cfg.pipeline_depth)
         self.cfg = cfg
         self.actor = actor
         self.rollout = rollout
         self.tokenizer = tokenizer
         self.reward_manager = reward_manager
         self.dataloader = dataloader
-        self.critic = None
+        self.critic = critic
         self.ref_policy = ref_policy
         self.logger = logger
+        self.val_dataset = val_dataset
         self.global_step = 0
+        # weight pushes initiated so far; a prefetched stream records the
+        # count at its generation start, so the gap at consume time is the
+        # perf/weight_staleness gauge
         self._push_count = 0
+        # the dataloader's position after the records of the step being
+        # trained: what a checkpoint of that step saves (the pipeline's
+        # producer may already have drawn the next step's records)
+        self._loader_state: dict | None = None
+        self._ckpt = (ckpt_lib.CheckpointManager(cfg.ckpt_dir,
+                                                 max_to_keep=cfg.max_ckpt_keep)
+                      if cfg.ckpt_dir else None)
+        self._esi_expiry = ckpt_lib.esi_expiry_from_env()
         self._flops = FlopsCounter(actor.model_cfg, n_chips=1)
+
+    # -- checkpoint/resume -------------------------------------------------
+
+    def _ckpt_state(self) -> dict:
+        state = {"actor": self.actor.state_dict()}
+        if self.critic is not None:
+            state["critic"] = self.critic.state_dict()
+        return state
+
+    def _save_checkpoint(self) -> None:
+        meta = {"global_step": self.global_step}
+        if self._loader_state is not None:
+            meta["dataloader"] = self._loader_state
+        self._ckpt.save(self.global_step, self._ckpt_state(), meta)
+
+    def _load_checkpoint(self) -> bool:
+        """Restore the latest checkpoint if there is one; True on resume.
+        Items restore independently, so an actor-only checkpoint resumes
+        the actor of a trainer that has a critic (and vice versa)."""
+        if self._ckpt is None or self.cfg.resume == "disable":
+            return False
+        out = self._ckpt.restore(targets=self._ckpt_state().keys())
+        if out is None:
+            return False
+        items, meta = out
+        if "actor" in items:
+            self.actor.load_state_dict(items["actor"])
+        if self.critic is not None and "critic" in items:
+            self.critic.load_state_dict(items["critic"])
+        self.global_step = int(meta.get("global_step", 0))
+        if "dataloader" in meta and hasattr(self.dataloader, "load_state_dict"):
+            self.dataloader.load_state_dict(meta["dataloader"])
+            self._loader_state = meta["dataloader"]
+        return True
 
     # -- rollout -> TensorBatch -------------------------------------------
 
@@ -251,9 +328,11 @@ class StreamRLTrainer:
             non_tensors={"ground_truth": list(gts), "data_source": list(sources)},
             meta_info={"global_step": self.global_step})
 
-    def _ibatch_iter(self, records: list[dict], rng, metrics: MetricsTracker):
+    def _ibatch_iter_local(self, records: list[dict], rng,
+                           metrics: MetricsTracker):
         """Generate the whole batch with the colocated engine, then slice
-        it into ibatches of ``min_stream_batch_size``."""
+        it into ibatches of ``min_stream_batch_size``. ``rng`` is accepted
+        for the JAX signature: the engine owns its sampling generator."""
         cfg = self.cfg
         prompts, gts, sources = self._prepare_prompts(records)
         with marked_timer("gen", metrics):
@@ -264,16 +343,56 @@ class StreamRLTrainer:
         batch = self._assemble_batch(prompts, gts, sources, outs, group_ids)
         yield from batch.split(cfg.min_stream_batch_size)
 
-    def _push_weights(self) -> None:
-        """Copy the actor's weights into the engine (a version bump)."""
-        self.rollout.update_weights(self.actor.export_params())
+    # one device: no multi-host fan-out around the local stream
+    _ibatch_iter = _ibatch_iter_local
+
+    def _push_weights(self, block: bool = True) -> None:
+        """Push the actor's weights to the rollout (a version bump).
+
+        ``block=False`` (pipelined mode) with a rollout that pushes
+        asynchronously (``update_weights_async``): the rollout gets a
+        device copy taken now, since the actor's next optimizer step
+        updates its tensors in place, and the push completes in the
+        background; the pipeline fences on ``_wait_pushed`` before its
+        next stream. The colocated engine has no asynchronous push: its
+        ``update_weights`` copies the weights into the engine's own
+        tensors between dispatches (under its dispatch lock), which is the
+        copy the JAX trainer hands it, and is ordered on the one CUDA
+        stream after the optimizer step and before the next."""
+        params = self.actor.export_params()
+        if not block and hasattr(self.rollout, "update_weights_async"):
+            self.rollout.update_weights_async(_clone_tree(params))
+        else:
+            self.rollout.update_weights(params)
         self._push_count += 1
+
+    def _wait_pushed(self) -> None:
+        """Fence on the last asynchronous push: returns when it has landed
+        (a no-op for synchronous rollouts)."""
+        fn = getattr(self.rollout, "wait_pushed", None)
+        if fn is not None:
+            fn()
+
+    def _wait_push_headroom(self, max_lag: int) -> None:
+        """Bounded-staleness admission gate (``staleness_limit > 1``):
+        block until at most ``max_lag`` asynchronous pushes are in flight.
+        Rollouts without a lag surface take the full fence."""
+        fn = getattr(self.rollout, "wait_push_lag", None)
+        if fn is not None:
+            fn(max_lag)
+        else:
+            self._wait_pushed()
+
+    def _push_lag(self) -> int:
+        """Asynchronous pushes in flight (``perf/staleness_lag``)."""
+        fn = getattr(self.rollout, "push_lag", None)
+        return int(fn()) if fn is not None else 0
 
     # -- per-ibatch pipeline ---------------------------------------------
 
     def _process_ibatch(self, ibatch: TensorBatch,
                         metrics: MetricsTracker) -> TensorBatch:
-        """reward -> old logprob -> ref logprob -> advantage."""
+        """reward -> old logprob -> ref logprob -> values -> advantage."""
         cfg = self.cfg
         with marked_timer("reward", metrics):
             reward_out = self.reward_manager(ibatch)
@@ -281,15 +400,34 @@ class StreamRLTrainer:
             metrics.update(reward_out.metrics)
         feed = {k: ibatch[k] for k in ("input_ids", "positions", "attention_mask",
                                        "responses", "response_mask")}
-        with marked_timer("old_log_prob", metrics):
-            old_lp, entropy = self.actor.compute_log_prob(feed)
-            ibatch.tensors["old_log_probs"] = _host(old_lp)
-            metrics.update({"actor/entropy_rollout": float(core_algos.masked_mean(
-                _t(_host(entropy)), _t(ibatch["response_mask"])))})
-        if self.ref_policy is not None:
-            with marked_timer("ref_log_prob", metrics):
-                ibatch.tensors["ref_log_probs"] = _host(
-                    self.ref_policy.compute_log_prob(feed))
+        if cfg.use_remove_padding:
+            self._packed_logprob_pass(ibatch, metrics)
+        else:
+            with marked_timer("old_log_prob", metrics):
+                old_lp, entropy = self.actor.compute_log_prob(feed)
+                ibatch.tensors["old_log_probs"] = _host(old_lp)
+                metrics.update({"actor/entropy_rollout": float(
+                    core_algos.masked_mean(_t(_host(entropy)),
+                                           _t(ibatch["response_mask"])))})
+            if self.ref_policy is not None:
+                with marked_timer("ref_log_prob", metrics):
+                    ibatch.tensors["ref_log_probs"] = _host(
+                        self.ref_policy.compute_log_prob(feed))
+        if self.critic is not None:
+            with marked_timer("values", metrics):
+                if cfg.use_remove_padding:
+                    # the values ride the logprob pass's packs and gather
+                    # specs: no padded forward is built when the actor
+                    # runs packed
+                    vals = np.zeros((len(ibatch), cfg.max_response_length),
+                                    np.float32)
+                    for pack, spec in ibatch.meta_info["packs"]:
+                        spec.gather_into(_host(self.critic.compute_values_packed(
+                            _pack_feed(pack))), vals)
+                    ibatch.tensors["values"] = vals
+                else:
+                    ibatch.tensors["values"] = _host(
+                        self.critic.compute_values(feed))
 
         with marked_timer("adv", metrics):
             mask = _t(ibatch["response_mask"])
@@ -314,6 +452,10 @@ class StreamRLTrainer:
             elif est == "reinforce_plus_plus":
                 adv, ret = core_algos.compute_reinforce_plus_plus_outcome_advantage(
                     token_rewards, mask, cfg.gamma)
+            elif est == "gae":
+                adv, ret = core_algos.compute_gae_advantage_return(
+                    token_rewards, _t(ibatch["values"]), mask, cfg.gamma,
+                    cfg.lam)
             elif est == "remax":
                 baselines = self._compute_remax_baselines(ibatch, metrics)
                 adv, ret = core_algos.compute_remax_outcome_advantage(
@@ -338,6 +480,71 @@ class StreamRLTrainer:
                                 "actor/tis_clip_frac": tis_stats["clip_frac"]})
         return ibatch
 
+    # -- packed-sequence (remove-padding) path -----------------------------
+
+    def _pack_geometry(self) -> tuple[int, int]:
+        """(pack_len, rows per packed micro). On one device the JAX
+        trainer's shard floors reduce to one row, and a token budget below
+        one row raises rather than exceed the budget it guards."""
+        cfg = self.cfg
+        pack_len = cfg.pack_len or (cfg.max_prompt_length + cfg.max_response_length)
+        if cfg.micro_token_budget <= 0:
+            return pack_len, cfg.micro_batch_size
+        if cfg.micro_token_budget < pack_len:
+            raise ValueError(
+                f"micro_token_budget={cfg.micro_token_budget} cannot fit one "
+                f"packed row of pack_len={pack_len} tokens; raise the budget "
+                f"or shrink pack_len")
+        return pack_len, cfg.micro_token_budget // pack_len
+
+    def _packed_logprob_pass(self, ibatch: TensorBatch,
+                             metrics: MetricsTracker) -> None:
+        """Old and ref logprobs and the entropy on the packed layout, then
+        gathered back to [B, Tr] for the advantage math. The packs stay on
+        the ibatch (``meta_info["packs"]``) for the value pass and the
+        update micros."""
+        from polyrl_tpu_torch.data import packing
+
+        cfg = self.cfg
+        pack_len, n_rows = self._pack_geometry()
+        packs = list(packing.iter_packed_micros(
+            ibatch, cfg.max_prompt_length, pack_len, n_rows,
+            self.rollout.pad_token_id))
+        ibatch.meta_info["packs"] = packs
+        b, tr = len(ibatch), cfg.max_response_length
+        old_lp = np.zeros((b, tr), np.float32)
+        ent_num = ent_den = 0.0
+        with marked_timer("old_log_prob", metrics):
+            for pack, spec in packs:
+                lp, ent = self.actor.compute_log_prob_packed(_pack_feed(pack))
+                spec.gather_into(_host(lp), old_lp)
+                lm = np.asarray(pack["loss_mask"])
+                ent_num += float((_host(ent) * lm).sum())
+                ent_den += float(lm.sum())
+        ibatch.tensors["old_log_probs"] = old_lp
+        metrics.update({"actor/entropy_rollout": ent_num / max(ent_den, 1.0)})
+        if self.ref_policy is not None:
+            ref_lp = np.zeros((b, tr), np.float32)
+            with marked_timer("ref_log_prob", metrics):
+                for pack, spec in packs:
+                    spec.gather_into(_host(self.ref_policy.compute_log_prob_packed(
+                        _pack_feed(pack))), ref_lp)
+            ibatch.tensors["ref_log_probs"] = ref_lp
+
+    def _packed_micros(self, ibatch: TensorBatch):
+        """(packed feed, n_trajectories) update micros, with the advantages,
+        old/ref logprobs, returns and values scattered into each pack's
+        layout."""
+        fields = [k for k in ("advantages", "old_log_probs", "ref_log_probs")
+                  if k in ibatch]
+        if self.critic is not None:
+            fields += ["returns", "values"]
+        for pack, spec in ibatch.meta_info["packs"]:
+            feed = _pack_feed(pack)
+            for k in fields:
+                feed[k] = spec.scatter(np.asarray(ibatch[k]))
+            yield feed, len(spec.orig_idx)
+
     def _compute_remax_baselines(self, ibatch: TensorBatch,
                                  metrics: MetricsTracker) -> np.ndarray:
         """ReMax baseline: ONE greedy rollout per prompt group, scored by
@@ -355,7 +562,7 @@ class StreamRLTrainer:
             max_new_tokens=cfg.max_response_length,
             stop_token_ids=(self.tokenizer.eos_token_id,))
         with marked_timer("remax_baseline", metrics):
-            outs = [_ResultView(o) for o in self.rollout.generate(prompts, sampling)]
+            outs = self._generate_all(prompts, sampling)
             base_batch = self._assemble_batch(
                 prompts, [gts[i] for i in first_idx],
                 [sources[i] for i in first_idx], outs, list(range(len(prompts))))
@@ -367,6 +574,78 @@ class StreamRLTrainer:
             "reward/remax_baseline_failed": 0.0})
         group_to_score = {int(g): float(s) for g, s in zip(uniq, base_scores)}
         return np.asarray([group_to_score[int(g)] for g in group_ids], np.float32)
+
+    # -- validation ---------------------------------------------------------
+
+    def _generate_all(self, prompts: list[list[int]],
+                      sampling: SamplingParams) -> list[_ResultView]:
+        """Every prompt's output from the colocated engine, in order."""
+        return [_ResultView(o) for o in self.rollout.generate(prompts, sampling)]
+
+    def _validate(self) -> dict:
+        """Greedy (by default) evaluation over the validation set: the mean
+        score per data source and overall; optionally the generations
+        dumped as jsonl and echoed to the logger."""
+        cfg = self.cfg
+        records = list(self.val_dataset)
+        sampling = SamplingParams(
+            temperature=cfg.val_temperature, top_p=1.0, top_k=0,
+            max_new_tokens=cfg.val_max_response_length or cfg.max_response_length,
+            stop_token_ids=(self.tokenizer.eos_token_id,))
+        per_source: dict[str, list[float]] = {}
+        dump_rows: list[dict] = []
+        bs = max(cfg.train_batch_size, 1)
+        for lo in range(0, len(records), bs):
+            chunk = records[lo: lo + bs]
+            prompts = [self.tokenizer.encode(r["prompt"])[: cfg.max_prompt_length]
+                       for r in chunk]
+            outs = self._generate_all(prompts, sampling)
+            gts = [r.get("ground_truth", "") for r in chunk]
+            sources = [r.get("data_source", "") for r in chunk]
+            batch = self._assemble_batch(prompts, gts, sources, outs,
+                                         list(range(len(chunk))))
+            reward_out = self.reward_manager(batch)
+            for src, sc in zip(sources, reward_out.scores):
+                per_source.setdefault(src or "default", []).append(float(sc))
+            if cfg.rollout_data_dir or cfg.val_generations_to_log:
+                texts = self.tokenizer.batch_decode(
+                    [np.asarray(o.output_ids) for o in outs],
+                    skip_special_tokens=True)
+                for r, txt, sc in zip(chunk, texts, reward_out.scores):
+                    dump_rows.append({
+                        "step": self.global_step, "prompt": r["prompt"],
+                        "response": txt, "score": float(sc),
+                        "ground_truth": r.get("ground_truth", ""),
+                        "data_source": r.get("data_source", "")})
+        metrics = {f"val/test_score/{src}": float(np.mean(v))
+                   for src, v in per_source.items()}
+        all_scores = [x for v in per_source.values() for x in v]
+        metrics["val/test_score/mean"] = (float(np.mean(all_scores))
+                                          if all_scores else 0.0)
+        metrics["val/num_failed"] = 0.0
+        if cfg.rollout_data_dir and dump_rows:
+            os.makedirs(cfg.rollout_data_dir, exist_ok=True)
+            path = os.path.join(cfg.rollout_data_dir,
+                                f"val_step{self.global_step}.jsonl")
+            with open(path, "w") as f:
+                for row in dump_rows:
+                    f.write(json.dumps(row) + "\n")
+        if cfg.val_generations_to_log and self.logger is not None and dump_rows:
+            for row in dump_rows[: cfg.val_generations_to_log]:
+                self.logger.log({"val/generation": 0.0, **{
+                    k: v for k, v in row.items() if isinstance(v, float)}},
+                    step=self.global_step)
+        return metrics
+
+    def _maybe_validate(self, metrics: MetricsTracker, *, force: bool = False) -> None:
+        cfg = self.cfg
+        if self.val_dataset is None:
+            return
+        due = force or (cfg.test_freq > 0 and self.global_step > 0
+                        and self.global_step % cfg.test_freq == 0)
+        if due:
+            with marked_timer("testing", metrics):
+                metrics.update(self._validate())
 
     # -- one training batch (stream -> micros -> opt steps) ---------------
 
@@ -391,58 +670,119 @@ class StreamRLTrainer:
                 state["bubble"] += time.monotonic() - wait_t0
                 ibatch = self._process_ibatch(ibatch, metrics)
                 state["n_tokens"] += int(np.asarray(ibatch["attention_mask"]).sum())
-                for m in ibatch.split(cfg.micro_batch_size):
-                    yield m, len(m)
+                if cfg.use_remove_padding:
+                    yield from self._packed_micros(ibatch)
+                else:
+                    for m in ibatch.split(cfg.micro_batch_size):
+                        yield m, len(m)
 
         for micro, n_traj in micro_stream():
+            # boundary-crossing, not exact multiples: packed micros carry
+            # ragged trajectory counts and may step over a multiple
             prev = state["processed"]
             state["processed"] += n_traj
             is_opt = state["processed"] // msize > prev // msize
-            feed = {k: micro[k] for k in (
-                "input_ids", "positions", "attention_mask", "responses",
-                "response_mask", "advantages", "old_log_probs")}
-            if "ref_log_probs" in micro:
-                feed["ref_log_probs"] = micro["ref_log_probs"]
+            scale = n_traj / msize
+            if isinstance(micro, dict):  # packed feed, actor- and critic-ready
+                feed = cfeed = micro
+            else:
+                feed = {k: micro[k] for k in (
+                    "input_ids", "positions", "attention_mask", "responses",
+                    "response_mask", "advantages", "old_log_probs")}
+                if "ref_log_probs" in micro:
+                    feed["ref_log_probs"] = micro["ref_log_probs"]
+                cfeed = ({k: micro[k] for k in (
+                    "input_ids", "positions", "attention_mask", "responses",
+                    "response_mask", "returns", "values")}
+                    if self.critic is not None else None)
             with marked_timer("update_actor", metrics):
-                m = self.actor.update_stream(feed, is_opt,
-                                             loss_scale=n_traj / msize)
+                m = self.actor.update_stream(feed, is_opt, loss_scale=scale)
                 metrics.update({k: float(v) for k, v in m.items()})
+            if self.critic is not None:
+                with marked_timer("update_critic", metrics):
+                    cm = self.critic.update_stream(cfeed, is_opt,
+                                                   loss_scale=scale)
+                    metrics.update({k: float(v) for k, v in cm.items()})
         if state["processed"] % msize != 0 and state["processed"] > 0:
             metrics.update({k: float(v) for k, v in
                             self.actor.flush_opt_step().items()})
+            if self.critic is not None:
+                metrics.update({k: float(v) for k, v in
+                                self.critic.flush_opt_step().items()})
         return state
 
     # -- fit --------------------------------------------------------------
 
     def fit(self) -> list[dict]:
-        """Run ``total_steps`` steps; returns the per-step metric dicts."""
+        """Run the steps from ``global_step`` (after a resume) to
+        ``total_steps``; returns the per-step metric dicts (plus a
+        validation record first with ``val_before_train``)."""
+        from polyrl_tpu_torch.trainer.pipeline import RolloutPipeline
+
         cfg = self.cfg
         history = []
+        if self._load_checkpoint() and self.logger is not None:
+            self.logger.log({"training/resumed_from_step": self.global_step},
+                            step=self.global_step)
         self._push_weights()  # bootstrap the engine with the actor's weights
-        while self.global_step < cfg.total_steps:
-            metrics = MetricsTracker()
-            step_t0 = time.monotonic()
-            records = next(self.dataloader)
-            state = self._train_one_batch(
-                lambda: self._ibatch_iter(records, None, metrics), metrics)
-            with marked_timer("update_weight", metrics):
-                self._push_weights()
-            self.global_step += 1
-            step_time = time.monotonic() - step_t0
-            throughput = state["n_tokens"] / step_time if step_time else 0.0
-            n_traj = max(state["processed"], 1)
-            metrics.update({
-                "training/global_step": self.global_step,
-                "perf/step_time_s": step_time,
-                "perf/trainer_bubble_s": state["bubble"],
-                "perf/throughput_tokens_per_s": throughput,
-                "perf/throughput_tok_s_per_chip": throughput,
-                "perf/rollout_throughput_tok_s": self.rollout.last_gen_throughput,
-            })
-            metrics.update(self._flops.step_metrics(
-                state["n_tokens"], state["n_tokens"] / n_traj, step_time))
-            record = metrics.as_dict()
-            history.append(record)
+        if cfg.val_before_train and self.val_dataset is not None:
+            pre = MetricsTracker()
+            self._maybe_validate(pre, force=True)
+            history.append(pre.as_dict())
             if self.logger is not None:
-                self.logger.log(record, step=self.global_step)
+                self.logger.log(history[-1], step=self.global_step)
+        # pipelined mode: a background lane generates up to depth steps
+        # ahead while this thread trains
+        pipeline = (RolloutPipeline(self, cfg.pipeline_depth).start(
+            self.global_step, cfg.total_steps) if cfg.pipeline_depth > 0
+            else None)
+        try:
+            while self.global_step < cfg.total_steps:
+                metrics = MetricsTracker()
+                step_t0 = time.monotonic()
+                if pipeline is None:
+                    records = next(self.dataloader)
+                    if hasattr(self.dataloader, "state_dict"):
+                        self._loader_state = self.dataloader.state_dict()
+                    source = lambda: self._ibatch_iter(  # noqa: E731
+                        records, None, metrics)
+                else:
+                    step = self.global_step
+                    source = lambda: pipeline.step_ibatches(  # noqa: E731
+                        step, metrics)
+                state = self._train_one_batch(source, metrics)
+                with marked_timer("update_weight", metrics):
+                    self._push_weights(block=cfg.pipeline_depth == 0)
+                self.global_step += 1
+                step_time = time.monotonic() - step_t0
+                throughput = state["n_tokens"] / step_time if step_time else 0.0
+                n_traj = max(state["processed"], 1)
+                metrics.update({
+                    "training/global_step": self.global_step,
+                    "perf/step_time_s": step_time,
+                    "perf/trainer_bubble_s": state["bubble"],
+                    "perf/throughput_tokens_per_s": throughput,
+                    "perf/throughput_tok_s_per_chip": throughput,
+                    "perf/rollout_throughput_tok_s": self.rollout.last_gen_throughput,
+                })
+                metrics.update(self._flops.step_metrics(
+                    state["n_tokens"], state["n_tokens"] / n_traj, step_time))
+                self._maybe_validate(metrics,
+                                     force=self.global_step >= cfg.total_steps)
+                if self._ckpt is not None and ckpt_lib.should_save_checkpoint(
+                        self.global_step, cfg.total_steps, cfg.save_freq,
+                        esi_expiry_ts=self._esi_expiry,
+                        esi_margin_s=cfg.esi_margin_s):
+                    with marked_timer("save_checkpoint", metrics):
+                        self._save_checkpoint()
+                record = metrics.as_dict()
+                history.append(record)
+                if self.logger is not None:
+                    self.logger.log(record, step=self.global_step)
+        finally:
+            if pipeline is not None:
+                pipeline.close()
+        self._wait_pushed()  # the last push lands before fit returns
+        if self._ckpt is not None:
+            self._ckpt.wait()
         return history

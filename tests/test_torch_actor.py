@@ -242,6 +242,37 @@ def test_unported_actor_options_raise():
         tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree), mesh=object())
 
 
+@pytest.mark.parametrize("kw", [dict(packed_attn_fn=object()),
+                                dict(layers_fn=object())],
+                         ids=["sp_packed_attention", "pipeline_layers"])
+def test_unported_parallel_options_raise(kw):
+    """Packed rows run on one device through K4 with segment ids; the
+    sequence-parallel packed attention and pipeline layer stacks wait for
+    ``parallel/*``."""
+    _jcfg, tcfg, tree = _models()
+    with pytest.raises(NotImplementedError):
+        tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree), **kw)
+
+
+def test_packed_feed_trains():
+    """A packed feed (segment ids, loss_mask) trains: the loss reads
+    loss_mask as the response mask and the step moves the weights."""
+    _jcfg, tcfg, tree = _models()
+    bt = _batch(11)
+    seg = (bt["attention_mask"] > 0).astype(np.int32)
+    feed = {"input_ids": bt["input_ids"], "positions": bt["positions"],
+            "attention_mask": bt["attention_mask"], "segment_ids": seg,
+            "loss_mask": np.pad(bt["response_mask"], ((0, 0), (8, 0))),
+            "advantages": np.pad(bt["advantages"], ((0, 0), (8, 0))),
+            "old_log_probs": np.pad(bt["old_log_probs"], ((0, 0), (8, 0)))}
+    a = tactor.StreamActor(tcfg, tactor.ActorConfig(lr=1e-3, remat=False),
+                           _tparams(tree))
+    before = _flat_np(a.params)
+    m = a.update_stream(feed, is_opt_step=True)
+    assert np.isfinite(m["actor/pg_loss"]) and m["actor/grad_norm"] > 0
+    assert any(not np.array_equal(before[k], v) for k, v in _flat_np(a.params).items())
+
+
 def test_double_where_keeps_masked_nans_out_of_the_gradient():
     """Logits that overflow at a masked response position (their
     log-softmax is NaN) reach neither the logprobs nor, through the

@@ -110,3 +110,44 @@ def test_train_cli_prints_config_and_refuses_missing_cuda():
         [sys.executable, "-m", "polyrl_tpu_torch.train", "model.preset=tiny"],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "cuda" in out.stderr
+
+
+PPO_CLI = ["trainer.adv_estimator=gae", "trainer.use_remove_padding=true",
+           "trainer.pipeline_depth=1", "trainer.rollout_is_correction=true",
+           "trainer.test_freq=1", "data.val_path=arithmetic",
+           "data.arithmetic_size=8", "model.preset=tiny", "model.dtype=float32",
+           "rollout.max_slots=16", "rollout.page_size=8",
+           "rollout.num_pages=64", "rollout.max_seq_len=64",
+           "rollout.prompt_buckets=16", "trainer.train_batch_size=2",
+           "trainer.rollout_n=4", "trainer.ppo_mini_batch_size=8",
+           "trainer.micro_batch_size=4", "trainer.min_stream_batch_size=8",
+           "trainer.max_prompt_length=16", "trainer.max_response_length=16",
+           "reward.num_workers=1"]
+
+
+def test_train_cli_ppo_slice_runs_and_resumes_on_cpu(tmp_path):
+    """The slice's configuration through the CLI on the CPU: PPO with the
+    critic (GAE) on packed rows, pipelined with TIS, validated every step
+    and checkpointed; a second run with more steps resumes from the
+    first's last checkpoint. With ``device=cuda`` and no card it raises."""
+    ck = tmp_path / "ck"
+    common = ["-m", "polyrl_tpu_torch.train", f"trainer.ckpt_dir={ck}"] + PPO_CLI
+    out = subprocess.run([sys.executable, *common, "device=cpu",
+                          "trainer.total_steps=2"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "critic/vf_loss" in out.stdout and "val/test_score/mean" in out.stdout
+    assert sorted(p.name for p in ck.iterdir()) == ["global_step_2"]
+    assert {p.name for p in (ck / "global_step_2").iterdir()} == {
+        "actor.pt", "critic.pt", "meta.json"}
+    out = subprocess.run([sys.executable, *common, "device=cpu",
+                          "trainer.total_steps=3"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "'training/resumed_from_step': 2" in out.stdout
+    assert "[step 3]" in out.stdout and "[step 1]" not in out.stdout
+    if torch.cuda.is_available():
+        return
+    out = subprocess.run([sys.executable, *common, "trainer.total_steps=1"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "cuda" in out.stderr

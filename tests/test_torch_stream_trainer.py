@@ -26,6 +26,7 @@ from polyrl_tpu_torch.models.convert import params_from_numpy
 from polyrl_tpu_torch.rewards.manager import load_reward_manager
 from polyrl_tpu_torch.rollout.cb_engine import CBEngine
 from polyrl_tpu_torch.trainer.actor import ActorConfig, ReferencePolicy, StreamActor
+from polyrl_tpu_torch.trainer.critic import CriticConfig, StreamCritic, init_critic_params
 from polyrl_tpu_torch.trainer.stream_trainer import StreamRLTrainer, TrainerConfig
 from polyrl_tpu_torch.utils.metrics import MetricsTracker
 from polyrl_tpu_torch.utils.tokenizer import ByteTokenizer
@@ -112,6 +113,8 @@ def test_config_validation():
 
 
 def test_gae_and_unported_features_are_refused():
+    """GAE without a critic is a configuration error; a rollout with a
+    streaming surface (remote rollout) is not ported yet."""
     cfg, params, tok, engine = make_parts()
     actor = StreamActor(cfg, ActorConfig(remat=False), params)
     base = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
@@ -119,11 +122,79 @@ def test_gae_and_unported_features_are_refused():
     with pytest.raises(ValueError):
         StreamRLTrainer(TrainerConfig(adv_estimator="gae", **base), actor, engine,
                         tok, None, None)
-    for extra in (dict(pipeline_depth=1), dict(use_remove_padding=True),
-                  dict(ckpt_dir="ckpt"), dict(test_freq=2)):
-        with pytest.raises(NotImplementedError):
-            StreamRLTrainer(TrainerConfig(**base, **extra), actor, engine, tok,
-                            None, None)
+
+    class Remote:
+        def generate(self, *a, **k):
+            raise AssertionError
+
+        def generate_stream(self, *a, **k):
+            raise AssertionError
+
+    with pytest.raises(NotImplementedError, match="remote"):
+        StreamRLTrainer(TrainerConfig(**base), actor, Remote(), tok, None, None)
+    engine.stop()
+
+
+@pytest.mark.parametrize("extra", [dict(weight_sync="lora_delta"),
+                                   dict(profile_steps=(1,))],
+                         ids=["lora_delta", "profile_steps"])
+def test_still_unported_trainer_features_are_refused(extra):
+    cfg, params, tok, engine = make_parts()
+    actor = StreamActor(cfg, ActorConfig(remat=False), params)
+    base = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
+                micro_batch_size=4, min_stream_batch_size=4)
+    with pytest.raises(NotImplementedError):
+        StreamRLTrainer(TrainerConfig(**base, **extra), actor, engine, tok,
+                        None, None)
+    engine.stop()
+
+
+@pytest.mark.parametrize("extra", [dict(pipeline_depth=1, rollout_is_correction=True),
+                                   dict(use_remove_padding=True),
+                                   dict(ckpt_dir="CKPT"), dict(test_freq=2)],
+                         ids=["pipeline", "remove_padding", "ckpt", "validation"])
+def test_features_that_were_refused_now_construct(extra, tmp_path):
+    """The pipelined trainer, packed rows, checkpoints and validation
+    construct (each is exercised end to end in its own test file)."""
+    cfg, params, tok, engine = make_parts()
+    if "ckpt_dir" in extra:
+        extra = dict(ckpt_dir=str(tmp_path / "ck"))
+    actor = StreamActor(cfg, ActorConfig(remat=False), params)
+    base = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
+                micro_batch_size=4, min_stream_batch_size=4)
+    trainer = StreamRLTrainer(TrainerConfig(**base, **extra), actor, engine, tok,
+                              None, None)
+    assert trainer.cfg.pipeline_depth == extra.get("pipeline_depth", 0)
+    engine.stop()
+
+
+def test_ppo_gae_with_critic_step():
+    """Torch copy of the JAX package's PPO + critic (GAE) step."""
+    cfg, params, tok, engine = make_parts()
+    tcfg = TrainerConfig(
+        train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
+        micro_batch_size=4, min_stream_batch_size=4,
+        max_prompt_length=16, max_response_length=8,
+        adv_estimator="gae", total_steps=1)
+    actor = StreamActor(cfg, ActorConfig(lr=1e-4, remat=False), params)
+    critic = StreamCritic(cfg, CriticConfig(remat=False), init_critic_params(
+        torch.Generator().manual_seed(1), cfg))
+    critic0 = _snapshot(critic.params)
+    trainer = StreamRLTrainer(
+        tcfg, actor, engine, tok, load_reward_manager("naive", tok, num_workers=1),
+        PromptDataLoader(make_arithmetic_dataset(64), tcfg.train_batch_size),
+        critic=critic)
+    try:
+        history = trainer.fit()
+    finally:
+        engine.stop()
+    assert "critic/vf_loss" in history[0]
+    assert "timing_s/values" in history[0]
+    assert "timing_s/update_critic" in history[0]
+    assert np.isfinite(history[0]["critic/vf_loss"])
+    assert history[0]["critic/grad_norm"] > 0
+    assert any(not torch.equal(a.detach(), b) for (_, a), (_, b) in
+               zip(_leaves(critic.params), _leaves(critic0)))
 
 
 def test_remax_e2e_and_baseline_semantics():
@@ -184,11 +255,12 @@ class _StubRollout:
         raise AssertionError
 
 
-@pytest.mark.parametrize("est", ["grpo", "rloo", "reinforce_plus_plus"])
-def test_process_ibatch_matches_jax_trainer(est):
+def _process_both(est, **extra):
     """One fixed ibatch (prompts, sampled responses and their behavior
-    logprobs) through both trainers' ``_process_ibatch``: rewards, old and
-    ref logprobs, KL-in-reward, advantages and the TIS weights agree."""
+    logprobs) through both trainers' ``_process_ibatch``; with ``gae``
+    each trainer has a critic holding the same converted JAX weights."""
+    from polyrl_tpu.trainer import critic as jcritic
+
     jcfg = jdec.get_config("tiny", dtype=jnp.float32, vocab_size=512,
                            max_position_embeddings=128)
     tree = jax.tree_util.tree_map(np.asarray,
@@ -198,7 +270,16 @@ def test_process_ibatch_matches_jax_trainer(est):
     kw = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
               micro_batch_size=4, min_stream_batch_size=8, max_prompt_length=16,
               max_response_length=8, adv_estimator=est, use_kl_in_reward=True,
-              kl_coef=0.05, rollout_is_correction=True, rollout_is_cap=1.5)
+              kl_coef=0.05, rollout_is_correction=True, rollout_is_cap=1.5,
+              **extra)
+    jcrit = tcrit = None
+    if est == "gae":
+        ctree = jax.tree_util.tree_map(np.asarray, jcritic.init_critic_params(
+            jax.random.PRNGKey(5), jcfg))
+        jcrit = jcritic.StreamCritic(jcfg, jcritic.CriticConfig(remat=False),
+                                     jax.tree_util.tree_map(jnp.asarray, ctree))
+        tcrit = StreamCritic(tcfg, CriticConfig(remat=False),
+                             params_from_numpy(ctree, "cpu", torch.float32))
 
     def score(ds, txt, gt, ex):
         return float(len(txt)) + (1.0 if gt in txt else 0.0)
@@ -209,7 +290,7 @@ def test_process_ibatch_matches_jax_trainer(est):
                            jax.tree_util.tree_map(jnp.asarray, tree)),
         _StubRollout(), JByteTokenizer(),
         j_load_rm("naive", JByteTokenizer(), compute_score=score, num_workers=1),
-        None, ref_policy=jactor.ReferencePolicy(
+        None, critic=jcrit, ref_policy=jactor.ReferencePolicy(
             jcfg, jax.tree_util.tree_map(jnp.asarray, tree)), health=False)
     tp = params_from_numpy(tree, "cpu", torch.float32)
     tt = StreamRLTrainer(
@@ -217,8 +298,8 @@ def test_process_ibatch_matches_jax_trainer(est):
         _StubRollout(), ByteTokenizer(),
         load_reward_manager("naive", ByteTokenizer(), compute_score=score,
                             num_workers=1),
-        None, ref_policy=ReferencePolicy(tcfg, params_from_numpy(tree, "cpu",
-                                                                 torch.float32)))
+        None, critic=tcrit, ref_policy=ReferencePolicy(
+            tcfg, params_from_numpy(tree, "cpu", torch.float32)))
     records = j_make_dataset(8, seed=4).records[:4]
     rng = np.random.default_rng(5)
     outs = _fake_outputs(rng, 8, 8)
@@ -240,10 +321,40 @@ def test_process_ibatch_matches_jax_trainer(est):
               "advantages", "returns"):
         np.testing.assert_allclose(np.asarray(tb[k]), np.asarray(jb[k]), err_msg=k,
                                    **TOL)
+    if est == "gae":  # values on response tokens (pads are read by nothing)
+        rm = np.asarray(tb["response_mask"])
+        np.testing.assert_allclose(np.asarray(tb["values"]) * rm,
+                                   np.asarray(jb["values"]) * rm, **TOL)
     jd, td = jm.as_dict(), tm.as_dict()
     for k in ("reward/mean", "reward/max", "actor/entropy_rollout",
               "critic/kl_in_reward", "actor/tis_weight_mean", "actor/tis_clip_frac"):
         np.testing.assert_allclose(td[k], jd[k], err_msg=k, **TOL)
+    return jt, jb, tt, tb
+
+
+@pytest.mark.parametrize("est", ["grpo", "rloo", "reinforce_plus_plus", "gae"])
+def test_process_ibatch_matches_jax_trainer(est):
+    """One fixed ibatch through both trainers' ``_process_ibatch``: rewards,
+    old and ref logprobs, KL-in-reward, values (GAE), advantages and
+    returns, and the TIS weights agree."""
+    _process_both(est)
+
+
+@pytest.mark.parametrize("est", ["grpo", "gae"])
+def test_packed_process_ibatch_matches_jax_trainer(est):
+    """The same on packed rows (``use_remove_padding``, 2 rows of 24 per
+    micro): the packed logprob and value passes gathered back, then the
+    update micros' packed feeds, field by field."""
+    jt, jb, tt, tb = _process_both(est, use_remove_padding=True,
+                                   micro_token_budget=48, pack_len=24)
+    jmicros = list(jt._packed_micros(jb))
+    tmicros = list(tt._packed_micros(tb))
+    assert len(tmicros) == len(jmicros) >= 2
+    for (jf, jn), (tf, tn) in zip(jmicros, tmicros):
+        assert jn == tn and set(tf) <= set(jf)
+        for k in tf:
+            np.testing.assert_allclose(np.asarray(tf[k]), np.asarray(jf[k]),
+                                       err_msg=k, **TOL)
 
 
 def test_engine_owns_its_weights():
