@@ -6,15 +6,21 @@
 Needs one CUDA device and ``nvcc``; exits non-zero and prints no result
 when CUDA is unavailable or any phase fails. Phases:
 
-1. build   -- compile every kernel library from ``csrc/`` (K1-K4; one nvcc
-              per source, all started together), and log each K2, K3 and
-              K4 kernel's registers per thread and spill bytes from the
-              compiler's ``-Xptxas -v`` report: a spill in a bf16 kernel
-              fails.
+1. build   -- compile every kernel library from ``csrc/`` (K1-K4 and the
+              fused decode prologue; one nvcc per source, all started
+              together), and log each kernel's registers per thread and
+              spill bytes from the compiler's ``-Xptxas -v`` report: a
+              spill in a bf16 kernel fails.
 2. kernels -- each kernel against its plain PyTorch version at the serving
               path's shapes (Hq 16, Hkv 8, D 128, page 64, 64 slots, bf16
               pools, lengths 1..4096, a G=8 group table with a padded -1
-              seat): K1 bitwise, K2/K3 within rtol 1e-2 / atol 2e-3
+              seat): K1 bitwise; the fused decode prologue (qk-norm, RoPE
+              and the K/V write in one kernel, K1 redesigned) with q and
+              the written k rows within one bf16 ulp of each RoPE operand
+              (``rope_operand_bound``), v rows and untouched rows bitwise,
+              twice bitwise, a CUDA-graph replay bitwise the eager call,
+              and failing with cos/sin one position late or k_norm left
+              out; K2/K3 within rtol 1e-2 / atol 2e-3
               (outputs are rounded to bf16 once: one ulp is at most 2^-7
               of the value), K3 also against K2 on the full page tables,
               and K2 and K3 each twice on the same inputs, bitwise. The
@@ -51,7 +57,14 @@ when CUDA is unavailable or any phase fails. Phases:
               alone (same tokens; its launches are reported apart), and
               its logprobs against the port's dense ``forward`` on the
               card; sent again with the engine's decode attention missing
-              each slot's last page, it must fail that check.
+              each slot's last page, it must fail that check. The main
+              path must take the fused prologue, never the standalone K1.
+              Then the decode step's A/B (``decode_ab``) at the serving
+              tables on the served weights: the default (fused) route
+              against ``kv_write_fn=paged_kv_write`` (eager qk-norm and
+              RoPE, then K1: that kernel's path), log-softmax within 0.1
+              nats from the same pools and inputs, then 50 steps of each
+              in turns: wall and device ms and kernels per step.
 4. train   -- ``build_trainer`` of ``polyrl_tpu_torch.train``:
               ``qwen3-1.7b`` at full width and depth in bf16, random
               weights from seed 0, the colocated CB engine (64 slots,
@@ -60,15 +73,18 @@ when CUDA is unavailable or any phase fails. Phases:
               on, a reward that varies within a group (the response's
               byte length). Gates: finite losses and grad norms, no
               skipped updates, weight_version 3 and the engine's weights
-              bitwise the actor's, K4 fwd/bwd and K1/K2 launched (counted
-              from zero just before the fit), the trainer's step-1 old
+              bitwise the actor's, K4 fwd/bwd, the fused prologue and K2
+              launched (counted from zero just before the fit), the trainer's step-1 old
               logprobs (K4) against the engine's rollout logprobs (paged
-              decode), and the full-model loss gradient of one micro
+              decode), and the full-model loss gradient of one micro of
+              step 1 on step 1's weights (the update's own gradient)
               through K4 against the same through the plain attention
               (cosine >= 0.98 on the bf16 weights, >= 0.99 on an f32
               copy; norm ratio within 2%). Each must fail with K4 fed
               tile-local segment ids (every query loses the keys of
-              earlier tiles).
+              earlier tiles). ``--grad-seeds 1,2,...`` then reads the
+              gradient gate again after the same fit at each of those
+              ``trainer.seed`` values and logs the spread (not gated).
 5. ppo     -- ``build_trainer`` again, on the slice's other half: PPO
               with a critic (GAE) on packed rows (pack_len 1024, 4 rows
               per micro), pipelined one step ahead (staleness limit 1,
@@ -76,7 +92,8 @@ when CUDA is unavailable or any phase fails. Phases:
               training and after every step (8 arithmetic prompts,
               greedy); ``qwen3-1.7b`` at full width and depth in bf16, 2
               steps of 2 prompts x 8 samples, responses of 256 tokens.
-              Gates: K1, K2 and K4 (forward and backward) launched,
+              Gates: the fused prologue, K2 and K4 (forward and
+              backward) launched,
               counted from zero; most packed rows carry 2 or more
               segments; the step-1 packed old logprobs within 0.2 nats of
               a padded pass over the same trajectories, and the packed
@@ -103,6 +120,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import http.client
 import json
@@ -120,6 +138,7 @@ import torch
 from polyrl_tpu_torch.models import decoder
 from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops import flash
+from polyrl_tpu_torch.ops import norm_rope
 from polyrl_tpu_torch.ops import paged_attention as pa
 
 MODEL = "qwen3-1.7b"
@@ -141,17 +160,32 @@ DENSE_LOGP_TOL = 0.15
 # of every element keeps near 2^-9
 FLASH_OUT_TOL = dict(rtol=1e-2, atol=2e-3)
 FLASH_GRAD_TOL = 1e-2
+# the fused decode prologue against its plain chain: q and the written k
+# rows within one bf16 ulp (2^-7 of the value) of each RoPE operand and of
+# the result (``rope_operand_bound``); v rows and untouched rows bitwise
+FUSED_REL = 2.0 ** -7
+# the decode step's two routes (fused prologue; eager qk-norm/RoPE + K1)
+# from the same pools and inputs, log-softmax over the vocabulary of the
+# live slots, in nats: both round q and k to bf16 at the same points, and
+# differ where the sum of squares flips a rounding (one ulp), compounded
+# through 28 layers
+DECODE_AB_TOL = 0.1
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores, same source
 REPLACES = {
-    "paged_kv_write": "polyrl_tpu/ops/paged_attention.py:671",
+    "paged_kv_write": "polyrl_tpu/ops/paged_attention.py:672",
+    "paged_kv_write_fused": "polyrl_tpu/ops/paged_attention.py:672 with the "
+                            "qk-norm and RoPE of polyrl_tpu/models/decoder.py:731-735",
     "paged_attention": "polyrl_tpu/ops/paged_attention.py:160",
     "grouped_paged_attention": "polyrl_tpu/ops/paged_attention.py:462",
     "flash_attention_fwd": "polyrl_tpu/ops/flash.py:60",
     "flash_attention_bwd": "polyrl_tpu/ops/flash.py:60",
 }
-# the kernels each phase's main path must launch
-SERVE_KERNELS = ("paged_kv_write", "paged_attention", "grouped_paged_attention")
-TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "paged_kv_write",
-                 "paged_attention")
+# the kernels each phase's main path must launch (the standalone K1 is on
+# the decode step's unfused route, driven by the serve phase's A/B)
+SERVE_KERNELS = ("paged_kv_write_fused", "paged_attention",
+                 "grouped_paged_attention")
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                 "paged_kv_write_fused", "paged_attention")
 
 
 class SmokeFailure(RuntimeError):
@@ -197,9 +231,10 @@ def cuda_ms(fn, reps: int, inner: int = 1, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float, peak: float = BF16_FLOPS
+             ) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -264,6 +299,171 @@ def kernel_case(dev):
                 g_lens_np=g_lens, seats=seats)
 
 
+def rope_operand_bound(n, cos, sin, ref, rel):
+    """Elementwise limit for a RoPE output whose operands may each sit one
+    ulp (``rel`` of their value) from the plain chain's: out1 = n1 cos -
+    n2 sin and out2 = n2 cos + n1 sin move by at most rel * (|n1 cos| +
+    |n2 sin|) (resp. |n2 cos| + |n1 sin|), and rounding the result adds
+    rel * |out|. ``n`` [S, H, D] holds the operands (the normalised rows
+    as the plain chain rounds them), ``cos``/``sin`` [S, D/2]. A limit of
+    ``rel * |ref|`` alone fails a healthy kernel wherever the two products
+    cancel and the f32 sum of squares, summed in another order, flips one
+    bf16 rounding of an operand. 1e-6 covers values near 0."""
+    h = n.shape[-1] // 2
+    n1, n2 = n[..., :h].float().abs(), n[..., h:].float().abs()
+    c, s = cos.float().abs()[:, None], sin.float().abs()[:, None]
+    scale = torch.cat([n1 * c + n2 * s, n2 * c + n1 * s], dim=-1)
+    return rel * (scale + ref.float().abs()) + 1e-6
+
+
+def fused_inputs(dev, c) -> dict:
+    """The fused prologue's operands at the kernel case: the projected q,
+    k, v rows of 64 slots (bf16), qwen3-1.7b's qk-norm weights (1 + 0.1
+    noise) and RoPE at each slot's position, written at that position in
+    the slot's page row: at its last cached position, so every target is
+    a row of its own. Slot 5 is inactive (page 0, offset 0); slots 6 and 7
+    sit at offset 0 and PS - 1 of their last page."""
+    cfg = decoder.get_config(MODEL)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pos = (c["lens"].long() - 1).clamp(min=0)
+    start = pos[6:8] // PS * PS
+    pos[6], pos[7] = start[0], start[1] + PS - 1
+    page = c["table"][torch.arange(S, device=dev), pos // PS].int()
+    off = (pos % PS).int()
+    page[5], off[5] = 0, 0
+    cos, sin = decoder.rope_cos_sin(cfg, pos[:, None])
+
+    def r(*shape, scale=1.0, base=0.0):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (base + scale * x).to(torch.bfloat16)
+
+    return dict(write_page=page, write_off=off, q=r(S, HQ * D), k=r(S, HKV * D),
+                v=r(S, HKV * D), cos=cos[:, 0], sin=sin[:, 0],
+                q_norm=r(D, scale=0.1, base=1.0), k_norm=r(D, scale=0.1, base=1.0),
+                eps=cfg.rms_norm_eps, pos=pos)
+
+
+def fused_gate(a: dict, out: tuple, ref: tuple, pools: tuple) -> dict:
+    """``out`` and ``ref`` (q, k_pool, v_pool) of the fused prologue on
+    ``a``, from the same ``pools``: q and the written k rows within
+    ``rope_operand_bound`` (the ratio of |diff| to it must stay <= 1), the
+    v pool bitwise, every other k row bitwise the original. Returns the
+    readings and ``ok``."""
+    q, kp, vp = out
+    rq, rk, rv = ref
+    s, hq, d = rq.shape
+    hkv, n = kp.shape[:2]
+    eps = a["eps"]
+    n_q = norm_rope.rms_norm(a["q"].reshape(s, 1, hq, d), a["q_norm"], eps)[:, 0]
+    n_k = norm_rope.rms_norm(a["k"].reshape(s, 1, hkv, d), a["k_norm"], eps)[:, 0]
+    rows = ((torch.arange(hkv, device=q.device)[:, None] * n
+             + a["write_page"].long()[None]) * PS + a["write_off"].long()[None])
+    got_k = kp.view(-1, d)[rows].transpose(0, 1)   # [S, Hkv, D]
+    ref_k = rk.view(-1, d)[rows].transpose(0, 1)
+    err_q = (q.float() - rq.float()).abs()
+    err_k = (got_k.float() - ref_k.float()).abs()
+    ratio_q = (err_q / rope_operand_bound(n_q, a["cos"], a["sin"], rq,
+                                          FUSED_REL)).max().item()
+    ratio_k = (err_k / rope_operand_bound(n_k, a["cos"], a["sin"], ref_k,
+                                          FUSED_REL)).max().item()
+    plain_ulp = int((err_q > FUSED_REL * rq.float().abs() + 1e-6).sum()
+                    + (err_k > FUSED_REL * ref_k.float().abs() + 1e-6).sum())
+    untouched = torch.ones(kp.view(-1, d).shape[0], dtype=torch.bool,
+                           device=kp.device)
+    untouched[rows.reshape(-1)] = False
+    rest_ok = torch.equal(kp.view(-1, d)[untouched], pools[0].view(-1, d)[untouched])
+    v_ok = torch.equal(vp, rv)
+    return dict(ok=ratio_q <= 1 and ratio_k <= 1 and rest_ok and v_ok,
+                ratio_q=ratio_q, ratio_k=ratio_k, rest_ok=rest_ok, v_ok=v_ok,
+                max_abs_err=max(err_q.max().item(), err_k.max().item()),
+                plain_ulp=plain_ulp)
+
+
+def check_fused(dev, c, empty: float) -> dict:
+    """The fused decode prologue (K1 redesigned) at the kernel case,
+    against its plain chain: the gate of ``fused_gate``, two calls bitwise
+    equal, one replay of a CUDA-graph capture bitwise the eager call; the
+    gate must fail with cos/sin of position + 1 and with k_norm left out.
+    Times by graph replay: the kernel, its plain chain, and the decode
+    step's unfused route (eager qk-norm and RoPE, then K1)."""
+    a = fused_inputs(dev, c)
+    base = (c["kp"], c["vp"])
+    args = {k_: a[k_] for k_ in ("write_page", "write_off", "q", "k", "v",
+                                 "cos", "sin", "q_norm", "k_norm", "eps")}
+
+    def run(fn, **over):
+        kp, vp = base[0].clone(), base[1].clone()
+        q = fn(kp, vp, **dict(args, **over))
+        return q, kp, vp
+
+    ref = run(pa.paged_kv_write_fused_ref)
+    out = run(pa.paged_kv_write_fused)
+    torch.cuda.synchronize()
+    g = fused_gate(a, out, ref, base)
+    check(g["ok"], f"paged_kv_write_fused differs from its plain version: {g}")
+    again = run(pa.paged_kv_write_fused)
+    check(all(torch.equal(x, y) for x, y in zip(out, again)),
+          "paged_kv_write_fused differs between two calls on the same inputs")
+    del again
+    gk, gv = base[0].clone(), base[1].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gq = pa.paged_kv_write_fused(gk, gv, **args)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(gq, out[0]) and torch.equal(gk, out[1])
+          and torch.equal(gv, out[2]),
+          "paged_kv_write_fused: a graph replay differs from the eager call")
+    del graph, gq, gk, gv
+    # the gate's power: RoPE one position late, and k not normalised
+    cfg = decoder.get_config(MODEL)
+    cos1, sin1 = decoder.rope_cos_sin(cfg, a["pos"][:, None] + 1)
+    faults = {"cos/sin of position + 1": dict(cos=cos1[:, 0], sin=sin1[:, 0]),
+              "k_norm left out": dict(k_norm=None)}
+    fault_lines = []
+    for label, over in faults.items():
+        fg = fused_gate(a, run(pa.paged_kv_write_fused, **over), ref, base)
+        check(not fg["ok"], f"the fused gate passes a planted fault: {label}")
+        fault_lines.append(f"{label}: q {fg['ratio_q']:.3g}, k {fg['ratio_k']:.3g}")
+    log(f"kernel paged_kv_write_fused: max_abs_err {g['max_abs_err']:.3g}; "
+        f"|diff| / one-ulp-of-the-RoPE-operands limit: q {g['ratio_q']:.3f}, k "
+        f"{g['ratio_k']:.3f} (<= 1); {g['plain_ulp']} elements beyond one ulp "
+        f"of the result alone (RoPE cancellation); v rows and untouched rows "
+        f"bitwise; twice bitwise; graph replay bitwise; planted faults (limit "
+        f"ratios, must exceed 1): " + "; ".join(fault_lines))
+
+    kp, vp = base[0].clone(), base[1].clone()
+    ms = cuda_ms(lambda: pa.paged_kv_write_fused(kp, vp, **args), 20, inner=20)
+    plain = cuda_ms(lambda: pa.paged_kv_write_fused_ref(kp, vp, **args), 20,
+                    inner=20)
+    q4 = a["q"].reshape(S, 1, HQ, D)
+    k4 = a["k"].reshape(S, 1, HKV, D)
+    v3 = a["v"].reshape(S, HKV, D)
+    cos3, sin3 = a["cos"][:, None], a["sin"][:, None]
+
+    def unfused():  # forward_paged_decode with kv_write_fn=paged_kv_write
+        qn = norm_rope.rms_norm(q4, a["q_norm"], a["eps"])
+        kn = norm_rope.rms_norm(k4, a["k_norm"], a["eps"])
+        qr = norm_rope.apply_rope(qn, cos3, sin3)
+        kr = norm_rope.apply_rope(kn, cos3, sin3)
+        pa.paged_kv_write(kp, vp, a["write_page"], a["write_off"], kr[:, 0], v3)
+        return qr
+
+    route = cuda_ms(unfused, 20, inner=20)
+    es = 2
+    n_bytes = ((S * (HQ + 2 * HKV) * D + 2 * D) * es + S * D * 4 + 2 * S * 4
+               + (S * HQ * D + 2 * S * HKV * D) * es)
+    flops = 10.0 * S * (HQ + HKV) * D  # square-sum, scale, weight, rotate
+    b, how = bound_ms(n_bytes, flops, F32_FLOPS)
+    log(f"kernel paged_kv_write_fused: {ms:.5f} ms = {ms / empty:.2f} x the "
+        f"empty kernel ({empty:.5f}); bound {b:.5f} ms ({how}, {n_bytes} B); "
+        f"plain chain {plain:.5f} ms; the unfused route (eager qk-norm and "
+        f"RoPE, then K1) {route:.5f} ms")
+    return dict(name="paged_kv_write_fused", max_abs_err=g["max_abs_err"],
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=how,
+                library_ms=None)
+
+
 def check_kernels(dev) -> list[dict]:
     c = kernel_case(dev)
     q, kp, vp, table, lens = c["q"], c["kp"], c["vp"], c["table"], c["lens"]
@@ -312,6 +512,7 @@ def check_kernels(dev) -> list[dict]:
         f"kernel {empty:.5f} ms, one-element add {add1:.5f} ms; K1 "
         f"{ms:.5f} ms = {ms / empty:.2f} x the empty kernel (bound {b:.5f})")
     del out_k, out_v
+    rows.append(check_fused(dev, c, empty))
 
     # K2: decode attention over the full page rows
     out2 = pa.paged_attention(q, kp, vp, table, lens)
@@ -411,11 +612,12 @@ def launch_times(q, kp, vp, table, lens, gargs) -> str:
     return "; ".join(parts)
 
 
-def serving_times(dev, kp, vp) -> None:
-    """K2 and K3 on the tables the serving phase gives them mid-decode: 64
-    slots; two GRPO groups of 8 on 200- and 203-token prompts (3 shared
-    prefix pages, bucketed to 4) at 232 and 235 tokens; two greedy slots;
-    46 idle slots (length 0 on the null page)."""
+def serving_tables(dev):
+    """The tables the serving phase gives K2 and K3 mid-decode: 64 slots;
+    two GRPO groups of 8 on 200- and 203-token prompts (3 shared prefix
+    pages, bucketed to 4) at 232 and 235 tokens; two greedy slots; 46 idle
+    slots (length 0 on the null page). Returns (page table, lengths, group
+    tables) on ``dev``."""
     table = np.zeros((S, P), np.int32)
     lens = np.zeros((S,), np.int32)
     g_slots = np.full((2, 8), -1, np.int32)
@@ -435,8 +637,12 @@ def serving_times(dev, kp, vp) -> None:
         lens[slot] = n_tok
         nxt, slot = nxt + 4, slot + 1
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    table, lens = t(table), t(lens)
-    gargs = (t(g_slots), t(g_pages), t(g_lens))
+    return t(table), t(lens), (t(g_slots), t(g_pages), t(g_lens))
+
+
+def serving_times(dev, kp, vp) -> None:
+    """K2 and K3 on the serving tables (``serving_tables``)."""
+    table, lens, gargs = serving_tables(dev)
     q = torch.randn((S, HQ, D), device=dev, dtype=torch.bfloat16)
     out2 = pa.paged_attention(q, kp, vp, table, lens)
     out3 = pa.grouped_paged_attention(q, kp, vp, table, lens, *gargs)
@@ -724,11 +930,13 @@ def check_flash(dev) -> list[dict]:
 
 
 def build_report() -> None:
-    """Each K2, K3 and K4 kernel's registers per thread and spill bytes,
-    from the ``-Xptxas -v`` report of its library's build; the bf16
-    kernels (the serving and training paths) must not spill."""
-    for name in ("paged_attention", "grouped_paged_attention",
-                 "flash_attention_fwd", "flash_attention_bwd"):
+    """Each K2, K3, K4 and fused-prologue kernel's registers per thread
+    and spill bytes, from the ``-Xptxas -v`` report of its library's
+    build; the bf16 kernels (the serving and training paths) must not
+    spill."""
+    for name in ("paged_kv_write_fused", "paged_attention",
+                 "grouped_paged_attention", "flash_attention_fwd",
+                 "flash_attention_bwd"):
         rows = cuda_build.ptxas_report(name)
         check(rows, f"{name}: no ptxas report in its build log")
         log(f"build {name}: " + "; ".join(
@@ -876,6 +1084,8 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
                   f"{name} was not launched on the serving path")
             check(info[f"kernel_launches/{name}"] == launches[name],
                   "server_info launch counts disagree")
+        check(launches["paged_kv_write"] == 0,
+              "the serving path took the unfused K/V write")
         delta = {k: info[k] - info0[k] for k in (
             "decode_dispatches", "grouped_decode_dispatches",
             "sibling_attach_dispatches")}
@@ -960,11 +1170,109 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
         check(max(bad_err, bad_gap) > DENSE_LOGP_TOL,
               "the dense gate passes a missing page")
         del params32
+        ab = decode_ab(dev, server.engine.params, cfg)
 
         return dict(launches=launches, ttft=ttft, decode_tok_s=decode_tok_s,
-                    wall=wall, n_tok=n_tok)
+                    wall=wall, n_tok=n_tok, ab_launches=ab)
     finally:
         server.stop()
+
+
+AB_STEPS = 50   # decode steps per route in the serve phase's A/B
+PROF_STEPS = 5  # of them traced by torch.profiler, per route
+
+
+def device_profile(fn, calls: int) -> dict:
+    """Per call of ``fn``, from a torch.profiler trace of ``calls`` calls:
+    the device's kernels, its memory copies and sets, and the device ms
+    they took (the sum of their durations: busy time, not wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    n_mem = sum(e.name.startswith(("Memcpy", "Memset")) for e in on_dev)
+    return dict(kernels=(len(on_dev) - n_mem) / calls, copies=n_mem / calls,
+                device_ms=sum(e.device_time_total for e in on_dev) / 1e3 / calls)
+
+
+def decode_ab(dev, params, cfg) -> dict:
+    """The decode step's two routes at the serving tables
+    (``serving_tables``: 64 slots, 18 live), on the served model's
+    weights and pools of random K/V: the default (the fused prologue) and
+    ``kv_write_fn=pa.paged_kv_write`` (eager qk-norm and RoPE, then the
+    standalone K1). Gate: one step of each from the same pools and inputs,
+    the live slots' log-softmax within DECODE_AB_TOL nats. Then AB_STEPS
+    ``forward_paged_decode`` steps per route in turns (fused, unfused,
+    unfused, fused), each synchronised and timed on the host's clock, at
+    fixed lengths (every step writes the same positions: the same work as
+    a real step), with each turn's launch counts zeroed just before it and
+    read just after; and PROF_STEPS more per route under torch.profiler
+    for kernels and device ms per step. Returns the launches by route."""
+    table, lens, _ = serving_tables(dev)
+    active = lens > 0
+    pools = decoder.make_paged_pools(cfg, int(table.max()) + 1, PS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for p_ in pools[0] + pools[1]:
+        p_.normal_(generator=gen)
+    tokens = torch.randint(1, cfg.vocab_size, (S,), generator=gen, device=dev)
+    routes = {"fused": None, "unfused": pa.paged_kv_write}
+
+    def step(route, pools_=pools):
+        return decoder.forward_paged_decode(
+            params, cfg, tokens, lens, pools_, table, lens, active=active,
+            kv_write_fn=routes[route])[0]
+
+    lsm = {}
+    for route in routes:
+        copy = ([p_.clone() for p_ in pools[0]], [p_.clone() for p_ in pools[1]])
+        lsm[route] = torch.log_softmax(step(route, copy)[active], dim=-1)
+        del copy
+    gap = (lsm["fused"] - lsm["unfused"]).abs().max().item()
+    agree = (lsm["fused"].argmax(-1) == lsm["unfused"].argmax(-1)).float().mean()
+    log(f"serve decode a/b: fused vs unfused route from the same pools and "
+        f"inputs: max |log-softmax diff| over the {int(active.sum())} live "
+        f"slots' vocabulary {gap:.4f} nats (tolerance {DECODE_AB_TOL}), "
+        f"argmax agreement {agree.item():.3f}")
+    check(gap <= DECODE_AB_TOL, f"the fused decode route differs from the "
+          f"unfused one by {gap:.4f} nats (limit {DECODE_AB_TOL})")
+    del lsm
+
+    walls = {r: [] for r in routes}
+    launches = {r: dict.fromkeys(cuda_build.LAUNCHES, 0) for r in routes}
+    for route in ("fused", "unfused", "unfused", "fused"):
+        cuda_build.reset_launch_counts()
+        for _ in range(AB_STEPS // 2):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            step(route)
+            torch.cuda.synchronize()
+            walls[route].append((time.monotonic() - t0) * 1e3)
+        for k_, n in cuda_build.LAUNCHES.items():
+            launches[route][k_] += n
+    n_l = cfg.num_layers * AB_STEPS
+    check(launches["fused"]["paged_kv_write_fused"] == n_l
+          and launches["fused"]["paged_kv_write"] == 0,
+          f"the fused route's launches: {launches['fused']}")
+    check(launches["unfused"]["paged_kv_write"] == n_l
+          and launches["unfused"]["paged_kv_write_fused"] == 0,
+          f"the unfused route's launches: {launches['unfused']}")
+    prof = {r: device_profile(lambda: step(r), PROF_STEPS) for r in routes}
+    for route in routes:
+        w = sorted(walls[route])
+        pr = prof[route]
+        log(f"serve decode a/b {route}: wall ms per step median "
+            f"{statistics.median(w):.2f} (min {w[0]:.2f}, p90 "
+            f"{w[int(0.9 * len(w))]:.2f}, max {w[-1]:.2f}; {len(w)} steps), "
+            f"{int(active.sum()) / statistics.median(w) * 1e3:.1f} live tok/s; "
+            f"device ms per step {pr['device_ms']:.3f}, kernels per step "
+            f"{pr['kernels']:.1f} (+ {pr['copies']:.1f} copies/sets; torch."
+            f"profiler over {PROF_STEPS} steps); launches "
+            + json.dumps({k_: n for k_, n in launches[route].items() if n}))
+    return launches
 
 
 @contextlib.contextmanager
@@ -1015,8 +1323,13 @@ LOGP_AGREE_TOL = 0.2
 # the flattened full-model gradient of one micro, K4 against the plain
 # attention: on an f32 copy of the weights the kernel alone shows (cosine
 # 1.000000 measured); on the bf16 weights both attentions' 1-ulp roundings
-# compound through 28 random-init layers (0.990338 and 0.991368 measured,
-# the tile-local fault 0.008 in f32), so its limit sits between the two
+# compound through 28 random-init layers, so its limit sits between the
+# two (H100, six seeds: 0.9987; the tile-local fault about 0.01). The micro
+# is step 1's, read on step 1's weights: read after the fit instead, two
+# updates stale, 78-82% of its tokens sit in the PPO clip and a one-ulp
+# change of the attention output moves a few across a clip edge, which
+# switches their policy-gradient term (3-9 of 1,792 tokens, cosine
+# 0.973-0.993; with the clips off 0.9996)
 GRAD_COS_MIN = 0.99
 GRAD_COS_MIN_BF16 = 0.98
 GRAD_NORM_RATIO_TOL = 0.02
@@ -1083,6 +1396,32 @@ def micro_loss_grads(actor, feed, attn_fn) -> list[torch.Tensor]:
         actor.attn_fn = keep
 
 
+def _tree_map(fn, tree: dict) -> dict:
+    return {k_: (_tree_map(fn, v) if isinstance(v, dict) else fn(v))
+            for k_, v in tree.items()}
+
+
+@contextlib.contextmanager
+def params_swapped(actor, params: dict):
+    """Within the block the actor computes with ``params`` (a tree of
+    autograd leaves); its own come back after."""
+    keep = actor.params
+    actor.params = params
+    try:
+        yield
+    finally:
+        actor.params = keep
+
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def step1_weights(host: dict, dev) -> dict:
+    """A host snapshot of the actor's weights back on ``dev`` as leaves."""
+    return _tree_map(lambda t: t.to(dev).requires_grad_(True), host)
+
+
 def _tree_map_f32(tree: dict) -> dict:
     """An f32 copy of a parameter tree, as autograd leaves."""
     return {k_: (_tree_map_f32(v) if isinstance(v, dict)
@@ -1098,12 +1437,11 @@ def grad_agreement(ga, gb) -> tuple[float, float]:
     return dot / (na * nb), na / nb
 
 
-def gradient_gate(actor, micro, cos_min: float, label: str) -> str:
+def gradient_readings(actor, micro) -> tuple[float, float, float, float]:
     """The micro's full-model gradient through K4, and through K4 fed
     tile-local segment ids, each against the same through the plain
-    attention, on the actor's current parameters. K4 must pass (cosine >=
-    ``cos_min``, norm ratio within GRAD_NORM_RATIO_TOL) and the fault must
-    fail. Returns the log line's readings."""
+    attention, on the actor's current parameters: (cosine, norm ratio) of
+    K4, then of the fault."""
     g_plain = micro_loss_grads(actor, micro, plain_attention)
     g = micro_loss_grads(actor, micro, flash.auto_train_attention())
     cos, ratio = grad_agreement(g, g_plain)
@@ -1111,6 +1449,34 @@ def gradient_gate(actor, micro, cos_min: float, label: str) -> str:
     g = micro_loss_grads(actor, micro, tile_local_attention)
     bad_cos, bad_ratio = grad_agreement(g, g_plain)
     del g, g_plain
+    return cos, ratio, bad_cos, bad_ratio
+
+
+def gate_micro(feed: dict, dev) -> dict:
+    """The gradient gate's micro: the 4 rows of step 1 with the largest
+    positive advantages (same-sign terms: no cancellation in the policy
+    gradient), on ``dev``."""
+    from polyrl_tpu_torch.trainer.actor import _to_device
+
+    rows = np.argsort(-feed["advantages"].sum(-1))[:4]
+    return _to_device({k_: v[rows] for k_, v in feed.items()
+                       if k_ != "rollout_log_probs"}, dev)
+
+
+def both_precisions(actor, micro) -> dict:
+    """``gradient_readings`` on the actor's bf16 weights and on an f32
+    copy of them: {"bf16": readings, "f32": readings}."""
+    out = {"bf16": gradient_readings(actor, micro)}
+    with params_swapped(actor, _tree_map_f32(actor.params)):
+        out["f32"] = gradient_readings(actor, micro)
+    return out
+
+
+def gradient_gate(readings: tuple, cos_min: float, label: str) -> str:
+    """K4's ``gradient_readings`` must pass (cosine >= ``cos_min``, norm
+    ratio within GRAD_NORM_RATIO_TOL) and the fault's must fail. Returns
+    the log line's readings."""
+    cos, ratio, bad_cos, bad_ratio = readings
     check(cos >= cos_min and abs(ratio - 1) <= GRAD_NORM_RATIO_TOL,
           f"K4 gradient on {label} weights disagrees with the plain "
           f"attention's (cosine {cos:.6f}, norm ratio {ratio:.5f})")
@@ -1128,7 +1494,6 @@ def plain_attention(q, k, v, attn_mask):
 
 def train_phase(dev) -> dict:
     from polyrl_tpu_torch.config import load_config
-    from polyrl_tpu_torch.trainer.actor import _to_device
     from polyrl_tpu_torch.train import build_trainer
 
     cfg = load_config(None, TRAIN_OVERRIDES)
@@ -1169,7 +1534,8 @@ def train_phase(dev) -> dict:
                              - feed["rollout_log_probs"])[mask]
             step1.update(feed=feed, gap_max=float(gap.max()),
                          gap_mean=float(gap.mean()), bad_max=float(bad_gap.max()),
-                         bad_mean=float(bad_gap.mean()), tokens=int(mask.sum()))
+                         bad_mean=float(bad_gap.mean()), tokens=int(mask.sum()),
+                         weights=_tree_map(host_copy, actor.params))
             return out
 
         trainer._process_ibatch = first_ibatch_gates
@@ -1214,26 +1580,22 @@ def train_phase(dev) -> dict:
         check(step1["bad_max"] > LOGP_AGREE_TOL,
               "the logprob gate passes tile-local segment ids")
 
-        # gradient gate: one micro, K4 against the plain attention, on the
-        # final weights, gated in bf16 (the kernel instance the main path
+        # gradient gate: one micro of step 1, K4 against the plain
+        # attention, on the weights step 1's old logprobs came from (its
+        # update's own gradient; after the fit the micro is two updates
+        # stale, most of its tokens sit in the PPO clip, and a one-ulp
+        # change of the forward moves some across a clip edge: see
+        # GRAD_COS_MIN), gated in bf16 (the kernel instance the main path
         # runs) and on an f32 copy (where the comparison sees the kernel's
-        # error alone). The micro is the 4 rows of step 1 with the largest
-        # positive advantages (same-sign terms: no cancellation in the
-        # policy gradient)
-        feed = step1["feed"]
-        rows = np.argsort(-feed["advantages"].sum(-1))[:4]
-        micro = _to_device({k_: v[rows] for k_, v in feed.items()
-                            if k_ != "rollout_log_probs"}, dev)
-        with launches_apart(gate_launches):
-            bf16_line = gradient_gate(actor, micro, GRAD_COS_MIN_BF16, "bf16")
-            bf16_params = actor.params
-            actor.params = _tree_map_f32(bf16_params)
-            try:
-                f32_line = gradient_gate(actor, micro, GRAD_COS_MIN, "f32")
-            finally:
-                actor.params = bf16_params
-        log(f"train: micro gradient, K4 vs plain attention on {f32_line}; on "
-            f"the {bf16_line}")
+        # error alone)
+        micro = gate_micro(step1["feed"], dev)
+        with launches_apart(gate_launches), params_swapped(
+                actor, step1_weights(step1.pop("weights"), dev)):
+            readings = both_precisions(actor, micro)
+        bf16_line = gradient_gate(readings["bf16"], GRAD_COS_MIN_BF16, "bf16")
+        f32_line = gradient_gate(readings["f32"], GRAD_COS_MIN, "f32")
+        log(f"train: micro gradient at step 1's weights, K4 vs plain attention "
+            f"on {f32_line}; on the {bf16_line}")
 
         for i, rec in enumerate(history, 1):
             log(f"train: step {i}: wall {rec['perf/step_time_s']:.2f} s; "
@@ -1255,6 +1617,185 @@ def train_phase(dev) -> dict:
             fn()
 
 
+class WrittenOutAttention(torch.autograd.Function):
+    """The plain attention (f32 logits, softmax and products on bf16
+    inputs, the output rounded once) with its backward written out, so
+    that the softmax backward's delta = rowsum(dO * O) can be taken from
+    the output as returned (``rounded``: bf16, the semantics of K4 and of
+    the TPU kernel) or from the f32 output before rounding (what autograd
+    through the plain attention computes, up to summation order). A probe
+    of the gradient gate, never on a main path."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attn_mask, rounded: bool):
+        b, t, hq, d = q.shape
+        seg = attn_mask.to(torch.int32)
+        mask = ((seg[:, :, None] == seg[:, None, :])
+                & torch.ones((t, t), dtype=torch.bool, device=q.device).tril())
+        p, o32 = WrittenOutAttention._probs_out(q, k, v, mask)
+        out = o32.reshape(b, t, hq, d).to(q.dtype)
+        ctx.save_for_backward(q, k, v, mask, out if rounded else o32)
+        return out
+
+    @staticmethod
+    def _probs_out(q, k, v, mask):
+        b, t, hq, d = q.shape
+        hkv = k.shape[2]
+        qg = q.reshape(b, t, hkv, hq // hkv, d).float()
+        logits = torch.einsum("bqhrd,bkhd->bhrqk", qg, k.float()) * d ** -0.5
+        logits = torch.where(mask[:, None, None], logits, flash.MASK_VALUE)
+        p = torch.softmax(logits, dim=-1)
+        return p, torch.einsum("bhrqk,bkhd->bqhrd", p, v.float())
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, o = ctx.saved_tensors
+        b, t, hq, d = q.shape
+        hkv = k.shape[2]
+        p, _ = WrittenOutAttention._probs_out(q, k, v, mask)
+        do = dout.reshape(b, t, hkv, hq // hkv, d).float()
+        delta = (do * o.reshape(do.shape).float()).sum(-1)  # [b, q, h, r]
+        dp = torch.einsum("bqhrd,bkhd->bhrqk", do, v.float())
+        ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * d ** -0.5
+        qg = q.reshape(b, t, hkv, hq // hkv, d).float()
+        dq = torch.einsum("bhrqk,bkhd->bqhrd", ds, k.float()).reshape(q.shape)
+        dk = torch.einsum("bhrqk,bqhrd->bkhd", ds, qg)
+        dv = torch.einsum("bhrqk,bqhrd->bkhd", p, do)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def written_out_attention(rounded: bool):
+    return lambda q, k, v, attn_mask: WrittenOutAttention.apply(
+        q, k, v, attn_mask, rounded)
+
+
+def clip_branch(actor, micro, attn_fn):
+    """Per response token of ``micro``, the branch its PPO loss term takes
+    at the actor's weights with ``attn_fn``: 0 the ratio itself, 1 the
+    clipped ratio, 2 the dual clip (vanilla loss, ``core_algos``); and the
+    ratio."""
+    keep = actor.attn_fn
+    actor.attn_fn = attn_fn
+    try:
+        lp, _ = actor.compute_log_prob(micro, compute_entropy=False)
+    finally:
+        actor.attn_fn = keep
+    c = actor.cfg
+    lo = c.clip_ratio_low if c.clip_ratio_low is not None else c.clip_ratio
+    hi = c.clip_ratio_high if c.clip_ratio_high is not None else c.clip_ratio
+    adv = micro["advantages"]
+    ratio = torch.exp(torch.clamp(lp.float() - micro["old_log_probs"], -20.0, 20.0))
+    l1, l2 = -adv * ratio, -adv * torch.clamp(ratio, 1.0 - lo, 1.0 + hi)
+    branch = (l2 > l1).int()
+    dual = (adv < 0) & (torch.maximum(l1, l2) > -adv * c.clip_ratio_c)
+    return torch.where(dual, 2, branch), ratio
+
+
+def grad_gate_probes(actor, micro) -> dict:
+    """On the bf16 weights, the cosine of the micro's full-model gradient
+    between pairs of attentions: K4 and the plain attention (the gate);
+    the plain attention and its written-out backward with delta from the
+    f32 output (summation order alone: the bf16 model's noise floor) and
+    from the bf16 output (K4's delta semantics); K4 and the latter; K4
+    and the plain attention with the PPO clips switched off (a smooth
+    loss). Also the response tokens whose clip branch differs between K4
+    and the plain attention, and those within 1e-3 of a clip edge."""
+    g = {name: micro_loss_grads(actor, micro, fn) for name, fn in (
+        ("k4", flash.auto_train_attention()), ("plain", plain_attention),
+        ("delta_f32", written_out_attention(False)),
+        ("delta_bf16", written_out_attention(True)))}
+    out = {f"{a} vs {b}": grad_agreement(g[a], g[b])[0] for a, b in (
+        ("k4", "plain"), ("delta_f32", "plain"), ("delta_bf16", "plain"),
+        ("k4", "delta_bf16"))}
+    del g
+    keep = actor.cfg
+    actor.cfg = dataclasses.replace(keep, clip_ratio=1e9, clip_ratio_low=None,
+                                    clip_ratio_high=None, clip_ratio_c=1e9)
+    try:
+        out["k4 vs plain, clips off"] = grad_agreement(
+            micro_loss_grads(actor, micro, flash.auto_train_attention()),
+            micro_loss_grads(actor, micro, plain_attention))[0]
+    finally:
+        actor.cfg = keep
+    mask = micro["response_mask"] > 0
+    bk, rk = clip_branch(actor, micro, flash.auto_train_attention())
+    bp, _ = clip_branch(actor, micro, plain_attention)
+    lo = keep.clip_ratio_low if keep.clip_ratio_low is not None else keep.clip_ratio
+    hi = keep.clip_ratio_high if keep.clip_ratio_high is not None else keep.clip_ratio
+    edge = torch.minimum((rk - (1 - lo)).abs(), (rk - (1 + hi)).abs()) < 1e-3
+    out["tokens"] = int(mask.sum())
+    out["clip branch differs"] = int(((bk != bp) & mask).sum())
+    out["clipped (K4)"] = int(((bk > 0) & mask).sum())
+    out["within 1e-3 of a clip edge"] = int((edge & mask).sum())
+    return out
+
+
+def grad_gate_sweep(dev, seeds: list[int]) -> None:
+    """``--grad-seeds``: the train phase's micro gradient gate at other
+    values of ``trainer.seed`` (the random weights and the sampling), each
+    after the same 2-step fit on the same configuration: its readings on
+    the step-1 weights (where the gate reads), and on the bf16 weights
+    after the fit (where it read before), each with ``grad_gate_probes``.
+    Logged, not gated: this measures the gate's spread against its limits
+    (GRAD_COS_MIN_BF16, GRAD_COS_MIN), which stay as they are."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.train import build_trainer
+
+    keys = ("input_ids", "positions", "attention_mask", "responses",
+            "response_mask", "advantages", "old_log_probs", "ref_log_probs")
+    got: dict = {"bf16": [], "f32": [], "final": []}
+    for seed in seeds:
+        cfg = load_config(None, TRAIN_OVERRIDES + [f"trainer.seed={seed}"])
+        cleanup: list = []
+        trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+        try:
+            feed: dict = {}
+            process = trainer._process_ibatch
+
+            def keep_first(ibatch, metrics):
+                out = process(ibatch, metrics)
+                if not feed:
+                    feed.update({k_: np.array(out[k_]) for k_ in keys})
+                    feed["weights"] = _tree_map(host_copy,
+                                                trainer.actor.params)
+                return out
+
+            trainer._process_ibatch = keep_first
+            trainer.fit()
+            actor = trainer.actor
+            weights = step1_weights(feed.pop("weights"), dev)
+            micro = gate_micro(feed, dev)
+            with params_swapped(actor, weights):
+                readings = both_precisions(actor, micro)
+                probes1 = grad_gate_probes(actor, micro)
+            del weights
+            final = both_precisions(actor, micro)["bf16"]
+            probes = grad_gate_probes(actor, micro)
+        finally:
+            for fn in reversed(cleanup):
+                fn()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        for prec, (cos, ratio, bad_cos, bad_ratio) in readings.items():
+            got[prec].append(cos)
+            log(f"grad seeds: trainer.seed {seed}, step-1 {prec} weights (the "
+                f"gate): cosine {cos:.6f}, norm ratio {ratio:.5f}; tile-local "
+                f"fault cosine {bad_cos:.4f}, norm ratio {bad_ratio:.4f}")
+        got["final"].append(final[0])
+        for label, pr in (("step-1", probes1), ("final", probes)):
+            log(f"grad seeds: trainer.seed {seed}, {label} bf16 weights, "
+                "probes: " + ", ".join(
+                    f"{k_} {v:.6f}" if isinstance(v, float) else f"{k_} {v}"
+                    for k_, v in pr.items()))
+    for prec, lim in (("bf16", GRAD_COS_MIN_BF16), ("f32", GRAD_COS_MIN),
+                      ("final", GRAD_COS_MIN_BF16)):
+        c = got[prec]
+        log(f"grad seeds: {prec} cosine over seeds {seeds}: min {min(c):.6f}, "
+            f"median {statistics.median(c):.6f}, max {max(c):.6f}; "
+            f"{sum(x < lim for x in c)} of {len(c)} below the limit {lim}")
+
+
 # -- phase 5: PPO with a critic on packed rows, pipelined, through the trainer --
 
 
@@ -1264,7 +1805,7 @@ VAL_RESPONSE = 64
 PACK_KEYS = ("input_ids", "positions", "attention_mask", "segment_ids",
              "loss_mask")
 K4_NAMES = ("flash_attention_fwd", "flash_attention_bwd")
-PPO_KERNELS = ("paged_kv_write", "paged_attention") + K4_NAMES
+PPO_KERNELS = ("paged_kv_write_fused", "paged_attention") + K4_NAMES
 # the critic's packed values against its padded ones, by relative Frobenius
 # error over the response tokens: both passes run the same bf16 weights
 # through K4 in another layout (other matrix shapes, so other bf16 rounding
@@ -1630,6 +2171,11 @@ def main() -> int:
                     help="also run the ppo phase's configuration without "
                          "validation, unpipelined against pipelined in turns, "
                          "and log their step walls")
+    ap.add_argument("--grad-seeds", metavar="N,N,...", default="",
+                    help="before the phases, read the train phase's micro "
+                         "gradient gate after its fit at each of these "
+                         "trainer.seed values, with probes of which bf16 "
+                         "rounding moves it, and log the spread (not gated)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -1650,6 +2196,8 @@ def main() -> int:
     log(f"build: {time.monotonic() - t0:.1f} s wall, per kernel "
         + json.dumps({k: round(v, 1) for k, v in secs.items()}))
     build_report()
+    if args.grad_seeds:
+        grad_gate_sweep(dev, [int(x) for x in args.grad_seeds.split(",")])
 
     rows = check_kernels(dev) + check_flash(dev)
     torch.cuda.empty_cache()
@@ -1670,10 +2218,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     for r in rows:
-        phase = trained if r["name"].startswith("flash") else served
+        # K1's path is the decode step's unfused route (the serve phase's
+        # A/B); K4's the train phase; the rest the serving path
+        launches = (served["ab_launches"]["unfused"]
+                    if r["name"] == "paged_kv_write" else
+                    trained["launches"] if r["name"].startswith("flash")
+                    else served["launches"])
         r.update(route="cuda", source=f"polyrl_tpu_torch/csrc/{r['name']}.cu",
-                 replaces=REPLACES[r["name"]],
-                 launches=phase["launches"][r["name"]])
+                 replaces=REPLACES[r["name"]], launches=launches[r["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)

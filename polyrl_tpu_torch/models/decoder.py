@@ -30,7 +30,9 @@ from torch.utils.checkpoint import checkpoint
 
 from polyrl_tpu_torch.ops import flash
 from polyrl_tpu_torch.ops.attention import attention
-from polyrl_tpu_torch.ops.paged_attention import paged_attention, paged_kv_write
+from polyrl_tpu_torch.ops.norm_rope import apply_rope, rms_norm
+from polyrl_tpu_torch.ops.paged_attention import (paged_attention,
+                                                   paged_kv_write_fused)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,14 +230,6 @@ def layer_params(params: dict, layer: int) -> dict:
 # -- building blocks --------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    dtype = x.dtype
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    xf = xf * torch.rsqrt(var + eps)
-    return (xf * weight.float()).to(dtype)
-
-
 def _rope_freqs(cfg: ModelConfig) -> np.ndarray:
     hd = cfg.head_dim_
     freqs = 1.0 / (cfg.rope_theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
@@ -276,18 +270,6 @@ def rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor
     freqs = _rope_freqs_on(cfg, positions.device)
     angles = positions.float()[..., None] * freqs[None, None, :]
     return torch.cos(angles), torch.sin(angles)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-               ) -> torch.Tensor:
-    """x [B, T, H, D]; rotate-half convention (HF Llama/Qwen), in f32."""
-    d2 = x.shape[-1] // 2
-    xf = x.float()
-    x1, x2 = xf[..., :d2], xf[..., d2:]
-    cos = cos[:, :, None, :]
-    sin = sin[:, :, None, :]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
 
 
 def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
@@ -344,22 +326,34 @@ def head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
 
 
-def _qkv(cfg: ModelConfig, x: torch.Tensor, lp: dict, cos, sin):
-    """Pre-attention half of a layer: norm, projections (+bias), qk-norm,
-    RoPE. x [B, T, d] -> q [B, T, Hq, D], k/v [B, T, Hkv, D]."""
+def _qkv_proj(cfg: ModelConfig, x: torch.Tensor, lp: dict):
+    """Projection half of ``_qkv``: norm, projections (+bias), split into
+    heads. x [B, T, d] -> q [B, T, Hq, D], k/v [B, T, Hkv, D]."""
     b, t, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
     q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
     if cfg.attention_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(b, t, hq, hd)
-    k = k.reshape(b, t, hkv, hd)
-    v = v.reshape(b, t, hkv, hd)
+    return (q.reshape(b, t, hq, hd), k.reshape(b, t, hkv, hd),
+            v.reshape(b, t, hkv, hd))
+
+
+def _qk_norm_rope(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                  lp: dict, cos, sin):
+    """Elementwise half of ``_qkv``: qk-norm (Qwen3), then RoPE."""
     if cfg.use_qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+
+def _qkv(cfg: ModelConfig, x: torch.Tensor, lp: dict, cos, sin):
+    """Pre-attention half of a layer: norm, projections (+bias), qk-norm,
+    RoPE. x [B, T, d] -> q [B, T, Hq, D], k/v [B, T, Hkv, D]."""
+    q, k, v = _qkv_proj(cfg, x, lp)
+    q, k = _qk_norm_rope(cfg, q, k, lp, cos, sin)
+    return q, k, v
 
 
 def _post_attn(cfg: ModelConfig, x: torch.Tensor, attn_out: torch.Tensor,
@@ -589,14 +583,17 @@ def forward_paged_decode(params: dict, cfg: ModelConfig,
     slot's current page (inactive slots to the null page 0), then
     paged-attend over [0, seq_len]. Returns (logits [S, V] f32, pools).
 
-    ``attn_fn(q, k_pool, v_pool, page_table, lens)`` and
-    ``kv_write_fn(k_pool, v_pool, page, off, k, v)`` are the seams the
-    engine uses to route through the grouped kernel; both default to the
-    ``ops.paged_attention`` wrappers (CUDA kernels on the card, plain
-    versions on the CPU). Pools are updated in place."""
+    ``attn_fn(q, k_pool, v_pool, page_table, lens)`` is the seam the
+    engine uses to route through the grouped kernel; it defaults to
+    ``ops.paged_attention.paged_attention``. Without ``kv_write_fn`` each
+    layer's qk-norm, RoPE and K/V write are one call of
+    ``ops.paged_attention.paged_kv_write_fused`` (one kernel on the card);
+    an explicit ``kv_write_fn(k_pool, v_pool, page, off, k, v)`` (the JAX
+    step's seam, e.g. ``paged_kv_write``) takes the unfused route: the
+    eager qk-norm and RoPE, then that write. On the CPU both routes run
+    the same plain chain. Pools are updated in place."""
     _check_dense(cfg)
     attn_fn = attn_fn or paged_attention
-    kv_write_fn = kv_write_fn or paged_kv_write
     s = tokens.shape[0]
     page_size = pools[0][0].shape[2]
     n_cols = page_table.shape[1]
@@ -617,10 +614,19 @@ def forward_paged_decode(params: dict, cfg: ModelConfig,
     k_pools, v_pools = pools
     for layer in range(cfg.num_layers):
         lp = layer_params(params, layer)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        kv_write_fn(k_pools[layer], v_pools[layer], write_page, write_off,
-                    k[:, 0], v[:, 0])
-        attn_out = attn_fn(q[:, 0], k_pools[layer], v_pools[layer],
+        q, k, v = _qkv_proj(cfg, x, lp)
+        if kv_write_fn is None:
+            q = paged_kv_write_fused(
+                k_pools[layer], v_pools[layer], write_page, write_off,
+                q[:, 0], k[:, 0], v[:, 0], cos[:, 0], sin[:, 0],
+                lp["q_norm"] if cfg.use_qk_norm else None,
+                lp["k_norm"] if cfg.use_qk_norm else None, cfg.rms_norm_eps)
+        else:
+            q, k = _qk_norm_rope(cfg, q, k, lp, cos, sin)
+            kv_write_fn(k_pools[layer], v_pools[layer], write_page, write_off,
+                        k[:, 0], v[:, 0])
+            q = q[:, 0]
+        attn_out = attn_fn(q, k_pools[layer], v_pools[layer],
                            page_table, attn_lens)  # [S, Hq, D]
         x = _post_attn(cfg, x, attn_out[:, None], lp)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_norm_eps)

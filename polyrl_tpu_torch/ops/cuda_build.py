@@ -48,6 +48,9 @@ KERNELS: dict[str, tuple[tuple[str, ...], dict[str, list]]] = {
         ("paged_kv_write.cu",),
         {"polyrl_paged_kv_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _P]}),
+    "paged_kv_write_fused": (
+        ("paged_kv_write_fused.cu",),
+        {"polyrl_paged_kv_write_fused": [_P] * 12 + [_I] * 8 + [_F, _P]}),
     "paged_attention": (
         ("paged_attention.cu", "paged_common.cuh", "flash_mma.cuh",
          "flash_common.cuh"),
@@ -191,20 +194,30 @@ _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 
 
+_TARG = re.compile(r"Li(\d+)E?|13__nv_bfloat16|S\d*_|f")
+
+
 def kernel_name(mangled: str) -> str:
     """``flash_dq_bf16_kernel<128>`` for the mangled name of a kernel
     template instance of this package, ``paged_split_f32_kernel`` for a
-    plain kernel in a namespace (the mangled name otherwise)."""
-    for m in re.finditer(r"\d+", mangled):  # <length><identifier>I<args>E
-        ident = mangled[m.end():m.end() + int(m.group())]
-        rest = mangled[m.end() + len(ident):]
+    plain kernel in a namespace (the mangled name otherwise). Template
+    arguments read: int constants, float, bf16, and a substitution
+    (``S_``, ``S1_``) as the type before it."""
+    # <length><identifier>I<args>E; a length may follow other digits of
+    # an anonymous namespace's hash, so every digit position is a start
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        at = m.start() + len(m.group(1))
+        ident = mangled[at:at + int(m.group(1))]
+        rest = mangled[at + len(ident):]
         if ident.endswith("_kernel") and rest.startswith("E"):
             return ident
         if ident.endswith("_kernel") and rest.startswith("I"):
-            targs = rest[1:rest.find("EE")]
-            args = (["bf16"] if "bfloat16" in targs
-                    else ["float"] if targs.startswith("f") else [])
-            args += re.findall(r"Li(\d+)", targs)
+            args = []
+            for t in _TARG.finditer(rest[1:rest.find("EE")]):
+                tok = t.group(0)
+                args.append(t.group(1) if t.group(1) else "float" if tok == "f"
+                            else args[-1] if tok.startswith("S") and args
+                            else "bf16")
             return f"{ident}<{', '.join(args)}>"
     return mangled
 

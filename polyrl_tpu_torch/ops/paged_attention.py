@@ -1,7 +1,9 @@
 """Paged decode attention and the paged K/V write, for the decode hot path.
 
 Counterpart of ``polyrl_tpu/ops/paged_attention.py``. For each of the three
-TPU kernels of that module this file holds:
+TPU kernels of that module, and for the fused decode prologue that takes
+K1's place on the decode step (qk-norm, RoPE and the K/V write in one
+kernel), this file holds:
 
 - the plain PyTorch version (``*_ref``), the same arithmetic as the JAX
   oracle: the CPU path and the yardstick the CUDA kernel is held to;
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from polyrl_tpu_torch.ops import cuda_build
+from polyrl_tpu_torch.ops.norm_rope import apply_rope, rms_norm
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -161,6 +164,29 @@ def paged_kv_write_ref(k_pool, v_pool, write_page, write_off, k_upd, v_upd):
     return k_pool, v_pool
 
 
+def paged_kv_write_fused_ref(k_pool, v_pool, write_page, write_off, q, k, v,
+                             cos, sin, q_norm=None, k_norm=None,
+                             eps: float = 1e-6) -> torch.Tensor:
+    """The decode step's prologue as the plain chain computes it: per-head
+    RMSNorm of q and k (where a weight is given), RoPE of both, and the
+    paged write of k and v (``paged_kv_write_ref``), in place. q is
+    [S, Hq*D] or [S, Hq, D], k and v [S, Hkv*D] or [S, Hkv, D], cos and
+    sin [S, D/2] f32. Returns q rotated, [S, Hq, D] in q's dtype."""
+    hkv, _n, _ps, d = k_pool.shape
+    s = write_page.shape[0]
+    q = q.reshape(s, 1, -1, d)
+    k = k.reshape(s, 1, hkv, d)
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, eps)
+    if k_norm is not None:
+        k = rms_norm(k, k_norm, eps)
+    cos, sin = cos.reshape(s, 1, -1), sin.reshape(s, 1, -1)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    paged_kv_write_ref(k_pool, v_pool, write_page, write_off, k[:, 0],
+                       v.reshape(s, hkv, d))
+    return q[:, 0]
+
+
 # -- wrappers ------------------------------------------------------------------
 
 
@@ -229,6 +255,62 @@ def paged_kv_write(k_pool, v_pool, write_page, write_off, k_upd, v_upd):
                       cuda_build.stream_of(dev))
     cuda_build.LAUNCHES["paged_kv_write"] += 1
     return k_pool, v_pool
+
+
+def paged_kv_write_fused(k_pool, v_pool, write_page, write_off, q, k, v,
+                         cos, sin, q_norm=None, k_norm=None,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """qk-norm, RoPE and the paged K/V write of one decode token per slot;
+    returns q rotated, [S, Hq, D]. Arguments as ``paged_kv_write_fused_ref``.
+    On CUDA tensors one launch of ``csrc/paged_kv_write_fused.cu`` (K1
+    redesigned): q, k, v and the weights in one type (f32 or bf16), the
+    pools in one type (f32 or bf16), head_dim a multiple of 32 up to 256."""
+    if cuda_build.on_cpu(k_pool):
+        return paged_kv_write_fused_ref(k_pool, v_pool, write_page, write_off,
+                                        q, k, v, cos, sin, q_norm, k_norm, eps)
+    name = "paged_kv_write_fused"
+    dev = k_pool.device
+    hkv, n, ps, d = k_pool.shape
+    s = write_page.shape[0]
+    _check_head_dim(d, name)
+    if (k_pool.dtype not in cuda_build.DTYPE_CODE or v_pool.shape != k_pool.shape
+            or v_pool.dtype != k_pool.dtype or not k_pool.is_contiguous()
+            or not v_pool.is_contiguous() or k_pool.device != v_pool.device):
+        raise ValueError(f"{name}: pools must be contiguous, alike, f32 or bf16")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{name}: pools must be 16-byte aligned")
+    act = q.dtype
+    if act not in cuda_build.DTYPE_CODE or k.dtype != act or v.dtype != act:
+        raise ValueError(f"{name}: q, k, v must share one dtype, f32 or bf16")
+    if (s == 0 or q.numel() % (s * d) or k.numel() != s * hkv * d
+            or v.numel() != s * hkv * d):
+        raise ValueError(f"{name}: q must be [{s}, Hq*{d}], k and v "
+                         f"[{s}, {hkv * d}]")
+    hq = q.numel() // (s * d)
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32 or \
+            cos.numel() != s * d // 2 or sin.numel() != s * d // 2:
+        raise ValueError(f"{name}: cos and sin must be f32 [{s}, {d // 2}]")
+    for w in (q_norm, k_norm):
+        if w is not None and (w.dtype != act or w.numel() != d):
+            raise ValueError(f"{name}: a norm weight must be [{d}] in {act}")
+    # operands held by name until the launch (a cast or clone would
+    # otherwise be freed under the kernel); a null weight skips that norm
+    norms = [None if w is None else _cuda_operand(w, dev)
+             for w in (q_norm, k_norm)]
+    qc, kc, vc = (_cuda_operand(x, dev) for x in (q, k, v))
+    cos, sin = _cuda_operand(cos, dev), _cuda_operand(sin, dev)
+    page = _cuda_operand(write_page, dev, torch.int32)
+    off = _cuda_operand(write_off, dev, torch.int32)
+    out = torch.empty((s, hq, d), dtype=act, device=dev)
+    cuda_build.launch(
+        name, out.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        *(0 if w is None else w.data_ptr() for w in norms), cos.data_ptr(),
+        sin.data_ptr(), page.data_ptr(), off.data_ptr(),
+        cuda_build.DTYPE_CODE[act], cuda_build.DTYPE_CODE[k_pool.dtype], s, hq,
+        hkv, n, ps, d, float(eps), cuda_build.stream_of(dev))
+    cuda_build.LAUNCHES[name] += 1
+    return out
 
 
 def _attn_operands(name, q, k_pool, v_pool, page_table, seq_lens):

@@ -68,6 +68,31 @@ def test_lib_path_changes_with_the_flags(monkeypatch):
     assert cuda_build.lib_path("flash_attention_fwd") != before
 
 
+def test_fused_prologue_is_its_own_library():
+    """The fused decode prologue (K1 redesigned) is one library built from
+    its own .cu, with one C entry point whose argtypes match the
+    parameters the source declares: 12 pointers, 8 ints, eps, the stream."""
+    import ctypes
+
+    sources, entries = cuda_build.KERNELS["paged_kv_write_fused"]
+    assert sources == ("paged_kv_write_fused.cu",)
+    argtypes = entries["polyrl_paged_kv_write_fused"]
+    assert list(entries) == ["polyrl_paged_kv_write_fused"]
+    assert argtypes == ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                        + [ctypes.c_float, ctypes.c_void_p])
+    assert cuda_build.LAUNCHES["paged_kv_write_fused"] == 0
+    text = (cuda_build.CSRC_DIR / sources[0]).read_text()
+    sig = re.search(r'extern "C" int polyrl_paged_kv_write_fused\((.*?)\)\s*\{',
+                    text, re.S).group(1)
+    params = [p_.strip() for p_ in sig.split(",")]
+    kinds = [ctypes.c_void_p if "*" in p_ else
+             ctypes.c_float if p_.startswith("float") else ctypes.c_int
+             for p_ in params]
+    assert kinds == argtypes, params
+    assert cuda_build.lib_path("paged_kv_write_fused").name.startswith(
+        "paged_kv_write_fused-")
+
+
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__8cc3d0be_22_flash_attention_fwd_cu_979178ff21flash_fwd_bf16_kernelILi128ELi4EEEvPK13__nv_bfloat16S3_S3_PKiPS1_Pfiiiif' for 'sm_90a'
@@ -108,6 +133,15 @@ def test_parse_ptxas_reads_registers_and_spills():
     assert cuda_build.kernel_name(
         "_ZN6polyrl20paged_combine_kernelI13__nv_bfloat16EEvNS_4ArgsIT_EENS_4PlanE"
     ) == "paged_combine_kernel<bf16>"
+    # a kernel in an anonymous namespace whose hash ends in digits, with two
+    # type arguments (the fused decode prologue's activation and pool types)
+    fused = ("_ZN56_GLOBAL__N__db0c2340_23_paged_kv_write_fused_cu_ce956e05"
+             "27paged_kv_write_fused_kernelI{}EEvNS_4ArgsIT_T0_EE")
+    for targs, name in (("f13__nv_bfloat16", "float, bf16"),
+                        ("13__nv_bfloat16S1_", "bf16, bf16"), ("ff", "float, float"),
+                        ("13__nv_bfloat16f", "bf16, float")):
+        assert cuda_build.kernel_name(fused.format(targs)) == \
+            f"paged_kv_write_fused_kernel<{name}>"
 
 
 def test_bf16_flash_kernels_use_the_tensor_core_helpers_only():

@@ -16,6 +16,8 @@ import torch
 
 from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops import paged_attention as tpa
+from polyrl_tpu_torch.ops.norm_rope import rms_norm
+from chip_smoke import rope_operand_bound
 
 PAGE = 8
 
@@ -229,6 +231,189 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     tpa.paged_attention(qb[..., :96].float().contiguous(),
                         poolb[..., :96].float().contiguous(),
                         poolb[..., :96].float().contiguous(), pt, lens)
+    torch.cuda.synchronize()
+
+
+# -- the fused decode prologue (K1 redesigned) ---------------------------------
+
+
+def fused_case(rng, s=6, hq=4, hkv=2, d=64, n=16, page=PAGE, norm=True,
+               theta=10000.0):
+    """One decode token per slot for ``paged_kv_write_fused``, as numpy
+    arrays: q [S, Hq*D], k and v [S, Hkv*D], pools [Hkv, N, page, D], norm
+    weights [D] (None without qk-norm), cos and sin [S, D/2] at random
+    positions, and each slot's target. Slot 1 is inactive (routed to page
+    0, offset 0); slots 2 and 3 sit on a page boundary (offset 0 and
+    page - 1)."""
+    f32 = np.float32
+    pos = rng.integers(0, 4096, s)
+    ang = pos[:, None] * (1.0 / theta ** (np.arange(0, d, 2) / d))[None]
+    page_ids = rng.permutation(np.arange(1, n))[:s].astype(np.int32)
+    off = rng.integers(0, page, s).astype(np.int32)
+    page_ids[1], off[1] = 0, 0
+    off[2], off[3] = 0, page - 1
+
+    def weight():
+        return (1 + 0.1 * rng.standard_normal(d)).astype(f32) if norm else None
+
+    return dict(
+        k_pool=rng.standard_normal((hkv, n, page, d)).astype(f32),
+        v_pool=rng.standard_normal((hkv, n, page, d)).astype(f32),
+        write_page=page_ids, write_off=off,
+        q=rng.standard_normal((s, hq * d)).astype(f32),
+        k=rng.standard_normal((s, hkv * d)).astype(f32),
+        v=rng.standard_normal((s, hkv * d)).astype(f32),
+        cos=np.cos(ang).astype(f32), sin=np.sin(ang).astype(f32),
+        q_norm=weight(), k_norm=weight())
+
+
+def fused_operands(case, device, dtype, pool_dtype=None):
+    """``fused_case`` as tensors on ``device``: q, k, v and the weights in
+    ``dtype``, the pools in ``pool_dtype`` (``dtype`` by default), cos and
+    sin in f32, the targets int32."""
+    pool_dtype = pool_dtype or dtype
+    out = {}
+    for name, a in case.items():
+        if a is None:
+            out[name] = None
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if name in ("k_pool", "v_pool"):
+            t = t.to(pool_dtype)
+        elif name in ("q", "k", "v", "q_norm", "k_norm"):
+            t = t.to(dtype)
+        out[name] = t
+    return out
+
+
+def _rope_operands(x, w, eps):
+    """The RoPE operands of ``x`` [S, H, D] as the plain chain makes them."""
+    return x if w is None else rms_norm(x[:, None], w, eps)[:, 0]
+
+
+def check_fused_against_plain(args, eps, rel):
+    """``paged_kv_write_fused`` on CUDA tensors ``args`` (pools copied)
+    against its plain version on CPU copies: q and the written k rows
+    within ``rope_operand_bound``; the v rows and every pool row it must
+    not touch bitwise. Returns the kernel's (q, k_pool, v_pool)."""
+    dev = args["k_pool"].device
+    kp, vp = args["k_pool"].clone(), args["v_pool"].clone()
+    rest = {k_: v for k_, v in args.items() if k_ not in ("k_pool", "v_pool")}
+    q = tpa.paged_kv_write_fused(kp, vp, **rest, eps=eps)
+    cpu = {k_: (None if v is None else v.cpu()) for k_, v in args.items()}
+    rk, rv = cpu["k_pool"].clone(), cpu["v_pool"].clone()
+    rq = tpa.paged_kv_write_fused_ref(rk, rv, **{k_: cpu[k_] for k_ in rest},
+                                      eps=eps)
+    torch.cuda.synchronize()
+    hkv, n, ps, d = kp.shape
+    s = q.shape[0]
+    cos, sin = cpu["cos"], cpu["sin"]
+    assert q.dtype == cpu["q"].dtype and q.shape == rq.shape
+    qn = _rope_operands(cpu["q"].reshape(s, -1, d), cpu["q_norm"], eps)
+    assert ((q.cpu().float() - rq.float()).abs()
+            <= rope_operand_bound(qn, cos, sin, rq, rel)).all()
+    page, off = cpu["write_page"].long(), cpu["write_off"].long()
+    written = torch.zeros((hkv, n, ps), dtype=torch.bool)
+    written[:, page, off] = True
+    got_k = kp.cpu()
+    assert torch.equal(got_k[~written], rk[~written])
+    assert torch.equal(vp.cpu(), rv)
+    kn = _rope_operands(cpu["k"].reshape(s, hkv, d), cpu["k_norm"], eps)
+    # slot order within the pools' [Hkv, S] rows
+    ref_rows = rk[:, page, off].float()
+    bound = rope_operand_bound(kn, cos, sin, ref_rows.transpose(0, 1),
+                               rel).transpose(0, 1)
+    assert ((got_k[:, page, off].float() - ref_rows).abs() <= bound).all()
+    return q, kp, vp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_prologue_matches_plain(cuda_device, dtype, d, norm):
+    """The fused decode prologue against its plain chain (rms_norm,
+    apply_rope, paged_kv_write_ref): bf16 within one bf16 ulp of each RoPE
+    operand (2^-7), f32 within 1e-5 of them (the sum of squares and rsqrt
+    differ in the last bits); v rows and untouched rows bitwise; two calls
+    bitwise equal; one launch counted per call."""
+    rng = np.random.default_rng(d + norm)
+    case = fused_case(rng, s=12, hq=8, hkv=4, d=d, n=16, page=64, norm=norm)
+    args = fused_operands(case, cuda_device, dtype)
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    cuda_build.reset_launch_counts()
+    q, kp, vp = check_fused_against_plain(args, 1e-6, rel)
+    q2, kp2, vp2 = check_fused_against_plain(args, 1e-6, rel)
+    assert torch.equal(q, q2) and torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    assert cuda_build.LAUNCHES["paged_kv_write_fused"] == 2
+    assert cuda_build.LAUNCHES["paged_kv_write"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_prologue_mixed_pool_dtype_and_wide_heads(cuda_device):
+    """bf16 activations into f32 pools (``rollout.kv_cache_dtype``), D 256,
+    and more head rows (Hq 48 + Hkv 8) than a block has warps."""
+    rng = np.random.default_rng(7)
+    for d, hq, pool in ((128, 16, torch.float32), (256, 4, torch.bfloat16),
+                        (128, 48, torch.bfloat16)):
+        case = fused_case(rng, s=5, hq=hq, hkv=8 if hq == 48 else 2, d=d,
+                          n=8, page=16)
+        check_fused_against_plain(
+            fused_operands(case, cuda_device, torch.bfloat16, pool), 1e-6,
+            2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_prologue_graph_replay_equals_eager(cuda_device):
+    """One replay of a CUDA-graph capture of the fused kernel gives the
+    eager call's q and pools bitwise (nothing is read on the host)."""
+    rng = np.random.default_rng(3)
+    case = fused_case(rng, s=16, hq=16, hkv=8, d=128, n=32, page=64)
+    args = fused_operands(case, cuda_device, torch.bfloat16)
+    rest = {k_: v for k_, v in args.items() if k_ not in ("k_pool", "v_pool")}
+    ek, ev = args["k_pool"].clone(), args["v_pool"].clone()
+    eq = tpa.paged_kv_write_fused(ek, ev, **rest)
+    gk, gv = args["k_pool"].clone(), args["v_pool"].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gq = tpa.paged_kv_write_fused(gk, gv, **rest)
+    torch.cuda.synchronize()
+    assert torch.equal(gk, args["k_pool"])  # capture runs nothing
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(gq, eq) and torch.equal(gk, ek) and torch.equal(gv, ev)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
+    rng = np.random.default_rng(4)
+    args = fused_operands(fused_case(rng, d=64), cuda_device, torch.bfloat16)
+
+    def call(**over):
+        a = dict(args, **over)
+        return tpa.paged_kv_write_fused(**a)
+
+    with pytest.raises(ValueError, match="dtype"):  # no float16 instance
+        call(q=args["q"].half(), k=args["k"].half(), v=args["v"].half())
+    with pytest.raises(ValueError, match="dtype"):  # q, k, v in two types
+        call(q=args["q"].float())
+    with pytest.raises(ValueError):  # k is not [S, Hkv*D]
+        call(k=args["k"][:, :-64].contiguous())
+    with pytest.raises(ValueError):  # a weight of the wrong width
+        call(k_norm=args["k_norm"][:32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(k_pool=args["k_pool"].transpose(1, 2))
+    with pytest.raises(ValueError, match="cos"):
+        call(cos=args["cos"].double())
+    pool48 = torch.zeros((2, 16, PAGE, 48), device=cuda_device,
+                         dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        call(k_pool=pool48, v_pool=pool48.clone(),
+             q=args["q"][:, :4 * 48].contiguous(),
+             k=args["k"][:, :2 * 48].contiguous(),
+             v=args["v"][:, :2 * 48].contiguous(),
+             cos=args["cos"][:, :24].contiguous(),
+             sin=args["sin"][:, :24].contiguous(), q_norm=None, k_norm=None)
     torch.cuda.synchronize()
 
 

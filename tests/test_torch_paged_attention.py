@@ -197,4 +197,15 @@ def test_cpu_wrappers_do_not_count_launches():
     case = _grouped_case(rng)
     tpa.grouped_paged_attention(*_t(case))
     tpa.paged_attention(*_t(case[:5]))
+    kp, vp = _t(case[1:3])
+    s, hkv, d = 3, kp.shape[0], kp.shape[3]
+    page, off = torch.tensor([1, 0, 2]).int(), torch.tensor([0, 0, 7]).int()
+    k = torch.from_numpy(rng.standard_normal((s, hkv, d)).astype(np.float32))
+    tpa.paged_kv_write(kp, vp, page, off, k, k.clone())
+    q = tpa.paged_kv_write_fused(
+        kp, vp, page, off, torch.zeros((s, 2 * hkv * d)), k.reshape(s, -1),
+        k.reshape(s, -1).clone(), torch.ones((s, d // 2)),
+        torch.zeros((s, d // 2)), torch.ones(d), torch.ones(d))
+    assert q.shape == (s, 2 * hkv, d)
+    assert set(cuda_build.LAUNCHES) >= {"paged_kv_write", "paged_kv_write_fused"}
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
