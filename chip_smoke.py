@@ -59,12 +59,34 @@ when CUDA is unavailable or any phase fails. Phases:
               card; sent again with the engine's decode attention missing
               each slot's last page, it must fail that check. The main
               path must take the fused prologue, never the standalone K1.
+              The engine runs up to 16 dispatches ahead of emission and
+              replays each decode dispatch from its key's CUDA graph. Run
+              ahead against synchronous: the mix again at
+              pipeline_depth 0, whose greedy streams must give the same
+              tokens and logprobs bitwise where both runs admitted them
+              in waves of one kind, size and prompt bucket (within 1e-3
+              nats elsewhere), then once more at depth 16 under
+              torch.profiler for the device's busy share; dispatches,
+              replays, captures and host ms per dispatch are logged.
               Then the decode step's A/B (``decode_ab``) at the serving
               tables on the served weights: the default (fused) route
               against ``kv_write_fn=paged_kv_write`` (eager qk-norm and
               RoPE, then K1: that kernel's path), log-softmax within 0.1
-              nats from the same pools and inputs, then 50 steps of each
-              in turns: wall and device ms and kernels per step.
+              nats from the same pools and inputs, and the fused route
+              captured as a CUDA graph (``graph``, a replay bitwise the
+              eager step); then 50 steps of each in turns: wall and
+              device ms and kernels per step. Then the engine's dispatch
+              graph against its eager body (``engine_graph_checks``) on
+              an engine of the served weights that admitted a greedy
+              group, a sampled group (filters on) and two greedy
+              requests: for an ungrouped key (K2) and a grouped key (K3),
+              a replay bitwise the eager body from one snapshot (tokens,
+              logprobs, done, state, pools), every sampled token in its
+              filtered set with its logprob the filtered log-softmax's
+              within 1e-5, one generator state giving the same tokens
+              twice and the next replay other ones; and the profiler's
+              count of the port's kernels over 3 replays equal to what
+              the replays credited to the launch counts.
 4. train   -- ``build_trainer`` of ``polyrl_tpu_torch.train``:
               ``qwen3-1.7b`` at full width and depth in bf16, random
               weights from seed 0, the colocated CB engine (64 slots,
@@ -74,7 +96,8 @@ when CUDA is unavailable or any phase fails. Phases:
               byte length). Gates: finite losses and grad norms, no
               skipped updates, weight_version 3 and the engine's weights
               bitwise the actor's, K4 fwd/bwd, the fused prologue and K2
-              launched (counted from zero just before the fit), the trainer's step-1 old
+              launched (counted from zero just before the fit; graph
+              replays credit their captured launches), the trainer's step-1 old
               logprobs (K4) against the engine's rollout logprobs (paged
               decode), and the full-model loss gradient of one micro of
               step 1 on step 1's weights (the update's own gradient)
@@ -102,7 +125,9 @@ when CUDA is unavailable or any phase fails. Phases:
               must fail the logprob gate; finite losses and grad norms,
               both grad norms > 0, no skipped update; step 2's tokens at
               most ``staleness_limit`` versions behind the weights they
-              are trained against, finite importance weights <= the cap,
+              are trained against, each trajectory's versions (the
+              version of each token's dispatch) never decreasing,
+              finite importance weights <= the cap,
               and the engine bitwise the actor after the fit; validation
               finite, and twice on the same weights equal. Then on a
               depth-2 copy of the same widths: save at step 1, a fresh
@@ -125,6 +150,7 @@ import gc
 import http.client
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1039,6 +1065,7 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
     from polyrl_tpu_torch.rollout.serve import create_server
 
     t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats(dev)
     server = create_server(model, device=str(dev), host="127.0.0.1", port=0,
                            max_slots=64, page_size=64, max_seq_len=4096,
                            num_pages=2048, steps_per_dispatch=8, seed=0)
@@ -1090,17 +1117,15 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
             "decode_dispatches", "grouped_decode_dispatches",
             "sibling_attach_dispatches")}
         log(f"serve: main path launches {json.dumps(launches)}; "
-            f"{json.dumps(delta)}")
-        ttft = [o["lines"][0][0] - o["t0"] for o in outs]
-        first = min(o["lines"][0][0] for o in outs)
-        last = max(o["lines"][-1][0] for o in outs)
-        n_tok = sum(len(o["tokens"]) for o in outs)
-        decode_tok_s = (n_tok - len(outs)) / max(last - first, 1e-9)
+            f"{json.dumps(delta)}; " + dispatch_line(info0, info))
+        decode_tok_s = mix_tok_s(outs)
         for o in outs:
             check(all(np.isfinite(o["logprobs"])) and max(o["logprobs"]) <= 0,
                   "non-finite or positive logprob")
             check(all(0 <= t < cfg.vocab_size for t in o["tokens"]),
                   "token outside the vocabulary")
+        ttft = [o["lines"][0][0] - o["t0"] for o in outs]
+        runahead = runahead_against_sync(port, server.engine, bodies, outs)
         # the same greedy request twice, alone, from an empty prefix cache:
         # identical inputs and batch shapes must give identical tokens
         rep = []
@@ -1117,7 +1142,8 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
         log(f"serve: one stream alone (twice): TTFT {(rep[0]['lines'][0][0] - rep[0]['t0']) * 1e3:.1f} ms, "
             f"{single * 1e3:.2f} ms per decode step (64 slots computed); "
             f"launches {json.dumps(dict(cuda_build.LAUNCHES))}")
-        log(f"serve: {len(outs)} streams, {n_tok} tokens in {wall:.2f} s")
+        log(f"serve: {len(outs)} streams, "
+            f"{sum(len(o['tokens']) for o in outs)} tokens in {wall:.2f} s")
         # decode vs dense: the engine's greedy logprobs against the port's
         # dense forward over prompt + generated tokens, on the card, in f32
         # (the reference) and in bf16 (the same precision as the engine)
@@ -1159,7 +1185,7 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
         # the gate's power: the same request, with the engine's decode
         # attention missing each slot's last page, must fail it
         post(port, "/flush_cache", {})
-        with missing_last_page():
+        with missing_last_page(server.engine):
             bad = run_requests(port, [{
                 "rid": "fault", "input_ids": greedy_prompts[0],
                 "sampling_params": {"temperature": 0.0, "max_new_tokens": 64}}])[0]
@@ -1171,11 +1197,124 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
               "the dense gate passes a missing page")
         del params32
         ab = decode_ab(dev, server.engine.params, cfg)
-
+        graphs = engine_graph_checks(dev, server.engine.params, cfg)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        log("serve: served " + engine_line(server.engine))
+        log(f"serve: peak memory {peak_gb:.2f} GB (torch.cuda."
+            f"max_memory_allocated, the served engine and the checks' own)")
         return dict(launches=launches, ttft=ttft, decode_tok_s=decode_tok_s,
-                    wall=wall, n_tok=n_tok, ab_launches=ab)
+                    wall=wall, ab_launches=ab, runahead=runahead, graphs=graphs,
+                    peak_gb=peak_gb)
     finally:
         server.stop()
+
+
+def mix_tok_s(outs: list[dict]) -> float:
+    """Decode tokens per second over the mix: every token after each
+    stream's first, from the first stream's first token to the last
+    stream's last."""
+    first = min(o["lines"][0][0] for o in outs)
+    last = max(o["lines"][-1][0] for o in outs)
+    n_tok = sum(len(o["tokens"]) for o in outs)
+    return (n_tok - len(outs)) / max(last - first, 1e-9)
+
+
+def dispatch_line(info0: dict, info: dict) -> str:
+    """The engine's dispatch counters between two ``/get_server_info``
+    reads: dispatches, graph replays, captures and their seconds, and the
+    host ms per dispatch (queueing the replay or the eager body, and the
+    copy of its outputs)."""
+    d = {k: info[k] - info0[k] for k in (
+        "decode_dispatches", "graph_replays", "graph_captures",
+        "graph_capture_s", "decode_host_s")}
+    n = max(d["decode_dispatches"], 1)
+    return (f"{d['decode_dispatches']} dispatches, {d['graph_replays']} "
+            f"replays, {d['graph_captures']} captures in "
+            f"{d['graph_capture_s']:.2f} s, host ms per dispatch "
+            f"{d['decode_host_s'] / n * 1e3:.3f} (captures included)")
+
+
+# greedy logprobs of one stream at pipeline_depth 16 and 0, when the two
+# runs admitted it in waves of another size or prompt bucket (another
+# prefill batch shape may take another cuBLAS algorithm), in nats
+RUNAHEAD_LP_TOL = 1e-3
+
+
+def run_mix(port: int, bodies: list[dict], tag: str) -> tuple[list, dict, dict]:
+    """The mix again from an empty prefix cache, with ``tag`` on every rid;
+    returns the streams and the server info before and after."""
+    post(port, "/flush_cache", {})
+    info0 = post(port, "/get_server_info", None)
+    outs = run_requests(port, [{**b, "rid": f"{b['rid']}-{tag}"} for b in bodies])
+    return outs, info0, post(port, "/get_server_info", None)
+
+
+def mix_wall_ms(outs: list[dict]) -> float:
+    """From the first request's start to the last stream's last line."""
+    return (max(o["lines"][-1][0] for o in outs)
+            - min(o["t0"] for o in outs)) * 1e3
+
+
+def runahead_against_sync(port: int, engine, bodies: list[dict],
+                          outs: list[dict]) -> dict:
+    """The mix's greedy streams with the engine running ahead (the main
+    path, pipeline_depth 16) against the synchronous engine
+    (pipeline_depth 0): the same token ids; logprobs bitwise where both
+    runs admitted the stream in a wave of the same kind, size and prompt
+    bucket, else within RUNAHEAD_LP_TOL. The mix at each depth in turns
+    (16, 0, 0, 16) for decode tok/s and TTFT (a group-table shape the
+    earlier runs did not meet is still captured; each line says so), then
+    once more at depth 16 under torch.profiler for the device's busy share
+    of the mix's wall."""
+    depth = engine.pipeline_depth
+    tok_s: dict = {depth: [], 0: []}
+    sync = None
+    try:
+        for i, d in enumerate((depth, 0, 0, depth)):
+            engine.pipeline_depth = d
+            run, i0, i1 = run_mix(port, bodies, f"d{d}r{i}")
+            tok_s[d].append(mix_tok_s(run))
+            ttft = statistics.median(o["lines"][0][0] - o["t0"] for o in run)
+            log(f"serve run-ahead: depth {d}: {tok_s[d][-1]:.1f} decode "
+                f"tok/s, TTFT median {ttft * 1e3:.1f} ms; "
+                + dispatch_line(i0, i1))
+            if d == 0 and sync is None:
+                sync, sync_tag = run, f"d{d}r{i}"
+    finally:
+        engine.pipeline_depth = depth
+    waves = {rid: (kind, size, pb) for rid, kind, size, pb in engine.admissions}
+    cases = []
+    for b, a, o in zip(bodies, outs, sync):
+        if b["sampling_params"]["temperature"] > 0:
+            continue
+        rid = b["rid"]
+        check(a["tokens"] == o["tokens"],
+              f"{rid}: depth {depth} and depth 0 gave other tokens")
+        gap = float(np.abs(np.asarray(a["logprobs"])
+                           - np.asarray(o["logprobs"])).max())
+        w16, w0 = waves[rid], waves[f"{rid}-{sync_tag}"]
+        same = w16 == w0
+        cases.append(f"{rid}: admitted {w16} / {w0}, "
+                     f"{'same waves: bitwise' if same else 'other waves'}, "
+                     f"max |logprob diff| {gap:.2e}")
+        check(gap == 0.0 if same else gap <= RUNAHEAD_LP_TOL,
+              f"{rid}: depth {depth} against depth 0: {cases[-1]}")
+    log("serve run-ahead: greedy streams, depth 16 (main path) against 0: "
+        "same tokens; " + "; ".join(cases))
+    res: dict = {}
+
+    def profiled_mix():
+        res["outs"], res["i0"], res["i1"] = run_mix(port, bodies, "busy")
+
+    busy = device_profile(profiled_mix, 1)["device_ms"]
+    wall = mix_wall_ms(res["outs"])
+    med = {d: statistics.median(v) for d, v in tok_s.items()}
+    log(f"serve run-ahead: decode tok/s median depth {depth} {med[depth]:.1f}, "
+        f"depth 0 {med[0]:.1f} ({med[depth] / med[0]:.3f} x); the mix at "
+        f"depth {depth} under torch.profiler: device busy {busy:.1f} ms of "
+        f"{wall:.1f} ms wall ({busy / wall:.3f}); "
+        + dispatch_line(res["i0"], res["i1"]))
+    return dict(tok_s=med[depth], sync_tok_s=med[0], busy_share=busy / wall)
 
 
 AB_STEPS = 50   # decode steps per route in the serve phase's A/B
@@ -1200,18 +1339,21 @@ def device_profile(fn, calls: int) -> dict:
 
 
 def decode_ab(dev, params, cfg) -> dict:
-    """The decode step's two routes at the serving tables
+    """The decode step's three routes at the serving tables
     (``serving_tables``: 64 slots, 18 live), on the served model's
-    weights and pools of random K/V: the default (the fused prologue) and
+    weights and pools of random K/V: the default (the fused prologue),
     ``kv_write_fn=pa.paged_kv_write`` (eager qk-norm and RoPE, then the
-    standalone K1). Gate: one step of each from the same pools and inputs,
-    the live slots' log-softmax within DECODE_AB_TOL nats. Then AB_STEPS
-    ``forward_paged_decode`` steps per route in turns (fused, unfused,
-    unfused, fused), each synchronised and timed on the host's clock, at
-    fixed lengths (every step writes the same positions: the same work as
-    a real step), with each turn's launch counts zeroed just before it and
-    read just after; and PROF_STEPS more per route under torch.profiler
-    for kernels and device ms per step. Returns the launches by route."""
+    standalone K1), and ``graph``: the fused route captured in a CUDA graph
+    and replayed. Gates: one step of the first two from the same pools and
+    inputs, the live slots' log-softmax within DECODE_AB_TOL nats; a replay
+    bitwise the eager fused step. Then AB_STEPS ``forward_paged_decode``
+    steps per route in turns (fused, unfused, graph, graph, unfused,
+    fused), each synchronised and timed on the host's clock, at fixed
+    lengths (every step writes the same positions: the same work as a real
+    step), with each turn's launch counts zeroed just before it and read
+    just after (a replay credits what its capture recorded); and
+    PROF_STEPS more per route under torch.profiler for kernels and device
+    ms per step. Returns the launches by route."""
     table, lens, _ = serving_tables(dev)
     active = lens > 0
     pools = decoder.make_paged_pools(cfg, int(table.max()) + 1, PS, device=dev)
@@ -1219,15 +1361,15 @@ def decode_ab(dev, params, cfg) -> dict:
     for p_ in pools[0] + pools[1]:
         p_.normal_(generator=gen)
     tokens = torch.randint(1, cfg.vocab_size, (S,), generator=gen, device=dev)
-    routes = {"fused": None, "unfused": pa.paged_kv_write}
+    kv_write = {"fused": None, "unfused": pa.paged_kv_write}
 
     def step(route, pools_=pools):
         return decoder.forward_paged_decode(
             params, cfg, tokens, lens, pools_, table, lens, active=active,
-            kv_write_fn=routes[route])[0]
+            kv_write_fn=kv_write[route])[0]
 
     lsm = {}
-    for route in routes:
+    for route in kv_write:
         copy = ([p_.clone() for p_ in pools[0]], [p_.clone() for p_ in pools[1]])
         lsm[route] = torch.log_softmax(step(route, copy)[active], dim=-1)
         del copy
@@ -1241,26 +1383,51 @@ def decode_ab(dev, params, cfg) -> dict:
           f"unfused one by {gap:.4f} nats (limit {DECODE_AB_TOL})")
     del lsm
 
+    # the graph route: the fused step captured once (after a warm-up on the
+    # capturing stream), its launches recorded for crediting at each replay
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager_logits = step("fused").clone()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with cuda_build.recording_launches() as graph_launches:
+        with torch.cuda.graph(graph, stream=side):
+            graph_logits = step("fused")
+    graph.replay()
+    torch.cuda.synchronize()
+    # live slots only: idle slots all write the null page and read it back,
+    # racing one another
+    check(torch.equal(graph_logits[active], eager_logits[active]),
+          "a replay of the captured fused step differs from the eager step")
+
+    def replay():
+        graph.replay()
+        cuda_build.credit_launches(graph_launches)
+
+    routes = {"fused": lambda: step("fused"), "unfused": lambda: step("unfused"),
+              "graph": replay}
     walls = {r: [] for r in routes}
     launches = {r: dict.fromkeys(cuda_build.LAUNCHES, 0) for r in routes}
-    for route in ("fused", "unfused", "unfused", "fused"):
+    for route in ("fused", "unfused", "graph", "graph", "unfused", "fused"):
         cuda_build.reset_launch_counts()
         for _ in range(AB_STEPS // 2):
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            step(route)
+            routes[route]()
             torch.cuda.synchronize()
             walls[route].append((time.monotonic() - t0) * 1e3)
         for k_, n in cuda_build.LAUNCHES.items():
             launches[route][k_] += n
     n_l = cfg.num_layers * AB_STEPS
-    check(launches["fused"]["paged_kv_write_fused"] == n_l
-          and launches["fused"]["paged_kv_write"] == 0,
-          f"the fused route's launches: {launches['fused']}")
+    for route in ("fused", "graph"):
+        check(launches[route]["paged_kv_write_fused"] == n_l
+              and launches[route]["paged_kv_write"] == 0,
+              f"the {route} route's launches: {launches[route]}")
     check(launches["unfused"]["paged_kv_write"] == n_l
           and launches["unfused"]["paged_kv_write_fused"] == 0,
           f"the unfused route's launches: {launches['unfused']}")
-    prof = {r: device_profile(lambda: step(r), PROF_STEPS) for r in routes}
+    prof = {r: device_profile(fn, PROF_STEPS) for r, fn in routes.items()}
     for route in routes:
         w = sorted(walls[route])
         pr = prof[route]
@@ -1272,14 +1439,303 @@ def decode_ab(dev, params, cfg) -> dict:
             f"{pr['kernels']:.1f} (+ {pr['copies']:.1f} copies/sets; torch."
             f"profiler over {PROF_STEPS} steps); launches "
             + json.dumps({k_: n for k_, n in launches[route].items() if n}))
+    del graph
     return launches
 
 
+# -- the engine's decode dispatch: graph against eager --------------------------
+
+# a sampled token's logprob against the filtered log-softmax recomputed from
+# the same state (the same kernels on the same inputs: equal but for the
+# order of a reduction, if any)
+SAMPLED_LOGP_TOL = 1e-5
+
+
+def engine_snapshot(eng) -> tuple:
+    """The engine's device state, pools and sampling generator state."""
+    return ({n: t.clone() for n, t in eng._dev.items()},
+            [[p_.clone() for p_ in side] for side in eng._pools],
+            eng._gen.get_state())
+
+
+def engine_restore(eng, snap: tuple, generator: bool = True) -> None:
+    for n, t in snap[0].items():
+        eng._dev[n].copy_(t)
+    for side, saved in zip(eng._pools, snap[1]):
+        for p_, s_ in zip(side, saved):
+            p_.copy_(s_)
+    if generator:
+        eng._gen.set_state(snap[2])
+
+
+def engine_outputs(eng) -> tuple:
+    """The last dispatch's [k, S] outputs and the state it left."""
+    torch.cuda.synchronize()
+    return tuple(o.clone() for o in eng._out), engine_snapshot(eng)
+
+
+def graph_against_eager(eng, use_filters: bool, tables) -> dict:
+    """One k-step dispatch of the engine (not started) at its current
+    state, replayed from the graph of its key (captured first when new:
+    the warm-up runs the dispatch, then the state is put back), and the
+    same dispatch by the eager body from the same snapshot of pools,
+    device state and generator. Returns both runs' outputs and end states
+    and the snapshot; the engine is left at the snapshot."""
+    snap = engine_snapshot(eng)
+    if eng._graph_key(use_filters, tables) not in eng._graphs:
+        eng._launch_decode(use_filters, tables)
+        engine_restore(eng, snap)
+    eng._launch_decode(use_filters, tables)
+    graph_out, graph_state = engine_outputs(eng)
+    engine_restore(eng, snap)
+    eng._decode_body(use_filters, eng._group_tables(tables))
+    eager_out, eager_state = engine_outputs(eng)
+    engine_restore(eng, snap)
+    return dict(graph=graph_out, graph_state=graph_state, eager=eager_out,
+                eager_state=eager_state, snap=snap)
+
+
+def states_equal(a: tuple, b: tuple) -> bool:
+    """Device state and pools bitwise equal, but for the null page 0, which
+    every inactive slot writes and which only inactive slots read (their
+    writes race one another)."""
+    return (all(torch.equal(a[0][n], b[0][n]) for n in a[0])
+            and all(torch.equal(x[:, 1:], y[:, 1:])
+                    for sa, sb in zip(a[1], b[1]) for x, y in zip(sa, sb)))
+
+
+def sampled_row_checks(eng, use_filters: bool, tables, run: dict) -> dict:
+    """The graph's sampled rows against the engine's own sampler, stepping
+    the eager forward through the dispatch from the snapshot with the
+    graph's tokens fed back: each sampled token lies in its row's filtered
+    set (top-k, top-p), and its logprob is the filtered, temperature-scaled
+    log-softmax at that token. Returns the worst error and the counts."""
+    from polyrl_tpu_torch.rollout import sampling
+
+    engine_restore(eng, run["snap"])
+    st, gt = eng._dev, eng._group_tables(tables)
+    attn = None
+    if gt is not None:
+        def attn(q, kp, vp, pt, ln):
+            return pa.grouped_paged_attention(q, kp, vp, pt, ln, *gt)
+    tok, lp, done = run["graph"]
+    seq, last = st["seq_lens"].clone(), st["last_tokens"].clone()
+    active = st["active"].clone()
+    err, n_rows, outside = 0.0, 0, 0
+    for i in range(eng.steps_per_dispatch):
+        logits, _ = decoder.forward_paged_decode(
+            eng.params, eng.cfg, last, seq, eng._pools, st["page_table"], seq,
+            attn_fn=attn, active=active)
+        scaled = sampling._filtered_scaled(logits, st["temps"], st["top_ps"],
+                                           st["top_ks"], use_filters)
+        rows = active & (st["temps"] > 0)
+        t = tok[i].long()[:, None]
+        kept = scaled.gather(-1, t)[:, 0] > sampling.NEG_INF
+        outside += int((rows & ~kept).sum())
+        ref = torch.log_softmax(scaled, dim=-1).gather(-1, t)[:, 0]
+        if rows.any():
+            err = max(err, (ref - lp[i])[rows].abs().max().item())
+        n_rows += int(rows.sum())
+        seq = seq + active.int()
+        last = torch.where(active, tok[i], last)
+        active = active & ~done[i]
+    engine_restore(eng, run["snap"])
+    return dict(err=err, rows=n_rows, outside=outside)
+
+
+def profiled_port_kernels(fn, calls: int) -> dict:
+    """Kernels of the port's own libraries in a torch.profiler trace of
+    ``calls`` calls of ``fn``, by kernel name (the identifier before any
+    template arguments)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {r["kernel"].split("<")[0] for lib in cuda_build.KERNELS
+             if cuda_build.lib_path(lib).exists()
+             for r in cuda_build.ptxas_report(lib)}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for n in names:
+            if re.search(rf"\b{n}\b", e.name):
+                counts[n] = counts.get(n, 0) + 1
+    return counts
+
+
+def engine_graph_checks(dev, params, cfg) -> dict:
+    """The engine's k-step decode dispatch (``rollout/cb_engine.py``) as a
+    CUDA graph against its eager body, at the serving tables: an engine on
+    the served weights (not started: driven through its internals) admits
+    the serve mix -- a greedy GRPO group of 8, a sampled one (temperature
+    1, top-p 0.9, top-k 50: filters on) and two greedy requests -- and
+    takes one dispatch. Then for the ungrouped key (K2) and the grouped
+    key (K3), each with filters on: a replay and the eager body from the
+    same snapshot give bitwise equal tokens, logprobs, done flags, device
+    state and pools; the sampled rows pass ``sampled_row_checks``; two
+    replays from the same generator state give the same tokens, and a
+    replay after another draws different ones. Each dispatch eager
+    against replayed, synchronised, on the host's clock; the replay also
+    by CUDA events. Launch credit: over a few replays under
+    torch.profiler, the profiler's count of the port's kernels equals
+    what ``LAUNCHES`` was credited."""
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    eng = CBEngine(cfg, params, max_slots=S, page_size=PS, max_seq_len=4096,
+                   num_pages=128, steps_per_dispatch=8, seed=3, device=dev)
+    rng = np.random.default_rng(5)
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=64)
+    sampled = SamplingParams(temperature=1.0, top_p=0.9, top_k=50,
+                             max_new_tokens=64)
+    for g, (n_p, sp) in enumerate(((200, greedy), (203, sampled))):
+        prompt = rng.integers(1, cfg.vocab_size, n_p).tolist()
+        for i in range(8):
+            eng.submit(f"g{g}-{i}", prompt, sp, group_id=f"grp{g}",
+                       group_size=8)
+    for i, n_p in enumerate((198, 205)):
+        eng.submit(f"greedy{i}", rng.integers(1, cfg.vocab_size, n_p).tolist(),
+                   greedy)
+    eng._drain_queue()
+    with eng._pool_lock:
+        eng._admit()
+        eng._step_once()  # mid-decode; captures the grouped key
+        eng._drain_emit_q()
+    tables = eng._decode_group_pack()
+    check(tables is not None and int(eng._active.sum()) == 18,
+          f"{int(eng._active.sum())} active slots, groups {tables is not None}")
+    out = {}
+    for label, tb in (("ungrouped (K2)", None), ("grouped (K3)", tables)):
+        key = eng._graph_key(True, tb)
+        run = graph_against_eager(eng, True, tb)
+        same = [torch.equal(a, b) for a, b in zip(run["graph"], run["eager"])]
+        pools_same = states_equal(run["graph_state"], run["eager_state"])
+        check(all(same) and pools_same,
+              f"{label}: the replayed dispatch differs from the eager body "
+              f"(tokens/logprobs/done equal {same}, state and pools equal "
+              f"{pools_same})")
+        rows = sampled_row_checks(eng, True, tb, run)
+        check(rows["rows"] > 0 and rows["outside"] == 0
+              and rows["err"] <= SAMPLED_LOGP_TOL,
+              f"{label}: sampled rows: {json.dumps(rows)}")
+        # two replays from the same generator state, then one after another
+        eng._launch_decode(True, tb)
+        again, _ = engine_outputs(eng)
+        engine_restore(eng, run["snap"], generator=False)
+        eng._launch_decode(True, tb)
+        later, _ = engine_outputs(eng)
+        sampled_rows = (run["snap"][0]["active"]
+                        & (run["snap"][0]["temps"] > 0))
+        n_diff = int((later[0] != run["graph"][0])[:, sampled_rows].sum())
+        check(torch.equal(again[0], run["graph"][0]),
+              f"{label}: two replays from one generator state differ")
+        check(n_diff > 0, f"{label}: a later replay drew the same tokens")
+        # timing: eager body against replay, state put back before each
+        walls = {"eager": [], "graph": []}
+        dev_ms = []
+        for route in ("eager", "graph", "graph", "eager"):
+            for _ in range(3):
+                engine_restore(eng, run["snap"])
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                if route == "eager":
+                    eng._decode_body(True, eng._group_tables(tb))
+                else:
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    eng._launch_decode(True, tb)
+                    b.record()
+                torch.cuda.synchronize()
+                walls[route].append((time.monotonic() - t0) * 1e3)
+                if route == "graph":
+                    dev_ms.append(a.elapsed_time(b))
+        k = eng.steps_per_dispatch
+        med = {r: statistics.median(w) for r, w in walls.items()}
+        log(f"serve graph vs eager {label}: key {key}: {k}-step dispatch "
+            f"replayed bitwise the eager body (tokens, logprobs, done, state, "
+            f"pools); sampled rows {rows['rows']} in their filtered sets, "
+            f"max |logprob - filtered log-softmax| {rows['err']:.2e} "
+            f"(tolerance {SAMPLED_LOGP_TOL}); same generator state, same "
+            f"tokens; next replay {n_diff} sampled tokens other; wall ms per "
+            f"dispatch eager {med['eager']:.2f}, replay {med['graph']:.2f} "
+            f"({med['eager'] / k:.2f} / {med['graph'] / k:.2f} per step), "
+            f"replay device ms {statistics.median(dev_ms):.3f} (CUDA events)")
+        engine_restore(eng, run["snap"])
+        out[label] = med
+
+    # a capture while another thread works the card (allocations, products,
+    # host reads), as the pipelined trainer's does: thread-local capture.
+    # Its draws come from a generator of its own: every capture registers
+    # the default CUDA generator, which then refuses draws outside it
+    busy_stop = threading.Event()
+    n_busy = [0]
+    busy_gen = torch.Generator(device=dev).manual_seed(1)
+
+    def busy_thread():
+        while not busy_stop.is_set():
+            a = torch.randn((1024, 1024), device=dev, generator=busy_gen)
+            n_busy[0] += int((a @ a).abs().sum().item() > 0)
+
+    worker = threading.Thread(target=busy_thread, daemon=True)
+    worker.start()
+    try:
+        n_before = len(eng._graphs)
+        run = graph_against_eager(eng, False, tables)
+    finally:
+        busy_stop.set()
+        worker.join(timeout=60)
+    check(not worker.is_alive() and n_busy[0] > 0
+          and len(eng._graphs) == n_before + 1, "no capture beside the busy thread")
+    check(all(torch.equal(a, b) for a, b in zip(run["graph"], run["eager"]))
+          and states_equal(run["graph_state"], run["eager_state"]),
+          "a graph captured beside another thread's work differs from the eager body")
+    log(f"serve graph vs eager: key {eng._graph_key(False, tables)} captured "
+        f"while another thread ran {n_busy[0]} products with allocations and "
+        f"host reads: replay bitwise the eager body; {engine_line(eng)}")
+
+    # launch credit: the profiler's count of the port's kernels over a few
+    # replays against what LAUNCHES was credited
+    replays = 3
+
+    def replay_grouped():
+        engine_restore(eng, run["snap"])
+        eng._launch_decode(True, tables)
+
+    cuda_build.reset_launch_counts()
+    seen = profiled_port_kernels(replay_grouped, replays)
+    credited = dict(cuda_build.LAUNCHES)
+    split = sum(n for name, n in seen.items() if name.startswith("paged_split"))
+    want = {"paged_kv_write_fused_kernel": credited["paged_kv_write_fused"],
+            "paged_split": credited["paged_attention"]
+            + credited["grouped_paged_attention"],
+            "paged_combine_kernel": credited["paged_attention"]
+            + credited["grouped_paged_attention"]}
+    got = {"paged_kv_write_fused_kernel": seen.get("paged_kv_write_fused_kernel", 0),
+           "paged_split": split,
+           "paged_combine_kernel": seen.get("paged_combine_kernel", 0)}
+    log(f"serve launch credit: {replays} replays of the grouped key: "
+        f"torch.profiler counted {json.dumps(seen)}; LAUNCHES credited "
+        f"{json.dumps({k_: n for k_, n in credited.items() if n})}")
+    check(got == want and credited["paged_kv_write_fused"]
+          == replays * eng.steps_per_dispatch * cfg.num_layers,
+          f"launch credit disagrees with the profiler: {got} against {want}")
+    cuda_build.reset_launch_counts()
+    del eng
+    return out
+
+
 @contextlib.contextmanager
-def missing_last_page():
+def missing_last_page(engine):
     """Within the block the engine's decode attention runs K2/K3 with each
     slot's length cut back past its last page (a page-table fault that
-    loses up to 64 recent tokens). The kernels still launch."""
+    loses up to 64 recent tokens). The kernels still launch. The engine's
+    graphs are dropped on the way in and out, so that its dispatches are
+    captured again with the fault and then without it."""
     from polyrl_tpu_torch.rollout import cb_engine
 
     def cut(lens):
@@ -1290,10 +1746,12 @@ def missing_last_page():
         q, kp, vp, pt, cut(lens), *a)
     cb_engine.grouped_paged_attention = lambda q, kp, vp, pt, lens, *a: k3(
         q, kp, vp, pt, cut(lens), *a)
+    engine._graphs.clear()
     try:
         yield
     finally:
         decoder.paged_attention, cb_engine.grouped_paged_attention = k2, k3
+        engine._graphs.clear()
 
 
 # -- phase 4: two GRPO steps through the trainer's entry point ------------------
@@ -1606,6 +2064,7 @@ def train_phase(dev) -> dict:
                 f"{rec['perf/mfu']:.5f}, pg_loss {rec['actor/pg_loss']:.5f}, "
                 f"kl_loss {rec['actor/kl_loss']:.3g}, grad_norm "
                 f"{rec['actor/grad_norm']:.4f}, reward/mean {rec['reward/mean']:.3f}")
+        log("train: " + engine_line(engine))
         log(f"train: fit wall {fit_wall:.1f} s; peak memory {peak_gb:.2f} GB "
             f"(torch.cuda.max_memory_allocated); {moved} of {n_params} weights "
             f"moved from the reference copy; main-path launches "
@@ -1615,6 +2074,17 @@ def train_phase(dev) -> dict:
     finally:
         for fn in reversed(cleanup):
             fn()
+
+
+def engine_line(engine) -> str:
+    """The colocated engine's dispatch counters over its life."""
+    n = max(engine.decode_dispatches, 1)
+    return (f"engine (pipeline_depth {engine.pipeline_depth}): "
+            f"{engine.decode_dispatches} decode dispatches, "
+            f"{engine.graph_replays} graph replays, {engine.graph_captures} "
+            f"captures in {engine.graph_capture_s:.2f} s (keys "
+            f"{sorted(map(str, engine._graphs))}), host ms per dispatch "
+            f"{engine.decode_host_s / n * 1e3:.3f} (captures included)")
 
 
 class WrittenOutAttention(torch.autograd.Function):
@@ -2007,6 +2477,16 @@ def ppo_main_run(dev, cfg) -> dict:
             f"staleness_limit {lim}")
         check(int(lags.max()) <= lim, f"step 2 tokens {int(lags.max())} versions "
               f"stale, limit {lim}")
+        # each token carries the version of the dispatch that sampled it, so
+        # a trajectory's versions never decrease
+        for i, sv in enumerate(seen, 1):
+            for row, m in zip(sv["versions"], sv["mask"]):
+                check((np.diff(row[m]) >= 0).all(),
+                      f"step {i}: a trajectory's weight versions decrease")
+        n_mixed = sum(len(np.unique(row[m])) > 1 for row, m in
+                      zip(s2["versions"], s2["mask"]))
+        log(f"ppo: versions never decrease along a trajectory; {n_mixed} of "
+            f"step 2's {len(s2['mask'])} span two versions; " + engine_line(engine))
         cap = cfg.trainer.rollout_is_cap
         w_all = np.concatenate([w[m] for w, m in tis])
         log(f"ppo: TIS weights over {len(w_all)} tokens in {len(tis)} ibatches: "
@@ -2205,7 +2685,11 @@ def main() -> int:
     log(f"serve ({smi}, this run): decode {served['decode_tok_s']:.1f} tok/s "
         f"over 18 concurrent streams; TTFT median "
         f"{statistics.median(served['ttft']) * 1e3:.1f} ms, max "
-        f"{max(served['ttft']) * 1e3:.1f} ms")
+        f"{max(served['ttft']) * 1e3:.1f} ms; again without captures: depth 16 "
+        f"{served['runahead']['tok_s']:.1f} tok/s, depth 0 "
+        f"{served['runahead']['sync_tok_s']:.1f}; device busy "
+        f"{served['runahead']['busy_share']:.3f} of the profiled mix's wall; "
+        f"peak {served['peak_gb']:.2f} GB")
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_phase(dev)

@@ -11,8 +11,12 @@ library is built from, its headers included, so an edited kernel is
 rebuilt and never silently reused.
 
 ``LAUNCHES`` is the one launch counter of the port: every kernel wrapper
-adds one to its library's entry where it launches the kernel, and nowhere
-else (plain-version calls on the CPU do not count).
+adds one to its library's entry where it launches the kernel
+(``count_launch``), and nowhere else (plain-version calls on the CPU do
+not count). A CUDA-graph capture runs the wrappers but launches nothing:
+inside ``recording_launches`` this thread's counts go to the capture's own
+record instead, and each replay of the graph credits that record to
+``LAUNCHES`` (``credit_launches``), since a replay runs no wrapper.
 
 Nothing here builds or loads at import time: the CPU tests import this
 module and never build.
@@ -20,6 +24,7 @@ module and never build.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -80,11 +85,44 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# per thread: the launch record of the capture under way, if any
+_recording = threading.local()
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of library ``name``'s kernel by its wrapper: into
+    ``LAUNCHES``, or into the record of a capture under way on this
+    thread."""
+    rec = getattr(_recording, "counts", None)
+    if rec is None:
+        LAUNCHES[name] += 1
+    else:
+        rec[name] = rec.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's wrapper launches are recorded into
+    the yielded dict and not counted: a CUDA-graph capture, whose kernels
+    run only when the graph is replayed. Other threads count as usual."""
+    if getattr(_recording, "counts", None) is not None:
+        raise RuntimeError("recording_launches does not nest")
+    _recording.counts = {}
+    try:
+        yield _recording.counts
+    finally:
+        _recording.counts = None
+
+
+def credit_launches(counts: dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``counts``."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def on_cpu(t: torch.Tensor) -> bool:
@@ -252,7 +290,7 @@ def launch(name: str, *args, entry: str | None = None) -> None:
     """Call C entry point ``entry`` of library ``name`` (its only entry
     point by default); raise on a non-zero ``cudaGetLastError()`` (a
     refused launch never runs, and a later synchronize would not report
-    it). Counting is the wrapper's job: it bumps ``LAUNCHES`` once per
+    it). Counting is the wrapper's job: it calls ``count_launch`` once per
     call of the function it stands for."""
     lib = library(name)
     entries = KERNELS[name][1]

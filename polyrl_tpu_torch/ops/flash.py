@@ -116,7 +116,7 @@ def flash_fwd_cuda(q, k, v, seg, causal: bool):
         seg.data_ptr(), o.data_ptr(), lse.data_ptr(),
         cuda_build.DTYPE_CODE[q.dtype], b, t, hq, k.shape[2], d, int(causal),
         float(d ** -0.5), cuda_build.stream_of(q.device))
-    cuda_build.LAUNCHES["flash_attention_fwd"] += 1
+    cuda_build.count_launch("flash_attention_fwd")
     return o, lse
 
 
@@ -141,7 +141,7 @@ def flash_bwd_cuda(q, k, v, seg, o, lse, dout, causal: bool):
     cuda_build.launch("flash_attention_bwd", *ptrs, dk.data_ptr(),
                       dv.data_ptr(), code, b, t, hq, hkv, d, int(causal),
                       scale, st, entry="polyrl_flash_attention_bwd_dkv")
-    cuda_build.LAUNCHES["flash_attention_bwd"] += 1
+    cuda_build.count_launch("flash_attention_bwd")
     return dq, dk, dv
 
 

@@ -253,7 +253,7 @@ def paged_kv_write(k_pool, v_pool, write_page, write_off, k_upd, v_upd):
                       page.data_ptr(), off.data_ptr(), k_upd.data_ptr(),
                       v_upd.data_ptr(), s, hkv, n, ps, row_bytes,
                       cuda_build.stream_of(dev))
-    cuda_build.LAUNCHES["paged_kv_write"] += 1
+    cuda_build.count_launch("paged_kv_write")
     return k_pool, v_pool
 
 
@@ -309,7 +309,7 @@ def paged_kv_write_fused(k_pool, v_pool, write_page, write_off, q, k, v,
         sin.data_ptr(), page.data_ptr(), off.data_ptr(),
         cuda_build.DTYPE_CODE[act], cuda_build.DTYPE_CODE[k_pool.dtype], s, hq,
         hkv, n, ps, d, float(eps), cuda_build.stream_of(dev))
-    cuda_build.LAUNCHES[name] += 1
+    cuda_build.count_launch(name)
     return out
 
 
@@ -365,7 +365,7 @@ def paged_attention(q, k_pool, v_pool, page_table, seq_lens, scale=None):
     out, run = paged_attention_launcher(q, k_pool, v_pool, page_table, seq_lens,
                                         scale)
     run()
-    cuda_build.LAUNCHES["paged_attention"] += 1
+    cuda_build.count_launch("paged_attention")
     return out.to(q.dtype)
 
 
@@ -420,5 +420,5 @@ def grouped_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
         q, k_pool, v_pool, page_table, seq_lens, group_slots,
         group_prefix_pages, group_prefix_lens, scale)
     run()
-    cuda_build.LAUNCHES["grouped_paged_attention"] += 1
+    cuda_build.count_launch("grouped_paged_attention")
     return out.to(q.dtype)

@@ -12,17 +12,33 @@ Counterpart of the core of ``polyrl_tpu/rollout/cb_engine.py``:
   chain) route through the grouped shared-prefix kernel.
 - Admission: waves of fresh prompts prefill in one batched forward; GRPO
   siblings of a published prompt batch-attach to its cached pages
-  (group-shared prefill, ``prefix_cache.py``).
-- Decode: each dispatch runs ``steps_per_dispatch`` fused steps as a
-  Python loop over device tensors (the JAX ``lax.scan``), with the same
-  active / done / budget / stop logic, then emits synchronously -- the JAX
-  engine's ``pipeline_depth=0`` behaviour. Host numpy mirrors are the
-  truth between dispatches and are uploaded at each dispatch.
+  (group-shared prefill, ``prefix_cache.py``). The prefill writes the
+  admitted slots' rows into the device state and queues its first tokens
+  like any dispatch output (fused async admission).
+- Device-resident state: the step's carry and inputs (page table, lengths,
+  last tokens, counts, budgets, active flags, sampling params, stop
+  table) live in tensors allocated once and updated in place, by the
+  decode dispatch and by admission. The host numpy mirrors stay the truth
+  for admission and catch up at emission; they are uploaded again only
+  after a host event (an abort, a recovery, a stop the device missed),
+  and only after a full drain.
+- Decode: each dispatch runs ``steps_per_dispatch`` fused steps (the JAX
+  ``lax.scan``) with the same active / done / budget / stop logic. On a
+  CUDA device the dispatch is one captured CUDA graph per
+  ``(use_filters, k, group shape)`` key (the JAX step's jit key), replayed
+  on the card; the first dispatch of a key runs eagerly on a side stream
+  (the warm-up) and is then captured. On the CPU the eager body runs.
+- Run-ahead: up to ``pipeline_depth`` dispatches (default 16) run ahead of
+  emission. Each dispatch's ``[k, S]`` outputs are copied without blocking
+  into a pinned host ring and an event is recorded; a fetcher thread waits
+  on the events and hands the arrays back to the loop thread, which emits
+  them. Every output carries the weight version of its dispatch.
+  ``pipeline_depth=0`` drains every dispatch: the synchronous engine.
 
 Where the JAX engine donates pools and state, this one updates the pools
-in place. Not ported yet (see ROADMAP.md): the fetcher thread and
-run-ahead pipeline, speculation, chunked prefill, salvage publishing, the
-KV ledger, spill tier, flight deck and loop profiler, and TP meshes.
+and the device state in place. Not ported yet (see ROADMAP.md):
+speculation, chunked prefill, salvage publishing, the KV ledger, spill
+tier, flight deck and loop profiler, a graph for prefill, and TP meshes.
 """
 
 from __future__ import annotations
@@ -40,6 +56,7 @@ import torch
 
 from polyrl_tpu_torch.device import resolve_device
 from polyrl_tpu_torch.models import decoder
+from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops.paged_attention import grouped_paged_attention
 from polyrl_tpu_torch.rollout.flightdeck import ThroughputEWMA
 from polyrl_tpu_torch.rollout.prefix_cache import PrefixCache
@@ -50,6 +67,11 @@ log = logging.getLogger(__name__)
 STREAM_END = object()  # terminal marker on every request's output queue
 
 MAX_STOP_TOKENS = 8
+
+# columns of a packed device-state row (``_state_rows``): _NI ints, then
+# the page-table row and the stop-table row; floats are (temperature, top_p)
+_SEQ, _LAST, _NGEN, _BUDGET, _ACTIVE, _TOPK = range(6)
+_NI = 6
 
 
 def next_bucket(n: int, buckets: tuple[int, ...]) -> int:
@@ -152,6 +174,7 @@ class CBEngine:
         seed: int = 0,
         enable_prefix_cache: bool = True,
         steps_per_dispatch: int = 8,
+        pipeline_depth: int = 16,
         admit_wave: int | None = None,
         admit_reorder_window: int = 8,
         group_share: bool = True,
@@ -189,6 +212,9 @@ class CBEngine:
         # per-slot admission generation: an emission recorded against an
         # older generation of a reused slot is dropped
         self._slot_gen = np.zeros((s,), np.int64)
+        # per-slot tokens covered by dispatches in flight (the tail cutoff:
+        # a dispatch past every active slot's budget computes pad rows only)
+        self._inflight_tok = np.zeros((s,), np.int64)
 
         self.allocator = PageAllocator(self.num_pages)
         self.prefix_cache = (PrefixCache(page_size, self.allocator.free)
@@ -198,6 +224,66 @@ class CBEngine:
             device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+
+        # device-resident control state, allocated once (a captured graph
+        # reads and advances these very tensors); stale until uploaded
+        dev = self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._dev = {
+            "page_table": torch.zeros((s, p), **i32),
+            "seq_lens": torch.zeros((s,), **i32),
+            "last_tokens": torch.zeros((s,), **i32),
+            "n_generated": torch.zeros((s,), **i32),
+            "budgets": torch.zeros((s,), **i32),
+            "active": torch.zeros((s,), dtype=torch.bool, device=dev),
+            "temps": torch.ones((s,), dtype=torch.float32, device=dev),
+            "top_ps": torch.ones((s,), dtype=torch.float32, device=dev),
+            "top_ks": torch.zeros((s,), **i32),
+            "stop_table": torch.full((s, MAX_STOP_TOKENS), -1, **i32),
+        }
+        self._dev_stale = True
+        self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        k = self.steps_per_dispatch
+        # the decode dispatch's [k, S] outputs: static, overwritten by the
+        # next dispatch (the D2H copy is queued right behind each one)
+        self._out = (torch.zeros((k, s), **i32),
+                     torch.zeros((k, s), dtype=torch.float32, device=dev),
+                     torch.zeros((k, s), dtype=torch.bool, device=dev))
+        # group-table buffers per group shape (ng, gmax, p_pre)
+        self._gbufs: dict[tuple, torch.Tensor] = {}
+        # CUDA graphs: key -> (graph, the launches its capture recorded)
+        self._use_graphs = dev.type == "cuda"
+        self._graphs: dict[tuple, tuple] = {}
+        self._graph_pool = None
+        self._side_stream = torch.cuda.Stream(dev) if self._use_graphs else None
+        self.graph_captures = 0
+        self.graph_capture_s = 0.0
+        self.graph_replays = 0
+        self.decode_host_s = 0.0
+
+        # run-ahead: how many dispatch outputs may await emission. Cost: up
+        # to this many dispatches of abort/admission latency. 0 = drain
+        # every dispatch (synchronous).
+        self.pipeline_depth = max(0, int(pipeline_depth))
+        # emission queue: _emit_q (dispatched, not fetched), the fetcher's
+        # in-flight count, _fetched_q (landed, not emitted), the fetch
+        # exception and epoch (bumped by _recover/stop: stale results are
+        # dropped) -- all guarded by _fetch_cv; emission stays on the loop
+        # thread
+        self._fetch_cv = threading.Condition()
+        self._emit_q: collections.deque = collections.deque()
+        self._fetched_q: collections.deque = collections.deque()
+        self._fetch_inflight = 0
+        self._fetch_exc: BaseException | None = None
+        self._fetch_epoch = 0
+        self._fetch_thread: threading.Thread | None = None
+        # pinned host ring for the decode outputs; a slot is reused only
+        # once its entry has been emitted or dropped
+        pin = self._use_graphs
+        self._ring = [tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                            for t in self._out)
+                      for _ in range(self.pipeline_depth + 1)]
+        self._ring_free = collections.deque(range(len(self._ring)))
 
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._pending: collections.deque = collections.deque()
@@ -209,7 +295,6 @@ class CBEngine:
         self._loop_thread: threading.Thread | None = None
         self._start_lock = threading.Lock()
 
-        self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         self.admit_wave = max(1, int(admit_wave if admit_wave is not None
                                      else self.ADMIT_WAVE))
         self.admit_reorder_window = max(0, int(admit_reorder_window))
@@ -228,6 +313,8 @@ class CBEngine:
         self._slot_decode_gid: dict[int, str] = {}
         self.grouped_decode_dispatches = 0
         self.decode_dispatches = 0
+        # recent admissions: (rid, wave kind, wave size, prompt bucket)
+        self.admissions: collections.deque = collections.deque(maxlen=4096)
 
         self.weight_version = 0
         self.num_running = 0
@@ -255,21 +342,31 @@ class CBEngine:
         with self._start_lock:
             if self._loop_thread is None:
                 self._stop.clear()
+                self._fetch_thread = threading.Thread(
+                    target=self._fetch_loop, name="cb-engine-fetch",
+                    daemon=True)
+                self._fetch_thread.start()
                 self._loop_thread = threading.Thread(
                     target=self._loop, name="cb-engine-loop", daemon=True)
                 self._loop_thread.start()
         return self
 
     def stop(self) -> None:
-        """Stop and join the loop thread; every in-flight and queued request
-        gets a terminal line (in-flight ones end in an ``abort`` partial,
-        as the JAX engine's salvage default does) and ``STREAM_END``."""
+        """Stop and join the loop and fetcher threads; every in-flight and
+        queued request gets a terminal line (in-flight ones end in an
+        ``abort`` partial, as the JAX engine's salvage default does) and
+        ``STREAM_END``."""
         self._stop.set()
-        if self._loop_thread is not None:
-            self._loop_thread.join(timeout=60.0)
-            if self._loop_thread.is_alive():
-                raise RuntimeError("engine loop thread did not stop")
-            self._loop_thread = None
+        for name in ("_loop_thread", "_fetch_thread"):
+            t = getattr(self, name)
+            if t is not None:
+                with self._fetch_cv:
+                    self._fetch_cv.notify_all()
+                t.join(timeout=60.0)
+                if t.is_alive():
+                    raise RuntimeError(f"engine thread {t.name} did not stop")
+                setattr(self, name, None)
+        self._drop_outputs()
         with self._pool_lock:
             self._fail_all("engine shutdown", finish_reason="abort")
             self._decode_groups.clear()
@@ -287,7 +384,10 @@ class CBEngine:
         """Copy ``params`` into the engine's tensors in place (same names,
         shapes; any device/dtype) and bump ``weight_version``. Runs between
         dispatches (under the dispatch lock) and flushes the prefix cache:
-        cached KV belongs to the old weights."""
+        cached KV belongs to the old weights. The copy is queued on the
+        caller's stream, the default one, as are the decode replays: it
+        runs after the dispatches already queued, whose tokens carry the
+        old version, and before the later ones."""
         new = dict(_leaves(params))
         cur = dict(_leaves(self.params))
         if new.keys() != cur.keys() or any(
@@ -323,6 +423,9 @@ class CBEngine:
     def _loop_iter(self) -> None:
         self._drain_queue()
         if not self._pending and not self._active.any():
+            if self._outstanding():  # the run-ahead tail: pad rows only
+                with self._pool_lock:
+                    self._drain_emit_q()
             self._idle.set()
             try:
                 self._pending.append(self._queue.get(timeout=0.05))
@@ -338,9 +441,11 @@ class CBEngine:
                 time.sleep(0.005)  # pending but blocked on pages/slots
 
     def _recover(self) -> None:
-        """After a failed iteration: error every running request and
-        release its pages. The pools are updated in place (nothing was
+        """After a failed iteration: drop every queued output (the epoch
+        bump orphans a fetch still under way), error every running request
+        and release its pages. The pools are updated in place (nothing was
         donated), so they stay valid for the next admissions."""
+        self._drop_outputs()
         with self._pool_lock:
             self._fail_all("engine error")
             self._decode_groups.clear()
@@ -348,6 +453,22 @@ class CBEngine:
             if self.prefix_cache is not None:
                 self._disband_group_prerefs()
                 self.prefix_cache.flush()
+
+    def _drop_outputs(self) -> None:
+        """Bump the fetch epoch and drop every queued dispatch output: what
+        a fetch still under way lands afterwards is dropped at emission.
+        The device state is uploaded again before its next use."""
+        with self._fetch_cv:
+            self._fetch_epoch += 1
+            for entry in self._emit_q:
+                self._release(entry)
+            for _ep, entry, _a in self._fetched_q:
+                self._release(entry)
+            self._emit_q.clear()
+            self._fetched_q.clear()
+            self._fetch_exc = None
+        self._inflight_tok[:] = 0
+        self._dev_stale = True
 
     def _drain_queue(self) -> None:
         while True:
@@ -478,7 +599,14 @@ class CBEngine:
         return wave, kind
 
     def _try_alloc(self, need: int, matched_entries: list):
+        """Page allocation with the drain and cache-evict fallbacks; releases
+        the caller's matched cache entries on failure."""
         pages = self.allocator.alloc(need)
+        while pages is None and self._outstanding():
+            # drain incrementally: finished slots return their pages, and
+            # often the oldest output already holds the finisher
+            self._drain_emit_q(keep=self._outstanding() - 1)
+            pages = self.allocator.alloc(need)
         if pages is None and self.prefix_cache is not None:
             if self.prefix_cache.evict(need - self.allocator.free_count):
                 pages = self.allocator.alloc(need)
@@ -486,16 +614,98 @@ class CBEngine:
                 self.prefix_cache.release(matched_entries)
         return pages
 
-    # -- prefill dispatches ------------------------------------------------------
+    # -- host <-> device -------------------------------------------------------
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """``a`` on the engine's device. On the card the copy starts from
+        pinned memory and does not block: a copy from pageable memory waits
+        for the stream, which would stall the host behind the run-ahead."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
-    def _prefill_dispatch(self, reqs: list[_Request], ids, lens, page_ids,
+    def _to_host(self, tensors) -> tuple:
+        """Queue the copy of fresh ``tensors`` to the host (pinned memory);
+        returns an output payload: (event or None, host tensors, no ring
+        slot), valid once the event has completed."""
+        if self.device.type != "cuda":
+            return None, tuple(tensors), None
+        host = tuple(t.to("cpu", non_blocking=True) for t in tensors)
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev, host, None
+
+    @staticmethod
+    def _pack_rows(head, page_rows, stop_rows) -> np.ndarray:
+        """Packed int32 device-state rows: the ``_NI`` head columns (seq
+        len, last token, generated, budget, active, top-k), then the
+        page-table row and the stop-table row."""
+        return np.concatenate([np.asarray(head), np.asarray(page_rows),
+                               np.asarray(stop_rows)], axis=1).astype(np.int32)
+
+    def _state_rows(self, slots) -> tuple[np.ndarray, np.ndarray]:
+        """Packed device-state rows of ``slots`` from the host mirrors:
+        int32 [n, _NI + P + MAX_STOP_TOKENS] and float32 [n, 2]."""
+        head = np.stack([self._seq_lens[slots], self._last_tokens[slots],
+                         self._n_generated[slots], self._budgets[slots],
+                         self._active[slots], self._top_ks[slots]], axis=1)
+        floats = np.stack([self._temps[slots], self._top_ps[slots]], axis=1)
+        return (self._pack_rows(head, self._page_table[slots],
+                                self._stop_table[slots]),
+                floats.astype(np.float32))
+
+    def _dev_put(self, slots: np.ndarray, ints: torch.Tensor,
+                 floats: torch.Tensor, last=None, active=None) -> None:
+        """Write packed rows into the device state in place, at ``slots``;
+        ``last``/``active`` (device tensors) take the place of those
+        columns."""
+        st, p = self._dev, self.pages_per_slot
+        idx = self._tensor(np.asarray(slots, np.int64))
+        cols = {"seq_lens": ints[:, _SEQ], "n_generated": ints[:, _NGEN],
+                "budgets": ints[:, _BUDGET], "top_ks": ints[:, _TOPK],
+                "last_tokens": ints[:, _LAST] if last is None else last,
+                "active": ints[:, _ACTIVE] > 0 if active is None else active,
+                "page_table": ints[:, _NI:_NI + p],
+                "stop_table": ints[:, _NI + p:],
+                "temps": floats[:, 0], "top_ps": floats[:, 1]}
+        for name, src in cols.items():
+            st[name].index_copy_(0, idx, src.to(st[name].dtype))
+
+    def _ensure_dev_state(self) -> None:
+        """Upload the host mirrors into the device state when a host event
+        made it stale. A full drain comes first: queued outputs still carry
+        device-side tokens the mirrors have not seen."""
+        if not self._dev_stale:
+            return
+        self._drain_emit_q()
+        slots = np.arange(self.max_slots)
+        ints, floats = self._state_rows(slots)
+        self._dev_put(slots, self._tensor(ints), self._tensor(floats))
+        self._dev_stale = False
+
+    # -- prefill dispatches ------------------------------------------------------
+
+    def _prefill_dispatch(self, wave: list, ids, lens, page_ids,
                           prefix_len: int = 0, prefix_ids=None):
         """One batched prefill (fresh, or suffix over cached prefix pages)
-        plus first-token sampling. Returns host (tokens, logprobs)."""
+        plus first-token sampling; ``wave`` is [(req, slot, budget, page
+        row)]. The admitted slots' rows go into the device state in place,
+        queued after the dispatches in flight, with the sampled first
+        tokens as their last tokens (a first token that is a stop token or
+        exhausts the budget leaves the slot inactive). Returns the queued
+        host copy of (tokens, logprobs, done)."""
+        self._ensure_dev_state()
         params, cfg, pools = self.params, self.cfg, self._pools
+        slots = np.array([w[1] for w in wave], np.int64)
+        sps = [w[0].sampling for w in wave]
+        ints = self._pack_rows(
+            [(len(req.input_ids), self.pad_token_id, 1, budget, 1,
+              req.sampling.top_k) for req, _s, budget, _r in wave],
+            [w[3] for w in wave], [self._stops_row(sp) for sp in sps])
+        iv = self._tensor(ints)
+        fv = self._tensor(np.array([(sp.temperature, sp.top_p) for sp in sps],
+                                   np.float32))
         if prefix_ids is None:
             _, last = decoder.prefill_batch_into_pages(
                 params, cfg, self._tensor(ids), self._tensor(lens), pools,
@@ -504,14 +714,14 @@ class CBEngine:
             _, last = decoder.prefill_suffix_batch_into_pages(
                 params, cfg, self._tensor(ids), self._tensor(lens), prefix_len,
                 pools, self._tensor(prefix_ids), self._tensor(page_ids))
-        sps = [r.sampling for r in reqs]
-        token, logp = sample_token_vec(
-            last, self._gen,
-            self._tensor(np.array([sp.temperature for sp in sps], np.float32)),
-            self._tensor(np.array([sp.top_p for sp in sps], np.float32)),
-            self._tensor(np.array([sp.top_k for sp in sps], np.int32)),
-            use_filters=any(sp.top_p < 1.0 or sp.top_k > 0 for sp in sps))
-        return token.cpu().numpy(), logp.cpu().numpy()
+        use_filters = any(sp.top_p < 1.0 or sp.top_k > 0 for sp in sps)
+        token, logp = sample_token_vec(last, self._gen, fv[:, 0], fv[:, 1],
+                                       iv[:, _TOPK], use_filters=use_filters)
+        stops = iv[:, _NI + self.pages_per_slot:]
+        done = ((token[:, None] == stops).any(dim=-1)
+                | (iv[:, _BUDGET] <= 1))
+        self._dev_put(slots, iv, fv, last=token, active=~done)
+        return self._to_host((token, logp, done))
 
     def _stops_row(self, sp: SamplingParams) -> np.ndarray:
         stops = np.full((MAX_STOP_TOKENS,), -1, np.int32)
@@ -526,8 +736,9 @@ class CBEngine:
 
     def _install_slot(self, slot: int, req: _Request, row: np.ndarray,
                       budget: int, private: list[int], entries: list) -> None:
-        """Host mirrors + slot record of a freshly prefilled request (its
-        first token is emitted right after by ``_emit_prefill``)."""
+        """Host mirrors + slot record of a freshly prefilled request. Its
+        first token stays on the device until the prefill's output is
+        emitted (``_emit_prefill``); ``last_tokens`` is a placeholder."""
         sp = req.sampling
         self._page_table[slot] = row
         self._seq_lens[slot] = len(req.input_ids)
@@ -543,6 +754,14 @@ class CBEngine:
                                       cache_entries=list(entries),
                                       admit_version=self.weight_version)
         self._slot_gen[slot] += 1
+
+    def _enqueue_prefill(self, out, wave: list, kind: str, pb: int) -> None:
+        """Queue an admission wave's first tokens for emission, tagged with
+        each slot's new generation and the dispatch's weight version."""
+        tail = [(slot, int(self._slot_gen[slot])) for _req, slot, *_ in wave]
+        for req, *_ in wave:
+            self.admissions.append((req.rid, kind, len(wave), pb))
+        self._enqueue_output(("prefill", out, tail, self.weight_version))
 
     def _publish(self, req: _Request, all_pages: list[int], pages: list[int],
                  n_cached: int, matched_entries: list) -> tuple[list, list]:
@@ -574,20 +793,21 @@ class CBEngine:
         page_ids[0, :n_sfx] = pages[:n_sfx]
         ids = np.full((1, pb), self.pad_token_id, np.int32)
         ids[0, :suffix_len] = req.input_ids[prefix_len:]
-        tok, lp = self._prefill_dispatch(
-            [req], ids, np.array([suffix_len], np.int32), page_ids,
-            prefix_len=prefix_len,
+        row = self._page_row(all_pages)
+        out = self._prefill_dispatch(
+            [(req, slot, budget, row)], ids,
+            np.array([suffix_len], np.int32), page_ids, prefix_len=prefix_len,
             prefix_ids=(np.asarray([matched_pages], np.int32)
                         if matched_pages else None))
         private, entries = self._publish(req, all_pages, pages,
                                          len(matched_pages), matched_entries)
         self._consume_group_preref(req)
         self._register_group_prerefs(req, entries)
-        row = self._page_row(all_pages)
         self._register_decode_group(
             req, slot, max(0, (n_prompt - 1) // self.page_size), row)
         self._install_slot(slot, req, row, budget, private, entries)
-        self._emit_prefill(slot, int(tok[0]), float(lp[0]))
+        self._enqueue_prefill(out, [(req, slot)],
+                              "suffix" if matched_pages else "fresh", pb)
 
     def _prefill_wave(self, wave: list) -> None:
         """Batched fresh admission: ONE forward prefills every prompt."""
@@ -597,26 +817,26 @@ class CBEngine:
         ids = np.full((b, pb), self.pad_token_id, np.int32)
         lens = np.zeros((b,), np.int32)
         page_ids = np.zeros((b, pb // self.page_size), np.int32)
-        for j, (req, _slot, pages, *_rest) in enumerate(wave):
+        rows = []
+        for j, (req, slot, pages, budget, *_rest) in enumerate(wave):
             n_prompt = len(req.input_ids)
             n_pp = -(-n_prompt // self.page_size)
             ids[j, :n_prompt] = req.input_ids
             lens[j] = n_prompt
             page_ids[j, :n_pp] = pages[:n_pp]
-        tok, lp = self._prefill_dispatch([w[0] for w in wave], ids, lens,
-                                         page_ids)
-        for j, (req, slot, pages, budget, _mp, _me) in enumerate(wave):
+            rows.append((req, slot, budget, self._page_row(pages)))
+        out = self._prefill_dispatch(rows, ids, lens, page_ids)
+        for (req, slot, pages, budget, _mp, _me), (*_, row) in zip(wave, rows):
             private, entries = self._publish(req, pages, pages, 0, [])
             self._consume_group_preref(req)
             self._register_group_prerefs(req, entries)
-            row = self._page_row(pages)
             # leader seat: its first full prompt pages ARE the chain the
             # siblings will attach to (publish keeps the ids)
             self._register_decode_group(
                 req, slot, max(0, (len(req.input_ids) - 1) // self.page_size),
                 row)
             self._install_slot(slot, req, row, budget, private, entries)
-            self._emit_prefill(slot, int(tok[j]), float(lp[j]))
+        self._enqueue_prefill(out, [(w[0], w[1]) for w in wave], "fresh", pb)
 
     def _prefill_attach_wave(self, wave: list) -> None:
         """Batched sibling attach: every member is a FULL prefix hit with
@@ -632,25 +852,26 @@ class CBEngine:
         lens = np.zeros((b,), np.int32)
         page_ids = np.zeros((b, pb // self.page_size), np.int32)
         prefix_ids = np.zeros((b, attach_pages), np.int32)
-        for j, (req, _slot, pages, _b, mp, _me) in enumerate(wave):
+        rows = []
+        for j, (req, slot, pages, budget, mp, _me) in enumerate(wave):
             sfx = len(req.input_ids) - prefix_len
             ids[j, :sfx] = req.input_ids[prefix_len:]
             lens[j] = sfx
             n_sfx = -(-sfx // self.page_size)
             page_ids[j, :n_sfx] = pages[:n_sfx]
             prefix_ids[j] = mp
-        tok, lp = self._prefill_dispatch([w[0] for w in wave], ids, lens,
-                                         page_ids, prefix_len=prefix_len,
-                                         prefix_ids=prefix_ids)
-        for j, (req, slot, pages, budget, mp, me) in enumerate(wave):
+            rows.append((req, slot, budget, self._page_row(mp + pages)))
+        out = self._prefill_dispatch(rows, ids, lens, page_ids,
+                                     prefix_len=prefix_len,
+                                     prefix_ids=prefix_ids)
+        for (req, slot, pages, budget, _mp, me), (*_, row) in zip(wave, rows):
             self._consume_group_preref(req)
-            row = self._page_row(mp + pages)
             # sibling seat: the matched pages are the leader's chain
             self._register_decode_group(req, slot, attach_pages, row)
             self._install_slot(slot, req, row, budget, pages, me)
-            self._emit_prefill(slot, int(tok[j]), float(lp[j]))
         self.sibling_attach_dispatches += 1
         self.group_forked_requests += len(wave)
+        self._enqueue_prefill(out, [(w[0], w[1]) for w in wave], "attach", pb)
 
     # -- group-shared prefill pre-refs ---------------------------------------
 
@@ -762,10 +983,27 @@ class CBEngine:
     # -- decode --------------------------------------------------------------
 
     def _step_once(self) -> None:
+        # host-side aborts flip slots inactive before the next dispatch
         if any(info is not None and self._active[i]
                and info.req.abort is not None and info.req.abort.is_set()
                for i, info in enumerate(self._slots)):
-            self._abort_flagged()
+            self._abort_fast()
+        if not self._active.any():
+            self._drain_emit_q()
+            return
+        # tail cutoff: when every active slot's remaining budget is covered
+        # by dispatches already in flight for it, another dispatch could
+        # only compute pad rows -- wait for an output to land instead.
+        # Exact for budget-bound streams; a stop-token finish may still run
+        # ahead (the device's early out is not visible to the host yet).
+        rem = int(np.max((self._budgets - self._n_generated
+                          - self._inflight_tok)[self._active]))
+        if rem <= 0:
+            out = self._outstanding()
+            if out:
+                self._drain_emit_q(keep=out - 1)
+            return
+        self._ensure_dev_state()  # may drain, which may finish slots
         if not self._active.any():
             return
         use_filters = bool(np.any((self._top_ps[self._active] < 1.0)
@@ -773,41 +1011,141 @@ class CBEngine:
         tables = self._decode_group_pack()
         idxs = [(int(i), int(self._slot_gen[i]))
                 for i in np.flatnonzero(self._active)]
-        token, logp, done = self._decode_dispatch(use_filters, tables)
+        t0 = time.monotonic()
+        self._launch_decode(use_filters, tables)
+        out = self._ring_copy()
+        self.decode_host_s += time.monotonic() - t0
         self.decode_dispatches += 1
         if tables is not None:
             self.grouped_decode_dispatches += 1
-        self._emit_fetched(token, logp, done, idxs)
+        k = self.steps_per_dispatch
+        self._inflight_tok[self._active] += k
+        self._enqueue_output(("step", out, idxs, k, self.weight_version))
+        # run ahead up to pipeline_depth dispatches: older outputs land on
+        # the fetcher while the device computes the newer ones
+        self._drain_emit_q(keep=self.pipeline_depth)
 
-    def _decode_dispatch(self, use_filters: bool, tables):
+    def _group_tables(self, tables):
+        """The group tables in the static device buffers of their shape
+        (a captured graph reads these very tensors): (slots, prefix pages,
+        prefix lengths), or None."""
+        if tables is None:
+            return None
+        g_slots, g_pages, g_lens = tables
+        (ng, gmax), p_pre = g_slots.shape, g_pages.shape[1]
+        buf = self._gbufs.get((ng, gmax, p_pre))
+        if buf is None:
+            buf = torch.zeros((ng * (gmax + p_pre + 1),), dtype=torch.int32,
+                              device=self.device)
+            self._gbufs[(ng, gmax, p_pre)] = buf
+        buf.copy_(self._tensor(np.concatenate(
+            [g_slots.ravel(), g_pages.ravel(), g_lens])))
+        a, b = ng * gmax, ng * (gmax + p_pre)
+        return (buf[:a].view(ng, gmax), buf[a:b].view(ng, p_pre), buf[b:])
+
+    def _launch_decode(self, use_filters: bool, tables) -> None:
+        """Queue one k-step decode dispatch on the current stream. On the
+        card: the replay of its key's CUDA graph, or, for a key not seen
+        yet, the eager body on the side stream (the warm-up: it is this
+        dispatch) and then the capture of the key's graph. On the CPU the
+        eager body."""
+        gt = self._group_tables(tables)
+        if not self._use_graphs:
+            self._decode_body(use_filters, gt)
+            return
+        key = self._graph_key(use_filters, tables)
+        entry = self._graphs.get(key)
+        if entry is not None:
+            graph, launches = entry
+            graph.replay()
+            cuda_build.credit_launches(launches)
+            self.graph_replays += 1
+            return
+        body = lambda: self._decode_body(use_filters, gt)  # noqa: E731
+        self._warm_up(body)
+        t0 = time.monotonic()
+        with cuda_build.recording_launches() as launches:
+            graph = self._capture(body)
+        self._graphs[key] = (graph, launches)
+        self.graph_captures += 1
+        self.graph_capture_s += time.monotonic() - t0
+        log.info("captured decode graph %s in %.2f s (%s)", key,
+                 time.monotonic() - t0, launches)
+
+    def _graph_key(self, use_filters: bool, tables) -> tuple:
+        """A dispatch's graph key, the JAX step's jit key: (use_filters, k,
+        group shape (ng, gmax, p_pre) or None)."""
+        gshape = None if tables is None else (
+            tables[0].shape[0], tables[0].shape[1], tables[1].shape[1])
+        return (use_filters, self.steps_per_dispatch, gshape)
+
+    def _warm_up(self, body) -> None:
+        """Run ``body`` eagerly on the side stream that captures, ordered
+        after and before the current stream's work: the first dispatch of
+        a key, which also sets up what a capture may not (cuBLAS's
+        workspace for that stream, lazily uploaded constants)."""
+        if self.device.type != "cuda":
+            body()
+            return
+        cur = torch.cuda.current_stream(self.device)
+        self._side_stream.wait_stream(cur)
+        with torch.cuda.stream(self._side_stream):
+            body()
+        cur.wait_stream(self._side_stream)
+
+    def _capture(self, body) -> "torch.cuda.CUDAGraph":
+        """Capture ``body`` into a CUDA graph on the side stream, with the
+        sampling generator's state registered, so that every replay draws
+        fresh uniforms from it and advances it. Capture runs on this
+        thread only (``thread_local``): another thread's CUDA calls, the
+        pipelined trainer's, go on; but a capture also registers the
+        default CUDA generator, so another thread must not draw from that
+        one meanwhile (the port never does). All graphs share one memory
+        pool."""
+        graph = torch.cuda.CUDAGraph()
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                "CUDAGraph.register_generator_state is missing in this "
+                "PyTorch: a replay would repeat the captured draws of the "
+                "engine's sampling generator")
+        graph.register_generator_state(self._gen)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              stream=self._side_stream,
+                              capture_error_mode="thread_local"):
+            body()
+        return graph
+
+    @torch.no_grad()
+    def _decode_body(self, use_filters: bool, gt) -> None:
         """``steps_per_dispatch`` fused decode steps with the state advanced
-        on the device (the JAX ``_get_step`` scan body). Slots that finish
-        mid-dispatch go inactive: their later rows carry pad tokens and
-        their KV writes go to the null page. Returns host [k, S] arrays."""
-        t = self._tensor
-        params, cfg, pad = self.params, self.cfg, self.pad_token_id
-        page_table = t(self._page_table)
-        seq_lens = t(self._seq_lens)
-        last = t(self._last_tokens)
-        n_gen = t(self._n_generated)
-        budgets = t(self._budgets)
-        active = t(self._active)
-        temps, top_ps, top_ks = t(self._temps), t(self._top_ps), t(self._top_ks)
-        stop_table = t(self._stop_table)
+        on the device, in place (the JAX ``_get_step`` scan body). Slots
+        that finish mid-dispatch go inactive: their later rows carry pad
+        tokens and their KV writes go to the null page. Writes the [k, S]
+        outputs into ``self._out``. Reads nothing on the host, so that it
+        can be captured."""
+        st, pad = self._dev, self.pad_token_id
+        params, cfg = self.params, self.cfg
         attn = None  # forward_paged_decode's default: paged_attention
-        if tables is not None:
-            g_slots, g_pages, g_lens = (t(a) for a in tables)
+        if gt is not None:
+            g_slots, g_pages, g_lens = gt
 
             def attn(q, kp, vp, pt, lens):
                 return grouped_paged_attention(q, kp, vp, pt, lens, g_slots,
                                                g_pages, g_lens)
-        toks, lps, dones = [], [], []
-        for _ in range(self.steps_per_dispatch):
+        page_table, stop_table, budgets = (st["page_table"], st["stop_table"],
+                                           st["budgets"])
+        seq_lens, last = st["seq_lens"], st["last_tokens"]
+        n_gen, active = st["n_generated"], st["active"]
+        out_tok, out_lp, out_done = self._out
+        for i in range(self.steps_per_dispatch):
             logits, _ = decoder.forward_paged_decode(
                 params, cfg, last, seq_lens, self._pools, page_table, seq_lens,
                 attn_fn=attn, active=active)
-            token, logp = sample_token_vec(logits, self._gen, temps, top_ps,
-                                           top_ks, use_filters=use_filters)
+            token, logp = sample_token_vec(logits, self._gen, st["temps"],
+                                           st["top_ps"], st["top_ks"],
+                                           use_filters=use_filters)
             n_gen = n_gen + active.int()
             hit_stop = (token[:, None] == stop_table).any(dim=-1)
             done = active & (hit_stop | (n_gen >= budgets))
@@ -816,38 +1154,223 @@ class CBEngine:
             seq_lens = seq_lens + active.int()
             last = torch.where(active, token, last)
             active = active & ~done
-            toks.append(token)
-            lps.append(logp)
-            dones.append(done)
-        return (torch.stack(toks).cpu().numpy(), torch.stack(lps).cpu().numpy(),
-                torch.stack(dones).cpu().numpy())
+            out_tok[i].copy_(token)
+            out_lp[i].copy_(logp)
+            out_done[i].copy_(done)
+        for name, val in (("seq_lens", seq_lens), ("last_tokens", last),
+                          ("n_generated", n_gen), ("active", active)):
+            st[name].copy_(val)
 
-    def _abort_flagged(self) -> None:
+    def _ring_copy(self):
+        """Queue the copy of the dispatch's outputs into a free slot of the
+        pinned host ring; returns (event or None, host arrays, ring slot)."""
+        while True:
+            with self._fetch_cv:
+                j = self._ring_free.popleft() if self._ring_free else None
+            if j is not None:
+                break
+            # every ring slot awaits emission (a run-ahead window wider
+            # than the ring): emit the oldest output
+            self._drain_emit_q(keep=self._outstanding() - 1)
+        host = self._ring[j]
+        for h, d in zip(host, self._out):
+            h.copy_(d, non_blocking=True)
+        ev = None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+        return ev, host, j
+
+    def _abort_fast(self) -> None:
         """Abort every active slot whose request's abort event is set: the
-        terminal ``abort`` line, then the slot's pages go back."""
+        terminal ``abort`` line first and the slot generation bumped, so
+        queued outputs for it are dropped at emission; then a full barrier
+        before the pages go back (dispatches in flight still write KV
+        through the old device page table), and the device state is
+        uploaded again before its next use."""
+        aborted: list[int] = []
         for i, info in enumerate(self._slots):
             if info is None or not self._active[i]:
                 continue
             if info.req.abort is not None and info.req.abort.is_set():
                 self._active[i] = False
                 self._slot_gen[i] += 1
-                try:
+                self._emit_abort(info.req)
+                aborted.append(i)
+        if aborted:
+            # finally: a raising drain goes to _recover, whose sweep only
+            # sees mirror-active slots -- these must still be finalized
+            try:
+                self._drain_emit_q()
+            finally:
+                for i in aborted:
                     self._finalize(i)
-                finally:
-                    self._emit_abort(info.req)
+                self._dev_stale = True
         self.num_running = int(self._active.sum())
+
+    # -- the emission queue and the fetcher thread -----------------------------
+
+    def _enqueue_output(self, entry) -> None:
+        """Queue a dispatch's output for the fetcher (wakes it). An entry is
+        (kind, (event, host tensors, ring slot), tail, ..., weight
+        version)."""
+        with self._fetch_cv:
+            self._emit_q.append(entry)
+            self._fetch_cv.notify_all()
+
+    def _outstanding(self) -> int:
+        """Dispatch outputs not yet emitted (queued, being fetched, landed)."""
+        with self._fetch_cv:
+            return (len(self._emit_q) + self._fetch_inflight
+                    + len(self._fetched_q))
+
+    def _release(self, entry) -> None:
+        """An output left the queue (emitted or dropped): its ring slot may
+        be reused. Called under ``_fetch_cv``."""
+        j = entry[1][2]
+        if j is not None:
+            self._ring_free.append(j)
+
+    @staticmethod
+    def _land(entry) -> tuple:
+        """Wait for an output's copy to reach the host: its arrays."""
+        ev, host, _j = entry[1]
+        if ev is not None:
+            ev.synchronize()
+        return tuple(h.numpy() for h in host)
+
+    def _fetch_loop(self) -> None:
+        """Fetcher thread: waits for each queued output's copy, oldest
+        first (an event wait, which releases the interpreter lock), and
+        hands the host arrays back to the loop thread, which emits them."""
+        cv = self._fetch_cv
+        while not self._stop.is_set():
+            with cv:
+                if not self._emit_q:
+                    cv.wait(timeout=0.05)
+                    continue
+                entry = self._emit_q.popleft()
+                self._fetch_inflight = 1
+                epoch = self._fetch_epoch
+            handed_off = False
+            try:
+                try:
+                    arrs = self._land(entry)
+                except Exception as exc:  # noqa: BLE001 — surface on the
+                    # loop thread (next drain), where _recover resets
+                    with cv:
+                        self._fetch_inflight = 0
+                        self._release(entry)
+                        if epoch == self._fetch_epoch:
+                            self._fetch_exc = exc
+                        cv.notify_all()
+                    handed_off = True
+                    continue
+                with cv:
+                    self._fetched_q.append((epoch, entry, arrs))
+                    self._fetch_inflight = 0
+                    cv.notify_all()
+                handed_off = True
+            finally:
+                if not handed_off:
+                    # a BaseException is ending this thread mid-fetch:
+                    # requeue the entry in front so the loop thread's
+                    # dead-fetcher path lands it (FIFO kept)
+                    with cv:
+                        self._emit_q.appendleft(entry)
+                        self._fetch_inflight = 0
+                        cv.notify_all()
+
+    def _drain_emit_q(self, keep: int = 0) -> None:
+        """Emit every output the fetcher has landed, bringing the host
+        mirrors up to date; block until at most ``keep`` outputs remain
+        unemitted. ``keep=0`` is the full barrier a state upload needs;
+        ``keep=pipeline_depth`` the steady-state call that only throttles
+        the loop when the device runs too far ahead."""
+        if self._fetch_thread is None:
+            # engine not started (tests drive internals directly): land
+            # the oldest beyond ``keep`` on this thread
+            self._fetch_sync(keep)
+        cv = self._fetch_cv
+        while True:
+            with cv:
+                ready = list(self._fetched_q)
+                self._fetched_q.clear()
+                exc, self._fetch_exc = self._fetch_exc, None
+                epoch = self._fetch_epoch
+                for _ep, entry, _a in ready:
+                    self._release(entry)
+            for ep, entry, arrs in ready:
+                if ep == epoch:
+                    self._emit_entry(entry, arrs)
+            if exc is not None:
+                raise exc
+            with cv:
+                if (len(self._emit_q) + self._fetch_inflight
+                        + len(self._fetched_q) <= keep):
+                    return
+            fetcher_dead = (self._fetch_thread is not None
+                            and not self._fetch_thread.is_alive())
+            if self._stop.is_set() or fetcher_dead:
+                # the fetcher exits on stop() with entries queued, or died:
+                # land them here. FIFO: wait out a fetch under way first.
+                with cv:
+                    if self._fetch_inflight:
+                        cv.wait(timeout=0.2)
+                        continue
+                self._fetch_sync(keep)
+                continue
+            with cv:
+                if not self._fetched_q and (self._emit_q
+                                            or self._fetch_inflight):
+                    cv.wait(timeout=0.2)
+
+    def _fetch_sync(self, keep: int = 0) -> None:
+        """Land the queued outputs beyond ``keep`` (oldest first) on this
+        thread."""
+        with self._fetch_cv:
+            n = len(self._emit_q) - keep
+            batch = [self._emit_q.popleft() for _ in range(max(0, n))]
+            epoch = self._fetch_epoch
+        landed = [(epoch, e, self._land(e)) for e in batch]
+        with self._fetch_cv:
+            self._fetched_q.extend(landed)
+
+    def _emit_entry(self, entry, arrs) -> None:
+        kind, _payload, tail = entry[:3]
+        # the version of the weights that sampled these tokens: the one at
+        # dispatch, not the one live when the output lands
+        wv = entry[-1]
+        if kind == "step":
+            for slot, gen in tail:
+                # a finalized and reused slot zeroed its count: stale
+                # decrements for the old request must not starve the new
+                if self._slot_gen[slot] == gen:
+                    self._inflight_tok[slot] = max(
+                        0, self._inflight_tok[slot] - entry[3])
+            self._emit_fetched(*arrs, tail, wv)
+        else:
+            token, logp, done = arrs
+            for j, slot_gen in enumerate(tail):
+                self._emit_prefill(int(token[j]), float(logp[j]),
+                                   bool(done[j]), slot_gen, wv)
 
     # -- emission ------------------------------------------------------------
 
-    def _emit_prefill(self, slot: int, t: int, lp: float) -> None:
-        """Deliver an admitted request's first token."""
+    def _emit_prefill(self, t: int, lp: float, device_done: bool,
+                      tail: tuple[int, int], wv: int) -> None:
+        """Deliver an admitted request's first token (its prefill's output,
+        emitted from the queue)."""
+        slot, gen = tail
         info = self._slots[slot]
+        if info is None or self._slot_gen[slot] != gen:
+            return
         stop_hit = t in info.stop_set
-        fin = bool(stop_hit or self._budgets[slot] <= 1)
+        fin = device_done or stop_hit
         reason = "stop" if stop_hit else ("length" if fin else "")
         info.req.out.put({"token_ids": [t], "logprobs": [lp],
                           "finished": fin, "finish_reason": reason,
-                          "weight_version": self.weight_version})
+                          "weight_version": wv})
         self._last_tokens[slot] = t
         info.emitted.append(t)
         self._count_tokens(1)
@@ -857,14 +1380,20 @@ class CBEngine:
                 self._finalize(slot)
             finally:
                 info.req.out.put(STREAM_END)
+            if not device_done:
+                # a stop token beyond the device table: its active flag is
+                # stale
+                self._dev_stale = True
         self.num_running = int(self._active.sum())
 
-    def _emit_fetched(self, token, logp, done, idxs) -> None:
-        """Stream one dispatch's [k, S] rows to the requests. Slots that
-        finished in an earlier row (the pad tail) and reused slots
-        (generation mismatch) are skipped."""
+    def _emit_fetched(self, token, logp, done, idxs, wv: int) -> None:
+        """Stream one dispatch's [k, S] rows to the requests; ``idxs`` is
+        the (slot, generation) pairs active at dispatch. Slots that
+        finished in an earlier row (the pad tail) or earlier output, and
+        reused slots (generation mismatch), are skipped."""
         n_emitted = 0
         finished: list[int] = []
+        host_stop_fix = False
         for r in range(token.shape[0]):
             for i, gen in idxs:
                 info = self._slots[i]
@@ -880,7 +1409,7 @@ class CBEngine:
                 info.req.out.put({"token_ids": [t],
                                   "logprobs": [float(logp[r, i])],
                                   "finished": fin, "finish_reason": reason,
-                                  "weight_version": self.weight_version})
+                                  "weight_version": wv})
                 n_emitted += 1
                 self._seq_lens[i] += 1
                 self._last_tokens[i] = t
@@ -889,6 +1418,13 @@ class CBEngine:
                 if fin:
                     self._active[i] = False
                     finished.append(i)
+                    # the device missed this stop (beyond its table): its
+                    # active flag is stale. A dispatch in flight writes one
+                    # more token into the freed pages, which is safe: a
+                    # later prefill reusing them is queued after it.
+                    host_stop_fix |= not bool(done[r, i])
+        if host_stop_fix:
+            self._dev_stale = True
         self._count_tokens(n_emitted)
         for i in finished:
             info = self._slots[i]
@@ -911,6 +1447,7 @@ class CBEngine:
         self._last_tokens[slot] = self.pad_token_id
         self._n_generated[slot] = 0
         self._budgets[slot] = 0
+        self._inflight_tok[slot] = 0
 
     def _emit_abort(self, req: _Request) -> None:
         req.out.put({"token_ids": [], "logprobs": [], "finished": True,

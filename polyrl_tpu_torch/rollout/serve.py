@@ -26,6 +26,7 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                   max_slots: int = 64, page_size: int = 64,
                   max_seq_len: int = 16384, num_pages: int | None = None,
                   steps_per_dispatch: int = 8,
+                  pipeline_depth: int = 16,
                   admit_wave: int | None = None,
                   admit_reorder_window: int = 8,
                   group_share: bool = True,
@@ -49,6 +50,7 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
         cfg, params, pad_token_id=0, kv_cache_dtype=torch_dtype,
         max_slots=max_slots, page_size=page_size, max_seq_len=max_seq_len,
         num_pages=num_pages, steps_per_dispatch=steps_per_dispatch,
+        pipeline_depth=pipeline_depth,
         prompt_buckets=tuple(prompt_buckets) if prompt_buckets
         else (128, 256, 512, 1024, 2048, 4096), seed=seed,
         admit_wave=admit_wave, admit_reorder_window=admit_reorder_window,
@@ -77,6 +79,10 @@ def main() -> None:
                    help="KV pool pages (default: half the slots at full length)")
     p.add_argument("--steps-per-dispatch", type=int, default=8,
                    help="fused decode steps per dispatch")
+    p.add_argument("--pipeline-depth", type=int, default=16,
+                   help="decode dispatches the engine may run ahead of "
+                        "emission (0 = drain every dispatch); lower it for "
+                        "tighter abort latency")
     p.add_argument("--prompt-buckets", type=int, nargs="+", default=None,
                    help="prompt-length padding buckets (default "
                         "128 256 512 1024 2048 4096)")
@@ -100,7 +106,7 @@ def main() -> None:
         prompt_buckets=args.prompt_buckets, max_slots=args.max_slots,
         page_size=args.page_size, max_seq_len=args.max_seq_len,
         num_pages=args.num_pages, steps_per_dispatch=args.steps_per_dispatch,
-        admit_wave=args.admit_wave,
+        pipeline_depth=args.pipeline_depth, admit_wave=args.admit_wave,
         admit_reorder_window=args.admit_reorder_window,
         group_share=not args.no_group_share,
         decode_group_share=not args.no_decode_group_share,

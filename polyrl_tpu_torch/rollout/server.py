@@ -199,6 +199,11 @@ class RolloutServer:
             "group_forked_requests": eng.group_forked_requests,
             "decode_dispatches": eng.decode_dispatches,
             "grouped_decode_dispatches": eng.grouped_decode_dispatches,
+            "pipeline_depth": eng.pipeline_depth,
+            "graph_captures": eng.graph_captures,
+            "graph_capture_s": eng.graph_capture_s,
+            "graph_replays": eng.graph_replays,
+            "decode_host_s": eng.decode_host_s,
             "total_tokens_served": eng.total_tokens_served,
         }
         if eng.prefix_cache is not None:

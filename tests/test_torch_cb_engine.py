@@ -150,11 +150,15 @@ def test_update_weights_mid_run_and_after(tree):
     """A swap mid-request bumps the version seen on later tokens and the
     request completes; after the swap the engine decodes exactly like a
     fresh engine built on the new weights (the prefix cache was flushed:
-    no KV of the old weights is reused)."""
+    no KV of the old weights is reused). Tokens carry the version of the
+    dispatch that sampled them, so the engine runs synchronously here
+    (``pipeline_depth=0``): run ahead, it may have queued every dispatch
+    of the request before the swap (``test_torch_cb_pipeline.py`` covers
+    the deep pipeline)."""
     new_tree = _tree(1)
     prompt = _prompts(1, (19,), seed=5)[0]
     sp = SamplingParams(temperature=0.0, max_new_tokens=40)
-    eng = _torch_engine(tree, steps_per_dispatch=2)
+    eng = _torch_engine(tree, steps_per_dispatch=2, pipeline_depth=0)
     q = eng.submit("long", prompt, sp)
     eng.start()
     first = q.get(timeout=60)

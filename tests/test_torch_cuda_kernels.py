@@ -17,7 +17,7 @@ import torch
 from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops import paged_attention as tpa
 from polyrl_tpu_torch.ops.norm_rope import rms_norm
-from chip_smoke import rope_operand_bound
+from chip_smoke import graph_against_eager, rope_operand_bound, states_equal
 
 PAGE = 8
 
@@ -601,3 +601,82 @@ def test_cuda_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     x = flat[1:].view(1, 16, 2, 64)
     with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off
         flash.flash_attention_train(x, x, x, mask)
+
+
+def _small_engine(device, seed=0, **kw):
+    """A 2-layer bf16 qwen3-shaped model (head_dim 64, qk-norm, tied
+    embeddings) behind a CBEngine on the card, not started."""
+    from polyrl_tpu_torch.models import decoder
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+
+    cfg = decoder.ModelConfig(
+        vocab_size=1024, hidden_size=256, intermediate_size=512, num_layers=2,
+        num_heads=4, num_kv_heads=2, head_dim=64, rope_theta=10000.0,
+        use_qk_norm=True, tie_word_embeddings=True, rms_norm_eps=1e-6,
+        max_position_embeddings=4096, dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(11)
+    params = decoder.init_params(gen, cfg)
+    geom = dict(max_slots=16, page_size=16, max_seq_len=256,
+                prompt_buckets=(32, 64), num_pages=64, steps_per_dispatch=4,
+                seed=seed, device=device)
+    return CBEngine(cfg, params, **{**geom, **kw}), cfg
+
+
+@pytest.mark.cuda
+def test_cuda_engine_dispatch_graph_replay_equals_eager(cuda_device):
+    """The engine's captured k-step dispatch, replayed, gives the eager
+    body's greedy tokens, logprobs, done flags, device state and pools
+    bitwise, for an ungrouped key (K2) and a grouped one (K3); each replay
+    credits the launches its capture recorded."""
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    eng, cfg = _small_engine(cuda_device)
+    rng = np.random.default_rng(8)
+    sp = SamplingParams(temperature=0.0, max_new_tokens=40)
+    prompt = rng.integers(1, cfg.vocab_size, 40).tolist()  # 2 shared pages
+    for i in range(4):
+        eng.submit(f"g{i}", prompt, sp, group_id="g", group_size=4)
+    for i, n in enumerate((9, 27)):
+        eng.submit(f"s{i}", rng.integers(1, cfg.vocab_size, n).tolist(), sp)
+    eng._drain_queue()
+    with eng._pool_lock:
+        eng._admit()
+        eng._step_once()
+        eng._drain_emit_q()
+    tables = eng._decode_group_pack()
+    assert tables is not None and int(eng._active.sum()) == 6
+    for tb in (None, tables):
+        run = graph_against_eager(eng, False, tb)
+        for a, b in zip(run["graph"], run["eager"]):
+            assert torch.equal(a, b)
+        assert states_equal(run["graph_state"], run["eager_state"])
+        assert (run["graph"][0][:, :6] != eng.pad_token_id).any()
+    cuda_build.reset_launch_counts()
+    eng._launch_decode(False, tables)
+    torch.cuda.synchronize()
+    per = eng.steps_per_dispatch * cfg.num_layers
+    assert cuda_build.LAUNCHES["paged_kv_write_fused"] == per
+    assert cuda_build.LAUNCHES["grouped_paged_attention"] == per
+    assert cuda_build.LAUNCHES["paged_attention"] == 0
+    assert eng.graph_captures == len(eng._graphs) == 2
+
+
+@pytest.mark.cuda
+def test_cuda_engines_with_one_seed_sample_alike(cuda_device):
+    """Graph replays advance the engine's own generator: two engines with
+    the same seed give the same sampled tokens, another seed others, and
+    every stream runs to its budget."""
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, 1024, n).tolist() for n in (5, 18, 33, 12)]
+    sp = SamplingParams(temperature=1.0, top_k=20, top_p=0.9,
+                        max_new_tokens=21)
+    res = []
+    for seed in (7, 7, 8):
+        eng, _cfg = _small_engine(cuda_device, seed=seed)
+        res.append([r["token_ids"] for r in eng.generate(prompts, sp)])
+        eng.stop()
+        assert eng.graph_replays > 0
+    assert all(len(t) == 21 for t in res[0])
+    assert res[0] == res[1] and res[0] != res[2]
