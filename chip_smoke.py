@@ -49,13 +49,14 @@ when CUDA is unavailable or any phase fails. Phases:
               and depth with random weights from a seed; over HTTP, the
               main path: two GRPO groups of 8 samples (temperature 1.0,
               64 new tokens) sharing a ~200-token prompt plus two
-              ungrouped greedy requests of 128 new tokens, which outlive
-              the groups (decode with a live group goes through K3, the
-              greedy tail through K2). Launch counts are zeroed just
-              before the main path and read just after it: every kernel
-              must have launched. Then one greedy request sent twice
-              alone (same tokens; its launches are reported apart), and
-              its logprobs against the port's dense ``forward`` on the
+              ungrouped greedy requests of 128 new tokens (decode with a
+              live group goes through K3, ungrouped decode through K2),
+              then one greedy request sent twice alone (same tokens).
+              Launch counts are zeroed just before the main path and read
+              just after it: every kernel must have launched (the mix's
+              own are reported apart: whether its greedy tail outlives
+              the groups depends on admission). The greedy request's
+              logprobs are held against the port's dense ``forward`` on the
               card; sent again with the engine's decode attention missing
               each slot's last page, it must fail that check. The main
               path must take the fused prologue, never the standalone K1.
@@ -133,11 +134,41 @@ when CUDA is unavailable or any phase fails. Phases:
               depth-2 copy of the same widths: save at step 1, a fresh
               trainer resumes (step, dataloader and every parameter and
               optimizer tensor of actor and critic bitwise) and trains
-              step 2. K4 is then timed at the packed rows' shapes and
-              segment ids. ``--ppo-ab`` also runs the configuration
-              without validation, unpipelined against pipelined in
-              turns, for their step walls.
-6. result  -- the card's name and power limit, a ``{"kernels": [...]}``
+              step 2; the host snapshot pageable against pinned staging
+              buffers in turns. K4 is then timed at the packed rows'
+              shapes and segment ids. ``--ppo-ab`` also runs the
+              configuration without validation, unpipelined against
+              pipelined in turns, for their step walls.
+6. hf      -- ``qwen3-1.7b`` at full width and depth from seed 0 written
+              as a Hugging Face checkpoint (two bf16 safetensors shards,
+              the index, ``config.json``) into a temp dir and loaded back
+              by ``build_from_hf`` on the card: the config and every leaf
+              bitwise; the int8 load's seconds and bytes;
+              ``create_server(model=<dir>)`` serves greedy tokens equal
+              to the preset's on the seeded tree.
+7. quant   -- ``create_server("qwen3-1.7b", weight_quant="int8")`` serves
+              the serve phase's mix and then a greedy request twice alone
+              over HTTP (the fused prologue, K2 and K3 launched, counted
+              from zero over both); the greedy runs the same tokens, their
+              logprobs within 0.15 nats of the dense f32
+              forward on the dequantized weights; a bf16
+              ``update_weights`` refused and the same tree re-quantized
+              through the server's ``weight_preprocess`` serving the same
+              tokens; the decode step by graph replay, bf16 against int8
+              (each replay bitwise its eager step): kernels, device and
+              wall ms, the graph pool's growth.
+8. lora    -- the train phase's configuration with ``actor.lora_rank=16``
+              (2 GRPO steps): frozen leaves bitwise, every ``b`` moved,
+              the engine bitwise ``merge_lora(actor.params)`` after each
+              push, old logprobs within 0.2 nats of the engine's, K4
+              forward and backward launched; trainable count, optimizer
+              bytes, step walls and peak. Then optimizer offload: two
+              full-width AdamW steps with offload bitwise the same
+              without it, and the train phase's fit with
+              ``actor.offload_optimizer=true trainer.profile_steps=2``:
+              memory each offload frees, offload and load seconds, and a
+              torch.profiler trace of step 2 naming K4's kernels.
+9. result  -- the card's name and power limit, a ``{"kernels": [...]}``
               line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -1061,6 +1092,28 @@ def profiled(out_path: str | None):
         log(ln)
 
 
+def serving_mix(vocab: int) -> tuple[list[dict], list[list[int]], list[int]]:
+    """The serving main path's requests: two GRPO groups of 8 (temperature
+    1.0, 64 new tokens) on 200- and 203-token prompts and two greedy
+    requests of 128 tokens on 198- and 205-token prompts; with the greedy
+    prompts and a 150-token warm-up prompt (all drawn from one seed)."""
+    rng = np.random.default_rng(1)
+    prompt = lambda n: rng.integers(1, vocab, n).tolist()  # noqa: E731
+    group_prompts = [prompt(200), prompt(203)]
+    greedy_prompts = [prompt(198), prompt(205)]
+    bodies = []
+    for g, gp in enumerate(group_prompts):
+        bodies += [{"rid": f"g{g}-{i}", "input_ids": gp,
+                    "group_id": f"grp{g}", "group_size": 8,
+                    "sampling_params": {"temperature": 1.0,
+                                        "max_new_tokens": 64}}
+                   for i in range(8)]
+    bodies += [{"rid": f"greedy{i}", "input_ids": gp,
+                "sampling_params": {"temperature": 0.0, "max_new_tokens": 128}}
+               for i, gp in enumerate(greedy_prompts)]
+    return bodies, greedy_prompts, prompt(150)
+
+
 def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
     from polyrl_tpu_torch.rollout.serve import create_server
 
@@ -1075,49 +1128,51 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
         port = server.port
         check(post(port, "/health", None)["status"] == "ok", "/health")
         cfg = server.engine.cfg
-        rng = np.random.default_rng(1)
-        prompt = lambda n: rng.integers(1, cfg.vocab_size, n).tolist()  # noqa: E731
-        group_prompts = [prompt(200), prompt(203)]
-        greedy_prompts = [prompt(198), prompt(205)]
-        bodies = []
-        for g, gp in enumerate(group_prompts):
-            bodies += [{"rid": f"g{g}-{i}", "input_ids": gp,
-                        "group_id": f"grp{g}", "group_size": 8,
-                        "sampling_params": {"temperature": 1.0,
-                                            "max_new_tokens": 64}}
-                       for i in range(8)]
-        bodies += [{"rid": f"greedy{i}", "input_ids": gp,
-                    "sampling_params": {"temperature": 0.0, "max_new_tokens": 128}}
-                   for i, gp in enumerate(greedy_prompts)]
+        bodies, greedy_prompts, warm = serving_mix(cfg.vocab_size)
 
         # one short request first: CUDA/cuBLAS initialise lazily, and that
         # one-time cost must not land in the measured TTFT
-        run_requests(port, [{"rid": "warmup", "input_ids": prompt(150),
+        run_requests(port, [{"rid": "warmup", "input_ids": warm,
                              "sampling_params": {"temperature": 0.0,
                                                  "max_new_tokens": 16}}])
         post(port, "/flush_cache", {})
 
-        # the main path: counts zeroed just before it and read just after
+        # the main path: the mix, then one greedy request twice alone from
+        # an empty prefix cache (identical inputs and batch shapes must give
+        # identical tokens); counts zeroed just before it and read just
+        # after. Whether the mix alone ends on an ungrouped dispatch (K2)
+        # depends on when its greedy streams were admitted (one dispatch of
+        # 17 in most runs, none in some); the lone request always does.
         info0 = post(port, "/get_server_info", None)
         cuda_build.reset_launch_counts()
         t_start = time.monotonic()
         with profiled(profile):
             outs = run_requests(port, bodies)
         wall = time.monotonic() - t_start
-        launches = dict(cuda_build.LAUNCHES)
+        mix_launches = dict(cuda_build.LAUNCHES)
         info = post(port, "/get_server_info", None)
+        rep = []
+        for i in range(2):
+            post(port, "/flush_cache", {})
+            rep.append(run_requests(port, [{
+                "rid": f"repeat{i}", "input_ids": greedy_prompts[0],
+                "sampling_params": {"temperature": 0.0,
+                                    "max_new_tokens": 64}}])[0])
+        launches = dict(cuda_build.LAUNCHES)
+        info_all = post(port, "/get_server_info", None)
         for name in SERVE_KERNELS:
             check(launches[name] > 0,
                   f"{name} was not launched on the serving path")
-            check(info[f"kernel_launches/{name}"] == launches[name],
+            check(info_all[f"kernel_launches/{name}"] == launches[name],
                   "server_info launch counts disagree")
         check(launches["paged_kv_write"] == 0,
               "the serving path took the unfused K/V write")
         delta = {k: info[k] - info0[k] for k in (
             "decode_dispatches", "grouped_decode_dispatches",
             "sibling_attach_dispatches")}
-        log(f"serve: main path launches {json.dumps(launches)}; "
-            f"{json.dumps(delta)}; " + dispatch_line(info0, info))
+        log(f"serve: main path launches {json.dumps(launches)} (the mix's "
+            f"{json.dumps(mix_launches)}); the mix: {json.dumps(delta)}; "
+            + dispatch_line(info0, info))
         decode_tok_s = mix_tok_s(outs)
         for o in outs:
             check(all(np.isfinite(o["logprobs"])) and max(o["logprobs"]) <= 0,
@@ -1125,23 +1180,14 @@ def serve_phase(dev, model: str = MODEL, profile: str | None = None) -> dict:
             check(all(0 <= t < cfg.vocab_size for t in o["tokens"]),
                   "token outside the vocabulary")
         ttft = [o["lines"][0][0] - o["t0"] for o in outs]
-        runahead = runahead_against_sync(port, server.engine, bodies, outs)
-        # the same greedy request twice, alone, from an empty prefix cache:
-        # identical inputs and batch shapes must give identical tokens
-        rep = []
-        cuda_build.reset_launch_counts()
-        for i in range(2):
-            post(port, "/flush_cache", {})
-            rep.append(run_requests(port, [{
-                "rid": f"repeat{i}", "input_ids": greedy_prompts[0],
-                "sampling_params": {"temperature": 0.0,
-                                    "max_new_tokens": 64}}])[0])
         check(rep[0]["tokens"] == rep[1]["tokens"],
               "the same greedy request gave different tokens")
         single = (rep[0]["lines"][-1][0] - rep[0]["lines"][0][0]) / 63
         log(f"serve: one stream alone (twice): TTFT {(rep[0]['lines'][0][0] - rep[0]['t0']) * 1e3:.1f} ms, "
             f"{single * 1e3:.2f} ms per decode step (64 slots computed); "
-            f"launches {json.dumps(dict(cuda_build.LAUNCHES))}")
+            f"launches " + json.dumps({k_: launches[k_] - mix_launches[k_]
+                                        for k_ in launches}))
+        runahead = runahead_against_sync(port, server.engine, bodies, outs)
         log(f"serve: {len(outs)} streams, "
             f"{sum(len(o['tokens']) for o in outs)} tokens in {wall:.2f} s")
         # decode vs dense: the engine's greedy logprobs against the port's
@@ -2578,6 +2624,22 @@ def ppo_resume(tmp: str) -> None:
         ta = build_trainer(load_config(None, base + ["trainer.total_steps=1"]),
                            cleanup, compute_score=byte_length_score)
         ha = ta.fit()
+        # the host snapshot: pageable copies (the save before pinned staging)
+        # against the save's own pinned staging buffers (allocated by the
+        # save above, reused here), in turns on the same state
+        state = ta._ckpt_state()
+        snaps: dict = {"pageable": [], "pinned": []}
+        for kind in ("pageable", "pinned", "pinned", "pageable"):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            if kind == "pageable":
+                copy = {n: {k_: v.detach().to("cpu", copy=True)
+                            for k_, v in flat.items()} for n, flat in state.items()}
+            else:
+                copy = {n: ta._ckpt._host_copy(n, flat) for n, flat in state.items()}
+            snaps[kind].append(time.monotonic() - t0)
+            del copy
+        del state
         step_dir = os.path.join(ck, "global_step_1")
         nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
                      for f in os.listdir(step_dir))
@@ -2608,12 +2670,18 @@ def ppo_resume(tmp: str) -> None:
             check(np.isfinite(hb[0][key]), f"resumed step 2: {key} not finite")
         log(f"ppo resume (2 layers, same widths): checkpoint of step 1 "
             f"{nbytes / 1e9:.3f} GB in {len(os.listdir(step_dir))} files; save: "
-            f"host snapshot {ha[0]['timing_s/save_checkpoint']:.2f} s, write "
+            f"host snapshot {ha[0]['timing_s/save_checkpoint']:.2f} s (pinned "
+            f"staging, allocated by this first save: {ta._ckpt.last_snapshot_s:.2f}"
+            f" s of it), write "
             f"{ta._ckpt.last_write_s:.2f} s; restore {restore_s:.2f} s; "
             f"{n} tensors of actor and critic bitwise equal; dataloader at "
             f"{tb.dataloader.consumed}; resumed step 2: pg_loss "
             f"{hb[0]['actor/pg_loss']:.5f}, vf_loss {hb[0]['critic/vf_loss']:.5f}, "
             f"wall {hb[0]['perf/step_time_s']:.2f} s")
+        log(f"ppo snapshot a/b (the same state, in turns): pageable "
+            f"{', '.join(f'{t:.2f}' for t in snaps['pageable'])} s; pinned "
+            f"staging, buffers reused {', '.join(f'{t:.2f}' for t in snaps['pinned'])}"
+            f" s")
     finally:
         for fn in reversed(cleanup):
             fn()
@@ -2637,6 +2705,547 @@ def ppo_phase(dev, ab: bool) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+# -- phase 6: a pretrained checkpoint in Hugging Face's layout (hf) ---------------
+
+HF_TOKENS = 32  # greedy tokens compared between the checkpoint and the preset
+
+
+def greedy_run(port: int, prompt: list[int], n: int, rid: str) -> dict:
+    """One greedy request alone, from an empty prefix cache."""
+    post(port, "/flush_cache", {})
+    return run_requests(port, [{"rid": rid, "input_ids": prompt,
+                                "sampling_params": {"temperature": 0.0,
+                                                    "max_new_tokens": n}}])[0]
+
+
+def hf_phase(dev) -> dict:
+    """``qwen3-1.7b`` at full width and depth from ``init_params`` seed 0,
+    written as a Hugging Face checkpoint (two bf16 safetensors shards,
+    ``model.safetensors.index.json`` and a ``config.json`` in Qwen3's
+    schema; ``hf_loader.save_hf_checkpoint``, the loader's map inverted)
+    into a temp dir; ``build_from_hf`` on the card must give the config
+    and every leaf of the seeded tree bitwise; the int8 load's bytes; then
+    ``create_server(model=<dir>)`` must serve one greedy request with the
+    tokens of ``create_server("qwen3-1.7b", seed=0)``."""
+    from polyrl_tpu_torch.models import hf_loader, quant
+    from polyrl_tpu_torch.rollout.serve import create_server
+
+    cfg = decoder.get_config(MODEL, dtype=torch.bfloat16)
+    geom = dict(device=str(dev), host="127.0.0.1", port=0, max_slots=8,
+                page_size=PS, max_seq_len=1024, num_pages=128, seed=0)
+    prompt = serving_mix(cfg.vocab_size)[1][0]
+    with tempfile.TemporaryDirectory(prefix="hf-smoke-") as tmp:
+        params = decoder.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        t0 = time.monotonic()
+        n_bytes = hf_loader.save_hf_checkpoint(tmp, params, cfg,
+                                               model_type="qwen3", n_shards=2)
+        write_s = time.monotonic() - t0
+        files = sorted(os.listdir(tmp))
+        check(files == ["config.json", "model-00001-of-00002.safetensors",
+                        "model-00002-of-00002.safetensors",
+                        "model.safetensors.index.json"], f"checkpoint files {files}")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        cfg2, loaded = hf_loader.build_from_hf(tmp, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        check(cfg2 == cfg, f"config.json round trip: {cfg2} != {cfg}")
+        want = dict(quant.named_leaves(params))
+        got = dict(quant.named_leaves(loaded))
+        check(got.keys() == want.keys(), "the loaded tree has other leaves")
+        for k_ in want:
+            check(torch.equal(got[k_], want[k_]),
+                  f"the loaded {k_} differs from the seeded tree")
+        del loaded, got
+        t0 = time.monotonic()
+        _, q = hf_loader.build_from_hf(tmp, dtype=torch.bfloat16, quantize="int8",
+                                       device=dev)
+        torch.cuda.synchronize()
+        q_s = time.monotonic() - t0
+        q_bytes = quant.weight_bytes(q)
+        on_card = dict(quant.named_leaves(quant.quantize_params(params)))
+        n_q = sum(t.numel() for k_, t in quant.named_leaves(q) if k_.endswith(".q"))
+        n_diff = sum(int((t != on_card[k_]).sum())
+                     for k_, t in quant.named_leaves(q) if k_.endswith(".q"))
+        del q, on_card, want, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"hf: wrote {MODEL} ({cfg.num_layers} layers) as 2 bf16 shards, "
+            f"{n_bytes / 1e9:.3f} GB in {write_s:.2f} s; build_from_hf to the "
+            f"card {load_s:.2f} s ({n_bytes / 1e9 / load_s:.2f} GB/s, from the "
+            f"page cache), config and every leaf bitwise the seeded tree; int8 "
+            f"load (quantized on the host) {q_s:.2f} s, {q_bytes / 1e9:.3f} GB "
+            f"on the card; {n_diff} of {n_q} int8 entries differ from "
+            f"quantizing the seeded tree on the card")
+        server = create_server(tmp, **geom)
+        try:
+            hf_out = greedy_run(server.port, prompt, HF_TOKENS, "hf")
+        finally:
+            server.stop()
+    server = create_server(MODEL, **geom)
+    try:
+        preset_out = greedy_run(server.port, prompt, HF_TOKENS, "preset")
+    finally:
+        server.stop()
+    check(hf_out["tokens"] == preset_out["tokens"],
+          "the checkpoint's server gave other greedy tokens than the preset's")
+    log(f"hf: create_server(model=<dir>) served {HF_TOKENS} greedy tokens equal "
+        f"to the preset engine's on the seeded tree")
+    return dict(bytes=n_bytes, load_s=load_s, int8_bytes=q_bytes, int8_s=q_s)
+
+
+# -- phase 7: int8 weight-only serving (quant) ---------------------------------------
+
+
+def spec_bytes(cfg, nbytes: int = 2) -> float:
+    """Bytes of the model's parameters at ``nbytes`` per entry."""
+    def walk(specs):
+        return sum(walk(v) if isinstance(v, dict) else int(np.prod(v[0]))
+                   for v in specs.values())
+    return walk(decoder.param_specs(cfg)) * nbytes
+
+
+def dequantized_f32(tree):
+    """An f32 copy of a (possibly int8) tree: ``q * scale`` per QuantWeight."""
+    from polyrl_tpu_torch.models import quant
+
+    if isinstance(tree, dict):
+        return {k_: dequantized_f32(v) for k_, v in tree.items()}
+    if isinstance(tree, quant.QuantWeight):
+        return quant.dequantize(tree)
+    return tree.float()
+
+
+def quant_decode_ab(dev, cfg, trees: dict) -> dict:
+    """The decode step (the fused route) captured as a CUDA graph once per
+    weight tree (bf16, int8) at the serving tables, on the same pools of
+    random K/V: each replay bitwise its eager step on the live slots, the
+    capture's graph-pool growth logged; then AB_STEPS replays per tree in
+    turns (bf16, int8, int8, bf16) with wall ms per step, and PROF_STEPS
+    more per tree under torch.profiler for kernels and device ms."""
+    table, lens, _ = serving_tables(dev)
+    active = lens > 0
+    pools = decoder.make_paged_pools(cfg, int(table.max()) + 1, PS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for p_ in pools[0] + pools[1]:
+        p_.normal_(generator=gen)
+    tokens = torch.randint(1, cfg.vocab_size, (S,), generator=gen, device=dev)
+    graphs, outs = {}, {}
+    for name, params in trees.items():
+        def step(params=params):
+            return decoder.forward_paged_decode(params, cfg, tokens, lens, pools,
+                                                table, lens, active=active)[0]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager = step().clone()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        graph = torch.cuda.CUDAGraph()
+        with cuda_build.recording_launches() as rec:
+            with torch.cuda.graph(graph, stream=side):
+                out = step()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(out[active], eager[active]),
+              f"the {name} decode step's replay differs from its eager step")
+        graphs[name] = (graph, rec,
+                        (torch.cuda.max_memory_allocated(dev) - base) / 1e9)
+        outs[name] = torch.log_softmax(out[active].float(), dim=-1)
+    gap = (outs["int8"] - outs["bf16"]).abs().max().item()
+    agree = (outs["int8"].argmax(-1) == outs["bf16"].argmax(-1)).float().mean().item()
+    del outs
+
+    def replay(name):
+        graphs[name][0].replay()
+        cuda_build.credit_launches(graphs[name][1])
+
+    walls = {n: [] for n in trees}
+    launches = {n: dict.fromkeys(cuda_build.LAUNCHES, 0) for n in trees}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        cuda_build.reset_launch_counts()
+        for _ in range(AB_STEPS // 2):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            replay(name)
+            torch.cuda.synchronize()
+            walls[name].append((time.monotonic() - t0) * 1e3)
+        for k_, n in cuda_build.LAUNCHES.items():
+            launches[name][k_] += n
+    out = {}
+    for name in trees:
+        check(launches[name]["paged_kv_write_fused"] == cfg.num_layers * AB_STEPS,
+              f"the {name} replays' launches: {launches[name]}")
+        pr = device_profile(lambda name=name: replay(name), PROF_STEPS)
+        w = sorted(walls[name])
+        out[name] = dict(wall_ms=statistics.median(w), device_ms=pr["device_ms"],
+                         kernels=pr["kernels"], pool_gb=graphs[name][2])
+        log(f"quant decode a/b {name} (graph replay): wall ms per step median "
+            f"{out[name]['wall_ms']:.2f} (min {w[0]:.2f}, max {w[-1]:.2f}; "
+            f"{len(w)} steps), device ms per step {pr['device_ms']:.3f}, kernels "
+            f"per step {pr['kernels']:.1f} (+ {pr['copies']:.1f} copies/sets); "
+            f"the capture grew the allocation by {graphs[name][2]:.3f} GB "
+            f"(graph pool peak)")
+    log(f"quant decode a/b: int8 against bf16 log-softmax of the live slots: "
+        f"max |diff| {gap:.4f} nats, argmax agreement {agree:.3f} (quantization "
+        f"error, not gated here)")
+    del graphs
+    return out
+
+
+def quant_phase(dev) -> dict:
+    """``create_server("qwen3-1.7b", weight_quant="int8")`` (the preset made
+    int8 leaf by leaf on the card) at the serving geometry, over HTTP: the
+    serving mix and then one greedy request twice alone, with launch
+    counts zeroed just before and read just after (the fused prologue, K2
+    and K3 must launch; K1 alone must not); the greedy request's two
+    runs the same tokens; its logprobs within
+    DENSE_LOGP_TOL of the dense f32 ``forward`` on the dequantized
+    weights; a bf16 ``update_weights`` refused; the same bf16 tree pushed
+    through the server's ``weight_preprocess`` (re-quantized) serving the
+    first greedy tokens again; then ``quant_decode_ab``."""
+    from polyrl_tpu_torch.models import quant
+    from polyrl_tpu_torch.rollout.serve import create_server
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    server = create_server(MODEL, device=str(dev), host="127.0.0.1", port=0,
+                           max_slots=64, page_size=64, max_seq_len=4096,
+                           num_pages=2048, steps_per_dispatch=8, seed=0,
+                           weight_quant="int8")
+    try:
+        eng, port = server.engine, server.port
+        cfg = eng.cfg
+        int8_gb = quant.weight_bytes(eng.params) / 1e9
+        bf16_gb = spec_bytes(cfg) / 1e9
+        log(f"quant: {MODEL} int8 up in {time.monotonic() - t0:.1f} s; weights "
+            f"{int8_gb:.3f} GB int8 (bf16 embedding and norms, f32 scales) "
+            f"against {bf16_gb:.3f} GB bf16")
+        bodies, greedy_prompts, warm = serving_mix(cfg.vocab_size)
+        run_requests(port, [{"rid": "warmup", "input_ids": warm,
+                             "sampling_params": {"temperature": 0.0,
+                                                 "max_new_tokens": 16}}])
+        post(port, "/flush_cache", {})
+        # the main path: the mix, then one greedy request twice alone;
+        # counts zeroed just before and read just after. Whether the mix
+        # alone ends on ungrouped dispatches (K2) depends on when its
+        # greedy streams were admitted; the lone requests always do.
+        info0 = post(port, "/get_server_info", None)
+        cuda_build.reset_launch_counts()
+        t_start = time.monotonic()
+        outs = run_requests(port, bodies)
+        wall = time.monotonic() - t_start
+        mix_launches = dict(cuda_build.LAUNCHES)
+        info = post(port, "/get_server_info", None)
+        rep = [greedy_run(port, greedy_prompts[0], 64, f"qrep{i}") for i in range(2)]
+        launches = dict(cuda_build.LAUNCHES)
+        log(f"quant: main path launches {json.dumps(launches)} (the mix's "
+            f"{json.dumps(mix_launches)}); the mix: " + dispatch_line(info0, info))
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0, f"{name} was not launched serving int8: "
+                  f"{json.dumps(launches)}")
+        check(launches["paged_kv_write"] == 0,
+              "the int8 serving path took the unfused K/V write")
+        for o in outs:
+            check(all(np.isfinite(o["logprobs"])) and max(o["logprobs"]) <= 0,
+                  "int8 serving: non-finite or positive logprob")
+        tok_s = mix_tok_s(outs)
+        ttft = [o["lines"][0][0] - o["t0"] for o in outs]
+        check(rep[0]["tokens"] == rep[1]["tokens"],
+              "int8 serving: the same greedy request gave different tokens")
+        n_p = len(greedy_prompts[0])
+        params32 = dequantized_f32(eng.params)
+        x = torch.tensor([greedy_prompts[0] + rep[0]["tokens"]], device=dev)
+        logits, _ = decoder.forward(params32, cfg, x,
+                                    torch.arange(x.shape[1], device=dev)[None],
+                                    torch.ones_like(x, dtype=torch.float32),
+                                    attn_fn=flash.flash_attention_train_ref)
+        lsm32 = torch.log_softmax(logits[0, n_p - 1:-1].float(), dim=-1)
+        del logits, params32
+        gen_t = torch.tensor(rep[0]["tokens"], device=dev)
+        ref = lsm32.gather(-1, gen_t[:, None])[:, 0]
+        lp_err = (ref - torch.tensor(rep[0]["logprobs"], device=dev)).abs().max().item()
+        gap = (lsm32.max(dim=-1).values - ref).max().item()
+        del lsm32
+        log(f"quant: greedy decode vs the dense f32 forward on the dequantized "
+            f"weights: max |logprob diff| {lp_err:.4f} nats, max f32 gap of the "
+            f"chosen token {gap:.4f} (tolerance {DENSE_LOGP_TOL})")
+        check(lp_err <= DENSE_LOGP_TOL and gap <= DENSE_LOGP_TOL,
+              f"int8 decode disagrees with the dense forward ({lp_err:.4f}, "
+              f"{gap:.4f} nats)")
+        bf = decoder.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 decoder.get_config(MODEL, dtype=torch.bfloat16))
+        try:
+            eng.update_weights(bf)
+            refused = ""
+        except ValueError as exc:
+            refused = str(exc)
+        check(bool(refused), "a bf16 update_weights into the int8 engine was accepted")
+        v0 = eng.weight_version
+        t0 = time.monotonic()
+        server.update_weights(bf)
+        torch.cuda.synchronize()
+        push_s = time.monotonic() - t0
+        check(eng.weight_version == v0 + 1, "the re-quantized push did not land")
+        after = greedy_run(port, greedy_prompts[0], 64, "qpush")
+        check(after["tokens"] == rep[0]["tokens"],
+              "the re-quantized push (the same seed-0 weights) serves other tokens")
+        log(f"quant: a bf16 update_weights refused ({refused[:90]}...); the same "
+            f"tree through weight_preprocess (re-quantized on the card, "
+            f"{push_s:.2f} s) installed as version {eng.weight_version} and served "
+            f"the same greedy tokens")
+        ab = quant_decode_ab(dev, cfg, {"bf16": bf, "int8": eng.params})
+        del bf
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        log(f"quant: decode "
+            f"{tok_s:.1f} tok/s over 18 streams (the serve phase's mix, its first "
+            f"run with the capture), TTFT median "
+            f"{statistics.median(ttft) * 1e3:.1f} ms; {wall:.2f} s; peak "
+            f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)")
+        return dict(launches=launches, tok_s=tok_s, peak_gb=peak_gb,
+                    int8_gb=int8_gb, bf16_gb=bf16_gb, ab=ab)
+    finally:
+        server.stop()
+
+
+# -- phase 8: LoRA training, optimizer offload, step profiling (lora) ----------------
+
+LORA_RANK = 16
+LORA_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+
+
+def lora_phase(dev, full_peak_gb: float) -> dict:
+    """The train phase's configuration with ``actor.lora_rank=16
+    lora_alpha=16``, 2 GRPO steps. Gates: finite losses and grad norms,
+    the frozen leaves (every base, embed, norms) bitwise the reference
+    policy's copy of the initial weights, every ``b`` moved from zero, the
+    engine after each push bitwise ``merge_lora(actor.params)``, step 1's
+    old logprobs within LOGP_AGREE_TOL of the engine's, K4 forward and
+    backward launched (counted from zero). ``offload_checks`` follows it
+    in ``main``, once this phase's trainer is gone."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.models import lora, quant
+    from polyrl_tpu_torch.train import build_trainer
+
+    cfg = load_config(None, TRAIN_OVERRIDES + [f"actor.lora_rank={LORA_RANK}",
+                                               "actor.lora_alpha=16"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    cleanup: list = []
+    t0 = time.monotonic()
+    trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+    try:
+        actor, engine, ref = trainer.actor, trainer.rollout, trainer.ref_policy
+        n_train = lora.num_trainable(actor.params)
+        opt_bytes = sum(t.numel() * t.element_size()
+                        for t in actor.opt_state.mu + actor.opt_state.nu)
+        log(f"lora: trainer up in {time.monotonic() - t0:.1f} s; rank "
+            f"{LORA_RANK}, {n_train} trainable parameters "
+            f"({n_train / 1e6:.2f} M) in {len(actor._named)} tensors, optimizer "
+            f"state {opt_bytes / 1e9:.4f} GB; "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+        pushes: list[bool] = []
+        push = trainer._push_weights
+
+        def checked_push(block: bool = True) -> None:
+            push(block)
+            with torch.no_grad():
+                merged = dict(quant.named_leaves(lora.merge_lora(actor.params)))
+            pushes.append(all(torch.equal(e, merged[n].detach())
+                              for n, e in quant.named_leaves(engine.params)))
+
+        step1: dict = {}
+        process = trainer._process_ibatch
+
+        def first_ibatch_gate(ibatch, metrics):
+            out = process(ibatch, metrics)
+            if not step1:
+                mask = np.asarray(out["response_mask"]) > 0
+                gap = np.abs(np.asarray(out["old_log_probs"])
+                             - np.asarray(out["rollout_log_probs"]))[mask]
+                step1.update(gap_max=float(gap.max()), gap_mean=float(gap.mean()),
+                             tokens=int(mask.sum()))
+            return out
+
+        trainer._push_weights = checked_push
+        trainer._process_ibatch = first_ibatch_gate
+        cuda_build.reset_launch_counts()
+        t_fit = time.monotonic()
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        fit_wall = time.monotonic() - t_fit
+        launches = dict(cuda_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        trainer._push_weights, trainer._process_ibatch = push, process
+
+        check(len(history) == 2, "the LoRA fit did not run 2 steps")
+        for i, rec in enumerate(history, 1):
+            for key in ("actor/pg_loss", "actor/kl_loss", "actor/grad_norm"):
+                check(np.isfinite(rec[key]), f"lora step {i}: {key} not finite")
+            check(rec["actor/grad_norm"] > 0, f"lora step {i}: zero gradient")
+            check(rec["actor/nonfinite_skips"] == 0, f"lora step {i}: skipped update")
+        check(pushes == [True] * 3, f"the engine after each push equal to the "
+              f"merge: {pushes}")
+        check(engine.weight_version == 3, f"weight_version {engine.weight_version}")
+        for k_, w in actor.params["layers"].items():
+            want = ref.params["layers"][k_]
+            if isinstance(w, quant.LoraWeight):
+                check(torch.equal(w.base, want), f"the frozen base of {k_} moved")
+                check(float(w.b.detach().abs().max()) > 0, f"{k_}.b stayed zero")
+            else:
+                check(torch.equal(w, want), f"the frozen {k_} moved")
+        for k_ in ("embed", "final_norm"):
+            check(torch.equal(actor.params[k_], ref.params[k_]), f"{k_} moved")
+        for name in LORA_KERNELS:
+            check(launches[name] > 0, f"{name} was not launched in the LoRA fit")
+        check(step1["gap_max"] <= LOGP_AGREE_TOL,
+              f"LoRA old logprobs disagree with the engine's ({step1['gap_max']:.4f})")
+        log(f"lora: step-1 old logprobs (K4 through the wrapped projections) vs "
+            f"the engine's over {step1['tokens']} tokens: max "
+            f"{step1['gap_max']:.4f}, mean {step1['gap_mean']:.5f} nats "
+            f"(tolerance {LOGP_AGREE_TOL}); the engine bitwise merge_lora(actor."
+            f"params) after each of 3 pushes; frozen leaves bitwise; every b moved")
+        for i, rec in enumerate(history, 1):
+            log(f"lora: step {i}: wall {rec['perf/step_time_s']:.2f} s; "
+                + ", ".join(f"{k_} {rec.get('timing_s/' + k_, 0.0):.2f}" for k_ in (
+                    "gen", "old_log_prob", "ref_log_prob", "update_actor",
+                    "update_weight"))
+                + f"; pg_loss {rec['actor/pg_loss']:.5f}, grad_norm "
+                f"{rec['actor/grad_norm']:.4f}")
+        log(f"lora: fit wall {fit_wall:.1f} s; peak {peak_gb:.2f} GB against "
+            f"{full_peak_gb:.2f} GB for the full fine-tune (train phase); "
+            f"main-path launches {json.dumps(launches)}")
+        return dict(launches=launches, peak_gb=peak_gb, n_train=n_train,
+                    opt_bytes=opt_bytes, history=history)
+    finally:
+        for fn in reversed(cleanup):
+            fn()
+
+
+def offload_micro(dev, cfg, seed: int) -> dict:
+    """A synthetic micro at the train phase's shapes (4 rows, 64 + 448
+    tokens)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, tp, tr = 4, 64, 448
+    ids = torch.randint(1, cfg.vocab_size, (b, tp + tr), generator=g, device=dev)
+    return {"input_ids": ids,
+            "positions": torch.arange(tp + tr, device=dev).expand(b, -1).int(),
+            "attention_mask": torch.ones((b, tp + tr), device=dev),
+            "responses": ids[:, tp:], "response_mask": torch.ones((b, tr), device=dev),
+            "advantages": torch.randn((b, tr), generator=g, device=dev),
+            "old_log_probs": -12.0 + 0.1 * torch.randn((b, tr), generator=g,
+                                                       device=dev)}
+
+
+def offload_checks(dev) -> dict:
+    """Optimizer offload on the full fine-tune. (1) Two actors from the
+    same seeded weights take two AdamW steps on the same micros, one with
+    its moments offloaded after each step and loaded back before the next:
+    every parameter bitwise the other's. (2) The train phase's fit with
+    ``actor.offload_optimizer=true`` and ``trainer.profile_steps=2``: the
+    device memory each offload frees and the seconds of each offload and
+    load, the moments on the host after the fit, and a torch.profiler trace
+    of step 2 under ``profile_dir`` naming K4's kernels."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.models import quant
+    from polyrl_tpu_torch.train import build_trainer
+    from polyrl_tpu_torch.trainer.actor import ActorConfig, StreamActor
+
+    mcfg = decoder.get_config(MODEL, dtype=torch.bfloat16)
+    finals = []
+    for offload in (False, True):
+        actor = StreamActor(mcfg, ActorConfig(lr=1e-4, remat=True,
+                                              offload_optimizer=offload),
+                            decoder.init_params(torch.Generator(device=dev)
+                                                .manual_seed(0), mcfg))
+        for i in range(2):
+            actor.update_stream(offload_micro(dev, mcfg, 30 + i), is_opt_step=True)
+            actor.offload_opt_state()
+        check(actor._opt_offloaded == offload, "offload state after the steps")
+        finals.append(dict(quant.named_leaves(actor.params)))
+        del actor
+        gc.collect()
+        torch.cuda.empty_cache()
+    for k_, v in finals[0].items():
+        check(torch.equal(v, finals[1][k_]),
+              f"two steps with offload differ from the same without it at {k_}")
+    del finals
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("lora offload: two full-width AdamW steps with the moments offloaded "
+        "after each are bitwise the same steps without offload")
+
+    with tempfile.TemporaryDirectory(prefix="offload-smoke-") as tmp:
+        prof_dir = os.path.join(tmp, "prof")
+        cfg = load_config(None, TRAIN_OVERRIDES + [
+            "actor.offload_optimizer=true", "trainer.profile_steps=2",
+            f"trainer.profile_dir={prof_dir}"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        cleanup: list = []
+        trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+        try:
+            actor = trainer.actor
+            offloads, loads = [], []
+            off, load = actor.offload_opt_state, actor.load_opt_state
+
+            def timed_offload():
+                torch.cuda.synchronize()
+                before, t0 = torch.cuda.memory_allocated(dev), time.monotonic()
+                off()
+                torch.cuda.synchronize()
+                offloads.append((time.monotonic() - t0,
+                                 (before - torch.cuda.memory_allocated(dev)) / 1e9))
+
+            def timed_load():
+                if not actor._opt_offloaded:
+                    return
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                load()
+                torch.cuda.synchronize()
+                loads.append(time.monotonic() - t0)
+
+            actor.offload_opt_state, actor.load_opt_state = timed_offload, timed_load
+            history = trainer.fit()
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            check(len(history) == 2, "the offload fit did not run 2 steps")
+            check(actor._opt_offloaded and all(
+                t.device.type == "cpu" and t.is_pinned()
+                for t in actor.opt_state.mu + actor.opt_state.nu),
+                "the moments are not in pinned host memory after the fit")
+            for i, rec in enumerate(history, 1):
+                check(np.isfinite(rec["actor/grad_norm"]) and rec["actor/grad_norm"] > 0,
+                      f"offload step {i}: bad grad norm")
+            check(len(offloads) == 2 and len(loads) == 1,
+                  f"{len(offloads)} offloads and {len(loads)} loads in 2 steps")
+            traces = trainer.profile_traces
+            check(len(traces) == 1 and os.path.dirname(traces[0]) == prof_dir,
+                  f"profile traces {traces}")
+            with open(traces[0]) as f:
+                text = f.read()
+            k4 = [n for n in ("flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
+                              "flash_dkv_bf16_kernel") if n in text]
+            check(len(k4) == 3, f"the step-2 trace names K4's kernels {k4} only")
+            log(f"lora offload: fit with actor.offload_optimizer: each offload "
+                f"freed {', '.join(f'{g:.3f}' for _, g in offloads)} GB of device "
+                f"memory in {', '.join(f'{s:.3f}' for s, _ in offloads)} s (the "
+                f"copies out, to pinned buffers); the load before step 2 took "
+                f"{loads[0]:.3f} s; step walls "
+                + ", ".join(f"{r['perf/step_time_s']:.2f}" for r in history)
+                + f" s; peak {peak_gb:.2f} GB; profile_steps=(2,) wrote "
+                f"{os.path.basename(traces[0])} ({len(text) / 1e6:.1f} MB) naming "
+                + ", ".join(k4))
+            return dict(offloads=offloads, loads=loads, peak_gb=peak_gb,
+                        history=history)
+        finally:
+            for fn in reversed(cleanup):
+                fn()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
 
 
 # -- main -----------------------------------------------------------------------
@@ -2700,6 +3309,27 @@ def main() -> int:
     flash_case_check(dev, 4, PACK_LEN, 9, "ppo packed rows", reps=5,
                      seg_np=ppo["seg_ids"])
     torch.cuda.empty_cache()
+    for name, phase in (("hf", lambda: hf_phase(dev)),
+                        ("quant", lambda: quant_phase(dev)),
+                        ("lora", lambda: lora_phase(dev, trained["peak_gb"])),
+                        ("offload", lambda: offload_checks(dev))):
+        t0 = time.monotonic()
+        out = phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase {name} ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
+        if name == "quant":
+            log(f"quant ({smi}, this run): launches of the int8 main path: "
+                + json.dumps({k_: out["launches"][k_] for k_ in SERVE_KERNELS})
+                + "; decode step by replay bf16 / int8: device ms "
+                f"{out['ab']['bf16']['device_ms']:.3f} / "
+                f"{out['ab']['int8']['device_ms']:.3f}, wall ms "
+                f"{out['ab']['bf16']['wall_ms']:.2f} / {out['ab']['int8']['wall_ms']:.2f}")
+        if name == "lora":
+            log(f"lora ({smi}, this run): K4 launches "
+                + json.dumps({k_: out["launches"][k_] for k_ in LORA_KERNELS})
+                + f"; peak {out['peak_gb']:.2f} GB against the train phase's "
+                f"{trained['peak_gb']:.2f}")
 
     for r in rows:
         # K1's path is the decode step's unfused route (the serve phase's

@@ -25,7 +25,7 @@ from polyrl_tpu_torch.trainer.stream_trainer import TrainerConfig
 class ModelSection:
     preset: str = "tiny"                  # any decoder.PRESETS key
     dtype: str = "bfloat16"
-    hf_path: str = ""                     # pretrained checkpoints: not ported yet
+    hf_path: str = ""                     # local HF checkpoint dir (overrides preset)
     overrides: dict = field(default_factory=dict)  # raw ModelConfig fields
 
 

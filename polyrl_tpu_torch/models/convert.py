@@ -6,7 +6,10 @@ decoder's tree and of the critic's alike (``trainer/critic.py``: the
 decoder's leaves without ``lm_head``, plus a ``[hidden, 1]``
 ``value_head``). Callers turn the JAX tree's leaves into numpy arrays
 first (``np.asarray`` on each ``jax.Array``); this module never imports
-JAX.
+JAX. The reference's weight wrappers are recognised by their fields
+(``q``/``scale``; ``base``/``a``/``b``/``alpha``) and become the port's
+``models/quant.py`` classes: the int8 data stays int8, the scale f32 and
+``alpha`` a float.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from polyrl_tpu_torch.device import resolve_device
+from polyrl_tpu_torch.models.quant import LoraWeight, QuantWeight
 
 
 def _leaf(a, device, dtype) -> torch.Tensor:
@@ -37,6 +41,14 @@ def params_from_numpy(tree: dict, device="cuda",
     is absent (``device.resolve_device``); pass ``"cpu"`` to convert for
     the CPU."""
     dev = resolve_device(device)
-    return {k: (params_from_numpy(v, dev, dtype) if isinstance(v, dict)
-                else _leaf(v, dev, dtype))
-            for k, v in tree.items()}
+
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if all(hasattr(v, f) for f in ("base", "a", "b", "alpha")):
+            return LoraWeight(conv(v.base), conv(v.a), conv(v.b), float(v.alpha))
+        if hasattr(v, "q") and hasattr(v, "scale"):
+            return QuantWeight(_leaf(v.q, dev, None), _leaf(v.scale, dev, None))
+        return _leaf(v, dev, dtype)
+
+    return conv(tree)

@@ -15,8 +15,13 @@ cache of ``forward`` and the paged pools are written in place and
 returned for symmetry. The no-cache ``forward`` (training and logprob
 scoring) is differentiable, with per-layer rematerialisation
 (``torch.utils.checkpoint``) in place of ``jax.checkpoint``; the cached
-and paged serving paths run under ``torch.no_grad``. MoE, int8 weights
-and LoRA are not ported yet.
+and paged serving paths run under ``torch.no_grad``.
+
+Every projection goes through ``quant.mm`` and the logits head through
+``unembed``, so a layer leaf may be a ``QuantWeight`` (int8 serving) or a
+``LoraWeight`` (LoRA training; QLoRA over an int8 base), as in the
+reference; ``layer_params`` slices wrappers like tensors. MoE is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from polyrl_tpu_torch.models.quant import mm, unembed_operands
 from polyrl_tpu_torch.ops import flash
 from polyrl_tpu_torch.ops.attention import attention
 from polyrl_tpu_torch.ops.norm_rope import apply_rope, rms_norm
@@ -173,57 +179,69 @@ def _check_dense(cfg: ModelConfig) -> None:
 # -- init -------------------------------------------------------------------
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig) -> dict:
-    """Stacked-layer params, Normal(0.02) like the HF default, created on
-    ``generator``'s device. A ``torch.Generator`` draws other numbers than
-    ``jax.random`` from the same seed: tests convert a JAX tree instead
-    (``models/convert.py``)."""
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree's structure: ``(shape, init)`` per leaf, init
+    one of ``normal`` (Normal(0.02)), ``ones``, ``zeros``, in the order
+    ``init_params`` draws them."""
     _check_dense(cfg)
-    dev = generator.device
     hd = cfg.head_dim_
     d, f, n_l = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-
-    def norm(*shape):
-        w = torch.randn(shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-        return (w * 0.02).to(cfg.dtype)
-
-    def ones(*shape):
-        return torch.ones(shape, device=dev, dtype=cfg.dtype)
-
-    def zeros(*shape):
-        return torch.zeros(shape, device=dev, dtype=cfg.dtype)
-
-    params = {
-        "embed": norm(cfg.vocab_size, d),
-        "final_norm": ones(d),
-        "layers": {
-            "attn_norm": ones(n_l, d),
-            "mlp_norm": ones(n_l, d),
-            "wq": norm(n_l, d, hq * hd),
-            "wk": norm(n_l, d, hkv * hd),
-            "wv": norm(n_l, d, hkv * hd),
-            "wo": norm(n_l, hq * hd, d),
-            "w_gate": norm(n_l, d, f),
-            "w_up": norm(n_l, d, f),
-            "w_down": norm(n_l, f, d),
-        },
+    layers = {
+        "attn_norm": ((n_l, d), "ones"),
+        "mlp_norm": ((n_l, d), "ones"),
+        "wq": ((n_l, d, hq * hd), "normal"),
+        "wk": ((n_l, d, hkv * hd), "normal"),
+        "wv": ((n_l, d, hkv * hd), "normal"),
+        "wo": ((n_l, hq * hd, d), "normal"),
+        "w_gate": ((n_l, d, f), "normal"),
+        "w_up": ((n_l, d, f), "normal"),
+        "w_down": ((n_l, f, d), "normal"),
     }
     if cfg.use_qk_norm:
-        params["layers"]["q_norm"] = ones(n_l, hd)
-        params["layers"]["k_norm"] = ones(n_l, hd)
+        layers["q_norm"] = ((n_l, hd), "ones")
+        layers["k_norm"] = ((n_l, hd), "ones")
     if cfg.attention_bias:
-        params["layers"]["bq"] = zeros(n_l, hq * hd)
-        params["layers"]["bk"] = zeros(n_l, hkv * hd)
-        params["layers"]["bv"] = zeros(n_l, hkv * hd)
+        layers["bq"] = ((n_l, hq * hd), "zeros")
+        layers["bk"] = ((n_l, hkv * hd), "zeros")
+        layers["bv"] = ((n_l, hkv * hd), "zeros")
+    specs = {"embed": ((cfg.vocab_size, d), "normal"),
+             "final_norm": ((d,), "ones"), "layers": layers}
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = norm(d, cfg.vocab_size)
-    return params
+        specs["lm_head"] = ((d, cfg.vocab_size), "normal")
+    return specs
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                leaf_fn=None) -> dict:
+    """Stacked-layer params, Normal(0.02) like the HF default, created on
+    ``generator``'s device. A ``torch.Generator`` draws other numbers than
+    ``jax.random`` from the same seed: tests convert a JAX tree instead
+    (``models/convert.py``). ``leaf_fn(name, tensor)``, when given, maps
+    each leaf as it is made (``quant.init_quantized_params``), so the
+    unmapped tree never exists whole."""
+    dev = generator.device
+
+    def make(name, shape, init):
+        if init == "normal":
+            w = torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32)
+            w = (w * 0.02).to(cfg.dtype)
+        else:
+            w = (torch.ones if init == "ones" else torch.zeros)(
+                shape, device=dev, dtype=cfg.dtype)
+        return leaf_fn(name, w) if leaf_fn is not None else w
+
+    def build(specs, prefix=""):
+        return {k: (build(v, f"{prefix}{k}.") if isinstance(v, dict)
+                    else make(prefix + k, *v)) for k, v in specs.items()}
+
+    return build(param_specs(cfg))
 
 
 def layer_params(params: dict, layer: int) -> dict:
-    """Views of one layer's slices of the stacked ``[L, ...]`` leaves."""
+    """Views of one layer's slices of the stacked ``[L, ...]`` leaves (a
+    wrapper slices each of its tensors)."""
     return {k: v[layer] for k, v in params["layers"].items()}
 
 
@@ -274,8 +292,8 @@ def rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor
 
 def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
     """Dense SwiGLU; SiLU in f32, cast back before the gate product."""
-    gate = torch.nn.functional.silu((h @ lp["w_gate"]).float()).to(h.dtype)
-    return (gate * (h @ lp["w_up"])) @ lp["w_down"]
+    gate = torch.nn.functional.silu(mm(h, lp["w_gate"]).float()).to(h.dtype)
+    return mm(gate * mm(h, lp["w_up"]), lp["w_down"])
 
 
 class _UnembedF32(torch.autograd.Function):
@@ -283,46 +301,60 @@ class _UnembedF32(torch.autograd.Function):
     (``torch.mm(..., out_dtype=torch.float32)``), with its gradient written
     out: the f32 cotangent is rounded to the operands' type and each
     gradient product accumulates in f32, as a bf16 mixed-precision matmul's
-    backward does."""
+    backward does. An int8 head (``scale`` given) is cast to the
+    activations' type inside each product and its scale applied to the f32
+    logits (and to the cotangent); it gets no gradient."""
 
     @staticmethod
-    def forward(ctx, x2, head):
-        ctx.save_for_backward(x2, head)
-        return torch.mm(x2, head, out_dtype=torch.float32)
+    def forward(ctx, x2, head, scale):
+        ctx.save_for_backward(x2, head, scale)
+        if scale is None:
+            return torch.mm(x2, head, out_dtype=torch.float32)
+        return torch.mm(x2, head.to(x2.dtype), out_dtype=torch.float32).mul_(scale)
 
     @staticmethod
     def backward(ctx, g):
-        x2, head = ctx.saved_tensors
+        x2, head, scale = ctx.saved_tensors
+        if scale is not None:
+            g, head = g * scale, head.to(x2.dtype)
         g = g.to(head.dtype)
         dx = dh = None
         if ctx.needs_input_grad[0]:
             dx = torch.mm(g, head.t(), out_dtype=torch.float32).to(x2.dtype)
         if ctx.needs_input_grad[1]:
             dh = torch.mm(x2.t(), g, out_dtype=torch.float32).to(head.dtype)
-        return dx, dh
+        return dx, dh, None
 
 
-def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+def unembed(x: torch.Tensor, head) -> torch.Tensor:
     """Logits head ``x @ head`` with an f32 result ([..., d] -> [..., V]).
 
     On the card a bf16/f16 head goes through ``torch.mm(..., out_dtype=
     torch.float32)``: bf16 operands, f32 accumulation and an f32 output,
     which is the JAX ``preferred_element_type=f32`` product, without ever
     holding an f32 copy of the head (311M entries for qwen3's tied
-    embedding would be 1.2 GB). Elsewhere (the CPU tests, f32 weights) the
-    operands are upcast, which changes nothing for f32. Both are
-    differentiable."""
+    embedding would be 1.2 GB). An int8 head (a ``QuantWeight``: an untied
+    ``lm_head``) takes the same product with ``q`` cast to the bf16/f16
+    activations' type, and its per-vocabulary scale multiplies the f32
+    logits, as the reference's ``quant.unembed`` does. Elsewhere (the CPU
+    tests, f32 weights) the operands are upcast, which changes nothing for
+    f32. All are differentiable in ``x`` (and in a plain head)."""
+    head, scale = unembed_operands(head)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    if x2.is_cuda and head.dtype in (torch.bfloat16, torch.float16):
-        out = _UnembedF32.apply(x2, head)
+    half = (torch.bfloat16, torch.float16)
+    if x2.is_cuda and (head.dtype in half if scale is None else x2.dtype in half):
+        out = _UnembedF32.apply(x2, head, scale)
     else:
         out = x2.float() @ head.float()
+        if scale is not None:
+            out = out * scale
     return out.reshape(*shape[:-1], head.shape[-1])
 
 
-def head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
-    """The [d, V] logits head: the tied embedding's transpose or lm_head."""
+def head_weight(params: dict, cfg: ModelConfig):
+    """The [d, V] logits head: the tied embedding's transpose or lm_head
+    (a tensor, or a ``QuantWeight`` for an int8 untied head)."""
     return params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
 
 
@@ -332,7 +364,7 @@ def _qkv_proj(cfg: ModelConfig, x: torch.Tensor, lp: dict):
     b, t, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    q, k, v = mm(h, lp["wq"]), mm(h, lp["wk"]), mm(h, lp["wv"])
     if cfg.attention_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     return (q.reshape(b, t, hq, hd), k.reshape(b, t, hkv, hd),
@@ -360,7 +392,7 @@ def _post_attn(cfg: ModelConfig, x: torch.Tensor, attn_out: torch.Tensor,
                lp: dict) -> torch.Tensor:
     """Output projection, residual, post-norm MLP, residual."""
     lead = attn_out.shape[:-2]
-    x = x + attn_out.reshape(*lead, -1) @ lp["wo"]
+    x = x + mm(attn_out.reshape(*lead, -1), lp["wo"])
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
     return x + _mlp(h, lp)
 

@@ -56,6 +56,7 @@ import torch
 
 from polyrl_tpu_torch.device import resolve_device
 from polyrl_tpu_torch.models import decoder
+from polyrl_tpu_torch.models.quant import named_leaves, tree_map
 from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops.paged_attention import grouped_paged_attention
 from polyrl_tpu_torch.rollout.flightdeck import ThroughputEWMA
@@ -136,22 +137,13 @@ class PageAllocator:
 
 
 def _params_to(tree: dict, device: torch.device) -> dict:
-    """The engine's own copy of ``tree`` on ``device``. Always a copy, even
-    when a tensor already lies there: a colocated actor updates its
-    parameters in place, and an alias would change the engine's weights
-    with no version bump while the prefix cache still held KV of the old
-    ones (JAX arrays are immutable, so the JAX engine may share them)."""
-    return {k: (_params_to(v, device) if isinstance(v, dict)
-                else v.detach().to(device, copy=True))
-            for k, v in tree.items()}
-
-
-def _leaves(tree: dict, prefix: str = ""):
-    for k, v in sorted(tree.items()):
-        if isinstance(v, dict):
-            yield from _leaves(v, prefix + k + ".")
-        else:
-            yield prefix + k, v
+    """The engine's own copy of ``tree`` on ``device`` (wrappers such as an
+    int8 ``QuantWeight`` kept). Always a copy, even when a tensor already
+    lies there: a colocated actor updates its parameters in place, and an
+    alias would change the engine's weights with no version bump while the
+    prefix cache still held KV of the old ones (JAX arrays are immutable,
+    so the JAX engine may share them)."""
+    return tree_map(lambda v: v.detach().to(device, copy=True), tree)
 
 
 class CBEngine:
@@ -381,19 +373,33 @@ class CBEngine:
     # -- weights -------------------------------------------------------------
 
     def update_weights(self, params: dict, version: int | None = None) -> None:
-        """Copy ``params`` into the engine's tensors in place (same names,
-        shapes; any device/dtype) and bump ``weight_version``. Runs between
+        """Copy ``params`` into the engine's tensors in place and bump
+        ``weight_version``. The tree must have the engine's leaf names,
+        shapes and dtypes (any device): ``copy_`` would cast silently, and a
+        bf16 tree pushed into an int8 engine must be re-quantized first
+        (``quant.quantize_params``; the server's ``weight_preprocess``), as
+        the reference refuses a tree of another structure. Runs between
         dispatches (under the dispatch lock) and flushes the prefix cache:
         cached KV belongs to the old weights. The copy is queued on the
         caller's stream, the default one, as are the decode replays: it
         runs after the dispatches already queued, whose tokens carry the
         old version, and before the later ones."""
-        new = dict(_leaves(params))
-        cur = dict(_leaves(self.params))
-        if new.keys() != cur.keys() or any(
-                tuple(new[k].shape) != tuple(cur[k].shape) for k in cur):
-            raise ValueError("update_weights: parameter names/shapes differ "
-                             "from the engine's")
+        new = dict(named_leaves(params))
+        cur = dict(named_leaves(self.params))
+        if new.keys() != cur.keys():
+            raise ValueError(
+                "update_weights: parameter names differ from the engine's "
+                f"(missing {sorted(cur.keys() - new.keys())[:4]}, extra "
+                f"{sorted(new.keys() - cur.keys())[:4]}; quantized engines "
+                "need the push re-quantized first, models/quant.py)")
+        bad = [k for k in cur if tuple(new[k].shape) != tuple(cur[k].shape)
+               or new[k].dtype != cur[k].dtype]
+        if bad:
+            k = bad[0]
+            raise ValueError(
+                f"update_weights: {k} is {new[k].dtype} "
+                f"{tuple(new[k].shape)}, the engine's {cur[k].dtype} "
+                f"{tuple(cur[k].shape)} ({len(bad)} leaves differ)")
         with self._pool_lock, torch.no_grad():
             for k, dst in cur.items():
                 dst.copy_(new[k])

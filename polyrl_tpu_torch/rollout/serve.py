@@ -1,16 +1,21 @@
 """Rollout server launcher: ``python -m polyrl_tpu_torch.rollout.serve``.
 
 Counterpart of ``polyrl_tpu/rollout/serve.py`` for the knobs this slice
-implements: a preset model random-initialised from ``--seed`` (no
-checkpoint loading yet), the paged continuous-batching engine and the
-HTTP server. Registration with the rollout manager and the weight
-receiver are not ported yet.
+implements: ``--model`` names a preset (random weights from ``--seed``) or
+a local Hugging Face checkpoint directory (``models/hf_loader.py``);
+``--weight-quant int8`` serves int8 weight-only projections
+(``models/quant.py``), and the server re-quantizes a bf16 weight push on
+arrival (``RolloutServer.weight_preprocess``); then the paged
+continuous-batching engine and the HTTP server. Registration with the
+rollout manager, the weight receiver and ``--lora-rank`` (LoRA delta
+sync) are not ported yet (ROADMAP A' 7).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 
 import torch
@@ -31,21 +36,38 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                   admit_reorder_window: int = 8,
                   group_share: bool = True,
                   decode_group_share: bool = True,
-                  group_preref_ttl_s: float | None = None):
-    """Build engine + server and start serving. ``device`` defaults to
+                  group_preref_ttl_s: float | None = None,
+                  weight_quant: str = ""):
+    """Build engine + server and start serving. ``model`` is a preset name
+    (random weights from ``seed``) or a local HF checkpoint directory.
+    ``weight_quant="int8"`` serves int8 weight-only projections: a
+    checkpoint is quantized on the host as it loads, a preset is made in
+    quantized form leaf by leaf on the device; weight pushes stay in the
+    model dtype and are re-quantized on arrival. ``device`` defaults to
     ``"cuda"`` and raises when CUDA is absent; pass ``"cpu"`` explicitly to
     serve from the CPU (tests)."""
     from polyrl_tpu_torch.device import resolve_device
-    from polyrl_tpu_torch.models import decoder
+    from polyrl_tpu_torch.models import decoder, quant
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
     from polyrl_tpu_torch.rollout.server import RolloutServer
 
+    if weight_quant not in ("", "int8"):
+        raise ValueError(f"unknown weight_quant {weight_quant!r}")
     dev = resolve_device(device)
     torch_dtype = getattr(torch, dtype)
-    cfg = decoder.get_config(model, dtype=torch_dtype, **(model_overrides or {}))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    params = decoder.init_params(gen, cfg)
+    if os.path.isdir(model):
+        from polyrl_tpu_torch.models.hf_loader import build_from_hf
+
+        cfg, params = build_from_hf(model, dtype=torch_dtype,
+                                    overrides=model_overrides,
+                                    quantize=weight_quant, device=dev)
+    else:
+        cfg = decoder.get_config(model, dtype=torch_dtype,
+                                 **(model_overrides or {}))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = (quant.init_quantized_params(gen, cfg) if weight_quant
+                  else decoder.init_params(gen, cfg))
     engine = CBEngine(
         cfg, params, pad_token_id=0, kv_cache_dtype=torch_dtype,
         max_slots=max_slots, page_size=page_size, max_seq_len=max_seq_len,
@@ -58,12 +80,16 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
         group_preref_ttl_s=group_preref_ttl_s, device=dev)
     server = RolloutServer(engine, host=host, port=port,
                            advertise_host=advertise_host)
+    if weight_quant == "int8":
+        server.weight_preprocess = quant.quantize_params
     return server.start()
 
 
 def main() -> None:
     p = argparse.ArgumentParser(description="polyrl rollout server (PyTorch/CUDA)")
-    p.add_argument("--model", default="qwen3-1.7b")
+    p.add_argument("--model", default="qwen3-1.7b",
+                   help="a preset name, or a local Hugging Face checkpoint "
+                        "directory (config.json + safetensors)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     p.add_argument("--host", default="0.0.0.0")
@@ -72,6 +98,9 @@ def main() -> None:
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--seed", type=int, default=0,
                    help="random-init seed of the preset's weights")
+    p.add_argument("--weight-quant", default="", choices=["", "int8"],
+                   help="int8: serve int8 weight-only projections (weights "
+                        "pushed in the model dtype are re-quantized)")
     p.add_argument("--max-slots", type=int, default=64)
     p.add_argument("--page-size", type=int, default=64)
     p.add_argument("--max-seq-len", type=int, default=16384)
@@ -110,7 +139,8 @@ def main() -> None:
         admit_reorder_window=args.admit_reorder_window,
         group_share=not args.no_group_share,
         decode_group_share=not args.no_decode_group_share,
-        group_preref_ttl_s=args.group_preref_ttl_s)
+        group_preref_ttl_s=args.group_preref_ttl_s,
+        weight_quant=args.weight_quant)
     log.info("rollout server on %s (%s)", server.endpoint, server.engine.device)
     try:
         while True:

@@ -37,6 +37,10 @@ class RolloutServer:
     def __init__(self, engine, host: str = "0.0.0.0", port: int = 0,
                  advertise_host: str = "127.0.0.1"):
         self.engine = engine
+        # maps an arriving weight tree to the engine's layout before the
+        # swap: ``quant.quantize_params`` on an int8 engine (the pushed tree
+        # stays in the model dtype), None otherwise
+        self.weight_preprocess = None
         self._aborts: dict[str, threading.Event] = {}
         self._aborts_lock = threading.Lock()
         self._serve_thread: threading.Thread | None = None
@@ -168,6 +172,14 @@ class RolloutServer:
         self.engine.submit(rid, input_ids, sp, out=out, abort=abort,
                            group_id=group_id, group_size=group_size)
         return out, abort
+
+    def update_weights(self, params: dict, version: int | None = None) -> None:
+        """Install a weight push: ``weight_preprocess`` first (re-quantize
+        for an int8 engine), then the engine's in-place swap, which refuses
+        a tree of other names, shapes or dtypes."""
+        if self.weight_preprocess is not None:
+            params = self.weight_preprocess(params)
+        self.engine.update_weights(params, version)
 
     def abort_request(self, rid: str | None) -> None:
         """Abort one request, or ALL running requests when rid is empty."""

@@ -3,7 +3,8 @@
 
 Counterpart of ``polyrl_tpu/train.py`` for the default main path,
 ``rollout.mode=colocated`` with ``backend=cb``: compose the config, build
-the tokenizer, model (random weights from ``trainer.seed``), the
+the tokenizer, model (random weights from ``trainer.seed``, or a local
+Hugging Face checkpoint with ``model.hf_path``), the
 in-process CB engine, reward manager, datasets (training and, with
 ``data.val_path``, validation), actor, the critic (with
 ``trainer.adv_estimator=gae``, from ``trainer.seed + 1``) and (with a KL
@@ -65,8 +66,14 @@ def _build_model(cfg: RunConfig, device: torch.device):
     from polyrl_tpu_torch.models import decoder
 
     if cfg.model.hf_path:
-        raise NotImplementedError("pretrained checkpoints (model.hf_path) are "
-                                  "not ported yet (ROADMAP A')")
+        from polyrl_tpu_torch.models.hf_loader import build_from_hf
+
+        mcfg, params = build_from_hf(cfg.model.hf_path,
+                                     dtype=getattr(torch, cfg.model.dtype),
+                                     overrides=cfg.model.overrides,
+                                     device=device)
+        log.info("loaded pretrained weights from %s", cfg.model.hf_path)
+        return mcfg, params
     mcfg = decoder.get_config(cfg.model.preset,
                               dtype=getattr(torch, cfg.model.dtype),
                               **cfg.model.overrides)

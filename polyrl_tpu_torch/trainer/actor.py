@@ -17,9 +17,19 @@ optimizer writes the new values into the same storage. Whoever needs the
 initial weights afterwards must copy them first, as ``ReferencePolicy``
 and the engine do.
 
-Not ported yet (each raises ``NotImplementedError``): LoRA, meshes
-(sharded parameters), the sequence-parallel packed attention
-(``packed_attn_fn``), pipeline layer stacks and optimizer offload.
+LoRA (``lora_rank > 0``): the actor wraps its tree at construction
+(``models/lora.wrap_lora``, adapters drawn from a generator seeded
+``7919 + rank``); only the adapters' ``a``/``b`` get ``requires_grad``,
+optimizer state, the clip norm and weight decay (the reference's
+``multi_transform`` with ``set_to_zero`` elsewhere), and
+``export_params`` hands the engine the merged plain tree. Optimizer
+offload (``offload_optimizer``): ``offload_opt_state`` moves the moments
+into pinned host buffers allocated once, ``load_opt_state`` brings them
+back on the default stream before the next update.
+
+Not ported yet (each raises ``NotImplementedError``): meshes (sharded
+parameters), the sequence-parallel packed attention (``packed_attn_fn``)
+and pipeline layer stacks.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from polyrl_tpu_torch.models import decoder
+from polyrl_tpu_torch.models.quant import lora_alphas, named_leaves, tree_map
 from polyrl_tpu_torch.ops import core_algos, flash
 
 # rows per unembed chunk in no-grad logprob passes: [rows, T_resp, V] f32
@@ -60,8 +71,8 @@ class ActorConfig:
     lr_warmup_steps: int = 0
     weight_decay: float = 0.01
     max_grad_norm: float = 1.0
-    offload_optimizer: bool = False       # not ported yet
-    lora_rank: int = 0                    # not ported yet
+    offload_optimizer: bool = False       # moments to pinned host memory between steps
+    lora_rank: int = 0                    # > 0: train LoRA adapters only
     lora_alpha: float = 16.0
     # skip (do not apply) optimizer updates holding non-finite values, up to
     # this many in a row; 0 disables the guard
@@ -194,17 +205,8 @@ def default_train_attention():
     return flash.auto_train_attention()
 
 
-def _leaves(tree: dict, prefix: str = ""):
-    for k, v in sorted(tree.items()):
-        if isinstance(v, dict):
-            yield from _leaves(v, prefix + k + ".")
-        else:
-            yield prefix + k, v
-
-
-def _tree_map(fn, tree: dict) -> dict:
-    return {k: (_tree_map(fn, v) if isinstance(v, dict) else fn(v))
-            for k, v in tree.items()}
+_leaves = named_leaves
+_tree_map = tree_map
 
 
 def _logprobs_entropy_of(h, head, responses, response_mask, compute_entropy):
@@ -316,27 +318,33 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 _OPT_COUNTS = ("count", "notfinite_count", "total_notfinite")
 
 
-def train_state(named: list, opt_state: OptState) -> dict[str, torch.Tensor]:
+def train_state(named: list, opt_state: OptState, frozen: list = (),
+                alphas: dict | None = None) -> dict[str, torch.Tensor]:
     """Parameters and optimizer state as one flat ``{name: tensor}`` dict
-    (the tensors themselves, not copies): ``params.<leaf>``,
-    ``opt.mu.<leaf>``, ``opt.nu.<leaf>`` and the counts (``opt.count`` is
-    AdamW's step and the schedule's)."""
-    out = {f"params.{n}": p.detach() for n, p in named}
+    (the tensors themselves, not copies): ``params.<leaf>`` of the trained
+    (``named``) and ``frozen`` leaves, ``opt.mu.<leaf>`` and
+    ``opt.nu.<leaf>`` of the trained ones, the counts (``opt.count`` is
+    AdamW's step and the schedule's) and each LoRA ``alpha`` as a 0-d f64
+    ``params.<path>.alpha`` (``quant.flatten``'s names)."""
+    out = {f"params.{n}": p.detach() for n, p in list(named) + list(frozen)}
     for (n, _), mu, nu in zip(named, opt_state.mu, opt_state.nu):
         out[f"opt.mu.{n}"] = mu
         out[f"opt.nu.{n}"] = nu
     for key in _OPT_COUNTS:
         out[f"opt.{key}"] = torch.tensor(getattr(opt_state, key))
+    for k, a in (alphas or {}).items():
+        out[f"params.{k}"] = torch.tensor(a, dtype=torch.float64)
     return out
 
 
 @torch.no_grad()
 def load_train_state(named: list, opt_state: OptState,
-                     flat: dict[str, torch.Tensor]) -> None:
+                     flat: dict[str, torch.Tensor], frozen: list = (),
+                     alphas: dict | None = None) -> None:
     """Copy a ``train_state`` dict into the live tensors, in place (their
-    device and dtype stay; a tensor of another dtype or shape, or a
-    missing name, raises)."""
-    want = train_state(named, opt_state)
+    device and dtype stay; a tensor of another dtype or shape, a missing
+    name or another LoRA ``alpha`` raises)."""
+    want = train_state(named, opt_state, frozen, alphas)
     if set(flat) != set(want):
         raise KeyError(f"checkpoint state has other tensors: missing "
                        f"{sorted(set(want) - set(flat))[:4]}, extra "
@@ -348,6 +356,10 @@ def load_train_state(named: list, opt_state: OptState,
                              f", live {dst.dtype} {tuple(dst.shape)}")
         if key[4:] in _OPT_COUNTS:
             setattr(opt_state, key[4:], int(src))
+        elif key[7:] in (alphas or {}):
+            if float(src) != float(dst):
+                raise ValueError(f"checkpoint {key} is {float(src)}, the live "
+                                 f"adapter's {float(dst)}")
         else:
             dst.copy_(src)
 
@@ -360,37 +372,105 @@ class StreamActor:
     def __init__(self, model_cfg: decoder.ModelConfig, cfg: ActorConfig,
                  params: Any, mesh=None, attn_fn=None, layers_fn=None,
                  packed_attn_fn=None):
-        if cfg.lora_rank > 0:
-            raise NotImplementedError("LoRA is not ported yet (ROADMAP A')")
         if mesh is not None or layers_fn is not None or packed_attn_fn is not None:
             raise NotImplementedError(
                 "meshes, pipeline stacks and the sequence-parallel packed "
-                "attention are not ported yet (ROADMAP A')")
-        if cfg.offload_optimizer:
-            raise NotImplementedError("optimizer offload is not ported yet")
+                "attention are not ported yet (ROADMAP A' 9)")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.mesh = None
         self.attn_fn = attn_fn if attn_fn is not None else default_train_attention()
-        self.params = _tree_map(lambda t: t.detach().requires_grad_(True), params)
-        self._named = list(_leaves(self.params))
+        self._lora = cfg.lora_rank > 0
+        labels = None
+        if self._lora:
+            from polyrl_tpu_torch.models import lora as lora_mod
+
+            dev = next(named_leaves(params))[1].device
+            gen = torch.Generator(device=dev).manual_seed(7919 + cfg.lora_rank)
+            params = lora_mod.wrap_lora(params, gen, cfg.lora_rank, cfg.lora_alpha)
+            labels = lora_mod.lora_labels(params)
+        self.params = _tree_map(lambda t: t.detach(), params)
+        # the trained leaves (all, or the adapters) carry requires_grad and
+        # optimizer state; frozen leaves neither (no gradient, no decay)
+        self._named, self._frozen = [], []
+        for n, p in named_leaves(self.params):
+            trained = labels is None or labels[n] == "train"
+            p.requires_grad_(trained)
+            (self._named if trained else self._frozen).append((n, p))
         self.device = self._named[0][1].device
         self.optimizer = make_optimizer(cfg)
         self.opt_state = self.optimizer.init([p for _, p in self._named])
+        # optimizer offload: pinned host buffers, allocated at the first
+        # offload and reused; an event marks the end of the last copy out
+        self._opt_host: list[torch.Tensor] | None = None
+        self._opt_offloaded = False
+        self._offload_done: torch.cuda.Event | None = None
         # sum of loss_scales accumulated since the last optimizer step: a
         # tail flush renormalizes by it (mean over the micros it holds)
         self._accum_scale = 0.0
 
     def export_params(self) -> dict:
-        """The parameters in the plain layout the rollout engine takes."""
-        return self.params
+        """The parameters in the plain layout the rollout engine takes: the
+        adapters merged into their bases (``lora.merge_lora``, a new tree)
+        under LoRA, else the parameters themselves."""
+        if not self._lora:
+            return self.params
+        from polyrl_tpu_torch.models import lora as lora_mod
+
+        with torch.no_grad():
+            return lora_mod.merge_lora(self.params)
 
     def state_dict(self) -> dict[str, torch.Tensor]:
         """Parameters and optimizer state (``train_state``)."""
-        return train_state(self._named, self.opt_state)
+        self._wait_offloaded()
+        return train_state(self._named, self.opt_state, self._frozen,
+                           lora_alphas(self.params))
 
     def load_state_dict(self, flat: dict[str, torch.Tensor]) -> None:
-        load_train_state(self._named, self.opt_state, flat)
+        self._wait_offloaded()
+        load_train_state(self._named, self.opt_state, flat, self._frozen,
+                         lora_alphas(self.params))
+
+    # -- optimizer offload (reference actor.py:275-298) ------------------------
+
+    def offload_opt_state(self) -> None:
+        """Move the AdamW moments into pinned host buffers (allocated once,
+        reused), freeing their device memory for generation. The copies
+        are queued on the current stream without blocking; a no-op unless
+        ``offload_optimizer``."""
+        if not self.cfg.offload_optimizer or self._opt_offloaded:
+            return
+        dev_state = self.opt_state.mu + self.opt_state.nu
+        if self._opt_host is None:
+            pin = self.device.type == "cuda"
+            self._opt_host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                              for t in dev_state]
+        for h, d in zip(self._opt_host, dev_state):
+            h.copy_(d, non_blocking=True)
+        if self.device.type == "cuda":
+            self._offload_done = torch.cuda.Event()
+            self._offload_done.record()
+        n = len(self.opt_state.mu)
+        self.opt_state.mu = self._opt_host[:n]
+        self.opt_state.nu = self._opt_host[n:]
+        self._opt_offloaded = True
+
+    def load_opt_state(self) -> None:
+        """Bring offloaded moments back to the device, queued without
+        blocking on the current stream (the default one), so the copies
+        run before the update's first kernel."""
+        if not self._opt_offloaded:
+            return
+        self.opt_state.mu = [h.to(self.device, non_blocking=True)
+                             for h in self.opt_state.mu]
+        self.opt_state.nu = [h.to(self.device, non_blocking=True)
+                             for h in self.opt_state.nu]
+        self._opt_offloaded = False
+
+    def _wait_offloaded(self) -> None:
+        """The host reads the pinned buffers only after the copies out."""
+        if self._opt_offloaded and self._offload_done is not None:
+            self._offload_done.synchronize()
 
     def _loss_fn(self, batch: dict, loss_scale: float):
         cfg = self.cfg
@@ -463,6 +543,7 @@ class StreamActor:
         responses, response_mask, advantages, old_log_probs [,
         ref_log_probs] as host arrays or tensors. Returns float metrics."""
         feed = _to_device(batch, self.device)
+        self.load_opt_state()
         with torch.enable_grad():
             loss, metrics = self._loss_fn(feed, loss_scale)
             loss.backward()
@@ -476,6 +557,7 @@ class StreamActor:
         """Apply the accumulated gradients without new data (a short batch
         ending mid-minibatch), renormalized by the summed loss_scale so the
         partial minibatch's update has the scale of a full one."""
+        self.load_opt_state()
         inv = 1.0 / self._accum_scale if self._accum_scale > 0 else 1.0
         metrics = self._opt_step(inv)
         self._accum_scale = 0.0

@@ -15,10 +15,14 @@ bounded-staleness admission gate, truncated importance correction), PPO
 with a critic and GAE (``trainer/critic.py``), packed rows
 (``use_remove_padding``, ``data/packing.py``: the logprob, value and update
 passes on ``[n_rows, pack_len]`` grids through K4 with segment ids),
-checkpoint/resume (``utils/checkpoint.py``) and validation.
+checkpoint/resume (``utils/checkpoint.py``), validation, LoRA actors
+(the push sends ``actor.export_params()``, the merged plain tree, so the
+engine never holds a wrapper), optimizer offload after each step's push,
+and step profiling (``profile_steps`` through ``torch.profiler``;
+consecutive profiled steps share one trace under ``profile_dir``).
 
 Not ported yet, each refused with a clear error: remote (disaggregated)
-rollout, LoRA delta sync, step profiling, the observability planes
+rollout and LoRA delta sync (ROADMAP A' 7), the observability planes
 (tracing, goodput, health ledger, flight recorder, statusz) and
 multi-host.
 """
@@ -29,6 +33,7 @@ import dataclasses
 import json
 import logging
 import os
+import tempfile
 import time
 from typing import Callable
 
@@ -102,8 +107,8 @@ class TrainerConfig:
     # run
     total_steps: int = 10
     seed: int = 0
-    profile_steps: tuple = ()             # not ported yet
-    profile_dir: str = "/tmp/polyrl_profile"
+    profile_steps: tuple = ()             # 1-based global steps to trace
+    profile_dir: str = ""                 # "" -> <tempdir>/polyrl_profile
     # validation
     test_freq: int = 0                    # validate every N steps (0 = off)
     val_before_train: bool = False
@@ -166,14 +171,15 @@ class TrainerConfig:
 
 
 def _unported(cfg: TrainerConfig, rollout) -> str | None:
-    """The first configured feature this port does not run yet, or None."""
+    """Why the trainer refuses this configuration, or None."""
     if not hasattr(rollout, "generate") or hasattr(rollout, "generate_stream"):
-        return "remote (disaggregated) rollout"
-    for bad, what in (
-            (cfg.weight_sync != "full", "LoRA delta weight sync"),
-            (bool(cfg.profile_steps), "step profiling (profile_steps)")):
-        if bad:
-            return what
+        return ("remote (disaggregated) rollout is not ported to "
+                "polyrl_tpu_torch yet (ROADMAP A' 7)")
+    if cfg.weight_sync == "lora_delta":
+        return ("weight_sync=lora_delta requires rollout.mode=disaggregated "
+                "(a colocated in-process engine holds the plain tree; "
+                "adapter pushes target workers serving --lora-rank), which "
+                "is not ported to polyrl_tpu_torch yet (ROADMAP A' 7)")
     return None
 
 
@@ -203,8 +209,7 @@ class StreamRLTrainer:
             raise ValueError("GAE requires a critic")
         missing = _unported(cfg, rollout)
         if missing is not None:
-            raise NotImplementedError(
-                f"{missing} is not ported to polyrl_tpu_torch yet (ROADMAP A')")
+            raise NotImplementedError(missing)
         if cfg.pipeline_depth > 0 and not cfg.rollout_is_correction:
             log.warning(
                 "pipeline_depth=%d without rollout_is_correction: rollouts "
@@ -234,6 +239,42 @@ class StreamRLTrainer:
                       if cfg.ckpt_dir else None)
         self._esi_expiry = ckpt_lib.esi_expiry_from_env()
         self._flops = FlopsCounter(actor.model_cfg, n_chips=1)
+        self._profiler = None  # the open torch.profiler trace, if any
+        self._profiled: list[int] = []
+        self.profile_traces: list[str] = []  # traces written so far
+
+    # -- profiling (reference _profile_gate) -------------------------------
+
+    def _profile_gate(self, about_to_run: int) -> None:
+        """Start or stop a ``torch.profiler`` trace so that consecutive
+        profiled steps share one trace; it is written on stop as
+        ``<profile_dir>/trace_steps_<first>-<last>.json`` (Chrome format).
+        ``about_to_run=-1`` closes an open trace."""
+        cfg = self.cfg
+        want = about_to_run in cfg.profile_steps
+        if want and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.actor.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+            self._profiled = []
+        elif not want and self._profiler is not None:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self._profiler.stop()
+            out_dir = cfg.profile_dir or os.path.join(tempfile.gettempdir(),
+                                                      "polyrl_profile")
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(out_dir, f"trace_steps_{self._profiled[0]}-"
+                                         f"{self._profiled[-1]}.json")
+            self._profiler.export_chrome_trace(path)
+            self.profile_traces.append(path)
+            self._profiler = None
+        if want:
+            self._profiled.append(about_to_run)
 
     # -- checkpoint/resume -------------------------------------------------
 
@@ -738,6 +779,7 @@ class StreamRLTrainer:
             else None)
         try:
             while self.global_step < cfg.total_steps:
+                self._profile_gate(self.global_step + 1)
                 metrics = MetricsTracker()
                 step_t0 = time.monotonic()
                 if pipeline is None:
@@ -753,6 +795,9 @@ class StreamRLTrainer:
                 state = self._train_one_batch(source, metrics)
                 with marked_timer("update_weight", metrics):
                     self._push_weights(block=cfg.pipeline_depth == 0)
+                # free the optimizer's device memory for generation (a
+                # no-op unless actor.cfg.offload_optimizer)
+                self.actor.offload_opt_state()
                 self.global_step += 1
                 step_time = time.monotonic() - step_t0
                 throughput = state["n_tokens"] / step_time if step_time else 0.0
@@ -782,6 +827,7 @@ class StreamRLTrainer:
         finally:
             if pipeline is not None:
                 pipeline.close()
+            self._profile_gate(-1)  # close an open trace
         self._wait_pushed()  # the last push lands before fit returns
         if self._ckpt is not None:
             self._ckpt.wait()

@@ -23,7 +23,16 @@ place, so a writer thread reading them during the next optimizer step
 would save a torn state), then a thread writes the files into a temporary
 directory and renames it to ``global_step_<N>``. ``wait`` joins that
 thread and raises what it raised; ``save`` waits for the previous one
-first.
+first. The host copies go into staging buffers allocated at the first
+save and reused by the next ones (pinned for device tensors: a pageable
+copy would stall on the stream; ``save`` waiting for the previous write
+keeps the writer and the next snapshot apart).
+
+Wrapped trees: an item may be a nested tree whose leaves are tensors or
+the ``models/quant.py`` wrappers (``QuantWeight``, ``LoraWeight``); it is
+saved flat (``quant.flatten``: dotted names, each LoRA ``alpha`` a 0-d
+tensor) and ``unflatten_tree`` rebuilds it from what ``restore`` returns,
+with the wrapper types, ``alpha`` and an int8 base intact.
 """
 
 from __future__ import annotations
@@ -37,6 +46,13 @@ import threading
 import time
 
 import torch
+
+from polyrl_tpu_torch.models.quant import flatten as flatten_tree
+from polyrl_tpu_torch.models.quant import unflatten as unflatten_tree
+
+__all__ = ["CheckpointManager", "find_latest_ckpt_path", "latest_step",
+           "should_save_checkpoint", "esi_expiry_from_env", "flatten_tree",
+           "unflatten_tree"]
 
 _STEP_RE = re.compile(r"^global_step_(\d+)$")
 _META = "meta.json"
@@ -87,12 +103,6 @@ def esi_expiry_from_env() -> float | None:
         return None
 
 
-def _host_copy(flat: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """A host copy of each tensor, taken now (a CPU tensor is cloned: its
-    owner may update it in place)."""
-    return {k: v.detach().to("cpu", copy=True) for k, v in flat.items()}
-
-
 class CheckpointManager:
     """Save and restore of the trainer's state, one file per item."""
 
@@ -104,20 +114,48 @@ class CheckpointManager:
         self._error: BaseException | None = None
         # seconds the last save spent writing its files (after its snapshot)
         self.last_write_s = 0.0
+        # seconds the last save's host snapshot took (``save``'s own wall)
+        self.last_snapshot_s = 0.0
+        # (item, name) -> host staging buffer, reused across saves
+        self._staging: dict[tuple[str, str], torch.Tensor] = {}
 
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, items: dict[str, dict[str, torch.Tensor]],
              meta: dict | None = None) -> None:
-        """``items``: name -> flat ``{name: tensor}`` dict. Returns once the
-        host copies are taken; the files are written in the background."""
+        """``items``: name -> a flat ``{name: tensor}`` dict or a (wrapped)
+        tree. Returns once the host copies are taken; the files are written
+        in the background."""
         self.wait()
-        snapshot = {name: _host_copy(flat) for name, flat in items.items()}
+        t0 = time.monotonic()
+        snapshot = {name: self._host_copy(name, flatten_tree(tree))
+                    for name, tree in items.items()}
+        self.last_snapshot_s = time.monotonic() - t0
         meta = dict(meta or {})
         self._thread = threading.Thread(
             target=self._write_guarded, args=(step, snapshot, meta),
             name="checkpoint-writer", daemon=True)
         self._thread.start()
+
+    def _host_copy(self, item: str, flat: dict[str, torch.Tensor]
+                   ) -> dict[str, torch.Tensor]:
+        """A host copy of each tensor, taken now, into this item's staging
+        buffers (a CPU tensor is copied too: its owner may update it in
+        place). Device tensors are copied without blocking into pinned
+        buffers, then the device is synchronised once."""
+        out, on_card = {}, False
+        for k, v in flat.items():
+            v = v.detach()
+            buf = self._staging.get((item, k))
+            if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
+                buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=v.is_cuda)
+                self._staging[(item, k)] = buf
+            buf.copy_(v, non_blocking=v.is_cuda)
+            on_card |= v.is_cuda
+            out[k] = buf
+        if on_card:
+            torch.cuda.synchronize()
+        return out
 
     def _write_guarded(self, step, snapshot, meta) -> None:
         try:

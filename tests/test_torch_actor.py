@@ -234,10 +234,11 @@ def test_schedules_match_optax(kw, total):
 
 
 def test_unported_actor_options_raise():
+    """Meshes still refuse; LoRA and optimizer offload are ported and
+    construct (``tests/test_torch_lora.py``, the offload test below)."""
     _jcfg, tcfg, tree = _models()
     for kw in (dict(lora_rank=4), dict(offload_optimizer=True)):
-        with pytest.raises(NotImplementedError):
-            tactor.StreamActor(tcfg, tactor.ActorConfig(**kw), _tparams(tree))
+        tactor.StreamActor(tcfg, tactor.ActorConfig(**kw), _tparams(tree))
     with pytest.raises(NotImplementedError):
         tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree), mesh=object())
 
@@ -293,3 +294,50 @@ def test_double_where_keeps_masked_nans_out_of_the_gradient():
     assert (lp[1, 3:] == 0).all() and (ent[1, 3:] == 0).all()
     (lp.sum() + ent.sum()).backward()
     assert torch.isfinite(head.grad).all()
+
+
+@pytest.mark.parametrize("lora_rank", [0, 4], ids=["full", "lora"])
+def test_optimizer_offload_is_bitwise_and_host_resident(lora_rank):
+    """Two steps with the moments offloaded after each (the reference's
+    ``test_optimizer_host_offload_roundtrip``): the parameters bitwise
+    those of the same steps without offload; between steps every moment
+    lives on the host in the buffers allocated at the first offload (the
+    same tensors each time), and the state dict reads them there."""
+    _jcfg, tcfg, tree = _models()
+
+    def run(offload):
+        a = tactor.StreamActor(tcfg, tactor.ActorConfig(
+            lr=1e-3, remat=False, offload_optimizer=offload,
+            lora_rank=lora_rank), _tparams(tree))
+        bufs = None
+        for i in range(2):
+            a.update_stream(_batch(30 + i), is_opt_step=True)
+            a.offload_opt_state()
+            if offload:
+                assert a._opt_offloaded
+                host = a.opt_state.mu + a.opt_state.nu
+                assert all(t.device.type == "cpu" for t in host)
+                if bufs is not None:
+                    assert all(x is y for x, y in zip(host, bufs))
+                bufs = host
+                assert a.state_dict()["opt.count"] == i + 1
+            else:
+                assert not a._opt_offloaded
+        return _flat_np(quant_tree_plain(a.params)), a
+
+    got, a_off = run(True)
+    want, a_on = run(False)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    a_off.load_opt_state()
+    for x, y in zip(a_off.opt_state.mu + a_off.opt_state.nu,
+                    a_on.opt_state.mu + a_on.opt_state.nu):
+        assert torch.equal(x, y)
+
+
+def quant_tree_plain(tree):
+    """A (possibly LoRA-wrapped) tree as ``{name: tensor}``."""
+    from polyrl_tpu_torch.models.quant import named_leaves
+
+    return dict(named_leaves(tree))

@@ -603,10 +603,11 @@ def test_cuda_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
         flash.flash_attention_train(x, x, x, mask)
 
 
-def _small_engine(device, seed=0, **kw):
+def _small_engine(device, seed=0, int8=False, **kw):
     """A 2-layer bf16 qwen3-shaped model (head_dim 64, qk-norm, tied
-    embeddings) behind a CBEngine on the card, not started."""
-    from polyrl_tpu_torch.models import decoder
+    embeddings) behind a CBEngine on the card, not started; ``int8``
+    serves its projections quantized (``quant.quantize_params``)."""
+    from polyrl_tpu_torch.models import decoder, quant
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
 
     cfg = decoder.ModelConfig(
@@ -616,6 +617,8 @@ def _small_engine(device, seed=0, **kw):
         max_position_embeddings=4096, dtype=torch.bfloat16)
     gen = torch.Generator(device=device).manual_seed(11)
     params = decoder.init_params(gen, cfg)
+    if int8:
+        params = quant.quantize_params(params)
     geom = dict(max_slots=16, page_size=16, max_seq_len=256,
                 prompt_buckets=(32, 64), num_pages=64, steps_per_dispatch=4,
                 seed=seed, device=device)
@@ -623,14 +626,17 @@ def _small_engine(device, seed=0, **kw):
 
 
 @pytest.mark.cuda
-def test_cuda_engine_dispatch_graph_replay_equals_eager(cuda_device):
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_engine_dispatch_graph_replay_equals_eager(cuda_device, int8):
     """The engine's captured k-step dispatch, replayed, gives the eager
     body's greedy tokens, logprobs, done flags, device state and pools
-    bitwise, for an ungrouped key (K2) and a grouped one (K3); each replay
-    credits the launches its capture recorded."""
+    bitwise, for an ungrouped key (K2) and a grouped one (K3), with bf16
+    weights and with int8 ones (each product's dequantized copy allocated
+    inside the graph's pool); each replay credits the launches its capture
+    recorded."""
     from polyrl_tpu_torch.rollout.sampling import SamplingParams
 
-    eng, cfg = _small_engine(cuda_device)
+    eng, cfg = _small_engine(cuda_device, int8=int8)
     rng = np.random.default_rng(8)
     sp = SamplingParams(temperature=0.0, max_new_tokens=40)
     prompt = rng.integers(1, cfg.vocab_size, 40).tolist()  # 2 shared pages

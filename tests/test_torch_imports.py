@@ -1,6 +1,9 @@
 """The port stands alone: ``polyrl_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package, and the entry points refuse
-to fall back to the CPU unless asked."""
+neither JAX nor anything of the JAX package, nor ``safetensors`` or
+``transformers``, which the card's image lacks (the port reads
+safetensors itself; the one exception is ``utils/tokenizer.py``'s guarded
+import of a Hugging Face tokenizer, which falls back to bytes without
+it), and the entry points refuse to fall back to the CPU unless asked."""
 
 import ast
 import pathlib
@@ -30,7 +33,10 @@ def _imported_modules(path):
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path)
            if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "optax"))
-           or m == "polyrl_tpu" or m.startswith("polyrl_tpu.")]
+           or m == "polyrl_tpu" or m.startswith("polyrl_tpu.")
+           or m.split(".")[0] == "safetensors"
+           or (m.split(".")[0] == "transformers"
+               and path.name != "tokenizer.py")]
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -44,6 +50,8 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['polyrl_tpu'] = None\n"
+        "sys.modules['safetensors'] = None\n"
+        "sys.modules['transformers'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "import chip_smoke\n"

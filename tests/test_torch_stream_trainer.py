@@ -8,6 +8,8 @@ exact f32 on both sides in another reduction order (the advantage is a
 z-score of per-sequence rewards, which are equal on both sides).
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -130,20 +132,21 @@ def test_gae_and_unported_features_are_refused():
         def generate_stream(self, *a, **k):
             raise AssertionError
 
-    with pytest.raises(NotImplementedError, match="remote"):
+    with pytest.raises(NotImplementedError, match="remote.*A' 7"):
         StreamRLTrainer(TrainerConfig(**base), actor, Remote(), tok, None, None)
     engine.stop()
 
 
-@pytest.mark.parametrize("extra", [dict(weight_sync="lora_delta"),
-                                   dict(profile_steps=(1,))],
-                         ids=["lora_delta", "profile_steps"])
+@pytest.mark.parametrize("extra", [dict(weight_sync="lora_delta")],
+                         ids=["lora_delta"])
 def test_still_unported_trainer_features_are_refused(extra):
+    """LoRA delta sync needs disaggregated rollout: refused with the
+    reference's message, naming ROADMAP A' 7."""
     cfg, params, tok, engine = make_parts()
     actor = StreamActor(cfg, ActorConfig(remat=False), params)
     base = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
                 micro_batch_size=4, min_stream_batch_size=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="disaggregated.*A' 7"):
         StreamRLTrainer(TrainerConfig(**base, **extra), actor, engine, tok,
                         None, None)
     engine.stop()
@@ -151,11 +154,14 @@ def test_still_unported_trainer_features_are_refused(extra):
 
 @pytest.mark.parametrize("extra", [dict(pipeline_depth=1, rollout_is_correction=True),
                                    dict(use_remove_padding=True),
-                                   dict(ckpt_dir="CKPT"), dict(test_freq=2)],
-                         ids=["pipeline", "remove_padding", "ckpt", "validation"])
+                                   dict(ckpt_dir="CKPT"), dict(test_freq=2),
+                                   dict(profile_steps=(1,))],
+                         ids=["pipeline", "remove_padding", "ckpt", "validation",
+                              "profile_steps"])
 def test_features_that_were_refused_now_construct(extra, tmp_path):
-    """The pipelined trainer, packed rows, checkpoints and validation
-    construct (each is exercised end to end in its own test file)."""
+    """The pipelined trainer, packed rows, checkpoints, validation and
+    step profiling construct (each is exercised end to end in its own
+    test)."""
     cfg, params, tok, engine = make_parts()
     if "ckpt_dir" in extra:
         extra = dict(ckpt_dir=str(tmp_path / "ck"))
@@ -377,3 +383,65 @@ def test_engine_owns_its_weights():
     with torch.no_grad():
         params["embed"].zero_()
     assert not torch.equal(engine.params["embed"], params["embed"])
+
+
+def _fit_parts(total_steps=2, **tkw):
+    cfg, params, tok, engine = make_parts()
+    tcfg = TrainerConfig(
+        train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
+        micro_batch_size=4, min_stream_batch_size=4,
+        max_prompt_length=16, max_response_length=8,
+        adv_estimator="grpo", total_steps=total_steps, **tkw)
+    return cfg, params, tok, engine, tcfg
+
+
+def test_profile_steps_write_one_trace(tmp_path):
+    """``profile_steps=(2,)`` traces step 2 only, through torch.profiler,
+    and writes its trace under ``profile_dir`` (the reference's
+    ``test_profiler_step_gating``); steps 2-3 profiled share one trace."""
+    for steps, want in (((2,), "trace_steps_2-2.json"),
+                        ((2, 3), "trace_steps_2-3.json")):
+        cfg, params, tok, engine, tcfg = _fit_parts(
+            total_steps=3, profile_steps=steps,
+            profile_dir=str(tmp_path / f"prof{len(steps)}"))
+        actor = StreamActor(cfg, ActorConfig(lr=1e-4, remat=False), params)
+        trainer = StreamRLTrainer(
+            tcfg, actor, engine, tok,
+            load_reward_manager("naive", tok, num_workers=1),
+            PromptDataLoader(make_arithmetic_dataset(64), tcfg.train_batch_size))
+        try:
+            trainer.fit()
+        finally:
+            engine.stop()
+        assert trainer._profiler is None
+        files = sorted(p.name for p in (tmp_path / f"prof{len(steps)}").iterdir())
+        assert files == [want]
+        trace = json.loads((tmp_path / f"prof{len(steps)}" / want).read_text())
+        assert trace["traceEvents"], "empty trace"
+        assert trainer.profile_traces == [str(tmp_path / f"prof{len(steps)}" / want)]
+
+
+def test_offload_fit_matches_no_offload_and_moments_stay_on_host():
+    """The colocated GRPO fit with ``offload_optimizer``: the moments are
+    offloaded after each step's push and the run is bitwise the same
+    without it (greedy sampling keeps both runs on the same tokens)."""
+    outs = []
+    for offload in (True, False):
+        cfg, params, tok, engine, tcfg = _fit_parts(temperature=0.0)
+        actor = StreamActor(cfg, ActorConfig(lr=1e-3, remat=False,
+                                             use_kl_loss=True,
+                                             offload_optimizer=offload), params)
+        trainer = StreamRLTrainer(
+            tcfg, actor, engine, tok,
+            load_reward_manager("naive", tok, num_workers=1),
+            PromptDataLoader(make_arithmetic_dataset(64), tcfg.train_batch_size,
+                             shuffle=False),
+            ref_policy=ReferencePolicy(cfg, params))
+        try:
+            trainer.fit()
+        finally:
+            engine.stop()
+        assert actor._opt_offloaded == offload
+        outs.append({k: v.detach().clone() for k, v in _leaves(actor.params)})
+    for k in outs[0]:
+        assert torch.equal(outs[0][k], outs[1][k]), k
