@@ -168,7 +168,45 @@ when CUDA is unavailable or any phase fails. Phases:
               ``actor.offload_optimizer=true trainer.profile_steps=2``:
               memory each offload frees, offload and load seconds, and a
               torch.profiler trace of step 2 naming K4's kernels.
-9. result  -- the card's name and power limit, a ``{"kernels": [...]}``
+9. features -- the CB engine's serving features on ``qwen3-1.7b`` at full
+              width and depth (bf16, weights from seed 0, 64 slots, page
+              64, 2,048 pages, run-ahead depth 16). salvage: a greedy
+              stream of budget 400 aborted after its 5th token delivers
+              every token of the dispatches issued for it before the
+              ``abort`` terminal (1 + 8 per dispatch), ``tokens_salvaged``
+              is what the drain delivered, and prompt + partial
+              resubmitted hits the salvage-published pages and stitches to
+              the uninterrupted run up to its first near-tie (a top-2
+              logit gap under 0.05 in the dense forward); abort-to-terminal
+              latency with salvage on and off in turns. chunked: a
+              3,000-token prompt with ``prefill_chunk`` 512 against 0,
+              first-token logprobs within 0.05 nats and greedy tokens
+              equal up to the first near-tie, the peak memory of each; with
+              16 greedy streams decoding, a decode dispatch between
+              consecutive chunks and the streams' tok/s over the
+              admission. spec: ``spec_tokens`` 4, ``spec_rounds`` 2 on the
+              serve mix plus a repetitive greedy prompt, in turns with the
+              plain engine: greedy streams equal up to the first
+              near-tie, within 0.15 nats of the dense f32 forward, launches
+              from zero (the fused prologue and K2, no K3), the spec
+              dispatch's replay bitwise its eager body, the sampled verify
+              rows inside their filtered sets, acceptance, tok/s and
+              device ms per dispatch against the plain 8-step dispatch.
+              warmup/release: over HTTP, release frees at least 14 GB and
+              the captured graphs, resume, ``warmup()`` captures every
+              decode key up front (the mix then captures none; its TTFT
+              against the serve phase's), and the same greedy request is
+              bitwise the one before release; the allocator whole after
+              ``stop()``.
+10. step   -- the step backend: ``RolloutEngine.generate`` on 16 prompts of
+              128 tokens x 256 new tokens, greedy, against ``CBEngine`` (one
+              run each, in one call): the same tokens up to the first near-tie, logprobs
+              within 0.15 nats of the dense f32 forward, tok/s of each; a
+              ``backend="step"`` server streams what its engine's
+              ``generate`` gives; 2 GRPO steps through ``build_trainer``
+              with ``rollout.backend=step`` at the train phase's
+              configuration (finite losses, grad norms > 0, K4 launched).
+11. result -- the card's name and power limit, a ``{"kernels": [...]}``
               line, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -3251,6 +3289,835 @@ def offload_checks(dev) -> dict:
 # -- main -----------------------------------------------------------------------
 
 
+# -- phase 9: the engine's serving features (features) ------------------------
+
+# a near-tie is an f32 top-2 logit gap under NEAR_TIE: two greedy runs may
+# part at the reference's first one or later, and only where its gap is
+# under PART_GAP: two bf16 runs that each choose tokens within
+# DENSE_LOGP_TOL of the f32 best (the dense gate) can part only there (on
+# an H100, correct runs parted at gaps of 0.054-0.099: bf16 moves the
+# logits by more than NEAR_TIE)
+NEAR_TIE = 0.05
+PART_GAP = DENSE_LOGP_TOL
+CHUNK_LP_TOL = 0.05    # first-token logprob, chunked against unchunked, nats
+RELEASE_MIN_GB = 14.0  # the KV pool at 2,048 pages is 15.03 GB
+SPEC_TOKENS, SPEC_ROUNDS = 4, 2
+FEATURE_ENGINE = dict(max_slots=S, page_size=PS, max_seq_len=4096,
+                      num_pages=2048, steps_per_dispatch=8, seed=0)
+# the live streams' budget while the long prompt chunks in: 48 dispatches,
+# so that decode dispatches are still being issued through the admission
+LIVE_NEW = 384
+
+
+def dense_f32_rows(params32, cfg, prompt, tokens, dev) -> torch.Tensor:
+    """The dense f32 forward's log-softmax [len(tokens), V] over ``prompt``
+    + ``tokens``: row ``j`` is the distribution that predicts
+    ``tokens[j]``."""
+    x = torch.tensor([list(prompt) + list(tokens)], device=dev)
+    pos = torch.arange(x.shape[1], device=dev)[None]
+    with torch.no_grad():
+        h = decoder.forward_hidden(params32, cfg, x, pos,
+                                   torch.ones_like(x, dtype=torch.float32),
+                                   attn_fn=flash.flash_attention_train_ref)
+        logits = decoder.unembed(h[0, len(prompt) - 1:-1],
+                                 decoder.head_weight(params32, cfg)).float()
+    return torch.log_softmax(logits, dim=-1)
+
+
+def top2_gaps(params32, cfg, prompt, tokens, dev) -> np.ndarray:
+    """The dense f32 forward's top-2 logit gap at each generated position
+    of ``tokens`` after ``prompt``: where it is under ``NEAR_TIE``, another
+    greedy run may take the other token."""
+    top2 = dense_f32_rows(params32, cfg, prompt, tokens, dev).topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).cpu().numpy()
+
+
+def agrees_until_tie(got, ref, gaps) -> tuple[bool, int, int, float]:
+    """(``got`` equals ``ref``, or parts from it no earlier than ``ref``'s
+    first near-tie (``gaps``, ``ref``'s f32 top-2 gaps, under ``NEAR_TIE``)
+    and where ``ref``'s gap is under ``PART_GAP``; the first mismatch; the
+    first near-tie; the gap at the first mismatch, nan when none)."""
+    n = min(len(got), len(ref))
+    first = next((j for j in range(n) if got[j] != ref[j]), n)
+    tie = next((j for j, g in enumerate(gaps) if g < NEAR_TIE), len(gaps))
+    gap = float(gaps[first]) if first < n else float("nan")
+    ok = (len(got) == len(ref) if first == n
+          else first >= tie and gap < PART_GAP)
+    return ok, first, tie, gap
+
+
+def dense_f32_gate(params32, cfg, prompt, tokens, logprobs, dev) -> tuple:
+    """The serve gate's reading for one greedy stream: max |engine - dense
+    f32| logprob of the chosen tokens, and the max f32 gap of the chosen
+    token below the best."""
+    lsm = dense_f32_rows(params32, cfg, prompt, tokens, dev)
+    gen = torch.tensor(list(tokens), device=dev)
+    ref = lsm.gather(-1, gen[:, None])[:, 0]
+    err = (ref - torch.tensor(list(logprobs), device=dev)).abs().max().item()
+    return err, (lsm.max(dim=-1).values - ref).max().item()
+
+
+def f32_copy(params: dict) -> dict:
+    return {k: (f32_copy(v) if isinstance(v, dict) else v.float())
+            for k, v in params.items()}
+
+
+def stream_items(q, timeout: float = 600.0, into: list | None = None) -> list:
+    """An engine output queue read to its end: (arrival time, line), each
+    appended to ``into`` as it arrives."""
+    from polyrl_tpu_torch.rollout.cb_engine import STREAM_END
+
+    items = [] if into is None else into
+    while (item := q.get(timeout=timeout)) is not STREAM_END:
+        items.append((time.monotonic(), item))
+    return items
+
+
+def salvage_checks(eng, cfg, dev, params32) -> dict:
+    """A greedy stream of budget 400 aborted after its 5th token, on the
+    served engine (salvage on, the default): every token of the decode
+    dispatches issued for it reaches the client before the ``abort``
+    terminal, ``tokens_salvaged`` is what the fast path would have dropped
+    (what the drain delivered), and prompt + partial resubmitted with the
+    budget decremented hits the salvage-published pages; the stitched
+    stream equals the uninterrupted run or parts from it at a near-tie,
+    and its logprobs, the continuation's over the published pages
+    included, hold against the dense f32 forward (``params32``). Then the
+    abort-to-terminal latency with salvage on and off, in turns."""
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    rng = np.random.default_rng(21)
+    # 120 tokens: one full page cached at admission, and any decode
+    # dispatch completes the second (a page to salvage)
+    prompt = rng.integers(1, cfg.vocab_size, 120).tolist()
+    budget = 400
+    sp = SamplingParams(temperature=0.0, max_new_tokens=budget)
+    eng.flush_prefix_cache()
+    ref = eng.generate([prompt], sp, timeout=600.0)[0]
+    check(len(ref["token_ids"]) == budget, "the uninterrupted run fell short")
+    gaps = top2_gaps(params32, cfg, prompt, ref["token_ids"], dev)
+
+    def aborted_run(rid: str):
+        ev = threading.Event()
+        d0 = eng.decode_dispatches
+        q = eng.submit(rid, prompt, sp, abort=ev)
+        got, lps = [], []
+        while len(got) < 5:
+            item = q.get(timeout=600)
+            got += item["token_ids"]
+            lps += item["logprobs"]
+        t_abort = time.monotonic()
+        ev.set()
+        items = stream_items(q)
+        latency = items[-1][0] - t_abort
+        got += [t for _, it in items for t in it["token_ids"]]
+        lps += [x for _, it in items for x in it["logprobs"]]
+        check(items[-1][1]["finish_reason"] == "abort",
+              f"{rid}: ended {items[-1][1]['finish_reason']!r}")
+        return got, lps, latency, eng.decode_dispatches - d0
+
+    eng.flush_prefix_cache()
+    seen: dict = {}
+    orig = eng._abort_with_salvage
+
+    def recording():
+        seen["before"] = sum(len(i.emitted) for i in eng._slots
+                             if i is not None and i.req.abort is not None
+                             and i.req.abort.is_set())
+        orig()
+
+    eng._abort_with_salvage = recording
+    salv0, pub0 = eng.tokens_salvaged, eng.salvage_published_pages
+    try:
+        got, got_lps, latency, n_disp = aborted_run("salvage")
+    finally:
+        eng._abort_with_salvage = orig
+    k = len(got)
+    salvaged = eng.tokens_salvaged - salv0
+    published = eng.salvage_published_pages - pub0
+    check(k == 1 + n_disp * eng.steps_per_dispatch,
+          f"salvage: {k} tokens delivered, {n_disp} dispatches issued for the "
+          f"stream decoded {1 + n_disp * eng.steps_per_dispatch}")
+    check(salvaged == k - seen["before"] and salvaged > 0,
+          f"salvage: tokens_salvaged {salvaged}, the drain delivered "
+          f"{k - seen['before']}")
+    ok, first, tie, gap = agrees_until_tie(got, ref["token_ids"][:k], gaps)
+    check(ok, f"salvage: the partial parts from the uninterrupted run at "
+              f"{first} (top-2 gap {gap:.4f}), first near-tie {tie}")
+    hits0 = eng.prefix_cache.hits
+    cont = eng.generate([prompt + got], dataclasses.replace(
+        sp, max_new_tokens=budget - k), timeout=600.0)[0]
+    hit_pages = eng.prefix_cache.hits - hits0
+    check(published > 0 and hit_pages >= published,
+          f"salvage: {published} pages published, the continuation hit "
+          f"{hit_pages}")
+    stitched = got + cont["token_ids"]
+    ok, first, tie, gap = agrees_until_tie(stitched, ref["token_ids"], gaps)
+    check(ok and len(stitched) == budget,
+          f"salvage: the stitched stream parts from the uninterrupted run at "
+          f"{first} (top-2 gap {gap:.4f}, first near-tie {tie}, "
+          f"{len(stitched)} tokens)")
+    err, worst_gap = dense_f32_gate(params32, cfg, prompt, stitched,
+                                    got_lps + cont["logprobs"], dev)
+    check(err <= DENSE_LOGP_TOL and worst_gap <= DENSE_LOGP_TOL,
+          f"salvage: the stitched stream {err:.4f} / {worst_gap:.4f} nats "
+          f"from the dense f32 forward")
+    lat = {True: [], False: []}
+    for flag in (True, False, True, False):
+        eng.salvage_partials = flag
+        eng.flush_prefix_cache()
+        _, _, t_lat, _ = aborted_run(f"lat-{flag}-{len(lat[flag])}")
+        lat[flag].append(t_lat)
+    eng.salvage_partials = True
+    return dict(k=k, salvaged=salvaged, published=published,
+                hit_pages=hit_pages, first=first, tie=tie, gap=gap,
+                dense=(err, worst_gap), n_disp=n_disp,
+                latency_on=lat[True], latency_off=lat[False])
+
+
+def timed_streams(qs: list) -> tuple[list, list]:
+    """Read each queue on its own thread; returns (per-queue items, the
+    threads), the items filling as the lines arrive."""
+    outs = [[] for _ in qs]
+
+    def read(q, out):
+        stream_items(q, into=out)
+
+    threads = [threading.Thread(target=read, args=(q, o), daemon=True)
+               for q, o in zip(qs, outs)]
+    for t in threads:
+        t.start()
+    return outs, threads
+
+
+def chunk_checks(eng, cfg, dev, params32) -> dict:
+    """A 3,000-token seeded prompt with ``prefill_chunk`` 512 against 0 on
+    the served engine: first-token logprobs within ``CHUNK_LP_TOL``, greedy
+    tokens equal or parting at a near-tie, the chunked run's logprobs
+    against the dense f32 forward, the peak memory of each. Then
+    the same admission while 16 greedy streams decode: at least one decode
+    dispatch between consecutive chunks, and the live streams' tok/s over
+    the admission, chunked against unchunked."""
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    rng = np.random.default_rng(22)
+    long_prompt = rng.integers(1, cfg.vocab_size, 3000).tolist()
+    sp = SamplingParams(temperature=0.0, max_new_tokens=32)
+    res = {}
+    for chunk in (512, 0):
+        eng.prefill_chunk = chunk
+        eng.flush_prefix_cache()
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        c0 = eng.chunk_dispatches
+        out = eng.generate([long_prompt], sp, timeout=600.0)[0]
+        torch.cuda.synchronize(dev)
+        res[chunk] = dict(out=out, chunks=eng.chunk_dispatches - c0,
+                          peak_gb=(torch.cuda.max_memory_allocated(dev) - base) / 1e9)
+    check(res[512]["chunks"] == 5 and res[0]["chunks"] == 0,
+          f"chunk dispatches {res[512]['chunks']} / {res[0]['chunks']}")
+    gaps = top2_gaps(params32, cfg, long_prompt, res[0]["out"]["token_ids"], dev)
+    d_lp = abs(res[512]["out"]["logprobs"][0] - res[0]["out"]["logprobs"][0])
+    check(d_lp <= CHUNK_LP_TOL,
+          f"chunked: first-token logprob {d_lp:.4f} nats from unchunked")
+    ok, first, tie, gap = agrees_until_tie(res[512]["out"]["token_ids"],
+                                           res[0]["out"]["token_ids"], gaps)
+    check(ok, f"chunked: greedy tokens part at {first} (top-2 gap {gap:.4f}), "
+              f"first near-tie {tie}")
+    err, worst_gap = dense_f32_gate(params32, cfg, long_prompt,
+                                    res[512]["out"]["token_ids"],
+                                    res[512]["out"]["logprobs"], dev)
+    check(err <= DENSE_LOGP_TOL and worst_gap <= DENSE_LOGP_TOL,
+          f"chunked: {err:.4f} / {worst_gap:.4f} nats from the dense f32 forward")
+    live = {}
+    for chunk in (512, 0):
+        eng.prefill_chunk = chunk
+        eng.flush_prefix_cache()
+        qs = [eng.submit(f"live{chunk}-{i}",
+                         rng.integers(1, cfg.vocab_size, 64).tolist(),
+                         SamplingParams(temperature=0.0, max_new_tokens=LIVE_NEW))
+              for i in range(16)]
+        outs, threads = timed_streams(qs)
+        t0 = time.monotonic()
+        while min(len(o) for o in outs) < 8:
+            check(time.monotonic() - t0 < 120, "live streams did not start")
+            time.sleep(0.005)
+        marks: list = []
+        advance = eng._advance_chunk_job
+
+        def recording():
+            marks.append(eng.decode_dispatches)
+            advance()
+
+        eng._advance_chunk_job = recording
+        try:
+            t_sub = time.monotonic()
+            first_line = stream_items(eng.submit(f"long{chunk}", long_prompt, sp))
+        finally:
+            eng._advance_chunk_job = advance
+        t_first = first_line[0][0]
+        for t in threads:
+            t.join(timeout=600)
+        n_live = sum(1 for o in outs for ts, _ in o if t_sub <= ts <= t_first)
+        live[chunk] = dict(tok_s=n_live / max(t_first - t_sub, 1e-9),
+                           admit_s=t_first - t_sub, marks=marks)
+        if chunk:
+            check(len(marks) == 6 and all(b > a for a, b in zip(marks, marks[1:])),
+                  f"chunked: decode dispatches at each chunk {marks}")
+    eng.prefill_chunk = 0
+    return dict(d_lp=d_lp, first=first, tie=tie, gap=gap, dense=(err, worst_gap),
+                peak_chunked=res[512]["peak_gb"], peak_whole=res[0]["peak_gb"],
+                live=live)
+
+
+def spec_probe_engine(dev, params, cfg, spec_tokens: int):
+    """An engine of the served weights (not started: driven through its
+    internals, with small pools) that has admitted a greedy GRPO group of
+    8, a sampled one with filters (temperature 1, top-p 0.9, top-k 50), two
+    greedy requests and the repetitive greedy prompt, and taken one decode
+    dispatch."""
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    eng = CBEngine(cfg, params, max_slots=S, page_size=PS, max_seq_len=4096,
+                   num_pages=160, steps_per_dispatch=8, seed=3,
+                   spec_tokens=spec_tokens, spec_rounds=SPEC_ROUNDS, device=dev)
+    rng = np.random.default_rng(5)
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=128)
+    sampled = SamplingParams(temperature=1.0, top_p=0.9, top_k=50,
+                             max_new_tokens=128)
+    for g, (n_p, sp) in enumerate(((200, greedy), (203, sampled))):
+        prompt = rng.integers(1, cfg.vocab_size, n_p).tolist()
+        for i in range(8):
+            eng.submit(f"g{g}-{i}", prompt, sp, group_id=f"grp{g}", group_size=8)
+    for i, n_p in enumerate((198, 205)):
+        eng.submit(f"greedy{i}", rng.integers(1, cfg.vocab_size, n_p).tolist(),
+                   greedy)
+    eng.submit("rep", rng.integers(1, cfg.vocab_size, 16).tolist() * 8, greedy)
+    eng._drain_queue()
+    with eng._pool_lock:
+        eng._admit()
+        eng._step_once()
+        eng._drain_emit_q()
+    check(int(eng._active.sum()) == 19, f"{int(eng._active.sum())} active slots")
+    return eng
+
+
+def replay_ms(eng, key, reps: int = 10) -> float:
+    """Device ms of one replay of ``key``'s graph (CUDA events, median),
+    the engine put back where it was."""
+    graph, _ = eng._graphs[key]
+    snap = engine_snapshot(eng)
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    engine_restore(eng, snap)
+    return statistics.median(times)
+
+
+def greedy_futures(eng, params32, cfg, dev, n_future: int) -> dict:
+    """The dense f32 greedy continuation, ``n_future`` tokens, of each
+    active greedy slot's history (its token buffer up to its length, then
+    its last token) on the probe engine: the table [S, n_future], the
+    history lengths [S] and the greedy slots [S] on the card, and per slot
+    the continuation with its top-2 gaps."""
+    st = eng._dev
+    n_rows = st["tok_buf"].shape[0]
+    buf = st["tok_buf"].cpu()
+    seq, last = st["seq_lens"].tolist(), st["last_tokens"].tolist()
+    greedy = (st["active"] & (st["temps"] <= 0)).tolist()
+    table = torch.zeros((n_rows, n_future), dtype=torch.int32)
+    hist_len = torch.zeros((n_rows,), dtype=torch.int32)
+    cont: dict = {}
+    per_slot = {}
+    for s_ in (i for i in range(n_rows) if greedy[i]):
+        hist = buf[s_, :seq[s_]].tolist() + [last[s_]]
+        if tuple(hist) not in cont:
+            toks, gaps = list(hist), []
+            for _ in range(n_future):
+                row = dense_f32_rows(params32, cfg, toks, [0], dev)[0]
+                top2 = row.topk(2)
+                gaps.append(float(top2.values[0] - top2.values[1]))
+                toks.append(int(top2.indices[0]))
+            cont[tuple(hist)] = (toks[len(hist):], np.array(gaps))
+        per_slot[s_] = cont[tuple(hist)]
+        table[s_] = torch.tensor(per_slot[s_][0], dtype=torch.int32)
+        hist_len[s_] = len(hist)
+    return dict(table=table.to(dev), hist_len=hist_len.to(dev),
+                greedy=torch.tensor(greedy, device=dev), per_slot=per_slot)
+
+
+def forced_verify_gates(seen, props, fut, params32, cfg, dev, m) -> dict:
+    """The eager spec dispatch with the greedy slots' drafts forced to the
+    dense f32 greedy continuation (``fut``). Gates: every round accepts
+    drafts on the greedy slots; each verify row ``i`` (``0 <= i < m``:
+    prompt + history + the first ``i`` drafts, so K2 reads the K/V that
+    the fused prologue wrote for the same slot's earlier rows in that
+    layer) holds its logprobs of the f32 best token and of the draft within
+    ``DENSE_LOGP_TOL`` of the dense f32 forward, and each emitted token's
+    f32 logprob is within it of the best; each greedy slot's emitted
+    tokens over the rounds equal the f32 greedy continuation or part from
+    it at a near-tie."""
+    slots = sorted(fut["per_slot"])
+    accepted, err, worst_gap = [], 0.0, 0.0
+    emitted = {s_: [] for s_ in slots}
+    dense: dict = {}
+    for (logits, _t, _p, _k, _uf, toks, _lps, n_acc), (buf, hl, draft) in zip(seen, props):
+        accepted.append(int(n_acc[slots].sum()))
+        lsm_eng = torch.log_softmax(logits.float(), dim=-1)
+        for s_ in slots:
+            hist = buf[s_, :int(hl[s_])].tolist()
+            d = draft[s_].tolist()
+            key = tuple(hist + d)
+            if key not in dense:
+                dense[key] = dense_f32_rows(params32, cfg, hist, d + [0], dev)
+            ref = dense[key]
+            for i in range(m):
+                want = [int(ref[i].argmax())] + d[i:i + 1]
+                t = torch.tensor(want, device=dev)
+                err = max(err, (lsm_eng[s_, i, t] - ref[i, t]).abs().max().item())
+            for i in range(int(n_acc[s_]) + 1):
+                tok = int(toks[s_, i])
+                worst_gap = max(worst_gap, (ref[i].max() - ref[i, tok]).item())
+                emitted[s_].append(tok)
+    # a first round that accepts advances each slot by several tokens, whose
+    # K/V the second round's rows read
+    check(len(accepted) == SPEC_ROUNDS and accepted[0] > 0,
+          f"spec: forced drafts accepted on the greedy slots per round {accepted}")
+    check(err <= DENSE_LOGP_TOL and worst_gap <= DENSE_LOGP_TOL,
+          f"spec: forced verify rows {err:.4f} / {worst_gap:.4f} nats from the "
+          f"dense f32 forward")
+    parts = []
+    for s_ in slots:
+        ref_toks, gaps = fut["per_slot"][s_]
+        got = emitted[s_]
+        ok, first, _tie, gap = agrees_until_tie(got, ref_toks[:len(got)], gaps)
+        check(ok, f"spec: forced slot {s_} parts from the f32 greedy run at "
+                  f"{first} (top-2 gap {gap:.4f})")
+        parts.append((first, len(got)))
+    return dict(accepted=accepted, ceiling=len(slots) * (m - 1), err=err,
+                gap=worst_gap, parts=parts)
+
+
+def spec_graph_checks(dev, params, cfg, params32) -> dict:
+    """The spec dispatch (key ``("spec", True, 5, 2)``) on the probe engine,
+    with the greedy slots' drafts forced to the dense f32 greedy
+    continuation (at random weights prompt lookup proposes what the model
+    rejects, and verify rows past the first would go unchecked): a replay
+    bitwise its eager body from one snapshot (tokens, logprobs, done,
+    emitted, state with the token buffer, pools); ``forced_verify_gates``
+    on the eager run; the sampled rows' emitted tokens inside their
+    filtered sets (the verify sampler's own logits, from the eager run);
+    the device ms of a spec dispatch against the plain 8-step dispatch on a
+    twin engine at the same state, and the tokens each emitted."""
+    import polyrl_tpu_torch.rollout.cb_engine as cbe
+    from polyrl_tpu_torch.rollout import sampling
+
+    eng = spec_probe_engine(dev, params, cfg, SPEC_TOKENS)
+    m = SPEC_TOKENS + 1
+    key = eng._spec_key(True)
+    body = lambda: eng._spec_body(True)  # noqa: E731
+    n_future = SPEC_ROUNDS * m + 1
+    fut = greedy_futures(eng, params32, cfg, dev, n_future)
+    seen, props, rec = [], [], {"on": False}
+    propose, verify = cbe.device_ngram_propose, cbe.spec_verify_sample_vec
+
+    def forced(tok_buf, hist_len, n_draft):
+        off = ((hist_len - fut["hist_len"]).long()[:, None]
+               + torch.arange(n_draft, device=dev)[None])
+        use = fut["greedy"][:, None] & (off >= 0) & (off < n_future)
+        draft = torch.where(use, fut["table"].gather(1, off.clamp(0, n_future - 1)),
+                            propose(tok_buf, hist_len, n_draft)).to(torch.int32)
+        if rec["on"]:
+            props.append((tok_buf.clone(), hist_len.clone(), draft.clone()))
+        return draft
+
+    def recording(logits, draft, gen, temps, top_ps, top_ks, use_filters=True):
+        out = verify(logits, draft, gen, temps, top_ps, top_ks, use_filters)
+        if rec["on"]:
+            seen.append((logits, temps, top_ps, top_ks, use_filters) + out)
+        return out
+
+    cbe.device_ngram_propose = forced
+    cbe.spec_verify_sample_vec = recording
+    try:
+        eng._graphs.pop(key, None)  # captured at setup with plain lookup
+        snap = engine_snapshot(eng)
+        eng._launch(key, body)  # the eager dispatch, then the capture
+        engine_restore(eng, snap)
+        eng._launch(key, body)
+        graph_out, graph_state = engine_outputs(eng)
+        engine_restore(eng, snap)
+        rec["on"] = True
+        eng._spec_body(True)
+        rec["on"] = False
+        eager_out, eager_state = engine_outputs(eng)
+        engine_restore(eng, snap)
+        same = [torch.equal(a, b) for a, b in zip(graph_out, eager_out)]
+        check(all(same) and states_equal(graph_state, eager_state),
+              f"spec: the replay differs from the eager body ({same})")
+        forced_res = forced_verify_gates(seen, props, fut, params32, cfg, dev, m)
+        spec_ms = replay_ms(eng, key)
+    finally:
+        cbe.device_ngram_propose = propose
+        cbe.spec_verify_sample_vec = verify
+    outside, rows = 0, 0
+    for logits, temps, top_ps, top_ks, uf, toks, _lps, n_acc in seen:
+        s, m_, v = logits.shape
+        rep = lambda a: a.repeat_interleave(m_, dim=0)  # noqa: E731
+        scaled = sampling._filtered_scaled(
+            logits.reshape(s * m_, v), rep(temps), rep(top_ps), rep(top_ks),
+            uf).reshape(s, m_, v)
+        kept = scaled.gather(-1, toks.long()[:, :, None])[:, :, 0] > sampling.NEG_INF
+        emitted = torch.arange(m_, device=dev)[None] <= n_acc[:, None]
+        sampled_rows = (snap[0]["active"] & (temps > 0))[:, None] & emitted
+        rows += int(sampled_rows.sum())
+        outside += int((sampled_rows & ~kept).sum())
+    check(rows > 0 and outside == 0,
+          f"spec: {outside} of {rows} sampled tokens outside their filtered sets")
+    emitted = int(graph_out[3].sum())
+    del eng, seen, props
+    plain = spec_probe_engine(dev, params, cfg, 0)
+    tables = plain._decode_group_pack()
+    pkey = plain._graph_key(True, tables)
+    if pkey not in plain._graphs:
+        psnap = engine_snapshot(plain)
+        plain._launch_decode(True, tables)
+        engine_restore(plain, psnap)
+    plain_ms = replay_ms(plain, pkey)
+    plain_tokens = int(plain._active.sum()) * plain.steps_per_dispatch
+    del plain
+    return dict(spec_ms=spec_ms, spec_tokens=emitted, plain_ms=plain_ms,
+                plain_key=str(pkey), plain_tokens=plain_tokens, rows=rows,
+                forced=forced_res)
+
+
+def spec_checks(dev, s1, cfg, params32) -> dict:
+    """``spec_tokens`` 4, ``spec_rounds`` 2 on the serve phase's mix plus a
+    repetitive greedy prompt, through a second server; the mix in turns on
+    both servers. Gates: greedy streams equal the plain engine's or part
+    from it at a near-tie, within ``DENSE_LOGP_TOL`` of the dense f32
+    forward (``params32``); launches from zero over the first spec run: the fused prologue and K2,
+    no K3; then ``spec_graph_checks``."""
+    from polyrl_tpu_torch.rollout.serve import create_server
+
+    bodies, greedy_prompts, _ = serving_mix(cfg.vocab_size)
+    rng = np.random.default_rng(24)
+    rep_prompt = rng.integers(1, cfg.vocab_size, 16).tolist() * 8
+    bodies = bodies + [{"rid": "rep", "input_ids": rep_prompt,
+                        "sampling_params": {"temperature": 0.0,
+                                            "max_new_tokens": 128}}]
+    s2 = create_server(MODEL, device=str(dev), host="127.0.0.1", port=0,
+                       spec_tokens=SPEC_TOKENS, spec_rounds=SPEC_ROUNDS,
+                       **FEATURE_ENGINE)
+    try:
+        eng2 = s2.engine
+        runs = {"spec": [], "plain": []}
+        launches = None
+        for turn, srv in (("spec", s2), ("plain", s1), ("spec", s2),
+                          ("plain", s1)):
+            e0 = (eng2.spec_emitted, eng2.spec_token_ceiling)
+            if launches is None:
+                cuda_build.reset_launch_counts()
+            outs, info0, info = run_mix(srv.port, bodies, f"{turn}{len(runs[turn])}")
+            if launches is None:
+                launches = dict(cuda_build.LAUNCHES)
+            accept = ((eng2.spec_emitted - e0[0])
+                      / max(eng2.spec_token_ceiling - e0[1], 1))
+            runs[turn].append(dict(outs=outs, tok_s=mix_tok_s(outs),
+                                   ttft=[o["lines"][0][0] - o["t0"] for o in outs],
+                                   accept=accept if turn == "spec" else None))
+        check(launches["paged_kv_write_fused"] > 0 and launches["paged_attention"] > 0
+              and launches["grouped_paged_attention"] == 0
+              and launches["paged_kv_write"] == 0,
+              f"spec: launches of the spec mix {json.dumps(launches)}")
+        by_rid = lambda outs: {b["rid"]: o for b, o in zip(bodies, outs)}  # noqa: E731
+        spec_o, plain_o = by_rid(runs["spec"][0]["outs"]), by_rid(runs["plain"][0]["outs"])
+        worst = {}
+        for rid, prompt in (("greedy0", greedy_prompts[0]),
+                            ("greedy1", greedy_prompts[1]), ("rep", rep_prompt)):
+            ref = plain_o[rid]["tokens"]
+            gaps = top2_gaps(params32, cfg, prompt, ref, dev)
+            ok, first, tie, tgap = agrees_until_tie(spec_o[rid]["tokens"], ref, gaps)
+            check(ok, f"spec: {rid} parts from the plain engine at {first} "
+                      f"(top-2 gap {tgap:.4f}), first near-tie {tie}")
+            err, gap = dense_f32_gate(params32, cfg, prompt, spec_o[rid]["tokens"],
+                                      spec_o[rid]["logprobs"], dev)
+            check(err <= DENSE_LOGP_TOL and gap <= DENSE_LOGP_TOL,
+                  f"spec: {rid} {err:.4f} / {gap:.4f} nats from the dense f32 forward")
+            worst[rid] = (round(err, 4), round(gap, 4), first, tie, round(tgap, 4))
+        graphs = spec_graph_checks(dev, eng2.params, cfg, params32)
+        return dict(runs=runs, launches=launches, worst=worst, graphs=graphs,
+                    accept_all=eng2.spec_accept_rate,
+                    spec_dispatches=eng2.spec_dispatches)
+    finally:
+        s2.stop()
+
+
+def warm_release_checks(dev, s1, cfg, serve_ttft) -> dict:
+    """Through the served engine's server: a greedy request; then
+    ``/release_memory_occupation`` (at least ``RELEASE_MIN_GB`` freed) and
+    ``/resume_memory_occupation``; ``warmup()`` on the resumed engine (the
+    ungrouped decode graphs captured up front); the serve mix, which
+    captures no ungrouped key (its GRPO groups' grouped keys are captured
+    at their first dispatch, and logged); the greedy request again,
+    bitwise the one before the release."""
+    port, eng = s1.port, s1.engine
+    bodies, greedy_prompts, _ = serving_mix(cfg.vocab_size)
+    req = {"rid": "same", "input_ids": greedy_prompts[0],
+           "sampling_params": {"temperature": 0.0, "max_new_tokens": 64}}
+    post(port, "/flush_cache", {})
+    before = run_requests(port, [req])[0]
+    torch.cuda.synchronize(dev)
+    m0 = torch.cuda.memory_allocated(dev)
+    post(port, "/release_memory_occupation", {})
+    torch.cuda.synchronize(dev)
+    freed = (m0 - torch.cuda.memory_allocated(dev)) / 1e9
+    check(freed >= RELEASE_MIN_GB and eng._graphs == {},
+          f"release freed {freed:.2f} GB, {len(eng._graphs)} graphs kept")
+    post(port, "/resume_memory_occupation", {})
+    regained = (torch.cuda.memory_allocated(dev) - m0) / 1e9
+    t0 = time.monotonic()
+    eng.warmup()
+    warm_s = time.monotonic() - t0
+    warmed, capture_s = set(eng._graphs), eng.graph_capture_s
+    outs, info0, info = run_mix(port, bodies, "warm")
+    later = [k for k in eng._graphs if k not in warmed]
+    check(all(k[2] is not None for k in later),
+          f"the mix after warmup captured ungrouped keys {later}")
+    post(port, "/flush_cache", {})
+    after = run_requests(port, [dict(req, rid="same-again")])[0]
+    check(after["tokens"] == before["tokens"]
+          and after["logprobs"] == before["logprobs"],
+          "the greedy request after resume differs from the one before release")
+    ttft = [o["lines"][0][0] - o["t0"] for o in outs]
+    return dict(freed_gb=freed, regained_gb=regained, warm_s=warm_s,
+                warm_captures=len(warmed), later=[k[2] for k in later],
+                later_s=eng.graph_capture_s - capture_s, ttft=ttft,
+                serve_ttft=serve_ttft, tok_s=mix_tok_s(outs))
+
+
+def features_phase(dev, serve_ttft: list) -> dict:
+    """salvage, chunked prefill, speculation, warmup and release on
+    ``qwen3-1.7b`` at full width and depth (bf16, weights from seed 0; 64
+    slots, page 64, 2,048 pages, run-ahead depth 16), each step's wall
+    logged."""
+    from polyrl_tpu_torch.rollout.serve import create_server
+
+    s1 = create_server(MODEL, device=str(dev), host="127.0.0.1", port=0,
+                       **FEATURE_ENGINE)
+    out: dict = {}
+    try:
+        cfg = s1.engine.cfg
+        p32 = f32_copy(s1.engine.params)
+        walls = {}
+        for name, fn in (
+                ("salvage", lambda: salvage_checks(s1.engine, cfg, dev, p32)),
+                ("chunked", lambda: chunk_checks(s1.engine, cfg, dev, p32)),
+                ("spec", lambda: spec_checks(dev, s1, cfg, p32)),
+                ("warm_release", lambda: warm_release_checks(dev, s1, cfg,
+                                                             serve_ttft))):
+            t0 = time.monotonic()
+            out[name] = fn()
+            walls[name] = time.monotonic() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["walls"] = walls
+    finally:
+        s1.stop()
+    eng = s1.engine
+    check(eng.allocator.free_count == eng.num_pages - 1,
+          f"{eng.num_pages - 1 - eng.allocator.free_count} pages held after stop()")
+    return out
+
+
+def features_lines(f: dict, smi: str) -> list[str]:
+    s, c, sp, w = f["salvage"], f["chunked"], f["spec"], f["warm_release"]
+    med = lambda xs: statistics.median(xs) * 1e3  # noqa: E731
+    lines = [
+        f"features salvage ({smi}, this run): aborted after 5 tokens, "
+        f"{s['k']} tokens delivered = 1 + {s['n_disp']} dispatches x 8; "
+        f"tokens_salvaged {s['salvaged']}; {s['published']} pages published, "
+        f"the continuation hit {s['hit_pages']}; stitched stream equal to the "
+        f"uninterrupted run up to {s['first']} (top-2 f32 gap there "
+        f"{s['gap']:.4f}; first near-tie {s['tie']}), vs dense f32 "
+        f"{s['dense'][0]:.4f} / {s['dense'][1]:.4f} nats; "
+        f"abort-to-terminal ms, in turns: salvage on "
+        f"{[round(x * 1e3, 1) for x in s['latency_on']]}, off "
+        f"{[round(x * 1e3, 1) for x in s['latency_off']]}",
+        f"features chunked ({smi}, this run): 3000-token prompt, first-token "
+        f"logprob chunked vs whole {c['d_lp']:.4f} nats, greedy equal up to "
+        f"{c['first']} (top-2 f32 gap there {c['gap']:.4f}; first near-tie "
+        f"{c['tie']}), chunked vs dense f32 {c['dense'][0]:.4f} / "
+        f"{c['dense'][1]:.4f} nats; peak memory over the "
+        f"admission chunked {c['peak_chunked']:.2f} GB, whole "
+        f"{c['peak_whole']:.2f} GB; 16 live streams during the admission: "
+        f"chunked {c['live'][512]['tok_s']:.1f} tok/s over "
+        f"{c['live'][512]['admit_s'] * 1e3:.1f} ms (decode dispatches at the "
+        f"chunks {c['live'][512]['marks']}), whole "
+        f"{c['live'][0]['tok_s']:.1f} tok/s over "
+        f"{c['live'][0]['admit_s'] * 1e3:.1f} ms",
+        f"features spec ({smi}, this run): spec_tokens {SPEC_TOKENS}, rounds "
+        f"{SPEC_ROUNDS}; mix of 19 streams in turns tok/s spec "
+        f"{[round(r['tok_s'], 1) for r in sp['runs']['spec']]} vs plain "
+        f"{[round(r['tok_s'], 1) for r in sp['runs']['plain']]}; acceptance "
+        f"{[round(r['accept'], 4) for r in sp['runs']['spec']]} (all "
+        f"{sp['accept_all']:.4f}); TTFT median spec "
+        f"{med(sp['runs']['spec'][0]['ttft']):.1f} ms, plain "
+        f"{med(sp['runs']['plain'][0]['ttft']):.1f} ms; greedy vs plain and "
+        f"dense f32 (err, gap, first mismatch, first near-tie, top-2 f32 gap "
+        f"at the mismatch) {json.dumps(sp['worst'])}; forced drafts (the f32 "
+        f"greedy continuation) on the probe's greedy slots: accepted per "
+        f"round {sp['graphs']['forced']['accepted']} of "
+        f"{sp['graphs']['forced']['ceiling']}, verify rows vs dense f32 "
+        f"{sp['graphs']['forced']['err']:.4f} / {sp['graphs']['forced']['gap']:.4f} "
+        f"nats, (first mismatch, emitted) per slot "
+        f"{sp['graphs']['forced']['parts']}; launches of the first spec mix "
+        f"{json.dumps(sp['launches'])}; device ms per dispatch (19 live "
+        f"slots): spec (forced drafts) {sp['graphs']['spec_ms']:.3f} ms for "
+        f"{sp['graphs']['spec_tokens']} tokens, plain {sp['graphs']['plain_key']} "
+        f"{sp['graphs']['plain_ms']:.3f} ms for {sp['graphs']['plain_tokens']} "
+        f"tokens; sampled verify rows checked {sp['graphs']['rows']}",
+        f"features warmup/release ({smi}, this run): release freed "
+        f"{w['freed_gb']:.2f} GB, resume took back {w['regained_gb']:.2f} GB; "
+        f"warmup {w['warm_s']:.1f} s, {w['warm_captures']} graphs captured, "
+        f"the mix after it no ungrouped key, {len(w['later'])} grouped keys "
+        f"{w['later']} in {w['later_s']:.2f} s, {w['tok_s']:.1f} tok/s, TTFT median "
+        f"{med(w['ttft']):.1f} ms (serve phase {med(w['serve_ttft']):.1f} ms), "
+        f"max {max(w['ttft']) * 1e3:.1f} ms (serve phase "
+        f"{max(w['serve_ttft']) * 1e3:.1f} ms); greedy after resume bitwise",
+        f"features walls ({smi}, this run): "
+        + json.dumps({k: round(v, 1) for k, v in f["walls"].items()}),
+    ]
+    return lines
+
+
+# -- phase 10: the step backend (step) ------------------------------------------
+
+STEP_STREAMS, STEP_PROMPT, STEP_NEW = 16, 128, 256
+STEP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+
+
+def step_phase(dev) -> dict:
+    """``RolloutEngine.generate`` on 16 seeded prompts of 128 tokens x 256
+    new tokens, greedy, against ``CBEngine`` on the same requests (in
+    the same call): the same tokens up to the first near-tie, logprobs within
+    ``DENSE_LOGP_TOL`` of the dense f32 forward, tok/s of each. A server
+    with ``backend="step"`` streams the tokens its engine's ``generate``
+    gives. Then 2 GRPO steps through ``build_trainer`` with
+    ``rollout.backend=step`` at the train phase's configuration."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.engine import RolloutEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+    from polyrl_tpu_torch.rollout.serve import create_server
+    from polyrl_tpu_torch.train import build_trainer
+
+    cfg = decoder.get_config(MODEL, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = decoder.init_params(gen, cfg)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(1, cfg.vocab_size, STEP_PROMPT).tolist()
+               for _ in range(STEP_STREAMS)]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=STEP_NEW)
+    reng = RolloutEngine(cfg, params, batch_buckets=(STEP_STREAMS,),
+                         prompt_buckets=(STEP_PROMPT,), device=dev)
+    ceng = CBEngine(cfg, params, max_slots=S, page_size=PS, max_seq_len=4096,
+                    num_pages=256, steps_per_dispatch=8, device=dev)
+    walls = {"step": [], "cb": []}
+    res = {}
+    try:
+        for name in ("step", "cb"):
+            t0 = time.monotonic()
+            if name == "step":
+                got = reng.generate(prompts, sp)
+                outs = [o.output_ids.tolist() for o in got]
+                lps = [o.output_token_logprobs.tolist() for o in got]
+            else:
+                got = ceng.generate(prompts, sp, timeout=600.0)
+                outs, lps = [o["token_ids"] for o in got], [o["logprobs"] for o in got]
+            walls[name].append(time.monotonic() - t0)
+            res[name] = (outs, lps)
+    finally:
+        ceng.stop()
+    del ceng
+    params32 = f32_copy(params)
+    worst = (0.0, 0.0)
+    ties = []
+    for i, prompt in enumerate(prompts):
+        gaps = top2_gaps(params32, cfg, prompt, res["cb"][0][i], dev)
+        ok, first, tie, gap = agrees_until_tie(res["step"][0][i], res["cb"][0][i],
+                                               gaps)
+        check(ok, f"step: stream {i} parts from the CB engine at {first} "
+                  f"(top-2 gap {gap:.4f}), first near-tie {tie}")
+        ties.append((first, tie, round(gap, 4)))
+        err, gap = dense_f32_gate(params32, cfg, prompt, res["step"][0][i],
+                                  res["step"][1][i], dev)
+        check(err <= DENSE_LOGP_TOL and gap <= DENSE_LOGP_TOL,
+              f"step: stream {i} {err:.4f} / {gap:.4f} nats from the dense f32 forward")
+        worst = (max(worst[0], err), max(worst[1], gap))
+    del params32, reng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    srv = create_server(MODEL, device=str(dev), host="127.0.0.1", port=0,
+                        backend="step", batch_buckets=(STEP_STREAMS,),
+                        prompt_buckets=(STEP_PROMPT,), seed=0)
+    try:
+        body = {"rid": "step0", "input_ids": prompts[0],
+                "sampling_params": {"temperature": 0.0, "max_new_tokens": 64}}
+        served = run_requests(srv.port, [body])[0]
+        want = srv.engine.generate([prompts[0]], SamplingParams(
+            temperature=0.0, max_new_tokens=64))[0]
+        check(served["tokens"] == want.output_ids.tolist(),
+              "step: the server's stream differs from the engine's generate")
+        info = post(srv.port, "/get_server_info", None)
+        check(info["backend"] == "step", "step: the server is not the step backend")
+    finally:
+        srv.stop()
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcfg = load_config(None, TRAIN_OVERRIDES + ["rollout.backend=step",
+                                                f"rollout.batch_buckets={STEP_STREAMS}"])
+    cleanup: list = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = build_trainer(tcfg, cleanup, compute_score=byte_length_score)
+    try:
+        check(isinstance(trainer.rollout, RolloutEngine),
+              "rollout.backend=step did not build the step engine")
+        cuda_build.reset_launch_counts()
+        history = trainer.fit()
+        launches = dict(cuda_build.LAUNCHES)
+    finally:
+        for fn in cleanup:
+            fn()
+    check(len(history) == 2, "the step-backend fit did not run 2 steps")
+    for i, rec in enumerate(history, 1):
+        for key in ("actor/pg_loss", "actor/kl_loss", "actor/grad_norm"):
+            check(key in rec and np.isfinite(rec[key]),
+                  f"step fit {i}: {key} missing or not finite")
+        check(rec["actor/grad_norm"] > 0, f"step fit {i}: zero gradient")
+    for name in STEP_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched in the step fit")
+    check(trainer.rollout.weight_version == 3, "step fit: weight_version != 3")
+    n_tok = STEP_STREAMS * STEP_NEW
+    return dict(tok_s={k: [n_tok / w for w in v] for k, v in walls.items()},
+                worst=worst, ties=ties, launches=launches,
+                step_walls=[rec["perf/step_time_s"] for rec in history],
+                gen_walls=[rec.get("timing_s/gen", float("nan")) for rec in history],
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", default=None,
@@ -3330,6 +4197,30 @@ def main() -> int:
                 + json.dumps({k_: out["launches"][k_] for k_ in LORA_KERNELS})
                 + f"; peak {out['peak_gb']:.2f} GB against the train phase's "
                 f"{trained['peak_gb']:.2f}")
+
+    t0 = time.monotonic()
+    feats = features_phase(dev, served["ttft"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in features_lines(feats, smi):
+        log(line)
+    log(f"phase features ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
+    t0 = time.monotonic()
+    stepped = step_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"step ({smi}, this run): 16 x (128 + 256) greedy, tok/s "
+        f"RolloutEngine {[round(x, 1) for x in stepped['tok_s']['step']]} vs "
+        f"CBEngine {[round(x, 1) for x in stepped['tok_s']['cb']]}; vs dense f32 "
+        f"worst {stepped['worst'][0]:.4f} / {stepped['worst'][1]:.4f} nats; "
+        f"(first mismatch, first near-tie, top-2 f32 gap at the mismatch) vs "
+        f"CBEngine {stepped['ties']}; "
+        f"GRPO fit on rollout.backend=step: step walls "
+        f"{[round(x, 2) for x in stepped['step_walls']]} s (gen "
+        f"{[round(x, 2) for x in stepped['gen_walls']]} s), K4 launches "
+        + json.dumps({k_: stepped["launches"][k_] for k_ in STEP_KERNELS})
+        + f", peak {stepped['peak_gb']:.2f} GB")
+    log(f"phase step ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
 
     for r in rows:
         # K1's path is the decode step's unfused route (the serve phase's

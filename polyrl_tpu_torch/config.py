@@ -1,7 +1,7 @@
 """Config system: dataclass tree + YAML + dotted CLI overrides.
 
 Counterpart of ``polyrl_tpu/config.py`` for the sections this port runs:
-model, tokenizer, data, the colocated ``cb`` rollout, reward, trainer,
+model, tokenizer, data, the colocated rollout (``cb`` or ``step``), reward, trainer,
 actor and critic, plus the ``device`` every entry point takes (``cuda`` by default;
 it raises without a card). Nested dataclasses are the schema and the
 defaults, a YAML file overlays them, and ``key.sub=value`` dotted CLI
@@ -48,7 +48,8 @@ class DataSection:
 @dataclass
 class RolloutSection:
     mode: str = "colocated"               # colocated (disaggregated: not ported)
-    backend: str = "cb"                   # cb (step: not ported)
+    backend: str = "cb"                   # cb (paged continuous batching) | step (bucketed)
+    batch_buckets: tuple = ()             # step backend; () -> its defaults
     prompt_buckets: tuple = ()            # () -> the engine's default buckets
     max_slots: int = 64
     page_size: int = 64
@@ -56,6 +57,16 @@ class RolloutSection:
     num_pages: int = 0                    # 0 -> the engine's default pool
     kv_cache_dtype: str = ""              # "" -> model dtype
     steps_per_dispatch: int = 8
+    # chunked prefill (cb): prompts longer than this fill one chunk per
+    # engine iteration, between decode dispatches; a multiple of
+    # page_size, 0 = off
+    prefill_chunk: int = 0
+    # prompt-lookup speculative decoding (cb): draft tokens verified per
+    # round, and rounds per decode dispatch (0 = off)
+    spec_tokens: int = 0
+    spec_rounds: int = 2
+    # aborts and shutdown deliver the tokens in flight first (cb)
+    salvage_partials: bool = True
     admit_wave: int = 8
     admit_reorder_window: int = 8
     group_share: bool = True

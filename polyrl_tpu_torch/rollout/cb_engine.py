@@ -34,11 +34,29 @@ Counterpart of the core of ``polyrl_tpu/rollout/cb_engine.py``:
   on the events and hands the arrays back to the loop thread, which emits
   them. Every output carries the weight version of its dispatch.
   ``pipeline_depth=0`` drains every dispatch: the synchronous engine.
+- Salvage (``salvage_partials``, the default): an aborted slot stays active
+  through a full drain, so every token its dispatches in flight decoded
+  reaches the client before the ``abort`` terminal, and its full pages
+  (prompt + generated) are published to the prefix cache for a
+  continuation; ``stop()`` drains the same way. ``salvage_partials=False``
+  drops what is in flight (the fast abort).
+- Chunked prefill (``prefill_chunk``): a prompt longer than the chunk fills
+  its KV one chunk per loop iteration, between decode dispatches; its last
+  chunk goes through the normal suffix admission.
+- Prompt-lookup speculation (``spec_tokens``): every decode dispatch runs
+  ``spec_rounds`` rounds of n-gram proposal from a device token buffer,
+  one verify forward over ``S * (spec_tokens + 1)`` virtual rows (the
+  fused prologue and K2) and rejection sampling; on the card it is one
+  more CUDA-graph key.
+- Lifecycle: ``warmup`` (every prefill variant once, the ungrouped and
+  spec decode graphs captured up front; a grouped key at its first
+  dispatch), ``release_memory``/``resume_memory`` (the KV pools
+  and the captured graphs freed for a colocated trainer, and rebuilt).
 
 Where the JAX engine donates pools and state, this one updates the pools
-and the device state in place. Not ported yet (see ROADMAP.md):
-speculation, chunked prefill, salvage publishing, the KV ledger, spill
-tier, flight deck and loop profiler, a graph for prefill, and TP meshes.
+and the device state in place. Not ported yet (see ROADMAP.md): the KV
+ledger, spill tier, flight deck and loop profiler, a graph for prefill,
+and TP meshes.
 """
 
 from __future__ import annotations
@@ -56,12 +74,21 @@ import torch
 
 from polyrl_tpu_torch.device import resolve_device
 from polyrl_tpu_torch.models import decoder
-from polyrl_tpu_torch.models.quant import named_leaves, tree_map
+from polyrl_tpu_torch.models.quant import named_leaves
 from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops.paged_attention import grouped_paged_attention
+from polyrl_tpu_torch.rollout.common import (
+    check_same_structure,
+    next_bucket,
+    params_copy,
+)
 from polyrl_tpu_torch.rollout.flightdeck import ThroughputEWMA
 from polyrl_tpu_torch.rollout.prefix_cache import PrefixCache
-from polyrl_tpu_torch.rollout.sampling import SamplingParams, sample_token_vec
+from polyrl_tpu_torch.rollout.sampling import (
+    SamplingParams,
+    sample_token_vec,
+    spec_verify_sample_vec,
+)
 
 log = logging.getLogger(__name__)
 
@@ -75,18 +102,56 @@ _SEQ, _LAST, _NGEN, _BUDGET, _ACTIVE, _TOPK = range(6)
 _NI = 6
 
 
-def next_bucket(n: int, buckets: tuple[int, ...]) -> int:
-    for b in buckets:
-        if n <= b:
-            return b
-    raise ValueError(f"{n} exceeds largest bucket {buckets[-1]}")
-
-
 def _pow2(n: int) -> int:
     b = 1
     while b < n:
         b *= 2
     return b
+
+
+def device_ngram_propose(tok_buf: torch.Tensor, hist_len: torch.Tensor,
+                         n_draft: int) -> torch.Tensor:
+    """Prompt-lookup proposal on the device: for each slot, the latest
+    earlier occurrence of the history's final trigram in ``tok_buf[s,
+    :hist_len[s]]`` (else of its final bigram, else the last token
+    repeated), and the ``n_draft`` tokens that followed it. Continuation
+    positions past the history fall back to the last token. Fixed shapes,
+    no host reads (capture-safe).
+
+    tok_buf: [S, L] int32 (prompt + generated, front-filled)
+    hist_len: [S] valid-prefix lengths
+    returns: [S, n_draft] int32"""
+    s, length = tok_buf.shape
+    dev = tok_buf.device
+    rows = torch.arange(s, device=dev)
+    hl = hist_len.long()
+    t_last = tok_buf[rows, (hl - 1).clamp(0, length - 1)]
+    t_prev = tok_buf[rows, (hl - 2).clamp(0, length - 1)]
+    t_prev2 = tok_buf[rows, (hl - 3).clamp(0, length - 1)]
+    # bigram match at p: buf[p:p+2] == (t_prev, t_last), strictly before
+    # the final bigram (p + 1 < hist_len - 1)
+    idx2 = torch.arange(length - 1, device=dev)
+    m2 = ((tok_buf[:, :-1] == t_prev[:, None])
+          & (tok_buf[:, 1:] == t_last[:, None])
+          & (idx2[None] + 1 < (hl - 1)[:, None]))
+    p2 = torch.where(m2, idx2[None], -1).max(dim=1).values
+    found2 = (p2 >= 0) & (hl >= 3)
+    # trigram match at p, strictly before the final trigram
+    idx3 = torch.arange(length - 2, device=dev)
+    m3 = ((tok_buf[:, :-2] == t_prev2[:, None])
+          & (tok_buf[:, 1:-1] == t_prev[:, None])
+          & (tok_buf[:, 2:] == t_last[:, None])
+          & (idx3[None] + 2 < (hl - 1)[:, None]))
+    p3 = torch.where(m3, idx3[None], -1).max(dim=1).values
+    found3 = (p3 >= 0) & (hl >= 4)
+    start = torch.where(found3, p3 + 3, p2 + 2)
+    found = found3 | found2
+    gather = (start[:, None] + torch.arange(n_draft, device=dev)[None]
+              ).clamp(0, length - 1)
+    cont = tok_buf.gather(1, gather)
+    cont = torch.where(gather < hl[:, None], cont, t_last[:, None])
+    return torch.where(found[:, None], cont,
+                       t_last[:, None].expand(s, n_draft)).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -136,16 +201,6 @@ class PageAllocator:
         self._free.extend(pages)
 
 
-def _params_to(tree: dict, device: torch.device) -> dict:
-    """The engine's own copy of ``tree`` on ``device`` (wrappers such as an
-    int8 ``QuantWeight`` kept). Always a copy, even when a tensor already
-    lies there: a colocated actor updates its parameters in place, and an
-    alias would change the engine's weights with no version bump while the
-    prefix cache still held KV of the old ones (JAX arrays are immutable,
-    so the JAX engine may share them)."""
-    return tree_map(lambda v: v.detach().to(device, copy=True), tree)
-
-
 class CBEngine:
     """Continuous-batching engine; the serving backend of RolloutServer."""
 
@@ -172,13 +227,33 @@ class CBEngine:
         group_share: bool = True,
         decode_group_share: bool = True,
         group_preref_ttl_s: float | None = None,
+        prefill_chunk: int = 0,
+        spec_tokens: int = 0,
+        spec_rounds: int = 2,
+        salvage_partials: bool = True,
         device: str | torch.device = "cuda",
     ):
         if any(b % page_size for b in prompt_buckets):
             raise ValueError("prompt buckets must be page-aligned")
+        if prefill_chunk < 0 or prefill_chunk % page_size:
+            raise ValueError(
+                f"prefill_chunk must be a non-negative multiple of "
+                f"page_size={page_size}, got {prefill_chunk}")
+        if prefill_chunk and prefill_chunk > max(prompt_buckets):
+            raise ValueError(
+                f"prefill_chunk={prefill_chunk} exceeds the largest prompt "
+                f"bucket {max(prompt_buckets)}")
+        if spec_tokens < 0:
+            raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
+        if spec_rounds < 1:
+            raise ValueError(f"spec_rounds must be >= 1, got {spec_rounds}")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = _params_to(params, self.device)
+        # the engine's own copy, even of tensors already on its device: a
+        # colocated actor updates its parameters in place, and an alias
+        # would change the engine's weights with no version bump while the
+        # prefix cache still held KV of the old ones
+        self.params = params_copy(params, self.device)
         self.max_slots = max_slots
         self.page_size = page_size
         self.max_seq_len = max_seq_len
@@ -233,14 +308,33 @@ class CBEngine:
             "top_ks": torch.zeros((s,), **i32),
             "stop_table": torch.full((s, MAX_STOP_TOKENS), -1, **i32),
         }
-        self._dev_stale = True
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
-        k = self.steps_per_dispatch
-        # the decode dispatch's [k, S] outputs: static, overwritten by the
-        # next dispatch (the D2H copy is queued right behind each one)
-        self._out = (torch.zeros((k, s), **i32),
-                     torch.zeros((k, s), dtype=torch.float32, device=dev),
-                     torch.zeros((k, s), dtype=torch.bool, device=dev))
+        # prompt-lookup speculation: with spec_tokens > 0 every decode
+        # dispatch is spec_rounds rounds of propose / verify / accept, and
+        # the device state carries each slot's token history (prompt +
+        # emitted, front-filled), mirrored on the host in _hist
+        self.spec_tokens = int(spec_tokens)
+        self.spec_rounds = int(spec_rounds)
+        self._hist: list[list[int] | None] | None = (
+            [None] * s if self.spec_tokens > 0 else None)
+        if self._hist is not None:
+            self._dev["tok_buf"] = torch.zeros((s, max_seq_len), **i32)
+        self.spec_emitted = 0        # tokens emitted by spec dispatches
+        self.spec_dispatches = 0
+        self.spec_token_ceiling = 0  # what those dispatches could emit
+        self._dev_stale = True
+        # the decode dispatch's outputs, [rows, S]: static, overwritten by
+        # the next dispatch (the D2H copy is queued right behind each one);
+        # rows = k, or spec_rounds * (spec_tokens + 1) plus an ``emitted``
+        # mask (a rejected draft's row is no emission)
+        spec = self.spec_tokens > 0
+        rows = (self.spec_rounds * (self.spec_tokens + 1) if spec
+                else self.steps_per_dispatch)
+        self._out = (torch.zeros((rows, s), **i32),
+                     torch.zeros((rows, s), dtype=torch.float32, device=dev),
+                     torch.zeros((rows, s), dtype=torch.bool, device=dev)) + (
+            (torch.zeros((rows, s), dtype=torch.bool, device=dev),)
+            if spec else ())
         # group-table buffers per group shape (ng, gmax, p_pre)
         self._gbufs: dict[tuple, torch.Tensor] = {}
         # CUDA graphs: key -> (graph, the launches its capture recorded)
@@ -280,6 +374,7 @@ class CBEngine:
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._pending: collections.deque = collections.deque()
         self._stop = threading.Event()
+        self._paused = threading.Event()  # release_memory until resume
         self._idle = threading.Event()
         self._idle.set()
         # serializes dispatches against in-place weight updates
@@ -307,6 +402,16 @@ class CBEngine:
         self.decode_dispatches = 0
         # recent admissions: (rid, wave kind, wave size, prompt bucket)
         self.admissions: collections.deque = collections.deque(maxlen=4096)
+        # chunked prefill: prompts longer than this fill one chunk per loop
+        # iteration, between decode dispatches (0 = off)
+        self.prefill_chunk = int(prefill_chunk)
+        self._chunk_jobs: collections.deque = collections.deque()
+        self.chunk_dispatches = 0
+        # salvage: aborts and stop() drain what is in flight into the
+        # streams first and publish the aborted slots' full pages
+        self.salvage_partials = bool(salvage_partials)
+        self.tokens_salvaged = 0
+        self.salvage_published_pages = 0
 
         self.weight_version = 0
         self.num_running = 0
@@ -345,9 +450,11 @@ class CBEngine:
 
     def stop(self) -> None:
         """Stop and join the loop and fetcher threads; every in-flight and
-        queued request gets a terminal line (in-flight ones end in an
-        ``abort`` partial, as the JAX engine's salvage default does) and
-        ``STREAM_END``."""
+        queued request gets a terminal line and ``STREAM_END``. With
+        ``salvage_partials`` (the default) the dispatches in flight are
+        drained into their streams first and the in-flight requests end in
+        an ``abort`` partial; without it what is in flight is dropped and
+        they end in an ``error``."""
         self._stop.set()
         for name in ("_loop_thread", "_fetch_thread"):
             t = getattr(self, name)
@@ -358,11 +465,26 @@ class CBEngine:
                 if t.is_alive():
                     raise RuntimeError(f"engine thread {t.name} did not stop")
                 setattr(self, name, None)
+        if self.salvage_partials and self._pools is not None:
+            # both threads are joined: the drain lands every queued output
+            # on this thread, and the decoded tokens stream out before the
+            # terminal lines below. A failing drain must not wedge shutdown.
+            try:
+                with self._pool_lock:
+                    self._drain_emit_q()
+            except Exception:  # noqa: BLE001
+                log.exception("shutdown salvage drain failed")
         self._drop_outputs()
         with self._pool_lock:
-            self._fail_all("engine shutdown", finish_reason="abort")
+            self._fail_all("engine shutdown",
+                           finish_reason="abort" if self.salvage_partials
+                           else "error")
             self._decode_groups.clear()
             self._slot_decode_gid.clear()
+            while self._chunk_jobs:
+                job = self._chunk_jobs.popleft()
+                self._finalize(job["slot"])
+                self._emit_error(job["req"], "engine shutdown")
             if self.prefix_cache is not None:
                 self._disband_group_prerefs()
                 self.prefix_cache.flush()
@@ -384,22 +506,9 @@ class CBEngine:
         caller's stream, the default one, as are the decode replays: it
         runs after the dispatches already queued, whose tokens carry the
         old version, and before the later ones."""
+        check_same_structure(params, self.params)
         new = dict(named_leaves(params))
         cur = dict(named_leaves(self.params))
-        if new.keys() != cur.keys():
-            raise ValueError(
-                "update_weights: parameter names differ from the engine's "
-                f"(missing {sorted(cur.keys() - new.keys())[:4]}, extra "
-                f"{sorted(new.keys() - cur.keys())[:4]}; quantized engines "
-                "need the push re-quantized first, models/quant.py)")
-        bad = [k for k in cur if tuple(new[k].shape) != tuple(cur[k].shape)
-               or new[k].dtype != cur[k].dtype]
-        if bad:
-            k = bad[0]
-            raise ValueError(
-                f"update_weights: {k} is {new[k].dtype} "
-                f"{tuple(new[k].shape)}, the engine's {cur[k].dtype} "
-                f"{tuple(cur[k].shape)} ({len(bad)} leaves differ)")
         with self._pool_lock, torch.no_grad():
             for k, dst in cur.items():
                 dst.copy_(new[k])
@@ -415,6 +524,132 @@ class CBEngine:
                 self._disband_group_prerefs()
                 self.prefix_cache.flush()
 
+    def reset_throughput_window(self) -> None:
+        """Zero the rolling tok/s window, so that one phase's throughput
+        does not leak into the next's."""
+        self._tok_window.clear()
+        self._tput_ewma.reset()
+        self.last_gen_throughput = 0.0
+
+    # -- warm-up -----------------------------------------------------------------
+
+    def warmup(self, batch_sizes=(2, 4, 8), filter_variants=(False, True),
+               suffix: bool = True) -> None:
+        """Drive every admission variant once and capture the decode graphs
+        before serving, so that neither lands in the first real dispatch:
+        each prompt bucket's fresh prefill (alone and at each batch size),
+        with ``suffix`` the prefix-hit variants (power-of-two prefix page
+        counts; for the first bucket, the batched sibling attach up to the
+        largest prompt), each sampled with every sampling-filter variant
+        (the prefill is eager: one forward serves them all); then the
+        ungrouped decode key of each filter variant (the spec key on a
+        speculating engine), as the JAX engine precompiles its step. A
+        grouped decode key depends on the live groups' shape (``(ng, gmax,
+        p_pre)``, each a power of two up to the slot and page counts) and is
+        captured at its first dispatch. Prefill rows write to the null page
+        only and insert no slot (the JAX engine's sink row); the decode
+        dispatches run on a blank state (every slot inactive, every page
+        null), and the device state is put back afterwards, so live slots
+        and the pools' pages are left as they were. The sampling generator
+        advances."""
+        ps = self.page_size
+        with self._pool_lock:
+            self._drain_emit_q()
+            self._ensure_dev_state()
+            for pb in self.prompt_buckets:
+                for nb in (1,) + tuple(batch_sizes):
+                    self._warm_prefill(pb, nb, filter_variants)
+                n_pre = 1
+                while suffix and n_pre <= max(1, pb // ps):
+                    self._warm_prefill(pb, 1, filter_variants, n_pre)
+                    n_pre *= 2
+                if suffix and self.group_share and pb == self.prompt_buckets[0]:
+                    n_pre = 1
+                    while n_pre <= max(1, self.prompt_buckets[-1] // ps):
+                        self._warm_prefill(pb, max(batch_sizes), filter_variants,
+                                           n_pre)
+                        n_pre *= 2
+            saved = {name: t.clone() for name, t in self._dev.items()}
+            try:
+                for t in self._dev.values():
+                    t.zero_()
+                for name in ("temps", "top_ps"):
+                    self._dev[name].fill_(1.0)
+                self._dev["stop_table"].fill_(-1)
+                for uf in filter_variants:
+                    if self.spec_tokens > 0:
+                        self._launch(self._spec_key(uf),
+                                     lambda uf=uf: self._spec_body(uf))
+                    else:
+                        self._launch_decode(uf, None)
+            finally:
+                for name, t in saved.items():
+                    self._dev[name].copy_(t)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def _warm_prefill(self, pb: int, nb: int, filter_variants,
+                      n_pre: int = 0) -> None:
+        """One discarded prefill of ``nb`` rows of bucket ``pb`` (a suffix
+        prefill over ``n_pre`` prefix pages when ``n_pre``) and its
+        first-token sampling, once per filter variant; every page id is
+        the null page."""
+        ps = self.page_size
+        ids = self._tensor(np.full((nb, pb), self.pad_token_id, np.int32))
+        lens = self._tensor(np.ones((nb,), np.int32))
+        page_ids = self._tensor(np.zeros((nb, pb // ps), np.int32))
+        if n_pre:
+            _, last = decoder.prefill_suffix_batch_into_pages(
+                self.params, self.cfg, ids, lens, n_pre * ps, self._pools,
+                self._tensor(np.zeros((nb, n_pre), np.int32)), page_ids)
+        else:
+            _, last = decoder.prefill_batch_into_pages(
+                self.params, self.cfg, ids, lens, self._pools, page_ids)
+        ones = torch.ones((nb,), dtype=torch.float32, device=self.device)
+        zeros = torch.zeros((nb,), dtype=torch.int32, device=self.device)
+        for uf in filter_variants:
+            sample_token_vec(last, self._gen, ones, ones, zeros, use_filters=uf)
+
+    # -- memory lifecycle (a colocated trainer takes the KV pool back) -------
+
+    def release_memory(self) -> None:
+        """Pause serving and, once the running requests are done, free the
+        KV pools. The captured decode graphs hold the pools' addresses, so
+        they go first, with their private memory pool; then the pools; then
+        the allocator's cache is returned to the device. A request
+        submitted meanwhile waits for ``resume_memory``; mid-chunk prefill
+        jobs, whose filled KV goes with the pools, are aborted."""
+        self._paused.set()
+        if not self._idle.wait(timeout=30.0):
+            return
+        with self._pool_lock:
+            if self._active.any() or self._pools is None:
+                return
+            self._drain_emit_q()  # the run-ahead tail (pad rows only)
+            self._abort_chunk_jobs()
+            if self.prefix_cache is not None:
+                self._disband_group_prerefs()
+                self.prefix_cache.flush()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._graphs.clear()
+            self._graph_pool = None
+            self._pools = None
+            self._dev_stale = True
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    def resume_memory(self) -> None:
+        """Allocate the KV pools again and resume serving; the decode graphs
+        are captured again at their first dispatch (or by ``warmup``)."""
+        with self._pool_lock:
+            if self._pools is None:
+                self._pools = decoder.make_paged_pools(
+                    self.cfg, self.num_pages, self.page_size,
+                    dtype=self.kv_cache_dtype, device=self.device)
+        self._paused.clear()
+
     # -- engine loop ---------------------------------------------------------
 
     def _loop(self) -> None:
@@ -427,8 +662,16 @@ class CBEngine:
                 self._recover()
 
     def _loop_iter(self) -> None:
+        if self._paused.is_set():
+            if self._outstanding():
+                with self._pool_lock:
+                    self._drain_emit_q()
+            self._idle.set()
+            time.sleep(0.02)
+            return
         self._drain_queue()
-        if not self._pending and not self._active.any():
+        if (not self._pending and not self._active.any()
+                and not self._chunk_jobs):
             if self._outstanding():  # the run-ahead tail: pad rows only
                 with self._pool_lock:
                     self._drain_emit_q()
@@ -440,11 +683,23 @@ class CBEngine:
             return
         self._idle.clear()
         with self._pool_lock:
+            if self._paused.is_set():  # raced with release_memory
+                return
             self._admit()
+            if self._chunk_jobs:
+                # one chunk per iteration: a long prompt's admission
+                # interleaves with the decode dispatch below
+                self._advance_chunk_job()
             if self._active.any():
                 self._step_once()
-            elif self._pending:
+            elif self._pending and not self._chunk_jobs:
                 time.sleep(0.005)  # pending but blocked on pages/slots
+
+    def _abort_chunk_jobs(self) -> None:
+        while self._chunk_jobs:
+            job = self._chunk_jobs.popleft()
+            self._finalize(job["slot"])
+            self._emit_abort(job["req"])
 
     def _recover(self) -> None:
         """After a failed iteration: drop every queued output (the epoch
@@ -456,6 +711,7 @@ class CBEngine:
             self._fail_all("engine error")
             self._decode_groups.clear()
             self._slot_decode_gid.clear()
+            self._abort_chunk_jobs()
             if self.prefix_cache is not None:
                 self._disband_group_prerefs()
                 self.prefix_cache.flush()
@@ -521,12 +777,17 @@ class CBEngine:
         GRPO siblings of a published prompt: one batched suffix prefill).
 
         A head that cannot join the forming wave is skipped, up to
-        ``admit_reorder_window`` skips; page exhaustion ends the scan."""
+        ``admit_reorder_window`` skips; page exhaustion ends the scan. A
+        prompt whose uncached part is longer than ``prefill_chunk`` becomes
+        a chunk job instead (its slot and pages reserved), and siblings of
+        a prompt in a chunk job wait for its publish."""
         wave: list = []
         kind = "fresh"
         attach_len = -1
         assigned: set[int] = set()
         wave_page_keys: set = set()
+        chunk_keys = {job["first_key"] for job in self._chunk_jobs}
+        chunk_keys.discard(None)
         skipped = 0
         scan = 0
         while len(wave) < self.admit_wave and scan < len(self._pending):
@@ -564,15 +825,20 @@ class CBEngine:
             full_hit = bool(matched_pages) and len(matched_pages) == n_full
             # sibling wait: the prompt's first full page is being computed
             # by a request already in this wave (siblings of an unpublished
-            # leader) — admitting it now would recompute the shared prefix
+            # leader) or by a chunk job -- admitting it now would recompute
+            # the shared prefix
             blocked = (not matched_pages and first_key is not None
-                       and first_key in wave_page_keys)
+                       and (first_key in wave_page_keys
+                            or first_key in chunk_keys))
+            prefix_cached = len(matched_pages) * self.page_size
+            chunked = bool(self.prefill_chunk
+                           and n_prompt - prefix_cached > self.prefill_chunk)
             if wave:
                 if kind == "attach":
-                    blocked = blocked or not (
+                    blocked = blocked or chunked or not (
                         full_hit and len(matched_pages) == attach_len)
                 else:
-                    blocked = blocked or bool(matched_pages)
+                    blocked = blocked or chunked or bool(matched_pages)
             if blocked:
                 if self.prefix_cache is not None:
                     self.prefix_cache.release(matched_entries)
@@ -590,6 +856,20 @@ class CBEngine:
             assigned.add(slot)
             if self.prefix_cache is not None:
                 self.prefix_cache.note_request(bool(matched_pages))
+            if chunked:
+                # a placeholder keeps the slot out of the free scan; it
+                # stays inactive until the final chunk admits it
+                self._slots[slot] = _SlotInfo(
+                    req, list(pages), set(req.sampling.stop_token_ids),
+                    cache_entries=list(matched_entries))
+                self._chunk_jobs.append({
+                    "req": req, "slot": slot, "pages": list(pages),
+                    "matched_pages": list(matched_pages),
+                    "matched_entries": list(matched_entries),
+                    "budget": budget, "pos": prefix_cached, "own_filled": 0,
+                    "version": self.weight_version, "first_key": first_key})
+                chunk_keys.add(first_key)
+                continue
             if not wave and matched_pages:
                 if full_hit and self.group_share:
                     kind, attach_len = "attach", len(matched_pages)
@@ -688,7 +968,29 @@ class CBEngine:
         slots = np.arange(self.max_slots)
         ints, floats = self._state_rows(slots)
         self._dev_put(slots, self._tensor(ints), self._tensor(floats))
+        if self._hist is not None:
+            # the spec token buffer, rebuilt from the history mirror: a
+            # zeroed history would leave the output right and acceptance
+            # collapsed
+            buf = np.zeros(tuple(self._dev["tok_buf"].shape), np.int32)
+            for i, h in enumerate(self._hist):
+                if h:
+                    n = min(len(h), self.max_seq_len)
+                    buf[i, :n] = h[:n]
+            self._dev["tok_buf"].copy_(self._tensor(buf))
         self._dev_stale = False
+
+    def _put_history(self, slots: np.ndarray, seqs: list) -> None:
+        """Write each admitted slot's prompt into its row of the spec token
+        buffer (one scatter per admission wave); the sampled first token
+        joins at the next spec round's splice."""
+        width = min(max(len(x) for x in seqs), self.max_seq_len)
+        rows = np.zeros((len(seqs), width), np.int32)
+        for j, x in enumerate(seqs):
+            n = min(len(x), width)
+            rows[j, :n] = x[:n]
+        self._dev["tok_buf"][:, :width].index_copy_(
+            0, self._tensor(np.asarray(slots, np.int64)), self._tensor(rows))
 
     # -- prefill dispatches ------------------------------------------------------
 
@@ -727,6 +1029,8 @@ class CBEngine:
         done = ((token[:, None] == stops).any(dim=-1)
                 | (iv[:, _BUDGET] <= 1))
         self._dev_put(slots, iv, fv, last=token, active=~done)
+        if self._hist is not None:
+            self._put_history(slots, [w[0].input_ids for w in wave])
         return self._to_host((token, logp, done))
 
     def _stops_row(self, sp: SamplingParams) -> np.ndarray:
@@ -759,6 +1063,8 @@ class CBEngine:
         self._slots[slot] = _SlotInfo(req, list(private), set(sp.stop_token_ids),
                                       cache_entries=list(entries),
                                       admit_version=self.weight_version)
+        if self._hist is not None:
+            self._hist[slot] = list(req.input_ids)
         self._slot_gen[slot] += 1
 
     def _enqueue_prefill(self, out, wave: list, kind: str, pb: int) -> None:
@@ -784,27 +1090,33 @@ class CBEngine:
 
     def _prefill_request(self, slot: int, req: _Request, pages: list[int],
                          budget: int, matched_pages: list[int] | None = None,
-                         matched_entries: list | None = None) -> None:
+                         matched_entries: list | None = None,
+                         own_prefix_pages: int = 0) -> None:
         """Singleton admission: a fresh prompt, or the suffix of a (partial
-        or full) prefix-cache hit attending over the matched pages."""
+        or full) prefix-cache hit attending over the matched pages.
+        ``own_prefix_pages``: leading entries of ``pages`` whose KV is
+        already filled (a chunk job's earlier chunks); they join the
+        attended prefix and, unlike matched pages, are published as fresh
+        pages."""
         matched_pages = matched_pages or []
         matched_entries = list(matched_entries or [])
         n_prompt = len(req.input_ids)
-        prefix_len = len(matched_pages) * self.page_size
+        prefix_pages = matched_pages + pages[:own_prefix_pages]
+        prefix_len = len(prefix_pages) * self.page_size
         all_pages = matched_pages + pages
         suffix_len = n_prompt - prefix_len
         pb = next_bucket(suffix_len, self.prompt_buckets)
         n_sfx = -(-suffix_len // self.page_size)
         page_ids = np.zeros((1, pb // self.page_size), np.int32)
-        page_ids[0, :n_sfx] = pages[:n_sfx]
+        page_ids[0, :n_sfx] = pages[own_prefix_pages:own_prefix_pages + n_sfx]
         ids = np.full((1, pb), self.pad_token_id, np.int32)
         ids[0, :suffix_len] = req.input_ids[prefix_len:]
         row = self._page_row(all_pages)
         out = self._prefill_dispatch(
             [(req, slot, budget, row)], ids,
             np.array([suffix_len], np.int32), page_ids, prefix_len=prefix_len,
-            prefix_ids=(np.asarray([matched_pages], np.int32)
-                        if matched_pages else None))
+            prefix_ids=(np.asarray([prefix_pages], np.int32)
+                        if prefix_pages else None))
         private, entries = self._publish(req, all_pages, pages,
                                          len(matched_pages), matched_entries)
         self._consume_group_preref(req)
@@ -813,7 +1125,59 @@ class CBEngine:
             req, slot, max(0, (n_prompt - 1) // self.page_size), row)
         self._install_slot(slot, req, row, budget, private, entries)
         self._enqueue_prefill(out, [(req, slot)],
-                              "suffix" if matched_pages else "fresh", pb)
+                              "suffix" if prefix_pages else "fresh", pb)
+
+    def _advance_chunk_job(self) -> None:
+        """One dispatch of the head chunk job: fill the next chunk's KV
+        attending over the filled prefix (no sampling, no slot state), or,
+        for the last chunk, the normal suffix admission, which samples the
+        first token, activates the slot and publishes the prompt. A job is
+        aborted on its abort event or a weight swap (its filled KV belongs
+        to the old weights), never finished."""
+        job = self._chunk_jobs[0]
+        req = job["req"]
+        if ((req.abort is not None and req.abort.is_set())
+                or self.weight_version != job["version"]):
+            self._chunk_jobs.popleft()
+            self._finalize(job["slot"])
+            self._emit_abort(req)
+            return
+        if len(req.input_ids) - job["pos"] <= self.prefill_chunk:
+            self._chunk_jobs.popleft()
+            self._slots[job["slot"]] = None  # _prefill_request installs it
+            try:
+                self._prefill_request(
+                    job["slot"], req, job["pages"], job["budget"],
+                    matched_pages=job["matched_pages"],
+                    matched_entries=job["matched_entries"],
+                    own_prefix_pages=job["own_filled"])
+            except Exception:
+                # the job left the deque and its placeholder: no other
+                # path can clean it up
+                self.allocator.free(job["pages"])
+                if self.prefix_cache is not None:
+                    self.prefix_cache.release(job["matched_entries"])
+                self._emit_error(req, "prefill failed")
+                raise
+            return
+        chunk, pos, own = self.prefill_chunk, job["pos"], job["own_filled"]
+        ps = self.page_size
+        prefix_pages = job["matched_pages"] + job["pages"][:own]
+        n_chunk_pg = chunk // ps
+        pb = next_bucket(chunk, self.prompt_buckets)
+        ids = np.full((1, pb), self.pad_token_id, np.int32)
+        ids[0, :chunk] = req.input_ids[pos:pos + chunk]
+        page_ids = np.zeros((1, pb // ps), np.int32)
+        page_ids[0, :n_chunk_pg] = job["pages"][own:own + n_chunk_pg]
+        # on failure the job still heads the deque: _recover aborts it
+        decoder.prefill_suffix_batch_into_pages(
+            self.params, self.cfg, self._tensor(ids),
+            self._tensor(np.array([chunk], np.int32)), pos, self._pools,
+            self._tensor(np.asarray([prefix_pages], np.int32)),
+            self._tensor(page_ids))
+        self.chunk_dispatches += 1
+        job["pos"] = pos + chunk
+        job["own_filled"] = own + n_chunk_pg
 
     def _prefill_wave(self, wave: list) -> None:
         """Batched fresh admission: ONE forward prefills every prompt."""
@@ -993,7 +1357,10 @@ class CBEngine:
         if any(info is not None and self._active[i]
                and info.req.abort is not None and info.req.abort.is_set()
                for i, info in enumerate(self._slots)):
-            self._abort_fast()
+            if self.salvage_partials:
+                self._abort_with_salvage()
+            else:
+                self._abort_fast()
         if not self._active.any():
             self._drain_emit_q()
             return
@@ -1014,6 +1381,9 @@ class CBEngine:
             return
         use_filters = bool(np.any((self._top_ps[self._active] < 1.0)
                                   | (self._top_ks[self._active] > 0)))
+        if self.spec_tokens > 0:
+            self._spec_step_once(use_filters)
+            return
         tables = self._decode_group_pack()
         idxs = [(int(i), int(self._slot_gen[i]))
                 for i in np.flatnonzero(self._active)]
@@ -1049,17 +1419,56 @@ class CBEngine:
         a, b = ng * gmax, ng * (gmax + p_pre)
         return (buf[:a].view(ng, gmax), buf[a:b].view(ng, p_pre), buf[b:])
 
+    def _spec_step_once(self, use_filters: bool) -> None:
+        """One speculative decode dispatch (``spec_rounds`` rounds), queued
+        and run ahead like a k-step dispatch: every round emits at least
+        one token per active slot, which is what the tail cutoff counts."""
+        m = self.spec_tokens + 1
+        idxs = [(int(i), int(self._slot_gen[i]))
+                for i in np.flatnonzero(self._active)]
+        t0 = time.monotonic()
+        self._launch(self._spec_key(use_filters),
+                     lambda: self._spec_body(use_filters))
+        out = self._ring_copy()
+        self.decode_host_s += time.monotonic() - t0
+        self.decode_dispatches += 1
+        self.spec_dispatches += 1
+        self.spec_token_ceiling += len(idxs) * self.spec_rounds * m
+        self._inflight_tok[self._active] += self.spec_rounds
+        self._enqueue_output(("spec", out, idxs, self.spec_rounds,
+                              self.weight_version))
+        self._drain_emit_q(keep=self.pipeline_depth)
+
+    def _spec_key(self, use_filters: bool) -> tuple:
+        """The spec dispatch's graph key, the JAX spec step's jit key."""
+        return ("spec", use_filters, self.spec_tokens + 1, self.spec_rounds)
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Emitted tokens over what the spec dispatches could have emitted
+        (each active slot ``spec_rounds * (spec_tokens + 1)``); 0.0 before
+        any spec dispatch, ``1 / (spec_tokens + 1)`` with no draft ever
+        accepted."""
+        if self.spec_token_ceiling <= 0:
+            return 0.0
+        return self.spec_emitted / self.spec_token_ceiling
+
     def _launch_decode(self, use_filters: bool, tables) -> None:
-        """Queue one k-step decode dispatch on the current stream. On the
-        card: the replay of its key's CUDA graph, or, for a key not seen
-        yet, the eager body on the side stream (the warm-up: it is this
-        dispatch) and then the capture of the key's graph. On the CPU the
-        eager body."""
+        """Queue one k-step decode dispatch on the current stream (see
+        ``_launch``)."""
         gt = self._group_tables(tables)
+        self._launch(self._graph_key(use_filters, tables),
+                     lambda: self._decode_body(use_filters, gt))
+
+    def _launch(self, key: tuple, body) -> None:
+        """Queue one decode dispatch on the current stream. On the card: the
+        replay of its key's CUDA graph, or, for a key not seen yet, the
+        eager body on the side stream (the warm-up: it is this dispatch)
+        and then the capture of the key's graph. On the CPU the eager
+        body."""
         if not self._use_graphs:
-            self._decode_body(use_filters, gt)
+            body()
             return
-        key = self._graph_key(use_filters, tables)
         entry = self._graphs.get(key)
         if entry is not None:
             graph, launches = entry
@@ -1067,7 +1476,6 @@ class CBEngine:
             cuda_build.credit_launches(launches)
             self.graph_replays += 1
             return
-        body = lambda: self._decode_body(use_filters, gt)  # noqa: E731
         self._warm_up(body)
         t0 = time.monotonic()
         with cuda_build.recording_launches() as launches:
@@ -1167,6 +1575,78 @@ class CBEngine:
                           ("n_generated", n_gen), ("active", active)):
             st[name].copy_(val)
 
+    @torch.no_grad()
+    def _spec_body(self, use_filters: bool) -> None:
+        """``spec_rounds`` speculation rounds with the state advanced on the
+        device, in place (the JAX ``_get_spec_step`` scan body). Each
+        round splices the newest token into the token buffer, proposes
+        ``m - 1`` drafts by n-gram lookup, verifies all ``m`` tokens in one
+        ``forward_paged_decode`` over ``S * m`` virtual rows (row ``(s, i)``
+        at position ``seq_lens[s] + i`` on slot ``s``'s page row; within a
+        layer every row's K/V is written before attention reads, which
+        gives exact causal semantics; rows past the slot's pages or of
+        inactive slots write to the null page), rejection-samples, applies
+        the stop and budget semantics over the accepted prefix in order,
+        and writes the emitted tokens back into the buffer. Writes the
+        ``[rounds * m, S]`` outputs and the ``emitted`` mask into
+        ``self._out``; reads nothing on the host, so that it can be
+        captured."""
+        st, pad = self._dev, self.pad_token_id
+        params, cfg = self.params, self.cfg
+        m = self.spec_tokens + 1
+        buf = st["tok_buf"]
+        s, buf_len = buf.shape
+        dev = buf.device
+        rows = torch.arange(s, device=dev)
+        page_table, stop_table, budgets = (st["page_table"], st["stop_table"],
+                                           st["budgets"])
+        max_pos = page_table.shape[1] * self.page_size
+        pt_rep = page_table.repeat_interleave(m, dim=0)
+        steps = torch.arange(m, dtype=torch.int32, device=dev)
+        seq_lens, last = st["seq_lens"], st["last_tokens"]
+        n_gen, active = st["n_generated"], st["active"]
+        out_tok, out_lp, out_done, out_emit = self._out
+        for r in range(self.spec_rounds):
+            buf[rows, seq_lens.long().clamp(0, buf_len - 1)] = last
+            draft = device_ngram_propose(buf, seq_lens + 1, m - 1)
+            tokens_in = torch.cat([last[:, None], draft], dim=1)
+            pos = seq_lens[:, None] + steps[None]
+            ok = (pos < max_pos) & active[:, None]
+            flat_pos = pos.reshape(-1)
+            logits, _ = decoder.forward_paged_decode(
+                params, cfg, tokens_in.reshape(-1), flat_pos, self._pools,
+                pt_rep, flat_pos, active=ok.reshape(-1))
+            toks, logps, n_acc = spec_verify_sample_vec(
+                logits.reshape(s, m, -1), draft, self._gen, st["temps"],
+                st["top_ps"], st["top_ks"], use_filters=use_filters)
+            stopped = torch.zeros_like(active)
+            emit_cnt = torch.zeros_like(seq_lens)
+            emits = []
+            for i in range(m):
+                want = active & ~stopped & (n_acc >= i)
+                tok_i = torch.where(want, toks[:, i], pad)
+                n_gen = n_gen + want.int()
+                hit = (tok_i[:, None] == stop_table).any(dim=-1) & want
+                done_i = want & (hit | (n_gen >= budgets))
+                out_tok[r * m + i].copy_(tok_i)
+                out_lp[r * m + i].copy_(torch.where(want, logps[:, i], 0.0))
+                out_done[r * m + i].copy_(done_i)
+                out_emit[r * m + i].copy_(want)
+                stopped = stopped | done_i
+                emit_cnt = emit_cnt + want.int()
+                last = torch.where(want, toks[:, i], last)
+                emits.append(want)
+            # the emitted tokens into the history at seq_len + 1 ... (rows
+            # not emitted write their current value back)
+            widx = (pos + 1).long().clamp(0, buf_len - 1)
+            buf.scatter_(1, widx, torch.where(torch.stack(emits, dim=1), toks,
+                                              buf.gather(1, widx)))
+            seq_lens = seq_lens + emit_cnt
+            active = active & ~stopped
+        for name, val in (("seq_lens", seq_lens), ("last_tokens", last),
+                          ("n_generated", n_gen), ("active", active)):
+            st[name].copy_(val)
+
     def _ring_copy(self):
         """Queue the copy of the dispatch's outputs into a free slot of the
         pinned host ring; returns (event or None, host arrays, ring slot)."""
@@ -1213,6 +1693,67 @@ class CBEngine:
                     self._finalize(i)
                 self._dev_stale = True
         self.num_running = int(self._active.sum())
+
+    def _abort_with_salvage(self) -> None:
+        """Abort with salvage: the aborted slots stay active through a full
+        drain, so every token the dispatches in flight already decoded
+        streams to the client; then the ``abort`` terminal. A slot that
+        finished (stop or budget) during the drain is left alone. The
+        drain is the barrier before any page returns to the allocator;
+        the slots' full pages are published to the prefix cache so that a
+        continuation (prompt + partial) re-uses the KV."""
+        aborted = [i for i, info in enumerate(self._slots)
+                   if info is not None and self._active[i]
+                   and info.req.abort is not None and info.req.abort.is_set()]
+        before = {i: len(self._slots[i].emitted) for i in aborted}
+        try:
+            self._drain_emit_q()
+        finally:
+            for i in aborted:
+                info = self._slots[i]
+                if info is None or not self._active[i]:
+                    continue  # finished during the drain
+                self.tokens_salvaged += len(info.emitted) - before[i]
+                self._active[i] = False
+                self._slot_gen[i] += 1
+                # finally: the terminal reaches the client even if the
+                # bookkeeping raises (the slot is inactive already, so
+                # _recover's sweep would not see it)
+                try:
+                    self._salvage_publish(i, info)
+                    self._finalize(i)
+                finally:
+                    self._emit_abort(info.req)
+            self._dev_stale = True
+        self.num_running = int(self._active.sum())
+
+    def _salvage_publish(self, slot: int, info: _SlotInfo) -> None:
+        """Publish an aborted slot's full pages (prompt + generated tokens)
+        to the prefix cache: a continuation's prompt is this very sequence,
+        so its suffix prefill matches them. Skipped for a slot admitted
+        under older weights (its KV predates the flush of the swap) and for
+        a slot that emitted nothing."""
+        if (self.prefix_cache is None
+                or info.admit_version != self.weight_version
+                or not info.emitted):
+            return
+        seq = list(info.req.input_ids) + [int(t) for t in info.emitted]
+        n_full = max(0, (len(seq) - 1) // self.page_size)
+        if n_full == 0:
+            return
+        page_row = [int(p) for p in self._page_table[slot][:n_full]]
+        matched_pages, matched_entries = self.prefix_cache.match(seq)
+        published = self.prefix_cache.publish(
+            seq, page_row, n_cached=len(matched_pages),
+            matched_entries=matched_entries)
+        # the published pages now belong to the cache; _finalize frees the
+        # rest of the slot's private pages
+        pub_pages = {e.page for _, e in published}
+        info.pages = [p for p in info.pages if p not in pub_pages]
+        self.salvage_published_pages += len(pub_pages)
+        # drop the refs this round took (match and publish): the entries
+        # stay cached, unreferenced and evictable
+        self.prefix_cache.release(matched_entries + [e for _, e in published])
 
     # -- the emission queue and the fetcher thread -----------------------------
 
@@ -1347,14 +1888,15 @@ class CBEngine:
         # the version of the weights that sampled these tokens: the one at
         # dispatch, not the one live when the output lands
         wv = entry[-1]
-        if kind == "step":
+        if kind in ("step", "spec"):
             for slot, gen in tail:
                 # a finalized and reused slot zeroed its count: stale
                 # decrements for the old request must not starve the new
                 if self._slot_gen[slot] == gen:
                     self._inflight_tok[slot] = max(
                         0, self._inflight_tok[slot] - entry[3])
-            self._emit_fetched(*arrs, tail, wv)
+            self._emit_fetched(*arrs[:3], tail, wv,
+                               emitted=arrs[3] if kind == "spec" else None)
         else:
             token, logp, done = arrs
             for j, slot_gen in enumerate(tail):
@@ -1379,6 +1921,8 @@ class CBEngine:
                           "weight_version": wv})
         self._last_tokens[slot] = t
         info.emitted.append(t)
+        if self._hist is not None:
+            self._hist[slot].append(t)
         self._count_tokens(1)
         if fin:
             self._active[slot] = False
@@ -1392,11 +1936,14 @@ class CBEngine:
                 self._dev_stale = True
         self.num_running = int(self._active.sum())
 
-    def _emit_fetched(self, token, logp, done, idxs, wv: int) -> None:
-        """Stream one dispatch's [k, S] rows to the requests; ``idxs`` is
-        the (slot, generation) pairs active at dispatch. Slots that
+    def _emit_fetched(self, token, logp, done, idxs, wv: int,
+                      emitted=None) -> None:
+        """Stream one dispatch's [rows, S] outputs to the requests; ``idxs``
+        is the (slot, generation) pairs active at dispatch. Slots that
         finished in an earlier row (the pad tail) or earlier output, and
-        reused slots (generation mismatch), are skipped."""
+        reused slots (generation mismatch), are skipped; so are rows a
+        spec dispatch did not emit (``emitted`` false: a rejected
+        draft)."""
         n_emitted = 0
         finished: list[int] = []
         host_stop_fix = False
@@ -1404,6 +1951,8 @@ class CBEngine:
             for i, gen in idxs:
                 info = self._slots[i]
                 if info is None or not self._active[i] or self._slot_gen[i] != gen:
+                    continue
+                if emitted is not None and not emitted[r, i]:
                     continue
                 t = int(token[r, i])
                 # the host check is authoritative: stop tokens beyond the
@@ -1421,6 +1970,8 @@ class CBEngine:
                 self._last_tokens[i] = t
                 self._n_generated[i] += 1
                 info.emitted.append(t)
+                if self._hist is not None:
+                    self._hist[i].append(t)
                 if fin:
                     self._active[i] = False
                     finished.append(i)
@@ -1431,6 +1982,8 @@ class CBEngine:
                     host_stop_fix |= not bool(done[r, i])
         if host_stop_fix:
             self._dev_stale = True
+        if emitted is not None:
+            self.spec_emitted += n_emitted
         self._count_tokens(n_emitted)
         for i in finished:
             info = self._slots[i]
@@ -1454,6 +2007,8 @@ class CBEngine:
         self._n_generated[slot] = 0
         self._budgets[slot] = 0
         self._inflight_tok[slot] = 0
+        if self._hist is not None:
+            self._hist[slot] = None
 
     def _emit_abort(self, req: _Request) -> None:
         req.out.put({"token_ids": [], "logprobs": [], "finished": True,

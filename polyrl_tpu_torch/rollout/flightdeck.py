@@ -32,3 +32,7 @@ class ThroughputEWMA:
             self.value += alpha * (float(rate) - self.value)
         self._t_last = now
         return self.value
+
+    def reset(self) -> None:
+        self.value = 0.0
+        self._t_last = None

@@ -5,10 +5,13 @@ implements: ``--model`` names a preset (random weights from ``--seed``) or
 a local Hugging Face checkpoint directory (``models/hf_loader.py``);
 ``--weight-quant int8`` serves int8 weight-only projections
 (``models/quant.py``), and the server re-quantizes a bf16 weight push on
-arrival (``RolloutServer.weight_preprocess``); then the paged
-continuous-batching engine and the HTTP server. Registration with the
-rollout manager, the weight receiver and ``--lora-rank`` (LoRA delta
-sync) are not ported yet (ROADMAP A' 7).
+arrival (``RolloutServer.weight_preprocess``); then the engine --
+``--backend cb`` (default) the paged continuous-batching engine, with
+``--prefill-chunk``, ``--spec-tokens``/``--spec-rounds`` and ``--warmup``;
+``--backend step`` the bucketed step engine driven by the server's batch
+loop -- and the HTTP server. Registration with the rollout manager, the
+weight receiver and ``--lora-rank`` (LoRA delta sync) are not ported yet
+(ROADMAP A' 7).
 """
 
 from __future__ import annotations
@@ -37,9 +40,20 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                   group_share: bool = True,
                   decode_group_share: bool = True,
                   group_preref_ttl_s: float | None = None,
-                  weight_quant: str = ""):
+                  weight_quant: str = "",
+                  backend: str = "cb",
+                  batch_buckets: tuple[int, ...] | None = None,
+                  warmup: bool = False,
+                  prefill_chunk: int = 0,
+                  spec_tokens: int = 0,
+                  spec_rounds: int = 2,
+                  salvage_partials: bool = True):
     """Build engine + server and start serving. ``model`` is a preset name
     (random weights from ``seed``) or a local HF checkpoint directory.
+    ``backend="cb"`` serves with the paged continuous-batching engine
+    (``warmup`` drives every admission variant and captures the ungrouped
+    and spec decode graphs before the server starts); ``backend="step"`` with the bucketed
+    ``RolloutEngine`` (``batch_buckets``) through the server's batch loop.
     ``weight_quant="int8"`` serves int8 weight-only projections: a
     checkpoint is quantized on the host as it loads, a preset is made in
     quantized form leaf by leaf on the device; weight pushes stay in the
@@ -49,10 +63,13 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     from polyrl_tpu_torch.device import resolve_device
     from polyrl_tpu_torch.models import decoder, quant
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.engine import RolloutEngine
     from polyrl_tpu_torch.rollout.server import RolloutServer
 
     if weight_quant not in ("", "int8"):
         raise ValueError(f"unknown weight_quant {weight_quant!r}")
+    if backend not in ("cb", "step"):
+        raise ValueError(f"unknown backend {backend!r} (cb or step)")
     dev = resolve_device(device)
     torch_dtype = getattr(torch, dtype)
     if os.path.isdir(model):
@@ -68,16 +85,30 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
         gen.manual_seed(seed)
         params = (quant.init_quantized_params(gen, cfg) if weight_quant
                   else decoder.init_params(gen, cfg))
-    engine = CBEngine(
-        cfg, params, pad_token_id=0, kv_cache_dtype=torch_dtype,
-        max_slots=max_slots, page_size=page_size, max_seq_len=max_seq_len,
-        num_pages=num_pages, steps_per_dispatch=steps_per_dispatch,
-        pipeline_depth=pipeline_depth,
-        prompt_buckets=tuple(prompt_buckets) if prompt_buckets
-        else (128, 256, 512, 1024, 2048, 4096), seed=seed,
-        admit_wave=admit_wave, admit_reorder_window=admit_reorder_window,
-        group_share=group_share, decode_group_share=decode_group_share,
-        group_preref_ttl_s=group_preref_ttl_s, device=dev)
+    buckets = (tuple(prompt_buckets) if prompt_buckets
+               else (128, 256, 512, 1024, 2048, 4096))
+    if backend == "cb":
+        engine = CBEngine(
+            cfg, params, pad_token_id=0, kv_cache_dtype=torch_dtype,
+            max_slots=max_slots, page_size=page_size, max_seq_len=max_seq_len,
+            num_pages=num_pages, steps_per_dispatch=steps_per_dispatch,
+            pipeline_depth=pipeline_depth, prompt_buckets=buckets, seed=seed,
+            admit_wave=admit_wave, admit_reorder_window=admit_reorder_window,
+            group_share=group_share, decode_group_share=decode_group_share,
+            group_preref_ttl_s=group_preref_ttl_s,
+            prefill_chunk=prefill_chunk, spec_tokens=spec_tokens,
+            spec_rounds=spec_rounds, salvage_partials=salvage_partials,
+            device=dev)
+        if warmup:
+            t0 = time.monotonic()
+            engine.warmup()
+            log.info("warm-up took %.1f s", time.monotonic() - t0)
+    else:
+        kwargs = {"batch_buckets": tuple(batch_buckets)} if batch_buckets else {}
+        engine = RolloutEngine(cfg, params, pad_token_id=0,
+                               kv_cache_dtype=torch_dtype,
+                               prompt_buckets=buckets, seed=seed, device=dev,
+                               **kwargs)
     server = RolloutServer(engine, host=host, port=port,
                            advertise_host=advertise_host)
     if weight_quant == "int8":
@@ -126,6 +157,21 @@ def main() -> None:
                    help="disable shared-prefix grouped decode attention")
     p.add_argument("--group-preref-ttl-s", type=float, default=None,
                    help="sibling-wait pre-ref expiry (default 30)")
+    p.add_argument("--backend", default="cb", choices=("cb", "step"),
+                   help="cb = paged continuous batching, step = bucketed v0")
+    p.add_argument("--warmup", action="store_true",
+                   help="drive every admission variant and capture the "
+                        "ungrouped and spec decode graphs at launch")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="chunked prefill: prompts longer than this prefill "
+                        "one page-aligned chunk per engine iteration, "
+                        "interleaved with decode (0 = off)")
+    p.add_argument("--spec-tokens", type=int, default=0,
+                   help="prompt-lookup speculative decoding: verify this "
+                        "many n-gram-proposed draft tokens per round, "
+                        "distribution-exact (0 = off)")
+    p.add_argument("--spec-rounds", type=int, default=2,
+                   help="speculation rounds per decode dispatch")
     args = p.parse_args()
 
     logging.basicConfig(level=logging.INFO)
@@ -140,7 +186,9 @@ def main() -> None:
         group_share=not args.no_group_share,
         decode_group_share=not args.no_decode_group_share,
         group_preref_ttl_s=args.group_preref_ttl_s,
-        weight_quant=args.weight_quant)
+        weight_quant=args.weight_quant, backend=args.backend,
+        warmup=args.warmup, prefill_chunk=args.prefill_chunk,
+        spec_tokens=args.spec_tokens, spec_rounds=args.spec_rounds)
     log.info("rollout server on %s (%s)", server.endpoint, server.engine.device)
     try:
         while True:

@@ -1,11 +1,12 @@
 """Trainer entry point: ``python -m polyrl_tpu_torch.train [--config run.yaml]
 [section.field=value ...]``.
 
-Counterpart of ``polyrl_tpu/train.py`` for the default main path,
-``rollout.mode=colocated`` with ``backend=cb``: compose the config, build
-the tokenizer, model (random weights from ``trainer.seed``, or a local
-Hugging Face checkpoint with ``model.hf_path``), the
-in-process CB engine, reward manager, datasets (training and, with
+Counterpart of ``polyrl_tpu/train.py`` for ``rollout.mode=colocated``:
+compose the config, build the tokenizer, model (random weights from
+``trainer.seed``, or a local Hugging Face checkpoint with
+``model.hf_path``), the in-process engine (``rollout.backend=cb``, the
+paged CB engine, or ``step``, the bucketed ``RolloutEngine``), reward
+manager, datasets (training and, with
 ``data.val_path``, validation), actor, the critic (with
 ``trainer.adv_estimator=gae``, from ``trainer.seed + 1``) and (with a KL
 term) the reference policy, assemble the trainer (its checkpoint manager
@@ -82,21 +83,34 @@ def _build_model(cfg: RunConfig, device: torch.device):
 
 
 def _build_rollout(cfg: RunConfig, mcfg, params, tokenizer, device):
-    if cfg.rollout.mode != "colocated" or cfg.rollout.backend != "cb":
-        raise NotImplementedError(
-            f"rollout.mode={cfg.rollout.mode!r} backend={cfg.rollout.backend!r}"
-            " is not ported yet: only colocated cb (ROADMAP A')")
-    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
-
     r = cfg.rollout
+    if r.mode != "colocated":
+        raise NotImplementedError(
+            f"rollout.mode={r.mode!r} is not ported yet: only colocated "
+            "(ROADMAP A' 7)")
+    if r.backend not in ("cb", "step"):
+        raise ValueError(f"unknown rollout.backend {r.backend!r} (cb or step)")
+    kv_dtype = getattr(torch, r.kv_cache_dtype or cfg.model.dtype)
     kwargs = {}
     if r.prompt_buckets:
         kwargs["prompt_buckets"] = tuple(r.prompt_buckets)
+    if r.backend == "step":
+        from polyrl_tpu_torch.rollout.engine import RolloutEngine
+
+        if r.batch_buckets:
+            kwargs["batch_buckets"] = tuple(r.batch_buckets)
+        return RolloutEngine(mcfg, params, pad_token_id=tokenizer.pad_token_id,
+                             kv_cache_dtype=kv_dtype, seed=cfg.trainer.seed,
+                             device=device, **kwargs)
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+
     return CBEngine(
         mcfg, params, pad_token_id=tokenizer.pad_token_id,
-        kv_cache_dtype=getattr(torch, r.kv_cache_dtype or cfg.model.dtype),
+        kv_cache_dtype=kv_dtype,
         max_slots=r.max_slots, page_size=r.page_size, max_seq_len=r.max_seq_len,
         num_pages=r.num_pages or None, steps_per_dispatch=r.steps_per_dispatch,
+        prefill_chunk=r.prefill_chunk, spec_tokens=r.spec_tokens,
+        spec_rounds=r.spec_rounds, salvage_partials=r.salvage_partials,
         admit_wave=r.admit_wave, admit_reorder_window=r.admit_reorder_window,
         group_share=r.group_share, decode_group_share=r.decode_group_share,
         group_preref_ttl_s=r.group_preref_ttl_s, seed=cfg.trainer.seed,
@@ -120,7 +134,8 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
     tokenizer = build_tokenizer(cfg)
     mcfg, params = _build_model(cfg, device)
     rollout = _build_rollout(cfg, mcfg, params, tokenizer, device)  # own copy
-    cleanup.append(rollout.stop)
+    if hasattr(rollout, "stop"):
+        cleanup.append(rollout.stop)
     if compute_score is None and cfg.reward.custom_score_path:
         compute_score = load_custom_score(cfg.reward.custom_score_path)
     reward_manager = load_reward_manager(cfg.reward.manager, tokenizer,

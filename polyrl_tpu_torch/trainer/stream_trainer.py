@@ -54,8 +54,9 @@ _PACK_KEYS = ("input_ids", "positions", "attention_mask", "segment_ids",
 
 
 class _ResultView:
-    """An engine output dict as the fields the batch assembly reads; an
-    empty ``weight_versions`` means unknown (tokens marked -1)."""
+    """An engine output dict (the CB engine's) as the fields the batch
+    assembly reads; an empty ``weight_versions`` means unknown (tokens
+    marked -1). The step backend's ``GenerationOutput`` has them already."""
 
     __slots__ = ("output_ids", "output_token_logprobs",
                  "output_token_weight_versions")
@@ -181,6 +182,10 @@ def _unported(cfg: TrainerConfig, rollout) -> str | None:
                 "adapter pushes target workers serving --lora-rank), which "
                 "is not ported to polyrl_tpu_torch yet (ROADMAP A' 7)")
     return None
+
+
+def _views(outs) -> list:
+    return [o if hasattr(o, "output_ids") else _ResultView(o) for o in outs]
 
 
 def _t(a) -> torch.Tensor:
@@ -377,8 +382,8 @@ class StreamRLTrainer:
         cfg = self.cfg
         prompts, gts, sources = self._prepare_prompts(records)
         with marked_timer("gen", metrics):
-            outs = [_ResultView(o) for o in
-                    self.rollout.generate(prompts, self._sampling(), rng=rng)]
+            outs = _views(self.rollout.generate(prompts, self._sampling(),
+                                                rng=rng))
         group_ids = np.repeat(np.arange(len(records), dtype=np.int32),
                               cfg.rollout_n)
         batch = self._assemble_batch(prompts, gts, sources, outs, group_ids)
@@ -621,7 +626,7 @@ class StreamRLTrainer:
     def _generate_all(self, prompts: list[list[int]],
                       sampling: SamplingParams) -> list[_ResultView]:
         """Every prompt's output from the colocated engine, in order."""
-        return [_ResultView(o) for o in self.rollout.generate(prompts, sampling)]
+        return _views(self.rollout.generate(prompts, sampling))
 
     def _validate(self) -> dict:
         """Greedy (by default) evaluation over the validation set: the mean

@@ -99,12 +99,14 @@ def test_greedy_parity_with_jax_engine(tree, depth):
     assert eng._outstanding() == 0 and not eng._active.any()
 
 
-def test_abort_mid_generation_with_the_window_outstanding(tree):
+@pytest.mark.parametrize("salvage", [True, False], ids=["salvage", "fast"])
+def test_abort_mid_generation_with_the_window_outstanding(tree, salvage):
     """The budget exceeds the run-ahead window (16 dispatches of 8 tokens),
     and the fetcher holds every decode output until the window is full:
     the abort terminal still arrives, and the slot and its pages come
-    back."""
-    eng = _engine(tree, **LONG, pipeline_depth=16)
+    back. With salvage (the default) every token the window's dispatches
+    decoded is delivered before it."""
+    eng = _engine(tree, **LONG, pipeline_depth=16, salvage_partials=salvage)
     land, held = CBEngine._land, threading.Event()
 
     def held_land(entry):
@@ -129,6 +131,9 @@ def test_abort_mid_generation_with_the_window_outstanding(tree):
     items = _collect(q)
     assert items[-1]["finish_reason"] == "abort"
     assert len(_tokens(items)) < 399
+    if salvage:
+        assert len(_tokens(items)) == (
+            eng.decode_dispatches * eng.steps_per_dispatch)
     eng.stop()
     assert all(s is None for s in eng._slots)
     assert eng.allocator.free_count == eng.num_pages - 1

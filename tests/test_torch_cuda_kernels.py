@@ -17,7 +17,8 @@ import torch
 from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops import paged_attention as tpa
 from polyrl_tpu_torch.ops.norm_rope import rms_norm
-from chip_smoke import graph_against_eager, rope_operand_bound, states_equal
+from chip_smoke import (engine_outputs, engine_restore, engine_snapshot,
+                        graph_against_eager, rope_operand_bound, states_equal)
 
 PAGE = 8
 
@@ -686,3 +687,50 @@ def test_cuda_engines_with_one_seed_sample_alike(cuda_device):
         assert eng.graph_replays > 0
     assert all(len(t) == 21 for t in res[0])
     assert res[0] == res[1] and res[0] != res[2]
+
+
+@pytest.mark.cuda
+def test_cuda_spec_dispatch_graph_replay_equals_eager(cuda_device):
+    """A speculating engine's captured dispatch (``spec_rounds`` verify
+    forwards over ``S * (spec_tokens + 1)`` rows through the fused prologue
+    and K2), replayed, gives the eager body's tokens, logprobs, done and
+    emitted flags, device state (the token buffer included) and pools
+    bitwise, with sampled rows drawing from the registered generator;
+    each replay credits one fused prologue and one K2 launch per layer
+    and round, and never K3."""
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    eng, cfg = _small_engine(cuda_device, spec_tokens=3, spec_rounds=2)
+    rng = np.random.default_rng(10)
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=40)
+    sampled = SamplingParams(temperature=1.0, top_k=20, top_p=0.9,
+                             max_new_tokens=40)
+    prompt = rng.integers(1, cfg.vocab_size, 40).tolist()
+    for i in range(3):
+        eng.submit(f"g{i}", prompt, sampled, group_id="g", group_size=3)
+    eng.submit("rep", rng.integers(1, cfg.vocab_size, 8).tolist() * 4, greedy)
+    eng._drain_queue()
+    with eng._pool_lock:
+        eng._admit()
+        eng._step_once()
+        eng._drain_emit_q()
+    assert int(eng._active.sum()) == 4
+    key, body = eng._spec_key(True), (lambda: eng._spec_body(True))
+    snap = engine_snapshot(eng)
+    eng._launch(key, body)
+    graph_out, graph_state = engine_outputs(eng)
+    engine_restore(eng, snap)
+    eng._spec_body(True)
+    eager_out, eager_state = engine_outputs(eng)
+    engine_restore(eng, snap)
+    for a, b in zip(graph_out, eager_out):
+        assert torch.equal(a, b)
+    assert states_equal(graph_state, eager_state)
+    assert int(graph_out[3].sum()) >= 2 * 4  # >= one token a round a slot
+    cuda_build.reset_launch_counts()
+    eng._launch(key, body)
+    torch.cuda.synchronize()
+    per = eng.spec_rounds * cfg.num_layers
+    assert cuda_build.LAUNCHES["paged_kv_write_fused"] == per
+    assert cuda_build.LAUNCHES["paged_attention"] == per
+    assert cuda_build.LAUNCHES["grouped_paged_attention"] == 0

@@ -111,3 +111,103 @@ def test_default_device_needs_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         create_server("tiny", port=0)
+
+
+def test_memory_endpoints_release_and_resume(server):
+    """/release_memory_occupation frees the engine's KV pools and
+    /resume_memory_occupation builds them again; the same greedy request
+    then streams the same tokens and logprobs."""
+    port = server.port
+    body = {"rid": "m", "input_ids": list(range(4, 20)),
+            "sampling_params": {"temperature": 0.0, "max_new_tokens": 10}}
+    before = _generate(port, body)
+    assert _post(port, "/release_memory_occupation", {})[0] == 200
+    assert server.engine._pools is None
+    assert _post(port, "/resume_memory_occupation", {})[0] == 200
+    assert server.engine._pools is not None
+    _post(port, "/flush_cache", {})
+    after = _generate(port, dict(body, rid="m2"))
+    assert after[0] == before[0]
+    assert [ln["logprobs"] for ln in after[1]] == [ln["logprobs"] for ln in before[1]]
+
+
+def test_spec_and_salvage_fields_in_server_info():
+    srv = create_server("tiny", device="cpu", host="127.0.0.1", port=0,
+                        dtype="float32", max_slots=4, page_size=8,
+                        max_seq_len=96, num_pages=64, prompt_buckets=(16, 32),
+                        spec_tokens=3, spec_rounds=2, prefill_chunk=16)
+    try:
+        toks, _ = _generate(srv.port, {
+            "rid": "s", "input_ids": [5, 6, 7, 5, 6, 7, 5, 6, 7, 5],
+            "sampling_params": {"temperature": 0.0, "max_new_tokens": 12}})
+        assert len(toks) == 12
+        info = _get(srv.port, "/get_server_info")[1]
+    finally:
+        srv.stop()
+    assert info["backend"] == "cb"
+    assert info["spec_tokens"] == 3 and info["spec_rounds"] == 2
+    assert info["spec_dispatches"] > 0 and info["spec_emitted"] == 11
+    assert 0 < info["spec_accept_rate"] <= 1
+    assert info["prefill_chunk"] == 16
+    assert info["tokens_salvaged"] == 0 and "salvage_published_pages" in info
+
+
+def test_step_backend_round_trip():
+    """``backend="step"``: the server's batch loop groups requests of one
+    sampling group and streams each token; greedy tokens equal the
+    engine's ``generate`` on the same prompt; an abort ends a stream with
+    an ``abort`` line; the memory endpoints answer."""
+    srv = create_server("tiny", device="cpu", host="127.0.0.1", port=0,
+                        dtype="float32", backend="step", batch_buckets=(4, 8),
+                        prompt_buckets=(16, 32))
+    try:
+        port = srv.port
+        prompts = [list(range(3, 12)), list(range(7, 20)), [9, 8, 7]]
+        results = [None] * 3
+
+        def run(i):
+            results[i] = _generate(port, {
+                "rid": f"s{i}", "input_ids": prompts[i],
+                "sampling_params": {"temperature": 0.0,
+                                    "max_new_tokens": 6 + i}})
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+        for i, (toks, lines) in enumerate(results):
+            want = srv.engine.generate(
+                [prompts[i]], SamplingParams(temperature=0.0,
+                                             max_new_tokens=6 + i))[0]
+            assert toks == want.output_ids.tolist()
+            assert lines[-1]["finish_reason"] == "length"
+            assert all(ln["weight_version"] == 0 for ln in lines)
+        status, info = _get(port, "/get_server_info")
+        assert status == 200 and info["backend"] == "step"
+        assert info["batch_buckets"] == [4, 8] and info["num_running_reqs"] == 0
+        out = {}
+
+        def long_run():
+            out["res"] = _generate(port, {
+                "rid": "long", "input_ids": [5, 6, 7],
+                "sampling_params": {"temperature": 0.0,
+                                    "max_new_tokens": 60}})
+
+        t = threading.Thread(target=long_run)
+        t.start()
+        while not srv._aborts:
+            threading.Event().wait(0.01)
+        _post(port, "/abort_request", {"rid": "long"})
+        t.join(timeout=120)
+        assert out["res"][1][-1]["finish_reason"] in ("abort", "length")
+        assert _post(port, "/release_memory_occupation", {})[0] == 200
+        assert _post(port, "/resume_memory_occupation", {})[0] == 200
+        again = _generate(port, {"rid": "again", "input_ids": prompts[0],
+                                 "sampling_params": {"temperature": 0.0,
+                                                     "max_new_tokens": 6}})
+        assert again[0] == results[0][0]
+    finally:
+        srv.stop()

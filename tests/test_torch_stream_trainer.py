@@ -445,3 +445,125 @@ def test_offload_fit_matches_no_offload_and_moments_stay_on_host():
         outs.append({k: v.detach().clone() for k, v in _leaves(actor.params)})
     for k in outs[0]:
         assert torch.equal(outs[0][k], outs[1][k]), k
+
+
+def test_grpo_fit_on_the_step_backend_matches_jax():
+    """Two GRPO steps with ``rollout.backend=step`` (the bucketed
+    ``RolloutEngine``) in both packages from the same weights, greedy
+    rollouts: the same responses (lengths and rewards), and the actor's
+    per-step readings (old logprobs' entropy, KL, losses, grad norm)
+    within the file's tolerance; the engine ends at weight version 3 and
+    holds the actor's weights."""
+    from polyrl_tpu.data.dataset import PromptDataLoader as JLoader
+    from polyrl_tpu.rollout.engine import RolloutEngine as JRollout
+    from polyrl_tpu_torch.rollout.engine import RolloutEngine
+
+    jcfg = jdec.get_config("tiny", dtype=jnp.float32, vocab_size=512,
+                           max_position_embeddings=128)
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  jdec.init_params(jax.random.PRNGKey(3), jcfg))
+    tcfg = decoder.get_config("tiny", dtype=torch.float32, vocab_size=512,
+                              max_position_embeddings=128)
+    kw = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
+              micro_batch_size=4, min_stream_batch_size=4,
+              max_prompt_length=16, max_response_length=8,
+              adv_estimator="grpo", total_steps=2, temperature=0.0)
+    acfg = dict(lr=1e-4, remat=False, use_kl_loss=True)
+    eng_kw = dict(pad_token_id=256, batch_buckets=(8,), prompt_buckets=(16,))
+
+    def score(ds, txt, gt, ex):
+        return float(len(txt)) + (1.0 if gt in txt else 0.0)
+
+    jrollout = JRollout(jcfg, jax.tree_util.tree_map(jnp.asarray, tree),
+                        kv_cache_dtype=jnp.float32, **eng_kw)
+    jt = jst.StreamRLTrainer(
+        jst.TrainerConfig(**kw),
+        jactor.StreamActor(jcfg, jactor.ActorConfig(**acfg),
+                           jax.tree_util.tree_map(jnp.asarray, tree)),
+        jrollout, JByteTokenizer(),
+        j_load_rm("naive", JByteTokenizer(), compute_score=score, num_workers=1),
+        JLoader(j_make_dataset(16, seed=4), 4, shuffle=False),
+        ref_policy=jactor.ReferencePolicy(
+            jcfg, jax.tree_util.tree_map(jnp.asarray, tree)), health=False)
+    jhist = jt.fit()
+
+    trollout = RolloutEngine(tcfg, params_from_numpy(tree, "cpu", torch.float32),
+                             kv_cache_dtype=torch.float32, device="cpu", **eng_kw)
+    tparams = params_from_numpy(tree, "cpu", torch.float32)
+    actor = StreamActor(tcfg, ActorConfig(**acfg), tparams)
+    tt = StreamRLTrainer(
+        TrainerConfig(**kw), actor, trollout, ByteTokenizer(),
+        load_reward_manager("naive", ByteTokenizer(), compute_score=score,
+                            num_workers=1),
+        PromptDataLoader(make_arithmetic_dataset(16, seed=4), 4, shuffle=False),
+        ref_policy=ReferencePolicy(tcfg, params_from_numpy(tree, "cpu",
+                                                           torch.float32)))
+    thist = tt.fit()
+    assert len(thist) == len(jhist) == 2
+    keys = [k for k in ("reward/mean", "response_length/mean",
+                        "actor/entropy_rollout", "actor/pg_loss",
+                        "actor/kl_loss", "actor/grad_norm")
+            if k in jhist[0]]
+    assert "reward/mean" in keys and len(keys) >= 4, sorted(jhist[0])
+    for j, t in zip(jhist, thist):
+        for k in keys:
+            np.testing.assert_allclose(t[k], j[k], err_msg=k, **TOL)
+    assert trollout.weight_version == jrollout.weight_version == 3
+    for (name, a), (_, e) in zip(_leaves(actor.params), _leaves(trollout.params)):
+        assert torch.equal(a.detach(), e), name
+
+
+def test_example_config_rollout_keys_load_and_step_backend_builds():
+    """The colocated engine's keys of the shipped example config load in
+    the port's config (prefill_chunk 512; salvage, speculation and batch
+    buckets at the reference's defaults), and ``rollout.backend=step``
+    builds the bucketed engine and trains through ``build_trainer``."""
+    import pathlib
+
+    import yaml
+
+    from polyrl_tpu_torch.config import RolloutSection, load_config
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine as TEngine
+    from polyrl_tpu_torch.rollout.engine import RolloutEngine
+    from polyrl_tpu_torch.train import _build_rollout, build_trainer
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    data = yaml.safe_load(
+        (root / "examples/configs/stream_grpo_qwen3_1p7b.yaml").read_text())
+    engine_keys = {f for f in RolloutSection.__dataclass_fields__}
+    rollout = {k: v for k, v in data["rollout"].items()
+               if k in engine_keys and k != "mode"}
+    assert {"prefill_chunk", "backend", "max_slots"} <= set(rollout)
+    cfg = load_config(None, [f"rollout.{k}={v}" for k, v in rollout.items()])
+    r = cfg.rollout
+    assert r.prefill_chunk == 512 and r.salvage_partials is True
+    assert (r.spec_tokens, r.spec_rounds, r.batch_buckets) == (0, 2, ())
+
+    small = ["device=cpu", "model.preset=tiny", "model.dtype=float32",
+             "rollout.prompt_buckets=16", "rollout.page_size=8",
+             "rollout.max_seq_len=64", "rollout.num_pages=64",
+             "rollout.max_slots=8", "trainer.train_batch_size=2",
+             "trainer.rollout_n=2", "trainer.ppo_mini_batch_size=4",
+             "trainer.micro_batch_size=4", "trainer.min_stream_batch_size=4",
+             "trainer.max_prompt_length=16", "trainer.max_response_length=8",
+             "trainer.total_steps=1", "reward.num_workers=1"]
+    cb_cfg = load_config(None, small + ["rollout.prefill_chunk=8",
+                                        "rollout.spec_tokens=2",
+                                        "rollout.salvage_partials=false"])
+    cb = _build_rollout(cb_cfg, decoder.get_config("tiny", dtype=torch.float32),
+                        _tiny()[1], ByteTokenizer(), torch.device("cpu"))
+    assert isinstance(cb, TEngine)
+    assert (cb.prefill_chunk, cb.spec_tokens, cb.salvage_partials) == (8, 2, False)
+    cb.stop()
+    step_cfg = load_config(None, small + ["rollout.backend=step",
+                                          "rollout.batch_buckets=4"])
+    cleanup = []
+    trainer = build_trainer(step_cfg, cleanup)
+    try:
+        assert isinstance(trainer.rollout, RolloutEngine)
+        assert trainer.rollout.batch_buckets == (4,)
+        history = trainer.fit()
+    finally:
+        for fn in cleanup:
+            fn()
+    assert len(history) == 1 and trainer.rollout.weight_version == 2
