@@ -146,7 +146,11 @@ when CUDA is unavailable or any phase fails. Phases:
               bitwise; the int8 load's seconds and bytes;
               ``create_server(model=<dir>)`` serves greedy tokens equal
               to the preset's on the seeded tree.
-7. quant   -- ``create_server("qwen3-1.7b", weight_quant="int8")`` serves
+7. quant   -- ``quant.quantize_tensor`` on the card bitwise the same call
+              on the host (int8 entries and f32 scales) on every
+              projection of the seeded tree (the hf phase's host int8
+              load likewise); then
+              ``create_server("qwen3-1.7b", weight_quant="int8")`` serves
               the serve phase's mix and then a greedy request twice alone
               over HTTP (the fused prologue, K2 and K3 launched, counted
               from zero over both); the greedy runs the same tokens, their
@@ -206,8 +210,46 @@ when CUDA is unavailable or any phase fails. Phases:
               ``generate`` gives; 2 GRPO steps through ``build_trainer``
               with ``rollout.backend=step`` at the train phase's
               configuration (finite losses, grad norms > 0, K4 launched).
-11. result -- the card's name and power limit, a ``{"kernels": [...]}``
-              line, and last ``{"ok": true, "device": {...}}``.
+11. disagg -- the disaggregated rollout: the port's C++ manager (its copy
+              of the sources, built by ``g++`` into the git-ignored build
+              directory) spawned supervised; ``build_trainer`` with
+              ``rollout.mode=disaggregated`` and the train phase's
+              configuration (its weight sender registered first); then the
+              rollout server as a subprocess (``python -m
+              polyrl_tpu_torch.rollout.serve --model qwen3-1.7b
+              --num-pages 512 --manager ...``, bf16, on the card), whose
+              receiver connects to that sender. 2 GRPO steps stream their
+              groups back through the manager, each push goes over the TCP
+              fabric (pack device to host, wire, install host to device,
+              swap in place). Gates: finite losses, grad norms > 0; every
+              push verified, none failed or retried; the server's
+              ``weight_version`` at 1 + the steps; every streamed token
+              tagged with its stream's version (staleness limit 1); a GRPO
+              group of 8 on a 100-token prompt through the manager; after
+              the last push a greedy request through the manager equal to
+              an in-process ``CBEngine`` on the trainer's final parameters
+              (or parting only at a near-tie), within 0.15 nats of the
+              dense f32 forward; launches counted from zero: the fused
+              prologue, K2 and K3 in the server process (its
+              ``/get_server_info``), K4 forward and backward in the
+              trainer's and no decode kernel there. Logs each push's
+              split with GB/s, the version-raise latency, the step walls
+              against the train phase's, the bubble, ``max_local_gen_s``,
+              both processes' peak memory, and each step's generation as
+              the server saw it (its ``/get_server_info`` polled every
+              50 ms: the version's raise, the first admission, the first
+              and last token, tok/s, graph captures). Then an int8 server
+              (``--weight-quant int8``) joins and takes one push of the
+              trainer's bf16 tree over the fabric, re-quantized on
+              arrival: a greedy request on it equals an in-process int8
+              ``CBEngine`` on ``quant.quantize_params`` of that tree (or
+              parts only at a near-tie), within 0.15 nats of the dense f32
+              forward on the dequantized weights. Any failure (the
+              manager's build, a server's death, a push) fails the smoke.
+12. result -- the card's name and power limit, a ``{"kernels": [...]}``
+              line (the launches of each kernel's paths: serve or the A/B,
+              train, and disagg), and last ``{"ok": true, "device":
+              {...}}``.
 """
 
 from __future__ import annotations
@@ -2154,7 +2196,8 @@ def train_phase(dev) -> dict:
             f"moved from the reference copy; main-path launches "
             f"{json.dumps(launches)}; the gates' own launches "
             f"{json.dumps(gate_launches)}")
-        return dict(launches=launches, history=history, peak_gb=peak_gb)
+        return dict(launches=launches, history=history, peak_gb=peak_gb,
+                    decode_dispatches=engine.decode_dispatches)
     finally:
         for fn in reversed(cleanup):
             fn()
@@ -2806,6 +2849,8 @@ def hf_phase(dev) -> dict:
         n_q = sum(t.numel() for k_, t in quant.named_leaves(q) if k_.endswith(".q"))
         n_diff = sum(int((t != on_card[k_]).sum())
                      for k_, t in quant.named_leaves(q) if k_.endswith(".q"))
+        check(n_diff == 0, f"the host's int8 load differs from quantizing on "
+              f"the card in {n_diff} of {n_q} entries")
         del q, on_card, want, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -2934,6 +2979,49 @@ def quant_decode_ab(dev, cfg, trees: dict) -> dict:
     return out
 
 
+def quant_host_parity(dev) -> None:
+    """``quant.quantize_tensor`` on the card against the same call on the
+    host, on every projection of the seeded ``qwen3-1.7b`` tree: the int8
+    entries and the f32 scales must be bitwise equal (the host path is
+    pinned to the reference's numpy by the CPU tests). Also logs what the
+    former divisor, the Python scalar 127.0, gives on the card (CUDA
+    multiplies by its rounded reciprocal): the scales and entries that
+    differ from the host's, the cause of the two paths' disagreement."""
+    from polyrl_tpu_torch.models import quant
+
+    cfg = decoder.get_config(MODEL, dtype=torch.bfloat16)
+    params = decoder.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    t0 = time.monotonic()
+    n_q = n_dq = n_ds = n_old_s = n_old_q = 0
+    projections = [(f"layers.{k_}", -2) for k_ in quant.QUANTIZED_LAYER_KEYS
+                   if k_ in params["layers"]]
+    if "lm_head" in params:
+        projections.append(("lm_head", 0))
+    leaves = dict(quant.named_leaves(params))
+    for name, axis in projections:
+        w = leaves[name]
+        card = quant.quantize_tensor(w, contract_axis=axis)
+        host = quant.quantize_tensor(w.cpu(), contract_axis=axis)
+        n_q += card.q.numel()
+        n_dq += int((card.q.cpu() != host.q).sum())
+        n_ds += int((card.scale.cpu() != host.scale).sum())
+        wf = w.float()
+        old = wf.abs().amax(dim=axis) / 127.0 + 1e-12
+        old_q = torch.clamp(torch.round(wf / old.unsqueeze(axis)), -127, 127)
+        n_old_s += int((old.cpu() != host.scale).sum())
+        n_old_q += int((old_q.to(torch.int8).cpu() != host.q).sum())
+        del wf, old, old_q
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"quant: quantize_tensor card against host on {len(projections)} "
+        f"projections: {n_dq} of {n_q} int8 entries and {n_ds} scales differ "
+        f"({time.monotonic() - t0:.1f} s); with the divisor the Python scalar "
+        f"127.0 on the card, {n_old_s} scales and {n_old_q} entries would")
+    check(n_dq == 0 and n_ds == 0,
+          "quantize_tensor on the card differs from the host's")
+
+
 def quant_phase(dev) -> dict:
     """``create_server("qwen3-1.7b", weight_quant="int8")`` (the preset made
     int8 leaf by leaf on the card) at the serving geometry, over HTTP: the
@@ -2948,6 +3036,7 @@ def quant_phase(dev) -> dict:
     from polyrl_tpu_torch.models import quant
     from polyrl_tpu_torch.rollout.serve import create_server
 
+    quant_host_parity(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.monotonic()
     server = create_server(MODEL, device=str(dev), host="127.0.0.1", port=0,
@@ -4118,6 +4207,492 @@ def step_phase(dev) -> dict:
                 peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
 
 
+# the disagg phase: the rollout server's own KV pool (7.34 MB a page at
+# full width: 3.76 GB), its geometry the train phase's engine's
+DISAGG_PAGES = 512
+DISAGG_SERVER = ["--max-slots", "64", "--page-size", "64", "--max-seq-len",
+                 "512", "--prompt-buckets", "64", "128",
+                 "--steps-per-dispatch", "8"]
+DISAGG_GREEDY = 64
+DISAGG_SERVER_DEADLINE_S = 300.0
+# the int8 server that joins after the fit for one push: a small pool
+DISAGG_INT8_PAGES = 64
+# the rollout server's state polled through the fit, every this many s
+TIMELINE_POLL_S = 0.05
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    with open(path, "rb") as f:
+        return f.read()[-n:].decode(errors="replace")
+
+
+def spawn_server(dev, mgr, manager_ep: str, extra: list[str],
+                 procs: list) -> tuple[int, str, float]:
+    """``python -m polyrl_tpu_torch.rollout.serve`` on ``MODEL`` as a
+    subprocess registered through ``--manager`` (appended to ``procs``
+    at once, so teardown stops it), waited for until the manager reports
+    it healthy. Returns its port, its log's path and the seconds it took."""
+    port = free_port()
+    endpoint = f"127.0.0.1:{port}"
+    log_path = tempfile.NamedTemporaryFile(prefix="disagg-server-",
+                                           suffix=".log", delete=False).name
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.monotonic()
+    with open(log_path, "wb") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "polyrl_tpu_torch.rollout.serve",
+             "--model", MODEL, "--dtype", "bfloat16", "--device", dev.type,
+             "--host", "127.0.0.1", "--port", str(port), "--seed", "0",
+             "--manager", manager_ep, "--transfer-streams", "4"]
+            + DISAGG_SERVER + extra,
+            cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT)
+    procs.append((proc, port, log_path))
+    while True:
+        check(proc.poll() is None, "a rollout server exited "
+              f"(rc {proc.returncode}): {_tail(log_path)}")
+        if any(i["endpoint"] == endpoint and i["healthy"]
+               for i in mgr.get_instances_status()["instances"]):
+            return port, log_path, time.monotonic() - t0
+        check(time.monotonic() - t0 < DISAGG_SERVER_DEADLINE_S,
+              f"a rollout server never became healthy: {_tail(log_path)}")
+        time.sleep(0.5)
+
+
+def stream_timeline(streams: list, timeline: list, syncs: dict) -> list[dict]:
+    """Each streamed step's generation as the server saw it: ``streams``
+    holds (start, end, version) on the wall clock, ``timeline`` the
+    server's (time, weight_version, running, queued, tokens served,
+    graph captures, capture s, decode dispatches) polled through the fit,
+    ``syncs`` its weight installs by version. Per stream: when the server
+    raised the stream's version, admitted its first request, reached its
+    most running requests, emitted its first and last token (to the
+    poll's resolution), and the tokens, tok/s, decode dispatches and graph
+    captures between; ``tail_s`` runs from the last token to the last
+    chunk's arrival in the trainer."""
+    out = []
+    for s0, s1, v in streams:
+        rows = [r for r in timeline if s0 - TIMELINE_POLL_S <= r[0] <= s1 + TIMELINE_POLL_S]
+        if len(rows) < 2:
+            out.append(dict(stream_s=s1 - s0, tokens=0))
+            continue
+        tok0, tok1 = rows[0][4], rows[-1][4]
+        first_tok = next((r[0] for r in rows if r[4] > tok0), s1)
+        last_tok = next((r[0] for r in rows if r[4] >= tok1), s1)
+        admit = next((r[0] for r in rows if r[2] + r[3] > 0), first_tok)
+        peak = max(r[2] for r in rows)
+        full = next(r[0] for r in rows if r[2] == peak)
+        busy = max(last_tok - first_tok, TIMELINE_POLL_S)
+        out.append(dict(
+            peak_running=peak, full_s=full - s0,
+            dispatches=rows[-1][7] - rows[0][7],
+            stream_s=s1 - s0,
+            raised_s=syncs.get(v, {}).get("t_wall", float("nan")) - s0,
+            admit_s=admit - s0, first_tok_s=first_tok - s0,
+            last_tok_s=last_tok - s0, tail_s=s1 - last_tok,
+            tokens=tok1 - tok0, tok_s=(tok1 - tok0) / busy,
+            captures=rows[-1][5] - rows[0][5],
+            capture_s=rows[-1][6] - rows[0][6]))
+    return out
+
+
+def disagg_phase(dev, trained: dict) -> dict:
+    """The disaggregated rollout: the port's C++ manager built by ``g++``
+    and spawned supervised; the rollout server a subprocess (``python -m
+    polyrl_tpu_torch.rollout.serve`` on ``qwen3-1.7b``, bf16, 512 pages,
+    registered through ``--manager``); the trainer ``build_trainer`` with
+    ``rollout.mode=disaggregated`` and the train phase's configuration.
+    Gates: finite losses, grad norms > 0; every push verified (no push or
+    verify failure, no retry) and the server's ``weight_version`` at 1 +
+    the steps; every streamed token tagged with the version its stream
+    started at (the serial trainer's staleness limit 1); a GRPO group of 8
+    on a 64-token prompt through the manager; a greedy request through the
+    manager after the last push equal to an in-process ``CBEngine`` on the
+    trainer's final parameters (or parting only at a near-tie, as
+    ``agrees_until_tie``), its logprobs within DENSE_LOGP_TOL of the dense
+    f32 forward; launches counted from zero: the fused prologue, K2 and K3
+    in the server process, K4 forward and backward in the trainer's, and
+    no decode kernel in the trainer's. Logs each push split into pack,
+    wire, install and swap, the version-raise latency, the step walls
+    against the train phase's colocated ones, the bubble,
+    ``max_local_gen_s`` and each process's peak memory, and each step's
+    generation as the server saw it (its state polled every
+    TIMELINE_POLL_S: the version's raise, the first admission, the first
+    and last token, tok/s, graph captures). Then ``disagg_int8_push``."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.manager.client import GenerateProgress
+    from polyrl_tpu_torch.manager.supervisor import ManagerSupervisor
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+    from polyrl_tpu_torch.train import build_trainer
+
+    t0 = time.monotonic()
+    sup = ManagerSupervisor(bind_addr="127.0.0.1:0", extra_args=[
+        "--health-check-interval-s", "0.5", "--stats-poll-interval-s", "0.5"])
+    sup.start()
+    mgr_s = time.monotonic() - t0
+    cleanup: list = [sup.stop]
+    procs: list = []
+    try:
+        cfg = load_config(None, TRAIN_OVERRIDES + [
+            "rollout.mode=disaggregated",
+            f"rollout.manager_endpoint={sup.endpoint}",
+            "rollout.transfer_streams=4", f"device={dev.type}"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+        remote, iface = trainer.rollout, trainer.rollout.transfer
+        # the server starts after the trainer registered its weight sender,
+        # so the manager assigns it and its receiver connects there
+        mgr = remote.manager
+        port, server_log, server_up_s = spawn_server(
+            dev, mgr, sup.endpoint, ["--num-pages", str(DISAGG_PAGES)], procs)
+        proc = procs[0][0]
+        info0 = post(port, "/get_server_info", None)
+        log(f"disagg: manager built and supervised in {mgr_s:.1f} s; trainer "
+            f"up; rollout server (a subprocess, {DISAGG_PAGES} pages) healthy "
+            f"after {server_up_s:.1f} s; its launches before the fit "
+            + json.dumps({k_: info0[f"kernel_launches/{k_}"] for k_ in SERVE_KERNELS}))
+
+        # every streamed result, with the weight version at its stream's
+        # start; each stream's start and its last chunk's arrival on the
+        # wall clock (the trainer works on a chunk before it asks for the
+        # next, so the generator's own end is later)
+        streamed: list[tuple[int, object]] = []
+        streams: list[list] = []
+        inner = remote.generate_stream
+
+        def recording_stream(*a, **kw):
+            start = remote.weight_version
+            span = [time.time(), time.time(), start]
+            streams.append(span)
+            for chunk in inner(*a, **kw):
+                streamed.extend((start, r) for _, r in chunk)
+                span[1] = time.time()
+                yield chunk
+
+        # the server's state through the fit, for each step's generation
+        # as the server saw it
+        timeline: list[tuple] = []
+        poll_err: list[BaseException] = []
+        polled = threading.Event()
+
+        def poll_server():
+            try:
+                while not polled.is_set():
+                    inf = post(port, "/get_server_info", None)
+                    timeline.append((time.time(), inf["weight_version"],
+                                     inf["num_running_reqs"], inf["num_queued_reqs"],
+                                     inf["total_tokens_served"], inf["graph_captures"],
+                                     inf["graph_capture_s"], inf["decode_dispatches"]))
+                    polled.wait(TIMELINE_POLL_S)
+            except BaseException as exc:  # noqa: BLE001 -- checked below
+                poll_err.append(exc)
+
+        remote.generate_stream = recording_stream
+        poller = threading.Thread(target=poll_server, name="disagg-poll", daemon=True)
+        poller.start()
+        cuda_build.reset_launch_counts()
+        t2 = time.monotonic()
+        try:
+            history = trainer.fit()
+        finally:
+            polled.set()
+            poller.join(timeout=30)
+        fit_wall = time.monotonic() - t2
+        remote.generate_stream = inner
+        check(not poll_err, f"disagg: polling the server failed: {poll_err}")
+        n_steps = cfg.trainer.total_steps
+        check(len(history) == n_steps, "the disaggregated fit did not finish")
+        for i, rec in enumerate(history, 1):
+            for key in ("actor/pg_loss", "actor/kl_loss", "actor/grad_norm"):
+                check(key in rec and np.isfinite(rec[key]),
+                      f"disagg step {i}: {key} missing or not finite")
+            check(rec["actor/grad_norm"] > 0, f"disagg step {i}: zero gradient")
+            check("training/max_local_gen_s" in rec,
+                  f"disagg step {i}: no balancer answer")
+        final = remote.weight_version
+        check(final == 1 + n_steps, f"disagg: {final} pushes, not 1 + {n_steps}")
+        t3 = time.monotonic()
+        while post(port, "/get_server_info", None)["weight_version"] < final:
+            check(proc.poll() is None, f"the rollout server exited: {_tail(server_log)}")
+            check(time.monotonic() - t3 < 120, "the last push never landed")
+            time.sleep(0.1)
+        c = iface.counters()
+        check(c["transfer/push_failures"] == 0 and c["transfer/verify_failures"] == 0
+              and c["transfer/push_retries"] == 0,
+              f"a push failed or was retried: {json.dumps(c)}")
+        limit = cfg.trainer.staleness_limit
+        stale = [(v0, r.output_token_weight_versions) for v0, r in streamed
+                 if len(r.output_token_weight_versions) != len(r.output_token_ids)
+                 or any(v < 0 or v0 - v > limit - 1 or v > v0
+                        for v in r.output_token_weight_versions)]
+        per_step = cfg.trainer.train_batch_size * cfg.trainer.rollout_n
+        check(len(streamed) == n_steps * per_step and not stale,
+              f"disagg: {len(streamed)} streamed results; untagged or stale "
+              f"tokens in {len(stale)}")
+        # a GRPO group through the manager on a full-page prompt (K3)
+        rng = np.random.default_rng(2)
+        vocab = trainer.actor.model_cfg.vocab_size
+        # 100 tokens: one full page shared by the group (K3's prefix)
+        group_prompt = rng.integers(1, vocab, 100).tolist()
+        reqs = [{"rid": f"dg{i}", "input_ids": group_prompt, "group_id": "dgrp",
+                 "group_size": 8, "sampling_params": {"temperature": 1.0,
+                                                      "max_new_tokens": 64}}
+                for i in range(8)]
+        finals = [r for r in mgr.batch_generate_stream(reqs)
+                  if not isinstance(r, GenerateProgress)]
+        check(len(finals) == 8 and all(r.success and len(r.output_token_ids) == 64
+                                       and set(r.output_token_weight_versions) == {final}
+                                       for r in finals),
+              "disagg: the GRPO group through the manager failed")
+        greedy_prompt = rng.integers(1, vocab, 40).tolist()
+        served = mgr.generate("dgreedy", greedy_prompt,
+                              {"temperature": 0.0, "max_new_tokens": DISAGG_GREEDY})
+        check(served.success, f"disagg greedy: {served.error}")
+        info = post(port, "/get_server_info", None)
+        server_launches = {k_: info[f"kernel_launches/{k_}"] - info0[f"kernel_launches/{k_}"]
+                           for k_ in SERVE_KERNELS}
+        trainer_launches = dict(cuda_build.LAUNCHES)
+        for name in SERVE_KERNELS:
+            check(server_launches[name] > 0,
+                  f"{name} was not launched in the server process: "
+                  f"{json.dumps(server_launches)}")
+        for name in ("flash_attention_fwd", "flash_attention_bwd"):
+            check(trainer_launches[name] > 0, f"{name} was not launched in the trainer")
+        check(all(trainer_launches[k_] == 0 for k_ in SERVE_KERNELS),
+              f"the trainer process decoded: {json.dumps(trainer_launches)}")
+        trainer_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        log(f"disagg: {len(streamed)} streamed results, every token tagged "
+            f"with its stream's version; the GRPO group through the manager "
+            f"and the greedy request at v{final}")
+
+        # the same greedy request on an in-process engine with the trainer's
+        # final parameters
+        params = trainer.actor.export_params()
+        mcfg = trainer.actor.model_cfg
+        eng = CBEngine(mcfg, params, pad_token_id=0, kv_cache_dtype=torch.bfloat16,
+                       max_slots=64, page_size=64, max_seq_len=512,
+                       num_pages=DISAGG_PAGES, steps_per_dispatch=8,
+                       prompt_buckets=(64, 128), seed=0, device=dev)
+        try:
+            local = eng.generate([greedy_prompt], SamplingParams(
+                temperature=0.0, max_new_tokens=DISAGG_GREEDY))[0]
+        finally:
+            eng.stop()
+        del eng
+        params32 = f32_copy(params)
+        gaps = top2_gaps(params32, mcfg, greedy_prompt, local["token_ids"], dev)
+        ok, first, tie, gap = agrees_until_tie(served.output_token_ids,
+                                               list(local["token_ids"]), gaps)
+        check(ok, f"disagg greedy: served tokens part from the in-process "
+              f"engine's at {first} (first near-tie {tie}, f32 gap {gap:.4f})")
+        err, _ = dense_f32_gate(params32, mcfg, greedy_prompt,
+                                served.output_token_ids,
+                                served.output_token_logprobs, dev)
+        check(err <= DENSE_LOGP_TOL, f"disagg greedy: {err:.4f} nats from the "
+              "dense f32 forward")
+        del params32
+        lp_same = served.output_token_logprobs == list(local["logprobs"])
+        check(set(served.output_token_weight_versions) == {final},
+              "disagg greedy: tokens of another weight version")
+        syncs = {s_["version"]: s_ for s_ in info.get("weight_syncs", [])}
+        rounds = {r_["version"]: r_ for r_ in iface.sender.round_log}
+        pushes = []
+        for pl in iface.push_log:
+            v = pl["version"]
+            sy, rd = syncs.get(v, {}), rounds.get(v, {})
+            pushes.append(dict(version=v, bytes=sy.get("bytes", rd.get("bytes", 0)),
+                               pack_s=pl["pack_s"], wire_s=rd.get("push_s", float("nan")),
+                               install_s=sy.get("install_s", float("nan")),
+                               swap_s=sy.get("swap_s", float("nan")),
+                               raise_s=sy.get("t_wall", float("nan")) - pl["t_wall"]))
+        check(sorted(p_["version"] for p_ in pushes) == list(range(1, final + 1)),
+              f"disagg: push log {pushes}")
+        gen = stream_timeline(streams, timeline, syncs)
+        check(len(gen) == n_steps, f"disagg: {len(gen)} streams for {n_steps} steps")
+        int8 = disagg_int8_push(dev, remote, iface, sup.endpoint, params, mcfg,
+                                procs)
+        return dict(history=history, fit_wall=fit_wall, pushes=pushes,
+                    gen=gen, int8=int8,
+                    server_launches=server_launches,
+                    trainer_launches=trainer_launches, trainer_peak=trainer_peak,
+                    server_peak=info.get("peak_memory_bytes", 0) / 1e9,
+                    greedy=dict(bitwise=served.output_token_ids == list(local["token_ids"]),
+                                logprobs_bitwise=lp_same, first=first, tie=tie,
+                                gap=gap, dense_err=err),
+                    server_up_s=server_up_s, manager_s=mgr_s,
+                    colocated=[rec["perf/step_time_s"] for rec in trained["history"]],
+                    colocated_dispatches=trained["decode_dispatches"],
+                    colocated_gen=[(rec.get("timing_s/gen", float("nan")),
+                                    rec.get("perf/rollout_throughput_tok_s", float("nan")))
+                                   for rec in trained["history"]])
+    finally:
+        for proc, port, _ in procs:
+            if proc.poll() is not None:
+                continue
+            try:
+                post(port, "/shutdown", {})
+                proc.wait(timeout=30)
+            except Exception:  # noqa: BLE001 -- killed below
+                pass
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        for fn in reversed(cleanup):
+            fn()
+
+
+def disagg_int8_push(dev, remote, iface, manager_ep: str, params: dict, mcfg,
+                     procs: list) -> dict:
+    """An int8 server (``--weight-quant int8``) joins after the fit and
+    takes one push of the trainer's final bf16 tree over the fabric: its
+    receiver's layout comes from the bf16 template, and the push is
+    re-quantized on arrival (``weight_preprocess``). Gates: the push
+    verified and both servers at its version; a greedy request on the int8
+    server equal to an in-process int8 ``CBEngine`` on
+    ``quant.quantize_params`` of the same tree (or parting only at a
+    near-tie of the dense f32 forward on the dequantized weights), within
+    DENSE_LOGP_TOL of it."""
+    from polyrl_tpu_torch.models import quant
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    port8, log8, up_s = spawn_server(
+        dev, remote.manager, manager_ep,
+        ["--weight-quant", "int8", "--num-pages", str(DISAGG_INT8_PAGES)], procs)
+    port_bf16 = procs[0][1]
+    v = remote.update_weights(params)
+    t0 = time.monotonic()
+    for p_ in (port8, port_bf16):
+        while post(p_, "/get_server_info", None)["weight_version"] < v:
+            check(all(pr.poll() is None for pr, _, _ in procs),
+                  f"a rollout server exited: {_tail(log8)}")
+            check(time.monotonic() - t0 < 120, "the int8 push never landed")
+            time.sleep(0.1)
+    c = iface.counters()
+    check(c["transfer/push_failures"] == 0 and c["transfer/verify_failures"] == 0,
+          f"the push into the int8 server failed: {json.dumps(c)}")
+    info8 = post(port8, "/get_server_info", None)
+    sy = {s_["version"]: s_ for s_ in info8.get("weight_syncs", [])}.get(v, {})
+    rd = {r_["version"]: r_ for r_ in iface.sender.round_log}.get(v, {})
+    pl = {p_["version"]: p_ for p_ in iface.push_log}.get(v, {})
+    check(bool(sy), f"the int8 server logged no install of v{v}")
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(1, mcfg.vocab_size, 40).tolist()
+    served = greedy_run(port8, prompt, DISAGG_GREEDY, "d8greedy")
+    qparams = quant.quantize_params(params)
+    eng = CBEngine(mcfg, qparams, pad_token_id=0, kv_cache_dtype=torch.bfloat16,
+                   max_slots=64, page_size=64, max_seq_len=512,
+                   num_pages=DISAGG_INT8_PAGES, steps_per_dispatch=8,
+                   prompt_buckets=(64, 128), seed=0, device=dev)
+    try:
+        local = eng.generate([prompt], SamplingParams(
+            temperature=0.0, max_new_tokens=DISAGG_GREEDY))[0]
+    finally:
+        eng.stop()
+    del eng
+    params32 = dequantized_f32(qparams)
+    del qparams
+    gaps = top2_gaps(params32, mcfg, prompt, local["token_ids"], dev)
+    ok, first, tie, gap = agrees_until_tie(served["tokens"],
+                                           list(local["token_ids"]), gaps)
+    check(ok, f"disagg int8: served tokens part from the in-process int8 "
+          f"engine's at {first} (first near-tie {tie}, f32 gap {gap:.4f})")
+    err, _ = dense_f32_gate(params32, mcfg, prompt, served["tokens"],
+                            served["logprobs"], dev)
+    del params32
+    check(err <= DENSE_LOGP_TOL, f"disagg int8: {err:.4f} nats from the dense "
+          "f32 forward on the dequantized weights")
+    return dict(version=v, up_s=up_s, bytes=sy.get("bytes", 0),
+                pack_s=pl.get("pack_s", float("nan")),
+                wire_s=rd.get("push_s", float("nan")),
+                install_s=sy.get("install_s", float("nan")),
+                swap_s=sy.get("swap_s", float("nan")),
+                raise_s=sy.get("t_wall", float("nan")) - pl.get("t_wall", float("nan")),
+                bitwise=served["tokens"] == list(local["token_ids"]),
+                logprobs_bitwise=served["logprobs"] == list(local["logprobs"]),
+                first=first, tie=tie, gap=gap, dense_err=err,
+                peak=info8.get("peak_memory_bytes", 0) / 1e9)
+
+
+def disagg_lines(out: dict, smi: str) -> list[str]:
+    lines = []
+    for p_ in out["pushes"]:
+        gb = p_["bytes"] / 1e9
+        lines.append(
+            f"disagg ({smi}, this run): push v{p_['version']}: {gb:.3f} GB; pack "
+            f"(device to host) {p_['pack_s']:.3f} s ({gb / p_['pack_s']:.2f} GB/s), "
+            f"wire (ready to verified, trailing the pack) {p_['wire_s']:.3f} s "
+            f"({gb / p_['wire_s']:.2f} GB/s), install (host to device) "
+            f"{p_['install_s']:.3f} s ({gb / p_['install_s']:.2f} GB/s), swap "
+            f"{p_['swap_s']:.3f} s; version raised {p_['raise_s']:.3f} s after "
+            f"the trainer bumped it")
+    for i, rec in enumerate(out["history"], 1):
+        lines.append(
+            f"disagg ({smi}, this run): step {i}: wall {rec['perf/step_time_s']:.2f} s "
+            f"(colocated train phase {out['colocated'][i - 1]:.2f} s); "
+            + ", ".join(f"{k_} {rec.get('timing_s/' + k_, 0.0):.2f}" for k_ in (
+                "reward", "old_log_prob", "ref_log_prob", "adv", "update_actor",
+                "update_weight"))
+            + f"; bubble {rec['perf/trainer_bubble_s']:.2f} s; max_local_gen_s "
+            f"{rec['training/max_local_gen_s']:.1f}; pg_loss "
+            f"{rec['actor/pg_loss']:.5f}, grad_norm {rec['actor/grad_norm']:.4f}")
+        g_ = out["gen"][i - 1]
+        co = out["colocated_gen"][i - 1]
+        lines.append(
+            f"disagg ({smi}, this run): step {i}: generation on the server: "
+            f"stream to its last chunk {g_['stream_s']:.3f} s; from its start, the "
+            f"version raised at {g_.get('raised_s', float('nan')):.3f} s, first "
+            f"request admitted at {g_.get('admit_s', float('nan')):.3f} s, first "
+            f"token at {g_.get('first_tok_s', float('nan')):.3f} s, the most "
+            f"running ({g_.get('peak_running', 0)}) from "
+            f"{g_.get('full_s', float('nan')):.3f} s, last token at "
+            f"{g_.get('last_tok_s', float('nan')):.3f} s, the last chunk in the "
+            f"trainer {g_.get('tail_s', float('nan')):.3f} s later; {g_['tokens']} tokens, "
+            f"{g_.get('tok_s', float('nan')):.1f} tok/s between first and last "
+            f"token; {g_.get('dispatches', 0)} decode dispatches; "
+            f"{g_.get('captures', 0)} graph captures "
+            f"({g_.get('capture_s', 0.0):.3f} s) (colocated train phase: gen "
+            f"{co[0]:.3f} s, rollout gauge {co[1]:.1f} tok/s; its engine's "
+            f"decode dispatches over both steps {out['colocated_dispatches']})")
+    g = out["greedy"]
+    lines.append(
+        f"disagg ({smi}, this run): fit wall {out['fit_wall']:.1f} s; greedy "
+        f"through the manager against the in-process engine: tokens "
+        f"{'bitwise' if g['bitwise'] else 'part at %d (near-tie %d, f32 gap %.4f)' % (g['first'], g['tie'], g['gap'])}, "
+        f"logprobs {'bitwise' if g['logprobs_bitwise'] else 'not bitwise'}; "
+        f"{g['dense_err']:.4f} nats from dense f32; launches: server "
+        + json.dumps(out["server_launches"]) + ", trainer "
+        + json.dumps({k_: out["trainer_launches"][k_] for k_ in TRAIN_KERNELS})
+        + f"; peak memory trainer {out['trainer_peak']:.2f} GB, server "
+        f"{out['server_peak']:.2f} GB; server up in {out['server_up_s']:.1f} s, "
+        f"manager built and up in {out['manager_s']:.1f} s")
+    q = out["int8"]
+    gb = q["bytes"] / 1e9
+    lines.append(
+        f"disagg ({smi}, this run): int8 server (up in {q['up_s']:.1f} s) took "
+        f"push v{q['version']} of the bf16 tree: {gb:.3f} GB; pack "
+        f"{q['pack_s']:.3f} s, wire {q['wire_s']:.3f} s ({gb / q['wire_s']:.2f} "
+        f"GB/s), install {q['install_s']:.3f} s, swap with re-quantization "
+        f"{q['swap_s']:.3f} s; raised {q['raise_s']:.3f} s after the bump; greedy "
+        f"against the in-process int8 engine on quantize_params of the same "
+        f"tree: tokens "
+        f"{'bitwise' if q['bitwise'] else 'part at %d (near-tie %d, f32 gap %.4f)' % (q['first'], q['tie'], q['gap'])}, "
+        f"logprobs {'bitwise' if q['logprobs_bitwise'] else 'not bitwise'}; "
+        f"{q['dense_err']:.4f} nats from dense f32 on the dequantized weights; "
+        f"int8 server peak {q['peak']:.2f} GB")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", default=None,
@@ -4221,6 +4796,13 @@ def main() -> int:
         + json.dumps({k_: stepped["launches"][k_] for k_ in STEP_KERNELS})
         + f", peak {stepped['peak_gb']:.2f} GB")
     log(f"phase step ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
+    t0 = time.monotonic()
+    disagg = disagg_phase(dev, trained)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in disagg_lines(disagg, smi):
+        log(line)
+    log(f"phase disagg ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
 
     for r in rows:
         # K1's path is the decode step's unfused route (the serve phase's
@@ -4229,8 +4811,14 @@ def main() -> int:
                     if r["name"] == "paged_kv_write" else
                     trained["launches"] if r["name"].startswith("flash")
                     else served["launches"])
+        # plus the disagg phase's path: the server process decodes, the
+        # trainer process runs K4
+        extra = (0 if r["name"] == "paged_kv_write" else
+                 disagg["trainer_launches"][r["name"]] if r["name"].startswith("flash")
+                 else disagg["server_launches"][r["name"]])
         r.update(route="cuda", source=f"polyrl_tpu_torch/csrc/{r['name']}.cu",
-                 replaces=REPLACES[r["name"]], launches=launches[r["name"]])
+                 replaces=REPLACES[r["name"]],
+                 launches=launches[r["name"]] + extra)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)

@@ -1,9 +1,11 @@
 """Config system: dataclass tree + YAML + dotted CLI overrides.
 
 Counterpart of ``polyrl_tpu/config.py`` for the sections this port runs:
-model, tokenizer, data, the colocated rollout (``cb`` or ``step``), reward, trainer,
-actor and critic, plus the ``device`` every entry point takes (``cuda`` by default;
-it raises without a card). Nested dataclasses are the schema and the
+model, tokenizer, data, the rollout (colocated, ``cb`` or ``step``, or
+disaggregated: the manager, the weight fabric and the pool), the weight
+fabric's supervision (``transfer``), reward, trainer, actor and critic,
+plus the ``device`` every entry point takes (``cuda`` by default; it
+raises without a card). Nested dataclasses are the schema and the
 defaults, a YAML file overlays them, and ``key.sub=value`` dotted CLI
 arguments overlay that (CLI > file > default). Unknown keys raise.
 """
@@ -16,9 +18,12 @@ import typing
 from dataclasses import dataclass, field
 from typing import Any
 
+from polyrl_tpu_torch.rollout.faults import FaultInjectionConfig
+from polyrl_tpu_torch.rollout.pool import PoolConfig
 from polyrl_tpu_torch.trainer.actor import ActorConfig
 from polyrl_tpu_torch.trainer.critic import CriticConfig
 from polyrl_tpu_torch.trainer.stream_trainer import TrainerConfig
+from polyrl_tpu_torch.transfer.agents import TransferConfig
 
 
 @dataclass
@@ -47,7 +52,7 @@ class DataSection:
 
 @dataclass
 class RolloutSection:
-    mode: str = "colocated"               # colocated (disaggregated: not ported)
+    mode: str = "colocated"               # colocated | disaggregated
     backend: str = "cb"                   # cb (paged continuous batching) | step (bucketed)
     batch_buckets: tuple = ()             # step backend; () -> its defaults
     prompt_buckets: tuple = ()            # () -> the engine's default buckets
@@ -72,6 +77,35 @@ class RolloutSection:
     group_share: bool = True
     decode_group_share: bool = True
     group_preref_ttl_s: float = 30.0
+    # disaggregated plumbing: the rollout servers run as their own
+    # processes (``python -m polyrl_tpu_torch.rollout.serve --manager``)
+    manager_endpoint: str = ""            # "" -> spawn the C++ manager locally
+    manager_args: tuple = ()              # extra CLI args for the spawned manager
+    # a locally spawned manager runs supervised: respawned with backoff
+    # (base doubling to max), its state replayed through /reconcile
+    manager_respawn_backoff_s: float = 0.5
+    manager_respawn_backoff_max_s: float = 10.0
+    # mid-stream transport failures re-issue only the unfinished rids, at
+    # most resume_budget times per batch, waiting up to resume_wait_s each
+    # time for the manager to come back
+    resume_budget: int = 3
+    resume_wait_s: float = 60.0
+    # fault-injection harness (rollout/faults.py) on the trainer's stream
+    fault_injection: FaultInjectionConfig = field(
+        default_factory=FaultInjectionConfig)
+    transfer_streams: int = 4
+    advertise_host: str = "127.0.0.1"
+    # multi-NIC weight push (transfer/nic.py): >1 runs one sender agent per
+    # CIDR-picked local interface and the manager partitions the pool
+    sender_groups: int = 1
+    sender_nic_cidr: str = ""             # e.g. "10.128.0.0/16,10.129.0.0/16"
+    groups_per_sender: int = 1            # manager-side instance sharding
+    # hybrid colocated + remote (an in-process engine registered as a
+    # local, time-sliced instance): not ported yet (ROADMAP A' 7)
+    colocated_local: bool = False
+    # elastic pool (rollout/pool.py): membership sweeps, join gating,
+    # preemption drills and the balance estimator's window
+    pool: PoolConfig = field(default_factory=PoolConfig)
 
 
 @dataclass
@@ -88,6 +122,10 @@ class RunConfig:
     tokenizer: TokenizerSection = field(default_factory=TokenizerSection)
     data: DataSection = field(default_factory=DataSection)
     rollout: RolloutSection = field(default_factory=RolloutSection)
+    # weight-push fabric supervision (transfer/agents.py TransferConfig):
+    # bandwidth-keyed push deadlines, verify/resume, retry budget and
+    # backoff, and the transfer-plane fault injector
+    transfer: TransferConfig = field(default_factory=TransferConfig)
     reward: RewardSection = field(default_factory=RewardSection)
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
     actor: ActorConfig = field(default_factory=ActorConfig)

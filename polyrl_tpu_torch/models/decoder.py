@@ -239,6 +239,18 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return build(param_specs(cfg))
 
 
+def init_meta_params(cfg: ModelConfig) -> dict:
+    """The parameter tree's names, shapes and dtypes as ``meta`` tensors
+    (no memory): the template of a tree that arrives from elsewhere."""
+
+    def build(specs):
+        return {k: (build(v) if isinstance(v, dict) else
+                    torch.empty(v[0], dtype=cfg.dtype, device="meta"))
+                for k, v in specs.items()}
+
+    return build(param_specs(cfg))
+
+
 def layer_params(params: dict, layer: int) -> dict:
     """Views of one layer's slices of the stacked ``[L, ...]`` leaves (a
     wrapper slices each of its tensors)."""

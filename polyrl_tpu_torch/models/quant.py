@@ -177,11 +177,14 @@ def quantize_tensor(w, contract_axis: int = -2) -> QuantWeight:
     """Symmetric per-output-channel int8, as the reference rounds it:
     ``scale = max |w| / 127 + 1e-12`` over the contraction axis (f32),
     ``q = clip(round_half_even(w / scale), -127, 127)``. Runs on the
-    tensor's own device (a CPU tensor stays on the host)."""
+    tensor's own device (a CPU tensor stays on the host), with the same
+    result on both: the divisor 127 is a tensor, since CUDA divides by a
+    Python scalar as a product with its rounded reciprocal, which can put
+    the scale one ulp off numpy's true quotient and flip ``q`` at ties."""
     w = torch.as_tensor(w)
     wf = w.float()
     amax = wf.abs().amax(dim=contract_axis)
-    scale = amax / 127.0 + 1e-12
+    scale = amax / torch.full_like(amax, 127.0) + 1e-12
     q = torch.clamp(torch.round(wf / scale.unsqueeze(contract_axis)), -127, 127)
     return QuantWeight(q.to(torch.int8), scale)
 

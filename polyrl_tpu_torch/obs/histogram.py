@@ -1,6 +1,5 @@
-"""Fixed-bucket log2 histograms (a copy of the ``Histogram`` class of
-``polyrl_tpu/obs/histogram.py``; the process-global registry is not
-ported yet).
+"""Fixed-bucket log2 histograms and their process-global registry (a copy
+of ``polyrl_tpu/obs/histogram.py``).
 
 ``Histogram`` trades precision for O(1) memory and merges:
 buckets are geometric with ``SUBDIV`` sub-buckets per octave (width
@@ -11,6 +10,7 @@ of the exact quantile; ``max`` is tracked exactly.
 from __future__ import annotations
 
 import math
+import threading
 
 # sub-buckets per power of two: relative resolution 2**(1/8)-1 ≈ 9.05%
 SUBDIV = 8
@@ -112,3 +112,28 @@ class Histogram:
             f"{prefix}/mean": self.mean,
             f"{prefix}/count": float(self.count),
         }
+
+
+# -- process-global registry -------------------------------------------------
+# Producers that have no handle on the trainer's per-step MetricsTracker
+# (transfer agents, the manager client, the remote rollout) observe here;
+# the trainer drains the registry into each step record (one consumer).
+
+_REG: dict[str, Histogram] = {}
+_REG_LOCK = threading.Lock()
+
+
+def observe(name: str, value: float) -> None:
+    with _REG_LOCK:
+        hist = _REG.get(name)
+        if hist is None:
+            hist = _REG[name] = Histogram()
+        hist.observe(value)
+
+
+def drain_histograms() -> dict[str, Histogram]:
+    """Snapshot-and-reset the registry (each step record owns its window)."""
+    with _REG_LOCK:
+        out = dict(_REG)
+        _REG.clear()
+    return out

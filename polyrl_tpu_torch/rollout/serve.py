@@ -9,9 +9,12 @@ arrival (``RolloutServer.weight_preprocess``); then the engine --
 ``--backend cb`` (default) the paged continuous-batching engine, with
 ``--prefill-chunk``, ``--spec-tokens``/``--spec-rounds`` and ``--warmup``;
 ``--backend step`` the bucketed step engine driven by the server's batch
-loop -- and the HTTP server. Registration with the rollout manager, the
-weight receiver and ``--lora-rank`` (LoRA delta sync) are not ported yet
-(ROADMAP A' 7).
+loop -- and the HTTP server. With ``--manager host:port`` the server
+registers with the rollout manager and attaches a weight receiver
+(``ReceiverAgent``, ``--transfer-streams`` TCP streams) pointed at the
+weight sender the manager assigns: the trainer's pushes then land through
+the fabric (``RolloutServer.update_weights_from_agent``). ``--lora-rank``
+(LoRA delta sync) is not ported yet (ROADMAP A' 7).
 """
 
 from __future__ import annotations
@@ -47,7 +50,9 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                   prefill_chunk: int = 0,
                   spec_tokens: int = 0,
                   spec_rounds: int = 2,
-                  salvage_partials: bool = True):
+                  salvage_partials: bool = True,
+                  manager_endpoint: str | None = None,
+                  transfer_streams: int = 4):
     """Build engine + server and start serving. ``model`` is a preset name
     (random weights from ``seed``) or a local HF checkpoint directory.
     ``backend="cb"`` serves with the paged continuous-batching engine
@@ -57,9 +62,11 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     ``weight_quant="int8"`` serves int8 weight-only projections: a
     checkpoint is quantized on the host as it loads, a preset is made in
     quantized form leaf by leaf on the device; weight pushes stay in the
-    model dtype and are re-quantized on arrival. ``device`` defaults to
-    ``"cuda"`` and raises when CUDA is absent; pass ``"cpu"`` explicitly to
-    serve from the CPU (tests)."""
+    model dtype and are re-quantized on arrival. With ``manager_endpoint``
+    the server registers with the manager and attaches its weight receiver
+    (``register_with_manager``). ``device`` defaults to ``"cuda"`` and
+    raises when CUDA is absent; pass ``"cpu"`` explicitly to serve from the
+    CPU (tests)."""
     from polyrl_tpu_torch.device import resolve_device
     from polyrl_tpu_torch.models import decoder, quant
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
@@ -112,8 +119,52 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     server = RolloutServer(engine, host=host, port=port,
                            advertise_host=advertise_host)
     if weight_quant == "int8":
+        # the wire carries the trainer's tree in the model dtype: its
+        # layout comes from that tree's names, shapes and dtypes (meta
+        # tensors), and each push is quantized on arrival
+        server.weight_template = decoder.init_meta_params(cfg)
         server.weight_preprocess = quant.quantize_params
-    return server.start()
+    server.start()
+    if manager_endpoint:
+        register_with_manager(server, manager_endpoint,
+                              transfer_streams=transfer_streams)
+    return server
+
+
+def register_with_manager(server, manager_endpoint: str = "",
+                          transfer_streams: int = 4,
+                          client=None) -> None:
+    """POST /register_rollout_instance, then start the receiver agent
+    pointed at the weight sender the manager assigned (none is assigned
+    while no trainer has registered a sender). Passing an existing
+    ``client`` (``PoolManager.add_engine`` does) registers through it, so
+    that a bound supervisor records the membership for /reconcile
+    replay."""
+    from polyrl_tpu_torch.manager.client import ManagerClient
+    from polyrl_tpu_torch.transfer.agents import ReceiverAgent
+    from polyrl_tpu_torch.transfer.layout import build_layout, build_shard_spec
+
+    if client is None:
+        if not manager_endpoint:
+            raise ValueError("register_with_manager needs an endpoint or "
+                             "a client")
+        client = ManagerClient(manager_endpoint)
+    # the /preempt departure deregisters through this endpoint
+    server.manager_endpoint = client.endpoint.replace("http://", "")
+    out = client.register_rollout_instance(server.endpoint)
+    sender_ep = out.get("weight_sender_endpoint") or ""
+    if sender_ep:
+        # quantized engines keep the trainer's tree as the wire layout
+        template = (server.weight_template if server.weight_template
+                    is not None else server.engine.params)
+        server.receiver = ReceiverAgent(
+            build_layout(template), server.endpoint, sender_ep,
+            num_streams=transfer_streams,
+            advertise_host=server.endpoint.rsplit(":", 1)[0],
+            shard_spec=build_shard_spec(template),
+            pin_buffer=server.engine.device.type == "cuda")
+        server.receiver.start()
+        log.info("receiver agent attached to sender %s", sender_ep)
 
 
 def main() -> None:
@@ -126,6 +177,11 @@ def main() -> None:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=30000)
     p.add_argument("--advertise-host", default="127.0.0.1")
+    p.add_argument("--manager", default=None,
+                   help="host:port of the rollout manager to register with "
+                        "(and to take weight pushes through)")
+    p.add_argument("--transfer-streams", type=int, default=4,
+                   help="parallel TCP streams of the weight receiver")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--seed", type=int, default=0,
                    help="random-init seed of the preset's weights")
@@ -188,7 +244,8 @@ def main() -> None:
         group_preref_ttl_s=args.group_preref_ttl_s,
         weight_quant=args.weight_quant, backend=args.backend,
         warmup=args.warmup, prefill_chunk=args.prefill_chunk,
-        spec_tokens=args.spec_tokens, spec_rounds=args.spec_rounds)
+        spec_tokens=args.spec_tokens, spec_rounds=args.spec_rounds,
+        manager_endpoint=args.manager, transfer_streams=args.transfer_streams)
     log.info("rollout server on %s (%s)", server.endpoint, server.engine.device)
     try:
         while True:

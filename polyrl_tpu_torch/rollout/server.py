@@ -7,10 +7,26 @@ protocol for the routes this slice serves:
                         token: token_ids, logprobs, finished,
                         finish_reason, weight_version; optional
                         ``group_id``/``group_size`` GRPO hints
-- GET  /health, /health_generate, /get_server_info
+- GET  /health, /health_generate (503 while draining), /get_server_info
 - POST /abort_request   one rid, or every request when rid is empty
+- POST /update_weights_from_agent   install a weight push the server's
+                        ``ReceiverAgent`` landed (``serve.register_with_manager``)
+- POST /drain           graceful preemption: refuse new requests, abort the
+                        running ones into salvageable partials
+- POST /preempt         drain, then deregister from the manager
 - POST /release_memory_occupation, /resume_memory_occupation
 - POST /flush_cache, /shutdown
+
+A ``/generate`` body may carry the trainer's ``trace_id``/``parent_span``
+(the manager injects them from the ``X-Trace-Id``/``X-Span-Id`` headers),
+and the request's ``engine/generate`` span adopts that context.
+
+A weight push lands in the receiver's (pinned) host buffer; the install
+copies each entry to a staging tree on the engine's device, and the engine
+then copies the staging tree into its live tensors in place, between
+dispatches, and raises ``weight_version`` (``update_weights_from_agent``).
+The live tensors are never rebound: the engine's CUDA graphs replay from
+their addresses.
 
 Two backends: a ``CBEngine`` admits requests itself (continuous batching);
 a ``RolloutEngine`` (the step backend) is driven through
@@ -30,6 +46,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from polyrl_tpu_torch import obs
 from polyrl_tpu_torch.ops.cuda_build import LAUNCHES
 from polyrl_tpu_torch.rollout.cb_engine import STREAM_END
 from polyrl_tpu_torch.rollout.flightdeck import ThroughputEWMA
@@ -70,6 +87,33 @@ class RolloutServer:
         # swap: ``quant.quantize_params`` on an int8 engine (the pushed tree
         # stays in the model dtype), None otherwise
         self.weight_preprocess = None
+        # the tree a weight push carries, when it is not the engine's own
+        # (an int8 engine receives the trainer's bf16 tree: a tree of
+        # ``meta`` tensors with its names, shapes and dtypes); None = the
+        # engine's params
+        self.weight_template = None
+        # graceful preemption (POST /drain): running requests abort into
+        # partials and new ones are refused with an abort terminal, so that
+        # the manager's continuation re-routes them; one way
+        self._draining = threading.Event()
+        self.drain_count = 0
+        # the manager this server registered with (serve.register_with_
+        # manager); /preempt deregisters there. "" = never registered
+        self.manager_endpoint = ""
+        self.receiver = None  # ReceiverAgent, attached by serve.py
+        # the receive timeout of an install: a streamed round's clock
+        # starts before the trainer's pack
+        self.weight_sync_timeout_s = 3600.0
+        self._weight_lock = threading.Lock()
+        # the device staging tree of weight installs ({name: tensor}, kept
+        # across pushes) and the event after the engine's last copy out of
+        # it, which the next install's copies wait on
+        self._staging: dict = {}
+        self._staging_free = None
+        # the last installs, oldest first: version, seconds to land the
+        # entries on the device (install) and to copy them into the live
+        # tensors (swap), bytes, and the wall time the version was raised
+        self.weight_syncs: list[dict] = []
         self._aborts: dict[str, threading.Event] = {}
         self._aborts_lock = threading.Lock()
         self._serve_thread: threading.Thread | None = None
@@ -91,8 +135,15 @@ class RolloutServer:
                 self.wfile.write(body)
 
             def do_GET(self):
-                if self.path in ("/health", "/health_generate"):
+                if self.path == "/health":
                     self._json(200, {"status": "ok"})
+                elif self.path == "/health_generate":
+                    # a draining server is alive but must not pass the
+                    # manager's serving health gate
+                    if outer._draining.is_set():
+                        self._json(503, {"status": "draining"})
+                    else:
+                        self._json(200, {"status": "ok"})
                 elif self.path == "/get_server_info":
                     self._json(200, outer.server_info())
                 else:
@@ -106,6 +157,18 @@ class RolloutServer:
                 elif self.path == "/abort_request":
                     outer.abort_request(body.get("rid"))
                     self._json(200, {"success": True})
+                elif self.path == "/update_weights_from_agent":
+                    ok, err = outer.update_weights_from_agent(
+                        int(body.get("weight_version", -1)))
+                    self._json(200 if ok else 500,
+                               {"success": ok, "error": err})
+                elif self.path == "/drain":
+                    self._json(200, outer.drain())
+                elif self.path == "/preempt":
+                    # preemption notice: ack first, then drain and leave
+                    # off the handler thread
+                    self._json(200, {"success": True, "draining": True})
+                    threading.Thread(target=outer.leave, daemon=True).start()
                 elif self.path == "/flush_cache":
                     if outer.cb:
                         outer.engine.flush_prefix_cache()
@@ -123,7 +186,19 @@ class RolloutServer:
                     self._json(404, {"error": f"no route {self.path}"})
 
             def _generate(self, body: dict) -> None:
+                # cross-process trace adoption: the manager injects the
+                # trainer's (trace_id, span_id) into the forwarded request,
+                # so this engine span joins the trainer's trace
+                ctx = None
+                if body.get("trace_id"):
+                    ctx = (str(body["trace_id"]),
+                           str(body.get("parent_span") or ""))
+                tracer = obs.get_tracer()
                 rid = str(body.get("rid", f"req-{time.monotonic_ns()}"))
+                with tracer.adopt(ctx), tracer.span("engine/generate", rid=rid):
+                    self._stream_generate(rid, body)
+
+            def _stream_generate(self, rid: str, body: dict) -> None:
                 input_ids = [int(t) for t in body.get("input_ids", [])]
                 sp = SamplingParams.from_dict(body.get("sampling_params", {}))
                 out_q, abort_ev = outer.submit(
@@ -202,6 +277,8 @@ class RolloutServer:
                              "finish_reason": "error",
                              "error": "engine shutdown"})
                 req.out.put(STREAM_END)
+        if self.receiver is not None:
+            self.receiver.stop()
         if self._serve_thread is not None:
             self._http.shutdown()
             self._serve_thread.join(timeout=10.0)
@@ -216,6 +293,13 @@ class RolloutServer:
         duplicate in-flight rid is refused with an error line."""
         out: queue.Queue = queue.Queue()
         abort = threading.Event()
+        if self._draining.is_set():
+            # graceful preemption: refuse with a partial-abort terminal,
+            # which the manager's continuation re-routes
+            out.put({"token_ids": [], "logprobs": [], "finished": True,
+                     "finish_reason": "abort"})
+            out.put(STREAM_END)
+            return out, abort
         with self._aborts_lock:
             if rid in self._aborts:
                 out.put({"token_ids": [], "logprobs": [], "finished": True,
@@ -224,6 +308,10 @@ class RolloutServer:
                 out.put(STREAM_END)
                 return out, abort
             self._aborts[rid] = abort
+        if self._draining.is_set():
+            # the drain landed between the check above and the event's
+            # registration, so its abort sweep missed this request
+            abort.set()
         if self.cb:
             self.engine.submit(rid, input_ids, sp, out=out, abort=abort,
                                group_id=group_id, group_size=group_size)
@@ -239,6 +327,91 @@ class RolloutServer:
         if self.weight_preprocess is not None:
             params = self.weight_preprocess(params)
         self.engine.update_weights(params, version)
+
+    def update_weights_from_agent(self, version: int) -> tuple[bool, str]:
+        """Install weights ``version`` (or a newer one that superseded it)
+        from the receiver: each entry goes host to device into the staging
+        tree as its bytes land (``layout.make_incremental_installer``),
+        then ``update_weights`` copies the staging tree into the engine's
+        tensors in place and raises ``weight_version``. Returns once that
+        copy has run on the device, so the manager re-admits this engine
+        only when the new weights serve. Without a receiver (an in-process
+        update) the version is only acknowledged."""
+        if self.receiver is None:
+            self.engine.weight_version = version
+            return True, ""
+        from polyrl_tpu_torch.transfer.layout import (
+            make_incremental_installer, unflatten_names)
+
+        try:
+            with self._weight_lock:
+                t0 = time.monotonic()
+                install, staging = make_incremental_installer(
+                    self.receiver.layout, self.engine.device, self._staging,
+                    after=self._staging_free)
+                # the version actually landed: a superseding round's bytes
+                # may have replaced the requested one
+                installed = self.receiver.wait_for_version(
+                    version, timeout=self.weight_sync_timeout_s,
+                    on_tensor=install)
+                self._staging = staging
+                t1 = time.monotonic()
+                self.update_weights(unflatten_names(staging), installed)
+                if self.engine.device.type == "cuda":
+                    import torch
+
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    self._staging_free = ev
+                    ev.synchronize()
+                t2 = time.monotonic()
+                self.weight_syncs.append({
+                    "version": int(installed), "install_s": t1 - t0,
+                    "swap_s": t2 - t1, "t_wall": time.time(),
+                    "bytes": int(self.receiver.layout.total_bytes)})
+                del self.weight_syncs[:-16]
+            return True, ""
+        except Exception as exc:  # noqa: BLE001 — reported to the manager
+            log.exception("weight load failed")
+            return False, str(exc)
+
+    def drain(self) -> dict:
+        """POST /drain — graceful preemption: stop admitting (new requests
+        get an immediate partial-abort terminal), fail the serving health
+        gate, and abort every running request. The engine's salvage flushes
+        the tokens decoded so far as a partial, so the manager's
+        continuation (or the trainer's salvage ledger) resumes them on
+        another instance from the last token."""
+        self._draining.set()
+        with self._aborts_lock:
+            n = len(self._aborts)
+        self.drain_count += n
+        self.abort_request(None)
+        return {"success": True, "draining": True, "aborted": n}
+
+    def leave(self, grace_s: float = 0.5) -> None:
+        """Graceful departure (POST /preempt): drain, wait ``grace_s`` for
+        the partials to flush through their open streams, then deregister
+        from the manager so that the routing set shrinks now rather than
+        at the next heartbeat. The notify is best effort: the heartbeat
+        evicts an engine that stops answering anyway."""
+        self.drain()
+        time.sleep(grace_s)
+        if not self.manager_endpoint:
+            return
+        try:
+            import urllib.request
+
+            req = urllib.request.Request(
+                f"http://{self.manager_endpoint}/deregister_rollout_instance",
+                data=json.dumps({"endpoint": self.endpoint,
+                                 "drained": True}).encode(),
+                method="POST", headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=5.0):
+                pass
+        except Exception:  # noqa: BLE001 — heartbeat eviction backstops
+            log.warning("deregister with manager %s failed",
+                        self.manager_endpoint, exc_info=True)
 
     def release_memory(self) -> None:
         """Yield the engine's KV memory to a colocated trainer: requests
@@ -361,11 +534,27 @@ class RolloutServer:
                                 else self._queue.qsize()),
             "last_gen_throughput": eng.last_gen_throughput,
             "weight_version": eng.weight_version,
+            # preemption announcement: the manager's heartbeat reads this
+            # and takes a draining engine out of the routing set
+            "draining": self._draining.is_set(),
             "device": str(eng.device),
             "backend": "cb" if self.cb else "step",
         }
+        if self.drain_count:
+            info["drained_requests"] = self.drain_count
         for name, n in LAUNCHES.items():
             info[f"kernel_launches/{name}"] = n
+        if self.receiver is not None:
+            # weight-sync health: control-channel reconnects, rejected CRC
+            # frames, verify failures, resumed bytes
+            info.update(self.receiver.health())
+        if self.weight_syncs:
+            info["weight_syncs"] = list(self.weight_syncs)
+        if eng.device.type == "cuda":
+            import torch
+
+            info["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
+                eng.device)
         if not self.cb:
             info["batch_buckets"] = list(eng.batch_buckets)
             return info

@@ -1,11 +1,16 @@
 """Trainer entry point: ``python -m polyrl_tpu_torch.train [--config run.yaml]
 [section.field=value ...]``.
 
-Counterpart of ``polyrl_tpu/train.py`` for ``rollout.mode=colocated``:
-compose the config, build the tokenizer, model (random weights from
-``trainer.seed``, or a local Hugging Face checkpoint with
-``model.hf_path``), the in-process engine (``rollout.backend=cb``, the
-paged CB engine, or ``step``, the bucketed ``RolloutEngine``), reward
+Counterpart of ``polyrl_tpu/train.py``: compose the config, build the
+tokenizer, model (random weights from ``trainer.seed``, or a local Hugging
+Face checkpoint with ``model.hf_path``), the rollout -- with
+``rollout.mode=colocated`` an in-process engine (``rollout.backend=cb``,
+the paged CB engine, or ``step``, the bucketed ``RolloutEngine``); with
+``rollout.mode=disaggregated`` the rollout manager (spawned and
+supervised, or ``rollout.manager_endpoint``), the weight fabric
+(``TransferInterface``), the pool and ``RemoteRollout``, while the rollout
+servers run as their own processes (``python -m
+polyrl_tpu_torch.rollout.serve --manager host:port``) --, reward
 manager, datasets (training and, with
 ``data.val_path``, validation), actor, the critic (with
 ``trainer.adv_estimator=gae``, from ``trainer.seed + 1``) and (with a KL
@@ -82,12 +87,85 @@ def _build_model(cfg: RunConfig, device: torch.device):
     return mcfg, decoder.init_params(gen, mcfg)
 
 
-def _build_rollout(cfg: RunConfig, mcfg, params, tokenizer, device):
+def _build_remote(cfg: RunConfig, params, tokenizer, cleanup: list):
+    """The disaggregated rollout: a ManagerClient (of a locally spawned,
+    supervised manager unless ``rollout.manager_endpoint`` names one), the
+    weight fabric, the pool control plane and ``RemoteRollout``. Rollout
+    servers join the pool on their own (``serve --manager``); their weight
+    receivers connect to the sender registered here, so start them after
+    this returns."""
+    from polyrl_tpu_torch.manager.client import ManagerClient
+    from polyrl_tpu_torch.manager.supervisor import ManagerSupervisor
+    from polyrl_tpu_torch.rollout.pool import PoolManager
+    from polyrl_tpu_torch.rollout.remote import RemoteRollout
+    from polyrl_tpu_torch.transfer import TransferInterface
+
     r = cfg.rollout
+    fault = None
+    if r.fault_injection.enabled:
+        from polyrl_tpu_torch.rollout.faults import FaultInjector
+
+        fault = FaultInjector(r.fault_injection)
+        log.warning("rollout fault injection ENABLED: %s", r.fault_injection)
+    if not r.manager_endpoint:
+        # a locally spawned manager runs supervised: a crash or failed
+        # health probe respawns it with backoff and replays its state
+        # through /reconcile; the client re-resolves the fresh port
+        supervisor = ManagerSupervisor(
+            extra_args=list(r.manager_args),
+            respawn_backoff_s=r.manager_respawn_backoff_s,
+            respawn_backoff_max_s=r.manager_respawn_backoff_max_s).start()
+        cleanup.append(supervisor.stop)
+        mgr = supervisor.client()
+        log.info("spawned supervised rollout manager on %s (log: %s)",
+                 supervisor.endpoint, supervisor.log_path)
+    else:
+        mgr = ManagerClient(r.manager_endpoint)
+    mgr.wait_healthy()
+    transfer_fault = None
+    if cfg.transfer.fault_injection.enabled:
+        from polyrl_tpu_torch.rollout.faults import TransferFaultInjector
+
+        transfer_fault = TransferFaultInjector(cfg.transfer.fault_injection)
+        log.warning("transfer fault injection ENABLED: %s",
+                    cfg.transfer.fault_injection)
+    iface = TransferInterface(
+        params, manager_client=mgr, num_streams=r.transfer_streams,
+        advertise_host=r.advertise_host, sender_groups=r.sender_groups,
+        sender_nic_cidr=r.sender_nic_cidr,
+        groups_per_sender=r.groups_per_sender, cfg=cfg.transfer,
+        fault=transfer_fault)
+    cleanup.append(iface.close)
+    # fleet control plane: membership sweeps, pool/* step gauges, join
+    # gating and preemption drills; a receiver that exhausts its push
+    # retry budget is drained and deregistered through it
+    pool = PoolManager(mgr, r.pool)
+    cleanup.append(pool.close)
+    iface.set_laggard_callback(pool.escalate_laggard)
+    pool.transfer_health_fn = iface.sync_health
+    return RemoteRollout(mgr, transfer=iface, local_server=None,
+                         pad_token_id=tokenizer.pad_token_id,
+                         resume_budget=r.resume_budget,
+                         resume_wait_s=r.resume_wait_s,
+                         salvage_partials=r.salvage_partials,
+                         fault_injector=fault,
+                         balance_window=r.pool.balance_window, pool=pool)
+
+
+def _build_rollout(cfg: RunConfig, mcfg, params, tokenizer, device,
+                   cleanup: list | None = None):
+    r = cfg.rollout
+    if r.mode == "disaggregated":
+        cleanup = [] if cleanup is None else cleanup
+        if r.colocated_local:
+            raise NotImplementedError(
+                "rollout.colocated_local (an in-process engine time-sliced "
+                "beside the remote pool) is not ported to polyrl_tpu_torch "
+                "yet (ROADMAP A' 7)")
+        return _build_remote(cfg, params, tokenizer, cleanup)
     if r.mode != "colocated":
-        raise NotImplementedError(
-            f"rollout.mode={r.mode!r} is not ported yet: only colocated "
-            "(ROADMAP A' 7)")
+        raise ValueError(f"unknown rollout.mode {r.mode!r} "
+                         "(colocated or disaggregated)")
     if r.backend not in ("cb", "step"):
         raise ValueError(f"unknown rollout.backend {r.backend!r} (cb or step)")
     kv_dtype = getattr(torch, r.kv_cache_dtype or cfg.model.dtype)
@@ -120,7 +198,8 @@ def _build_rollout(cfg: RunConfig, mcfg, params, tokenizer, device):
 def build_trainer(cfg: RunConfig, cleanup: list | None = None,
                   compute_score=None):
     """Assemble the trainer from a RunConfig. ``cleanup`` collects teardown
-    callables (the engine's loop thread); ``compute_score`` overrides the
+    callables (the engine's loop thread; the spawned manager, the fabric
+    and the pool of a disaggregated rollout); ``compute_score`` overrides the
     reward function (else ``reward.custom_score_path`` or the default
     per-dataset scorers)."""
     from polyrl_tpu_torch.data.dataset import PromptDataLoader
@@ -133,7 +212,8 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
     device = resolve_device(cfg.device)
     tokenizer = build_tokenizer(cfg)
     mcfg, params = _build_model(cfg, device)
-    rollout = _build_rollout(cfg, mcfg, params, tokenizer, device)  # own copy
+    # the engine copies the weights; the fabric packs them at each push
+    rollout = _build_rollout(cfg, mcfg, params, tokenizer, device, cleanup)
     if hasattr(rollout, "stop"):
         cleanup.append(rollout.stop)
     if compute_score is None and cfg.reward.custom_score_path:
@@ -189,7 +269,8 @@ def _dump(cfg: RunConfig) -> str:
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m polyrl_tpu_torch.train",
-        description="Streaming GRPO/PPO trainer on one CUDA device (colocated)")
+        description="Streaming GRPO/PPO trainer on one CUDA device "
+                    "(colocated, or with remote rollout servers)")
     parser.add_argument("--config", default=None, help="YAML run config")
     parser.add_argument("--print-config", action="store_true",
                         help="resolve the config, print it, exit")

@@ -36,8 +36,12 @@ Both lanes queue their device work on the current CUDA stream of their
 thread, which is the device's default stream for both (neither sets
 another), so the stream orders the engine's weight copy after the
 optimizer step that wrote the weights, and the next in-place optimizer
-step after the copy. Not ported yet: the tracing spans of the producer
-lane (with the observability planes) and the multi-host fan-out (with
+step after the copy. A remote rollout's push is asynchronous instead
+(``update_weights_async`` on a clone of the tree), and the producer takes
+the finished steps' manager scrape and balancer round trip off the hot
+path (``submit_step_stats``): their gauges land in the next consumed
+step's record. Not ported yet: the tracing spans of the producer lane
+(with the observability planes) and the multi-host fan-out (with
 ``parallel/*``).
 """
 
@@ -74,6 +78,11 @@ class RolloutPipeline:
         self._credits = threading.Semaphore(self.depth)
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        # finished steps' stats for the manager's balancer, and the gauges
+        # its answers produce (folded into the next consumed step)
+        self._stats_q: queue.Queue = queue.Queue()
+        self._gauges: dict[str, float] = {}
+        self._gauges_lock = threading.Lock()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -105,6 +114,9 @@ class RolloutPipeline:
         for step in range(start_step, total_steps):
             if not self._acquire_credit():
                 return
+            # off-hot-path control-plane work between streams: the manager
+            # scrape and balancer round trip of the steps finished since
+            self._drain_stats()
             prod_metrics = MetricsTracker()
             try:
                 # admission gate: limit 1 is the hard fence (the previous
@@ -190,6 +202,7 @@ class RolloutPipeline:
                         self.trainer._push_count - payload["weight_version"]),
                 })
                 metrics.merge(payload["metrics"])
+                self._fold_gauges(metrics)
                 if payload["loader_state"] is not None:
                     self.trainer._loader_state = payload["loader_state"]
                 return
@@ -204,3 +217,35 @@ class RolloutPipeline:
                 if self._stop.is_set() or t is None or not t.is_alive():
                     raise PipelineClosed(
                         "rollout pipeline stopped mid-step") from None
+
+    # -- off-hot-path control plane (remote rollout) -------------------------
+
+    def submit_step_stats(self, **stats) -> None:
+        """The foreground hands a finished step's stats over; the producer
+        runs the manager scrape and balancer call before its next stream,
+        and the resulting gauges land in the next consumed step's record
+        (gauges, so one step of lag is benign)."""
+        self._stats_q.put(stats)
+
+    def _drain_stats(self) -> None:
+        trainer = self.trainer
+        while True:
+            try:
+                stats = self._stats_q.get_nowait()
+            except queue.Empty:
+                return
+            gauges: dict[str, float] = {}
+            try:
+                gauges.update(trainer.rollout.scrape_manager_metrics())
+                gauges.update(trainer._balancer_round(stats))
+            except Exception:  # noqa: BLE001 — telemetry must not kill a lane
+                log.exception("pipeline balancer round failed")
+            if gauges:
+                with self._gauges_lock:
+                    self._gauges.update(gauges)
+
+    def _fold_gauges(self, metrics: MetricsTracker) -> None:
+        with self._gauges_lock:
+            gauges, self._gauges = self._gauges, {}
+        if gauges:
+            metrics.update_gauge(gauges)

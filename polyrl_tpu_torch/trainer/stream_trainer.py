@@ -1,13 +1,20 @@
-"""StreamRLTrainer: the streaming PPO/GRPO fit loop, colocated.
+"""StreamRLTrainer: the streaming PPO/GRPO fit loop.
 
-Counterpart of ``polyrl_tpu/trainer/stream_trainer.py`` for the colocated
-``cb`` rollout: per training batch an in-process engine generates every
-rollout, the batch is cut into ibatches of ``min_stream_batch_size``, each
-ibatch flows reward -> old logprob -> ref logprob -> values -> (KL in
+Counterpart of ``polyrl_tpu/trainer/stream_trainer.py``. Per training
+batch either an in-process engine generates every rollout and the batch is
+cut into ibatches of ``min_stream_batch_size``, or (a remote rollout,
+``RemoteRollout``: the disaggregated path) the manager streams whole
+prompt groups back as the rollout servers finish them, at least
+``min_stream_batch_size`` trajectories an ibatch, so training on early
+ibatches overlaps generation of later ones. Each ibatch flows reward -> old logprob -> ref logprob -> values -> (KL in
 reward) -> advantage (-> TIS), then the actor's (and the critic's) micro
 forward/backward with gradient accumulation, with the optimizer stepping
 where the cumulative trajectory count crosses a minibatch boundary; after
-each step the weights go to the engine.
+each step the weights go to the engine (in process), or through the weight
+fabric to the rollout servers. With a remote rollout each step also feeds
+the manager's balancer (its answer, the next local-generation budget, is
+``training/max_local_gen_s``) and records the fault, transfer, pool and
+manager gauges.
 
 Ported: the serial loop and the pipelined one (``pipeline_depth >= 1``,
 ``trainer/pipeline.py``: generation up to ``depth`` steps ahead, the
@@ -21,10 +28,9 @@ engine never holds a wrapper), optimizer offload after each step's push,
 and step profiling (``profile_steps`` through ``torch.profiler``;
 consecutive profiled steps share one trace under ``profile_dir``).
 
-Not ported yet, each refused with a clear error: remote (disaggregated)
-rollout and LoRA delta sync (ROADMAP A' 7), the observability planes
-(tracing, goodput, health ledger, flight recorder, statusz) and
-multi-host.
+Not ported yet, each refused with a clear error: LoRA delta sync
+(ROADMAP A' 7), the observability planes (goodput, health ledger, flight
+recorder, statusz; ROADMAP A' 6) and multi-host.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from polyrl_tpu_torch import obs
 from polyrl_tpu_torch.data.batch import TensorBatch
 from polyrl_tpu_torch.ops import core_algos
 from polyrl_tpu_torch.rollout.sampling import SamplingParams
@@ -54,18 +61,28 @@ _PACK_KEYS = ("input_ids", "positions", "attention_mask", "segment_ids",
 
 
 class _ResultView:
-    """An engine output dict (the CB engine's) as the fields the batch
-    assembly reads; an empty ``weight_versions`` means unknown (tokens
-    marked -1). The step backend's ``GenerationOutput`` has them already."""
+    """An engine output dict (the CB engine's) or a remote
+    ``GenerateResult`` as the fields the batch assembly reads; an empty
+    weight-version list means unknown (tokens marked -1). The step
+    backend's ``GenerationOutput`` has them already."""
 
     __slots__ = ("output_ids", "output_token_logprobs",
                  "output_token_weight_versions")
 
-    def __init__(self, res: dict):
-        self.output_ids = np.asarray(res["token_ids"], np.int32)
-        self.output_token_logprobs = np.asarray(res["logprobs"], np.float32)
-        self.output_token_weight_versions = np.asarray(
-            res.get("weight_versions") or [], np.int32)
+    def __init__(self, res):
+        if isinstance(res, dict):
+            ids, lps = res["token_ids"], res["logprobs"]
+            wvs = res.get("weight_versions") or []
+        else:
+            ids, lps = res.output_token_ids, res.output_token_logprobs
+            wvs = res.output_token_weight_versions
+        self.output_ids = np.asarray(ids, np.int32)
+        self.output_token_logprobs = np.asarray(lps, np.float32)
+        self.output_token_weight_versions = np.asarray(wvs, np.int32)
+
+
+_EMPTY = type("_Empty", (), {"output_ids": np.zeros(0, np.int32),
+                             "output_token_logprobs": np.zeros(0, np.float32)})
 
 
 @dataclasses.dataclass
@@ -173,15 +190,16 @@ class TrainerConfig:
 
 def _unported(cfg: TrainerConfig, rollout) -> str | None:
     """Why the trainer refuses this configuration, or None."""
-    if not hasattr(rollout, "generate") or hasattr(rollout, "generate_stream"):
-        return ("remote (disaggregated) rollout is not ported to "
-                "polyrl_tpu_torch yet (ROADMAP A' 7)")
     if cfg.weight_sync == "lora_delta":
-        return ("weight_sync=lora_delta requires rollout.mode=disaggregated "
-                "(a colocated in-process engine holds the plain tree; "
-                "adapter pushes target workers serving --lora-rank), which "
-                "is not ported to polyrl_tpu_torch yet (ROADMAP A' 7)")
+        return ("weight_sync=lora_delta (adapter-only pushes to "
+                "disaggregated rollout servers serving --lora-rank) is not "
+                "ported to polyrl_tpu_torch yet (ROADMAP A' 7)")
     return None
+
+
+def _remote(rollout) -> bool:
+    """A remote rollout (``RemoteRollout``) streams; an engine generates."""
+    return hasattr(rollout, "generate_stream")
 
 
 def _views(outs) -> list:
@@ -244,6 +262,9 @@ class StreamRLTrainer:
                       if cfg.ckpt_dir else None)
         self._esi_expiry = ckpt_lib.esi_expiry_from_env()
         self._flops = FlopsCounter(actor.model_cfg, n_chips=1)
+        # the balancer's local-generation budget (None until its first
+        # answer: the manager's default applies)
+        self._max_local_gen_s: float | None = None
         self._profiler = None  # the open torch.profiler trace, if any
         self._profiled: list[int] = []
         self.profile_traces: list[str] = []  # traces written so far
@@ -376,11 +397,27 @@ class StreamRLTrainer:
 
     def _ibatch_iter_local(self, records: list[dict], rng,
                            metrics: MetricsTracker):
-        """Generate the whole batch with the colocated engine, then slice
-        it into ibatches of ``min_stream_batch_size``. ``rng`` is accepted
-        for the JAX signature: the engine owns its sampling generator."""
+        """A remote rollout: yield each group-complete chunk of the stream
+        as an ibatch as it arrives (group ids made dense per ibatch).
+        Colocated: generate the whole batch, then slice it into ibatches of
+        ``min_stream_batch_size``. ``rng`` is accepted for the JAX
+        signature: the engine owns its sampling generator."""
         cfg = self.cfg
         prompts, gts, sources = self._prepare_prompts(records)
+        if _remote(self.rollout):
+            stream = self.rollout.generate_stream(
+                prompts, self._sampling(), group_size=cfg.rollout_n,
+                min_emit=cfg.min_stream_batch_size,
+                max_local_gen_s=self._max_local_gen_s)
+            for chunk in stream:
+                idxs = [i for i, _ in chunk]
+                outs = [_ResultView(r) for _, r in chunk]
+                _, dense = np.unique([i // cfg.rollout_n for i in idxs],
+                                     return_inverse=True)
+                yield self._assemble_batch(
+                    [prompts[i] for i in idxs], [gts[i] for i in idxs],
+                    [sources[i] for i in idxs], outs, dense)
+            return
         with marked_timer("gen", metrics):
             outs = _views(self.rollout.generate(prompts, self._sampling(),
                                                 rng=rng))
@@ -404,7 +441,10 @@ class StreamRLTrainer:
         ``update_weights`` copies the weights into the engine's own
         tensors between dispatches (under its dispatch lock), which is the
         copy the JAX trainer hands it, and is ordered on the one CUDA
-        stream after the optimizer step and before the next."""
+        stream after the optimizer step and before the next. A remote
+        rollout's blocking push packs the live tensors device to host
+        before it returns (``TransferInterface``), so the next optimizer
+        step on this thread comes after the pack."""
         params = self.actor.export_params()
         if not block and hasattr(self.rollout, "update_weights_async"):
             self.rollout.update_weights_async(_clone_tree(params))
@@ -608,25 +648,49 @@ class StreamRLTrainer:
             max_new_tokens=cfg.max_response_length,
             stop_token_ids=(self.tokenizer.eos_token_id,))
         with marked_timer("remax_baseline", metrics):
-            outs = self._generate_all(prompts, sampling)
+            outs, failed = self._generate_all(prompts, sampling, nested=True)
             base_batch = self._assemble_batch(
                 prompts, [gts[i] for i in first_idx],
                 [sources[i] for i in first_idx], outs, list(range(len(prompts))))
             base_scores = np.asarray(self.reward_manager(base_batch).scores,
                                      np.float32)
+        if failed:
+            # a baseline hole would silently become "baseline 0": those
+            # groups fall back to their sampled-reward mean (RLOO-style)
+            log.warning("REMAX: %d/%d greedy baselines failed; substituting "
+                        "group sampled-reward means", len(failed), len(prompts))
+            traj_scores = np.asarray(
+                ibatch["token_level_rewards"].sum(-1)
+                if "token_level_rewards" in ibatch else
+                self.reward_manager(ibatch).scores, np.float32)
+            for fi in failed:
+                base_scores[fi] = float(
+                    np.mean(traj_scores[group_ids == uniq[fi]]))
         metrics.update({
             "reward/remax_baseline_mean":
                 float(np.mean(base_scores)) if len(base_scores) else 0.0,
-            "reward/remax_baseline_failed": 0.0})
+            "reward/remax_baseline_failed": float(len(failed))})
         group_to_score = {int(g): float(s) for g, s in zip(uniq, base_scores)}
         return np.asarray([group_to_score[int(g)] for g in group_ids], np.float32)
 
     # -- validation ---------------------------------------------------------
 
-    def _generate_all(self, prompts: list[list[int]],
-                      sampling: SamplingParams) -> list[_ResultView]:
-        """Every prompt's output from the colocated engine, in order."""
-        return _views(self.rollout.generate(prompts, sampling))
+    def _generate_all(self, prompts: list[list[int]], sampling: SamplingParams,
+                      nested: bool = False):
+        """Every prompt's output, in order, and the indices that failed (a
+        remote request dropped by the manager: its slot holds an empty
+        output). ``nested`` marks a remote stream issued while an outer one
+        is active (the ReMax baselines)."""
+        if not _remote(self.rollout):
+            return _views(self.rollout.generate(prompts, sampling)), []
+        outs: list = [None] * len(prompts)
+        for chunk in self.rollout.generate_stream(
+                prompts, sampling, group_size=1, min_emit=len(prompts),
+                nested=nested):
+            for i, res in chunk:
+                outs[i] = _ResultView(res)
+        failed = [i for i, o in enumerate(outs) if o is None]
+        return [_EMPTY if o is None else o for o in outs], failed
 
     def _validate(self) -> dict:
         """Greedy (by default) evaluation over the validation set: the mean
@@ -640,19 +704,25 @@ class StreamRLTrainer:
             stop_token_ids=(self.tokenizer.eos_token_id,))
         per_source: dict[str, list[float]] = {}
         dump_rows: list[dict] = []
+        n_failed = 0
         bs = max(cfg.train_batch_size, 1)
         for lo in range(0, len(records), bs):
             chunk = records[lo: lo + bs]
             prompts = [self.tokenizer.encode(r["prompt"])[: cfg.max_prompt_length]
                        for r in chunk]
-            outs = self._generate_all(prompts, sampling)
+            outs, failed = self._generate_all(prompts, sampling)
+            n_failed += len(failed)
             gts = [r.get("ground_truth", "") for r in chunk]
             sources = [r.get("data_source", "") for r in chunk]
             batch = self._assemble_batch(prompts, gts, sources, outs,
                                          list(range(len(chunk))))
             reward_out = self.reward_manager(batch)
-            for src, sc in zip(sources, reward_out.scores):
-                per_source.setdefault(src or "default", []).append(float(sc))
+            for i, (src, sc) in enumerate(zip(sources, reward_out.scores)):
+                # a failed generation is a hole, not a zero score
+                # (val/num_failed counts them)
+                if i not in failed:
+                    per_source.setdefault(src or "default", []).append(
+                        float(sc))
             if cfg.rollout_data_dir or cfg.val_generations_to_log:
                 texts = self.tokenizer.batch_decode(
                     [np.asarray(o.output_ids) for o in outs],
@@ -668,7 +738,7 @@ class StreamRLTrainer:
         all_scores = [x for v in per_source.values() for x in v]
         metrics["val/test_score/mean"] = (float(np.mean(all_scores))
                                           if all_scores else 0.0)
-        metrics["val/num_failed"] = 0.0
+        metrics["val/num_failed"] = float(n_failed)
         if cfg.rollout_data_dir and dump_rows:
             os.makedirs(cfg.rollout_data_dir, exist_ok=True)
             path = os.path.join(cfg.rollout_data_dir,
@@ -757,6 +827,44 @@ class StreamRLTrainer:
                                 self.critic.flush_opt_step().items()})
         return state
 
+    # -- remote rollout: the balancer and the control-plane gauges ---------
+
+    def _balancer_round(self, stats: dict) -> dict[str, float]:
+        """Feed one step's stats to the manager's balancer; its answer is
+        the next local-generation budget, which the next stream passes on
+        as ``max_local_gen_s``. Returns the resulting gauges."""
+        resp = self.rollout.update_metrics(**stats)
+        if not resp.get("max_local_gen_s"):
+            return {}
+        self._max_local_gen_s = float(resp["max_local_gen_s"])
+        return {"training/max_local_gen_s": self._max_local_gen_s,
+                "training/num_rollout_instances":
+                    float(resp.get("num_instances", 0))}
+
+    def _remote_step_stats(self, metrics: MetricsTracker, pipeline, state,
+                           step_time: float, throughput: float) -> None:
+        """A remote rollout's per-step control plane: the cumulative fault
+        and transfer gauges, the balancer round trip with this step's walls
+        (on the pipeline's producer lane when pipelined, its gauges then
+        landing in the next step's record), the manager's /metrics scrape,
+        what the balance estimator saw and the pool's counters."""
+        metrics.update_gauge(self.rollout.fault_counters())
+        timings = metrics.timings()
+        stats = dict(
+            step_time_s=step_time, trainer_bubble_s=state["bubble"],
+            throughput=throughput,
+            generate_s=float(timings.get("gen", 0.0)),
+            update_s=float(timings.get("update_actor", 0.0))
+            + float(timings.get("update_critic", 0.0)))
+        if pipeline is not None:
+            pipeline.submit_step_stats(**stats)
+        else:
+            metrics.update_gauge(self.rollout.scrape_manager_metrics())
+            metrics.update_gauge(self._balancer_round(stats))
+        metrics.update_gauge(self.rollout.balance.metrics())
+        if self.rollout.pool is not None:
+            metrics.update_gauge(self.rollout.pool.counters())
+
     # -- fit --------------------------------------------------------------
 
     def fit(self) -> list[dict]:
@@ -817,6 +925,9 @@ class StreamRLTrainer:
                 })
                 metrics.update(self._flops.step_metrics(
                     state["n_tokens"], state["n_tokens"] / n_traj, step_time))
+                if _remote(self.rollout):
+                    self._remote_step_stats(metrics, pipeline, state,
+                                            step_time, throughput)
                 self._maybe_validate(metrics,
                                      force=self.global_step >= cfg.total_steps)
                 if self._ckpt is not None and ckpt_lib.should_save_checkpoint(
@@ -825,6 +936,10 @@ class StreamRLTrainer:
                         esi_margin_s=cfg.esi_margin_s):
                     with marked_timer("save_checkpoint", metrics):
                         self._save_checkpoint()
+                # distributions observed by components without a tracker
+                # (fabric push and pack walls, manager round trips, the
+                # remote stream's per-request latency) for this step
+                metrics.merge_histograms(obs.drain_histograms())
                 record = metrics.as_dict()
                 history.append(record)
                 if self.logger is not None:

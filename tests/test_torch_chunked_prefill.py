@@ -162,10 +162,18 @@ def test_chunked_prefill_aborts_on_weight_swap(tree):
     eng = _engine(tree)
     free0 = eng.allocator.free_count
     slow = eng._advance_chunk_job
+    swapped = threading.Event()
 
     def paced():
-        time.sleep(0.05)
+        # after the first chunk the loop holds still, with the pool lock
+        # released, until the swap has run: the job cannot finish first
         slow()
+        if not swapped.is_set():
+            eng._pool_lock.release()
+            try:
+                assert swapped.wait(60), "no weight swap"
+            finally:
+                eng._pool_lock.acquire()
 
     eng._advance_chunk_job = paced
     eng.start()
@@ -173,6 +181,7 @@ def test_chunked_prefill_aborts_on_weight_swap(tree):
                    SamplingParams(temperature=0.0, max_new_tokens=8))
     _wait_chunks(eng, 1)
     eng.update_weights(eng.params, version=99)
+    swapped.set()
     items = _collect(q)
     assert items[-1]["finish_reason"] == "abort", items
     t0 = time.monotonic()

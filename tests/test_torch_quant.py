@@ -73,6 +73,26 @@ def test_quantize_tensor_rounds_half_to_even_and_clips():
     np.testing.assert_array_equal(qw.q.numpy(), np.asarray(want.q))
 
 
+def test_quantize_tensor_scale_is_numpys_true_quotient():
+    """The host path pinned to the reference's numpy path
+    (``polyrl_tpu/models/quant.py:83-89``), bitwise, on column maxima where
+    a product with the rounded reciprocal of 127 (what CUDA computes for a
+    division by a Python scalar, the port's former divisor) rounds away
+    from numpy's true quotient: the port divides by a tensor of 127s."""
+    rng = np.random.default_rng(3)
+    amax = rng.uniform(0.01, 3.0, 4096).astype(np.float32)
+    recip = amax * (np.float32(1) / np.float32(127))
+    sel = amax[recip != amax / np.float32(127)][:64]
+    assert len(sel) == 64
+    w = np.stack([sel, -0.5 * sel, 0.25 * sel])  # column maxima: sel
+    want = jquant.quantize_tensor(w, contract_axis=0)  # the numpy branch
+    got = quant.quantize_tensor(torch.from_numpy(w), contract_axis=0)
+    np.testing.assert_array_equal(got.scale.numpy(), want.scale)
+    np.testing.assert_array_equal(got.q.numpy(), want.q)
+    assert (got.scale.numpy()
+            != sel * (np.float32(1) / np.float32(127)) + np.float32(1e-12)).all()
+
+
 def test_mm_matches_jax():
     rng = np.random.default_rng(2)
     x = (rng.standard_normal((4, 5, 16)) * 0.5).astype(np.float32)

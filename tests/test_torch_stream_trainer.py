@@ -116,7 +116,8 @@ def test_config_validation():
 
 def test_gae_and_unported_features_are_refused():
     """GAE without a critic is a configuration error; a rollout with a
-    streaming surface (remote rollout) is not ported yet."""
+    streaming surface (remote rollout) now constructs, and the hybrid
+    ``rollout.colocated_local`` is refused, naming ROADMAP A' 7."""
     cfg, params, tok, engine = make_parts()
     actor = StreamActor(cfg, ActorConfig(remat=False), params)
     base = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
@@ -132,8 +133,16 @@ def test_gae_and_unported_features_are_refused():
         def generate_stream(self, *a, **k):
             raise AssertionError
 
-    with pytest.raises(NotImplementedError, match="remote.*A' 7"):
-        StreamRLTrainer(TrainerConfig(**base), actor, Remote(), tok, None, None)
+    trainer = StreamRLTrainer(TrainerConfig(**base), actor, Remote(), tok,
+                              None, None)
+    assert trainer.rollout is not engine
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.train import _build_rollout
+
+    hybrid = load_config(None, ["device=cpu", "rollout.mode=disaggregated",
+                                "rollout.colocated_local=true"])
+    with pytest.raises(NotImplementedError, match="colocated_local.*A' 7"):
+        _build_rollout(hybrid, cfg, params, tok, torch.device("cpu"))
     engine.stop()
 
 
