@@ -88,7 +88,44 @@ when CUDA is unavailable or any phase fails. Phases:
               twice and the next replay other ones; and the profiler's
               count of the port's kernels over 3 replays equal to what
               the replays credited to the launch counts.
-4. train   -- ``build_trainer`` of ``polyrl_tpu_torch.train``:
+4. memory  -- the engine's memory plane on ``qwen3-1.7b`` at full width
+              and depth (bf16, weights from seed 0): a capped engine of 8
+              slots and 96 pages (0.70 GB of KV; pages cold after 4 idle
+              dispatches; a 2 GB host spill tier) serves 16 greedy
+              sessions of 512 random tokens and 64 new ones in two rounds
+              of 8, then resumes each alone with its own prompt, so that
+              published pages spill to pinned host buffers (gather on the
+              compute stream, device-to-host on a copy stream) and restore
+              in place on the prefix hit. Gates: at least 32 pages spilled
+              and 32 restored; the streams bitwise a never-spilling
+              engine's (1,024 pages) on the same requests, or the break
+              named with equal tokens and logprobs within 5e-4; the same
+              capped run with ``kv_spill=False`` equal tokens, logprobs
+              within 5e-4 (its evicted prefixes prefill again instead of
+              attaching); at quiescence the ledger reconciled (1.0: its
+              roles the allocator's free list plus the cache's entries,
+              spilled ones included), the flight deck's tokens reconciled,
+              the loop profiler's attribution <= 1 + 1e-6 and accounting
+              plus spill sweep under 15% of the loop's busy wall; the
+              pools at their addresses and no decode graph captured again
+              after the restores; a grouped mix (2 GRPO groups of 8,
+              greedy, on two spilled 7-page prefixes) against the
+              never-spilling engine, tokens equal or parting at a logged
+              near-tie, logprobs within 5e-4; the fused prologue, K2 and
+              K3 launched. Logs spill and restore GB/s (forced, and the
+              sessions' own copies timed by events on the card), spills
+              refused on a full copy lane, peak pinned bytes,
+              ``kv_spilled_frac``, ``kv_restore_rate``, HBM use and
+              headroom, and the profiler's device/accounting/idle
+              fractions beside torch.profiler's busy share. Then the serve
+              phase's mix on its engine with every plane on against
+              ``kv_ledger=False, loop_profile=False``, 5 runs each in
+              turns: median and range of tok/s, of host ms per dispatch in
+              the launch and in the whole decode pass less its drains, and
+              the profiler's accounting ms per dispatch; and the device
+              memory peak of one full spill sweep on that engine's 2,048
+              pages.
+5. train   -- ``build_trainer`` of ``polyrl_tpu_torch.train``:
               ``qwen3-1.7b`` at full width and depth in bf16, random
               weights from seed 0, the colocated CB engine (64 slots,
               page 64, 512 pages), 2 GRPO steps of 2 prompts x 8 samples
@@ -109,7 +146,7 @@ when CUDA is unavailable or any phase fails. Phases:
               earlier tiles). ``--grad-seeds 1,2,...`` then reads the
               gradient gate again after the same fit at each of those
               ``trainer.seed`` values and logs the spread (not gated).
-5. ppo     -- ``build_trainer`` again, on the slice's other half: PPO
+6. ppo     -- ``build_trainer`` again, on the slice's other half: PPO
               with a critic (GAE) on packed rows (pack_len 1024, 4 rows
               per micro), pipelined one step ahead (staleness limit 1,
               truncated importance correction), validation before
@@ -139,14 +176,14 @@ when CUDA is unavailable or any phase fails. Phases:
               shapes and segment ids. ``--ppo-ab`` also runs the
               configuration without validation, unpipelined against
               pipelined in turns, for their step walls.
-6. hf      -- ``qwen3-1.7b`` at full width and depth from seed 0 written
+7. hf      -- ``qwen3-1.7b`` at full width and depth from seed 0 written
               as a Hugging Face checkpoint (two bf16 safetensors shards,
               the index, ``config.json``) into a temp dir and loaded back
               by ``build_from_hf`` on the card: the config and every leaf
               bitwise; the int8 load's seconds and bytes;
               ``create_server(model=<dir>)`` serves greedy tokens equal
               to the preset's on the seeded tree.
-7. quant   -- ``quant.quantize_tensor`` on the card bitwise the same call
+8. quant   -- ``quant.quantize_tensor`` on the card bitwise the same call
               on the host (int8 entries and f32 scales) on every
               projection of the seeded tree (the hf phase's host int8
               load likewise); then
@@ -161,7 +198,7 @@ when CUDA is unavailable or any phase fails. Phases:
               tokens; the decode step by graph replay, bf16 against int8
               (each replay bitwise its eager step): kernels, device and
               wall ms, the graph pool's growth.
-8. lora    -- the train phase's configuration with ``actor.lora_rank=16``
+9. lora    -- the train phase's configuration with ``actor.lora_rank=16``
               (2 GRPO steps): frozen leaves bitwise, every ``b`` moved,
               the engine bitwise ``merge_lora(actor.params)`` after each
               push, old logprobs within 0.2 nats of the engine's, K4
@@ -172,7 +209,7 @@ when CUDA is unavailable or any phase fails. Phases:
               ``actor.offload_optimizer=true trainer.profile_steps=2``:
               memory each offload frees, offload and load seconds, and a
               torch.profiler trace of step 2 naming K4's kernels.
-9. features -- the CB engine's serving features on ``qwen3-1.7b`` at full
+10. features -- the CB engine's serving features on ``qwen3-1.7b`` at full
               width and depth (bf16, weights from seed 0, 64 slots, page
               64, 2,048 pages, run-ahead depth 16). salvage: a greedy
               stream of budget 400 aborted after its 5th token delivers
@@ -202,7 +239,7 @@ when CUDA is unavailable or any phase fails. Phases:
               against the serve phase's), and the same greedy request is
               bitwise the one before release; the allocator whole after
               ``stop()``.
-10. step   -- the step backend: ``RolloutEngine.generate`` on 16 prompts of
+11. step   -- the step backend: ``RolloutEngine.generate`` on 16 prompts of
               128 tokens x 256 new tokens, greedy, against ``CBEngine`` (one
               run each, in one call): the same tokens up to the first near-tie, logprobs
               within 0.15 nats of the dense f32 forward, tok/s of each; a
@@ -210,14 +247,14 @@ when CUDA is unavailable or any phase fails. Phases:
               ``generate`` gives; 2 GRPO steps through ``build_trainer``
               with ``rollout.backend=step`` at the train phase's
               configuration (finite losses, grad norms > 0, K4 launched).
-11. disagg -- the disaggregated rollout: the port's C++ manager (its copy
+12. disagg -- the disaggregated rollout: the port's C++ manager (its copy
               of the sources, built by ``g++`` into the git-ignored build
               directory) spawned supervised; ``build_trainer`` with
               ``rollout.mode=disaggregated`` and the train phase's
               configuration (its weight sender registered first); then the
               rollout server as a subprocess (``python -m
               polyrl_tpu_torch.rollout.serve --model qwen3-1.7b
-              --num-pages 512 --manager ...``, bf16, on the card), whose
+              --num-pages 512 --manager-endpoint ...``, bf16, on the card), whose
               receiver connects to that sender. 2 GRPO steps stream their
               groups back through the manager, each push goes over the TCP
               fabric (pack device to host, wire, install host to device,
@@ -244,11 +281,16 @@ when CUDA is unavailable or any phase fails. Phases:
               arrival: a greedy request on it equals an in-process int8
               ``CBEngine`` on ``quant.quantize_params`` of that tree (or
               parts only at a near-tie), within 0.15 nats of the dense f32
-              forward on the dequantized weights. Any failure (the
+              forward on the dequantized weights. The balancer's feed: the
+              server reports ``occupancy`` and ``device_frac`` (polled
+              through the fit and logged), every step record carries the
+              pool's ``engine/occupancy`` (> 0) and ``engine/device_frac``,
+              the next step's balancer round passes them on, and a non-zero
+              one of each reaches the estimator. Any failure (the
               manager's build, a server's death, a push) fails the smoke.
-12. result -- the card's name and power limit, a ``{"kernels": [...]}``
+13. result -- the card's name and power limit, a ``{"kernels": [...]}``
               line (the launches of each kernel's paths: serve or the A/B,
-              train, and disagg), and last ``{"ok": true, "device":
+              memory, train, and disagg), and last ``{"ok": true, "device":
               {...}}``.
 """
 
@@ -4237,7 +4279,7 @@ def _tail(path: str, n: int = 3000) -> str:
 def spawn_server(dev, mgr, manager_ep: str, extra: list[str],
                  procs: list) -> tuple[int, str, float]:
     """``python -m polyrl_tpu_torch.rollout.serve`` on ``MODEL`` as a
-    subprocess registered through ``--manager`` (appended to ``procs``
+    subprocess registered through ``--manager-endpoint`` (appended to ``procs``
     at once, so teardown stops it), waited for until the manager reports
     it healthy. Returns its port, its log's path and the seconds it took."""
     port = free_port()
@@ -4253,7 +4295,7 @@ def spawn_server(dev, mgr, manager_ep: str, extra: list[str],
             [sys.executable, "-m", "polyrl_tpu_torch.rollout.serve",
              "--model", MODEL, "--dtype", "bfloat16", "--device", dev.type,
              "--host", "127.0.0.1", "--port", str(port), "--seed", "0",
-             "--manager", manager_ep, "--transfer-streams", "4"]
+             "--manager-endpoint", manager_ep, "--transfer-streams", "4"]
             + DISAGG_SERVER + extra,
             cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT)
     procs.append((proc, port, log_path))
@@ -4309,7 +4351,7 @@ def disagg_phase(dev, trained: dict) -> dict:
     """The disaggregated rollout: the port's C++ manager built by ``g++``
     and spawned supervised; the rollout server a subprocess (``python -m
     polyrl_tpu_torch.rollout.serve`` on ``qwen3-1.7b``, bf16, 512 pages,
-    registered through ``--manager``); the trainer ``build_trainer`` with
+    registered through ``--manager-endpoint``); the trainer ``build_trainer`` with
     ``rollout.mode=disaggregated`` and the train phase's configuration.
     Gates: finite losses, grad norms > 0; every push verified (no push or
     verify failure, no retry) and the server's ``weight_version`` at 1 +
@@ -4382,6 +4424,9 @@ def disagg_phase(dev, trained: dict) -> dict:
         # the server's state through the fit, for each step's generation
         # as the server saw it
         timeline: list[tuple] = []
+        # the server's flight-deck occupancy and loop-profiler device_frac
+        # through the fit (what the manager's stats poll forwards)
+        feed: list[tuple] = []
         poll_err: list[BaseException] = []
         polled = threading.Event()
 
@@ -4393,6 +4438,8 @@ def disagg_phase(dev, trained: dict) -> dict:
                                      inf["num_running_reqs"], inf["num_queued_reqs"],
                                      inf["total_tokens_served"], inf["graph_captures"],
                                      inf["graph_capture_s"], inf["decode_dispatches"]))
+                    feed.append((time.time(), inf.get("occupancy"),
+                                 inf.get("device_frac")))
                     polled.wait(TIMELINE_POLL_S)
             except BaseException as exc:  # noqa: BLE001 -- checked below
                 poll_err.append(exc)
@@ -4419,6 +4466,25 @@ def disagg_phase(dev, trained: dict) -> dict:
             check(rec["actor/grad_norm"] > 0, f"disagg step {i}: zero gradient")
             check("training/max_local_gen_s" in rec,
                   f"disagg step {i}: no balancer answer")
+            # the servers' reports, aggregated by the pool
+            check(rec.get("engine/occupancy", 0.0) > 0.0
+                  and "engine/device_frac" in rec,
+                  f"disagg step {i}: the pool has no engine/occupancy or "
+                  f"engine/device_frac")
+        check(all(o is not None and d is not None for _, o, d in feed),
+              "disagg: the server does not report occupancy and device_frac")
+        # what reached the balancer: each step's observation carries the
+        # previous record's fleet aggregates (the first step's are 0)
+        seen = list(remote.balance._steps)
+        check([s_["occupancy"] for s_ in seen][1:]
+              == [rec["engine/occupancy"] for rec in history[:-1]]
+              and [s_["device_frac"] for s_ in seen][1:]
+              == [rec["engine/device_frac"] for rec in history[:-1]],
+              f"disagg: the balancer saw other occupancy/device_frac: {seen}")
+        check(any(s_["occupancy"] > 0 for s_ in seen)
+              and any(s_["device_frac"] > 0 for s_ in seen),
+              f"disagg: no non-zero occupancy or device_frac reached the "
+              f"balancer: {seen}")
         final = remote.weight_version
         check(final == 1 + n_steps, f"disagg: {final} pushes, not 1 + {n_steps}")
         t3 = time.monotonic()
@@ -4522,7 +4588,8 @@ def disagg_phase(dev, trained: dict) -> dict:
         int8 = disagg_int8_push(dev, remote, iface, sup.endpoint, params, mcfg,
                                 procs)
         return dict(history=history, fit_wall=fit_wall, pushes=pushes,
-                    gen=gen, int8=int8,
+                    gen=gen, int8=int8, feed=feed, streams=streams,
+                    balance=dict(seen=seen, trends=remote.balance.trends()),
                     server_launches=server_launches,
                     trainer_launches=trainer_launches, trainer_peak=trainer_peak,
                     server_peak=info.get("peak_memory_bytes", 0) / 1e9,
@@ -4573,7 +4640,13 @@ def disagg_int8_push(dev, remote, iface, manager_ep: str, params: dict, mcfg,
     v = remote.update_weights(params)
     t0 = time.monotonic()
     for p_ in (port8, port_bf16):
-        while post(p_, "/get_server_info", None)["weight_version"] < v:
+        # a server raises its version inside the swap and logs the install
+        # just after it: wait for both
+        while True:
+            inf = post(p_, "/get_server_info", None)
+            if inf["weight_version"] >= v and any(
+                    s_["version"] >= v for s_ in inf.get("weight_syncs", [])):
+                break
             check(all(pr.poll() is None for pr, _, _ in procs),
                   f"a rollout server exited: {_tail(log8)}")
             check(time.monotonic() - t0 < 120, "the int8 push never landed")
@@ -4664,6 +4737,23 @@ def disagg_lines(out: dict, smi: str) -> list[str]:
             f"({g_.get('capture_s', 0.0):.3f} s) (colocated train phase: gen "
             f"{co[0]:.3f} s, rollout gauge {co[1]:.1f} tok/s; its engine's "
             f"decode dispatches over both steps {out['colocated_dispatches']})")
+        s0, s1, _v = out["streams"][i - 1]
+        polled = [(o, d) for t_, o, d in out["feed"] if s0 <= t_ <= s1]
+        lines.append(
+            f"disagg ({smi}, this run): step {i}: the server's occupancy / "
+            f"device_frac polled during its stream: "
+            + (f"first {polled[0]}, last {polled[-1]}, max occupancy "
+               f"{max(o for o, _ in polled):.4f}, max device_frac "
+               f"{max(d for _, d in polled):.4f}" if polled else "none")
+            + f"; the record's engine/occupancy {rec['engine/occupancy']:.4f}, "
+            f"engine/device_frac {rec['engine/device_frac']:.4f}; the "
+            f"balancer's observation {json.dumps(out['balance']['seen'][i - 1])}")
+    tr = out["balance"]["trends"]
+    lines.append(
+        f"disagg ({smi}, this run): balance.trends() after the fit: "
+        f"occupancy_slope {tr.get('occupancy_slope')}, device_frac_slope "
+        f"{tr.get('device_frac_slope')}, valid {tr.get('balance_trends_valid')} "
+        f"(the estimator zeroes every slope below three steps)")
     g = out["greedy"]
     lines.append(
         f"disagg ({smi}, this run): fit wall {out['fit_wall']:.1f} s; greedy "
@@ -4690,6 +4780,564 @@ def disagg_lines(out: dict, smi: str) -> list[str]:
         f"logprobs {'bitwise' if q['logprobs_bitwise'] else 'not bitwise'}; "
         f"{q['dense_err']:.4f} nats from dense f32 on the dequantized weights; "
         f"int8 server peak {q['peak']:.2f} GB")
+    return lines
+
+
+# the memory phase: a capped engine whose sessions contend for 96 pages
+# (0.70 GB of KV at qwen3-1.7b: 28 layers x K and V x 8 kv heads x 64 x 128
+# x 2 B = 7,340,032 B a page), a never-spilling one of 1,024 pages
+MEM_ENGINE = dict(max_slots=8, page_size=PS, max_seq_len=1024,
+                  prompt_buckets=(64, 128, 256, 512), steps_per_dispatch=8,
+                  seed=0, kv_cold_after_dispatches=4, kv_spill_host_gb=2.0)
+MEM_PAGES = 97
+MEM_BIG_PAGES = 1025
+MEM_SESSIONS = 16        # two rounds of 8 (the slots), then each resumed
+MEM_PROMPT = 512         # 7 full pages published a session (the 8th holds
+MEM_NEW = 64             # the suffix's last token), 9 pages while decoding
+MEM_MIN_PAGES = 32       # at least this many pages spilled, and restored
+MEM_LP_TOL = 5e-4        # the reference's own bound, nats
+MEM_GROUP_PREFIX = 448   # the grouped mix: 7 spilled pages + 16 new tokens
+ACCOUNTING_BUDGET = 0.15  # accounting + spill_sweep over the loop's busy wall
+MEM_AB_RUNS = 5          # planes on against off, in turns
+
+
+def engine_quiet(eng, timeout: float = 120.0) -> None:
+    """Wait until the engine is quiescent (no active slot, nothing
+    pending, queued or in flight), read under its dispatch lock."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with eng._pool_lock:
+            quiet = (not eng._active.any() and not eng._pending
+                     and eng._queue.empty() and not eng._chunk_jobs
+                     and eng._outstanding() == 0)
+        if quiet:
+            return
+        check(time.monotonic() < deadline, "the engine did not go quiet")
+        eng._idle.wait(0.05)
+
+
+def engine_requests(eng, reqs: list[dict]) -> list[dict]:
+    """Submit ``reqs`` (rid, input_ids, sampling, optional group hints) at
+    once to a started engine and read every stream: tokens, logprobs,
+    finish reason and each line's arrival time."""
+    qs = [eng.submit(r["rid"], r["input_ids"], r["sampling"],
+                     group_id=r.get("group_id", ""),
+                     group_size=r.get("group_size", 0)) for r in reqs]
+    outs, threads = timed_streams(qs)
+    for t in threads:
+        t.join(timeout=600)
+        check(not t.is_alive(), "an engine stream did not finish")
+    res = []
+    for r, o in zip(reqs, outs):
+        res.append(dict(rid=r["rid"], t=[ts for ts, _ in o],
+                        tokens=[x for _, it in o for x in it["token_ids"]],
+                        logprobs=[x for _, it in o for x in it["logprobs"]],
+                        reason=o[-1][1]["finish_reason"] if o else "none"))
+        check(res[-1]["reason"] == "length",
+              f"{r['rid']}: finish {res[-1]['reason']!r}")
+    return res
+
+
+def memory_sessions(eng, prompts: list, sp, between=None) -> list[dict]:
+    """The sessions: two rounds of 8 fresh prompts (each round one wave,
+    waited for), then each session resumed alone with its own prompt, so
+    that its prefix hit lands on pages the pressure spilled; ``between()``
+    runs once the first pass is quiet."""
+    out = []
+    for r in range(0, len(prompts), 8):
+        out += engine_requests(eng, [
+            {"rid": f"s{i}", "input_ids": prompts[i], "sampling": sp}
+            for i in range(r, min(r + 8, len(prompts)))])
+    engine_quiet(eng)
+    if between is not None:
+        between()
+    for i, p in enumerate(prompts):
+        out += engine_requests(eng, [{"rid": f"r{i}", "input_ids": p,
+                                      "sampling": sp}])
+    engine_quiet(eng)
+    return out
+
+
+def streams_gap(a: list[dict], b: list[dict]) -> tuple[bool, bool, float, list]:
+    """(tokens equal everywhere, logprobs bitwise everywhere, the largest
+    |logprob diff| where the tokens agree, the rids whose tokens part)."""
+    toks = all(x["tokens"] == y["tokens"] for x, y in zip(a, b))
+    bitwise = toks and all(x["logprobs"] == y["logprobs"] for x, y in zip(a, b))
+    gap, parted = 0.0, []
+    for x, y in zip(a, b):
+        n = min(len(x["tokens"]), len(y["tokens"]))
+        first = next((j for j in range(n) if x["tokens"][j] != y["tokens"][j]), n)
+        if first < n:
+            parted.append((x["rid"], first))
+        if first:
+            gap = max(gap, float(np.abs(np.asarray(x["logprobs"][:first])
+                                        - np.asarray(y["logprobs"][:first])).max()))
+    return toks, bitwise, gap, parted
+
+
+def spilled_entries(eng) -> list:
+    return [e for e in eng.prefix_cache._map.values() if e.spilled]
+
+
+def timed_spill(eng, dev) -> tuple[list, float]:
+    """Spill every unreferenced published page at once, the device idle
+    before (so the copy lane is empty): (the entries, seconds from queueing
+    the gather to the copies landing on the host)."""
+    before = {id(e) for e in spilled_entries(eng)}
+    torch.cuda.synchronize(dev)
+    with eng._pool_lock:
+        t0 = time.monotonic()
+        eng._spill_pages(eng.num_pages, cold_only=False)
+        eng.kvspill._copy_stream.synchronize()
+        dt = time.monotonic() - t0
+    return [e for e in spilled_entries(eng) if id(e) not in before], dt
+
+
+def timed_restore(eng, dev, entries: list) -> float:
+    """Restore ``entries`` at once: seconds from the host buffers to the
+    pages written into the pools."""
+    torch.cuda.synchronize(dev)
+    with eng._pool_lock:
+        t0 = time.monotonic()
+        check(eng._restore_entries(entries), "the restore found no pages")
+        torch.cuda.synchronize(dev)
+        return time.monotonic() - t0
+
+
+def memory_phase(dev) -> dict:
+    """The engine's memory plane at ``qwen3-1.7b`` full width and depth
+    (bf16, weights from seed 0) under a capped pool: 16 greedy sessions of
+    512 random tokens and 64 new ones on 96 pages (two rounds of 8, then
+    each resumed alone) spill published pages to pinned host buffers and
+    restore them on their prefix hit. Gates: at least MEM_MIN_PAGES pages
+    spilled and restored; the streams against a never-spilling engine of
+    1,024 pages on the same requests, bitwise (else the break named, the
+    floor equal tokens and logprobs within MEM_LP_TOL); the capped run with
+    ``kv_spill=False`` equal tokens, logprobs within MEM_LP_TOL; at
+    quiescence the ledger's attributed_frac 1.0 (its roles the allocator's
+    free list plus the cache's entries, spilled ones included), the flight
+    deck's 1.0, the loop profiler's at most 1 + 1e-6, accounting plus
+    spill sweep under ACCOUNTING_BUDGET of the loop's busy wall; the pools
+    at their addresses and no decode graph captured again after the
+    restores; a grouped mix (2 GRPO groups of 8, greedy, on two spilled
+    7-page prefixes plus 16 tokens) against the never-spilling engine,
+    tokens equal (or parting at a logged near-tie) and logprobs within
+    MEM_LP_TOL; K1 fused, K2 and K3 launched, counted from zero. Readings:
+    spill (gather plus device-to-host) and restore (host-to-device plus
+    ``index_copy_``) GB/s, peak pinned bytes, kv_spilled_frac,
+    kv_restore_rate, HBM use and headroom, the profiler's fractions beside
+    torch.profiler's busy share of the grouped mix. Then ``memory_ab``."""
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    cfg = decoder.get_config(MODEL, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = decoder.init_params(gen, cfg)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, MEM_PROMPT).tolist()
+               for _ in range(MEM_SESSIONS)]
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=MEM_NEW)
+    tails = [rng.integers(1, cfg.vocab_size, 16).tolist() for _ in range(2)]
+    groups = [{"rid": f"g{g}-{i}",
+               "input_ids": prompts[g][:MEM_GROUP_PREFIX] + tails[g],
+               "sampling": greedy, "group_id": f"mgrp{g}", "group_size": 8}
+              for g in range(2) for i in range(8)]
+
+    def make(num_pages: int, **kw):
+        return CBEngine(cfg, params, pad_token_id=0,
+                        kv_cache_dtype=torch.bfloat16, num_pages=num_pages,
+                        device=dev, **{**MEM_ENGINE, **kw}).start()
+
+    out: dict = {}
+    capped = make(MEM_PAGES)
+    try:
+        kp, vp = capped._pools
+        ptrs = [t.data_ptr() for t in kp + vp]
+        page_bytes = sum(t[:, 0].numel() * t.element_size() for t in kp + vp)
+        cuda_build.reset_launch_counts()
+        t0 = time.monotonic()
+        first: dict = {}
+
+        def after_first_pass():
+            first.update(captures=capped.graph_captures,
+                         replays=capped.graph_replays,
+                         spilled=capped.kvledger.pages_spilled)
+
+        got = memory_sessions(capped, prompts, greedy, after_first_pass)
+        out["sessions_s"] = time.monotonic() - t0
+        torch.cuda.synchronize(dev)  # every copy landed, so timed
+        info = capped.kv_memory_info()
+        snap = capped.kv_memory_snapshot()
+        host = snap["spill"]["host"]
+        out["traffic"] = {k_: host[k_] for k_ in (
+            "bytes_spilled", "d2h_s", "bytes_restored", "h2d_s",
+            "copy_batches", "lane_full")}
+        check(host["d2h_s"] > 0 and host["h2d_s"] > 0,
+              f"memory: the sessions' copies were not timed: {out['traffic']}")
+        out["pages"] = dict(spilled=info["memory/pages_spilled"],
+                            spilled_first=first["spilled"],
+                            restored=info["memory/pages_restored"],
+                            drops=info["memory/spill_drops"],
+                            evicted=capped.prefix_cache.evictions["capacity"],
+                            spilled_frac=info["kv_spilled_frac"],
+                            restore_rate=info["kv_restore_rate"],
+                            hbm_used=info["hbm_used_gb"],
+                            hbm_headroom=info["hbm_headroom_gb"],
+                            behind=snap["spill"]["host"]["restores_behind_copy"])
+        log(f"memory: sessions on {MEM_PAGES - 1} pages: "
+            + json.dumps(out["pages"]) + f"; reconcile "
+            + json.dumps(snap["reconcile"]) + f"; {out['sessions_s']:.1f} s")
+        check(info["memory/pages_spilled"] >= MEM_MIN_PAGES
+              and info["memory/pages_restored"] >= MEM_MIN_PAGES,
+              f"memory: {info['memory/pages_spilled']} pages spilled and "
+              f"{info['memory/pages_restored']} restored, under {MEM_MIN_PAGES}")
+        rec = snap["reconcile"]
+        check(rec["attributed_frac"] == 1.0
+              and rec["ledger_free"] == rec["pool_free"] == capped.allocator.free_count
+              and rec["ledger_cache"] == rec["cache_pages"]
+              == capped.prefix_cache.num_entries,
+              f"memory: the ledger does not reconcile: {json.dumps(rec)}")
+        check(snap["roles"]["spilled"] == len(spilled_entries(capped))
+              == capped.kvspill.resident_pages,
+              "memory: spilled pages disagree between ledger, cache and host")
+        check(capped.deck.attributed_frac() == 1.0,
+              f"memory: the flight deck's tokens do not reconcile "
+              f"({capped.deck.attributed_frac()})")
+        check(capped.graph_captures == first["captures"]
+              and capped.graph_replays > first["replays"],
+              "memory: a decode graph was captured again after the restores")
+        check([t.data_ptr() for t in kp + vp] == ptrs,
+              "memory: the pools moved")
+        prof = capped.loop_profile_snapshot()
+        busy = prof["wall_s"] - prof["phase_s"]["idle"]
+        acct = prof["phase_s"]["accounting"] + prof["phase_s"]["spill_sweep"]
+        out["loop"] = dict(attributed=prof["attributed_frac"],
+                           acct_frac=acct / busy, phase_s=prof["phase_s"])
+        check(prof["attributed_frac"] <= 1.0 + 1e-6,
+              f"memory: loop attribution {prof['attributed_frac']} > 1")
+        check(acct / busy < ACCOUNTING_BUDGET,
+              f"memory: accounting {acct:.3f} s of {busy:.3f} s busy")
+
+        # the same requests on an engine that never spills
+        big = make(MEM_BIG_PAGES)
+        try:
+            want = memory_sessions(big, prompts, greedy)
+            check(big.kvledger.pages_spilled == 0, "the big pool spilled")
+            toks, bitwise, gap, parted = streams_gap(got, want)
+            out["big"] = dict(tokens=toks, bitwise=bitwise, gap=gap,
+                              parted=parted)
+            log(f"memory: capped spilling against never spilling: tokens "
+                f"{'equal' if toks else 'part ' + str(parted)}, logprobs "
+                f"{'bitwise' if bitwise else 'max |diff| %.3e' % gap}")
+            check(toks and gap <= MEM_LP_TOL,
+                  f"memory: capped against never spilling: {out['big']}")
+
+            # spill and restore rates, then the grouped mix on two spilled
+            # prefixes against the same mix on the big engine
+            ents, dt_s = timed_spill(capped, dev)
+            n_s = n_r = len(ents)
+            dt_r = timed_restore(capped, dev, ents)
+            ents2, dt_s2 = timed_spill(capped, dev)
+            n_s2 = len(ents2)
+            out["rates"] = dict(
+                spill=(n_s, n_s * page_bytes / dt_s / 1e9),
+                restore=(n_r, n_r * page_bytes / dt_r / 1e9),
+                spill2=(n_s2, n_s2 * page_bytes / dt_s2 / 1e9),
+                pinned=capped.kvspill.stats()["pinned_bytes"])
+            check(n_s > 0 and n_s2 == n_s,
+                  f"memory: the timed spills moved {n_s} and {n_s2} pages")
+            launches0 = dict(cuda_build.LAUNCHES)
+            res: dict = {}
+            prof = capped.profiler
+
+            def grouped():
+                res["t0"] = time.monotonic()
+                res["p0"] = (dict(prof.totals), prof.wall_s)
+                res["out"] = engine_requests(capped, groups)
+                engine_quiet(capped)
+                res["p1"] = (dict(prof.totals), prof.wall_s)
+
+            busy_ms = device_profile(grouped, 1)["device_ms"]
+            wall_ms = (max(o["t"][-1] for o in res["out"]) - res["t0"]) * 1e3
+            # the loop profiler over the same mix: its phases' growth over
+            # the growth of the loop's wall
+            (t0_, w0_), (t1_, w1_) = res["p0"], res["p1"]
+            d_wall = w1_ - w0_
+            d = {p_: t1_[p_] - t0_[p_] for p_ in t0_}
+            mix_fracs = dict(
+                device_frac=(d["prefill_dispatch"] + d["decode_dispatch_device"]
+                             + d["sample_fetch"]) / d_wall,
+                accounting_frac=(d["accounting"] + d["spill_sweep"]) / d_wall,
+                idle_frac=d["idle"] / d_wall, restore_s=d["restore"])
+            launched = {k_: cuda_build.LAUNCHES[k_] - launches0[k_]
+                        for k_ in SERVE_KERNELS}
+            check(launched["grouped_paged_attention"] > 0,
+                  f"memory: the grouped mix did not take K3: {launched}")
+            ref = engine_requests(big, groups)
+            toks, bitwise, gap, parted = streams_gap(res["out"], ref)
+            ties = []
+            if not toks:
+                p32 = f32_copy(params)
+                for rid, first in parted:
+                    o = next(x for x in ref if x["rid"] == rid)
+                    prompt = next(g["input_ids"] for g in groups if g["rid"] == rid)
+                    gaps = top2_gaps(p32, cfg, prompt, o["tokens"], dev)
+                    mine = next(x for x in res["out"] if x["rid"] == rid)
+                    ok, f_, tie, g_ = agrees_until_tie(mine["tokens"], o["tokens"], gaps)
+                    ties.append((rid, f_, tie, round(g_, 4)))
+                    check(ok, f"memory: grouped {rid} parts at {f_} before a "
+                          f"near-tie ({tie}, f32 gap {g_:.4f})")
+                del p32
+            out["grouped"] = dict(tokens=toks, bitwise=bitwise, gap=gap,
+                                  ties=ties, busy=busy_ms / wall_ms,
+                                  launched=launched, fracs=mix_fracs)
+            check(gap <= MEM_LP_TOL, f"memory: grouped mix {out['grouped']}")
+        finally:
+            big.stop()
+        del big
+        out["launches"] = dict(cuda_build.LAUNCHES)
+        for name in SERVE_KERNELS:
+            check(out["launches"][name] > 0,
+                  f"{name} was not launched in the memory phase")
+        out["info"] = capped.kv_memory_info()
+        out["deck"] = capped.deck.attributed_frac()
+    finally:
+        capped.stop()
+    del capped
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the capped run with the spill tier off: evicted prefixes prefill again
+    off = make(MEM_PAGES, kv_spill=False)
+    try:
+        got_off = memory_sessions(off, prompts, greedy)
+        check(off.kvspill is None and off.kvledger.pages_spilled == 0,
+              "the spill-off engine spilled")
+        evicted = off.prefix_cache.evictions["capacity"]
+    finally:
+        off.stop()
+    del off
+    toks, bitwise, gap, parted = streams_gap(got, got_off)
+    out["off"] = dict(tokens=toks, bitwise=bitwise, gap=gap, parted=parted,
+                      evicted=evicted)
+    log(f"memory: spill on against off: tokens "
+        f"{'equal' if toks else 'part ' + str(parted)}, logprobs "
+        f"{'bitwise' if bitwise else 'max |diff| %.3e' % gap}; the off run "
+        f"evicted {evicted} pages")
+    check(toks and gap <= MEM_LP_TOL, f"memory: spill on against off: {out['off']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ab"] = memory_ab(dev)
+    return out
+
+
+def step_host_timer(eng) -> dict:
+    """Time the engine's decode passes on the instance: ``step_s`` sums the
+    wall of every ``_step_once``, ``drain_s`` that of the output drains
+    inside them (where the loop waits on the device). Their difference is
+    the host's whole cost of the passes: the abort scan, the launch, the
+    kernel-read accounting, the flight deck, the ledger's touch and tier
+    sweep, the spill sweep and the profiler's phases."""
+    acc = {"step_s": 0.0, "drain_s": 0.0}
+    step, drain = eng._step_once, eng._drain_emit_q
+    inside = threading.local()
+
+    def timed_drain(*a, **kw):
+        if not getattr(inside, "step", False):
+            return drain(*a, **kw)
+        t0 = time.perf_counter()
+        try:
+            return drain(*a, **kw)
+        finally:
+            acc["drain_s"] += time.perf_counter() - t0
+
+    def timed_step():
+        inside.step = True
+        t0 = time.perf_counter()
+        try:
+            step()
+        finally:
+            inside.step = False
+            acc["step_s"] += time.perf_counter() - t0
+
+    eng._step_once, eng._drain_emit_q = timed_step, timed_drain
+    return acc
+
+
+def sweep_peak(eng, dev, vocab: int) -> dict:
+    """Device memory around one full spill sweep at ``eng``'s pool: greedy
+    one-token requests publish pages until the cache holds the sweep's
+    target (the watermarks' gap times the pool), then one spill of that
+    many pages, the device idle before it: the peak allocated above the
+    level before, beside the gathered block's bytes."""
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    n = eng.num_pages - 1
+    target = int(np.ceil((eng.kv_spill_high_watermark
+                          - eng.kv_spill_low_watermark) * n))
+    per = (MEM_PROMPT - 1) // PS  # full pages a prompt publishes
+    rng = np.random.default_rng(11)
+    one = SamplingParams(temperature=0.0, max_new_tokens=1)
+    engine_requests(eng, [{"rid": f"fill{i}", "sampling": one,
+                           "input_ids": rng.integers(1, vocab, MEM_PROMPT).tolist()}
+                          for i in range(-(-target // per))])
+    engine_quiet(eng)
+    kp, vp = eng._pools
+    page_bytes = sum(t[:, 0].numel() * t.element_size() for t in kp + vp)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with eng._pool_lock:
+        t0 = time.monotonic()
+        got = eng._spill_pages(target, cold_only=False)
+        torch.cuda.synchronize(dev)
+        dt = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(got == target, f"the sweep at {n} pages spilled {got} of {target}")
+    return dict(pages=got, pool=n, block=got * page_bytes, peak=peak, s=dt)
+
+
+def memory_ab(dev) -> dict:
+    """The serve phase's 18-stream GRPO mix on the serve phase's engine
+    (64 slots, 2,048 pages, bf16, seed 0) with every plane on (the
+    defaults) against ``kv_ledger=False, loop_profile=False``, in turns
+    (on, off, off, on, ...), MEM_AB_RUNS each after one warm run each: the
+    median and range of decode tok/s, of the host ms per decode dispatch
+    in the launch (``decode_host_s``) and in the whole decode pass less
+    its drains (``step_host_timer``), and the planes-on engine's profiler
+    ms of accounting and spill sweep per dispatch. Then ``sweep_peak`` on
+    the planes-on engine."""
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    cfg = decoder.get_config(MODEL, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = decoder.init_params(gen, cfg)
+    bodies, _, _ = serving_mix(cfg.vocab_size)
+    reqs = [{"rid": b["rid"], "input_ids": b["input_ids"],
+             "sampling": SamplingParams(**b["sampling_params"]),
+             "group_id": b.get("group_id", ""),
+             "group_size": b.get("group_size", 0)} for b in bodies]
+    engines, timers = {}, {}
+    for name, kw in (("on", {}), ("off", dict(kv_ledger=False,
+                                             loop_profile=False))):
+        engines[name] = CBEngine(
+            cfg, params, pad_token_id=0, kv_cache_dtype=torch.bfloat16,
+            max_slots=64, page_size=PS, max_seq_len=4096, num_pages=2048,
+            steps_per_dispatch=8, seed=0, device=dev, **kw)
+        timers[name] = step_host_timer(engines[name])
+        engines[name].start()
+    runs: dict = {"on": [], "off": []}
+    try:
+        order = ["on", "off"] + ["on", "off", "off", "on"] * (MEM_AB_RUNS // 2)
+        order += ["on", "off"][:MEM_AB_RUNS % 2 * 2]
+        for i, name in enumerate(order):
+            eng, tm = engines[name], timers[name]
+            eng.flush_prefix_cache()
+            d0, h0 = eng.decode_dispatches, eng.decode_host_s
+            s0 = tm["step_s"] - tm["drain_s"]
+            prof = eng.profiler
+            a0 = (prof.totals["accounting"] + prof.totals["spill_sweep"]
+                  if prof is not None else 0.0)
+            outs = engine_requests(eng, [{**r, "rid": f"{r['rid']}-{i}"}
+                                         for r in reqs])
+            engine_quiet(eng)
+            first = min(o["t"][0] for o in outs)
+            last = max(o["t"][-1] for o in outs)
+            n_tok = sum(len(o["tokens"]) for o in outs) - len(outs)
+            n_d = max(eng.decode_dispatches - d0, 1)
+            acct = ((prof.totals["accounting"] + prof.totals["spill_sweep"]
+                     - a0) / n_d * 1e3 if prof is not None else None)
+            if i >= 2:  # the first run of each engine warms (captures)
+                runs[name].append((n_tok / (last - first),
+                                   (eng.decode_host_s - h0) / n_d * 1e3,
+                                   (tm["step_s"] - tm["drain_s"] - s0)
+                                   / n_d * 1e3, acct))
+        peak = sweep_peak(engines["on"], dev, cfg.vocab_size)
+    finally:
+        for eng in engines.values():
+            eng.stop()
+    del engines, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(len(runs["on"]) == len(runs["off"]) == MEM_AB_RUNS,
+          f"memory A/B: {len(runs['on'])} / {len(runs['off'])} runs")
+    out = {k: dict(tok_s=[r[0] for r in v], host_ms=[r[1] for r in v],
+                   step_ms=[r[2] for r in v], acct_ms=[r[3] for r in v])
+           for k, v in runs.items()}
+    out["sweep"] = peak
+    return out
+
+
+def memory_lines(m: dict, smi: str) -> list[str]:
+    pg, r = m["pages"], m["rates"]
+    g, tr, sw = m["grouped"], m["traffic"], m["ab"]["sweep"]
+    lines = [
+        f"memory ({smi}, this run): capped engine ({MEM_PAGES - 1} pages): "
+        f"{pg['spilled']:.0f} pages spilled ({pg['spilled_first']:.0f} in the "
+        f"first pass), {pg['restored']:.0f} restored, {pg['drops']:.0f} dropped, "
+        f"{pg['evicted']} evicted; restores behind their copy {pg['behind']}; "
+        f"kv_spilled_frac {pg['spilled_frac']}, kv_restore_rate "
+        f"{pg['restore_rate']}; hbm_used_gb {pg['hbm_used']:.3f}, "
+        f"hbm_headroom_gb {pg['hbm_headroom']:.3f} (the card's free memory); "
+        f"the sessions took {m['sessions_s']:.1f} s; the phase's launches "
+        + json.dumps({k_: m["launches"][k_] for k_ in SERVE_KERNELS}),
+        f"memory ({smi}, this run): spill of {r['spill'][0]} pages (gather on "
+        f"the compute stream + device-to-host on the copy stream) "
+        f"{r['spill'][1]:.2f} GB/s, again {r['spill2'][1]:.2f} GB/s; restore "
+        f"of {r['restore'][0]} pages (host-to-device + index_copy_) "
+        f"{r['restore'][1]:.2f} GB/s; peak pinned {r['pinned'] / 1e9:.3f} GB",
+        f"memory ({smi}, this run): the sessions' own spills and restores, "
+        f"copies timed by events on the card: {tr['copy_batches']} spill "
+        f"batches, {tr['bytes_spilled'] / 1e9:.3f} GB device-to-host in "
+        f"{tr['d2h_s'] * 1e3:.2f} ms ({tr['bytes_spilled'] / tr['d2h_s'] / 1e9:.2f} "
+        f"GB/s, the gather's end to the batch landed); "
+        f"{tr['bytes_restored'] / 1e9:.3f} GB host-to-device in "
+        f"{tr['h2d_s'] * 1e3:.2f} ms "
+        f"({tr['bytes_restored'] / tr['h2d_s'] / 1e9:.2f} GB/s, the copies "
+        f"alone); spills refused on a full copy lane {tr['lane_full']}",
+        f"memory ({smi}, this run): one full sweep at the A/B engine's "
+        f"{sw['pool']} pages: {sw['pages']} pages, block "
+        f"{sw['block'] / 1e9:.3f} GB, device memory peak above the level "
+        f"before {sw['peak'] / 1e9:.3f} GB ({sw['peak'] / sw['block']:.3f} x "
+        f"the block), {sw['s'] * 1e3:.1f} ms to the copies landed",
+        f"memory ({smi}, this run): capped against never spilling: "
+        + json.dumps(m["big"]) + "; spill on against off: "
+        + json.dumps(m["off"]),
+        f"memory ({smi}, this run): grouped mix on spilled prefixes against "
+        f"never spilling: tokens {'equal' if g['tokens'] else 'part ' + str(g['ties'])}, "
+        f"logprobs {'bitwise' if g['bitwise'] else 'max |diff| %.3e' % g['gap']}; "
+        f"launches {json.dumps(g['launched'])}; the loop profiler over the "
+        f"mix: device_frac {g['fracs']['device_frac']:.3f} (host wall in "
+        f"dispatch and fetch over loop wall), accounting_frac "
+        f"{g['fracs']['accounting_frac']:.4f}, idle_frac "
+        f"{g['fracs']['idle_frac']:.3f}, restore {g['fracs']['restore_s']:.4f} s; "
+        f"torch.profiler's device busy share of the mix's wall "
+        f"{g['busy']:.3f} (the device's own)",
+        f"memory ({smi}, this run): loop attribution "
+        f"{m['loop']['attributed']}, accounting + spill_sweep "
+        f"{m['loop']['acct_frac']:.4f} of the busy wall; phase seconds "
+        + json.dumps(m["loop"]["phase_s"]),
+    ]
+    for name in ("on", "off"):
+        a = m["ab"][name]
+        lines.append(
+            f"memory A/B ({smi}, this run): planes {name}: decode tok/s median "
+            f"{statistics.median(a['tok_s']):.1f} (range "
+            f"{min(a['tok_s']):.1f}-{max(a['tok_s']):.1f}), host ms per decode "
+            f"dispatch median {statistics.median(a['host_ms']):.3f} (range "
+            f"{min(a['host_ms']):.3f}-{max(a['host_ms']):.3f}) in the launch, "
+            f"{statistics.median(a['step_ms']):.3f} (range "
+            f"{min(a['step_ms']):.3f}-{max(a['step_ms']):.3f}) in the whole "
+            f"decode pass less its drains"
+            + (f", the profiler's accounting + spill_sweep "
+               f"{statistics.median(a['acct_ms']):.4f} (range "
+               f"{min(a['acct_ms']):.4f}-{max(a['acct_ms']):.4f})"
+               if a["acct_ms"][0] is not None else "")
+            + "; runs " + json.dumps([round(x, 1) for x in a["tok_s"]]))
     return lines
 
 
@@ -4743,6 +5391,11 @@ def main() -> int:
         f"peak {served['peak_gb']:.2f} GB")
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    memory = memory_phase(dev)
+    for line in memory_lines(memory, smi):
+        log(line)
+    log(f"phase memory ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
     trained = train_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4811,11 +5464,12 @@ def main() -> int:
                     if r["name"] == "paged_kv_write" else
                     trained["launches"] if r["name"].startswith("flash")
                     else served["launches"])
-        # plus the disagg phase's path: the server process decodes, the
-        # trainer process runs K4
+        # plus the memory phase's and the disagg phase's paths: the server
+        # process decodes, the trainer process runs K4
         extra = (0 if r["name"] == "paged_kv_write" else
                  disagg["trainer_launches"][r["name"]] if r["name"].startswith("flash")
-                 else disagg["server_launches"][r["name"]])
+                 else disagg["server_launches"][r["name"]]
+                 + memory["launches"][r["name"]])
         r.update(route="cuda", source=f"polyrl_tpu_torch/csrc/{r['name']}.cu",
                  replaces=REPLACES[r["name"]],
                  launches=launches[r["name"]] + extra)

@@ -77,8 +77,28 @@ class RolloutSection:
     group_share: bool = True
     decode_group_share: bool = True
     group_preref_ttl_s: float = 30.0
+    # the CB engine's memory plane (rollout/kvledger.py): a per-page ledger
+    # of role, owner, age and free cause, with hot/warm/cold residency
+    # tiers (a page is cold after this many idle decode dispatches; warm
+    # after a quarter of it). False: no accounting, the same outputs.
+    kv_ledger: bool = True
+    kv_cold_after_dispatches: int = 256
+    # the host-RAM KV spill tier (rollout/kvspill.py): under page-use
+    # pressure (the sweep arms at >= the high watermark and spills down
+    # toward the low one) cold unreferenced published prefix-cache pages
+    # go to pinned host memory, up to kv_spill_host_gb, and a prefix hit
+    # restores them. Needs kv_ledger.
+    kv_spill: bool = True
+    kv_spill_host_gb: float = 4.0
+    kv_spill_high_watermark: float = 0.92
+    kv_spill_low_watermark: float = 0.80
+    # the engine-loop profiler (obs/engine_profile.py): each loop
+    # iteration's wall by phase, and the device_frac the balancer reads.
+    # False: no clocks around the loop, the same outputs.
+    loop_profile: bool = True
     # disaggregated plumbing: the rollout servers run as their own
-    # processes (``python -m polyrl_tpu_torch.rollout.serve --manager``)
+    # processes (``python -m polyrl_tpu_torch.rollout.serve
+    # --manager-endpoint``)
     manager_endpoint: str = ""            # "" -> spawn the C++ manager locally
     manager_args: tuple = ()              # extra CLI args for the spawned manager
     # a locally spawned manager runs supervised: respawned with backoff

@@ -52,16 +52,31 @@ Counterpart of the core of ``polyrl_tpu/rollout/cb_engine.py``:
   spec decode graphs captured up front; a grouped key at its first
   dispatch), ``release_memory``/``resume_memory`` (the KV pools
   and the captured graphs freed for a colocated trainer, and rebuilt).
+- The memory plane and the loop's instruments, on by default as in the
+  JAX engine, each with its off switch: the page ledger
+  (``rollout/kvledger.py``, ``kv_ledger``) fed at every page transition;
+  the host spill tier (``rollout/kvspill.py``, ``kv_spill``, needs the
+  ledger and the prefix cache): under watermark pressure cold unreferenced
+  published pages are gathered on the compute stream and copied to pinned
+  host buffers on a copy stream, their physical pages freed, and a prefix
+  hit on them restores them in place into fresh pages of the live pools
+  before the attach; the flight deck (``rollout/flightdeck.py``: request
+  lifecycle, occupancy, token reconciliation); the loop profiler
+  (``obs/engine_profile.py``, ``loop_profile``). None of them touches the
+  sampling generator, or the device unless a spill or restore fires: with
+  the ledger or the profiler off the outputs are bitwise the same; with
+  the spill tier off only pressure acts otherwise (an eviction, then a
+  full prefill, where a spill and a restore would keep the KV).
 
 Where the JAX engine donates pools and state, this one updates the pools
-and the device state in place. Not ported yet (see ROADMAP.md): the KV
-ledger, spill tier, flight deck and loop profiler, a graph for prefill,
-and TP meshes.
+and the device state in place. Not ported yet (see ROADMAP.md): a graph
+for prefill, and TP meshes.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import queue
@@ -75,6 +90,7 @@ import torch
 from polyrl_tpu_torch.device import resolve_device
 from polyrl_tpu_torch.models import decoder
 from polyrl_tpu_torch.models.quant import named_leaves
+from polyrl_tpu_torch.obs.engine_profile import EngineLoopProfiler
 from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops.paged_attention import grouped_paged_attention
 from polyrl_tpu_torch.rollout.common import (
@@ -82,7 +98,9 @@ from polyrl_tpu_torch.rollout.common import (
     next_bucket,
     params_copy,
 )
-from polyrl_tpu_torch.rollout.flightdeck import ThroughputEWMA
+from polyrl_tpu_torch.rollout.flightdeck import EngineFlightDeck, ThroughputEWMA
+from polyrl_tpu_torch.rollout.kvledger import PageLedger
+from polyrl_tpu_torch.rollout.kvspill import HostSpillPool
 from polyrl_tpu_torch.rollout.prefix_cache import PrefixCache
 from polyrl_tpu_torch.rollout.sampling import (
     SamplingParams,
@@ -100,6 +118,10 @@ MAX_STOP_TOKENS = 8
 # the page-table row and the stop-table row; floats are (temperature, top_p)
 _SEQ, _LAST, _NGEN, _BUDGET, _ACTIVE, _TOPK = range(6)
 _NI = 6
+
+# the phase context _phase() hands out when the loop profiler is off
+# (nullcontext is reentrant): the hot path pays no allocation
+_NULL_PHASE = contextlib.nullcontext()
 
 
 def _pow2(n: int) -> int:
@@ -231,6 +253,13 @@ class CBEngine:
         spec_tokens: int = 0,
         spec_rounds: int = 2,
         salvage_partials: bool = True,
+        kv_ledger: bool = True,
+        kv_cold_after_dispatches: int = 256,
+        kv_spill: bool = True,
+        kv_spill_host_gb: float = 4.0,
+        kv_spill_high_watermark: float = 0.92,
+        kv_spill_low_watermark: float = 0.80,
+        loop_profile: bool = True,
         device: str | torch.device = "cuda",
     ):
         if any(b % page_size for b in prompt_buckets):
@@ -247,6 +276,11 @@ class CBEngine:
             raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
         if spec_rounds < 1:
             raise ValueError(f"spec_rounds must be >= 1, got {spec_rounds}")
+        if not 0.0 < kv_spill_low_watermark <= kv_spill_high_watermark <= 1.0:
+            raise ValueError(
+                f"kv spill watermarks must satisfy 0 < low <= high <= 1, "
+                f"got low={kv_spill_low_watermark} "
+                f"high={kv_spill_high_watermark}")
         self.device = resolve_device(device)
         self.cfg = cfg
         # the engine's own copy, even of tensors already on its device: a
@@ -284,8 +318,29 @@ class CBEngine:
         self._inflight_tok = np.zeros((s,), np.int64)
 
         self.allocator = PageAllocator(self.num_pages)
-        self.prefix_cache = (PrefixCache(page_size, self.allocator.free)
+        # the page ledger: role, owner, age and free cause of every page,
+        # fed at each page transition below (None: no accounting)
+        self.kvledger = (PageLedger(
+            self.num_pages, page_size,
+            cold_after_dispatches=kv_cold_after_dispatches,
+            device=self.device) if kv_ledger else None)
+        self._weight_bytes: int | None = None
+        # the cache frees through _free_cache_pages, so the ledger sees the
+        # cause the cache booked
+        self.prefix_cache = (PrefixCache(page_size, self._free_cache_pages)
                              if enable_prefix_cache else None)
+        # the host spill tier needs the ledger (candidates by idle age, the
+        # accounting) and the prefix cache (the spillable pages)
+        self.kvspill = (HostSpillPool(
+            int(float(kv_spill_host_gb) * 1e9), self.device)
+            if (kv_spill and kv_ledger and enable_prefix_cache) else None)
+        self.kv_spill_high_watermark = float(kv_spill_high_watermark)
+        self.kv_spill_low_watermark = float(kv_spill_low_watermark)
+        if self.prefix_cache is not None and self.kvledger is not None:
+            # cold-first capacity eviction, spill or not
+            self.prefix_cache.idle_age = self.kvledger.idle_age
+        if self.kvspill is not None:
+            self.prefix_cache.drop_spilled = self._drop_spilled_entries
         self._pools = decoder.make_paged_pools(
             cfg, self.num_pages, page_size, dtype=self.kv_cache_dtype,
             device=self.device)
@@ -420,6 +475,235 @@ class CBEngine:
         self.total_tokens_served = 0
         self._tok_window: collections.deque = collections.deque(maxlen=64)
         self._tput_ewma = ThroughputEWMA()
+        # the flight deck: request lifecycle (queue wait, TTFT, TPOT, token
+        # counts) and scheduler occupancy, with the request-vs-scheduler
+        # token reconciliation
+        self.deck = EngineFlightDeck(max_slots, self.num_pages, page_size)
+        # the loop profiler: each loop iteration's wall split over the
+        # phase taxonomy (None: no clocks around the loop)
+        self.profiler = EngineLoopProfiler() if loop_profile else None
+
+    # -- the loop profiler (obs/engine_profile.py) ----------------------------
+
+    def _phase(self, name: str):
+        """The profiler's phase context for ``name`` (a no-op when off)."""
+        prof = self.profiler
+        return prof.phase(name) if prof is not None else _NULL_PHASE
+
+    def loop_profile_info(self) -> dict:
+        """Flat server_info fields of the loop profiler ({} when off)."""
+        if self.profiler is None:
+            return {}
+        return self.profiler.server_info_fields()
+
+    def loop_profile_snapshot(self) -> dict:
+        """The nested ``engine.loop`` view (``{"enabled": False}`` when
+        off)."""
+        if self.profiler is None:
+            return {"enabled": False}
+        return self.profiler.snapshot()
+
+    # -- the KV memory plane (rollout/kvledger.py) ----------------------------
+
+    # cache-side free causes -> ledger taxonomy
+    _CACHE_CAUSE = {"capacity": "cache_pressure", "flush": "flush",
+                    "preref_ttl": "preref_ttl"}
+
+    def _free_cache_pages(self, pages: list[int]) -> None:
+        """The prefix cache's free callback: the pages go back to the
+        allocator, and the ledger books them under the cause the cache
+        recorded just before calling."""
+        self.allocator.free(pages)
+        if self.kvledger is not None:
+            cause = self.prefix_cache.last_free_cause
+            self.kvledger.on_free(
+                pages, self._CACHE_CAUSE.get(cause, "cache_pressure"))
+
+    def _free_slot_pages(self, pages: list[int], cause: str) -> None:
+        self.allocator.free(pages)
+        if self.kvledger is not None:
+            self.kvledger.on_free(pages, cause)
+
+    def _accounted_bytes(self) -> float:
+        """Device bytes the ledger can attribute: the KV pools and the
+        weights (their total is fixed: weight updates copy in place). Sets
+        the ledger's bytes per page from the pools."""
+        if self._weight_bytes is None:
+            self._weight_bytes = sum(t.numel() * t.element_size()
+                                     for _, t in named_leaves(self.params))
+        pools = self._pools
+        pool_b = (sum(t.numel() * t.element_size() for t in pools[0] + pools[1])
+                  if pools is not None else 0)
+        if self.kvledger is not None and pool_b:
+            self.kvledger.page_bytes = pool_b // self.num_pages
+        return float(self._weight_bytes + pool_b)
+
+    def _cache_pages(self) -> int:
+        return (self.prefix_cache.num_entries
+                if self.prefix_cache is not None else 0)
+
+    def kv_memory_info(self) -> dict:
+        """Flat server_info fields of the memory plane ({} when the ledger
+        is off). Safe from handler threads: the ledger locks."""
+        if self.kvledger is None:
+            return {}
+        return self.kvledger.server_info_fields(
+            self.allocator.free_count, self._cache_pages(),
+            self._accounted_bytes())
+
+    def kv_memory_snapshot(self) -> dict:
+        """The nested ``memory`` view ({} when the ledger is off); the host
+        pool's own truth joins as ``spill.host``."""
+        if self.kvledger is None:
+            return {}
+        snap = self.kvledger.snapshot(
+            self.allocator.free_count, self._cache_pages(),
+            self._accounted_bytes())
+        if self.kvspill is not None:
+            snap.setdefault("spill", {})["host"] = self.kvspill.stats()
+        return snap
+
+    # -- the host spill tier (rollout/kvspill.py) -----------------------------
+
+    def _drop_spilled_entries(self, entries: list) -> None:
+        """Spilled content died without a restore (cache flush, a stale
+        squatter replaced, engine stop): the host copy goes and the ledger
+        settles; the physical pages were freed at spill time."""
+        handles = [e.spill_handle for e in entries if e.spilled]
+        for e in entries:
+            e.spilled = False
+            e.spill_handle = -1
+        if not handles:
+            return
+        self.kvspill.drop(handles)
+        self.kvledger.on_spill_drop(len(handles))
+
+    def _spill_sweep(self) -> None:
+        """After each decode dispatch: page use at or over the high
+        watermark spills cold unreferenced published pages down toward the
+        low one. The gap between the two keeps demand restores from
+        arming the sweep again page by page."""
+        n = max(1, self.num_pages - 1)
+        util = 1.0 - self.allocator.free_count / n
+        if util < self.kv_spill_high_watermark:
+            return
+        target = int(np.ceil((util - self.kv_spill_low_watermark) * n))
+        if target > 0:
+            self._spill_pages(target, cold_only=True)
+
+    def _spill_pages(self, target: int, cold_only: bool) -> int:
+        """Page out up to ``target`` unreferenced published prefix-cache
+        pages, coldest first (``cold_only``: only the ledger's cold tier,
+        the sweep's mode; allocation pressure takes any unreferenced
+        published page, since a spill keeps the KV that an eviction
+        destroys). Returns how many pages were spilled.
+
+        The gather runs on the compute stream behind every dispatch already
+        queued, so the physical pages go back to the allocator at once: a
+        later prefill that writes them is queued after the gather. With
+        ``lane_depth`` batches in flight nothing is spilled, as in the JAX
+        engine: the sweep tries again after a later dispatch, and allocation
+        pressure evicts."""
+        if (self.kvspill is None or self._pools is None or target <= 0
+                or not self.kvspill.lane_free()):
+            return 0
+        with self._phase("spill_sweep"):
+            return self._spill_pages_inner(target, cold_only)
+
+    def _spill_pages_inner(self, target: int, cold_only: bool) -> int:
+        age = self.kvledger.idle_age
+        cands = [(age(e.page), e) for e in self.prefix_cache.spill_candidates()]
+        if cold_only:
+            cands = [c for c in cands if c[0] >= self.kvledger.cold_after]
+        if not cands:
+            return 0
+        cands.sort(key=lambda c: (-c[0], c[1].tick))
+        self._accounted_bytes()  # the ledger's bytes per page
+        page_bytes = int(self.kvledger.page_bytes)
+        take = min(target, len(cands))
+        while take > 0 and not self.kvspill.can_spill(take, page_bytes):
+            take -= 1  # host capacity: spill what fits, never evict here
+        if take <= 0:
+            return 0
+        entries = [e for _age, e in cands[:take]]
+        pages = [e.page for e in entries]
+        kp, vp = self._pools
+        idx = self._tensor(np.asarray(pages, np.int64))
+        # page-major [n, 2L, Hkv, ps, D]: one contiguous block per page,
+        # filled a layer at a time (the transient beside the block is one
+        # layer's slice)
+        kv = torch.empty((len(pages), 2 * len(kp)) + tuple(kp[0][:, 0].shape),
+                         dtype=kp[0].dtype, device=self.device)
+        for j, pool in enumerate(kp + vp):
+            kv[:, j] = pool.index_select(1, idx).transpose(0, 1)
+        handles = self.kvspill.spill(kv, page_bytes)
+        for e, h in zip(entries, handles):
+            e.spilled = True
+            e.spill_handle = h
+        self.allocator.free(pages)
+        self.kvledger.on_spill(pages)
+        return len(pages)
+
+    def _restore_matched(self, matched_entries: list) -> tuple[list[int], list]:
+        """A prefix match landed on spilled entries: restore them into
+        fresh pages before the attach. If pages for the whole chain cannot
+        be found, the chain is cut at its first entry still spilled (the
+        cut tail's match refs are released): a shorter hit, never a wrong
+        one. Returns the (possibly cut) pages and entries."""
+        spilled = [e for e in matched_entries if e.spilled]
+        if spilled and not self._restore_entries(spilled):
+            cut = next(i for i, e in enumerate(matched_entries) if e.spilled)
+            self.prefix_cache.release(matched_entries[cut:])
+            matched_entries = matched_entries[:cut]
+        return [e.page for e in matched_entries], matched_entries
+
+    def _restore_entries(self, entries: list) -> bool:
+        """Restore spilled entries into freshly allocated pages of the live
+        pools, in place (the captured decode graphs replay from the pools'
+        addresses): pinned host buffers to a device staging tensor, then
+        one ``index_copy_`` per layer, all on the compute stream before the
+        attach prefill that reads them. A restored chain sits at new
+        physical pages, and decode-group seating keys on exact chains: a
+        group whose members attached on both sides of a spill decodes
+        apart (K2 for a lone member). Returns False (nothing restored) when
+        no pages can be found even after spilling colder pages or
+        evicting."""
+        with self._phase("restore"):
+            return self._restore_entries_inner(entries)
+
+    def _restore_entries_inner(self, entries: list) -> bool:
+        need = len(entries)
+        pages = self.allocator.alloc(need)
+        while pages is None and self._outstanding():
+            self._drain_emit_q(keep=self._outstanding() - 1)
+            pages = self.allocator.alloc(need)
+        if pages is None:
+            # colder spillable pages make room without losing KV; the
+            # entries being restored are spilled already, so they are no
+            # candidates
+            if self._spill_pages(need - self.allocator.free_count,
+                                 cold_only=False):
+                pages = self.allocator.alloc(need)
+        if pages is None and self.prefix_cache.evict(
+                need - self.allocator.free_count):
+            pages = self.allocator.alloc(need)
+        if pages is None:
+            return False
+        kp, vp = self._pools
+        handles = [e.spill_handle for e in entries]
+        staging = torch.empty((need, 2 * len(kp)) + tuple(kp[0][:, 0].shape),
+                              dtype=kp[0].dtype, device=self.device)
+        self.kvspill.load(handles, staging)
+        idx = self._tensor(np.asarray(pages, np.int64))
+        for j, pool in enumerate(kp + vp):
+            pool.index_copy_(1, idx, staging[:, j].transpose(0, 1))
+        self.kvspill.drop(handles, restored=True)
+        for e, p in zip(entries, pages):
+            e.page = int(p)
+            e.spilled = False
+            e.spill_handle = -1
+        self.kvledger.on_restore(pages)
+        return True
 
     # -- submission API (server-facing) -------------------------------------
 
@@ -483,14 +767,17 @@ class CBEngine:
             self._slot_decode_gid.clear()
             while self._chunk_jobs:
                 job = self._chunk_jobs.popleft()
-                self._finalize(job["slot"])
+                self._finalize(job["slot"], cause="abort")
                 self._emit_error(job["req"], "engine shutdown")
             if self.prefix_cache is not None:
+                # the flush drops every spilled entry (both tiers)
                 self._disband_group_prerefs()
                 self.prefix_cache.flush()
         self._drain_queue()
         while self._pending:
             self._emit_error(self._pending.popleft(), "engine shutdown")
+        if self.kvspill is not None:
+            self.kvspill.stop()
 
     # -- weights -------------------------------------------------------------
 
@@ -619,7 +906,9 @@ class CBEngine:
         they go first, with their private memory pool; then the pools; then
         the allocator's cache is returned to the device. A request
         submitted meanwhile waits for ``resume_memory``; mid-chunk prefill
-        jobs, whose filled KV goes with the pools, are aborted."""
+        jobs, whose filled KV goes with the pools, are aborted. The cache
+        flush drops spilled entries from both tiers; no spill runs while
+        the pools are gone."""
         self._paused.set()
         if not self._idle.wait(timeout=30.0):
             return
@@ -653,9 +942,16 @@ class CBEngine:
     # -- engine loop ---------------------------------------------------------
 
     def _loop(self) -> None:
+        prof = self.profiler
         while not self._stop.is_set():
             try:
-                self._loop_iter()
+                if prof is not None:
+                    # one attribution window per iteration: the phases'
+                    # self-times partition its wall, the rest is `other`
+                    with prof.iteration():
+                        self._loop_iter()
+                else:
+                    self._loop_iter()
             except Exception:  # noqa: BLE001 — a dead loop wedges every
                 # connected HTTP handler; fail the running requests instead
                 log.exception("engine iteration failed; failing active requests")
@@ -667,7 +963,8 @@ class CBEngine:
                 with self._pool_lock:
                     self._drain_emit_q()
             self._idle.set()
-            time.sleep(0.02)
+            with self._phase("idle"):
+                time.sleep(0.02)
             return
         self._drain_queue()
         if (not self._pending and not self._active.any()
@@ -675,9 +972,12 @@ class CBEngine:
             if self._outstanding():  # the run-ahead tail: pad rows only
                 with self._pool_lock:
                     self._drain_emit_q()
+            self.deck.on_idle()
             self._idle.set()
             try:
-                self._pending.append(self._queue.get(timeout=0.05))
+                with self._phase("idle"):
+                    req = self._queue.get(timeout=0.05)
+                self._pending.append(req)
             except queue.Empty:
                 pass
             return
@@ -689,16 +989,18 @@ class CBEngine:
             if self._chunk_jobs:
                 # one chunk per iteration: a long prompt's admission
                 # interleaves with the decode dispatch below
-                self._advance_chunk_job()
+                with self._phase("prefill_dispatch"):
+                    self._advance_chunk_job()
             if self._active.any():
                 self._step_once()
             elif self._pending and not self._chunk_jobs:
-                time.sleep(0.005)  # pending but blocked on pages/slots
+                with self._phase("idle"):
+                    time.sleep(0.005)  # pending but blocked on pages/slots
 
     def _abort_chunk_jobs(self) -> None:
         while self._chunk_jobs:
             job = self._chunk_jobs.popleft()
-            self._finalize(job["slot"])
+            self._finalize(job["slot"], cause="abort")
             self._emit_abort(job["req"])
 
     def _recover(self) -> None:
@@ -743,25 +1045,30 @@ class CBEngine:
     # -- admission -------------------------------------------------------------
 
     def _admit(self) -> None:
-        self._sweep_group_prerefs()
+        with self._phase("accounting"):
+            self._sweep_group_prerefs()
         while self._pending:
-            wave, kind = self._collect_wave()
+            with self._phase("collect_wave"):
+                wave, kind = self._collect_wave()
             if not wave:
                 break
             try:
-                if kind == "attach" and len(wave) > 1:
-                    self._prefill_attach_wave(wave)
-                elif len(wave) == 1:
-                    req, slot, pages, budget, mp, me = wave[0]
-                    self._prefill_request(slot, req, pages, budget, mp, me)
-                else:
-                    self._prefill_wave(wave)
+                with self._phase("prefill_dispatch"):
+                    if kind == "attach" and len(wave) > 1:
+                        self._prefill_attach_wave(wave)
+                    elif len(wave) == 1:
+                        req, slot, pages, budget, mp, me = wave[0]
+                        self._prefill_request(slot, req, pages, budget, mp,
+                                              me)
+                    else:
+                        self._prefill_wave(wave)
                 self.prefill_dispatches += 1
+                self.deck.on_admit_wave(len(wave))
             except Exception:
                 for req, slot, pages, _b, _mp, me in wave:
                     if self._slots[slot] is not None and self._slots[slot].req is req:
                         continue  # admitted before the failure: _recover owns it
-                    self.allocator.free(pages)
+                    self._free_slot_pages(pages, "abort")
                     if self.prefix_cache is not None:
                         self.prefix_cache.release(me)
                     self._emit_error(req, "prefill failed")
@@ -820,6 +1127,11 @@ class CBEngine:
             if self.prefix_cache is not None:
                 matched_pages, matched_entries = self.prefix_cache.match(
                     req.input_ids)
+                if self.kvspill is not None and any(
+                        e.spilled for e in matched_entries):
+                    # a hit on spilled KV: restore, then attach
+                    matched_pages, matched_entries = self._restore_matched(
+                        matched_entries)
                 if n_full > 0:
                     first_key = self.prefix_cache._keys_for(req.input_ids, 1)[0]
             full_hit = bool(matched_pages) and len(matched_pages) == n_full
@@ -854,6 +1166,9 @@ class CBEngine:
             del self._pending[scan]
             slot = free[0]
             assigned.add(slot)
+            if self.kvledger is not None:
+                # the one allocation site: the pages become the slot's
+                self.kvledger.on_alloc(pages, owner=req.group_id or req.rid)
             if self.prefix_cache is not None:
                 self.prefix_cache.note_request(bool(matched_pages))
             if chunked:
@@ -893,6 +1208,12 @@ class CBEngine:
             # often the oldest output already holds the finisher
             self._drain_emit_q(keep=self._outstanding() - 1)
             pages = self.allocator.alloc(need)
+        if pages is None and self.kvspill is not None:
+            # spill unreferenced published KV to the host before evicting
+            # it: a spill keeps what an eviction destroys
+            if self._spill_pages(need - self.allocator.free_count,
+                                 cold_only=False):
+                pages = self.allocator.alloc(need)
         if pages is None and self.prefix_cache is not None:
             if self.prefix_cache.evict(need - self.allocator.free_count):
                 pages = self.allocator.alloc(need)
@@ -1045,10 +1366,13 @@ class CBEngine:
         return row
 
     def _install_slot(self, slot: int, req: _Request, row: np.ndarray,
-                      budget: int, private: list[int], entries: list) -> None:
+                      budget: int, private: list[int], entries: list,
+                      cached_tokens: int = 0) -> None:
         """Host mirrors + slot record of a freshly prefilled request. Its
         first token stays on the device until the prefill's output is
-        emitted (``_emit_prefill``); ``last_tokens`` is a placeholder."""
+        emitted (``_emit_prefill``); ``last_tokens`` is a placeholder.
+        ``cached_tokens``: the prompt's prefix this admission did not
+        compute (cache hit, chunk-filled pages), for the flight deck."""
         sp = req.sampling
         self._page_table[slot] = row
         self._seq_lens[slot] = len(req.input_ids)
@@ -1066,6 +1390,8 @@ class CBEngine:
         if self._hist is not None:
             self._hist[slot] = list(req.input_ids)
         self._slot_gen[slot] += 1
+        self.deck.on_admit(slot, req.rid, req.t_submit, len(req.input_ids),
+                           cached_tokens=cached_tokens)
 
     def _enqueue_prefill(self, out, wave: list, kind: str, pb: int) -> None:
         """Queue an admission wave's first tokens for emission, tagged with
@@ -1085,6 +1411,8 @@ class CBEngine:
             req.input_ids, all_pages, n_cached=n_cached,
             matched_entries=matched_entries)
         pub_pages = {e.page for _, e in published}
+        if self.kvledger is not None:
+            self.kvledger.on_publish(pub_pages)
         return ([p for p in pages if p not in pub_pages],
                 list(matched_entries) + [e for _, e in published])
 
@@ -1123,7 +1451,8 @@ class CBEngine:
         self._register_group_prerefs(req, entries)
         self._register_decode_group(
             req, slot, max(0, (n_prompt - 1) // self.page_size), row)
-        self._install_slot(slot, req, row, budget, private, entries)
+        self._install_slot(slot, req, row, budget, private, entries,
+                           cached_tokens=prefix_len)
         self._enqueue_prefill(out, [(req, slot)],
                               "suffix" if prefix_pages else "fresh", pb)
 
@@ -1139,7 +1468,7 @@ class CBEngine:
         if ((req.abort is not None and req.abort.is_set())
                 or self.weight_version != job["version"]):
             self._chunk_jobs.popleft()
-            self._finalize(job["slot"])
+            self._finalize(job["slot"], cause="abort")
             self._emit_abort(req)
             return
         if len(req.input_ids) - job["pos"] <= self.prefill_chunk:
@@ -1154,7 +1483,7 @@ class CBEngine:
             except Exception:
                 # the job left the deque and its placeholder: no other
                 # path can clean it up
-                self.allocator.free(job["pages"])
+                self._free_slot_pages(job["pages"], "abort")
                 if self.prefix_cache is not None:
                     self.prefix_cache.release(job["matched_entries"])
                 self._emit_error(req, "prefill failed")
@@ -1238,7 +1567,8 @@ class CBEngine:
             self._consume_group_preref(req)
             # sibling seat: the matched pages are the leader's chain
             self._register_decode_group(req, slot, attach_pages, row)
-            self._install_slot(slot, req, row, budget, pages, me)
+            self._install_slot(slot, req, row, budget, pages, me,
+                               cached_tokens=prefix_len)
         self.sibling_attach_dispatches += 1
         self.group_forked_requests += len(wave)
         self._enqueue_prefill(out, [(w[0], w[1]) for w in wave], "attach", pb)
@@ -1257,6 +1587,14 @@ class CBEngine:
         self.prefix_cache.retain(entries, n)
         self._group_prerefs[req.group_id] = {
             "entries": list(entries), "remaining": n, "t": time.monotonic()}
+        if self.kvledger is not None:
+            self.kvledger.on_preref_hold([e.page for e in entries])
+
+    def _preref_released(self, g: dict) -> None:
+        """A group's pre-refs are gone: its pinned pages fall back to
+        plain published in the ledger."""
+        if self.kvledger is not None:
+            self.kvledger.on_preref_release([e.page for e in g["entries"]])
 
     def _consume_group_preref(self, req: _Request) -> None:
         """One group member accounted for (admitted, aborted or refused):
@@ -1271,6 +1609,7 @@ class CBEngine:
         g["remaining"] -= 1
         if g["remaining"] <= 0:
             del self._group_prerefs[req.group_id]
+            self._preref_released(g)
 
     def _sweep_group_prerefs(self) -> None:
         """Expire pre-refs of groups whose siblings never arrived."""
@@ -1281,6 +1620,7 @@ class CBEngine:
             if self.prefix_cache is not None:
                 for _ in range(max(0, g["remaining"])):
                     self.prefix_cache.release(g["entries"], cause="preref_ttl")
+            self._preref_released(g)
 
     def _disband_group_prerefs(self) -> None:
         """Release every outstanding pre-ref (before any cache flush)."""
@@ -1288,6 +1628,7 @@ class CBEngine:
             if self.prefix_cache is not None:
                 for _ in range(max(0, g["remaining"])):
                     self.prefix_cache.release(g["entries"])
+            self._preref_released(g)
         self._group_prerefs.clear()
 
     # -- shared-prefix decode groups -----------------------------------------
@@ -1376,7 +1717,8 @@ class CBEngine:
             if out:
                 self._drain_emit_q(keep=out - 1)
             return
-        self._ensure_dev_state()  # may drain, which may finish slots
+        with self._phase("decode_dispatch_device"):
+            self._ensure_dev_state()  # may drain, which may finish slots
         if not self._active.any():
             return
         use_filters = bool(np.any((self._top_ps[self._active] < 1.0)
@@ -1388,15 +1730,20 @@ class CBEngine:
         idxs = [(int(i), int(self._slot_gen[i]))
                 for i in np.flatnonzero(self._active)]
         t0 = time.monotonic()
-        self._launch_decode(use_filters, tables)
-        out = self._ring_copy()
+        with self._phase("decode_dispatch_device"):
+            self._launch_decode(use_filters, tables)
+            out = self._ring_copy()
         self.decode_host_s += time.monotonic() - t0
         self.decode_dispatches += 1
         if tables is not None:
             self.grouped_decode_dispatches += 1
         k = self.steps_per_dispatch
+        with self._phase("accounting"):
+            self._account_kv_reads(tables, k)
         self._inflight_tok[self._active] += k
         self._enqueue_output(("step", out, idxs, k, self.weight_version))
+        with self._phase("accounting"):
+            self._deck_dispatch()
         # run ahead up to pipeline_depth dispatches: older outputs land on
         # the fetcher while the device computes the newer ones
         self._drain_emit_q(keep=self.pipeline_depth)
@@ -1427,17 +1774,60 @@ class CBEngine:
         idxs = [(int(i), int(self._slot_gen[i]))
                 for i in np.flatnonzero(self._active)]
         t0 = time.monotonic()
-        self._launch(self._spec_key(use_filters),
-                     lambda: self._spec_body(use_filters))
-        out = self._ring_copy()
+        with self._phase("decode_dispatch_device"):
+            self._launch(self._spec_key(use_filters),
+                         lambda: self._spec_body(use_filters))
+            out = self._ring_copy()
         self.decode_host_s += time.monotonic() - t0
         self.decode_dispatches += 1
         self.spec_dispatches += 1
         self.spec_token_ceiling += len(idxs) * self.spec_rounds * m
+        # verify attends m rows per slot per round, over the slot's own
+        # pages; tokens counted at the one-per-round emission floor
+        with self._phase("accounting"):
+            self._account_kv_reads(None, self.spec_rounds * m,
+                                   k_tokens=self.spec_rounds)
         self._inflight_tok[self._active] += self.spec_rounds
         self._enqueue_output(("spec", out, idxs, self.spec_rounds,
                               self.weight_version))
+        with self._phase("accounting"):
+            self._deck_dispatch()
         self._drain_emit_q(keep=self.pipeline_depth)
+
+    def _account_kv_reads(self, tables, k: int,
+                          k_tokens: int | None = None) -> None:
+        """The dispatch's KV-read sample for the flight deck, from the host
+        mirrors: logical pages = what every active slot attends; streamed =
+        what the kernels read, each decode group's prefix chain once
+        instead of once per member (K3). Page counts are taken at dispatch
+        (each of the k steps may cross one page boundary more)."""
+        active_idx = np.flatnonzero(self._active)
+        if active_idx.size == 0:
+            return
+        logical = int((self._seq_lens[active_idx] // self.page_size + 1).sum())
+        streamed = logical
+        if tables is not None:
+            g_slots, _g_pages, g_lens = tables
+            for live, n_pre in zip((g_slots >= 0).sum(axis=1),
+                                   g_lens // self.page_size):
+                streamed -= max(0, int(live) - 1) * int(n_pre)
+        self.deck.on_kv_read(
+            streamed * k, logical * k,
+            int(active_idx.size) * (k if k_tokens is None else k_tokens))
+
+    def _deck_dispatch(self) -> None:
+        """After each decode dispatch: the flight deck's occupancy and page
+        pressure sample; the ledger's touch of every active slot's page row
+        (what the dispatch attends) and its tier sweep; then the spill
+        sweep."""
+        self.deck.on_dispatch(
+            int(self._active.sum()), self.allocator.free_count,
+            self._cache_pages(), self._outstanding(), len(self._pending))
+        if self.kvledger is not None:
+            rows = self._page_table[self._active].ravel()
+            self.kvledger.on_dispatch(rows[rows != 0])
+            if self.kvspill is not None:
+                self._spill_sweep()
 
     def _spec_key(self, use_filters: bool) -> tuple:
         """The spec dispatch's graph key, the JAX spec step's jit key."""
@@ -1690,7 +2080,7 @@ class CBEngine:
                 self._drain_emit_q()
             finally:
                 for i in aborted:
-                    self._finalize(i)
+                    self._finalize(i, cause="abort")
                 self._dev_stale = True
         self.num_running = int(self._active.sum())
 
@@ -1721,7 +2111,8 @@ class CBEngine:
                 # _recover's sweep would not see it)
                 try:
                     self._salvage_publish(i, info)
-                    self._finalize(i)
+                    self.deck.on_salvage(i)
+                    self._finalize(i, cause="salvage")
                 finally:
                     self._emit_abort(info.req)
             self._dev_stale = True
@@ -1743,6 +2134,14 @@ class CBEngine:
             return
         page_row = [int(p) for p in self._page_table[slot][:n_full]]
         matched_pages, matched_entries = self.prefix_cache.match(seq)
+        if any(e.spilled for e in matched_entries):
+            # salvage pays no restore to dedup its publish: the verified
+            # chain is cut at its first spilled entry, and publish walks on
+            # past the spilled entries by token and parent identity
+            cut = next(i for i, e in enumerate(matched_entries) if e.spilled)
+            self.prefix_cache.release(matched_entries[cut:])
+            matched_pages = matched_pages[:cut]
+            matched_entries = matched_entries[:cut]
         published = self.prefix_cache.publish(
             seq, page_row, n_cached=len(matched_pages),
             matched_entries=matched_entries)
@@ -1751,6 +2150,8 @@ class CBEngine:
         pub_pages = {e.page for _, e in published}
         info.pages = [p for p in info.pages if p not in pub_pages]
         self.salvage_published_pages += len(pub_pages)
+        if self.kvledger is not None:
+            self.kvledger.on_publish(pub_pages)
         # drop the refs this round took (match and publish): the entries
         # stay cached, unreferenced and evictable
         self.prefix_cache.release(matched_entries + [e for _, e in published])
@@ -1847,9 +2248,11 @@ class CBEngine:
                 epoch = self._fetch_epoch
                 for _ep, entry, _a in ready:
                     self._release(entry)
-            for ep, entry, arrs in ready:
-                if ep == epoch:
-                    self._emit_entry(entry, arrs)
+            if ready:
+                with self._phase("emit"):
+                    for ep, entry, arrs in ready:
+                        if ep == epoch:
+                            self._emit_entry(entry, arrs)
             if exc is not None:
                 raise exc
             with cv:
@@ -1863,14 +2266,16 @@ class CBEngine:
                 # land them here. FIFO: wait out a fetch under way first.
                 with cv:
                     if self._fetch_inflight:
-                        cv.wait(timeout=0.2)
+                        with self._phase("sample_fetch"):
+                            cv.wait(timeout=0.2)
                         continue
                 self._fetch_sync(keep)
                 continue
             with cv:
                 if not self._fetched_q and (self._emit_q
                                             or self._fetch_inflight):
-                    cv.wait(timeout=0.2)
+                    with self._phase("sample_fetch"):
+                        cv.wait(timeout=0.2)
 
     def _fetch_sync(self, keep: int = 0) -> None:
         """Land the queued outputs beyond ``keep`` (oldest first) on this
@@ -1879,7 +2284,8 @@ class CBEngine:
             n = len(self._emit_q) - keep
             batch = [self._emit_q.popleft() for _ in range(max(0, n))]
             epoch = self._fetch_epoch
-        landed = [(epoch, e, self._land(e)) for e in batch]
+        with self._phase("sample_fetch"):
+            landed = [(epoch, e, self._land(e)) for e in batch]
         with self._fetch_cv:
             self._fetched_q.extend(landed)
 
@@ -1923,8 +2329,11 @@ class CBEngine:
         info.emitted.append(t)
         if self._hist is not None:
             self._hist[slot].append(t)
+        self.deck.on_first_token(slot)
         self._count_tokens(1)
         if fin:
+            # finalize before the terminal marker: a client that saw
+            # STREAM_END may read the flight deck at once
             self._active[slot] = False
             try:
                 self._finalize(slot)
@@ -1970,6 +2379,7 @@ class CBEngine:
                 self._last_tokens[i] = t
                 self._n_generated[i] += 1
                 info.emitted.append(t)
+                self.deck.on_decode(i)
                 if self._hist is not None:
                     self._hist[i].append(t)
                 if fin:
@@ -1993,11 +2403,15 @@ class CBEngine:
                 info.req.out.put(STREAM_END)
         self.num_running = int(self._active.sum())
 
-    def _finalize(self, slot: int) -> None:
+    def _finalize(self, slot: int, cause: str = "finalize") -> None:
+        """Release a slot: its private pages go back (the ledger books them
+        under ``cause``: ``finalize``, ``abort`` or ``salvage``), its cache
+        refs are dropped, and the flight deck folds its record."""
+        self.deck.on_finalize(slot)
         self._drop_decode_seat(slot)
         info = self._slots[slot]
         if info is not None:
-            self.allocator.free(info.pages)
+            self._free_slot_pages(info.pages, cause)
             if self.prefix_cache is not None and info.cache_entries:
                 self.prefix_cache.release(info.cache_entries)
         self._slots[slot] = None
@@ -2025,7 +2439,7 @@ class CBEngine:
             info = self._slots[i]
             self._active[i] = False
             try:
-                self._finalize(i)
+                self._finalize(i, cause="abort")
             finally:
                 if info is not None:
                     if finish_reason == "abort":
@@ -2036,6 +2450,9 @@ class CBEngine:
 
     def _count_tokens(self, n: int) -> None:
         self.total_tokens_served += n
+        if n > 0:
+            # the scheduler-side emission total of the deck's reconciliation
+            self.deck.on_emitted(n)
         now = time.monotonic()
         self._tok_window.append((now, n))
         horizon = now - 10.0

@@ -1,14 +1,16 @@
 """Page-granular prefix cache for the continuous-batching engine.
 
 The port's own copy of ``polyrl_tpu/rollout/prefix_cache.py`` (the port
-imports nothing of the JAX package), without the host-RAM spill hooks and
-the ledger's cold-first eviction order, which belong to later slices.
+imports nothing of the JAX package), with its host-RAM spill hooks
+(``rollout/kvspill.py``) and the ledger's cold-first eviction order.
 
 Completed full pages of prompt KV are published under a chained
 page-content hash; later admissions reuse the longest matched run of pages
 and prefill only the suffix. Pages are shared read-only with refcounts;
-unreferenced entries stay resident and are LRU-evicted back to the page
-allocator under pool pressure. GRPO's n-samples-per-prompt makes the hit
+unreferenced entries stay resident and are evicted back to the page
+allocator under pool pressure (coldest first when the engine's page ledger
+supplies ``idle_age``, else least recently used), or spilled to host RAM
+first when the spill tier is on. GRPO's n-samples-per-prompt makes the hit
 rate structural: the first sample prefills, the other n-1 reuse every full
 prompt page.
 """
@@ -26,12 +28,19 @@ class _Entry:
     refcount: int = 0
     tick: int = 0
     orphaned: bool = False  # dropped from the map while still referenced
-    # collision guard: the hash key alone is not trusted. Each entry
-    # records its page's tokens and the identity of its parent entry; a
-    # match requires token equality at every page AND that the parent
-    # chain is the exact sequence of entries already verified.
+    # collision guard: the hash key alone is NOT trusted (a 64-bit collision
+    # would silently serve another prompt's KV). Each entry records its own
+    # page's tokens and the identity of its parent entry; a match requires
+    # token equality at every page AND that the parent chain is the exact
+    # sequence of entries already verified for this request.
     page_toks: tuple = ()
     parent: "_Entry | None" = None
+    # host-RAM spill tier (rollout/kvspill.py): a spilled entry's KV lives
+    # in the HostSpillPool under spill_handle and ``page`` is STALE — the
+    # engine restores it into a fresh physical page (updating ``page``)
+    # before any attach. Only refcount==0 entries ever spill.
+    spilled: bool = False
+    spill_handle: int = -1
 
 
 class PrefixCache:
@@ -42,12 +51,44 @@ class PrefixCache:
         self._tick = 0
         self.hits = 0       # pages served from cache
         self.misses = 0     # full pages prefilled fresh
+        # eviction cause split: the spill tier needs to know WHICH kind of
+        # page it is stealing from —
+        # capacity = pool-pressure LRU (+ stale-squatter replacement),
+        # flush = weight swap / memory release invalidation (immediate
+        # frees AND deferred orphan frees), preref_ttl = orphan frees
+        # during a group pre-ref TTL sweep (``release(cause=...)``).
         self.evictions = {"capacity": 0, "flush": 0, "preref_ttl": 0}
+        # cause of the most recent _free_pages call: the engine's ledger
+        # wrapper reads it to attribute cache-side frees (set BEFORE the
+        # callback runs)
+        self.last_free_cause = "capacity"
+        # request-level counters: the page-granular hits/misses above are
+        # length-skewed (one 4k-prompt hit counts 64× a 128-token hit), so
+        # the reported hit RATE said nothing about how many requests
+        # actually skipped prefill work. The engine notes one hit/miss per
+        # admitted request (any matched page = hit).
         self.req_hits = 0
         self.req_misses = 0
+        # cold-first capacity eviction (set by the engine when the page
+        # ledger is on): physical page id → idle age in dispatches.
+        # Eviction then prefers the COLDEST unreferenced entries instead
+        # of insertion order, so a hot shared group prefix is never evicted
+        # while a cold singleton survives.
+        self.idle_age: "Callable[[int], int] | None" = None
+        self.evict_cold_first = 0  # pages evicted under cold-first order
+        # spill-tier hook (set by the engine when the spill tier is on):
+        # called with entries whose SPILLED content must be dropped (a
+        # flush, or a stale-squatter replacement, while spilled) — their
+        # physical page is already free, so they must NOT go through
+        # _free_pages.
+        self.drop_spilled: "Callable[[list], None] | None" = None
 
     def _free(self, pages: list[int], cause: str) -> None:
+        """Single free choke point: book the cause, then hand the pages
+        back through the engine's callback (which may feed the page
+        ledger off ``last_free_cause``)."""
         self.evictions[cause] = self.evictions.get(cause, 0) + len(pages)
+        self.last_free_cause = cause
         self._free_pages(pages)
 
     # -- keys ---------------------------------------------------------------
@@ -93,14 +134,20 @@ class PrefixCache:
         """Register the freshly prefilled full pages ``page_ids[n_cached:]``
         (ownership moves to the cache; caller keeps a ref). Returns
         ``(prompt_page_index, entry)`` for each page actually published —
-        pages whose key already exists stay caller-owned. ``matched_entries``
-        is the chain ``match()`` verified; the parent is taken from it, not
-        resolved by key."""
+        pages whose key already exists stay caller-owned.
+
+        ``matched_entries`` is the entry list the caller got from
+        ``match()`` — the chain the request was actually verified against.
+        Resolving the parent by key alone could chain children to a
+        REPLACED or colliding entry under that key, making them silently
+        unreachable (parent-identity check fails on every later match)."""
         n_full = max(0, (len(tokens) - 1) // self.page_size)
         keys = self._keys_for(tokens, n_full)
         out: list[tuple[int, _Entry]] = []
         self._tick += 1
         if n_cached > 0:
+            # resolving by key instead would chain children to whatever entry
+            # NOW sits under that key — possibly a replaced/colliding one
             if not matched_entries or len(matched_entries) < n_cached:
                 raise ValueError("publish with n_cached > 0 requires the "
                                  "match() entry list")
@@ -113,16 +160,25 @@ class PrefixCache:
                 tokens[i * self.page_size:(i + 1) * self.page_size])
             existing = self._map.get(key)
             if existing is not None:
-                # duplicate key: caller's page stays slot-private; keep
-                # chaining only if the existing entry really is this prefix
+                # duplicate key: caller's page stays slot-private. Only keep
+                # chaining if the existing entry REALLY is this prefix
+                # (token + parent-identity check — a colliding entry would
+                # poison every child published under it)
                 if existing.page_toks == page_toks and existing.parent is prev:
                     prev = existing
                     continue
                 if existing.refcount == 0:
-                    # stale squatter (child of an evicted parent, or a
-                    # colliding entry): replace it
+                    # stale squatter (e.g. a child whose parent was evicted,
+                    # or a colliding entry): replace it so this prefix stays
+                    # cacheable instead of permanently re-prefilling
                     del self._map[key]
-                    self._free([existing.page], "capacity")
+                    if existing.spilled:
+                        # its physical page is already free — only the
+                        # host-side copy dies
+                        if self.drop_spilled is not None:
+                            self.drop_spilled([existing])
+                    else:
+                        self._free([existing.page], "capacity")
                     e = _Entry(key=key, page=page_ids[i], refcount=1,
                                tick=self._tick, page_toks=page_toks,
                                parent=prev)
@@ -140,6 +196,8 @@ class PrefixCache:
         return out
 
     def note_request(self, hit: bool) -> None:
+        """One admitted request's cache outcome (request-granular — the
+        page counters in ``match``/``publish`` stay as they are)."""
         if hit:
             self.req_hits += 1
         else:
@@ -148,7 +206,11 @@ class PrefixCache:
     # -- refs ----------------------------------------------------------------
 
     def retain(self, entries: list[_Entry], n: int = 1) -> None:
-        """Take ``n`` extra refs on each entry (group pre-refs)."""
+        """Take ``n`` extra refs on each entry (group-shared prefill
+        pre-refs: a leader's publish pre-takes group_size−1 refs so
+        pool-pressure eviction cannot race its siblings' attach; each ref
+        is dropped via ``release`` as a sibling attaches or the group's
+        pre-refs are swept/disbanded)."""
         if n <= 0:
             return
         for e in entries:
@@ -156,7 +218,9 @@ class PrefixCache:
 
     def release(self, entries: list[_Entry], cause: str = "flush") -> None:
         """Drop one ref per entry; orphaned entries (flushed while
-        referenced) free their page at refcount 0."""
+        referenced) free their page at refcount 0. Orphans only exist
+        post-flush, so their frees default to the ``flush`` cause; the
+        engine's pre-ref TTL sweep overrides with ``preref_ttl``."""
         freed: list[int] = []
         for e in entries:
             e.refcount -= 1
@@ -168,10 +232,22 @@ class PrefixCache:
     # -- eviction / flush ----------------------------------------------------
 
     def evict(self, n_pages: int) -> int:
-        """Free up to ``n_pages`` unreferenced pages, least recently used
-        first. Returns how many pages were freed."""
-        candidates = [e for e in self._map.values() if e.refcount == 0]
-        victims = sorted(candidates, key=lambda e: e.tick)[:n_pages]
+        """Free up to ``n_pages`` unreferenced HBM-resident pages. With the
+        ledger's ``idle_age`` hook attached, the COLDEST pages go first
+        (idle-age descending, insertion tick as the tiebreak) — a hot
+        shared group prefix is never evicted while a cold singleton
+        survives; without it, plain LRU by insertion tick. Spilled entries
+        are skipped: their physical page is already free, so evicting them
+        would reclaim no HBM. Returns how many pages were freed."""
+        candidates = [e for e in self._map.values()
+                      if e.refcount == 0 and not e.spilled]
+        if self.idle_age is not None:
+            age = self.idle_age
+            victims = sorted(candidates,
+                             key=lambda e: (-age(e.page), e.tick))[:n_pages]
+            self.evict_cold_first += len(victims)
+        else:
+            victims = sorted(candidates, key=lambda e: e.tick)[:n_pages]
         if not victims:
             return 0
         for e in victims:
@@ -179,22 +255,40 @@ class PrefixCache:
         self._free([e.page for e in victims], "capacity")
         return len(victims)
 
+    def spill_candidates(self) -> list[_Entry]:
+        """Entries the spill tier may page out: unreferenced, HBM-resident
+        (the sweep ranks them by ledger idle age and takes the coldest)."""
+        return [e for e in self._map.values()
+                if e.refcount == 0 and not e.spilled]
+
     def flush(self) -> None:
-        """Invalidate everything (weight update): unreferenced pages return
-        to the allocator now; referenced ones are orphaned and freed when
-        their last holder releases."""
+        """Invalidate everything (weight update / memory release):
+        unreferenced pages return to the allocator now; referenced ones are
+        orphaned and freed when their last holder releases; spilled entries
+        drop their host-side copy (their physical page is already free —
+        abort/flush-while-spilled frees both tiers)."""
         freed: list[int] = []
+        spilled: list[_Entry] = []
         for e in self._map.values():
-            if e.refcount == 0:
+            if e.spilled:
+                spilled.append(e)
+            elif e.refcount == 0:
                 freed.append(e.page)
             else:
                 e.orphaned = True
         self._map.clear()
+        if spilled and self.drop_spilled is not None:
+            self.drop_spilled(spilled)
         if freed:
             self._free(freed, "flush")
 
     @property
+    def num_entries(self) -> int:
+        return len(self._map)
+
+    @property
     def request_hit_frac(self) -> float:
+        """Request-level hit fraction (length-unbiased, unlike hit_rate)."""
         total = self.req_hits + self.req_misses
         return self.req_hits / total if total else 0.0
 
@@ -206,7 +300,14 @@ class PrefixCache:
                 "prefix_cache/req_hits": float(self.req_hits),
                 "prefix_cache/req_misses": float(self.req_misses),
                 "prefix_cache/req_hit_frac": self.request_hit_frac,
-                "prefix_cache/evict_capacity": float(self.evictions["capacity"]),
+                # eviction cause split — one undifferentiated total told
+                # the spill tier nothing about what it would be stealing
+                "prefix_cache/evict_capacity": float(
+                    self.evictions["capacity"]),
+                # capacity evictions ordered cold-first by ledger idle age
+                # (0 when the ledger hook is off — insertion-order LRU)
+                "prefix_cache/evict_cold_first": float(
+                    self.evict_cold_first),
                 "prefix_cache/evict_flush": float(self.evictions["flush"]),
                 "prefix_cache/evict_preref_ttl": float(
                     self.evictions["preref_ttl"])}

@@ -9,7 +9,11 @@ arrival (``RolloutServer.weight_preprocess``); then the engine --
 ``--backend cb`` (default) the paged continuous-batching engine, with
 ``--prefill-chunk``, ``--spec-tokens``/``--spec-rounds`` and ``--warmup``;
 ``--backend step`` the bucketed step engine driven by the server's batch
-loop -- and the HTTP server. With ``--manager host:port`` the server
+loop -- and the HTTP server. The CB engine's memory plane and loop
+profiler are on by default, as in the reference: the page ledger
+(``--no-kv-ledger``, ``--kv-cold-after-dispatches``), the host spill tier
+(``--no-kv-spill``, ``--kv-spill-host-gb``) and the loop profiler
+(``--no-loop-profile``). With ``--manager-endpoint host:port`` the server
 registers with the rollout manager and attaches a weight receiver
 (``ReceiverAgent``, ``--transfer-streams`` TCP streams) pointed at the
 weight sender the manager assigns: the trainer's pushes then land through
@@ -51,6 +55,11 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                   spec_tokens: int = 0,
                   spec_rounds: int = 2,
                   salvage_partials: bool = True,
+                  kv_ledger: bool = True,
+                  kv_cold_after_dispatches: int = 256,
+                  kv_spill: bool = True,
+                  kv_spill_host_gb: float = 4.0,
+                  loop_profile: bool = True,
                   manager_endpoint: str | None = None,
                   transfer_streams: int = 4):
     """Build engine + server and start serving. ``model`` is a preset name
@@ -105,7 +114,10 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
             group_preref_ttl_s=group_preref_ttl_s,
             prefill_chunk=prefill_chunk, spec_tokens=spec_tokens,
             spec_rounds=spec_rounds, salvage_partials=salvage_partials,
-            device=dev)
+            kv_ledger=kv_ledger,
+            kv_cold_after_dispatches=kv_cold_after_dispatches,
+            kv_spill=kv_spill, kv_spill_host_gb=kv_spill_host_gb,
+            loop_profile=loop_profile, device=dev)
         if warmup:
             t0 = time.monotonic()
             engine.warmup()
@@ -167,7 +179,7 @@ def register_with_manager(server, manager_endpoint: str = "",
         log.info("receiver agent attached to sender %s", sender_ep)
 
 
-def main() -> None:
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="polyrl rollout server (PyTorch/CUDA)")
     p.add_argument("--model", default="qwen3-1.7b",
                    help="a preset name, or a local Hugging Face checkpoint "
@@ -177,7 +189,7 @@ def main() -> None:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=30000)
     p.add_argument("--advertise-host", default="127.0.0.1")
-    p.add_argument("--manager", default=None,
+    p.add_argument("--manager-endpoint", default=None,
                    help="host:port of the rollout manager to register with "
                         "(and to take weight pushes through)")
     p.add_argument("--transfer-streams", type=int, default=4,
@@ -228,10 +240,30 @@ def main() -> None:
                         "distribution-exact (0 = off)")
     p.add_argument("--spec-rounds", type=int, default=2,
                    help="speculation rounds per decode dispatch")
-    args = p.parse_args()
+    p.add_argument("--no-kv-ledger", action="store_true",
+                   help="disable the per-page KV ledger (the memory fields "
+                        "go absent from server_info; also disables the "
+                        "spill tier; engine output is the same either way)")
+    p.add_argument("--kv-cold-after-dispatches", type=int, default=256,
+                   help="idle age (decode dispatches) past which a resident "
+                        "KV page counts as cold")
+    p.add_argument("--no-kv-spill", action="store_true",
+                   help="disable the host-RAM KV spill tier (cold published "
+                        "pages stay on the card and capacity eviction "
+                        "destroys them)")
+    p.add_argument("--kv-spill-host-gb", type=float, default=4.0,
+                   help="host-side capacity of the KV spill tier, GB (pinned "
+                        "as pages spill)")
+    p.add_argument("--no-loop-profile", action="store_true",
+                   help="disable the engine-loop profiler (device_frac and "
+                        "the other loop fields go absent from server_info; "
+                        "sampled output is the same either way)")
+    return p.parse_args(argv)
 
-    logging.basicConfig(level=logging.INFO)
-    server = create_server(
+
+def server_from_args(args: argparse.Namespace):
+    """``create_server`` with the command line's settings."""
+    return create_server(
         args.model, device=args.device, host=args.host, port=args.port,
         advertise_host=args.advertise_host, dtype=args.dtype, seed=args.seed,
         prompt_buckets=args.prompt_buckets, max_slots=args.max_slots,
@@ -245,7 +277,18 @@ def main() -> None:
         weight_quant=args.weight_quant, backend=args.backend,
         warmup=args.warmup, prefill_chunk=args.prefill_chunk,
         spec_tokens=args.spec_tokens, spec_rounds=args.spec_rounds,
-        manager_endpoint=args.manager, transfer_streams=args.transfer_streams)
+        kv_ledger=not args.no_kv_ledger,
+        kv_cold_after_dispatches=args.kv_cold_after_dispatches,
+        kv_spill=not args.no_kv_spill, kv_spill_host_gb=args.kv_spill_host_gb,
+        loop_profile=not args.no_loop_profile,
+        manager_endpoint=args.manager_endpoint,
+        transfer_streams=args.transfer_streams)
+
+
+def main() -> None:
+    args = parse_args()
+    logging.basicConfig(level=logging.INFO)
+    server = server_from_args(args)
     log.info("rollout server on %s (%s)", server.endpoint, server.engine.device)
     try:
         while True:

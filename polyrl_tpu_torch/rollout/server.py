@@ -590,4 +590,11 @@ class RolloutServer:
             info["spec_emitted"] = eng.spec_emitted
             info["spec_dispatches"] = eng.spec_dispatches
             info["spec_accept_rate"] = round(eng.spec_accept_rate, 4)
+        # the flight deck (occupancy, page pressure, TTFT/TPOT tails, token
+        # reconciliation), the loop profiler's device/host split ({} when
+        # off) and the memory plane's tiers, spill and HBM truth ({} with
+        # the ledger off): flat keys the manager's stats poller forwards
+        info.update(eng.deck.server_info_fields())
+        info.update(eng.loop_profile_info())
+        info.update(eng.kv_memory_info())
         return info

@@ -191,7 +191,12 @@ def _build_rollout(cfg: RunConfig, mcfg, params, tokenizer, device,
         spec_rounds=r.spec_rounds, salvage_partials=r.salvage_partials,
         admit_wave=r.admit_wave, admit_reorder_window=r.admit_reorder_window,
         group_share=r.group_share, decode_group_share=r.decode_group_share,
-        group_preref_ttl_s=r.group_preref_ttl_s, seed=cfg.trainer.seed,
+        group_preref_ttl_s=r.group_preref_ttl_s, kv_ledger=r.kv_ledger,
+        kv_cold_after_dispatches=r.kv_cold_after_dispatches,
+        kv_spill=r.kv_spill, kv_spill_host_gb=r.kv_spill_host_gb,
+        kv_spill_high_watermark=r.kv_spill_high_watermark,
+        kv_spill_low_watermark=r.kv_spill_low_watermark,
+        loop_profile=r.loop_profile, seed=cfg.trainer.seed,
         device=device, **kwargs)
 
 

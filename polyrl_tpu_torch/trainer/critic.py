@@ -103,7 +103,7 @@ class StreamCritic:
         if mesh is not None or layers_fn is not None or packed_attn_fn is not None:
             raise NotImplementedError(
                 "meshes, pipeline stacks and the sequence-parallel packed "
-                "attention are not ported yet (ROADMAP A')")
+                "attention are not ported yet (ROADMAP A' 9)")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.attn_fn = attn_fn if attn_fn is not None else default_train_attention()

@@ -265,6 +265,9 @@ class StreamRLTrainer:
         # the balancer's local-generation budget (None until its first
         # answer: the manager's default applies)
         self._max_local_gen_s: float | None = None
+        # the last step record: the balancer's fleet occupancy and device
+        # fraction come from the pool's aggregation one step back
+        self._last_record: dict = {}
         self._profiler = None  # the open torch.profiler trace, if any
         self._profiled: list[int] = []
         self.profile_traces: list[str] = []  # traces written so far
@@ -847,15 +850,21 @@ class StreamRLTrainer:
         and transfer gauges, the balancer round trip with this step's walls
         (on the pipeline's producer lane when pipelined, its gauges then
         landing in the next step's record), the manager's /metrics scrape,
-        what the balance estimator saw and the pool's counters."""
+        what the balance estimator saw and the pool's counters. The
+        balancer's ``occupancy`` (fleet mean) and ``device_frac`` (fleet
+        minimum of the engines' loop profilers) are the previous step
+        record's ``engine/*`` aggregates."""
         metrics.update_gauge(self.rollout.fault_counters())
         timings = metrics.timings()
+        last = self._last_record
         stats = dict(
             step_time_s=step_time, trainer_bubble_s=state["bubble"],
             throughput=throughput,
             generate_s=float(timings.get("gen", 0.0)),
             update_s=float(timings.get("update_actor", 0.0))
-            + float(timings.get("update_critic", 0.0)))
+            + float(timings.get("update_critic", 0.0)),
+            occupancy=float(last.get("engine/occupancy", 0.0)),
+            device_frac=float(last.get("engine/device_frac", 0.0)))
         if pipeline is not None:
             pipeline.submit_step_stats(**stats)
         else:
@@ -941,6 +950,7 @@ class StreamRLTrainer:
                 # remote stream's per-request latency) for this step
                 metrics.merge_histograms(obs.drain_histograms())
                 record = metrics.as_dict()
+                self._last_record = record
                 history.append(record)
                 if self.logger is not None:
                     self.logger.log(record, step=self.global_step)

@@ -734,3 +734,78 @@ def test_cuda_spec_dispatch_graph_replay_equals_eager(cuda_device):
     assert cuda_build.LAUNCHES["paged_kv_write_fused"] == per
     assert cuda_build.LAUNCHES["paged_attention"] == per
     assert cuda_build.LAUNCHES["grouped_paged_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_spill_and_restore_while_decode_graphs_replay(cuda_device):
+    """The host spill tier on the card, behind decode dispatches replayed
+    from their CUDA graph on the compute stream: a published chain is
+    spilled (gather on the compute stream, device-to-host on the copy
+    stream), the gathered block's memory and the freed pages are
+    overwritten at once, the chain is restored into fresh pages, spilled
+    again into the same host buffers (the restore's copy still reading
+    them) and restored once more; the pages come back bitwise, the pools
+    keep their addresses and the decode graphs replay with no new
+    capture."""
+    from polyrl_tpu_torch.rollout.cb_engine import STREAM_END
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    eng, cfg = _small_engine(cuda_device, num_pages=96)
+    rng = np.random.default_rng(5)
+    q = eng.submit("pub", rng.integers(1, cfg.vocab_size, 64).tolist(),
+                   SamplingParams(temperature=0.0, max_new_tokens=4))
+    eng._drain_queue()
+    with eng._pool_lock:
+        eng._admit()
+        while eng._active.any():
+            eng._step_once()
+        eng._drain_emit_q()
+    items = []
+    while (item := q.get(timeout=5)) is not STREAM_END:
+        items.append(item)
+    assert items[-1]["finish_reason"] == "length"
+    entries = sorted(eng.prefix_cache.spill_candidates(), key=lambda e: e.page)
+    assert len(entries) == 3  # the prompt's full pages
+    kp, vp = eng._pools
+    ptrs = [t.data_ptr() for t in kp + vp]
+    want = [torch.stack([t[:, e.page] for t in kp + vp]).clone()
+            for e in entries]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=200)
+    for i in range(4):
+        eng.submit(f"d{i}", rng.integers(1, cfg.vocab_size, 20).tolist(), sp)
+    eng._drain_queue()
+    torch.cuda.synchronize()
+    with eng._pool_lock:
+        eng._admit()
+        eng._step_once()  # captures the ungrouped key
+        captures = eng.graph_captures
+        for round_ in range(2):
+            for _ in range(3):
+                eng._step_once()  # replays queued ahead of the spill
+            old = [e.page for e in entries]
+            assert eng._spill_pages(3, cold_only=False) == 3
+            assert all(e.spilled for e in entries)
+            # what would corrupt the copies: the gathered block's memory
+            # handed out again, and the freed pages written by a prefill
+            junk = [torch.full((3, 2 * cfg.num_layers) + tuple(kp[0][:, 0].shape),
+                               -3.0, dtype=kp[0].dtype, device=cuda_device)
+                    for _ in range(4)]
+            held = eng.allocator.alloc(3)
+            idx = torch.tensor(held, device=cuda_device)
+            for t in kp + vp:
+                t.index_fill_(1, idx, 5.0)
+            eng._step_once()
+            assert eng._restore_entries(entries)
+            eng.allocator.free(held)
+            assert not {e.page for e in entries} & set(old)
+            del junk
+        eng._step_once()
+        torch.cuda.synchronize()
+        assert eng.graph_captures == captures
+    assert [t.data_ptr() for t in kp + vp] == ptrs
+    for e, w in zip(entries, want):
+        assert torch.equal(torch.stack([t[:, e.page] for t in kp + vp]), w)
+    stats = eng.kvspill.stats()
+    assert stats["copy_batches"] == 2 and stats["resident_pages"] == 0
+    assert stats["pinned_bytes"] == 3 * want[0].numel() * want[0].element_size()
+    eng.stop()

@@ -289,3 +289,41 @@ def test_supervisor_respawns_and_replays_the_pool(stack):
         assert client.generate("sv1", PROMPT, GREEDY).success
     finally:
         sup.stop()
+
+
+# -- serve's flag -------------------------------------------------------------
+
+SERVE_ARGS = ["--model", "tiny", "--device", "cpu", "--dtype", "float32",
+              "--host", "127.0.0.1", "--port", "0", "--max-slots", "4",
+              "--page-size", "8", "--max-seq-len", "128", "--num-pages", "64",
+              "--prompt-buckets", "16", "32"]
+
+
+@pytest.mark.parametrize("flag", ["--manager-endpoint", "--manager"])
+def test_serve_registers_with_either_spelling_of_the_flag(flag):
+    """``serve --manager-endpoint host:port`` (the reference's flag, as its
+    launcher passes it) registers with the manager, and so does
+    ``--manager`` (argparse's prefix of the one flag); the server's engine
+    runs every plane by default."""
+    from polyrl_tpu_torch.rollout import serve
+
+    proc, port = spawn_rollout_manager("127.0.0.1:0", extra_args=FAST_ARGS)
+    srv = None
+    try:
+        ep = f"127.0.0.1:{port}"
+        mgr = ManagerClient(ep)
+        mgr.wait_healthy()
+        args = serve.parse_args([flag, ep] + SERVE_ARGS)
+        assert args.manager_endpoint == ep
+        srv = serve.server_from_args(args)
+        assert srv.manager_endpoint == ep
+        _wait(lambda: _instance(mgr, srv.endpoint) is not None,
+              msg="the server registered")
+        eng = srv.engine
+        for plane in ("kvledger", "kvspill", "deck", "profiler"):
+            assert getattr(eng, plane) is not None, plane
+    finally:
+        if srv is not None:
+            srv.stop()
+        proc.kill()
+        proc.wait(timeout=10)

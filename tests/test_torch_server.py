@@ -211,3 +211,40 @@ def test_step_backend_round_trip():
         assert again[0] == results[0][0]
     finally:
         srv.stop()
+
+
+@pytest.mark.parametrize("flags,off", [
+    ((), ()),
+    (("--no-kv-spill",), ("kvspill",)),
+    (("--no-kv-ledger",), ("kvledger", "kvspill")),
+    (("--no-loop-profile",), ("profiler",)),
+], ids=["defaults", "no-kv-spill", "no-kv-ledger", "no-loop-profile"])
+def test_serve_plane_flags(flags, off):
+    """``serve`` runs the page ledger, the spill tier, the flight deck and
+    the loop profiler by default, as the reference does; each ``--no-*``
+    flag turns its plane off (``--no-kv-ledger`` the spill tier too), and
+    the ledger's knobs reach the engine."""
+    from polyrl_tpu_torch.rollout import serve
+
+    args = serve.parse_args(
+        ["--model", "tiny", "--device", "cpu", "--dtype", "float32",
+         "--host", "127.0.0.1", "--port", "0", "--max-slots", "2",
+         "--page-size", "8", "--max-seq-len", "64", "--num-pages", "16",
+         "--prompt-buckets", "16", "--kv-cold-after-dispatches", "12",
+         "--kv-spill-host-gb", "0.5"] + list(flags))
+    srv = serve.server_from_args(args)
+    try:
+        eng = srv.engine
+        for plane in ("kvledger", "kvspill", "deck", "profiler"):
+            assert (getattr(eng, plane) is None) == (plane in off), plane
+        if eng.kvledger is not None:
+            assert eng.kvledger.cold_after == 12
+        if eng.kvspill is not None:
+            assert eng.kvspill.capacity_bytes == int(0.5e9)
+        info = srv.server_info()
+        assert ("device_frac" in info) == ("profiler" not in off)
+        assert ("kv_cold_page_frac" in info) == ("kvledger" not in off)
+        assert "occupancy" in info
+    finally:
+        srv.stop()
+

@@ -576,3 +576,44 @@ def test_example_config_rollout_keys_load_and_step_backend_builds():
         for fn in cleanup:
             fn()
     assert len(history) == 1 and trainer.rollout.weight_version == 2
+
+
+def test_build_trainer_engine_runs_every_plane_by_default():
+    """``build_trainer``'s colocated CB engine runs the page ledger, the
+    spill tier, the flight deck and the loop profiler by default, as the
+    reference's does, with the ``rollout`` section's knobs; the off
+    switches reach it too."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.train import build_trainer
+
+    small = ["device=cpu", "model.preset=tiny", "model.dtype=float32",
+             "rollout.prompt_buckets=16", "rollout.page_size=8",
+             "rollout.max_seq_len=64", "rollout.num_pages=64",
+             "rollout.max_slots=8", "trainer.train_batch_size=2",
+             "trainer.rollout_n=2", "trainer.ppo_mini_batch_size=4",
+             "trainer.micro_batch_size=4", "trainer.min_stream_batch_size=4",
+             "trainer.max_prompt_length=16", "trainer.max_response_length=8",
+             "trainer.total_steps=1", "reward.num_workers=1"]
+    for extra, off in (
+            (["rollout.kv_cold_after_dispatches=32",
+              "rollout.kv_spill_host_gb=0.25",
+              "rollout.kv_spill_high_watermark=0.9",
+              "rollout.kv_spill_low_watermark=0.5"], ()),
+            (["rollout.kv_ledger=false", "rollout.loop_profile=false"],
+             ("kvledger", "kvspill", "profiler"))):
+        cleanup = []
+        trainer = build_trainer(load_config(None, small + extra), cleanup)
+        try:
+            eng = trainer.rollout
+            for plane in ("kvledger", "kvspill", "deck", "profiler"):
+                assert (getattr(eng, plane) is None) == (plane in off), plane
+            if not off:
+                assert eng.kvledger.cold_after == 32
+                assert eng.kvspill.capacity_bytes == int(0.25e9)
+                assert (eng.kv_spill_high_watermark,
+                        eng.kv_spill_low_watermark) == (0.9, 0.5)
+        finally:
+            eng.stop()
+            for fn in reversed(cleanup):
+                fn()
+
