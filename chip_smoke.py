@@ -288,10 +288,39 @@ when CUDA is unavailable or any phase fails. Phases:
               the next step's balancer round passes them on, and a non-zero
               one of each reaches the estimator. Any failure (the
               manager's build, a server's death, a push) fails the smoke.
-13. result -- the card's name and power limit, a ``{"kernels": [...]}``
+              The disagg phase also reads the server's ``/statusz``
+              (memory, engine and its loop block) and ``/metrics``
+              (``parse_prometheus_text``).
+13. hybrid -- ``rollout.colocated_local=true`` beside a server subprocess
+              (the train phase's configuration, traced): the local engine
+              serves in the trainer's process and takes each push in
+              process; finite losses, no dropped group, the local engine
+              at 1 + steps bitwise the actor, its KV released (a release
+              returns at least the pool's bytes), ``max_local_gen_s`` and
+              ``critpath/*`` in every record, a 0.05 s window's stream
+              aborted into continuation on the server at full length,
+              greedy local against the server, a GRPO group on each
+              engine; launches: the decode kernels in both processes, K4
+              in the trainer's. Logs the local share, recaptures, walls,
+              bubble and goodput against the disagg and train phases.
+14. lora_delta -- ``trainer.weight_sync=lora_delta`` (rank 16) to a
+              ``--lora-rank 16`` server: each push the adapter tree's
+              bytes, installed in place (bitwise the pushed adapters, every
+              leaf at its address, no recapture), the bases the actor's;
+              greedy through the manager against an in-process engine on
+              the wrapped tree and dense f32 on ``merge_lora``; the LoRA
+              decode step against bf16 by replay.
+15. result -- the card's name and power limit, a ``{"kernels": [...]}``
               line (the launches of each kernel's paths: serve or the A/B,
-              memory, train, and disagg), and last ``{"ok": true, "device":
-              {...}}``.
+              memory, train, disagg, hybrid and lora_delta), and last
+              ``{"ok": true, "device": {...}}``.
+
+The train, disagg, hybrid and lora_delta phases also gate the
+observability planes: every record's ``goodput/*`` (``attributed_frac``
+in [0.95, 1.05]) and ``training/*``; the train phase polls the trainer's
+``/statusz`` through the fit, checks that a healthy fit dumps no
+flight-recorder bundle and that a manual one holds the CUDA memory
+snapshot, and logs the planes' host ms a step.
 """
 
 from __future__ import annotations
@@ -304,6 +333,7 @@ import http.client
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1162,6 +1192,44 @@ def post(port: int, path: str, body: dict | None = None) -> dict:
     conn.close()
     check(resp.status == 200, f"{path}: HTTP {resp.status}")
     return data
+
+
+def get_text(port: int, path: str) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    data = resp.read().decode()
+    conn.close()
+    check(resp.status == 200, f"{path}: HTTP {resp.status}")
+    return data
+
+
+def server_planes(port: int, label: str) -> dict:
+    """A rollout server's /statusz (the memory section, the engine
+    section's flight deck and loop block) and its /metrics, parsed with the
+    port's ``parse_prometheus_text``."""
+    from polyrl_tpu_torch import obs
+    from polyrl_tpu_torch.obs import statusz
+
+    sz = post(port, "/statusz", None)
+    eng_ = sz["engine"]
+    check(sz["schema"] == statusz.SCHEMA and sz["role"] == "rollout"
+          and all(k_ in sz for k_ in statusz.REQUIRED_SECTIONS),
+          f"{label}: the server's /statusz misses sections")
+    check(sz["memory"].get("reconcile", {}).get("attributed_frac") == 1.0
+          and sz["memory"].get("roles"),
+          f"{label}: the server's /statusz memory section: {sz['memory']}")
+    check(eng_.get("loop", {}).get("enabled") is True
+          and {"tokens", "requests", "occupancy", "pages"} <= set(eng_),
+          f"{label}: the server's /statusz engine section: {sorted(eng_)}")
+    text = get_text(port, "/metrics")
+    metrics = obs.parse_prometheus_text(text)
+    check(metrics.get("polyrl_total_tokens_served", 0) > 0
+          and "polyrl_weight_version" in metrics,
+          f"{label}: the server's /metrics: {text[:300]}")
+    return dict(sections=sorted(sz), loop_device_frac=eng_["loop"].get(
+        "window", {}).get("device_frac"), metrics=len(metrics),
+        attributed=eng_["tokens"].get("attributed_frac"))
 
 
 def run_requests(port: int, bodies: list[dict]) -> list[dict]:
@@ -2118,11 +2186,109 @@ def plain_attention(q, k, v, attn_mask):
     return flash.flash_attention_train_ref(q, k, v, attn_mask)
 
 
+# every step record's goodput split must explain its wall to within 5%
+ATTRIBUTED_FRAC = (0.95, 1.05)
+GOODPUT_PHASES = ("generate", "bubble", "process", "update", "weight_push",
+                  "salvage_resume", "manager_rtt", "housekeeping", "other")
+TRAINING_KEYS = ("training/entropy", "training/approx_kl",
+                 "training/degenerate_group_frac",
+                 "training/effective_batch_frac", "training/adv_abs/p50",
+                 "training/response_len/max", "training/staleness_known_frac")
+STATUSZ_POLL_S = 0.5
+
+
+def plane_gates(history: list[dict], label: str,
+                smoke_s: list[float] | None = None) -> None:
+    """Every step record carries the goodput split, with its
+    ``attributed_frac`` in ATTRIBUTED_FRAC, and the health ledger's
+    ``training/*`` keys. ``smoke_s`` is, per step, the wall this script's
+    own gates spent inside the step (a wrapper's extra forward and host
+    copies), which no trainer phase can hold: it counts as attributed."""
+    lo, hi = ATTRIBUTED_FRAC
+    for i, rec in enumerate(history, 1):
+        missing = [k_ for k_ in ([f"goodput/{p_}_s" for p_ in GOODPUT_PHASES]
+                                 + ["goodput/step_wall_s", "goodput/mfu"]
+                                 + list(TRAINING_KEYS)) if k_ not in rec]
+        check(not missing, f"{label} step {i}: record lacks {missing}")
+        extra = smoke_s[i - 1] if smoke_s else 0.0
+        frac = (rec["goodput/attributed_frac"]
+                + extra / rec["goodput/step_wall_s"])
+        check(lo <= frac <= hi, f"{label} step {i}: goodput/attributed_frac "
+              f"{frac:.4f} (with {extra:.3f} s of the smoke's own gates) "
+              f"outside {ATTRIBUTED_FRAC}: {goodput_split(rec)}")
+
+
+def goodput_split(rec: dict) -> str:
+    return (", ".join(f"{p_} {rec[f'goodput/{p_}_s']:.2f}" for p_ in GOODPUT_PHASES
+                      if rec[f"goodput/{p_}_s"] >= 0.005)
+            + f" of {rec['goodput/step_wall_s']:.2f} s (attributed "
+            f"{rec['goodput/attributed_frac']:.4f}, mfu {rec['goodput/mfu']:.4f})")
+
+
+def plane_timers(trainer) -> list[float]:
+    """Host ms a step of the goodput and health planes (``account``,
+    ``observe_ibatch`` and ``finalize_step``, wrapped on the instances):
+    one entry per finished step."""
+    acc = [0.0]
+    steps: list[float] = []
+    health, ledger = trainer._health, trainer._goodput
+
+    def timed(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[0] += time.perf_counter() - t0
+        return run
+
+    health.observe_ibatch = timed(health.observe_ibatch)
+    ledger.account = timed(ledger.account)
+    finalize = timed(health.finalize_step)
+
+    def finalize_step(step, metrics=None):
+        out = finalize(step, metrics)
+        steps.append(acc[0] * 1e3)
+        acc[0] = 0.0
+        return out
+
+    health.finalize_step = finalize_step
+    return steps
+
+
+def statusz_poller(endpoint: str) -> tuple:
+    """Poll ``/statusz`` on its own thread every STATUSZ_POLL_S; returns
+    (stop event, snapshots, errors, thread)."""
+    import urllib.request
+
+    stop, snaps, errs = threading.Event(), [], []
+
+    def run():
+        try:
+            while not stop.is_set():
+                with urllib.request.urlopen(f"http://{endpoint}/statusz",
+                                            timeout=30) as r:
+                    snaps.append(json.loads(r.read()))
+                stop.wait(STATUSZ_POLL_S)
+        except BaseException as exc:  # noqa: BLE001 -- checked by the caller
+            errs.append(exc)
+
+    t = threading.Thread(target=run, name="statusz-poll", daemon=True)
+    t.start()
+    return stop, snaps, errs, t
+
+
 def train_phase(dev) -> dict:
     from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.obs import statusz
+    from polyrl_tpu_torch.obs.recorder import MEMORY_SNAPSHOT
     from polyrl_tpu_torch.train import build_trainer
 
-    cfg = load_config(None, TRAIN_OVERRIDES)
+    run_dir = tempfile.mkdtemp(prefix="train-obs-")
+    cfg = load_config(None, TRAIN_OVERRIDES + [
+        "obs.statusz=true", "obs.recorder=true",
+        "logging.backends=[console,jsonl]",
+        f"logging.path={run_dir}/metrics.jsonl"])
     torch.cuda.reset_peak_memory_stats(dev)
     cleanup: list = []
     t0 = time.monotonic()
@@ -2142,6 +2308,7 @@ def train_phase(dev) -> dict:
             out = process(ibatch, metrics)
             if step1:
                 return out
+            t_gate = time.monotonic()
             mask = np.asarray(out["response_mask"]) > 0
             gap = np.abs(np.asarray(out["old_log_probs"])
                          - np.asarray(out["rollout_log_probs"]))[mask]
@@ -2162,12 +2329,20 @@ def train_phase(dev) -> dict:
                          gap_mean=float(gap.mean()), bad_max=float(bad_gap.max()),
                          bad_mean=float(bad_gap.mean()), tokens=int(mask.sum()),
                          weights=_tree_map(host_copy, actor.params))
+            step1["gate_s"] = time.monotonic() - t_gate
             return out
 
         trainer._process_ibatch = first_ibatch_gates
+        plane_ms = plane_timers(trainer)
+        stop_poll, snaps, poll_errs, poller = statusz_poller(
+            trainer._statusz.endpoint)
         cuda_build.reset_launch_counts()
         t_fit = time.monotonic()
-        history = trainer.fit()
+        try:
+            history = trainer.fit()
+        finally:
+            stop_poll.set()
+            poller.join(timeout=60)
         torch.cuda.synchronize()
         fit_wall = time.monotonic() - t_fit
         launches = dict(cuda_build.LAUNCHES)
@@ -2190,6 +2365,33 @@ def train_phase(dev) -> dict:
                   f"the engine's {name} differs from the actor's after the push")
         for name in TRAIN_KERNELS:
             check(launches[name] > 0, f"{name} was not launched in the train phase")
+        # the observability planes: the goodput and health keys in every
+        # record; /statusz answered during the fit; a healthy fit dumps no
+        # bundle, a manual dump carries the CUDA memory snapshot
+        plane_gates(history, "train", [step1["gate_s"], 0.0])
+        check(not poll_errs, f"train: polling /statusz failed: {poll_errs}")
+        mid = [s_ for s_ in snaps if s_["step"] and s_["goodput"].get("steps")]
+        check(mid and all(all(k_ in s_ for k_ in statusz.REQUIRED_SECTIONS)
+                          for s_ in snaps)
+              and mid[0]["training"]["steps"] >= 1
+              and mid[0]["schema"] == statusz.SCHEMA,
+              f"train: /statusz during the fit: {len(snaps)} snapshots, "
+              f"{len(mid)} after a step")
+        final_snap = trainer.statusz_snapshot()
+        check(final_snap["goodput"]["steps"] == 2
+              and final_snap["training"]["steps"] == 2,
+              "train: /statusz after the fit does not count 2 steps")
+        rec_ = trainer._recorder
+        check(not rec_.bundle_paths and rec_.anomalies == 0,
+              f"train: a healthy fit dumped bundles {rec_.bundle_paths}")
+        bundle = rec_.dump("manual")
+        check(bundle is not None and os.path.isfile(
+            os.path.join(bundle, MEMORY_SNAPSHOT)),
+              "train: the manual bundle has no CUDA memory snapshot")
+        with open(f"{run_dir}/metrics.jsonl") as f:
+            logged = [json.loads(x) for x in f]
+        check(len(logged) == 2 and logged[-1]["obs/log_errors"] == 0,
+              "train: the jsonl logger missed records or counted errors")
         moved = sum(int((a.detach() != r).sum()) for (_, a), (_, r) in
                     zip(_leaves(actor.params), _leaves(trainer.ref_policy.params)))
         n_params = sum(p.numel() for _, p in _leaves(actor.params))
@@ -2233,16 +2435,29 @@ def train_phase(dev) -> dict:
                 f"kl_loss {rec['actor/kl_loss']:.3g}, grad_norm "
                 f"{rec['actor/grad_norm']:.4f}, reward/mean {rec['reward/mean']:.3f}")
         log("train: " + engine_line(engine))
+        for i, rec in enumerate(history, 1):
+            log(f"train: step {i} goodput: {goodput_split(rec)}"
+                + (f" (the smoke's step-1 gates {step1['gate_s']:.2f} s)"
+                   if i == 1 else "") + "; training/ "
+                f"entropy {rec['training/entropy']:.4f}, degenerate groups "
+                f"{rec['training/degenerate_group_frac']:.3f}; the planes' "
+                f"host ms {plane_ms[i - 1]:.3f}")
+        log(f"train: /statusz polled {len(snaps)} times during the fit "
+            f"({len(mid)} after step 1; sections {sorted(snaps[-1])}); the "
+            f"manual bundle {sorted(os.listdir(bundle))}, memory snapshot "
+            f"{os.path.getsize(os.path.join(bundle, MEMORY_SNAPSHOT)) / 1e6:.2f} MB")
         log(f"train: fit wall {fit_wall:.1f} s; peak memory {peak_gb:.2f} GB "
             f"(torch.cuda.max_memory_allocated); {moved} of {n_params} weights "
             f"moved from the reference copy; main-path launches "
             f"{json.dumps(launches)}; the gates' own launches "
             f"{json.dumps(gate_launches)}")
         return dict(launches=launches, history=history, peak_gb=peak_gb,
-                    decode_dispatches=engine.decode_dispatches)
+                    decode_dispatches=engine.decode_dispatches,
+                    plane_ms=plane_ms)
     finally:
         for fn in reversed(cleanup):
             fn()
+        shutil.rmtree(run_dir, ignore_errors=True)
 
 
 def engine_line(engine) -> str:
@@ -2942,13 +3157,15 @@ def dequantized_f32(tree):
     return tree.float()
 
 
-def quant_decode_ab(dev, cfg, trees: dict) -> dict:
+def quant_decode_ab(dev, cfg, trees: dict, tag: str = "quant") -> dict:
     """The decode step (the fused route) captured as a CUDA graph once per
-    weight tree (bf16, int8) at the serving tables, on the same pools of
-    random K/V: each replay bitwise its eager step on the live slots, the
-    capture's graph-pool growth logged; then AB_STEPS replays per tree in
-    turns (bf16, int8, int8, bf16) with wall ms per step, and PROF_STEPS
-    more per tree under torch.profiler for kernels and device ms."""
+    weight tree (two: bf16 and int8, or bf16 and LoRA-wrapped) at the
+    serving tables, on the same pools of random K/V: each replay bitwise
+    its eager step on the live slots, the capture's graph-pool growth
+    logged; then AB_STEPS replays per tree in turns (a, b, b, a) with wall
+    ms per step, and PROF_STEPS more per tree under torch.profiler for
+    kernels and device ms."""
+    a_, b_ = trees
     table, lens, _ = serving_tables(dev)
     active = lens > 0
     pools = decoder.make_paged_pools(cfg, int(table.max()) + 1, PS, device=dev)
@@ -2980,8 +3197,8 @@ def quant_decode_ab(dev, cfg, trees: dict) -> dict:
         graphs[name] = (graph, rec,
                         (torch.cuda.max_memory_allocated(dev) - base) / 1e9)
         outs[name] = torch.log_softmax(out[active].float(), dim=-1)
-    gap = (outs["int8"] - outs["bf16"]).abs().max().item()
-    agree = (outs["int8"].argmax(-1) == outs["bf16"].argmax(-1)).float().mean().item()
+    gap = (outs[b_] - outs[a_]).abs().max().item()
+    agree = (outs[b_].argmax(-1) == outs[a_].argmax(-1)).float().mean().item()
     del outs
 
     def replay(name):
@@ -2990,7 +3207,7 @@ def quant_decode_ab(dev, cfg, trees: dict) -> dict:
 
     walls = {n: [] for n in trees}
     launches = {n: dict.fromkeys(cuda_build.LAUNCHES, 0) for n in trees}
-    for name in ("bf16", "int8", "int8", "bf16"):
+    for name in (a_, b_, b_, a_):
         cuda_build.reset_launch_counts()
         for _ in range(AB_STEPS // 2):
             torch.cuda.synchronize()
@@ -3008,15 +3225,15 @@ def quant_decode_ab(dev, cfg, trees: dict) -> dict:
         w = sorted(walls[name])
         out[name] = dict(wall_ms=statistics.median(w), device_ms=pr["device_ms"],
                          kernels=pr["kernels"], pool_gb=graphs[name][2])
-        log(f"quant decode a/b {name} (graph replay): wall ms per step median "
+        log(f"{tag} decode a/b {name} (graph replay): wall ms per step median "
             f"{out[name]['wall_ms']:.2f} (min {w[0]:.2f}, max {w[-1]:.2f}; "
             f"{len(w)} steps), device ms per step {pr['device_ms']:.3f}, kernels "
             f"per step {pr['kernels']:.1f} (+ {pr['copies']:.1f} copies/sets); "
             f"the capture grew the allocation by {graphs[name][2]:.3f} GB "
             f"(graph pool peak)")
-    log(f"quant decode a/b: int8 against bf16 log-softmax of the live slots: "
-        f"max |diff| {gap:.4f} nats, argmax agreement {agree:.3f} (quantization "
-        f"error, not gated here)")
+    log(f"{tag} decode a/b: {b_} against {a_} log-softmax of the live slots: "
+        f"max |diff| {gap:.4f} nats, argmax agreement {agree:.3f} (not gated "
+        f"here)")
     del graphs
     return out
 
@@ -4525,6 +4742,7 @@ def disagg_phase(dev, trained: dict) -> dict:
                               {"temperature": 0.0, "max_new_tokens": DISAGG_GREEDY})
         check(served.success, f"disagg greedy: {served.error}")
         info = post(port, "/get_server_info", None)
+        planes = server_planes(port, "disagg")
         server_launches = {k_: info[f"kernel_launches/{k_}"] - info0[f"kernel_launches/{k_}"]
                            for k_ in SERVE_KERNELS}
         trainer_launches = dict(cuda_build.LAUNCHES)
@@ -4587,8 +4805,10 @@ def disagg_phase(dev, trained: dict) -> dict:
         check(len(gen) == n_steps, f"disagg: {len(gen)} streams for {n_steps} steps")
         int8 = disagg_int8_push(dev, remote, iface, sup.endpoint, params, mcfg,
                                 procs)
+        plane_gates(history, "disagg")
         return dict(history=history, fit_wall=fit_wall, pushes=pushes,
                     gen=gen, int8=int8, feed=feed, streams=streams,
+                    planes=planes,
                     balance=dict(seen=seen, trends=remote.balance.trends()),
                     server_launches=server_launches,
                     trainer_launches=trainer_launches, trainer_peak=trainer_peak,
@@ -4603,17 +4823,7 @@ def disagg_phase(dev, trained: dict) -> dict:
                                     rec.get("perf/rollout_throughput_tok_s", float("nan")))
                                    for rec in trained["history"]])
     finally:
-        for proc, port, _ in procs:
-            if proc.poll() is not None:
-                continue
-            try:
-                post(port, "/shutdown", {})
-                proc.wait(timeout=30)
-            except Exception:  # noqa: BLE001 -- killed below
-                pass
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=30)
+        stop_servers(procs)
         for fn in reversed(cleanup):
             fn()
 
@@ -4780,6 +4990,15 @@ def disagg_lines(out: dict, smi: str) -> list[str]:
         f"logprobs {'bitwise' if q['logprobs_bitwise'] else 'not bitwise'}; "
         f"{q['dense_err']:.4f} nats from dense f32 on the dequantized weights; "
         f"int8 server peak {q['peak']:.2f} GB")
+    pl = out["planes"]
+    lines.append(
+        f"disagg ({smi}, this run): the server's /statusz sections "
+        f"{pl['sections']}; its loop window device_frac "
+        f"{pl['loop_device_frac']}, token attribution {pl['attributed']}; "
+        f"/metrics parsed {pl['metrics']} series")
+    for i, rec in enumerate(out["history"], 1):
+        lines.append(f"disagg ({smi}, this run): step {i} goodput: "
+                     f"{goodput_split(rec)}")
     return lines
 
 
@@ -5341,6 +5560,578 @@ def memory_lines(m: dict, smi: str) -> list[str]:
     return lines
 
 
+# -- the hybrid colocated-local rollout (rollout.colocated_local) ------------
+
+HYBRID_GREEDY = 64
+HYBRID_WINDOW_S = 0.05    # the abort stream's local-generation window
+HYBRID_ABORT_NEW = 128    # its tokens a request
+
+
+def hybrid_phase(dev, trained: dict, disagg: dict) -> dict:
+    """The hybrid: ``build_trainer`` at the train phase's configuration with
+    ``rollout.mode=disaggregated rollout.colocated_local=true
+    obs.trace=true``: an in-process ``CBEngine`` behind a ``RolloutServer``
+    on 127.0.0.1 registered as a local, time-sliced instance, beside a
+    remote server subprocess as the disagg phase starts one. Gates: finite
+    losses and grad norms > 0; no dropped group; the local engine served
+    tokens in the fit and both engines in the short window's stream (a
+    stream that starts right after a push finds the server still out of
+    the routing set until the push has crossed the wire, so the fit's
+    split is logged, not gated); the local engine at version 1 + steps with
+    the actor's weights bitwise after the last push (in-process swap); its
+    KV released after the fit, and a resume/release round trip returning
+    at least the pool's bytes; ``training/max_local_gen_s`` > 0 and
+    ``critpath/bottleneck`` in every record, with the goodput and health
+    keys; a stream with a HYBRID_WINDOW_S window aborts the local engine
+    mid-batch and every group still completes at full length; a greedy
+    request on the local engine after the fit equal to the same request on
+    the server (or parting only at a near-tie) and within DENSE_LOGP_TOL of
+    the dense f32 forward; launches counted from zero: the fused prologue,
+    K2 and K3 in the trainer's process and in the server's, K4 forward and
+    backward in the trainer's. Logs the share served locally, the local
+    engine's recapture seconds per generation phase, step walls and bubble
+    against the disagg and train phases, ``max_local_gen_s`` and the
+    goodput split of each step, and both processes' peaks."""
+    from polyrl_tpu_torch import obs
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.manager.supervisor import ManagerSupervisor
+    from polyrl_tpu_torch.obs.critical_path import SEGMENTS
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+    from polyrl_tpu_torch.train import build_trainer
+
+    sup = ManagerSupervisor(bind_addr="127.0.0.1:0", extra_args=[
+        "--health-check-interval-s", "0.5", "--stats-poll-interval-s", "0.5"])
+    sup.start()
+    cleanup: list = [sup.stop]
+    procs: list = []
+    try:
+        cfg = load_config(None, TRAIN_OVERRIDES + [
+            "rollout.mode=disaggregated", "rollout.colocated_local=true",
+            f"rollout.manager_endpoint={sup.endpoint}",
+            # the server's buckets: a prompt of more than a page can reach
+            # the local engine (the grouped decode's shared prefix)
+            "rollout.prompt_buckets=[64,128]",
+            "rollout.transfer_streams=4", "obs.trace=true",
+            "obs.trace_buffer=65536", f"device={dev.type}"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+        remote = trainer.rollout
+        local = remote.local_server
+        eng = local.engine
+        mgr = remote.manager
+        port, server_log, _ = spawn_server(
+            dev, mgr, sup.endpoint, ["--num-pages", str(DISAGG_PAGES)], procs)
+        info0 = post(port, "/get_server_info", None)
+        # each release of the local engine's KV: the memory it returned and
+        # its capture seconds so far (the recaptures of each phase)
+        releases: list[dict] = []
+        release = eng.release_memory
+
+        def timed_release():
+            had = eng._pools is not None
+            before = torch.cuda.memory_allocated(dev)
+            release()
+            releases.append(dict(
+                freed=had and eng._pools is None,
+                drop_gb=(before - torch.cuda.memory_allocated(dev)) / 1e9,
+                capture_s=eng.graph_capture_s, captures=eng.graph_captures))
+
+        eng.release_memory = timed_release
+        plane_ms = plane_timers(trainer)
+        served0 = eng.total_tokens_served
+        cuda_build.reset_launch_counts()
+        t0 = time.monotonic()
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        fit_wall = time.monotonic() - t0
+        n_steps = cfg.trainer.total_steps
+        check(len(history) == n_steps, "the hybrid fit did not finish")
+        for i, rec in enumerate(history, 1):
+            for key in ("actor/pg_loss", "actor/kl_loss", "actor/grad_norm"):
+                check(key in rec and np.isfinite(rec[key]),
+                      f"hybrid step {i}: {key} missing or not finite")
+            check(rec["actor/grad_norm"] > 0, f"hybrid step {i}: zero gradient")
+            check(rec.get("training/max_local_gen_s", 0.0) > 0,
+                  f"hybrid step {i}: no local-generation budget")
+            check("critpath/bottleneck" in rec,
+                  f"hybrid step {i}: no critical path with tracing on")
+        plane_gates(history, "hybrid")
+        check(remote.dropped_groups == 0,
+              f"hybrid: {remote.dropped_groups} groups dropped")
+        # the fit's split between the engines (the server is out of the
+        # routing set while a push crosses the wire, so a stream that starts
+        # right after the push may land whole on the local engine)
+        local_tokens = eng.total_tokens_served - served0
+        info = post(port, "/get_server_info", None)
+        server_tokens = info["total_tokens_served"] - info0["total_tokens_served"]
+        check(local_tokens > 0, "hybrid: the local engine served nothing in "
+              "the fit")
+        check(eng.weight_version == 1 + n_steps == remote.weight_version,
+              f"hybrid: the local engine at v{eng.weight_version}, the "
+              f"rollout at v{remote.weight_version}, not 1 + {n_steps}")
+        for (name, a), (_, e) in zip(_leaves(trainer.actor.export_params()),
+                                     _leaves(eng.params)):
+            check(torch.equal(a.detach(), e),
+                  f"hybrid: the local engine's {name} is not the actor's")
+        check(eng._pools is None, "hybrid: the local KV pool was not released "
+              "after the last generation phase")
+        trainer_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        fit_releases = list(releases)
+
+        # the server at the last push's version and back in the routing set
+        # before the next stream (the push's wire runs after the fit)
+        final = remote.weight_version
+        server_ep = f"127.0.0.1:{port}"
+        t3 = time.monotonic()
+        while not any(i["endpoint"] == server_ep and i["active"]
+                      and i.get("weight_version", final) >= final
+                      for i in mgr.get_instances_status()["instances"]):
+            check(time.monotonic() - t3 < 120, "hybrid: the server never came "
+                  f"back at v{final}: {_tail(server_log)}")
+            time.sleep(0.1)
+        # a window that ends mid-batch: the manager aborts the local engine
+        # and its requests continue on the server from their salvaged tokens
+        rng = np.random.default_rng(3)
+        vocab = trainer.actor.model_cfg.vocab_size
+        abort_prompts = [rng.integers(1, vocab, 64).tolist()] * 8 + [
+            rng.integers(1, vocab, 64).tolist()] * 8
+        local0, salv0 = eng.total_tokens_served, eng.tokens_salvaged
+        dropped0 = remote.dropped_groups
+        t_win = time.monotonic()
+        got = [r for chunk in remote.generate_stream(
+            abort_prompts, SamplingParams(temperature=1.0,
+                                          max_new_tokens=HYBRID_ABORT_NEW,
+                                          stop_token_ids=()),
+            group_size=8, min_emit=16, max_local_gen_s=HYBRID_WINDOW_S)
+            for _, r in chunk]
+        abort_local = eng.total_tokens_served - local0
+        check(len(got) == 16 and remote.dropped_groups == dropped0
+              and all(len(r.output_token_ids) == HYBRID_ABORT_NEW for r in got),
+              f"hybrid: the {HYBRID_WINDOW_S} s window's stream: {len(got)} "
+              f"results, lengths {sorted({len(r.output_token_ids) for r in got})}")
+        abort_server = (post(port, "/get_server_info", None)["total_tokens_served"]
+                        - info["total_tokens_served"])
+        check(abort_local > 0 and abort_server > 0,
+              f"hybrid: the short window's stream: {abort_local} tokens local, "
+              f"{abort_server} on the server (both must serve)")
+        window_s = time.monotonic() - t_win
+        # the window's timer releases the KV on its own thread, once the
+        # aborted requests have drained: wait for it (bounded)
+        t4 = time.monotonic()
+        while eng._pools is not None and time.monotonic() - t4 < 60:
+            time.sleep(0.05)
+        release_wait_s = time.monotonic() - t4
+        check(eng._pools is None, "hybrid: the KV was not released after the "
+              "window's stream")
+
+        # the KV round trip, measured with nothing else running
+        torch.cuda.synchronize()
+        eng.resume_memory()
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for t in eng._pools[0] + eng._pools[1])
+        try:
+            # greedy on the local engine against the server
+            prompt = rng.integers(1, vocab, 40).tolist()
+            mine = greedy_run(local.port, prompt, HYBRID_GREEDY, "hgreedy-l")
+            theirs = greedy_run(port, prompt, HYBRID_GREEDY, "hgreedy-r")
+            # a GRPO group on a prompt longer than a page, on each engine:
+            # grouped decode (K3) on both paths (the fit's 64-token prompts
+            # fill no shared page)
+            group_prompt = rng.integers(1, vocab, 100).tolist()
+            for p_, tag in ((local.port, "l"), (port, "r")):
+                run_requests(p_, [{
+                    "rid": f"hg{tag}{i}", "input_ids": group_prompt,
+                    "group_id": f"hgrp{tag}", "group_size": 8,
+                    "sampling_params": {"temperature": 1.0,
+                                        "max_new_tokens": 64}}
+                    for i in range(8)])
+        finally:
+            # what the engine holds now (the pools, the graphs captured on
+            # the requests above) against what it holds after the release
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev)
+            release()
+        torch.cuda.synchronize()
+        drop = held - torch.cuda.memory_allocated(dev)
+        check(drop >= pool_bytes, f"hybrid: release returned {drop / 1e9:.3f} "
+              f"GB, not the pool's {pool_bytes / 1e9:.3f} GB")
+        params32 = f32_copy(trainer.actor.export_params())
+        mcfg = trainer.actor.model_cfg
+        gaps = top2_gaps(params32, mcfg, prompt, theirs["tokens"], dev)
+        ok, first, tie, gap = agrees_until_tie(mine["tokens"], theirs["tokens"],
+                                               gaps)
+        check(ok, f"hybrid greedy: the local engine parts from the server at "
+              f"{first} (first near-tie {tie}, f32 gap {gap:.4f})")
+        err = max(dense_f32_gate(params32, mcfg, prompt, o["tokens"],
+                                 o["logprobs"], dev)[0] for o in (mine, theirs))
+        check(err <= DENSE_LOGP_TOL, f"hybrid greedy: {err:.4f} nats from the "
+              f"dense f32 forward")
+        del params32
+        launches = dict(cuda_build.LAUNCHES)
+        info_end = post(port, "/get_server_info", None)
+        server_launches = {k_: info_end[f"kernel_launches/{k_}"]
+                           - info0[f"kernel_launches/{k_}"] for k_ in SERVE_KERNELS}
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0 and server_launches[name] > 0,
+                  f"hybrid: {name} launches, trainer {launches[name]}, "
+                  f"server {server_launches[name]}")
+        for name in K4_NAMES:
+            check(launches[name] > 0, f"hybrid: {name} was not launched")
+        bottlenecks = [SEGMENTS[int(rec["critpath/bottleneck"])]
+                       for rec in history]
+        return dict(history=history, fit_wall=fit_wall, plane_ms=plane_ms,
+                    local_tokens=local_tokens, server_tokens=server_tokens,
+                    releases=fit_releases, abort_local=abort_local,
+                    abort_server=abort_server, window_s=window_s,
+                    release_wait_s=release_wait_s,
+                    abort_salvaged=eng.tokens_salvaged - salv0,
+                    pool_gb=pool_bytes / 1e9, drop_gb=drop / 1e9,
+                    greedy=dict(bitwise=mine["tokens"] == theirs["tokens"],
+                                first=first, tie=tie, gap=gap, dense_err=err),
+                    trainer_launches={k_: launches[k_] for k_ in
+                                      SERVE_KERNELS + K4_NAMES},
+                    server_launches=server_launches, trainer_peak=trainer_peak,
+                    server_peak=info_end.get("peak_memory_bytes", 0) / 1e9,
+                    bottlenecks=bottlenecks,
+                    disagg=[rec["perf/step_time_s"] for rec in disagg["history"]],
+                    disagg_bubble=[rec["perf/trainer_bubble_s"]
+                                   for rec in disagg["history"]],
+                    disagg_budget=[rec["training/max_local_gen_s"]
+                                   for rec in disagg["history"]],
+                    colocated=[rec["perf/step_time_s"]
+                               for rec in trained["history"]],
+                    spans=len(obs.get_tracer().records()))
+    finally:
+        obs.configure(trace=False, reset=True)
+        stop_servers(procs)
+        for fn in reversed(cleanup):
+            fn()
+
+
+def stop_servers(procs: list) -> None:
+    """Shut the server subprocesses down (``/shutdown``, then kill)."""
+    for proc, port, _ in procs:
+        if proc.poll() is not None:
+            continue
+        try:
+            post(port, "/shutdown", {})
+            proc.wait(timeout=30)
+        except Exception:  # noqa: BLE001 -- killed below
+            pass
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def hybrid_lines(h: dict, smi: str) -> list[str]:
+    lines = []
+    for i, rec in enumerate(h["history"], 1):
+        rel = h["releases"][i - 1] if i - 1 < len(h["releases"]) else {}
+        prev = h["releases"][i - 2]["capture_s"] if i > 1 and len(h["releases"]) > 1 else 0.0
+        lines.append(
+            f"hybrid ({smi}, this run): step {i}: wall {rec['perf/step_time_s']:.2f} s "
+            f"(disagg {h['disagg'][i - 1]:.2f}, colocated {h['colocated'][i - 1]:.2f}); "
+            f"bubble {rec['perf/trainer_bubble_s']:.2f} s (disagg "
+            f"{h['disagg_bubble'][i - 1]:.2f}); max_local_gen_s "
+            f"{rec['training/max_local_gen_s']:.2f} (disagg "
+            f"{h['disagg_budget'][i - 1]:.2f}); critical path bottleneck "
+            f"{h['bottlenecks'][i - 1]}; the local engine's recapture s this "
+            f"phase {rel.get('capture_s', float('nan')) - prev:.3f}, KV "
+            f"released {rel.get('drop_gb', float('nan')):.3f} GB")
+        lines.append(f"hybrid ({smi}, this run): step {i} goodput: "
+                     f"{goodput_split(rec)}; the planes' host ms "
+                     f"{h['plane_ms'][i - 1]:.3f}")
+    share = h["local_tokens"] / max(h["local_tokens"] + h["server_tokens"], 1)
+    g_ = h["greedy"]
+    lines.append(
+        f"hybrid ({smi}, this run): tokens served locally {h['local_tokens']} "
+        f"of {h['local_tokens'] + h['server_tokens']} ({share:.3f}); the "
+        f"{HYBRID_WINDOW_S} s window's stream: {h['abort_local']} tokens local, "
+        f"{h['abort_server']} on the server, {h['abort_salvaged']} salvaged "
+        f"locally, in {h['window_s']:.2f} s, the KV released "
+        f"{h['release_wait_s']:.2f} s after; KV round trip: pool "
+        f"{h['pool_gb']:.3f} GB, released {h['drop_gb']:.3f} GB; greedy local "
+        f"against the server: bitwise {g_['bitwise']} (first mismatch "
+        f"{g_['first']}, first near-tie {g_['tie']}), dense f32 "
+        f"{g_['dense_err']:.4f} nats; peaks trainer {h['trainer_peak']:.2f} GB, "
+        f"server {h['server_peak']:.2f} GB; launches trainer "
+        f"{json.dumps(h['trainer_launches'])}, server "
+        f"{json.dumps(h['server_launches'])}; {h['spans']} spans traced")
+    return lines
+
+
+# -- LoRA delta sync (trainer.weight_sync=lora_delta, serve --lora-rank) -----
+
+LORA_DELTA_ARGS = ["--lora-rank", str(LORA_RANK), "--lora-alpha", "16"]
+
+
+def lora_delta_phase(dev, disagg: dict) -> dict:
+    """LoRA delta sync: ``build_trainer`` at the train phase's configuration
+    with ``actor.lora_rank=16 actor.lora_alpha=16
+    trainer.weight_sync=lora_delta rollout.mode=disaggregated``, and a
+    server from ``serve``'s command line with ``--lora-rank 16
+    --lora-alpha 16`` (in this process, ``serve.server_from_args``, so
+    that its tensors can be read). Gates: finite losses, grad norms > 0;
+    each push's entries the adapter tree's bytes, reckoned from the
+    shapes; at each install the server's ``a``/``b`` bitwise the pushed
+    adapters and, after the fit, the actor's, its bases bitwise the
+    actor's frozen (seeded) base, every leaf at its old ``data_ptr()``, no
+    decode graph captured again; a greedy request through the manager
+    equal to an in-process ``CBEngine`` on the same wrapped tree (or
+    parting only at a near-tie) and within DENSE_LOGP_TOL of the dense f32
+    forward on ``merge_lora`` of it; the fused prologue, K2 and K3 in the
+    server, K4 in the trainer. Logs each push's pack, wire and install
+    seconds and GB/s against the disagg phase's full push, and the LoRA
+    decode step's kernels and device ms against bf16 by replay."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.manager.supervisor import ManagerSupervisor
+    from polyrl_tpu_torch.models import lora, quant
+    from polyrl_tpu_torch.rollout import serve
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+    from polyrl_tpu_torch.train import build_trainer
+
+    sup = ManagerSupervisor(bind_addr="127.0.0.1:0", extra_args=[
+        "--health-check-interval-s", "0.5", "--stats-poll-interval-s", "0.5"])
+    sup.start()
+    cleanup: list = [sup.stop]
+    srv = None
+    try:
+        cfg = load_config(None, TRAIN_OVERRIDES + [
+            "rollout.mode=disaggregated",
+            f"rollout.manager_endpoint={sup.endpoint}",
+            "rollout.transfer_streams=4", f"actor.lora_rank={LORA_RANK}",
+            "actor.lora_alpha=16", "trainer.weight_sync=lora_delta",
+            f"device={dev.type}"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+        remote, iface = trainer.rollout, trainer.rollout.transfer
+        mcfg = trainer.actor.model_cfg
+        want_bytes = sum(t.numel() * t.element_size() for _, t in
+                         quant.named_leaves(lora.adapter_template(mcfg, LORA_RANK)))
+        entry_bytes = sum(e.nbytes for e in iface.layout.entries)
+        check(entry_bytes == want_bytes, f"lora_delta: the push layout holds "
+              f"{entry_bytes} B, the adapter tree {want_bytes} B")
+        args = serve.parse_args([
+            "--model", MODEL, "--dtype", "bfloat16", "--device", dev.type,
+            "--host", "127.0.0.1", "--port", "0", "--seed", "0",
+            "--manager-endpoint", sup.endpoint, "--transfer-streams", "4",
+            "--num-pages", str(DISAGG_PAGES)] + DISAGG_SERVER + LORA_DELTA_ARGS)
+        srv = serve.server_from_args(args)
+        seng = srv.engine
+        check(srv.receiver is not None and srv.receiver.layout == iface.layout,
+              "lora_delta: the server's receiver has another layout")
+        remote.pool.wait_for_member(srv.endpoint, DISAGG_SERVER_DEADLINE_S,
+                                    active=False)
+        ptrs = {n: t.data_ptr() for n, t in quant.named_leaves(seng.params)}
+        # at each push: the adapters pushed (the trainer side) and, at its
+        # install, whether the server's live a/b equal them and its graphs
+        # survived (the server side)
+        pushed: dict[int, dict] = {}
+        installs: list[dict] = []
+        push = remote.update_weights
+
+        def recording_push(params, version=None):
+            # recorded first: the server may install before the push returns
+            want = remote.weight_version + 1
+            pushed[want] = _tree_map(lambda t: t.detach().clone(), params)
+            v = push(params, version)
+            check(v == want, f"lora_delta: pushed v{v}, expected v{want}")
+            return v
+
+        install = srv.update_weights_from_agent
+
+        def checked_install(version):
+            graphs = dict(seng._graphs)
+            captures = seng.graph_captures
+            t_i = time.monotonic()
+            ok, err = install(version)
+            wall = time.monotonic() - t_i
+            v = seng.weight_version
+            live = seng.params["layers"]
+            installs.append(dict(
+                version=v, ok=ok, err=err, wall_s=wall,
+                graphs_kept=all(seng._graphs.get(k_) is g_
+                                for k_, g_ in graphs.items()),
+                captures=seng.graph_captures - captures,
+                ptrs=ptrs == {n: t.data_ptr() for n, t in
+                              quant.named_leaves(seng.params)},
+                equal=(v in pushed and all(
+                    torch.equal(getattr(live[k_], f_), ab[f_])
+                    for k_, ab in pushed[v]["layers"].items()
+                    for f_ in ("a", "b")))))
+            return ok, err
+
+        remote.update_weights = recording_push
+        srv.update_weights_from_agent = checked_install
+        cuda_build.reset_launch_counts()
+        t0 = time.monotonic()
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        fit_wall = time.monotonic() - t0
+        n_steps = cfg.trainer.total_steps
+        check(len(history) == n_steps, "the lora_delta fit did not finish")
+        for i, rec in enumerate(history, 1):
+            for key in ("actor/pg_loss", "actor/kl_loss", "actor/grad_norm"):
+                check(key in rec and np.isfinite(rec[key]),
+                      f"lora_delta step {i}: {key} missing or not finite")
+            check(rec["actor/grad_norm"] > 0, f"lora_delta step {i}: zero gradient")
+        plane_gates(history, "lora_delta")
+        final = remote.weight_version
+        t1 = time.monotonic()
+        while seng.weight_version < final:
+            check(time.monotonic() - t1 < 120, "lora_delta: the last push never landed")
+            time.sleep(0.1)
+        check(len(installs) == final and all(
+            i_["ok"] and i_["equal"] and i_["ptrs"] and i_["graphs_kept"]
+            and i_["captures"] == 0 for i_ in installs),
+              f"lora_delta: installs {[{k_: v for k_, v in i_.items() if k_ != 'err'} for i_ in installs]}")
+        actor_layers = trainer.actor.params["layers"]
+        moved = False
+        for (name, t), (_, want) in zip(_leaves(_plain_view(seng.params)),
+                                        _leaves(_plain_view(trainer.actor.params))):
+            check(torch.equal(t, want.detach()),
+                  f"lora_delta: the server's {name} differs from the actor's")
+        for k_, w in actor_layers.items():
+            if isinstance(w, quant.LoraWeight):
+                moved |= bool(w.b.detach().abs().sum() > 0)
+        check(moved, "lora_delta: the adapters never moved")
+        check(len(seng._graphs) == seng.graph_captures,
+              f"lora_delta: {seng.graph_captures} captures of "
+              f"{len(seng._graphs)} graphs")
+        # a greedy request through the manager against an in-process engine
+        # on the same wrapped tree
+        rng = np.random.default_rng(5)
+        prompt = rng.integers(1, mcfg.vocab_size, 40).tolist()
+        served = remote.manager.generate("ldgreedy", prompt, {
+            "temperature": 0.0, "max_new_tokens": DISAGG_GREEDY})
+        check(served.success, f"lora_delta greedy: {served.error}")
+        # a GRPO group on a full-page prompt (K3) through the manager
+        from polyrl_tpu_torch.manager.client import GenerateProgress
+
+        group_prompt = rng.integers(1, mcfg.vocab_size, 100).tolist()
+        finals = [r for r in remote.manager.batch_generate_stream([
+            {"rid": f"ldg{i}", "input_ids": group_prompt, "group_id": "ldgrp",
+             "group_size": 8, "sampling_params": {"temperature": 1.0,
+                                                  "max_new_tokens": 64}}
+            for i in range(8)]) if not isinstance(r, GenerateProgress)]
+        check(len(finals) == 8 and all(r.success and len(r.output_token_ids) == 64
+                                       for r in finals),
+              "lora_delta: the GRPO group through the manager failed")
+        # one process: every decode launch since the reset is the server's
+        # (the trainer runs no engine), every K4 launch the trainer's
+        launches = dict(cuda_build.LAUNCHES)
+        server_launches = {k_: launches[k_] for k_ in SERVE_KERNELS}
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0,
+                  f"lora_delta: {name} was not launched in the server")
+        for name in K4_NAMES:
+            check(launches[name] > 0, f"lora_delta: {name} was not launched")
+        eng = CBEngine(mcfg, seng.params, pad_token_id=0,
+                       kv_cache_dtype=torch.bfloat16, max_slots=64, page_size=64,
+                       max_seq_len=512, num_pages=64, steps_per_dispatch=8,
+                       prompt_buckets=(64, 128), seed=0, device=dev)
+        try:
+            ref = eng.generate([prompt], SamplingParams(
+                temperature=0.0, max_new_tokens=DISAGG_GREEDY))[0]
+        finally:
+            eng.stop()
+        del eng
+        params32 = f32_copy(lora.merge_lora(seng.params))
+        gaps = top2_gaps(params32, mcfg, prompt, ref["token_ids"], dev)
+        ok, first, tie, gap = agrees_until_tie(served.output_token_ids,
+                                               list(ref["token_ids"]), gaps)
+        check(ok, f"lora_delta greedy: the manager's tokens part from the "
+              f"in-process engine's at {first} (first near-tie {tie}, gap {gap:.4f})")
+        err, _ = dense_f32_gate(params32, mcfg, prompt, served.output_token_ids,
+                                served.output_token_logprobs, dev)
+        check(err <= DENSE_LOGP_TOL, f"lora_delta greedy: {err:.4f} nats from "
+              "the dense f32 forward on merge_lora")
+        del params32
+        syncs = {s_["version"]: s_ for s_ in srv.weight_syncs}
+        rounds = {r_["version"]: r_ for r_ in iface.sender.round_log}
+        pushes = []
+        for pl in iface.push_log:
+            v = pl["version"]
+            sy, rd = syncs.get(v, {}), rounds.get(v, {})
+            pushes.append(dict(version=v, bytes=sy.get("bytes", rd.get("bytes", 0)),
+                               pack_s=pl["pack_s"], wire_s=rd.get("push_s", float("nan")),
+                               install_s=sy.get("install_s", float("nan")),
+                               swap_s=sy.get("swap_s", float("nan"))))
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        # the LoRA-wrapped decode step against bf16 by replay
+        plain = _plain_view(seng.params, base_only=True)
+        ab = quant_decode_ab(dev, mcfg, {"bf16": plain, "lora": seng.params},
+                             tag="lora_delta")
+        return dict(history=history, fit_wall=fit_wall, pushes=pushes,
+                    installs=installs, want_bytes=want_bytes,
+                    layout_bytes=iface.layout.total_bytes,
+                    full=disagg["pushes"], ab=ab, peak_gb=peak,
+                    server_launches=server_launches,
+                    trainer_launches={k_: launches[k_] for k_ in K4_NAMES},
+                    greedy=dict(bitwise=served.output_token_ids == list(ref["token_ids"]),
+                                first=first, tie=tie, gap=gap, dense_err=err))
+    finally:
+        if srv is not None:
+            srv.stop()
+        for fn in reversed(cleanup):
+            fn()
+
+
+def _plain_view(params: dict, base_only: bool = False) -> dict:
+    """A wrapped tree's leaves by name (``base`` for a LoRA weight's base,
+    ``a``/``b`` beside it), or with ``base_only`` the plain tree of its
+    bases: the same tensors, no copy."""
+    from polyrl_tpu_torch.models.quant import LoraWeight
+
+    layers = {}
+    for k_, w in params["layers"].items():
+        if not isinstance(w, LoraWeight):
+            layers[k_] = w
+        elif base_only:
+            layers[k_] = w.base
+        else:
+            layers.update({f"{k_}.base": w.base, f"{k_}.a": w.a, f"{k_}.b": w.b})
+    return {**params, "layers": layers}
+
+
+def lora_delta_lines(d: dict, smi: str) -> list[str]:
+    lines = []
+    full = [p_ for p_ in d["full"] if p_["version"] > 1]
+    fw = statistics.median(p_["wire_s"] for p_ in full) if full else float("nan")
+    fb = full[0]["bytes"] / 1e9 if full else float("nan")
+    for p_ in d["pushes"]:
+        gb = p_["bytes"] / 1e9
+        lines.append(
+            f"lora_delta ({smi}, this run): push v{p_['version']}: {gb * 1e3:.3f} MB "
+            f"(adapter tree {d['want_bytes'] / 1e6:.3f} MB from the shapes, layout "
+            f"{d['layout_bytes'] / 1e6:.3f} MB); pack {p_['pack_s']:.4f} s "
+            f"({gb / p_['pack_s']:.2f} GB/s), wire {p_['wire_s']:.4f} s "
+            f"({gb / p_['wire_s']:.2f} GB/s), install {p_['install_s']:.4f} s, "
+            f"swap {p_['swap_s']:.4f} s; against the disagg phase's full push of "
+            f"{fb:.3f} GB, wire median {fw:.3f} s")
+    for i, rec in enumerate(d["history"], 1):
+        lines.append(f"lora_delta ({smi}, this run): step {i}: wall "
+                     f"{rec['perf/step_time_s']:.2f} s, bubble "
+                     f"{rec['perf/trainer_bubble_s']:.2f} s; goodput "
+                     f"{goodput_split(rec)}")
+    g_ = d["greedy"]
+    lines.append(
+        f"lora_delta ({smi}, this run): installs {len(d['installs'])}, each "
+        f"bitwise the pushed adapters at the old addresses, no recapture; "
+        f"greedy through the manager against an in-process engine on the "
+        f"wrapped tree: bitwise {g_['bitwise']} (first mismatch {g_['first']}, "
+        f"near-tie {g_['tie']}), dense f32 on merge_lora {g_['dense_err']:.4f} "
+        f"nats; decode step by replay bf16 / LoRA: device ms "
+        f"{d['ab']['bf16']['device_ms']:.3f} / {d['ab']['lora']['device_ms']:.3f}, "
+        f"kernels {d['ab']['bf16']['kernels']:.1f} / {d['ab']['lora']['kernels']:.1f}, "
+        f"wall ms {d['ab']['bf16']['wall_ms']:.2f} / {d['ab']['lora']['wall_ms']:.2f}; "
+        f"peak {d['peak_gb']:.2f} GB (trainer and server in one process); "
+        f"launches server {json.dumps(d['server_launches'])}, trainer "
+        f"{json.dumps(d['trainer_launches'])}")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", default=None,
@@ -5456,6 +6247,20 @@ def main() -> int:
     for line in disagg_lines(disagg, smi):
         log(line)
     log(f"phase disagg ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
+    t0 = time.monotonic()
+    hybrid = hybrid_phase(dev, trained, disagg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in hybrid_lines(hybrid, smi):
+        log(line)
+    log(f"phase hybrid ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
+    t0 = time.monotonic()
+    delta = lora_delta_phase(dev, disagg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in lora_delta_lines(delta, smi):
+        log(line)
+    log(f"phase lora_delta ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
 
     for r in rows:
         # K1's path is the decode step's unfused route (the serve phase's
@@ -5464,12 +6269,18 @@ def main() -> int:
                     if r["name"] == "paged_kv_write" else
                     trained["launches"] if r["name"].startswith("flash")
                     else served["launches"])
-        # plus the memory phase's and the disagg phase's paths: the server
-        # process decodes, the trainer process runs K4
-        extra = (0 if r["name"] == "paged_kv_write" else
-                 disagg["trainer_launches"][r["name"]] if r["name"].startswith("flash")
-                 else disagg["server_launches"][r["name"]]
-                 + memory["launches"][r["name"]])
+        # plus the memory phase's and the disagg, hybrid and lora_delta
+        # paths: the servers decode, the trainers run K4, and the hybrid's
+        # trainer process decodes too (its local engine)
+        name = r["name"]
+        extra = (0 if name == "paged_kv_write" else
+                 disagg["trainer_launches"][name]
+                 + hybrid["trainer_launches"][name]
+                 + delta["trainer_launches"][name] if name.startswith("flash")
+                 else disagg["server_launches"][name] + memory["launches"][name]
+                 + hybrid["trainer_launches"][name]
+                 + hybrid["server_launches"][name]
+                 + delta["server_launches"][name])
         r.update(route="cuda", source=f"polyrl_tpu_torch/csrc/{r['name']}.cu",
                  replaces=REPLACES[r["name"]],
                  launches=launches[r["name"]] + extra)

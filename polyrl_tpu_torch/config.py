@@ -4,6 +4,8 @@ Counterpart of ``polyrl_tpu/config.py`` for the sections this port runs:
 model, tokenizer, data, the rollout (colocated, ``cb`` or ``step``, or
 disaggregated: the manager, the weight fabric and the pool), the weight
 fabric's supervision (``transfer``), reward, trainer, actor and critic,
+the trainer's ``logging`` backends and the ``obs`` planes (tracing, the
+``/statusz`` exporter, the flight recorder, the training health ledger),
 plus the ``device`` every entry point takes (``cuda`` by default; it
 raises without a card). Nested dataclasses are the schema and the
 defaults, a YAML file overlays them, and ``key.sub=value`` dotted CLI
@@ -120,8 +122,10 @@ class RolloutSection:
     sender_groups: int = 1
     sender_nic_cidr: str = ""             # e.g. "10.128.0.0/16,10.129.0.0/16"
     groups_per_sender: int = 1            # manager-side instance sharding
-    # hybrid colocated + remote (an in-process engine registered as a
-    # local, time-sliced instance): not ported yet (ROADMAP A' 7)
+    # hybrid colocated + remote: an in-process engine on the trainer's
+    # card, registered as a local instance the manager time-slices (aborted
+    # after the balancer's max_local_gen_s window); its KV pool is released
+    # after each generation phase and resumed before the next
     colocated_local: bool = False
     # elastic pool (rollout/pool.py): membership sweeps, join gating,
     # preemption drills and the balance estimator's window
@@ -133,6 +137,46 @@ class RewardSection:
     manager: str = "naive"
     custom_score_path: str = ""           # python file defining compute_score
     num_workers: int = 8
+
+
+@dataclass
+class LoggingSection:
+    backends: tuple = ("console",)        # console | jsonl | tensorboard | wandb
+    path: str = ""                        # jsonl path / tensorboard dir
+
+
+@dataclass
+class ObsSection:
+    """Observability knobs (the reference's ``obs`` section): span tracing
+    with cross-process propagation and a Chrome-trace dump, the trainer's
+    ``/statusz`` exporter, the anomaly flight recorder and the training
+    health ledger."""
+    trace: bool = False                   # span tracer on/off
+    trace_dir: str = ""                   # spans.jsonl + trace.json dump dir
+    trace_buffer: int = 4096              # ring-buffer span capacity
+    # the reference's key: here torch.profiler.record_function ranges
+    # around the trainer's phases, so that trainer.profile_steps traces
+    # line up with the host spans
+    jax_annotations: bool = False
+    # the trainer serves GET /statusz and /metrics (port 0 = ephemeral)
+    statusz: bool = False
+    statusz_host: str = "127.0.0.1"
+    statusz_port: int = 0
+    # the anomaly flight recorder (obs/recorder.py): EWMA/z-score watch
+    # over the step records; post-mortem bundles on anomaly, crash or
+    # SIGTERM into recorder_dir
+    recorder: bool = False
+    recorder_dir: str = ""                # "" -> next to logging.path
+    recorder_keep_steps: int = 64         # step records per bundle
+    recorder_z: float = 4.0               # z-score anomaly threshold
+    recorder_warmup: int = 5              # steps before detection arms
+    recorder_max_bundles: int = 4         # bundle budget per run
+    # the training health ledger (obs/rlhealth.py): training/* in every
+    # step record, the /statusz training section, training.json bundles;
+    # host numpy over arrays the step already copied to the host
+    rlhealth: bool = True
+    rlhealth_tail: int = 64               # per-step rows kept for bundles
+    rlhealth_group_rows: int = 64         # group-table rows per step
 
 
 @dataclass
@@ -150,6 +194,8 @@ class RunConfig:
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
     actor: ActorConfig = field(default_factory=ActorConfig)
     critic: CriticConfig = field(default_factory=CriticConfig)
+    logging: LoggingSection = field(default_factory=LoggingSection)
+    obs: ObsSection = field(default_factory=ObsSection)
 
 
 # -- dict <-> dataclass -------------------------------------------------------

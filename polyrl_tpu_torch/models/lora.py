@@ -9,12 +9,15 @@ is QLoRA with no extra code.
 Training: only the ``a``/``b`` leaves are trainable (``lora_labels``); the
 actor gives them, and only them, ``requires_grad``, optimizer state, the
 clip norm and weight decay, as the reference's ``multi_transform`` with
-``set_to_zero`` on every other leaf does. Serving: a push merges the
+``set_to_zero`` on every other leaf does. Serving: a full push merges the
 adapters into a plain tree (``merge_lora``), so the engine sees the
-ordinary layout. ``extract_adapters`` / ``adapter_template`` /
-``apply_adapters`` are the delta-sync wire of the reference (adapters,
-``alpha`` and a fingerprint of the frozen base); the port's colocated
-trainer does not use them yet (ROADMAP A' 7).
+ordinary layout. With ``trainer.weight_sync=lora_delta`` a push carries
+only ``extract_adapters`` of the wrapped tree (adapters, ``alpha`` and a
+fingerprint of the frozen base; its wire layout is ``adapter_template``)
+to servers that serve a wrapped tree (``serve --lora-rank``), and
+``apply_adapters`` copies the received ``a``/``b`` into the live leaves in
+place: the engine's captured decode graphs read those addresses, and the
+frozen bases are never touched.
 """
 
 from __future__ import annotations
@@ -143,12 +146,17 @@ def adapter_template(model_cfg, rank: int, targets=DEFAULT_TARGETS,
 
 
 def apply_adapters(wrapped: dict, adapters: dict) -> dict:
-    """A new wrapped tree with the received ``a``/``b`` installed (each
-    cast to its old leaf's dtype and device); the bases untouched. Refuses
-    a base fingerprint more than 5% off this tree's, other target sets,
-    an ``alpha`` that differs, and adapters for an unwrapped weight."""
-    out = dict(wrapped)
-    layers = dict(wrapped["layers"])
+    """Install the received ``a``/``b`` into ``wrapped``'s live adapter
+    tensors in place (each cast to its leaf's dtype and device) and return
+    ``wrapped``: every leaf keeps its address, so a captured decode graph
+    reads the new adapters at its next replay, and the bases are not
+    touched (no copy of the model). The reference builds a new tree
+    instead; its engines hold no graphs. Refuses, before copying anything,
+    a base fingerprint more than 5% off this tree's, other target sets, an
+    ``alpha`` that differs, adapters for an unwrapped weight, and adapter
+    shapes that differ. The caller runs it between dispatches (the
+    engine's dispatch lock) and flushes the prefix cache after."""
+    layers = wrapped["layers"]
     if "base_stats" in adapters:
         mine = base_stats(wrapped).float().cpu()
         theirs = torch.as_tensor(adapters["base_stats"]).float().cpu()
@@ -175,13 +183,17 @@ def apply_adapters(wrapped: dict, adapters: dict) -> dict:
                 f"lora_alpha mismatch: trainer pushed {recv_alpha}, this "
                 f"worker serves {w.alpha} — launch with --lora-alpha "
                 f"{recv_alpha}")
-        layers[k] = LoraWeight(
-            base=w.base,
-            a=torch.as_tensor(ab["a"]).to(device=w.a.device, dtype=w.a.dtype),
-            b=torch.as_tensor(ab["b"]).to(device=w.b.device, dtype=w.b.dtype),
-            alpha=w.alpha)
-    out["layers"] = layers
-    return out
+        for f in ("a", "b"):
+            if tuple(ab[f].shape) != tuple(getattr(w, f).shape):
+                raise ValueError(
+                    f"adapter {k}.{f} is {tuple(ab[f].shape)}, this worker "
+                    f"serves {tuple(getattr(w, f).shape)} (lora_rank "
+                    "mismatch)")
+    with torch.no_grad():
+        for k, ab in adapters["layers"].items():
+            layers[k].a.copy_(torch.as_tensor(ab["a"]))
+            layers[k].b.copy_(torch.as_tensor(ab["b"]))
+    return wrapped
 
 
 def num_trainable(params: dict) -> int:

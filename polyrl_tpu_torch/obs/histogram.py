@@ -131,6 +131,15 @@ def observe(name: str, value: float) -> None:
         hist.observe(value)
 
 
+def registry_total(name: str) -> float:
+    """The running total of ``name`` in the registry since its last drain
+    (0.0 when absent): the trainer reads it around a wait to learn what
+    part of a series fell inside it."""
+    with _REG_LOCK:
+        hist = _REG.get(name)
+        return hist.total if hist is not None else 0.0
+
+
 def drain_histograms() -> dict[str, Histogram]:
     """Snapshot-and-reset the registry (each step record owns its window)."""
     with _REG_LOCK:

@@ -795,10 +795,21 @@ class CBEngine:
         old version, and before the later ones."""
         check_same_structure(params, self.params)
         new = dict(named_leaves(params))
-        cur = dict(named_leaves(self.params))
-        with self._pool_lock, torch.no_grad():
-            for k, dst in cur.items():
+
+        def copy_all(cur: dict) -> None:
+            for k, dst in named_leaves(cur):
                 dst.copy_(new[k])
+        self.install_weights(copy_all, version)
+
+    def install_weights(self, install, version: int | None = None) -> None:
+        """Run ``install(self.params)``, which writes new values into the
+        engine's tensors in place (``update_weights``' full copy, or a LoRA
+        server's ``lora.apply_adapters`` of a delta push, which touches
+        only ``a``/``b``), between dispatches under the dispatch lock; then
+        bump ``weight_version`` and flush the prefix cache. No tensor is
+        rebound, so the captured decode graphs replay the new values."""
+        with self._pool_lock, torch.no_grad():
+            install(self.params)
             self.weight_version = (self.weight_version + 1 if version is None
                                    else int(version))
             if self.prefix_cache is not None:
@@ -908,26 +919,42 @@ class CBEngine:
         submitted meanwhile waits for ``resume_memory``; mid-chunk prefill
         jobs, whose filled KV goes with the pools, are aborted. The cache
         flush drops spilled entries from both tiers; no spill runs while
-        the pools are gone."""
+        the pools are gone. While paused the loop admits nothing but keeps
+        decoding the running requests to their ends: the reference freezes
+        them instead, so a request that reached the engine after the
+        manager's window abort hung until the next resume and the pools
+        were never freed (ROADMAP C). Gives up after 30 s."""
         self._paused.set()
-        if not self._idle.wait(timeout=30.0):
-            return
-        with self._pool_lock:
-            if self._active.any() or self._pools is None:
+        deadline = time.monotonic() + 30.0
+        while True:
+            left = deadline - time.monotonic()
+            if left <= 0 or not self._idle.wait(timeout=left):
                 return
-            self._drain_emit_q()  # the run-ahead tail (pad rows only)
-            self._abort_chunk_jobs()
-            if self.prefix_cache is not None:
-                self._disband_group_prerefs()
-                self.prefix_cache.flush()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self._graphs.clear()
-            self._graph_pool = None
-            self._pools = None
-            self._dev_stale = True
-            if self.device.type == "cuda":
-                torch.cuda.empty_cache()
+            with self._pool_lock:
+                if self._pools is None:
+                    return
+                if not self._active.any():
+                    self._free_pools()
+                    return
+            # a stale idle flag: the loop is still finishing requests
+            time.sleep(0.01)
+
+    def _free_pools(self) -> None:
+        """Under the dispatch lock, with no request running: the graphs,
+        the pools, the allocator's cache."""
+        self._drain_emit_q()  # the run-ahead tail (pad rows only)
+        self._abort_chunk_jobs()
+        if self.prefix_cache is not None:
+            self._disband_group_prerefs()
+            self.prefix_cache.flush()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._graphs.clear()
+        self._graph_pool = None
+        self._pools = None
+        self._dev_stale = True
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def resume_memory(self) -> None:
         """Allocate the KV pools again and resume serving; the decode graphs
@@ -958,7 +985,8 @@ class CBEngine:
                 self._recover()
 
     def _loop_iter(self) -> None:
-        if self._paused.is_set():
+        paused = self._paused.is_set()
+        if paused and not self._active.any():
             if self._outstanding():
                 with self._pool_lock:
                     self._drain_emit_q()
@@ -966,7 +994,8 @@ class CBEngine:
             with self._phase("idle"):
                 time.sleep(0.02)
             return
-        self._drain_queue()
+        if not paused:  # paused: finish the running requests, admit none
+            self._drain_queue()
         if (not self._pending and not self._active.any()
                 and not self._chunk_jobs):
             if self._outstanding():  # the run-ahead tail: pad rows only
@@ -983,7 +1012,9 @@ class CBEngine:
             return
         self._idle.clear()
         with self._pool_lock:
-            if self._paused.is_set():  # raced with release_memory
+            if self._paused.is_set():  # paused: decode what runs, no more
+                if self._active.any():
+                    self._step_once()
                 return
             self._admit()
             if self._chunk_jobs:

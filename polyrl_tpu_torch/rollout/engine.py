@@ -98,9 +98,17 @@ class RolloutEngine:
         bump ``weight_version``."""
         check_same_structure(params, self.params)
         new = dict(named_leaves(params))
-        with self.lock, torch.no_grad():
-            for k, dst in named_leaves(self.params):
+
+        def copy_all(cur: dict) -> None:
+            for k, dst in named_leaves(cur):
                 dst.copy_(new[k])
+        self.install_weights(copy_all, version)
+
+    def install_weights(self, install, version: int | None = None) -> None:
+        """Run ``install(self.params)`` (an in-place write into the
+        engine's tensors) between batches, then bump ``weight_version``."""
+        with self.lock, torch.no_grad():
+            install(self.params)
             self.weight_version = (self.weight_version + 1 if version is None
                                    else int(version))
 

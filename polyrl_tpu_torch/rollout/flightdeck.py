@@ -334,8 +334,8 @@ class EngineFlightDeck:
         return out
 
     def snapshot(self, active: int = 0, queued: int = 0) -> dict:
-        """The nested ``engine`` view (the ``/statusz`` section once that
-        is ported)."""
+        """The nested ``engine`` view (the rollout server's ``/statusz``
+        ``engine`` section)."""
         with self._lock:
             hists = {name: {
                 "p50": h.percentile(50.0), "p95": h.percentile(95.0),

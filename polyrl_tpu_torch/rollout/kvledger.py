@@ -364,8 +364,8 @@ class PageLedger:
 
     def snapshot(self, pool_free: int, cache_pages: int,
                  accounted_bytes: float) -> dict:
-        """The nested ``memory`` view (the ``/statusz`` section once that is
-        ported)."""
+        """The nested ``memory`` view (the ``/statusz`` ``memory``
+        section)."""
         with self._lock:
             counts = self._role_counts_locked()
             owners: dict[str, int] = {}

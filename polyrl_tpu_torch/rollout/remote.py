@@ -98,8 +98,8 @@ class RemoteRollout:
         self,
         manager: ManagerClient,
         transfer=None,               # TransferInterface (trainer-side fabric)
-        # colocated RolloutServer (time-sliced); no path passes one until
-        # the colocated_local hybrid is ported (ROADMAP A' 7)
+        # the hybrid's in-process RolloutServer (time-sliced by the
+        # manager; rollout.colocated_local)
         local_server=None,
         pad_token_id: int = 0,
         resume_budget: int = 3,      # mid-stream re-issues per batch
@@ -641,8 +641,10 @@ class RemoteRollout:
         # place (CBEngine.update_weights), so the actor's next optimizer
         # step cannot change what it serves; no fabric hop, and the
         # manager re-adds locals to the pool on update_weight_version
-        self.local_server.engine.update_weights(params,
-                                                version=self.weight_version)
+        from polyrl_tpu_torch.transfer import colocated_update
+
+        colocated_update(self.local_server.engine, params,
+                         version=self.weight_version)
 
     def scrape_manager_metrics(self) -> dict[str, float]:
         """One scrape of the manager's GET /metrics, as ``manager/*`` gauge

@@ -17,8 +17,15 @@ profiler are on by default, as in the reference: the page ledger
 registers with the rollout manager and attaches a weight receiver
 (``ReceiverAgent``, ``--transfer-streams`` TCP streams) pointed at the
 weight sender the manager assigns: the trainer's pushes then land through
-the fabric (``RolloutServer.update_weights_from_agent``). ``--lora-rank``
-(LoRA delta sync) is not ported yet (ROADMAP A' 7).
+the fabric (``RolloutServer.update_weights_from_agent``). ``--is-local``
+registers the server as a local, time-sliced instance instead (no
+receiver: a trainer in the same process hands it each push). With
+``--lora-rank``/``--lora-alpha`` the server serves a LoRA-wrapped tree
+(adapters drawn from a generator seeded ``7919 + rank``, as the trainer's
+actor draws them; over an int8 base with ``--weight-quant int8``) and
+takes delta pushes (``trainer.weight_sync=lora_delta``): the wire layout is
+``lora.adapter_template`` and ``lora.apply_adapters`` copies each push's
+``a``/``b`` into the live adapters.
 """
 
 from __future__ import annotations
@@ -61,7 +68,9 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                   kv_spill_host_gb: float = 4.0,
                   loop_profile: bool = True,
                   manager_endpoint: str | None = None,
-                  transfer_streams: int = 4):
+                  transfer_streams: int = 4,
+                  is_local: bool = False,
+                  lora_rank: int = 0, lora_alpha: float = 16.0):
     """Build engine + server and start serving. ``model`` is a preset name
     (random weights from ``seed``) or a local HF checkpoint directory.
     ``backend="cb"`` serves with the paged continuous-batching engine
@@ -73,7 +82,9 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     quantized form leaf by leaf on the device; weight pushes stay in the
     model dtype and are re-quantized on arrival. With ``manager_endpoint``
     the server registers with the manager and attaches its weight receiver
-    (``register_with_manager``). ``device`` defaults to ``"cuda"`` and
+    (``register_with_manager``; ``is_local`` as a local, time-sliced
+    instance). ``lora_rank > 0`` serves the base wrapped in adapters and
+    takes adapter-only pushes. ``device`` defaults to ``"cuda"`` and
     raises when CUDA is absent; pass ``"cpu"`` explicitly to serve from the
     CPU (tests)."""
     from polyrl_tpu_torch.device import resolve_device
@@ -101,6 +112,14 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
         gen.manual_seed(seed)
         params = (quant.init_quantized_params(gen, cfg) if weight_quant
                   else decoder.init_params(gen, cfg))
+    if lora_rank > 0:
+        # delta sync: the base (int8 with weight_quant: QLoRA serving)
+        # never changes; each push replaces the adapters in place. The
+        # trainer must run the same lora_rank and lora_alpha.
+        from polyrl_tpu_torch.models import lora
+
+        lgen = torch.Generator(device=dev).manual_seed(7919 + lora_rank)
+        params = lora.wrap_lora(params, lgen, lora_rank, lora_alpha)
     buckets = (tuple(prompt_buckets) if prompt_buckets
                else (128, 256, 512, 1024, 2048, 4096))
     if backend == "cb":
@@ -130,7 +149,11 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                                **kwargs)
     server = RolloutServer(engine, host=host, port=port,
                            advertise_host=advertise_host)
-    if weight_quant == "int8":
+    if lora_rank > 0:
+        # the wire carries the adapter tree, installed in place
+        server.weight_template = lora.adapter_template(cfg, lora_rank)
+        server.weight_apply = lora.apply_adapters
+    elif weight_quant == "int8":
         # the wire carries the trainer's tree in the model dtype: its
         # layout comes from that tree's names, shapes and dtypes (meta
         # tensors), and each push is quantized on arrival
@@ -138,20 +161,22 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
         server.weight_preprocess = quant.quantize_params
     server.start()
     if manager_endpoint:
-        register_with_manager(server, manager_endpoint,
+        register_with_manager(server, manager_endpoint, is_local=is_local,
                               transfer_streams=transfer_streams)
     return server
 
 
 def register_with_manager(server, manager_endpoint: str = "",
+                          is_local: bool = False,
                           transfer_streams: int = 4,
                           client=None) -> None:
     """POST /register_rollout_instance, then start the receiver agent
     pointed at the weight sender the manager assigned (none is assigned
-    while no trainer has registered a sender). Passing an existing
-    ``client`` (``PoolManager.add_engine`` does) registers through it, so
-    that a bound supervisor records the membership for /reconcile
-    replay."""
+    while no trainer has registered a sender). ``is_local`` registers a
+    local, time-sliced instance instead, with no receiver: its pushes come
+    in process. Passing an existing ``client`` (``PoolManager.add_engine``
+    does) registers through it, so that a bound supervisor records the
+    membership for /reconcile replay."""
     from polyrl_tpu_torch.manager.client import ManagerClient
     from polyrl_tpu_torch.transfer.agents import ReceiverAgent
     from polyrl_tpu_torch.transfer.layout import build_layout, build_shard_spec
@@ -163,10 +188,13 @@ def register_with_manager(server, manager_endpoint: str = "",
         client = ManagerClient(manager_endpoint)
     # the /preempt departure deregisters through this endpoint
     server.manager_endpoint = client.endpoint.replace("http://", "")
+    if is_local:
+        client.register_local_rollout_instances([server.endpoint])
+        return
     out = client.register_rollout_instance(server.endpoint)
     sender_ep = out.get("weight_sender_endpoint") or ""
     if sender_ep:
-        # quantized engines keep the trainer's tree as the wire layout
+        # quantized and LoRA engines take another tree than their own
         template = (server.weight_template if server.weight_template
                     is not None else server.engine.params)
         server.receiver = ReceiverAgent(
@@ -192,6 +220,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--manager-endpoint", default=None,
                    help="host:port of the rollout manager to register with "
                         "(and to take weight pushes through)")
+    p.add_argument("--is-local", action="store_true",
+                   help="register as a local, time-sliced instance (a "
+                        "trainer in the same process pushes its weights)")
     p.add_argument("--transfer-streams", type=int, default=4,
                    help="parallel TCP streams of the weight receiver")
     p.add_argument("--dtype", default="bfloat16")
@@ -200,6 +231,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--weight-quant", default="", choices=["", "int8"],
                    help="int8: serve int8 weight-only projections (weights "
                         "pushed in the model dtype are re-quantized)")
+    p.add_argument("--lora-rank", type=int, default=0,
+                   help="LoRA delta sync: serve base + adapters; pushes "
+                        "carry only the adapters (match the trainer's rank)")
+    p.add_argument("--lora-alpha", type=float, default=16.0)
     p.add_argument("--max-slots", type=int, default=64)
     p.add_argument("--page-size", type=int, default=64)
     p.add_argument("--max-seq-len", type=int, default=16384)
@@ -282,7 +317,8 @@ def server_from_args(args: argparse.Namespace):
         kv_spill=not args.no_kv_spill, kv_spill_host_gb=args.kv_spill_host_gb,
         loop_profile=not args.no_loop_profile,
         manager_endpoint=args.manager_endpoint,
-        transfer_streams=args.transfer_streams)
+        transfer_streams=args.transfer_streams, is_local=args.is_local,
+        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha)
 
 
 def main() -> None:

@@ -8,6 +8,11 @@ protocol for the routes this slice serves:
                         finish_reason, weight_version; optional
                         ``group_id``/``group_size`` GRPO hints
 - GET  /health, /health_generate (503 while draining), /get_server_info
+- GET  /statusz         the rollout plane's side of the shared /statusz
+                        schema (``obs/statusz.py``): the flight deck with
+                        its ``loop`` block, the memory plane, the
+                        time-series rail of ``server_info`` samples
+- GET  /metrics         ``server_info``'s numbers as Prometheus text
 - POST /abort_request   one rid, or every request when rid is empty
 - POST /update_weights_from_agent   install a weight push the server's
                         ``ReceiverAgent`` landed (``serve.register_with_manager``)
@@ -26,7 +31,11 @@ copies each entry to a staging tree on the engine's device, and the engine
 then copies the staging tree into its live tensors in place, between
 dispatches, and raises ``weight_version`` (``update_weights_from_agent``).
 The live tensors are never rebound: the engine's CUDA graphs replay from
-their addresses.
+their addresses. A LoRA server (``serve --lora-rank``) takes delta pushes
+(``trainer.weight_sync=lora_delta``): the wire carries the adapter tree
+(``weight_template``) and ``weight_apply`` (``lora.apply_adapters``)
+copies its ``a``/``b`` into the live adapter tensors under the dispatch
+lock, leaving the bases untouched.
 
 Two backends: a ``CBEngine`` admits requests itself (continuous batching);
 a ``RolloutEngine`` (the step backend) is driven through
@@ -92,6 +101,14 @@ class RolloutServer:
         # ``meta`` tensors with its names, shapes and dtypes); None = the
         # engine's params
         self.weight_template = None
+        # installs a push that is not a whole tree (a LoRA server's
+        # adapters: ``lora.apply_adapters``) into the engine's live tree in
+        # place; None = a full push
+        self.weight_apply = None
+        # /statusz timeseries: one sample per server_info call (the
+        # manager's stats polls, statusz hits)
+        self._timeseries = obs.TimeSeriesStore()
+        self._ts_samples = 0
         # graceful preemption (POST /drain): running requests abort into
         # partials and new ones are refused with an abort terminal, so that
         # the manager's continuation re-routes them; one way
@@ -146,6 +163,16 @@ class RolloutServer:
                         self._json(200, {"status": "ok"})
                 elif self.path == "/get_server_info":
                     self._json(200, outer.server_info())
+                elif self.path == "/statusz":
+                    self._json(200, outer.statusz_snapshot())
+                elif self.path == "/metrics":
+                    body = outer.metrics_text().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
                 else:
                     self._json(404, {"error": f"no route {self.path}"})
 
@@ -320,10 +347,17 @@ class RolloutServer:
         return out, abort
 
     def update_weights(self, params: dict, version: int | None = None) -> None:
-        """Install a weight push: ``weight_preprocess`` first (re-quantize
-        for an int8 engine), then the engine's in-place swap, which refuses
-        a tree of other names, shapes or dtypes (between batches on the
-        step backend)."""
+        """Install a weight push: with ``weight_apply`` (a LoRA server's
+        adapter push) that hook writes into the live tree in place, else
+        ``weight_preprocess`` first (re-quantize for an int8 engine), then
+        the engine's in-place swap, which refuses a tree of other names,
+        shapes or dtypes. Either runs between dispatches (between batches
+        on the step backend)."""
+        if self.weight_apply is not None:
+            apply = self.weight_apply
+            self.engine.install_weights(lambda live: apply(live, params),
+                                        version)
+            return
         if self.weight_preprocess is not None:
             params = self.weight_preprocess(params)
         self.engine.update_weights(params, version)
@@ -557,7 +591,7 @@ class RolloutServer:
                 eng.device)
         if not self.cb:
             info["batch_buckets"] = list(eng.batch_buckets)
-            return info
+            return self._sample(info)
         info.update({
             "admit_wave": eng.admit_wave,
             "admit_reorder_window": eng.admit_reorder_window,
@@ -597,4 +631,100 @@ class RolloutServer:
         info.update(eng.deck.server_info_fields())
         info.update(eng.loop_profile_info())
         info.update(eng.kv_memory_info())
+        return self._sample(info)
+
+    def _sample(self, info: dict) -> dict:
+        """Fold ``info``'s numbers into the ``engine/*`` time-series rail
+        (sample index as x: slopes over the pollers' cadence)."""
+        self._ts_samples += 1
+        self._timeseries.observe(self._ts_samples, {
+            "engine/" + k: v for k, v in info.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)})
         return info
+
+    def statusz_snapshot(self) -> dict:
+        """The rollout plane's side of the shared /statusz schema: queue
+        depths, the weight version, the salvage and drain counters, the
+        flight deck (with its ``loop`` block, always present), the memory
+        plane and the time-series rail. Host state only: it runs on the
+        HTTP thread, and nothing here reads the device."""
+        from polyrl_tpu_torch.obs import statusz
+
+        info = self.server_info()
+        counters = {k: float(v) for k, v in info.items()
+                    if k in ("tokens_salvaged", "salvage_published_pages",
+                             "drained_requests", "spec_emitted",
+                             "spec_dispatches", "prefill_dispatches",
+                             "sibling_attach_dispatches",
+                             "group_forked_requests",
+                             "grouped_decode_dispatches")}
+        counters["total_tokens_served"] = float(
+            getattr(self.engine, "total_tokens_served", 0))
+        gauges = {k: float(v) for k, v in info.items()
+                  if isinstance(v, (int, float))
+                  and not isinstance(v, bool) and k not in counters}
+        gauges["draining"] = float(self._draining.is_set())
+        gauges["paused"] = float(self._paused.is_set())
+        eng = self.engine
+        engine_section: dict = {}
+        if self.cb:
+            engine_section = eng.deck.snapshot(
+                active=int(info.get("num_running_reqs", 0)),
+                queued=int(info.get("num_queued_reqs", 0)))
+            if eng.spec_tokens:
+                engine_section["spec"] = {
+                    "accept_rate": float(info.get("spec_accept_rate", 0.0)),
+                    "emitted": int(eng.spec_emitted),
+                    "dispatches": int(eng.spec_dispatches)}
+            engine_section["group"] = {
+                "admit_wave": int(eng.admit_wave),
+                "admit_reorder_window": int(eng.admit_reorder_window),
+                "group_share": bool(eng.group_share),
+                "decode_group_share": bool(eng.decode_group_share),
+                "group_preref_ttl_s": float(eng.group_preref_ttl_s),
+                "prefill_dispatches": int(eng.prefill_dispatches),
+                "sibling_attach_dispatches": int(
+                    eng.sibling_attach_dispatches),
+                "group_forked_requests": int(eng.group_forked_requests),
+                "grouped_decode_dispatches": int(
+                    eng.grouped_decode_dispatches),
+                "prefill_reuse_frac": float(
+                    info.get("prefill_reuse_frac", 0.0)),
+                "prefix_hit_frac": float(info.get("prefix_hit_frac", 0.0)),
+                "kv_read_pages_per_token": float(
+                    info.get("kv_read_pages_per_token", 0.0)),
+                "shared_prefix_read_frac": float(
+                    info.get("shared_prefix_read_frac", 0.0))}
+        # the loop block is always present ({"enabled": False} when off)
+        loop_snap = getattr(eng, "loop_profile_snapshot", None)
+        engine_section["loop"] = (loop_snap() if loop_snap is not None
+                                  else {"enabled": False})
+        kv_snap = getattr(eng, "kv_memory_snapshot", None)
+        return statusz.build_snapshot(
+            "rollout", counters=counters, gauges=gauges,
+            queues={"running": float(info.get("num_running_reqs", 0)),
+                    "queued": float(info.get("num_queued_reqs", 0))},
+            weights={"version": float(eng.weight_version)},
+            engine=engine_section,
+            timeseries=self._timeseries.section(),
+            memory=kv_snap() if kv_snap is not None else None)
+
+    def metrics_text(self) -> str:
+        """Prometheus text for /metrics: ``server_info``'s numbers as
+        gauges, ``total_tokens_served`` as a counter, at full precision."""
+
+        def fmt(v):
+            return str(int(v)) if float(v).is_integer() else repr(float(v))
+
+        lines = []
+        info = dict(self.server_info())
+        info.setdefault("total_tokens_served",
+                        getattr(self.engine, "total_tokens_served", 0))
+        for k, v in info.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            name = "polyrl_" + k.replace("#", "num_").replace("/", "_")
+            kind = "counter" if k == "total_tokens_served" else "gauge"
+            lines.append(f"# TYPE {name} {kind}")
+            lines.append(f"{name} {fmt(v)}")
+        return "\n".join(lines) + "\n"

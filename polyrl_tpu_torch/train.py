@@ -10,12 +10,18 @@ the paged CB engine, or ``step``, the bucketed ``RolloutEngine``); with
 supervised, or ``rollout.manager_endpoint``), the weight fabric
 (``TransferInterface``), the pool and ``RemoteRollout``, while the rollout
 servers run as their own processes (``python -m
-polyrl_tpu_torch.rollout.serve --manager host:port``) --, reward
+polyrl_tpu_torch.rollout.serve --manager-endpoint host:port``), and with
+``rollout.colocated_local`` an in-process engine on the trainer's card
+serves beside them as a local, time-sliced instance --, reward
 manager, datasets (training and, with
 ``data.val_path``, validation), actor, the critic (with
 ``trainer.adv_estimator=gae``, from ``trainer.seed + 1``) and (with a KL
-term) the reference policy, assemble the trainer (its checkpoint manager
-with ``trainer.ckpt_dir``) and run ``fit``. ``device``
+term) the reference policy, the observability planes (``obs``: tracing,
+the flight recorder, the health ledger, ``/statusz``) and the
+``Tracking`` logger (``logging``), assemble the trainer (its checkpoint
+manager with ``trainer.ckpt_dir``) and run ``fit``. With
+``trainer.weight_sync=lora_delta`` each push carries only the LoRA
+adapters, to servers started with the same ``--lora-rank``. ``device``
 defaults to ``cuda`` and raises without a card; ``device=cpu`` runs the
 same path on the CPU with the kernels' plain versions.
 """
@@ -26,6 +32,7 @@ import argparse
 import importlib.util
 import json
 import logging
+import os
 import sys
 
 import torch
@@ -87,13 +94,63 @@ def _build_model(cfg: RunConfig, device: torch.device):
     return mcfg, decoder.init_params(gen, mcfg)
 
 
-def _build_remote(cfg: RunConfig, params, tokenizer, cleanup: list):
+def _check_weight_sync(cfg: RunConfig) -> None:
+    """The delta-sync combinations the reference refuses, checked before
+    any manager is spawned."""
+    if cfg.trainer.weight_sync != "lora_delta":
+        return
+    if cfg.rollout.mode != "disaggregated":
+        raise NotImplementedError(
+            "weight_sync=lora_delta requires rollout.mode=disaggregated "
+            "(a colocated in-process engine holds the plain tree; adapter "
+            "pushes target servers started with --lora-rank)")
+    if cfg.actor.lora_rank <= 0:
+        raise ValueError(
+            "trainer.weight_sync=lora_delta requires actor.lora_rank>0")
+    if cfg.rollout.colocated_local:
+        raise NotImplementedError(
+            "weight_sync=lora_delta with colocated_local is not supported: "
+            "the in-process engine serves the plain merged tree and cannot "
+            "take adapter-only pushes")
+
+
+def _cb_engine(cfg: RunConfig, mcfg, params, tokenizer, device):
+    """The paged CB engine with the ``rollout`` section's settings (the
+    colocated rollout, and the hybrid's local engine)."""
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+
+    r = cfg.rollout
+    kwargs = {}
+    if r.prompt_buckets:
+        kwargs["prompt_buckets"] = tuple(r.prompt_buckets)
+    return CBEngine(
+        mcfg, params, pad_token_id=tokenizer.pad_token_id,
+        kv_cache_dtype=getattr(torch, r.kv_cache_dtype or cfg.model.dtype),
+        max_slots=r.max_slots, page_size=r.page_size, max_seq_len=r.max_seq_len,
+        num_pages=r.num_pages or None, steps_per_dispatch=r.steps_per_dispatch,
+        prefill_chunk=r.prefill_chunk, spec_tokens=r.spec_tokens,
+        spec_rounds=r.spec_rounds, salvage_partials=r.salvage_partials,
+        admit_wave=r.admit_wave, admit_reorder_window=r.admit_reorder_window,
+        group_share=r.group_share, decode_group_share=r.decode_group_share,
+        group_preref_ttl_s=r.group_preref_ttl_s, kv_ledger=r.kv_ledger,
+        kv_cold_after_dispatches=r.kv_cold_after_dispatches,
+        kv_spill=r.kv_spill, kv_spill_host_gb=r.kv_spill_host_gb,
+        kv_spill_high_watermark=r.kv_spill_high_watermark,
+        kv_spill_low_watermark=r.kv_spill_low_watermark,
+        loop_profile=r.loop_profile, seed=cfg.trainer.seed,
+        device=device, **kwargs)
+
+
+def _build_remote(cfg: RunConfig, mcfg, params, tokenizer, device,
+                  cleanup: list):
     """The disaggregated rollout: a ManagerClient (of a locally spawned,
     supervised manager unless ``rollout.manager_endpoint`` names one), the
-    weight fabric, the pool control plane and ``RemoteRollout``. Rollout
-    servers join the pool on their own (``serve --manager``); their weight
-    receivers connect to the sender registered here, so start them after
-    this returns."""
+    weight fabric (its layout the adapter tree under lora_delta), with
+    ``rollout.colocated_local`` the in-process engine behind a local
+    ``RolloutServer``, the pool control plane and ``RemoteRollout``.
+    Rollout servers join the pool on their own (``serve
+    --manager-endpoint``); their weight receivers connect to the sender
+    registered here, so start them after this returns."""
     from polyrl_tpu_torch.manager.client import ManagerClient
     from polyrl_tpu_torch.manager.supervisor import ManagerSupervisor
     from polyrl_tpu_torch.rollout.pool import PoolManager
@@ -129,13 +186,35 @@ def _build_remote(cfg: RunConfig, params, tokenizer, cleanup: list):
         transfer_fault = TransferFaultInjector(cfg.transfer.fault_injection)
         log.warning("transfer fault injection ENABLED: %s",
                     cfg.transfer.fault_injection)
+    template = params
+    if cfg.trainer.weight_sync == "lora_delta":
+        # the wire carries only the adapters (checked at the top)
+        from polyrl_tpu_torch.models import lora
+
+        template = lora.adapter_template(mcfg, cfg.actor.lora_rank)
     iface = TransferInterface(
-        params, manager_client=mgr, num_streams=r.transfer_streams,
+        template, manager_client=mgr, num_streams=r.transfer_streams,
         advertise_host=r.advertise_host, sender_groups=r.sender_groups,
         sender_nic_cidr=r.sender_nic_cidr,
         groups_per_sender=r.groups_per_sender, cfg=cfg.transfer,
         fault=transfer_fault)
     cleanup.append(iface.close)
+    local_server = None
+    if r.colocated_local:
+        # the hybrid: an in-process engine shares the trainer's card and
+        # registers as a LOCAL instance, which the manager time-slices
+        # (aborted after the balancer's window); RemoteRollout resumes its
+        # KV before each generation phase and releases it after
+        from polyrl_tpu_torch.rollout.server import RolloutServer
+
+        eng = _cb_engine(cfg, mcfg, params, tokenizer, device)
+        local_server = RolloutServer(eng, host="127.0.0.1", port=0).start()
+        cleanup.append(local_server.stop)
+        # through the trainer's own client: the supervisor then replays
+        # the local endpoint after a manager respawn
+        mgr.register_local_rollout_instances([local_server.endpoint])
+        log.info("colocated local engine registered at %s",
+                 local_server.endpoint)
     # fleet control plane: membership sweeps, pool/* step gauges, join
     # gating and preemption drills; a receiver that exhausts its push
     # retry budget is drained and deregistered through it
@@ -143,7 +222,7 @@ def _build_remote(cfg: RunConfig, params, tokenizer, cleanup: list):
     cleanup.append(pool.close)
     iface.set_laggard_callback(pool.escalate_laggard)
     pool.transfer_health_fn = iface.sync_health
-    return RemoteRollout(mgr, transfer=iface, local_server=None,
+    return RemoteRollout(mgr, transfer=iface, local_server=local_server,
                          pad_token_id=tokenizer.pad_token_id,
                          resume_budget=r.resume_budget,
                          resume_wait_s=r.resume_wait_s,
@@ -155,49 +234,28 @@ def _build_remote(cfg: RunConfig, params, tokenizer, cleanup: list):
 def _build_rollout(cfg: RunConfig, mcfg, params, tokenizer, device,
                    cleanup: list | None = None):
     r = cfg.rollout
+    _check_weight_sync(cfg)
     if r.mode == "disaggregated":
         cleanup = [] if cleanup is None else cleanup
-        if r.colocated_local:
-            raise NotImplementedError(
-                "rollout.colocated_local (an in-process engine time-sliced "
-                "beside the remote pool) is not ported to polyrl_tpu_torch "
-                "yet (ROADMAP A' 7)")
-        return _build_remote(cfg, params, tokenizer, cleanup)
+        return _build_remote(cfg, mcfg, params, tokenizer, device, cleanup)
     if r.mode != "colocated":
         raise ValueError(f"unknown rollout.mode {r.mode!r} "
                          "(colocated or disaggregated)")
     if r.backend not in ("cb", "step"):
         raise ValueError(f"unknown rollout.backend {r.backend!r} (cb or step)")
-    kv_dtype = getattr(torch, r.kv_cache_dtype or cfg.model.dtype)
-    kwargs = {}
-    if r.prompt_buckets:
-        kwargs["prompt_buckets"] = tuple(r.prompt_buckets)
     if r.backend == "step":
         from polyrl_tpu_torch.rollout.engine import RolloutEngine
 
+        kwargs = {}
+        if r.prompt_buckets:
+            kwargs["prompt_buckets"] = tuple(r.prompt_buckets)
         if r.batch_buckets:
             kwargs["batch_buckets"] = tuple(r.batch_buckets)
-        return RolloutEngine(mcfg, params, pad_token_id=tokenizer.pad_token_id,
-                             kv_cache_dtype=kv_dtype, seed=cfg.trainer.seed,
-                             device=device, **kwargs)
-    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
-
-    return CBEngine(
-        mcfg, params, pad_token_id=tokenizer.pad_token_id,
-        kv_cache_dtype=kv_dtype,
-        max_slots=r.max_slots, page_size=r.page_size, max_seq_len=r.max_seq_len,
-        num_pages=r.num_pages or None, steps_per_dispatch=r.steps_per_dispatch,
-        prefill_chunk=r.prefill_chunk, spec_tokens=r.spec_tokens,
-        spec_rounds=r.spec_rounds, salvage_partials=r.salvage_partials,
-        admit_wave=r.admit_wave, admit_reorder_window=r.admit_reorder_window,
-        group_share=r.group_share, decode_group_share=r.decode_group_share,
-        group_preref_ttl_s=r.group_preref_ttl_s, kv_ledger=r.kv_ledger,
-        kv_cold_after_dispatches=r.kv_cold_after_dispatches,
-        kv_spill=r.kv_spill, kv_spill_host_gb=r.kv_spill_host_gb,
-        kv_spill_high_watermark=r.kv_spill_high_watermark,
-        kv_spill_low_watermark=r.kv_spill_low_watermark,
-        loop_profile=r.loop_profile, seed=cfg.trainer.seed,
-        device=device, **kwargs)
+        return RolloutEngine(
+            mcfg, params, pad_token_id=tokenizer.pad_token_id,
+            kv_cache_dtype=getattr(torch, r.kv_cache_dtype or cfg.model.dtype),
+            seed=cfg.trainer.seed, device=device, **kwargs)
+    return _cb_engine(cfg, mcfg, params, tokenizer, device)
 
 
 def build_trainer(cfg: RunConfig, cleanup: list | None = None,
@@ -206,14 +264,26 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
     callables (the engine's loop thread; the spawned manager, the fabric
     and the pool of a disaggregated rollout); ``compute_score`` overrides the
     reward function (else ``reward.custom_score_path`` or the default
-    per-dataset scorers)."""
+    per-dataset scorers). The observability planes are configured first,
+    so that spans of the bring-up (manager spawn, fabric registration)
+    land in the ring."""
     from polyrl_tpu_torch.data.dataset import PromptDataLoader
     from polyrl_tpu_torch.rewards.manager import load_reward_manager
     from polyrl_tpu_torch.trainer.actor import ReferencePolicy, StreamActor
     from polyrl_tpu_torch.trainer.critic import StreamCritic, init_critic_params
     from polyrl_tpu_torch.trainer.stream_trainer import StreamRLTrainer
 
+    from polyrl_tpu_torch import obs
+    from polyrl_tpu_torch.utils.metrics import Tracking
+
     cleanup = [] if cleanup is None else cleanup
+    # the trace dir defaults next to the JSONL metrics
+    trace_dir = cfg.obs.trace_dir
+    if not trace_dir and cfg.obs.trace and cfg.logging.path:
+        trace_dir = os.path.dirname(os.path.abspath(cfg.logging.path))
+    obs.configure(trace=cfg.obs.trace, max_spans=cfg.obs.trace_buffer,
+                  out_dir=trace_dir or None,
+                  jax_annotations=cfg.obs.jax_annotations)
     device = resolve_device(cfg.device)
     tokenizer = build_tokenizer(cfg)
     mcfg, params = _build_model(cfg, device)
@@ -245,22 +315,37 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
                  else "bounded-staleness admission gate",
                  "on" if cfg.trainer.rollout_is_correction else "OFF",
                  cfg.trainer.rollout_is_cap)
-    return StreamRLTrainer(cfg.trainer, actor, rollout, tokenizer,
-                           reward_manager, loader, critic=critic,
-                           ref_policy=ref_policy, logger=_ConsoleLogger(),
-                           val_dataset=build_dataset(cfg, "val"))
+    logger = Tracking(backends=tuple(cfg.logging.backends),
+                      path=cfg.logging.path or None)
+    cleanup.append(logger.close)
+    recorder = None
+    if cfg.obs.recorder:
+        from polyrl_tpu_torch.obs.recorder import FlightRecorder
 
-
-class _ConsoleLogger:
-    """One line per step: wall, reward and policy loss."""
-
-    KEYS = ("perf/step_time_s", "reward/mean", "actor/pg_loss",
-            "critic/vf_loss", "val/test_score/mean",
-            "training/resumed_from_step")
-
-    def log(self, metrics: dict, step: int) -> None:
-        brief = {k: round(metrics[k], 4) for k in self.KEYS if k in metrics}
-        print(f"[step {step}] {brief}", flush=True)
+        rec_dir = (cfg.obs.recorder_dir
+                   or (os.path.dirname(os.path.abspath(cfg.logging.path))
+                       if cfg.logging.path else "polyrl_postmortem"))
+        recorder = FlightRecorder(
+            rec_dir, keep_steps=cfg.obs.recorder_keep_steps,
+            z_threshold=cfg.obs.recorder_z, warmup=cfg.obs.recorder_warmup,
+            max_bundles=cfg.obs.recorder_max_bundles)
+        log.info("flight recorder armed: bundles -> %s/postmortem", rec_dir)
+    health = (obs.TrainingHealthLedger(
+        tail_steps=cfg.obs.rlhealth_tail,
+        max_group_rows=cfg.obs.rlhealth_group_rows)
+        if cfg.obs.rlhealth else False)
+    trainer = StreamRLTrainer(cfg.trainer, actor, rollout, tokenizer,
+                              reward_manager, loader, critic=critic,
+                              ref_policy=ref_policy, logger=logger,
+                              val_dataset=build_dataset(cfg, "val"),
+                              recorder=recorder, health=health)
+    if cfg.obs.statusz:
+        srv = trainer.start_statusz(port=cfg.obs.statusz_port,
+                                    host=cfg.obs.statusz_host)
+        cleanup.append(trainer.stop_statusz)
+        log.info("trainer /statusz serving at http://%s/statusz",
+                 srv.endpoint)
+    return trainer
 
 
 def _dump(cfg: RunConfig) -> str:
@@ -291,6 +376,9 @@ def main(argv: list[str] | None = None) -> int:
     cleanup: list = []
     try:
         trainer = build_trainer(cfg, cleanup)
+        if trainer._recorder is not None:
+            # SIGTERM (a timeout, a preemption) dumps a bundle first
+            trainer._recorder.install_signal_handlers()
         history = trainer.fit()
         if history:
             log.info("finished %d steps; final metrics: %s", trainer.global_step,

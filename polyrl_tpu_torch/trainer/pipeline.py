@@ -40,9 +40,10 @@ step after the copy. A remote rollout's push is asynchronous instead
 (``update_weights_async`` on a clone of the tree), and the producer takes
 the finished steps' manager scrape and balancer round trip off the hot
 path (``submit_step_stats``): their gauges land in the next consumed
-step's record. Not ported yet: the tracing spans of the producer lane
-(with the observability planes) and the multi-host fan-out (with
-``parallel/*``).
+step's record. The producer's ``trainer/prefetch`` spans adopt the trace
+context of the ``fit`` that started the lane, so the critical path sees
+the hidden generation (``obs/critical_path.py``). The multi-host fan-out
+waits with ``parallel/*`` (ROADMAP A' 9).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ import queue
 import threading
 import time
 
+from polyrl_tpu_torch import obs
 from polyrl_tpu_torch.utils.metrics import MetricsTracker
 
 log = logging.getLogger(__name__)
@@ -83,6 +85,9 @@ class RolloutPipeline:
         self._stats_q: queue.Queue = queue.Queue()
         self._gauges: dict[str, float] = {}
         self._gauges_lock = threading.Lock()
+        # the producer's spans adopt the fit's context: the lane shows in
+        # the same trace, on its own thread's track
+        self._trace_ctx = obs.get_tracer().capture()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -110,6 +115,10 @@ class RolloutPipeline:
     # -- producer lane ------------------------------------------------------
 
     def _run(self, start_step: int, total_steps: int) -> None:
+        with obs.get_tracer().adopt(self._trace_ctx):
+            self._produce(start_step, total_steps)
+
+    def _produce(self, start_step: int, total_steps: int) -> None:
         trainer = self.trainer
         for step in range(start_step, total_steps):
             if not self._acquire_credit():
@@ -136,13 +145,16 @@ class RolloutPipeline:
                     "perf/staleness_limit": float(limit)})
                 version = trainer._push_count
                 gen_t0 = time.monotonic()
-                records = next(trainer.dataloader)
-                loader_state = (trainer.dataloader.state_dict()
-                                if hasattr(trainer.dataloader, "state_dict")
-                                else None)
-                for ib in trainer._ibatch_iter_local(records, None, prod_metrics):
-                    if not self._put(("ibatch", step, ib)):
-                        return
+                with obs.span("trainer/prefetch", step=step + 1,
+                              version=version):
+                    records = next(trainer.dataloader)
+                    loader_state = (trainer.dataloader.state_dict()
+                                    if hasattr(trainer.dataloader,
+                                               "state_dict") else None)
+                    for ib in trainer._ibatch_iter_local(records, None,
+                                                         prod_metrics):
+                        if not self._put(("ibatch", step, ib)):
+                            return
             except BaseException as exc:  # noqa: BLE001 — raised again on
                 # the foreground by step_ibatches
                 log.exception("rollout pipeline producer failed at step %d",

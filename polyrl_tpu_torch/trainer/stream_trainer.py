@@ -23,18 +23,22 @@ with a critic and GAE (``trainer/critic.py``), packed rows
 (``use_remove_padding``, ``data/packing.py``: the logprob, value and update
 passes on ``[n_rows, pack_len]`` grids through K4 with segment ids),
 checkpoint/resume (``utils/checkpoint.py``), validation, LoRA actors
-(the push sends ``actor.export_params()``, the merged plain tree, so the
-engine never holds a wrapper), optimizer offload after each step's push,
-and step profiling (``profile_steps`` through ``torch.profiler``;
-consecutive profiled steps share one trace under ``profile_dir``).
-
-Not ported yet, each refused with a clear error: LoRA delta sync
-(ROADMAP A' 7), the observability planes (goodput, health ledger, flight
-recorder, statusz; ROADMAP A' 6) and multi-host.
+(the push sends ``actor.export_params()``, the merged plain tree, or with
+``weight_sync=lora_delta`` only ``lora.extract_adapters`` of the wrapped
+tree, to servers that serve the same base with ``--lora-rank``),
+optimizer offload after each step's push, step profiling
+(``profile_steps`` through ``torch.profiler``; consecutive profiled steps
+share one trace under ``profile_dir``), and the observability planes the
+reference runs: the goodput ledger (every record's ``goodput/*``), the
+training health ledger (``training/*``, on unless ``health=False``), the
+critical path when tracing is on (``critpath/*``), the time-series rail,
+the flight recorder's hooks and the trainer's ``/statusz``
+(``start_statusz``). Multi-host is not ported (ROADMAP A' 9).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import logging
@@ -48,6 +52,7 @@ import torch
 
 from polyrl_tpu_torch import obs
 from polyrl_tpu_torch.data.batch import TensorBatch
+from polyrl_tpu_torch.obs.histogram import registry_total
 from polyrl_tpu_torch.ops import core_algos
 from polyrl_tpu_torch.rollout.sampling import SamplingParams
 from polyrl_tpu_torch.utils import checkpoint as ckpt_lib
@@ -110,7 +115,7 @@ class TrainerConfig:
     kl_coef: float = 0.001
     kl_penalty: str = "kl"
     norm_adv_by_std_in_grpo: bool = True
-    weight_sync: str = "full"             # full | lora_delta (not ported)
+    weight_sync: str = "full"             # full | lora_delta (adapters only)
     # pipelined rollout (trainer/pipeline.py): 0 = the serial loop; N >= 1
     # lets a background lane generate up to N steps ahead of training, so
     # rollouts arrive weight-version stale (see rollout_is_correction)
@@ -188,15 +193,6 @@ class TrainerConfig:
                 " advantages would silently use partial groups)")
 
 
-def _unported(cfg: TrainerConfig, rollout) -> str | None:
-    """Why the trainer refuses this configuration, or None."""
-    if cfg.weight_sync == "lora_delta":
-        return ("weight_sync=lora_delta (adapter-only pushes to "
-                "disaggregated rollout servers serving --lora-rank) is not "
-                "ported to polyrl_tpu_torch yet (ROADMAP A' 7)")
-    return None
-
-
 def _remote(rollout) -> bool:
     """A remote rollout (``RemoteRollout``) streams; an engine generates."""
     return hasattr(rollout, "generate_stream")
@@ -227,12 +223,9 @@ def _pack_feed(pack) -> dict:
 class StreamRLTrainer:
     def __init__(self, cfg: TrainerConfig, actor, rollout, tokenizer,
                  reward_manager, dataloader, critic=None, ref_policy=None,
-                 logger=None, val_dataset=None):
+                 logger=None, val_dataset=None, recorder=None, health=None):
         if cfg.adv_estimator == "gae" and critic is None:
             raise ValueError("GAE requires a critic")
-        missing = _unported(cfg, rollout)
-        if missing is not None:
-            raise NotImplementedError(missing)
         if cfg.pipeline_depth > 0 and not cfg.rollout_is_correction:
             log.warning(
                 "pipeline_depth=%d without rollout_is_correction: rollouts "
@@ -271,6 +264,44 @@ class StreamRLTrainer:
         self._profiler = None  # the open torch.profiler trace, if any
         self._profiled: list[int] = []
         self.profile_traces: list[str] = []  # traces written so far
+        # goodput (obs/goodput.py): each step's wall in non-overlapping
+        # phases; /statusz reads the cumulative side
+        self._goodput = obs.GoodputLedger(flops=self._flops)
+        self._statusz = None
+        # the last per-step critical paths (tracing on), for bundles
+        self._critpaths: collections.deque = collections.deque(maxlen=32)
+        # every finished step record folds into the time-series rail
+        # (the /statusz timeseries section)
+        self._timeseries = obs.TimeSeriesStore()
+        # the training health ledger: on by default, health=False turns
+        # it off, a ledger passed in configures its tails
+        if health is None:
+            health = obs.TrainingHealthLedger()
+        self._health = health or None
+        # the anomaly flight recorder: fed each step record; its bundles
+        # read the health ledger, the critical paths and, on a remote
+        # rollout, the fault counters and the pool's views (resolved at
+        # dump time: the pool may attach later)
+        self._recorder = recorder
+        if recorder is not None:
+            if self._health is not None:
+                recorder.training_fn = self._health.bundle_view
+            recorder.critical_path_fn = self._critical_path_view
+            if _remote(rollout):
+                recorder.counters_fn = rollout.fault_counters
+                recorder.engine_fn = lambda: (
+                    rollout.pool.engine_section()
+                    if rollout.pool is not None else {})
+                recorder.memory_fn = lambda: (
+                    rollout.pool.memory_section()
+                    if rollout.pool is not None else {})
+
+                def _loop_profile_view():
+                    if rollout.pool is None:
+                        return {}
+                    section = rollout.pool.loop_profile_section()
+                    return section if section.get("enabled") else {}
+                recorder.engine_profile_fn = _loop_profile_view
 
     # -- profiling (reference _profile_gate) -------------------------------
 
@@ -448,12 +479,23 @@ class StreamRLTrainer:
         rollout's blocking push packs the live tensors device to host
         before it returns (``TransferInterface``), so the next optimizer
         step on this thread comes after the pack."""
-        params = self.actor.export_params()
+        params = self._gather_push_params()
         if not block and hasattr(self.rollout, "update_weights_async"):
             self.rollout.update_weights_async(_clone_tree(params))
         else:
             self.rollout.update_weights(params)
         self._push_count += 1
+
+    def _gather_push_params(self) -> dict:
+        """What a push carries: with ``weight_sync=lora_delta`` only the
+        adapters (``lora.extract_adapters``: ``a``/``b``, ``alpha`` and the
+        base's fingerprint), which the servers install into their live
+        ``a``/``b``; else the merged plain tree (``export_params``)."""
+        if self.cfg.weight_sync == "lora_delta":
+            from polyrl_tpu_torch.models import lora
+
+            return lora.extract_adapters(self.actor.params)
+        return self.actor.export_params()
 
     def _wait_pushed(self) -> None:
         """Fence on the last asynchronous push: returns when it has landed
@@ -518,6 +560,7 @@ class StreamRLTrainer:
                     ibatch.tensors["values"] = _host(
                         self.critic.compute_values(feed))
 
+        tis_w = tis_stats = None
         with marked_timer("adv", metrics):
             mask = _t(ibatch["response_mask"])
             token_rewards = _t(token_level_scores)
@@ -567,6 +610,22 @@ class StreamRLTrainer:
                 ibatch.tensors["advantages"] = ibatch.tensors["advantages"] * tis_w
                 metrics.update({"actor/tis_weight_mean": tis_stats["mean_weight"],
                                 "actor/tis_clip_frac": tis_stats["clip_frac"]})
+        if self._health is not None:
+            # every array here is a host copy this pass already made (the
+            # logprobs came off the device above): no extra sync
+            self._health.observe_ibatch(
+                advantages=np.asarray(ibatch["advantages"]),
+                response_mask=np.asarray(ibatch["response_mask"]),
+                group_ids=np.asarray(ibatch["group_ids"]),
+                traj_rewards=np.asarray(ibatch["token_level_rewards"]).sum(-1),
+                data_sources=ibatch["data_source"],
+                old_log_probs=np.asarray(ibatch["old_log_probs"]),
+                rollout_log_probs=np.asarray(ibatch["rollout_log_probs"]),
+                tis_weights=tis_w, tis_stats=tis_stats,
+                weight_versions=ibatch.tensors.get("rollout_weight_versions"),
+                current_version=int(getattr(self.rollout,
+                                            "weight_version", 0)),
+                max_response_length=cfg.max_response_length)
         return ibatch
 
     # -- packed-sequence (remove-padding) path -----------------------------
@@ -776,17 +835,33 @@ class StreamRLTrainer:
         mid-minibatch flushes the accumulated gradients."""
         cfg = self.cfg
         msize = cfg.ppo_mini_batch_size
-        state = {"processed": 0, "n_tokens": 0, "bubble": 0.0}
+        state = {"processed": 0, "n_tokens": 0, "bubble": 0.0,
+                 "rtt_in_bubble": 0.0}
+
+        def wait_for(it):
+            """The next ibatch (None at the stream's end), its wait added
+            to the bubble, the wait that ends the stream too (the remote
+            stream's tail, the hybrid's local engine handing its KV back;
+            the reference drops that one), and the manager round trips
+            inside it (the goodput ledger counts them as manager_rtt, not
+            bubble)."""
+            wait_t0 = time.monotonic()
+            rtt0 = registry_total("manager/rtt_s")
+            try:
+                # the wait span is what the critical path attributes: to
+                # generate where generation covers it, else bubble
+                with obs.span("trainer/ibatch_wait"):
+                    return next(it)
+            except StopIteration:
+                return None
+            finally:
+                state["bubble"] += time.monotonic() - wait_t0
+                state["rtt_in_bubble"] += max(
+                    0.0, registry_total("manager/rtt_s") - rtt0)
 
         def micro_stream():
             it = ibatch_source()
-            while True:
-                wait_t0 = time.monotonic()
-                try:
-                    ibatch = next(it)
-                except StopIteration:
-                    return
-                state["bubble"] += time.monotonic() - wait_t0
+            while (ibatch := wait_for(it)) is not None:
                 ibatch = self._process_ibatch(ibatch, metrics)
                 state["n_tokens"] += int(np.asarray(ibatch["attention_mask"]).sum())
                 if cfg.use_remove_padding:
@@ -829,6 +904,78 @@ class StreamRLTrainer:
                 metrics.update({k: float(v) for k, v in
                                 self.critic.flush_opt_step().items()})
         return state
+
+    # -- the live health plane (/statusz) ------------------------------------
+
+    def start_statusz(self, port: int = 0, host: str = "127.0.0.1"):
+        """Serve this trainer's ``/statusz`` (and ``/metrics``); returns
+        the server (``.endpoint``)."""
+        self._statusz = obs.StatuszServer(self.statusz_snapshot,
+                                          host=host, port=port).start()
+        return self._statusz
+
+    def stop_statusz(self) -> None:
+        if self._statusz is not None:
+            self._statusz.stop()
+            self._statusz = None
+
+    def statusz_snapshot(self) -> dict:
+        """The trainer's side of the shared /statusz schema: the step, the
+        cumulative goodput split, the last record's histograms and gauges,
+        the fault and anomaly counters, the push version and lag, the
+        pipeline's queues, the pool's membership, engine, loop and memory
+        views, the health ledger and the time-series rail. Host state only
+        (it runs on the exporter's thread): no read here touches the
+        device."""
+        from polyrl_tpu_torch.obs import statusz
+
+        rec = self._last_record
+        counters: dict[str, float] = {}
+        if _remote(self.rollout):
+            counters.update(self.rollout.fault_counters())
+        if self._recorder is not None:
+            counters.update(self._recorder.counters())
+        gauges = {k: float(v) for k, v in rec.items()
+                  if k.startswith(("perf/", "training/", "manager/",
+                                   "pool/", "engine/", "critpath/"))}
+        pool = getattr(self.rollout, "pool", None)
+        return statusz.build_snapshot(
+            "trainer", step=self.global_step,
+            goodput=self._goodput.snapshot(),
+            histograms=statusz.nest_histograms(rec),
+            counters=counters, gauges=gauges,
+            queues={"pipeline_depth": float(self.cfg.pipeline_depth),
+                    "staleness_limit": float(self.cfg.staleness_limit),
+                    "pipeline_queue": float(rec.get(
+                        "perf/pipeline_queue_depth", 0.0))},
+            weights={"push_count": float(self._push_count),
+                     "push_lag": float(self._push_lag()),
+                     "version": float(getattr(self.rollout,
+                                              "weight_version", 0)),
+                     "staleness": float(rec.get(
+                         "perf/weight_staleness", 0.0)),
+                     "push_streams": counters.get(
+                         "transfer/push_streams", 0.0),
+                     "stream_bw_mbps_min": counters.get(
+                         "transfer/stream_bw_mbps_min", 0.0),
+                     "reshard_bytes": counters.get(
+                         "transfer/reshard_bytes", 0.0),
+                     "stream_resumes": counters.get(
+                         "transfer/stream_resumes", 0.0)},
+            pool=pool.statusz_section() if pool is not None else None,
+            engine=pool.engine_section() if pool is not None else None,
+            training=(self._health.snapshot()
+                      if self._health is not None else None),
+            timeseries=self._timeseries.section(),
+            memory=pool.memory_section() if pool is not None else None)
+
+    def _critical_path_view(self) -> dict:
+        """Recorder hook: the last per-step critical paths
+        (``critical_path.json``; empty until tracing has made one)."""
+        if not self._critpaths:
+            return {}
+        return {"count": len(self._critpaths),
+                "paths": list(self._critpaths)}
 
     # -- remote rollout: the balancer and the control-plane gauges ---------
 
@@ -904,6 +1051,10 @@ class StreamRLTrainer:
                 self._profile_gate(self.global_step + 1)
                 metrics = MetricsTracker()
                 step_t0 = time.monotonic()
+                # manager round trips observed before the step began (the
+                # bootstrap push's, a pre-train validation's): not this
+                # step's manager_rtt
+                rtt_pre = registry_total("manager/rtt_s")
                 if pipeline is None:
                     records = next(self.dataloader)
                     if hasattr(self.dataloader, "state_dict"):
@@ -914,9 +1065,17 @@ class StreamRLTrainer:
                     step = self.global_step
                     source = lambda: pipeline.step_ibatches(  # noqa: E731
                         step, metrics)
-                state = self._train_one_batch(source, metrics)
-                with marked_timer("update_weight", metrics):
-                    self._push_weights(block=cfg.pipeline_depth == 0)
+                # the root span: every phase span, manager call, engine
+                # span and fabric push of the step shares its trace id
+                with obs.span("trainer/step", step=self.global_step + 1,
+                              depth=cfg.pipeline_depth):
+                    state = self._train_one_batch(source, metrics)
+                    rtt_push = registry_total("manager/rtt_s")
+                    with marked_timer("update_weight", metrics):
+                        self._push_weights(block=cfg.pipeline_depth == 0)
+                    # the push's own round trips: weight_push holds them
+                    state["rtt_elsewhere"] = rtt_pre + max(
+                        0.0, registry_total("manager/rtt_s") - rtt_push)
                 # free the optimizer's device memory for generation (a
                 # no-op unless actor.cfg.offload_optimizer)
                 self.actor.offload_opt_state()
@@ -945,20 +1104,70 @@ class StreamRLTrainer:
                         esi_margin_s=cfg.esi_margin_s):
                     with marked_timer("save_checkpoint", metrics):
                         self._save_checkpoint()
-                # distributions observed by components without a tracker
-                # (fabric push and pack walls, manager round trips, the
-                # remote stream's per-request latency) for this step
-                metrics.merge_histograms(obs.drain_histograms())
-                record = metrics.as_dict()
-                self._last_record = record
-                history.append(record)
-                if self.logger is not None:
-                    self.logger.log(record, step=self.global_step)
+                self._finish_record(metrics, state, step_t0, n_traj, history)
+        except BaseException as exc:
+            if self._recorder is not None:
+                # the crash bundle: the span ring and every thread's stack
+                # at the moment of death
+                self._recorder.dump(f"crash-{type(exc).__name__}",
+                                    detail=repr(exc), step=self.global_step)
+            raise
         finally:
             if pipeline is not None:
                 pipeline.close()
             self._profile_gate(-1)  # close an open trace
         self._wait_pushed()  # the last push lands before fit returns
+        tracer = obs.get_tracer()
+        if tracer.enabled:
+            tracer.export_run()  # spans.jsonl + trace.json, with an out_dir
         if self._ckpt is not None:
             self._ckpt.wait()
         return history
+
+    def _finish_record(self, metrics: MetricsTracker, state: dict,
+                       step_t0: float, n_traj: int, history: list) -> None:
+        """The step record's roll-up, in the reference's order: the
+        histogram registry (fabric, manager round trips, the remote
+        stream's latencies), the goodput split of the full wall, the
+        critical path (tracing on), the health ledger's window, the
+        logger's and recorder's counters; then the time-series rail, the
+        recorder's watch and the logger."""
+        hists = obs.drain_histograms()
+        gp = self._goodput.account(
+            step_time_s=time.monotonic() - step_t0,
+            timings=metrics.timings(), bubble_s=state["bubble"],
+            overlap_s=metrics.get("perf/pipeline_overlap_s"),
+            histograms=hists, n_tokens=state["n_tokens"],
+            mean_context_len=state["n_tokens"] / n_traj,
+            rtt_in_bubble_s=state["rtt_in_bubble"],
+            rtt_elsewhere_s=state["rtt_elsewhere"])
+        metrics.update(gp)
+        metrics.merge_histograms(hists)
+        tracer = obs.get_tracer()
+        if tracer.enabled:
+            # windowed to the goodput wall, so validation and checkpoint
+            # time after the root span attribute as housekeeping
+            cp = obs.extract_critical_path(
+                tracer.records(), step=self.global_step,
+                wall_s=gp["goodput/step_wall_s"])
+            if cp is not None:
+                metrics.update_gauge(cp.metrics())
+                self._critpaths.append(cp.to_dict())
+        if self._health is not None:
+            hg, hh = self._health.finalize_step(self.global_step, metrics)
+            metrics.update_gauge(hg)
+            metrics.merge_histograms(hh)
+        if self.logger is not None:
+            metrics.update_gauge({"obs/log_errors": float(
+                getattr(self.logger, "log_errors", 0))})
+        if self._recorder is not None:
+            # one step of lag by design: the steps watched so far
+            metrics.update_gauge(self._recorder.counters())
+        record = metrics.as_dict()
+        self._last_record = record
+        history.append(record)
+        self._timeseries.observe(self.global_step, record)
+        if self._recorder is not None:
+            self._recorder.record_step(self.global_step, record)
+        if self.logger is not None:
+            self.logger.log(record, step=self.global_step)

@@ -348,6 +348,6 @@ class TransferInterface:
 
 def colocated_update(engine, params: Any, version: int | None = None) -> None:
     """In-process hand-off to a colocated rollout engine (it copies the
-    tree into its own tensors). No path calls it until the
-    ``colocated_local`` hybrid is ported (ROADMAP A' 7)."""
+    tree into its own tensors): the hybrid's local engine takes each push
+    this way (``RemoteRollout._update_local_copy``)."""
     engine.update_weights(params, version=version)

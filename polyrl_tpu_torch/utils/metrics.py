@@ -1,24 +1,29 @@
-"""Metrics tracking and phase timers.
+"""Metrics tracking, phase timers and logging backends.
 
-Counterpart of ``polyrl_tpu/utils/metrics.py``'s ``MetricsTracker`` and
-``marked_timer``: repeated keys average (losses), timing keys sum (a phase
-can run many times per step), gauges take the last value, counters sum
-raw, histograms summarise to percentiles. Metric names are ``area/name``.
-The tracer spans and profiler annotations of the JAX ``marked_timer``
-belong to the observability planes, which are not ported yet; the
-``Tracking`` logger waits with them.
+Counterpart of ``polyrl_tpu/utils/metrics.py``: ``MetricsTracker``
+(repeated keys average (losses), timing keys sum (a phase can run many
+times per step), gauges take the last value, counters sum raw, histograms
+summarise to percentiles), ``marked_timer`` (a phase's timing, a tracer
+span ``trainer/<phase>`` and, with ``obs.jax_annotations``, a
+``torch.profiler`` range) and the ``Tracking`` logger over console, JSONL,
+TensorBoard and W&B. Metric names are ``area/name``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import logging
 import os
 import time
 import warnings
 from collections import defaultdict
 from typing import Any
 
+from polyrl_tpu_torch import obs
 from polyrl_tpu_torch.obs.histogram import Histogram
+
+log = logging.getLogger(__name__)
 
 _collision_warned: set[str] = set()
 
@@ -126,12 +131,90 @@ class MetricsTracker:
 @contextlib.contextmanager
 def marked_timer(name: str, tracker: MetricsTracker):
     """Phase timer: always emits ``timing_s/<name>``, even when the phase
-    raises (a failure also counts ``<name>/failed``)."""
+    raises (a failure also counts ``<name>/failed``); opens the tracer
+    span ``trainer/<name>`` and, when enabled, a profiler range."""
     t0 = time.monotonic()
-    try:
-        yield
-    except BaseException:
-        tracker.incr(f"{name}/failed")
-        raise
-    finally:
-        tracker.add_timing(name, time.monotonic() - t0)
+    with obs.span("trainer/" + name), obs.phase_annotation(name):
+        try:
+            yield
+        except BaseException:
+            tracker.incr(f"{name}/failed")
+            raise
+        finally:
+            tracker.add_timing(name, time.monotonic() - t0)
+
+
+class Tracking:
+    """Console/JSONL/TensorBoard/W&B logger (the reference's ``Tracking``).
+    Each backend logs inside its own guard: a backend whose package is
+    absent, or whose call fails (a full disk, a dead socket), is logged
+    once per failure and counted in ``log_errors`` (the trainer's
+    ``obs/log_errors`` gauge); it never aborts a step and never drops
+    records unseen."""
+
+    KEYS = ("perf/step_time_s", "reward/mean", "actor/pg_loss",
+            "critic/vf_loss", "val/test_score/mean",
+            "goodput/attributed_frac", "training/resumed_from_step")
+
+    def __init__(self, backends: tuple[str, ...] = ("console",),
+                 path: str | None = None, project: str = "polyrl_tpu_torch",
+                 run_name: str | None = None, config: dict | None = None):
+        self.backends = tuple(backends)
+        self.log_errors = 0
+        self._file = None
+        self._tb = None
+        self._wandb = None
+        if path and "jsonl" in self.backends:
+            if os.path.dirname(path):
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+            self._file = open(path, "a")
+        if "tensorboard" in self.backends:
+            def _open_tb():
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(path or "runs")
+            self._guard("tensorboard", _open_tb)
+        if "wandb" in self.backends:
+            def _open_wandb():
+                import wandb
+
+                self._wandb = wandb.init(project=project, name=run_name,
+                                         config=config or {})
+            self._guard("wandb", _open_wandb)
+
+    def _guard(self, backend: str, fn) -> None:
+        try:
+            fn()
+        except Exception:  # noqa: BLE001 — a logger must never kill a step
+            self.log_errors += 1
+            log.exception("%s logging backend failed (drop %d)",
+                          backend, self.log_errors)
+
+    def log(self, metrics: dict, step: int) -> None:
+        if "console" in self.backends:
+            def _console():
+                brief = {k: round(metrics[k], 4) for k in self.KEYS
+                         if k in metrics}
+                print(f"[step {step}] {brief}", flush=True)
+            self._guard("console", _console)
+        if self._file is not None:
+            def _jsonl():
+                self._file.write(json.dumps({"step": step, **metrics}) + "\n")
+                self._file.flush()
+            self._guard("jsonl", _jsonl)
+        if self._tb is not None:
+            def _tb():
+                for k, v in metrics.items():
+                    self._tb.add_scalar(k, v, step)
+            self._guard("tensorboard", _tb)
+        if self._wandb is not None:
+            self._guard("wandb",
+                        lambda: self._wandb.log(metrics, step=step))
+
+    def close(self) -> None:
+        if self._file is not None:
+            self._guard("jsonl", self._file.close)
+        if self._tb is not None:
+            self._guard("tensorboard", self._tb.close)
+        if self._wandb is not None:
+            self._guard("wandb", self._wandb.finish)

@@ -107,6 +107,36 @@ def test_requests_wait_out_a_release(params):
     assert items[-1]["finish_reason"] == "length"
 
 
+def test_release_finishes_the_running_requests(params):
+    """``release_memory`` while a request decodes (the hybrid's window
+    timer after a request reached the engine past the manager's abort):
+    the paused engine admits nothing new but decodes the running request
+    to its end, then frees the pools; the request's stream is whole. The
+    reference froze it, with the pools kept, until the next resume."""
+    eng = _engine(params).start()
+    sp = SamplingParams(temperature=0.0, max_new_tokens=60)
+    q = eng.submit("running", [7, 8, 9], sp)
+    deadline = time.monotonic() + 60
+    while not eng._active.any():
+        assert time.monotonic() < deadline
+        time.sleep(0.005)
+    eng.release_memory()
+    assert eng._pools is None
+    items = []
+    while (item := q.get(timeout=60)) is not STREAM_END:
+        items.append(item)
+    late = eng.submit("late", [7, 8, 9], SP)  # waits for the resume
+    time.sleep(0.2)
+    assert late.empty()
+    eng.resume_memory()
+    while late.get(timeout=60) is not STREAM_END:
+        pass
+    eng.stop()
+    assert sum(len(i["token_ids"]) for i in items) == 60
+    assert items[-1]["finish_reason"] == "length"
+    assert eng.allocator.free_count == eng.num_pages - 1
+
+
 def test_warmup_leaves_live_slots_and_pools_unchanged(params):
     """``warmup`` in the middle of a greedy request: the device state and
     every page but the null page are bitwise as before, and the request

@@ -809,3 +809,76 @@ def test_cuda_spill_and_restore_while_decode_graphs_replay(cuda_device):
     assert stats["copy_batches"] == 2 and stats["resident_pages"] == 0
     assert stats["pinned_bytes"] == 3 * want[0].numel() * want[0].element_size()
     eng.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_adapter_install_while_lora_decode_graphs_replay(cuda_device):
+    """A LoRA-wrapped engine's captured dispatch (adapter products inside
+    the graph) replays the eager body bitwise; an adapter install between
+    dispatches (``install_weights`` with ``lora.apply_adapters``, as a
+    delta push lands) writes the live ``a``/``b`` in place: every leaf
+    keeps its address, no graph is captured again, and the next replay
+    reads the new adapters, bitwise the eager body on them and not the
+    replay before the install."""
+    from polyrl_tpu_torch.models import lora, quant
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    eng, cfg = _small_engine(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(7919 + 4)
+    eng.install_weights(lambda p: p.update(lora.wrap_lora(p, gen, 4, 16.0)))
+    rng = np.random.default_rng(12)
+    sp = SamplingParams(temperature=0.0, max_new_tokens=40)
+    for i, n in enumerate((9, 27, 14)):
+        eng.submit(f"s{i}", rng.integers(1, cfg.vocab_size, n).tolist(), sp)
+    eng._drain_queue()
+    with eng._pool_lock:
+        eng._admit()
+        eng._step_once()
+        eng._drain_emit_q()
+    before = graph_against_eager(eng, False, None)
+    for a, b in zip(before["graph"], before["eager"]):
+        assert torch.equal(a, b)
+    captures = eng.graph_captures
+    ptrs = {n: t.data_ptr() for n, t in quant.named_leaves(eng.params)}
+    trained = lora.extract_adapters(eng.params)
+    trained["layers"] = {k: {"a": ab["a"] * 1.5,
+                             "b": torch.randn_like(ab["b"]) * 0.05}
+                         for k, ab in trained["layers"].items()}
+    eng.install_weights(lambda p: lora.apply_adapters(p, trained))
+    assert {n: t.data_ptr() for n, t in quant.named_leaves(eng.params)} == ptrs
+    after = graph_against_eager(eng, False, None)
+    assert eng.graph_captures == captures
+    for a, b in zip(after["graph"], after["eager"]):
+        assert torch.equal(a, b)
+    assert states_equal(after["graph_state"], after["eager_state"])
+    assert not torch.equal(after["graph"][1], before["graph"][1])
+    eng.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_release_and_resume(cuda_device):
+    """The hybrid's time-slicing on the card: after a generation phase
+    ``release_memory`` drops the graphs, the graph pool and the KV pools
+    (``torch.cuda.memory_allocated`` falls by at least the pools' bytes);
+    ``resume_memory`` allocates them again and the same greedy requests
+    give the same tokens, captured anew."""
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    eng, cfg = _small_engine(cuda_device)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (7, 30)]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=24)
+    first = [r["token_ids"] for r in eng.generate(prompts, sp)]
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in eng._pools[0] + eng._pools[1])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda_device)
+    eng.release_memory()
+    assert eng._pools is None and not eng._graphs
+    assert held - torch.cuda.memory_allocated(cuda_device) >= pool_bytes
+    captures = eng.graph_captures
+    eng.resume_memory()
+    again = [r["token_ids"] for r in eng.generate(prompts, sp)]
+    assert again == first
+    assert eng.graph_captures > captures
+    eng.stop()

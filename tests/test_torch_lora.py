@@ -9,6 +9,9 @@ engines' logprob bound); adapter gradients rtol 1e-4 / atol 1e-6;
 adapters after one AdamW step atol 1e-6 (the actor parity bound).
 """
 
+import time
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -379,3 +382,284 @@ def test_extract_apply_and_template_match_jax_layout():
         lora.base_stats(params_from_numpy(_jwrapped(), "cpu")).numpy(),
         np.asarray(jlora.base_stats(jax.tree_util.tree_map(jnp.asarray, _jwrapped()))),
         rtol=1e-6)
+
+
+# -- delta sync (trainer.weight_sync=lora_delta, serve --lora-rank) ----------
+
+
+class _PortRx:
+    """A receiver whose bytes have landed: the port's install streams each
+    entry through ``on_tensor``."""
+
+    def __init__(self, buf, layout):
+        self.buffer, self.layout = buf, layout
+
+    def wait_for_version(self, v, timeout=0.0, on_tensor=None):
+        for e in self.layout.entries:
+            on_tensor(e, self.buffer[e.offset: e.offset + e.nbytes])
+        return v
+
+    def health(self):
+        return {}
+
+    def stop(self):
+        pass
+
+
+def test_adapter_delta_sync_server_path():
+    """One adapter push at the server boundary, both packages on the same
+    QLoRA serving tree (int8 base, f32 adapters with ``b = 0``) and the
+    same trained adapters: the wire carries only the adapter layout (a
+    fifth of the full tree at most); the port's server copies ``a``/``b``
+    into the live tensors (every leaf keeps its ``data_ptr()``, the int8
+    base bitwise untouched, ``weight_version`` raised); afterwards the
+    port server's greedy tokens equal the JAX server's, logprobs within
+    5e-4, and differ from before the push."""
+    from polyrl_tpu.models.lora import adapter_template as j_template
+    from polyrl_tpu.models.lora import apply_adapters as j_apply
+    from polyrl_tpu.rollout.cb_engine import CBEngine as JEngine
+    from polyrl_tpu.rollout.sampling import SamplingParams as JSP
+    from polyrl_tpu.rollout.server import RolloutServer as JServer
+    from polyrl_tpu.transfer import layout as jlayout
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+    from polyrl_tpu_torch.rollout.server import RolloutServer
+    from polyrl_tpu_torch.transfer import layout as tlayout
+
+    jcfg, tcfg = _cfgs()
+    served_np = _jwrapped(quantized=True, b_scale=0.0)
+    trained_np = _jwrapped(quantized=False, b_scale=0.05)
+    geom = dict(pad_token_id=0, max_slots=4, page_size=8, max_seq_len=64,
+                prompt_buckets=(8,), num_pages=64)
+    prompts = [[1, 2, 3, 4], [9, 8, 7, 6, 5]]
+
+    # the JAX server, as the reference's test drives it
+    jeng = JEngine(jcfg, jax.tree_util.tree_map(jnp.asarray, served_np),
+                   kv_cache_dtype=jnp.float32, **geom)
+    jsrv = JServer(jeng, host="127.0.0.1", port=0)
+    jtmpl = j_template(jcfg, rank=4, dtype=jnp.float32)
+    jsrv.weight_template, jsrv.weight_apply = jtmpl, j_apply
+    jl = jlayout.build_layout(jtmpl)
+    jbuf = jlayout.alloc_buffer(jl)
+    jlayout.pack_params(jlora.extract_adapters(
+        jax.tree_util.tree_map(jnp.asarray, trained_np)), jl, jbuf)
+    jsrv.receiver = types.SimpleNamespace(
+        buffer=jbuf, layout=jl, stop=lambda: None,
+        wait_for_version=lambda v, timeout=0.0: None)
+
+    # the port's server
+    teng = CBEngine(tcfg, params_from_numpy(served_np, "cpu"),
+                    kv_cache_dtype=torch.float32, device="cpu", **geom)
+    tsrv = RolloutServer(teng, host="127.0.0.1", port=0)
+    ttmpl = lora.adapter_template(tcfg, 4, dtype=torch.float32)
+    tsrv.weight_template, tsrv.weight_apply = ttmpl, lora.apply_adapters
+    tl = tlayout.build_layout(ttmpl)
+    assert tl.total_bytes < tlayout.build_layout(
+        tdec.init_meta_params(tcfg)).total_bytes / 5
+    assert tl.total_bytes == jl.total_bytes
+    tbuf = tlayout.alloc_buffer(tl)
+    tlayout.pack_params(lora.extract_adapters(
+        params_from_numpy(trained_np, "cpu")), tl, tbuf)
+    # the same wire: entries, and bytes but for the fingerprint's f32
+    # means (another reduction order)
+    assert [(e.name, tuple(e.shape), e.offset) for e in tl.entries] == [
+        (e.name, tuple(e.shape), e.offset) for e in jl.entries]
+    for e in tl.entries:
+        if e.name != "base_stats":
+            np.testing.assert_array_equal(
+                tbuf[e.offset: e.offset + e.nbytes],
+                jbuf[e.offset: e.offset + e.nbytes], err_msg=e.name)
+    tsrv.receiver = _PortRx(tbuf, tl)
+    try:
+        jsrv.start()
+        tsrv.start()
+        sp = SamplingParams(temperature=0.0, max_new_tokens=6,
+                            stop_token_ids=())
+        jsp = JSP(temperature=0.0, max_new_tokens=6, stop_token_ids=())
+        before = teng.generate(prompts, sp)
+        ptrs = {n: t.data_ptr() for n, t in quant.named_leaves(teng.params)}
+        base_q = teng.params["layers"]["wq"].base.q.clone()
+        ok, err = tsrv.update_weights_from_agent(4)
+        assert ok, err
+        ok, err = jsrv.update_weights_from_agent(4)
+        assert ok, err
+        assert teng.weight_version == 4
+        assert {n: t.data_ptr() for n, t in
+                quant.named_leaves(teng.params)} == ptrs
+        assert torch.equal(teng.params["layers"]["wq"].base.q, base_q)
+        want = params_from_numpy(trained_np, "cpu")
+        for k, w in teng.params["layers"].items():
+            if isinstance(w, quant.LoraWeight):
+                assert torch.equal(w.a, want["layers"][k].a), k
+                assert torch.equal(w.b, want["layers"][k].b), k
+        after = teng.generate(prompts, sp)
+        ref = jeng.generate(prompts, jsp, timeout=120.0)
+        assert [o["token_ids"] for o in after] != [o["token_ids"]
+                                                   for o in before]
+        for got, r in zip(after, ref):
+            assert list(got["token_ids"]) == list(r["token_ids"])
+            np.testing.assert_allclose(got["logprobs"], r["logprobs"],
+                                       rtol=0, atol=5e-4)
+    finally:
+        tsrv.stop()
+        jsrv.stop()
+
+
+def test_lora_delta_config_guards():
+    """The reference's delta-sync checks, before any manager is spawned:
+    colocated rollout, ``lora_rank`` 0 and the hybrid are refused."""
+    from polyrl_tpu_torch import train
+    from polyrl_tpu_torch.config import load_config
+
+    base = ["device=cpu", "model.dtype=float32",
+            "trainer.weight_sync=lora_delta"]
+    cases = [(["actor.lora_rank=4"], NotImplementedError, "disaggregated"),
+             (["rollout.mode=disaggregated"], ValueError, "lora_rank>0"),
+             (["rollout.mode=disaggregated", "actor.lora_rank=4",
+               "rollout.colocated_local=true"], NotImplementedError,
+              "colocated_local")]
+    for extra, exc, match in cases:
+        cleanup: list = []
+        with pytest.raises(exc, match=match):
+            train.build_trainer(load_config(None, base + extra), cleanup)
+        assert cleanup == []  # nothing was spawned
+
+
+def test_lora_delta_fit_through_the_fabric():
+    """A LoRA trainer with ``weight_sync=lora_delta`` pushes only adapters
+    over the fabric to a ``lora_rank`` server: each push's layout is the
+    adapter tree's bytes; after the fit the server's ``a``/``b`` equal the
+    actor's bitwise, its bases bitwise the seeded base, every leaf at its
+    old address; greedy through the manager equals an in-process engine on
+    the same wrapped tree, logprobs within 5e-4."""
+    from polyrl_tpu_torch import train
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.manager.client import (ManagerClient,
+                                                 spawn_rollout_manager)
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+    from polyrl_tpu_torch.rollout.serve import (create_server,
+                                                register_with_manager)
+
+    proc, port = spawn_rollout_manager(
+        "127.0.0.1:0", extra_args=["--health-check-interval-s", "0.1",
+                                   "--stats-poll-interval-s", "0.2"])
+    geom = dict(max_slots=8, page_size=8, max_seq_len=256, num_pages=128,
+                prompt_buckets=(16, 32))
+    srv = create_server("tiny", device="cpu", host="127.0.0.1", port=0,
+                        dtype="float32", seed=3, lora_rank=4,
+                        lora_alpha=16.0, **geom)
+    base = {n: t.clone() for n, t in quant.named_leaves(srv.engine.params)
+            if not n.endswith((".a", ".b"))}
+    ptrs = {n: t.data_ptr() for n, t in quant.named_leaves(srv.engine.params)}
+    cleanup: list = []
+    try:
+        mgr = ManagerClient(f"127.0.0.1:{port}")
+        mgr.wait_healthy()
+        ep = mgr.endpoint.replace("http://", "")
+        cfg = load_config(None, [
+            "device=cpu", "model.preset=tiny", "model.dtype=float32",
+            "rollout.mode=disaggregated", f"rollout.manager_endpoint={ep}",
+            "rollout.transfer_streams=2", "trainer.train_batch_size=4",
+            "trainer.rollout_n=2", "trainer.ppo_mini_batch_size=8",
+            "trainer.micro_batch_size=4", "trainer.min_stream_batch_size=4",
+            "trainer.max_prompt_length=16", "trainer.max_response_length=8",
+            "trainer.total_steps=2", "trainer.seed=3",
+            "trainer.weight_sync=lora_delta", "actor.lora_rank=4",
+            "actor.lora_alpha=16", "actor.lr=1e-2", "actor.remat=false",
+            "data.arithmetic_size=16"])
+        trainer = train.build_trainer(
+            cfg, cleanup, compute_score=lambda src, text, gt, extra: float(
+                len(text.encode("utf-8"))))
+        want_bytes = sum(t.numel() * t.element_size() for _, t in
+                         quant.named_leaves(lora.adapter_template(
+                             srv.engine.cfg, 4)))
+        # the entries are the adapter tree's bytes (the layout pads each
+        # entry's offset to an alignment)
+        lay = trainer.rollout.transfer.layout
+        assert sum(e.nbytes for e in lay.entries) == want_bytes
+        assert lay.total_bytes < want_bytes + 64 * len(lay.entries)
+        register_with_manager(srv, ep, transfer_streams=2)
+        assert srv.receiver is not None
+        assert srv.receiver.layout == lay
+        trainer.rollout.pool.wait_for_member(srv.endpoint, 30.0, active=False)
+        history = trainer.fit()
+        assert len(history) == 2
+        for h in history:
+            assert np.isfinite(h["actor/pg_loss"]) and h["actor/grad_norm"] > 0
+        final = trainer.rollout.weight_version
+        deadline = time.monotonic() + 30
+        while srv.engine.weight_version < final:
+            assert time.monotonic() < deadline, "the last push never landed"
+            time.sleep(0.05)
+        live = dict(quant.named_leaves(srv.engine.params))
+        assert {n: t.data_ptr() for n, t in live.items()} == ptrs
+        for n, t in base.items():
+            assert torch.equal(live[n], t), n
+        moved = False
+        for k, w in trainer.actor.params["layers"].items():
+            if isinstance(w, quant.LoraWeight):
+                sw = srv.engine.params["layers"][k]
+                assert torch.equal(sw.a, w.a.detach()), k
+                assert torch.equal(sw.b, w.b.detach()), k
+                moved |= bool(w.b.detach().abs().sum() > 0)
+        assert moved
+        deadline = time.monotonic() + 30
+        while not any(i["active"] for i in
+                      mgr.get_instances_status()["instances"]):
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        prompts = [[5, 6, 7, 8, 9], list(range(20, 33))]
+        served = [mgr.generate(f"ld-{i}", p, {"temperature": 0.0,
+                                              "max_new_tokens": 8})
+                  for i, p in enumerate(prompts)]
+        ref_eng = CBEngine(srv.engine.cfg, srv.engine.params, pad_token_id=0,
+                           kv_cache_dtype=torch.float32, device="cpu", **geom)
+        try:
+            ref = ref_eng.generate(prompts, SamplingParams(
+                temperature=0.0, max_new_tokens=8))
+        finally:
+            ref_eng.stop()
+        for res, r in zip(served, ref):
+            assert res.success, res.error
+            assert res.output_token_ids == list(r["token_ids"])
+            np.testing.assert_allclose(res.output_token_logprobs,
+                                       r["logprobs"], rtol=0, atol=5e-4)
+    finally:
+        for fn in reversed(cleanup):
+            fn()
+        srv.stop()
+        proc.kill()
+        proc.wait(timeout=10)
+
+
+def test_lora_server_over_an_int8_base():
+    """``--weight-quant int8 --lora-rank``: the server serves adapters over
+    an int8 base (QLoRA), takes the adapter tree as its wire layout and
+    installs pushes in place, with no re-quantization step; ``--is-local``
+    parses."""
+    from polyrl_tpu_torch.rollout import serve
+
+    args = serve.parse_args(["--model", "tiny", "--device", "cpu", "--dtype",
+                             "float32", "--port", "0", "--weight-quant",
+                             "int8", "--lora-rank", "4", "--lora-alpha", "8",
+                             "--is-local", "--max-seq-len", "64",
+                             "--page-size", "8", "--num-pages", "16",
+                             "--prompt-buckets", "16"])
+    assert args.is_local and args.lora_rank == 4
+    srv = serve.server_from_args(args)
+    try:
+        wq = srv.engine.params["layers"]["wq"]
+        assert isinstance(wq, quant.LoraWeight) and wq.alpha == 8.0
+        assert isinstance(wq.base, quant.QuantWeight)
+        # adapters over an int8 base are bf16, the reference's default; a
+        # push in the model dtype is cast into them
+        assert wq.base.q.dtype == torch.int8 and wq.a.dtype == torch.bfloat16
+        assert srv.weight_apply is lora.apply_adapters
+        assert srv.weight_preprocess is None
+        tmpl = lora.adapter_template(srv.engine.cfg, 4)
+        assert {n: tuple(t.shape) for n, t in quant.named_leaves(
+            srv.weight_template)} == {n: tuple(t.shape) for n, t in
+                                      quant.named_leaves(tmpl)}
+    finally:
+        srv.stop()

@@ -144,9 +144,10 @@ def make_trainer(rollout, total_steps=2, depth=0, **cfg_kw):
 
 
 def _deterministic(record: dict) -> dict:
-    """Drop the wall-clock keys; what is left must replay bitwise."""
+    """Drop the wall-clock keys (phase timings, perf, and the goodput
+    split of the step's wall); what is left must replay bitwise."""
     return {k: v for k, v in record.items()
-            if not k.startswith(("timing_s/", "perf/"))}
+            if not k.startswith(("timing_s/", "perf/", "goodput/"))}
 
 
 def _same_params(a, b) -> bool:

@@ -116,8 +116,10 @@ def test_config_validation():
 
 def test_gae_and_unported_features_are_refused():
     """GAE without a critic is a configuration error; a rollout with a
-    streaming surface (remote rollout) now constructs, and the hybrid
-    ``rollout.colocated_local`` is refused, naming ROADMAP A' 7."""
+    streaming surface (remote rollout) constructs; the hybrid
+    ``rollout.colocated_local`` builds (``test_torch_colocated_hybrid.py``),
+    but not under ``weight_sync=lora_delta``, which is refused with the
+    reference's message before any manager is spawned."""
     cfg, params, tok, engine = make_parts()
     actor = StreamActor(cfg, ActorConfig(remat=False), params)
     base = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
@@ -140,25 +142,56 @@ def test_gae_and_unported_features_are_refused():
     from polyrl_tpu_torch.train import _build_rollout
 
     hybrid = load_config(None, ["device=cpu", "rollout.mode=disaggregated",
-                                "rollout.colocated_local=true"])
-    with pytest.raises(NotImplementedError, match="colocated_local.*A' 7"):
-        _build_rollout(hybrid, cfg, params, tok, torch.device("cpu"))
+                                "rollout.colocated_local=true",
+                                "trainer.weight_sync=lora_delta",
+                                "actor.lora_rank=4"])
+    with pytest.raises(NotImplementedError,
+                       match="lora_delta with colocated_local"):
+        # a spawned manager would show as a cleanup entry
+        cleanup: list = []
+        _build_rollout(hybrid, cfg, params, tok, torch.device("cpu"), cleanup)
+    assert cleanup == []
     engine.stop()
 
 
 @pytest.mark.parametrize("extra", [dict(weight_sync="lora_delta")],
                          ids=["lora_delta"])
 def test_still_unported_trainer_features_are_refused(extra):
-    """LoRA delta sync needs disaggregated rollout: refused with the
-    reference's message, naming ROADMAP A' 7."""
+    """LoRA delta sync is ported: a LoRA trainer with
+    ``weight_sync=lora_delta`` constructs, and each push carries only
+    ``lora.extract_adapters`` of the actor's wrapped tree (its ``a``/``b``
+    tensors, ``alpha`` and the base's fingerprint), no base weight."""
+    from polyrl_tpu_torch.models import lora
+
     cfg, params, tok, engine = make_parts()
-    actor = StreamActor(cfg, ActorConfig(remat=False), params)
+    engine.stop()
+    actor = StreamActor(cfg, ActorConfig(remat=False, lora_rank=4), params)
     base = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
                 micro_batch_size=4, min_stream_batch_size=4)
-    with pytest.raises(NotImplementedError, match="disaggregated.*A' 7"):
-        StreamRLTrainer(TrainerConfig(**base, **extra), actor, engine, tok,
-                        None, None)
-    engine.stop()
+    pushed = []
+
+    class Remote:
+        weight_version = 0
+
+        def generate_stream(self, *a, **k):
+            raise AssertionError
+
+        def update_weights(self, tree, version=None):
+            pushed.append(tree)
+
+    trainer = StreamRLTrainer(TrainerConfig(**base, **extra), actor, Remote(),
+                              tok, None, None)
+    trainer._push_weights()
+    (tree,) = pushed
+    want = lora.extract_adapters(actor.params)
+    assert sorted(tree) == ["alpha", "base_stats", "layers"]
+    assert sorted(tree["layers"]) == sorted(want["layers"])
+    for k, ab in want["layers"].items():
+        for f in ("a", "b"):
+            assert tree["layers"][k][f] is getattr(actor.params["layers"][k], f)
+            assert tuple(ab[f].shape) == tuple(tree["layers"][k][f].shape)
+    assert float(tree["alpha"]) == 16.0
+    torch.testing.assert_close(tree["base_stats"], want["base_stats"])
 
 
 @pytest.mark.parametrize("extra", [dict(pipeline_depth=1, rollout_is_correction=True),
