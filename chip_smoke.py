@@ -310,12 +310,39 @@ when CUDA is unavailable or any phase fails. Phases:
               greedy through the manager against an in-process engine on
               the wrapped tree and dense f32 on ``merge_lora``; the LoRA
               decode step against bf16 by replay.
-15. result -- the card's name and power limit, a ``{"kernels": [...]}``
+15. autoscale -- closed-loop autoscaling on the disaggregated fit:
+              ``build_trainer`` on the disagg phase's cell with
+              ``rollout.autoscale`` on a [2, 2] envelope (hold 1, no
+              cooldowns) and a step-paced ``rollout.spot_market`` whose
+              trace (written to a temp file) offers server B, a ``serve``
+              subprocess started before the fit in no pool, at step 1 and
+              gives server A (registered through ``--manager-endpoint``) a
+              preemption notice at step 3 (grace AUTOSCALE_GRACE_S); 5
+              steps pipelined one step ahead, one trainer-side stream kill.
+              Before the fit one push and a GRPO group on a one-page
+              prompt through the manager (A alone, K3); after it the same
+              group and a greedy request (B alone). Gates: five finite
+              records, no dropped group, every response at full length or
+              ended by EOS, one add (envelope repair at step 1) and
+              ``no_capacity`` on every tick after the notice, tier 0 and
+              no admission wait, ``fault/spot_offers`` and
+              ``fault/spot_notices`` 1, a suffix resume; the trainer's
+              ``/statusz`` autoscale section; B caught up through ``POST
+              /attach_receiver`` and serving nothing before its first
+              install; A's drain flushed within the grace, A idle after it;
+              the greedy request on B against an in-process ``CBEngine``
+              on the trained weights and the dense f32 forward; the planes;
+              the fused prologue, K2 and K3 in both servers, K4 in the
+              trainer; the controller's and the market's threads joined;
+              the port's ``fleet_report``, ``engine_report`` and
+              ``kv_report`` exit 0. ``--manager-args`` passes extra
+              arguments to the manager of this phase and the disagg phase.
+16. result -- the card's name and power limit, a ``{"kernels": [...]}``
               line (the launches of each kernel's paths: serve or the A/B,
-              memory, train, disagg, hybrid and lora_delta), and last
-              ``{"ok": true, "device": {...}}``.
+              memory, train, disagg, hybrid, lora_delta and autoscale), and
+              last ``{"ok": true, "device": {...}}``.
 
-The train, disagg, hybrid and lora_delta phases also gate the
+The train, disagg, hybrid, lora_delta and autoscale phases also gate the
 observability planes: every record's ``goodput/*`` (``attributed_frac``
 in [0.95, 1.05]) and ``training/*``; the train phase polls the trainer's
 ``/statusz`` through the fit, checks that a healthy fit dumps no
@@ -4469,6 +4496,9 @@ def step_phase(dev) -> dict:
 # the disagg phase: the rollout server's own KV pool (7.34 MB a page at
 # full width: 3.76 GB), its geometry the train phase's engine's
 DISAGG_PAGES = 512
+# extra command-line arguments of the manager that the disagg and autoscale
+# phases spawn (``--manager-args``; e.g. ``--max-assigned-batches 16``)
+MANAGER_ARGS: list[str] = []
 DISAGG_SERVER = ["--max-slots", "64", "--page-size", "64", "--max-seq-len",
                  "512", "--prompt-buckets", "64", "128",
                  "--steps-per-dispatch", "8"]
@@ -4493,14 +4523,19 @@ def _tail(path: str, n: int = 3000) -> str:
         return f.read()[-n:].decode(errors="replace")
 
 
-def spawn_server(dev, mgr, manager_ep: str, extra: list[str],
-                 procs: list) -> tuple[int, str, float]:
+def spawn_server(dev, mgr, manager_ep: str | None, extra: list[str],
+                 procs: list, port: int | None = None) -> tuple[int, str, float]:
     """``python -m polyrl_tpu_torch.rollout.serve`` on ``MODEL`` as a
     subprocess registered through ``--manager-endpoint`` (appended to ``procs``
     at once, so teardown stops it), waited for until the manager reports
-    it healthy. Returns its port, its log's path and the seconds it took."""
-    port = free_port()
+    it healthy. With ``manager_ep`` None it joins no pool (something must
+    add it by its endpoint) and is waited for until its own
+    ``/health_generate`` answers. Returns its port, its log's path and the
+    seconds it took."""
+    port = port or free_port()
     endpoint = f"127.0.0.1:{port}"
+    join = (["--manager-endpoint", manager_ep, "--transfer-streams", "4"]
+            if manager_ep else [])
     log_path = tempfile.NamedTemporaryFile(prefix="disagg-server-",
                                            suffix=".log", delete=False).name
     env = dict(os.environ)
@@ -4511,20 +4546,32 @@ def spawn_server(dev, mgr, manager_ep: str, extra: list[str],
         proc = subprocess.Popen(
             [sys.executable, "-m", "polyrl_tpu_torch.rollout.serve",
              "--model", MODEL, "--dtype", "bfloat16", "--device", dev.type,
-             "--host", "127.0.0.1", "--port", str(port), "--seed", "0",
-             "--manager-endpoint", manager_ep, "--transfer-streams", "4"]
-            + DISAGG_SERVER + extra,
+             "--host", "127.0.0.1", "--port", str(port), "--seed", "0"]
+            + join + DISAGG_SERVER + extra,
             cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT)
     procs.append((proc, port, log_path))
     while True:
         check(proc.poll() is None, "a rollout server exited "
               f"(rc {proc.returncode}): {_tail(log_path)}")
-        if any(i["endpoint"] == endpoint and i["healthy"]
-               for i in mgr.get_instances_status()["instances"]):
+        if (any(i["endpoint"] == endpoint and i["healthy"]
+                for i in mgr.get_instances_status()["instances"])
+                if manager_ep else serving(port)):
             return port, log_path, time.monotonic() - t0
         check(time.monotonic() - t0 < DISAGG_SERVER_DEADLINE_S,
               f"a rollout server never became healthy: {_tail(log_path)}")
         time.sleep(0.5)
+
+
+def serving(port: int) -> bool:
+    """Whether a server on ``port`` answers ``/health_generate`` with 200."""
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+        conn.request("GET", "/health_generate")
+        ok = conn.getresponse().status == 200
+        conn.close()
+        return ok
+    except OSError:
+        return False
 
 
 def stream_timeline(streams: list, timeline: list, syncs: dict) -> list[dict]:
@@ -4596,7 +4643,8 @@ def disagg_phase(dev, trained: dict) -> dict:
 
     t0 = time.monotonic()
     sup = ManagerSupervisor(bind_addr="127.0.0.1:0", extra_args=[
-        "--health-check-interval-s", "0.5", "--stats-poll-interval-s", "0.5"])
+        "--health-check-interval-s", "0.5", "--stats-poll-interval-s", "0.5"]
+        + MANAGER_ARGS)
     sup.start()
     mgr_s = time.monotonic() - t0
     cleanup: list = [sup.stop]
@@ -6132,6 +6180,540 @@ def lora_delta_lines(d: dict, smi: str) -> list[str]:
     return lines
 
 
+AUTOSCALE_STEPS = 5
+# the spot notice's grace: /drain, then this long for the drained server's
+# run-ahead (up to 16 dispatches of 8 tokens a request) to flush its
+# partials before the server is deregistered; the phase measures the
+# flush and fails if it outlasts the grace (H100: 1.43 s for 8 requests)
+AUTOSCALE_GRACE_S = 3.0
+# the servers' and the manager's state polled through the fit, every s
+AUTOSCALE_POLL_S = 0.1
+# the servers' prompt buckets: a suffix resume re-issues prompt + the
+# tokens salvaged so far (up to 64 + 447), so they reach max_seq_len
+AUTOSCALE_SERVER = ["--num-pages", str(DISAGG_PAGES), "--prompt-buckets",
+                    "64", "128", "256", "512"]
+AUTOSCALE_GROUP_PROMPT = 100  # one full page shared by a GRPO group (K3)
+
+
+def autoscale_overrides(manager_ep: str, trace: str) -> list[str]:
+    """The disagg phase's cell, pipelined one step ahead for 5 steps, with
+    the autoscaler on a [2, 2] envelope, a step-paced spot market reading
+    ``trace``, and one trainer-side manager-stream kill."""
+    return TRAIN_OVERRIDES + [
+        "rollout.mode=disaggregated", f"rollout.manager_endpoint={manager_ep}",
+        "rollout.transfer_streams=4", f"trainer.total_steps={AUTOSCALE_STEPS}",
+        "trainer.pipeline_depth=1", "trainer.rollout_is_correction=true",
+        "rollout.autoscale.enabled=true", "rollout.autoscale.min_engines=2",
+        "rollout.autoscale.max_engines=2", "rollout.autoscale.hold_steps=1",
+        "rollout.autoscale.cooldown_add_s=0",
+        "rollout.autoscale.cooldown_drain_s=0",
+        "rollout.autoscale.max_actions_per_hour=100",
+        "rollout.autoscale.admission_max_wait_s=5",
+        "rollout.spot_market.enabled=true", "rollout.spot_market.time_base=step",
+        f"rollout.spot_market.grace_s={AUTOSCALE_GRACE_S}",
+        f"rollout.spot_market.trace_path={trace}",
+        "rollout.fault_injection.enabled=true",
+        "rollout.fault_injection.stream_kill_times=1",
+        "rollout.fault_injection.stream_kill_min_progress=1",
+        "obs.statusz=true"]
+
+
+def run_tool(name: str, arg: str) -> str:
+    """``python -m polyrl_tpu_torch.tools.<name> <arg>``: exit 0 with output,
+    or the phase fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-m", f"polyrl_tpu_torch.tools.{name}",
+                          arg], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0 and out.stdout.strip(),
+          f"{name} {arg}: rc {out.returncode}: {out.stderr[-1500:]}")
+    return out.stdout
+
+
+def autoscale_phase(dev, disagg: dict) -> dict:
+    """Closed-loop autoscaling on the disaggregated fit: ``build_trainer``
+    with the disagg phase's cell (a supervised manager, server A a
+    ``serve`` subprocess registered through ``--manager-endpoint``) and
+    ``autoscale_overrides``: 5 steps pipelined one step ahead, the
+    controller on a [2, 2] envelope, a step-paced spot market whose trace
+    offers server B (a ``serve`` subprocess started before the fit but in
+    no pool) at step 1 and gives A a preemption notice at step 3, and one
+    trainer-side stream kill. Before the fit one push and a GRPO group on
+    a one-page prompt through the manager (A alone: K3); after it the same
+    group and a greedy request (B alone). Gates: five finite records with
+    no dropped group and every response at full length (or ended by EOS);
+    ``autoscale/ticks`` 5 and one add, at step 1 (envelope repair from the
+    offer), ``no_capacity`` on every tick after the notice; tier 0 and no
+    admission wait throughout, no failed action; ``fault/spot_offers`` 1,
+    ``fault/spot_notices`` 1, ``fault/suffix_resumes`` >= 1; the trainer's
+    ``/statusz`` autoscale section with those totals and envelope {2, 2};
+    B catching up through ``POST /attach_receiver`` and serving no token
+    before its first install; A's drain flushed within the grace and A
+    serving nothing after it; the greedy request on B equal to an
+    in-process ``CBEngine`` on the trained weights (or parting only at a
+    near-tie), within DENSE_LOGP_TOL of the dense f32 forward; the goodput
+    and health planes in every record; launches: the fused prologue, K2
+    and K3 in both servers, K4 forward and backward in the trainer and no
+    decode kernel there; the controller's and the market's threads gone
+    after cleanup; the port's ``fleet_report`` over the records and
+    ``engine_report``/``kv_report`` over B's ``/statusz`` exit 0. Logs B's
+    add to active (its bootstrap push's pack, wire, install), the drain's
+    flush and grace, each step's wall, bubble and generation (dispatches
+    and most running requests on both servers), the resumes, the decision
+    trail and the three processes' peaks."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.manager.client import GenerateProgress
+    from polyrl_tpu_torch.manager.supervisor import ManagerSupervisor
+    from polyrl_tpu_torch.rollout.autoscale import ACTIONS, REASONS
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+    from polyrl_tpu_torch.rollout.spotmarket import SpotMarket
+    from polyrl_tpu_torch.train import build_trainer
+
+    sup = ManagerSupervisor(bind_addr="127.0.0.1:0", extra_args=[
+        "--health-check-interval-s", "0.5", "--stats-poll-interval-s", "0.5"]
+        + MANAGER_ARGS)
+    sup.start()
+    cleanup: list = [sup.stop]
+    procs: list = []
+    tmp = tempfile.mkdtemp(prefix="autoscale-")
+    try:
+        # B first, in no pool: only the controller's add puts it there
+        port_b, log_b, up_b = spawn_server(dev, None, None, AUTOSCALE_SERVER,
+                                           procs)
+        ep_b = f"127.0.0.1:{port_b}"
+        port_a = free_port()
+        ep_a = f"127.0.0.1:{port_a}"
+        trace = os.path.join(tmp, "spot_trace.jsonl")
+        with open(trace, "w") as f:
+            f.write(json.dumps({"t": 1, "event": "offer", "name": "B",
+                                "endpoint": ep_b}) + "\n")
+            f.write(json.dumps({"t": 3, "event": "notice", "target": "A",
+                                "endpoint": ep_a, "terminate": False}) + "\n")
+        cfg = load_config(None, autoscale_overrides(sup.endpoint, trace)
+                          + [f"device={dev.type}"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+        remote, pool, ctl = trainer.rollout, trainer.rollout.pool, trainer._autoscale
+        mgr, iface = remote.manager, remote.transfer
+        check(ctl is not None and isinstance(ctl.capacity, SpotMarket),
+              "autoscale: build_trainer armed no controller with a spot market")
+        check(remote.fault_injector is not None
+              and remote.fault_injector.spot is ctl.capacity,
+              "autoscale: the spot counters do not ride the fault plane")
+        _, _, up_a = spawn_server(dev, mgr, sup.endpoint, AUTOSCALE_SERVER,
+                                      procs, port=port_a)
+        info_a0 = post(port_a, "/get_server_info", None)
+        info_b0 = post(port_b, "/get_server_info", None)
+        check(info_b0["total_tokens_served"] == 0
+              and all(info_b0[f"kernel_launches/{k_}"] == 0 for k_ in SERVE_KERNELS),
+              "autoscale: B served before the phase")
+        log(f"autoscale: servers up (A {up_a:.1f} s, registered; B {up_b:.1f} s, "
+            f"in no pool); trace {json.dumps(open(trace).read().splitlines())}")
+
+        # the main path: counts from zero in the trainer (the servers' from
+        # info_*0), a push and a group on A alone, the fit, a group and a
+        # greedy request on B alone
+        cuda_build.reset_launch_counts()
+        rng = np.random.default_rng(5)
+        vocab = trainer.actor.model_cfg.vocab_size
+        group_prompt = rng.integers(1, vocab, AUTOSCALE_GROUP_PROMPT).tolist()
+
+        def group(tag: str, version: int) -> None:
+            reqs = [{"rid": f"as{tag}{i}", "input_ids": group_prompt,
+                     "group_id": f"asgrp{tag}", "group_size": 8,
+                     "sampling_params": {"temperature": 1.0,
+                                         "max_new_tokens": 64}}
+                    for i in range(8)]
+            finals = [r for r in mgr.batch_generate_stream(reqs)
+                      if not isinstance(r, GenerateProgress)]
+            check(len(finals) == 8 and all(
+                r.success and len(r.output_token_ids) == 64
+                and set(r.output_token_weight_versions) == {version}
+                for r in finals),
+                  f"autoscale: the GRPO group {tag} through the manager failed")
+
+        v_pre = remote.update_weights(trainer.actor.export_params())
+        pool.wait_for_member(ep_a, 120.0)
+        group("pre", v_pre)
+        info_a_pre = post(port_a, "/get_server_info", None)
+        check(post(port_b, "/get_server_info", None)["total_tokens_served"] == 0,
+              "autoscale: B served before the controller added it")
+
+        # instrumentation: the pool's actions, each tick's decision, each
+        # stream, and the servers' and manager's state through the fit
+        acts: list[dict] = []
+        for verb in ("add_engine", "preempt"):
+            inner_ = getattr(pool, verb)
+
+            def timed(*a, _inner=inner_, _verb=verb, **kw):
+                row = dict(verb=_verb, t0=time.time(), args=a, kw=kw)
+                acts.append(row)
+                try:
+                    return _inner(*a, **kw)
+                finally:
+                    row["t1"] = time.time()
+            setattr(pool, verb, timed)
+        trail: list[dict] = []
+        tick = ctl.tick
+
+        def traced_tick(step, **kw):
+            t0_ = time.time()
+            out_ = tick(step, **kw)
+            trail.append(dict(step=step, wall_s=time.time() - t0_,
+                              last=ctl.statusz_section()["last"]))
+            return out_
+        ctl.tick = traced_tick
+        streamed: list[tuple[int, object]] = []
+        streams: list[list] = []
+        gen_inner = remote.generate_stream
+
+        def recording_stream(*a, **kw):
+            start = remote.weight_version
+            span = [time.time(), time.time(), start]
+            streams.append(span)
+            for chunk in gen_inner(*a, **kw):
+                streamed.extend((start, r) for _, r in chunk)
+                span[1] = time.time()
+                yield chunk
+        remote.generate_stream = recording_stream
+        timeline: list[dict] = []
+        poll_err: list[BaseException] = []
+        polled = threading.Event()
+        poller = threading.Thread(
+            target=autoscale_poll, name="autoscale-poll", daemon=True,
+            args=({"a": port_a, "b": port_b}, mgr, timeline, polled, poll_err))
+        poller.start()
+        plane_ms = plane_timers(trainer)
+        t_fit = time.monotonic()
+        try:
+            history = trainer.fit()
+        finally:
+            polled.set()
+            poller.join(timeout=30)
+            remote.generate_stream = gen_inner
+        fit_wall = time.monotonic() - t_fit
+        check(not poll_err, f"autoscale: polling failed: {poll_err}")
+        n = cfg.trainer.total_steps
+        check(len(history) == n, "the autoscaled fit did not finish")
+        for i, rec in enumerate(history, 1):
+            for key in ("actor/pg_loss", "actor/kl_loss", "actor/grad_norm"):
+                check(key in rec and np.isfinite(rec[key]),
+                      f"autoscale step {i}: {key} missing or not finite")
+            check(rec["fault/dropped_groups"] == 0,
+                  f"autoscale step {i}: dropped groups")
+            check(rec["autoscale/degrade_tier"] == 0.0
+                  and rec["autoscale/admission_gate_wait_s"] == 0.0
+                  and rec["autoscale/exec_failures"] == 0.0,
+                  f"autoscale step {i}: tier {rec['autoscale/degrade_tier']}, "
+                  f"gate wait {rec['autoscale/admission_gate_wait_s']}, "
+                  f"failures {rec['autoscale/exec_failures']}")
+        plane_gates(history, "autoscale")
+        last = history[-1]
+        check(last["autoscale/ticks"] == n and last["autoscale/adds_total"] == 1
+              and last["autoscale/drains_total"] == 0,
+              f"autoscale: ticks {last['autoscale/ticks']}, adds "
+              f"{last['autoscale/adds_total']}, drains {last['autoscale/drains_total']}")
+        check(history[0]["autoscale/action"] == ACTIONS.index("add")
+              and history[0]["autoscale/reason"] == REASONS.index("below_min"),
+              f"autoscale: step 1 decided {history[0]['autoscale/action']} "
+              f"for {history[0]['autoscale/reason']}, not add for below_min")
+        check(len(trail) == n and all(
+            "no_capacity" in t_["last"]["suppressions"] for t_ in trail[2:]),
+              f"autoscale: no no_capacity after the notice: {trail}")
+        check(last["fault/spot_offers"] == 1 and last["fault/spot_notices"] == 1
+              and last["fault/spot_kills"] == 0
+              and last["fault/suffix_resumes"] >= 1,
+              "autoscale: spot and resume counters "
+              + json.dumps({k_: v_ for k_, v_ in last.items()
+                            if k_.startswith("fault/")}))
+        check(ctl.capacity.done.is_set(), "autoscale: the trace did not replay")
+        full = cfg.trainer.max_response_length
+        eos = trainer.tokenizer.eos_token_id
+        short = [(len(r.output_token_ids), r.finish_reason) for _, r in streamed
+                 if len(r.output_token_ids) != full
+                 and not (r.output_token_ids and r.output_token_ids[-1] == eos)]
+        per_step = cfg.trainer.train_batch_size * cfg.trainer.rollout_n
+        check(len(streamed) == n * per_step and not short,
+              f"autoscale: {len(streamed)} results, short ones {short}")
+        final = remote.weight_version
+        untagged = [r.output_token_weight_versions for _, r in streamed
+                    if len(r.output_token_weight_versions) != len(r.output_token_ids)
+                    or any(not 1 <= v <= final
+                           for v in r.output_token_weight_versions)]
+        check(not untagged, f"autoscale: tokens untagged or of no pushed "
+              f"version in {len(untagged)} results")
+        # the trainer's /statusz
+        sz = json.loads(get_text(
+            int(trainer._statusz.endpoint.rsplit(":", 1)[1]), "/statusz"))
+        auto = sz["autoscale"]
+        check(auto["envelope"] == {"min": 2, "max": 2}
+              and auto["totals"]["adds"] == 1 and auto["totals"]["ticks"] == n
+              and auto["totals"]["exec_failures"] == 0
+              and auto["degrade_tier"] == 0,
+              f"autoscale: the trainer's /statusz section {json.dumps(auto)}")
+
+        # B: added by the controller at step 1, caught up, and serving only
+        # from its first install on
+        adds = [a_ for a_ in acts if a_["verb"] == "add_engine"]
+        notices = [a_ for a_ in acts if a_["verb"] == "preempt"]
+        check(len(adds) == 1 and adds[0]["kw"].get("endpoint") == ep_b
+              and len(notices) == 1 and notices[0]["args"][0] == ep_a,
+              f"autoscale: pool actions {[(a_['verb'], a_['args'], a_['kw']) for a_ in acts]}")
+        info_b = post(port_b, "/get_server_info", None)
+        syncs_b = info_b.get("weight_syncs", [])
+        check(bool(syncs_b), "autoscale: B logged no install")
+        first_sync = min(syncs_b, key=lambda s_: s_["t_wall"])
+        b_rows = [r_["b"] | {"t": r_["t"]} for r_ in timeline if r_["b"]]
+        check(b_rows and not any(b_["tokens"] > 0 and (
+            b_["t"] < first_sync["t_wall"] or b_["version"] < 1)
+            for b_ in b_rows),
+              "autoscale: B served tokens before its first install")
+        active_b = next((r_["t"] for r_ in timeline if ep_b in r_["active"]),
+                        float("nan"))
+        check(np.isfinite(active_b), "autoscale: B never joined the routing set")
+        b_fit_tokens = b_rows[-1]["tokens"]
+        check(b_fit_tokens > 0, "autoscale: B served nothing in the fit")
+        rounds_b = [r_ for r_ in iface.sender.round_log if r_["instance"] == ep_b]
+        boot = rounds_b[0] if rounds_b else {}
+        pack = {p_["version"]: p_ for p_ in iface.push_log}.get(
+            first_sync["version"], {})
+        # A: drained at step 3's tick, flushed within the grace (running
+        # nothing, or shut down: the manager evicts a remote whose stream
+        # ends in an abort terminal and sends it /shutdown), then idle
+        nt = notices[0]
+        after = [r_ for r_ in timeline if r_["t"] >= nt["t0"]]
+        flushed = next((r_["t"] for r_ in after
+                        if not r_["a"] or r_["a"]["running"] == 0), float("nan"))
+        flush_s = flushed - nt["t0"]
+        check(flush_s <= AUTOSCALE_GRACE_S,
+              f"autoscale: A's drain flushed in {flush_s:.2f} s, past the "
+              f"{AUTOSCALE_GRACE_S} s grace")
+        a_rows = [r_["a"] | {"t": r_["t"]} for r_ in timeline if r_["a"]]
+        a_last = a_rows[-1]
+        a_after = [a_ for a_ in a_rows if a_["t"] >= nt["t1"]]
+        check(ep_a not in timeline[-1]["active"]
+              and all(a_["tokens"] == a_after[0]["tokens"] for a_ in a_after),
+              "autoscale: A still routed, or serving, after its notice")
+        a_down = next((r_["t"] - nt["t0"] for r_ in after if not r_["a"]), None)
+        t3 = time.monotonic()
+        while not any(i["endpoint"] == ep_b and i["active"]
+                      and i.get("weight_version", final) >= final
+                      for i in mgr.get_instances_status()["instances"]):
+            check(time.monotonic() - t3 < 120,
+                  f"autoscale: B never came back at v{final}: {_tail(log_b)}")
+            time.sleep(0.1)
+        group("post", final)
+        greedy_prompt = rng.integers(1, vocab, 40).tolist()
+        served = mgr.generate("asgreedy", greedy_prompt,
+                              {"temperature": 0.0, "max_new_tokens": DISAGG_GREEDY})
+        check(served.success and set(served.output_token_weight_versions) == {final},
+              f"autoscale greedy: {served.error}")
+        info_a = server_info_or_none(port_a)
+        info_b = post(port_b, "/get_server_info", None)
+        check(info_a is None or info_a["total_tokens_served"] == a_last["tokens"],
+              "autoscale: A served tokens after its drain")
+        launches = dict(cuda_build.LAUNCHES)
+        # A's last reading (the manager may have shut it down)
+        a_launch = {k_: a_last["launches"][k_] - info_a0[f"kernel_launches/{k_}"]
+                    for k_ in SERVE_KERNELS}
+        b_launch = {k_: info_b[f"kernel_launches/{k_}"] - info_b0[f"kernel_launches/{k_}"]
+                    for k_ in SERVE_KERNELS}
+        for name in SERVE_KERNELS:
+            check(a_launch[name] > 0 and b_launch[name] > 0,
+                  f"autoscale: {name} launches A {a_launch[name]}, B {b_launch[name]}")
+        for name in K4_NAMES:
+            check(launches[name] > 0, f"autoscale: {name} was not launched")
+        check(all(launches[k_] == 0 for k_ in SERVE_KERNELS),
+              f"autoscale: the trainer process decoded: {json.dumps(launches)}")
+        trainer_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        peaks = dict(trainer=trainer_peak, a=a_last["peak"] / 1e9,
+                     b=info_b.get("peak_memory_bytes", 0) / 1e9)
+        # the reports over this phase's records and B's /statusz
+        steps_path = os.path.join(tmp, "steps.jsonl")
+        with open(steps_path, "w") as f:
+            f.writelines(json.dumps(r_) + "\n" for r_ in history)
+        reports = {"fleet_report": run_tool("fleet_report", steps_path),
+                   "engine_report": run_tool("engine_report", ep_b),
+                   "kv_report": run_tool("kv_report", ep_b)}
+        # A is done: its memory goes before the in-process engine's
+        stop_servers([p_ for p_ in procs if p_[1] == port_a])
+
+        params = trainer.actor.export_params()
+        mcfg = trainer.actor.model_cfg
+        eng = CBEngine(mcfg, params, pad_token_id=0, kv_cache_dtype=torch.bfloat16,
+                       max_slots=64, page_size=64, max_seq_len=512,
+                       num_pages=DISAGG_PAGES, steps_per_dispatch=8,
+                       prompt_buckets=(64, 128), seed=0, device=dev)
+        try:
+            local = eng.generate([greedy_prompt], SamplingParams(
+                temperature=0.0, max_new_tokens=DISAGG_GREEDY))[0]
+        finally:
+            eng.stop()
+        del eng
+        params32 = f32_copy(params)
+        gaps = top2_gaps(params32, mcfg, greedy_prompt, local["token_ids"], dev)
+        ok, first, tie, gap = agrees_until_tie(served.output_token_ids,
+                                               list(local["token_ids"]), gaps)
+        check(ok, f"autoscale greedy: B parts from the in-process engine at "
+              f"{first} (first near-tie {tie}, f32 gap {gap:.4f})")
+        err, _ = dense_f32_gate(params32, mcfg, greedy_prompt,
+                                served.output_token_ids,
+                                served.output_token_logprobs, dev)
+        check(err <= DENSE_LOGP_TOL, f"autoscale greedy: {err:.4f} nats from "
+              "the dense f32 forward")
+        del params32
+        gen = autoscale_generation(streams, timeline)
+        out = dict(
+            history=history, fit_wall=fit_wall, plane_ms=plane_ms, trail=trail,
+            acts=[{k_: v_ for k_, v_ in a_.items() if k_ not in ("args", "kw")}
+                  for a_ in acts],
+            join=dict(add_s=adds[0]["t1"] - adds[0]["t0"],
+                      active_s=active_b - adds[0]["t0"],
+                      version=first_sync["version"],
+                      pack_s=pack.get("pack_s", float("nan")),
+                      wire_s=boot.get("push_s", float("nan")),
+                      bytes=boot.get("bytes", first_sync.get("bytes", 0)),
+                      install_s=first_sync.get("install_s", float("nan")),
+                      swap_s=first_sync.get("swap_s", float("nan")),
+                      raised_s=first_sync["t_wall"] - adds[0]["t0"]),
+            drain=dict(flush_s=flush_s, preempt_s=nt["t1"] - nt["t0"],
+                       grace_s=AUTOSCALE_GRACE_S, down_s=a_down,
+                       salvaged=a_last["salvaged"]
+                       - info_a_pre.get("tokens_salvaged", 0),
+                       drained=a_last["drained"]),
+            gen=gen, b_fit_tokens=b_fit_tokens,
+            a_launches=a_launch, b_launches=b_launch,
+            trainer_launches={k_: launches[k_] for k_ in SERVE_KERNELS + K4_NAMES},
+            peaks=peaks, reports={k_: len(v_.splitlines()) for k_, v_ in reports.items()},
+            greedy=dict(bitwise=served.output_token_ids == list(local["token_ids"]),
+                        logprobs_bitwise=served.output_token_logprobs
+                        == list(local["logprobs"]),
+                        first=first, tie=tie, gap=gap, dense_err=err),
+            disagg=[rec["perf/step_time_s"] for rec in disagg["history"]],
+            statusz=auto)
+    finally:
+        stop_servers(procs)
+        for fn in reversed(cleanup):
+            fn()
+        shutil.rmtree(tmp, ignore_errors=True)
+    alive = [t_.name for t_ in threading.enumerate()
+             if t_.name in ("autoscale-exec", "spot-market", "spot-notice")]
+    check(not alive, f"autoscale: threads left after cleanup: {alive}")
+    return out
+
+
+def server_info_or_none(port: int) -> dict | None:
+    """A server's ``/get_server_info``, or None when it no longer answers."""
+    try:
+        return post(port, "/get_server_info", None)
+    except OSError:
+        return None
+
+
+def autoscale_poll(ports: dict, mgr, timeline: list, stop: threading.Event,
+                   err: list) -> None:
+    """Every AUTOSCALE_POLL_S until ``stop``: each server's state (an empty
+    dict once it no longer answers) and the manager's routing set."""
+    try:
+        while not stop.is_set():
+            row: dict = dict(t=time.time())
+            for tag, p_ in ports.items():
+                inf = server_info_or_none(p_)
+                row[tag] = {} if inf is None else dict(
+                    version=inf["weight_version"],
+                    running=inf["num_running_reqs"],
+                    tokens=inf["total_tokens_served"],
+                    dispatches=inf["decode_dispatches"],
+                    salvaged=inf.get("tokens_salvaged", 0),
+                    drained=inf.get("drained_requests", 0),
+                    peak=inf.get("peak_memory_bytes", 0),
+                    launches={k_: inf[f"kernel_launches/{k_}"]
+                              for k_ in SERVE_KERNELS})
+            row["active"] = sorted(
+                i["endpoint"] for i in mgr.get_instances_status()["instances"]
+                if i["active"])
+            timeline.append(row)
+            stop.wait(AUTOSCALE_POLL_S)
+    except BaseException as exc:  # noqa: BLE001 -- checked by the phase
+        err.append(exc)
+
+
+def autoscale_generation(streams: list, timeline: list) -> list[dict]:
+    """Each stream's generation on both servers: its wall, the decode
+    dispatches of A and B between its start and end, and the most requests
+    running on them together (to the poll's resolution)."""
+    out = []
+    for s0, s1, v in streams:
+        rows = [r_ for r_ in timeline
+                if s0 - AUTOSCALE_POLL_S <= r_["t"] <= s1 + AUTOSCALE_POLL_S]
+        row = dict(version=v, stream_s=s1 - s0)
+        for tag in ("a", "b"):
+            seen = [r_[tag] for r_ in rows if r_[tag]]
+            if len(seen) >= 2:
+                row[f"dispatches_{tag}"] = seen[-1]["dispatches"] - seen[0]["dispatches"]
+                row[f"tokens_{tag}"] = seen[-1]["tokens"] - seen[0]["tokens"]
+        row["peak_running"] = max((sum(r_[t_].get("running", 0) for t_ in ("a", "b"))
+                                   for r_ in rows), default=None)
+        out.append(row)
+    return out
+
+
+def autoscale_lines(d: dict, smi: str) -> list[str]:
+    from polyrl_tpu_torch.rollout.autoscale import ACTIONS, REASONS
+
+    j_ = d["join"]
+    gb = j_["bytes"] / 1e9
+    lines = [
+        f"autoscale ({smi}, this run): B added at step 1's tick: register + "
+        f"attach {j_['add_s']:.3f} s, active after {j_['active_s']:.2f} s; its "
+        f"bootstrap push v{j_['version']}: {gb:.3f} GB, pack {j_['pack_s']:.4f} s "
+        f"(the version's, shared), wire {j_['wire_s']:.3f} s, install "
+        f"{j_['install_s']:.4f} s, swap {j_['swap_s']:.4f} s, version raised "
+        f"{j_['raised_s']:.2f} s after the add",
+        f"autoscale ({smi}, this run): A's notice at step 3: drain flushed in "
+        f"{d['drain']['flush_s']:.3f} s (grace {d['drain']['grace_s']} s; A "
+        + (f"shut down by the manager {d['drain']['down_s']:.3f} s after the drain"
+           if d["drain"]["down_s"] is not None else "still up")
+        + "), the "
+        f"preempt {d['drain']['preempt_s']:.3f} s on the trainer's thread; A "
+        f"drained {d['drain']['drained']} requests, salvaged "
+        f"{d['drain']['salvaged']} tokens; B served {d['b_fit_tokens']} tokens in "
+        f"the fit"]
+    for i, rec in enumerate(d["history"], 1):
+        t_ = d["trail"][i - 1]
+        g_ = d["gen"][i - 1] if i - 1 < len(d["gen"]) else {}
+        lines.append(
+            f"autoscale ({smi}, this run): step {i}: wall "
+            f"{rec['perf/step_time_s']:.2f} s, bubble {rec['perf/trainer_bubble_s']:.2f} s, "
+            f"tick {t_['wall_s']:.3f} s; decision "
+            f"{ACTIONS[int(rec['autoscale/action'])]}/{REASONS[int(rec['autoscale/reason'])]} "
+            f"suppressions {t_['last']['suppressions']} inputs "
+            f"{json.dumps(t_['last']['inputs'])}; resumes "
+            f"{rec['fault/suffix_resumes']:.0f}, tokens salvaged "
+            f"{rec.get('fault/tokens_salvaged', 0):.0f}; stream v{g_.get('version')} "
+            f"{g_.get('stream_s', float('nan')):.2f} s, dispatches A/B "
+            f"{g_.get('dispatches_a')}/{g_.get('dispatches_b')}, tokens A/B "
+            f"{g_.get('tokens_a')}/{g_.get('tokens_b')}, most running "
+            f"{g_.get('peak_running')}; goodput {goodput_split(rec)}")
+    g_ = d["greedy"]
+    lines.append(
+        f"autoscale ({smi}, this run): fit {d['fit_wall']:.1f} s (disagg step walls "
+        f"{[round(x, 2) for x in d['disagg']]}); greedy on B against the in-process "
+        f"engine: bitwise {g_['bitwise']} (logprobs {g_['logprobs_bitwise']}, first "
+        f"mismatch {g_['first']}, near-tie {g_['tie']}), dense f32 "
+        f"{g_['dense_err']:.4f} nats; /statusz autoscale totals "
+        f"{json.dumps(d['statusz']['totals'])}; peaks trainer "
+        f"{d['peaks']['trainer']:.2f} GB, A {d['peaks']['a']:.2f} GB, B "
+        f"{d['peaks']['b']:.2f} GB; launches A {json.dumps(d['a_launches'])}, B "
+        f"{json.dumps(d['b_launches'])}, trainer {json.dumps(d['trainer_launches'])}; "
+        f"report lines {json.dumps(d['reports'])}; planes host ms "
+        f"{[round(x, 2) for x in d['plane_ms']]}")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", default=None,
@@ -6146,7 +6728,12 @@ def main() -> int:
                          "gradient gate after its fit at each of these "
                          "trainer.seed values, with probes of which bf16 "
                          "rounding moves it, and log the spread (not gated)")
+    ap.add_argument("--manager-args", metavar="ARGS", default="",
+                    help="extra arguments, space-separated, of the manager "
+                         "that the disagg and autoscale phases spawn (off by "
+                         "default; e.g. '--max-assigned-batches 16')")
     args = ap.parse_args()
+    MANAGER_ARGS[:] = args.manager_args.split()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -6261,6 +6848,14 @@ def main() -> int:
     for line in lora_delta_lines(delta, smi):
         log(line)
     log(f"phase lora_delta ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
+    t0 = time.monotonic()
+    scaled = autoscale_phase(dev, disagg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in autoscale_lines(scaled, smi):
+        log(line)
+    log(f"phase autoscale ({smi}, this run{'; manager ' + ' '.join(MANAGER_ARGS) if MANAGER_ARGS else ''}): "
+        f"{time.monotonic() - t0:.1f} s wall")
 
     for r in rows:
         # K1's path is the decode step's unfused route (the serve phase's
@@ -6269,18 +6864,20 @@ def main() -> int:
                     if r["name"] == "paged_kv_write" else
                     trained["launches"] if r["name"].startswith("flash")
                     else served["launches"])
-        # plus the memory phase's and the disagg, hybrid and lora_delta
-        # paths: the servers decode, the trainers run K4, and the hybrid's
-        # trainer process decodes too (its local engine)
+        # plus the memory phase's and the disagg, hybrid, lora_delta and
+        # autoscale paths: the servers decode, the trainers run K4, and the
+        # hybrid's trainer process decodes too (its local engine)
         name = r["name"]
         extra = (0 if name == "paged_kv_write" else
                  disagg["trainer_launches"][name]
                  + hybrid["trainer_launches"][name]
-                 + delta["trainer_launches"][name] if name.startswith("flash")
+                 + delta["trainer_launches"][name]
+                 + scaled["trainer_launches"][name] if name.startswith("flash")
                  else disagg["server_launches"][name] + memory["launches"][name]
                  + hybrid["trainer_launches"][name]
                  + hybrid["server_launches"][name]
-                 + delta["server_launches"][name])
+                 + delta["server_launches"][name]
+                 + scaled["a_launches"][name] + scaled["b_launches"][name])
         r.update(route="cuda", source=f"polyrl_tpu_torch/csrc/{r['name']}.cu",
                  replaces=REPLACES[r["name"]],
                  launches=launches[r["name"]] + extra)

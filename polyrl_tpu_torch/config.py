@@ -2,13 +2,14 @@
 
 Counterpart of ``polyrl_tpu/config.py`` for the sections this port runs:
 model, tokenizer, data, the rollout (colocated, ``cb`` or ``step``, or
-disaggregated: the manager, the weight fabric and the pool), the weight
-fabric's supervision (``transfer``), reward, trainer, actor and critic,
-the trainer's ``logging`` backends and the ``obs`` planes (tracing, the
-``/statusz`` exporter, the flight recorder, the training health ledger),
-plus the ``device`` every entry point takes (``cuda`` by default; it
-raises without a card). Nested dataclasses are the schema and the
-defaults, a YAML file overlays them, and ``key.sub=value`` dotted CLI
+disaggregated: the manager, the weight fabric, the pool, its autoscaling
+controller and the spot market), the weight fabric's supervision
+(``transfer``), reward (with the remote code sandbox), trainer, actor and
+critic, the trainer's ``logging`` backends and the ``obs`` planes
+(tracing, the ``/statusz`` exporter, the flight recorder, the training
+health ledger), plus the ``device`` every entry point takes (``cuda`` by
+default; it raises without a card). Nested dataclasses are the schema and
+the defaults, a YAML file overlays them, and ``key.sub=value`` dotted CLI
 arguments overlay that (CLI > file > default). Unknown keys raise.
 """
 
@@ -20,8 +21,10 @@ import typing
 from dataclasses import dataclass, field
 from typing import Any
 
+from polyrl_tpu_torch.rollout.autoscale import AutoscaleConfig
 from polyrl_tpu_torch.rollout.faults import FaultInjectionConfig
 from polyrl_tpu_torch.rollout.pool import PoolConfig
+from polyrl_tpu_torch.rollout.spotmarket import SpotMarketConfig
 from polyrl_tpu_torch.trainer.actor import ActorConfig
 from polyrl_tpu_torch.trainer.critic import CriticConfig
 from polyrl_tpu_torch.trainer.stream_trainer import TrainerConfig
@@ -130,6 +133,16 @@ class RolloutSection:
     # elastic pool (rollout/pool.py): membership sweeps, join gating,
     # preemption drills and the balance estimator's window
     pool: PoolConfig = field(default_factory=PoolConfig)
+    # closed-loop autoscaling (rollout/autoscale.py): adds from a capacity
+    # provider and drains of the least-loaded engine, ticked once a step
+    # under hysteresis, cooldowns, a fleet envelope and a rate limiter;
+    # the degradation tier and the pipeline's admission gate. Off: the
+    # trainer without it, bit for bit
+    autoscale: AutoscaleConfig = field(default_factory=AutoscaleConfig)
+    # trace-driven spot market (rollout/spotmarket.py): scripted offers,
+    # preemption notices and kills replayed against the pool; the
+    # controller's capacity provider
+    spot_market: SpotMarketConfig = field(default_factory=SpotMarketConfig)
 
 
 @dataclass
@@ -137,6 +150,12 @@ class RewardSection:
     manager: str = "naive"
     custom_score_path: str = ""           # python file defining compute_score
     num_workers: int = 8
+    # remote sandbox-service code execution (rewards/sandbox.py); "" = the
+    # local rlimit'd subprocess sandbox
+    sandbox_url: str = ""
+    sandbox_max_concurrent: int = 64
+    sandbox_timeout_s: float = 30.0
+    sandbox_memory_limit_mb: int = 1024
 
 
 @dataclass

@@ -72,6 +72,7 @@ _NAME_SEGMENT = {"trainer/" + phase: seg for phase, seg in {
     "prefetch_fence": "push",
     "testing": "housekeeping",
     "save_checkpoint": "housekeeping",
+    "autoscale": "housekeeping",
 }.items()}
 _NAME_SEGMENT[LANE_SPAN] = "generate"
 _PREFIX_SEGMENT = (

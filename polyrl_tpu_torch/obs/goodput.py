@@ -65,6 +65,10 @@ TIMING_PHASE = {
     "prefetch_fence": "weight_push",
     "testing": "housekeeping",
     "save_checkpoint": "housekeeping",
+    # the autoscaling controller's tick: with a step-paced spot market a
+    # preemption notice drains its engine there, on the trainer's thread
+    # (the reference leaves it to ``other``)
+    "autoscale": "housekeeping",
 }
 # phases that execute INSIDE the ibatch wait (the bubble measures blocked
 # time on next(ibatch); colocated generation and the multi-host broadcast

@@ -3,9 +3,10 @@
 Counterpart of ``polyrl_tpu/rewards/manager.py``: the naive, batch, DAPO
 and prime managers and ``load_reward_manager``. A manager decodes the
 responses, calls the per-dataset scorer, and places the scalar outcome
-reward on the LAST response token (outcome supervision). The remote
-sandbox client (``rewards/sandbox.py``) is not ported yet; code scoring
-runs in the local rlimit'd subprocess.
+reward on the LAST response token (outcome supervision). Code scoring
+runs in the local rlimit'd subprocess, or on a sandbox service through
+``rewards/sandbox.py``'s ``SandboxClient.compute_score``
+(``reward.sandbox_url``).
 """
 
 from __future__ import annotations

@@ -180,7 +180,11 @@ class PoolManager:
         poll full-pushes the current version and the engine then rides the
         normal async push fan-out; the manager keeps it OUT of the routing
         set until its version reaches the pool floor (state.h
-        promote_healthy / complete_weight_update). Returns the endpoint."""
+        promote_healthy / complete_weight_update). With an ``endpoint``
+        alone (the autoscaler's adds) the engine is registered and, when
+        the manager assigned it a weight sender, asked to attach its
+        receiver (``POST /attach_receiver``), so that it too is caught up.
+        Returns the endpoint."""
         if server is not None:
             from polyrl_tpu_torch.rollout.serve import register_with_manager
 
@@ -188,13 +192,34 @@ class PoolManager:
                                   transfer_streams=transfer_streams)
             endpoint = server.endpoint
         elif endpoint:
-            self.manager.register_rollout_instance(endpoint)
+            out = self.manager.register_rollout_instance(endpoint) or {}
+            sender_ep = out.get("weight_sender_endpoint") or ""
+            if sender_ep:
+                self._attach_receiver(endpoint, sender_ep, transfer_streams)
         else:
             raise ValueError("add_engine needs a server or an endpoint")
         if wait:
             self.wait_for_member(endpoint,
                                  deadline_s or self.cfg.join_deadline_s)
         return endpoint
+
+    def _attach_receiver(self, endpoint: str, sender_ep: str,
+                         transfer_streams: int) -> None:
+        """A server that joins by its endpoint alone has no weight
+        receiver, so the fabric could never push it the current version and
+        the manager's bootstrap gate would keep it out of routing for good:
+        ask it to attach one to its assigned sender. Best-effort (an engine
+        that takes no pushes has no such route): a failure is a warning,
+        and the gate then holds the engine out as before."""
+        try:
+            _http_post(endpoint, "/attach_receiver", {
+                "weight_sender_endpoint": sender_ep,
+                "manager_endpoint": self.manager.endpoint.replace(
+                    "http://", ""),
+                "transfer_streams": transfer_streams}, timeout=60.0)
+        except Exception:  # noqa: BLE001 — the gate holds it out
+            log.warning("could not attach a weight receiver to %s",
+                        endpoint, exc_info=True)
 
     def wait_for_member(self, endpoint: str, deadline_s: float = 120.0,
                         active: bool = True) -> dict:

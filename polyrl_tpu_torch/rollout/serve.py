@@ -25,7 +25,11 @@ receiver: a trainer in the same process hands it each push). With
 actor draws them; over an int8 base with ``--weight-quant int8``) and
 takes delta pushes (``trainer.weight_sync=lora_delta``): the wire layout is
 ``lora.adapter_template`` and ``lora.apply_adapters`` copies each push's
-``a``/``b`` into the live adapters.
+``a``/``b`` into the live adapters. ``create_server(fault_injector=)``
+attaches a ``FaultInjector`` to the server's admissions and stream lines.
+A server started without ``--manager-endpoint`` can join the pool later by
+its endpoint (``PoolManager.add_engine(endpoint=)``, the autoscaler's
+adds), which attaches its receiver through ``POST /attach_receiver``.
 """
 
 from __future__ import annotations
@@ -70,7 +74,8 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                   manager_endpoint: str | None = None,
                   transfer_streams: int = 4,
                   is_local: bool = False,
-                  lora_rank: int = 0, lora_alpha: float = 16.0):
+                  lora_rank: int = 0, lora_alpha: float = 16.0,
+                  fault_injector=None):
     """Build engine + server and start serving. ``model`` is a preset name
     (random weights from ``seed``) or a local HF checkpoint directory.
     ``backend="cb"`` serves with the paged continuous-batching engine
@@ -84,7 +89,9 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     the server registers with the manager and attaches its weight receiver
     (``register_with_manager``; ``is_local`` as a local, time-sliced
     instance). ``lora_rank > 0`` serves the base wrapped in adapters and
-    takes adapter-only pushes. ``device`` defaults to ``"cuda"`` and
+    takes adapter-only pushes. ``fault_injector`` (a ``FaultInjector``)
+    becomes the server's ``fault``: it sees every admission and every
+    outgoing stream line. ``device`` defaults to ``"cuda"`` and
     raises when CUDA is absent; pass ``"cpu"`` explicitly to serve from the
     CPU (tests)."""
     from polyrl_tpu_torch.device import resolve_device
@@ -159,6 +166,7 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
         # tensors), and each push is quantized on arrival
         server.weight_template = decoder.init_meta_params(cfg)
         server.weight_preprocess = quant.quantize_params
+    server.fault = fault_injector
     server.start()
     if manager_endpoint:
         register_with_manager(server, manager_endpoint, is_local=is_local,
@@ -178,8 +186,6 @@ def register_with_manager(server, manager_endpoint: str = "",
     does) registers through it, so that a bound supervisor records the
     membership for /reconcile replay."""
     from polyrl_tpu_torch.manager.client import ManagerClient
-    from polyrl_tpu_torch.transfer.agents import ReceiverAgent
-    from polyrl_tpu_torch.transfer.layout import build_layout, build_shard_spec
 
     if client is None:
         if not manager_endpoint:
@@ -194,17 +200,33 @@ def register_with_manager(server, manager_endpoint: str = "",
     out = client.register_rollout_instance(server.endpoint)
     sender_ep = out.get("weight_sender_endpoint") or ""
     if sender_ep:
-        # quantized and LoRA engines take another tree than their own
-        template = (server.weight_template if server.weight_template
-                    is not None else server.engine.params)
-        server.receiver = ReceiverAgent(
-            build_layout(template), server.endpoint, sender_ep,
-            num_streams=transfer_streams,
-            advertise_host=server.endpoint.rsplit(":", 1)[0],
-            shard_spec=build_shard_spec(template),
-            pin_buffer=server.engine.device.type == "cuda")
-        server.receiver.start()
-        log.info("receiver agent attached to sender %s", sender_ep)
+        attach_receiver(server, sender_ep, transfer_streams)
+
+
+def attach_receiver(server, sender_ep: str, transfer_streams: int = 4) -> bool:
+    """Start the server's weight receiver, pointed at the weight sender
+    ``sender_ep``: the fabric's idle poll then pushes it the current
+    version. Returns False when the server has one already. Used by
+    ``register_with_manager`` and by ``POST /attach_receiver``, through
+    which ``PoolManager.add_engine(endpoint=)`` attaches the receiver of a
+    server that joins by its endpoint alone."""
+    from polyrl_tpu_torch.transfer.agents import ReceiverAgent
+    from polyrl_tpu_torch.transfer.layout import build_layout, build_shard_spec
+
+    if server.receiver is not None:
+        return False
+    # quantized and LoRA engines take another tree than their own
+    template = (server.weight_template if server.weight_template
+                is not None else server.engine.params)
+    server.receiver = ReceiverAgent(
+        build_layout(template), server.endpoint, sender_ep,
+        num_streams=transfer_streams,
+        advertise_host=server.endpoint.rsplit(":", 1)[0],
+        shard_spec=build_shard_spec(template),
+        pin_buffer=server.engine.device.type == "cuda")
+    server.receiver.start()
+    log.info("receiver agent attached to sender %s", sender_ep)
+    return True
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:

@@ -16,6 +16,8 @@ protocol for the routes this slice serves:
 - POST /abort_request   one rid, or every request when rid is empty
 - POST /update_weights_from_agent   install a weight push the server's
                         ``ReceiverAgent`` landed (``serve.register_with_manager``)
+- POST /attach_receiver start the weight receiver of a server that joined
+                        the pool by its endpoint (``PoolManager.add_engine``)
 - POST /drain           graceful preemption: refuse new requests, abort the
                         running ones into salvageable partials
 - POST /preempt         drain, then deregister from the manager
@@ -117,6 +119,10 @@ class RolloutServer:
         # the manager this server registered with (serve.register_with_
         # manager); /preempt deregisters there. "" = never registered
         self.manager_endpoint = ""
+        # an optional FaultInjector (rollout/faults.py): sees every
+        # admission and every outgoing stream line; may abort, corrupt,
+        # stall or drain
+        self.fault = None
         self.receiver = None  # ReceiverAgent, attached by serve.py
         # the receive timeout of an install: a streamed round's clock
         # starts before the trainer's pack
@@ -189,6 +195,8 @@ class RolloutServer:
                         int(body.get("weight_version", -1)))
                     self._json(200 if ok else 500,
                                {"success": ok, "error": err})
+                elif self.path == "/attach_receiver":
+                    self._json(200, outer.attach_receiver(body))
                 elif self.path == "/drain":
                     self._json(200, outer.drain())
                 elif self.path == "/preempt":
@@ -252,8 +260,8 @@ class RolloutServer:
                                 items, done = items[:i], True
                                 break
                         if items:
-                            data = "".join(json.dumps(it) + "\n"
-                                           for it in items).encode()
+                            data = "".join(outer._serialize_line(
+                                rid, it, abort_ev) for it in items).encode()
                             self.wfile.write(f"{len(data):x}\r\n".encode()
                                              + data + b"\r\n")
                             self.wfile.flush()
@@ -335,6 +343,8 @@ class RolloutServer:
                 out.put(STREAM_END)
                 return out, abort
             self._aborts[rid] = abort
+        if self.fault is not None:
+            self.fault.on_submit(self, rid, abort)
         if self._draining.is_set():
             # the drain landed between the check above and the event's
             # registration, so its abort sweep missed this request
@@ -408,6 +418,20 @@ class RolloutServer:
         except Exception as exc:  # noqa: BLE001 — reported to the manager
             log.exception("weight load failed")
             return False, str(exc)
+
+    def attach_receiver(self, body: dict) -> dict:
+        """POST /attach_receiver: a server that joined the pool by its
+        endpoint alone (``PoolManager.add_engine(endpoint=)``) starts its
+        weight receiver, pointed at the sender the manager assigned it,
+        and records the manager for its /preempt departure."""
+        from polyrl_tpu_torch.rollout.serve import attach_receiver
+
+        if body.get("manager_endpoint") and not self.manager_endpoint:
+            self.manager_endpoint = str(body["manager_endpoint"])
+        attached = attach_receiver(
+            self, str(body["weight_sender_endpoint"]),
+            int(body.get("transfer_streams", 4)))
+        return {"success": True, "attached": attached}
 
     def drain(self) -> dict:
         """POST /drain — graceful preemption: stop admitting (new requests
@@ -555,6 +579,15 @@ class RolloutServer:
         for ev in evs:
             ev.set()
 
+    def _serialize_line(self, rid: str, line: dict, abort_ev) -> str:
+        """One outgoing NDJSON line; the fault injector may replace it
+        (corruption), delay it (stall) or trip the abort event (kill)."""
+        if self.fault is not None:
+            replaced = self.fault.on_line(rid, line, abort_ev)
+            if replaced is not None:
+                return replaced
+        return json.dumps(line) + "\n"
+
     def _drop_abort(self, rid: str, ev: threading.Event) -> None:
         with self._aborts_lock:
             if self._aborts.get(rid) is ev:
@@ -660,6 +693,8 @@ class RolloutServer:
                              "grouped_decode_dispatches")}
         counters["total_tokens_served"] = float(
             getattr(self.engine, "total_tokens_served", 0))
+        if self.fault is not None:
+            counters.update(self.fault.counters())
         gauges = {k: float(v) for k, v in info.items()
                   if isinstance(v, (int, float))
                   and not isinstance(v, bool) and k not in counters}

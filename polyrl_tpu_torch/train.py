@@ -19,7 +19,11 @@ manager, datasets (training and, with
 term) the reference policy, the observability planes (``obs``: tracing,
 the flight recorder, the health ledger, ``/statusz``) and the
 ``Tracking`` logger (``logging``), assemble the trainer (its checkpoint
-manager with ``trainer.ckpt_dir``) and run ``fit``. With
+manager with ``trainer.ckpt_dir``; with ``rollout.autoscale.enabled`` on
+a disaggregated rollout the autoscaling controller, and with
+``rollout.spot_market.enabled`` the spot market as its capacity) and run
+``fit``. ``reward.sandbox_url`` sends code execution to a sandbox
+service. With
 ``trainer.weight_sync=lora_delta`` each push carries only the LoRA
 adapters, to servers started with the same ``--lora-rank``. ``device``
 defaults to ``cuda`` and raises without a card; ``device=cpu`` runs the
@@ -258,6 +262,38 @@ def _build_rollout(cfg: RunConfig, mcfg, params, tokenizer, device,
     return _cb_engine(cfg, mcfg, params, tokenizer, device)
 
 
+def _build_autoscale(cfg: RunConfig, rollout, cleanup: list):
+    """The closed-loop autoscaling controller, with
+    ``rollout.autoscale.enabled`` and a pool to act on (disaggregated);
+    else None. With ``rollout.spot_market.enabled`` a started
+    ``SpotMarket`` is its capacity provider (offers carry their endpoints:
+    it has no engine factory here). The market stops and the controller
+    closes on ``cleanup``."""
+    if not (cfg.rollout.autoscale.enabled
+            and getattr(rollout, "pool", None) is not None):
+        return None
+    from polyrl_tpu_torch.rollout.autoscale import AutoscaleController
+
+    capacity = None
+    if cfg.rollout.spot_market.enabled:
+        from polyrl_tpu_torch.rollout.spotmarket import SpotMarket
+
+        market = SpotMarket(rollout.pool, cfg.rollout.spot_market,
+                            injector=rollout.fault_injector)
+        market.start()
+        cleanup.append(market.stop)
+        capacity = market
+    autoscale = AutoscaleController(
+        rollout.pool, rollout.balance, cfg.rollout.autoscale,
+        capacity=capacity, rollout=rollout)
+    cleanup.append(autoscale.close)
+    log.info("autoscale controller armed: envelope [%d, %d]%s",
+             cfg.rollout.autoscale.min_engines,
+             cfg.rollout.autoscale.max_engines,
+             " (dry-run)" if cfg.rollout.autoscale.dry_run else "")
+    return autoscale
+
+
 def build_trainer(cfg: RunConfig, cleanup: list | None = None,
                   compute_score=None):
     """Assemble the trainer from a RunConfig. ``cleanup`` collects teardown
@@ -293,6 +329,17 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
         cleanup.append(rollout.stop)
     if compute_score is None and cfg.reward.custom_score_path:
         compute_score = load_custom_score(cfg.reward.custom_score_path)
+    if compute_score is None and cfg.reward.sandbox_url:
+        # code execution goes to the sandbox service, bounded by a
+        # concurrency semaphore (the local sandbox on a service failure)
+        from polyrl_tpu_torch.rewards.sandbox import SandboxClient
+
+        compute_score = SandboxClient(
+            cfg.reward.sandbox_url,
+            max_concurrent=cfg.reward.sandbox_max_concurrent,
+            timeout_s=cfg.reward.sandbox_timeout_s,
+            memory_limit_mb=cfg.reward.sandbox_memory_limit_mb,
+        ).compute_score
     reward_manager = load_reward_manager(cfg.reward.manager, tokenizer,
                                          compute_score=compute_score,
                                          num_workers=cfg.reward.num_workers)
@@ -334,11 +381,13 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
         tail_steps=cfg.obs.rlhealth_tail,
         max_group_rows=cfg.obs.rlhealth_group_rows)
         if cfg.obs.rlhealth else False)
+    autoscale = _build_autoscale(cfg, rollout, cleanup)
     trainer = StreamRLTrainer(cfg.trainer, actor, rollout, tokenizer,
                               reward_manager, loader, critic=critic,
                               ref_policy=ref_policy, logger=logger,
                               val_dataset=build_dataset(cfg, "val"),
-                              recorder=recorder, health=health)
+                              recorder=recorder, health=health,
+                              autoscale=autoscale)
     if cfg.obs.statusz:
         srv = trainer.start_statusz(port=cfg.obs.statusz_port,
                                     host=cfg.obs.statusz_host)

@@ -8,7 +8,9 @@ through every generation. This object splits the step into two lanes:
   the next batch of records from the dataloader and drives the trainer's
   ``_ibatch_iter_local`` stream up to ``depth`` steps ahead of training,
   pushing the ibatches into a bounded queue. Before each step's first
-  generation request it takes the bounded-staleness admission gate
+  generation request it takes the autoscaler's admission gate (held
+  while the pool has no active engine; none without a controller), then
+  the bounded-staleness admission gate
   (``trainer.cfg.staleness_limit``): with the default limit 1 the hard
   ``_wait_pushed()`` fence, so a stream never starts against a push still
   in flight; with a limit k > 1 the stream may start while up to k - 1
@@ -128,6 +130,10 @@ class RolloutPipeline:
             self._drain_stats()
             prod_metrics = MetricsTracker()
             try:
+                # the autoscaler's admission gate: while the pool has no
+                # active engine, hold the new stream (a no-op without a
+                # controller)
+                trainer._wait_pool_admission(prod_metrics)
                 # admission gate: limit 1 is the hard fence (the previous
                 # push fully landed before this stream's first request);
                 # limit k > 1 blocks only while k - 1 pushes are in flight

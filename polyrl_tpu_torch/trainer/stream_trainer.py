@@ -33,7 +33,10 @@ reference runs: the goodput ledger (every record's ``goodput/*``), the
 training health ledger (``training/*``, on unless ``health=False``), the
 critical path when tracing is on (``critpath/*``), the time-series rail,
 the flight recorder's hooks and the trainer's ``/statusz``
-(``start_statusz``). Multi-host is not ported (ROADMAP A' 9).
+(``start_statusz``), and closed-loop autoscaling (``autoscale=``, an
+``AutoscaleController``: ticked after each step's pool counters, with
+the pipelined lane's admission gate). Multi-host is not ported (ROADMAP
+A' 9).
 """
 
 from __future__ import annotations
@@ -223,7 +226,8 @@ def _pack_feed(pack) -> dict:
 class StreamRLTrainer:
     def __init__(self, cfg: TrainerConfig, actor, rollout, tokenizer,
                  reward_manager, dataloader, critic=None, ref_policy=None,
-                 logger=None, val_dataset=None, recorder=None, health=None):
+                 logger=None, val_dataset=None, recorder=None, health=None,
+                 autoscale=None):
         if cfg.adv_estimator == "gae" and critic is None:
             raise ValueError("GAE requires a critic")
         if cfg.pipeline_depth > 0 and not cfg.rollout_is_correction:
@@ -273,6 +277,11 @@ class StreamRLTrainer:
         # every finished step record folds into the time-series rail
         # (the /statusz timeseries section)
         self._timeseries = obs.TimeSeriesStore()
+        # closed-loop autoscaling (rollout/autoscale.py): ticked once a
+        # step after the pool's counters, its decision in that step's
+        # record; its admission gate holds a new stream while the pool is
+        # empty. None (the default) is the trainer without it, bit for bit
+        self._autoscale = autoscale
         # the training health ledger: on by default, health=False turns
         # it off, a ledger passed in configures its tails
         if health is None:
@@ -937,7 +946,8 @@ class StreamRLTrainer:
             counters.update(self._recorder.counters())
         gauges = {k: float(v) for k, v in rec.items()
                   if k.startswith(("perf/", "training/", "manager/",
-                                   "pool/", "engine/", "critpath/"))}
+                                   "pool/", "engine/", "critpath/",
+                                   "autoscale/"))}
         pool = getattr(self.rollout, "pool", None)
         return statusz.build_snapshot(
             "trainer", step=self.global_step,
@@ -967,6 +977,8 @@ class StreamRLTrainer:
             training=(self._health.snapshot()
                       if self._health is not None else None),
             timeseries=self._timeseries.section(),
+            autoscale=(self._autoscale.statusz_section()
+                       if self._autoscale is not None else None),
             memory=pool.memory_section() if pool is not None else None)
 
     def _critical_path_view(self) -> dict:
@@ -1019,7 +1031,32 @@ class StreamRLTrainer:
             metrics.update_gauge(self._balancer_round(stats))
         metrics.update_gauge(self.rollout.balance.metrics())
         if self.rollout.pool is not None:
-            metrics.update_gauge(self.rollout.pool.counters())
+            pool_counters = self.rollout.pool.counters()
+            metrics.update_gauge(pool_counters)
+            if self._autoscale is not None:
+                # the controller reads this step's fleet gauges and the
+                # previous record's critical-path bottleneck and acts on
+                # the pool; its decision lands in this record. Timed: a
+                # step-paced spot notice drains its engine inside the tick
+                with marked_timer("autoscale", metrics):
+                    gauges = self._autoscale.tick(
+                        self.global_step, fleet=pool_counters, record=last)
+                metrics.update_gauge(gauges)
+
+    def _wait_pool_admission(self, metrics=None) -> float:
+        """The autoscaler's admission gate before a new rollout stream:
+        hold while the fleet has no engine, up to the controller's
+        ``admission_max_wait_s`` (then the stream proceeds and
+        ``finish_locally`` degrades the batch). A no-op (0.0) without a
+        controller. Returns the seconds waited, gauged when ``metrics`` is
+        given."""
+        if self._autoscale is None:
+            return 0.0
+        waited = self._autoscale.hold_admission()
+        if waited and metrics is not None:
+            metrics.update_gauge(
+                {"autoscale/admission_gate_wait_s": waited})
+        return waited
 
     # -- fit --------------------------------------------------------------
 
@@ -1133,6 +1170,13 @@ class StreamRLTrainer:
         logger's and recorder's counters; then the time-series rail, the
         recorder's watch and the logger."""
         hists = obs.drain_histograms()
+        rtt_elsewhere = state["rtt_elsewhere"]
+        if self.cfg.pipeline_depth > 0 and "manager/rtt_s" in hists:
+            # pipelined, the producer lane makes the stream's and the
+            # balancer's round trips: outside the foreground's wait they
+            # overlap its phases, so only those inside the wait count
+            rtt_elsewhere = max(0.0, hists["manager/rtt_s"].total
+                                - state["rtt_in_bubble"])
         gp = self._goodput.account(
             step_time_s=time.monotonic() - step_t0,
             timings=metrics.timings(), bubble_s=state["bubble"],
@@ -1140,7 +1184,7 @@ class StreamRLTrainer:
             histograms=hists, n_tokens=state["n_tokens"],
             mean_context_len=state["n_tokens"] / n_traj,
             rtt_in_bubble_s=state["rtt_in_bubble"],
-            rtt_elsewhere_s=state["rtt_elsewhere"])
+            rtt_elsewhere_s=rtt_elsewhere)
         metrics.update(gp)
         metrics.merge_histograms(hists)
         tracer = obs.get_tracer()

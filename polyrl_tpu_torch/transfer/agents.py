@@ -984,6 +984,14 @@ class SenderAgent:
             self.push_failures += 1
             self._note_health(instance, inc={"push_failures": 1},
                               last_error=last_err)
+            if self._departed(instance):
+                # it left the pool mid-round (a drained or evicted engine
+                # is shut down): not a laggard, and retrying would hold
+                # this round, and every later version's, for the whole
+                # retry budget
+                log.warning("push v%d to %s dropped: it left the pool (%s)",
+                            version, instance, last_err)
+                return
             attempt += 1
             if attempt > cfg.retry_budget:
                 self._escalate(instance, version, last_err)
@@ -993,6 +1001,17 @@ class SenderAgent:
                         cfg.backoff_max_s) * (0.5 + random.random())
             if self._stop.wait(sleep):
                 return
+
+    def _departed(self, instance: str) -> bool:
+        """Whether the manager no longer lists ``instance`` (False without
+        a manager, or when the manager cannot be asked)."""
+        if self.manager is None:
+            return False
+        try:
+            insts = self.manager.get_instances_status().get("instances", [])
+        except Exception:  # noqa: BLE001 — retry as before
+            return False
+        return all(i.get("endpoint") != instance for i in insts)
 
     @staticmethod
     def _notify_transfer_failed(reg: _Registration, version: int,
@@ -1132,6 +1151,12 @@ class SenderAgent:
                 while not reg.verify_evt.wait(timeout=0.2):
                     if self._stop.is_set():
                         raise ConnectionError("sender stopping")
+                    with self._regs_lock:
+                        lost = self._regs.get(reg.instance) is not reg
+                    if lost:
+                        # the receiver's control channel closed: no
+                        # verify answer can come
+                        raise ConnectionError("receiver registration lost")
                     if time.monotonic() > evt_deadline:
                         raise TimeoutError(
                             "receiver never answered verify")

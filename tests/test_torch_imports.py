@@ -40,6 +40,19 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+SLICE_13 = ("rollout/autoscale.py", "rollout/spotmarket.py",
+            "rewards/sandbox.py", "tools/health_report.py",
+            "tools/kv_report.py", "tools/engine_report.py",
+            "tools/fleet_report.py", "tools/trace2perfetto.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_13)
+def test_slice_modules_are_scanned(rel):
+    """The closed-loop autoscaling slice's modules and the report tools
+    (``polyrl_tpu_torch/tools/``) are in the scan above."""
+    assert ROOT / "polyrl_tpu_torch" / rel in PORT_FILES
+
+
 def test_port_and_chip_smoke_import_with_jax_blocked():
     """In a fresh interpreter where ``import jax`` fails, every module of
     the port and chip_smoke.py import."""

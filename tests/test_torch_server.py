@@ -248,3 +248,100 @@ def test_serve_plane_flags(flags, off):
     finally:
         srv.stop()
 
+
+
+# -- the server-side fault hooks (RolloutServer.fault) ------------------------
+
+
+def _faulty_server(**fault):
+    from polyrl_tpu_torch.rollout.faults import (FaultInjectionConfig,
+                                                 FaultInjector)
+
+    inj = FaultInjector(FaultInjectionConfig(enabled=True, **fault))
+    srv = create_server("tiny", device="cpu", host="127.0.0.1", port=0,
+                        dtype="float32", max_slots=8, page_size=8,
+                        max_seq_len=96, num_pages=128,
+                        prompt_buckets=(16, 32), steps_per_dispatch=2,
+                        pipeline_depth=0, fault_injector=inj)
+    assert srv.fault is inj
+    return srv, inj
+
+
+def _fault_counters(port):
+    status, snap = _get(port, "/statusz")
+    assert status == 200
+    return {k: v for k, v in snap["counters"].items()
+            if k.startswith("fault/")}
+
+
+def test_on_submit_drain_aborts_the_admission():
+    """``drain_after_requests=1``: the first admission drains the server
+    through ``on_submit``; the request ends in an ``abort`` terminal (a
+    salvageable partial), later ones are refused the same way, and the
+    drain is counted in the server's ``/statusz``."""
+    srv, inj = _faulty_server(drain_after_requests=1)
+    try:
+        body = {"rid": "d1", "input_ids": list(range(5, 15)),
+                "sampling_params": {"temperature": 0.0,
+                                    "max_new_tokens": 40}}
+        toks, lines = _generate(srv.port, body)
+        assert lines[-1]["finished"]
+        assert lines[-1]["finish_reason"] == "abort" and len(toks) < 40
+        _, lines2 = _generate(srv.port, dict(body, rid="d2"))
+        assert [ln["finish_reason"] for ln in lines2] == ["abort"]
+        assert _get(srv.port, "/health_generate")[0] == 503
+        assert inj.drains == 1
+        c = _fault_counters(srv.port)
+        assert c["fault/injected_drains"] == 1.0
+        assert c["fault/injected_kills"] == 0.0
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("fault,counter", [
+    (dict(corrupt_after_tokens=3), "fault/injected_corruptions"),
+    (dict(kill_after_tokens=3), "fault/injected_kills"),
+], ids=["corrupt", "kill"])
+def test_on_line_replaces_or_aborts_a_stream(fault, counter):
+    """Every outgoing line passes ``on_line``: a corruption replaces the
+    line that reaches 3 tokens with an unparseable one (the manager's
+    decode-error path); a kill trips the request's abort event there, and
+    the stream ends early in an ``abort`` terminal."""
+    srv, inj = _faulty_server(**fault)
+    try:
+        status, data = _post(srv.port, "/generate", {
+            "rid": "f1", "input_ids": list(range(5, 15)),
+            "sampling_params": {"temperature": 0.0, "max_new_tokens": 24}})
+        assert status == 200
+        raw = [x for x in data.decode().splitlines() if x.strip()]
+        bad = [x for x in raw if "corrupted-by-fault-injection" in x]
+        if "corrupt_after_tokens" in fault:
+            assert len(bad) == 1 and inj.corruptions == 1
+            lines = [json.loads(x) for x in raw if x not in bad]
+            assert lines[-1]["finish_reason"] == "length"
+        else:
+            assert not bad and inj.kills == 1
+            lines = [json.loads(x) for x in raw]
+            toks = [t for ln in lines for t in ln["token_ids"]]
+            assert lines[-1]["finish_reason"] == "abort"
+            assert 3 <= len(toks) < 24
+        assert _fault_counters(srv.port)[counter] == 1.0
+    finally:
+        srv.stop()
+
+
+def test_server_without_injector_keeps_its_lines():
+    """No injector: ``fault`` is None, lines are plain JSON and /statusz
+    carries no fault counters."""
+    srv = create_server("tiny", device="cpu", host="127.0.0.1", port=0,
+                        dtype="float32", max_slots=8, page_size=8,
+                        max_seq_len=96, num_pages=128, prompt_buckets=(16,))
+    try:
+        assert srv.fault is None
+        toks, lines = _generate(srv.port, {
+            "rid": "p", "input_ids": list(range(5, 15)),
+            "sampling_params": {"temperature": 0.0, "max_new_tokens": 6}})
+        assert len(toks) == 6 and lines[-1]["finish_reason"] == "length"
+        assert _fault_counters(srv.port) == {}
+    finally:
+        srv.stop()
