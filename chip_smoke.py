@@ -337,10 +337,42 @@ when CUDA is unavailable or any phase fails. Phases:
               the port's ``fleet_report``, ``engine_report`` and
               ``kv_report`` exit 0. ``--manager-args`` passes extra
               arguments to the manager of this phase and the disagg phase.
-16. result -- the card's name and power limit, a ``{"kernels": [...]}``
+16. moe    -- the MoE family, run right after the kernels phase while the
+              card's memory is empty (lines ``moe (``). K1, the fused
+              prologue, K2, K3 and K4 forward and backward against their
+              plain versions under the kernels phase's bounds at
+              qwen3-30b-a3b's attention (32 q heads on 4 kv heads, D 128:
+              rep 8; the kernel case's groups of 8 stack 64 query rows).
+              ``create_server("qwen3-30b-a3b")`` at full width and 48
+              layers (bf16, seed 0, the preset's capacity factor 2.0; 512
+              pages) serves the serve phase's 18-stream mix over HTTP,
+              graph-replayed at pipeline_depth 16, then one greedy request
+              alone: the fused prologue, K2 and K3 launched (counted from
+              zero); decode tok/s; the decode step by replay (device and
+              wall ms, kernels) against the weight floor (every weight but
+              the embedding read once a step). At capacity factor 16.0
+              (E/k: dropless, so a token's output does not depend on its
+              batch), on the same weights: greedy streams teacher-forced
+              through the bf16 forward with a cache, logprobs within
+              MOE_LOGP_TOL and tokens the forward's argmax until its first
+              near-tie; an all-greedy batch dispatched by graph replay and
+              by the eager body, K2 and K3 keys, the same tokens. At 2
+              layers, full width: served greedy against the dense f32
+              forward, within MOE_F32_TOL served in f32 (f32 weights and
+              pools, the kernels' f32 instances) and within MOE_LOGP_TOL
+              served in bf16; the tree written as a Qwen3-MoE
+              checkpoint, loaded back bitwise and with ``quantize="int8"``
+              bitwise ``quantize_params`` of the bf16 load (the router
+              bf16), served int8 through the fused prologue, K2 and K3;
+              the decode step bf16 against int8 by replay. Then
+              ``build_trainer`` at 4 layers, dropless, 2 GRPO steps (the
+              train phase's configuration): finite losses, K4 forward and
+              backward launched, old logprobs within 0.2 nats of the
+              engine's, the router and every expert leaf moved.
+17. result -- the card's name and power limit, a ``{"kernels": [...]}``
               line (the launches of each kernel's paths: serve or the A/B,
-              memory, train, disagg, hybrid, lora_delta and autoscale), and
-              last ``{"ok": true, "device": {...}}``.
+              memory, train, disagg, hybrid, lora_delta, autoscale and
+              moe), and last ``{"ok": true, "device": {...}}``.
 
 The train, disagg, hybrid, lora_delta and autoscale phases also gate the
 observability planes: every record's ``goodput/*`` (``attributed_frac``
@@ -6714,6 +6746,540 @@ def autoscale_lines(d: dict, smi: str) -> list[str]:
     return lines
 
 
+# -- phase 16: the MoE family (qwen3-30b-a3b) ------------------------------------
+
+MOE_MODEL = "qwen3-30b-a3b"
+MOE_HQ, MOE_HKV = 32, 4        # its attention: 32 q heads on 4 kv heads (rep 8)
+# depths: serving at the preset's 48 layers (61.1 GB of bf16 weights, with
+# the 512-page pool and the decode graphs' buffers); the fit at 4 layers
+# (3.1 B parameters, held by the actor, its AdamW moments, the reference
+# copy and the engine); the f32 gate, the checkpoint and int8 at 2
+MOE_SERVE_LAYERS = 48
+MOE_TRAIN_LAYERS = 4
+MOE_SMALL_LAYERS = 2
+# E / k: no dispatch ever drops a choice, so a token's output does not
+# depend on the batch it was served in; every logprob gate runs here, the
+# throughput mix at the preset's 2.0
+MOE_DROPLESS = 16.0
+MOE_ENGINE = dict(max_slots=S, page_size=PS, max_seq_len=4096, num_pages=512,
+                  steps_per_dispatch=8, seed=0)
+MOE_NEW = 64
+# served bf16 logprobs against the bf16 forward with a cache (48 layers,
+# teacher-forced on the served tokens) and against the dense f32 forward
+# (2 layers), in nats: the router's logits are a bf16 product, as in the
+# reference, and one bf16 rounding more or less swaps a near-tied k-th
+# expert (at 128 experts the k-th and the next sit within a bf16 ulp for
+# about one token-layer in seven), which moves that token's output by the
+# two experts' difference times their weight; the dense serve gate's 0.15,
+# scaled by the depth (48 layers against 28)
+MOE_LOGP_TOL = 0.25
+# the same weights served in f32 (f32 pools, the kernels' f32 instances)
+# against the dense f32 forward, in nats: reduction order only (the f32
+# kernels sit within 2e-5 of their plain versions, the card tests)
+MOE_F32_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def head_layout(hq: int, hkv: int, model: str):
+    """The kernel checks' head layout and preset (``HQ``, ``HKV``,
+    ``MODEL``) for the block."""
+    global HQ, HKV, MODEL
+    saved = HQ, HKV, MODEL
+    HQ, HKV, MODEL = hq, hkv, model
+    try:
+        yield
+    finally:
+        HQ, HKV, MODEL = saved
+
+
+def moe_kernels(dev) -> list[dict]:
+    """K1, the fused prologue, K2, K3 (the kernel case: 64 slots of 1-4096
+    tokens and groups of 8, G * rep = 64 stacked rows) and K4 forward and
+    backward (B 4, T 512) against their plain versions under the kernels
+    phase's bounds, at qwen3-30b-a3b's attention layout."""
+    with head_layout(MOE_HQ, MOE_HKV, MOE_MODEL):
+        rows = check_kernels(dev) + list(flash_case_check(
+            dev, 4, 512, 7, "moe layout, train phase shapes", reps=10,
+            repeat=True))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_step(dev, params, cfg) -> dict:
+    """One decode step (``forward_paged_decode``, the fused route) at the
+    serving tables, captured in a CUDA graph and replayed: wall ms (host
+    clock around a synchronised replay, median of 20), device ms and
+    kernels a step (torch.profiler over 5 replays), and the weight floor:
+    every weight the step reads (all but the embedding, a gather; the
+    reference's dispatch multiplies every expert in every step) over the
+    card's memory rate."""
+    from polyrl_tpu_torch.models import quant
+
+    table, lens, _ = serving_tables(dev)
+    active = lens > 0
+    pools = decoder.make_paged_pools(cfg, int(table.max()) + 1, PS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for p_ in pools[0] + pools[1]:
+        p_.normal_(generator=gen)
+    tokens = torch.randint(1, cfg.vocab_size, (S,), generator=gen, device=dev)
+
+    def step():
+        return decoder.forward_paged_decode(params, cfg, tokens, lens, pools,
+                                            table, lens, active=active)[0]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        step()
+    graph.replay()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(20):
+        t0 = time.monotonic()
+        graph.replay()
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    prof = device_profile(graph.replay, 5)
+    read = quant.weight_bytes(params) - quant.weight_bytes(params["embed"])
+    del graph
+    return dict(wall_ms=statistics.median(walls), device_ms=prof["device_ms"],
+                kernels=prof["kernels"], floor_ms=read / HBM_BYTES_PER_S * 1e3,
+                read_gb=read / 1e9)
+
+
+def cache_forward_rows(params, cfg, prompt, tokens, dev) -> torch.Tensor:
+    """The bf16 forward with a cache (the prefill path: dense attention,
+    one chunk) over ``prompt`` + ``tokens``, log-softmax in f32: row ``j``
+    predicts ``tokens[j]``."""
+    x = torch.tensor([list(prompt) + list(tokens)], device=dev)
+    t = x.shape[1]
+    pos = torch.arange(t, device=dev, dtype=torch.int32)[None]
+    cache = decoder.make_cache(cfg, 1, t, device=dev)
+    logits, _ = decoder.forward(params, cfg, x, pos,
+                                torch.ones((1, t), device=dev), cache=cache)
+    return torch.log_softmax(logits[0, len(prompt) - 1:-1].float(), dim=-1)
+
+
+def moe_engine_streams(eng, reqs: list[tuple]) -> list[dict]:
+    """``reqs`` of (rid, prompt, sampling, group id, group size) submitted
+    to a started engine and read to their ends: tokens and logprobs."""
+    qs = [eng.submit(rid, p, sp, group_id=gid, group_size=gs)
+          for rid, p, sp, gid, gs in reqs]
+    eng.start()
+    outs = []
+    for q in qs:
+        lines = [ln for _, ln in stream_items(q)]
+        outs.append(dict(tokens=[t for ln in lines for t in ln["token_ids"]],
+                         logprobs=[x for ln in lines for x in ln["logprobs"]]))
+    return outs
+
+
+def moe_dropless_gates(dev, params, cfg, prompts: list) -> dict:
+    """At ``MOE_DROPLESS``: (1) greedy streams served by a ``CBEngine`` on
+    the served weights, teacher-forced through the bf16 forward with a
+    cache: logprobs within MOE_LOGP_TOL, greedy tokens the forward's argmax
+    until its first top-2 near-tie (``agrees_until_tie``); (2) on an
+    engine driven through its internals, an all-greedy batch (two GRPO
+    groups of 8 and two lone requests, mid-decode) dispatched by graph
+    replay and by the eager body from one snapshot, for an ungrouped key
+    (K2) and a grouped one (K3): the same tokens."""
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=MOE_NEW)
+    eng = CBEngine(cfg, params, device=dev, copy_params=False, **MOE_ENGINE)
+    try:
+        outs = moe_engine_streams(eng, [(f"tf{i}", p, greedy, "", 0)
+                                        for i, p in enumerate(prompts)])
+    finally:
+        eng.stop()
+    del eng
+    forced = []
+    for p, o in zip(prompts, outs):
+        check(len(o["tokens"]) == MOE_NEW, f"moe: {len(o['tokens'])} tokens served")
+        lsm = cache_forward_rows(params, cfg, p, o["tokens"], dev)
+        gen = torch.tensor(o["tokens"], device=dev)
+        diff = (lsm.gather(-1, gen[:, None])[:, 0]
+                - torch.tensor(o["logprobs"], device=dev)).abs()
+        err = diff.max().item()
+        top2 = lsm.topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        ok, first, tie, gap = agrees_until_tie(
+            o["tokens"], lsm.argmax(-1).tolist(), gaps)
+        forced.append(dict(err=err, first=first, tie=tie, gap=gap,
+                           over=int((diff > MOE_LOGP_TOL).sum()),
+                           median=diff.median().item()))
+        check(err <= MOE_LOGP_TOL and ok,
+              f"moe: served against the cached forward: max |logprob diff| "
+              f"{err:.4f} (limit {MOE_LOGP_TOL}); greedy agreement {ok} "
+              f"(first mismatch {first}, first near-tie {tie}, gap {gap:.4f})")
+        del lsm
+
+    eng = CBEngine(cfg, params, device=dev, copy_params=False, **MOE_ENGINE)
+    rng = np.random.default_rng(5)
+    sp = SamplingParams(temperature=0.0, max_new_tokens=MOE_NEW)
+    for g, n_p in enumerate((200, 203)):
+        prompt = rng.integers(1, cfg.vocab_size, n_p).tolist()
+        for i in range(8):
+            eng.submit(f"g{g}-{i}", prompt, sp, group_id=f"grp{g}", group_size=8)
+    for i, n_p in enumerate((198, 205)):
+        eng.submit(f"greedy{i}", rng.integers(1, cfg.vocab_size, n_p).tolist(), sp)
+    eng._drain_queue()
+    with eng._pool_lock:
+        eng._admit()
+        eng._step_once()
+        eng._drain_emit_q()
+    tables = eng._decode_group_pack()
+    check(tables is not None and int(eng._active.sum()) == 18,
+          f"moe: {int(eng._active.sum())} active slots, groups {tables is not None}")
+    replay = {}
+    for label, tb in (("ungrouped (K2)", None), ("grouped (K3)", tables)):
+        run = graph_against_eager(eng, False, tb)
+        same_tok = torch.equal(run["graph"][0], run["eager"][0])
+        lp = (run["graph"][1] - run["eager"][1]).abs().max().item()
+        bitwise = (all(torch.equal(a, b) for a, b in zip(run["graph"], run["eager"]))
+                   and states_equal(run["graph_state"], run["eager_state"]))
+        check(same_tok, f"moe: {label}: the replayed dispatch's greedy tokens "
+              f"differ from the eager body's")
+        replay[label] = dict(lp=lp, bitwise=bitwise)
+        del run
+    eng.stop()
+    del eng
+    return dict(forced=forced, replay=replay)
+
+
+def moe_serve(dev) -> dict:
+    """``create_server`` of qwen3-30b-a3b at full width and MOE_SERVE_LAYERS
+    (bf16, seed 0, the preset's capacity factor 2.0): the serve phase's
+    18-stream mix over HTTP, then one greedy request alone (launches from
+    zero: the fused prologue, K2, K3); the decode step by replay; then the
+    dropless gates on the same weights."""
+    from polyrl_tpu_torch.rollout.serve import create_server
+
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats(dev)
+    server = create_server(MOE_MODEL, device=str(dev), host="127.0.0.1", port=0,
+                           model_overrides={"num_layers": MOE_SERVE_LAYERS},
+                           **MOE_ENGINE)
+    up_s = time.monotonic() - t0
+    cfg, params = server.engine.cfg, server.engine.params
+    try:
+        port = server.port
+        bodies, greedy_prompts, warm = serving_mix(cfg.vocab_size)
+        run_requests(port, [{"rid": "warmup", "input_ids": warm,
+                             "sampling_params": {"temperature": 0.0,
+                                                 "max_new_tokens": 16}}])
+        post(port, "/flush_cache", {})
+        info0 = post(port, "/get_server_info", None)
+        cuda_build.reset_launch_counts()
+        outs = run_requests(port, bodies)
+        info = post(port, "/get_server_info", None)
+        post(port, "/flush_cache", {})
+        lone = run_requests(port, [{
+            "rid": "lone", "input_ids": greedy_prompts[0],
+            "sampling_params": {"temperature": 0.0, "max_new_tokens": MOE_NEW}}])
+        launches = dict(cuda_build.LAUNCHES)
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0, f"moe: {name} was not launched serving "
+                  f"{MOE_MODEL}")
+        check(launches["paged_kv_write"] == 0,
+              "moe: the serving path took the unfused K/V write")
+        for o in outs + lone:
+            check(all(np.isfinite(o["logprobs"])) and max(o["logprobs"]) <= 0,
+                  "moe: non-finite or positive logprob")
+            check(all(0 <= t < cfg.vocab_size for t in o["tokens"]),
+                  "moe: token outside the vocabulary")
+        tok_s = mix_tok_s(outs)
+        ttft = statistics.median(o["lines"][0][0] - o["t0"] for o in outs)
+        dispatches = dispatch_line(info0, info)
+        serve_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    finally:
+        server.stop()
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = moe_step(dev, params, cfg)
+    gates = moe_dropless_gates(
+        dev, params, dataclasses.replace(cfg, moe_capacity_factor=MOE_DROPLESS),
+        greedy_prompts)
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    del params
+    return dict(launches=launches, tok_s=tok_s, ttft=ttft, up_s=up_s,
+                dispatches=dispatches, step=step, gates=gates,
+                n_params=n_params, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                serve_peak_gb=serve_peak)
+
+
+def moe_small(dev) -> dict:
+    """qwen3-30b-a3b at full width and MOE_SMALL_LAYERS layers (seed 0,
+    dropless): greedy streams served by a ``CBEngine`` against the dense
+    f32 forward, within MOE_F32_TOL served in f32 and within MOE_LOGP_TOL
+    served in bf16; the tree written as a
+    Qwen3-MoE checkpoint (two bf16 shards) and loaded back bitwise, and
+    with ``quantize="int8"`` bitwise ``quantize_params`` of that load
+    (the router in bf16); the int8 tree served greedy (a GRPO group of 8,
+    then a lone request: the fused prologue, K2 and K3 launched, counted
+    from zero); the decode step by replay in bf16 and in int8."""
+    from polyrl_tpu_torch.models import hf_loader, quant
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    cfg = decoder.get_config(MOE_MODEL, num_layers=MOE_SMALL_LAYERS,
+                             moe_capacity_factor=MOE_DROPLESS)
+    params = decoder.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    _, prompts, _ = serving_mix(cfg.vocab_size)
+    greedy = SamplingParams(temperature=0.0, max_new_tokens=MOE_NEW)
+    params32 = f32_copy(params)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    dense = {}
+    for label, c_, p_, kv in (("bf16", cfg, params, None),
+                              ("f32", cfg32, params32, torch.float32)):
+        eng = CBEngine(c_, p_, device=dev, copy_params=False,
+                       kv_cache_dtype=kv, **MOE_ENGINE)
+        try:
+            outs = moe_engine_streams(eng, [(f"{label}-{i}", p, greedy, "", 0)
+                                            for i, p in enumerate(prompts)])
+        finally:
+            eng.stop()
+        del eng
+        rows = []
+        for p, o in zip(prompts, outs):
+            lsm = dense_f32_rows(params32, cfg32, p, o["tokens"], dev)
+            gen = torch.tensor(o["tokens"], device=dev)
+            ref = lsm.gather(-1, gen[:, None])[:, 0]
+            diff = (ref - torch.tensor(o["logprobs"], device=dev)).abs()
+            rows.append(dict(err=diff.max().item(), median=diff.median().item(),
+                             gap=(lsm.max(dim=-1).values - ref).max().item(),
+                             over=int((diff > DENSE_LOGP_TOL).sum())))
+        dense[label] = rows
+    del params32
+    for label, limit in (("f32", MOE_F32_TOL), ("bf16", MOE_LOGP_TOL)):
+        worst = max(max(r["err"], r["gap"]) for r in dense[label])
+        check(worst <= limit, f"moe: served {label} at {MOE_SMALL_LAYERS} layers "
+              f"against the dense f32 forward: {dense[label]} (limit {limit})")
+
+    tmp = tempfile.mkdtemp(prefix="moe-hf-")
+    try:
+        t0 = time.monotonic()
+        n_bytes = hf_loader.save_hf_checkpoint(tmp, params, cfg,
+                                               model_type="qwen3_moe", n_shards=2)
+        write_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        cfg_b, back = hf_loader.build_from_hf(tmp, dtype=cfg.dtype, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        check(dataclasses.replace(cfg_b, moe_capacity_factor=MOE_DROPLESS) == cfg,
+              f"moe: the checkpoint's config {cfg_b} != {cfg}")
+        want = dict(_leaves(params))
+        got = dict(quant.named_leaves(back))
+        check(got.keys() == want.keys()
+              and all(torch.equal(got[k], want[k]) for k in want),
+              "moe: the checkpoint does not load back bitwise")
+        t0 = time.monotonic()
+        _, q8 = hf_loader.build_from_hf(tmp, dtype=cfg.dtype, quantize="int8",
+                                        device=dev)
+        torch.cuda.synchronize()
+        int8_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref = dict(quant.named_leaves(quant.quantize_params(back)))
+    got = dict(quant.named_leaves(q8))
+    check(got.keys() == ref.keys()
+          and all(torch.equal(got[k], ref[k]) for k in ref)
+          and not isinstance(q8["layers"]["router"], quant.QuantWeight)
+          and q8["layers"]["router"].dtype == cfg.dtype
+          and isinstance(q8["layers"]["we_gate"], quant.QuantWeight),
+          "moe: the int8 load is not quantize_params of the bf16 load")
+    del back, ref, got, want
+    int8_gb = quant.weight_bytes(q8) / 1e9
+
+    eng = CBEngine(cfg, q8, device=dev, **MOE_ENGINE)
+    try:
+        cuda_build.reset_launch_counts()
+        group = moe_engine_streams(eng, [(f"q{i}", prompts[0], greedy, "qg", 8)
+                                         for i in range(8)])
+        lone = moe_engine_streams(eng, [("q-lone", prompts[1], greedy, "", 0)])
+        launches = dict(cuda_build.LAUNCHES)
+    finally:
+        eng.stop()
+    del eng
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0, f"moe: {name} was not launched serving int8")
+    check(all(o["tokens"] == group[0]["tokens"] for o in group)
+          and len(lone[0]["tokens"]) == MOE_NEW,
+          "moe: the int8 greedy group's members differ")
+    steps = {"bf16": moe_step(dev, params, cfg), "int8": moe_step(dev, q8, cfg)}
+    del q8, params
+    return dict(dense=dense, write_s=write_s, load_s=load_s, int8_s=int8_s,
+                ckpt_gb=n_bytes / 1e9, int8_gb=int8_gb, launches=launches,
+                steps=steps)
+
+
+def moe_train(dev) -> dict:
+    """``build_trainer`` on the train phase's configuration with
+    qwen3-30b-a3b at full width and MOE_TRAIN_LAYERS layers, dropless: 2
+    GRPO steps (KL loss, remat). Gates: finite losses, grad norms > 0, no
+    skipped update, K4 forward and backward and the decode kernels
+    launched (from zero), step 1's old logprobs (K4) within
+    LOGP_AGREE_TOL of the engine's, the router and every expert leaf moved
+    from the reference copy."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.train import build_trainer
+
+    over = [o for o in TRAIN_OVERRIDES if not o.startswith("model.preset=")]
+    over += [f"model.preset={MOE_MODEL}", "model.overrides=" + json.dumps(
+        {"num_layers": MOE_TRAIN_LAYERS, "moe_capacity_factor": MOE_DROPLESS})]
+    torch.cuda.reset_peak_memory_stats(dev)
+    cleanup: list = []
+    trainer = build_trainer(load_config(None, over), cleanup,
+                            compute_score=byte_length_score)
+    try:
+        actor = trainer.actor
+        up_gb = torch.cuda.memory_allocated(dev) / 1e9
+        gaps: dict = {}
+        process = trainer._process_ibatch
+
+        def step1_gap(ibatch, metrics):
+            out = process(ibatch, metrics)
+            if not gaps:
+                mask = np.asarray(out["response_mask"]) > 0
+                gap = np.abs(np.asarray(out["old_log_probs"])
+                             - np.asarray(out["rollout_log_probs"]))[mask]
+                gaps.update(max=float(gap.max()), mean=float(gap.mean()),
+                            tokens=int(mask.sum()))
+            return out
+
+        trainer._process_ibatch = step1_gap
+        cuda_build.reset_launch_counts()
+        t0 = time.monotonic()
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.monotonic() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        trainer._process_ibatch = process
+        check(len(history) == 2, "moe: the fit did not run 2 steps")
+        for i, rec in enumerate(history, 1):
+            for key in ("actor/pg_loss", "actor/kl_loss", "actor/grad_norm"):
+                check(np.isfinite(rec.get(key, np.nan)),
+                      f"moe: step {i}: {key} missing or not finite")
+            check(rec["actor/grad_norm"] > 0 and rec["actor/nonfinite_skips"] == 0,
+                  f"moe: step {i}: zero gradient or a skipped update")
+        for name in TRAIN_KERNELS:
+            check(launches[name] > 0, f"moe: {name} was not launched in the fit")
+        check(gaps["max"] <= LOGP_AGREE_TOL,
+              f"moe: old logprobs disagree with the engine's ({gaps['max']:.4f} "
+              f"nats > {LOGP_AGREE_TOL})")
+        ref = trainer.ref_policy.params["layers"]
+        moved = {}
+        for key in ("router", "we_gate", "we_up", "we_down"):
+            a, r = actor.params["layers"][key].detach(), ref[key]
+            moved[key] = float((a != r).float().mean())
+            check(moved[key] > 0, f"moe: {key} did not move")
+        walls = [{k_: rec.get("timing_s/" + k_, 0.0) for k_ in (
+            "gen", "old_log_prob", "ref_log_prob", "update_actor",
+            "update_weight")} | {"step": rec["perf/step_time_s"]}
+            for rec in history]
+        n_params = sum(p.numel() for _, p in _leaves(actor.params))
+        return dict(launches=launches, gaps=gaps, moved=moved, walls=walls,
+                    fit_s=fit_s, up_gb=up_gb, n_params=n_params,
+                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    grad_norms=[rec["actor/grad_norm"] for rec in history])
+    finally:
+        for fn in reversed(cleanup):
+            fn()
+
+
+def moe_phase(dev) -> dict:
+    """The MoE phase: kernels at the MoE layout, serving at full depth,
+    the small-depth gates, the fit. Returns its readings and the launches
+    of its main paths (the HTTP mix and lone request, the int8 engine's
+    streams, the fit)."""
+    t0 = time.monotonic()
+    rows = moe_kernels(dev)
+    served = moe_serve(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = moe_small(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = moe_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k_: served["launches"][k_] + small["launches"][k_]
+                + trained["launches"][k_] for k_ in cuda_build.LAUNCHES}
+    return dict(rows=rows, served=served, small=small, trained=trained,
+                launches=launches, seconds=time.monotonic() - t0)
+
+
+def moe_lines(m: dict, smi: str) -> list[str]:
+    tag = f"moe ({smi}, this run)"
+    sv, sm, tr = m["served"], m["small"], m["trained"]
+    lines = [f"{tag}: kernels at Hq {MOE_HQ}, Hkv {MOE_HKV}, D {D} (rep "
+             f"{MOE_HQ // MOE_HKV}): " + "; ".join(
+                 f"{r['name']} max_abs_err {r['max_abs_err']:.3g} ms "
+                 f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+                 f"{r['bound_ms']:.4f} ({r['bound_by']}) library_ms "
+                 + ("None" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+                 for r in m["rows"])]
+    st = sv["step"]
+    lines.append(
+        f"{tag}: serve {MOE_MODEL} at {MOE_SERVE_LAYERS} layers, full width "
+        f"({sv['n_params'] / 1e9:.2f} B parameters, bf16, seed 0, factor 2.0), "
+        f"up in {sv['up_s']:.1f} s: the 18-stream mix {sv['tok_s']:.1f} decode "
+        f"tok/s, TTFT median {sv['ttft'] * 1e3:.1f} ms; {sv['dispatches']}; "
+        f"main-path launches " + json.dumps(
+            {k_: sv["launches"][k_] for k_ in SERVE_KERNELS})
+        + f"; decode step by replay (serving tables, 18 live of 64): wall ms "
+        f"{st['wall_ms']:.2f}, device ms {st['device_ms']:.3f}, kernels "
+        f"{st['kernels']:.1f}; weight floor {st['floor_ms']:.2f} ms "
+        f"({st['read_gb']:.2f} GB read a step at {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s); peak {sv['serve_peak_gb']:.2f} GB serving, {sv['peak_gb']:.2f} "
+        f"GB with the gates")
+    g = sv["gates"]
+    lines.append(
+        f"{tag}: dropless (factor {MOE_DROPLESS}) at {MOE_SERVE_LAYERS} layers: "
+        f"served greedy against the bf16 forward with a cache: "
+        + "; ".join(f"max |logprob diff| {f['err']:.4f} (first mismatch "
+                    f"{f['first']}, first near-tie {f['tie']})" for f in g["forced"])
+        + f" (limit {MOE_LOGP_TOL}); graph replay against the eager body: "
+        + "; ".join(f"{k_} tokens equal, logprobs max diff {v['lp']:.3g}, "
+                    f"bitwise {v['bitwise']}" for k_, v in g["replay"].items()))
+    bf, i8 = sm["steps"]["bf16"], sm["steps"]["int8"]
+    lines.append(
+        f"{tag}: at {MOE_SMALL_LAYERS} layers, full width, greedy served against "
+        f"dense f32 (max |logprob diff|, median, chosen-token gap, positions "
+        f"over {DENSE_LOGP_TOL}): " + "; ".join(
+            f"served {lb} " + ", ".join(
+                f"({r['err']:.4g}, {r['median']:.4g}, {r['gap']:.4g}, {r['over']})"
+                for r in rows) for lb, rows in sm["dense"].items())
+        + f" (limits f32 {MOE_F32_TOL}, bf16 {MOE_LOGP_TOL}); "
+        f"checkpoint {sm['ckpt_gb']:.2f} GB written in {sm['write_s']:.1f} s, "
+        f"loaded bf16 in {sm['load_s']:.1f} s (bitwise), int8 in "
+        f"{sm['int8_s']:.1f} s ({sm['int8_gb']:.2f} GB; bitwise quantize_params "
+        f"of the bf16 load, router bf16); int8 greedy group and lone request "
+        f"launches " + json.dumps({k_: sm["launches"][k_] for k_ in SERVE_KERNELS})
+        + f"; decode step by replay bf16 / int8: device ms {bf['device_ms']:.3f} "
+        f"/ {i8['device_ms']:.3f}, wall ms {bf['wall_ms']:.2f} / "
+        f"{i8['wall_ms']:.2f}, kernels {bf['kernels']:.1f} / {i8['kernels']:.1f}")
+    lines.append(
+        f"{tag}: fit at {MOE_TRAIN_LAYERS} layers, full width "
+        f"({tr['n_params'] / 1e9:.2f} B parameters, dropless), 2 GRPO steps: "
+        f"fit {tr['fit_s']:.1f} s; step walls by phase "
+        + json.dumps([{k_: round(v, 2) for k_, v in w.items()} for w in tr["walls"]])
+        + f"; step-1 old logprobs vs the engine's over {tr['gaps']['tokens']} "
+        f"tokens: max {tr['gaps']['max']:.4f}, mean {tr['gaps']['mean']:.5f} "
+        f"nats (limit {LOGP_AGREE_TOL}); moved from the reference copy "
+        + json.dumps({k_: round(v, 4) for k_, v in tr["moved"].items()})
+        + f"; grad norms {[round(x, 4) for x in tr['grad_norms']]}; launches "
+        + json.dumps({k_: tr["launches"][k_] for k_ in TRAIN_KERNELS})
+        + f"; {tr['up_gb']:.2f} GB after the build, peak {tr['peak_gb']:.2f} GB")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", default=None,
@@ -6758,6 +7324,15 @@ def main() -> int:
 
     rows = check_kernels(dev) + check_flash(dev)
     torch.cuda.empty_cache()
+    # the MoE phase first, while the card's memory is empty: its serving
+    # holds 61 GB of weights
+    t0 = time.monotonic()
+    moe = moe_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in moe_lines(moe, smi):
+        log(line)
+    log(f"phase moe ({smi}, this run): {moe['seconds']:.1f} s wall")
     served = serve_phase(dev, profile=args.profile)
     log(f"serve ({smi}, this run): decode {served['decode_tok_s']:.1f} tok/s "
         f"over 18 concurrent streams; TTFT median "
@@ -6864,11 +7439,11 @@ def main() -> int:
                     if r["name"] == "paged_kv_write" else
                     trained["launches"] if r["name"].startswith("flash")
                     else served["launches"])
-        # plus the memory phase's and the disagg, hybrid, lora_delta and
-        # autoscale paths: the servers decode, the trainers run K4, and the
-        # hybrid's trainer process decodes too (its local engine)
+        # plus the memory phase's and the disagg, hybrid, lora_delta,
+        # autoscale and moe paths: the servers decode, the trainers run K4,
+        # and the hybrid's trainer process decodes too (its local engine)
         name = r["name"]
-        extra = (0 if name == "paged_kv_write" else
+        extra = moe["launches"][name] + (0 if name == "paged_kv_write" else
                  disagg["trainer_launches"][name]
                  + hybrid["trainer_launches"][name]
                  + delta["trainer_launches"][name]

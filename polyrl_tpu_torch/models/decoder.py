@@ -20,8 +20,17 @@ and paged serving paths run under ``torch.no_grad``.
 Every projection goes through ``quant.mm`` and the logits head through
 ``unembed``, so a layer leaf may be a ``QuantWeight`` (int8 serving) or a
 ``LoraWeight`` (LoRA training; QLoRA over an int8 base), as in the
-reference; ``layer_params`` slices wrappers like tensors. MoE is not
-ported yet.
+reference; ``layer_params`` slices wrappers like tensors.
+
+MoE models (``num_experts > 0``: Qwen3-MoE, Mixtral) replace every
+layer's dense MLP with the reference's routed mixture (``_moe_mlp``):
+``router [L, d, E]`` and stacked experts ``we_gate``/``we_up [L, E, d,
+f]``, ``we_down [L, E, f, d]`` in place of ``w_gate``/``w_up``/
+``w_down``; softmax over all experts, top-k, GShard fixed-capacity
+dispatch over token groups. Every path passes the tokens' validity to it
+(padding, inactive decode slots and speculation's rejected rows take no
+expert capacity), and it reads nothing on the host, so that the engine's
+decode graphs capture it.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from polyrl_tpu_torch.models.quant import mm, unembed_operands
+from polyrl_tpu_torch.models.quant import mm, moe_mm, unembed_operands
 from polyrl_tpu_torch.ops import flash
 from polyrl_tpu_torch.ops.attention import attention
 from polyrl_tpu_torch.ops.norm_rope import apply_rope, rms_norm
@@ -67,9 +76,16 @@ class ModelConfig:
     use_qk_norm: bool = False  # Qwen3
     attention_bias: bool = False  # Qwen2/2.5 family (qkv projection bias)
     max_position_embeddings: int = 131072
-    num_experts: int = 0  # MoE presets are listed but not served yet
+    # MoE (Qwen3-MoE / Mixtral-class): num_experts > 0 replaces every
+    # layer's dense MLP with the routed mixture (``_moe_mlp``);
+    # moe_capacity_factor sizes each expert's buffer per token group of
+    # moe_group_size tokens (0: min(N, 512)); choices past capacity drop
+    num_experts: int = 0
     num_experts_per_tok: int = 8
     moe_intermediate_size: int = 0
+    norm_topk_prob: bool = True
+    moe_capacity_factor: float = 2.0
+    moe_group_size: int = 0
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -170,20 +186,16 @@ def get_config(name: str, **overrides) -> ModelConfig:
     return dataclasses.replace(PRESETS[name], **overrides)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE models are not ported yet (dense SwiGLU only)")
-
-
 # -- init -------------------------------------------------------------------
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree's structure: ``(shape, init)`` per leaf, init
-    one of ``normal`` (Normal(0.02)), ``ones``, ``zeros``, in the order
-    ``init_params`` draws them."""
-    _check_dense(cfg)
+    one of ``normal`` (Normal(0.02)), ``layer_normal`` (Normal(0.02) drawn
+    one layer at a time: the stacked experts, whose whole f32 draw would
+    not fit beside the model), ``ones``, ``zeros``, in the order
+    ``init_params`` draws them. A MoE config has ``router`` and the
+    ``we_*`` experts in place of the dense ``w_*`` MLP leaves."""
     hd = cfg.head_dim_
     d, f, n_l = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
@@ -194,10 +206,21 @@ def param_specs(cfg: ModelConfig) -> dict:
         "wk": ((n_l, d, hkv * hd), "normal"),
         "wv": ((n_l, d, hkv * hd), "normal"),
         "wo": ((n_l, hq * hd, d), "normal"),
-        "w_gate": ((n_l, d, f), "normal"),
-        "w_up": ((n_l, d, f), "normal"),
-        "w_down": ((n_l, f, d), "normal"),
     }
+    if cfg.num_experts:
+        e, fe = cfg.num_experts, cfg.moe_intermediate_size
+        layers.update({
+            "router": ((n_l, d, e), "normal"),
+            "we_gate": ((n_l, e, d, fe), "layer_normal"),
+            "we_up": ((n_l, e, d, fe), "layer_normal"),
+            "we_down": ((n_l, e, fe, d), "layer_normal"),
+        })
+    else:
+        layers.update({
+            "w_gate": ((n_l, d, f), "normal"),
+            "w_up": ((n_l, d, f), "normal"),
+            "w_down": ((n_l, f, d), "normal"),
+        })
     if cfg.use_qk_norm:
         layers["q_norm"] = ((n_l, hd), "ones")
         layers["k_norm"] = ((n_l, hd), "ones")
@@ -222,11 +245,18 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     unmapped tree never exists whole."""
     dev = generator.device
 
+    def normal(shape):
+        w = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (w * 0.02).to(cfg.dtype)
+
     def make(name, shape, init):
         if init == "normal":
-            w = torch.randn(shape, generator=generator, device=dev,
-                            dtype=torch.float32)
-            w = (w * 0.02).to(cfg.dtype)
+            w = normal(shape)
+        elif init == "layer_normal":
+            w = torch.empty(shape, device=dev, dtype=cfg.dtype)
+            for layer in range(shape[0]):
+                w[layer] = normal(shape[1:])
         else:
             w = (torch.ones if init == "ones" else torch.zeros)(
                 shape, device=dev, dtype=cfg.dtype)
@@ -302,8 +332,88 @@ def rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor
     return torch.cos(angles), torch.sin(angles)
 
 
-def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
-    """Dense SwiGLU; SiLU in f32, cast back before the gate product."""
+def _moe_mlp(cfg: ModelConfig, x: torch.Tensor, lp: dict,
+             valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Routed mixture MLP on flattened tokens ``x`` [N, d] -> [N, d], the
+    reference's ``_moe_mlp``: softmax over all experts, top-k, the k
+    probabilities renormalised with ``norm_topk_prob``; GShard dispatch
+    with token groups of ``moe_group_size`` (0: min(N, 512)), each expert
+    taking ``C = ceil(k * g * capacity_factor / E)`` slots per group.
+    Within a group earlier tokens win capacity, and within a token its
+    higher-probability choice; a choice past capacity loses that expert's
+    contribution. ``valid`` [N] keeps tokens out of routing altogether.
+
+    Top-k is a stable descending sort: on equal probabilities the lower
+    expert index comes first, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` promises no order), which decides both the experts a
+    token takes and which of its choices wins capacity. The one-hots are
+    comparisons with an ``arange`` and the capacity a Python int: nothing
+    reads the host, so a CUDA graph captures the layer. Cast points are
+    the reference's: the router product in the model dtype, then f32
+    softmax and top-k; dispatch in the model dtype, combine in f32; SiLU in
+    f32, cast back before ``gate * up``; the combine product in f32, cast
+    back at the end. The expert products are batched einsums over the
+    stacked experts (``quant.moe_mm``)."""
+    n, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    g = min(cfg.moe_group_size or 512, n)
+    n_pad = -(-n // g) * g
+    ng = n_pad // g
+    dev = x.device
+
+    valid = (torch.ones((n,), dtype=torch.float32, device=dev) if valid is None
+             else valid.float())
+    if n_pad != n:
+        x = torch.nn.functional.pad(x, (0, 0, 0, n_pad - n))
+        valid = torch.nn.functional.pad(valid, (0, n_pad - n))
+
+    probs = torch.softmax(mm(x, lp["router"]).float(), dim=-1)       # [Np, E]
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :k], top_i[:, :k]
+    if cfg.norm_topk_prob:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+
+    cap = int(np.ceil(k * g * cfg.moe_capacity_factor / e))
+    cap = max(1, min(cap, g))
+
+    # slot of each (token, choice) in its expert's buffer, token-major
+    flat_e = top_i.reshape(ng, g * k)                                 # [G, g·k]
+    vk = valid.reshape(ng, g).repeat_interleave(k, dim=1)             # [G, g·k]
+    e_onehot = ((flat_e[..., None] == torch.arange(e, device=dev)).float()
+                * vk[..., None])                                      # [G, g·k, E]
+    pos_in_e = e_onehot.cumsum(dim=1) - e_onehot
+    pos = pos_in_e.gather(2, flat_e[..., None])[..., 0]               # [G, g·k]
+    keep = (pos < cap).float() * vk
+    cap_oh = ((pos.long()[..., None] == torch.arange(cap, device=dev)).float()
+              * keep[..., None])                                      # [G, g·k, C]
+
+    # dispatch/combine [G, g, E, C], contracting the k choices (a token
+    # takes an expert once, so each entry is one term: exact in any order)
+    eo = e_onehot.reshape(ng, g, k, e)
+    co = cap_oh.reshape(ng, g, k, cap)
+    dispatch = torch.einsum("gtke,gtkc->gtec", eo, co).to(x.dtype)
+    combine = torch.einsum("gtke,gtkc->gtec",
+                           eo * top_p.reshape(ng, g, k, 1), co).float()
+
+    xe = torch.einsum("gtd,gtec->gecd", x.reshape(ng, g, d), dispatch)
+    gate = torch.nn.functional.silu(
+        moe_mm("gecd,edf->gecf", xe, lp["we_gate"]).float()).to(x.dtype)
+    up = moe_mm("gecd,edf->gecf", xe, lp["we_up"])
+    ye = moe_mm("gecf,efd->gecd", gate * up, lp["we_down"])          # [G, E, C, d]
+    out = torch.einsum("gecd,gtec->gtd", ye.float(), combine)
+    return out.reshape(n_pad, d)[:n].to(x.dtype)
+
+
+def _mlp_block(cfg: ModelConfig, h: torch.Tensor, lp: dict,
+               valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Post-norm MLP: dense SwiGLU (SiLU in f32, cast back before the
+    gate product), or the routed mixture on a MoE config, over ``h``'s
+    leading dims flattened into one token axis; ``valid`` matches those
+    dims."""
+    if cfg.num_experts:
+        shape = h.shape
+        v = valid.reshape(-1) if valid is not None else None
+        return _moe_mlp(cfg, h.reshape(-1, shape[-1]), lp, v).reshape(shape)
     gate = torch.nn.functional.silu(mm(h, lp["w_gate"]).float()).to(h.dtype)
     return mm(gate * mm(h, lp["w_up"]), lp["w_down"])
 
@@ -401,12 +511,13 @@ def _qkv(cfg: ModelConfig, x: torch.Tensor, lp: dict, cos, sin):
 
 
 def _post_attn(cfg: ModelConfig, x: torch.Tensor, attn_out: torch.Tensor,
-               lp: dict) -> torch.Tensor:
-    """Output projection, residual, post-norm MLP, residual."""
+               lp: dict, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Output projection, residual, post-norm MLP, residual. ``valid``
+    (``x``'s leading dims) marks the tokens that route (MoE)."""
     lead = attn_out.shape[:-2]
     x = x + mm(attn_out.reshape(*lead, -1), lp["wo"])
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    return x + _mlp(h, lp)
+    return x + _mlp_block(cfg, h, lp, valid)
 
 
 # -- forward ----------------------------------------------------------------
@@ -433,15 +544,17 @@ def forward_hidden(params: dict, cfg: ModelConfig,
     card, its plain version on the CPU), as the JAX actor passes it.
     ``remat`` recomputes each layer in the backward
     (``checkpoint(..., use_reentrant=False)``, the JAX ``jax.checkpoint``
-    of the scan body); it applies only while autograd records."""
-    _check_dense(cfg)
+    of the scan body); it applies only while autograd records. Tokens
+    with ``attn_mask`` 0 (padding, a packed row's tail) take no expert
+    capacity (MoE)."""
     attn_fn = attn_fn or flash.auto_train_attention()
     x = params["embed"][input_ids]
     cos, sin = rope_cos_sin(cfg, positions)
+    valid = attn_mask > 0
 
     def layer(x, lp):
         q, k, v = _qkv(cfg, x, lp, cos, sin)
-        return _post_attn(cfg, x, attn_fn(q, k, v, attn_mask), lp)
+        return _post_attn(cfg, x, attn_fn(q, k, v, attn_mask), lp, valid)
 
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
@@ -471,8 +584,8 @@ def forward(params: dict, cfg: ModelConfig,
     prefill path, no grad): the chunk's KV is written IN PLACE at
     ``write_idx`` (the JAX version returns a new buffer) and dense
     attention runs over the whole cache buffer under ``attn_mask`` [B, S],
-    which must mark the chunk's slots valid too."""
-    _check_dense(cfg)
+    which must mark the chunk's slots valid too; the chunk's own slice of
+    it (at ``write_idx``) marks the tokens that route (MoE)."""
     b, t = input_ids.shape
     dev = input_ids.device
     if cache is None:
@@ -491,13 +604,15 @@ def forward(params: dict, cfg: ModelConfig,
         slot_written = kv_pos <= (write_idx + t - 1)
         causal = kv_pos <= (write_idx + torch.arange(t, device=dev)[None, None, :, None])
         mask = causal & slot_written & valid[:, None, None, :]
+        chunk_valid = valid[:, write_idx:write_idx + t]
         for layer in range(cfg.num_layers):
             lp = layer_params(params, layer)
             q, k, v = _qkv(cfg, x, lp, cos, sin)
             kc, vc = cache[0][layer], cache[1][layer]
             kc[:, write_idx:write_idx + t] = k.to(kc.dtype)
             vc[:, write_idx:write_idx + t] = v.to(vc.dtype)
-            x = _post_attn(cfg, x, attention(q, kc, vc, mask=mask), lp)
+            x = _post_attn(cfg, x, attention(q, kc, vc, mask=mask), lp,
+                           chunk_valid)
         x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
         if logits_for is not None:
             x = x[torch.arange(b, device=dev), logits_for.long()]
@@ -635,8 +750,8 @@ def forward_paged_decode(params: dict, cfg: ModelConfig,
     an explicit ``kv_write_fn(k_pool, v_pool, page, off, k, v)`` (the JAX
     step's seam, e.g. ``paged_kv_write``) takes the unfused route: the
     eager qk-norm and RoPE, then that write. On the CPU both routes run
-    the same plain chain. Pools are updated in place."""
-    _check_dense(cfg)
+    the same plain chain. Pools are updated in place. Inactive slots
+    route to no expert (MoE)."""
     attn_fn = attn_fn or paged_attention
     s = tokens.shape[0]
     page_size = pools[0][0].shape[2]
@@ -672,6 +787,6 @@ def forward_paged_decode(params: dict, cfg: ModelConfig,
             q = q[:, 0]
         attn_out = attn_fn(q, k_pools[layer], v_pools[layer],
                            page_table, attn_lens)  # [S, Hq, D]
-        x = _post_attn(cfg, x, attn_out[:, None], lp)
+        x = _post_attn(cfg, x, attn_out[:, None], lp, active)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_norm_eps)
     return unembed(x, head_weight(params, cfg)), pools

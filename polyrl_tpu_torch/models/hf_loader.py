@@ -1,7 +1,8 @@
 """Load Hugging Face checkpoints (safetensors) into the decoder's tree.
 
 Counterpart of ``polyrl_tpu/models/hf_loader.py``: ``config_from_hf``
-(llama, qwen2 and qwen3 families, llama3 rope scaling), ``load_hf_params``
+(llama, qwen2 and qwen3 families, Qwen3-MoE and Mixtral, llama3 rope
+scaling), ``load_hf_params``
 and ``build_from_hf``, the shared recipe of the train and serve entry
 points. The name map is the reference's (HF name -> tree path):
 
@@ -11,12 +12,19 @@ points. The name map is the reference's (HF name -> tree path):
 - ``model.layers.{i}.<suffix>`` -> ``layers.<key>[i]`` by ``_LAYER_MAP``;
   the projections are transposed (HF Linear stores [out, in], the decoder
   multiplies ``x @ W``)
+- MoE: the router ``mlp.gate.weight`` (Mixtral ``block_sparse_moe.gate.
+  weight``) -> ``layers.router[i]`` ([E, D] -> [D, E]); expert ``j``'s
+  ``mlp.experts.{j}.{gate,up,down}_proj.weight`` (Mixtral
+  ``block_sparse_moe.experts.{j}.{w1,w3,w2}.weight``) ->
+  ``layers.we_{gate,up,down}[i, j]`` by ``_EXPERT_MAP``, transposed
 
-Per-layer tensors are written into stacked ``[L, ...]`` leaves allocated
-on first sight, so the tree is never held twice. ``quantize="int8"``
-quantizes the projections (and an untied ``lm_head``) on the host from the
-checkpoint's own dtype, as the reference does, and only the int8 data and
-scales go to the device. MoE checkpoints are refused (ROADMAP A' 8).
+Per-layer tensors are written into stacked ``[L, ...]`` (experts ``[L,
+E, ...]``) leaves allocated on first sight, so the tree is never held
+twice. ``quantize="int8"`` quantizes the projections, the experts (one
+layer at a time, so that the f32 transient stays one layer's) and an
+untied ``lm_head`` on the host from the checkpoint's own dtype, as the
+reference does, and only the int8 data and scales go to the device; the
+router stays in the model dtype.
 
 The port reads safetensors itself (no ``safetensors`` or ``transformers``
 package on the card): an 8-byte little-endian header length, a JSON
@@ -38,7 +46,8 @@ import numpy as np
 import torch
 
 from polyrl_tpu_torch.models import decoder
-from polyrl_tpu_torch.models.quant import (QUANTIZED_LAYER_KEYS, QuantWeight,
+from polyrl_tpu_torch.models.quant import (QUANTIZED_EXPERT_KEYS,
+                                           QUANTIZED_LAYER_KEYS, QuantWeight,
                                            named_leaves, quantize_tensor)
 
 _LAYER_MAP = {
@@ -58,6 +67,19 @@ _LAYER_MAP = {
     "self_attn.v_proj.bias": "bv",
 }
 _TRANSPOSED = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+# MoE: the router, and the expert projections (Qwen3-MoE
+# model.layers.{i}.mlp.experts.{j}.<proj>, Mixtral
+# model.layers.{i}.block_sparse_moe.experts.{j}.{w1,w3,w2})
+_ROUTER_NAMES = ("mlp.gate.weight", "block_sparse_moe.gate.weight")
+_EXPERT_PREFIXES = ("mlp.experts.", "block_sparse_moe.experts.")
+_EXPERT_MAP = {
+    "gate_proj.weight": "we_gate",
+    "up_proj.weight": "we_up",
+    "down_proj.weight": "we_down",
+    "w1.weight": "we_gate",
+    "w3.weight": "we_up",
+    "w2.weight": "we_down",
+}
 # safetensors dtype -> (numpy storage dtype, torch dtype)
 _ST_DTYPES = {
     "F32": (np.dtype("<f4"), torch.float32),
@@ -71,8 +93,6 @@ _ST_DTYPES = {
     "U8": (np.dtype("u1"), torch.uint8),
     "BOOL": (np.dtype("?"), torch.bool),
 }
-_MOE_REFUSAL = ("MoE checkpoints are not ported yet (the MoE half of the "
-                "decoder and of quant.py, ROADMAP A' 8)")
 
 
 # -- safetensors -------------------------------------------------------------------
@@ -138,10 +158,14 @@ def _shard_files(ckpt_dir: str) -> list[str]:
 
 
 def config_from_hf(ckpt_dir: str, dtype=torch.bfloat16) -> decoder.ModelConfig:
-    """A ModelConfig from the checkpoint's ``config.json`` (llama, qwen2 and
-    qwen3 architectures). llama3 rope scaling is read; other scaling types
-    are refused (unscaled frequencies would be quietly wrong at long
-    context), and so are MoE checkpoints."""
+    """A ModelConfig from the checkpoint's ``config.json`` (llama, qwen2,
+    qwen3, Qwen3-MoE and Mixtral architectures). llama3 rope scaling is
+    read; other scaling types are refused (unscaled frequencies would be
+    quietly wrong at long context), and so are MoE stacks with dense
+    layers (``mlp_only_layers``, ``decoder_sparse_step`` other than 1),
+    as in the reference. Mixtral routes ``softmax(top_k(logits))``, which
+    is softmax over all experts, top-k and renormalisation:
+    ``norm_topk_prob=True``, its experts of the dense intermediate size."""
     with open(os.path.join(ckpt_dir, "config.json")) as f:
         hf = json.load(f)
     rope_scaling = None
@@ -155,13 +179,27 @@ def config_from_hf(ckpt_dir: str, dtype=torch.bfloat16) -> decoder.ModelConfig:
     elif rs_type not in (None, "default"):
         raise NotImplementedError(
             f"rope_scaling type {rs_type!r} is not supported (llama3 only)")
-    if hf.get("num_experts") or hf.get("num_local_experts"):
-        raise NotImplementedError(_MOE_REFUSAL)
+    moe: dict = {}
+    if hf.get("num_experts"):  # Qwen3-MoE family
+        if hf.get("mlp_only_layers") or hf.get("decoder_sparse_step", 1) != 1:
+            raise NotImplementedError(
+                "mixed dense/MoE layer stacks are not supported (uniform "
+                "MoE keeps the scan-over-layers body a single trace)")
+        moe = dict(num_experts=hf["num_experts"],
+                   num_experts_per_tok=hf.get("num_experts_per_tok", 8),
+                   moe_intermediate_size=hf["moe_intermediate_size"],
+                   norm_topk_prob=bool(hf.get("norm_topk_prob", True)))
+    elif hf.get("num_local_experts"):  # Mixtral family
+        moe = dict(num_experts=hf["num_local_experts"],
+                   num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+                   moe_intermediate_size=hf["intermediate_size"],
+                   norm_topk_prob=True)
     return decoder.ModelConfig(
         vocab_size=hf["vocab_size"],
         hidden_size=hf["hidden_size"],
         intermediate_size=hf["intermediate_size"],
         num_layers=hf["num_hidden_layers"],
+        **moe,
         num_heads=hf["num_attention_heads"],
         num_kv_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
         head_dim=hf.get("head_dim"),
@@ -185,7 +223,8 @@ def expected_shapes(cfg: decoder.ModelConfig, quantize: str = "") -> dict:
     out = {}
     for name, (shape, _init) in _flat_specs(decoder.param_specs(cfg)).items():
         key = name.rsplit(".", 1)[-1]
-        if quantize == "int8" and (key in QUANTIZED_LAYER_KEYS or name == "lm_head"):
+        if quantize == "int8" and (key in QUANTIZED_LAYER_KEYS + QUANTIZED_EXPERT_KEYS
+                                   or name == "lm_head"):
             out[f"{name}.q"] = tuple(shape)
             out[f"{name}.scale"] = tuple(shape[:-2]) + (shape[-1],)
         else:
@@ -209,21 +248,21 @@ def load_hf_params(ckpt_dir: str, cfg: decoder.ModelConfig | None = None,
     """A safetensors checkpoint as the decoder tree on ``device`` (the card
     by default; ``"cpu"`` for the host). ``cfg`` defaults to
     ``config_from_hf(ckpt_dir)``, ``dtype`` to ``cfg.dtype``.
-    ``quantize="int8"`` quantizes the projections and an untied
-    ``lm_head`` on the host (from the checkpoint's dtype) and moves only
-    the int8 tensors and scales. The structure and every shape are checked
-    against ``cfg``; a mismatch raises ``ValueError``."""
+    ``quantize="int8"`` quantizes the projections, the experts (a layer
+    at a time) and an untied ``lm_head`` on the host (from the
+    checkpoint's dtype) and moves only the int8 tensors and scales. The
+    structure and every shape are checked against ``cfg``; a mismatch
+    raises ``ValueError``."""
     from polyrl_tpu_torch.device import resolve_device
 
     if quantize not in ("", "int8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
     cfg = cfg or config_from_hf(ckpt_dir)
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE_REFUSAL)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     n_layers = cfg.num_layers
     quantized = quantize == "int8"
+    int8_keys = QUANTIZED_LAYER_KEYS + QUANTIZED_EXPERT_KEYS
 
     flat: dict[str, torch.Tensor] = {}
     stacked: dict[str, torch.Tensor] = {}
@@ -240,31 +279,41 @@ def load_hf_params(ckpt_dir: str, cfg: decoder.ModelConfig | None = None,
                     flat["lm_head"] = t.t()               # [V, D] -> [D, V]
                 elif name.startswith("model.layers."):
                     idx_s, suffix = name.split(".", 2)[2].split(".", 1)
-                    if (suffix.startswith(("mlp.experts.", "block_sparse_moe."))
-                            or suffix == "mlp.gate.weight"):
-                        raise NotImplementedError(_MOE_REFUSAL)
-                    key = _LAYER_MAP.get(suffix)
-                    if key is None:
-                        raise KeyError(f"unmapped HF layer tensor {name}")
-                    if key in _TRANSPOSED:
+                    index = (int(idx_s),)
+                    lead = (n_layers,)
+                    if suffix in _ROUTER_NAMES:
+                        key, t = "router", t.t()          # [E, D] -> [D, E]
+                    elif suffix.startswith(_EXPERT_PREFIXES):
+                        j_s, proj = suffix.split(".", 3)[2:]
+                        key = _EXPERT_MAP.get(proj)
+                        if key is None:
+                            raise KeyError(f"unmapped HF expert tensor {name}")
                         t = t.t()                         # [out, in] -> [in, out]
-                    i = int(idx_s)
-                    if not 0 <= i < n_layers:
-                        raise ValueError(f"{name}: layer {i} outside the "
-                                         f"config's {n_layers}")
+                        index += (int(j_s),)
+                        lead += (cfg.num_experts,)
+                    else:
+                        key = _LAYER_MAP.get(suffix)
+                        if key is None:
+                            raise KeyError(f"unmapped HF layer tensor {name}")
+                        if key in _TRANSPOSED:
+                            t = t.t()                     # [out, in] -> [in, out]
+                    if not all(0 <= x < n for x, n in zip(index, lead)):
+                        raise ValueError(f"{name}: index {index} outside the "
+                                         f"config's {lead}")
                     if key not in stacked:
                         # quantized leaves keep the checkpoint's dtype until
                         # they are quantized, as the reference's do
-                        keep = quantized and key in QUANTIZED_LAYER_KEYS
-                        stacked[key] = torch.empty((n_layers, *t.shape),
+                        keep = quantized and key in int8_keys
+                        stacked[key] = torch.empty((*lead, *t.shape),
                                                    dtype=t.dtype if keep else dtype)
                         filled[key] = set()
-                    if tuple(t.shape) != tuple(stacked[key].shape[1:]):
+                    inner = tuple(stacked[key].shape[len(lead):])
+                    if tuple(t.shape) != inner:
                         raise ValueError(
                             f"{name}: checkpoint shape {tuple(t.shape)} != "
-                            f"the other layers' {tuple(stacked[key].shape[1:])}")
-                    stacked[key][i].copy_(t)
-                    filled[key].add(i)
+                            f"the other layers' {inner}")
+                    stacked[key][index].copy_(t)
+                    filled[key].add(index)
                 else:
                     raise KeyError(f"unmapped HF tensor {name}")
 
@@ -273,13 +322,25 @@ def load_hf_params(ckpt_dir: str, cfg: decoder.ModelConfig | None = None,
 
     layers = {}
     for key in list(stacked):
-        missing = sorted(set(range(n_layers)) - filled[key])
-        if missing:
-            raise ValueError(f"layer tensors missing for {key}: {missing}")
         host = stacked.pop(key)
+        lead = host.shape[:2] if key in QUANTIZED_EXPERT_KEYS else host.shape[:1]
+        missing = sorted({tuple(ix) for ix in np.ndindex(*lead)} - filled[key])
+        if missing:
+            what = missing if len(lead) == 1 else missing[:8]
+            raise ValueError(f"layer tensors missing for {key}: "
+                             f"{[ix[0] if len(ix) == 1 else ix for ix in what]}")
         if quantized and key in QUANTIZED_LAYER_KEYS:
             qw = quantize_tensor(host, contract_axis=-2)  # on the host
             layers[key] = QuantWeight(to_dev(qw.q), to_dev(qw.scale))
+        elif quantized and key in QUANTIZED_EXPERT_KEYS:
+            # one layer's experts at a time on the host
+            q = torch.empty(host.shape, dtype=torch.int8)
+            scale = torch.empty((*host.shape[:2], host.shape[-1]),
+                                dtype=torch.float32)
+            for i in range(n_layers):
+                qw = quantize_tensor(host[i], contract_axis=-2)
+                q[i], scale[i] = qw.q, qw.scale
+            layers[key] = QuantWeight(to_dev(q), to_dev(scale))
         else:
             layers[key] = to_dev(host, dtype)
         del host
@@ -330,17 +391,31 @@ def build_from_hf(ckpt_dir: str, dtype=torch.bfloat16,
 # -- writing (the inverse map) -----------------------------------------------------
 
 
-def hf_tensors(params: dict, cfg: decoder.ModelConfig) -> dict[str, torch.Tensor]:
+def hf_tensors(params: dict, cfg: decoder.ModelConfig,
+               model_type: str = "qwen3") -> dict[str, torch.Tensor]:
     """The inverse of the loader's map: a plain decoder tree as
     ``{HF name: tensor}`` (projections transposed back to [out, in], the
-    stacked leaves split per layer; views, no copies)."""
+    stacked leaves split per layer and expert; views, no copies). A MoE
+    tree takes Qwen3-MoE's names, or Mixtral's with ``model_type``
+    ``"mixtral"``."""
     inv = {v: k for k, v in _LAYER_MAP.items()}
+    mixtral = model_type == "mixtral"
+    moe_prefix = "block_sparse_moe." if mixtral else "mlp."
+    inv["router"] = moe_prefix + "gate.weight"
+    inv_e = {v: k for k, v in _EXPERT_MAP.items()
+             if k.startswith("w") == mixtral}
     out = {"model.embed_tokens.weight": params["embed"],
            "model.norm.weight": params["final_norm"]}
     for key, w in params["layers"].items():
         for i in range(cfg.num_layers):
             t = w[i]
-            out[f"model.layers.{i}.{inv[key]}"] = t.t() if key in _TRANSPOSED else t
+            if key in inv_e:
+                for j in range(cfg.num_experts):
+                    out[f"model.layers.{i}.{moe_prefix}experts.{j}."
+                        f"{inv_e[key]}"] = t[j].t()
+                continue
+            out[f"model.layers.{i}.{inv[key]}"] = (
+                t.t() if key in _TRANSPOSED or key == "router" else t)
     if "lm_head" in params:
         out["lm_head.weight"] = params["lm_head"].t()
     return out
@@ -375,9 +450,9 @@ def save_safetensors(path: str, tensors: dict[str, torch.Tensor]) -> int:
 def save_hf_checkpoint(ckpt_dir: str, params: dict, cfg: decoder.ModelConfig,
                        model_type: str = "qwen3", n_shards: int = 1) -> int:
     """Write a plain tree as a Hugging Face checkpoint: ``config.json`` in
-    the family's schema, ``n_shards`` safetensors shards (with
-    ``model.safetensors.index.json`` when more than one). Returns the
-    bytes of the shards."""
+    the family's schema (a MoE config as ``qwen3_moe`` or ``mixtral``),
+    ``n_shards`` safetensors shards (with ``model.safetensors.index.json``
+    when more than one). Returns the bytes of the shards."""
     os.makedirs(ckpt_dir, exist_ok=True)
     hf_cfg = {
         "model_type": model_type, "vocab_size": cfg.vocab_size,
@@ -399,9 +474,19 @@ def save_hf_checkpoint(ckpt_dir: str, params: dict, cfg: decoder.ModelConfig,
             "low_freq_factor": s.low_freq_factor,
             "high_freq_factor": s.high_freq_factor,
             "original_max_position_embeddings": s.original_max_position_embeddings}
+    if cfg.num_experts and model_type == "mixtral":
+        hf_cfg.update(num_local_experts=cfg.num_experts,
+                      num_experts_per_tok=cfg.num_experts_per_tok,
+                      intermediate_size=cfg.moe_intermediate_size)
+    elif cfg.num_experts:
+        hf_cfg.update(num_experts=cfg.num_experts,
+                      num_experts_per_tok=cfg.num_experts_per_tok,
+                      moe_intermediate_size=cfg.moe_intermediate_size,
+                      norm_topk_prob=cfg.norm_topk_prob,
+                      decoder_sparse_step=1, mlp_only_layers=[])
     with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
         json.dump(hf_cfg, f, indent=2)
-    tensors = hf_tensors(params, cfg)
+    tensors = hf_tensors(params, cfg, model_type)
     names = sorted(tensors)
     if n_shards <= 1:
         return save_safetensors(os.path.join(ckpt_dir, "model.safetensors"),

@@ -27,7 +27,10 @@ import torch
 from polyrl_tpu_torch.models.quant import (LoraWeight, QuantWeight, dequantize,
                                            named_leaves)
 
-# default adapter targets: attention and dense MLP projections
+# default adapter targets: attention and dense MLP projections (a MoE
+# tree's expert stacks are not wrapped, as in the reference: their
+# products go through ``quant.moe_mm``, not ``mm``; attention-only LoRA
+# is the usual recipe for MoE fine-tuning)
 DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 

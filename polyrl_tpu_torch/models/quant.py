@@ -1,11 +1,12 @@
 """Int8 weight-only quantization and the LoRA weight wrapper, in PyTorch.
 
-Counterpart of the dense half of ``polyrl_tpu/models/quant.py``:
-``QuantWeight`` (int8 ``q`` with a per-output-channel f32 ``scale``),
-``LoraWeight`` (a frozen ``base`` plus trainable ``a``/``b`` adapters and
-a float ``alpha``), ``quantize_tensor``, ``mm`` (the product every
-decoder projection goes through), ``unembed_operands`` (the logits head's
-dispatch), ``quantize_params`` and ``init_quantized_params``.
+Counterpart of ``polyrl_tpu/models/quant.py``: ``QuantWeight`` (int8
+``q`` with a per-output-channel f32 ``scale``), ``LoraWeight`` (a frozen
+``base`` plus trainable ``a``/``b`` adapters and a float ``alpha``),
+``quantize_tensor``, ``mm`` (the product every decoder projection goes
+through), ``moe_mm`` (the expert-batched product of the MoE layer),
+``unembed_operands`` (the logits head's dispatch), ``quantize_params``
+and ``init_quantized_params``.
 
 The reference's wrappers are pytree nodes; here they are small classes
 holding tensors, and ``tree_map`` / ``named_leaves`` walk a parameter
@@ -17,11 +18,10 @@ an int8 base). ``flatten``/``unflatten`` add ``<path>.alpha`` so a flat
 ``{name: tensor}`` dict carries a wrapped tree whole (checkpoints).
 
 The reference's products are XLA ops that fuse the int8 -> bf16 cast into
-the matmul. Here ``mm`` casts ``q`` to the activations' type and then
-multiplies: on the card that writes a bf16 copy of the weight before each
-product (``PERF.md`` measures what it costs; a fused int8 weight-only
-decode product is a ROADMAP item). The MoE half (``moe_mm``) waits for
-the MoE port.
+the matmul. Here ``mm`` and ``moe_mm`` cast ``q`` to the activations'
+type and then multiply: on the card that writes a bf16 copy of the
+weight before each product (``PERF.md`` measures what it costs; a fused
+int8 weight-only product is performance work in ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -32,12 +32,17 @@ import torch
 # stays in the model dtype (a gather, not a product), norms and biases are
 # tiny
 QUANTIZED_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# MoE expert weights ([L, E, in, out], scale [L, E, out]): the bulk of a
+# MoE model; the router ([L, d, E]) stays in the model dtype (routing is
+# precision-sensitive and the router is small)
+QUANTIZED_EXPERT_KEYS = ("we_gate", "we_up", "we_down")
 
 
 class QuantWeight:
-    """int8 weight ``q`` ([in, out] or stacked [L, in, out]) and its f32
-    per-output-channel ``scale`` with the contraction axis reduced away
-    ([out] or [L, out]): ``w ~= q * scale``."""
+    """int8 weight ``q`` ([in, out], stacked [L, in, out] or experts
+    [L, E, in, out]) and its f32 per-output-channel ``scale`` with the
+    contraction axis reduced away ([out], [L, out] or [L, E, out]):
+    ``w ~= q * scale``."""
 
     __slots__ = ("q", "scale")
 
@@ -196,12 +201,13 @@ def dequantize(w: QuantWeight, dtype: torch.dtype = torch.float32) -> torch.Tens
 
 
 def quantize_params(params: dict) -> dict:
-    """The decoder tree with its layer-stacked projections and an untied
-    ``lm_head`` quantized; embed, norms and biases stay as they are (a
-    tied head is the embedding and stays too)."""
+    """The decoder tree with its layer-stacked projections (dense MLP or
+    MoE experts) and an untied ``lm_head`` quantized; embed, norms, biases
+    and the router stay as they are (a tied head is the embedding and
+    stays too)."""
     out = dict(params)
     layers = dict(params["layers"])
-    for k in QUANTIZED_LAYER_KEYS:
+    for k in QUANTIZED_LAYER_KEYS + QUANTIZED_EXPERT_KEYS:
         if k in layers:
             layers[k] = quantize_tensor(layers[k], contract_axis=-2)
     out["layers"] = layers
@@ -214,13 +220,14 @@ def init_quantized_params(generator: torch.Generator, cfg) -> dict:
     """``quantize_params(decoder.init_params(generator, cfg))`` built one
     leaf at a time on ``generator``'s device: the same draws, and the
     model-dtype tree never exists whole (peak: one leaf in f32 and its
-    int8 copy). Dense models only."""
+    int8 copy). Dense models only, as in the reference."""
     from polyrl_tpu_torch.models import decoder
 
     if cfg.num_experts:
         raise NotImplementedError(
-            "init_quantized_params supports dense models only (the MoE half "
-            "of quant.py waits for MoE, ROADMAP A' 8)")
+            "init_quantized_params supports dense models only; load a MoE "
+            "checkpoint with quantize='int8' or quantize_params a loaded "
+            "tree (experts quantize per-output-channel like the dense MLP)")
     quantized = set(QUANTIZED_LAYER_KEYS) | {"lm_head"}
 
     def make(name, w):
@@ -249,6 +256,17 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
         # one kernel (the widening of y is exact)
         return (y * w.scale).to(x.dtype)
     return x @ w
+
+
+def moe_mm(eq: str, x: torch.Tensor, w) -> torch.Tensor:
+    """Expert-batched einsum (experts on the result's axis 1) with
+    ``QuantWeight`` dispatch: ``q`` in the activations' type, then the
+    ``[E, out]`` scale broadcast as ``scale[None, :, None, :]`` in f32
+    and a cast back, as ``mm`` does."""
+    if isinstance(w, QuantWeight):
+        y = torch.einsum(eq, x, w.q.to(x.dtype))
+        return (y * w.scale[None, :, None, :]).to(x.dtype)
+    return torch.einsum(eq, x, w)
 
 
 def unembed_operands(head):

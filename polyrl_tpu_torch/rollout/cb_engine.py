@@ -261,6 +261,7 @@ class CBEngine:
         kv_spill_low_watermark: float = 0.80,
         loop_profile: bool = True,
         device: str | torch.device = "cuda",
+        copy_params: bool = True,
     ):
         if any(b % page_size for b in prompt_buckets):
             raise ValueError("prompt buckets must be page-aligned")
@@ -286,8 +287,12 @@ class CBEngine:
         # the engine's own copy, even of tensors already on its device: a
         # colocated actor updates its parameters in place, and an alias
         # would change the engine's weights with no version bump while the
-        # prefix cache still held KV of the old ones
-        self.params = params_copy(params, self.device)
+        # prefix cache still held KV of the old ones. ``copy_params=False``
+        # adopts a tree on the engine's device that no one else updates
+        # (``serve.create_server`` builds one for the engine alone): a
+        # model of 61 GB cannot be held twice on an 80 GB card
+        self.params = (params_copy(params, self.device) if copy_params
+                       else params)
         self.max_slots = max_slots
         self.page_size = page_size
         self.max_seq_len = max_seq_len

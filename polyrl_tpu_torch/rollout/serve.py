@@ -143,7 +143,7 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
             kv_ledger=kv_ledger,
             kv_cold_after_dispatches=kv_cold_after_dispatches,
             kv_spill=kv_spill, kv_spill_host_gb=kv_spill_host_gb,
-            loop_profile=loop_profile, device=dev)
+            loop_profile=loop_profile, device=dev, copy_params=False)
         if warmup:
             t0 = time.monotonic()
             engine.warmup()

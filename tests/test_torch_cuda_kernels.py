@@ -207,6 +207,25 @@ def test_cuda_grouped_kernel_splits_wide_groups(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_at_rep_8(cuda_device, dtype):
+    """K2 and K3 at qwen3-30b-a3b's attention layout (32 q heads on 4 kv
+    heads, D 128, page 64): a group of 8 stacks G * rep = 64 query rows;
+    rows of 1 to 4096 tokens, a length-0 slot and a -1 seat."""
+    rng = np.random.default_rng(14)
+    case = grouped_case(
+        rng, groups=((8, 3, (1, 64, 200, 65)), (5, 1, (7, 130))), hkv=4,
+        rep=8, d=128, ungrouped_lens=(4096, 1, 257, 0, 1000), page=64,
+        n_pool=180)
+    case[5][1, 3] = -1  # a finished sibling's seat mid-row
+    assert case[0].shape[1] == 32
+    cuda_build.reset_launch_counts()
+    _both_against_plain(_t(case, cuda_device), dtype)
+    assert cuda_build.LAUNCHES["paged_attention"] == 2
+    assert cuda_build.LAUNCHES["grouped_paged_attention"] == 2
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     q = torch.zeros((2, 4, 48), device=cuda_device)  # D not a multiple of 32
     pool = torch.zeros((2, 4, 64, 48), device=cuda_device)
@@ -491,6 +510,26 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, d, hkv):
         assert rel_err(g, rg) <= gtol, (name, rel_err(g, rg))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_at_rep_8(cuda_device, dtype):
+    """K4 forward and backward at qwen3-30b-a3b's layout (32 q heads on 4
+    kv heads, D 128: the backward sums dk/dv over 8 q heads a kv head),
+    with pads and a packed row, under ``test_cuda_flash_matches_plain``'s
+    tolerances."""
+    rng = np.random.default_rng(22)
+    case = flash_case(rng, hq=32, hkv=4, d=128, packed=1)
+    cuda_build.reset_launch_counts()
+    (o, dq, dk, dv), (ro, rdq, rdk, rdv) = _flash_both(case, cuda_device, dtype)
+    assert cuda_build.LAUNCHES["flash_attention_fwd"] == 1
+    assert cuda_build.LAUNCHES["flash_attention_bwd"] == 1
+    tol, gtol = _tols(dtype)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    for name, g, rg in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        assert rel_err(g, rg) <= gtol, (name, rel_err(g, rg))
+
+
 def _tols(dtype):
     """(out tolerance, gradient relative-error limit) of K4 against its
     plain version: f32 differs by reduction order only; bf16 rounds its
@@ -604,10 +643,12 @@ def test_cuda_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
         flash.flash_attention_train(x, x, x, mask)
 
 
-def _small_engine(device, seed=0, int8=False, **kw):
+def _small_engine(device, seed=0, int8=False, moe=False, **kw):
     """A 2-layer bf16 qwen3-shaped model (head_dim 64, qk-norm, tied
     embeddings) behind a CBEngine on the card, not started; ``int8``
-    serves its projections quantized (``quant.quantize_params``)."""
+    serves its projections quantized (``quant.quantize_params``); ``moe``
+    routes its MLP over 16 experts, top 4 (Qwen3-MoE), at the preset's
+    capacity factor."""
     from polyrl_tpu_torch.models import decoder, quant
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
 
@@ -615,7 +656,9 @@ def _small_engine(device, seed=0, int8=False, **kw):
         vocab_size=1024, hidden_size=256, intermediate_size=512, num_layers=2,
         num_heads=4, num_kv_heads=2, head_dim=64, rope_theta=10000.0,
         use_qk_norm=True, tie_word_embeddings=True, rms_norm_eps=1e-6,
-        max_position_embeddings=4096, dtype=torch.bfloat16)
+        max_position_embeddings=4096, dtype=torch.bfloat16,
+        num_experts=16 if moe else 0, num_experts_per_tok=4,
+        moe_intermediate_size=128 if moe else 0)
     gen = torch.Generator(device=device).manual_seed(11)
     params = decoder.init_params(gen, cfg)
     if int8:
@@ -624,6 +667,39 @@ def _small_engine(device, seed=0, int8=False, **kw):
                 prompt_buckets=(32, 64), num_pages=64, steps_per_dispatch=4,
                 seed=seed, device=device)
     return CBEngine(cfg, params, **{**geom, **kw}), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_moe_engine_dispatch_graph_replay_equals_eager(cuda_device, int8):
+    """A MoE engine's captured dispatch (the routed MLP inside the graph:
+    sort, one-hots by comparison, cumulative slots, batched expert
+    products; no host read), replayed, gives the eager body's tokens,
+    logprobs, done flags, state and pools bitwise, for K2 and K3 keys, in
+    bf16 and with int8 experts."""
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    eng, cfg = _small_engine(cuda_device, int8=int8, moe=True)
+    rng = np.random.default_rng(8)
+    sp = SamplingParams(temperature=0.0, max_new_tokens=40)
+    prompt = rng.integers(1, cfg.vocab_size, 40).tolist()
+    for i in range(4):
+        eng.submit(f"g{i}", prompt, sp, group_id="g", group_size=4)
+    for i, n in enumerate((9, 27)):
+        eng.submit(f"s{i}", rng.integers(1, cfg.vocab_size, n).tolist(), sp)
+    eng._drain_queue()
+    with eng._pool_lock:
+        eng._admit()
+        eng._step_once()
+        eng._drain_emit_q()
+    tables = eng._decode_group_pack()
+    assert tables is not None and int(eng._active.sum()) == 6
+    for tb in (None, tables):
+        run = graph_against_eager(eng, False, tb)
+        for a, b in zip(run["graph"], run["eager"]):
+            assert torch.equal(a, b)
+        assert states_equal(run["graph_state"], run["eager_state"])
+    assert eng.graph_captures == len(eng._graphs) == 2
 
 
 @pytest.mark.cuda

@@ -231,13 +231,22 @@ def test_config_from_hf_llama3_rope(tmp_path):
 
 
 def test_moe_checkpoint_refused(tmp_path):
-    """A Qwen3-MoE or Mixtral config refuses, naming ROADMAP A' 8."""
+    """A Qwen3-MoE or Mixtral config reads as the reference reads it (the
+    MoE family is ported); what both still refuse is a MoE stack with dense
+    layers (``mlp_only_layers``, ``decoder_sparse_step`` other than 1)."""
     for i, extra in enumerate(({"num_experts": 4, "moe_intermediate_size": 8,
                                 "model_type": "qwen3_moe"},
                                {"num_local_experts": 4, "model_type": "mixtral"})):
         d = _write_config(tmp_path / f"moe{i}", **extra)
-        with pytest.raises(NotImplementedError, match="A' 8"):
-            hf_loader.config_from_hf(d)
+        got, want = hf_loader.config_from_hf(d), jhf.config_from_hf(d)
+        for f in ("num_experts", "num_experts_per_tok", "moe_intermediate_size",
+                  "norm_topk_prob", "use_qk_norm"):
+            assert getattr(got, f) == getattr(want, f), f
+        assert got.num_experts == 4
+        d = _write_config(tmp_path / f"mixed{i}", mlp_only_layers=[0], **extra)
+        if i == 0:
+            with pytest.raises(NotImplementedError, match="mixed dense/MoE"):
+                hf_loader.config_from_hf(d)
 
 
 def test_train_build_model_from_hf(tmp_path):
