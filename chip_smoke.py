@@ -369,7 +369,30 @@ when CUDA is unavailable or any phase fails. Phases:
               train phase's configuration): finite losses, K4 forward and
               backward launched, old logprobs within 0.2 nats of the
               engine's, the router and every expert leaf moved.
-17. result -- the card's name and power limit, a ``{"kernels": [...]}``
+17. parallel -- the multi-process trainer (``polyrl_tpu_torch/parallel``)
+              as two ranks on the one card: two processes of this script
+              (``--parallel-worker``), both on cuda:0, backend gloo (NCCL
+              refuses two ranks on one device), joined within
+              PARALLEL_TIMEOUT_S (a hang or a failure on either rank fails
+              the phase). Each logs which collectives gloo takes on CUDA
+              tensors as they are (the port stages them through the host).
+              A: ``build_trainer`` on the train phase's configuration with
+              ``parallel.fsdp=2`` (2 GRPO steps, rank 0's colocated
+              engine): after each step a digest of the gathered weights,
+              equal on both ranks; step 1's old logprobs within
+              LOGP_AGREE_TOL of the engine's; step 1's gate micro's
+              gradient on the mesh against one rank's on the whole micro,
+              cosine >= GRAD_COS_MIN_BF16; K4 forward and backward
+              launched on both ranks, the fused prologue and K2 on rank 0.
+              B: ``parallel.sp=2`` (Ulysses) on packed rows, one step: the
+              first pack's logprobs under SP within LOGP_AGREE_TOL of the
+              one-device forward, K4 run with segment ids on both ranks.
+              Ring attention over the 2 ranks at B 1, T 4096 against K4
+              alone, forward and backward, under K4's bounds. Logs the
+              step walls by phase ("two ranks sharing one card"), each
+              rank's peak, its parameter and AdamW bytes. Its launches stay
+              out of the ``kernels`` line.
+18. result -- the card's name and power limit, a ``{"kernels": [...]}``
               line (the launches of each kernel's paths: serve or the A/B,
               memory, train, disagg, hybrid, lora_delta, autoscale and
               moe), and last ``{"ok": true, "device": {...}}``.
@@ -7280,6 +7303,562 @@ def moe_lines(m: dict, smi: str) -> list[str]:
     return lines
 
 
+# -- parallel: the multi-process trainer on one card (PR 15) --------------------
+
+# the two ranks share cuda:0, so the world's backend is gloo (NCCL refuses
+# two ranks on one device); the phase is over when both ranks exit, and a
+# rank that has not exited by then is a hang
+PARALLEL_TIMEOUT_S = 480.0
+PARALLEL_OVERRIDES = TRAIN_OVERRIDES + ["parallel.backend=gloo"]
+RING_T = 4096
+# the one-rank train phase this one is held to (PERF.md section 5)
+ONE_RANK_PEAK_GB = 30.53
+
+
+def bit_checksum(tree) -> str:
+    """A digest of every leaf's bit pattern, computed on the device: each
+    2- or 4-byte word, as an integer, times a position weight, summed in
+    int64 (a one-bit difference anywhere changes it)."""
+    import hashlib
+
+    from polyrl_tpu_torch.models.quant import named_leaves
+
+    h = hashlib.sha256()
+    for name, t in named_leaves(tree):
+        flat = t.detach().reshape(-1)
+        bits = flat.view(torch.int16 if flat.element_size() == 2 else torch.int32)
+        total = 0
+        for i in range(0, bits.numel(), 1 << 26):
+            c = bits[i:i + (1 << 26)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+            total += int((c * w).sum())
+        h.update(f"{name}:{total};".encode())
+    return h.hexdigest()[:16]
+
+
+GLOO_PROBES = ("all_gather_into_tensor", "reduce_scatter_tensor",
+               "all_to_all_single", "all_reduce", "broadcast", "send/recv")
+
+
+def gloo_probe_worker(op: str) -> int:
+    """One rank of a 2-rank gloo world on cuda:0 running one collective
+    on CUDA tensors as they are, its result checked; prints ``PROBE ok``.
+    A collective gloo cannot take on the device may raise or bring the
+    process down (the parent reads either)."""
+    import torch.distributed as dist
+
+    from polyrl_tpu_torch.parallel import distributed
+
+    dev = distributed.initialize(backend="gloo", device="cuda", timeout_s=60)
+    r, w = dist.get_rank(), dist.get_world_size()
+    x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
+    out = torch.zeros(4 * w if op == "all_gather_into_tensor" else 4, device=dev)
+    if op == "all_gather_into_tensor":
+        dist.all_gather_into_tensor(out, x)
+        want = torch.cat([torch.arange(4.0) + 10 * i for i in range(w)])
+    elif op == "reduce_scatter_tensor":
+        out = torch.zeros(4 // w, device=dev)
+        dist.reduce_scatter_tensor(out, x)
+        want = sum(torch.arange(4.0) + 10 * i for i in range(w))[
+            r * (4 // w):(r + 1) * (4 // w)]
+    elif op == "all_to_all_single":
+        dist.all_to_all_single(out, x)
+        want = torch.cat([(torch.arange(4.0) + 10 * i)[r * 2:(r + 1) * 2]
+                          for i in range(w)])
+    elif op == "all_reduce":
+        out = x.clone()
+        dist.all_reduce(out)
+        want = sum(torch.arange(4.0) + 10 * i for i in range(w))
+    elif op == "broadcast":
+        out = x.clone()
+        dist.broadcast(out, 0)
+        want = torch.arange(4.0)
+    else:
+        for q in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, (r + 1) % w),
+                dist.P2POp(dist.irecv, out, (r - 1) % w)]):
+            q.wait()
+        want = torch.arange(4.0) + 10 * ((r - 1) % w)
+    torch.cuda.synchronize()
+    check(torch.equal(out.cpu(), want), f"{op} gave {out.cpu().tolist()}")
+    print("PROBE ok", flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def gloo_cuda_probe() -> dict:
+    """Which collectives gloo takes on CUDA tensors as they are (the port
+    stages them through the host either way): a 2-rank world on cuda:0
+    for each, all started together, each given 90 s. "ok", or what it
+    raised, or how it died."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for op in GLOO_PROBES:
+        port = free_port()
+        pair = []
+        for r in range(2):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0")
+            env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+            pair.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--gloo-probe", op],
+                cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT))
+        runs.append((op, pair))
+    out = {}
+    t0 = time.monotonic()
+    for op, pair in runs:
+        texts = []
+        for p in pair:
+            try:
+                texts.append(p.communicate(timeout=max(1.0, 90 - (time.monotonic() - t0)))[0]
+                             .decode(errors="replace"))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                texts.append(p.communicate()[0].decode(errors="replace") + "\n(hung)")
+        if all(p.returncode == 0 and "PROBE ok" in t for p, t in zip(pair, texts)):
+            out[op] = "ok"
+            continue
+        lines = [ln for t in texts for ln in t.splitlines()
+                 if any(w in ln for w in ("Error", "what()", "hung", "Exception",
+                                          "SmokeFailure"))]
+        out[op] = (f"refused (exit {[p.returncode for p in pair]}): "
+                   + (lines[-1].strip()[:200] if lines else "no message"))
+    return out
+
+
+def mesh_grad_agreement(actor, micro) -> tuple[float, float]:
+    """The micro's gradient on the mesh (each rank its rows; the whole
+    leaves' gradients reduce-scattered and summed) against one rank's on
+    the whole micro through the one-device path, on the same gathered
+    weights: (cosine, norm ratio) over every shard, the same on both
+    ranks. The weights' gradients are cleared after, so the fit's own
+    micros start clean."""
+    from polyrl_tpu_torch.parallel import mesh as meshlib
+
+    sharded, mesh = actor._fsdp, actor.mesh
+    full = sharded.full()
+    with torch.enable_grad():
+        loss, _ = actor._loss_fn(micro, 1.0)
+        loss.backward()
+    g_mesh = sharded.shard_grads()
+    for f in full:
+        f.grad = None
+    actor.mesh = None
+    try:
+        with torch.enable_grad():
+            loss, _ = actor._loss_fn(micro, 1.0)
+            loss.backward()
+    finally:
+        actor.mesh = mesh
+    g_one = [meshlib.shard_tensor(mesh, f.grad) for f in full]
+    for f in full:
+        f.grad = None
+    acc = torch.zeros(3, dtype=torch.float32, device=micro["input_ids"].device)
+    for a, b in zip(g_mesh, g_one):
+        acc += torch.stack([torch.sum(a.float() * b.float()),
+                            torch.sum(a.float() ** 2), torch.sum(b.float() ** 2)])
+    meshlib.all_reduce(mesh, (meshlib.FSDP,), acc)
+    dot, na, nb = (float(x) for x in acc)
+    return dot / (na * nb) ** 0.5, (na / nb) ** 0.5
+
+
+def _step_walls(history: list[dict]) -> list[dict]:
+    keys = ("gen", "broadcast", "reward", "old_log_prob", "ref_log_prob",
+            "adv", "update_actor", "update_weight")
+    return [dict(step=rec["perf/step_time_s"],
+                 **{k_: rec.get("timing_s/" + k_, 0.0) for k_ in keys})
+            for rec in history]
+
+
+def _state_bytes(actor) -> dict:
+    n = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    return dict(param_gb=n([p for _, p in actor._named]) / 1e9,
+                opt_gb=n(actor.opt_state.mu + actor.opt_state.nu) / 1e9)
+
+
+def parallel_fsdp_fit(dev, rank: int) -> dict:
+    """A: ``build_trainer`` on the train phase's configuration at fsdp 2,
+    2 GRPO steps; the logprob and gradient gates on step 1, a digest of
+    the gathered weights after each step."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.train import build_trainer
+
+    cfg = load_config(None, PARALLEL_OVERRIDES + ["parallel.fsdp=2"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    cleanup: list = []
+    t0 = time.monotonic()
+    trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+    try:
+        actor = trainer.actor
+        build_s = time.monotonic() - t0
+        gate_launches: dict = {}
+        step1: dict = {}
+        digests: list[str] = []
+        process, finish = trainer._process_ibatch, trainer._finish_record
+
+        def first_ibatch_gates(ibatch, metrics):
+            out = process(ibatch, metrics)
+            if step1:
+                return out
+            mask = np.asarray(out["response_mask"]) > 0
+            gap = np.abs(np.asarray(out["old_log_probs"])
+                         - np.asarray(out["rollout_log_probs"]))[mask]
+            feed = {k_: np.array(out[k_]) for k_ in (
+                "input_ids", "positions", "attention_mask", "responses",
+                "response_mask", "advantages", "old_log_probs",
+                "ref_log_probs", "rollout_log_probs")}
+            with launches_apart(gate_launches):
+                cos, ratio = mesh_grad_agreement(actor, gate_micro(feed, dev))
+            step1.update(gap_max=float(gap.max()), gap_mean=float(gap.mean()),
+                         tokens=int(mask.sum()), grad_cos=cos, grad_ratio=ratio)
+            return out
+
+        def record_then_digest(metrics, state, step_t0, n_traj, history):
+            finish(metrics, state, step_t0, n_traj, history)
+            with launches_apart(gate_launches):
+                digests.append(bit_checksum(actor.gather_params()))
+                actor.release_gathered()
+
+        trainer._process_ibatch = first_ibatch_gates
+        trainer._finish_record = record_then_digest
+        cuda_build.reset_launch_counts()
+        t_fit = time.monotonic()
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        fit_wall = time.monotonic() - t_fit
+        launches = dict(cuda_build.LAUNCHES)
+        free, total = torch.cuda.mem_get_info(dev)
+        return dict(build_s=build_s, fit_wall=fit_wall, launches=launches,
+                    gate_launches=gate_launches, digests=digests,
+                    walls=_step_walls(history), step1=step1,
+                    finite=all(np.isfinite(r_["actor/grad_norm"])
+                               and r_["actor/nonfinite_skips"] == 0
+                               for r_ in history),
+                    steps=len(history),
+                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9,
+                    card_used_gb=(total - free) / 1e9, **_state_bytes(actor),
+                    weight_version=getattr(trainer.rollout, "weight_version", None))
+    finally:
+        for fn in reversed(cleanup):
+            fn()
+
+
+def parallel_sp_fit(dev, rank: int) -> dict:
+    """B: one fit step at sp 2 (Ulysses) on packed rows: the first pack's
+    logprobs under SP against the one-device forward of the same pack,
+    and K4 launched with segment ids."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch.trainer.actor import _to_device
+    from polyrl_tpu_torch.train import build_trainer
+
+    from polyrl_tpu_torch.parallel import sequence
+
+    # pack_len 1024: two of the train cell's trajectories a row
+    cfg = load_config(None, PARALLEL_OVERRIDES + [
+        "parallel.sp=2", "parallel.sp_mode=ulysses",
+        "trainer.use_remove_padding=true", f"trainer.pack_len={PACK_LEN}",
+        "trainer.total_steps=1"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    seg_calls, exchanges = [0], [0]
+    real, real_exchange = flash.flash_attention_train, sequence._seq_to_heads
+
+    def counted(q, k, v, attn_mask, *, causal=True, segment_ids=None):
+        if segment_ids is not None and q.is_cuda:
+            seg_calls[0] += 1
+        return real(q, k, v, attn_mask, causal=causal, segment_ids=segment_ids)
+
+    def counted_exchange(mesh, axis, x):
+        exchanges[0] += 1
+        return real_exchange(mesh, axis, x)
+
+    flash.flash_attention_train = counted
+    sequence._seq_to_heads = counted_exchange
+    cleanup: list = []
+    try:
+        trainer = build_trainer(cfg, cleanup, compute_score=byte_length_score)
+        actor = trainer.actor
+        gate_launches: dict = {}
+        pack_gate: dict = {}
+        process = trainer._process_ibatch
+
+        def first_pack_gate(ibatch, metrics):
+            out = process(ibatch, metrics)
+            if pack_gate:
+                return out
+            pack, _spec = out.meta_info["packs"][0]
+            feed = _to_device({k_: pack[k_] for k_ in PACK_KEYS}, dev)
+            main_calls, main_exchanges = seg_calls[0], exchanges[0]
+            with launches_apart(gate_launches):
+                lp_sp, _ = actor.compute_log_prob_packed(feed, compute_entropy=False)
+                mesh, actor.mesh = actor.mesh, None
+                try:
+                    lp_one, _ = actor.compute_log_prob_packed(
+                        feed, compute_entropy=False)
+                finally:
+                    actor.mesh = mesh
+            # the gate's own calls do not count
+            seg_calls[0], exchanges[0] = main_calls, main_exchanges
+            lm = feed["loss_mask"] > 0
+            pack_gate.update(gap_max=float((lp_sp - lp_one).abs()[lm].max()),
+                             tokens=int(lm.sum()),
+                             segments=int(feed["segment_ids"].max()))
+            return out
+
+        trainer._process_ibatch = first_pack_gate
+        cuda_build.reset_launch_counts()
+        seg_calls[0] = exchanges[0] = 0
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        return dict(launches=dict(cuda_build.LAUNCHES), seg_calls=seg_calls[0],
+                    exchanges=exchanges[0],
+                    gate_launches=gate_launches, pack=pack_gate,
+                    walls=_step_walls(history), steps=len(history),
+                    layers=actor.model_cfg.num_layers,
+                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9,
+                    **_state_bytes(actor))
+    finally:
+        flash.flash_attention_train = real
+        sequence._seq_to_heads = real_exchange
+        for fn in reversed(cleanup):
+            fn()
+
+
+def ring_check(dev) -> dict:
+    """Ring attention over the 2 ranks at B 1, T 4096 (Hq 16, Hkv 8, D
+    128, bf16; one row packed with 3 segments and pads) against K4 alone
+    on the whole row, forward and backward (pad rows' cotangents 0):
+    out within FLASH_OUT_TOL at real rows, each gradient within
+    FLASH_GRAD_TOL relative error; and both timed (events)."""
+    from polyrl_tpu_torch.parallel import mesh as meshlib
+    from polyrl_tpu_torch.parallel.sequence import make_ring_attention
+
+    mesh = meshlib.make_mesh(meshlib.MeshConfig(fsdp=1, sp=2), dev)
+    c = flash_inputs(dev, 1, RING_T, 13)
+    real = (c["seg"] > 0)[..., None, None]
+    c["do"] = c["do"] * real
+    local = meshlib.shard_batch(mesh, c)
+    ring = make_ring_attention(mesh, packed=True)
+
+    def ring_run():
+        leaves = [local[n].detach().clone().requires_grad_(True)
+                  for n in ("q", "k", "v")]
+        out = ring(*leaves, local["mask"], local["seg"])
+        return out.detach(), torch.autograd.grad(out, leaves, local["do"])
+
+    def whole(x):
+        return meshlib.unshard_batch(mesh, meshlib.all_gather(
+            mesh, meshlib.DATA_AXES, x.contiguous()))
+
+    t0 = time.monotonic()
+    out, grads = ring_run()
+    torch.cuda.synchronize()
+    ring_s = time.monotonic() - t0
+    out, grads = whole(out), [whole(g) for g in grads]
+    with launches_apart({}):
+        o4, g4 = wrapper_grads(flash.flash_attention_train, c["q"], c["k"],
+                               c["v"], c["mask"], c["seg"], c["do"])
+        k4_ms = events_ms(lambda: wrapper_grads(
+            flash.flash_attention_train, c["q"], c["k"], c["v"], c["mask"],
+            c["seg"], c["do"]), reps=3)
+    torch.cuda.synchronize()
+    err_o = float((out.float() - o4.float()).abs()[real.expand_as(o4)].max())
+    ok_o = bool(torch.allclose(torch.where(real, out, 0).float(),
+                               torch.where(real, o4, 0).float(), **FLASH_OUT_TOL))
+    rel = {n: float((g.float() - r_.float()).norm() / r_.float().norm())
+           for n, g, r_ in zip(("dq", "dk", "dv"), grads, g4)}
+    return dict(out_err=err_o, out_ok=ok_o, grad_rel=rel, ring_s=ring_s,
+                k4_fwd_bwd_ms=k4_ms)
+
+
+def parallel_worker(out_dir: str) -> int:
+    """One rank of the parallel phase's world (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``/``MASTER_PORT`` from the parent; both ranks on
+    cuda:0 over gloo): the probe, A, B and the ring check, its readings
+    written to ``<out_dir>/rank<R>.json``. A failure writes the traceback
+    and leaves at once (the other rank may be waiting in a collective:
+    the parent ends it)."""
+    import traceback
+
+    from polyrl_tpu_torch.parallel import distributed
+
+    rank = int(os.environ["RANK"])
+    path = os.path.join(out_dir, f"rank{rank}.json")
+    res: dict = {"rank": rank}
+    try:
+        dev = distributed.initialize(backend="gloo", device="cuda",
+                                     timeout_s=PARALLEL_TIMEOUT_S)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.monotonic()
+        res["A"] = parallel_fsdp_fit(dev, rank)
+        res["A"]["seconds"] = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        res["B"] = parallel_sp_fit(dev, rank)
+        res["B"]["seconds"] = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["ring"] = ring_check(dev)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        res["error"] = traceback.format_exc()
+        print(res["error"], file=sys.stderr, flush=True)
+        with open(path, "w") as f:
+            json.dump(res, f)
+        sys.stdout.flush()
+        os._exit(1)
+    with open(path, "w") as f:
+        json.dump(res, f)
+    distributed.shutdown()
+    return 0
+
+
+def parallel_phase(dev) -> dict:
+    """Two ranks on the one card (processes of this script, gloo), joined
+    within PARALLEL_TIMEOUT_S: a failure on either rank, or a hang, fails
+    the phase. The gates on what they report."""
+    t0 = time.monotonic()
+    probe = gloo_cuda_probe()
+    probe_s = time.monotonic() - t0
+    out_dir = tempfile.mkdtemp(prefix="parallel-")
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    t0 = time.monotonic()
+    for r in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0")
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        f = open(os.path.join(out_dir, f"rank{r}.log"), "wb")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+             out_dir], cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT), f))
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            if (time.monotonic() - t0 > PARALLEL_TIMEOUT_S
+                    or any(p.poll() not in (None, 0) for p, _ in procs)):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            f.close()
+    wall = time.monotonic() - t0
+    tails = "\n".join(f"--- rank {r} ---\n" + _tail(os.path.join(out_dir, f"rank{r}.log"))
+                      for r in range(2))
+    check(all(p.returncode == 0 for p, _ in procs),
+          f"parallel: rank exit codes {[p.returncode for p, _ in procs]} after "
+          f"{wall:.0f} s (limit {PARALLEL_TIMEOUT_S:.0f}):\n{tails}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    a0, a1 = res[0]["A"], res[1]["A"]
+    check(a0["steps"] == a1["steps"] == 2 and a0["finite"] and a1["finite"],
+          "parallel A: the fit did not run 2 finite steps on both ranks")
+    check(len(a0["digests"]) == 2 and a0["digests"] == a1["digests"],
+          f"parallel A: the gathered weights differ between the ranks "
+          f"({a0['digests']} / {a1['digests']})")
+    for r, a in enumerate((a0, a1)):
+        check(a["step1"]["gap_max"] <= LOGP_AGREE_TOL,
+              f"parallel A rank {r}: old logprobs {a['step1']['gap_max']:.4f} "
+              f"nats from the engine's (> {LOGP_AGREE_TOL})")
+        check(a["step1"]["grad_cos"] >= GRAD_COS_MIN_BF16,
+              f"parallel A rank {r}: the mesh gradient's cosine against one "
+              f"rank's is {a['step1']['grad_cos']:.6f} (< {GRAD_COS_MIN_BF16})")
+        for name in ("flash_attention_fwd", "flash_attention_bwd"):
+            for ph in ("A", "B"):
+                check(res[r][ph]["launches"][name] > 0,
+                      f"parallel {ph} rank {r}: {name} was not launched")
+    # rank 0's colocated engine runs the fused prologue and K2 (the train
+    # prompts sit under one 64-token page, so no GRPO group shares a
+    # prefix page and K3 is off this path, as in the one-rank train phase)
+    for name in TRAIN_KERNELS:
+        check(a0["launches"][name] > 0, f"parallel A rank 0: {name} was not launched")
+    b0, b1 = res[0]["B"], res[1]["B"]
+    for r, b in enumerate((b0, b1)):
+        check(b["steps"] == 1, f"parallel B rank {r}: the fit did not run")
+        check(b["pack"]["gap_max"] <= LOGP_AGREE_TOL,
+              f"parallel B rank {r}: packed logprobs under SP "
+              f"{b['pack']['gap_max']:.4f} nats from one rank's (> {LOGP_AGREE_TOL})")
+        check(b["seg_calls"] > 0 and b["exchanges"] > 0,
+              f"parallel B rank {r}: K4 with segment ids ran "
+              f"{b['seg_calls']} times, the Ulysses exchange {b['exchanges']}")
+        check(b["pack"]["segments"] > 1,
+              f"parallel B rank {r}: pack 0 holds one segment a row")
+        ring = res[r]["ring"]
+        check(ring["out_ok"] and max(ring["grad_rel"].values()) <= FLASH_GRAD_TOL,
+              f"parallel ring rank {r}: against K4 out {ring['out_err']:.3g}, "
+              f"grads {ring['grad_rel']}")
+    return dict(res=res, wall=wall, probe=probe, probe_s=probe_s)
+
+
+def parallel_lines(p: dict, smi: str) -> list[str]:
+    r0, r1 = p["res"]
+    a0, a1, b0, b1 = r0["A"], r1["A"], r0["B"], r1["B"]
+    tag = f"two ranks sharing one card: {smi}, this run"
+    walls = lambda a: "; ".join(  # noqa: E731
+        f"step {i} {w['step']:.2f} s (" + ", ".join(
+            f"{k_} {v:.2f}" for k_, v in w.items() if k_ != "step") + ")"
+        for i, w in enumerate(a["walls"], 1))
+    k4 = ("flash_attention_fwd", "flash_attention_bwd")
+    lines = [
+        f"parallel gloo on CUDA tensors (as they are; the port stages through "
+        f"the host; {p['probe_s']:.1f} s): {json.dumps(p['probe'])}",
+        f"parallel A (fsdp 2, {MODEL} full width and depth, bf16; {tag}): "
+        f"build {a0['build_s']:.1f} / {a1['build_s']:.1f} s; fit "
+        f"{a0['fit_wall']:.1f} s; rank 0 {walls(a0)}",
+        f"parallel A rank 1: {walls(a1)}",
+        f"parallel A gates: old logprobs vs the engine's max "
+        f"{a0['step1']['gap_max']:.4f} / {a1['step1']['gap_max']:.4f} nats over "
+        f"{a0['step1']['tokens']} tokens (limit {LOGP_AGREE_TOL}); step 1's "
+        f"micro gradient, mesh vs one rank: cosine {a0['step1']['grad_cos']:.6f}, "
+        f"norm ratio {a0['step1']['grad_ratio']:.5f} (limit >= "
+        f"{GRAD_COS_MIN_BF16}); gathered-weight digests {a0['digests']} on both "
+        f"ranks",
+        f"parallel A launches: rank 0 " + json.dumps(a0["launches"]) + "; rank 1 "
+        + json.dumps({k_: a1["launches"][k_] for k_ in k4})
+        + "; the gates' own " + json.dumps(a0["gate_launches"]),
+        f"parallel A memory: peak allocated rank 0 {a0['peak_gb']:.2f} GB, rank 1 "
+        f"{a1['peak_gb']:.2f} GB (reserved {a0['reserved_gb']:.2f} / "
+        f"{a1['reserved_gb']:.2f}); card used at the fit's end "
+        f"{a0['card_used_gb']:.2f} GB; per rank params {a0['param_gb']:.3f} GB, "
+        f"AdamW {a0['opt_gb']:.3f} GB (one rank: the train phase, peak "
+        f"{ONE_RANK_PEAK_GB} GB, params {2 * a0['param_gb']:.3f}, AdamW "
+        f"{2 * a0['opt_gb']:.3f})",
+        f"parallel B (sp 2 ulysses, packed rows of {PACK_LEN}, {b0['layers']} "
+        f"layers; {tag}): "
+        f"rank 0 {walls(b0)}; rank 1 {walls(b1)}; packed logprobs under SP vs "
+        f"one rank on pack 0 ({b0['pack']['segments']} segments, "
+        f"{b0['pack']['tokens']} tokens): max {b0['pack']['gap_max']:.4f} / "
+        f"{b1['pack']['gap_max']:.4f} nats (limit {LOGP_AGREE_TOL}); K4 calls "
+        f"with segment ids {b0['seg_calls']} / {b1['seg_calls']}, Ulysses "
+        f"exchanges (q, k, v each) {b0['exchanges']} / {b1['exchanges']}; "
+        f"launches rank 0 "
+        + json.dumps({k_: b0["launches"][k_] for k_ in k4}) + ", rank 1 "
+        + json.dumps({k_: b1["launches"][k_] for k_ in k4})
+        + f"; peak allocated {b0['peak_gb']:.2f} / {b1['peak_gb']:.2f} GB "
+        f"(reserved {b0['reserved_gb']:.2f} / {b1['reserved_gb']:.2f}); per rank "
+        f"params {b0['param_gb']:.3f} GB, AdamW {b0['opt_gb']:.3f} GB",
+        f"parallel ring (B 1, T {RING_T}, Hq 16, Hkv 8, D 128, bf16, over 2 "
+        f"ranks through host-staged gloo exchanges) vs K4 alone: out max "
+        f"{r0['ring']['out_err']:.3g}; grads relative "
+        + json.dumps({k_: round(v, 5) for k_, v in r0["ring"]["grad_rel"].items()})
+        + f" (limits {FLASH_OUT_TOL}, {FLASH_GRAD_TOL}); ring fwd+bwd "
+        f"{r0['ring']['ring_s'] * 1e3:.1f} ms wall (first call), K4 fwd+bwd "
+        f"{r0['ring']['k4_fwd_bwd_ms']:.3f} ms",
+        f"phase parallel ({tag}): {p['wall']:.1f} s wall (A {a0['seconds']:.1f} s, "
+        f"B {b0['seconds']:.1f} s)",
+    ]
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="PATH", default=None,
@@ -7298,12 +7877,20 @@ def main() -> int:
                     help="extra arguments, space-separated, of the manager "
                          "that the disagg and autoscale phases spawn (off by "
                          "default; e.g. '--max-assigned-batches 16')")
+    ap.add_argument("--parallel-worker", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-probe", metavar="OP", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     MANAGER_ARGS[:] = args.manager_args.split()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.parallel_worker:
+        return parallel_worker(args.parallel_worker)
+    if args.gloo_probe:
+        return gloo_probe_worker(args.gloo_probe)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7431,6 +8018,11 @@ def main() -> int:
         log(line)
     log(f"phase autoscale ({smi}, this run{'; manager ' + ' '.join(MANAGER_ARGS) if MANAGER_ARGS else ''}): "
         f"{time.monotonic() - t0:.1f} s wall")
+
+    t0 = time.monotonic()
+    par = parallel_phase(dev)
+    for line in parallel_lines(par, smi):
+        log(line)
 
     for r in rows:
         # K1's path is the decode step's unfused route (the serve phase's

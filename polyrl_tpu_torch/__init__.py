@@ -7,8 +7,9 @@ never ``jax`` and never a module of ``polyrl_tpu``. The decode hot path
 attention (flash attention, forward and backward) run through CUDA
 kernels written by hand for ``sm_90a`` (``polyrl_tpu_torch/csrc``), built
 with ``nvcc`` at first use. ``python -m polyrl_tpu_torch.train`` runs the
-colocated GRPO trainer; ``python -m polyrl_tpu_torch.rollout.serve`` the
-rollout server.
+GRPO/PPO trainer (under ``torchrun``, one process a card, sharded by
+``parallel/``); ``python -m polyrl_tpu_torch.rollout.serve`` the rollout
+server.
 
 Entry points take a ``device`` argument that defaults to ``"cuda"`` and
 raise when CUDA is absent; only an explicit ``device="cpu"`` runs on the

@@ -7,7 +7,7 @@ controller and the spot market), the weight fabric's supervision
 (``transfer``), reward (with the remote code sandbox), trainer, actor and
 critic, the trainer's ``logging`` backends and the ``obs`` planes
 (tracing, the ``/statusz`` exporter, the flight recorder, the training
-health ledger), plus the ``device`` every entry point takes (``cuda`` by
+health ledger), the ``parallel`` mesh axes, plus the ``device`` every entry point takes (``cuda`` by
 default; it raises without a card). Nested dataclasses are the schema and
 the defaults, a YAML file overlays them, and ``key.sub=value`` dotted CLI
 arguments overlay that (CLI > file > default). Unknown keys raise.
@@ -199,6 +199,27 @@ class ObsSection:
 
 
 @dataclass
+class ParallelSection:
+    """Mesh axes of the multi-process trainer (``parallel/mesh.py``). With
+    every axis 1 and a single process no mesh is built (the one-device
+    path); a multi-process world (``torchrun``) always builds one over its
+    ranks. ``tp``, ``pp`` and ``ep`` above 1 are not ported yet."""
+    dp: int = 1
+    fsdp: int = 1                         # -1 absorbs remaining ranks
+    tp: int = 1
+    sp: int = 1
+    pp: int = 1                           # pipeline parallel (layer stages)
+    pp_microbatches: int = 0              # GPipe microbatches (0 -> 2*pp)
+    ep: int = 1                           # expert parallel (MoE expert axis)
+    # sequence-parallel attention flavor when sp > 1 (parallel/sequence.py):
+    # ulysses (head all-to-all) | ring (K/V rotation)
+    sp_mode: str = "ulysses"
+    # the world's collective backend: nccl, or gloo (the CPU, or ranks
+    # that share one card); never switched silently
+    backend: str = "nccl"
+
+
+@dataclass
 class RunConfig:
     device: str = "cuda"
     model: ModelSection = field(default_factory=ModelSection)
@@ -209,6 +230,7 @@ class RunConfig:
     # bandwidth-keyed push deadlines, verify/resume, retry budget and
     # backoff, and the transfer-plane fault injector
     transfer: TransferConfig = field(default_factory=TransferConfig)
+    parallel: ParallelSection = field(default_factory=ParallelSection)
     reward: RewardSection = field(default_factory=RewardSection)
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
     actor: ActorConfig = field(default_factory=ActorConfig)

@@ -28,6 +28,16 @@ service. With
 adapters, to servers started with the same ``--lora-rank``. ``device``
 defaults to ``cuda`` and raises without a card; ``device=cpu`` runs the
 same path on the CPU with the kernels' plain versions.
+
+Multi-process (``torchrun --nproc-per-node N -m polyrl_tpu_torch.train
+parallel.fsdp=N ...``): ``main`` joins the world first
+(``parallel/distributed.py``, backend ``parallel.backend``), every rank
+builds the mesh (``_build_mesh``), the model and its shards of the actor
+and critic, rank 0 alone the rollout, the recorder and the ``/statusz``
+exporter (the others a ``NullRollout``), and every rank runs ``fit``:
+rank 0 broadcasts each ibatch and its rewards. With ``parallel.sp > 1``
+the sequence splits over sp through Ulysses or ring attention
+(``parallel.sp_mode``), packed rows included.
 """
 
 from __future__ import annotations
@@ -294,6 +304,58 @@ def _build_autoscale(cfg: RunConfig, rollout, cleanup: list):
     return autoscale
 
 
+def _build_mesh(cfg: RunConfig, device: torch.device):
+    """The mesh when parallelism is configured or the run is
+    multi-process; None on one process with every axis 1 (the actor then
+    shards nothing). ``tp``, ``pp`` and ``ep`` above 1 raise."""
+    import torch.distributed as dist
+
+    from polyrl_tpu_torch.parallel import distributed
+    from polyrl_tpu_torch.parallel import mesh as meshlib
+
+    p = cfg.parallel
+    axes = (p.dp, p.fsdp, p.tp, p.sp, p.ep, p.pp)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    meshlib.refuse_unported(dict(zip(meshlib.AXES, axes)))
+    if world == 1 and all(a == 1 for a in axes):
+        return None
+    fsdp = p.fsdp
+    if all(a == 1 for a in axes):
+        # multi-process with no axes configured: fsdp absorbs the world
+        fsdp = -1
+    mcfg = meshlib.MeshConfig(dp=p.dp, fsdp=fsdp, tp=p.tp, sp=p.sp,
+                              pp=p.pp, ep=p.ep)
+    mesh = distributed.make_hybrid_mesh(config=mcfg, device=device)
+    log.info("mesh: %s over %d processes", mesh.shape, mesh.world)
+    return mesh
+
+
+def _sp_attention(cfg: RunConfig, mcfg, mesh):
+    """(attn_fn, packed_attn_fn) of a mesh with sp > 1 (None, None
+    otherwise), the combination checked before anything is spawned."""
+    if mesh is None or mesh.shape.get("sp", 1) == 1:
+        return None, None
+    from polyrl_tpu_torch.parallel.sequence import make_sp_attention
+
+    sp, mode = mesh.shape["sp"], cfg.parallel.sp_mode
+    if mode not in ("ulysses", "ring"):
+        # the JAX package's "dense" lets GSPMD derive attention over the
+        # split sequence; here each rank would attend its own slice only
+        raise ValueError(f"parallel.sp > 1 needs sp_mode=ulysses or ring, "
+                         f"got {mode!r}")
+    if mode == "ulysses" and mcfg.num_heads % sp:
+        raise ValueError(
+            f"ulysses SP needs num_heads ({mcfg.num_heads}) divisible by sp "
+            f"({sp}); use sp_mode=ring or different axes")
+    t_total = cfg.trainer.max_prompt_length + cfg.trainer.max_response_length
+    if not cfg.trainer.use_remove_padding and t_total % sp:
+        raise ValueError(f"sp needs max_prompt+max_response ({t_total}) "
+                         f"divisible by sp ({sp})")
+    packed = (make_sp_attention(mesh, mode, packed=True)
+              if cfg.trainer.use_remove_padding else None)
+    return make_sp_attention(mesh, mode), packed
+
+
 def build_trainer(cfg: RunConfig, cleanup: list | None = None,
                   compute_score=None):
     """Assemble the trainer from a RunConfig. ``cleanup`` collects teardown
@@ -304,6 +366,7 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
     so that spans of the bring-up (manager spawn, fabric registration)
     land in the ring."""
     from polyrl_tpu_torch.data.dataset import PromptDataLoader
+    from polyrl_tpu_torch.parallel import multihost
     from polyrl_tpu_torch.rewards.manager import load_reward_manager
     from polyrl_tpu_torch.trainer.actor import ReferencePolicy, StreamActor
     from polyrl_tpu_torch.trainer.critic import StreamCritic, init_critic_params
@@ -322,9 +385,18 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
                   jax_annotations=cfg.obs.jax_annotations)
     device = resolve_device(cfg.device)
     tokenizer = build_tokenizer(cfg)
+    mesh = _build_mesh(cfg, device)
     mcfg, params = _build_model(cfg, device)
-    # the engine copies the weights; the fabric packs them at each push
-    rollout = _build_rollout(cfg, mcfg, params, tokenizer, device, cleanup)
+    # SP attention and its checks first: a bad combination fails before a
+    # manager or fabric is spawned
+    attn_fn, packed_attn_fn = _sp_attention(cfg, mcfg, mesh)
+    if multihost.is_main():
+        # the engine copies the weights; the fabric packs them at each push
+        rollout = _build_rollout(cfg, mcfg, params, tokenizer, device, cleanup)
+    else:
+        # the other ranks open no manager or fabric connection: their
+        # batches arrive through rank 0's broadcasts
+        rollout = multihost.NullRollout(pad_token_id=tokenizer.pad_token_id)
     if hasattr(rollout, "stop"):
         cleanup.append(rollout.stop)
     if compute_score is None and cfg.reward.custom_score_path:
@@ -346,14 +418,21 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
     loader = PromptDataLoader(build_dataset(cfg),
                               cfg.trainer.train_batch_size,
                               shuffle=cfg.data.shuffle, seed=cfg.data.seed)
+    # the reference policy stays mesh-free: a whole copy on every rank,
+    # fed the whole batch (as in the JAX package)
     ref_policy = (ReferencePolicy(mcfg, params)  # a copy, before training
                   if (cfg.trainer.use_kl_in_reward or cfg.actor.use_kl_loss)
                   else None)
-    actor = StreamActor(mcfg, cfg.actor, params)  # takes the tensors as its own
+    # takes the tensors as its own (on a mesh, its shards of them)
+    actor = StreamActor(mcfg, cfg.actor, params, mesh=mesh, attn_fn=attn_fn,
+                        packed_attn_fn=packed_attn_fn)
+    del params
     critic = None
     if cfg.trainer.adv_estimator == "gae":
         gen = torch.Generator(device=device).manual_seed(cfg.trainer.seed + 1)
-        critic = StreamCritic(mcfg, cfg.critic, init_critic_params(gen, mcfg))
+        critic = StreamCritic(mcfg, cfg.critic, init_critic_params(gen, mcfg),
+                              mesh=mesh, attn_fn=attn_fn,
+                              packed_attn_fn=packed_attn_fn)
     if cfg.trainer.pipeline_depth > 0:
         log.info("pipelined rollout enabled: depth=%d, staleness_limit=%d "
                  "(%s), stale-rollout IS correction=%s (cap=%.2f)",
@@ -366,7 +445,7 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
                       path=cfg.logging.path or None)
     cleanup.append(logger.close)
     recorder = None
-    if cfg.obs.recorder:
+    if cfg.obs.recorder and multihost.is_main():
         from polyrl_tpu_torch.obs.recorder import FlightRecorder
 
         rec_dir = (cfg.obs.recorder_dir
@@ -388,7 +467,7 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
                               val_dataset=build_dataset(cfg, "val"),
                               recorder=recorder, health=health,
                               autoscale=autoscale)
-    if cfg.obs.statusz:
+    if cfg.obs.statusz and multihost.is_main():
         srv = trainer.start_statusz(port=cfg.obs.statusz_port,
                                     host=cfg.obs.statusz_host)
         cleanup.append(trainer.stop_statusz)
@@ -408,8 +487,9 @@ def _dump(cfg: RunConfig) -> str:
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m polyrl_tpu_torch.train",
-        description="Streaming GRPO/PPO trainer on one CUDA device "
-                    "(colocated, or with remote rollout servers)")
+        description="Streaming GRPO/PPO trainer on CUDA devices "
+                    "(colocated, or with remote rollout servers; under "
+                    "torchrun, one process a device)")
     parser.add_argument("--config", default=None, help="YAML run config")
     parser.add_argument("--print-config", action="store_true",
                         help="resolve the config, print it, exit")
@@ -422,7 +502,12 @@ def main(argv: list[str] | None = None) -> int:
     if args.print_config:
         print(_dump(cfg))
         return 0
-    cleanup: list = []
+    # multi-process bring-up before anything touches the card (a no-op on
+    # one process): the world from the launcher's environment
+    from polyrl_tpu_torch.parallel import distributed
+
+    distributed.initialize(backend=cfg.parallel.backend, device=cfg.device)
+    cleanup: list = [distributed.shutdown]
     try:
         trainer = build_trainer(cfg, cleanup)
         if trainer._recorder is not None:

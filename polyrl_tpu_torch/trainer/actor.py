@@ -27,9 +27,20 @@ offload (``offload_optimizer``): ``offload_opt_state`` moves the moments
 into pinned host buffers allocated once, ``load_opt_state`` brings them
 back on the default stream before the next update.
 
-Not ported yet (each raises ``NotImplementedError``): meshes (sharded
-parameters), the sequence-parallel packed attention (``packed_attn_fn``)
-and pipeline layer stacks.
+Meshes (``mesh=``, ``parallel/mesh.py``): the trained leaves and their
+AdamW moments shard over ``fsdp`` (``parallel/fsdp.py``: gathered whole
+for the forwards of an optimizer step, the gradients reduce-scattered and
+summed over the replicas at the step, clipped by the global norm), and
+each rank forwards
+its slice of the batch (``_shard_feed``: rows over dp x fsdp, columns over
+sp), through ``attn_fn`` (with sp > 1 a sequence-parallel attention) or,
+on packed rows, ``packed_attn_fn`` with this rank's segment ids. The
+per-token logprobs come back whole on every rank (``fsdp.gather_data``),
+so the loss, its metrics and ``compute_log_prob`` see the whole micro, as
+the JAX actor's GSPMD program does. Under LoRA the adapters shard and the
+frozen base stays whole on every rank. ``tp``, ``ep`` and ``pp`` above 1
+and pipeline layer stacks (``layers_fn``) raise ``NotImplementedError``
+(ROADMAP A' 9).
 """
 
 from __future__ import annotations
@@ -44,8 +55,11 @@ import torch
 import torch.nn.functional as F
 
 from polyrl_tpu_torch.models import decoder
-from polyrl_tpu_torch.models.quant import lora_alphas, named_leaves, tree_map
+from polyrl_tpu_torch.models.quant import (flatten, lora_alphas, named_leaves,
+                                           tree_map, unflatten)
 from polyrl_tpu_torch.ops import core_algos, flash
+from polyrl_tpu_torch.parallel import fsdp
+from polyrl_tpu_torch.parallel import mesh as meshlib
 
 # rows per unembed chunk in no-grad logprob passes: [rows, T_resp, V] f32
 # logits for 4 rows of 448 tokens at vocab 151,936 are 1.1 GB
@@ -159,16 +173,21 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-             state: OptState) -> None:
+             state: OptState, g_norm: torch.Tensor | None = None,
+             finite: bool | None = None) -> None:
+        """``g_norm`` and ``finite``, when given, are the whole gradient's
+        (a sharded one's, the same on every rank)."""
         if self.guards_nonfinite:
-            finite = bool(torch.stack([torch.isfinite(g).all()
-                                       for g in grads]).all())
+            if finite is None:
+                finite = bool(torch.stack([torch.isfinite(g).all()
+                                           for g in grads]).all())
             state.notfinite_count = 0 if finite else state.notfinite_count + 1
             if not finite:
                 state.total_notfinite += 1
                 if state.notfinite_count <= self.max_consecutive_errors:
                     return  # rejected: zero update, inner state unchanged
-        g_norm = self.global_norm(grads)
+        if g_norm is None:
+            g_norm = self.global_norm(grads)
         clip = not bool(g_norm < self.max_norm)
         count = state.count + 1
         bc1 = _f32(1) - _f32(self.b1) ** _f32(count)
@@ -301,6 +320,99 @@ def _packed_logprobs_entropy(params, model_cfg, input_ids, positions,
     return to_columns(lps), (to_columns(ents) if compute_entropy else None)
 
 
+# -- the mesh path ------------------------------------------------------------
+
+
+def _shard_feed(mesh, feed: dict) -> dict:
+    """This rank's slice of a whole feed: rows over (dp, fsdp), columns
+    over sp (``mesh.shard_batch``)."""
+    return meshlib.shard_batch(mesh, feed)
+
+
+def _predictor_columns(feed: dict, packed: bool,
+                       mask_key: str | None = "response_mask") -> torch.Tensor:
+    """[B, T] bool: the columns whose hidden state predicts a token the
+    pass returns. Packed rows: those before a ``loss_mask`` column (every
+    column but the last without one). Padded rows: the ``T_resp`` columns
+    before the last, only those of ``feed[mask_key]`` unless ``mask_key``
+    is None."""
+    ids = feed["input_ids"]
+    b, t = ids.shape
+    pred = torch.zeros((b, t), dtype=torch.bool, device=ids.device)
+    if packed:
+        lm = feed.get("loss_mask")
+        pred[:, :-1] = True if lm is None else lm[:, 1:] > 0
+    else:
+        tr = feed["responses"].shape[1]
+        pred[:, t - tr - 1:t - 1] = True if mask_key is None else feed[mask_key] > 0
+    return pred
+
+
+def mesh_columns(mesh, params, model_cfg, feed: dict, packed: bool, remat: bool,
+                 attn_fn, packed_attn_fn, head_fn,
+                 mask_key: str | None = "response_mask") -> list[torch.Tensor]:
+    """A per-token pass on a mesh: this rank forwards its slice of the
+    whole ``feed`` (``_shard_feed``), ``head_fn(h, next_ids)`` maps the
+    hidden states of its predictor columns (``_predictor_columns``) to a
+    list of per-token outputs, and each comes back as a whole ``[B, T]``
+    f32 tensor on every rank (``fsdp.gather_data``, differentiable):
+    column c holds the output for token c + 1, predicted from column c,
+    and 0 off the predictor columns. Packed rows attend through
+    ``packed_attn_fn(q, k, v, mask, segment_ids)`` with this rank's
+    segment ids (K4 with them when it is None), padded ones through
+    ``attn_fn``."""
+    ids = feed["input_ids"]
+    nxt = torch.zeros_like(ids)
+    nxt[:, :-1] = ids[:, 1:]
+    keys = ("input_ids", "positions", "attention_mask") + (
+        ("segment_ids",) if packed else ())
+    local = _shard_feed(mesh, {**{k: feed[k] for k in keys}, "next_ids": nxt,
+                               "pred": _predictor_columns(feed, packed, mask_key)})
+    if packed:
+        seg = local["segment_ids"]
+        attn = (bind_packed_attention(seg) if packed_attn_fn is None
+                else (lambda q, k, v, m: packed_attn_fn(q, k, v, m, seg)))
+    else:
+        attn = attn_fn
+    h = decoder.forward_hidden(params, model_cfg, local["input_ids"],
+                               local["positions"], local["attention_mask"],
+                               remat=remat, attn_fn=attn)
+    keep = local["pred"]
+    outs = head_fn(h[keep], local["next_ids"][keep])
+    return [fsdp.gather_data(mesh, torch.zeros(keep.shape, dtype=torch.float32,
+                                               device=h.device).masked_scatter(keep, o))
+            for o in outs]
+
+
+def from_columns(cols: torch.Tensor, feed: dict, packed: bool) -> torch.Tensor:
+    """``mesh_columns``' layout -> the one-device pass's: packed rows'
+    per-column values (column t holds token t's, 0 at column 0), padded
+    rows' ``[B, T_resp]`` response region."""
+    if packed:
+        return F.pad(cols[:, :-1], (1, 0))
+    t, tr = cols.shape[1], feed["responses"].shape[1]
+    return cols[:, t - tr - 1:t - 1]
+
+
+def _logprob_head(params, model_cfg, compute_entropy: bool):
+    """``mesh_columns``' head of the logprob pass: the logprobs (and
+    entropy) of the targets, unembedded a chunk at a time without
+    autograd."""
+    head = decoder.head_weight(params, model_cfg)
+
+    def fn(hs, targets):
+        n = max(hs.shape[0], 1)
+        step = n if torch.is_grad_enabled() else _NOGRAD_TOKEN_CHUNK
+        lps, ents = [], []
+        for i in range(0, n, step):
+            logits = decoder.unembed(hs[i:i + step], head)
+            lps.append(core_algos.logprobs_from_logits(logits, targets[i:i + step]))
+            if compute_entropy:
+                ents.append(core_algos.entropy_from_logits(logits))
+        return [torch.cat(lps)] + ([torch.cat(ents)] if compute_entropy else [])
+    return fn
+
+
 _FEED_DTYPES = {"input_ids": torch.long, "responses": torch.long,
                 "positions": torch.int32, "segment_ids": torch.int32}
 
@@ -364,6 +476,74 @@ def load_train_state(named: list, opt_state: OptState,
             dst.copy_(src)
 
 
+def check_mesh_args(mesh, attn_fn, layers_fn) -> None:
+    """What the actor and critic refuse: pipeline layer stacks, meshes with
+    ``tp``/``ep``/``pp`` above 1, and ``sp`` above 1 without a
+    sequence-parallel ``attn_fn``."""
+    if layers_fn is not None:
+        raise NotImplementedError("pipeline layer stacks (layers_fn) are not "
+                                  "ported yet (ROADMAP A' 9)")
+    if mesh is None:
+        return
+    meshlib.refuse_unported(mesh.shape)
+    if mesh.shape[meshlib.SP] > 1 and attn_fn is None:
+        raise ValueError("sp > 1 needs a sequence-parallel attn_fn "
+                         "(parallel.sequence.make_sp_attention)")
+
+
+def whole_state(sharded, named: list, opt_state: OptState):
+    """``(named, opt_state)`` with whole tensors: gathered from the shards
+    on a mesh (``sharded``, a ``fsdp.ShardedLeaves``), as they are
+    otherwise."""
+    if sharded is None:
+        return named, opt_state
+    whole = dataclasses.replace(opt_state, mu=sharded.gather(opt_state.mu),
+                                nu=sharded.gather(opt_state.nu))
+    return list(zip(sharded.names, sharded.gather([p for _, p in named]))), whole
+
+
+@torch.no_grad()
+def load_whole_state(sharded, named: list, opt_state: OptState, flat: dict,
+                     frozen: list = (), alphas: dict | None = None) -> None:
+    """``load_train_state`` of a whole dict; on a mesh into whole scratch
+    tensors first, whose shards then go into the live ones."""
+    if sharded is None:
+        load_train_state(named, opt_state, flat, frozen, alphas)
+        return
+    full = [torch.empty(shape, dtype=p.dtype, device=p.device)
+            for shape, (_, p) in zip(sharded.shapes, named)]
+    moments = dict(mu=[torch.empty_like(f) for f in full],
+                   nu=[torch.empty_like(f) for f in full])
+    scratch = dataclasses.replace(opt_state, **moments)
+    load_train_state(list(zip(sharded.names, full)), scratch, flat, frozen, alphas)
+    sharded.load([p for _, p in named], full)
+    sharded.load(opt_state.mu, moments["mu"])
+    sharded.load(opt_state.nu, moments["nu"])
+    for key in _OPT_COUNTS:
+        setattr(opt_state, key, getattr(scratch, key))
+
+
+def step_grads(sharded, named: list, inv_scale: float, optimizer: Optimizer):
+    """(gradients, their global norm, whether all are finite) for the
+    optimizer step: on a mesh this rank's shards of the whole gradient
+    (``ShardedLeaves.shard_grads``), the norm and the flag over every
+    shard (the same on every rank); the finite flag None off a mesh (the
+    step computes it)."""
+    finite = None
+    if sharded is not None:
+        grads = sharded.shard_grads()
+    else:
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for _, p in named]
+    if inv_scale != 1.0:
+        grads = [g * inv_scale for g in grads]
+    if sharded is not None:
+        g_norm, finite = sharded.global_norm(grads)
+    else:
+        g_norm = optimizer.global_norm(grads)
+    return grads, g_norm, finite
+
+
 class StreamActor:
     """Owns params, optimizer state and accumulated gradients; stream-update
     semantics: gradients accumulate over ``update_stream`` calls scaled by
@@ -372,14 +552,12 @@ class StreamActor:
     def __init__(self, model_cfg: decoder.ModelConfig, cfg: ActorConfig,
                  params: Any, mesh=None, attn_fn=None, layers_fn=None,
                  packed_attn_fn=None):
-        if mesh is not None or layers_fn is not None or packed_attn_fn is not None:
-            raise NotImplementedError(
-                "meshes, pipeline stacks and the sequence-parallel packed "
-                "attention are not ported yet (ROADMAP A' 9)")
+        check_mesh_args(mesh, attn_fn, layers_fn)
         self.model_cfg = model_cfg
         self.cfg = cfg
-        self.mesh = None
+        self.mesh = mesh
         self.attn_fn = attn_fn if attn_fn is not None else default_train_attention()
+        self.packed_attn_fn = packed_attn_fn
         self._lora = cfg.lora_rank > 0
         labels = None
         if self._lora:
@@ -397,6 +575,14 @@ class StreamActor:
             trained = labels is None or labels[n] == "train"
             p.requires_grad_(trained)
             (self._named if trained else self._frozen).append((n, p))
+        self._fsdp = None
+        if mesh is not None:
+            # the trained leaves become this rank's fsdp shards; the tree
+            # keeps the shards in their place (its leaves are no longer
+            # whole: ``gather_params`` gives the whole tree)
+            self._fsdp = fsdp.ShardedLeaves(mesh, self._named)
+            self._named = list(zip(self._fsdp.names, self._fsdp.shards))
+            self.params = self._tree_with([p for _, p in self._named])
         self.device = self._named[0][1].device
         self.optimizer = make_optimizer(cfg)
         self.opt_state = self.optimizer.init([p for _, p in self._named])
@@ -409,27 +595,53 @@ class StreamActor:
         # tail flush renormalizes by it (mean over the micros it holds)
         self._accum_scale = 0.0
 
+    def _tree_with(self, trained: list[torch.Tensor]) -> dict:
+        """The parameter tree with ``trained`` in place of the trained
+        leaves (in ``_named`` order)."""
+        return unflatten({**flatten(self.params),
+                          **dict(zip((n for n, _ in self._named), trained))})
+
+    def _forward_params(self) -> dict:
+        """The tree a forward reads: on a mesh the whole trained leaves,
+        gathered (through autograd while it records)."""
+        if self._fsdp is None:
+            return self.params
+        return self._tree_with(self._fsdp.full())
+
+    def gather_params(self) -> dict:
+        """The whole parameter tree (on a mesh a collective: every rank
+        calls it; the whole leaves are new tensors)."""
+        if self._fsdp is None:
+            return self.params
+        with torch.no_grad():
+            return self._tree_with(self._fsdp.full())
+
     def export_params(self) -> dict:
         """The parameters in the plain layout the rollout engine takes: the
         adapters merged into their bases (``lora.merge_lora``, a new tree)
-        under LoRA, else the parameters themselves."""
+        under LoRA, else the parameters themselves (whole: on a mesh a
+        collective)."""
+        params = self.gather_params()
         if not self._lora:
-            return self.params
+            return params
         from polyrl_tpu_torch.models import lora as lora_mod
 
         with torch.no_grad():
-            return lora_mod.merge_lora(self.params)
+            return lora_mod.merge_lora(params)
 
     def state_dict(self) -> dict[str, torch.Tensor]:
-        """Parameters and optimizer state (``train_state``)."""
+        """Parameters and optimizer state (``train_state``), whole (on a
+        mesh gathered: a collective)."""
         self._wait_offloaded()
-        return train_state(self._named, self.opt_state, self._frozen,
-                           lora_alphas(self.params))
+        named, state = whole_state(self._fsdp, self._named, self.opt_state)
+        return train_state(named, state, self._frozen, lora_alphas(self.params))
 
     def load_state_dict(self, flat: dict[str, torch.Tensor]) -> None:
+        """Load a whole ``train_state`` dict (on a mesh each rank keeps its
+        shards of it)."""
         self._wait_offloaded()
-        load_train_state(self._named, self.opt_state, flat, self._frozen,
-                         lora_alphas(self.params))
+        load_whole_state(self._fsdp, self._named, self.opt_state, flat,
+                         self._frozen, lora_alphas(self.params))
 
     # -- optimizer offload (reference actor.py:275-298) ------------------------
 
@@ -472,23 +684,36 @@ class StreamActor:
         if self._opt_offloaded and self._offload_done is not None:
             self._offload_done.synchronize()
 
+    def _forward(self, params, batch: dict, remat: bool, compute_entropy: bool):
+        """(logprobs, entropy | None): ``[B, T_resp]`` on padded rows,
+        per-column ``[R, L]`` on packed ones (``segment_ids`` in the
+        batch), whole on every rank of a mesh."""
+        packed = "segment_ids" in batch
+        if self.mesh is not None:
+            cols = mesh_columns(self.mesh, params, self.model_cfg, batch, packed,
+                                remat, self.attn_fn, self.packed_attn_fn,
+                                _logprob_head(params, self.model_cfg,
+                                              compute_entropy))
+            out = [from_columns(c, batch, packed) for c in cols]
+            return out[0], (out[1] if compute_entropy else None)
+        if packed:
+            return _packed_logprobs_entropy(
+                params, self.model_cfg, batch["input_ids"], batch["positions"],
+                batch["attention_mask"], batch["segment_ids"], remat,
+                compute_entropy, loss_mask=batch.get("loss_mask"))
+        return _model_logprobs_entropy(
+            params, self.model_cfg, batch["input_ids"], batch["positions"],
+            batch["attention_mask"], batch["responses"], batch["response_mask"],
+            remat, compute_entropy, attn_fn=self.attn_fn)
+
     def _loss_fn(self, batch: dict, loss_scale: float):
         cfg = self.cfg
+        logprobs, entropy = self._forward(self._forward_params(), batch,
+                                          cfg.remat, cfg.entropy_coeff != 0.0)
         if "segment_ids" in batch:
             # packed rows: loss_mask plays response_mask; advantages and
             # old_log_probs already live in the packed [R, L] layout
-            logprobs, entropy = _packed_logprobs_entropy(
-                self.params, self.model_cfg, batch["input_ids"],
-                batch["positions"], batch["attention_mask"],
-                batch["segment_ids"], cfg.remat, cfg.entropy_coeff != 0.0,
-                loss_mask=batch["loss_mask"])
             batch = dict(batch, response_mask=batch["loss_mask"])
-        else:
-            logprobs, entropy = _model_logprobs_entropy(
-                self.params, self.model_cfg, batch["input_ids"],
-                batch["positions"], batch["attention_mask"],
-                batch["responses"], batch["response_mask"], cfg.remat,
-                cfg.entropy_coeff != 0.0, attn_fn=self.attn_fn)
         loss_fn = core_algos.get_policy_loss_fn(cfg.policy_loss)
         if cfg.policy_loss != "gpg":
             pg_loss, clipfrac, approx_kl, clipfrac_lower = loss_fn(
@@ -519,22 +744,25 @@ class StreamActor:
             metrics["actor/kl_loss"] = kl_loss
         return loss * loss_scale, metrics
 
-    def _grads(self) -> list[torch.Tensor]:
-        return [p.grad if p.grad is not None else torch.zeros_like(p)
-                for _, p in self._named]
-
     def _opt_step(self, inv_scale: float = 1.0) -> dict:
-        grads = self._grads()
-        if inv_scale != 1.0:
-            grads = [g * inv_scale for g in grads]
-        metrics = {"actor/grad_norm": float(self.optimizer.global_norm(grads))}
-        self.optimizer.step([p for _, p in self._named], grads, self.opt_state)
+        grads, g_norm, finite = step_grads(self._fsdp, self._named, inv_scale,
+                                           self.optimizer)
+        metrics = {"actor/grad_norm": float(g_norm)}
+        self.optimizer.step([p for _, p in self._named], grads, self.opt_state,
+                            g_norm=g_norm, finite=finite)
         if self.optimizer.guards_nonfinite:
             metrics["actor/nonfinite_skips"] = float(
                 self.opt_state.total_notfinite)
         for _, p in self._named:
             p.grad = None
+        self.release_gathered()
         return metrics
+
+    def release_gathered(self) -> None:
+        """Drop the whole leaves a mesh gathered (only the shards stay):
+        after each optimizer step, and after each push (the trainer)."""
+        if self._fsdp is not None:
+            self._fsdp.release()
 
     def update_stream(self, batch: dict, is_opt_step: bool,
                       loss_scale: float = 1.0) -> dict:
@@ -566,23 +794,17 @@ class StreamActor:
     @torch.no_grad()
     def compute_log_prob(self, batch: dict, compute_entropy: bool = True):
         """Old-logprob pass (no grad, no remat). Returns (logprobs,
-        entropy | None) as tensors on the actor's device."""
+        entropy | None) as tensors on the actor's device (whole on every
+        rank of a mesh)."""
         feed = _to_device(batch, self.device)
-        return _model_logprobs_entropy(
-            self.params, self.model_cfg, feed["input_ids"], feed["positions"],
-            feed["attention_mask"], feed["responses"], feed["response_mask"],
-            remat=False, compute_entropy=compute_entropy, attn_fn=self.attn_fn)
+        return self._forward(self._forward_params(), feed, False, compute_entropy)
 
     @torch.no_grad()
     def compute_log_prob_packed(self, batch: dict, compute_entropy: bool = True):
         """Packed-row logprob pass: [R, L] per-column logprobs (and
         entropy) that ``loss_mask`` selects the response tokens of (see
         ``_packed_logprobs_entropy``)."""
-        feed = _to_device(batch, self.device)
-        return _packed_logprobs_entropy(
-            self.params, self.model_cfg, feed["input_ids"], feed["positions"],
-            feed["attention_mask"], feed["segment_ids"], remat=False,
-            compute_entropy=compute_entropy, loss_mask=feed.get("loss_mask"))
+        return self.compute_log_prob(batch, compute_entropy)
 
 
 class ReferencePolicy:

@@ -17,8 +17,12 @@ built. The optimizer is the actor's optax-exact chain
 the non-finite guard, as in the JAX critic. Parameters are updated in
 place, as the actor's are.
 
-Not ported yet (each raises ``NotImplementedError``): meshes, pipeline
-layer stacks and the sequence-parallel packed attention.
+On a mesh the critic shards as the actor does (``parallel/fsdp.py``:
+every leaf and its AdamW moments over ``fsdp``, gathered whole for the
+forwards of an optimizer step, the global clip norm) and each rank forwards its slice of the
+batch (``actor.mesh_columns``), the values coming back whole on every
+rank. Pipeline layer stacks and ``tp``/``ep``/``pp`` above 1 raise
+``NotImplementedError`` (ROADMAP A' 9).
 """
 
 from __future__ import annotations
@@ -31,11 +35,16 @@ import torch
 import torch.nn.functional as F
 
 from polyrl_tpu_torch.models import decoder
+from polyrl_tpu_torch.models.quant import unflatten
 from polyrl_tpu_torch.ops import core_algos
+from polyrl_tpu_torch.parallel import fsdp
 from polyrl_tpu_torch.trainer.actor import (Optimizer, _leaves, _to_device,
                                             _tree_map, bind_packed_attention,
+                                            check_mesh_args,
                                             default_train_attention,
-                                            load_train_state, train_state)
+                                            from_columns, load_whole_state,
+                                            mesh_columns, step_grads,
+                                            train_state, whole_state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,15 +109,20 @@ class StreamCritic:
     def __init__(self, model_cfg: decoder.ModelConfig, cfg: CriticConfig,
                  params: Any, mesh=None, attn_fn=None, layers_fn=None,
                  packed_attn_fn=None):
-        if mesh is not None or layers_fn is not None or packed_attn_fn is not None:
-            raise NotImplementedError(
-                "meshes, pipeline stacks and the sequence-parallel packed "
-                "attention are not ported yet (ROADMAP A' 9)")
+        check_mesh_args(mesh, attn_fn, layers_fn)
         self.model_cfg = model_cfg
         self.cfg = cfg
+        self.mesh = mesh
         self.attn_fn = attn_fn if attn_fn is not None else default_train_attention()
+        self.packed_attn_fn = packed_attn_fn
         self.params = _tree_map(lambda t: t.detach().requires_grad_(True), params)
         self._named = list(_leaves(self.params))
+        self._fsdp = None
+        if mesh is not None:
+            # every leaf becomes this rank's fsdp shard (see StreamActor)
+            self._fsdp = fsdp.ShardedLeaves(mesh, self._named)
+            self._named = list(zip(self._fsdp.names, self._fsdp.shards))
+            self.params = self._tree_with([p for _, p in self._named])
         self.device = self._named[0][1].device
         self.optimizer = Optimizer(cfg.max_grad_norm,
                                    lambda count: np.float32(cfg.lr),
@@ -117,27 +131,47 @@ class StreamCritic:
         # sum of loss_scales since the last optimizer step (tail flush)
         self._accum_scale = 0.0
 
+    def _tree_with(self, leaves: list[torch.Tensor]) -> dict:
+        return unflatten(dict(zip((n for n, _ in self._named), leaves)))
+
+    def _forward_params(self) -> dict:
+        """The tree a forward reads (whole: gathered on a mesh)."""
+        if self._fsdp is None:
+            return self.params
+        return self._tree_with(self._fsdp.full())
+
     def state_dict(self) -> dict[str, torch.Tensor]:
-        """Parameters and optimizer state (``actor.train_state``)."""
-        return train_state(self._named, self.opt_state)
+        """Parameters and optimizer state (``actor.train_state``), whole
+        (on a mesh gathered: a collective)."""
+        return train_state(*whole_state(self._fsdp, self._named, self.opt_state))
 
     def load_state_dict(self, flat: dict[str, torch.Tensor]) -> None:
-        load_train_state(self._named, self.opt_state, flat)
+        load_whole_state(self._fsdp, self._named, self.opt_state, flat)
+
+    def _values(self, params, batch: dict, remat: bool) -> torch.Tensor:
+        """Values: ``[B, T_resp]`` on padded rows, per-column ``[R, L]`` on
+        packed ones (``segment_ids`` in the batch), whole on every rank of
+        a mesh."""
+        packed = "segment_ids" in batch
+        if self.mesh is not None:
+            head = params["value_head"]
+            vals = mesh_columns(self.mesh, params, self.model_cfg, batch, packed,
+                                remat, self.attn_fn, self.packed_attn_fn,
+                                lambda hs, _targets: [_values_of(hs, head)],
+                                mask_key=None)[0]
+            return from_columns(vals, batch, packed)
+        if packed:
+            return forward_values_packed(
+                params, self.model_cfg, batch["input_ids"], batch["positions"],
+                batch["attention_mask"], batch["segment_ids"], remat,
+                loss_mask=batch.get("loss_mask"))
+        return forward_values(params, self.model_cfg, batch["input_ids"],
+                              batch["positions"], batch["attention_mask"],
+                              batch["responses"], remat, attn_fn=self.attn_fn)
 
     def _loss(self, batch: dict, loss_scale: float):
-        if "segment_ids" in batch:  # packed (remove-padding) layout
-            vpreds = forward_values_packed(
-                self.params, self.model_cfg, batch["input_ids"],
-                batch["positions"], batch["attention_mask"],
-                batch["segment_ids"], self.cfg.remat,
-                loss_mask=batch["loss_mask"])
-            mask = batch["loss_mask"]
-        else:
-            vpreds = forward_values(
-                self.params, self.model_cfg, batch["input_ids"],
-                batch["positions"], batch["attention_mask"],
-                batch["responses"], self.cfg.remat, attn_fn=self.attn_fn)
-            mask = batch["response_mask"]
+        vpreds = self._values(self._forward_params(), batch, self.cfg.remat)
+        mask = batch["loss_mask" if "segment_ids" in batch else "response_mask"]
         vf_loss, clipfrac = core_algos.compute_value_loss(
             vpreds, batch["returns"], batch["values"], mask,
             cliprange_value=self.cfg.cliprange_value,
@@ -146,14 +180,15 @@ class StreamCritic:
                                       "critic/vf_clipfrac": clipfrac}
 
     def _opt_step(self, inv_scale: float = 1.0) -> dict:
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for _, p in self._named]
-        if inv_scale != 1.0:
-            grads = [g * inv_scale for g in grads]
-        metrics = {"critic/grad_norm": float(self.optimizer.global_norm(grads))}
-        self.optimizer.step([p for _, p in self._named], grads, self.opt_state)
+        grads, g_norm, _ = step_grads(self._fsdp, self._named, inv_scale,
+                                      self.optimizer)
+        metrics = {"critic/grad_norm": float(g_norm)}
+        self.optimizer.step([p for _, p in self._named], grads, self.opt_state,
+                            g_norm=g_norm)
         for _, p in self._named:
             p.grad = None
+        if self._fsdp is not None:
+            self._fsdp.release()
         return metrics
 
     def update_stream(self, batch: dict, is_opt_step: bool,
@@ -185,15 +220,9 @@ class StreamCritic:
     def compute_values(self, batch: dict) -> torch.Tensor:
         """[B, T_resp] values of the response region (no grad, no remat)."""
         feed = _to_device(batch, self.device)
-        return forward_values(self.params, self.model_cfg, feed["input_ids"],
-                              feed["positions"], feed["attention_mask"],
-                              feed["responses"], False, attn_fn=self.attn_fn)
+        return self._values(self._forward_params(), feed, False)
 
     @torch.no_grad()
     def compute_values_packed(self, batch: dict) -> torch.Tensor:
         """[R, L] per-column values on a packed feed (no grad)."""
-        feed = _to_device(batch, self.device)
-        return forward_values_packed(
-            self.params, self.model_cfg, feed["input_ids"], feed["positions"],
-            feed["attention_mask"], feed["segment_ids"], False,
-            loss_mask=feed.get("loss_mask"))
+        return self.compute_values(batch)

@@ -44,8 +44,12 @@ the finished steps' manager scrape and balancer round trip off the hot
 path (``submit_step_stats``): their gauges land in the next consumed
 step's record. The producer's ``trainer/prefetch`` spans adopt the trace
 context of the ``fit`` that started the lane, so the critical path sees
-the hidden generation (``obs/critical_path.py``). The multi-host fan-out
-waits with ``parallel/*`` (ROADMAP A' 9).
+the hidden generation (``obs/critical_path.py``).
+
+On a multi-process run the lane runs on rank 0 alone and issues no
+collective: the foreground drains ``step_ibatches`` through the trainer's
+``_ibatch_fanout``, so every broadcast is issued from the foreground
+thread, in one order on every rank, and the other ranks replay them.
 """
 
 from __future__ import annotations

@@ -35,8 +35,16 @@ critical path when tracing is on (``critpath/*``), the time-series rail,
 the flight recorder's hooks and the trainer's ``/statusz``
 (``start_statusz``), and closed-loop autoscaling (``autoscale=``, an
 ``AutoscaleController``: ticked after each step's pool counters, with
-the pipelined lane's admission gate). Multi-host is not ported (ROADMAP
-A' 9).
+the pipelined lane's admission gate).
+
+Multi-process (``parallel/``): every rank runs this same loop on its
+shards of the actor and critic; rank 0 owns the control plane (the
+rollout, reward scoring, the weight fabric, validation, logging,
+checkpoint files) and broadcasts each ibatch (``_ibatch_fanout``, an
+error sentinel releasing the others if its stream fails), its rewards
+(errors too) and the ReMax baselines; pushes and checkpoints gather the
+whole weights on every rank (a collective), and a restore that rank 0
+read reaches the others by broadcast.
 """
 
 from __future__ import annotations
@@ -246,6 +254,12 @@ class StreamRLTrainer:
         self.logger = logger
         self.val_dataset = val_dataset
         self.global_step = 0
+        # multi-process SPMD: every rank runs this loop; rank 0 owns the
+        # control plane and broadcasts batches and scores to the others
+        from polyrl_tpu_torch.parallel import multihost
+        self._mh = multihost
+        self._is_main = multihost.is_main()
+        self._multi = multihost.process_count() > 1
         # weight pushes initiated so far; a prefetched stream records the
         # count at its generation start, so the gap at consume time is the
         # perf/weight_staleness gauge
@@ -354,18 +368,36 @@ class StreamRLTrainer:
         return state
 
     def _save_checkpoint(self) -> None:
+        """The whole state (gathered on every rank of a mesh: a
+        collective), written by rank 0 in the one-process format."""
         meta = {"global_step": self.global_step}
         if self._loader_state is not None:
             meta["dataloader"] = self._loader_state
-        self._ckpt.save(self.global_step, self._ckpt_state(), meta)
+        state = self._ckpt_state()
+        if self._is_main:
+            self._ckpt.save(self.global_step, state, meta)
 
     def _load_checkpoint(self) -> bool:
         """Restore the latest checkpoint if there is one; True on resume.
         Items restore independently, so an actor-only checkpoint resumes
-        the actor of a trainer that has a critic (and vice versa)."""
+        the actor of a trainer that has a critic (and vice versa). With
+        several ranks rank 0 reads it and broadcasts it; each rank keeps
+        its shards, so a checkpoint of any world size restores into any
+        other."""
         if self._ckpt is None or self.cfg.resume == "disable":
             return False
-        out = self._ckpt.restore(targets=self._ckpt_state().keys())
+        targets = ["actor"] + (["critic"] if self.critic is not None else [])
+        out = self._ckpt.restore(targets=targets) if self._is_main else None
+        if self._multi:
+            head = self._mh.broadcast_obj(
+                None if out is None else (sorted(out[0]), out[1]))
+            if head is None:
+                return False
+            names, meta = head
+            dev = self.actor.device
+            items = {n: self._mh.broadcast_state(
+                out[0][n] if out is not None else None, dev) for n in names}
+            out = items, meta
         if out is None:
             return False
         items, meta = out
@@ -378,6 +410,15 @@ class StreamRLTrainer:
             self.dataloader.load_state_dict(meta["dataloader"])
             self._loader_state = meta["dataloader"]
         return True
+
+    def _should_save(self) -> bool:
+        """The checkpoint decision, rank 0's on every rank (the ESI expiry
+        reads a wall clock)."""
+        cfg = self.cfg
+        save = ckpt_lib.should_save_checkpoint(
+            self.global_step, cfg.total_steps, cfg.save_freq,
+            esi_expiry_ts=self._esi_expiry, esi_margin_s=cfg.esi_margin_s)
+        return self._mh.broadcast_obj(save) if self._multi else save
 
     # -- rollout -> TensorBatch -------------------------------------------
 
@@ -469,8 +510,45 @@ class StreamRLTrainer:
         batch = self._assemble_batch(prompts, gts, sources, outs, group_ids)
         yield from batch.split(cfg.min_stream_batch_size)
 
-    # one device: no multi-host fan-out around the local stream
-    _ibatch_iter = _ibatch_iter_local
+    def _ibatch_iter(self, records: list[dict], rng, metrics: MetricsTracker):
+        """The step's ibatches: the local stream, fanned out from rank 0
+        to the others on a multi-process run."""
+        yield from self._ibatch_fanout(
+            lambda: self._ibatch_iter_local(records, rng, metrics), metrics)
+
+    def _ibatch_fanout(self, make_local_iter: Callable | None,
+                       metrics: MetricsTracker):
+        """The multi-process fan-out around a local ibatch source (the
+        direct stream or the pipeline's queue): rank 0 runs it and
+        broadcasts each ibatch, the others replay the broadcasts. Always
+        on the foreground thread, so every rank issues the broadcasts in
+        one order. If rank 0's source raises, an error sentinel releases
+        the others from their collective before the error propagates."""
+        if not self._multi:
+            yield from make_local_iter()
+            return
+        if self._is_main:
+            it = make_local_iter()
+            while True:
+                try:
+                    ib = next(it)
+                except StopIteration:
+                    self._mh.broadcast_batch(("end", None))
+                    return
+                except Exception as exc:
+                    self._mh.broadcast_batch(("error", repr(exc)))
+                    raise
+                with marked_timer("broadcast", metrics):
+                    self._mh.broadcast_batch(("batch", ib))
+                yield ib
+        while True:
+            with marked_timer("broadcast", metrics):
+                kind, ib = self._mh.broadcast_batch(None)
+            if kind == "end":
+                return
+            if kind == "error":
+                raise RuntimeError(f"rank 0's rollout failed: {ib}")
+            yield ib
 
     def _push_weights(self, block: bool = True) -> None:
         """Push the actor's weights to the rollout (a version bump).
@@ -494,16 +572,22 @@ class StreamRLTrainer:
         else:
             self.rollout.update_weights(params)
         self._push_count += 1
+        # on a mesh only the shards stay between steps
+        release = getattr(self.actor, "release_gathered", None)
+        if release is not None:
+            release()
 
     def _gather_push_params(self) -> dict:
         """What a push carries: with ``weight_sync=lora_delta`` only the
         adapters (``lora.extract_adapters``: ``a``/``b``, ``alpha`` and the
         base's fingerprint), which the servers install into their live
-        ``a``/``b``; else the merged plain tree (``export_params``)."""
+        ``a``/``b``; else the merged plain tree (``export_params``). Whole
+        tensors: on a mesh every rank gathers them (a collective) and rank
+        0's rollout pushes them (a ``NullRollout`` drops them)."""
         if self.cfg.weight_sync == "lora_delta":
             from polyrl_tpu_torch.models import lora
 
-            return lora.extract_adapters(self.actor.params)
+            return lora.extract_adapters(self.actor.gather_params())
         return self.actor.export_params()
 
     def _wait_pushed(self) -> None:
@@ -535,9 +619,26 @@ class StreamRLTrainer:
         """reward -> old logprob -> ref logprob -> values -> advantage."""
         cfg = self.cfg
         with marked_timer("reward", metrics):
-            reward_out = self.reward_manager(ibatch)
-            token_level_scores = reward_out.token_level_scores
-            metrics.update(reward_out.metrics)
+            # reward scoring is control-plane work: rank 0 scores and
+            # broadcasts, its errors too, so the others fail instead of
+            # waiting in the collective
+            err: Exception | None = None
+            payload = None
+            if self._is_main:
+                try:
+                    reward_out = self.reward_manager(ibatch)
+                    payload = ("ok", (reward_out.token_level_scores,
+                                      reward_out.metrics))
+                except Exception as exc:  # noqa: BLE001 — raised again below
+                    err = exc
+                    payload = ("error", repr(exc))
+            if self._multi:
+                payload = self._mh.broadcast_obj(payload)
+            if payload[0] == "error":
+                raise err if err is not None else RuntimeError(
+                    f"rank 0's reward failed: {payload[1]}")
+            token_level_scores, reward_metrics = payload[1]
+            metrics.update(reward_metrics)
         feed = {k: ibatch[k] for k in ("input_ids", "positions", "attention_mask",
                                        "responses", "response_mask")}
         if cfg.use_remove_padding:
@@ -598,7 +699,11 @@ class StreamRLTrainer:
                     token_rewards, _t(ibatch["values"]), mask, cfg.gamma,
                     cfg.lam)
             elif est == "remax":
-                baselines = self._compute_remax_baselines(ibatch, metrics)
+                # the baselines' generation and scoring are rank 0's
+                baselines = (self._compute_remax_baselines(ibatch, metrics)
+                             if self._is_main else None)
+                if self._multi:
+                    baselines = self._mh.broadcast_obj(baselines)
                 adv, ret = core_algos.compute_remax_outcome_advantage(
                     token_rewards, _t(baselines), mask)
             else:
@@ -640,19 +745,30 @@ class StreamRLTrainer:
     # -- packed-sequence (remove-padding) path -----------------------------
 
     def _pack_geometry(self) -> tuple[int, int]:
-        """(pack_len, rows per packed micro). On one device the JAX
-        trainer's shard floors reduce to one row, and a token budget below
-        one row raises rather than exceed the budget it guards."""
+        """(pack_len, rows per packed micro). On a mesh the pack columns
+        split over sp and the rows over dp x fsdp: ``pack_len`` rounds up
+        to a multiple of sp, the rows down to a multiple of dp x fsdp (at
+        least one row a rank), and a token budget below that floor raises
+        rather than exceed the budget it guards (on one device: one row)."""
         cfg = self.cfg
         pack_len = cfg.pack_len or (cfg.max_prompt_length + cfg.max_response_length)
+        mesh = getattr(self.actor, "mesh", None)
+        shape = mesh.shape if mesh is not None else {}
+        sp = shape.get("sp", 1)
+        rows_div = shape.get("dp", 1) * shape.get("fsdp", 1)
+        pack_len = -(-pack_len // sp) * sp
         if cfg.micro_token_budget <= 0:
-            return pack_len, cfg.micro_batch_size
-        if cfg.micro_token_budget < pack_len:
-            raise ValueError(
-                f"micro_token_budget={cfg.micro_token_budget} cannot fit one "
-                f"packed row of pack_len={pack_len} tokens; raise the budget "
-                f"or shrink pack_len")
-        return pack_len, cfg.micro_token_budget // pack_len
+            n_rows = cfg.micro_batch_size
+        else:
+            n_rows = cfg.micro_token_budget // pack_len
+            if n_rows < rows_div or n_rows == 0:
+                raise ValueError(
+                    f"micro_token_budget={cfg.micro_token_budget} cannot fit"
+                    f" one packed row per batch shard: dp*fsdp={rows_div}"
+                    f" rows x pack_len={pack_len} ="
+                    f" {rows_div * pack_len} tokens minimum; raise the"
+                    f" budget or shrink dp*fsdp/pack_len")
+        return pack_len, max(rows_div, n_rows // rows_div * rows_div)
 
     def _packed_logprob_pass(self, ibatch: TensorBatch,
                              metrics: MetricsTracker) -> None:
@@ -826,7 +942,7 @@ class StreamRLTrainer:
 
     def _maybe_validate(self, metrics: MetricsTracker, *, force: bool = False) -> None:
         cfg = self.cfg
-        if self.val_dataset is None:
+        if self.val_dataset is None or not self._is_main:
             return
         due = force or (cfg.test_freq > 0 and self.global_step > 0
                         and self.global_step % cfg.test_freq == 0)
@@ -1068,7 +1184,8 @@ class StreamRLTrainer:
 
         cfg = self.cfg
         history = []
-        if self._load_checkpoint() and self.logger is not None:
+        if (self._load_checkpoint() and self.logger is not None
+                and self._is_main):
             self.logger.log({"training/resumed_from_step": self.global_step},
                             step=self.global_step)
         self._push_weights()  # bootstrap the engine with the actor's weights
@@ -1076,13 +1193,14 @@ class StreamRLTrainer:
             pre = MetricsTracker()
             self._maybe_validate(pre, force=True)
             history.append(pre.as_dict())
-            if self.logger is not None:
+            if self.logger is not None and self._is_main:
                 self.logger.log(history[-1], step=self.global_step)
         # pipelined mode: a background lane generates up to depth steps
-        # ahead while this thread trains
+        # ahead while this thread trains; only where the batches are made
+        # (rank 0), the others replay its foreground broadcasts
         pipeline = (RolloutPipeline(self, cfg.pipeline_depth).start(
-            self.global_step, cfg.total_steps) if cfg.pipeline_depth > 0
-            else None)
+            self.global_step, cfg.total_steps)
+            if cfg.pipeline_depth > 0 and self._is_main else None)
         try:
             while self.global_step < cfg.total_steps:
                 self._profile_gate(self.global_step + 1)
@@ -1092,7 +1210,11 @@ class StreamRLTrainer:
                 # bootstrap push's, a pre-train validation's): not this
                 # step's manager_rtt
                 rtt_pre = registry_total("manager/rtt_s")
-                if pipeline is None:
+                if pipeline is None and cfg.pipeline_depth > 0:
+                    # a pipelined run's other ranks: the ibatches arrive
+                    # through the foreground broadcasts, as when serial
+                    source = lambda: self._ibatch_fanout(None, metrics)  # noqa: E731
+                elif pipeline is None:
                     records = next(self.dataloader)
                     if hasattr(self.dataloader, "state_dict"):
                         self._loader_state = self.dataloader.state_dict()
@@ -1100,8 +1222,8 @@ class StreamRLTrainer:
                         records, None, metrics)
                 else:
                     step = self.global_step
-                    source = lambda: pipeline.step_ibatches(  # noqa: E731
-                        step, metrics)
+                    source = lambda: self._ibatch_fanout(  # noqa: E731
+                        lambda: pipeline.step_ibatches(step, metrics), metrics)
                 # the root span: every phase span, manager call, engine
                 # span and fabric push of the step shares its trace id
                 with obs.span("trainer/step", step=self.global_step + 1,
@@ -1125,7 +1247,8 @@ class StreamRLTrainer:
                     "perf/step_time_s": step_time,
                     "perf/trainer_bubble_s": state["bubble"],
                     "perf/throughput_tokens_per_s": throughput,
-                    "perf/throughput_tok_s_per_chip": throughput,
+                    "perf/throughput_tok_s_per_chip":
+                        throughput / self._mh.process_count(),
                     "perf/rollout_throughput_tok_s": self.rollout.last_gen_throughput,
                 })
                 metrics.update(self._flops.step_metrics(
@@ -1135,10 +1258,7 @@ class StreamRLTrainer:
                                             step_time, throughput)
                 self._maybe_validate(metrics,
                                      force=self.global_step >= cfg.total_steps)
-                if self._ckpt is not None and ckpt_lib.should_save_checkpoint(
-                        self.global_step, cfg.total_steps, cfg.save_freq,
-                        esi_expiry_ts=self._esi_expiry,
-                        esi_margin_s=cfg.esi_margin_s):
+                if self._ckpt is not None and self._should_save():
                     with marked_timer("save_checkpoint", metrics):
                         self._save_checkpoint()
                 self._finish_record(metrics, state, step_t0, n_traj, history)
@@ -1155,7 +1275,7 @@ class StreamRLTrainer:
             self._profile_gate(-1)  # close an open trace
         self._wait_pushed()  # the last push lands before fit returns
         tracer = obs.get_tracer()
-        if tracer.enabled:
+        if tracer.enabled and self._is_main:
             tracer.export_run()  # spans.jsonl + trace.json, with an out_dir
         if self._ckpt is not None:
             self._ckpt.wait()
@@ -1213,5 +1333,5 @@ class StreamRLTrainer:
         self._timeseries.observe(self.global_step, record)
         if self._recorder is not None:
             self._recorder.record_step(self.global_step, record)
-        if self.logger is not None:
+        if self.logger is not None and self._is_main:
             self.logger.log(record, step=self.global_step)

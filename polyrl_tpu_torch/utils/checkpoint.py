@@ -33,6 +33,13 @@ the ``models/quant.py`` wrappers (``QuantWeight``, ``LoraWeight``); it is
 saved flat (``quant.flatten``: dotted names, each LoRA ``alpha`` a 0-d
 tensor) and ``unflatten_tree`` rebuilds it from what ``restore`` returns,
 with the wrapper types, ``alpha`` and an int8 base intact.
+
+Multi-process runs keep this format: the actor's and critic's
+``state_dict`` gather the fsdp shards into whole tensors on every rank (a
+collective), rank 0 alone saves them, and on restore rank 0 reads the
+files and broadcasts each tensor (``parallel.multihost.broadcast_state``),
+from which every rank keeps its shards. So a checkpoint written by any
+number of ranks restores into any other number, one process included.
 """
 
 from __future__ import annotations

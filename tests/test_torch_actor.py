@@ -233,25 +233,39 @@ def test_schedules_match_optax(kw, total):
                                    atol=1e-12, err_msg=str(c))
 
 
+def _mesh(**axes):
+    """A one-rank description of a mesh (no world, no collective)."""
+    from polyrl_tpu_torch.parallel.mesh import AXES, Mesh
+
+    return Mesh(tuple(axes.get(a, 1) for a in AXES), make_groups=False)
+
+
 def test_unported_actor_options_raise():
-    """Meshes still refuse; LoRA and optimizer offload are ported and
-    construct (``tests/test_torch_lora.py``, the offload test below)."""
+    """Meshes with a tensor-parallel axis still refuse (fsdp/dp/sp meshes
+    are ported: ``tests/test_torch_multihost.py``); LoRA and optimizer
+    offload are ported and construct (``tests/test_torch_lora.py``, the
+    offload test below)."""
     _jcfg, tcfg, tree = _models()
     for kw in (dict(lora_rank=4), dict(offload_optimizer=True)):
         tactor.StreamActor(tcfg, tactor.ActorConfig(**kw), _tparams(tree))
-    with pytest.raises(NotImplementedError):
-        tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree), mesh=object())
+    with pytest.raises(NotImplementedError, match="A' 9"):
+        tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree),
+                           mesh=_mesh(tp=2))
 
 
-@pytest.mark.parametrize("kw", [dict(packed_attn_fn=object()),
+@pytest.mark.parametrize("kw", [dict(packed_attn_fn=object(),
+                                     mesh=_mesh(sp=2, ep=2),
+                                     attn_fn=object()),
                                 dict(layers_fn=object())],
                          ids=["sp_packed_attention", "pipeline_layers"])
 def test_unported_parallel_options_raise(kw):
-    """Packed rows run on one device through K4 with segment ids; the
-    sequence-parallel packed attention and pipeline layer stacks wait for
-    ``parallel/*``."""
+    """Packed rows run through K4 with segment ids, and on an sp mesh
+    through the sequence-parallel packed attention
+    (``tests/test_torch_sequence_parallel.py``); what stays unported
+    refuses: expert parallelism beside it and pipeline layer stacks
+    (ROADMAP A' 9)."""
     _jcfg, tcfg, tree = _models()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A' 9"):
         tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree), **kw)
 
 

@@ -53,6 +53,27 @@ def test_slice_modules_are_scanned(rel):
     assert ROOT / "polyrl_tpu_torch" / rel in PORT_FILES
 
 
+SLICE_15 = ("parallel/__init__.py", "parallel/mesh.py",
+            "parallel/distributed.py", "parallel/multihost.py",
+            "parallel/sequence.py", "parallel/fsdp.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_15)
+def test_parallel_modules_are_scanned(rel):
+    """The multi-process trainer's modules (``polyrl_tpu_torch/parallel/``)
+    are in the scan above and in the jax-blocked import below."""
+    assert ROOT / "polyrl_tpu_torch" / rel in PORT_FILES
+
+
+def test_spawned_world_worker_imports_no_jax():
+    """The gloo worlds' worker (``tests/torch_dist.py``) runs the port
+    alone: it imports neither JAX nor the JAX package."""
+    path = ROOT / "tests" / "torch_dist.py"
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "polyrl_tpu")]
+    assert not bad, bad
+
+
 def test_port_and_chip_smoke_import_with_jax_blocked():
     """In a fresh interpreter where ``import jax`` fails, every module of
     the port and chip_smoke.py import."""

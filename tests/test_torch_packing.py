@@ -295,11 +295,16 @@ def test_trainer_e2e_remove_padding_gae_critic():
 
 def test_pack_geometry_budget_below_one_row_raises():
     """The token budget sets the rows per micro; a budget below one row
-    raises rather than exceed the budget it guards."""
+    raises rather than exceed the budget it guards. On a mesh (the JAX
+    trainer's rule) pack_len rounds up to a multiple of sp and the rows
+    down to a multiple of dp x fsdp, one row a batch shard at least, and a
+    budget below that floor raises."""
     from types import SimpleNamespace
 
-    def geometry(**kw):
-        fake = SimpleNamespace(cfg=TrainerConfig(use_remove_padding=True, **kw))
+    def geometry(shape=None, **kw):
+        fake = SimpleNamespace(cfg=TrainerConfig(use_remove_padding=True, **kw),
+                               actor=SimpleNamespace(mesh=shape and SimpleNamespace(
+                                   shape=shape)))
         return StreamRLTrainer._pack_geometry(fake)
 
     assert geometry(micro_token_budget=256, pack_len=32) == (32, 8)
@@ -307,3 +312,8 @@ def test_pack_geometry_budget_below_one_row_raises():
     assert geometry(max_prompt_length=16, max_response_length=8) == (24, 8)
     with pytest.raises(ValueError, match="micro_token_budget"):
         geometry(micro_token_budget=31, pack_len=32)
+    mesh = {"dp": 1, "fsdp": 3, "sp": 2}
+    assert geometry(mesh, micro_token_budget=256, pack_len=31) == (32, 6)
+    assert geometry(mesh, micro_token_budget=0, pack_len=32) == (32, 6)
+    with pytest.raises(ValueError, match="micro_token_budget"):
+        geometry(mesh, micro_token_budget=64, pack_len=32)

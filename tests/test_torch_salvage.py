@@ -74,9 +74,9 @@ def _drive(eng, prompt, n_dispatches, max_new=400, abort=None):
 
 
 def test_greedy_interrupt_resume_is_bitwise_identical(tree):
-    """A greedy stream aborted after its 5th token: the salvaged prefix is
-    bitwise the uninterrupted run's (nothing before the cut is decoded
-    again), and resumed on another engine (prompt + partial, budget
+    """A greedy stream aborted with its first 5 tokens in flight: the
+    salvaged prefix is bitwise the uninterrupted run's (nothing before the
+    cut is decoded again), and resumed on another engine (prompt + partial, budget
     decremented) and on the same one (through the salvage-published
     pages) the stitched stream is the uninterrupted one. The uninterrupted
     run's tokens equal the JAX engine's, logprobs within 5e-4."""
@@ -100,22 +100,21 @@ def test_greedy_interrupt_resume_is_bitwise_identical(tree):
     np.testing.assert_allclose(ref["logprobs"], jref["logprobs"], rtol=0,
                                atol=LP_TOL)
 
-    eng1 = _engine(tree).start()
+    # the abort comes with the run-ahead window known to be full: the
+    # prefill's token and 2 decode dispatches' (5 tokens) await emission
+    # on an unstarted engine, so salvage has tokens to deliver whatever
+    # the machine's load
+    eng1 = _engine(tree, pipeline_depth=16)
     ev = threading.Event()
-    out = eng1.submit("r1", PROMPT, sp, abort=ev)
-    got_t, got_l = [], []
-    while len(got_t) < 5:
-        item = out.get(timeout=180)
-        got_t += item["token_ids"]
-        got_l += item["logprobs"]
+    out = _drive(eng1, PROMPT, 2, max_new=budget, abort=ev)
     ev.set()
-    tail_t, tail_l, reason = _drain(out)
-    got_t += tail_t
-    got_l += tail_l
+    with eng1._pool_lock:
+        eng1._step_once()
+    got_t, got_l, reason = _drain(out, timeout=5)
     k = len(got_t)
-    assert reason == "abort" and 0 < k < budget
+    assert reason == "abort" and k == 1 + 2 * eng1.steps_per_dispatch
     # tokens the fast path would have dropped: those the drain delivered
-    assert 0 < eng1.tokens_salvaged <= len(tail_t)
+    assert 0 < eng1.tokens_salvaged <= k
     assert got_t == ref["token_ids"][:k]
     np.testing.assert_array_equal(np.asarray(got_l, np.float32),
                                   np.asarray(ref["logprobs"][:k], np.float32))
@@ -129,6 +128,7 @@ def test_greedy_interrupt_resume_is_bitwise_identical(tree):
                                rtol=0, atol=LP_TOL)
 
     assert eng1.salvage_published_pages > 0
+    eng1.start()
     hits = eng1.prefix_cache.hits
     res1 = eng1.generate([PROMPT + got_t], sp2, timeout=300.0)[0]
     assert eng1.prefix_cache.hits >= hits + eng1.salvage_published_pages

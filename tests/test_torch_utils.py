@@ -167,7 +167,7 @@ def test_config_overrides_and_validation():
     with pytest.raises(ValueError):
         tconfig.load_config(None, ["trainer.rollout_n=3"])
     with pytest.raises(KeyError):
-        tconfig._build(tconfig.RunConfig, {"parallel": {}})
+        tconfig._build(tconfig.RunConfig, {"mesh": {}})
     built = tconfig._build(tconfig.RunConfig, {"trainer": {"total_steps": 5},
                                                "rollout": {"prompt_buckets": [32]}})
     assert built.trainer.total_steps == 5 and built.rollout.prompt_buckets == (32,)
