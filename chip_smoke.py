@@ -244,9 +244,10 @@ when CUDA is unavailable or any phase fails. Phases:
               run each, in one call): the same tokens up to the first near-tie, logprobs
               within 0.15 nats of the dense f32 forward, tok/s of each; a
               ``backend="step"`` server streams what its engine's
-              ``generate`` gives; 2 GRPO steps through ``build_trainer``
+              ``generate`` gives; one GRPO step through ``build_trainer``
               with ``rollout.backend=step`` at the train phase's
-              configuration (finite losses, grad norms > 0, K4 launched).
+              configuration (finite losses, grad norm > 0, K4 launched,
+              the step engine's weights pushed).
 12. disagg -- the disaggregated rollout: the port's C++ manager (its copy
               of the sources, built by ``g++`` into the git-ignored build
               directory) spawned supervised; ``build_trainer`` with
@@ -377,8 +378,10 @@ when CUDA is unavailable or any phase fails. Phases:
               the phase). Each logs which collectives gloo takes on CUDA
               tensors as they are (the port stages them through the host).
               A: ``build_trainer`` on the train phase's configuration with
-              ``parallel.fsdp=2`` (2 GRPO steps, rank 0's colocated
-              engine): after each step a digest of the gathered weights,
+              ``parallel.fsdp=2`` (one GRPO step, rank 0's colocated
+              engine; each layer's shard gathered inside its layer body,
+              each rank's peak below the whole-tree route's A_PEAK_GB):
+              after the step a digest of the gathered weights,
               equal on both ranks; step 1's old logprobs within
               LOGP_AGREE_TOL of the engine's; step 1's gate micro's
               gradient on the mesh against one rank's on the whole micro,
@@ -388,14 +391,36 @@ when CUDA is unavailable or any phase fails. Phases:
               first pack's logprobs under SP within LOGP_AGREE_TOL of the
               one-device forward, K4 run with segment ids on both ranks.
               Ring attention over the 2 ranks at B 1, T 4096 against K4
-              alone, forward and backward, under K4's bounds. Logs the
-              step walls by phase ("two ranks sharing one card"), each
-              rank's peak, its parameter and AdamW bytes. Its launches stay
-              out of the ``kernels`` line.
-18. result -- the card's name and power limit, a ``{"kernels": [...]}``
+              alone, forward and backward, under K4's bounds. C:
+              ``parallel.tp=2`` (each rank its tensor-parallel shard), one
+              GRPO step: A's gates (old logprobs, the gradient against one
+              rank's on the gathered weights, K4 on both ranks, the digest
+              equal). Logs the step walls by phase ("two ranks sharing one
+              card"), each rank's peak, its parameter and AdamW bytes. Its
+              launches stay out of the ``kernels`` line.
+18. tp     -- (run right after serve) ``create_server(tp=2)``, ``serve
+              --tp 2``'s engine: ``qwen3-1.7b`` at full width and depth,
+              bf16, seed 0, two shards of 8 q / 4 kv heads on the one card,
+              each with its own pools: the serve phase's 18-stream mix
+              over HTTP graph-replayed, then one greedy request alone,
+              counts zeroed just before and read just after (the fused
+              prologue, K2 and K3 each a multiple of 2 shards x 28
+              layers); its greedy streams against a one-shard engine on
+              the same weights, tokens equal until the first f32 near-tie
+              and logprobs within TP_LOGP_TOL before it; at 2 layers in
+              f32 the same within MOE_F32_TOL; the decode step at the
+              serving tables by replay on 2 shards and on 1 (device and
+              wall ms, kernels, launches; from the same K/V, the 2-shard
+              step's log-softmax no further than TP_STEP_RATIO times the
+              one-shard step's from the same step in f32); one push of the whole tree through the
+              fabric into the server's receiver (``transfer_shard_tp`` 2),
+              every shard's installed blocks bitwise the sender's slices.
+              The hybrid phase also fails when its short window's stream
+              takes over HYBRID_WINDOW_MAX_S.
+19. result -- the card's name and power limit, a ``{"kernels": [...]}``
               line (the launches of each kernel's paths: serve or the A/B,
-              memory, train, disagg, hybrid, lora_delta, autoscale and
-              moe), and last ``{"ok": true, "device": {...}}``.
+              memory, train, disagg, hybrid, lora_delta, autoscale, moe
+              and tp), and last ``{"ok": true, "device": {...}}``.
 
 The train, disagg, hybrid, lora_delta and autoscale phases also gate the
 observability planes: every record's ``goodput/*`` (``attributed_frac``
@@ -4441,7 +4466,7 @@ def step_phase(dev) -> dict:
     the same call): the same tokens up to the first near-tie, logprobs within
     ``DENSE_LOGP_TOL`` of the dense f32 forward, tok/s of each. A server
     with ``backend="step"`` streams the tokens its engine's ``generate``
-    gives. Then 2 GRPO steps through ``build_trainer`` with
+    gives. Then one GRPO step through ``build_trainer`` with
     ``rollout.backend=step`` at the train phase's configuration."""
     from polyrl_tpu_torch.config import load_config
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
@@ -4517,8 +4542,9 @@ def step_phase(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    tcfg = load_config(None, TRAIN_OVERRIDES + ["rollout.backend=step",
-                                                f"rollout.batch_buckets={STEP_STREAMS}"])
+    tcfg = load_config(None, TRAIN_OVERRIDES + [
+        "rollout.backend=step", f"rollout.batch_buckets={STEP_STREAMS}",
+        "trainer.total_steps=1"])
     cleanup: list = []
     torch.cuda.reset_peak_memory_stats(dev)
     trainer = build_trainer(tcfg, cleanup, compute_score=byte_length_score)
@@ -4531,20 +4557,21 @@ def step_phase(dev) -> dict:
     finally:
         for fn in cleanup:
             fn()
-    check(len(history) == 2, "the step-backend fit did not run 2 steps")
-    for i, rec in enumerate(history, 1):
-        for key in ("actor/pg_loss", "actor/kl_loss", "actor/grad_norm"):
-            check(key in rec and np.isfinite(rec[key]),
-                  f"step fit {i}: {key} missing or not finite")
-        check(rec["actor/grad_norm"] > 0, f"step fit {i}: zero gradient")
+    check(len(history) == 1, "the step-backend fit did not run its step")
+    rec = history[0]
+    for key in ("actor/pg_loss", "actor/kl_loss", "actor/grad_norm"):
+        check(key in rec and np.isfinite(rec[key]),
+              f"step fit: {key} missing or not finite")
+    check(rec["actor/grad_norm"] > 0, "step fit: zero gradient")
     for name in STEP_KERNELS:
         check(launches[name] > 0, f"{name} was not launched in the step fit")
-    check(trainer.rollout.weight_version == 3, "step fit: weight_version != 3")
+    # one push at the build and one after the step
+    check(trainer.rollout.weight_version == 2, "step fit: weight_version != 2")
     n_tok = STEP_STREAMS * STEP_NEW
     return dict(tok_s={k: [n_tok / w for w in v] for k, v in walls.items()},
                 worst=worst, ties=ties, launches=launches,
-                step_walls=[rec["perf/step_time_s"] for rec in history],
-                gen_walls=[rec.get("timing_s/gen", float("nan")) for rec in history],
+                step_walls=[rec["perf/step_time_s"]],
+                gen_walls=[rec.get("timing_s/gen", float("nan"))],
                 peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
 
 
@@ -5668,6 +5695,9 @@ def memory_lines(m: dict, smi: str) -> list[str]:
 HYBRID_GREEDY = 64
 HYBRID_WINDOW_S = 0.05    # the abort stream's local-generation window
 HYBRID_ABORT_NEW = 128    # its tokens a request
+# the window's stream takes a few seconds (PERF.md); a request that stalls on
+# the released local engine waits out the manager client's 600 s timeout
+HYBRID_WINDOW_MAX_S = 60.0
 
 
 def hybrid_phase(dev, trained: dict, disagg: dict) -> dict:
@@ -5730,10 +5760,10 @@ def hybrid_phase(dev, trained: dict, disagg: dict) -> dict:
         releases: list[dict] = []
         release = eng.release_memory
 
-        def timed_release():
+        def timed_release(**kw):
             had = eng._pools is not None
             before = torch.cuda.memory_allocated(dev)
-            release()
+            release(**kw)
             releases.append(dict(
                 freed=had and eng._pools is None,
                 drop_gb=(before - torch.cuda.memory_allocated(dev)) / 1e9,
@@ -5818,6 +5848,10 @@ def hybrid_phase(dev, trained: dict, disagg: dict) -> dict:
               f"hybrid: the short window's stream: {abort_local} tokens local, "
               f"{abort_server} on the server (both must serve)")
         window_s = time.monotonic() - t_win
+        check(window_s <= HYBRID_WINDOW_MAX_S,
+              f"hybrid: the {HYBRID_WINDOW_S} s window's stream took "
+              f"{window_s:.1f} s (limit {HYBRID_WINDOW_MAX_S}): a request "
+              "stalled on the released local engine")
         # the window's timer releases the KV on its own thread, once the
         # aborted requests have drained: wait for it (bounded)
         t4 = time.monotonic()
@@ -7303,6 +7337,357 @@ def moe_lines(m: dict, smi: str) -> list[str]:
     return lines
 
 
+# -- tp: one process's tensor-parallel shards serving ----------------------------
+
+TP = 2
+TP_PAGES = 512            # 3.76 GB of KV over both shards (the phase's own)
+TP_F32_LAYERS = 2
+TP_F32_NEW = 32
+# the served tp=2 engine's greedy logprobs against the tp=1 engine's on
+# the same bf16 weights, in nats, over the tokens before the first
+# mismatch: the shards' row-parallel partials add in f32 and round once,
+# so the two differ by the order of f32 sums and by K2/K3's page chunks
+# (chosen from Hkv, which halves), each a bf16 ulp here and there through
+# 28 layers; the serve gate's limit
+TP_LOGP_TOL = DENSE_LOGP_TOL
+# the decode step on 2 shards and on 1 from the same pools and inputs, each
+# against the same step in f32 (f32 weights and pools, one shard): max
+# |log-softmax diff| over the live slots' vocabulary. Both bf16 steps sit
+# away from f32 by their roundings through 28 layers; the shards add the
+# one-ulp sources above, so 2 shards may sit at most this many times as
+# far as 1 (a lost partial or a wrong head split lands whole nats away)
+TP_STEP_RATIO = 1.5
+
+
+def tp_step_pools(cfg, dev, n_pages: int, tp: int, seed: int = 4):
+    """Random bf16 pools for the decode step at the serving tables: one
+    shard's ``(k, v)`` lists, and the same K/V cut into ``tp`` shards of
+    ``Hkv/tp`` heads (each pool its own allocation)."""
+    pools = decoder.make_paged_pools(cfg, n_pages, PS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for p_ in pools[0] + pools[1]:
+        p_.normal_(generator=gen)
+    shards = [([p_.chunk(tp, 0)[s_].clone() for p_ in pools[0]],
+               [p_.chunk(tp, 0)[s_].clone() for p_ in pools[1]])
+              for s_ in range(tp)]
+    return pools, shards
+
+
+def tp_decode_step(dev, params, cfg) -> dict:
+    """The decode step at the serving tables (64 slots, 18 live) on one
+    shard and on TP shards of the same weights and K/V: one eager step of
+    each from the same inputs (log-softmax gap over the live slots), then
+    each captured in a CUDA graph and replayed: the replay bitwise the
+    eager step, AB_STEPS replays' walls and launches, PROF_STEPS traced
+    for device ms and kernels per step."""
+    table, lens, _ = serving_tables(dev)
+    active = lens > 0
+    one, shard_pools = tp_step_pools(cfg, dev, int(table.max()) + 1, TP)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(1, cfg.vocab_size, (S,), generator=gen, device=dev)
+    # the f32 anchor: one shard, f32 weights and a f32 copy of the pools
+    params32 = f32_copy(params)
+    pools32 = ([p_.float() for p_ in one[0]], [p_.float() for p_ in one[1]])
+    lsm32 = torch.log_softmax(decoder.forward_paged_decode(
+        params32, cfg, tokens, lens, pools32, table, lens,
+        active=active)[0][active].float(), dim=-1)
+    del params32, pools32
+    shards = decoder.shard_tp(params, TP, [dev] * TP)
+    runs = {1: (params, one), TP: (shards, shard_pools)}
+    out = {}
+    lsm = {}
+    for tp, (w, pools) in runs.items():
+        def step(w=w, pools=pools):
+            return decoder.forward_paged_decode(w, cfg, tokens, lens, pools,
+                                                table, lens, active=active)[0]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager = step().clone()
+        torch.cuda.current_stream().wait_stream(side)
+        lsm[tp] = torch.log_softmax(eager[active].float(), dim=-1)
+        graph = torch.cuda.CUDAGraph()
+        with cuda_build.recording_launches() as rec:
+            with torch.cuda.graph(graph, stream=side):
+                glog = step()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(glog[active], eager[active]),
+              f"tp: a replay of the {tp}-shard decode step differs from its "
+              f"eager step")
+
+        def replay(graph=graph, rec=rec):
+            graph.replay()
+            cuda_build.credit_launches(rec)
+
+        cuda_build.reset_launch_counts()
+        walls = []
+        for _ in range(AB_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            replay()
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+        launches = {k_: n // AB_STEPS for k_, n in cuda_build.LAUNCHES.items() if n}
+        prof = device_profile(replay, PROF_STEPS)
+        out[tp] = dict(wall_ms=statistics.median(walls), launches=launches,
+                       **prof)
+        del graph
+    gap = (lsm[1] - lsm[TP]).abs().max().item()
+    agree = (lsm[1].argmax(-1) == lsm[TP].argmax(-1)).float().mean().item()
+    off32 = {t_: (v - lsm32).abs().max().item() for t_, v in lsm.items()}
+    log(f"tp: decode step {TP} shards vs 1: log-softmax gap {gap:.4f} nats, "
+        f"argmax agreement {agree:.3f}; against f32 {off32}; " + json.dumps(
+            {t_: {k_: v for k_, v in o.items() if k_ != "launches"}
+             for t_, o in out.items()}))
+    check(off32[TP] <= TP_STEP_RATIO * off32[1],
+          f"tp: the {TP}-shard decode step sits {off32[TP]:.4f} nats from f32, "
+          f"one shard's {off32[1]:.4f} (limit {TP_STEP_RATIO} x)")
+    n_l = cfg.num_layers
+    for name in ("paged_kv_write_fused", "paged_attention"):
+        check(out[TP]["launches"].get(name) == TP * n_l
+              and out[1]["launches"].get(name) == n_l,
+              f"tp: {name} launches a step {out[TP]['launches'].get(name)} on "
+              f"{TP} shards, {out[1]['launches'].get(name)} on one "
+              f"(want {TP * n_l} and {n_l})")
+    return dict(by_tp=out, gap=gap, agree=agree, off32=off32)
+
+
+def tp_greedy(eng, prompts: list, n: int) -> list[dict]:
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    return eng.generate(prompts, SamplingParams(temperature=0.0,
+                                                max_new_tokens=n,
+                                                stop_token_ids=()))
+
+
+def tp_f32_parity(dev, prompts: list) -> dict:
+    """At TP_F32_LAYERS layers in f32 (the engines' own f32 pools), greedy
+    TP_F32_NEW tokens on TP shards against one shard: tokens equal until
+    the first near-tie, logprobs within MOE_F32_TOL."""
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+
+    cfg = decoder.get_config(MODEL, dtype=torch.float32,
+                             num_layers=TP_F32_LAYERS)
+    params = decoder.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    kw = dict(max_slots=8, page_size=PS, max_seq_len=1024, num_pages=64,
+              prompt_buckets=(256,), kv_cache_dtype=torch.float32, device=dev,
+              spec_tokens=0)
+    res = {}
+    for tp in (1, TP):
+        eng = CBEngine(cfg, params, tp=tp, **kw)
+        try:
+            res[tp] = tp_greedy(eng, prompts, TP_F32_NEW)
+        finally:
+            eng.stop()
+    worst, firsts = 0.0, []
+    for p_, a, b in zip(prompts, res[1], res[TP]):
+        gaps = top2_gaps(params, cfg, p_, a["token_ids"], dev)
+        ok, first, tie, _ = agrees_until_tie(b["token_ids"], a["token_ids"], gaps)
+        check(ok, f"tp f32: {TP} shards part from one at token {first} "
+              f"(first near-tie {tie})")
+        n = first
+        if n:
+            worst = max(worst, float(np.abs(np.array(a["logprobs"][:n])
+                                            - np.array(b["logprobs"][:n])).max()))
+        firsts.append((first, tie))
+    check(worst <= MOE_F32_TOL, f"tp f32: logprobs {worst:.2e} from one "
+          f"shard's (limit {MOE_F32_TOL})")
+    return dict(worst=worst, firsts=firsts)
+
+
+def tp_push(dev, server, params) -> dict:
+    """One push through the sharded fabric: a replicated sender (the
+    trainer's whole tree, each leaf negated: exact in bf16) into the tp
+    server's receiver, which advertises TP shards; every installed shard
+    bitwise the sender's slice."""
+    from polyrl_tpu_torch.models.quant import named_leaves
+    from polyrl_tpu_torch.rollout.serve import attach_receiver
+    from polyrl_tpu_torch.transfer.interface import TransferInterface
+    from polyrl_tpu_torch.transfer.layout import build_resharding_map
+
+    pushed = {k_: ({kk: -vv for kk, vv in v.items()} if isinstance(v, dict)
+                   else -v) for k_, v in params.items()}
+    iface = TransferInterface(pushed, manager_client=None, num_streams=4,
+                              poll_s=0.05, advertise_host="127.0.0.1")
+    try:
+        check(attach_receiver(server, iface.sender.endpoint, transfer_streams=4),
+              "tp: the server had a receiver already")
+        t0 = time.monotonic()
+        while not iface.sync_health():
+            check(time.monotonic() - t0 < 60, "tp: the receiver never registered")
+            time.sleep(0.05)
+        t0 = time.monotonic()
+        v = iface.update_weights_async(pushed)
+        iface.wait_pushed(timeout=120.0)
+        queued_s = time.monotonic() - t0
+        ok, msg = server.update_weights_from_agent(v)
+        check(ok, f"tp: the push did not install: {msg}")
+        landed_s = time.monotonic() - t0 - queued_s
+        info = server.server_info()
+        check(info.get("transfer_shard_tp") == TP,
+              f"tp: transfer_shard_tp {info.get('transfer_shard_tp')}")
+        spec = server.receiver.shard_spec
+        whole = dict(named_leaves(pushed))
+        n_split = 0
+        for s_, shard in enumerate(server.engine.params):
+            for name, t in named_leaves(shard):
+                d = spec.axis_of(name)
+                want = whole[name] if d is None else whole[name].chunk(TP, d)[s_]
+                n_split += d is not None
+                check(torch.equal(t, want), f"tp: shard {s_}'s {name} is not "
+                      "the sender's slice")
+        rmap = build_resharding_map(iface.layout, iface.trainer_spec, spec)
+        return dict(version=v, queued_s=queued_s, landed_s=landed_s,
+                    bytes=iface.layout.total_bytes,
+                    reshard_bytes=rmap.reshard_bytes(), split_leaves=n_split)
+    finally:
+        iface.close()
+
+
+def tp_phase(dev) -> dict:
+    """``serve --tp 2``'s engine (``create_server(tp=2)``) at full width and
+    depth, both shards on the one card: the serve phase's 18-stream mix
+    over HTTP as the main path (counts zeroed just before it and read just
+    after: the fused prologue, K2 and K3 on both shards, graph replays),
+    its greedy streams against a one-shard engine on the same weights; at
+    2 layers in f32 the same against MOE_F32_TOL; the decode step by
+    replay on 2 shards and on 1; one push through the sharded fabric."""
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+    from polyrl_tpu_torch.rollout.serve import create_server
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats(dev)
+    server = create_server(MODEL, device=str(dev), host="127.0.0.1", port=0,
+                           max_slots=S, page_size=PS, max_seq_len=4096,
+                           num_pages=TP_PAGES, steps_per_dispatch=8, seed=0,
+                           tp=TP)
+    try:
+        eng = server.engine
+        cfg = eng.cfg
+        up_gb = torch.cuda.memory_allocated(dev) / 1e9
+        k_ptrs = {sp[0][0].data_ptr() for sp in eng._pools}
+        check(eng.tp == TP and len(eng.params) == TP and len(k_ptrs) == TP
+              and all(sp[0][0].shape[0] == cfg.num_kv_heads // TP
+                      for sp in eng._pools),
+              "tp: the engine does not hold its shards' own pools")
+        port = server.port
+        bodies, greedy_prompts, warm = serving_mix(cfg.vocab_size)
+        run_requests(port, [{"rid": "warmup", "input_ids": warm,
+                             "sampling_params": {"temperature": 0.0,
+                                                 "max_new_tokens": 16}}])
+        post(port, "/flush_cache", {})
+        info0 = post(port, "/get_server_info", None)
+        replays0 = eng.graph_replays
+        cuda_build.reset_launch_counts()
+        t0 = time.monotonic()
+        outs = run_requests(port, bodies)
+        wall = time.monotonic() - t0
+        info = post(port, "/get_server_info", None)
+        # then one greedy request alone, as the serve phase's main path
+        # ends: the mix alone may never dispatch without a live group (K2)
+        run_requests(port, [{"rid": "alone", "input_ids": greedy_prompts[0],
+                             "sampling_params": {"temperature": 0.0,
+                                                 "max_new_tokens": 64}}])
+        launches = dict(cuda_build.LAUNCHES)
+        replays = eng.graph_replays - replays0
+        n_l = cfg.num_layers
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0 and launches[name] % (TP * n_l) == 0,
+                  f"tp: {name} launched {launches[name]} times on the main "
+                  f"path (want a positive multiple of {TP} shards x {n_l} "
+                  f"layers)")
+        check(launches["paged_kv_write"] == 0, "tp: the unfused K/V write ran")
+        check(replays > 0, "tp: no decode dispatch replayed a graph")
+        for o in outs:
+            check(all(np.isfinite(o["logprobs"])) and max(o["logprobs"]) <= 0
+                  and all(0 <= t < cfg.vocab_size for t in o["tokens"]),
+                  "tp: a non-finite logprob or a token outside the vocabulary")
+        tok_s = mix_tok_s(outs)
+        delta = {k: info[k] - info0[k] for k in (
+            "decode_dispatches", "grouped_decode_dispatches",
+            "sibling_attach_dispatches")}
+        greedy = [o for b, o in zip(bodies, outs) if b["rid"].startswith("greedy")]
+        log(f"tp: the mix {tok_s:.1f} tok/s, {replays} replays, launches "
+            + json.dumps({k_: launches[k_] for k_ in SERVE_KERNELS}))
+
+        # the same weights on one shard (create_server's seed), greedy alone
+        params = decoder.init_params(
+            torch.Generator(device=dev).manual_seed(0),
+            decoder.get_config(MODEL, dtype=torch.bfloat16))
+        one = CBEngine(cfg, params, max_slots=S, page_size=PS, max_seq_len=4096,
+                       num_pages=TP_PAGES, prompt_buckets=(256,), device=dev,
+                       copy_params=False)
+        with launches_apart({}):
+            try:
+                ref = tp_greedy(one, greedy_prompts, 128)
+            finally:
+                one.stop()
+            del one
+            params32 = f32_copy(params)
+            gate = []
+            for p_, r_, o in zip(greedy_prompts, ref, greedy):
+                gaps = top2_gaps(params32, cfg, p_, r_["token_ids"], dev)
+                ok, first, tie, gap = agrees_until_tie(o["tokens"], r_["token_ids"], gaps)
+                err = (float(np.abs(np.array(o["logprobs"][:first])
+                                    - np.array(r_["logprobs"][:first])).max())
+                       if first else 0.0)
+                gate.append(dict(ok=ok, first=first, tie=tie, gap=gap, err=err))
+                check(ok, f"tp: {TP} shards part from one at token {first} "
+                      f"(first near-tie {tie}, f32 gap {gap:.4f})")
+                check(err <= TP_LOGP_TOL, f"tp: greedy logprobs {err:.4f} nats "
+                      f"from one shard's (limit {TP_LOGP_TOL})")
+            del params32
+            log(f"tp: greedy vs one shard {gate}")
+            f32 = tp_f32_parity(dev, [p_[:200] for p_ in greedy_prompts])
+            log(f"tp: f32 at {TP_F32_LAYERS} layers {f32}")
+            step = tp_decode_step(dev, params, cfg)
+            push = tp_push(dev, server, params)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        return dict(launches=launches, tok_s=tok_s, wall=wall, delta=delta,
+                    replays=replays, gate=gate, f32=f32, step=step, push=push,
+                    up_gb=up_gb, peak_gb=peak_gb,
+                    seconds=time.monotonic() - t_phase)
+    finally:
+        server.stop()
+
+
+def tp_lines(t: dict, smi: str) -> list[str]:
+    tag = f"{smi}, this run"
+    st = t["step"]["by_tp"]
+    return [
+        f"tp (serve --tp {TP}, {MODEL} full width and depth, bf16, both shards "
+        f"on the one card; {tag}): the 18-stream mix {t['tok_s']:.1f} tok/s "
+        f"in {t['wall']:.2f} s, {t['replays']} graph replays, "
+        f"{json.dumps(t['delta'])}; main-path launches "
+        + json.dumps({k_: t["launches"][k_] for k_ in SERVE_KERNELS})
+        + f"; {t['up_gb']:.2f} GB after the build, peak {t['peak_gb']:.2f} GB",
+        f"tp greedy vs one shard on the same weights (first mismatch, first "
+        f"f32 near-tie, max |logprob diff| before it; limit {TP_LOGP_TOL}): "
+        + "; ".join(f"({g['first']}, {g['tie']}, {g['err']:.4f})" for g in t["gate"])
+        + f"; at {TP_F32_LAYERS} layers in f32: max {t['f32']['worst']:.2e} "
+        f"(limit {MOE_F32_TOL}), (first mismatch, first near-tie) "
+        f"{t['f32']['firsts']}",
+        f"tp decode step by replay at the serving tables ({tag}): {TP} shards "
+        f"device ms {st[TP]['device_ms']:.3f}, kernels {st[TP]['kernels']:.1f}, "
+        f"wall ms median {st[TP]['wall_ms']:.2f}, launches "
+        + json.dumps(st[TP]["launches"]) + f"; one shard device ms "
+        f"{st[1]['device_ms']:.3f}, kernels {st[1]['kernels']:.1f}, wall ms "
+        f"median {st[1]['wall_ms']:.2f}; log-softmax gap {t['step']['gap']:.4f} "
+        f"nats, argmax agreement {t['step']['agree']:.3f}; from the f32 step "
+        f"{t['step']['off32'][TP]:.4f} / {t['step']['off32'][1]:.4f} nats on "
+        f"{TP} shards / 1 (limit {TP_STEP_RATIO} x)",
+        f"tp push through the sharded fabric ({tag}): v{t['push']['version']}, "
+        f"{t['push']['bytes'] / 1e9:.2f} GB, queued in {t['push']['queued_s']:.2f} s, "
+        f"on the wire and installed {t['push']['landed_s']:.2f} s later; "
+        f"{t['push']['split_leaves']} "
+        f"split leaves over both shards bitwise the sender's slices; the "
+        f"resharding map routes {t['push']['reshard_bytes'] / 1e9:.2f} GB by "
+        f"shard pair",
+        f"phase tp ({tag}): {t['seconds']:.1f} s wall",
+    ]
+
+
 # -- parallel: the multi-process trainer on one card (PR 15) --------------------
 
 # the two ranks share cuda:0, so the world's backend is gloo (NCCL refuses
@@ -7313,6 +7698,9 @@ PARALLEL_OVERRIDES = TRAIN_OVERRIDES + ["parallel.backend=gloo"]
 RING_T = 4096
 # the one-rank train phase this one is held to (PERF.md section 5)
 ONE_RANK_PEAK_GB = 30.53
+# A's peaks on the whole-tree route (rank 0 with the engine, rank 1), which
+# the per-layer gather must stay below (PERF.md section 5)
+A_PEAK_GB = (27.36, 20.09)
 
 
 def bit_checksum(tree) -> str:
@@ -7428,38 +7816,44 @@ def gloo_cuda_probe() -> dict:
 
 
 def mesh_grad_agreement(actor, micro) -> tuple[float, float]:
-    """The micro's gradient on the mesh (each rank its rows; the whole
-    leaves' gradients reduce-scattered and summed) against one rank's on
-    the whole micro through the one-device path, on the same gathered
-    weights: (cosine, norm ratio) over every shard, the same on both
-    ranks. The weights' gradients are cleared after, so the fit's own
+    """The micro's gradient on the mesh (each rank its rows and its tp
+    blocks; each layer's gradient reduce-scattered by its backward, the
+    rest at the step, all summed) against one rank's on the whole micro
+    through the one-device path, on the same gathered weights: (cosine,
+    norm ratio) over every leaf, both gathered whole on every rank (the
+    same on both). The gradients are cleared after, so the fit's own
     micros start clean."""
-    from polyrl_tpu_torch.parallel import mesh as meshlib
+    from polyrl_tpu_torch.models.quant import named_leaves
 
-    sharded, mesh = actor._fsdp, actor.mesh
-    full = sharded.full()
+    sharded = actor._fsdp
     with torch.enable_grad():
         loss, _ = actor._loss_fn(micro, 1.0)
         loss.backward()
-    g_mesh = sharded.shard_grads()
-    for f in full:
-        f.grad = None
-    actor.mesh = None
+    g_mesh = sharded.gather(sharded.shard_grads())
+    for _, p_ in actor._named:
+        p_.grad = None
+    sharded.release()
+    whole = actor.gather_params()
+    leaves = dict(named_leaves(whole))
+    for n in sharded.names:
+        leaves[n].requires_grad_(True)
+    keep = actor.params, actor._fsdp, actor.mesh
+    actor.params, actor._fsdp, actor.mesh = whole, None, None
     try:
         with torch.enable_grad():
             loss, _ = actor._loss_fn(micro, 1.0)
             loss.backward()
     finally:
-        actor.mesh = mesh
-    g_one = [meshlib.shard_tensor(mesh, f.grad) for f in full]
-    for f in full:
-        f.grad = None
-    acc = torch.zeros(3, dtype=torch.float32, device=micro["input_ids"].device)
-    for a, b in zip(g_mesh, g_one):
-        acc += torch.stack([torch.sum(a.float() * b.float()),
-                            torch.sum(a.float() ** 2), torch.sum(b.float() ** 2)])
-    meshlib.all_reduce(mesh, (meshlib.FSDP,), acc)
-    dot, na, nb = (float(x) for x in acc)
+        actor.params, actor._fsdp, actor.mesh = keep
+    dot = na = nb = 0.0
+    for n in sharded.names:
+        a, b = g_mesh.pop(0).reshape(-1).float(), leaves[n].grad.reshape(-1).float()
+        leaves[n].grad = None
+        dot += float(torch.dot(a, b))
+        na += float(torch.dot(a, a))
+        nb += float(torch.dot(b, b))
+        del a, b
+    del whole, leaves
     return dot / (na * nb) ** 0.5, (na / nb) ** 0.5
 
 
@@ -7477,14 +7871,16 @@ def _state_bytes(actor) -> dict:
                 opt_gb=n(actor.opt_state.mu + actor.opt_state.nu) / 1e9)
 
 
-def parallel_fsdp_fit(dev, rank: int) -> dict:
-    """A: ``build_trainer`` on the train phase's configuration at fsdp 2,
-    2 GRPO steps; the logprob and gradient gates on step 1, a digest of
+def parallel_fsdp_fit(dev, rank: int, axes: tuple = ("parallel.fsdp=2",)) -> dict:
+    """A: ``build_trainer`` on the train phase's configuration at fsdp 2
+    (each layer gathered in its layer body), one GRPO step; C the same at
+    tp 2 (``axes``). The logprob and gradient gates on step 1, a digest of
     the gathered weights after each step."""
     from polyrl_tpu_torch.config import load_config
     from polyrl_tpu_torch.train import build_trainer
 
-    cfg = load_config(None, PARALLEL_OVERRIDES + ["parallel.fsdp=2"])
+    cfg = load_config(None, PARALLEL_OVERRIDES + ["trainer.total_steps=1"]
+                      + list(axes))
     torch.cuda.reset_peak_memory_stats(dev)
     cleanup: list = []
     t0 = time.monotonic()
@@ -7495,6 +7891,7 @@ def parallel_fsdp_fit(dev, rank: int) -> dict:
         gate_launches: dict = {}
         step1: dict = {}
         digests: list[str] = []
+        fit_peak: list[int] = []
         process, finish = trainer._process_ibatch, trainer._finish_record
 
         def first_ibatch_gates(ibatch, metrics):
@@ -7508,8 +7905,12 @@ def parallel_fsdp_fit(dev, rank: int) -> dict:
                 "input_ids", "positions", "attention_mask", "responses",
                 "response_mask", "advantages", "old_log_probs",
                 "ref_log_probs", "rollout_log_probs")}
+            # the gate holds a whole copy of the weights and two whole
+            # gradients: its own peak is kept out of the fit's
+            fit_peak.append(torch.cuda.max_memory_allocated(dev))
             with launches_apart(gate_launches):
                 cos, ratio = mesh_grad_agreement(actor, gate_micro(feed, dev))
+            torch.cuda.reset_peak_memory_stats(dev)
             step1.update(gap_max=float(gap.max()), gap_mean=float(gap.mean()),
                          tokens=int(mask.sum()), grad_cos=cos, grad_ratio=ratio)
             return out
@@ -7536,7 +7937,7 @@ def parallel_fsdp_fit(dev, rank: int) -> dict:
                                and r_["actor/nonfinite_skips"] == 0
                                for r_ in history),
                     steps=len(history),
-                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    peak_gb=max(fit_peak + [torch.cuda.max_memory_allocated(dev)]) / 1e9,
                     reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9,
                     card_used_gb=(total - free) / 1e9, **_state_bytes(actor),
                     weight_version=getattr(trainer.rollout, "weight_version", None))
@@ -7703,6 +8104,12 @@ def parallel_worker(out_dir: str) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         res["ring"] = ring_check(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        res["C"] = parallel_fsdp_fit(dev, rank, ("parallel.tp=2",
+                                                 "parallel.fsdp=1"))
+        res["C"]["seconds"] = time.monotonic() - t0
     except BaseException:  # noqa: BLE001 — reported to the parent
         res["error"] = traceback.format_exc()
         print(res["error"], file=sys.stderr, flush=True)
@@ -7760,9 +8167,9 @@ def parallel_phase(dev) -> dict:
             res.append(json.load(f))
     shutil.rmtree(out_dir, ignore_errors=True)
     a0, a1 = res[0]["A"], res[1]["A"]
-    check(a0["steps"] == a1["steps"] == 2 and a0["finite"] and a1["finite"],
-          "parallel A: the fit did not run 2 finite steps on both ranks")
-    check(len(a0["digests"]) == 2 and a0["digests"] == a1["digests"],
+    check(a0["steps"] == a1["steps"] == 1 and a0["finite"] and a1["finite"],
+          "parallel A: the fit did not run a finite step on both ranks")
+    check(len(a0["digests"]) == 1 and a0["digests"] == a1["digests"],
           f"parallel A: the gathered weights differ between the ranks "
           f"({a0['digests']} / {a1['digests']})")
     for r, a in enumerate((a0, a1)):
@@ -7781,6 +8188,30 @@ def parallel_phase(dev) -> dict:
     # prefix page and K3 is off this path, as in the one-rank train phase)
     for name in TRAIN_KERNELS:
         check(a0["launches"][name] > 0, f"parallel A rank 0: {name} was not launched")
+    # the per-layer gather: no whole tree, no whole gradient on any rank
+    for r, (a, limit) in enumerate(((a0, A_PEAK_GB[0]), (a1, A_PEAK_GB[1]))):
+        check(a["peak_gb"] < limit,
+              f"parallel A rank {r}: peak {a['peak_gb']:.2f} GB, not below the "
+              f"whole-tree route's {limit} GB")
+    c0, c1 = res[0]["C"], res[1]["C"]
+    check(c0["steps"] == c1["steps"] == 1 and c0["finite"] and c1["finite"],
+          "parallel C: the tp fit did not run a finite step on both ranks")
+    check(c0["digests"] == c1["digests"],
+          f"parallel C: the gathered weights differ between the ranks "
+          f"({c0['digests']} / {c1['digests']})")
+    for r, c in enumerate((c0, c1)):
+        check(c["step1"]["gap_max"] <= LOGP_AGREE_TOL,
+              f"parallel C rank {r}: old logprobs {c['step1']['gap_max']:.4f} "
+              f"nats from the engine's (> {LOGP_AGREE_TOL})")
+        check(c["step1"]["grad_cos"] >= GRAD_COS_MIN_BF16,
+              f"parallel C rank {r}: the tp gradient's cosine against one "
+              f"rank's is {c['step1']['grad_cos']:.6f} (< {GRAD_COS_MIN_BF16})")
+        for name in ("flash_attention_fwd", "flash_attention_bwd"):
+            check(c["launches"][name] > 0,
+                  f"parallel C rank {r}: {name} was not launched")
+    for name in TRAIN_KERNELS:
+        check(c0["launches"][name] > 0,
+              f"parallel C rank 0: {name} was not launched")
     b0, b1 = res[0]["B"], res[1]["B"]
     for r, b in enumerate((b0, b1)):
         check(b["steps"] == 1, f"parallel B rank {r}: the fit did not run")
@@ -7802,6 +8233,7 @@ def parallel_phase(dev) -> dict:
 def parallel_lines(p: dict, smi: str) -> list[str]:
     r0, r1 = p["res"]
     a0, a1, b0, b1 = r0["A"], r1["A"], r0["B"], r1["B"]
+    c0, c1 = r0["C"], r1["C"]
     tag = f"two ranks sharing one card: {smi}, this run"
     walls = lambda a: "; ".join(  # noqa: E731
         f"step {i} {w['step']:.2f} s (" + ", ".join(
@@ -7825,8 +8257,9 @@ def parallel_lines(p: dict, smi: str) -> list[str]:
         f"parallel A launches: rank 0 " + json.dumps(a0["launches"]) + "; rank 1 "
         + json.dumps({k_: a1["launches"][k_] for k_ in k4})
         + "; the gates' own " + json.dumps(a0["gate_launches"]),
-        f"parallel A memory: peak allocated rank 0 {a0['peak_gb']:.2f} GB, rank 1 "
-        f"{a1['peak_gb']:.2f} GB (reserved {a0['reserved_gb']:.2f} / "
+        f"parallel A memory (per-layer gather): peak allocated rank 0 "
+        f"{a0['peak_gb']:.2f} GB, rank 1 {a1['peak_gb']:.2f} GB (whole-tree "
+        f"route: {A_PEAK_GB[0]} / {A_PEAK_GB[1]}; reserved {a0['reserved_gb']:.2f} / "
         f"{a1['reserved_gb']:.2f}); card used at the fit's end "
         f"{a0['card_used_gb']:.2f} GB; per rank params {a0['param_gb']:.3f} GB, "
         f"AdamW {a0['opt_gb']:.3f} GB (one rank: the train phase, peak "
@@ -7853,8 +8286,22 @@ def parallel_lines(p: dict, smi: str) -> list[str]:
         + f" (limits {FLASH_OUT_TOL}, {FLASH_GRAD_TOL}); ring fwd+bwd "
         f"{r0['ring']['ring_s'] * 1e3:.1f} ms wall (first call), K4 fwd+bwd "
         f"{r0['ring']['k4_fwd_bwd_ms']:.3f} ms",
+        f"parallel C (tp 2, {MODEL} full width and depth, bf16, 1 step; {tag}): "
+        f"build {c0['build_s']:.1f} / {c1['build_s']:.1f} s; fit "
+        f"{c0['fit_wall']:.1f} s; rank 0 {walls(c0)}; rank 1 {walls(c1)}",
+        f"parallel C gates: old logprobs vs the engine's max "
+        f"{c0['step1']['gap_max']:.4f} / {c1['step1']['gap_max']:.4f} nats "
+        f"(limit {LOGP_AGREE_TOL}); step 1's micro gradient, tp vs one rank: "
+        f"cosine {c0['step1']['grad_cos']:.6f} / {c1['step1']['grad_cos']:.6f}, "
+        f"norm ratio {c0['step1']['grad_ratio']:.5f} (limit >= "
+        f"{GRAD_COS_MIN_BF16}); digests {c0['digests']} on both ranks",
+        f"parallel C launches: rank 0 " + json.dumps(c0["launches"]) + "; rank 1 "
+        + json.dumps({k_: c1["launches"][k_] for k_ in k4})
+        + f"; peak allocated {c0['peak_gb']:.2f} / {c1['peak_gb']:.2f} GB "
+        f"(reserved {c0['reserved_gb']:.2f} / {c1['reserved_gb']:.2f}); per rank "
+        f"params {c0['param_gb']:.3f} GB, AdamW {c0['opt_gb']:.3f} GB",
         f"phase parallel ({tag}): {p['wall']:.1f} s wall (A {a0['seconds']:.1f} s, "
-        f"B {b0['seconds']:.1f} s)",
+        f"B {b0['seconds']:.1f} s, C {c0['seconds']:.1f} s)",
     ]
     return lines
 
@@ -7931,6 +8378,11 @@ def main() -> int:
         f"peak {served['peak_gb']:.2f} GB")
     gc.collect()
     torch.cuda.empty_cache()
+    tp = tp_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in tp_lines(tp, smi):
+        log(line)
     t0 = time.monotonic()
     memory = memory_phase(dev)
     for line in memory_lines(memory, smi):
@@ -8032,10 +8484,12 @@ def main() -> int:
                     trained["launches"] if r["name"].startswith("flash")
                     else served["launches"])
         # plus the memory phase's and the disagg, hybrid, lora_delta,
-        # autoscale and moe paths: the servers decode, the trainers run K4,
-        # and the hybrid's trainer process decodes too (its local engine)
+        # autoscale, moe and tp paths: the servers decode (the tp server on
+        # both shards), the trainers run K4, and the hybrid's trainer
+        # process decodes too (its local engine)
         name = r["name"]
-        extra = moe["launches"][name] + (0 if name == "paged_kv_write" else
+        extra = moe["launches"][name] + tp["launches"][name] + (
+            0 if name == "paged_kv_write" else
                  disagg["trainer_launches"][name]
                  + hybrid["trainer_launches"][name]
                  + delta["trainer_launches"][name]

@@ -281,10 +281,22 @@ def init_meta_params(cfg: ModelConfig) -> dict:
     return build(param_specs(cfg))
 
 
-def layer_params(params: dict, layer: int) -> dict:
+def layer_params(params: dict, layer: int):
     """Views of one layer's slices of the stacked ``[L, ...]`` leaves (a
-    wrapper slices each of its tensors)."""
-    return {k: v[layer] for k, v in params["layers"].items()}
+    wrapper slices each of its tensors). When ``params["layers"]`` is not a
+    dict but a per-layer source (``parallel/fsdp.py``'s sharded layers), a
+    handle whose ``gather()`` gives that dict: the layer body calls it
+    (``layer_weights``), so that a remat'd layer gathers again in its
+    backward."""
+    layers = params["layers"]
+    if not isinstance(layers, dict):
+        return layers.layer(layer)
+    return {k: v[layer] for k, v in layers.items()}
+
+
+def layer_weights(lp) -> dict:
+    """``lp`` of ``layer_params``, its weights gathered if it is a handle."""
+    return lp if isinstance(lp, dict) else lp.gather()
 
 
 # -- building blocks --------------------------------------------------------
@@ -414,8 +426,14 @@ def _mlp_block(cfg: ModelConfig, h: torch.Tensor, lp: dict,
         shape = h.shape
         v = valid.reshape(-1) if valid is not None else None
         return _moe_mlp(cfg, h.reshape(-1, shape[-1]), lp, v).reshape(shape)
+    return mm(_swiglu(h, lp), lp["w_down"])
+
+
+def _swiglu(h: torch.Tensor, lp: dict) -> torch.Tensor:
+    """The dense MLP up to ``w_down``: SiLU of the gate in f32, cast back
+    before the gate product."""
     gate = torch.nn.functional.silu(mm(h, lp["w_gate"]).float()).to(h.dtype)
-    return mm(gate * mm(h, lp["w_up"]), lp["w_down"])
+    return gate * mm(h, lp["w_up"])
 
 
 class _UnembedF32(torch.autograd.Function):
@@ -483,9 +501,14 @@ def head_weight(params: dict, cfg: ModelConfig):
 def _qkv_proj(cfg: ModelConfig, x: torch.Tensor, lp: dict):
     """Projection half of ``_qkv``: norm, projections (+bias), split into
     heads. x [B, T, d] -> q [B, T, Hq, D], k/v [B, T, Hkv, D]."""
-    b, t, _ = x.shape
+    return _heads_proj(cfg, rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps), lp)
+
+
+def _heads_proj(cfg: ModelConfig, h: torch.Tensor, lp: dict):
+    """``_qkv_proj`` after the norm: h [B, T, d] -> q, k, v by heads (a tp
+    shard's config gives its own head counts)."""
+    b, t, _ = h.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
     q, k, v = mm(h, lp["wq"]), mm(h, lp["wk"]), mm(h, lp["wv"])
     if cfg.attention_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
@@ -520,6 +543,23 @@ def _post_attn(cfg: ModelConfig, x: torch.Tensor, attn_out: torch.Tensor,
     return x + _mlp_block(cfg, h, lp, valid)
 
 
+def _tp_layer(cfg: ModelConfig, tp, x, lp, cos, sin, attn_fn, attn_mask,
+              valid):
+    """One layer on a tp shard (``cfg`` its local config): the Megatron
+    layout of ``_qkv`` + ``_post_attn``, the replicated weights that read
+    this rank's heads or partial sums through ``tp.shared`` (their
+    gradients summed over tp)."""
+    eps = cfg.rms_norm_eps
+    lp = tp.shared(lp)
+    h = tp.copy(rms_norm(x, lp["attn_norm"], eps))
+    q, k, v = _heads_proj(cfg, h, lp)
+    q, k = _qk_norm_rope(cfg, q, k, lp, cos, sin)
+    a = attn_fn(q, k, v, attn_mask)
+    x = x + tp.reduce(mm(a.reshape(*a.shape[:-2], -1), lp["wo"]))
+    h = tp.copy(rms_norm(x, lp["mlp_norm"], eps))
+    return x + tp.reduce(_mlp_block(cfg, h, lp, valid))
+
+
 # -- forward ----------------------------------------------------------------
 
 
@@ -537,7 +577,7 @@ def forward_hidden(params: dict, cfg: ModelConfig,
                    positions: torch.Tensor,   # [B, T] absolute positions
                    attn_mask: torch.Tensor,   # [B, T] 1 = valid
                    remat: bool = False,
-                   attn_fn=None) -> torch.Tensor:
+                   attn_fn=None, tp=None) -> torch.Tensor:
     """Full-sequence forward up to the final RMSNorm: [B, T, d] hidden
     states, differentiable. ``attn_fn(q, k, v, attn_mask)`` is the layer
     attention, by default ``flash.auto_train_attention()`` (K4 on the
@@ -546,13 +586,31 @@ def forward_hidden(params: dict, cfg: ModelConfig,
     (``checkpoint(..., use_reentrant=False)``, the JAX ``jax.checkpoint``
     of the scan body); it applies only while autograd records. Tokens
     with ``attn_mask`` 0 (padding, a packed row's tail) take no expert
-    capacity (MoE)."""
+    capacity (MoE).
+
+    The layer body gathers its weights (``layer_weights``): under an fsdp
+    mesh's per-layer source that is one layer's all-gather, inside the
+    ``checkpoint`` so that the backward gathers again and no layer's
+    gathered weights outlive it. ``tp`` (``parallel/tensor.TensorParallel``)
+    runs this rank's tensor-parallel shard: its params are the tp blocks
+    (``tensor.tp_dim``), the embedding is vocab-parallel, each layer's
+    column-parallel products take ``tp.copy`` of their input and its
+    row-parallel ``wo``/``w_down`` partials are summed by ``tp.reduce``,
+    and ``attn_fn`` sees this rank's ``Hq/tp`` and ``Hkv/tp`` heads."""
     attn_fn = attn_fn or flash.auto_train_attention()
-    x = params["embed"][input_ids]
+    if tp is None:
+        x = params["embed"][input_ids]
+    else:
+        x = tp.embed(params["embed"], input_ids)
+        lcfg = tp.local_config(cfg)
     cos, sin = rope_cos_sin(cfg, positions)
     valid = attn_mask > 0
 
     def layer(x, lp):
+        lp = layer_weights(lp)
+        if tp is not None:
+            return _tp_layer(lcfg, tp, x, lp, cos, sin, attn_fn, attn_mask,
+                             valid)
         q, k, v = _qkv(cfg, x, lp, cos, sin)
         return _post_attn(cfg, x, attn_fn(q, k, v, attn_mask), lp, valid)
 
@@ -588,6 +646,11 @@ def forward(params: dict, cfg: ModelConfig,
     it (at ``write_idx``) marks the tokens that route (MoE)."""
     b, t = input_ids.shape
     dev = input_ids.device
+    if is_tp_shards(params):
+        if cache is None:
+            raise ValueError("tp shards run the cached (prefill) forward only")
+        return _forward_cached_tp(params, cfg, input_ids, positions, attn_mask,
+                                  cache, write_idx, logits_for)
     if cache is None:
         x = forward_hidden(params, cfg, input_ids, positions, attn_mask,
                            remat=remat, attn_fn=attn_fn)
@@ -598,13 +661,7 @@ def forward(params: dict, cfg: ModelConfig,
     with torch.no_grad():
         x = params["embed"][input_ids]
         cos, sin = rope_cos_sin(cfg, positions)
-        valid = attn_mask > 0
-        s = cache[0].shape[2]
-        kv_pos = torch.arange(s, device=dev)[None, None, None, :]
-        slot_written = kv_pos <= (write_idx + t - 1)
-        causal = kv_pos <= (write_idx + torch.arange(t, device=dev)[None, None, :, None])
-        mask = causal & slot_written & valid[:, None, None, :]
-        chunk_valid = valid[:, write_idx:write_idx + t]
+        mask, chunk_valid = _cache_mask(attn_mask, write_idx, t, cache[0].shape[2])
         for layer in range(cfg.num_layers):
             lp = layer_params(params, layer)
             q, k, v = _qkv(cfg, x, lp, cos, sin)
@@ -617,6 +674,19 @@ def forward(params: dict, cfg: ModelConfig,
         if logits_for is not None:
             x = x[torch.arange(b, device=dev), logits_for.long()]
         return unembed(x, head_weight(params, cfg)), cache
+
+
+def _cache_mask(attn_mask: torch.Tensor, write_idx: int, t: int, s_len: int):
+    """The cached forward's attention mask [B, 1, T, S] (causal from
+    ``write_idx``, written slots, valid keys) and the chunk's own slice of
+    ``attn_mask`` [B, T] (the tokens that route)."""
+    dev = attn_mask.device
+    valid = attn_mask > 0
+    kv_pos = torch.arange(s_len, device=dev)[None, None, None, :]
+    slot_written = kv_pos <= (write_idx + t - 1)
+    causal = kv_pos <= (write_idx + torch.arange(t, device=dev)[None, None, :, None])
+    return (causal & slot_written & valid[:, None, None, :],
+            valid[:, write_idx:write_idx + t])
 
 
 # -- paged KV (continuous batching) -----------------------------------------
@@ -673,16 +743,21 @@ def prefill_batch_into_pages(params: dict, cfg: ModelConfig,
                              ) -> tuple[tuple, torch.Tensor]:
     """B prompts in one forward; their KV is scattered into the pools in
     place. Returns (pools, last-token logits [B, V] f32)."""
-    page_size = pools[0][0].shape[2]
     b, pb = ids.shape
     dev = ids.device
     mask = (torch.arange(pb, device=dev)[None, :] < prompt_lens[:, None]).float()
     positions = torch.arange(pb, device=dev, dtype=torch.int32).expand(b, pb)
-    cache = make_cache(cfg, b, pb, dtype=pools[0][0].dtype, device=dev)
-    last_logits, (k_new, v_new) = forward(
-        params, cfg, ids, positions, mask, cache=cache, write_idx=0,
+    shard_pools = pools if is_tp_shards(params) else [pools]
+    page_size = shard_pools[0][0][0].shape[2]
+    caches = [make_cache(_pool_cfg(cfg, sp), b, pb, dtype=sp[0][0].dtype,
+                         device=sp[0][0].device) for sp in shard_pools]
+    last_logits, out = forward(
+        params, cfg, ids, positions, mask,
+        cache=caches if is_tp_shards(params) else caches[0], write_idx=0,
         logits_for=(prompt_lens - 1).clamp(min=0))
-    _scatter_chunk(pools, k_new, v_new, page_ids, page_size)
+    for sp, (k_new, v_new) in zip(shard_pools, out if is_tp_shards(params)
+                                  else [out]):
+        _scatter_chunk(sp, k_new, v_new, page_ids.to(sp[0][0].device), page_size)
     return pools, last_logits
 
 
@@ -698,33 +773,61 @@ def prefill_suffix_batch_into_pages(params: dict, cfg: ModelConfig,
     """Prefix-cache prefill: compute KV only for each row's suffix while
     attending over its cached prefix pages (``prefix_len`` tokens, the
     same for every row, whole pages). Returns (pools, last logits [B, V])."""
-    page_size = pools[0][0].shape[2]
     b, pb = ids.shape
     dev = ids.device
+    tp = is_tp_shards(params)
+    shard_pools = pools if tp else [pools]
+    page_size = shard_pools[0][0][0].shape[2]
     n_pre = prefix_page_ids.shape[1]
     prefix_cap = n_pre * page_size
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    hd = cfg.head_dim_
     s_total = prefix_cap + pb
-    cache = make_cache(cfg, b, s_total, dtype=pools[0][0].dtype, device=dev)
-    pre = prefix_page_ids.long()
-    for layer in range(cfg.num_layers):
-        for side in (0, 1):
-            # [Hkv, B, n_pre, ps, D] -> [B, prefix_cap, Hkv, D]
-            g = pools[side][layer][:, pre]
-            cache[side][layer, :, :prefix_cap] = (
-                g.permute(1, 2, 3, 0, 4).reshape(b, prefix_cap, hkv, hd))
+    caches = []
+    for sp in shard_pools:
+        pdev = sp[0][0].device
+        hkv = sp[0][0].shape[0]
+        cache = make_cache(_pool_cfg(cfg, sp), b, s_total, dtype=sp[0][0].dtype,
+                           device=pdev)
+        pre = prefix_page_ids.long().to(pdev)
+        for layer in range(cfg.num_layers):
+            for side in (0, 1):
+                # [Hkv, B, n_pre, ps, D] -> [B, prefix_cap, Hkv, D]
+                g = sp[side][layer][:, pre]
+                cache[side][layer, :, :prefix_cap] = (
+                    g.permute(1, 2, 3, 0, 4).reshape(b, prefix_cap, hkv, hd))
+        caches.append(cache)
     positions = (prefix_len + torch.arange(pb, device=dev, dtype=torch.int32)
                  ).expand(b, pb)
     slot = torch.arange(s_total, device=dev)[None, :]
     valid = (slot < prefix_len) | ((slot >= prefix_len)
                                    & (slot < prefix_len + suffix_lens[:, None]))
-    last_logits, (k_all, v_all) = forward(
-        params, cfg, ids, positions, valid.float(), cache=cache,
+    last_logits, out = forward(
+        params, cfg, ids, positions, valid.float(),
+        cache=caches if tp else caches[0],
         write_idx=prefix_len, logits_for=(suffix_lens - 1).clamp(min=0))
-    k_sfx = k_all[:, :, prefix_len:prefix_len + pb]
-    v_sfx = v_all[:, :, prefix_len:prefix_len + pb]
-    _scatter_chunk(pools, k_sfx, v_sfx, page_ids, page_size)
+    for sp, (k_all, v_all) in zip(shard_pools, out if tp else [out]):
+        k_sfx = k_all[:, :, prefix_len:prefix_len + pb]
+        v_sfx = v_all[:, :, prefix_len:prefix_len + pb]
+        _scatter_chunk(sp, k_sfx, v_sfx, page_ids.to(sp[0][0].device),
+                       page_size)
     return pools, last_logits
+
+
+def _decode_writes(page_table: torch.Tensor, seq_lens: torch.Tensor,
+                   page_size: int, active: torch.Tensor | None):
+    """Where each slot's new token goes (its current page and offset, an
+    inactive slot's to the null page 0) and the lengths it attends, int32:
+    ``(write_page, write_off, attn_lens)`` [S] each."""
+    s = seq_lens.shape[0]
+    # JAX gathers clamp out-of-range indices; torch indexing would fault
+    col = (seq_lens // page_size).clamp(max=page_table.shape[1] - 1).long()
+    write_page = page_table[torch.arange(s, device=seq_lens.device), col]
+    write_off = seq_lens % page_size
+    if active is not None:
+        write_page = torch.where(active, write_page, 0)
+        write_off = torch.where(active, write_off, 0)
+    return (write_page.to(torch.int32), write_off.to(torch.int32),
+            (seq_lens + 1).to(torch.int32))
 
 
 @torch.no_grad()
@@ -752,23 +855,15 @@ def forward_paged_decode(params: dict, cfg: ModelConfig,
     eager qk-norm and RoPE, then that write. On the CPU both routes run
     the same plain chain. Pools are updated in place. Inactive slots
     route to no expert (MoE)."""
+    if is_tp_shards(params):
+        return _forward_paged_decode_tp(params, cfg, tokens, positions, pools,
+                                        page_table, seq_lens, attn_fn, active,
+                                        kv_write_fn)
     attn_fn = attn_fn or paged_attention
-    s = tokens.shape[0]
-    page_size = pools[0][0].shape[2]
-    n_cols = page_table.shape[1]
-
     x = params["embed"][tokens][:, None]  # [S, 1, d]
     cos, sin = rope_cos_sin(cfg, positions[:, None])
-    # JAX gathers clamp out-of-range indices; torch indexing would fault
-    col = (seq_lens // page_size).clamp(max=n_cols - 1).long()
-    write_page = page_table[torch.arange(s, device=tokens.device), col]
-    write_off = seq_lens % page_size
-    if active is not None:
-        write_page = torch.where(active, write_page, 0)
-        write_off = torch.where(active, write_off, 0)
-    write_page = write_page.to(torch.int32)
-    write_off = write_off.to(torch.int32)
-    attn_lens = (seq_lens + 1).to(torch.int32)
+    write_page, write_off, attn_lens = _decode_writes(
+        page_table, seq_lens, pools[0][0].shape[2], active)
 
     k_pools, v_pools = pools
     for layer in range(cfg.num_layers):
@@ -790,3 +885,220 @@ def forward_paged_decode(params: dict, cfg: ModelConfig,
         x = _post_attn(cfg, x, attn_out[:, None], lp, active)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.rms_norm_eps)
     return unembed(x, head_weight(params, cfg)), pools
+
+
+# -- one-process tensor parallelism (the engine's tp shards) ----------------
+#
+# ``serve --tp N`` runs N tensor-parallel shards in one process, as the
+# reference's engine runs a tp mesh of its host's devices. Its weights are a
+# list of N trees (``shard_tp``), shard s holding the tp blocks of
+# ``parallel/tensor.tp_dim``: the column-split projections' and biases' s-th
+# output block, the row-split ``wo``/``w_down``'s s-th input block, the
+# vocabulary's s-th block of ``embed`` (and of ``lm_head``), the norms
+# whole. Its KV pools are a list of N per-shard pools of ``Hkv/tp`` heads,
+# each allocated apart (``make_tp_paged_pools``). A layer runs every
+# shard's heads and MLP columns, and sums the row-parallel partials after
+# ``wo`` and ``w_down`` onto the first shard's device in f32, rounded once
+# (one process: no collective; ``_tp_partial``); the dense MLP only (a MoE
+# config refuses tp). The vocabulary blocks' logits are concatenated before the
+# sampler. Every op is a device op, so a decode dispatch over shards on one
+# card is still one capturable stream; shards on several cards move their
+# partials between devices inside the dispatch.
+
+
+def is_tp_shards(params) -> bool:
+    """True for the engine's tensor-parallel shard list."""
+    return isinstance(params, (list, tuple))
+
+
+def tp_local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    from polyrl_tpu_torch.parallel.tensor import local_config
+
+    return local_config(cfg, tp)
+
+
+def _pool_cfg(cfg: ModelConfig, shard_pools) -> ModelConfig:
+    """``cfg`` with the KV heads of one shard's pools (the dense prefill
+    cache's)."""
+    hkv = shard_pools[0][0].shape[0]
+    return cfg if hkv == cfg.num_kv_heads else dataclasses.replace(
+        cfg, num_kv_heads=hkv, head_dim=cfg.head_dim_)
+
+
+def shard_tp(params: dict, tp: int, devices) -> list:
+    """A whole tree (plain, int8 or LoRA) -> ``tp`` shard trees of new
+    tensors on ``devices`` (``parallel/tensor.tp_dim``'s blocks)."""
+    from polyrl_tpu_torch.models.quant import flatten, unflatten
+    from polyrl_tpu_torch.parallel.tensor import tp_dim
+
+    flat = flatten(params)
+    out = []
+    for s in range(tp):
+        sub = {}
+        for name, t in flat.items():
+            d = None if t.dim() == 0 else tp_dim(name, t.shape)
+            blk = t if d is None else t.chunk(tp, d)[s]
+            sub[name] = (blk if t.dim() == 0 else
+                         blk.to(devices[s], copy=True).contiguous())
+        out.append(unflatten(sub))
+    return out
+
+
+@torch.no_grad()
+def copy_into_tp_shards(shards: list, params: dict) -> None:
+    """Copy a whole tree's tp blocks into the shard trees in place."""
+    from polyrl_tpu_torch.models.quant import named_leaves
+    from polyrl_tpu_torch.parallel.tensor import tp_dim
+
+    tp = len(shards)
+    whole = dict(named_leaves(params))
+    for s, tree in enumerate(shards):
+        for name, dst in named_leaves(tree):
+            src = whole[name]
+            d = tp_dim(name, src.shape)
+            dst.copy_(src if d is None else src.chunk(tp, d)[s])
+
+
+def make_tp_paged_pools(cfg: ModelConfig, tp: int, num_pages: int,
+                        page_size: int, dtype=None, devices=None) -> list:
+    """One ``make_paged_pools`` per shard, of ``Hkv/tp`` heads, on its
+    device: every layer's pool a separate allocation (16-byte aligned, as
+    K1-K3 check)."""
+    lcfg = tp_local_config(cfg, tp)
+    devices = devices or [None] * tp
+    return [make_paged_pools(lcfg, num_pages, page_size, dtype=dtype,
+                             device=devices[s]) for s in range(tp)]
+
+
+def _tp_embed(shards: list, ids: torch.Tensor) -> torch.Tensor:
+    """The vocab-split lookup: each shard's rows where it owns the id,
+    summed on the first shard's device (exact: one owner per id)."""
+    from polyrl_tpu_torch.parallel.tensor import vocab_lookup
+
+    out = None
+    for s, p in enumerate(shards):
+        table = p["embed"]
+        x = vocab_lookup(table, ids.to(table.device), s * table.shape[0])
+        out = x if out is None else out + x.to(out.device)
+    return out
+
+
+def _tp_partial(x: torch.Tensor, w) -> torch.Tensor:
+    """One shard's row-parallel partial ``x @ w`` with an f32 result: on
+    the card a bf16/f16 plain weight's product accumulates in f32 and is
+    not rounded (``torch.mm(..., out_dtype=torch.float32)``), so that the
+    shards' partials add in f32 and round once, as one shard's whole
+    product does; elsewhere (int8, LoRA, the CPU's f32) the product's own
+    result, upcast."""
+    half = (torch.bfloat16, torch.float16)
+    if (isinstance(w, torch.Tensor) and x.is_cuda and x.dtype in half
+            and w.dtype == x.dtype):
+        shape = x.shape
+        out = torch.mm(x.reshape(-1, shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*shape[:-1], w.shape[-1])
+    return mm(x, w).float()
+
+
+def _tp_sum(parts: list, device, dtype) -> torch.Tensor:
+    """The row-parallel f32 partials summed on ``device`` in shard order,
+    rounded once to ``dtype``."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    return out.to(dtype)
+
+
+def _tp_logits(shards: list, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, then each shard's vocabulary block, concatenated."""
+    x = rms_norm(x, shards[0]["final_norm"], cfg.rms_norm_eps)
+    return torch.cat([unembed(x.to(p["embed"].device), head_weight(p, cfg)
+                              ).to(x.device) for p in shards], dim=-1)
+
+
+def _tp_mlp(shards, lcfg, layer, x):
+    """The post-norm dense MLP (``_swiglu``) on each shard's columns, the
+    ``w_down`` partials summed (``_tp_partial``), and the residual."""
+    h = rms_norm(x, layer_params(shards[0], layer)["mlp_norm"], lcfg.rms_norm_eps)
+    parts = []
+    for p in shards:
+        lp = layer_params(p, layer)
+        parts.append(_tp_partial(_swiglu(h.to(lp["mlp_norm"].device), lp),
+                                 lp["w_down"]))
+    return x + _tp_sum(parts, x.device, x.dtype)
+
+
+@torch.no_grad()
+def _forward_cached_tp(shards, cfg, input_ids, positions, attn_mask, caches,
+                       write_idx, logits_for):
+    """``forward``'s cached (prefill) path on tp shards: ``caches`` one
+    ``(k, v)`` a shard of its ``Hkv/tp`` heads, written in place."""
+    lcfg = tp_local_config(cfg, len(shards))
+    b, t = input_ids.shape
+    dev = input_ids.device
+    x = _tp_embed(shards, input_ids).to(dev)
+    cos, sin = rope_cos_sin(cfg, positions)
+    mask, _ = _cache_mask(attn_mask, write_idx, t, caches[0][0].shape[2])
+    for layer in range(cfg.num_layers):
+        h = rms_norm(x, layer_params(shards[0], layer)["attn_norm"],
+                     cfg.rms_norm_eps)
+        parts = []
+        for p, cache in zip(shards, caches):
+            lp = layer_params(p, layer)
+            sdev = cache[0].device
+            q, k, v = _heads_proj(lcfg, h.to(sdev), lp)
+            q, k = _qk_norm_rope(lcfg, q, k, lp, cos.to(sdev), sin.to(sdev))
+            kc, vc = cache[0][layer], cache[1][layer]
+            kc[:, write_idx:write_idx + t] = k.to(kc.dtype)
+            vc[:, write_idx:write_idx + t] = v.to(vc.dtype)
+            a = attention(q, kc, vc, mask=mask.to(sdev))
+            parts.append(_tp_partial(a.reshape(*a.shape[:-2], -1), lp["wo"]))
+        x = x + _tp_sum(parts, dev, x.dtype)
+        x = _tp_mlp(shards, lcfg, layer, x)
+    if logits_for is not None:
+        x = x[torch.arange(b, device=dev), logits_for.long()]
+    return _tp_logits(shards, cfg, x), caches
+
+
+@torch.no_grad()
+def _forward_paged_decode_tp(shards, cfg, tokens, positions, pools, page_table,
+                             seq_lens, attn_fn, active, kv_write_fn):
+    """``forward_paged_decode`` on tp shards: ``pools`` one ``(k, v)``
+    per-layer list pair a shard. ``attn_fn(qs, k_pools, v_pools,
+    page_table, lens)`` takes and returns one tensor a shard (default
+    ``ops.paged_attention.make_tp_paged_attention()``: K2 on each shard's
+    heads). The fused prologue writes each shard's K/V; the unfused route
+    (``kv_write_fn``) is one shard's only."""
+    from polyrl_tpu_torch.ops.paged_attention import (
+        make_tp_paged_attention, make_tp_paged_kv_write_fused)
+
+    if kv_write_fn is not None:
+        raise ValueError("tp shards take the fused prologue's K/V write")
+    tp = len(shards)
+    lcfg = tp_local_config(cfg, tp)
+    attn_fn = attn_fn or make_tp_paged_attention()
+    fused = make_tp_paged_kv_write_fused(cfg.rms_norm_eps)
+    s = tokens.shape[0]
+    dev = tokens.device
+    x = _tp_embed(shards, tokens)[:, None].to(dev)  # [S, 1, d]
+    cos, sin = rope_cos_sin(cfg, positions[:, None])
+    write_page, write_off, attn_lens = _decode_writes(
+        page_table, seq_lens, pools[0][0][0].shape[2], active)
+
+    for layer in range(cfg.num_layers):
+        h = rms_norm(x, layer_params(shards[0], layer)["attn_norm"],
+                     cfg.rms_norm_eps)
+        lps = [layer_params(p, layer) for p in shards]
+        kps = [sp[0][layer] for sp in pools]
+        vps = [sp[1][layer] for sp in pools]
+        qs, ks, vs = zip(*[[t[:, 0] for t in _heads_proj(lcfg, h.to(kp.device), lp)]
+                           for lp, kp in zip(lps, kps)])
+        qs = fused(kps, vps, write_page, write_off, list(qs), list(ks),
+                   list(vs), cos[:, 0], sin[:, 0],
+                   [lp["q_norm"] for lp in lps] if cfg.use_qk_norm else None,
+                   [lp["k_norm"] for lp in lps] if cfg.use_qk_norm else None)
+        outs = attn_fn(qs, kps, vps, page_table, attn_lens)   # [S, Hq/tp, D] each
+        parts = [_tp_partial(o.reshape(s, 1, -1), lp["wo"])
+                 for o, lp in zip(outs, lps)]
+        x = x + _tp_sum(parts, dev, x.dtype)
+        x = _tp_mlp(shards, lcfg, layer, x)
+    return _tp_logits(shards, cfg, x[:, 0]), pools

@@ -422,3 +422,73 @@ def grouped_paged_attention(q, k_pool, v_pool, page_table, seq_lens,
     run()
     cuda_build.count_launch("grouped_paged_attention")
     return out.to(q.dtype)
+
+
+# -- tensor-parallel shards ------------------------------------------------------
+#
+# The counterparts of the reference's ``make_tp_paged_kv_write``,
+# ``make_tp_paged_attention`` and ``make_tp_grouped_paged_attention``
+# (``shard_map``s of its kernels over the head dim of a tp mesh). Here the
+# shards of a one-process tensor-parallel engine each hold their own
+# ``[Hkv/tp, N, ps, D]`` pools (allocated apart, so each is 16-byte
+# aligned), and each function below runs the same kernel on every shard's
+# heads, with the page table, the lengths and the group tables unsharded
+# (moved to each shard's device; on one card that moves nothing). The
+# ratio ``rep = Hq / Hkv`` is each shard's as the whole model's. They bring
+# no kernel body; each launch counts as its kernel's.
+
+
+def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return t if t.device == device else t.to(device, non_blocking=True)
+
+
+def make_tp_paged_kv_write_fused(eps: float = 1e-6):
+    """``fn(k_pools, v_pools, write_page, write_off, qs, ks, vs, cos, sin,
+    q_norms, k_norms) -> [q_s]``: the fused prologue (qk-norm, RoPE and the
+    K/V write; K1 redesigned, the default decode route) on each shard's
+    heads: the counterpart of the reference's ``make_tp_paged_kv_write``.
+    ``q_norms``/``k_norms`` are one weight a shard (None: no qk-norm)."""
+
+    def fn(k_pools, v_pools, write_page, write_off, qs, ks, vs, cos, sin,
+           q_norms=None, k_norms=None):
+        out = []
+        for i, (kp, vp) in enumerate(zip(k_pools, v_pools)):
+            dev = kp.device
+            out.append(paged_kv_write_fused(
+                kp, vp, _on(write_page, dev), _on(write_off, dev), qs[i], ks[i],
+                vs[i], _on(cos, dev), _on(sin, dev),
+                None if q_norms is None else q_norms[i],
+                None if k_norms is None else k_norms[i], eps))
+        return out
+
+    return fn
+
+
+def make_tp_paged_attention(scale=None):
+    """``fn(qs, k_pools, v_pools, page_table, seq_lens) -> [out_s]``: K2
+    on each shard's ``Hq/tp`` query heads against its ``Hkv/tp`` pools."""
+
+    def fn(qs, k_pools, v_pools, page_table, seq_lens):
+        return [paged_attention(q, kp, vp, _on(page_table, kp.device),
+                                _on(seq_lens, kp.device), scale)
+                for q, kp, vp in zip(qs, k_pools, v_pools)]
+
+    return fn
+
+
+def make_tp_grouped_paged_attention(group_slots, group_prefix_pages,
+                                    group_prefix_lens, scale=None):
+    """``fn(qs, k_pools, v_pools, page_table, seq_lens) -> [out_s]``: K3
+    on each shard's heads, the group tables unsharded."""
+
+    def fn(qs, k_pools, v_pools, page_table, seq_lens):
+        out = []
+        for q, kp, vp in zip(qs, k_pools, v_pools):
+            dev = kp.device
+            out.append(grouped_paged_attention(
+                q, kp, vp, _on(page_table, dev), _on(seq_lens, dev),
+                _on(group_slots, dev), _on(group_prefix_pages, dev),
+                _on(group_prefix_lens, dev), scale))
+        return out
+
+    return fn

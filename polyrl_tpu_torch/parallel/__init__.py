@@ -5,11 +5,13 @@ Counterpart of ``polyrl_tpu/parallel/``: ``mesh`` (axes, ``MeshConfig``,
 the collectives, ``shard_batch``/``shard_params``), ``distributed``
 (``initialize`` from the torch launcher, ``make_hybrid_mesh``),
 ``multihost`` (rank 0's broadcasts, ``NullRollout``), ``sequence``
-(Ulysses and ring attention) and ``fsdp`` (sharded trained leaves with
-the gather/reduce-scatter autograd and the global-norm optimizer step).
-The JAX package's ``compat.py`` is a ``shard_map`` version shim and has
-no counterpart here; its ``pipeline.py`` (pp) is not ported yet (ROADMAP
-A' 9).
+(Ulysses and ring attention), ``tensor`` (the ``tp`` axis: Megatron's
+pair of autograd functions, vocab-parallel embedding and logprobs, the
+leaves' tp blocks) and ``fsdp`` (trained leaves sharded one layer at a
+time, with the per-layer gather/reduce-scatter autograd and the
+global-norm optimizer step). The JAX package's ``compat.py`` is a
+``shard_map`` version shim and has no counterpart here; its
+``pipeline.py`` (pp) is not ported yet (ROADMAP A' 9.3).
 """
 
 from .mesh import AXES, BATCH_SPEC, DP, FSDP, SP, TP, MeshConfig, make_mesh

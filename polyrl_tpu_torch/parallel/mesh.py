@@ -9,17 +9,18 @@ process group per axis (and per combination it reduces over):
 
 - ``dp``    data parallel (batch rows; parameters replicated)
 - ``fsdp``  ZeRO-style parameter sharding (combines with dp for the batch)
-- ``tp``    tensor parallel (not ported yet: ROADMAP A' 9)
+- ``tp``    tensor parallel (Megatron-style projections, vocab-parallel
+            embedding and logprob head, ``parallel/tensor.py``)
 - ``sp``    sequence parallel (Ulysses all-to-all or ring attention,
             ``parallel/sequence.py``)
-- ``ep``    expert parallel (not ported yet)
-- ``pp``    pipeline parallel (not ported yet)
+- ``ep``    expert parallel (not ported yet: ROADMAP A' 9.4)
+- ``pp``    pipeline parallel (not ported yet: ROADMAP A' 9.3)
 
 Batches split their rows over (dp, fsdp) and their columns over sp
 (``shard_batch``); trained parameters and their AdamW moments split over
-fsdp, each leaf flattened and padded to a multiple of the axis
-(``shard_params``, ``gather_params``; the autograd glue is
-``parallel/fsdp.py``).
+tp by their specs, then over fsdp, each leaf flattened and padded to a
+multiple of the axis (``shard_params``, ``gather_params``; the trainers'
+per-layer shards and the autograd glue are ``parallel/fsdp.py``).
 
 Collectives move bytes: a tensor is viewed as ``uint8`` for the movement
 collectives (gather, all-to-all, broadcast, ring exchange), so any dtype
@@ -51,8 +52,10 @@ BATCH_SPEC = (BATCH_AXES, SP)
 DATA_AXES = (DP, FSDP, SP)
 # ranks that hold the same parameter shard: their gradients are summed
 REPLICA_AXES = (DP, SP)
-_GROUP_AXES = ((DP,), (FSDP,), (SP,), BATCH_AXES, REPLICA_AXES, DATA_AXES)
-_NOT_PORTED = "is not ported yet (ROADMAP A' 9)"
+_GROUP_AXES = ((DP,), (FSDP,), (TP,), (SP,), BATCH_AXES, REPLICA_AXES,
+               DATA_AXES)
+_NOT_PORTED = {EP: "is not ported yet (ROADMAP A' 9.4, expert parallelism)",
+               PP: "is not ported yet (ROADMAP A' 9.3, the pipeline)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,11 +83,11 @@ class MeshConfig:
 
 
 def refuse_unported(shape: dict) -> None:
-    """``tp``, ``ep`` and ``pp`` above 1 raise ``NotImplementedError``."""
-    for axis in (TP, EP, PP):
+    """``ep`` and ``pp`` above 1 raise ``NotImplementedError`` (A' 9)."""
+    for axis in (EP, PP):
         if shape.get(axis, 1) > 1:
             raise NotImplementedError(f"parallel.{axis}={shape[axis]} > 1 "
-                                      f"{_NOT_PORTED}")
+                                      f"{_NOT_PORTED[axis]}")
 
 
 class Mesh:
@@ -177,8 +180,8 @@ def make_mesh(config: MeshConfig | None = None,
 
     Axis order is (dp, fsdp, tp, sp, ep, pp), as in the JAX package: the
     innermost axes (the latency-critical ones) get neighbouring ranks,
-    which one launcher places on one node. ``tp``, ``ep`` and ``pp`` above
-    1 raise."""
+    which one launcher places on one node. ``ep`` and ``pp`` above 1
+    raise."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     backend = dist.get_backend() if dist.is_initialized() else None
@@ -205,7 +208,13 @@ def _staged(mesh: Mesh, out: torch.Tensor, inp: torch.Tensor, fn):
     """Run ``fn(out, inp)``, through host copies where the backend takes
     no device tensors."""
     if mesh.stages_on_host and (out.is_cuda or inp.is_cuda):
-        o, i = out.cpu(), inp.cpu()
+        # pinned host buffers (the caching host allocator reuses them);
+        # an in-place collective's buffer crosses once, an out-of-place
+        # one's output is written only, so it does not cross to the host
+        i = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=True)
+        i.copy_(inp)
+        o = i if out is inp else torch.empty(out.shape, dtype=out.dtype,
+                                             pin_memory=True)
         fn(o, i)
         out.copy_(o)
     else:
@@ -242,11 +251,12 @@ def reduce_scatter(mesh: Mesh, axes: Sequence[str], x: torch.Tensor) -> torch.Te
 
 
 def all_reduce(mesh: Mesh, axes: Sequence[str], x: torch.Tensor,
-               op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``op`` over the group, in f32, written back into ``x`` (returned)."""
+               op=dist.ReduceOp.SUM, dtype=torch.float32) -> torch.Tensor:
+    """``op`` over the group, in ``dtype`` (f32), written back into ``x``
+    (returned)."""
     if mesh.size(*axes) == 1:
         return x
-    buf = x.float().contiguous()
+    buf = x.to(dtype).contiguous()
     g = mesh.group(*axes)
     _staged(mesh, buf, buf, lambda o, _i: dist.all_reduce(o, op=op, group=g))
     with torch.no_grad():
@@ -377,7 +387,10 @@ def gather_tensor(mesh: Mesh, shard: torch.Tensor, shape: Sequence[int]) -> torc
 
 def _check_specs(specs) -> None:
     """A spec names the axes of each dimension (a tuple per leaf, or a
-    nested dict of them); only ``fsdp`` is ported."""
+    nested dict of them). ``shard_params`` shards over ``fsdp`` only: a
+    leaf's tp block is cut by its name (``parallel/tensor.tp_dim``, as the
+    trainers' ``fsdp.ShardedLeaves`` and the engine's shards cut it), so a
+    spec over ``tp`` raises here, and one over an unported axis too."""
     if specs is None:
         return
     if isinstance(specs, dict):
@@ -387,16 +400,20 @@ def _check_specs(specs) -> None:
     for part in specs:
         names = part if isinstance(part, (tuple, list)) else (part,)
         for a in names:
+            if a == TP:
+                raise ValueError(
+                    "shard_params shards over fsdp only; tp blocks follow "
+                    "parallel/tensor.tp_dim (fsdp.ShardedLeaves)")
             if a not in (None, FSDP):
                 raise NotImplementedError(
-                    f"a parameter spec over {a!r} {_NOT_PORTED}; only fsdp "
+                    f"a parameter spec over {a!r} "
+                    f"{_NOT_PORTED.get(a, 'is not an axis')}; only fsdp "
                     f"shards parameters")
 
 
 def shard_params(mesh: Mesh, params, specs=None):
     """Every tensor of a (nested dict) tree as this rank's fsdp shard
-    (``shard_tensor``). ``specs``, when given, may name only ``fsdp``:
-    a ``tp`` (or other) spec raises."""
+    (``shard_tensor``). ``specs``, when given, may name only ``fsdp``."""
     _check_specs(specs)
     if isinstance(params, dict):
         return {k: shard_params(mesh, v) for k, v in params.items()}

@@ -15,6 +15,11 @@ signature gains a trailing ``segment_ids`` ``[b, T/sp]`` (0 = pad,
 exchange re-unifies the sequence (or rotates the ids with their K/V
 block) before masking.
 
+Under a ``tp`` axis both see this rank's tp heads (``H`` is ``Hq/tp``):
+Ulysses all-to-alls those local heads over sp, so ``num_heads % (tp *
+sp)`` must be 0 (``train._sp_attention`` checks it); the ring moves no
+heads.
+
 - Ulysses: ``all_to_all`` over the ``sp`` group gives each rank the whole
   sequence for H/sp heads; attention there is ``ops/flash``'s
   ``flash_attention_train`` with the gathered mask and segment ids (K4 on

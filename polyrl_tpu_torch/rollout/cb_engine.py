@@ -68,9 +68,28 @@ Counterpart of the core of ``polyrl_tpu/rollout/cb_engine.py``:
   the spill tier off only pressure acts otherwise (an eviction, then a
   full prefill, where a spill and a restore would keep the KV).
 
+Tensor parallelism (``tp``, the reference's tp mesh and SGLang's
+``--tp-size``): one process owns ``tp`` shards on ``tp_devices`` (on a
+one-card host every shard on the engine's device). Each shard holds its
+tp blocks of the weights (``decoder.shard_tp``: column- and row-split
+projections, the vocabulary's block of the embedding) and its own KV pools
+of ``Hkv/tp`` heads; the page table, the allocator, the prefix cache, the
+ledger and the sampler are shared. Every layer runs the fused prologue, K2
+and K3 on each shard's heads (``ops/paged_attention.make_tp_*``) and sums
+the row-parallel partials; the vocabulary blocks' logits are concatenated
+before the sampler. On one device a dispatch stays one stream of device
+ops and replays as a CUDA graph; shards on several cards copy their
+partials between devices inside it (the spill tier then refuses). The
+spill tier, salvage and the ledger move and count every shard's pages
+(a page's bytes are its bytes on every shard); grouped decode, chunked
+prefill, prefix attach, speculation, int8 and LoRA trees run on the
+shards as they run whole. ``tp`` must divide ``num_heads`` and
+``num_kv_heads``; a MoE config refuses (its experts wait for ep, ROADMAP
+A' 9.4).
+
 Where the JAX engine donates pools and state, this one updates the pools
 and the device state in place. Not ported yet (see ROADMAP.md): a graph
-for prefill, and TP meshes.
+for prefill.
 """
 
 from __future__ import annotations
@@ -92,7 +111,8 @@ from polyrl_tpu_torch.models import decoder
 from polyrl_tpu_torch.models.quant import named_leaves
 from polyrl_tpu_torch.obs.engine_profile import EngineLoopProfiler
 from polyrl_tpu_torch.ops import cuda_build
-from polyrl_tpu_torch.ops.paged_attention import grouped_paged_attention
+from polyrl_tpu_torch.ops.paged_attention import (
+    grouped_paged_attention, make_tp_grouped_paged_attention)
 from polyrl_tpu_torch.rollout.common import (
     check_same_structure,
     next_bucket,
@@ -262,6 +282,8 @@ class CBEngine:
         loop_profile: bool = True,
         device: str | torch.device = "cuda",
         copy_params: bool = True,
+        tp: int = 1,
+        tp_devices: list | None = None,
     ):
         if any(b % page_size for b in prompt_buckets):
             raise ValueError("prompt buckets must be page-aligned")
@@ -284,6 +306,25 @@ class CBEngine:
                 f"high={kv_spill_high_watermark}")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.tp = int(tp)
+        if self.tp > 1:
+            # the reference's check (cb_engine.py:247-253): the KV pools and
+            # the paged attention split on heads
+            if cfg.num_heads % self.tp or cfg.num_kv_heads % self.tp:
+                raise ValueError(
+                    f"tp={self.tp} must divide num_heads ({cfg.num_heads}) "
+                    f"and num_kv_heads ({cfg.num_kv_heads}): the KV pools "
+                    "and paged attention shard on the head dim")
+            decoder.tp_local_config(cfg, self.tp)  # MoE refuses (A' 9.4)
+        self.tp_devices = ([torch.device(d) for d in tp_devices] if tp_devices
+                           else [self.device] * self.tp)
+        if len(self.tp_devices) != self.tp:
+            raise ValueError(f"tp={self.tp} needs {self.tp} devices, got "
+                             f"{len(self.tp_devices)}")
+        if self.tp > 1 and kv_spill and len(set(self.tp_devices)) > 1:
+            raise NotImplementedError(
+                "the host spill tier on tp shards of several devices "
+                "(kv_spill=False) is not ported (ROADMAP A' 9)")
         # the engine's own copy, even of tensors already on its device: a
         # colocated actor updates its parameters in place, and an alias
         # would change the engine's weights with no version bump while the
@@ -291,8 +332,12 @@ class CBEngine:
         # adopts a tree on the engine's device that no one else updates
         # (``serve.create_server`` builds one for the engine alone): a
         # model of 61 GB cannot be held twice on an 80 GB card
-        self.params = (params_copy(params, self.device) if copy_params
-                       else params)
+        if self.tp > 1:
+            # every shard's tp blocks, new tensors on its device
+            self.params = decoder.shard_tp(params, self.tp, self.tp_devices)
+        else:
+            self.params = (params_copy(params, self.device) if copy_params
+                           else params)
         self.max_slots = max_slots
         self.page_size = page_size
         self.max_seq_len = max_seq_len
@@ -346,9 +391,7 @@ class CBEngine:
             self.prefix_cache.idle_age = self.kvledger.idle_age
         if self.kvspill is not None:
             self.prefix_cache.drop_spilled = self._drop_spilled_entries
-        self._pools = decoder.make_paged_pools(
-            cfg, self.num_pages, page_size, dtype=self.kv_cache_dtype,
-            device=self.device)
+        self._pools = self._make_pools()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
 
@@ -435,6 +478,7 @@ class CBEngine:
         self._pending: collections.deque = collections.deque()
         self._stop = threading.Event()
         self._paused = threading.Event()  # release_memory until resume
+        self._abort_new = False  # released: end new requests as abort
         self._idle = threading.Event()
         self._idle.set()
         # serializes dispatches against in-place weight updates
@@ -535,8 +579,9 @@ class CBEngine:
         the ledger's bytes per page from the pools."""
         if self._weight_bytes is None:
             self._weight_bytes = sum(t.numel() * t.element_size()
-                                     for _, t in named_leaves(self.params))
-        pools = self._pools
+                                     for tree in self._param_shards()
+                                     for _, t in named_leaves(tree))
+        pools = self._pool_sides()
         pool_b = (sum(t.numel() * t.element_size() for t in pools[0] + pools[1])
                   if pools is not None else 0)
         if self.kvledger is not None and pool_b:
@@ -632,7 +677,7 @@ class CBEngine:
             return 0
         entries = [e for _age, e in cands[:take]]
         pages = [e.page for e in entries]
-        kp, vp = self._pools
+        kp, vp = self._pool_sides()
         idx = self._tensor(np.asarray(pages, np.int64))
         # page-major [n, 2L, Hkv, ps, D]: one contiguous block per page,
         # filled a layer at a time (the transient beside the block is one
@@ -694,7 +739,7 @@ class CBEngine:
             pages = self.allocator.alloc(need)
         if pages is None:
             return False
-        kp, vp = self._pools
+        kp, vp = self._pool_sides()
         handles = [e.spill_handle for e in entries]
         staging = torch.empty((need, 2 * len(kp)) + tuple(kp[0][:, 0].shape),
                               dtype=kp[0].dtype, device=self.device)
@@ -798,6 +843,12 @@ class CBEngine:
         caller's stream, the default one, as are the decode replays: it
         runs after the dispatches already queued, whose tokens carry the
         old version, and before the later ones."""
+        if self.tp > 1:
+            check_same_structure(params, self._whole_meta())
+            self.install_weights(
+                lambda shards: decoder.copy_into_tp_shards(shards, params),
+                version)
+            return
         check_same_structure(params, self.params)
         new = dict(named_leaves(params))
 
@@ -916,12 +967,16 @@ class CBEngine:
 
     # -- memory lifecycle (a colocated trainer takes the KV pool back) -------
 
-    def release_memory(self) -> None:
+    def release_memory(self, abort_new: bool = False) -> None:
         """Pause serving and, once the running requests are done, free the
         KV pools. The captured decode graphs hold the pools' addresses, so
         they go first, with their private memory pool; then the pools; then
         the allocator's cache is returned to the device. A request
-        submitted meanwhile waits for ``resume_memory``; mid-chunk prefill
+        submitted meanwhile waits for ``resume_memory``; with ``abort_new``
+        (the hybrid's window release) it, and every request queued but not
+        admitted, ends at once as ``abort`` with no tokens, so that the
+        manager continues it elsewhere instead of its stream waiting for a
+        resume that only the stream's own end brings (ROADMAP C). Mid-chunk prefill
         jobs, whose filled KV goes with the pools, are aborted. The cache
         flush drops spilled entries from both tiers; no spill runs while
         the pools are gone. While paused the loop admits nothing but keeps
@@ -929,6 +984,7 @@ class CBEngine:
         them instead, so a request that reached the engine after the
         manager's window abort hung until the next resume and the pools
         were never freed (ROADMAP C). Gives up after 30 s."""
+        self._abort_new = abort_new
         self._paused.set()
         deadline = time.monotonic() + 30.0
         while True:
@@ -943,6 +999,48 @@ class CBEngine:
                     return
             # a stale idle flag: the loop is still finishing requests
             time.sleep(0.01)
+
+    def _make_pools(self):
+        """The KV pools: ``(k, v)`` per-layer lists, or on tp shards one
+        such pair a shard of ``Hkv/tp`` heads, each pool allocated apart."""
+        if self.tp > 1:
+            return decoder.make_tp_paged_pools(
+                self.cfg, self.tp, self.num_pages, self.page_size,
+                dtype=self.kv_cache_dtype, devices=self.tp_devices)
+        return decoder.make_paged_pools(
+            self.cfg, self.num_pages, self.page_size,
+            dtype=self.kv_cache_dtype, device=self.device)
+
+    def _pool_sides(self):
+        """``(k pools, v pools)``: flat lists of every shard's per-layer
+        pools (None while released). A page's KV is its row in each: the
+        spill tier and the ledger move and count every shard's."""
+        if self._pools is None or self.tp == 1:
+            return self._pools
+        return ([p for kp, _ in self._pools for p in kp],
+                [p for _, vp in self._pools for p in vp])
+
+    def _param_shards(self) -> list:
+        return self.params if self.tp > 1 else [self.params]
+
+    def _whole_meta(self) -> dict:
+        """The whole tree's names, shapes and dtypes (``meta`` tensors) of
+        a tp engine, what a push must match."""
+        from polyrl_tpu_torch.models.quant import flatten, unflatten
+        from polyrl_tpu_torch.parallel.tensor import tp_dim
+
+        flats = [flatten(t) for t in self.params]
+        out = {}
+        for name, t in flats[0].items():
+            d = None if t.dim() == 0 else tp_dim(name, t.shape)
+            if t.dim() == 0:
+                out[name] = t
+                continue
+            shape = list(t.shape)
+            if d is not None:
+                shape[d] *= self.tp
+            out[name] = torch.empty(shape, dtype=t.dtype, device="meta")
+        return unflatten(out)
 
     def _free_pools(self) -> None:
         """Under the dispatch lock, with no request running: the graphs,
@@ -966,9 +1064,8 @@ class CBEngine:
         are captured again at their first dispatch (or by ``warmup``)."""
         with self._pool_lock:
             if self._pools is None:
-                self._pools = decoder.make_paged_pools(
-                    self.cfg, self.num_pages, self.page_size,
-                    dtype=self.kv_cache_dtype, device=self.device)
+                self._pools = self._make_pools()
+        self._abort_new = False
         self._paused.clear()
 
     # -- engine loop ---------------------------------------------------------
@@ -991,6 +1088,11 @@ class CBEngine:
 
     def _loop_iter(self) -> None:
         paused = self._paused.is_set()
+        if paused and self._abort_new:
+            self._drain_queue()
+            while self._pending:
+                self._emit_abort(self._pending.popleft())
+            self.num_queued = 0
         if paused and not self._active.any():
             if self._outstanding():
                 with self._pool_lock:
@@ -1968,7 +2070,9 @@ class CBEngine:
         st, pad = self._dev, self.pad_token_id
         params, cfg = self.params, self.cfg
         attn = None  # forward_paged_decode's default: paged_attention
-        if gt is not None:
+        if gt is not None and self.tp > 1:
+            attn = make_tp_grouped_paged_attention(*gt)
+        elif gt is not None:
             g_slots, g_pages, g_lens = gt
 
             def attn(q, kp, vp, pt, lens):

@@ -112,9 +112,11 @@ class RolloutEngine:
             self.weight_version = (self.weight_version + 1 if version is None
                                    else int(version))
 
-    def release_memory(self) -> None:
+    def release_memory(self, abort_new: bool = False) -> None:
         """The cache lives for one call: nothing to free, the state is only
-        flagged (the reference's v0 engine does the same)."""
+        flagged (the reference's v0 engine does the same). No request waits
+        on the flag, so ``abort_new`` (``CBEngine.release_memory``'s) has
+        nothing to end."""
         self._released = True
 
     def resume_memory(self) -> None:

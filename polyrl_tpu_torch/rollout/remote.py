@@ -290,7 +290,10 @@ class RemoteRollout:
             if not last:
                 return
             try:
-                local_eng.release_memory()
+                # a request that reaches the engine after this point ends
+                # as abort and continues on the server: waiting for the
+                # next resume would hold this very stream (ROADMAP C)
+                local_eng.release_memory(abort_new=True)
             except Exception:  # noqa: BLE001 — time-slicing is best-effort
                 log.exception("local engine release_memory failed")
 

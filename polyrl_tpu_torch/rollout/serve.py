@@ -75,7 +75,7 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                   transfer_streams: int = 4,
                   is_local: bool = False,
                   lora_rank: int = 0, lora_alpha: float = 16.0,
-                  fault_injector=None):
+                  fault_injector=None, tp: int = 1):
     """Build engine + server and start serving. ``model`` is a preset name
     (random weights from ``seed``) or a local HF checkpoint directory.
     ``backend="cb"`` serves with the paged continuous-batching engine
@@ -93,7 +93,17 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     becomes the server's ``fault``: it sees every admission and every
     outgoing stream line. ``device`` defaults to ``"cuda"`` and
     raises when CUDA is absent; pass ``"cpu"`` explicitly to serve from the
-    CPU (tests)."""
+    CPU (tests).
+
+    ``tp > 1`` (the reference's ``--tp``, SGLang's ``--tp-size``) serves
+    one process's ``tp`` tensor-parallel shards (``CBEngine``'s ``tp``):
+    on a host of ``tp`` or more cards shard ``s`` sits on ``cuda:s``, on a
+    one-card host (and on the CPU) every shard sits on ``device``. The
+    weights are made whole on ``device`` and cut into the shards' blocks
+    (the whole tree is dropped after). The receiver's ``ShardSpec``
+    advertises the ``tp`` (``/get_server_info``'s ``transfer_shard_tp``),
+    and a push lands each shard's ranges in its own tensors. LoRA
+    adapter-only pushes into tp shards refuse (ROADMAP A' 9)."""
     from polyrl_tpu_torch.device import resolve_device
     from polyrl_tpu_torch.models import decoder, quant
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
@@ -104,6 +114,12 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
         raise ValueError(f"unknown weight_quant {weight_quant!r}")
     if backend not in ("cb", "step"):
         raise ValueError(f"unknown backend {backend!r} (cb or step)")
+    if tp > 1 and backend != "cb":
+        raise NotImplementedError("tp > 1 requires backend='cb'")
+    if tp > 1 and lora_rank > 0:
+        raise NotImplementedError(
+            "LoRA adapter-only pushes into tp shards are not ported yet "
+            "(ROADMAP A' 9)")
     dev = resolve_device(device)
     torch_dtype = getattr(torch, dtype)
     if os.path.isdir(model):
@@ -130,6 +146,11 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     buckets = (tuple(prompt_buckets) if prompt_buckets
                else (128, 256, 512, 1024, 2048, 4096))
     if backend == "cb":
+        tp_devs = _tp_devices(dev, tp)
+        if kv_spill and len(set(tp_devs)) > 1:
+            log.warning("the host spill tier is off: tp shards on %d cards",
+                        len(set(tp_devs)))
+            kv_spill = False
         engine = CBEngine(
             cfg, params, pad_token_id=0, kv_cache_dtype=torch_dtype,
             max_slots=max_slots, page_size=page_size, max_seq_len=max_seq_len,
@@ -143,7 +164,9 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
             kv_ledger=kv_ledger,
             kv_cold_after_dispatches=kv_cold_after_dispatches,
             kv_spill=kv_spill, kv_spill_host_gb=kv_spill_host_gb,
-            loop_profile=loop_profile, device=dev, copy_params=False)
+            loop_profile=loop_profile, device=dev, copy_params=False,
+            tp=tp, tp_devices=tp_devs)
+        del params  # a tp engine holds its shards: the whole tree goes
         if warmup:
             t0 = time.monotonic()
             engine.warmup()
@@ -172,6 +195,14 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
         register_with_manager(server, manager_endpoint, is_local=is_local,
                               transfer_streams=transfer_streams)
     return server
+
+
+def _tp_devices(dev: torch.device, tp: int) -> list:
+    """``tp`` cards of this host when it has them (``devs[:tp]``, as the
+    reference takes them), else every shard on ``dev``."""
+    if tp > 1 and dev.type == "cuda" and torch.cuda.device_count() >= tp:
+        return [torch.device("cuda", i) for i in range(tp)]
+    return [dev] * tp
 
 
 def register_with_manager(server, manager_endpoint: str = "",
@@ -215,14 +246,17 @@ def attach_receiver(server, sender_ep: str, transfer_streams: int = 4) -> bool:
 
     if server.receiver is not None:
         return False
-    # quantized and LoRA engines take another tree than their own
-    template = (server.weight_template if server.weight_template
-                is not None else server.engine.params)
+    # quantized and LoRA engines take another tree than their own; a tp
+    # engine takes the whole tree and advertises its shards
+    tp = getattr(server.engine, "tp", 1)
+    template = (server.weight_template if server.weight_template is not None
+                else server.engine._whole_meta() if tp > 1
+                else server.engine.params)
     server.receiver = ReceiverAgent(
         build_layout(template), server.endpoint, sender_ep,
         num_streams=transfer_streams,
         advertise_host=server.endpoint.rsplit(":", 1)[0],
-        shard_spec=build_shard_spec(template),
+        shard_spec=build_shard_spec(template, num_shards=tp),
         pin_buffer=server.engine.device.type == "cuda")
     server.receiver.start()
     log.info("receiver agent attached to sender %s", sender_ep)
@@ -257,6 +291,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="LoRA delta sync: serve base + adapters; pushes "
                         "carry only the adapters (match the trainer's rank)")
     p.add_argument("--lora-alpha", type=float, default=16.0)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel shards in this process (one card "
+                        "each when the host has them, else all on --device)")
     p.add_argument("--max-slots", type=int, default=64)
     p.add_argument("--page-size", type=int, default=64)
     p.add_argument("--max-seq-len", type=int, default=16384)
@@ -340,7 +377,7 @@ def server_from_args(args: argparse.Namespace):
         loop_profile=not args.no_loop_profile,
         manager_endpoint=args.manager_endpoint,
         transfer_streams=args.transfer_streams, is_local=args.is_local,
-        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha)
+        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha, tp=args.tp)
 
 
 def main() -> None:

@@ -385,14 +385,28 @@ class RolloutServer:
             self.engine.weight_version = version
             return True, ""
         from polyrl_tpu_torch.transfer.layout import (
-            make_incremental_installer, unflatten_names)
+            make_incremental_installer, make_sharded_installer,
+            unflatten_names)
 
+        # a tp engine's push lands each shard's blocks in that shard's
+        # staging (an int8 push is quantized whole first: a row-split
+        # weight's per-channel scale spans its shards)
+        sharded = (getattr(self.engine, "tp", 1) > 1
+                   and self.weight_preprocess is None
+                   and self.weight_apply is None)
         try:
             with self._weight_lock:
                 t0 = time.monotonic()
-                install, staging = make_incremental_installer(
-                    self.receiver.layout, self.engine.device, self._staging,
-                    after=self._staging_free)
+                if sharded:
+                    install, staging = make_sharded_installer(
+                        self.receiver.layout, self.receiver.shard_spec,
+                        self.engine.tp_devices,
+                        self._staging if isinstance(self._staging, list)
+                        else None)
+                else:
+                    install, staging = make_incremental_installer(
+                        self.receiver.layout, self.engine.device,
+                        self._staging, after=self._staging_free)
                 # the version actually landed: a superseding round's bytes
                 # may have replaced the requested one
                 installed = self.receiver.wait_for_version(
@@ -400,7 +414,12 @@ class RolloutServer:
                     on_tensor=install)
                 self._staging = staging
                 t1 = time.monotonic()
-                self.update_weights(unflatten_names(staging), installed)
+                if sharded:
+                    self.engine.install_weights(
+                        lambda shards: _copy_shard_staging(shards, staging),
+                        installed)
+                else:
+                    self.update_weights(unflatten_names(staging), installed)
                 if self.engine.device.type == "cuda":
                     import torch
 
@@ -763,3 +782,12 @@ class RolloutServer:
             lines.append(f"# TYPE {name} {kind}")
             lines.append(f"{name} {fmt(v)}")
         return "\n".join(lines) + "\n"
+
+
+def _copy_shard_staging(shards: list, staging: list) -> None:
+    """Each tp shard's landed blocks into its live tensors, in place."""
+    from polyrl_tpu_torch.models.quant import named_leaves
+
+    for tree, landed in zip(shards, staging):
+        for name, dst in named_leaves(tree):
+            dst.copy_(landed[name])

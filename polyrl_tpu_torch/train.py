@@ -37,7 +37,11 @@ and critic, rank 0 alone the rollout, the recorder and the ``/statusz``
 exporter (the others a ``NullRollout``), and every rank runs ``fit``:
 rank 0 broadcasts each ibatch and its rewards. With ``parallel.sp > 1``
 the sequence splits over sp through Ulysses or ring attention
-(``parallel.sp_mode``), packed rows included.
+(``parallel.sp_mode``), packed rows included. With ``parallel.tp > 1``
+(``torchrun ... -m polyrl_tpu_torch.train parallel.tp=2``) each rank
+trains its tensor-parallel shard of the actor and critic
+(``parallel/tensor.py``); the push to rank 0's engine gathers the whole
+tree.
 """
 
 from __future__ import annotations
@@ -307,7 +311,8 @@ def _build_autoscale(cfg: RunConfig, rollout, cleanup: list):
 def _build_mesh(cfg: RunConfig, device: torch.device):
     """The mesh when parallelism is configured or the run is
     multi-process; None on one process with every axis 1 (the actor then
-    shards nothing). ``tp``, ``pp`` and ``ep`` above 1 raise."""
+    shards nothing). ``pp`` and ``ep`` above 1 raise (ROADMAP A' 9.3,
+    9.4)."""
     import torch.distributed as dist
 
     from polyrl_tpu_torch.parallel import distributed
@@ -343,10 +348,14 @@ def _sp_attention(cfg: RunConfig, mcfg, mesh):
         # split sequence; here each rank would attend its own slice only
         raise ValueError(f"parallel.sp > 1 needs sp_mode=ulysses or ring, "
                          f"got {mode!r}")
-    if mode == "ulysses" and mcfg.num_heads % sp:
+    # SP x TP: the SP attention sees this rank's tp heads, and Ulysses
+    # all-to-alls those local heads over sp, so num_heads % (tp * sp) == 0;
+    # the ring moves no heads and has no such rule
+    tp = mesh.shape.get("tp", 1)
+    if mode == "ulysses" and mcfg.num_heads % (sp * tp):
         raise ValueError(
-            f"ulysses SP needs num_heads ({mcfg.num_heads}) divisible by sp "
-            f"({sp}); use sp_mode=ring or different axes")
+            f"ulysses SP needs num_heads ({mcfg.num_heads}) divisible by "
+            f"sp*tp ({sp}*{tp}); use sp_mode=ring or different axes")
     t_total = cfg.trainer.max_prompt_length + cfg.trainer.max_response_length
     if not cfg.trainer.use_remove_padding and t_total % sp:
         raise ValueError(f"sp needs max_prompt+max_response ({t_total}) "

@@ -28,9 +28,14 @@ into pinned host buffers allocated once, ``load_opt_state`` brings them
 back on the default stream before the next update.
 
 Meshes (``mesh=``, ``parallel/mesh.py``): the trained leaves and their
-AdamW moments shard over ``fsdp`` (``parallel/fsdp.py``: gathered whole
-for the forwards of an optimizer step, the gradients reduce-scattered and
-summed over the replicas at the step, clipped by the global norm), and
+AdamW moments shard over ``tp`` by their specs and then over ``fsdp``
+(``parallel/fsdp.py``: each layer's shard gathered inside its layer body
+and its gradient reduce-scattered by its backward; the other leaves
+gathered whole for the forwards of an optimizer step; the gradients
+summed over the replicas at the step, clipped by the global norm), on a
+``tp`` axis each rank runs its tensor-parallel shard
+(``parallel/tensor.py``: Megatron projections, a vocab-parallel embedding
+and logprob head, the frozen leaves cut to their tp blocks too), and
 each rank forwards
 its slice of the batch (``_shard_feed``: rows over dp x fsdp, columns over
 sp), through ``attn_fn`` (with sp > 1 a sequence-parallel attention) or,
@@ -38,9 +43,9 @@ on packed rows, ``packed_attn_fn`` with this rank's segment ids. The
 per-token logprobs come back whole on every rank (``fsdp.gather_data``),
 so the loss, its metrics and ``compute_log_prob`` see the whole micro, as
 the JAX actor's GSPMD program does. Under LoRA the adapters shard and the
-frozen base stays whole on every rank. ``tp``, ``ep`` and ``pp`` above 1
-and pipeline layer stacks (``layers_fn``) raise ``NotImplementedError``
-(ROADMAP A' 9).
+frozen base stays whole on every rank of a tp group. ``ep`` and ``pp``
+above 1 and pipeline layer stacks (``layers_fn``) raise
+``NotImplementedError`` (ROADMAP A' 9.3, 9.4).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from polyrl_tpu_torch.models.quant import (flatten, lora_alphas, named_leaves,
 from polyrl_tpu_torch.ops import core_algos, flash
 from polyrl_tpu_torch.parallel import fsdp
 from polyrl_tpu_torch.parallel import mesh as meshlib
+from polyrl_tpu_torch.parallel import tensor
 
 # rows per unembed chunk in no-grad logprob passes: [rows, T_resp, V] f32
 # logits for 4 rows of 448 tokens at vocab 151,936 are 1.1 GB
@@ -360,7 +366,9 @@ def mesh_columns(mesh, params, model_cfg, feed: dict, packed: bool, remat: bool,
     and 0 off the predictor columns. Packed rows attend through
     ``packed_attn_fn(q, k, v, mask, segment_ids)`` with this rank's
     segment ids (K4 with them when it is None), padded ones through
-    ``attn_fn``."""
+    ``attn_fn``. On a tp axis the forward runs this rank's tp shard
+    (``params`` its blocks) and ``head_fn`` gets ``mesh_tp(mesh)``'s
+    seam as a third argument."""
     ids = feed["input_ids"]
     nxt = torch.zeros_like(ids)
     nxt[:, :-1] = ids[:, 1:]
@@ -374,14 +382,23 @@ def mesh_columns(mesh, params, model_cfg, feed: dict, packed: bool, remat: bool,
                 else (lambda q, k, v, m: packed_attn_fn(q, k, v, m, seg)))
     else:
         attn = attn_fn
+    tp = mesh_tp(mesh)
     h = decoder.forward_hidden(params, model_cfg, local["input_ids"],
                                local["positions"], local["attention_mask"],
-                               remat=remat, attn_fn=attn)
+                               remat=remat, attn_fn=attn, tp=tp)
     keep = local["pred"]
-    outs = head_fn(h[keep], local["next_ids"][keep])
+    outs = (head_fn(h[keep], local["next_ids"][keep]) if tp is None
+            else head_fn(h[keep], local["next_ids"][keep], tp))
     return [fsdp.gather_data(mesh, torch.zeros(keep.shape, dtype=torch.float32,
                                                device=h.device).masked_scatter(keep, o))
             for o in outs]
+
+
+def mesh_tp(mesh):
+    """The decoder's tp seam on a mesh with tp above 1 (else None)."""
+    if mesh is None or mesh.shape[meshlib.TP] == 1:
+        return None
+    return tensor.TensorParallel(mesh)
 
 
 def from_columns(cols: torch.Tensor, feed: dict, packed: bool) -> torch.Tensor:
@@ -397,15 +414,25 @@ def from_columns(cols: torch.Tensor, feed: dict, packed: bool) -> torch.Tensor:
 def _logprob_head(params, model_cfg, compute_entropy: bool):
     """``mesh_columns``' head of the logprob pass: the logprobs (and
     entropy) of the targets, unembedded a chunk at a time without
-    autograd."""
+    autograd; on a tp shard vocab-parallel (``TensorParallel.
+    logprobs_entropy`` over this rank's vocabulary block)."""
     head = decoder.head_weight(params, model_cfg)
 
-    def fn(hs, targets):
+    def fn(hs, targets, tp=None):
         n = max(hs.shape[0], 1)
         step = n if torch.is_grad_enabled() else _NOGRAD_TOKEN_CHUNK
         lps, ents = [], []
+        if tp is not None:
+            hs = tp.copy(hs)
         for i in range(0, n, step):
             logits = decoder.unembed(hs[i:i + step], head)
+            if tp is not None:
+                lp, ent = tp.logprobs_entropy(logits, targets[i:i + step],
+                                              compute_entropy)
+                lps.append(lp)
+                if compute_entropy:
+                    ents.append(ent)
+                continue
             lps.append(core_algos.logprobs_from_logits(logits, targets[i:i + step]))
             if compute_entropy:
                 ents.append(core_algos.entropy_from_logits(logits))
@@ -476,19 +503,22 @@ def load_train_state(named: list, opt_state: OptState,
             dst.copy_(src)
 
 
-def check_mesh_args(mesh, attn_fn, layers_fn) -> None:
+def check_mesh_args(mesh, attn_fn, layers_fn, model_cfg=None) -> None:
     """What the actor and critic refuse: pipeline layer stacks, meshes with
-    ``tp``/``ep``/``pp`` above 1, and ``sp`` above 1 without a
-    sequence-parallel ``attn_fn``."""
+    ``ep``/``pp`` above 1, ``sp`` above 1 without a sequence-parallel
+    ``attn_fn``, and a ``tp`` that does not divide the model
+    (``tensor.local_config``)."""
     if layers_fn is not None:
         raise NotImplementedError("pipeline layer stacks (layers_fn) are not "
-                                  "ported yet (ROADMAP A' 9)")
+                                  "ported yet (ROADMAP A' 9.3)")
     if mesh is None:
         return
     meshlib.refuse_unported(mesh.shape)
     if mesh.shape[meshlib.SP] > 1 and attn_fn is None:
         raise ValueError("sp > 1 needs a sequence-parallel attn_fn "
                          "(parallel.sequence.make_sp_attention)")
+    if model_cfg is not None:
+        tensor.local_config(model_cfg, mesh.shape[meshlib.TP])
 
 
 def whole_state(sharded, named: list, opt_state: OptState):
@@ -504,18 +534,27 @@ def whole_state(sharded, named: list, opt_state: OptState):
 
 @torch.no_grad()
 def load_whole_state(sharded, named: list, opt_state: OptState, flat: dict,
-                     frozen: list = (), alphas: dict | None = None) -> None:
+                     frozen: list = (), alphas: dict | None = None,
+                     frozen_shapes: list | None = None) -> None:
     """``load_train_state`` of a whole dict; on a mesh into whole scratch
-    tensors first, whose shards then go into the live ones."""
+    tensors first, whose shards (and the frozen leaves' tp blocks, whole
+    shapes ``frozen_shapes``) then go into the live ones."""
     if sharded is None:
         load_train_state(named, opt_state, flat, frozen, alphas)
         return
-    full = [torch.empty(shape, dtype=p.dtype, device=p.device)
-            for shape, (_, p) in zip(sharded.shapes, named)]
+    dev = named[0][1].device
+    full = [torch.empty(shape, dtype=dt, device=dev)
+            for shape, dt in zip(sharded.shapes, sharded.dtypes)]
     moments = dict(mu=[torch.empty_like(f) for f in full],
                    nu=[torch.empty_like(f) for f in full])
     scratch = dataclasses.replace(opt_state, **moments)
-    load_train_state(list(zip(sharded.names, full)), scratch, flat, frozen, alphas)
+    whole_frozen = [(n, torch.empty(shape, dtype=p.dtype, device=p.device))
+                    for (n, p), shape in zip(frozen, frozen_shapes or
+                                             [p.shape for _, p in frozen])]
+    load_train_state(list(zip(sharded.names, full)), scratch, flat,
+                     whole_frozen, alphas)
+    for (n, p), (_, w) in zip(frozen, whole_frozen):
+        p.copy_(tensor.tp_slice(sharded.mesh, w, sharded.frozen_tp_dim(n, w.shape)))
     sharded.load([p for _, p in named], full)
     sharded.load(opt_state.mu, moments["mu"])
     sharded.load(opt_state.nu, moments["nu"])
@@ -544,6 +583,56 @@ def step_grads(sharded, named: list, inv_scale: float, optimizer: Optimizer):
     return grads, g_norm, finite
 
 
+def shard_tree(mesh, model_cfg, named: list, frozen: list, params: dict):
+    """A trainer's tree on a mesh: (the ``fsdp.ShardedLeaves`` of its
+    trained leaves, the shards as its ``(name, tensor)`` list, the frozen
+    leaves cut to their tp blocks, the tree with those frozen blocks in
+    place and the trained leaves as empty placeholders: only the shards
+    hold them)."""
+    sharded = fsdp.ShardedLeaves(mesh, named, model_cfg.num_layers)
+    sharded.frozen_whole = {n: tuple(p.shape) for n, p in frozen}
+    frozen = [(n, tensor.tp_slice(mesh, p.detach(), sharded.frozen_tp_dim(n, p.shape)))
+              for n, p in frozen]
+    flat = flatten(params)
+    flat.update(dict(frozen))
+    flat.update({n: p.new_empty(0) for n, p in named})
+    return (sharded, list(zip(sharded.shard_names, sharded.shards)), frozen,
+            unflatten(flat))
+
+
+def forward_tree(sharded, params: dict) -> dict:
+    """The tree a forward on a mesh reads (``ShardedLeaves.forward_leaves``
+    in place of the trained leaves)."""
+    leaves = sharded.forward_leaves(params["layers"])
+    layers = leaves.pop("layers", None)
+    tree = unflatten({**flatten(params), **leaves})
+    if layers is not None:
+        tree["layers"] = layers
+    return tree
+
+
+def whole_frozen(sharded, frozen: list) -> list:
+    """The frozen leaves whole (tp blocks gathered: a collective)."""
+    if sharded is None or sharded.mesh.shape[meshlib.TP] == 1:
+        return list(frozen)
+    return [(n, tensor.tp_unslice(sharded.mesh, p, sharded.frozen_tp_dim(
+        n, sharded.whole_frozen_shape(n)))) for n, p in frozen]
+
+
+def frozen_shapes(sharded, frozen: list) -> list | None:
+    if sharded is None:
+        return None
+    return [sharded.whole_frozen_shape(n) for n, _ in frozen]
+
+
+@torch.no_grad()
+def whole_tree(sharded, params: dict, frozen: list) -> dict:
+    """The whole parameter tree of a trainer on a mesh (collectives)."""
+    whole = dict(zip(sharded.names, sharded.gather(sharded.shards)))
+    whole.update(dict(whole_frozen(sharded, frozen)))
+    return unflatten({**flatten(params), **whole})
+
+
 class StreamActor:
     """Owns params, optimizer state and accumulated gradients; stream-update
     semantics: gradients accumulate over ``update_stream`` calls scaled by
@@ -552,7 +641,7 @@ class StreamActor:
     def __init__(self, model_cfg: decoder.ModelConfig, cfg: ActorConfig,
                  params: Any, mesh=None, attn_fn=None, layers_fn=None,
                  packed_attn_fn=None):
-        check_mesh_args(mesh, attn_fn, layers_fn)
+        check_mesh_args(mesh, attn_fn, layers_fn, model_cfg)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.mesh = mesh
@@ -577,12 +666,8 @@ class StreamActor:
             (self._named if trained else self._frozen).append((n, p))
         self._fsdp = None
         if mesh is not None:
-            # the trained leaves become this rank's fsdp shards; the tree
-            # keeps the shards in their place (its leaves are no longer
-            # whole: ``gather_params`` gives the whole tree)
-            self._fsdp = fsdp.ShardedLeaves(mesh, self._named)
-            self._named = list(zip(self._fsdp.names, self._fsdp.shards))
-            self.params = self._tree_with([p for _, p in self._named])
+            self._fsdp, self._named, self._frozen, self.params = shard_tree(
+                mesh, model_cfg, self._named, self._frozen, self.params)
         self.device = self._named[0][1].device
         self.optimizer = make_optimizer(cfg)
         self.opt_state = self.optimizer.init([p for _, p in self._named])
@@ -595,26 +680,20 @@ class StreamActor:
         # tail flush renormalizes by it (mean over the micros it holds)
         self._accum_scale = 0.0
 
-    def _tree_with(self, trained: list[torch.Tensor]) -> dict:
-        """The parameter tree with ``trained`` in place of the trained
-        leaves (in ``_named`` order)."""
-        return unflatten({**flatten(self.params),
-                          **dict(zip((n for n, _ in self._named), trained))})
-
     def _forward_params(self) -> dict:
-        """The tree a forward reads: on a mesh the whole trained leaves,
-        gathered (through autograd while it records)."""
+        """The tree a forward reads: on a mesh this rank's tp blocks, the
+        layers through their per-layer gather and the rest gathered whole
+        (through autograd while it records)."""
         if self._fsdp is None:
             return self.params
-        return self._tree_with(self._fsdp.full())
+        return forward_tree(self._fsdp, self.params)
 
     def gather_params(self) -> dict:
         """The whole parameter tree (on a mesh a collective: every rank
         calls it; the whole leaves are new tensors)."""
         if self._fsdp is None:
             return self.params
-        with torch.no_grad():
-            return self._tree_with(self._fsdp.full())
+        return whole_tree(self._fsdp, self.params, self._frozen)
 
     def export_params(self) -> dict:
         """The parameters in the plain layout the rollout engine takes: the
@@ -634,14 +713,16 @@ class StreamActor:
         mesh gathered: a collective)."""
         self._wait_offloaded()
         named, state = whole_state(self._fsdp, self._named, self.opt_state)
-        return train_state(named, state, self._frozen, lora_alphas(self.params))
+        return train_state(named, state, whole_frozen(self._fsdp, self._frozen),
+                           lora_alphas(self.params))
 
     def load_state_dict(self, flat: dict[str, torch.Tensor]) -> None:
         """Load a whole ``train_state`` dict (on a mesh each rank keeps its
         shards of it)."""
         self._wait_offloaded()
         load_whole_state(self._fsdp, self._named, self.opt_state, flat,
-                         self._frozen, lora_alphas(self.params))
+                         self._frozen, lora_alphas(self.params),
+                         frozen_shapes(self._fsdp, self._frozen))
 
     # -- optimizer offload (reference actor.py:275-298) ------------------------
 

@@ -18,11 +18,13 @@ the non-finite guard, as in the JAX critic. Parameters are updated in
 place, as the actor's are.
 
 On a mesh the critic shards as the actor does (``parallel/fsdp.py``:
-every leaf and its AdamW moments over ``fsdp``, gathered whole for the
-forwards of an optimizer step, the global clip norm) and each rank forwards its slice of the
-batch (``actor.mesh_columns``), the values coming back whole on every
-rank. Pipeline layer stacks and ``tp``/``ep``/``pp`` above 1 raise
-``NotImplementedError`` (ROADMAP A' 9).
+every leaf and its AdamW moments over tp by their specs and then over
+``fsdp``, the layers gathered one at a time inside their layer bodies,
+the global clip norm; on a tp axis the trunk runs its tensor-parallel
+shard and ``value_head`` is replicated) and each rank forwards its slice
+of the batch (``actor.mesh_columns``), the values coming back whole on
+every rank. Pipeline layer stacks and ``ep``/``pp`` above 1 raise
+``NotImplementedError`` (ROADMAP A' 9.3, 9.4).
 """
 
 from __future__ import annotations
@@ -35,15 +37,14 @@ import torch
 import torch.nn.functional as F
 
 from polyrl_tpu_torch.models import decoder
-from polyrl_tpu_torch.models.quant import unflatten
 from polyrl_tpu_torch.ops import core_algos
-from polyrl_tpu_torch.parallel import fsdp
 from polyrl_tpu_torch.trainer.actor import (Optimizer, _leaves, _to_device,
                                             _tree_map, bind_packed_attention,
                                             check_mesh_args,
                                             default_train_attention,
-                                            from_columns, load_whole_state,
-                                            mesh_columns, step_grads,
+                                            forward_tree, from_columns,
+                                            load_whole_state, mesh_columns,
+                                            shard_tree, step_grads,
                                             train_state, whole_state)
 
 
@@ -109,7 +110,7 @@ class StreamCritic:
     def __init__(self, model_cfg: decoder.ModelConfig, cfg: CriticConfig,
                  params: Any, mesh=None, attn_fn=None, layers_fn=None,
                  packed_attn_fn=None):
-        check_mesh_args(mesh, attn_fn, layers_fn)
+        check_mesh_args(mesh, attn_fn, layers_fn, model_cfg)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.mesh = mesh
@@ -119,10 +120,9 @@ class StreamCritic:
         self._named = list(_leaves(self.params))
         self._fsdp = None
         if mesh is not None:
-            # every leaf becomes this rank's fsdp shard (see StreamActor)
-            self._fsdp = fsdp.ShardedLeaves(mesh, self._named)
-            self._named = list(zip(self._fsdp.names, self._fsdp.shards))
-            self.params = self._tree_with([p for _, p in self._named])
+            # every leaf becomes this rank's shard (see StreamActor)
+            self._fsdp, self._named, _, self.params = shard_tree(
+                mesh, model_cfg, self._named, [], self.params)
         self.device = self._named[0][1].device
         self.optimizer = Optimizer(cfg.max_grad_norm,
                                    lambda count: np.float32(cfg.lr),
@@ -131,14 +131,11 @@ class StreamCritic:
         # sum of loss_scales since the last optimizer step (tail flush)
         self._accum_scale = 0.0
 
-    def _tree_with(self, leaves: list[torch.Tensor]) -> dict:
-        return unflatten(dict(zip((n for n, _ in self._named), leaves)))
-
     def _forward_params(self) -> dict:
-        """The tree a forward reads (whole: gathered on a mesh)."""
+        """The tree a forward reads (on a mesh ``actor.forward_tree``)."""
         if self._fsdp is None:
             return self.params
-        return self._tree_with(self._fsdp.full())
+        return forward_tree(self._fsdp, self.params)
 
     def state_dict(self) -> dict[str, torch.Tensor]:
         """Parameters and optimizer state (``actor.train_state``), whole
@@ -157,7 +154,7 @@ class StreamCritic:
             head = params["value_head"]
             vals = mesh_columns(self.mesh, params, self.model_cfg, batch, packed,
                                 remat, self.attn_fn, self.packed_attn_fn,
-                                lambda hs, _targets: [_values_of(hs, head)],
+                                lambda hs, _targets, _tp=None: [_values_of(hs, head)],
                                 mask_key=None)[0]
             return from_columns(vals, batch, packed)
         if packed:

@@ -358,11 +358,23 @@ class ShardSpec:
                          {k: int(v) for k, v in d.get("axes", {}).items()})
 
 
-def build_shard_spec(params: Any) -> ShardSpec:
-    """The spec of an unsharded tree: one shard, every entry replicated
-    (the port's trainer and engines each hold whole tensors on one
-    device)."""
-    return ShardSpec(1, {name: None for name, _ in flatten_with_names(params)})
+def build_shard_spec(params: Any, axis: str = "tp",
+                     num_shards: int = 1) -> ShardSpec:
+    """The :class:`ShardSpec` of a tree (the whole one, or its ``meta``
+    template) held in ``num_shards`` shards over ``axis``: each entry's
+    tensor dimension that the axis splits, as ``parallel/tensor.tp_dim``
+    gives it for ``tp`` (the reference reads it off each leaf's
+    PartitionSpec; the port's trees carry no sharding, so an engine says
+    how many shards it holds). One shard (a trainer's gathered tree, a
+    one-shard engine) replicates every entry."""
+    from polyrl_tpu_torch.parallel.tensor import tp_dim
+
+    if axis != "tp" and num_shards > 1:
+        raise NotImplementedError(f"a shard spec over {axis!r} is not ported "
+                                  "(ROADMAP A' 9)")
+    return ShardSpec(int(num_shards), {
+        name: (tp_dim(name, tuple(leaf.shape)) if num_shards > 1 else None)
+        for name, leaf in flatten_with_names(params)})
 
 
 def _shard_ranges(e: Entry, axis: int | None, n: int):
@@ -515,3 +527,65 @@ def build_resharding_map(layout: ParamLayout,
             atoms.append((end, nxt - end, POOL, POOL))
     atoms.sort()
     return ReshardingMap(layout.total_bytes, t_n, e_n, tuple(atoms))
+
+
+def pack_params_ranges(params: Any, layout: ParamLayout, buffer: np.ndarray,
+                       ranges: list[tuple[int, int]]) -> None:
+    """Range-restricted pack: copy into ``buffer`` only the bytes covered
+    by ``ranges`` (sorted, disjoint ``(offset, length)``), reading only
+    the entries they intersect (a card leaf's needed bytes only cross to
+    the host), so that each stream of a sharded push can pack its own
+    slice of the layout."""
+    if not ranges:
+        return
+    by_name = dict(flatten_with_names(params))
+    ri = 0
+    for e in layout.entries:
+        lo, hi = e.offset, e.offset + e.nbytes
+        while ri < len(ranges) and ranges[ri][0] + ranges[ri][1] <= lo:
+            ri += 1
+        j = ri
+        need = []
+        while j < len(ranges) and ranges[j][0] < hi:
+            r_lo, r_hi = max(lo, ranges[j][0]), min(hi, ranges[j][0] + ranges[j][1])
+            if r_lo < r_hi:
+                need.append((r_lo, r_hi))
+            j += 1
+        if not need:
+            continue
+        flat = _byte_view(by_name[e.name])
+        for r_lo, r_hi in need:
+            buffer[r_lo:r_hi] = flat[r_lo - lo:r_hi - lo].cpu().numpy()
+
+
+def make_sharded_installer(layout: ParamLayout, spec: ShardSpec, devices,
+                           staging: list | None = None):
+    """:func:`make_incremental_installer` for an engine of
+    ``spec.num_shards`` tp shards (``CBEngine``'s ``tp``): ``install_fn(
+    entry, raw)`` cuts each landed entry along its spec axis and copies
+    shard s's block into ``staging[s][name]`` on ``devices[s]`` (a
+    replicated entry whole into every shard's), so that no device ever
+    holds a whole split tensor. Returns ``(install_fn, staging)``, one
+    ``{name: tensor}`` dict a shard, reused when ``staging`` is given. A
+    copy is synchronous: the receiver may reuse the landed bytes once
+    ``install_fn`` returns."""
+    n = spec.num_shards
+    staging = [{} for _ in range(n)] if staging is None else staging
+    devices = [torch.device(d) for d in devices]
+
+    def install(entry: Entry, raw) -> None:
+        src = entry_tensor(entry, raw)
+        axis = spec.axis_of(entry.name)
+        for s in range(n):
+            blk = src if axis is None else src.chunk(n, axis)[s]
+            dst = staging[s].get(entry.name)
+            if dst is None or dst.shape != blk.shape:
+                dst = staging[s][entry.name] = torch.empty(
+                    blk.shape, dtype=blk.dtype, device=devices[s])
+            dst.copy_(blk)
+        if any(d.type == "cuda" for d in devices):
+            for d in set(devices):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+
+    return install, staging

@@ -241,15 +241,23 @@ def _mesh(**axes):
 
 
 def test_unported_actor_options_raise():
-    """Meshes with a tensor-parallel axis still refuse (fsdp/dp/sp meshes
-    are ported: ``tests/test_torch_multihost.py``); LoRA and optimizer
-    offload are ported and construct (``tests/test_torch_lora.py``, the
-    offload test below)."""
+    """Meshes with a pipeline axis, and a tensor-parallel axis on a MoE
+    config (its experts wait for ep), still refuse; tp meshes are ported
+    (``tests/test_torch_tensor_parallel.py``), and so are LoRA and
+    optimizer offload (``tests/test_torch_lora.py``, the offload test
+    below)."""
     _jcfg, tcfg, tree = _models()
     for kw in (dict(lora_rank=4), dict(offload_optimizer=True)):
         tactor.StreamActor(tcfg, tactor.ActorConfig(**kw), _tparams(tree))
+    tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree),
+                       mesh=_mesh(tp=2))
     with pytest.raises(NotImplementedError, match="A' 9"):
         tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree),
+                           mesh=_mesh(pp=2))
+    moe = tdec.get_config("moe-tiny", dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="A' 9.4"):
+        tactor.StreamActor(moe, tactor.ActorConfig(),
+                           tdec.init_params(torch.Generator().manual_seed(0), moe),
                            mesh=_mesh(tp=2))
 
 

@@ -92,21 +92,26 @@ def test_shard_params_reassemble_bitwise(converted, fsdp):
 
 
 def test_unported_axes_and_specs_raise(converted):
-    """tp, ep and pp above 1 raise, naming ROADMAP A' 9: in the mesh, in
-    a parameter spec over tp, and in the trainer's mesh build."""
+    """ep and pp above 1 raise, naming ROADMAP A' 9: in the mesh, in a
+    parameter spec over ep, and in the trainer's mesh build. tp is ported,
+    its blocks cut by leaf name (``tensor.tp_dim``): ``shard_params``
+    shards over fsdp only and refuses a spec over tp."""
     from polyrl_tpu_torch.config import load_config
     from polyrl_tpu_torch.train import _build_mesh
 
-    for axis in ("tp", "ep", "pp"):
+    for axis in ("ep", "pp"):
         with pytest.raises(NotImplementedError, match="A' 9"):
             meshlib.refuse_unported({axis: 2})
         cfg = load_config(None, ["device=cpu", f"parallel.{axis}=2"])
         with pytest.raises(NotImplementedError, match="A' 9"):
             _build_mesh(cfg, torch.device("cpu"))
+    meshlib.refuse_unported({"tp": 2})
     mesh = meshlib.Mesh((1, 2, 1, 1, 1, 1), 0, make_groups=False)
     with pytest.raises(NotImplementedError, match="A' 9"):
-        meshlib.shard_params(mesh, converted, {"embed": (None, "tp")})
+        meshlib.shard_params(mesh, converted, {"embed": (None, "ep")})
     meshlib.shard_params(mesh, converted, {"embed": ("fsdp", None)})
+    with pytest.raises(ValueError, match="tp_dim"):
+        meshlib.shard_params(mesh, converted, {"embed": ("tp", "fsdp")})
 
 
 def test_one_process_builds_no_mesh_and_single_device_mesh():

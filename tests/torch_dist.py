@@ -139,11 +139,12 @@ FIT_TRAINER = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
 
 
 def fit_trainer(mesh=None, sp_mode="ulysses", ckpt_dir="", lora_rank=0,
-                **overrides):
+                model=None, **overrides):
     """The tiny fit of every world (``mesh`` None: one process): f32,
     seed 0, the KL loss against a mesh-free reference policy, a
     deterministic rollout on rank 0 (a ``NullRollout`` elsewhere) and the
-    response-length reward; LoRA adapters of ``lora_rank`` when given.
+    response-length reward; LoRA adapters of ``lora_rank`` when given,
+    ``model`` (a dict) overriding the tiny config's fields.
     ``overrides`` go into ``TrainerConfig``."""
     from polyrl_tpu_torch.data.dataset import PromptDataLoader, make_arithmetic_dataset
     from polyrl_tpu_torch.models import decoder
@@ -158,7 +159,7 @@ def fit_trainer(mesh=None, sp_mode="ulysses", ckpt_dir="", lora_rank=0,
     from polyrl_tpu_torch.utils.tokenizer import ByteTokenizer
 
     tcfg = TrainerConfig(**{**FIT_TRAINER, "ckpt_dir": ckpt_dir, **overrides})
-    cfg = decoder.get_config("tiny", dtype=torch.float32)
+    cfg = decoder.get_config("tiny", dtype=torch.float32, **(model or {}))
     params = decoder.init_params(torch.Generator().manual_seed(0), cfg)
     tok = ByteTokenizer()
     attn = packed = None
@@ -386,7 +387,165 @@ def task_sp_attention(out, rank, world):
         torch.save(res, out / f"sp_attention.r{rank}.pt")
 
 
+def tp_feed(seed: int = 5, b: int = 4, tp: int = 12, tr: int = 6,
+            vocab: int = 128) -> dict:
+    """A padded logprob feed (left-padded prompts, masked responses) of
+    the tensor-parallel tasks."""
+    rng = np.random.default_rng(seed)
+    t = tp + tr
+    ids = rng.integers(1, vocab, (b, t)).astype(np.int64)
+    mask = np.ones((b, t), np.float32)
+    for i in range(b):
+        mask[i, :i] = 0.0
+    pos = np.clip(np.cumsum(mask, 1) - 1, 0, None).astype(np.int32)
+    resp_mask = np.ones((b, tr), np.float32)
+    resp_mask[1, -2:] = 0.0
+    return {"input_ids": ids, "positions": pos, "attention_mask": mask,
+            "responses": ids[:, -tr:], "response_mask": resp_mask,
+            "advantages": rng.normal(size=(b, tr)).astype(np.float32),
+            "old_log_probs": (-rng.random((b, tr)) - 1.0).astype(np.float32)}
+
+
+# the tensor-parallel tasks' variants: (model overrides, LoRA rank). Qwen3's
+# qk-norm weights and the LoRA adapters are replicated leaves that meet a
+# rank's tp-split activations: their gradients are summed over tp
+TP_VARIANTS = {"tiny": ({}, 0), "qk_norm": ({"use_qk_norm": True}, 0),
+               "lora": ({}, 4)}
+
+
+def tp_model(seed: int = 0, variant: str = "tiny"):
+    """The tensor-parallel tasks' model: tiny (4 q / 2 kv heads) in f32
+    at vocabulary 128, with ``TP_VARIANTS[variant]``'s overrides."""
+    from polyrl_tpu_torch.models import decoder
+
+    cfg = decoder.get_config("tiny", dtype=torch.float32, vocab_size=128,
+                             **TP_VARIANTS[variant][0])
+    return cfg, decoder.init_params(torch.Generator().manual_seed(seed), cfg)
+
+
+def tp_actor(variant: str, mesh=None, remat: bool = True):
+    """The variant's actor without the KL loss. LoRA adapters get a
+    nonzero ``b`` (0.1 N(0, 1) from the same generator as ``a``, the same
+    on every rank), so both adapters carry a gradient at the first
+    micro."""
+    from polyrl_tpu_torch.models import lora
+    from polyrl_tpu_torch.models.quant import LoraWeight
+    from polyrl_tpu_torch.trainer.actor import ActorConfig, StreamActor
+
+    cfg, params = tp_model(variant=variant)
+    rank = TP_VARIANTS[variant][1]
+    real = lora.wrap_lora
+
+    def wrap_live_b(*args, **kw):
+        tree = real(*args, **kw)
+        for w in tree["layers"].values():
+            if isinstance(w, LoraWeight):
+                w.b.normal_(generator=args[1]).mul_(0.1)
+        return tree
+
+    lora.wrap_lora = wrap_live_b
+    try:
+        return StreamActor(cfg, ActorConfig(remat=remat, use_kl_loss=False,
+                                            lora_rank=rank), params, mesh=mesh)
+    finally:
+        lora.wrap_lora = real
+
+
+def tp_micro_grads(actor, feed) -> dict:
+    """One micro's loss backward and the whole gradient by leaf name (a
+    collective on a mesh: every rank's shards gathered)."""
+    from polyrl_tpu_torch.trainer.actor import _to_device
+
+    with torch.enable_grad():
+        loss, _ = actor._loss_fn(_to_device(feed, actor.device), 1.0)
+        loss.backward()
+    if actor._fsdp is None:
+        return {n: p.grad.detach().clone() for n, p in actor._named}
+    sh = actor._fsdp
+    return dict(zip(sh.names, sh.gather(sh.shard_grads())))
+
+
+def task_tp_logprobs(out, rank, world):
+    """fsdp 2 x tp 2: the padded logprob pass and entropy of ``tp_feed``,
+    on tiny and on tiny with qk-norm."""
+    from polyrl_tpu_torch.trainer.actor import ActorConfig, StreamActor
+
+    res = {}
+    for variant in ("tiny", "qk_norm"):
+        cfg, params = tp_model(variant=variant)
+        actor = StreamActor(cfg, ActorConfig(remat=False), params,
+                            mesh=_mesh(fsdp=2, tp=2))
+        lp, ent = actor.compute_log_prob(tp_feed())
+        res[variant] = {"lp": lp.numpy(), "ent": ent.numpy()}
+    torch.save(res, out / f"tp_logprobs.r{rank}.pt")
+
+
+def task_sp_tp(out, rank, world):
+    """sp 2 x tp 2: the packed logprob pass, Ulysses and ring."""
+    from polyrl_tpu_torch.parallel.sequence import make_sp_attention
+    from polyrl_tpu_torch.trainer.actor import ActorConfig, StreamActor
+
+    res = {}
+    for mode in ("ulysses", "ring"):
+        mesh = _mesh(sp=2, tp=2)
+        cfg, params = tp_model()
+        actor = StreamActor(cfg, ActorConfig(remat=False), params, mesh=mesh,
+                            attn_fn=make_sp_attention(mesh, mode),
+                            packed_attn_fn=make_sp_attention(mesh, mode, packed=True))
+        lp, ent = actor.compute_log_prob_packed(packed_feed())
+        res[mode] = (lp.numpy(), ent.numpy())
+    torch.save(res, out / f"sp_tp.r{rank}.pt")
+
+
+def task_tp_grad(out, rank, world):
+    """fsdp 2 x tp 2 with remat (each layer gathered again in the
+    backward): one micro's whole gradient of every ``TP_VARIANTS`` actor,
+    on every rank."""
+    res = {}
+    for variant in TP_VARIANTS:
+        grads = tp_micro_grads(tp_actor(variant, _mesh(fsdp=2, tp=2)), tp_feed())
+        res[variant] = {n: g.numpy() for n, g in grads.items()}
+    torch.save(res, out / f"tp_grad.r{rank}.pt")
+
+
+def task_fit_tp(out, rank, world):
+    """A fit step at fsdp 2 x tp 2 on tiny with qk-norm, and one with LoRA
+    adapters."""
+    res = {}
+    for name, kw in (("qk_norm", dict(model=TP_VARIANTS["qk_norm"][0])),
+                     ("lora", dict(lora_rank=4))):
+        trainer = fit_trainer(_mesh(fsdp=2, tp=2), **kw)
+        hist = trainer.fit()
+        whole = whole_params(trainer)
+        res[name] = {"digest": digest(whole), "history": hist,
+                     "params": whole if rank == 0 else None}
+    torch.save(res, out / f"fit_tp.r{rank}.pt")
+
+
+def task_fit_layer(out, rank, world):
+    """fsdp 2 x tp 2 fits on the per-layer route and on the whole-tree
+    one, at one micro a step and at two."""
+    from polyrl_tpu_torch.parallel import fsdp
+
+    res = {}
+    for per_layer in (True, False):
+        for micro in (8, 4):
+            fsdp.PER_LAYER = per_layer
+            try:
+                trainer = fit_trainer(_mesh(fsdp=2, tp=2), micro_batch_size=micro)
+                trainer.fit()
+                res[(per_layer, micro)] = whole_params(trainer)["actor"]
+            finally:
+                fsdp.PER_LAYER = True
+    torch.save(res if rank == 0 else {}, out / f"fit_layer.r{rank}.pt")
+
+
 TASKS = {
+    "tp_logprobs": task_tp_logprobs,
+    "sp_tp": task_sp_tp,
+    "tp_grad": task_tp_grad,
+    "fit_tp": task_fit_tp,
+    "fit_layer": task_fit_layer,
     "broadcast": task_broadcast,
     "shard_gather": task_shard_gather,
     "fit_fsdp": _fit_task("fit_fsdp", lambda w: _mesh(fsdp=w)),
