@@ -375,9 +375,11 @@ when CUDA is unavailable or any phase fails. Phases:
               (``--parallel-worker``), both on cuda:0, backend gloo (NCCL
               refuses two ranks on one device), joined within
               PARALLEL_TIMEOUT_S (a hang or a failure on either rank fails
-              the phase). Each logs which collectives gloo takes on CUDA
-              tensors as they are (the port stages them through the host).
-              A: ``build_trainer`` on the train phase's configuration with
+              the phase). One 2-rank probe world first logs which
+              collectives gloo takes on CUDA tensors as they are (the port
+              stages them through the host).
+              A: ``build_trainer`` on the train phase's configuration at
+              PARALLEL_CUT_LAYERS layers with
               ``parallel.fsdp=2`` (one GRPO step, rank 0's colocated
               engine; each layer's shard gathered inside its layer body,
               each rank's peak below the whole-tree route's A_PEAK_GB):
@@ -392,12 +394,22 @@ when CUDA is unavailable or any phase fails. Phases:
               one-device forward, K4 run with segment ids on both ranks.
               Ring attention over the 2 ranks at B 1, T 4096 against K4
               alone, forward and backward, under K4's bounds. C:
-              ``parallel.tp=2`` (each rank its tensor-parallel shard), one
-              GRPO step: A's gates (old logprobs, the gradient against one
-              rank's on the gathered weights, K4 on both ranks, the digest
-              equal). Logs the step walls by phase ("two ranks sharing one
-              card"), each rank's peak, its parameter and AdamW bytes. Its
-              launches stay out of the ``kernels`` line.
+              ``parallel.tp=2`` (each rank its tensor-parallel shard) at
+              PARALLEL_CUT_LAYERS layers, one GRPO step: A's gates (old
+              logprobs, the gradient against one rank's on the gathered
+              weights, K4 on both ranks, the digest equal). D:
+              ``parallel.pp=2`` at the training cell's full depth (28
+              layers, 14 a stage, PP_MICRO GPipe microbatches), one step:
+              A's gates, and the leaves pp does not split (the embedding,
+              the final norm) bitwise equal on both ranks. E:
+              ``parallel.ep=2`` on qwen3-30b-a3b at full width and
+              EP_LAYERS layers (64 experts a rank), one step: the gradient
+              against one rank's, the router and every expert block moved,
+              the router bitwise equal on both ranks, K4 on both. Logs the
+              step walls by phase ("two ranks sharing one card"), each
+              rank's peak, its parameter and AdamW bytes, the push's
+              gathered bytes. Its launches stay out of the ``kernels``
+              line.
 18. tp     -- (run right after serve) ``create_server(tp=2)``, ``serve
               --tp 2``'s engine: ``qwen3-1.7b`` at full width and depth,
               bf16, seed 0, two shards of 8 q / 4 kv heads on the one card,
@@ -415,6 +427,10 @@ when CUDA is unavailable or any phase fails. Phases:
               one-shard step's from the same step in f32); one push of the whole tree through the
               fabric into the server's receiver (``transfer_shard_tp`` 2),
               every shard's installed blocks bitwise the sender's slices.
+              Then the same on qwen3-30b-a3b at full width and
+              TP_MOE_LAYERS layers, dropless ("tp moe"): each shard half of
+              every expert's width and the whole router, its launches in
+              the ``kernels`` line's tp share.
               The hybrid phase also fails when its short window's stream
               takes over HYBRID_WINDOW_MAX_S.
 19. result -- the card's name and power limit, a ``{"kernels": [...]}``
@@ -438,6 +454,7 @@ import dataclasses
 import gc
 import http.client
 import json
+import math
 import os
 import re
 import shutil
@@ -4457,6 +4474,9 @@ def features_lines(f: dict, smi: str) -> list[str]:
 # -- phase 10: the step backend (step) ------------------------------------------
 
 STEP_STREAMS, STEP_PROMPT, STEP_NEW = 16, 128, 256
+# the step backend's GRPO step: responses of this many tokens (the training
+# cell's 448 until PR 17: its generation took 24.3 s of the smoke's budget)
+STEP_FIT_RESPONSE = 128
 STEP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 
 
@@ -4544,6 +4564,7 @@ def step_phase(dev) -> dict:
 
     tcfg = load_config(None, TRAIN_OVERRIDES + [
         "rollout.backend=step", f"rollout.batch_buckets={STEP_STREAMS}",
+        f"trainer.max_response_length={STEP_FIT_RESPONSE}",
         "trainer.total_steps=1"])
     cleanup: list = []
     torch.cuda.reset_peak_memory_stats(dev)
@@ -6570,8 +6591,9 @@ def autoscale_phase(dev, disagg: dict) -> dict:
         pack = {p_["version"]: p_ for p_ in iface.push_log}.get(
             first_sync["version"], {})
         # A: drained at step 3's tick, flushed within the grace (running
-        # nothing, or shut down: the manager evicts a remote whose stream
-        # ends in an abort terminal and sends it /shutdown), then idle
+        # nothing), then idle; its streams' abort terminals are a
+        # preemption, so the manager neither evicts it nor shuts it down
+        # (the eviction count is read after the drain, not gated)
         nt = notices[0]
         after = [r_ for r_ in timeline if r_["t"] >= nt["t0"]]
         flushed = next((r_["t"] for r_ in after
@@ -6602,6 +6624,7 @@ def autoscale_phase(dev, disagg: dict) -> dict:
               f"autoscale greedy: {served.error}")
         info_a = server_info_or_none(port_a)
         info_b = post(port_b, "/get_server_info", None)
+        evictions = mgr.get_instances_status()["pool"]["evictions"]
         check(info_a is None or info_a["total_tokens_served"] == a_last["tokens"],
               "autoscale: A served tokens after its drain")
         launches = dict(cuda_build.LAUNCHES)
@@ -6670,6 +6693,7 @@ def autoscale_phase(dev, disagg: dict) -> dict:
                       raised_s=first_sync["t_wall"] - adds[0]["t0"]),
             drain=dict(flush_s=flush_s, preempt_s=nt["t1"] - nt["t0"],
                        grace_s=AUTOSCALE_GRACE_S, down_s=a_down,
+                       evictions=evictions,
                        salvaged=a_last["salvaged"]
                        - info_a_pre.get("tokens_salvaged", 0),
                        drained=a_last["drained"]),
@@ -6769,8 +6793,9 @@ def autoscale_lines(d: dict, smi: str) -> list[str]:
         + "), the "
         f"preempt {d['drain']['preempt_s']:.3f} s on the trainer's thread; A "
         f"drained {d['drain']['drained']} requests, salvaged "
-        f"{d['drain']['salvaged']} tokens; B served {d['b_fit_tokens']} tokens in "
-        f"the fit"]
+        f"{d['drain']['salvaged']} tokens; the manager's evictions after the "
+        f"drain {d['drain']['evictions']}; B served {d['b_fit_tokens']} tokens "
+        f"in the fit"]
     for i, rec in enumerate(d["history"], 1):
         t_ = d["trail"][i - 1]
         g_ = d["gen"][i - 1] if i - 1 < len(d["gen"]) else {}
@@ -7357,6 +7382,14 @@ TP_LOGP_TOL = DENSE_LOGP_TOL
 # one-ulp sources above, so 2 shards may sit at most this many times as
 # far as 1 (a lost partial or a wrong head split lands whole nats away)
 TP_STEP_RATIO = 1.5
+# serve --tp 2 on qwen3-30b-a3b: full width at this depth, dropless (E / k),
+# so that a token's experts do not depend on the batch it is served in;
+# its decode step's distance from f32 is held to TP_STEP_RATIO x one
+# shard's or MOE_LOGP_TOL, whichever is larger: a near-tied k-th expert
+# that one more bf16 rounding swaps moves a token by a tenth of a nat
+TP_MOE_LAYERS = 2
+TP_MOE_OVERRIDES = {"num_layers": TP_MOE_LAYERS,
+                    "moe_capacity_factor": MOE_DROPLESS}
 
 
 def tp_step_pools(cfg, dev, n_pages: int, tp: int, seed: int = 4):
@@ -7373,7 +7406,7 @@ def tp_step_pools(cfg, dev, n_pages: int, tp: int, seed: int = 4):
     return pools, shards
 
 
-def tp_decode_step(dev, params, cfg) -> dict:
+def tp_decode_step(dev, params, cfg, floor: float = 0.0) -> dict:
     """The decode step at the serving tables (64 slots, 18 live) on one
     shard and on TP shards of the same weights and K/V: one eager step of
     each from the same inputs (log-softmax gap over the live slots), then
@@ -7440,9 +7473,9 @@ def tp_decode_step(dev, params, cfg) -> dict:
         f"argmax agreement {agree:.3f}; against f32 {off32}; " + json.dumps(
             {t_: {k_: v for k_, v in o.items() if k_ != "launches"}
              for t_, o in out.items()}))
-    check(off32[TP] <= TP_STEP_RATIO * off32[1],
+    check(off32[TP] <= max(TP_STEP_RATIO * off32[1], floor),
           f"tp: the {TP}-shard decode step sits {off32[TP]:.4f} nats from f32, "
-          f"one shard's {off32[1]:.4f} (limit {TP_STEP_RATIO} x)")
+          f"one shard's {off32[1]:.4f} (limit {TP_STEP_RATIO} x, or {floor})")
     n_l = cfg.num_layers
     for name in ("paged_kv_write_fused", "paged_attention"):
         check(out[TP]["launches"].get(name) == TP * n_l
@@ -7461,14 +7494,16 @@ def tp_greedy(eng, prompts: list, n: int) -> list[dict]:
                                                 stop_token_ids=()))
 
 
-def tp_f32_parity(dev, prompts: list) -> dict:
+def tp_f32_parity(dev, prompts: list, model: str = MODEL,
+                  overrides: dict | None = None) -> dict:
     """At TP_F32_LAYERS layers in f32 (the engines' own f32 pools), greedy
     TP_F32_NEW tokens on TP shards against one shard: tokens equal until
     the first near-tie, logprobs within MOE_F32_TOL."""
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
 
-    cfg = decoder.get_config(MODEL, dtype=torch.float32,
-                             num_layers=TP_F32_LAYERS)
+    cfg = decoder.get_config(model, dtype=torch.float32,
+                             **{**(overrides or {}),
+                                "num_layers": TP_F32_LAYERS})
     params = decoder.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     kw = dict(max_slots=8, page_size=PS, max_seq_len=1024, num_pages=64,
               prompt_buckets=(256,), kv_cache_dtype=torch.float32, device=dev,
@@ -7545,20 +7580,24 @@ def tp_push(dev, server, params) -> dict:
         iface.close()
 
 
-def tp_phase(dev) -> dict:
-    """``serve --tp 2``'s engine (``create_server(tp=2)``) at full width and
-    depth, both shards on the one card: the serve phase's 18-stream mix
-    over HTTP as the main path (counts zeroed just before it and read just
-    after: the fused prologue, K2 and K3 on both shards, graph replays),
-    its greedy streams against a one-shard engine on the same weights; at
-    2 layers in f32 the same against MOE_F32_TOL; the decode step by
-    replay on 2 shards and on 1; one push through the sharded fabric."""
+def tp_phase(dev, model: str = MODEL, overrides: dict | None = None) -> dict:
+    """``serve --tp 2``'s engine (``create_server(tp=2)``) of ``model`` at
+    full width and depth (``overrides``: a MoE model's cut depth, its
+    dropless factor), both shards on the one card: the serve phase's
+    18-stream mix over HTTP as the main path (counts zeroed just before it
+    and read just after: the fused prologue, K2 and K3 on both shards,
+    graph replays), its greedy streams against a one-shard engine on the
+    same weights; at 2 layers in f32 the same against MOE_F32_TOL; the
+    decode step by replay on 2 shards and on 1; one push through the
+    sharded fabric. A MoE shard holds half of every expert's width and
+    the whole router."""
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
     from polyrl_tpu_torch.rollout.serve import create_server
 
     t_phase = time.monotonic()
     torch.cuda.reset_peak_memory_stats(dev)
-    server = create_server(MODEL, device=str(dev), host="127.0.0.1", port=0,
+    server = create_server(model, device=str(dev), host="127.0.0.1", port=0,
+                           model_overrides=overrides,
                            max_slots=S, page_size=PS, max_seq_len=4096,
                            num_pages=TP_PAGES, steps_per_dispatch=8, seed=0,
                            tp=TP)
@@ -7571,6 +7610,15 @@ def tp_phase(dev) -> dict:
               and all(sp[0][0].shape[0] == cfg.num_kv_heads // TP
                       for sp in eng._pools),
               "tp: the engine does not hold its shards' own pools")
+        if cfg.num_experts:
+            for p_ in eng.params:
+                lp = p_["layers"]
+                check(lp["we_gate"].shape[-1] == cfg.moe_intermediate_size // TP
+                      and lp["we_down"].shape[-2] == cfg.moe_intermediate_size // TP
+                      and lp["we_gate"].shape[1] == cfg.num_experts
+                      and lp["router"].shape[-1] == cfg.num_experts,
+                      "tp: a MoE shard does not hold every expert's width "
+                      "slice and the whole router")
         port = server.port
         bodies, greedy_prompts, warm = serving_mix(cfg.vocab_size)
         run_requests(port, [{"rid": "warmup", "input_ids": warm,
@@ -7614,7 +7662,7 @@ def tp_phase(dev) -> dict:
         # the same weights on one shard (create_server's seed), greedy alone
         params = decoder.init_params(
             torch.Generator(device=dev).manual_seed(0),
-            decoder.get_config(MODEL, dtype=torch.bfloat16))
+            decoder.get_config(model, dtype=torch.bfloat16, **(overrides or {})))
         one = CBEngine(cfg, params, max_slots=S, page_size=PS, max_seq_len=4096,
                        num_pages=TP_PAGES, prompt_buckets=(256,), device=dev,
                        copy_params=False)
@@ -7639,15 +7687,17 @@ def tp_phase(dev) -> dict:
                       f"from one shard's (limit {TP_LOGP_TOL})")
             del params32
             log(f"tp: greedy vs one shard {gate}")
-            f32 = tp_f32_parity(dev, [p_[:200] for p_ in greedy_prompts])
+            f32 = tp_f32_parity(dev, [p_[:200] for p_ in greedy_prompts],
+                                model, overrides)
             log(f"tp: f32 at {TP_F32_LAYERS} layers {f32}")
-            step = tp_decode_step(dev, params, cfg)
+            step = tp_decode_step(dev, params, cfg,
+                                  MOE_LOGP_TOL if cfg.num_experts else 0.0)
             push = tp_push(dev, server, params)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         return dict(launches=launches, tok_s=tok_s, wall=wall, delta=delta,
                     replays=replays, gate=gate, f32=f32, step=step, push=push,
-                    up_gb=up_gb, peak_gb=peak_gb,
-                    seconds=time.monotonic() - t_phase)
+                    up_gb=up_gb, peak_gb=peak_gb, model=model,
+                    layers=cfg.num_layers, seconds=time.monotonic() - t_phase)
     finally:
         server.stop()
 
@@ -7655,8 +7705,12 @@ def tp_phase(dev) -> dict:
 def tp_lines(t: dict, smi: str) -> list[str]:
     tag = f"{smi}, this run"
     st = t["step"]["by_tp"]
-    return [
-        f"tp (serve --tp {TP}, {MODEL} full width and depth, bf16, both shards "
+    moe = t["model"] != MODEL
+    name = "tp moe" if moe else "tp"
+    what = (f"{t['model']} full width, {t['layers']} layers, dropless"
+            if moe else f"{t['model']} full width and depth")
+    lines = [
+        f"{name} (serve --tp {TP}, {what}, bf16, both shards "
         f"on the one card; {tag}): the 18-stream mix {t['tok_s']:.1f} tok/s "
         f"in {t['wall']:.2f} s, {t['replays']} graph replays, "
         f"{json.dumps(t['delta'])}; main-path launches "
@@ -7684,8 +7738,12 @@ def tp_lines(t: dict, smi: str) -> list[str]:
         f"split leaves over both shards bitwise the sender's slices; the "
         f"resharding map routes {t['push']['reshard_bytes'] / 1e9:.2f} GB by "
         f"shard pair",
-        f"phase tp ({tag}): {t['seconds']:.1f} s wall",
+        f"phase {name} ({tag}): {t['seconds']:.1f} s wall",
     ]
+    if moe:
+        lines = [ln if ln.startswith("tp moe") else "tp moe: " + ln
+                 for ln in lines]
+    return lines
 
 
 # -- parallel: the multi-process trainer on one card (PR 15) --------------------
@@ -7695,6 +7753,17 @@ def tp_lines(t: dict, smi: str) -> list[str]:
 # rank that has not exited by then is a hang
 PARALLEL_TIMEOUT_S = 480.0
 PARALLEL_OVERRIDES = TRAIN_OVERRIDES + ["parallel.backend=gloo"]
+# A and C at this depth of the training cell (full width; 28 layers until
+# PR 17, when D and E joined the phase: A took 85.1 s and C 39.8 s there)
+PARALLEL_CUT_LAYERS = 8
+# D: the pipeline at the training cell's full depth, 14 layers a stage,
+# GPipe microbatches of one row of the 4-row micro
+PP_MICRO = 4
+# E: qwen3-30b-a3b at full width, at the depth whose two ranks (rank 0 with
+# the colocated engine and the reference copy) fit on the one card
+# together; the preset's capacity factor (E's gate compares the ranks with
+# one rank on the same micro, so it needs no dropless dispatch)
+EP_LAYERS = 2
 RING_T = 4096
 # the one-rank train phase this one is held to (PERF.md section 5)
 ONE_RANK_PEAK_GB = 30.53
@@ -7728,98 +7797,106 @@ GLOO_PROBES = ("all_gather_into_tensor", "reduce_scatter_tensor",
                "all_to_all_single", "all_reduce", "broadcast", "send/recv")
 
 
-def gloo_probe_worker(op: str) -> int:
-    """One rank of a 2-rank gloo world on cuda:0 running one collective
-    on CUDA tensors as they are, its result checked; prints ``PROBE ok``.
-    A collective gloo cannot take on the device may raise or bring the
-    process down (the parent reads either)."""
+def gloo_probe_worker() -> int:
+    """One rank of a 2-rank gloo world on cuda:0 running each collective
+    of GLOO_PROBES in turn on CUDA tensors as they are, its result
+    checked; prints ``PROBE <op> ok`` or ``PROBE <op> refused: <error>``.
+    send/recv runs last: its refusal may leave the pair broken or bring
+    the process down (the parent reads either)."""
     import torch.distributed as dist
 
     from polyrl_tpu_torch.parallel import distributed
 
     dev = distributed.initialize(backend="gloo", device="cuda", timeout_s=60)
     r, w = dist.get_rank(), dist.get_world_size()
-    x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
-    out = torch.zeros(4 * w if op == "all_gather_into_tensor" else 4, device=dev)
-    if op == "all_gather_into_tensor":
-        dist.all_gather_into_tensor(out, x)
-        want = torch.cat([torch.arange(4.0) + 10 * i for i in range(w)])
-    elif op == "reduce_scatter_tensor":
-        out = torch.zeros(4 // w, device=dev)
-        dist.reduce_scatter_tensor(out, x)
-        want = sum(torch.arange(4.0) + 10 * i for i in range(w))[
-            r * (4 // w):(r + 1) * (4 // w)]
-    elif op == "all_to_all_single":
-        dist.all_to_all_single(out, x)
-        want = torch.cat([(torch.arange(4.0) + 10 * i)[r * 2:(r + 1) * 2]
-                          for i in range(w)])
-    elif op == "all_reduce":
-        out = x.clone()
-        dist.all_reduce(out)
-        want = sum(torch.arange(4.0) + 10 * i for i in range(w))
-    elif op == "broadcast":
-        out = x.clone()
-        dist.broadcast(out, 0)
-        want = torch.arange(4.0)
-    else:
-        for q in dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, x, (r + 1) % w),
-                dist.P2POp(dist.irecv, out, (r - 1) % w)]):
-            q.wait()
-        want = torch.arange(4.0) + 10 * ((r - 1) % w)
-    torch.cuda.synchronize()
-    check(torch.equal(out.cpu(), want), f"{op} gave {out.cpu().tolist()}")
-    print("PROBE ok", flush=True)
-    distributed.shutdown()
-    return 0
+    for op in GLOO_PROBES:
+        x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
+        out = torch.zeros(4 * w if op == "all_gather_into_tensor" else 4,
+                          device=dev)
+        try:
+            if op == "all_gather_into_tensor":
+                dist.all_gather_into_tensor(out, x)
+                want = torch.cat([torch.arange(4.0) + 10 * i for i in range(w)])
+            elif op == "reduce_scatter_tensor":
+                out = torch.zeros(4 // w, device=dev)
+                dist.reduce_scatter_tensor(out, x)
+                want = sum(torch.arange(4.0) + 10 * i for i in range(w))[
+                    r * (4 // w):(r + 1) * (4 // w)]
+            elif op == "all_to_all_single":
+                dist.all_to_all_single(out, x)
+                want = torch.cat([(torch.arange(4.0) + 10 * i)[r * 2:(r + 1) * 2]
+                                  for i in range(w)])
+            elif op == "all_reduce":
+                out = x.clone()
+                dist.all_reduce(out)
+                want = sum(torch.arange(4.0) + 10 * i for i in range(w))
+            elif op == "broadcast":
+                out = x.clone()
+                dist.broadcast(out, 0)
+                want = torch.arange(4.0)
+            else:
+                for q in dist.batch_isend_irecv([
+                        dist.P2POp(dist.isend, x, (r + 1) % w),
+                        dist.P2POp(dist.irecv, out, (r - 1) % w)]):
+                    q.wait()
+                want = torch.arange(4.0) + 10 * ((r - 1) % w)
+            torch.cuda.synchronize()
+            ok = torch.equal(out.cpu(), want)
+            print(f"PROBE {op} " + ("ok" if ok else f"refused: gave "
+                                    f"{out.cpu().tolist()}"), flush=True)
+        except Exception as exc:  # noqa: BLE001 — the reading itself
+            print(f"PROBE {op} refused: {str(exc).splitlines()[0][:200]}",
+                  flush=True)
+    os._exit(0)  # a refused send/recv may leave the pair unable to shut down
 
 
 def gloo_cuda_probe() -> dict:
     """Which collectives gloo takes on CUDA tensors as they are (the port
-    stages them through the host either way): a 2-rank world on cuda:0
-    for each, all started together, each given 90 s. "ok", or what it
-    raised, or how it died."""
+    stages them through the host either way): one 2-rank world on cuda:0
+    running each in turn, given 60 s. "ok", or what it raised, or how the
+    world died."""
     root = os.path.dirname(os.path.abspath(__file__))
-    runs = []
-    for op in GLOO_PROBES:
-        port = free_port()
-        pair = []
-        for r in range(2):
-            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                       WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0")
-            env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-            pair.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--gloo-probe", op],
-                cwd=root, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT))
-        runs.append((op, pair))
-    out = {}
+    port = free_port()
+    pair = []
+    for r in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0")
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        pair.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gloo-probe"],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     t0 = time.monotonic()
-    for op, pair in runs:
-        texts = []
-        for p in pair:
-            try:
-                texts.append(p.communicate(timeout=max(1.0, 90 - (time.monotonic() - t0)))[0]
-                             .decode(errors="replace"))
-            except subprocess.TimeoutExpired:
-                p.kill()
-                texts.append(p.communicate()[0].decode(errors="replace") + "\n(hung)")
-        if all(p.returncode == 0 and "PROBE ok" in t for p, t in zip(pair, texts)):
+    texts = []
+    for p in pair:
+        try:
+            texts.append(p.communicate(timeout=max(1.0, 60 - (time.monotonic() - t0)))[0]
+                         .decode(errors="replace"))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            texts.append(p.communicate()[0].decode(errors="replace") + "\n(hung)")
+    out = {}
+    for op in GLOO_PROBES:
+        said = [ln.split(f"PROBE {op} ", 1)[1].strip() for t in texts
+                for ln in t.splitlines() if ln.startswith(f"PROBE {op} ")]
+        if len(said) == 2 and all(x == "ok" for x in said):
             out[op] = "ok"
             continue
+        refused = [x for x in said if x != "ok"]
         lines = [ln for t in texts for ln in t.splitlines()
-                 if any(w in ln for w in ("Error", "what()", "hung", "Exception",
-                                          "SmokeFailure"))]
-        out[op] = (f"refused (exit {[p.returncode for p in pair]}): "
+                 if any(w_ in ln for w_ in ("Error", "what()", "hung",
+                                            "Exception"))]
+        out[op] = (refused[0] if refused else
+                   f"no reading (exit {[p.returncode for p in pair]}): "
                    + (lines[-1].strip()[:200] if lines else "no message"))
     return out
 
 
 def mesh_grad_agreement(actor, micro) -> tuple[float, float]:
-    """The micro's gradient on the mesh (each rank its rows and its tp
-    blocks; each layer's gradient reduce-scattered by its backward, the
-    rest at the step, all summed) against one rank's on the whole micro
-    through the one-device path, on the same gathered weights: (cosine,
+    """The micro's gradient on the mesh (each rank its rows and its tp,
+    pp and ep blocks; each layer's gradient reduce-scattered by its
+    backward, the rest at the step, all summed) against one rank's on the
+    whole micro through the one-device path (no pipeline), on the same
+    gathered weights: (cosine,
     norm ratio) over every leaf, both gathered whole on every rank (the
     same on both). The gradients are cleared after, so the fit's own
     micros start clean."""
@@ -7837,14 +7914,14 @@ def mesh_grad_agreement(actor, micro) -> tuple[float, float]:
     leaves = dict(named_leaves(whole))
     for n in sharded.names:
         leaves[n].requires_grad_(True)
-    keep = actor.params, actor._fsdp, actor.mesh
-    actor.params, actor._fsdp, actor.mesh = whole, None, None
+    keep = actor.params, actor._fsdp, actor.mesh, actor.layers_fn
+    actor.params, actor._fsdp, actor.mesh, actor.layers_fn = whole, None, None, None
     try:
         with torch.enable_grad():
             loss, _ = actor._loss_fn(micro, 1.0)
             loss.backward()
     finally:
-        actor.params, actor._fsdp, actor.mesh = keep
+        actor.params, actor._fsdp, actor.mesh, actor.layers_fn = keep
     dot = na = nb = 0.0
     for n in sharded.names:
         a, b = g_mesh.pop(0).reshape(-1).float(), leaves[n].grad.reshape(-1).float()
@@ -7871,11 +7948,19 @@ def _state_bytes(actor) -> dict:
                 opt_gb=n(actor.opt_state.mu + actor.opt_state.nu) / 1e9)
 
 
-def parallel_fsdp_fit(dev, rank: int, axes: tuple = ("parallel.fsdp=2",)) -> dict:
+def cut_depth(layers: int) -> str:
+    return "model.overrides=" + json.dumps({"num_layers": layers})
+
+
+def parallel_fsdp_fit(dev, rank: int,
+                      axes: tuple = ("parallel.fsdp=2",
+                                     cut_depth(PARALLEL_CUT_LAYERS)),
+                      after=None) -> dict:
     """A: ``build_trainer`` on the train phase's configuration at fsdp 2
-    (each layer gathered in its layer body), one GRPO step; C the same at
-    tp 2 (``axes``). The logprob and gradient gates on step 1, a digest of
-    the gathered weights after each step."""
+    (each layer gathered in its layer body), one GRPO step; C, D and E the
+    same on their axes (``axes``: tp 2; pp 2; ep 2 on qwen3-30b-a3b). The
+    logprob and gradient gates on step 1, a digest of the gathered weights
+    after each step, ``after(trainer)``'s readings after the fit."""
     from polyrl_tpu_torch.config import load_config
     from polyrl_tpu_torch.train import build_trainer
 
@@ -7930,7 +8015,12 @@ def parallel_fsdp_fit(dev, rank: int, axes: tuple = ("parallel.fsdp=2",)) -> dic
         fit_wall = time.monotonic() - t_fit
         launches = dict(cuda_build.LAUNCHES)
         free, total = torch.cuda.mem_get_info(dev)
+        extra = after(trainer) if after is not None else {}
+        sh = actor._fsdp
+        push_gb = sum(math.prod(s_) * torch.empty((), dtype=d_).element_size()
+                      for s_, d_ in zip(sh.shapes, sh.dtypes)) / 1e9
         return dict(build_s=build_s, fit_wall=fit_wall, launches=launches,
+                    push_gb=push_gb, layers=actor.model_cfg.num_layers, **extra,
                     gate_launches=gate_launches, digests=digests,
                     walls=_step_walls(history), step1=step1,
                     finite=all(np.isfinite(r_["actor/grad_norm"])
@@ -7944,6 +8034,37 @@ def parallel_fsdp_fit(dev, rank: int, axes: tuple = ("parallel.fsdp=2",)) -> dic
     finally:
         for fn in reversed(cleanup):
             fn()
+
+
+def pp_unsplit(trainer) -> dict:
+    """D after its step: a digest of the leaves pp does not split (the
+    embedding, the final norm, an untied head), each rank's own copy."""
+    actor = trainer.actor
+    tree = {n: p for (n, p), d in zip(actor._named, actor._fsdp.dims) if not d}
+    return dict(unsplit=bit_checksum(tree), unsplit_names=sorted(tree))
+
+
+def ep_readings(trainer) -> dict:
+    """E after its step: the router's digest (replicated: each rank's own
+    copy), the share of each of this rank's expert blocks (and of the
+    router) that moved from the reference copy, its expert bytes."""
+    from polyrl_tpu_torch.parallel import expert
+    from polyrl_tpu_torch.parallel.mesh import EP, block
+
+    actor = trainer.actor
+    local = dict(actor._named)
+    ref = trainer.ref_policy.params["layers"]
+    moved = {}
+    for key in ("router",) + expert.EXPERT_KEYS:
+        mine = local[f"layers.{key}"].detach()
+        want = ref[key] if key == "router" else block(
+            actor.mesh, ref[key].to(mine.device), EP, 1)
+        moved[key] = float((mine != want).float().mean())
+    n_bytes = sum(local[f"layers.{k_}"].numel() * local[f"layers.{k_}"].element_size()
+                  for k_ in expert.EXPERT_KEYS)
+    return dict(router=bit_checksum({"router": local["layers.router"]}),
+                moved=moved, expert_gb=n_bytes / 1e9,
+                expert_shape=list(local["layers.we_gate"].shape))
 
 
 def parallel_sp_fit(dev, rank: int) -> dict:
@@ -8077,7 +8198,7 @@ def ring_check(dev) -> dict:
 def parallel_worker(out_dir: str) -> int:
     """One rank of the parallel phase's world (``RANK``, ``WORLD_SIZE``,
     ``MASTER_ADDR``/``MASTER_PORT`` from the parent; both ranks on
-    cuda:0 over gloo): the probe, A, B and the ring check, its readings
+    cuda:0 over gloo): A, B, the ring check, C, D and E, its readings
     written to ``<out_dir>/rank<R>.json``. A failure writes the traceback
     and leaves at once (the other rank may be waiting in a collective:
     the parent ends it)."""
@@ -8107,9 +8228,23 @@ def parallel_worker(out_dir: str) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.monotonic()
-        res["C"] = parallel_fsdp_fit(dev, rank, ("parallel.tp=2",
-                                                 "parallel.fsdp=1"))
+        res["C"] = parallel_fsdp_fit(dev, rank, (
+            "parallel.tp=2", "parallel.fsdp=1", cut_depth(PARALLEL_CUT_LAYERS)))
         res["C"]["seconds"] = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        res["D"] = parallel_fsdp_fit(dev, rank, (
+            "parallel.pp=2", "parallel.fsdp=1",
+            f"parallel.pp_microbatches={PP_MICRO}"), after=pp_unsplit)
+        res["D"]["seconds"] = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        res["E"] = parallel_fsdp_fit(dev, rank, (
+            "parallel.ep=2", "parallel.fsdp=1", f"model.preset={MOE_MODEL}",
+            cut_depth(EP_LAYERS)), after=ep_readings)
+        res["E"]["seconds"] = time.monotonic() - t0
     except BaseException:  # noqa: BLE001 — reported to the parent
         res["error"] = traceback.format_exc()
         print(res["error"], file=sys.stderr, flush=True)
@@ -8212,6 +8347,42 @@ def parallel_phase(dev) -> dict:
     for name in TRAIN_KERNELS:
         check(c0["launches"][name] > 0,
               f"parallel C rank 0: {name} was not launched")
+    d0, d1 = res[0]["D"], res[1]["D"]
+    check(d0["steps"] == d1["steps"] == 1 and d0["finite"] and d1["finite"],
+          "parallel D: the pp fit did not run a finite step on both ranks")
+    check(d0["digests"] == d1["digests"],
+          f"parallel D: the gathered weights differ between the ranks "
+          f"({d0['digests']} / {d1['digests']})")
+    check(d0["unsplit"] == d1["unsplit"] and d0["unsplit_names"],
+          f"parallel D: the leaves pp does not split ({d0['unsplit_names']}) "
+          f"differ between the ranks ({d0['unsplit']} / {d1['unsplit']})")
+    e0, e1 = res[0]["E"], res[1]["E"]
+    check(e0["steps"] == e1["steps"] == 1 and e0["finite"] and e1["finite"],
+          "parallel E: the ep fit did not run a finite step on both ranks")
+    check(e0["digests"] == e1["digests"],
+          f"parallel E: the gathered weights differ between the ranks "
+          f"({e0['digests']} / {e1['digests']})")
+    check(e0["router"] == e1["router"],
+          f"parallel E: the router differs between the ranks "
+          f"({e0['router']} / {e1['router']})")
+    for r, (d, e) in enumerate(((d0, e0), (d1, e1))):
+        check(d["step1"]["gap_max"] <= LOGP_AGREE_TOL,
+              f"parallel D rank {r}: old logprobs {d['step1']['gap_max']:.4f} "
+              f"nats from the engine's (> {LOGP_AGREE_TOL})")
+        for ph, x in (("D", d), ("E", e)):
+            check(x["step1"]["grad_cos"] >= GRAD_COS_MIN_BF16,
+                  f"parallel {ph} rank {r}: the mesh gradient's cosine against "
+                  f"one rank's is {x['step1']['grad_cos']:.6f} "
+                  f"(< {GRAD_COS_MIN_BF16})")
+            for name in ("flash_attention_fwd", "flash_attention_bwd"):
+                check(x["launches"][name] > 0,
+                      f"parallel {ph} rank {r}: {name} was not launched")
+        for key, share in e["moved"].items():
+            check(share > 0, f"parallel E rank {r}: its {key} block did not move")
+    for ph, x in (("D", d0), ("E", e0)):
+        for name in TRAIN_KERNELS:
+            check(x["launches"][name] > 0,
+                  f"parallel {ph} rank 0: {name} was not launched")
     b0, b1 = res[0]["B"], res[1]["B"]
     for r, b in enumerate((b0, b1)):
         check(b["steps"] == 1, f"parallel B rank {r}: the fit did not run")
@@ -8243,7 +8414,8 @@ def parallel_lines(p: dict, smi: str) -> list[str]:
     lines = [
         f"parallel gloo on CUDA tensors (as they are; the port stages through "
         f"the host; {p['probe_s']:.1f} s): {json.dumps(p['probe'])}",
-        f"parallel A (fsdp 2, {MODEL} full width and depth, bf16; {tag}): "
+        f"parallel A (fsdp 2, {MODEL} full width, {a0['layers']} layers, "
+        f"bf16; {tag}): "
         f"build {a0['build_s']:.1f} / {a1['build_s']:.1f} s; fit "
         f"{a0['fit_wall']:.1f} s; rank 0 {walls(a0)}",
         f"parallel A rank 1: {walls(a1)}",
@@ -8286,7 +8458,8 @@ def parallel_lines(p: dict, smi: str) -> list[str]:
         + f" (limits {FLASH_OUT_TOL}, {FLASH_GRAD_TOL}); ring fwd+bwd "
         f"{r0['ring']['ring_s'] * 1e3:.1f} ms wall (first call), K4 fwd+bwd "
         f"{r0['ring']['k4_fwd_bwd_ms']:.3f} ms",
-        f"parallel C (tp 2, {MODEL} full width and depth, bf16, 1 step; {tag}): "
+        f"parallel C (tp 2, {MODEL} full width, {c0['layers']} layers, bf16, "
+        f"1 step; {tag}): "
         f"build {c0['build_s']:.1f} / {c1['build_s']:.1f} s; fit "
         f"{c0['fit_wall']:.1f} s; rank 0 {walls(c0)}; rank 1 {walls(c1)}",
         f"parallel C gates: old logprobs vs the engine's max "
@@ -8300,9 +8473,46 @@ def parallel_lines(p: dict, smi: str) -> list[str]:
         + f"; peak allocated {c0['peak_gb']:.2f} / {c1['peak_gb']:.2f} GB "
         f"(reserved {c0['reserved_gb']:.2f} / {c1['reserved_gb']:.2f}); per rank "
         f"params {c0['param_gb']:.3f} GB, AdamW {c0['opt_gb']:.3f} GB",
-        f"phase parallel ({tag}): {p['wall']:.1f} s wall (A {a0['seconds']:.1f} s, "
-        f"B {b0['seconds']:.1f} s, C {c0['seconds']:.1f} s)",
     ]
+    for ph, what in (("D", f"pp 2, {MODEL} full width and depth ({{layers}} "
+                           f"layers, {{half}} a stage), {PP_MICRO} GPipe "
+                           f"microbatches"),
+                     ("E", f"ep 2, {MOE_MODEL} full width, {{layers}} layers, "
+                           f"64 experts a rank")):
+        x0, x1 = r0[ph], r1[ph]
+        desc = what.format(layers=x0["layers"], half=x0["layers"] // 2)
+        lines += [
+            f"parallel {ph} ({desc}, bf16, 1 step; {tag}): build "
+            f"{x0['build_s']:.1f} / {x1['build_s']:.1f} s; fit "
+            f"{x0['fit_wall']:.1f} s; rank 0 {walls(x0)}; rank 1 {walls(x1)}",
+            f"parallel {ph} gates: old logprobs vs the engine's max "
+            f"{x0['step1']['gap_max']:.4f} / {x1['step1']['gap_max']:.4f} nats"
+            + (f" (limit {LOGP_AGREE_TOL})" if ph == "D" else " (not gated)")
+            + f"; step 1's micro gradient vs one rank: cosine "
+            f"{x0['step1']['grad_cos']:.6f} / {x1['step1']['grad_cos']:.6f}, "
+            f"norm ratio {x0['step1']['grad_ratio']:.5f} (limit >= "
+            f"{GRAD_COS_MIN_BF16}); digests {x0['digests']} on both ranks; "
+            + (f"the leaves pp does not split {x0['unsplit_names']}: "
+               f"{x0['unsplit']} / {x1['unsplit']}" if ph == "D" else
+               f"router {x0['router']} / {x1['router']}; moved shares rank 0 "
+               + json.dumps({k_: round(v, 4) for k_, v in x0["moved"].items()})
+               + ", rank 1 "
+               + json.dumps({k_: round(v, 4) for k_, v in x1["moved"].items()})),
+            f"parallel {ph} launches: rank 0 " + json.dumps(x0["launches"])
+            + "; rank 1 " + json.dumps({k_: x1["launches"][k_] for k_ in k4})
+            + f"; peak allocated {x0['peak_gb']:.2f} / {x1['peak_gb']:.2f} GB "
+            f"(reserved {x0['reserved_gb']:.2f} / {x1['reserved_gb']:.2f}); "
+            f"per rank params {x0['param_gb']:.3f} GB, AdamW "
+            f"{x0['opt_gb']:.3f} GB"
+            + (f", expert blocks {x0['expert_gb']:.3f} / {x1['expert_gb']:.3f} "
+               f"GB (we_gate {x0['expert_shape']})" if ph == "E" else "")
+            + f"; the push gathers {x0['push_gb']:.2f} GB, update_weight "
+            f"{x0['walls'][0]['update_weight']:.2f} s"]
+    lines.append(
+        f"phase parallel ({tag}): {p['wall']:.1f} s wall (A {a0['seconds']:.1f} s, "
+        f"B {b0['seconds']:.1f} s, C {c0['seconds']:.1f} s, D "
+        f"{r0['D']['seconds']:.1f} s, E {r0['E']['seconds']:.1f} s; A and C at "
+        f"{a0['layers']} layers; the gloo probe {p['probe_s']:.1f} s before them)")
     return lines
 
 
@@ -8326,7 +8536,7 @@ def main() -> int:
                          "default; e.g. '--max-assigned-batches 16')")
     ap.add_argument("--parallel-worker", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--gloo-probe", metavar="OP", default=None,
+    ap.add_argument("--gloo-probe", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     MANAGER_ARGS[:] = args.manager_args.split()
@@ -8337,7 +8547,7 @@ def main() -> int:
     if args.parallel_worker:
         return parallel_worker(args.parallel_worker)
     if args.gloo_probe:
-        return gloo_probe_worker(args.gloo_probe)
+        return gloo_probe_worker()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8383,6 +8593,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     for line in tp_lines(tp, smi):
         log(line)
+    tp_moe = tp_phase(dev, MOE_MODEL, TP_MOE_OVERRIDES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in tp_lines(tp_moe, smi):
+        log(line)
+    # the kernels line's "tp" share: both main paths, dense and MoE
+    tp_launches = {k_: tp["launches"][k_] + tp_moe["launches"][k_]
+                   for k_ in tp["launches"]}
     t0 = time.monotonic()
     memory = memory_phase(dev)
     for line in memory_lines(memory, smi):
@@ -8488,7 +8706,7 @@ def main() -> int:
         # both shards), the trainers run K4, and the hybrid's trainer
         # process decodes too (its local engine)
         name = r["name"]
-        extra = moe["launches"][name] + tp["launches"][name] + (
+        extra = moe["launches"][name] + tp_launches[name] + (
             0 if name == "paged_kv_write" else
                  disagg["trainer_launches"][name]
                  + hybrid["trainer_launches"][name]

@@ -203,7 +203,9 @@ class ParallelSection:
     """Mesh axes of the multi-process trainer (``parallel/mesh.py``). With
     every axis 1 and a single process no mesh is built (the one-device
     path); a multi-process world (``torchrun``) always builds one over its
-    ranks. ``tp``, ``pp`` and ``ep`` above 1 are not ported yet."""
+    ranks. ``pp`` above 1 runs the layer stack as a GPipe pipeline of
+    ``pp_microbatches`` microbatches (``parallel/pipeline.py``), ``ep``
+    above 1 splits a MoE model's experts (``parallel/expert.py``)."""
     dp: int = 1
     fsdp: int = 1                         # -1 absorbs remaining ranks
     tp: int = 1

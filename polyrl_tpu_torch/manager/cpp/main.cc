@@ -107,10 +107,13 @@ class Manager {
       base = Value(std::move(o));
     }
     Value current = base;
+    // the instance whose abort ended the last attempt: the next attempt
+    // goes elsewhere when another instance is eligible
+    std::string avoid;
     for (int attempt = 0; attempt < cfg_.max_generate_attempts; ++attempt) {
       InstancePtr inst = state_.next_instance(want_local,
                                               cfg_.schedule_wait_timeout_ms,
-                                              group_id);
+                                              group_id, avoid);
       if (!inst) {
         // Busy pool ≠ dead pool: while any healthy/pending instance exists
         // the request requeues without burning a retry attempt (matching the
@@ -130,24 +133,25 @@ class Manager {
       pjson::Object req_obj = current.as_obj();
       req_obj["rid"] = Value(rid + "#a" + std::to_string(attempt));
       Value attempt_req(std::move(req_obj));
-      bool request_error = false;
-      bool finished = stream_from_instance(inst, attempt_req, acc,
-                                           request_error, progress);
+      StreamEnd end = stream_from_instance(inst, attempt_req, acc, progress);
       // assigned_batches is a RATE quota: incremented on assignment, zeroed
       // by the stats tick — never decremented (reference state.rs:84-147).
       state_.notify_available();
-      if (finished) return build_final_response(rid, acc);
-      // Transport/decode failure: evict remote instances (shutdown +
-      // deregister), keep locals (they fail by abort during time-slicing,
-      // not by dying). A REQUEST-level engine error (finish_reason=error)
-      // retries without eviction — one bad request must not shut down up
-      // to max_generate_attempts healthy engines.
-      if (!inst->is_local && !request_error) {
+      if (end == StreamEnd::kFinished) return build_final_response(rid, acc);
+      // Only a transport/decode failure evicts, and only a remote instance
+      // (shutdown + deregister); locals fail by abort during time-slicing,
+      // not by dying. An abort terminal is a preemption (time slice, drain,
+      // /abort_request): the engine is healthy and keeps its place, the
+      // request continues elsewhere. A REQUEST-level engine error
+      // (finish_reason=error) retries without eviction — one bad request
+      // must not shut down up to max_generate_attempts healthy engines.
+      if (end == StreamEnd::kTransportFailure && !inst->is_local) {
         log_line("evicting instance " + inst->endpoint + " after stream failure");
         state_.evict(inst->endpoint);
         std::string ep = inst->endpoint;
         std::thread([ep] { phttp::request("POST", ep, "/shutdown", "{}", 2000); }).detach();
       }
+      avoid = end == StreamEnd::kAborted ? inst->endpoint : std::string();
       if (!acc.token_ids.empty()) {
         current = build_continuation_request(base, acc);
       }
@@ -161,25 +165,29 @@ class Manager {
     return error_response(rid, "max attempts exhausted");
   }
 
-  // Stream one attempt; true iff the instance reported finished.
-  // ``request_error`` is set when the ENGINE reported a request-level error
-  // (finish_reason=error) — the instance itself is healthy.
-  bool stream_from_instance(const InstancePtr& inst, const Value& request,
-                            PartialResponse& acc, bool& request_error,
-                            const ProgressFn& progress = ProgressFn()) {
+  // How one attempt's stream ended. kAborted and kRequestError come from
+  // a healthy engine (a terminal line it wrote); kTransportFailure is a
+  // connect/read/decode failure or a stream that ended unfinished.
+  enum class StreamEnd { kFinished, kAborted, kRequestError, kTransportFailure };
+
+  // Stream one attempt into ``acc``.
+  StreamEnd stream_from_instance(const InstancePtr& inst, const Value& request,
+                                 PartialResponse& acc,
+                                 const ProgressFn& progress = ProgressFn()) {
+    constexpr StreamEnd kFail = StreamEnd::kTransportFailure;
     std::string host;
     int port;
-    if (!phttp::split_endpoint(inst->endpoint, host, port)) return false;
+    if (!phttp::split_endpoint(inst->endpoint, host, port)) return kFail;
     phttp::ClientConn conn;
-    if (!conn.connect(host, port, cfg_.generate_timeout_ms)) return false;
+    if (!conn.connect(host, port, cfg_.generate_timeout_ms)) return kFail;
     // fresh top-level object: pjson::Value copies alias the shared Object,
     // so set() on a plain copy would mutate the caller's request.
     pjson::Object req_obj = request.as_obj();
     req_obj["stream"] = Value(true);
     Value req(std::move(req_obj));
-    if (!conn.send_request("POST", host, "/generate", req.dump())) return false;
+    if (!conn.send_request("POST", host, "/generate", req.dump())) return kFail;
     int status = 0;
-    if (!conn.read_header(status) || status != 200) return false;
+    if (!conn.read_header(status) || status != 200) return kFail;
     std::string line;
     while (conn.read_line(line)) {
       if (line.empty()) continue;
@@ -187,7 +195,7 @@ class Manager {
       if (line.rfind("data:", 0) == 0) line = line.substr(5);
       bool ok = false;
       Value chunk = pjson::Parser::parse(line, &ok);
-      if (!ok) return false;  // decode error → eviction path
+      if (!ok) return kFail;  // decode error → eviction path
       if (chunk["finish_reason"].as_str() == "abort") {
         // abort = preemption; the terminal line may CARRY salvaged tokens
         // (a salvage-enabled engine drains its pipeline into the partial)
@@ -195,21 +203,20 @@ class Manager {
         if (progress && !chunk["token_ids"].as_arr().empty()) progress(chunk);
         acc.finished = false;  // abort = time-slice preemption → continue elsewhere
         acc.finish_reason.clear();
-        return false;
+        return StreamEnd::kAborted;
       }
       if (chunk["finish_reason"].as_str() == "error") {
         // engine-reported failure (e.g. duplicate rid, prefill error): the
         // attempt failed — retry on another instance. Treating it as a
         // finished stream would return success with an empty completion
         // and silently poison the training batch.
-        request_error = true;
-        return false;
+        return StreamEnd::kRequestError;
       }
       merge_chunk(acc, chunk);
       if (progress && !chunk["token_ids"].as_arr().empty()) progress(chunk);
-      if (acc.finished) return true;
+      if (acc.finished) return StreamEnd::kFinished;
     }
-    return acc.finished;
+    return acc.finished ? StreamEnd::kFinished : kFail;
   }
 
   // ---- batch generate: NDJSON stream with time-sliced local engines ----

@@ -315,12 +315,30 @@ class AppState {
   // endpoint left the routing set (evicted/drained) is dropped and the
   // member re-pins to a survivor — the salvage continuation path then
   // carries the whole group there together.
+  //
+  // avoid: the endpoint that just aborted this request (a preemption: a
+  // time slice, a drain, an /abort_request). While another instance of
+  // the routing set can take the request (now or once its quota or queue
+  // frees) the request waits for it, pin included; the endpoint that
+  // aborted it is picked again only when it is the sole routable one.
   InstancePtr next_instance(int want_local = -1, int timeout_ms = 120000,
-                            const std::string& group_id = std::string()) {
+                            const std::string& group_id = std::string(),
+                            const std::string& avoid = std::string()) {
     std::unique_lock<std::mutex> lk(mu_);
     auto deadline = std::chrono::steady_clock::now() +
                     std::chrono::milliseconds(timeout_ms);
     while (!shutdown_) {
+      bool other_routable = false;
+      if (!avoid.empty()) {
+        for (auto& ep : active_) {
+          auto it = instances_.find(ep);
+          if (ep == avoid || it == instances_.end()) continue;
+          if (want_local >= 0 && it->second->is_local != (want_local == 1)) continue;
+          if (it->second->draining.load()) continue;
+          other_routable = true;
+          break;
+        }
+      }
       if (!group_id.empty()) {
         auto pin = group_pins_.find(group_id);
         if (pin != group_pins_.end()) {
@@ -329,6 +347,8 @@ class AppState {
                         !it->second->draining.load();
           if (!routed) {
             group_pins_.erase(pin);  // endpoint gone: re-pin below
+          } else if (pin->second == avoid && other_routable) {
+            // it aborted this member: re-pin below to another instance
           } else {
             auto& inst = it->second;
             bool ok = (want_local < 0 ||
@@ -358,6 +378,7 @@ class AppState {
         if (inst->draining.load()) continue;
         if (inst->assigned_batches.load() >= max_assigned_batches_) continue;
         if (inst->num_queued_reqs.load() > 0) continue;
+        if (other_routable && inst->endpoint == avoid) continue;
         eligible.push_back(inst);
       }
       if (!eligible.empty()) {

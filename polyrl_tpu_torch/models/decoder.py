@@ -345,7 +345,8 @@ def rope_cos_sin(cfg: ModelConfig, positions: torch.Tensor
 
 
 def _moe_mlp(cfg: ModelConfig, x: torch.Tensor, lp: dict,
-             valid: torch.Tensor | None = None) -> torch.Tensor:
+             valid: torch.Tensor | None = None, ep=None,
+             f32: bool = False) -> torch.Tensor:
     """Routed mixture MLP on flattened tokens ``x`` [N, d] -> [N, d], the
     reference's ``_moe_mlp``: softmax over all experts, top-k, the k
     probabilities renormalised with ``norm_topk_prob``; GShard dispatch
@@ -365,7 +366,19 @@ def _moe_mlp(cfg: ModelConfig, x: torch.Tensor, lp: dict,
     softmax and top-k; dispatch in the model dtype, combine in f32; SiLU in
     f32, cast back before ``gate * up``; the combine product in f32, cast
     back at the end. The expert products are batched einsums over the
-    stacked experts (``quant.moe_mm``)."""
+    stacked experts (``quant.moe_mm``).
+
+    ``ep`` (``parallel/expert.ExpertParallel``) runs this rank's expert
+    block: the routing whole, the dispatch, products and combine of its
+    ``E/ep`` experts (``lp``'s ``we_*`` are its block), the partial sums
+    added over ep in f32 (``ep.reduce``), the input and the router through
+    ``ep.copy``. On a tp shard ``lp``'s experts are this rank's slices of
+    each expert's width, and the result is a partial sum for the caller
+    to add. ``f32`` returns the f32 result before the cast (the engine's
+    tp shards add their partials in f32 and round once)."""
+    if ep is not None:
+        x = ep.copy(x)
+        lp = ep.shared(lp)
     n, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     g = min(cfg.moe_group_size or 512, n)
@@ -406,6 +419,10 @@ def _moe_mlp(cfg: ModelConfig, x: torch.Tensor, lp: dict,
     dispatch = torch.einsum("gtke,gtkc->gtec", eo, co).to(x.dtype)
     combine = torch.einsum("gtke,gtkc->gtec",
                            eo * top_p.reshape(ng, g, k, 1), co).float()
+    if ep is not None:
+        first, count = ep.experts(e)
+        dispatch = dispatch[:, :, first:first + count]
+        combine = combine[:, :, first:first + count]
 
     xe = torch.einsum("gtd,gtec->gecd", x.reshape(ng, g, d), dispatch)
     gate = torch.nn.functional.silu(
@@ -413,19 +430,24 @@ def _moe_mlp(cfg: ModelConfig, x: torch.Tensor, lp: dict,
     up = moe_mm("gecd,edf->gecf", xe, lp["we_up"])
     ye = moe_mm("gecf,efd->gecd", gate * up, lp["we_down"])          # [G, E, C, d]
     out = torch.einsum("gecd,gtec->gtd", ye.float(), combine)
-    return out.reshape(n_pad, d)[:n].to(x.dtype)
+    if ep is not None:
+        out = ep.reduce(out)
+    out = out.reshape(n_pad, d)[:n]
+    return out if f32 else out.to(x.dtype)
 
 
 def _mlp_block(cfg: ModelConfig, h: torch.Tensor, lp: dict,
-               valid: torch.Tensor | None = None) -> torch.Tensor:
+               valid: torch.Tensor | None = None, ep=None,
+               f32: bool = False) -> torch.Tensor:
     """Post-norm MLP: dense SwiGLU (SiLU in f32, cast back before the
-    gate product), or the routed mixture on a MoE config, over ``h``'s
-    leading dims flattened into one token axis; ``valid`` matches those
-    dims."""
+    gate product), or the routed mixture on a MoE config (``ep``, ``f32``
+    as ``_moe_mlp`` takes them), over ``h``'s leading dims flattened into
+    one token axis; ``valid`` matches those dims."""
     if cfg.num_experts:
         shape = h.shape
         v = valid.reshape(-1) if valid is not None else None
-        return _moe_mlp(cfg, h.reshape(-1, shape[-1]), lp, v).reshape(shape)
+        return _moe_mlp(cfg, h.reshape(-1, shape[-1]), lp, v, ep,
+                        f32).reshape(shape)
     return mm(_swiglu(h, lp), lp["w_down"])
 
 
@@ -534,21 +556,25 @@ def _qkv(cfg: ModelConfig, x: torch.Tensor, lp: dict, cos, sin):
 
 
 def _post_attn(cfg: ModelConfig, x: torch.Tensor, attn_out: torch.Tensor,
-               lp: dict, valid: torch.Tensor | None = None) -> torch.Tensor:
+               lp: dict, valid: torch.Tensor | None = None,
+               ep=None) -> torch.Tensor:
     """Output projection, residual, post-norm MLP, residual. ``valid``
-    (``x``'s leading dims) marks the tokens that route (MoE)."""
+    (``x``'s leading dims) marks the tokens that route (MoE), ``ep`` is
+    the expert-parallel seam (``_moe_mlp``)."""
     lead = attn_out.shape[:-2]
     x = x + mm(attn_out.reshape(*lead, -1), lp["wo"])
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    return x + _mlp_block(cfg, h, lp, valid)
+    return x + _mlp_block(cfg, h, lp, valid, ep)
 
 
 def _tp_layer(cfg: ModelConfig, tp, x, lp, cos, sin, attn_fn, attn_mask,
-              valid):
+              valid, ep=None):
     """One layer on a tp shard (``cfg`` its local config): the Megatron
     layout of ``_qkv`` + ``_post_attn``, the replicated weights that read
     this rank's heads or partial sums through ``tp.shared`` (their
-    gradients summed over tp)."""
+    gradients summed over tp). A MoE layer's routed block is a partial
+    sum over its experts' width slices, added by the same ``tp.reduce``
+    as the dense ``w_down``'s."""
     eps = cfg.rms_norm_eps
     lp = tp.shared(lp)
     h = tp.copy(rms_norm(x, lp["attn_norm"], eps))
@@ -557,7 +583,46 @@ def _tp_layer(cfg: ModelConfig, tp, x, lp, cos, sin, attn_fn, attn_mask,
     a = attn_fn(q, k, v, attn_mask)
     x = x + tp.reduce(mm(a.reshape(*a.shape[:-2], -1), lp["wo"]))
     h = tp.copy(rms_norm(x, lp["mlp_norm"], eps))
-    return x + tp.reduce(_mlp_block(cfg, h, lp, valid))
+    return x + tp.reduce(_mlp_block(cfg, h, lp, valid, ep))
+
+
+def layer_forward(cfg: ModelConfig, x: torch.Tensor, lp, cos, sin, attn_fn,
+                  attn_mask, valid, tp=None, ep=None) -> torch.Tensor:
+    """One training layer: ``lp`` of ``layer_params`` (gathered here,
+    ``layer_weights``), ``attn_fn(q, k, v, attn_mask)`` its attention,
+    ``valid`` the tokens that route (MoE); on a tp shard (``tp``) the
+    Megatron layout with ``cfg`` the whole config, ``ep`` the
+    expert-parallel seam. The body of ``forward_hidden``'s layer loop and
+    of a pipeline stage's (``parallel/pipeline.py``)."""
+    lp = layer_weights(lp)
+    if tp is not None:
+        return _tp_layer(tp.local_config(cfg), tp, x, lp, cos, sin, attn_fn,
+                         attn_mask, valid, ep)
+    q, k, v = _qkv(cfg, x, lp, cos, sin)
+    return _post_attn(cfg, x, attn_fn(q, k, v, attn_mask), lp, valid, ep)
+
+
+def run_layers(cfg: ModelConfig, layers, x, cos, sin, attn_fn, attn_mask,
+               remat: bool = False, tp=None, ep=None, count: int | None = None
+               ) -> torch.Tensor:
+    """``layer_forward`` over the first ``count`` (default every) layers
+    of ``layers`` (``params["layers"]``: stacked leaves or a per-layer
+    source), each under ``checkpoint`` when ``remat`` and autograd
+    records."""
+    params = {"layers": layers}
+    valid = attn_mask > 0
+
+    def layer(x, lp):
+        return layer_forward(cfg, x, lp, cos, sin, attn_fn, attn_mask, valid,
+                             tp, ep)
+
+    for i in range(cfg.num_layers if count is None else count):
+        lp = layer_params(params, i)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, lp, use_reentrant=False)
+        else:
+            x = layer(x, lp)
+    return x
 
 
 # -- forward ----------------------------------------------------------------
@@ -577,7 +642,8 @@ def forward_hidden(params: dict, cfg: ModelConfig,
                    positions: torch.Tensor,   # [B, T] absolute positions
                    attn_mask: torch.Tensor,   # [B, T] 1 = valid
                    remat: bool = False,
-                   attn_fn=None, tp=None) -> torch.Tensor:
+                   attn_fn=None, tp=None, ep=None,
+                   layers_fn=None) -> torch.Tensor:
     """Full-sequence forward up to the final RMSNorm: [B, T, d] hidden
     states, differentiable. ``attn_fn(q, k, v, attn_mask)`` is the layer
     attention, by default ``flash.auto_train_attention()`` (K4 on the
@@ -596,30 +662,26 @@ def forward_hidden(params: dict, cfg: ModelConfig,
     (``tensor.tp_dim``), the embedding is vocab-parallel, each layer's
     column-parallel products take ``tp.copy`` of their input and its
     row-parallel ``wo``/``w_down`` partials are summed by ``tp.reduce``,
-    and ``attn_fn`` sees this rank's ``Hq/tp`` and ``Hkv/tp`` heads."""
-    attn_fn = attn_fn or flash.auto_train_attention()
+    and ``attn_fn`` sees this rank's ``Hq/tp`` and ``Hkv/tp`` heads.
+    ``ep`` (``parallel/expert.ExpertParallel``) runs this rank's expert
+    blocks of every MoE layer (``_moe_mlp``).
+
+    ``layers_fn(layers, x, cos, sin, attn_mask)``, when given, owns the
+    layer loop, as the JAX ``forward``'s hook: a pipeline over ``pp``
+    (``parallel/pipeline.make_pipeline_layers_fn``) that runs this rank's
+    stage of ``params["layers"]`` with its own attention, microbatches
+    and remat (``attn_fn`` and ``remat`` are then unused)."""
     if tp is None:
         x = params["embed"][input_ids]
     else:
         x = tp.embed(params["embed"], input_ids)
-        lcfg = tp.local_config(cfg)
     cos, sin = rope_cos_sin(cfg, positions)
-    valid = attn_mask > 0
-
-    def layer(x, lp):
-        lp = layer_weights(lp)
-        if tp is not None:
-            return _tp_layer(lcfg, tp, x, lp, cos, sin, attn_fn, attn_mask,
-                             valid)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
-        return _post_attn(cfg, x, attn_fn(q, k, v, attn_mask), lp, valid)
-
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, lp, use_reentrant=False)
-        else:
-            x = layer(x, lp)
+    if layers_fn is not None:
+        x = layers_fn(params["layers"], x, cos, sin, attn_mask)
+    else:
+        x = run_layers(cfg, params["layers"], x, cos, sin,
+                       attn_fn or flash.auto_train_attention(), attn_mask,
+                       remat, tp, ep)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
@@ -899,8 +961,10 @@ def forward_paged_decode(params: dict, cfg: ModelConfig,
 # each allocated apart (``make_tp_paged_pools``). A layer runs every
 # shard's heads and MLP columns, and sums the row-parallel partials after
 # ``wo`` and ``w_down`` onto the first shard's device in f32, rounded once
-# (one process: no collective; ``_tp_partial``); the dense MLP only (a MoE
-# config refuses tp). The vocabulary blocks' logits are concatenated before the
+# (one process: no collective; ``_tp_partial``). A MoE layer's shard holds a
+# ``1/N`` slice of every expert's width and the whole router: each shard
+# routes the tokens whole, and its routed block's f32 partial joins the
+# sum in place of ``w_down``'s. The vocabulary blocks' logits are concatenated before the
 # sampler. Every op is a device op, so a decode dispatch over shards on one
 # card is still one capturable stream; shards on several cards move their
 # partials between devices inside the dispatch.
@@ -1015,15 +1079,22 @@ def _tp_logits(shards: list, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                               ).to(x.device) for p in shards], dim=-1)
 
 
-def _tp_mlp(shards, lcfg, layer, x):
-    """The post-norm dense MLP (``_swiglu``) on each shard's columns, the
-    ``w_down`` partials summed (``_tp_partial``), and the residual."""
+def _tp_mlp(shards, lcfg, layer, x, valid=None):
+    """The post-norm MLP on each shard's columns and the residual: the
+    dense ``_swiglu`` with the ``w_down`` partials summed
+    (``_tp_partial``), or the routed mixture on each shard's expert
+    width slices (``valid`` the tokens that route), its f32 partials
+    summed the same way."""
     h = rms_norm(x, layer_params(shards[0], layer)["mlp_norm"], lcfg.rms_norm_eps)
     parts = []
     for p in shards:
         lp = layer_params(p, layer)
-        parts.append(_tp_partial(_swiglu(h.to(lp["mlp_norm"].device), lp),
-                                 lp["w_down"]))
+        hs = h.to(lp["mlp_norm"].device)
+        if lcfg.num_experts:
+            parts.append(_mlp_block(lcfg, hs, lp, None if valid is None
+                                    else valid.to(hs.device), f32=True))
+        else:
+            parts.append(_tp_partial(_swiglu(hs, lp), lp["w_down"]))
     return x + _tp_sum(parts, x.device, x.dtype)
 
 
@@ -1037,7 +1108,8 @@ def _forward_cached_tp(shards, cfg, input_ids, positions, attn_mask, caches,
     dev = input_ids.device
     x = _tp_embed(shards, input_ids).to(dev)
     cos, sin = rope_cos_sin(cfg, positions)
-    mask, _ = _cache_mask(attn_mask, write_idx, t, caches[0][0].shape[2])
+    mask, chunk_valid = _cache_mask(attn_mask, write_idx, t,
+                                    caches[0][0].shape[2])
     for layer in range(cfg.num_layers):
         h = rms_norm(x, layer_params(shards[0], layer)["attn_norm"],
                      cfg.rms_norm_eps)
@@ -1053,7 +1125,7 @@ def _forward_cached_tp(shards, cfg, input_ids, positions, attn_mask, caches,
             a = attention(q, kc, vc, mask=mask.to(sdev))
             parts.append(_tp_partial(a.reshape(*a.shape[:-2], -1), lp["wo"]))
         x = x + _tp_sum(parts, dev, x.dtype)
-        x = _tp_mlp(shards, lcfg, layer, x)
+        x = _tp_mlp(shards, lcfg, layer, x, chunk_valid)
     if logits_for is not None:
         x = x[torch.arange(b, device=dev), logits_for.long()]
     return _tp_logits(shards, cfg, x), caches
@@ -1100,5 +1172,6 @@ def _forward_paged_decode_tp(shards, cfg, tokens, positions, pools, page_table,
         parts = [_tp_partial(o.reshape(s, 1, -1), lp["wo"])
                  for o, lp in zip(outs, lps)]
         x = x + _tp_sum(parts, dev, x.dtype)
-        x = _tp_mlp(shards, lcfg, layer, x)
+        x = _tp_mlp(shards, lcfg, layer, x,
+                    None if active is None else active[:, None])
     return _tp_logits(shards, cfg, x[:, 0]), pools

@@ -1,15 +1,18 @@
-"""FSDP (and the tp blocks under it) for the port's trainers: trained
-leaves sharded over the ``fsdp`` axis one layer at a time, each layer
-gathered where the decoder's layer loop reaches it and its gradient
+"""FSDP (and the pp, ep and tp blocks under it) for the port's trainers:
+trained leaves sharded over the ``fsdp`` axis one layer at a time, each
+layer gathered where the decoder's layer loop reaches it and its gradient
 reduce-scattered as its backward ends.
 
 The actor and the critic hold a tree of tensors and their own AdamW, not
 an ``nn.Module``, so the sharding is written here by hand on the mesh's
 groups (no ``fully_shard``):
 
-- on a ``tp`` axis above 1 each trained leaf is first cut to this rank's
-  tp block (``tensor.tp_dim``/``tp_slice``); those blocks are what fsdp
-  shards and gathers;
+- each trained leaf is first cut to this rank's block (``leaf_dims``,
+  ``local_block``): on a ``pp`` axis above 1 a stacked ``[L, ...]`` layer
+  leaf to its stage's ``L/pp`` layers, on an ``ep`` axis a stacked expert
+  leaf to its ``E/ep`` experts (``expert.ep_dim``), on a ``tp`` axis to its
+  tp block (``tensor.tp_dim``); those blocks are what fsdp shards and
+  gathers;
 - the stacked ``[L, ...]`` leaves under ``layers`` are sharded a layer at
   a time: layer ``l``'s slices of every such leaf, flattened and
   concatenated, are zero-padded to a multiple of fsdp and split, and this
@@ -36,12 +39,16 @@ groups (no ``fully_shard``):
   replicas (dp and sp, ``REPLICA_AXES``). Each rank's backward carries
   its rows' and columns' share of the GLOBAL micro's loss (the loss is
   computed on the gathered per-token values), so the sum is the
-  one-process gradient;
+  one-process gradient. pp and ep ranks see the same rows: a leaf they
+  do not split has its whole gradient on each of them already (the
+  pipeline's and the expert block's autograd pairs sum what needs it),
+  so nothing is summed over them;
 - the clip norm is global: the squares are summed in f64, so that the f32
   norm does not depend on how the elements fall over the ranks, over
-  fsdp, and over tp for the tp-split elements only (a replicated leaf is
-  the same on every tp rank); a non-finite flag goes with them, so the
-  guard's skip decision is the same on every rank.
+  fsdp, and over each of tp, ep and pp for the elements that axis splits
+  only (a leaf it does not split is the same on each of its ranks, and
+  is counted once); a non-finite flag goes with them, so the guard's skip
+  decision is the same on every rank.
 
 ``PER_LAYER = False`` gives the whole-tree route of the first port of
 this module: every trained leaf flattened and split, the whole tree
@@ -62,14 +69,53 @@ import torch
 import torch.nn.functional as F
 
 from polyrl_tpu_torch.models.quant import WRAPPERS
-from polyrl_tpu_torch.parallel import tensor
-from polyrl_tpu_torch.parallel.mesh import (DATA_AXES, FSDP, REPLICA_AXES, TP,
-                                            Mesh, all_gather, all_reduce,
-                                            batch_slices, gather_tensor,
-                                            reduce_scatter, shard_numel,
-                                            shard_tensor, unshard_batch)
+from polyrl_tpu_torch.parallel import expert, tensor
+from polyrl_tpu_torch.parallel.mesh import (DATA_AXES, EP, FSDP, PP,
+                                            REPLICA_AXES, TP, Mesh, all_gather,
+                                            all_reduce, batch_slices, block,
+                                            gather_tensor, reduce_scatter,
+                                            shard_numel, shard_tensor, unblock,
+                                            unshard_batch)
 
 PER_LAYER = True  # False: the whole-tree route (the tests' oracle)
+# the axes a leaf's block is cut over, in cutting order
+SPLIT_AXES = (PP, EP, TP)
+
+
+def leaf_dims(mesh: Mesh, name: str, shape, num_layers: int) -> dict:
+    """{axis: dimension} of the whole leaf ``name`` that each of pp, ep
+    and tp (those above 1) splits: a stacked ``[num_layers, ...]`` layer
+    leaf's stage on dim 0 over pp, a stacked expert leaf's experts over
+    ep (``expert.ep_dim``), its tp block (``tensor.tp_dim``)."""
+    dims = {}
+    if (mesh.shape[PP] > 1 and num_layers and name.startswith("layers.")
+            and len(shape) and shape[0] == num_layers):
+        dims[PP] = 0
+    if mesh.shape[EP] > 1 and expert.ep_dim(name, shape) is not None:
+        dims[EP] = expert.ep_dim(name, shape)
+    if mesh.shape[TP] > 1 and tensor.tp_dim(name, shape) is not None:
+        dims[TP] = tensor.tp_dim(name, shape)
+    return dims
+
+
+def local_block(mesh: Mesh, t: torch.Tensor, dims: dict) -> torch.Tensor:
+    """This rank's block of a whole leaf (``leaf_dims``' cuts in order)."""
+    for axis in SPLIT_AXES:
+        t = block(mesh, t, axis, dims.get(axis))
+    return t
+
+
+def whole_leaf(mesh: Mesh, t: torch.Tensor, dims: dict) -> torch.Tensor:
+    """Inverse of ``local_block`` (collectives over tp, ep, pp)."""
+    for axis in reversed(SPLIT_AXES):
+        t = unblock(mesh, t, axis, dims.get(axis))
+    return t
+
+
+def _mask(dims: dict) -> int:
+    """The bit set of the axes a leaf is split over (``SPLIT_AXES``
+    order)."""
+    return sum(1 << i for i, a in enumerate(SPLIT_AXES) if a in dims)
 
 
 class _GatherLayer(torch.autograd.Function):
@@ -129,9 +175,10 @@ class ShardedLeaves:
     """``named`` ``(name, whole tensor)`` trained leaves as this rank's
     shards. ``shards`` (``shard_names``) is the list the optimizer steps:
     one flat shard per non-layer leaf, then one per layer (fsdp > 1 and
-    ``PER_LAYER``); on an fsdp axis of 1 this rank's tp blocks of the
+    ``PER_LAYER``); on an fsdp axis of 1 this rank's blocks of the
     leaves themselves, with ``requires_grad``. ``num_layers`` says which
-    ``layers.*`` leaves are stacked."""
+    ``layers.*`` leaves are stacked; on a pp axis this rank holds its
+    stage's ``num_layers/pp`` of them."""
 
     def __init__(self, mesh: Mesh, named: list, num_layers: int = 0):
         self.mesh = mesh
@@ -139,18 +186,18 @@ class ShardedLeaves:
         self.shapes = [tuple(t.shape) for _, t in named]
         self.dtypes = [t.dtype for _, t in named]
         self.frozen_whole: dict[str, tuple] = {}  # a trainer's frozen leaves
-        tp = mesh.shape[TP]
-        self.tp_dims = [tensor.tp_dim(n, s) if tp > 1 else None
-                        for n, s in zip(self.names, self.shapes)]
-        local = [tensor.tp_slice(mesh, t.detach(), d)
-                 for (_, t), d in zip(named, self.tp_dims)]
+        self.whole_layers = num_layers
+        self.dims = [leaf_dims(mesh, n, s, num_layers)
+                     for n, s in zip(self.names, self.shapes)]
+        local = [local_block(mesh, t.detach(), d)
+                 for (_, t), d in zip(named, self.dims)]
         self.local_shapes = [tuple(t.shape) for t in local]
         fsdp_n = mesh.shape[FSDP]
         self.layered = [j for j, (n, s) in enumerate(zip(self.names, self.shapes))
                         if PER_LAYER and fsdp_n > 1 and num_layers
                         and n.startswith("layers.") and s[0] == num_layers]
         self.rest = [j for j in range(len(named)) if j not in self.layered]
-        self.num_layers = num_layers if self.layered else 0
+        self.num_layers = num_layers // mesh.shape[PP] if self.layered else 0
         self.layer_sizes = [math.prod(self.local_shapes[j][1:]) for j in self.layered]
         self.layer_numel = sum(self.layer_sizes)
         if len({local[j].dtype for j in self.layered}) > 1:
@@ -174,16 +221,23 @@ class ShardedLeaves:
     def sharded(self) -> bool:
         return self.mesh.shape[FSDP] > 1
 
-    def frozen_tp_dim(self, name: str, shape) -> int | None:
-        """The tp dimension of a frozen (whole) leaf: frozen leaves are
-        cut to their tp blocks too, and never sharded over fsdp."""
-        return tensor.tp_dim(name, shape) if self.mesh.shape[TP] > 1 else None
+    def frozen_block(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a frozen (whole) leaf: frozen leaves are
+        cut to their pp, ep and tp blocks too, and never sharded over
+        fsdp."""
+        return local_block(self.mesh, t, leaf_dims(self.mesh, name, t.shape,
+                                                   self.whole_layers))
+
+    def frozen_whole_leaf(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Inverse of ``frozen_block`` (collectives)."""
+        return whole_leaf(self.mesh, t, leaf_dims(
+            self.mesh, name, self.frozen_whole[name], self.whole_layers))
 
     def whole_frozen_shape(self, name: str) -> tuple:
         return self.frozen_whole[name]
 
     def _rest_segments(self, j: int) -> list:
-        return [(0, None, self.tp_dims[j] is not None)]
+        return [(0, None, _mask(self.dims[j]))]
 
     def _layer_segments(self) -> list:
         """This rank's part of a layer buffer, as ranges of its shard."""
@@ -194,7 +248,7 @@ class ShardedLeaves:
         for j, size in zip(self.layered, self.layer_sizes):
             a, b = max(lo, base), min(lo + size, base + per)
             if a < b:
-                segs.append((a - base, b - base, self.tp_dims[j] is not None))
+                segs.append((a - base, b - base, _mask(self.dims[j])))
             lo += size
         return segs
 
@@ -257,15 +311,15 @@ class ShardedLeaves:
                 local[j] = torch.stack([f[lo:lo + size] for f in flats]).view(
                     self.local_shapes[j])
                 lo += size
-        return [tensor.tp_unslice(self.mesh, local[j], self.tp_dims[j])
+        return [whole_leaf(self.mesh, local[j], self.dims[j])
                 for j in range(len(self.names))]
 
     @torch.no_grad()
     def load(self, dst: list[torch.Tensor], full: list[torch.Tensor]) -> None:
         """Copy this rank's shards of whole leaves (``names`` order) into
         ``dst`` (``shards`` order); the held whole leaves are dropped."""
-        local = [tensor.tp_slice(self.mesh, f.to(dst[0].device), d)
-                 for f, d in zip(full, self.tp_dims)]
+        local = [local_block(self.mesh, f.to(dst[0].device), d)
+                 for f, d in zip(full, self.dims)]
         n_rest = len(self.rest)
         for d, j in zip(dst[:n_rest], self.rest):
             d.copy_(shard_tensor(self.mesh, local[j]))
@@ -307,18 +361,25 @@ class ShardedLeaves:
         """(the f32 norm of the whole gradient, whether all of it is
         finite), the same on every rank."""
         dev = grads[0].device
-        # [tp-split squares, replicated squares, non-finite count]
-        acc = torch.zeros(3, dtype=torch.float64, device=dev)
+        full = (1 << len(SPLIT_AXES)) - 1
+        # squares by the bit set of the axes that split them (slot
+        # ``mask``), then the non-finite count (summed over every axis)
+        acc = torch.zeros(full + 2, dtype=torch.float64, device=dev)
         for g, segs in zip(grads, self._segments):
             flat = g.reshape(-1)
-            for lo, hi, split in segs:
-                acc[0 if split else 1] += torch.sum(flat[lo:hi].double() ** 2)
-            acc[2] += (~torch.isfinite(g)).any().double()
+            for lo, hi, mask in segs:
+                acc[mask] += torch.sum(flat[lo:hi].double() ** 2)
+            acc[full + 1] += (~torch.isfinite(g)).any().double()
         all_reduce(self.mesh, (FSDP,), acc, dtype=torch.float64)
-        split = acc[0::2].clone()
-        all_reduce(self.mesh, (TP,), split, dtype=torch.float64)
-        total = split[0] + acc[1]
-        return torch.sqrt(total).float(), bool(split[1] == 0)
+        for i, axis in enumerate(SPLIT_AXES):
+            if self.mesh.shape[axis] == 1:
+                continue
+            slots = [m for m in range(full + 1) if m >> i & 1] + [full + 1]
+            part = acc[slots].clone()
+            all_reduce(self.mesh, (axis,), part, dtype=torch.float64)
+            acc[slots] = part
+        total = acc[:full + 1].sum()
+        return torch.sqrt(total).float(), bool(acc[full + 1] == 0)
 
 
 class _GatherData(torch.autograd.Function):

@@ -13,14 +13,19 @@ process group per axis (and per combination it reduces over):
             embedding and logprob head, ``parallel/tensor.py``)
 - ``sp``    sequence parallel (Ulysses all-to-all or ring attention,
             ``parallel/sequence.py``)
-- ``ep``    expert parallel (not ported yet: ROADMAP A' 9.4)
-- ``pp``    pipeline parallel (not ported yet: ROADMAP A' 9.3)
+- ``ep``    expert parallel (a MoE layer's stacked experts split into
+            ``E/ep`` blocks, ``parallel/expert.py``)
+- ``pp``    pipeline parallel (the layer stack split into ``L/pp``
+            stages, ``parallel/pipeline.py``; ``rotate`` hands a stage's
+            activations on)
 
 Batches split their rows over (dp, fsdp) and their columns over sp
-(``shard_batch``); trained parameters and their AdamW moments split over
-tp by their specs, then over fsdp, each leaf flattened and padded to a
-multiple of the axis (``shard_params``, ``gather_params``; the trainers'
-per-layer shards and the autograd glue are ``parallel/fsdp.py``).
+(``shard_batch``); ``ep`` and ``pp`` are not batch axes: their ranks see
+the same rows. Trained parameters and their AdamW moments split over pp
+(a stage's layers), ep (an expert block) and tp by their names, then over
+fsdp, each leaf flattened and padded to a multiple of the axis
+(``shard_params``, ``gather_params``; the trainers' per-layer shards and
+the autograd glue are ``parallel/fsdp.py``).
 
 Collectives move bytes: a tensor is viewed as ``uint8`` for the movement
 collectives (gather, all-to-all, broadcast, ring exchange), so any dtype
@@ -52,10 +57,8 @@ BATCH_SPEC = (BATCH_AXES, SP)
 DATA_AXES = (DP, FSDP, SP)
 # ranks that hold the same parameter shard: their gradients are summed
 REPLICA_AXES = (DP, SP)
-_GROUP_AXES = ((DP,), (FSDP,), (TP,), (SP,), BATCH_AXES, REPLICA_AXES,
-               DATA_AXES)
-_NOT_PORTED = {EP: "is not ported yet (ROADMAP A' 9.4, expert parallelism)",
-               PP: "is not ported yet (ROADMAP A' 9.3, the pipeline)"}
+_GROUP_AXES = ((DP,), (FSDP,), (TP,), (SP,), (EP,), (PP,), BATCH_AXES,
+               REPLICA_AXES, DATA_AXES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,14 +83,6 @@ class MeshConfig:
         if int(np.prod(dims)) != n_devices:
             raise ValueError(f"mesh {dims} != {n_devices} devices (use one -1 axis)")
         return tuple(dims)
-
-
-def refuse_unported(shape: dict) -> None:
-    """``ep`` and ``pp`` above 1 raise ``NotImplementedError`` (A' 9)."""
-    for axis in (EP, PP):
-        if shape.get(axis, 1) > 1:
-            raise NotImplementedError(f"parallel.{axis}={shape[axis]} > 1 "
-                                      f"{_NOT_PORTED[axis]}")
 
 
 class Mesh:
@@ -180,13 +175,11 @@ def make_mesh(config: MeshConfig | None = None,
 
     Axis order is (dp, fsdp, tp, sp, ep, pp), as in the JAX package: the
     innermost axes (the latency-critical ones) get neighbouring ranks,
-    which one launcher places on one node. ``ep`` and ``pp`` above 1
-    raise."""
+    which one launcher places on one node."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     backend = dist.get_backend() if dist.is_initialized() else None
     dims = (config or MeshConfig()).resolve(world)
-    refuse_unported(dict(zip(AXES, dims)))
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if backend == "nccl" else torch.device("cpu"))
@@ -387,10 +380,12 @@ def gather_tensor(mesh: Mesh, shard: torch.Tensor, shape: Sequence[int]) -> torc
 
 def _check_specs(specs) -> None:
     """A spec names the axes of each dimension (a tuple per leaf, or a
-    nested dict of them). ``shard_params`` shards over ``fsdp`` only: a
-    leaf's tp block is cut by its name (``parallel/tensor.tp_dim``, as the
-    trainers' ``fsdp.ShardedLeaves`` and the engine's shards cut it), so a
-    spec over ``tp`` raises here, and one over an unported axis too."""
+    nested dict of them). ``shard_params`` cuts a leaf's block on each
+    dimension named ``ep`` or ``pp`` and shards the block over ``fsdp``.
+    A leaf's tp block is cut by its name (``parallel/tensor.tp_dim``, as
+    the trainers' ``fsdp.ShardedLeaves`` and the engine's shards cut it),
+    so a spec over ``tp`` raises here, and one over a name that is no
+    parameter axis too."""
     if specs is None:
         return
     if isinstance(specs, dict):
@@ -402,29 +397,63 @@ def _check_specs(specs) -> None:
         for a in names:
             if a == TP:
                 raise ValueError(
-                    "shard_params shards over fsdp only; tp blocks follow "
+                    "shard_params cuts no tp block; tp blocks follow "
                     "parallel/tensor.tp_dim (fsdp.ShardedLeaves)")
-            if a not in (None, FSDP):
-                raise NotImplementedError(
-                    f"a parameter spec over {a!r} "
-                    f"{_NOT_PORTED.get(a, 'is not an axis')}; only fsdp "
-                    f"shards parameters")
+            if a not in (None, FSDP, EP, PP):
+                raise ValueError(f"a parameter spec over {a!r}: parameters "
+                                 f"split over fsdp, ep and pp only")
+
+
+def block(mesh: Mesh, t: torch.Tensor, axis: str, dim: int | None) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` over ``axis`` (``t``
+    itself when ``dim`` is None or the axis is 1), contiguous."""
+    n = mesh.shape[axis]
+    if dim is None or n == 1:
+        return t
+    if t.shape[dim] % n:
+        raise ValueError(f"{axis}={n} does not divide dim {dim} of "
+                         f"{tuple(t.shape)}")
+    return t.chunk(n, dim)[mesh.coords[axis]].contiguous()
+
+
+def unblock(mesh: Mesh, t: torch.Tensor, axis: str, dim: int | None) -> torch.Tensor:
+    """Inverse of ``block``: every rank's block along ``dim``, joined (a
+    collective over ``axis``)."""
+    n = mesh.shape[axis]
+    if dim is None or n == 1:
+        return t
+    return torch.cat(list(all_gather(mesh, (axis,), t.contiguous())), dim=dim)
+
+
+def _spec_dims(spec) -> dict:
+    """{axis: dim} of the ep and pp entries of one leaf's spec."""
+    out = {}
+    for d, part in enumerate(spec or ()):
+        for a in (part if isinstance(part, (tuple, list)) else (part,)):
+            if a in (EP, PP):
+                out[a] = d
+    return out
 
 
 def shard_params(mesh: Mesh, params, specs=None):
     """Every tensor of a (nested dict) tree as this rank's fsdp shard
-    (``shard_tensor``). ``specs``, when given, may name only ``fsdp``."""
+    (``shard_tensor``) of its pp and ep block (``block`` on the dimensions
+    its spec names ``pp`` and ``ep``). ``specs``, when given, may name
+    ``fsdp``, ``ep`` and ``pp``."""
     _check_specs(specs)
     if isinstance(params, dict):
-        return {k: shard_params(mesh, v) for k, v in params.items()}
+        return {k: shard_params(mesh, v, (specs or {}).get(k)
+                                if isinstance(specs, dict) else None)
+                for k, v in params.items()}
+    for axis, d in _spec_dims(specs).items():
+        params = block(mesh, params, axis, d)
     return shard_tensor(mesh, params)
 
 
 def gather_params(mesh: Mesh, shards, template):
-    """Inverse of ``shard_params``: the whole tree, each leaf shaped like
-    ``template``'s (a tree of tensors or of shapes)."""
+    """Inverse of ``shard_params`` without specs: the whole tree, each leaf
+    shaped like ``template``'s (a tree of tensors or of shapes)."""
     if isinstance(shards, dict):
         return {k: gather_params(mesh, v, template[k]) for k, v in shards.items()}
     shape = template.shape if isinstance(template, torch.Tensor) else template
     return gather_tensor(mesh, shards, shape)
-

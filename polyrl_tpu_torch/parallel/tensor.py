@@ -9,8 +9,11 @@ here the trainer issues them itself over ``mesh.group(TP)``:
   splits, after the reference's specs: ``wq``, ``wk``, ``wv``, ``w_gate``,
   ``w_up`` column-split (their output dim), ``wo``, ``w_down`` row-split
   (their input dim), ``bq``, ``bk``, ``bv`` split, ``embed`` split on the
-  vocabulary (``P(TP, FSDP)``) and ``lm_head`` too (``P(FSDP, TP)``); norms,
-  ``q_norm``/``k_norm`` and the critic's ``value_head`` replicated. A LoRA
+  vocabulary (``P(TP, FSDP)``) and ``lm_head`` too (``P(FSDP, TP)``); a MoE
+  layer's stacked experts split on each expert's width
+  (``moe_intermediate_size``: ``we_gate``/``we_up`` on their columns,
+  ``we_down`` on its rows); norms, ``q_norm``/``k_norm``, the MoE
+  ``router`` and the critic's ``value_head`` replicated. A LoRA
   adapter follows its base (``a`` of a row-split weight and ``b`` of a
   column-split one are split, the other replicated), an int8 ``scale``
   follows its output dim.
@@ -22,6 +25,9 @@ here the trainer issues them itself over ``mesh.group(TP)``:
   Functions of Megatron-LM.
 - ``copy_shared``: a layer's replicated weights that meet this rank's
   split activations, passed through ``copy_to_tp`` (see below).
+- ``local_config``: a shard's config: heads, dense MLP width, expert
+  width and vocabulary divided by ``tp`` (a MoE config keeps all its
+  experts and routes over all of them on every rank).
 - ``TensorParallel``: the decoder's seam (``decoder.forward_hidden``'s
   ``tp``): the local config (``Hq/tp``, ``Hkv/tp`` heads, ``F/tp`` MLP
   width, ``V/tp`` vocabulary), the vocab-parallel embedding (a masked
@@ -34,7 +40,9 @@ products, so a replicated leaf that reads only those (the layer norms,
 ``final_norm``, the value head) has the same, whole gradient on every
 rank. A replicated leaf that reads this rank's split activations has only
 this rank's share: ``q_norm``/``k_norm`` (one ``[D]`` weight for every
-head, the rank holding ``Hq/tp`` and ``Hkv/tp`` of them), a LoRA ``a`` of a
+head, the rank holding ``Hq/tp`` and ``Hkv/tp`` of them), the MoE
+``router`` (its probabilities weight this rank's partial expert
+outputs), a LoRA ``a`` of a
 column-split weight (its cotangent comes through this rank's columns of
 ``b``) and a LoRA ``b`` of a row-split one (its input ``x @ a`` is a
 partial sum). ``copy_shared`` passes these through ``copy_to_tp``, so
@@ -49,12 +57,14 @@ import dataclasses
 import torch
 
 from polyrl_tpu_torch.models.quant import LoraWeight
-from polyrl_tpu_torch.parallel.mesh import TP, Mesh, all_gather, all_reduce
+from polyrl_tpu_torch.parallel.mesh import TP, Mesh, all_reduce, block, unblock
 
 # whole-leaf dimension split over tp, by the leaf's last path component
 _COL = ("wq", "wk", "wv", "w_gate", "w_up")   # [L, in, out]: out split
 _ROW = ("wo", "w_down")                       # [L, in, out]: in split
 _BIAS = ("bq", "bk", "bv")                    # [L, out]: out split
+_EXPERT_COL = ("we_gate", "we_up")            # [L, E, d, fe]: fe split
+_EXPERT_ROW = ("we_down",)                    # [L, E, fe, d]: fe split
 
 
 def tp_dim(name: str, shape) -> int | None:
@@ -70,6 +80,11 @@ def tp_dim(name: str, shape) -> int | None:
     key, field = parts[1], parts[2:]
     if key in _BIAS:
         return 1
+    if key in _EXPERT_COL or key in _EXPERT_ROW:
+        col = key in _EXPERT_COL
+        if field and field[-1] == "scale":   # int8 scale [L, E, out]
+            return 2 if col else None
+        return 3 if col else 2
     if key not in _COL and key not in _ROW:
         return None
     col = key in _COL
@@ -86,57 +101,59 @@ def tp_dim(name: str, shape) -> int | None:
 def tp_slice(mesh: Mesh, t: torch.Tensor, dim: int | None) -> torch.Tensor:
     """This rank's tp block of a whole leaf (contiguous; ``t`` itself when
     replicated or tp is 1)."""
-    n = mesh.shape[TP]
-    if dim is None or n == 1:
-        return t
-    if t.shape[dim] % n:
-        raise ValueError(f"tp={n} does not divide dim {dim} of {tuple(t.shape)}")
-    return t.chunk(n, dim)[mesh.coords[TP]].contiguous()
+    return block(mesh, t, TP, dim)
 
 
-def tp_unslice(mesh: Mesh, block: torch.Tensor, dim: int | None) -> torch.Tensor:
-    """The whole leaf from every tp rank's ``block`` (a collective over
-    tp; ``block`` itself when replicated or tp is 1)."""
-    n = mesh.shape[TP]
-    if dim is None or n == 1:
-        return block
-    parts = all_gather(mesh, (TP,), block.contiguous())
-    return torch.cat(list(parts), dim=dim)
+def tp_unslice(mesh: Mesh, t: torch.Tensor, dim: int | None) -> torch.Tensor:
+    """The whole leaf from every tp rank's block ``t`` (a collective over
+    tp; ``t`` itself when replicated or tp is 1)."""
+    return unblock(mesh, t, TP, dim)
 
 
-class _CopyToTP(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over tp (each
-    rank's column block contributes to the input's gradient)."""
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``axis``
+    (each rank's block contributes to the input's gradient)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(ctx.mesh, (TP,), g.clone()), None
+        return all_reduce(ctx.mesh, (ctx.axis,), g.clone()), None, None
 
 
-class _ReduceFromTP(torch.autograd.Function):
-    """Sum over tp forward (each rank's row block holds a partial sum);
+class _ReduceFrom(torch.autograd.Function):
+    """Sum over ``axis`` forward (each rank's block holds a partial sum);
     identity backward (every rank sees the same gradient)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        return all_reduce(mesh, (TP,), x.clone())
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(mesh, (axis,), x.clone())
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
+
+
+def copy_to(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
+    """Megatron's pair over ``axis`` (tp here, ep in ``parallel/expert.py``):
+    ``copy_to`` before a block's split products, ``reduce_from`` after
+    them. Either is ``x`` itself on an axis of 1."""
+    return _CopyTo.apply(x, mesh, axis) if mesh.shape[axis] > 1 else x
+
+
+def reduce_from(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
+    return _ReduceFrom.apply(x, mesh, axis) if mesh.shape[axis] > 1 else x
 
 
 def copy_to_tp(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    return _CopyToTP.apply(x, mesh)
+    return copy_to(mesh, TP, x)
 
 
 def reduce_from_tp(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    return _ReduceFromTP.apply(x, mesh)
+    return reduce_from(mesh, TP, x)
 
 
 def vocab_lookup(table: torch.Tensor, ids: torch.Tensor,
@@ -154,11 +171,12 @@ def vocab_lookup(table: torch.Tensor, ids: torch.Tensor,
 def copy_shared(mesh: Mesh, lp: dict) -> dict:
     """One layer's weights ``lp`` on a tp shard with each replicated weight
     that meets this rank's split activations through ``copy_to_tp``:
-    ``q_norm``, ``k_norm``, a LoRA ``a`` of a column-split weight and
-    ``b`` of a row-split one (the module's docstring)."""
+    ``q_norm``, ``k_norm``, the MoE ``router``, a LoRA ``a`` of a
+    column-split weight and ``b`` of a row-split one (the module's
+    docstring)."""
     out = dict(lp)
     for key, w in lp.items():
-        if key in ("q_norm", "k_norm"):
+        if key in ("q_norm", "k_norm", "router"):
             out[key] = copy_to_tp(mesh, w)
         elif isinstance(w, LoraWeight) and key in _COL:
             out[key] = LoraWeight(w.base, copy_to_tp(mesh, w.a), w.b, w.alpha)
@@ -177,7 +195,7 @@ class TensorParallel:
         self.rank = mesh.coords[TP]
 
     def local_config(self, cfg):
-        """``cfg`` with this rank's head counts, MLP width and vocabulary
+        """``cfg`` with this rank's head counts, MLP widths and vocabulary
         (``num_heads``, ``num_kv_heads`` and ``intermediate_size`` are
         what ``_qkv_proj`` and ``_mlp_block`` reshape by)."""
         return local_config(cfg, self.size)
@@ -225,24 +243,23 @@ class TensorParallel:
 
 
 def local_config(cfg, tp: int):
-    """A ``ModelConfig`` of one tp shard: heads, MLP width and vocabulary
-    divided by ``tp``. ``tp`` must divide ``num_heads`` and
-    ``num_kv_heads`` (the KV pools and the attention split on heads), the
-    MLP width and the vocabulary; a MoE config refuses (its experts split
-    over ``ep``, ROADMAP A' 9.4)."""
+    """A ``ModelConfig`` of one tp shard: heads, MLP width (a MoE config's
+    expert width) and vocabulary divided by ``tp``. ``tp`` must divide
+    ``num_heads`` and ``num_kv_heads`` (the KV pools and the attention
+    split on heads), the MLP width and the vocabulary. A MoE shard keeps
+    every expert (and the whole router)."""
     if tp == 1:
         return cfg
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"tp={tp} on a MoE config: its experts shard over ep, which is "
-            "not ported yet (ROADMAP A' 9.4)")
+    widths = ((("moe_intermediate_size", cfg.moe_intermediate_size),)
+              if cfg.num_experts else
+              (("intermediate_size", cfg.intermediate_size),))
     for what, n in (("num_heads", cfg.num_heads),
-                    ("num_kv_heads", cfg.num_kv_heads),
-                    ("intermediate_size", cfg.intermediate_size),
+                    ("num_kv_heads", cfg.num_kv_heads), *widths,
                     ("vocab_size", cfg.vocab_size)):
         if n % tp:
             raise ValueError(f"tp={tp} must divide {what} ({n})")
     return dataclasses.replace(
         cfg, num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
         intermediate_size=cfg.intermediate_size // tp,
+        moe_intermediate_size=cfg.moe_intermediate_size // tp,
         vocab_size=cfg.vocab_size // tp, head_dim=cfg.head_dim_)

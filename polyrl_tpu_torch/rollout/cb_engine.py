@@ -84,8 +84,9 @@ spill tier, salvage and the ledger move and count every shard's pages
 (a page's bytes are its bytes on every shard); grouped decode, chunked
 prefill, prefix attach, speculation, int8 and LoRA trees run on the
 shards as they run whole. ``tp`` must divide ``num_heads`` and
-``num_kv_heads``; a MoE config refuses (its experts wait for ep, ROADMAP
-A' 9.4).
+``num_kv_heads``. A MoE shard holds a ``1/tp`` slice of every expert's
+width and the whole router: it routes the tokens whole, and its routed
+block's f32 partial joins the sum of the row-parallel partials.
 
 Where the JAX engine donates pools and state, this one updates the pools
 and the device state in place. Not ported yet (see ROADMAP.md): a graph
@@ -315,7 +316,7 @@ class CBEngine:
                     f"tp={self.tp} must divide num_heads ({cfg.num_heads}) "
                     f"and num_kv_heads ({cfg.num_kv_heads}): the KV pools "
                     "and paged attention shard on the head dim")
-            decoder.tp_local_config(cfg, self.tp)  # MoE refuses (A' 9.4)
+            decoder.tp_local_config(cfg, self.tp)  # widths divide by tp
         self.tp_devices = ([torch.device(d) for d in tp_devices] if tp_devices
                            else [self.device] * self.tp)
         if len(self.tp_devices) != self.tp:
@@ -324,7 +325,7 @@ class CBEngine:
         if self.tp > 1 and kv_spill and len(set(self.tp_devices)) > 1:
             raise NotImplementedError(
                 "the host spill tier on tp shards of several devices "
-                "(kv_spill=False) is not ported (ROADMAP A' 9)")
+                "(kv_spill=False) is not ported (ROADMAP A' 9.6)")
         # the engine's own copy, even of tensors already on its device: a
         # colocated actor updates its parameters in place, and an alias
         # would change the engine's weights with no version bump while the

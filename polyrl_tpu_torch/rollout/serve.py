@@ -103,7 +103,9 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     (the whole tree is dropped after). The receiver's ``ShardSpec``
     advertises the ``tp`` (``/get_server_info``'s ``transfer_shard_tp``),
     and a push lands each shard's ranges in its own tensors. LoRA
-    adapter-only pushes into tp shards refuse (ROADMAP A' 9)."""
+    adapter-only pushes into tp shards refuse (ROADMAP A' 9.5). A MoE model
+    (``--model qwen3-30b-a3b``) shards each expert's width and keeps the
+    router whole on every shard."""
     from polyrl_tpu_torch.device import resolve_device
     from polyrl_tpu_torch.models import decoder, quant
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
@@ -119,7 +121,7 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     if tp > 1 and lora_rank > 0:
         raise NotImplementedError(
             "LoRA adapter-only pushes into tp shards are not ported yet "
-            "(ROADMAP A' 9)")
+            "(ROADMAP A' 9.5)")
     dev = resolve_device(device)
     torch_dtype = getattr(torch, dtype)
     if os.path.isdir(model):

@@ -41,7 +41,11 @@ the sequence splits over sp through Ulysses or ring attention
 (``torchrun ... -m polyrl_tpu_torch.train parallel.tp=2``) each rank
 trains its tensor-parallel shard of the actor and critic
 (``parallel/tensor.py``); the push to rank 0's engine gathers the whole
-tree.
+tree. ``parallel.pp=2`` runs the layer stack as a GPipe pipeline of
+``parallel.pp_microbatches`` microbatches (``parallel/pipeline.py``), each
+rank training its stage; ``parallel.ep=2`` splits a MoE model's experts
+(``parallel/expert.py``). The push and the checkpoints gather every stage
+and every expert block.
 """
 
 from __future__ import annotations
@@ -311,8 +315,7 @@ def _build_autoscale(cfg: RunConfig, rollout, cleanup: list):
 def _build_mesh(cfg: RunConfig, device: torch.device):
     """The mesh when parallelism is configured or the run is
     multi-process; None on one process with every axis 1 (the actor then
-    shards nothing). ``pp`` and ``ep`` above 1 raise (ROADMAP A' 9.3,
-    9.4)."""
+    shards nothing)."""
     import torch.distributed as dist
 
     from polyrl_tpu_torch.parallel import distributed
@@ -321,7 +324,6 @@ def _build_mesh(cfg: RunConfig, device: torch.device):
     p = cfg.parallel
     axes = (p.dp, p.fsdp, p.tp, p.sp, p.ep, p.pp)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    meshlib.refuse_unported(dict(zip(meshlib.AXES, axes)))
     if world == 1 and all(a == 1 for a in axes):
         return None
     fsdp = p.fsdp
@@ -337,12 +339,28 @@ def _build_mesh(cfg: RunConfig, device: torch.device):
 
 def _sp_attention(cfg: RunConfig, mcfg, mesh):
     """(attn_fn, packed_attn_fn) of a mesh with sp > 1 (None, None
-    otherwise), the combination checked before anything is spawned."""
+    otherwise, and under a pipeline, whose stages ring over sp), the
+    combination checked before anything is spawned."""
     if mesh is None or mesh.shape.get("sp", 1) == 1:
         return None, None
     from polyrl_tpu_torch.parallel.sequence import make_sp_attention
 
     sp, mode = mesh.shape["sp"], cfg.parallel.sp_mode
+    if mesh.shape.get("pp", 1) > 1:
+        # sp x pp: the pipeline owns the layer loop, so the SP attention
+        # lives inside its stages; the ring does (ring_attention_local on
+        # this rank's columns), Ulysses' head all-to-all would reshard
+        # every stage boundary and is not implemented there
+        if mode != "ring":
+            raise NotImplementedError(
+                "parallel.sp > 1 with parallel.pp > 1 requires sp_mode=ring "
+                "(stage attention rings over sp inside the pipeline); got "
+                f"{mode!r}")
+        t_total = cfg.trainer.max_prompt_length + cfg.trainer.max_response_length
+        if t_total % sp:
+            raise ValueError(f"sp x pp needs max_prompt+max_response "
+                             f"({t_total}) divisible by sp ({sp})")
+        return None, None
     if mode not in ("ulysses", "ring"):
         # the JAX package's "dense" lets GSPMD derive attention over the
         # split sequence; here each rank would attend its own slice only
@@ -363,6 +381,38 @@ def _sp_attention(cfg: RunConfig, mcfg, mesh):
     packed = (make_sp_attention(mesh, mode, packed=True)
               if cfg.trainer.use_remove_padding else None)
     return make_sp_attention(mesh, mode), packed
+
+
+def _pipeline_layers(cfg: RunConfig, mcfg, mesh):
+    """(actor layers_fn, critic layers_fn) of a mesh with pp > 1 (None,
+    None otherwise), and the pp and ep checks, before anything is
+    spawned: ``num_layers % pp``, ``micro_batch_size % pp_microbatches``
+    (0 -> ``2 * pp``), ``num_experts % ep`` on a MoE config."""
+    if mesh is None:
+        return None, None
+    ep = mesh.shape.get("ep", 1)
+    if ep > 1 and (not mcfg.num_experts or mcfg.num_experts % ep):
+        raise ValueError(f"parallel.ep={ep} needs a MoE model whose "
+                         f"num_experts ({mcfg.num_experts}) it divides")
+    pp = mesh.shape.get("pp", 1)
+    if pp == 1:
+        return None, None
+    from polyrl_tpu_torch.parallel.pipeline import make_pipeline_layers_fn
+
+    if mcfg.num_layers % pp:
+        raise ValueError(f"num_layers {mcfg.num_layers} not divisible by "
+                         f"pp {pp}")
+    n_micro = cfg.parallel.pp_microbatches or 2 * pp
+    if cfg.trainer.micro_batch_size % n_micro:
+        # the pipeline pads a ragged feed, but a micro that never fills
+        # the microbatches wastes the pipeline's width every step
+        raise ValueError(f"micro_batch_size {cfg.trainer.micro_batch_size} "
+                         f"not divisible by pp_microbatches {n_micro}")
+    sp_ring = mesh.shape.get("sp", 1) > 1
+    return (make_pipeline_layers_fn(mesh, mcfg, n_micro, cfg.actor.remat,
+                                    sp_ring),
+            make_pipeline_layers_fn(mesh, mcfg, n_micro, cfg.critic.remat,
+                                    sp_ring))
 
 
 def build_trainer(cfg: RunConfig, cleanup: list | None = None,
@@ -396,9 +446,10 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
     tokenizer = build_tokenizer(cfg)
     mesh = _build_mesh(cfg, device)
     mcfg, params = _build_model(cfg, device)
-    # SP attention and its checks first: a bad combination fails before a
-    # manager or fabric is spawned
+    # SP attention, the pipeline and their checks first: a bad combination
+    # fails before a manager or fabric is spawned
     attn_fn, packed_attn_fn = _sp_attention(cfg, mcfg, mesh)
+    layers_fn, critic_layers_fn = _pipeline_layers(cfg, mcfg, mesh)
     if multihost.is_main():
         # the engine copies the weights; the fabric packs them at each push
         rollout = _build_rollout(cfg, mcfg, params, tokenizer, device, cleanup)
@@ -434,13 +485,14 @@ def build_trainer(cfg: RunConfig, cleanup: list | None = None,
                   else None)
     # takes the tensors as its own (on a mesh, its shards of them)
     actor = StreamActor(mcfg, cfg.actor, params, mesh=mesh, attn_fn=attn_fn,
-                        packed_attn_fn=packed_attn_fn)
+                        layers_fn=layers_fn, packed_attn_fn=packed_attn_fn)
     del params
     critic = None
     if cfg.trainer.adv_estimator == "gae":
         gen = torch.Generator(device=device).manual_seed(cfg.trainer.seed + 1)
         critic = StreamCritic(mcfg, cfg.critic, init_critic_params(gen, mcfg),
                               mesh=mesh, attn_fn=attn_fn,
+                              layers_fn=critic_layers_fn,
                               packed_attn_fn=packed_attn_fn)
     if cfg.trainer.pipeline_depth > 0:
         log.info("pipelined rollout enabled: depth=%d, staleness_limit=%d "

@@ -43,9 +43,11 @@ on packed rows, ``packed_attn_fn`` with this rank's segment ids. The
 per-token logprobs come back whole on every rank (``fsdp.gather_data``),
 so the loss, its metrics and ``compute_log_prob`` see the whole micro, as
 the JAX actor's GSPMD program does. Under LoRA the adapters shard and the
-frozen base stays whole on every rank of a tp group. ``ep`` and ``pp``
-above 1 and pipeline layer stacks (``layers_fn``) raise
-``NotImplementedError`` (ROADMAP A' 9.3, 9.4).
+frozen base stays whole on every rank of a tp group. On an ``ep`` axis
+each rank holds its ``E/ep`` experts of every MoE layer
+(``parallel/expert.py``); on a ``pp`` axis its stage's ``L/pp`` layers, and
+the forward's layer loop is the pipeline ``layers_fn``
+(``parallel/pipeline.make_pipeline_layers_fn``), which a pp mesh needs.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from polyrl_tpu_torch.models import decoder
 from polyrl_tpu_torch.models.quant import (flatten, lora_alphas, named_leaves,
                                            tree_map, unflatten)
 from polyrl_tpu_torch.ops import core_algos, flash
-from polyrl_tpu_torch.parallel import fsdp
+from polyrl_tpu_torch.parallel import expert, fsdp
 from polyrl_tpu_torch.parallel import mesh as meshlib
 from polyrl_tpu_torch.parallel import tensor
 
@@ -252,15 +254,17 @@ def _logprobs_entropy_of(h, head, responses, response_mask, compute_entropy):
 
 def _model_logprobs_entropy(params, model_cfg, input_ids, positions, attn_mask,
                             responses, response_mask, remat, compute_entropy,
-                            attn_fn=None):
+                            attn_fn=None, layers_fn=None):
     """Forward over [B, T_total]; logprobs of the response tokens
     [B, T_resp] (and their entropy). Logits at position i predict token
     i + 1, so the predictors of the responses (the last T_resp positions)
     are the T_resp positions before them. Only those hidden states are
     unembedded (the same values as slicing the full logits); without
-    autograd, a few rows at a time."""
+    autograd, a few rows at a time. ``layers_fn``: a pipeline layer stack
+    (``decoder.forward_hidden``'s hook)."""
     h = decoder.forward_hidden(params, model_cfg, input_ids, positions,
-                               attn_mask, remat=remat, attn_fn=attn_fn)
+                               attn_mask, remat=remat, attn_fn=attn_fn,
+                               layers_fn=layers_fn)
     t_resp = responses.shape[1]
     h = h[:, -t_resp - 1:-1]
     head = decoder.head_weight(params, model_cfg)
@@ -277,17 +281,33 @@ def _model_logprobs_entropy(params, model_cfg, input_ids, positions, attn_mask,
     return lp, ent
 
 
-def bind_packed_attention(segment_ids: torch.Tensor):
-    """The layer attention of a packed batch on one device: K4 (its plain
-    version on the CPU), causal, with the rows' segment ids, so no token
-    attends another trajectory of its row."""
-    return functools.partial(flash.flash_attention_train, causal=True,
-                             segment_ids=segment_ids)
+def bind_packed_attention(attn_fn, layers_fn, segment_ids: torch.Tensor):
+    """A packed batch's segment ids bound into the attention: ``(attn,
+    layers_fn)`` for ``decoder.forward_hidden``, the JAX function's
+    dispatch.
+
+    - ``layers_fn`` (packed x pipeline): the stages' attention takes the
+      segment ids; an ``attn_fn`` beside it raises, since the pipeline
+      computes its own stage attention.
+    - ``attn_fn`` (packed x sp): the segment-aware sequence-parallel
+      attention ``attn_fn(q, k, v, mask, segment_ids)``.
+    - neither: K4 (its plain version on the CPU), causal, with the
+      segment ids, so no token attends another trajectory of its row."""
+    if layers_fn is not None:
+        if attn_fn is not None:
+            raise ValueError(
+                "packed pass got BOTH an SP attn_fn and a pipeline "
+                "layers_fn; the pipeline computes its own stage attention")
+        return None, functools.partial(layers_fn, segment_ids=segment_ids)
+    if attn_fn is None:
+        return functools.partial(flash.flash_attention_train, causal=True,
+                                 segment_ids=segment_ids), None
+    return (lambda q, k, v, m: attn_fn(q, k, v, m, segment_ids)), None
 
 
 def _packed_logprobs_entropy(params, model_cfg, input_ids, positions,
                              attn_mask, segment_ids, remat, compute_entropy,
-                             loss_mask=None):
+                             loss_mask=None, layers_fn=None):
     """Packed-row (remove-padding) variant: rows hold several trajectories
     separated by segment ids. Returns per-COLUMN logprobs [R, L] (and
     entropy): column t holds the logprob of ``input_ids[:, t]`` predicted
@@ -300,10 +320,12 @@ def _packed_logprobs_entropy(params, model_cfg, input_ids, positions,
     the values the JAX version's double where gives them, and a NaN in an
     unselected hidden state reaches neither the outputs nor, through the
     backward, the weight gradients. Without autograd the selected tokens
-    are unembedded a chunk at a time."""
+    are unembedded a chunk at a time. ``layers_fn``: a pipeline layer
+    stack, which takes the segment ids."""
+    attn, lf = bind_packed_attention(None, layers_fn, segment_ids)
     h = decoder.forward_hidden(params, model_cfg, input_ids, positions,
-                               attn_mask, remat=remat,
-                               attn_fn=bind_packed_attention(segment_ids))
+                               attn_mask, remat=remat, attn_fn=attn,
+                               layers_fn=lf)
     r, l = input_ids.shape
     keep = (torch.ones((r, l - 1), dtype=torch.bool, device=h.device)
             if loss_mask is None else loss_mask[:, 1:] > 0)
@@ -356,7 +378,8 @@ def _predictor_columns(feed: dict, packed: bool,
 
 def mesh_columns(mesh, params, model_cfg, feed: dict, packed: bool, remat: bool,
                  attn_fn, packed_attn_fn, head_fn,
-                 mask_key: str | None = "response_mask") -> list[torch.Tensor]:
+                 mask_key: str | None = "response_mask",
+                 layers_fn=None) -> list[torch.Tensor]:
     """A per-token pass on a mesh: this rank forwards its slice of the
     whole ``feed`` (``_shard_feed``), ``head_fn(h, next_ids)`` maps the
     hidden states of its predictor columns (``_predictor_columns``) to a
@@ -366,9 +389,11 @@ def mesh_columns(mesh, params, model_cfg, feed: dict, packed: bool, remat: bool,
     and 0 off the predictor columns. Packed rows attend through
     ``packed_attn_fn(q, k, v, mask, segment_ids)`` with this rank's
     segment ids (K4 with them when it is None), padded ones through
-    ``attn_fn``. On a tp axis the forward runs this rank's tp shard
-    (``params`` its blocks) and ``head_fn`` gets ``mesh_tp(mesh)``'s
-    seam as a third argument."""
+    ``attn_fn``; a pipeline ``layers_fn`` runs the layer loop instead
+    (``bind_packed_attention``). On a tp axis the forward runs this rank's
+    tp shard (``params`` its blocks) and ``head_fn`` gets
+    ``mesh_tp(mesh)``'s seam as a third argument; on an ep axis its
+    expert blocks."""
     ids = feed["input_ids"]
     nxt = torch.zeros_like(ids)
     nxt[:, :-1] = ids[:, 1:]
@@ -377,15 +402,15 @@ def mesh_columns(mesh, params, model_cfg, feed: dict, packed: bool, remat: bool,
     local = _shard_feed(mesh, {**{k: feed[k] for k in keys}, "next_ids": nxt,
                                "pred": _predictor_columns(feed, packed, mask_key)})
     if packed:
-        seg = local["segment_ids"]
-        attn = (bind_packed_attention(seg) if packed_attn_fn is None
-                else (lambda q, k, v, m: packed_attn_fn(q, k, v, m, seg)))
+        attn, lf = bind_packed_attention(packed_attn_fn, layers_fn,
+                                         local["segment_ids"])
     else:
-        attn = attn_fn
+        attn, lf = attn_fn, layers_fn
     tp = mesh_tp(mesh)
     h = decoder.forward_hidden(params, model_cfg, local["input_ids"],
                                local["positions"], local["attention_mask"],
-                               remat=remat, attn_fn=attn, tp=tp)
+                               remat=remat, attn_fn=attn, tp=tp,
+                               ep=expert.mesh_ep(mesh), layers_fn=lf)
     keep = local["pred"]
     outs = (head_fn(h[keep], local["next_ids"][keep]) if tp is None
             else head_fn(h[keep], local["next_ids"][keep], tp))
@@ -503,22 +528,31 @@ def load_train_state(named: list, opt_state: OptState,
             dst.copy_(src)
 
 
-def check_mesh_args(mesh, attn_fn, layers_fn, model_cfg=None) -> None:
-    """What the actor and critic refuse: pipeline layer stacks, meshes with
-    ``ep``/``pp`` above 1, ``sp`` above 1 without a sequence-parallel
-    ``attn_fn``, and a ``tp`` that does not divide the model
-    (``tensor.local_config``)."""
-    if layers_fn is not None:
-        raise NotImplementedError("pipeline layer stacks (layers_fn) are not "
-                                  "ported yet (ROADMAP A' 9.3)")
+def check_mesh_args(mesh, attn_fn, layers_fn, model_cfg=None,
+                    packed_attn_fn=None) -> None:
+    """What the actor and critic refuse: a mesh with sp above 1 and
+    neither a sequence-parallel ``attn_fn`` nor a pipeline (whose stages
+    ring over sp), a pp axis above 1 without a pipeline ``layers_fn``, an
+    SP ``packed_attn_fn`` beside a pipeline (the stages compute their own
+    attention), and a ``tp`` or ``ep`` that does not divide the model."""
+    if layers_fn is not None and packed_attn_fn is not None:
+        raise ValueError("a pipeline layers_fn computes its own stage "
+                         "attention: pass no packed_attn_fn beside it")
     if mesh is None:
         return
-    meshlib.refuse_unported(mesh.shape)
-    if mesh.shape[meshlib.SP] > 1 and attn_fn is None:
+    if mesh.shape[meshlib.PP] > 1 and layers_fn is None:
+        raise ValueError(f"pp={mesh.shape[meshlib.PP]} needs a pipeline "
+                         "layers_fn (parallel/pipeline.make_pipeline_layers_fn)")
+    if mesh.shape[meshlib.SP] > 1 and attn_fn is None and layers_fn is None:
         raise ValueError("sp > 1 needs a sequence-parallel attn_fn "
-                         "(parallel.sequence.make_sp_attention)")
+                         "(parallel/sequence.make_sp_attention)")
     if model_cfg is not None:
         tensor.local_config(model_cfg, mesh.shape[meshlib.TP])
+        if mesh.shape[meshlib.EP] > 1:
+            if not model_cfg.num_experts:
+                raise ValueError(f"ep={mesh.shape[meshlib.EP]} needs a MoE "
+                                 "config (num_experts > 0)")
+            expert.ExpertParallel(mesh).experts(model_cfg.num_experts)
 
 
 def whole_state(sharded, named: list, opt_state: OptState):
@@ -554,7 +588,7 @@ def load_whole_state(sharded, named: list, opt_state: OptState, flat: dict,
     load_train_state(list(zip(sharded.names, full)), scratch, flat,
                      whole_frozen, alphas)
     for (n, p), (_, w) in zip(frozen, whole_frozen):
-        p.copy_(tensor.tp_slice(sharded.mesh, w, sharded.frozen_tp_dim(n, w.shape)))
+        p.copy_(sharded.frozen_block(n, w))
     sharded.load([p for _, p in named], full)
     sharded.load(opt_state.mu, moments["mu"])
     sharded.load(opt_state.nu, moments["nu"])
@@ -591,8 +625,7 @@ def shard_tree(mesh, model_cfg, named: list, frozen: list, params: dict):
     hold them)."""
     sharded = fsdp.ShardedLeaves(mesh, named, model_cfg.num_layers)
     sharded.frozen_whole = {n: tuple(p.shape) for n, p in frozen}
-    frozen = [(n, tensor.tp_slice(mesh, p.detach(), sharded.frozen_tp_dim(n, p.shape)))
-              for n, p in frozen]
+    frozen = [(n, sharded.frozen_block(n, p.detach())) for n, p in frozen]
     flat = flatten(params)
     flat.update(dict(frozen))
     flat.update({n: p.new_empty(0) for n, p in named})
@@ -612,11 +645,10 @@ def forward_tree(sharded, params: dict) -> dict:
 
 
 def whole_frozen(sharded, frozen: list) -> list:
-    """The frozen leaves whole (tp blocks gathered: a collective)."""
-    if sharded is None or sharded.mesh.shape[meshlib.TP] == 1:
+    """The frozen leaves whole (their blocks gathered: collectives)."""
+    if sharded is None:
         return list(frozen)
-    return [(n, tensor.tp_unslice(sharded.mesh, p, sharded.frozen_tp_dim(
-        n, sharded.whole_frozen_shape(n)))) for n, p in frozen]
+    return [(n, sharded.frozen_whole_leaf(n, p)) for n, p in frozen]
 
 
 def frozen_shapes(sharded, frozen: list) -> list | None:
@@ -641,11 +673,12 @@ class StreamActor:
     def __init__(self, model_cfg: decoder.ModelConfig, cfg: ActorConfig,
                  params: Any, mesh=None, attn_fn=None, layers_fn=None,
                  packed_attn_fn=None):
-        check_mesh_args(mesh, attn_fn, layers_fn, model_cfg)
+        check_mesh_args(mesh, attn_fn, layers_fn, model_cfg, packed_attn_fn)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.mesh = mesh
         self.attn_fn = attn_fn if attn_fn is not None else default_train_attention()
+        self.layers_fn = layers_fn  # a pipeline layer stack (pp > 1)
         self.packed_attn_fn = packed_attn_fn
         self._lora = cfg.lora_rank > 0
         labels = None
@@ -774,18 +807,21 @@ class StreamActor:
             cols = mesh_columns(self.mesh, params, self.model_cfg, batch, packed,
                                 remat, self.attn_fn, self.packed_attn_fn,
                                 _logprob_head(params, self.model_cfg,
-                                              compute_entropy))
+                                              compute_entropy),
+                                layers_fn=self.layers_fn)
             out = [from_columns(c, batch, packed) for c in cols]
             return out[0], (out[1] if compute_entropy else None)
         if packed:
             return _packed_logprobs_entropy(
                 params, self.model_cfg, batch["input_ids"], batch["positions"],
                 batch["attention_mask"], batch["segment_ids"], remat,
-                compute_entropy, loss_mask=batch.get("loss_mask"))
+                compute_entropy, loss_mask=batch.get("loss_mask"),
+                layers_fn=self.layers_fn)
         return _model_logprobs_entropy(
             params, self.model_cfg, batch["input_ids"], batch["positions"],
             batch["attention_mask"], batch["responses"], batch["response_mask"],
-            remat, compute_entropy, attn_fn=self.attn_fn)
+            remat, compute_entropy, attn_fn=self.attn_fn,
+            layers_fn=self.layers_fn)
 
     def _loss_fn(self, batch: dict, loss_scale: float):
         cfg = self.cfg

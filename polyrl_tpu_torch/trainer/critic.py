@@ -23,8 +23,9 @@ every leaf and its AdamW moments over tp by their specs and then over
 the global clip norm; on a tp axis the trunk runs its tensor-parallel
 shard and ``value_head`` is replicated) and each rank forwards its slice
 of the batch (``actor.mesh_columns``), the values coming back whole on
-every rank. Pipeline layer stacks and ``ep``/``pp`` above 1 raise
-``NotImplementedError`` (ROADMAP A' 9.3, 9.4).
+every rank. On a pp axis the critic takes its own pipeline ``layers_fn``
+(its remat may differ from the actor's), on an ep axis each rank holds its
+expert blocks, as the actor's do.
 """
 
 from __future__ import annotations
@@ -76,27 +77,29 @@ def _values_of(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 
 
 def forward_values(params, model_cfg, input_ids, positions, attn_mask,
-                   responses, remat, attn_fn=None):
+                   responses, remat, attn_fn=None, layers_fn=None):
     """Token values for the response region [B, T_resp] (f32): the value at
     a response token is predicted from the position before it, the same
     one-left shift as the actor's logprobs."""
     h = decoder.forward_hidden(params, model_cfg, input_ids, positions,
-                               attn_mask, remat=remat, attn_fn=attn_fn)
+                               attn_mask, remat=remat, attn_fn=attn_fn,
+                               layers_fn=layers_fn)
     t_resp = responses.shape[1]
     return _values_of(h[:, -t_resp - 1:-1], params["value_head"])
 
 
 def forward_values_packed(params, model_cfg, input_ids, positions, attn_mask,
-                          segment_ids, remat, loss_mask=None):
+                          segment_ids, remat, loss_mask=None, layers_fn=None):
     """Per-column values [R, L] on the packed layout: column t holds the
     value predicted from column t - 1 (column 0 is 0), the one-left shift
     of ``forward_values`` and the packed logprob pass, so the caller's
     ``loss_mask`` or ``PackSpec`` selects response-token values directly.
     ``loss_mask`` zeroes the columns outside it: a NaN there reaches
     neither the values nor, through the backward, the gradients."""
+    attn, lf = bind_packed_attention(None, layers_fn, segment_ids)
     h = decoder.forward_hidden(params, model_cfg, input_ids, positions,
-                               attn_mask, remat=remat,
-                               attn_fn=bind_packed_attention(segment_ids))
+                               attn_mask, remat=remat, attn_fn=attn,
+                               layers_fn=lf)
     v = F.pad(_values_of(h[:, :-1], params["value_head"]), (1, 0))
     if loss_mask is not None:
         v = torch.where(loss_mask > 0, v, 0.0)
@@ -110,11 +113,12 @@ class StreamCritic:
     def __init__(self, model_cfg: decoder.ModelConfig, cfg: CriticConfig,
                  params: Any, mesh=None, attn_fn=None, layers_fn=None,
                  packed_attn_fn=None):
-        check_mesh_args(mesh, attn_fn, layers_fn, model_cfg)
+        check_mesh_args(mesh, attn_fn, layers_fn, model_cfg, packed_attn_fn)
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.mesh = mesh
         self.attn_fn = attn_fn if attn_fn is not None else default_train_attention()
+        self.layers_fn = layers_fn  # a pipeline layer stack (pp > 1)
         self.packed_attn_fn = packed_attn_fn
         self.params = _tree_map(lambda t: t.detach().requires_grad_(True), params)
         self._named = list(_leaves(self.params))
@@ -155,16 +159,17 @@ class StreamCritic:
             vals = mesh_columns(self.mesh, params, self.model_cfg, batch, packed,
                                 remat, self.attn_fn, self.packed_attn_fn,
                                 lambda hs, _targets, _tp=None: [_values_of(hs, head)],
-                                mask_key=None)[0]
+                                mask_key=None, layers_fn=self.layers_fn)[0]
             return from_columns(vals, batch, packed)
         if packed:
             return forward_values_packed(
                 params, self.model_cfg, batch["input_ids"], batch["positions"],
                 batch["attention_mask"], batch["segment_ids"], remat,
-                loss_mask=batch.get("loss_mask"))
+                loss_mask=batch.get("loss_mask"), layers_fn=self.layers_fn)
         return forward_values(params, self.model_cfg, batch["input_ids"],
                               batch["positions"], batch["attention_mask"],
-                              batch["responses"], remat, attn_fn=self.attn_fn)
+                              batch["responses"], remat, attn_fn=self.attn_fn,
+                              layers_fn=self.layers_fn)
 
     def _loss(self, batch: dict, loss_scale: float):
         vpreds = self._values(self._forward_params(), batch, self.cfg.remat)

@@ -370,8 +370,9 @@ def build_shard_spec(params: Any, axis: str = "tp",
     from polyrl_tpu_torch.parallel.tensor import tp_dim
 
     if axis != "tp" and num_shards > 1:
-        raise NotImplementedError(f"a shard spec over {axis!r} is not ported "
-                                  "(ROADMAP A' 9)")
+        # an engine's shards split over tp; ep and pp are trainer axes,
+        # whose pushes gather every block first
+        raise ValueError(f"an engine's shards split over tp, not {axis!r}")
     return ShardSpec(int(num_shards), {
         name: (tp_dim(name, tuple(leaf.shape)) if num_shards > 1 else None)
         for name, leaf in flatten_with_names(params)})

@@ -241,39 +241,56 @@ def _mesh(**axes):
 
 
 def test_unported_actor_options_raise():
-    """Meshes with a pipeline axis, and a tensor-parallel axis on a MoE
-    config (its experts wait for ep), still refuse; tp meshes are ported
-    (``tests/test_torch_tensor_parallel.py``), and so are LoRA and
-    optimizer offload (``tests/test_torch_lora.py``, the offload test
-    below)."""
+    """Every mesh axis is ported: tp meshes
+    (``tests/test_torch_tensor_parallel.py``), pp with a pipeline
+    ``layers_fn`` (``tests/test_torch_pipeline_parallel.py``), ep and a
+    MoE config under tp (``tests/test_torch_expert_parallel.py``), and so
+    are LoRA and optimizer offload (``tests/test_torch_lora.py``, the
+    offload test below). What still refuses: a pp mesh without a pipeline
+    ``layers_fn``, and an ep mesh on a dense config."""
+    from polyrl_tpu_torch.parallel.pipeline import make_pipeline_layers_fn
+
     _jcfg, tcfg, tree = _models()
     for kw in (dict(lora_rank=4), dict(offload_optimizer=True)):
         tactor.StreamActor(tcfg, tactor.ActorConfig(**kw), _tparams(tree))
     tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree),
                        mesh=_mesh(tp=2))
-    with pytest.raises(NotImplementedError, match="A' 9"):
+    with pytest.raises(ValueError, match="pipeline layers_fn"):
         tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree),
                            mesh=_mesh(pp=2))
+    pp = _mesh(pp=2)
+    tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree), mesh=pp,
+                       layers_fn=make_pipeline_layers_fn(pp, tcfg, 2))
+    with pytest.raises(ValueError, match="MoE"):
+        tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree),
+                           mesh=_mesh(ep=2))
     moe = tdec.get_config("moe-tiny", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="A' 9.4"):
+    for mesh in (_mesh(tp=2), _mesh(ep=2), _mesh(tp=2, ep=2)):
         tactor.StreamActor(moe, tactor.ActorConfig(),
                            tdec.init_params(torch.Generator().manual_seed(0), moe),
-                           mesh=_mesh(tp=2))
+                           mesh=mesh)
 
 
 @pytest.mark.parametrize("kw", [dict(packed_attn_fn=object(),
-                                     mesh=_mesh(sp=2, ep=2),
+                                     mesh=_mesh(sp=2, pp=2),
                                      attn_fn=object()),
-                                dict(layers_fn=object())],
+                                dict(layers_fn=object(), mesh=_mesh(sp=2))],
                          ids=["sp_packed_attention", "pipeline_layers"])
 def test_unported_parallel_options_raise(kw):
-    """Packed rows run through K4 with segment ids, and on an sp mesh
-    through the sequence-parallel packed attention
-    (``tests/test_torch_sequence_parallel.py``); what stays unported
-    refuses: expert parallelism beside it and pipeline layer stacks
-    (ROADMAP A' 9)."""
+    """Packed rows run through K4 with segment ids, on an sp mesh through
+    the sequence-parallel packed attention
+    (``tests/test_torch_sequence_parallel.py``) and under a pipeline
+    through the stages' own attention
+    (``tests/test_torch_pipeline_parallel.py``). What refuses: an SP
+    packed attention beside a pipeline (the stages compute their own), and
+    a pp mesh without a pipeline ``layers_fn``."""
     _jcfg, tcfg, tree = _models()
-    with pytest.raises(NotImplementedError, match="A' 9"):
+    if "layers_fn" in kw:
+        kw = dict(kw, packed_attn_fn=object())
+        with pytest.raises(ValueError, match="own stage attention"):
+            tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree), **kw)
+        return
+    with pytest.raises(ValueError, match="pipeline layers_fn"):
         tactor.StreamActor(tcfg, tactor.ActorConfig(), _tparams(tree), **kw)
 
 

@@ -65,10 +65,29 @@ def test_parallel_modules_are_scanned(rel):
     assert ROOT / "polyrl_tpu_torch" / rel in PORT_FILES
 
 
+SLICE_17 = ("parallel/pipeline.py", "parallel/expert.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_17)
+def test_pipeline_and_expert_modules_are_scanned(rel):
+    """The pipeline (pp) and expert-parallel (ep) modules are in the scan
+    above and in the jax-blocked import below."""
+    assert ROOT / "polyrl_tpu_torch" / rel in PORT_FILES
+
+
 def test_spawned_world_worker_imports_no_jax():
     """The gloo worlds' worker (``tests/torch_dist.py``) runs the port
     alone: it imports neither JAX nor the JAX package."""
     path = ROOT / "tests" / "torch_dist.py"
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "polyrl_tpu")]
+    assert not bad, bad
+
+
+def test_pipeline_and_expert_world_tasks_import_no_jax():
+    """The pp and ep tasks of those worlds (``tests/torch_dist_pp.py``)
+    import neither JAX nor the JAX package."""
+    path = ROOT / "tests" / "torch_dist_pp.py"
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "polyrl_tpu")]
     assert not bad, bad

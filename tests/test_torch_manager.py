@@ -256,6 +256,130 @@ def test_idempotent_calls_retry_and_others_fail_fast(fault):
         stub.stop()
 
 
+# -- an abort from a remote engine is a preemption --------------------------
+
+
+class _FakeEngine:
+    """A scripted remote engine. In mode 'abort' it answers a first
+    attempt (input ``PROMPT``) with two tokens and then an ``abort``
+    terminal that carries one more; a continuation (a longer input) runs
+    to its budget. In mode 'drop' it closes the stream after one token.
+    Token ``i`` of a completion is ``100 + i`` wherever it is decoded."""
+
+    def __init__(self):
+        self.mode = "abort"
+        self.generates = []  # input lengths of the /generate calls
+        self.shutdowns = 0
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def _json(self, obj):
+                body = json.dumps(obj).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/get_server_info":
+                    self._json({"num_running_reqs": 0, "num_queued_reqs": 0,
+                                "last_gen_throughput": 0.0})
+                else:
+                    self._json({"status": "ok"})
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n) or b"{}")
+                if self.path == "/shutdown":
+                    outer.shutdowns += 1
+                    return self._json({"status": "ok"})
+                if self.path != "/generate":
+                    return self._json({"status": "ok"})
+                ids = body["input_ids"]
+                outer.generates.append(len(ids))
+                done = len(ids) - len(PROMPT)
+                budget = body["sampling_params"]["max_new_tokens"]
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("Connection", "close")
+                self.end_headers()
+
+                def line(toks, **kw):
+                    self.wfile.write((json.dumps(
+                        {"token_ids": toks, "logprobs": [-0.5] * len(toks),
+                         **kw}) + "\n").encode())
+                    self.wfile.flush()
+
+                if outer.mode == "drop":
+                    line([100 + done])
+                    self.connection.shutdown(2)
+                    return
+                if done == 0:
+                    line([100, 101])
+                    line([102], finished=False, finish_reason="abort")
+                    return
+                line([100 + done + i for i in range(budget)], finished=True,
+                     finish_reason="length")
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+        self.endpoint = f"127.0.0.1:{self.server.server_address[1]}"
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def test_remote_abort_resumes_elsewhere_and_a_drop_still_evicts():
+    engines = [_FakeEngine(), _FakeEngine()]
+    # an emptied pool answers at once instead of waiting for a newcomer
+    proc, port = spawn_rollout_manager(
+        "127.0.0.1:0",
+        extra_args=FAST_ARGS + ["--schedule-wait-timeout-ms", "500"])
+    try:
+        mgr = ManagerClient(f"127.0.0.1:{port}")
+        mgr.wait_healthy()
+        for e in engines:
+            mgr.register_rollout_instance(e.endpoint)
+        _wait(lambda: all((_instance(mgr, e.endpoint) or {}).get("active")
+                          for e in engines), msg="both fakes routed")
+        res = mgr.generate("m-abort", PROMPT, {"max_new_tokens": 8})
+        assert res.success, res.error
+        # the abort carried token 102; the resume decodes 103..107 whole
+        assert list(res.output_token_ids) == list(range(100, 108))
+        first = [e for e in engines if len(PROMPT) in e.generates]
+        assert len(first) == 1
+        other = engines[1 - engines.index(first[0])]
+        assert other.generates == [len(PROMPT) + 3]  # resumed elsewhere
+        assert first[0].generates == [len(PROMPT)]
+        time.sleep(0.5)  # an eviction's /shutdown is sent from a thread
+        status = mgr.get_instances_status()
+        assert status["pool"]["evictions"] == 0
+        assert all(_instance(mgr, e.endpoint)["active"] for e in engines)
+        assert [e.shutdowns for e in engines] == [0, 0]
+        # a transport failure still evicts, and sends /shutdown
+        for e in engines:
+            e.mode = "drop"
+        res = mgr.generate("m-drop", PROMPT, {"max_new_tokens": 8})
+        assert not res.success or len(res.output_token_ids) < 8
+        _wait(lambda: all(e.shutdowns == 1 for e in engines),
+              msg="/shutdown to both dropping fakes")
+        status = mgr.get_instances_status()
+        assert status["pool"]["evictions"] == 2
+        assert status["instances"] == []
+    finally:
+        proc.kill()
+        proc.wait(timeout=10)
+        for e in engines:
+            e.stop()
+
+
 # -- the supervisor -------------------------------------------------------------
 
 

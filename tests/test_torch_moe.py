@@ -14,8 +14,8 @@ int8 within an NRMSE of 0.05 (the reference's ``tests/test_moe.py``
 bounds).
 
 The two ``devices8`` tests of ``tests/test_moe.py`` (expert parallelism
-over an ``ep`` mesh axis) have no counterpart here: the port has no
-meshes yet (ROADMAP A' 9).
+over an ``ep`` mesh axis) have their counterparts in
+``tests/test_torch_expert_parallel.py``.
 """
 
 import dataclasses

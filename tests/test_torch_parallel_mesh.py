@@ -92,26 +92,54 @@ def test_shard_params_reassemble_bitwise(converted, fsdp):
 
 
 def test_unported_axes_and_specs_raise(converted):
-    """ep and pp above 1 raise, naming ROADMAP A' 9: in the mesh, in a
-    parameter spec over ep, and in the trainer's mesh build. tp is ported,
-    its blocks cut by leaf name (``tensor.tp_dim``): ``shard_params``
-    shards over fsdp only and refuses a spec over tp."""
+    """ep and pp are real axes now: a parameter spec over ep or pp cuts
+    this rank's block before fsdp shards it, and the trainer checks a pp
+    or ep mesh against the model and the batch before anything is
+    spawned. What still raises: a spec over tp (tp blocks are cut by leaf
+    name, ``tensor.tp_dim``) or over a name that is no parameter axis; pp
+    that does not divide the layers or whose microbatches do not divide
+    the micro; Ulysses inside pipeline stages; ep on a dense model."""
     from polyrl_tpu_torch.config import load_config
-    from polyrl_tpu_torch.train import _build_mesh
+    from polyrl_tpu_torch.models import decoder
+    from polyrl_tpu_torch.train import _pipeline_layers, _sp_attention
 
-    for axis in ("ep", "pp"):
-        with pytest.raises(NotImplementedError, match="A' 9"):
-            meshlib.refuse_unported({axis: 2})
-        cfg = load_config(None, ["device=cpu", f"parallel.{axis}=2"])
-        with pytest.raises(NotImplementedError, match="A' 9"):
-            _build_mesh(cfg, torch.device("cpu"))
-    meshlib.refuse_unported({"tp": 2})
-    mesh = meshlib.Mesh((1, 2, 1, 1, 1, 1), 0, make_groups=False)
-    with pytest.raises(NotImplementedError, match="A' 9"):
-        meshlib.shard_params(mesh, converted, {"embed": (None, "ep")})
-    meshlib.shard_params(mesh, converted, {"embed": ("fsdp", None)})
+    def mesh(rank=0, **axes):
+        return meshlib.Mesh(tuple(axes.get(a, 1) for a in meshlib.AXES), rank,
+                            make_groups=False)
+
+    embed = converted["embed"]
+    for axis, rank in (("ep", 1), ("pp", 0)):
+        m = mesh(rank, fsdp=2, **{axis: 2})
+        got = meshlib.shard_params(m, converted, {"embed": (axis, "fsdp")})
+        want = meshlib.shard_tensor(m, embed.chunk(2, 0)[rank].contiguous())
+        assert torch.equal(got["embed"], want)
+    m = mesh(fsdp=2)
+    meshlib.shard_params(m, converted, {"embed": ("fsdp", None)})
     with pytest.raises(ValueError, match="tp_dim"):
-        meshlib.shard_params(mesh, converted, {"embed": ("tp", "fsdp")})
+        meshlib.shard_params(m, converted, {"embed": ("tp", "fsdp")})
+    with pytest.raises(ValueError, match="'dp'"):
+        meshlib.shard_params(m, converted, {"embed": ("dp", None)})
+
+    tiny = decoder.get_config("tiny")
+    cfg = load_config(None, ["device=cpu", "parallel.pp=2",
+                             "trainer.micro_batch_size=8"])
+    lf, clf = _pipeline_layers(cfg, tiny, mesh(pp=2))
+    assert callable(lf) and callable(clf)
+    with pytest.raises(ValueError, match="not divisible by pp"):
+        _pipeline_layers(cfg, decoder.get_config("tiny", num_layers=3),
+                         mesh(pp=2))
+    cfg = load_config(None, ["device=cpu", "parallel.pp=2",
+                             "trainer.micro_batch_size=8",
+                             "parallel.pp_microbatches=3"])
+    with pytest.raises(ValueError, match="pp_microbatches 3"):
+        _pipeline_layers(cfg, tiny, mesh(pp=2))
+    cfg = load_config(None, ["device=cpu", "parallel.ep=2"])
+    with pytest.raises(ValueError, match="MoE"):
+        _pipeline_layers(cfg, tiny, mesh(ep=2))
+    _pipeline_layers(cfg, decoder.get_config("moe-tiny"), mesh(ep=2))
+    cfg = load_config(None, ["device=cpu", "parallel.sp=2", "parallel.pp=2"])
+    with pytest.raises(NotImplementedError, match="sp_mode=ring"):
+        _sp_attention(cfg, tiny, mesh(sp=2, pp=2))
 
 
 def test_one_process_builds_no_mesh_and_single_device_mesh():

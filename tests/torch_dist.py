@@ -139,13 +139,14 @@ FIT_TRAINER = dict(train_batch_size=4, rollout_n=2, ppo_mini_batch_size=8,
 
 
 def fit_trainer(mesh=None, sp_mode="ulysses", ckpt_dir="", lora_rank=0,
-                model=None, **overrides):
+                model=None, pp_microbatches=2, **overrides):
     """The tiny fit of every world (``mesh`` None: one process): f32,
     seed 0, the KL loss against a mesh-free reference policy, a
     deterministic rollout on rank 0 (a ``NullRollout`` elsewhere) and the
     response-length reward; LoRA adapters of ``lora_rank`` when given,
-    ``model`` (a dict) overriding the tiny config's fields.
-    ``overrides`` go into ``TrainerConfig``."""
+    ``model`` (a dict) overriding the tiny config's fields. On a pp axis
+    the actor and critic run the pipeline of ``pp_microbatches``
+    (its stages ring over sp). ``overrides`` go into ``TrainerConfig``."""
     from polyrl_tpu_torch.data.dataset import PromptDataLoader, make_arithmetic_dataset
     from polyrl_tpu_torch.models import decoder
     from polyrl_tpu_torch.parallel import multihost
@@ -162,20 +163,26 @@ def fit_trainer(mesh=None, sp_mode="ulysses", ckpt_dir="", lora_rank=0,
     cfg = decoder.get_config("tiny", dtype=torch.float32, **(model or {}))
     params = decoder.init_params(torch.Generator().manual_seed(0), cfg)
     tok = ByteTokenizer()
-    attn = packed = None
-    if mesh is not None and mesh.shape["sp"] > 1:
+    attn = packed = layers_fn = None
+    if mesh is not None and mesh.shape["pp"] > 1:
+        from polyrl_tpu_torch.parallel.pipeline import make_pipeline_layers_fn
+
+        layers_fn = make_pipeline_layers_fn(mesh, cfg, pp_microbatches,
+                                            sp_ring=mesh.shape["sp"] > 1)
+    elif mesh is not None and mesh.shape["sp"] > 1:
         attn = make_sp_attention(mesh, sp_mode)
         packed = make_sp_attention(mesh, sp_mode, packed=True)
     ref = ReferencePolicy(cfg, params)
     acfg = ActorConfig(lr=1e-3, remat=False, use_kl_loss=True,
                        lora_rank=lora_rank, lora_alpha=16.0)
     actor = StreamActor(cfg, acfg, params, mesh=mesh, attn_fn=attn,
-                        packed_attn_fn=packed)
+                        layers_fn=layers_fn, packed_attn_fn=packed)
     critic = None
     if tcfg.adv_estimator == "gae":
         critic = StreamCritic(cfg, CriticConfig(lr=1e-3, remat=False),
                               init_critic_params(torch.Generator().manual_seed(1), cfg),
-                              mesh=mesh, attn_fn=attn, packed_attn_fn=packed)
+                              mesh=mesh, attn_fn=attn, layers_fn=layers_fn,
+                              packed_attn_fn=packed)
     rollout = (DetRollout() if multihost.is_main()
                else multihost.NullRollout(pad_token_id=tok.pad_token_id))
     reward = load_reward_manager("naive", tok, compute_score=_score, num_workers=1)
@@ -569,6 +576,9 @@ def main(argv: list[str]) -> int:
 
     torch.set_num_threads(1)
     outdir, tasks = Path(argv[0]), argv[1:]
+    from tests.torch_dist_pp import TASKS as PP_TASKS
+
+    TASKS.update(PP_TASKS)
     distributed.initialize(device="cpu", backend="gloo", timeout_s=120)
     rank = int(os.environ["RANK"])
     world = int(os.environ["WORLD_SIZE"])
