@@ -124,7 +124,15 @@ when CUDA is unavailable or any phase fails. Phases:
               the launch and in the whole decode pass less its drains, and
               the profiler's accounting ms per dispatch; and the device
               memory peak of one full spill sweep on that engine's 2,048
-              pages.
+              pages. Before the spill-off run, "tp spill": the same
+              sessions on a tp=2 engine, both shards on the card, one
+              spill lane a shard, against a never-spilling tp=2 engine of
+              1,024 pages (both admitting each round held): at least 32
+              pages spilled and restored through both lanes, the streams
+              bitwise, the ledger reconciled, the pools at their addresses
+              and no graph captured again, the fused prologue and K2 a
+              multiple of 2 x 28; spill and restore GB/s summed and a lane,
+              peak pinned bytes.
 5. train   -- ``build_trainer`` of ``polyrl_tpu_torch.train``:
               ``qwen3-1.7b`` at full width and depth in bf16, random
               weights from seed 0, the colocated CB engine (64 slots,
@@ -430,13 +438,27 @@ when CUDA is unavailable or any phase fails. Phases:
               Then the same on qwen3-30b-a3b at full width and
               TP_MOE_LAYERS layers, dropless ("tp moe"): each shard half of
               every expert's width and the whole router, its launches in
-              the ``kernels`` line's tp share.
+              the ``kernels`` line's tp share. Then "tp lora":
+              ``create_server(tp=2, lora_rank=16)`` (``serve --tp 2
+              --lora-rank 16``) on ``qwen3-1.7b``; one adapter push of
+              ``extract_adapters`` (a and b drawn from a seeded generator)
+              through the sharded fabric: every shard's a/b bitwise its
+              ``tp_dim`` block of the push, the bases as before, every leaf
+              at its address, no graph captured again; then the 18-stream
+              mix held to one admission order, and one greedy request
+              alone, as the main path (the fused prologue, K2 and K3 each
+              a multiple of 2 x 28, the unfused K1 not): its greedy
+              streams bitwise a fresh tp=2 LoRA server's given the same
+              adapters, and against a one-shard LoRA engine until the
+              first f32 near-tie within TP_LOGP_TOL; the decode step by
+              replay on 2 shards and on 1; the push's bytes, wire and
+              install seconds.
               The hybrid phase also fails when its short window's stream
               takes over HYBRID_WINDOW_MAX_S.
 19. result -- the card's name and power limit, a ``{"kernels": [...]}``
               line (the launches of each kernel's paths: serve or the A/B,
-              memory, train, disagg, hybrid, lora_delta, autoscale, moe
-              and tp), and last ``{"ok": true, "device": {...}}``.
+              memory and its tp spill, train, disagg, hybrid, lora_delta,
+              autoscale, moe and tp, tp moe and tp lora), and last ``{"ok": true, "device": {...}}``.
 
 The train, disagg, hybrid, lora_delta and autoscale phases also gate the
 observability planes: every record's ``goodput/*`` (``attributed_frac``
@@ -1356,12 +1378,26 @@ def server_planes(port: int, label: str) -> dict:
         attributed=eng_["tokens"].get("attributed_frac"))
 
 
-def run_requests(port: int, bodies: list[dict]) -> list[dict]:
+def run_requests(port: int, bodies: list[dict], engine=None) -> list[dict]:
+    """Stream ``bodies`` at once over /generate and check each ran to its
+    length. With ``engine`` (the server's), its admission is held until
+    every request is queued, in the order of ``bodies``: every run of the
+    same requests on an idle engine admits the same waves."""
     outs = [{} for _ in bodies]
     threads = [threading.Thread(target=stream_generate, args=(port, b, o))
                for b, o in zip(bodies, outs)]
-    for t in threads:
+    if engine is not None:
+        engine._paused.set()
+    for i, t in enumerate(threads):
         t.start()
+        deadline = time.monotonic() + 60
+        # the idle loop may have taken the first into its pending list
+        while (engine is not None
+               and engine._queue.qsize() + len(engine._pending) <= i):
+            check(time.monotonic() < deadline, "a held request never queued")
+            time.sleep(0.001)
+    if engine is not None:
+        engine._paused.clear()
     for t in threads:
         t.join(timeout=900)
         check(not t.is_alive(), "a /generate stream did not finish")
@@ -3830,8 +3866,9 @@ def dense_f32_gate(params32, cfg, prompt, tokens, logprobs, dev) -> tuple:
 
 
 def f32_copy(params: dict) -> dict:
-    return {k: (f32_copy(v) if isinstance(v, dict) else v.float())
-            for k, v in params.items()}
+    from polyrl_tpu_torch.models.quant import tree_map
+
+    return tree_map(lambda t: t.float(), params)
 
 
 def stream_items(q, timeout: float = 600.0, into: list | None = None) -> list:
@@ -5186,13 +5223,19 @@ def engine_quiet(eng, timeout: float = 120.0) -> None:
         eng._idle.wait(0.05)
 
 
-def engine_requests(eng, reqs: list[dict]) -> list[dict]:
+def engine_requests(eng, reqs: list[dict], hold: bool = False) -> list[dict]:
     """Submit ``reqs`` (rid, input_ids, sampling, optional group hints) at
     once to a started engine and read every stream: tokens, logprobs,
-    finish reason and each line's arrival time."""
+    finish reason and each line's arrival time. ``hold`` keeps the engine
+    from admitting until every request is queued (the same waves on every
+    run)."""
+    if hold:
+        eng._paused.set()
     qs = [eng.submit(r["rid"], r["input_ids"], r["sampling"],
                      group_id=r.get("group_id", ""),
                      group_size=r.get("group_size", 0)) for r in reqs]
+    if hold:
+        eng._paused.clear()
     outs, threads = timed_streams(qs)
     for t in threads:
         t.join(timeout=600)
@@ -5208,22 +5251,23 @@ def engine_requests(eng, reqs: list[dict]) -> list[dict]:
     return res
 
 
-def memory_sessions(eng, prompts: list, sp, between=None) -> list[dict]:
+def memory_sessions(eng, prompts: list, sp, between=None,
+                    hold: bool = False) -> list[dict]:
     """The sessions: two rounds of 8 fresh prompts (each round one wave,
     waited for), then each session resumed alone with its own prompt, so
     that its prefix hit lands on pages the pressure spilled; ``between()``
-    runs once the first pass is quiet."""
+    runs once the first pass is quiet; ``hold`` as ``engine_requests``."""
     out = []
     for r in range(0, len(prompts), 8):
         out += engine_requests(eng, [
             {"rid": f"s{i}", "input_ids": prompts[i], "sampling": sp}
-            for i in range(r, min(r + 8, len(prompts)))])
+            for i in range(r, min(r + 8, len(prompts)))], hold)
     engine_quiet(eng)
     if between is not None:
         between()
     for i, p in enumerate(prompts):
         out += engine_requests(eng, [{"rid": f"r{i}", "input_ids": p,
-                                      "sampling": sp}])
+                                      "sampling": sp}], hold)
     engine_quiet(eng)
     return out
 
@@ -5258,7 +5302,7 @@ def timed_spill(eng, dev) -> tuple[list, float]:
     with eng._pool_lock:
         t0 = time.monotonic()
         eng._spill_pages(eng.num_pages, cold_only=False)
-        eng.kvspill._copy_stream.synchronize()
+        eng.kvspill.synchronize()
         dt = time.monotonic() - t0
     return [e for e in spilled_entries(eng) if id(e) not in before], dt
 
@@ -5296,7 +5340,9 @@ def memory_phase(dev) -> dict:
     spill (gather plus device-to-host) and restore (host-to-device plus
     ``index_copy_``) GB/s, peak pinned bytes, kv_spilled_frac,
     kv_restore_rate, HBM use and headroom, the profiler's fractions beside
-    torch.profiler's busy share of the grouped mix. Then ``memory_ab``."""
+    torch.profiler's busy share of the grouped mix. Then the same sessions
+    on tp=2 shards, one spill lane each (``memory_tp_spill``), the capped
+    run with spill off and ``memory_ab``."""
     from polyrl_tpu_torch.rollout.cb_engine import CBEngine
     from polyrl_tpu_torch.rollout.sampling import SamplingParams
 
@@ -5477,6 +5523,7 @@ def memory_phase(dev) -> dict:
     del capped
     gc.collect()
     torch.cuda.empty_cache()
+    out["tp"] = memory_tp_spill(dev, cfg, params, prompts, greedy)
 
     # the capped run with the spill tier off: evicted prefixes prefill again
     off = make(MEM_PAGES, kv_spill=False)
@@ -5501,6 +5548,152 @@ def memory_phase(dev) -> dict:
     torch.cuda.empty_cache()
     out["ab"] = memory_ab(dev)
     return out
+
+
+def lane_rates(before: list, after: list, nbytes: str, secs: str) -> list:
+    """Each spill lane's GB/s over one timed batch: its bytes over its
+    copies' device seconds (events on the card)."""
+    return [(a[nbytes] - b_[nbytes]) / max(a[secs] - b_[secs], 1e-12) / 1e9
+            for b_, a in zip(before, after)]
+
+
+def memory_tp_spill(dev, cfg, params, prompts: list, sp) -> dict:
+    """The memory phase's sessions on a ``tp=2`` engine of the same
+    weights, both shards on the card, one spill lane a shard: 16 greedy
+    sessions of 512 + 64 tokens on 96 pages (two rounds of 8, then each
+    resumed alone), then on a ``tp=2`` engine of 1,024 pages that never
+    spills, both admitting each round held (the same waves). Gates: at
+    least MEM_MIN_PAGES pages spilled and restored, through both lanes;
+    the streams bitwise the never-spilling engine's; the ledger's
+    attributed_frac 1.0 at quiescence, its spilled pages the host tier's;
+    the pools at their addresses and no decode graph captured again after
+    the first pass; the fused prologue and K2 launched on both shards (a
+    multiple of ``TP x layers``), the unfused K1 not. Readings: a timed
+    spill and restore of every unreferenced published page, GB/s summed
+    (a page's bytes over both shards, by the host's clock) and each lane's
+    (its bytes over its copies' device seconds), the peak pinned bytes."""
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+
+    t_phase = time.monotonic()
+
+    def make(num_pages: int):
+        return CBEngine(cfg, params, pad_token_id=0,
+                        kv_cache_dtype=torch.bfloat16, num_pages=num_pages,
+                        device=dev, tp=TP, **MEM_ENGINE).start()
+
+    out: dict = {}
+    capped = make(MEM_PAGES)
+    try:
+        pools = [t for kp, vp in capped._pools for t in kp + vp]
+        ptrs = [t.data_ptr() for t in pools]
+        page_bytes = sum(t[:, 0].numel() * t.element_size() for t in pools)
+        first: dict = {}
+
+        def after_first_pass():
+            first.update(captures=capped.graph_captures,
+                         replays=capped.graph_replays)
+
+        cuda_build.reset_launch_counts()
+        got = memory_sessions(capped, prompts, sp, after_first_pass, hold=True)
+        out["launches"] = dict(cuda_build.LAUNCHES)
+        torch.cuda.synchronize(dev)
+        info = capped.kv_memory_info()
+        snap = capped.kv_memory_snapshot()
+        lanes = snap["spill"]["host"]["lanes"]
+        out["pages"] = dict(spilled=info["memory/pages_spilled"],
+                            restored=info["memory/pages_restored"],
+                            lanes=[(ln["bytes_spilled"], ln["bytes_restored"])
+                                   for ln in lanes])
+        check(info["memory/pages_spilled"] >= MEM_MIN_PAGES
+              and info["memory/pages_restored"] >= MEM_MIN_PAGES,
+              f"tp spill: {info['memory/pages_spilled']} pages spilled and "
+              f"{info['memory/pages_restored']} restored, under {MEM_MIN_PAGES}")
+        check(len(lanes) == TP and all(ln["bytes_spilled"] > 0
+                                       and ln["bytes_restored"] > 0
+                                       for ln in lanes),
+              f"tp spill: not every lane spilled and restored: {out['pages']}")
+        rec = snap["reconcile"]
+        check(rec["attributed_frac"] == 1.0
+              and rec["ledger_free"] == rec["pool_free"]
+              == capped.allocator.free_count,
+              f"tp spill: the ledger does not reconcile: {json.dumps(rec)}")
+        check(snap["roles"]["spilled"] == len(spilled_entries(capped))
+              == capped.kvspill.resident_pages,
+              "tp spill: spilled pages disagree between ledger, cache and host")
+        check(capped.graph_captures == first["captures"]
+              and capped.graph_replays > first["replays"],
+              "tp spill: a decode graph was captured again after the restores")
+        check([t.data_ptr() for t in pools] == ptrs, "tp spill: the pools moved")
+        n_l = cfg.num_layers
+        for name in ("paged_kv_write_fused", "paged_attention"):
+            check(out["launches"][name] > 0
+                  and out["launches"][name] % (TP * n_l) == 0,
+                  f"tp spill: {name} launched {out['launches'][name]} times "
+                  f"(want a positive multiple of {TP} x {n_l})")
+        check(out["launches"]["paged_kv_write"] == 0,
+              "tp spill: the unfused K/V write ran")
+
+        # spill, restore, spill again (as the one-shard readings: the first
+        # spill's wall carries the gather block's first allocation)
+        lanes0 = capped.kvspill.stats()["lanes"]
+        ents, dt_s = timed_spill(capped, dev)
+        lanes1 = capped.kvspill.stats()["lanes"]
+        dt_r = timed_restore(capped, dev, ents)
+        lanes2 = capped.kvspill.stats()["lanes"]
+        ents2, dt_s2 = timed_spill(capped, dev)
+        lanes3 = capped.kvspill.stats()["lanes"]
+        n = len(ents)
+        check(n > 0 and len(ents2) == n,
+              f"tp spill: the timed spills moved {n} and {len(ents2)} pages")
+        out["rates"] = dict(
+            pages=n, spill=n * page_bytes / dt_s / 1e9,
+            restore=n * page_bytes / dt_r / 1e9,
+            spill2=n * page_bytes / dt_s2 / 1e9,
+            spill_lanes=lane_rates(lanes0, lanes1, "bytes_spilled", "d2h_s"),
+            restore_lanes=lane_rates(lanes1, lanes2, "bytes_restored", "h2d_s"),
+            spill2_lanes=lane_rates(lanes2, lanes3, "bytes_spilled", "d2h_s"),
+            pinned=capped.kvspill.stats()["pinned_bytes"])
+
+        big = make(MEM_BIG_PAGES)
+        try:
+            want = memory_sessions(big, prompts, sp, hold=True)
+            check(big.kvledger.pages_spilled == 0, "tp spill: the big pool spilled")
+        finally:
+            big.stop()
+        del big
+        toks, bitwise, gap, parted = streams_gap(got, want)
+        out["big"] = dict(tokens=toks, bitwise=bitwise, gap=gap, parted=parted)
+        check(bitwise, f"tp spill: capped against never spilling: {out['big']}")
+    finally:
+        capped.stop()
+    del capped
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
+def memory_tp_lines(t: dict, smi: str) -> list[str]:
+    r, pg = t["rates"], t["pages"]
+    return [
+        f"memory tp spill (tp {TP}, both shards on the one card, one lane a "
+        f"shard; {smi}, this run): {pg['spilled']:.0f} pages spilled, "
+        f"{pg['restored']:.0f} restored over {MEM_PAGES - 1} pages; lanes' "
+        f"(bytes spilled, restored) {pg['lanes']}; against never spilling "
+        + json.dumps(t["big"]) + "; launches "
+        + json.dumps({k_: t["launches"][k_] for k_ in SERVE_KERNELS}),
+        f"memory tp spill ({smi}, this run): spill of {r['pages']} pages "
+        f"(gathers on the compute stream + each lane's device-to-host) "
+        f"{r['spill']:.2f} GB/s summed by the host's clock, lanes "
+        + ", ".join(f"{x:.2f}" for x in r["spill_lanes"])
+        + f" GB/s by their copies' device seconds; again {r['spill2']:.2f} "
+        f"GB/s summed, lanes "
+        + ", ".join(f"{x:.2f}" for x in r["spill2_lanes"])
+        + f"; restore {r['restore']:.2f} GB/s summed, lanes "
+        + ", ".join(f"{x:.2f}" for x in r["restore_lanes"])
+        + f" GB/s; peak pinned {r['pinned'] / 1e9:.3f} GB; "
+        f"{t['seconds']:.1f} s",
+    ]
 
 
 def step_host_timer(eng) -> dict:
@@ -7746,6 +7939,272 @@ def tp_lines(t: dict, smi: str) -> list[str]:
     return lines
 
 
+# -- tp lora: adapter-only pushes into tp shards ---------------------------------
+
+# the pushed adapters: ``a`` drawn as ``wrap_lora`` draws it (N(0, 1/r)),
+# ``b`` non-zero at this scale, so that ``(alpha / r) a @ b`` moves each
+# projection by about a tenth of its base's entries (std 0.02 at init)
+TP_LORA_B_STD = 2e-3
+
+
+def whole_of_shards(shards: list) -> dict:
+    """A tp engine's whole tree, new tensors: each split leaf's shard
+    blocks concatenated on its ``tp_dim``, a replicated leaf cloned."""
+    from polyrl_tpu_torch.models.quant import flatten, unflatten
+    from polyrl_tpu_torch.parallel.tensor import tp_dim
+
+    flats = [flatten(t) for t in shards]
+    out = {}
+    for name, t in flats[0].items():
+        d = None if t.dim() == 0 else tp_dim(name, t.shape)
+        out[name] = (t.clone() if d is None
+                     else torch.cat([f[name] for f in flats], d))
+    return unflatten(out)
+
+
+def tp_lora_server(dev):
+    from polyrl_tpu_torch.rollout.serve import create_server
+
+    return create_server(MODEL, device=str(dev), host="127.0.0.1", port=0,
+                         max_slots=S, page_size=PS, max_seq_len=4096,
+                         num_pages=TP_PAGES, steps_per_dispatch=8, seed=0,
+                         tp=TP, lora_rank=LORA_RANK, lora_alpha=16.0)
+
+
+def tp_lora_push(server, pushed: dict) -> dict:
+    """One adapter push through the fabric into ``server``'s sharded
+    receiver: the version, the layout's bytes and its entries' bytes, the
+    seconds on the wire (queued to the sender's round verified) and to
+    install."""
+    from polyrl_tpu_torch.rollout.serve import attach_receiver
+    from polyrl_tpu_torch.transfer.interface import TransferInterface
+
+    iface = TransferInterface(pushed, manager_client=None, num_streams=4,
+                              poll_s=0.05, advertise_host="127.0.0.1")
+    try:
+        check(attach_receiver(server, iface.sender.endpoint, transfer_streams=4),
+              "tp lora: the server had a receiver already")
+        t0 = time.monotonic()
+        while not iface.sync_health():
+            check(time.monotonic() - t0 < 60,
+                  "tp lora: the receiver never registered")
+            time.sleep(0.05)
+        t0 = time.monotonic()
+        v = iface.update_weights_async(pushed)
+        iface.wait_pushed(timeout=120.0)
+        wire_s = time.monotonic() - t0
+        ok, msg = server.update_weights_from_agent(v)
+        check(ok, f"tp lora: the push did not install: {msg}")
+        install_s = time.monotonic() - t0 - wire_s
+        info = server.server_info()
+        check(info.get("transfer_shard_tp") == TP,
+              f"tp lora: transfer_shard_tp {info.get('transfer_shard_tp')}")
+        return dict(version=v, wire_s=wire_s, install_s=install_s,
+                    bytes=iface.layout.total_bytes,
+                    entry_bytes=sum(e.nbytes for e in iface.layout.entries))
+    finally:
+        iface.close()
+
+
+def tp_lora_phase(dev) -> dict:
+    """``serve --tp 2 --lora-rank 16`` (``create_server(tp=2,
+    lora_rank=16)``) of MODEL at full width and depth, bf16, both shards on
+    the one card: one adapter push through the sharded fabric
+    (``extract_adapters`` of the served wrapped tree with ``a`` and ``b``
+    drawn from a seeded generator), then the serve phase's 18-stream mix
+    over HTTP as the main path (counts zeroed just before it and read just
+    after, with a greedy request alone after it, as in the tp phase).
+    Gates: (a) each shard's ``a``/``b`` bitwise the pushed adapters'
+    ``tp_dim`` block, the bases bitwise as before, every leaf at its
+    address, no decode graph captured before the push captured again; (b)
+    the mix's greedy streams bitwise those of a fresh ``tp=2`` LoRA server
+    on the same wrapped tree, given the same adapters in process and the
+    same mix (both admitting it held, in one order); (c) the same streams
+    against a one-shard LoRA engine on the tree, equal until a near-tie and
+    logprobs within TP_LOGP_TOL; (d) the fused prologue, K2 and K3 launched
+    on both shards, the unfused K1 not. Readings: the push's bytes against
+    the adapter template's, its wire and install seconds; the decode step
+    by replay on 2 shards and on 1."""
+    from polyrl_tpu_torch.models import lora
+    from polyrl_tpu_torch.models.quant import LoraWeight, flatten, named_leaves
+    from polyrl_tpu_torch.parallel.tensor import tp_dim
+    from polyrl_tpu_torch.rollout.cb_engine import CBEngine
+
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats(dev)
+    server = tp_lora_server(dev)
+    try:
+        eng = server.engine
+        cfg = eng.cfg
+        port = server.port
+        bodies, greedy_prompts, warm = serving_mix(cfg.vocab_size)
+        warm_body = [{"rid": "warmup", "input_ids": warm,
+                      "sampling_params": {"temperature": 0.0,
+                                          "max_new_tokens": 16}}]
+        with launches_apart({}):
+            run_requests(port, warm_body)
+        graphs0 = dict(eng._graphs)
+        check(graphs0, "tp lora: the warm-up captured no decode graph")
+        whole = whole_of_shards(eng.params)
+        ptrs = [{n: t.data_ptr() for n, t in named_leaves(p_)}
+                for p_ in eng.params]
+        gen = torch.Generator(device=dev).manual_seed(11)
+        layers = dict(whole["layers"])
+        for k_, w in whole["layers"].items():
+            if isinstance(w, LoraWeight):
+                a = torch.randn(w.a.shape, generator=gen, device=dev) * LORA_RANK ** -0.5
+                b = torch.randn(w.b.shape, generator=gen, device=dev) * TP_LORA_B_STD
+                layers[k_] = LoraWeight(w.base, a.to(w.a.dtype), b.to(w.b.dtype),
+                                        w.alpha)
+        trained = {**whole, "layers": layers}
+        pushed = lora.extract_adapters(trained)
+        tmpl_bytes = sum(t.numel() * t.element_size() for _, t in
+                         named_leaves(lora.adapter_template(cfg, LORA_RANK)))
+        push = tp_lora_push(server, pushed)
+        push["template_bytes"] = tmpl_bytes
+        check(eng.weight_version == push["version"]
+              and push["entry_bytes"] == tmpl_bytes,
+              f"tp lora: version {eng.weight_version}, entries "
+              f"{push['entry_bytes']} B against the template's {tmpl_bytes}")
+        # (a) the shards against the pushed blocks and the bases as before
+        want_flat = flatten(trained)  # the bases are whole's
+        for s_, shard in enumerate(eng.params):
+            for name, t in named_leaves(shard):
+                check(t.data_ptr() == ptrs[s_][name],
+                      f"tp lora: shard {s_}'s {name} moved")
+                src = want_flat[name]
+                d = tp_dim(name, src.shape)
+                check(torch.equal(t, src if d is None else src.chunk(TP, d)[s_]),
+                      f"tp lora: shard {s_}'s {name} is not the "
+                      + ("pushed block" if name.endswith((".a", ".b"))
+                         else "base as before"))
+        del whole
+
+        # the main path: the mix, held to one admission order, then alone
+        cuda_build.reset_launch_counts()
+        replays0 = eng.graph_replays
+        t0 = time.monotonic()
+        outs = run_requests(port, bodies, engine=eng)
+        wall = time.monotonic() - t0
+        run_requests(port, [{"rid": "alone", "input_ids": greedy_prompts[0],
+                             "sampling_params": {"temperature": 0.0,
+                                                 "max_new_tokens": 64}}])
+        launches = dict(cuda_build.LAUNCHES)
+        replays = eng.graph_replays - replays0
+        n_l = cfg.num_layers
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0 and launches[name] % (TP * n_l) == 0,
+                  f"tp lora: {name} launched {launches[name]} times on the "
+                  f"main path (want a positive multiple of {TP} x {n_l})")
+        check(launches["paged_kv_write"] == 0,
+              "tp lora: the unfused K/V write ran")
+        check(replays > 0, "tp lora: no decode dispatch replayed a graph")
+        check(all(eng._graphs.get(k_) is g for k_, g in graphs0.items()),
+              "tp lora: a decode graph was captured again after the push")
+        for o in outs:
+            check(all(np.isfinite(o["logprobs"])) and max(o["logprobs"]) <= 0
+                  and all(0 <= t < cfg.vocab_size for t in o["tokens"]),
+                  "tp lora: a non-finite logprob or a token outside the "
+                  "vocabulary")
+        tok_s = mix_tok_s(outs)
+        greedy = [o for b_, o in zip(bodies, outs)
+                  if b_["rid"].startswith("greedy")]
+        log(f"tp lora: the mix {tok_s:.1f} tok/s, {replays} replays, launches "
+            + json.dumps({k_: launches[k_] for k_ in SERVE_KERNELS}))
+
+        with launches_apart({}):
+            # (b) a fresh tp=2 LoRA server on the same wrapped tree, the
+            # same adapters given in process (the whole push cut there)
+            fresh = tp_lora_server(dev)
+            try:
+                run_requests(fresh.port, warm_body)
+                fresh.update_weights(pushed)
+                ref_outs = run_requests(fresh.port, bodies,
+                                        engine=fresh.engine)
+            finally:
+                fresh.stop()
+            del fresh
+            ref_greedy = [o for b_, o in zip(bodies, ref_outs)
+                          if b_["rid"].startswith("greedy")]
+            fresh_bitwise = all(a["tokens"] == b_["tokens"]
+                                and a["logprobs"] == b_["logprobs"]
+                                for a, b_ in zip(greedy, ref_greedy))
+            mix_bitwise = all(a["tokens"] == b_["tokens"]
+                              and a["logprobs"] == b_["logprobs"]
+                              for a, b_ in zip(outs, ref_outs))
+            check(fresh_bitwise, "tp lora: the greedy streams differ from a "
+                  "fresh tp=2 LoRA server's on the same tree and adapters")
+            # (c) one shard on the same tree
+            one = CBEngine(cfg, trained, max_slots=S, page_size=PS,
+                           max_seq_len=4096, num_pages=TP_PAGES,
+                           prompt_buckets=(256,), device=dev, copy_params=False)
+            try:
+                ref = tp_greedy(one, greedy_prompts, 128)
+            finally:
+                one.stop()
+            del one
+            params32 = f32_copy(trained)
+            gate = []
+            for p_, r_, o in zip(greedy_prompts, ref, greedy):
+                gaps = top2_gaps(params32, cfg, p_, r_["token_ids"], dev)
+                ok, first, tie, gap = agrees_until_tie(o["tokens"],
+                                                       r_["token_ids"], gaps)
+                err = (float(np.abs(np.array(o["logprobs"][:first])
+                                    - np.array(r_["logprobs"][:first])).max())
+                       if first else 0.0)
+                gate.append(dict(ok=ok, first=first, tie=tie, gap=gap, err=err))
+                check(ok, f"tp lora: {TP} shards part from one at token "
+                      f"{first} (first near-tie {tie}, f32 gap {gap:.4f})")
+                check(err <= TP_LOGP_TOL, f"tp lora: greedy logprobs "
+                      f"{err:.4f} nats from one shard's (limit {TP_LOGP_TOL})")
+            del params32
+            log(f"tp lora: greedy vs one shard {gate}")
+            step = tp_decode_step(dev, trained, cfg)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        return dict(launches=launches, tok_s=tok_s, wall=wall, replays=replays,
+                    push=push, fresh_bitwise=fresh_bitwise,
+                    mix_bitwise=mix_bitwise, gate=gate, step=step,
+                    captures=eng.graph_captures, peak_gb=peak_gb,
+                    seconds=time.monotonic() - t_phase)
+    finally:
+        server.stop()
+
+
+def tp_lora_lines(t: dict, smi: str) -> list[str]:
+    tag = f"{smi}, this run"
+    st, pu = t["step"]["by_tp"], t["push"]
+    return [
+        f"tp lora (serve --tp {TP} --lora-rank {LORA_RANK}, {MODEL} full width "
+        f"and depth, bf16, both shards on the one card; {tag}): the push "
+        f"v{pu['version']}: {pu['entry_bytes'] / 1e6:.2f} MB of adapters "
+        f"(template {pu['template_bytes'] / 1e6:.2f} MB; layout "
+        f"{pu['bytes'] / 1e6:.2f} MB with its padding) on the wire in "
+        f"{pu['wire_s'] * 1e3:.1f} ms, installed into both shards "
+        f"{pu['install_s'] * 1e3:.1f} ms later; every shard's a/b bitwise the "
+        f"pushed block, the bases as before, every leaf at its address, no "
+        f"graph captured again ({t['captures']} captures in all)",
+        f"tp lora ({tag}): the 18-stream mix {t['tok_s']:.1f} tok/s in "
+        f"{t['wall']:.2f} s, {t['replays']} graph replays; main-path launches "
+        + json.dumps({k_: t["launches"][k_] for k_ in SERVE_KERNELS})
+        + f"; the greedy streams against a fresh tp={TP} LoRA server's: "
+        f"{'bitwise' if t['fresh_bitwise'] else 'differ'} (the whole mix "
+        f"{'bitwise' if t['mix_bitwise'] else 'not bitwise'}); against one "
+        f"shard (first mismatch, first near-tie, max |logprob diff| before "
+        f"it; limit {TP_LOGP_TOL}): "
+        + "; ".join(f"({g['first']}, {g['tie']}, {g['err']:.4f})"
+                    for g in t["gate"])
+        + f"; peak {t['peak_gb']:.2f} GB",
+        f"tp lora decode step by replay at the serving tables ({tag}): {TP} "
+        f"shards device ms {st[TP]['device_ms']:.3f}, kernels "
+        f"{st[TP]['kernels']:.1f}, wall ms median {st[TP]['wall_ms']:.2f}; "
+        f"one shard device ms {st[1]['device_ms']:.3f}, kernels "
+        f"{st[1]['kernels']:.1f}, wall ms median {st[1]['wall_ms']:.2f}; "
+        f"from the f32 step {t['step']['off32'][TP]:.4f} / "
+        f"{t['step']['off32'][1]:.4f} nats (limit {TP_STEP_RATIO} x)",
+        f"phase tp lora ({tag}): {t['seconds']:.1f} s wall",
+    ]
+
+
 # -- parallel: the multi-process trainer on one card (PR 15) --------------------
 
 # the two ranks share cuda:0, so the world's backend is gloo (NCCL refuses
@@ -7753,9 +8212,11 @@ def tp_lines(t: dict, smi: str) -> list[str]:
 # rank that has not exited by then is a hang
 PARALLEL_TIMEOUT_S = 480.0
 PARALLEL_OVERRIDES = TRAIN_OVERRIDES + ["parallel.backend=gloo"]
-# A and C at this depth of the training cell (full width; 28 layers until
-# PR 17, when D and E joined the phase: A took 85.1 s and C 39.8 s there)
-PARALLEL_CUT_LAYERS = 8
+# A and C at this depth of the training cell (full width): cut from 28
+# layers when D and E joined the phase (A took 85.1 s and C 39.8 s there),
+# then from 8 when tp lora and the memory phase's tp spill joined the
+# smoke (A 42.2-50.0 s and C 16.0-20.1 s at 8)
+PARALLEL_CUT_LAYERS = 4
 # D: the pipeline at the training cell's full depth, 14 layers a stage,
 # GPipe microbatches of one row of the 4-row micro
 PP_MICRO = 4
@@ -8598,12 +9059,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     for line in tp_lines(tp_moe, smi):
         log(line)
-    # the kernels line's "tp" share: both main paths, dense and MoE
+    tp_lora = tp_lora_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in tp_lora_lines(tp_lora, smi):
+        log(line)
+    # the kernels line's "tp" share: the main paths, dense, MoE and LoRA
     tp_launches = {k_: tp["launches"][k_] + tp_moe["launches"][k_]
-                   for k_ in tp["launches"]}
+                   + tp_lora["launches"][k_] for k_ in tp["launches"]}
     t0 = time.monotonic()
     memory = memory_phase(dev)
-    for line in memory_lines(memory, smi):
+    for line in memory_lines(memory, smi) + memory_tp_lines(memory["tp"], smi):
         log(line)
     log(f"phase memory ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
     trained = train_phase(dev)
@@ -8701,10 +9167,11 @@ def main() -> int:
                     if r["name"] == "paged_kv_write" else
                     trained["launches"] if r["name"].startswith("flash")
                     else served["launches"])
-        # plus the memory phase's and the disagg, hybrid, lora_delta,
-        # autoscale, moe and tp paths: the servers decode (the tp server on
-        # both shards), the trainers run K4, and the hybrid's trainer
-        # process decodes too (its local engine)
+        # plus the memory phase's (its tp spill check's too) and the
+        # disagg, hybrid, lora_delta, autoscale, moe and tp paths: the
+        # servers decode (the tp servers on both shards), the trainers run
+        # K4, and the hybrid's trainer process decodes too (its local
+        # engine)
         name = r["name"]
         extra = moe["launches"][name] + tp_launches[name] + (
             0 if name == "paged_kv_write" else
@@ -8713,6 +9180,7 @@ def main() -> int:
                  + delta["trainer_launches"][name]
                  + scaled["trainer_launches"][name] if name.startswith("flash")
                  else disagg["server_launches"][name] + memory["launches"][name]
+                 + memory["tp"]["launches"][name]
                  + hybrid["trainer_launches"][name]
                  + hybrid["server_launches"][name]
                  + delta["server_launches"][name]

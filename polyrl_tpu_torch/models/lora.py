@@ -17,7 +17,10 @@ fingerprint of the frozen base; its wire layout is ``adapter_template``)
 to servers that serve a wrapped tree (``serve --lora-rank``), and
 ``apply_adapters`` copies the received ``a``/``b`` into the live leaves in
 place: the engine's captured decode graphs read those addresses, and the
-frozen bases are never touched.
+frozen bases are never touched. A tp engine's shards (``decoder.shard_tp``)
+take the same pushes: ``base_stats`` and ``apply_adapters`` accept the
+list of shard trees, check the push against the whole tree and copy each
+shard's ``parallel/tensor.tp_dim`` block of ``a``/``b`` into it.
 """
 
 from __future__ import annotations
@@ -98,10 +101,17 @@ def lora_labels(params: dict) -> dict[str, str]:
     return labels
 
 
-def base_stats(params: dict) -> torch.Tensor:
+def base_stats(params) -> torch.Tensor:
     """Per target, mean |w| of the first and last layer slabs of each
     frozen base, [n_targets, 2] f32 (targets by name): a fingerprint of
-    the checkpoint the adapters were trained against."""
+    the checkpoint the adapters were trained against. ``params`` may be a
+    tp engine's list of shard trees: each shard holds an equal block of
+    every base (an int8 block dequantized with its own block of the
+    per-channel scale, or the whole scale where the split is on the
+    contraction axis), so the whole tree's mean is the mean of the
+    shards' means, on the CPU."""
+    if isinstance(params, list):
+        return torch.stack([base_stats(p).cpu() for p in params]).mean(0)
 
     def slab(w):
         if isinstance(w, QuantWeight):
@@ -148,7 +158,34 @@ def adapter_template(model_cfg, rank: int, targets=DEFAULT_TARGETS,
                                       device="meta")}
 
 
-def apply_adapters(wrapped: dict, adapters: dict) -> dict:
+def _tp_block(adapters: dict, s: int, tp: int) -> dict:
+    """Shard ``s``'s block of a whole adapter tree (views; the replicated
+    leaves whole)."""
+    from polyrl_tpu_torch.parallel.tensor import tp_dim
+
+    def cut(k, f, t):
+        t = torch.as_tensor(t)
+        d = tp_dim(f"layers.{k}.{f}", t.shape)
+        return t if d is None else t.chunk(tp, d)[s]
+
+    out = dict(adapters)
+    out["layers"] = {k: {f: cut(k, f, ab[f]) for f in ("a", "b")}
+                     for k, ab in adapters["layers"].items()}
+    return out
+
+
+def _whole_shape(name: str, shape, tp: int) -> tuple:
+    """The whole leaf's shape of a tp block ``shape``."""
+    from polyrl_tpu_torch.parallel.tensor import tp_dim
+
+    shape = list(shape)
+    d = tp_dim(name, shape) if tp > 1 else None
+    if d is not None:
+        shape[d] *= tp
+    return tuple(shape)
+
+
+def apply_adapters(wrapped, adapters):
     """Install the received ``a``/``b`` into ``wrapped``'s live adapter
     tensors in place (each cast to its leaf's dtype and device) and return
     ``wrapped``: every leaf keeps its address, so a captured decode graph
@@ -158,11 +195,25 @@ def apply_adapters(wrapped: dict, adapters: dict) -> dict:
     a base fingerprint more than 5% off this tree's, other target sets, an
     ``alpha`` that differs, adapters for an unwrapped weight, and adapter
     shapes that differ. The caller runs it between dispatches (the
-    engine's dispatch lock) and flushes the prefix cache after."""
-    layers = wrapped["layers"]
-    if "base_stats" in adapters:
+    engine's dispatch lock) and flushes the prefix cache after.
+
+    ``wrapped`` may be a tp engine's list of shard trees, the counterpart
+    of the reference's leaves sharded on its tp mesh. ``adapters`` is then
+    the whole pushed tree, cut here by ``parallel/tensor.tp_dim``, or the
+    list of each shard's blocks that a sharded receiver landed. Every
+    check is made on the whole tree (the fingerprint over every shard's
+    block of each base, the shapes whole) before any shard changes."""
+    shards = wrapped if isinstance(wrapped, list) else [wrapped]
+    tp = len(shards)
+    if isinstance(adapters, list):
+        blocks, pushed_tp = adapters, tp
+    else:
+        blocks, pushed_tp = [adapters], 1
+    head = blocks[0]
+    layers = shards[0]["layers"]
+    if "base_stats" in head:
         mine = base_stats(wrapped).float().cpu()
-        theirs = torch.as_tensor(adapters["base_stats"]).float().cpu()
+        theirs = torch.as_tensor(head["base_stats"]).float().cpu()
         if mine.shape != theirs.shape:
             raise ValueError(
                 "delta-sync base mismatch: trainer and worker wrapped "
@@ -176,8 +227,8 @@ def apply_adapters(wrapped: dict, adapters: dict) -> dict:
                 f"weights differ from the trainer's (rel diff up to "
                 f"{float(rel.max()):.3f}); both sides must load the same "
                 "checkpoint")
-    recv_alpha = float(adapters.get("alpha", 0.0))
-    for k, ab in adapters["layers"].items():
+    recv_alpha = float(head.get("alpha", 0.0))
+    for k, ab in head["layers"].items():
         w = layers[k]
         if not isinstance(w, LoraWeight):
             raise ValueError(f"adapter push for unwrapped weight {k!r}")
@@ -187,15 +238,20 @@ def apply_adapters(wrapped: dict, adapters: dict) -> dict:
                 f"worker serves {w.alpha} — launch with --lora-alpha "
                 f"{recv_alpha}")
         for f in ("a", "b"):
-            if tuple(ab[f].shape) != tuple(getattr(w, f).shape):
+            name = f"layers.{k}.{f}"
+            got = _whole_shape(name, torch.as_tensor(ab[f]).shape, pushed_tp)
+            want = _whole_shape(name, getattr(w, f).shape, tp)
+            if got != want:
                 raise ValueError(
-                    f"adapter {k}.{f} is {tuple(ab[f].shape)}, this worker "
-                    f"serves {tuple(getattr(w, f).shape)} (lora_rank "
-                    "mismatch)")
+                    f"adapter {k}.{f} is {got}, this worker serves {want} "
+                    "(lora_rank mismatch)")
+    if pushed_tp != tp:
+        blocks = [_tp_block(head, s, tp) for s in range(tp)]
     with torch.no_grad():
-        for k, ab in adapters["layers"].items():
-            layers[k].a.copy_(torch.as_tensor(ab["a"]))
-            layers[k].b.copy_(torch.as_tensor(ab["b"]))
+        for shard, block in zip(shards, blocks):
+            for k, ab in block["layers"].items():
+                shard["layers"][k].a.copy_(torch.as_tensor(ab["a"]))
+                shard["layers"][k].b.copy_(torch.as_tensor(ab["b"]))
     return wrapped
 
 

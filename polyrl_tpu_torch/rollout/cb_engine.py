@@ -79,9 +79,11 @@ and K3 on each shard's heads (``ops/paged_attention.make_tp_*``) and sums
 the row-parallel partials; the vocabulary blocks' logits are concatenated
 before the sampler. On one device a dispatch stays one stream of device
 ops and replays as a CUDA graph; shards on several cards copy their
-partials between devices inside it (the spill tier then refuses). The
-spill tier, salvage and the ledger move and count every shard's pages
-(a page's bytes are its bytes on every shard); grouped decode, chunked
+partials between devices inside it. The spill tier keeps one copy lane
+a shard on the shard's device (``kvspill.ShardedSpillPool``): each shard
+gathers and restores its own rows of a page. The spill tier, salvage and
+the ledger move and count every shard's pages (a page's bytes are its
+bytes on every shard); grouped decode, chunked
 prefill, prefix attach, speculation, int8 and LoRA trees run on the
 shards as they run whole. ``tp`` must divide ``num_heads`` and
 ``num_kv_heads``. A MoE shard holds a ``1/tp`` slice of every expert's
@@ -89,8 +91,9 @@ width and the whole router: it routes the tokens whole, and its routed
 block's f32 partial joins the sum of the row-parallel partials.
 
 Where the JAX engine donates pools and state, this one updates the pools
-and the device state in place. Not ported yet (see ROADMAP.md): a graph
-for prefill.
+and the device state in place. Prefill runs eager; where the JAX engine
+jits it, the port computes the same thing, and capturing it as CUDA
+graphs is a TTFT optimisation queued in ROADMAP.md's B list.
 """
 
 from __future__ import annotations
@@ -121,7 +124,7 @@ from polyrl_tpu_torch.rollout.common import (
 )
 from polyrl_tpu_torch.rollout.flightdeck import EngineFlightDeck, ThroughputEWMA
 from polyrl_tpu_torch.rollout.kvledger import PageLedger
-from polyrl_tpu_torch.rollout.kvspill import HostSpillPool
+from polyrl_tpu_torch.rollout.kvspill import HostSpillPool, ShardedSpillPool
 from polyrl_tpu_torch.rollout.prefix_cache import PrefixCache
 from polyrl_tpu_torch.rollout.sampling import (
     SamplingParams,
@@ -322,10 +325,6 @@ class CBEngine:
         if len(self.tp_devices) != self.tp:
             raise ValueError(f"tp={self.tp} needs {self.tp} devices, got "
                              f"{len(self.tp_devices)}")
-        if self.tp > 1 and kv_spill and len(set(self.tp_devices)) > 1:
-            raise NotImplementedError(
-                "the host spill tier on tp shards of several devices "
-                "(kv_spill=False) is not ported (ROADMAP A' 9.6)")
         # the engine's own copy, even of tensors already on its device: a
         # colocated actor updates its parameters in place, and an alias
         # would change the engine's weights with no version bump while the
@@ -381,10 +380,13 @@ class CBEngine:
         self.prefix_cache = (PrefixCache(page_size, self._free_cache_pages)
                              if enable_prefix_cache else None)
         # the host spill tier needs the ledger (candidates by idle age, the
-        # accounting) and the prefix cache (the spillable pages)
-        self.kvspill = (HostSpillPool(
-            int(float(kv_spill_host_gb) * 1e9), self.device)
-            if (kv_spill and kv_ledger and enable_prefix_cache) else None)
+        # accounting) and the prefix cache (the spillable pages); tp shards
+        # get one copy lane each, on the shard's device
+        spill_bytes = int(float(kv_spill_host_gb) * 1e9)
+        self.kvspill = ((HostSpillPool(spill_bytes, self.device) if self.tp == 1
+                         else ShardedSpillPool(spill_bytes, self.tp_devices))
+                        if (kv_spill and kv_ledger and enable_prefix_cache)
+                        else None)
         self.kv_spill_high_watermark = float(kv_spill_high_watermark)
         self.kv_spill_low_watermark = float(kv_spill_low_watermark)
         if self.prefix_cache is not None and self.kvledger is not None:
@@ -678,16 +680,20 @@ class CBEngine:
             return 0
         entries = [e for _age, e in cands[:take]]
         pages = [e.page for e in entries]
-        kp, vp = self._pool_sides()
-        idx = self._tensor(np.asarray(pages, np.int64))
-        # page-major [n, 2L, Hkv, ps, D]: one contiguous block per page,
-        # filled a layer at a time (the transient beside the block is one
-        # layer's slice)
-        kv = torch.empty((len(pages), 2 * len(kp)) + tuple(kp[0][:, 0].shape),
-                         dtype=kp[0].dtype, device=self.device)
-        for j, pool in enumerate(kp + vp):
-            kv[:, j] = pool.index_select(1, idx).transpose(0, 1)
-        handles = self.kvspill.spill(kv, page_bytes)
+        rows = np.asarray(pages, np.int64)
+        parts = []
+        for (kp, vp), dev in self._shard_pools():
+            # each shard on its device, page-major [n, 2L, Hkv/tp, ps, D]:
+            # one contiguous block per page, filled a layer at a time (the
+            # transient beside the block is one layer's slice)
+            idx = self._tensor(rows, dev)
+            kv = torch.empty((len(pages), 2 * len(kp)) + tuple(kp[0][:, 0].shape),
+                             dtype=kp[0].dtype, device=dev)
+            for j, pool in enumerate(kp + vp):
+                kv[:, j] = pool.index_select(1, idx).transpose(0, 1)
+            parts.append(kv)
+        handles = self.kvspill.spill(parts[0] if self.tp == 1 else parts,
+                                     page_bytes)
         for e, h in zip(entries, handles):
             e.spilled = True
             e.spill_handle = h
@@ -740,14 +746,17 @@ class CBEngine:
             pages = self.allocator.alloc(need)
         if pages is None:
             return False
-        kp, vp = self._pool_sides()
         handles = [e.spill_handle for e in entries]
-        staging = torch.empty((need, 2 * len(kp)) + tuple(kp[0][:, 0].shape),
-                              dtype=kp[0].dtype, device=self.device)
-        self.kvspill.load(handles, staging)
-        idx = self._tensor(np.asarray(pages, np.int64))
-        for j, pool in enumerate(kp + vp):
-            pool.index_copy_(1, idx, staging[:, j].transpose(0, 1))
+        shards = self._shard_pools()
+        stagings = [torch.empty((need, 2 * len(kp)) + tuple(kp[0][:, 0].shape),
+                                dtype=kp[0].dtype, device=dev)
+                    for (kp, _vp), dev in shards]
+        self.kvspill.load(handles, stagings[0] if self.tp == 1 else stagings)
+        rows = np.asarray(pages, np.int64)
+        for ((kp, vp), dev), staging in zip(shards, stagings):
+            idx = self._tensor(rows, dev)
+            for j, pool in enumerate(kp + vp):
+                pool.index_copy_(1, idx, staging[:, j].transpose(0, 1))
         self.kvspill.drop(handles, restored=True)
         for e, p in zip(entries, pages):
             e.page = int(p)
@@ -1020,6 +1029,13 @@ class CBEngine:
             return self._pools
         return ([p for kp, _ in self._pools for p in kp],
                 [p for _, vp in self._pools for p in vp])
+
+    def _shard_pools(self) -> list:
+        """``((k pools, v pools), device)`` of every shard (one on a
+        one-shard engine)."""
+        if self.tp == 1:
+            return [(self._pools, self.device)]
+        return list(zip(self._pools, self.tp_devices))
 
     def _param_shards(self) -> list:
         return self.params if self.tp > 1 else [self.params]
@@ -1362,14 +1378,16 @@ class CBEngine:
 
     # -- host <-> device -------------------------------------------------------
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        """``a`` on the engine's device. On the card the copy starts from
-        pinned memory and does not block: a copy from pageable memory waits
-        for the stream, which would stall the host behind the run-ahead."""
+    def _tensor(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """``a`` on ``device`` (the engine's by default). On the card the
+        copy starts from pinned memory and does not block: a copy from
+        pageable memory waits for the stream, which would stall the host
+        behind the run-ahead."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
     def _to_host(self, tensors) -> tuple:
         """Queue the copy of fresh ``tensors`` to the host (pinned memory);

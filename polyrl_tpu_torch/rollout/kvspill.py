@@ -46,6 +46,18 @@ this one runs on a CUDA copy stream, and the host never waits on a copy:
 The ledger owns the page counters that feed ``kv_spilled_frac`` and the
 reconciliation; this pool reports host-side truth (:meth:`stats`).
 
+A ``HostSpillPool`` is one copy lane: one device, its copy stream, its
+events, its pinned buffers and its batches in flight. An engine of ``tp``
+shards (``CBEngine(tp=)``) holds a :class:`ShardedSpillPool`: one lane a
+shard, on the shard's device, whether the shards sit on several cards or
+share one. Each shard gathers its own pools' rows of the spilled pages on
+its device (``[n, 2L, Hkv/tp, page_size, D]``) and its lane copies them;
+a handle stands for every shard's part of a page, a restore copies each
+part back on its shard's device behind its own lane's landed event. A
+page is still one page across the shards: the ledger's counters do not
+change, and the capacity and the stats count a page's bytes over every
+shard.
+
 Thread-safety: ``spill``/``load``/``drop`` run on the engine loop thread;
 ``stats`` may be read from any thread; one lock guards the bookkeeping.
 """
@@ -108,11 +120,15 @@ class HostSpillPool:
 
     # -- lifecycle -----------------------------------------------------------
 
+    def synchronize(self) -> None:
+        """Wait for the copies queued on the copy stream."""
+        if self._copy_stream is not None:
+            self._copy_stream.synchronize()
+
     def stop(self) -> None:
         """Wait for the copies in flight and release the free buffers
         (entries still resident keep theirs)."""
-        if self._copy_stream is not None:
-            self._copy_stream.synchronize()
+        self.synchronize()
         with self._lock:
             self._settle_times()
             self._lane.clear()
@@ -139,6 +155,11 @@ class HostSpillPool:
             else:
                 left.append((attr, start, end))
         self._timed = left
+
+    def inflight(self) -> int:
+        """Batches whose copy has not landed."""
+        with self._lock:
+            return self._inflight()
 
     def lane_free(self) -> bool:
         """Backpressure: fewer than ``lane_depth`` batches in flight (a full
@@ -212,10 +233,11 @@ class HostSpillPool:
 
     # -- restore / drop side (engine loop thread) -----------------------------
 
-    def load(self, handles, out: torch.Tensor) -> None:
+    def load(self, handles, out: torch.Tensor) -> list[bool]:
         """Queue the copy of each handle's page into ``out[i]`` (a device
         tensor ``[n, 2L, Hkv, page_size, D]``) on the current stream,
-        ordered after the page's own device-to-host copy."""
+        ordered after the page's own device-to-host copy. Returns, for
+        each page, whether its copy had not landed yet."""
         with self._lock:
             entries = [self._entries[h] for h in handles]
         if not self._cuda:
@@ -225,16 +247,16 @@ class HostSpillPool:
             dt = time.perf_counter() - t0
             with self._lock:
                 self.h2d_s += dt
-            return
+            return [False] * len(entries)
         stream = torch.cuda.current_stream(self.device)
         waited: set[int] = set()
-        behind = 0
-        for e in entries:
-            if e.landed is not None and not e.landed.query():
-                behind += 1
-                if id(e.landed) not in waited:
-                    waited.add(id(e.landed))
-                    stream.wait_event(e.landed)
+        flags = [e.landed is not None and not e.landed.query()
+                 for e in entries]
+        behind = sum(flags)
+        for e, late in zip(entries, flags):
+            if late and id(e.landed) not in waited:
+                waited.add(id(e.landed))
+                stream.wait_event(e.landed)
         start = torch.cuda.Event(enable_timing=True)
         start.record(stream)
         for i, e in enumerate(entries):
@@ -247,6 +269,7 @@ class HostSpillPool:
             self.restores_behind_copy += behind
             self._settle_times()
             self._timed.append(("h2d_s", start, read))
+        return flags
 
     def drop(self, handles, restored: bool = False) -> None:
         """Discard entries: a restore consumed them (``restored=True``,
@@ -290,3 +313,114 @@ class HostSpillPool:
                 "d2h_s": float(self.d2h_s),
                 "h2d_s": float(self.h2d_s),
             }
+
+
+# stats() fields summed over a sharded pool's lanes (a page's bytes on
+# every shard, and the device seconds of every lane's copies)
+_SUMMED = ("pinned_bytes", "resident_bytes", "bytes_spilled",
+           "bytes_restored", "d2h_s", "h2d_s")
+
+
+class ShardedSpillPool:
+    """The spill tier of a tp engine: one :class:`HostSpillPool` lane a
+    shard, each on its shard's device, behind one handle a page.
+
+    ``spill`` takes every shard's gathered part of the same pages (one
+    ``[n, 2L, Hkv/tp, page_size, D]`` tensor a shard, on its device) and
+    each lane copies its own; ``load`` takes one staging tensor a shard.
+    The lanes keep a page's part each, ``page_bytes / tp`` bytes; the
+    capacity, the backpressure and the counters are the tier's: a page
+    fits if every shard's part fits, the tier spills only when every lane
+    is free, and ``stats()`` keeps ``HostSpillPool``'s fields (bytes and
+    device seconds summed over the lanes, pages and batches counted once)
+    with each lane's own under ``lanes``."""
+
+    def __init__(self, capacity_bytes: int, devices, lane_depth: int = 2):
+        self.capacity_bytes = int(capacity_bytes)
+        self.lanes = [HostSpillPool(capacity_bytes, d, lane_depth)
+                      for d in devices]
+        self.lane_depth = self.lanes[0].lane_depth
+        self._lock = threading.Lock()
+        self._parts: dict[int, tuple] = {}  # handle -> each lane's handle
+        self._next_handle = 0
+        self.copy_batches = 0
+        self.restores_behind_copy = 0
+        self.lane_full = 0
+
+    def synchronize(self) -> None:
+        for lane in self.lanes:
+            lane.synchronize()
+
+    def stop(self) -> None:
+        for lane in self.lanes:
+            lane.stop()
+
+    def _lanes_free(self) -> bool:
+        return all(lane.inflight() < lane.lane_depth for lane in self.lanes)
+
+    def lane_free(self) -> bool:
+        """Every lane has fewer than ``lane_depth`` batches in flight (one
+        full lane and the engine spills nothing, counted in ``lane_full``)."""
+        free = self._lanes_free()
+        if not free:
+            with self._lock:
+                self.lane_full += 1
+        return free
+
+    def can_spill(self, n_pages: int, page_bytes: int) -> bool:
+        resident = sum(lane.resident_bytes for lane in self.lanes)
+        return (self._lanes_free()
+                and resident + n_pages * page_bytes <= self.capacity_bytes)
+
+    def spill(self, parts: list, page_bytes: int) -> list[int]:
+        """Each lane copies its shard's part (``parts[s]``, gathered on the
+        shard's current stream); one handle a page."""
+        part_bytes = int(page_bytes) // len(self.lanes)
+        per_lane = [lane.spill(kv, part_bytes)
+                    for lane, kv in zip(self.lanes, parts)]
+        with self._lock:
+            handles = []
+            for hs in zip(*per_lane):
+                h = self._next_handle
+                self._next_handle += 1
+                self._parts[h] = hs
+                handles.append(h)
+            self.copy_batches += 1
+        return handles
+
+    def load(self, handles, outs: list) -> list[bool]:
+        """Queue each shard's parts into ``outs[s]`` on the shard's
+        current stream, each behind its own lane's landed event."""
+        with self._lock:
+            parts = [self._parts[h] for h in handles]
+        late = [False] * len(parts)
+        for s, (lane, out) in enumerate(zip(self.lanes, outs)):
+            flags = lane.load([p[s] for p in parts], out)
+            late = [a or b for a, b in zip(late, flags)]
+        with self._lock:
+            self.restores_behind_copy += sum(late)
+        return late
+
+    def drop(self, handles, restored: bool = False) -> None:
+        with self._lock:
+            parts = [self._parts.pop(h) for h in handles if h in self._parts]
+        for s, lane in enumerate(self.lanes):
+            lane.drop([p[s] for p in parts], restored=restored)
+
+    @property
+    def resident_pages(self) -> int:
+        with self._lock:
+            return len(self._parts)
+
+    def stats(self) -> dict:
+        lanes = [lane.stats() for lane in self.lanes]
+        out = {key: sum(ln[key] for ln in lanes) for key in _SUMMED}
+        out.update(capacity_bytes=int(self.capacity_bytes),
+                   lane_inflight=max(ln["lane_inflight"] for ln in lanes),
+                   lane_depth=self.lane_depth, lanes=lanes)
+        with self._lock:
+            out.update(resident_pages=len(self._parts),
+                       copy_batches=int(self.copy_batches),
+                       restores_behind_copy=int(self.restores_behind_copy),
+                       lane_full=int(self.lane_full))
+        return out

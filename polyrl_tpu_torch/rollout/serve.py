@@ -12,7 +12,8 @@ arrival (``RolloutServer.weight_preprocess``); then the engine --
 loop -- and the HTTP server. The CB engine's memory plane and loop
 profiler are on by default, as in the reference: the page ledger
 (``--no-kv-ledger``, ``--kv-cold-after-dispatches``), the host spill tier
-(``--no-kv-spill``, ``--kv-spill-host-gb``) and the loop profiler
+(``--no-kv-spill``, ``--kv-spill-host-gb``; one copy lane a ``--tp``
+shard) and the loop profiler
 (``--no-loop-profile``). With ``--manager-endpoint host:port`` the server
 registers with the rollout manager and attaches a weight receiver
 (``ReceiverAgent``, ``--transfer-streams`` TCP streams) pointed at the
@@ -102,8 +103,12 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     weights are made whole on ``device`` and cut into the shards' blocks
     (the whole tree is dropped after). The receiver's ``ShardSpec``
     advertises the ``tp`` (``/get_server_info``'s ``transfer_shard_tp``),
-    and a push lands each shard's ranges in its own tensors. LoRA
-    adapter-only pushes into tp shards refuse (ROADMAP A' 9.5). A MoE model
+    and a push lands each shard's ranges in its own tensors; with
+    ``lora_rank`` the wrapped tree is cut the same way and an adapter push
+    lands each shard's blocks of ``a``/``b`` in place
+    (``lora.apply_adapters`` on the shard list). The host spill tier keeps
+    one copy lane a shard, on the shard's device (``rollout/kvspill.py``).
+    A MoE model
     (``--model qwen3-30b-a3b``) shards each expert's width and keeps the
     router whole on every shard."""
     from polyrl_tpu_torch.device import resolve_device
@@ -118,10 +123,6 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
         raise ValueError(f"unknown backend {backend!r} (cb or step)")
     if tp > 1 and backend != "cb":
         raise NotImplementedError("tp > 1 requires backend='cb'")
-    if tp > 1 and lora_rank > 0:
-        raise NotImplementedError(
-            "LoRA adapter-only pushes into tp shards are not ported yet "
-            "(ROADMAP A' 9.5)")
     dev = resolve_device(device)
     torch_dtype = getattr(torch, dtype)
     if os.path.isdir(model):
@@ -149,10 +150,6 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                else (128, 256, 512, 1024, 2048, 4096))
     if backend == "cb":
         tp_devs = _tp_devices(dev, tp)
-        if kv_spill and len(set(tp_devs)) > 1:
-            log.warning("the host spill tier is off: tp shards on %d cards",
-                        len(set(tp_devs)))
-            kv_spill = False
         engine = CBEngine(
             cfg, params, pad_token_id=0, kv_cache_dtype=torch_dtype,
             max_slots=max_slots, page_size=page_size, max_seq_len=max_seq_len,
@@ -182,7 +179,8 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
     server = RolloutServer(engine, host=host, port=port,
                            advertise_host=advertise_host)
     if lora_rank > 0:
-        # the wire carries the adapter tree, installed in place
+        # the wire carries the adapter tree, installed in place (on a tp
+        # engine each shard's blocks of it, into each shard)
         server.weight_template = lora.adapter_template(cfg, lora_rank)
         server.weight_apply = lora.apply_adapters
     elif weight_quant == "int8":

@@ -389,11 +389,11 @@ class RolloutServer:
             unflatten_names)
 
         # a tp engine's push lands each shard's blocks in that shard's
-        # staging (an int8 push is quantized whole first: a row-split
-        # weight's per-channel scale spans its shards)
+        # staging, a LoRA server's adapter push too (an int8 push is
+        # quantized whole first: a row-split weight's per-channel scale
+        # spans its shards)
         sharded = (getattr(self.engine, "tp", 1) > 1
-                   and self.weight_preprocess is None
-                   and self.weight_apply is None)
+                   and self.weight_preprocess is None)
         try:
             with self._weight_lock:
                 t0 = time.monotonic()
@@ -414,7 +414,14 @@ class RolloutServer:
                     on_tensor=install)
                 self._staging = staging
                 t1 = time.monotonic()
-                if sharded:
+                if sharded and self.weight_apply is not None:
+                    # the hook checks the push whole, then copies each
+                    # shard's blocks into it
+                    apply = self.weight_apply
+                    blocks = [unflatten_names(s) for s in staging]
+                    self.engine.install_weights(
+                        lambda shards: apply(shards, blocks), installed)
+                elif sharded:
                     self.engine.install_weights(
                         lambda shards: _copy_shard_staging(shards, staging),
                         installed)
