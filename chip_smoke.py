@@ -44,7 +44,13 @@ when CUDA is unavailable or any phase fails. Phases:
               calls, median over several replays (backward passes through
               autograd -- the plain version's and SDPA's -- by CUDA events
               around back-to-back calls queued behind a spin kernel
-              instead); K4's backward is also timed kernel by kernel.
+              instead); K4's backward is also timed kernel by kernel
+              (delta, dq, dk/dv and, where a kv head's q heads are
+              split over blocks, the partials' sum; the tile ranges,
+              which the forward makes for both, apart), and the
+              log line gives the (q tile, k tile) pairs run and those
+              skipped for disjoint segment ranges, and each bf16 kernel's
+              registers and shared memory.
 3. serve   -- ``create_server("qwen3-1.7b", device="cuda")`` at full width
               and depth with random weights from a seed; over HTTP, the
               main path: two GRPO groups of 8 samples (temperature 1.0,
@@ -1119,29 +1125,61 @@ def events_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def flash_bwd_parts_ms(q, k, v, seg, o, lse, do, reps: int, inner: int) -> dict:
-    """Device ms of each of K4's three backward kernels, launched with the
-    arguments ``flash.flash_bwd_cuda`` gives them (through the raw entry
-    points, so they are not counted as launches)."""
+def flash_bwd_parts_ms(q, k, v, seg, o, lse, do, ranges, reps: int,
+                       inner: int) -> dict:
+    """Device ms of each kernel of K4's backward, launched by its entry
+    point with the arguments ``flash.flash_bwd_cuda`` gives it (raw entry
+    points, so they are not counted as launches): delta, dq, dk/dv and,
+    when the backward splits a kv head's q heads over blocks, the
+    partials' sum; and the tile ranges, which the forward makes for
+    both."""
     b, t, hq, d = q.shape
+    hkv = k.shape[2]
     code, scale = cuda_build.DTYPE_CODE[q.dtype], float(d ** -0.5)
+    n_split = flash.dkv_splits(b, t, hq, hkv)
     delta = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = torch.empty((2, n_split, b, t, hkv, d), dtype=torch.float32,
+                       device=q.device) if n_split > 1 else None
+    pp = None if part is None else part.data_ptr()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    shape = (code, b, t, hq, k.shape[2], d, 1, scale)
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), ranges.data_ptr())
+    shape = (code, b, t, hq, hkv, d, 1)
 
-    def call(entry, *args):
+    def call(entry, *args, lib="flash_attention_bwd"):
         return lambda: cuda_build.launch(  # the stream is the capturing one
-            "flash_attention_bwd", *args, cuda_build.stream_of(q.device),
-            entry=f"polyrl_flash_attention_bwd_{entry}")
+            lib, *args, cuda_build.stream_of(q.device), entry=f"polyrl_flash_{entry}")
 
-    calls = {"delta": call("delta", o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                           code, b, t, hq, d),
-             "dq": call("dq", *ptrs, dq.data_ptr(), *shape),
-             "dk/dv": call("dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), *shape)}
+    calls = {"delta": call("attention_bwd_delta", o.data_ptr(), do.data_ptr(),
+                           delta.data_ptr(), code, b, t, hq, d),
+             "dq": call("attention_bwd_dq", *ptrs, dq.data_ptr(), *shape, scale),
+             "dk/dv": call("attention_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
+                           pp, *shape, n_split, scale)}
+    if part is not None:
+        calls[f"dk/dv sum of {n_split}"] = call(
+            "attention_bwd_dkv_sum", pp, dk.data_ptr(), dv.data_ptr(), b, t, hkv, d,
+            n_split)
     calls["delta"]()
-    return {name: cuda_ms(fn, reps, inner) for name, fn in calls.items()}
+    out = {name: cuda_ms(fn, reps, inner) for name, fn in calls.items()}
+    out["(forward's tile ranges)"] = cuda_ms(
+        call("segment_ranges", seg.data_ptr(), ranges.data_ptr(), b, t,
+             lib="flash_attention_fwd"), reps, inner)
+    return out
+
+
+def k4_resources(d: int) -> str:
+    """Registers (the ``-Xptxas -v`` report) and dynamic shared memory (the
+    launchers' own sizes) of K4's bf16 kernels at head dim ``d``."""
+    regs = {r["kernel"]: r["registers"]
+            for name in K4_NAMES for r in cuda_build.ptxas_report(name)}
+    smem = {"fwd": cuda_build.library("flash_attention_fwd")
+            .polyrl_flash_attention_fwd_smem(d),
+            "dq": cuda_build.library("flash_attention_bwd")
+            .polyrl_flash_attention_bwd_smem(0, d),
+            "dkv": cuda_build.library("flash_attention_bwd")
+            .polyrl_flash_attention_bwd_smem(1, d)}
+    return ", ".join(f"{k_} {regs[f'flash_{k_}_bf16_kernel<{d}>']} registers "
+                     f"{smem[k_]} B shared" for k_ in ("fwd", "dq", "dkv"))
 
 
 def wrapper_grads(fn, q, k, v, mask, seg, do):
@@ -1214,11 +1252,15 @@ def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int,
         + " (fails the out and the gradient checks)")
     del bo, bad_grads
 
-    _, lse = flash.flash_fwd_cuda(q, k, v, seg, True)
+    # the device's tile ranges, against their plain version
+    ranges = flash.tile_ranges(q, seg)
+    check(torch.equal(ranges.cpu(), flash.segment_tile_ranges(seg.cpu())),
+          f"K4 tile ranges ({label}) differ from segment_tile_ranges")
+    _, lse = flash.flash_fwd_cuda(q, k, v, seg, True, ranges)
     if repeat:
         # determinism: the backward twice on the same inputs, bitwise
-        first = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True)
-        second = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True)
+        first = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True, ranges)
+        second = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True, ranges)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b_) for a, b_ in zip(first, second)),
               f"K4 backward ({label}) differs between two calls on the same inputs")
@@ -1227,12 +1269,14 @@ def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int,
         del first, second
 
     # times: the kernels' launchers by graph replay (the backward needs the
-    # forward's LSE); autograd backward passes by events
+    # forward's LSE, and takes its tile ranges as the autograd Function
+    # hands them over); autograd backward passes by events
     inner = max(1, 2048 // t)
-    ms_f = cuda_ms(lambda: flash.flash_fwd_cuda(q, k, v, seg, True), reps, inner)
-    ms_b = cuda_ms(lambda: flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True),
-                   reps, inner)
-    parts = flash_bwd_parts_ms(q, k, v, seg, o, lse, do, reps, inner)
+    ms_f = cuda_ms(lambda: flash.flash_fwd_cuda(q, k, v, seg, True,
+                                                flash.tile_ranges(q, seg)), reps, inner)
+    ms_b = cuda_ms(lambda: flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True,
+                                                ranges), reps, inner)
+    parts = flash_bwd_parts_ms(q, k, v, seg, o, lse, do, ranges, reps, inner)
     plain_f = cuda_ms(lambda: flash.flash_attention_train_ref(
         q, k, v, mask, segment_ids=seg), reps)
     plain_b = events_ms(lambda: torch.autograd.grad(ref, leaves, do,
@@ -1253,6 +1297,7 @@ def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int,
     del lout, lleaves
 
     pairs = visible_pairs(seg)
+    run, skipped = flash.tiles_run(ranges)  # the device's own table
     es = 2
     io_f = (2 * q.numel() + k.numel() + v.numel()) * es + lse.numel() * 4 + seg.numel() * 4
     io_b = (4 * q.numel() + 2 * (k.numel() + v.numel())) * es + lse.numel() * 4 \
@@ -1263,7 +1308,10 @@ def flash_case_check(dev, b: int, t: int, seed: int, label: str, reps: int,
         f"SDPA {lib_f:.4f}, bound {bf:.4f} by {hf}); bwd ms {ms_b:.4f} (plain "
         f"{plain_b:.4f}, SDPA {lib_b:.4f}, bound {bb:.4f} by {hb}); "
         f"bwd by kernel: " + ", ".join(f"{n} {ms:.4f}" for n, ms in parts.items())
-        + f"; {pairs} visible pairs per head; SDPA vs K4 out max diff {lerr:.3g}; "
+        + f"; {pairs} visible pairs per head; (q tile, k tile) pairs per head "
+        f"over the batch run {run}, skipped for disjoint segment ranges "
+        f"{skipped} (of {run + skipped} causal); bf16 kernels at D {D}: "
+        f"{k4_resources(D)}; SDPA vs K4 out max diff {lerr:.3g}; "
         f"plain and SDPA backward timed by CUDA events around {reps} "
         f"back-to-back autograd calls queued behind a spin kernel")
     fwd = dict(name="flash_attention_fwd", max_abs_err=err_o, ms=ms_f,
@@ -1284,11 +1332,38 @@ def check_flash(dev) -> list[dict]:
     return list(rows)
 
 
+def k4_sass_counts() -> dict | None:
+    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in each of
+    K4's bf16 kernels, read from ``cuobjdump -sass`` of its library: {kernel:
+    (hgmma, utmaldg)}, or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    counts = {}
+    for name in K4_NAMES:
+        text = subprocess.run([tool, "-sass", str(cuda_build.lib_path(name))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        fn = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                fn = cuda_build.kernel_name(line.split("Function :")[1].strip())
+                if "bf16_kernel" in fn:
+                    counts[fn] = [0, 0]
+                else:
+                    fn = None
+            elif fn is not None:
+                counts[fn][0] += "HGMMA" in line
+                counts[fn][1] += "UTMALDG" in line
+    return {k_: tuple(v) for k_, v in counts.items()}
+
+
 def build_report() -> None:
     """Each K2, K3, K4 and fused-prologue kernel's registers per thread
     and spill bytes, from the ``-Xptxas -v`` report of its library's
     build; the bf16 kernels (the serving and training paths) must not
-    spill."""
+    spill. K4's bf16 kernels must hold wgmma and TMA loads in their SASS
+    where the toolkit has cuobjdump."""
     for name in ("paged_kv_write_fused", "paged_attention",
                  "grouped_paged_attention", "flash_attention_fwd",
                  "flash_attention_bwd"):
@@ -1300,6 +1375,13 @@ def build_report() -> None:
         for r in rows:
             check("bf16" not in r["kernel"] or r["spill_stores"] + r["spill_loads"] == 0,
                   f"{r['kernel']} spills {r['spill_stores']}/{r['spill_loads']} bytes")
+    sass = k4_sass_counts()
+    if sass is None:
+        log("build K4: no cuobjdump in the toolkit; SASS not read")
+        return
+    log("build K4 SASS (HGMMA, UTMALDG) per bf16 kernel: " + json.dumps(sass))
+    check(len(sass) == 6 and all(h > 0 and u > 0 for h, u in sass.values()),
+          f"K4's bf16 kernels lack wgmma or TMA loads in their SASS: {sass}")
 
 
 # -- phase 3: the engine over HTTP -------------------------------------------------

@@ -10,137 +10,197 @@
 // Bound on the H100: at the train phase's shapes (B 4, T 512, Hq 16, Hkv 8,
 //   D 128, bf16) it moves about 25 MB (0.0076 ms at 3.35 TB/s) and does
 //   4.3 GFLOP under the causal segment mask (0.0044 ms at 989 TFLOP/s), so
-//   bytes bound it by a little; but 512 blocks of 4 K/V tiles on average
-//   are short, and the prologue (Q and the first K/V tile land before any
-//   product) and the epilogue weigh beside the loop. At T 4096 (B 1) the
-//   flops bound it (0.023 ms for the long case's pairs) and the loop is
-//   the time: the rate at which mma.sync issues, and the shared-memory
-//   reads that feed it (one ldmatrix.x4 per two mma in Q K^T).
+//   bytes bound it by a little, though 512 blocks of 4 K/V tiles on
+//   average are short and their prologue and epilogue weigh beside the
+//   loop. At T 4096 (B 1) the flops bound it (0.023 ms for the long case's
+//   pairs), and the loop's products are the time.
 // Design, one instance per dtype in this library:
-//   bf16 (the training path): one block of 4 warps per (q tile of 64 rows,
-//   q head, batch). The q tile is the slowest grid dimension, taken from
-//   the last tile down: the blocks with the most K/V tiles start first and
-//   the short ones fill the tail wave. Q, K, V are staged as bf16 in
-//   swizzled shared memory by cp.async (flash_mma.cuh), K/V in a ring of
-//   two stages so that tile kt + 1 loads while tile kt computes (81 KB at
-//   D 128: two blocks per SM). Each warp keeps its 16 Q rows as A fragments
-//   in registers; S = Q K^T and O += P V run on the tensor cores (mma.sync
-//   m16n8k16, f32 accumulate); the online softmax runs on the S fragments,
-//   a row's max and sum reduced over the 4 lanes that hold it, and P goes
-//   to P V as A fragments in registers, never through shared memory. P
-//   goes as two bf16 terms, bf16(P) and the bf16 of the remainder: P
-//   rounded once to bf16 moved outputs next to a key with p near 1 and a
-//   large v by up to 2 ulps, past the output gate, while the split carries
-//   P to about 2^-17 for a second P V product per tile. A K/V tile strictly
-//   below the diagonal, inside T, whose q and k segment ids are all one
-//   value (a block vote on the staged ids) skips the per-element mask.
-//   128-row q tiles over 8 warps share each K/V tile between twice the
-//   rows but hold one block per SM by registers; they were slower at
-//   both shapes (PERF.md).
+//   bf16 (the training path), on Hopper's own instructions
+//   (flash_wgmma.cuh): one block per (q tile of 64 rows, q head, batch),
+//   the q tile the slowest grid dimension and taken from the last tile
+//   down, so that the blocks with the most K/V tiles start first. A
+//   producer warp copies Q once and the K/V tiles with their segment ids
+//   by TMA into a ring of two stages (64 KB at D 128: two blocks an SM),
+//   its lanes loading the ids;
+//   the consumer warpgroup owns the 64 q rows, S = Q K^T runs as wgmma
+//   with both operands read from shared memory by descriptor, the online
+//   softmax runs on the accumulator in registers (a row's max and sum
+//   reduced over the 4 lanes that hold it), and O += P V as wgmma with P
+//   the register A operand, never through shared memory. P goes as two
+//   bf16 terms (flash_wgmma.cuh, split_a): rounded once, it moved outputs
+//   next to a key with p near 1 and a large v past the output gate. A K/V
+//   tile whose segment-id range is disjoint from the q tile's is never
+//   copied nor computed (the ranges come from flash_seg_ranges_kernel,
+//   made on the device beside this kernel); a tile strictly below the
+//   diagonal, inside T, with one segment id throughout both tiles skips
+//   the per-element mask.
 //   f32 (gradient checks on an f32 copy of the weights): the CUDA-core
 //   kernel of flash_f32.cuh, exact f32 products from shared memory, since
 //   the tensor cores have no f32 mode without TF32. Not a fallback: each
 //   dtype has its one kernel, and a launch that fails raises.
-//   wgmma with operands read from shared memory by descriptor, and TMA
-//   loads, are the next step.
+#include <climits>
+
 #include "flash_common.cuh"
 #include "flash_f32.cuh"
-#include "flash_mma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace polyrl_flash;
-using mma::bf16;
+using wg::bf16;
 
-// The launch bound's minimum of one block per SM: without it ptxas held the
-// D 64 instance to 128 registers and spilled.
+// range[b, i] = (min, max) of seg[b, t] over the rows t < T of tile i
+// (flash_wgmma.cuh). Replaces no TPU kernel (the TPU kernel masks every
+// block it visits); added so that K4 skips the tiles of packed rows that
+// hold no visible pair. Bound by bytes (B T ids read, 8 bytes a tile
+// written: 16 KB at B 4, T 1024), in practice by its launch: one warp a
+// tile. The backward takes the forward's table.
+constexpr int kRangeThreads = 256;
+
+__global__ void __launch_bounds__(kRangeThreads)
+    flash_seg_ranges_kernel(const int* __restrict__ seg, int2* __restrict__ range, int B,
+                            int T_, int n_tiles) {
+  const int w = blockIdx.x * (kRangeThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (w >= B * n_tiles) return;  // whole warp leaves together
+  const int b = w / n_tiles, t0 = (w % n_tiles) * wg::kRows;
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int r = lane; r < wg::kRows; r += 32)
+    if (t0 + r < T_) {
+      const int s = seg[(size_t)b * T_ + t0 + r];
+      lo = min(lo, s);
+      hi = max(hi, s);
+    }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) range[w] = make_int2(lo, hi);
+}
+
+inline int launch_seg_ranges(const void* seg, void* range, int B, int T_,
+                             cudaStream_t stream) {
+  const int n_tiles = (T_ + wg::kRows - 1) / wg::kRows, warps = B * n_tiles;
+  const int per_block = kRangeThreads / 32;
+  flash_seg_ranges_kernel<<<(warps + per_block - 1) / per_block, kRangeThreads, 0, stream>>>(
+      (const int*)seg, (int2*)range, B, T_, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+constexpr int kFwdStages = 2;
+
+// Q, kFwdStages x (K, V) tiles; 64 q ids and kFwdStages x 64 k ids; the
+// barriers (Q, and full and empty a stage); 1024 bytes for the alignment.
+template <int D> constexpr size_t fwd_smem() {
+  return 1024 + (size_t)(1 + 2 * kFwdStages) * wg::tile_bytes<D>() +
+         (size_t)(1 + kFwdStages) * wg::kVecBytes + (size_t)(1 + 2 * kFwdStages) * 8;
+}
+
 template <int D>
-__global__ void __launch_bounds__(mma::kThreads, 1)
-    flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const int* __restrict__ seg,
-                          bf16* __restrict__ o, float* __restrict__ lse, int T_, int Hq,
-                          int Hkv, int causal, float scale) {
-  using namespace mma;
-  constexpr int R = kRows;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);              // [64][D]
-  bf16* ks = qs + R * D;                                 // [2][64][D]
-  bf16* vs = ks + 2 * R * D;                             // [2][64][D]
-  int* seg_q = reinterpret_cast<int*>(vs + 2 * R * D);   // [64]
-  int* seg_k = seg_q + R;                                // [2][64]
+__global__ void __launch_bounds__(wg::kThreads, 2)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const int* __restrict__ seg, const int2* __restrict__ range,
+                          bf16* __restrict__ o,
+                          float* __restrict__ lse, int T_, int Hq, int Hkv, int causal,
+                          float scale) {
+  using namespace wg;
+  constexpr int S = kFwdStages, TB = tile_bytes<D>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = aligned_smem(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(sm);
+  bf16* ks = reinterpret_cast<bf16*>(sm + TB);            // [S] tiles
+  bf16* vs = reinterpret_cast<bf16*>(sm + (1 + S) * TB);  // [S] tiles
+  int* seg_q = reinterpret_cast<int*>(sm + (1 + 2 * S) * TB);
+  int* seg_k = seg_q + kRows;                             // [S][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(seg_k + S * kRows);
+  uint64_t* full = q_full + 1;                            // [S]
+  uint64_t* empty = full + S;                             // [S]
 
-  const int n_tiles = (T_ + R - 1) / R;
+  const int n_tiles = (T_ + kRows - 1) / kRows;
   const int h = blockIdx.x, b = blockIdx.y, qt = n_tiles - 1 - blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = qt * R;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = 2 * (lane & 3);
-  const int m0 = (threadIdx.x >> 5) * 16;  // this warp's rows in the tile
-  const int row0 = q0 + m0 + g, row1 = row0 + 8;
+  const int hk = h / (Hq / Hkv), q0 = qt * kRows;
   const int n_kt = causal ? qt + 1 : n_tiles;
+  const int2* rng = range + (size_t)b * n_tiles;
+  const int2 qr = rng[qt];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  auto issue_kv = [&](int kt, int st) {
-    load_tile<D>(ks + st * R * D, k, b, kt * R, hk, T_, Hkv);
-    load_tile<D>(vs + st * R * D, v, b, kt * R, hk, T_, Hkv);
-    load_row_values(seg_k + st * R, seg, (size_t)b * T_, kt * R, T_);
-    cp_async_commit();
-  };
-  load_tile<D>(qs, q, b, q0, h, T_, Hq);
-  load_row_values(seg_q, seg, (size_t)b * T_, q0, T_);
-  cp_async_commit();
-  issue_kv(0, 0);
-  cp_async_wait<1>();
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 32);
+    for (int s = 0; s < S; ++s) {
+      bar_init(full + s, 32);
+      bar_init(empty + s, 128);
+    }
+    bar_init_fence();
+  }
   __syncthreads();
 
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) frag_a<D>(qf[kk], qs, m0, kk);
-  const int sq0 = seg_q[m0 + g], sq1 = seg_q[m0 + g + 8], seg0 = seg_q[0];
-  const bool q_uniform =
-      __syncthreads_and(seg_q[threadIdx.x % R] == seg0) && q0 + R <= T_;
+  if (warp == kProducerWarp) {
+    const size_t sb = (size_t)b * T_;
+    warp_load_rows(seg_q, seg, sb, q0, T_);
+    if (lane == 0) {
+      bar_expect(q_full, TB);
+      load_tile<D>(qs, &q_map, q_full, b, q0, h);
+    } else {
+      bar_arrive(q_full);
+    }
+    Ring<S> ring;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      if (!ranges_meet(qr, rng[kt])) continue;
+      const int st = ring.stage();
+      bar_wait(empty + st, ring.parity() ^ 1);
+      warp_load_rows(seg_k + st * kRows, seg, sb, kt * kRows, T_);
+      if (lane == 0) {
+        bar_expect(full + st, 2 * TB);
+        load_tile<D>(ks + st * kRows * D, &k_map, full + st, b, kt * kRows, hk);
+        load_tile<D>(vs + st * kRows * D, &v_map, full + st, b, kt * kRows, hk);
+      } else {
+        bar_arrive(full + st);
+      }
+      ++ring.i;
+    }
+    return;
+  }
 
-  float acc[D / 8][4];
-  zero(acc);
+  // the consumer warpgroup: this thread's rows r0 and r0 + 8 of the tile
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int r0 = 16 * warp + g, row0 = q0 + r0, row1 = row0 + 8;
+  bar_wait(q_full, 0);
+  const int sq0 = seg_q[r0], sq1 = seg_q[r0 + 8];
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m_r[2] = {-FLT_MAX, -FLT_MAX}, l_r[2] = {0.f, 0.f};
   const float sl2 = scale * kLog2e;  // scores in log2 units: exp2 below
 
+  Ring<S> ring;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1, k0 = kt * R;
-    if (kt + 1 < n_kt) {
-      issue_kv(kt + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    const int* sk = seg_k + st * R;
-    const bf16* kst = ks + st * R * D;
-    const bf16* vst = vs + st * R * D;
-    // the vote is also the barrier that publishes stage st to every warp
-    const bool fast = __syncthreads_and(sk[threadIdx.x % R] == seg0) && q_uniform &&
-                      k0 + R <= T_ && (!causal || k0 + R <= q0);
+    const int2 kr = rng[kt];
+    if (!ranges_meet(qr, kr)) continue;
+    const int st = ring.stage(), k0 = kt * kRows;
+    bar_wait(full + st, ring.parity());
 
-    float s[R / 8][4];
-    zero(s);
-    gemm_nt_reg<D, R>(s, qf, kst, 0);
+    float s[32];
+    wg_fence();
+    wgmma_ss<D>(s, qs, ks + st * kRows * D);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
 
-    uint32_t ok = 0xffffffffu;  // bit 4 j + e: element e of block j visible
-    if (!fast) {
-#pragma unroll
-      for (int j = 0; j < R / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + t2 + (e & 1);
-          if (!visible(e < 2 ? row0 : row1, k0 + c, T_, e < 2 ? sq0 : sq1, sk[c], causal))
-            ok &= ~(1u << (4 * j + e));
-        }
-    }
+    // bit 4 j + e: element e of block j visible
+    uint32_t ok = 0xffffffffu;
+    if (!tile_is_uniform(qr, kr, qt, kt, T_, causal))
+      ok = visible_bits(row0, row1, sq0, sq1, k0 + t2, seg_k + st * kRows + t2, T_, causal,
+                        false);
     float mx[2] = {kMaskValue, kMaskValue};
 #pragma unroll
-    for (int j = 0; j < R / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = (ok >> (4 * j + e)) & 1u ? s[j][e] * sl2 : kMaskValue;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
+    for (int i = 0; i < 32; ++i) {
+      s[i] = (ok >> i) & 1u ? s[i] * sl2 : kMaskValue;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
     float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -149,28 +209,32 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
       m_r[r] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < R / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = (ok >> (4 * j + e)) & 1u ? exp2f(s[j][e] - m_r[e >> 1]) : 0.f;
-        sum[e >> 1] += s[j][e];
-      }
+    for (int i = 0; i < 32; ++i) {
+      s[i] = (ok >> i) & 1u ? exp2f(s[i] - m_r[(i >> 1) & 1]) : 0.f;
+      sum[(i >> 1) & 1] += s[i];
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + sum[r];  // this lane's part
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
-    }
-    gemm_pv<D, R>(acc, s, vst, 0);
-    __syncthreads();  // stage st is consumed: the next issue may refill it
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    uint32_t hi[4][4], lo[4][4];
+    split_a(s, hi, lo);
+    fence_regs(acc);
+    wg_fence();
+    wgmma_rs<D>(acc, hi, lo, vs + st * kRows * D);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(hi);
+    fence_regs(lo);
+    bar_arrive(empty + st);  // stage st is consumed: the producer may refill it
+    ++ring.i;
   }
 
   // every row inside T sees at least itself, so l >= 1 there
   const float l0 = quad_sum(l_r[0]), l1 = quad_sum(l_r[1]);
-  store_rows<D>(acc, 1.f / l0, 1.f / l1, qs, m0, o, b, q0 + m0, h, T_, Hq);
+  store_bf16<D>(acc, 1.f / l0, 1.f / l1, o, b, q0, h, T_, Hq);
   if ((lane & 3) == 0) {
     float* lse_bh = lse + ((size_t)b * Hq + h) * T_;
     if (row0 < T_) lse_bh[row0] = m_r[0] * kLn2 + logf(l0);
@@ -268,17 +332,23 @@ __global__ void __launch_bounds__(f32::kThreads)
   }
 }
 
+
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, const void* seg, void* o,
-                void* lse, int B, int T_, int Hq, int Hkv, int causal, float scale,
-                cudaStream_t stream) {
-  constexpr size_t smem = mma::smem_bytes<D>(5, 3);  // q, 2 x (k, v); 3 x 64 segment ids
-  cudaError_t e = allow_smem(flash_fwd_bf16_kernel<D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(Hq, B, (T_ + mma::kRows - 1) / mma::kRows);
-  flash_fwd_bf16_kernel<D><<<grid, mma::kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg, (bf16*)o,
-      (float*)lse, T_, Hq, Hkv, causal, scale);
+int launch_bf16(const void* q, const void* k, const void* v, const void* seg,
+                const void* range, void* o, void* lse, int B, int T_, int Hq, int Hkv,
+                int causal, float scale, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  int e = wg::rows_map(&q_map, q, B, T_, Hq, D);
+  if (!e) e = wg::rows_map(&k_map, k, B, T_, Hkv, D);
+  if (!e) e = wg::rows_map(&v_map, v, B, T_, Hkv, D);
+  if (e) return e;
+  constexpr size_t smem = fwd_smem<D>();
+  cudaError_t ce = allow_smem(flash_fwd_bf16_kernel<D>, smem);
+  if (ce != cudaSuccess) return (int)ce;
+  const dim3 grid(Hq, B, (T_ + wg::kRows - 1) / wg::kRows);
+  flash_fwd_bf16_kernel<D><<<grid, wg::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, (const int*)seg, (const int2*)range, (bf16*)o, (float*)lse, T_, Hq, Hkv,
+      causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -296,21 +366,39 @@ int launch_f32(const void* q, const void* k, const void* v, const void* seg, voi
   return (int)cudaGetLastError();
 }
 
+
 }  // namespace
 
+// range[b, i] (int2, [B, ceil(T / 64)]): the (min, max) segment id of
+// rows 64 i.. of row b inside T (flash_wgmma.cuh), made on the device for
+// the bf16 kernel's skip of segment-disjoint tiles.
+extern "C" int polyrl_flash_segment_ranges(const void* seg, void* range, int B, int T_,
+                                           void* stream) {
+  if (B <= 0 || T_ <= 0) return 0;
+  return launch_seg_ranges(seg, range, B, T_, (cudaStream_t)stream);
+}
+
 // dtype: 0 = float32, 1 = bfloat16; D in {64, 128}; Hq a multiple of Hkv;
-// q, k, v 16-byte aligned (checked by the Python wrapper, ops/flash.py).
+// q, k and v 16-byte aligned, as TMA needs (checked by the Python
+// wrapper, ops/flash.py). range: polyrl_flash_segment_ranges of seg
+// (bf16 only; the f32 kernel ignores it).
 extern "C" int polyrl_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                          const void* seg, void* o, void* lse, int dtype,
-                                          int B, int T_, int Hq, int Hkv, int D,
-                                          int causal, float scale, void* stream) {
+                                          const void* seg, const void* range, void* o,
+                                          void* lse, int dtype, int B, int T_, int Hq,
+                                          int Hkv, int D, int causal, float scale,
+                                          void* stream) {
   if (B <= 0 || T_ <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && D == 64) return launch_f32<64>(q, k, v, seg, o, lse, B, T_, Hq, Hkv, causal, scale, st);
   if (dtype == 0 && D == 128) return launch_f32<128>(q, k, v, seg, o, lse, B, T_, Hq, Hkv, causal, scale, st);
-  if (dtype == 1 && D == 64) return launch_bf16<64>(q, k, v, seg, o, lse, B, T_, Hq, Hkv, causal, scale, st);
-  if (dtype == 1 && D == 128) return launch_bf16<128>(q, k, v, seg, o, lse, B, T_, Hq, Hkv, causal, scale, st);
+  if (dtype == 1 && D == 64) return launch_bf16<64>(q, k, v, seg, range, o, lse, B, T_, Hq, Hkv, causal, scale, st);
+  if (dtype == 1 && D == 128) return launch_bf16<128>(q, k, v, seg, range, o, lse, B, T_, Hq, Hkv, causal, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of the bf16 kernel at head dim D, in bytes.
+extern "C" int polyrl_flash_attention_fwd_smem(int D) {
+  return D == 64 ? (int)fwd_smem<64>() : D == 128 ? (int)fwd_smem<128>() : -1;
 }
 
 extern "C" const char* polyrl_cuda_error_string(int code) {

@@ -3,7 +3,7 @@
 // come only from gradient checks on an f32 copy of the weights and from the
 // f32 card tests; the tensor cores have no f32 mode without TF32, which the
 // port keeps off, so this instance stays exact f32 on CUDA cores. The bf16
-// instance (the training path) is in flash_mma.cuh.
+// instance (the training path) is in flash_wgmma.cuh.
 //
 // Tiles: 64 query rows x 64 key rows, 256 threads. A tile of one tensor is
 // staged in shared memory as f32 [64][D + 1]: the +1 makes the row stride

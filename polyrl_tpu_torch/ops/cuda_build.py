@@ -4,7 +4,7 @@ Each kernel library is one ``csrc/<name>.cu`` (plus the headers it
 includes), compiled by ``nvcc`` for ``sm_90a`` into its own shared library
 with a plain C interface and loaded with ``ctypes`` (pointers and the
 stream as ``c_void_p``). A library may export several entry points (the
-flash-attention backward has three). Libraries are built at first use from
+flash-attention backward has five). Libraries are built at first use from
 the package's sources only, into ``polyrl_tpu_torch/build/`` (git-ignored),
 under a name that carries a digest of the flags and of every source the
 library is built from, its headers included, so an edited kernel is
@@ -66,14 +66,18 @@ KERNELS: dict[str, tuple[tuple[str, ...], dict[str, list]]] = {
         {"polyrl_grouped_paged_attention": [_P] * 11 + [_I] * 13 + [_F, _P]}),
     "flash_attention_fwd": (
         ("flash_attention_fwd.cu", "flash_common.cuh", "flash_f32.cuh",
-         "flash_mma.cuh"),
-        {"polyrl_flash_attention_fwd": [_P] * 6 + [_I] * 7 + [_F, _P]}),
+         "flash_wgmma.cuh"),
+        {"polyrl_flash_segment_ranges": [_P, _P, _I, _I, _P],
+         "polyrl_flash_attention_fwd": [_P] * 7 + [_I] * 7 + [_F, _P],
+         "polyrl_flash_attention_fwd_smem": [_I]}),
     "flash_attention_bwd": (
         ("flash_attention_bwd.cu", "flash_common.cuh", "flash_f32.cuh",
-         "flash_mma.cuh"),
+         "flash_wgmma.cuh"),
         {"polyrl_flash_attention_bwd_delta": [_P] * 3 + [_I] * 5 + [_P],
-         "polyrl_flash_attention_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _P],
-         "polyrl_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 7 + [_F, _P]}),
+         "polyrl_flash_attention_bwd_dq": [_P] * 9 + [_I] * 7 + [_F, _P],
+         "polyrl_flash_attention_bwd_dkv": [_P] * 11 + [_I] * 8 + [_F, _P],
+         "polyrl_flash_attention_bwd_dkv_sum": [_P] * 3 + [_I] * 5 + [_P],
+         "polyrl_flash_attention_bwd_smem": [_I, _I]}),
 }
 
 # library name -> launches since the last reset (one per wrapper call that

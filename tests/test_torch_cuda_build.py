@@ -145,16 +145,27 @@ def test_parse_ptxas_reads_registers_and_spills():
 
 
 def test_bf16_flash_kernels_use_the_tensor_core_helpers_only():
-    """The bf16 K4 kernels run their products through flash_mma.cuh's
-    mma.sync helpers; the f32 CUDA-core products (tile_dot, tile_acc) stay
-    in the f32 kernels."""
+    """The bf16 K4 kernels run their products through flash_wgmma.cuh's
+    wgmma helpers (operands by descriptor, tiles copied by TMA), with no
+    mma.sync left in them; the f32 CUDA-core products (tile_dot,
+    tile_acc) stay in the f32 kernels. flash_mma.cuh keeps the mma.sync
+    helpers that K2 and K3 use."""
     for src in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
         text = (cuda_build.CSRC_DIR / src).read_text()
+        assert '#include "flash_mma.cuh"' not in text, src
         bodies = re.findall(r"flash_\w+_bf16_kernel\(.*?\n}\n", text, re.S)
         assert bodies, src
         for body in bodies:
-            assert "gemm_" in body
+            assert "wgmma_ss<D>(" in body and "wgmma_rs<D>(" in body
+            assert "load_tile<D>(" in body and "bar_wait(" in body
+            assert "gemm_" not in body and "mma16816" not in body
             assert "tile_dot" not in body and "tile_acc" not in body
+    wg_header = (cuda_build.CSRC_DIR / "flash_wgmma.cuh").read_text()
+    for instr in ("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                  "cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity"):
+        assert instr in wg_header, instr
+    assert "mma.sync.aligned" not in wg_header and "ldmatrix.sync" not in wg_header
     mma_header = (cuda_build.CSRC_DIR / "flash_mma.cuh").read_text()
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma_header
     assert "cp.async" in mma_header and '#include "flash_f32.cuh"' not in mma_header

@@ -586,9 +586,10 @@ def test_cuda_flash_backward_is_bitwise_repeatable(cuda_device):
                                            pad=(0, 20), tail=(0, 0), packed=1),
                                 cuda_device)
     q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
-    o, lse = flash.flash_fwd_cuda(q, k, v, seg, True)
-    first = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True)
-    second = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True)
+    ranges = flash.tile_ranges(q, seg)
+    o, lse = flash.flash_fwd_cuda(q, k, v, seg, True, ranges)
+    first = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True, ranges)
+    second = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True, ranges)
     torch.cuda.synchronize()
     for a, b_ in zip(first, second):
         assert torch.equal(a, b_)
@@ -641,6 +642,118 @@ def test_cuda_flash_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     x = flat[1:].view(1, 16, 2, 64)
     with pytest.raises(ValueError, match="aligned"):  # contiguous, 2 bytes off
         flash.flash_attention_train(x, x, x, mask)
+
+
+def _many_segments(rng, b, t, lo=20, hi=90, tail=7):
+    """[b, t] ids: segments of lo..hi tokens, then a pad tail (id 0)."""
+    seg = np.zeros((b, t), np.int32)
+    for r in range(b):
+        pos, sid = 0, 1
+        while pos < t - tail:
+            n = min(int(rng.integers(lo, hi)), t - tail - pos)
+            seg[r, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return seg
+
+
+def _flash_case_with_ids(rng, b, t, hq, hkv, d, seg):
+    q, k, v, do, _mask, _seg = flash_case(rng, b=b, t=t, hq=hq, hkv=hkv, d=d,
+                                          pad=(0,) * b, tail=(0,) * b)
+    return q, k, v, do, (seg > 0).astype(np.float32), seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_skips_segment_disjoint_tiles(cuda_device, d):
+    """A pack of many short segments (20-90 tokens) at T 1000: most causal
+    tile pairs are skipped for disjoint segment ranges, and K4 still
+    matches its plain version under the bf16 tolerances."""
+    from polyrl_tpu_torch.ops import flash
+
+    rng = np.random.default_rng(31 + d)
+    case = _flash_case_with_ids(rng, 2, 1000, 8, 2, d, _many_segments(rng, 2, 1000))
+    run, skipped = flash.tiles_run(
+        flash.segment_tile_ranges(torch.from_numpy(case[5])))
+    assert skipped > run > 0
+    tol, gtol = _tols(torch.bfloat16)
+    (o, dq, dk, dv), (ro, rdq, rdk, rdv) = _flash_both(case, cuda_device, torch.bfloat16)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    for name, g, rg in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert rel_err(g, rg) <= gtol, (name, rel_err(g, rg))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_at_rep_8_on_packed_rows_of_1024(cuda_device):
+    """rep 8 (32 q heads on 4 kv heads, D 128) on rows of 1024 packed with
+    segments of 100-400 tokens and a pad tail: the backward splits each kv
+    head's q heads over blocks and sums their partials."""
+    from polyrl_tpu_torch.ops import flash
+
+    rng = np.random.default_rng(32)
+    seg = _many_segments(rng, 2, 1024, 100, 400, 30)
+    case = _flash_case_with_ids(rng, 2, 1024, 32, 4, 128, seg)
+    assert flash.dkv_splits(2, 1024, 32, 4) > 1
+    tol, gtol = _tols(torch.bfloat16)
+    (o, dq, dk, dv), (ro, rdq, rdk, rdv) = _flash_both(case, cuda_device, torch.bfloat16)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    for name, g, rg in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert rel_err(g, rg) <= gtol, (name, rel_err(g, rg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(333, 64), (333, 128), (77, 64), (130, 128)])
+def test_cuda_flash_ragged_rows_at_both_head_dims(cuda_device, t, d):
+    """T not a multiple of the 64-row tile (nor of 4, so a row's ids start
+    off 16 bytes), at D 64 and 128, causal and not, with pads and a packed
+    row."""
+    rng = np.random.default_rng(t + d)
+    tol, gtol = _tols(torch.bfloat16)
+    for causal in (True, False):
+        case = flash_case(rng, b=3, t=t, hq=8, hkv=2, d=d, pad=(0, 9, 0),
+                          tail=(0, 0, 11), packed=2)
+        (o, dq, dk, dv), (ro, rdq, rdk, rdv) = _flash_both(
+            case, cuda_device, torch.bfloat16, causal=causal)
+        torch.testing.assert_close(o.float(), ro.float(), **tol)
+        for name, g, rg in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+            assert rel_err(g, rg) <= gtol, (causal, name, rel_err(g, rg))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_at_rep_8_is_bitwise_repeatable(cuda_device):
+    """rep 8 at the train shapes (B 4, T 512): the dk/dv partials of a kv
+    head's q heads are summed in split order with no atomics, so two
+    backward calls give bitwise the same dq, dk, dv."""
+    from polyrl_tpu_torch.ops import flash
+
+    rng = np.random.default_rng(33)
+    q, k, v, do, mask, seg = _t(flash_case(rng, b=4, t=512, hq=32, hkv=4, d=128,
+                                           pad=(0, 30, 0, 0), tail=(0, 0, 0, 40),
+                                           packed=2), cuda_device)
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    assert flash.dkv_splits(4, 512, 32, 4) == 2
+    ranges = flash.tile_ranges(q, seg)
+    o, lse = flash.flash_fwd_cuda(q, k, v, seg, True, ranges)
+    first = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True, ranges)
+    second = flash.flash_bwd_cuda(q, k, v, seg, o, lse, do, True, ranges)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+def test_cuda_segment_ranges_match_plain(cuda_device, b):
+    """K4's tile-range kernel against ``segment_tile_ranges``: ragged T,
+    pad heads and tails, many segments, one row and several."""
+    from polyrl_tpu_torch.ops import flash
+
+    rng = np.random.default_rng(34 + b)
+    for t in (1, 63, 64, 65, 333, 1000):
+        seg = torch.from_numpy(_many_segments(rng, b, t, 1, 90, t // 7)).to(cuda_device)
+        seg[0, : t // 5] = 0
+        got = flash.segment_ranges_cuda(seg)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), flash.segment_tile_ranges(seg.cpu())), t
 
 
 def _small_engine(device, seed=0, int8=False, moe=False, **kw):

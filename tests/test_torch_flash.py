@@ -132,3 +132,20 @@ def test_wrapper_rejects_other_devices():
     x = torch.zeros((1, 4, 2, 16), device="meta")
     with pytest.raises(ValueError, match="device"):
         tflash.flash_attention_train(x, x, x, torch.ones((1, 4), device="meta"))
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4])
+def test_split_dkv_partials_sum_to_the_tpu_oracle_gradient(n_split):
+    """The plain model of the bf16 backward's split (a kv head's q heads
+    over ``n_split`` blocks, f32 partials added in split order) gives the
+    dk, dv of ``jax.vjp`` through the TPU kernel's oracle."""
+    q, k, v, do, mask, seg = _case(4, 1, seed=40 + n_split, packed=True)
+    _out, vjp = jax.vjp(_jax_oracle(q, k, v, mask, seg, True),
+                        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    _dq, dk_j, dv_j = vjp(jnp.asarray(do))
+    parts = tflash.dkv_partials_ref(*(torch.from_numpy(x) for x in (q, k, v)),
+                                    torch.from_numpy(seg), torch.from_numpy(do),
+                                    n_split)
+    dk, dv = tflash.dkv_sum_ref(parts)
+    np.testing.assert_allclose(dk.numpy(), np.asarray(dk_j), **TOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(dv_j), **TOL)

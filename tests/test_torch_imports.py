@@ -1,6 +1,6 @@
-"""The port stands alone: ``polyrl_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package, nor ``safetensors`` or
-``transformers``, which the card's image lacks (the port reads
+"""The port stands alone: ``polyrl_tpu_torch``, ``chip_smoke.py`` and
+``k4_ab.py`` import neither JAX nor anything of the JAX package, nor
+``safetensors`` or ``transformers``, which the card's image lacks (the port reads
 safetensors itself; the one exception is ``utils/tokenizer.py``'s guarded
 import of a Hugging Face tokenizer, which falls back to bytes without
 it), and the entry points refuse to fall back to the CPU unless asked."""
@@ -15,7 +15,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "polyrl_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "k4_ab.py"]
 
 
 def _imported_modules(path):
