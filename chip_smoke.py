@@ -266,9 +266,11 @@ when CUDA is unavailable or any phase fails. Phases:
               of the sources, built by ``g++`` into the git-ignored build
               directory) spawned supervised; ``build_trainer`` with
               ``rollout.mode=disaggregated`` and the train phase's
-              configuration (its weight sender registered first); then the
-              rollout server as a subprocess (``python -m
-              polyrl_tpu_torch.rollout.serve --model qwen3-1.7b
+              configuration at REMOTE_CUT_LAYERS layers, as in the hybrid,
+              lora_delta and autoscale phases (its weight sender
+              registered first); then the rollout server as a subprocess
+              at the same depth (``serve.main`` on its command line,
+              ``python -c`` with ``model_overrides``: ``--model qwen3-1.7b
               --num-pages 512 --manager-endpoint ...``, bf16, on the card), whose
               receiver connects to that sender. 2 GRPO steps stream their
               groups back through the manager, each push goes over the TCP
@@ -389,12 +391,14 @@ when CUDA is unavailable or any phase fails. Phases:
               (``--parallel-worker``), both on cuda:0, backend gloo (NCCL
               refuses two ranks on one device), joined within
               PARALLEL_TIMEOUT_S (a hang or a failure on either rank fails
-              the phase). One 2-rank probe world first logs which
+              the phase). A, C and D run the training cell at
+              PARALLEL_CUT_LAYERS layers, B at its full depth. One 2-rank
+              probe world first
+              logs which
               collectives gloo takes on CUDA tensors as they are (the port
               stages them through the host).
-              A: ``build_trainer`` on the train phase's configuration at
-              PARALLEL_CUT_LAYERS layers with
-              ``parallel.fsdp=2`` (one GRPO step, rank 0's colocated
+              A: ``build_trainer`` on the train phase's configuration
+              with ``parallel.fsdp=2`` (one GRPO step, rank 0's colocated
               engine; each layer's shard gathered inside its layer body,
               each rank's peak below the whole-tree route's A_PEAK_GB):
               after the step a digest of the gathered weights,
@@ -408,12 +412,12 @@ when CUDA is unavailable or any phase fails. Phases:
               one-device forward, K4 run with segment ids on both ranks.
               Ring attention over the 2 ranks at B 1, T 4096 against K4
               alone, forward and backward, under K4's bounds. C:
-              ``parallel.tp=2`` (each rank its tensor-parallel shard) at
-              PARALLEL_CUT_LAYERS layers, one GRPO step: A's gates (old
+              ``parallel.tp=2`` (each rank its tensor-parallel shard),
+              one GRPO step: A's gates (old
               logprobs, the gradient against one rank's on the gathered
               weights, K4 on both ranks, the digest equal). D:
-              ``parallel.pp=2`` at the training cell's full depth (28
-              layers, 14 a stage, PP_MICRO GPipe microbatches), one step:
+              ``parallel.pp=2`` (half the layers a stage, PP_MICRO GPipe
+              microbatches), one step:
               A's gates, and the leaves pp does not split (the embedding,
               the final norm) bitwise equal on both ranks. E:
               ``parallel.ep=2`` on qwen3-30b-a3b at full width and
@@ -477,6 +481,7 @@ snapshot, and logs the planes' host ms a step.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -496,6 +501,7 @@ import time
 import numpy as np
 import torch
 
+from polyrl_tpu_torch.manager.client import build_manager
 from polyrl_tpu_torch.models import decoder
 from polyrl_tpu_torch.ops import cuda_build
 from polyrl_tpu_torch.ops import flash
@@ -560,6 +566,20 @@ def check(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# each phase's wall in seconds, in the order run (the ``phase walls`` line)
+WALLS: dict[str, float] = {}
+
+
+@contextlib.contextmanager
+def phase_wall(name: str):
+    """Add the wall of the block to ``WALLS[name]``."""
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        WALLS[name] = WALLS.get(name, 0.0) + time.monotonic() - t0
 
 
 def cuda_ms(fn, reps: int, inner: int = 1, warmup: int = 2) -> float:
@@ -2250,6 +2270,19 @@ TRAIN_OVERRIDES = [
     "actor.use_kl_loss=true", "actor.remat=true", "actor.lr=1e-4",
     "reward.num_workers=1",
 ]
+
+
+def cut_depth(layers: int) -> str:
+    return "model.overrides=" + json.dumps({"num_layers": layers})
+
+
+# the disagg, hybrid, lora_delta and autoscale phases run the training cell
+# at full width and this depth, trainers and servers alike: their pushes,
+# joins, drains, bubbles, salvage and goodput split hold at any depth, and
+# at 28 layers the four took 343-416 s of the smoke's 1,200 s (NVIDIA H100
+# 80GB HBM3 at 700.00 W)
+REMOTE_CUT_LAYERS = 4
+REMOTE_OVERRIDES = TRAIN_OVERRIDES + [cut_depth(REMOTE_CUT_LAYERS)]
 # step-1 old logprobs (trainer forward, K4) against the engine's sampling
 # logprobs (paged decode, K1/K2), in nats over every response token: both
 # run the same bf16 weights through other kernels and another bf16
@@ -3429,9 +3462,18 @@ def quant_decode_ab(dev, cfg, trees: dict, tag: str = "quant") -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         graph = torch.cuda.CUDAGraph()
-        with cuda_build.recording_launches() as rec:
-            with torch.cuda.graph(graph, stream=side):
-                out = step()
+        # captured as the engine captures (thread_local): a server of this
+        # process (lora_delta's) runs CUDA work on its own threads meanwhile;
+        # and no garbage collection inside, where a freed graph ends the
+        # capture
+        gc.disable()
+        try:
+            with cuda_build.recording_launches() as rec:
+                with torch.cuda.graph(graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    out = step()
+        finally:
+            gc.enable()
         graph.replay()
         torch.cuda.synchronize()
         check(torch.equal(out[active], eager[active]),
@@ -4724,6 +4766,10 @@ MANAGER_ARGS: list[str] = []
 DISAGG_SERVER = ["--max-slots", "64", "--page-size", "64", "--max-seq-len",
                  "512", "--prompt-buckets", "64", "128",
                  "--steps-per-dispatch", "8"]
+# a rollout server subprocess: ``serve.main`` on the arguments after
+# ``-c``, the model cut to this many layers (``%`` fills it in)
+SERVE_MAIN = ("import sys; from polyrl_tpu_torch.rollout import serve; "
+              "serve.main(sys.argv[1:], model_overrides={'num_layers': %d})")
 DISAGG_GREEDY = 64
 DISAGG_SERVER_DEADLINE_S = 300.0
 # the int8 server that joins after the fit for one push: a small pool
@@ -4747,8 +4793,9 @@ def _tail(path: str, n: int = 3000) -> str:
 
 def spawn_server(dev, mgr, manager_ep: str | None, extra: list[str],
                  procs: list, port: int | None = None) -> tuple[int, str, float]:
-    """``python -m polyrl_tpu_torch.rollout.serve`` on ``MODEL`` as a
-    subprocess registered through ``--manager-endpoint`` (appended to ``procs``
+    """``serve.main`` on ``serve``'s command line, ``MODEL`` at
+    REMOTE_CUT_LAYERS layers (its ``model_overrides``; the command line
+    takes no depth), as a subprocess registered through ``--manager-endpoint`` (appended to ``procs``
     at once, so teardown stops it), waited for until the manager reports
     it healthy. With ``manager_ep`` None it joins no pool (something must
     add it by its endpoint) and is waited for until its own
@@ -4766,9 +4813,10 @@ def spawn_server(dev, mgr, manager_ep: str | None, extra: list[str],
     t0 = time.monotonic()
     with open(log_path, "wb") as f:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "polyrl_tpu_torch.rollout.serve",
-             "--model", MODEL, "--dtype", "bfloat16", "--device", dev.type,
-             "--host", "127.0.0.1", "--port", str(port), "--seed", "0"]
+            [sys.executable, "-c", SERVE_MAIN % REMOTE_CUT_LAYERS,
+             "--model", MODEL, "--dtype", "bfloat16",
+             "--device", dev.type, "--host", "127.0.0.1", "--port", str(port),
+             "--seed", "0"]
             + join + DISAGG_SERVER + extra,
             cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT)
     procs.append((proc, port, log_path))
@@ -4784,11 +4832,12 @@ def spawn_server(dev, mgr, manager_ep: str | None, extra: list[str],
         time.sleep(0.5)
 
 
-def serving(port: int) -> bool:
-    """Whether a server on ``port`` answers ``/health_generate`` with 200."""
+def serving(port: int, path: str = "/health_generate") -> bool:
+    """Whether a server on ``port`` answers ``path`` with 200 (``/health``:
+    whether its listener is still up)."""
     try:
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
-        conn.request("GET", "/health_generate")
+        conn.request("GET", path)
         ok = conn.getresponse().status == 200
         conn.close()
         return ok
@@ -4835,10 +4884,11 @@ def stream_timeline(streams: list, timeline: list, syncs: dict) -> list[dict]:
 
 def disagg_phase(dev, trained: dict) -> dict:
     """The disaggregated rollout: the port's C++ manager built by ``g++``
-    and spawned supervised; the rollout server a subprocess (``python -m
-    polyrl_tpu_torch.rollout.serve`` on ``qwen3-1.7b``, bf16, 512 pages,
+    and spawned supervised; the rollout server a subprocess
+    (``spawn_server``: ``serve.main`` on ``qwen3-1.7b``, bf16, 512 pages,
     registered through ``--manager-endpoint``); the trainer ``build_trainer`` with
-    ``rollout.mode=disaggregated`` and the train phase's configuration.
+    ``rollout.mode=disaggregated`` and the train phase's configuration;
+    both at REMOTE_CUT_LAYERS layers.
     Gates: finite losses, grad norms > 0; every push verified (no push or
     verify failure, no retry) and the server's ``weight_version`` at 1 +
     the steps; every streamed token tagged with the version its stream
@@ -4872,7 +4922,7 @@ def disagg_phase(dev, trained: dict) -> dict:
     cleanup: list = [sup.stop]
     procs: list = []
     try:
-        cfg = load_config(None, TRAIN_OVERRIDES + [
+        cfg = load_config(None, REMOTE_OVERRIDES + [
             "rollout.mode=disaggregated",
             f"rollout.manager_endpoint={sup.endpoint}",
             "rollout.transfer_streams=4", f"device={dev.type}"])
@@ -5997,7 +6047,8 @@ HYBRID_WINDOW_MAX_S = 60.0
 
 
 def hybrid_phase(dev, trained: dict, disagg: dict) -> dict:
-    """The hybrid: ``build_trainer`` at the train phase's configuration with
+    """The hybrid: ``build_trainer`` at the train phase's configuration
+    (REMOTE_CUT_LAYERS layers, the server too) with
     ``rollout.mode=disaggregated rollout.colocated_local=true
     obs.trace=true``: an in-process ``CBEngine`` behind a ``RolloutServer``
     on 127.0.0.1 registered as a local, time-sliced instance, beside a
@@ -6034,7 +6085,7 @@ def hybrid_phase(dev, trained: dict, disagg: dict) -> dict:
     cleanup: list = [sup.stop]
     procs: list = []
     try:
-        cfg = load_config(None, TRAIN_OVERRIDES + [
+        cfg = load_config(None, REMOTE_OVERRIDES + [
             "rollout.mode=disaggregated", "rollout.colocated_local=true",
             f"rollout.manager_endpoint={sup.endpoint}",
             # the server's buckets: a prompt of more than a page can reach
@@ -6242,16 +6293,24 @@ def hybrid_phase(dev, trained: dict, disagg: dict) -> dict:
 
 
 def stop_servers(procs: list) -> None:
-    """Shut the server subprocesses down (``/shutdown``, then kill)."""
+    """Shut the server subprocesses down: ``/shutdown`` stops the server
+    (its engine, receiver and listener, in that order) but not its
+    process, which sleeps on; once the listener has closed (at most 30 s)
+    the process is terminated, and killed if it does not end."""
     for proc, port, _ in procs:
         if proc.poll() is not None:
             continue
         try:
             post(port, "/shutdown", {})
-            proc.wait(timeout=30)
-        except Exception:  # noqa: BLE001 -- killed below
+            t0 = time.monotonic()
+            while serving(port, "/health") and time.monotonic() - t0 < 30:
+                time.sleep(0.1)
+        except Exception:  # noqa: BLE001 -- terminated below
             pass
-        if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=30)
 
@@ -6300,8 +6359,9 @@ LORA_DELTA_ARGS = ["--lora-rank", str(LORA_RANK), "--lora-alpha", "16"]
 
 def lora_delta_phase(dev, disagg: dict) -> dict:
     """LoRA delta sync: ``build_trainer`` at the train phase's configuration
-    with ``actor.lora_rank=16 actor.lora_alpha=16
-    trainer.weight_sync=lora_delta rollout.mode=disaggregated``, and a
+    (REMOTE_CUT_LAYERS layers, the server too) with ``actor.lora_rank=16
+    actor.lora_alpha=16 trainer.weight_sync=lora_delta
+    rollout.mode=disaggregated``, and a
     server from ``serve``'s command line with ``--lora-rank 16
     --lora-alpha 16`` (in this process, ``serve.server_from_args``, so
     that its tensors can be read). Gates: finite losses, grad norms > 0;
@@ -6330,7 +6390,7 @@ def lora_delta_phase(dev, disagg: dict) -> dict:
     cleanup: list = [sup.stop]
     srv = None
     try:
-        cfg = load_config(None, TRAIN_OVERRIDES + [
+        cfg = load_config(None, REMOTE_OVERRIDES + [
             "rollout.mode=disaggregated",
             f"rollout.manager_endpoint={sup.endpoint}",
             "rollout.transfer_streams=4", f"actor.lora_rank={LORA_RANK}",
@@ -6350,7 +6410,8 @@ def lora_delta_phase(dev, disagg: dict) -> dict:
             "--host", "127.0.0.1", "--port", "0", "--seed", "0",
             "--manager-endpoint", sup.endpoint, "--transfer-streams", "4",
             "--num-pages", str(DISAGG_PAGES)] + DISAGG_SERVER + LORA_DELTA_ARGS)
-        srv = serve.server_from_args(args)
+        srv = serve.server_from_args(
+            args, model_overrides={"num_layers": REMOTE_CUT_LAYERS})
         seng = srv.engine
         check(srv.receiver is not None and srv.receiver.layout == iface.layout,
               "lora_delta: the server's receiver has another layout")
@@ -6584,7 +6645,7 @@ def autoscale_overrides(manager_ep: str, trace: str) -> list[str]:
     """The disagg phase's cell, pipelined one step ahead for 5 steps, with
     the autoscaler on a [2, 2] envelope, a step-paced spot market reading
     ``trace``, and one trainer-side manager-stream kill."""
-    return TRAIN_OVERRIDES + [
+    return REMOTE_OVERRIDES + [
         "rollout.mode=disaggregated", f"rollout.manager_endpoint={manager_ep}",
         "rollout.transfer_streams=4", f"trainer.total_steps={AUTOSCALE_STEPS}",
         "trainer.pipeline_depth=1", "trainer.rollout_is_correction=true",
@@ -8294,13 +8355,15 @@ def tp_lora_lines(t: dict, smi: str) -> list[str]:
 # rank that has not exited by then is a hang
 PARALLEL_TIMEOUT_S = 480.0
 PARALLEL_OVERRIDES = TRAIN_OVERRIDES + ["parallel.backend=gloo"]
-# A and C at this depth of the training cell (full width): cut from 28
-# layers when D and E joined the phase (A took 85.1 s and C 39.8 s there),
-# then from 8 when tp lora and the memory phase's tp spill joined the
-# smoke (A 42.2-50.0 s and C 16.0-20.1 s at 8)
+# A, C and D at this depth of the training cell (full width; B runs it at
+# its full 28): A and C cut from 28 layers when D and E joined the phase
+# (A took 85.1 s and C 39.8 s there), then from 8 when tp lora and the
+# memory phase's tp spill joined the smoke (A 42.2-50.0 s and C 16.0-20.1 s
+# at 8); D from 28 to bring the smoke back inside its budget (21.4 s at 28;
+# NVIDIA H100 80GB HBM3 at 700.00 W)
 PARALLEL_CUT_LAYERS = 4
-# D: the pipeline at the training cell's full depth, 14 layers a stage,
-# GPipe microbatches of one row of the 4-row micro
+# D: the pipeline, half the layers a stage, GPipe microbatches of one row
+# of the 4-row micro
 PP_MICRO = 4
 # E: qwen3-30b-a3b at full width, at the depth whose two ranks (rank 0 with
 # the colocated engine and the reference copy) fit on the one card
@@ -8489,10 +8552,6 @@ def _state_bytes(actor) -> dict:
     n = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
     return dict(param_gb=n([p for _, p in actor._named]) / 1e9,
                 opt_gb=n(actor.opt_state.mu + actor.opt_state.nu) / 1e9)
-
-
-def cut_depth(layers: int) -> str:
-    return "model.overrides=" + json.dumps({"num_layers": layers})
 
 
 def parallel_fsdp_fit(dev, rank: int,
@@ -8779,7 +8838,8 @@ def parallel_worker(out_dir: str) -> int:
         t0 = time.monotonic()
         res["D"] = parallel_fsdp_fit(dev, rank, (
             "parallel.pp=2", "parallel.fsdp=1",
-            f"parallel.pp_microbatches={PP_MICRO}"), after=pp_unsplit)
+            f"parallel.pp_microbatches={PP_MICRO}",
+            cut_depth(PARALLEL_CUT_LAYERS)), after=pp_unsplit)
         res["D"]["seconds"] = time.monotonic() - t0
         gc.collect()
         torch.cuda.empty_cache()
@@ -9017,8 +9077,8 @@ def parallel_lines(p: dict, smi: str) -> list[str]:
         f"(reserved {c0['reserved_gb']:.2f} / {c1['reserved_gb']:.2f}); per rank "
         f"params {c0['param_gb']:.3f} GB, AdamW {c0['opt_gb']:.3f} GB",
     ]
-    for ph, what in (("D", f"pp 2, {MODEL} full width and depth ({{layers}} "
-                           f"layers, {{half}} a stage), {PP_MICRO} GPipe "
+    for ph, what in (("D", f"pp 2, {MODEL} full width, {{layers}} layers "
+                           f"({{half}} a stage), {PP_MICRO} GPipe "
                            f"microbatches"),
                      ("E", f"ep 2, {MOE_MODEL} full width, {{layers}} layers, "
                            f"64 experts a rank")):
@@ -9101,26 +9161,35 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}; torch {torch.__version__} CUDA {torch.version.cuda}")
 
-    t0 = time.monotonic()
-    secs = cuda_build.build()
-    log(f"build: {time.monotonic() - t0:.1f} s wall, per kernel "
-        + json.dumps({k: round(v, 1) for k, v in secs.items()}))
-    build_report()
+    t_start = time.monotonic()
+    with phase_wall("build"):
+        # the C++ manager of the remote phases (g++) builds beside the
+        # kernels (nvcc)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            manager = pool.submit(build_manager)
+            secs = cuda_build.build()
+            log(f"build: {time.monotonic() - t_start:.1f} s wall, per kernel "
+                + json.dumps({k: round(v, 1) for k, v in secs.items()}))
+            build_report()
+            manager.result()
     if args.grad_seeds:
-        grad_gate_sweep(dev, [int(x) for x in args.grad_seeds.split(",")])
+        with phase_wall("grad seeds"):
+            grad_gate_sweep(dev, [int(x) for x in args.grad_seeds.split(",")])
 
-    rows = check_kernels(dev) + check_flash(dev)
-    torch.cuda.empty_cache()
+    with phase_wall("kernels"):
+        rows = check_kernels(dev) + check_flash(dev)
+        torch.cuda.empty_cache()
     # the MoE phase first, while the card's memory is empty: its serving
     # holds 61 GB of weights
-    t0 = time.monotonic()
-    moe = moe_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for line in moe_lines(moe, smi):
-        log(line)
+    with phase_wall("moe"):
+        moe = moe_phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in moe_lines(moe, smi):
+            log(line)
     log(f"phase moe ({smi}, this run): {moe['seconds']:.1f} s wall")
-    served = serve_phase(dev, profile=args.profile)
+    with phase_wall("serve"):
+        served = serve_phase(dev, profile=args.profile)
     log(f"serve ({smi}, this run): decode {served['decode_tok_s']:.1f} tok/s "
         f"over 18 concurrent streams; TTFT median "
         f"{statistics.median(served['ttft']) * 1e3:.1f} ms, max "
@@ -9129,48 +9198,54 @@ def main() -> int:
         f"{served['runahead']['sync_tok_s']:.1f}; device busy "
         f"{served['runahead']['busy_share']:.3f} of the profiled mix's wall; "
         f"peak {served['peak_gb']:.2f} GB")
-    gc.collect()
-    torch.cuda.empty_cache()
-    tp = tp_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for line in tp_lines(tp, smi):
-        log(line)
-    tp_moe = tp_phase(dev, MOE_MODEL, TP_MOE_OVERRIDES)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for line in tp_lines(tp_moe, smi):
-        log(line)
-    tp_lora = tp_lora_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for line in tp_lora_lines(tp_lora, smi):
-        log(line)
+    with phase_wall("tp"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp = tp_phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in tp_lines(tp, smi):
+            log(line)
+    with phase_wall("tp moe"):
+        tp_moe = tp_phase(dev, MOE_MODEL, TP_MOE_OVERRIDES)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in tp_lines(tp_moe, smi):
+            log(line)
+    with phase_wall("tp lora"):
+        tp_lora = tp_lora_phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in tp_lora_lines(tp_lora, smi):
+            log(line)
     # the kernels line's "tp" share: the main paths, dense, MoE and LoRA
     tp_launches = {k_: tp["launches"][k_] + tp_moe["launches"][k_]
                    + tp_lora["launches"][k_] for k_ in tp["launches"]}
-    t0 = time.monotonic()
-    memory = memory_phase(dev)
-    for line in memory_lines(memory, smi) + memory_tp_lines(memory["tp"], smi):
-        log(line)
-    log(f"phase memory ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
-    trained = train_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    ppo = ppo_phase(dev, args.ppo_ab)
-    # K4 at the packed rows' shapes, with the packer's segment ids
-    flash_case_check(dev, 4, PACK_LEN, 9, "ppo packed rows", reps=5,
-                     seg_np=ppo["seg_ids"])
-    torch.cuda.empty_cache()
+    with phase_wall("memory"):
+        memory = memory_phase(dev)
+        for line in memory_lines(memory, smi) + memory_tp_lines(memory["tp"], smi):
+            log(line)
+    log(f"phase memory ({smi}, this run): {WALLS['memory']:.1f} s wall")
+    with phase_wall("train"):
+        trained = train_phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with phase_wall("ppo"):
+        ppo = ppo_phase(dev, args.ppo_ab)
+    with phase_wall("kernels"):
+        # K4 at the packed rows' shapes, with the packer's segment ids
+        flash_case_check(dev, 4, PACK_LEN, 9, "ppo packed rows", reps=5,
+                         seg_np=ppo["seg_ids"])
+        torch.cuda.empty_cache()
     for name, phase in (("hf", lambda: hf_phase(dev)),
                         ("quant", lambda: quant_phase(dev)),
                         ("lora", lambda: lora_phase(dev, trained["peak_gb"])),
                         ("offload", lambda: offload_checks(dev))):
-        t0 = time.monotonic()
-        out = phase()
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"phase {name} ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
+        with phase_wall(name):
+            out = phase()
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"phase {name} ({smi}, this run): {WALLS[name]:.1f} s wall")
         if name == "quant":
             log(f"quant ({smi}, this run): launches of the int8 main path: "
                 + json.dumps({k_: out["launches"][k_] for k_ in SERVE_KERNELS})
@@ -9184,17 +9259,17 @@ def main() -> int:
                 + f"; peak {out['peak_gb']:.2f} GB against the train phase's "
                 f"{trained['peak_gb']:.2f}")
 
-    t0 = time.monotonic()
-    feats = features_phase(dev, served["ttft"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    for line in features_lines(feats, smi):
-        log(line)
-    log(f"phase features ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
-    t0 = time.monotonic()
-    stepped = step_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    with phase_wall("features"):
+        feats = features_phase(dev, served["ttft"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in features_lines(feats, smi):
+            log(line)
+    log(f"phase features ({smi}, this run): {WALLS['features']:.1f} s wall")
+    with phase_wall("step"):
+        stepped = step_phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
     log(f"step ({smi}, this run): 16 x (128 + 256) greedy, tok/s "
         f"RolloutEngine {[round(x, 1) for x in stepped['tok_s']['step']]} vs "
         f"CBEngine {[round(x, 1) for x in stepped['tok_s']['cb']]}; vs dense f32 "
@@ -9206,41 +9281,45 @@ def main() -> int:
         f"{[round(x, 2) for x in stepped['gen_walls']]} s), K4 launches "
         + json.dumps({k_: stepped["launches"][k_] for k_ in STEP_KERNELS})
         + f", peak {stepped['peak_gb']:.2f} GB")
-    log(f"phase step ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
-    t0 = time.monotonic()
-    disagg = disagg_phase(dev, trained)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for line in disagg_lines(disagg, smi):
-        log(line)
-    log(f"phase disagg ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
-    t0 = time.monotonic()
-    hybrid = hybrid_phase(dev, trained, disagg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for line in hybrid_lines(hybrid, smi):
-        log(line)
-    log(f"phase hybrid ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
-    t0 = time.monotonic()
-    delta = lora_delta_phase(dev, disagg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for line in lora_delta_lines(delta, smi):
-        log(line)
-    log(f"phase lora_delta ({smi}, this run): {time.monotonic() - t0:.1f} s wall")
-    t0 = time.monotonic()
-    scaled = autoscale_phase(dev, disagg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    for line in autoscale_lines(scaled, smi):
-        log(line)
-    log(f"phase autoscale ({smi}, this run{'; manager ' + ' '.join(MANAGER_ARGS) if MANAGER_ARGS else ''}): "
-        f"{time.monotonic() - t0:.1f} s wall")
+    log(f"phase step ({smi}, this run): {WALLS['step']:.1f} s wall")
+    # the phases at REMOTE_CUT_LAYERS layers of the training cell
+    depth = f"{REMOTE_CUT_LAYERS} of {MODEL}'s 28 layers"
+    with phase_wall("disagg"):
+        disagg = disagg_phase(dev, trained)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in disagg_lines(disagg, smi):
+            log(line)
+    log(f"phase disagg ({smi}, this run, {depth}): {WALLS['disagg']:.1f} s wall")
+    with phase_wall("hybrid"):
+        hybrid = hybrid_phase(dev, trained, disagg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in hybrid_lines(hybrid, smi):
+            log(line)
+    log(f"phase hybrid ({smi}, this run, {depth}): {WALLS['hybrid']:.1f} s wall")
+    with phase_wall("lora_delta"):
+        delta = lora_delta_phase(dev, disagg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in lora_delta_lines(delta, smi):
+            log(line)
+    log(f"phase lora_delta ({smi}, this run, {depth}): "
+        f"{WALLS['lora_delta']:.1f} s wall")
+    with phase_wall("autoscale"):
+        scaled = autoscale_phase(dev, disagg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in autoscale_lines(scaled, smi):
+            log(line)
+    log(f"phase autoscale ({smi}, this run, {depth}"
+        f"{'; manager ' + ' '.join(MANAGER_ARGS) if MANAGER_ARGS else ''}): "
+        f"{WALLS['autoscale']:.1f} s wall")
 
-    t0 = time.monotonic()
-    par = parallel_phase(dev)
-    for line in parallel_lines(par, smi):
-        log(line)
+    with phase_wall("parallel"):
+        par = parallel_phase(dev)
+        for line in parallel_lines(par, smi):
+            log(line)
 
     for r in rows:
         # K1's path is the decode step's unfused route (the serve phase's
@@ -9273,6 +9352,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
+    walls = {k: round(v, 1) for k, v in WALLS.items()}
+    walls["total"] = round(time.monotonic() - t_start, 1)
+    print(f"phase walls ({smi}, this run, s): {json.dumps(walls)}")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -202,7 +202,7 @@ class ManagerClient:
         t0 = time.monotonic()
         with urllib.request.urlopen(req, timeout=timeout or self.timeout_s) as r:
             out = json.loads(r.read() or b"{}")
-        obs.observe("manager/rtt_s", time.monotonic() - t0)
+        obs.observe("manager/rtt_s", time.monotonic() - t0, t0=t0)
         return out
 
     def _call(self, method: str, path: str, payload: dict | None = None,

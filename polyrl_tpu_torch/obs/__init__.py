@@ -41,7 +41,8 @@ from polyrl_tpu_torch.obs.critical_path import (SEGMENTS,  # noqa: F401
                                                 extract_critical_path)
 from polyrl_tpu_torch.obs.goodput import GoodputLedger  # noqa: F401
 from polyrl_tpu_torch.obs.histogram import (Histogram,  # noqa: F401
-                                            drain_histograms, observe)
+                                            drain_histograms, drain_registry,
+                                            observe)
 from polyrl_tpu_torch.obs.recorder import (AnomalyDetector,  # noqa: F401
                                            FlightRecorder, direction_violates)
 from polyrl_tpu_torch.obs.rlhealth import TrainingHealthLedger  # noqa: F401

@@ -1,6 +1,6 @@
 """Goodput accounting: decompose each training step's wall time into an
 exhaustive, non-overlapping phase taxonomy (a copy of
-``polyrl_tpu/obs/goodput.py``, less its double count; see ``bubble``).
+``polyrl_tpu/obs/goodput.py``, less its double counts; see ``bubble``).
 
 The ledger consumes what the step
 already measures (``marked_timer`` phase timings, the stream-wait bubble,
@@ -13,26 +13,35 @@ against the H100's bf16 peak).
 
 Phase taxonomy (seconds, non-overlapping, sum = ``goodput/step_wall_s``):
 
-- ``generate``  — in-loop (colocated) generation (``timing_s/gen``)
+- ``generate``  — in-loop (colocated) generation (``timing_s/gen``;
+  pipelined, the trainer passes its part inside the stream wait, where
+  the reference counts the whole, the part before the step's wall too)
 - ``bubble``    — blocked waiting on rollout arrival, NET of the compute
   phases that run inside the wait (colocated gen + multi-host broadcast
   happen inside ``next(ibatch)`` and would double-count otherwise) and
-  NET of the ``manager/rtt_s`` round trips that fell inside the wait
+  NET of the seconds of the wait that ``manager/rtt_s`` round trips cover
   (``rtt_in_bubble_s``: the remote stream's manager calls run while the
-  trainer waits on it, and the ``manager_rtt`` phase counts them once).
-  The reference counts those twice (its ``attributed_frac`` reads above
-  1 on disaggregated steps); this is the one difference kept, with its
-  twin below.
+  trainer waits on it, and the ``manager_rtt`` phase counts them once;
+  the trainer takes the union of their intervals, since round trips from
+  several threads overlap and one may begin before the wait). The
+  reference counts those twice (its ``attributed_frac`` reads above 1 on
+  disaggregated steps). And NET of ``fence_in_bubble_s``: pipelined,
+  the part of the producer's ``prefetch_fence`` inside the wait, which
+  the trainer passes as that timing (``weight_push`` counts it); the
+  reference adds the whole fence to a bubble that already holds it. These
+  two nets, the pipelined ``gen`` above and ``rtt_elsewhere_s`` below are
+  the differences kept.
 - ``process``   — reward / old+ref logprob / values / advantage / broadcast
 - ``update``    — actor + critic fwd/bwd and optimizer steps
 - ``weight_push`` — weight sync (``update_weight`` + the pipelined
-  ``prefetch_fence``)
+  ``prefetch_fence``: its part inside the stream wait)
 - ``salvage_resume`` — stream-resume recovery waits
   (``rollout/resume_wait_s`` observations)
 - ``manager_rtt``  — manager control-plane round trips outside streaming
-  (``manager/rtt_s`` observations), less ``rtt_elsewhere_s``: the round
-  trips before the step began (the bootstrap push's) and inside the
-  weight push, which ``weight_push`` already holds
+  (``manager/rtt_s`` observations), less ``rtt_elsewhere_s``: the part of
+  their total that the trainer does not count (round trips before the
+  step began, inside the weight push or another timed phase, overlapping
+  one another, or, pipelined, beside the foreground's work)
 - ``housekeeping`` — validation + checkpoint IO
 - ``other``     — the unattributed residual (clamped at 0)
 
@@ -81,6 +90,31 @@ HIST_PHASE = {
 }
 
 
+def _union(spans) -> list[list[float]]:
+    out: list[list[float]] = []
+    for t0, t1 in sorted(spans):
+        if out and t0 <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], t1)
+        elif t1 > t0:
+            out.append([t0, t1])
+    return out
+
+
+def seconds_inside(spans, within, minus=()) -> float:
+    """Seconds of the union of the ``(t0, t1)`` intervals ``spans`` that
+    fall inside the union of ``within`` and outside the union of
+    ``minus``: each second counts once, however many spans hold it."""
+    cut = _union(minus)
+    total = 0.0
+    for a0, a1 in _union(spans):
+        for b0, b1 in _union(within):
+            p0, p1 = max(a0, b0), min(a1, b1)
+            if p1 > p0:
+                total += (p1 - p0) - sum(
+                    max(0.0, min(p1, c1) - max(p0, c0)) for c0, c1 in cut)
+    return total
+
+
 class GoodputLedger:
     """Per-step attribution ledger + cumulative run totals (the /statusz
     snapshot reads the cumulative side). Thread-safe: the statusz exporter
@@ -104,7 +138,8 @@ class GoodputLedger:
                 histograms: dict | None = None, n_tokens: int = 0,
                 mean_context_len: float = 0.0, n_chips: int = 1,
                 rtt_in_bubble_s: float = 0.0,
-                rtt_elsewhere_s: float = 0.0) -> dict[str, float]:
+                rtt_elsewhere_s: float = 0.0,
+                fence_in_bubble_s: float = 0.0) -> dict[str, float]:
         """Attribute one step; returns the ``goodput/*`` metric dict.
 
         ``timings`` is the tracker's ``timing_s`` map (seconds per
@@ -117,7 +152,8 @@ class GoodputLedger:
         of ``bubble`` (at most the bubble itself), since ``manager_rtt``
         counts it; ``rtt_elsewhere_s`` is the part that another phase
         already holds or that predates the step, kept out of
-        ``manager_rtt``."""
+        ``manager_rtt``. ``fence_in_bubble_s`` is the pipelined fence's
+        part inside the wait, netted out of ``bubble`` the same way."""
         timings = timings or {}
         phases = {p: 0.0 for p in PHASES}
         for key, secs in timings.items():
@@ -126,7 +162,8 @@ class GoodputLedger:
                 phases[phase] += float(secs)
         inside = sum(float(timings.get(k, 0.0)) for k in _INSIDE_BUBBLE)
         phases["bubble"] = max(
-            0.0, float(bubble_s) - inside - float(rtt_in_bubble_s))
+            0.0, float(bubble_s) - inside - float(rtt_in_bubble_s)
+            - float(fence_in_bubble_s))
         for name, hist in (histograms or {}).items():
             phase = HIST_PHASE.get(name)
             if phase is not None:

@@ -9,6 +9,7 @@ of the exact quantile; ``max`` is tracked exactly.
 
 from __future__ import annotations
 
+import collections
 import math
 import threading
 
@@ -120,29 +121,41 @@ class Histogram:
 # the trainer drains the registry into each step record (one consumer).
 
 _REG: dict[str, Histogram] = {}
+# name -> the (t0, t1) intervals, on the monotonic clock, of the
+# observations given a start: the trainer learns from them which seconds of
+# its wall a series covers (concurrent round trips overlap; a sum does not
+# say so). Bounded: what falls off the end is only left unattributed.
+_SPANS: dict[str, collections.deque] = {}
+SPANS_KEPT = 4096
 _REG_LOCK = threading.Lock()
 
 
-def observe(name: str, value: float) -> None:
+def observe(name: str, value: float, t0: float | None = None) -> None:
+    """``t0`` (``time.monotonic()`` at the start of what ``value`` times)
+    also keeps the interval ``(t0, t0 + value)``."""
     with _REG_LOCK:
         hist = _REG.get(name)
         if hist is None:
             hist = _REG[name] = Histogram()
         hist.observe(value)
-
-
-def registry_total(name: str) -> float:
-    """The running total of ``name`` in the registry since its last drain
-    (0.0 when absent): the trainer reads it around a wait to learn what
-    part of a series fell inside it."""
-    with _REG_LOCK:
-        hist = _REG.get(name)
-        return hist.total if hist is not None else 0.0
+        if t0 is not None:
+            spans = _SPANS.get(name)
+            if spans is None:
+                spans = _SPANS[name] = collections.deque(maxlen=SPANS_KEPT)
+            spans.append((t0, t0 + value))
 
 
 def drain_histograms() -> dict[str, Histogram]:
     """Snapshot-and-reset the registry (each step record owns its window)."""
+    return drain_registry()[0]
+
+
+def drain_registry() -> tuple[dict[str, Histogram], dict[str, list]]:
+    """``drain_histograms`` and, from the same window, the intervals kept
+    per name."""
     with _REG_LOCK:
         out = dict(_REG)
+        spans = {k: list(v) for k, v in _SPANS.items()}
         _REG.clear()
-    return out
+        _SPANS.clear()
+    return out, spans

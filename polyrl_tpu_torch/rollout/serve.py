@@ -355,8 +355,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def server_from_args(args: argparse.Namespace):
-    """``create_server`` with the command line's settings."""
+def server_from_args(args: argparse.Namespace, **kw):
+    """``create_server`` with the command line's settings; ``kw`` (e.g.
+    ``model_overrides``) passes through."""
     return create_server(
         args.model, device=args.device, host=args.host, port=args.port,
         advertise_host=args.advertise_host, dtype=args.dtype, seed=args.seed,
@@ -377,13 +378,16 @@ def server_from_args(args: argparse.Namespace):
         loop_profile=not args.no_loop_profile,
         manager_endpoint=args.manager_endpoint,
         transfer_streams=args.transfer_streams, is_local=args.is_local,
-        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha, tp=args.tp)
+        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha, tp=args.tp,
+        **kw)
 
 
-def main() -> None:
-    args = parse_args()
+def main(argv: list[str] | None = None, **kw) -> None:
+    """Serve until interrupted; ``kw`` (e.g. ``model_overrides``) passes
+    through to ``create_server``."""
+    args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    server = server_from_args(args)
+    server = server_from_args(args, **kw)
     log.info("rollout server on %s (%s)", server.endpoint, server.engine.device)
     try:
         while True:

@@ -148,7 +148,10 @@ class RolloutPipeline:
                 else:
                     trainer._wait_push_headroom(limit - 1)
                 gate_wait = time.monotonic() - t_fence
-                prod_metrics.add_timing("prefetch_fence", gate_wait)
+                # its interval: the trainer's goodput split counts the
+                # part inside its own stream waits
+                prod_metrics.add_timing("prefetch_fence", gate_wait,
+                                        t0=t_fence)
                 prod_metrics.update({"perf/staleness_gate_wait_s": gate_wait})
                 prod_metrics.update_gauge({
                     "perf/staleness_lag": float(trainer._push_lag()),

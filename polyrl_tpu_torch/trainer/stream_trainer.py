@@ -63,7 +63,7 @@ import torch
 
 from polyrl_tpu_torch import obs
 from polyrl_tpu_torch.data.batch import TensorBatch
-from polyrl_tpu_torch.obs.histogram import registry_total
+from polyrl_tpu_torch.obs.goodput import seconds_inside
 from polyrl_tpu_torch.ops import core_algos
 from polyrl_tpu_torch.rollout.sampling import SamplingParams
 from polyrl_tpu_torch.utils import checkpoint as ckpt_lib
@@ -960,18 +960,16 @@ class StreamRLTrainer:
         mid-minibatch flushes the accumulated gradients."""
         cfg = self.cfg
         msize = cfg.ppo_mini_batch_size
-        state = {"processed": 0, "n_tokens": 0, "bubble": 0.0,
-                 "rtt_in_bubble": 0.0}
+        state = {"processed": 0, "n_tokens": 0, "bubble": 0.0, "waits": []}
 
         def wait_for(it):
             """The next ibatch (None at the stream's end), its wait added
             to the bubble, the wait that ends the stream too (the remote
             stream's tail, the hybrid's local engine handing its KV back;
-            the reference drops that one), and the manager round trips
-            inside it (the goodput ledger counts them as manager_rtt, not
-            bubble)."""
+            the reference drops that one). Each wait's interval is kept
+            for what other threads did inside it (pipelined generation and
+            fence, manager round trips)."""
             wait_t0 = time.monotonic()
-            rtt0 = registry_total("manager/rtt_s")
             try:
                 # the wait span is what the critical path attributes: to
                 # generate where generation covers it, else bubble
@@ -980,9 +978,9 @@ class StreamRLTrainer:
             except StopIteration:
                 return None
             finally:
-                state["bubble"] += time.monotonic() - wait_t0
-                state["rtt_in_bubble"] += max(
-                    0.0, registry_total("manager/rtt_s") - rtt0)
+                wait_t1 = time.monotonic()
+                state["bubble"] += wait_t1 - wait_t0
+                state["waits"].append((wait_t0, wait_t1))
 
         def micro_stream():
             it = ibatch_source()
@@ -1206,10 +1204,6 @@ class StreamRLTrainer:
                 self._profile_gate(self.global_step + 1)
                 metrics = MetricsTracker()
                 step_t0 = time.monotonic()
-                # manager round trips observed before the step began (the
-                # bootstrap push's, a pre-train validation's): not this
-                # step's manager_rtt
-                rtt_pre = registry_total("manager/rtt_s")
                 if pipeline is None and cfg.pipeline_depth > 0:
                     # a pipelined run's other ranks: the ibatches arrive
                     # through the foreground broadcasts, as when serial
@@ -1229,12 +1223,8 @@ class StreamRLTrainer:
                 with obs.span("trainer/step", step=self.global_step + 1,
                               depth=cfg.pipeline_depth):
                     state = self._train_one_batch(source, metrics)
-                    rtt_push = registry_total("manager/rtt_s")
                     with marked_timer("update_weight", metrics):
                         self._push_weights(block=cfg.pipeline_depth == 0)
-                    # the push's own round trips: weight_push holds them
-                    state["rtt_elsewhere"] = rtt_pre + max(
-                        0.0, registry_total("manager/rtt_s") - rtt_push)
                 # free the optimizer's device memory for generation (a
                 # no-op unless actor.cfg.offload_optimizer)
                 self.actor.offload_opt_state()
@@ -1289,22 +1279,49 @@ class StreamRLTrainer:
         critical path (tracing on), the health ledger's window, the
         logger's and recorder's counters; then the time-series rail, the
         recorder's watch and the logger."""
-        hists = obs.drain_histograms()
-        rtt_elsewhere = state["rtt_elsewhere"]
-        if self.cfg.pipeline_depth > 0 and "manager/rtt_s" in hists:
-            # pipelined, the producer lane makes the stream's and the
-            # balancer's round trips: outside the foreground's wait they
-            # overlap its phases, so only those inside the wait count
-            rtt_elsewhere = max(0.0, hists["manager/rtt_s"].total
-                                - state["rtt_in_bubble"])
+        hists, spans = obs.drain_registry()
+        step_t1 = time.monotonic()
+        waits = state["waits"]
+        pipelined = self.cfg.pipeline_depth > 0
+        timings = metrics.timings()
+        fence_in_bubble = 0.0
+        if pipelined:
+            # pipelined, the producer lane generates and waits on the last
+            # push (prefetch_fence) beside the foreground: only their parts
+            # inside this step's stream waits are its wall's, and they
+            # count once, as generate and weight_push, not as bubble too;
+            # the rest overlaps the step's other phases or predates its
+            # wall. timing_s/* keeps the raw times
+            for name in ("gen", "prefetch_fence"):
+                if name in timings:
+                    timings[name] = seconds_inside(metrics.spans(name), waits)
+            fence_in_bubble = timings.get("prefetch_fence", 0.0)
+        # manager round trips, from any thread and overlapping each other:
+        # manager_rtt holds the seconds of the stream waits they cover
+        # (less generation and fence), netted out of the bubble, and,
+        # serial, those of the step's untimed foreground work (the
+        # balancer's round), each second once. The rest (before the step,
+        # inside a timed phase such as the push, pipelined beside the
+        # foreground's work) stays out
+        rtt = spans.get("manager/rtt_s", ())
+        held = [sp for name in ("gen", "broadcast", "prefetch_fence")
+                for sp in metrics.spans(name)]
+        rtt_in_bubble = seconds_inside(rtt, waits, minus=held)
+        rtt_counted = rtt_in_bubble
+        if not pipelined:
+            timed = [sp for name in timings for sp in metrics.spans(name)]
+            rtt_counted += seconds_inside(rtt, [(step_t0, step_t1)],
+                                          minus=waits + timed)
+        rtt_elsewhere = (max(0.0, hists["manager/rtt_s"].total - rtt_counted)
+                         if "manager/rtt_s" in hists else 0.0)
         gp = self._goodput.account(
-            step_time_s=time.monotonic() - step_t0,
-            timings=metrics.timings(), bubble_s=state["bubble"],
+            step_time_s=step_t1 - step_t0,
+            timings=timings, bubble_s=state["bubble"],
             overlap_s=metrics.get("perf/pipeline_overlap_s"),
             histograms=hists, n_tokens=state["n_tokens"],
             mean_context_len=state["n_tokens"] / n_traj,
-            rtt_in_bubble_s=state["rtt_in_bubble"],
-            rtt_elsewhere_s=rtt_elsewhere)
+            rtt_in_bubble_s=rtt_in_bubble, rtt_elsewhere_s=rtt_elsewhere,
+            fence_in_bubble_s=fence_in_bubble)
         metrics.update(gp)
         metrics.merge_histograms(hists)
         tracer = obs.get_tracer()

@@ -40,6 +40,8 @@ class MetricsTracker:
         self._sums = defaultdict(float)
         self._counts = defaultdict(int)
         self._timings = defaultdict(float)
+        # name -> [(t0, t1)] on the monotonic clock, for timings given a start
+        self._spans = defaultdict(list)
         self._gauges: dict[str, float] = {}
         self._counters = defaultdict(float)
         self._hists: dict[str, Histogram] = {}
@@ -58,8 +60,13 @@ class MetricsTracker:
         """Within-step counter emitted raw (not averaged)."""
         self._counters[name] += amount
 
-    def add_timing(self, name: str, seconds: float) -> None:
+    def add_timing(self, name: str, seconds: float,
+                   t0: float | None = None) -> None:
+        """``t0`` (``time.monotonic()`` at the start) also keeps the
+        interval, for ``spans``."""
         self._timings[name] += seconds
+        if t0 is not None:
+            self._spans[name].append((t0, t0 + seconds))
 
     def observe(self, name: str, value: float) -> None:
         """Distribution sample; ``as_dict`` emits ``<name>/{p50,p95,p99,max,
@@ -71,6 +78,10 @@ class MetricsTracker:
 
     def timings(self) -> dict[str, float]:
         return dict(self._timings)
+
+    def spans(self, name: str) -> list[tuple[float, float]]:
+        """The intervals of the ``name`` timings given a start."""
+        return list(self._spans.get(name, ()))
 
     def get(self, key: str, default: float = 0.0) -> float:
         """Current value of one metric by key (averaged, gauge, counter)."""
@@ -88,6 +99,8 @@ class MetricsTracker:
             self._counts[k] += other._counts[k]
         for k, v in other._timings.items():
             self._timings[k] += v
+        for k, v in other._spans.items():
+            self._spans[k].extend(v)
         self._gauges.update(other._gauges)
         for k, v in other._counters.items():
             self._counters[k] += v
@@ -141,7 +154,7 @@ def marked_timer(name: str, tracker: MetricsTracker):
             tracker.incr(f"{name}/failed")
             raise
         finally:
-            tracker.add_timing(name, time.monotonic() - t0)
+            tracker.add_timing(name, time.monotonic() - t0, t0=t0)
 
 
 class Tracking:
