@@ -391,8 +391,9 @@ when CUDA is unavailable or any phase fails. Phases:
               (``--parallel-worker``), both on cuda:0, backend gloo (NCCL
               refuses two ranks on one device), joined within
               PARALLEL_TIMEOUT_S (a hang or a failure on either rank fails
-              the phase). A, C and D run the training cell at
-              PARALLEL_CUT_LAYERS layers, B at its full depth. One 2-rank
+              the phase). A and D run the training cell at
+              PARALLEL_CUT_LAYERS layers, C at TP_GRAD_LAYERS, B at its
+              full depth. One 2-rank
               probe world first
               logs which
               collectives gloo takes on CUDA tensors as they are (the port
@@ -423,7 +424,9 @@ when CUDA is unavailable or any phase fails. Phases:
               ``parallel.ep=2`` on qwen3-30b-a3b at full width and
               EP_LAYERS layers (64 experts a rank), one step: the gradient
               against one rank's, the router and every expert block moved,
-              the router bitwise equal on both ranks, K4 on both. Logs the
+              the router bitwise equal on both ranks, K4 on both. Logs
+              step 1's micro gradient by leaf family (cosine and norm
+              ratio, mesh vs one rank) for A, C, D and E, the
               step walls by phase ("two ranks sharing one card"), each
               rank's peak, its parameter and AdamW bytes, the push's
               gathered bytes. Its launches stay out of the ``kernels``
@@ -465,14 +468,27 @@ when CUDA is unavailable or any phase fails. Phases:
               install seconds.
               The hybrid phase also fails when its short window's stream
               takes over HYBRID_WINDOW_MAX_S.
-19. result -- the card's name and power limit, a ``{"kernels": [...]}``
+19. recipe -- (run after autoscale, before parallel) the north-star
+              recipe ``examples/configs/stream_grpo_llama3_8b.yaml``
+              through ``load_config``, ``build_trainer`` and ``fit`` at
+              llama3-8b's full width (GQA rep 4, llama3 RoPE scaling, an
+              untied 128,256-row head, no qk-norm) and REMOTE_CUT_LAYERS
+              layers, the reference worker's shape (the manager spawned by
+              ``train``, the colocated local engine, speculation, packing,
+              offload, remat): its cuts and gates in ``recipe_phase``. The
+              kernels phase runs the kernel case once more at its layout
+              (``layout_kernels`` at Hq 32, Hkv 8: the fused prologue
+              with null norms; K4 at B 4, T 512).
+20. result -- the card's name and power limit, a ``{"kernels": [...]}``
               line (the launches of each kernel's paths: serve or the A/B,
               memory and its tp spill, train, disagg, hybrid, lora_delta,
-              autoscale, moe and tp, tp moe and tp lora), and last ``{"ok": true, "device": {...}}``.
+              autoscale, recipe, moe and tp, tp moe and tp lora), and last
+              ``{"ok": true, "device": {...}}``.
 
-The train, disagg, hybrid, lora_delta and autoscale phases also gate the
-observability planes: every record's ``goodput/*`` (``attributed_frac``
-in [0.95, 1.05]) and ``training/*``; the train phase polls the trainer's
+The train, disagg, hybrid, lora_delta, autoscale and recipe phases also
+gate the observability planes: every record's ``goodput/*``
+(``attributed_frac`` in [0.95, 1.05]) and
+``training/*``; the train phase polls the trainer's
 ``/statusz`` through the fit, checks that a healthy fit dumps no
 flight-recorder bundle and that a manual one holds the CUDA memory
 snapshot, and logs the planes' host ms a step.
@@ -699,11 +715,13 @@ def rope_operand_bound(n, cos, sin, ref, rel):
 
 def fused_inputs(dev, c) -> dict:
     """The fused prologue's operands at the kernel case: the projected q,
-    k, v rows of 64 slots (bf16), qwen3-1.7b's qk-norm weights (1 + 0.1
-    noise) and RoPE at each slot's position, written at that position in
-    the slot's page row: at its last cached position, so every target is
-    a row of its own. Slot 5 is inactive (page 0, offset 0); slots 6 and 7
-    sit at offset 0 and PS - 1 of their last page."""
+    k, v rows of 64 slots (bf16), ``MODEL``'s qk-norm weights (1 + 0.1
+    noise; None, the null norms, for a preset without qk-norm such as
+    llama3-8b) and RoPE at each slot's position (with the preset's RoPE
+    scaling), written at that position in the slot's page row: at its last
+    cached position, so every target is a row of its own. Slot 5 is
+    inactive (page 0, offset 0); slots 6 and 7 sit at offset 0 and PS - 1
+    of their last page."""
     cfg = decoder.get_config(MODEL)
     gen = torch.Generator(device=dev).manual_seed(3)
     pos = (c["lens"].long() - 1).clamp(min=0)
@@ -718,10 +736,18 @@ def fused_inputs(dev, c) -> dict:
         x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return (base + scale * x).to(torch.bfloat16)
 
+    norms = cfg.use_qk_norm
     return dict(write_page=page, write_off=off, q=r(S, HQ * D), k=r(S, HKV * D),
                 v=r(S, HKV * D), cos=cos[:, 0], sin=sin[:, 0],
-                q_norm=r(D, scale=0.1, base=1.0), k_norm=r(D, scale=0.1, base=1.0),
+                q_norm=r(D, scale=0.1, base=1.0) if norms else None,
+                k_norm=r(D, scale=0.1, base=1.0) if norms else None,
                 eps=cfg.rms_norm_eps, pos=pos)
+
+
+def norm_or_not(x, weight, eps):
+    """``x`` per-head RMS-normalised by ``weight``, or ``x`` itself where
+    the weight is None (a preset without qk-norm)."""
+    return x if weight is None else norm_rope.rms_norm(x, weight, eps)
 
 
 def fused_gate(a: dict, out: tuple, ref: tuple, pools: tuple) -> dict:
@@ -735,8 +761,8 @@ def fused_gate(a: dict, out: tuple, ref: tuple, pools: tuple) -> dict:
     s, hq, d = rq.shape
     hkv, n = kp.shape[:2]
     eps = a["eps"]
-    n_q = norm_rope.rms_norm(a["q"].reshape(s, 1, hq, d), a["q_norm"], eps)[:, 0]
-    n_k = norm_rope.rms_norm(a["k"].reshape(s, 1, hkv, d), a["k_norm"], eps)[:, 0]
+    n_q = norm_or_not(a["q"].reshape(s, 1, hq, d), a["q_norm"], eps)[:, 0]
+    n_k = norm_or_not(a["k"].reshape(s, 1, hkv, d), a["k_norm"], eps)[:, 0]
     rows = ((torch.arange(hkv, device=q.device)[:, None] * n
              + a["write_page"].long()[None]) * PS + a["write_off"].long()[None])
     got_k = kp.view(-1, d)[rows].transpose(0, 1)   # [S, Hkv, D]
@@ -764,7 +790,8 @@ def check_fused(dev, c, empty: float) -> dict:
     """The fused decode prologue (K1 redesigned) at the kernel case,
     against its plain chain: the gate of ``fused_gate``, two calls bitwise
     equal, one replay of a CUDA-graph capture bitwise the eager call; the
-    gate must fail with cos/sin of position + 1 and with k_norm left out.
+    gate must fail with cos/sin of position + 1 and with k_norm left out
+    (with null norms: with k normalised by unit weights).
     Times by graph replay: the kernel, its plain chain, and the decode
     step's unfused route (eager qk-norm and RoPE, then K1)."""
     a = fused_inputs(dev, c)
@@ -796,17 +823,24 @@ def check_fused(dev, c, empty: float) -> dict:
           and torch.equal(gv, out[2]),
           "paged_kv_write_fused: a graph replay differs from the eager call")
     del graph, gq, gk, gv
-    # the gate's power: RoPE one position late, and k not normalised
+    # the gate's power: RoPE one position late, and k not normalised (with
+    # null norms: k normalised)
     cfg = decoder.get_config(MODEL)
     cos1, sin1 = decoder.rope_cos_sin(cfg, a["pos"][:, None] + 1)
-    faults = {"cos/sin of position + 1": dict(cos=cos1[:, 0], sin=sin1[:, 0]),
-              "k_norm left out": dict(k_norm=None)}
+    faults = {"cos/sin of position + 1": dict(cos=cos1[:, 0], sin=sin1[:, 0])}
+    if a["k_norm"] is None:
+        faults["k normalised"] = dict(k_norm=torch.ones(
+            D, device=dev, dtype=torch.bfloat16))
+    else:
+        faults["k_norm left out"] = dict(k_norm=None)
     fault_lines = []
     for label, over in faults.items():
         fg = fused_gate(a, run(pa.paged_kv_write_fused, **over), ref, base)
         check(not fg["ok"], f"the fused gate passes a planted fault: {label}")
         fault_lines.append(f"{label}: q {fg['ratio_q']:.3g}, k {fg['ratio_k']:.3g}")
-    log(f"kernel paged_kv_write_fused: max_abs_err {g['max_abs_err']:.3g}; "
+    log(f"kernel paged_kv_write_fused (Hq {HQ}, Hkv {HKV}, "
+        f"{'qk-norm' if a['q_norm'] is not None else 'null norms'}): "
+        f"max_abs_err {g['max_abs_err']:.3g}; "
         f"|diff| / one-ulp-of-the-RoPE-operands limit: q {g['ratio_q']:.3f}, k "
         f"{g['ratio_k']:.3f} (<= 1); {g['plain_ulp']} elements beyond one ulp "
         f"of the result alone (RoPE cancellation); v rows and untouched rows "
@@ -823,8 +857,8 @@ def check_fused(dev, c, empty: float) -> dict:
     cos3, sin3 = a["cos"][:, None], a["sin"][:, None]
 
     def unfused():  # forward_paged_decode with kv_write_fn=paged_kv_write
-        qn = norm_rope.rms_norm(q4, a["q_norm"], a["eps"])
-        kn = norm_rope.rms_norm(k4, a["k_norm"], a["eps"])
+        qn = norm_or_not(q4, a["q_norm"], a["eps"])
+        kn = norm_or_not(k4, a["k_norm"], a["eps"])
         qr = norm_rope.apply_rope(qn, cos3, sin3)
         kr = norm_rope.apply_rope(kn, cos3, sin3)
         pa.paged_kv_write(kp, vp, a["write_page"], a["write_off"], kr[:, 0], v3)
@@ -832,9 +866,11 @@ def check_fused(dev, c, empty: float) -> dict:
 
     route = cuda_ms(unfused, 20, inner=20)
     es = 2
-    n_bytes = ((S * (HQ + 2 * HKV) * D + 2 * D) * es + S * D * 4 + 2 * S * 4
-               + (S * HQ * D + 2 * S * HKV * D) * es)
-    flops = 10.0 * S * (HQ + HKV) * D  # square-sum, scale, weight, rotate
+    norms = a["q_norm"] is not None  # null norms: no weights, no norm
+    n_bytes = ((S * (HQ + 2 * HKV) * D + (2 * D if norms else 0)) * es
+               + S * D * 4 + 2 * S * 4 + (S * HQ * D + 2 * S * HKV * D) * es)
+    # square-sum, scale, weight (with qk-norm), rotate
+    flops = (10.0 if norms else 3.0) * S * (HQ + HKV) * D
     b, how = bound_ms(n_bytes, flops, F32_FLOPS)
     log(f"kernel paged_kv_write_fused: {ms:.5f} ms = {ms / empty:.2f} x the "
         f"empty kernel ({empty:.5f}); bound {b:.5f} ms ({how}, {n_bytes} B); "
@@ -2473,12 +2509,14 @@ STATUSZ_POLL_S = 0.5
 
 
 def plane_gates(history: list[dict], label: str,
-                smoke_s: list[float] | None = None) -> None:
-    """Every step record carries the goodput split, with its
-    ``attributed_frac`` in ATTRIBUTED_FRAC, and the health ledger's
-    ``training/*`` keys. ``smoke_s`` is, per step, the wall this script's
-    own gates spent inside the step (a wrapper's extra forward and host
-    copies), which no trainer phase can hold: it counts as attributed."""
+                smoke_s: list[float] | None = None,
+                ) -> None:
+    """Every step record carries the goodput split and the health
+    ledger's ``training/*`` keys, with ``attributed_frac`` in
+    ATTRIBUTED_FRAC. ``smoke_s`` is, per step,
+    the wall this script's own gates spent inside the step (a wrapper's
+    extra forward and host copies), which no trainer phase can hold: it
+    counts as attributed."""
     lo, hi = ATTRIBUTED_FRAC
     for i, rec in enumerate(history, 1):
         missing = [k_ for k_ in ([f"goodput/{p_}_s" for p_ in GOODPUT_PHASES]
@@ -7164,6 +7202,289 @@ def autoscale_lines(d: dict, smi: str) -> list[str]:
     return lines
 
 
+# -- the recipe phase: the north-star llama3-8b recipe through the port -----
+
+RECIPE_PATH = "examples/configs/stream_grpo_llama3_8b.yaml"
+RECIPE_MODEL = "llama3-8b"
+# llama3-8b's attention layout: 32 q heads on 8 kv heads (rep 4), no qk-norm
+RECIPE_HQ, RECIPE_HKV = 32, 8
+# (hidden, q heads, kv heads, intermediate, vocab): the recipe's widths
+RECIPE_DIMS = (4096, 32, 8, 14336, 128256)
+RECIPE_RESPONSE = 256
+# the recipe's cuts (``recipe_phase``); width, vocabulary, dtype, the
+# micro token budget and every switch of the reference worker's shape kept
+RECIPE_OVERRIDES = [
+    "device=cuda", cut_depth(REMOTE_CUT_LAYERS),
+    # the reference worker's shape (tests/llama8b_e2e_worker.py)
+    "rollout.colocated_local=true", "rollout.spec_tokens=2",
+    # two steps of 2 prompts x rollout_n 8 (kept) = 16 sequences
+    "trainer.train_batch_size=2", "trainer.ppo_mini_batch_size=16",
+    "trainer.min_stream_batch_size=16", "trainer.micro_batch_size=16",
+    "trainer.total_steps=2", "trainer.save_freq=0", "trainer.test_freq=0",
+    f"trainer.max_response_length={RECIPE_RESPONSE}",
+    # the longest prompt (max_prompt_length 1024, kept) and its response
+    f"rollout.max_seq_len={1024 + RECIPE_RESPONSE}",
+    "trainer.seed=0",
+]
+# the recipe as its YAML writes it serves without speculation (the worker's
+# spec_tokens=2 is an override): one GRPO group on a prompt of more than a
+# page decodes through K3 there, 8 members x rep 4 = 32 stacked rows
+RECIPE_GROUP_PROMPT = 100
+RECIPE_GROUP_NEW = 64
+
+
+def recipe_phase(dev) -> dict:
+    """The north-star recipe, ``examples/configs/stream_grpo_llama3_8b.yaml``,
+    through ``load_config`` -> ``build_trainer`` -> ``fit`` (what ``python -m
+    polyrl_tpu_torch.train --config ...`` runs) at llama3-8b's full width:
+    hidden 4096, 32 q / 8 kv heads, head_dim 128, intermediate 14,336,
+    vocab 128,256, the untied head, llama3 RoPE scaling, no qk-norm, bf16,
+    random weights from seed 0. The reference worker's shape: disaggregated
+    with the manager spawned and supervised by ``train``, the colocated
+    local engine (``POLYRL_CB_TRACE=1`` for it), speculation (2 tokens),
+    packing within the 16,384-token micro budget, optimizer offload, remat,
+    chunked prefill (512), 8 fabric streams, ``parallel.fsdp=-1`` (one
+    process: a mesh of one).
+
+    Cuts, each for a reason: depth to REMOTE_CUT_LAYERS (4), since a
+    full-depth push is 16 GB and offloaded AdamW 64 GB of pinned host at
+    32 layers; 2 prompts a step (rollout_n 8 kept) and the mini, micro and
+    stream batches to those 16 sequences, 2 steps; responses of
+    RECIPE_RESPONSE tokens and ``max_seq_len`` to the longest prompt plus
+    one; no checkpoint and no validation; the arithmetic dataset (no
+    download), scored by ``byte_length_score`` so that a group's
+    advantages are not all 0 at random weights.
+
+    Gates: the model's dims; each step's ``actor/pg_loss`` finite; the
+    local server at ``weight_version`` >= 3 (the bootstrap push and one a
+    step); every step's old logprobs within LOGP_AGREE_TOL of the served
+    ones; every record's goodput split (``attributed_frac`` in
+    ATTRIBUTED_FRAC; the trainer times the optimizer offload, whose first
+    call allocates the pinned host buffers, with the update);
+    ``polyrl_engine_*`` counters on the local server's ``/metrics``. Then,
+    the recipe as its YAML writes it (no speculation), the engine that
+    ``train`` builds from the rollout section, on the trained weights,
+    serves one GRPO group of 8 on a RECIPE_GROUP_PROMPT-token prompt:
+    grouped decode through K3, which a speculating engine never runs (its
+    dispatch carries no group tables, in both packages), so the recipe's
+    K3 launches all come from this group. Launches counted from zero over
+    the fit and that group, each apart: the fused prologue, K2, K3, K4
+    forward and backward each launched, the standalone K1 never.
+    Logs step walls by phase, each push's pack, wire and install, the
+    peak device GB and the pinned host GB of the offloaded AdamW moments,
+    and the decode step at the serving tables by replay (device ms and
+    kernels by torch.profiler, apart from the counts)."""
+    from polyrl_tpu_torch.config import load_config
+    from polyrl_tpu_torch import train
+    from polyrl_tpu_torch.rollout.cb_engine import STREAM_END
+    from polyrl_tpu_torch.rollout.sampling import SamplingParams
+
+    cfg = load_config(RECIPE_PATH, RECIPE_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cleanup: list = []
+    os.environ["POLYRL_CB_TRACE"] = "1"  # read once, by the local engine
+    try:
+        t0 = time.monotonic()
+        try:
+            trainer = train.build_trainer(cfg, cleanup,
+                                          compute_score=byte_length_score)
+        finally:
+            os.environ.pop("POLYRL_CB_TRACE", None)
+        build_s = time.monotonic() - t0
+        actor, remote = trainer.actor, trainer.rollout
+        local = remote.local_server
+        eng = local.engine
+        m = actor.model_cfg
+        dims = (m.hidden_size, m.num_heads, m.num_kv_heads,
+                m.intermediate_size, m.vocab_size)
+        check(dims == RECIPE_DIMS and m.num_layers == REMOTE_CUT_LAYERS
+              and m.head_dim_ == D and m.rope_scaling is not None
+              and not m.use_qk_norm and not m.tie_word_embeddings,
+              f"recipe: the model is {m}")
+        check(eng.spec_tokens == 2 and eng._trace_enabled,
+              "recipe: the local engine is not speculating and traced")
+        # from the shapes: on the mesh of one the actor holds flat shards
+        n_params = sum(math.prod(spec[0])
+                       for _, spec in _leaves(decoder.param_specs(m)))
+        # each install into the local engine (the bootstrap push and one a
+        # step), timed to its end on the card
+        installs: list[tuple[int, float]] = []
+        update = eng.update_weights
+
+        def timed_update(params, version=None):
+            t_ = time.monotonic()
+            update(params, version=version)
+            torch.cuda.synchronize(dev)
+            installs.append((version, time.monotonic() - t_))
+
+        eng.update_weights = timed_update
+        offloads: list[float] = []
+        offload = actor.offload_opt_state
+
+        def timed_offload():
+            t_ = time.monotonic()
+            offload()
+            offloads.append(time.monotonic() - t_)
+
+        actor.offload_opt_state = timed_offload
+        gaps: list[float] = []
+        process = trainer._process_ibatch
+
+        def gap_gate(ibatch, metrics):
+            out = process(ibatch, metrics)
+            mask = np.asarray(out["response_mask"]) > 0
+            gaps.append(float(np.abs(
+                np.asarray(out["old_log_probs"])
+                - np.asarray(out["rollout_log_probs"]))[mask].max()))
+            return out
+
+        trainer._process_ibatch = gap_gate
+        cuda_build.reset_launch_counts()
+        t_fit = time.monotonic()
+        history = trainer.fit()
+        torch.cuda.synchronize()
+        fit_wall = time.monotonic() - t_fit
+        fit_launches = dict(cuda_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        pinned_gb = sum(h.numel() * h.element_size()
+                        for h in actor._opt_host or []) / 1e9
+        check(len(history) == 2, "recipe: the fit did not run 2 steps")
+        for i, rec in enumerate(history, 1):
+            check(np.isfinite(rec.get("actor/pg_loss", float("nan"))),
+                  f"recipe step {i}: actor/pg_loss missing or not finite")
+        plane_gates(history, "recipe")
+        t_v = time.monotonic()
+        while eng.weight_version < 3 and time.monotonic() - t_v < 60:
+            time.sleep(0.1)
+        check(eng.weight_version >= 3, f"recipe: the local server at "
+              f"v{eng.weight_version} after 2 steps, not >= 3")
+        check(gaps and max(gaps) <= LOGP_AGREE_TOL,
+              f"recipe: old logprobs vs the served ones, max by batch "
+              f"{gaps} nats (> {LOGP_AGREE_TOL})")
+        check(pinned_gb > 0, "recipe: no AdamW moments on the host")
+        metrics = get_text(local.port, "/metrics")
+        engine_lines = [ln_ for ln_ in metrics.splitlines()
+                        if ln_.startswith("polyrl_engine_")]
+        check(any(ln_.startswith("polyrl_engine_n_spec_dispatch ")
+                  for ln_ in engine_lines)
+              and any(ln_.startswith("polyrl_engine_n_fetch ")
+                      for ln_ in engine_lines),
+              f"recipe: /metrics lacks the engine counters: {engine_lines}")
+
+        # the recipe as its YAML writes it: no speculation, grouped decode,
+        # on the engine ``train`` builds from the rollout section
+        plain_cfg = dataclasses.replace(cfg.rollout, spec_tokens=0)
+        t_g = time.monotonic()
+        geng = train._cb_engine(dataclasses.replace(cfg, rollout=plain_cfg),
+                                m, actor.export_params(), trainer.tokenizer,
+                                dev)
+        rng = np.random.default_rng(5)
+        prompt = rng.integers(1, m.vocab_size, RECIPE_GROUP_PROMPT).tolist()
+        sp = SamplingParams(temperature=1.0, max_new_tokens=RECIPE_GROUP_NEW,
+                            stop_token_ids=())
+        qs = [geng.submit(f"rg{i}", prompt, sp, group_id="rg", group_size=8)
+              for i in range(8)]
+        geng.start()
+        try:
+            group = []
+            for q in qs:
+                toks, lps = [], []
+                while (item := q.get(timeout=300)) is not STREAM_END:
+                    toks += item["token_ids"]
+                    lps += item["logprobs"]
+                group.append((toks, lps))
+        finally:
+            geng.stop()
+        group_s = time.monotonic() - t_g
+        check(all(len(t_) == RECIPE_GROUP_NEW and np.isfinite(l_).all()
+                  and max(l_) <= 0 for t_, l_ in group),
+              f"recipe: the group's lengths {[len(t_) for t_, _ in group]}")
+        check(geng.grouped_decode_dispatches > 0,
+              "recipe: the group did not decode grouped")
+        grouped = geng.grouped_decode_dispatches
+        del geng
+        launches = dict(cuda_build.LAUNCHES)
+        for name in SERVE_KERNELS + K4_NAMES:
+            check(launches[name] > 0, f"recipe: {name} was not launched")
+        check(launches["paged_kv_write"] == 0,
+              "recipe: the standalone K1 was launched on the fused route")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with launches_apart({}):
+            step = decode_step_replay(dev, actor.export_params(), m)
+        iface = remote.transfer
+        rounds = {r_["version"]: r_ for r_ in iface.sender.round_log}
+        inst = dict(installs)
+        pushes = [dict(version=pl["version"], pack_s=pl["pack_s"],
+                       wire_s=rounds.get(pl["version"], {}).get("push_s"),
+                       install_s=inst.get(pl["version"]))
+                  for pl in iface.push_log]
+        return dict(history=history, build_s=build_s, fit_wall=fit_wall,
+                    n_params=n_params, peak_gb=peak_gb, pinned_gb=pinned_gb,
+                    gaps=gaps, pushes=pushes, launches=launches, step=step,
+                    fit_launches=fit_launches,
+                    offloads=offloads,
+                    engine_lines=engine_lines, group_s=group_s,
+                    grouped=grouped, version=eng.weight_version,
+                    trace=eng.trace_report())
+    finally:
+        for fn in reversed(cleanup):
+            fn()
+
+
+def recipe_lines(r: dict, rows: list[dict], smi: str) -> list[str]:
+    tag = (f"recipe ({smi}, this run, {REMOTE_CUT_LAYERS} of "
+           f"{RECIPE_MODEL}'s 32 layers)")
+    st = r["step"]
+    lines = [f"{tag}: kernels at Hq {RECIPE_HQ}, Hkv {RECIPE_HKV}, D {D} (rep "
+             f"{RECIPE_HQ // RECIPE_HKV}, null norms): " + "; ".join(
+                 f"{x['name']} max_abs_err {x['max_abs_err']:.3g} ms "
+                 f"{x['ms']:.4f} plain_ms {x['plain_ms']:.4f} bound_ms "
+                 f"{x['bound_ms']:.4f} ({x['bound_by']}) library_ms "
+                 + ("None" if x["library_ms"] is None
+                    else f"{x['library_ms']:.4f}") for x in rows)]
+    lines.append(
+        f"{tag}: {RECIPE_PATH} at full width ({r['n_params'] / 1e9:.3f} B "
+        f"parameters, bf16, seed 0): trainer up in {r['build_s']:.1f} s, fit "
+        f"{r['fit_wall']:.1f} s; local server at v{r['version']}; old "
+        f"logprobs vs served, max by batch {[round(g, 4) for g in r['gaps']]} "
+        f"nats (limit {LOGP_AGREE_TOL}); peak {r['peak_gb']:.2f} GB on the "
+        f"card, AdamW moments {r['pinned_gb']:.2f} GB pinned on the host "
+        f"(each step's offload call, host s, timed with update_actor: "
+        f"{[round(x, 3) for x in r['offloads']]}; the first allocates the "
+        f"pinned buffers)")
+    for i, (rec, w) in enumerate(zip(r["history"], _step_walls(r["history"])),
+                                 1):
+        lines.append(
+            f"{tag}: step {i} {w['step']:.2f} s (" + ", ".join(
+                f"{k_} {v:.2f}" for k_, v in w.items() if k_ != "step")
+            + f"); pg_loss {rec['actor/pg_loss']:.5f}; goodput "
+            + goodput_split(rec))
+    lines.append(f"{tag}: pushes (pack / wire / install s; no remote "
+                 f"receiver, the wire unused): " + "; ".join(
+                     f"v{p_['version']} {p_['pack_s']:.3f} / "
+                     + ("none" if p_["wire_s"] is None else f"{p_['wire_s']:.3f}")
+                     + " / " + ("none" if p_["install_s"] is None
+                                else f"{p_['install_s']:.3f}")
+                     for p_ in r["pushes"]))
+    fit = r["fit_launches"]
+    lines.append(
+        f"{tag}: launches of the fit "
+        + json.dumps(fit) + ", of the group without speculation "
+        + json.dumps({k_: r["launches"][k_] - fit[k_] for k_ in fit})
+        + f" (the recipe's K3 launches in the kernels line are the group's); "
+        f"the group: {r['grouped']} grouped decode "
+        f"dispatches in {r['group_s']:.1f} s; engine trace "
+        + json.dumps({k_: round(v, 4) for k_, v in sorted(r["trace"].items())}))
+    lines.append(
+        f"{tag}: decode step by replay (serving tables, 18 live of 64, K2): "
+        f"wall ms {st['wall_ms']:.2f}, device ms {st['device_ms']:.3f}, "
+        f"kernels {st['kernels']:.1f}; weight floor {st['floor_ms']:.2f} ms "
+        f"({st['read_gb']:.2f} GB read a step at {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s)")
+    return lines
+
+
 # -- phase 16: the MoE family (qwen3-30b-a3b) ------------------------------------
 
 MOE_MODEL = "qwen3-30b-a3b"
@@ -7210,20 +7531,22 @@ def head_layout(hq: int, hkv: int, model: str):
         HQ, HKV, MODEL = saved
 
 
-def moe_kernels(dev) -> list[dict]:
+def layout_kernels(dev, hq: int, hkv: int, model: str, label: str
+                   ) -> list[dict]:
     """K1, the fused prologue, K2, K3 (the kernel case: 64 slots of 1-4096
-    tokens and groups of 8, G * rep = 64 stacked rows) and K4 forward and
+    tokens and groups of 8, G * rep stacked rows) and K4 forward and
     backward (B 4, T 512) against their plain versions under the kernels
-    phase's bounds, at qwen3-30b-a3b's attention layout."""
-    with head_layout(MOE_HQ, MOE_HKV, MOE_MODEL):
+    phase's bounds, at ``model``'s attention layout (``hq`` q heads on
+    ``hkv`` kv heads; its norms, null where it has no qk-norm)."""
+    with head_layout(hq, hkv, model):
         rows = check_kernels(dev) + list(flash_case_check(
-            dev, 4, 512, 7, "moe layout, train phase shapes", reps=10,
+            dev, 4, 512, 7, f"{label} layout, train phase shapes", reps=10,
             repeat=True))
     torch.cuda.empty_cache()
     return rows
 
 
-def moe_step(dev, params, cfg) -> dict:
+def decode_step_replay(dev, params, cfg) -> dict:
     """One decode step (``forward_paged_decode``, the fused route) at the
     serving tables, captured in a CUDA graph and replayed: wall ms (host
     clock around a synchronised replay, median of 20), device ms and
@@ -7420,7 +7743,7 @@ def moe_serve(dev) -> dict:
     del server
     gc.collect()
     torch.cuda.empty_cache()
-    step = moe_step(dev, params, cfg)
+    step = decode_step_replay(dev, params, cfg)
     gates = moe_dropless_gates(
         dev, params, dataclasses.replace(cfg, moe_capacity_factor=MOE_DROPLESS),
         greedy_prompts)
@@ -7530,7 +7853,8 @@ def moe_small(dev) -> dict:
     check(all(o["tokens"] == group[0]["tokens"] for o in group)
           and len(lone[0]["tokens"]) == MOE_NEW,
           "moe: the int8 greedy group's members differ")
-    steps = {"bf16": moe_step(dev, params, cfg), "int8": moe_step(dev, q8, cfg)}
+    steps = {"bf16": decode_step_replay(dev, params, cfg),
+             "int8": decode_step_replay(dev, q8, cfg)}
     del q8, params
     return dict(dense=dense, write_s=write_s, load_s=load_s, int8_s=int8_s,
                 ckpt_gb=n_bytes / 1e9, int8_gb=int8_gb, launches=launches,
@@ -7617,7 +7941,7 @@ def moe_phase(dev) -> dict:
     of its main paths (the HTTP mix and lone request, the int8 engine's
     streams, the fit)."""
     t0 = time.monotonic()
-    rows = moe_kernels(dev)
+    rows = layout_kernels(dev, MOE_HQ, MOE_HKV, MOE_MODEL, "moe")
     served = moe_serve(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -8355,13 +8679,16 @@ def tp_lora_lines(t: dict, smi: str) -> list[str]:
 # rank that has not exited by then is a hang
 PARALLEL_TIMEOUT_S = 480.0
 PARALLEL_OVERRIDES = TRAIN_OVERRIDES + ["parallel.backend=gloo"]
-# A, C and D at this depth of the training cell (full width; B runs it at
+# A and D at this depth of the training cell (full width; B runs it at
 # its full 28): A and C cut from 28 layers when D and E joined the phase
 # (A took 85.1 s and C 39.8 s there), then from 8 when tp lora and the
 # memory phase's tp spill joined the smoke (A 42.2-50.0 s and C 16.0-20.1 s
 # at 8); D from 28 to bring the smoke back inside its budget (21.4 s at 28;
 # NVIDIA H100 80GB HBM3 at 700.00 W)
 PARALLEL_CUT_LAYERS = 4
+# C back at 8 layers, PR 16's depth, where its gradient cosine read lowest
+# (0.998120): the family readings that close ROADMAP C.2 come from there
+TP_GRAD_LAYERS = 8
 # D: the pipeline, half the layers a stage, GPipe microbatches of one row
 # of the 4-row micro
 PP_MICRO = 4
@@ -8497,15 +8824,33 @@ def gloo_cuda_probe() -> dict:
     return out
 
 
-def mesh_grad_agreement(actor, micro) -> tuple[float, float]:
+# the parameter leaves by family, for the gradient readings by family
+LEAF_FAMILIES = {
+    "embed": "embed", "lm_head": "head", "final_norm": "final norm",
+    "wq": "q/k/v/o", "wk": "q/k/v/o", "wv": "q/k/v/o", "wo": "q/k/v/o",
+    "bq": "q/k/v/o", "bk": "q/k/v/o", "bv": "q/k/v/o",
+    "q_norm": "q_norm/k_norm", "k_norm": "q_norm/k_norm",
+    "w_gate": "gate/up/down", "w_up": "gate/up/down", "w_down": "gate/up/down",
+    "router": "router", "we_gate": "experts", "we_up": "experts",
+    "we_down": "experts", "attn_norm": "layer norms", "mlp_norm": "layer norms",
+}
+
+
+def _cos_ratio(dot: float, na: float, nb: float) -> tuple[float, float]:
+    if na == 0.0 or nb == 0.0:
+        return float("nan"), float("nan")
+    return dot / (na * nb) ** 0.5, (na / nb) ** 0.5
+
+
+def mesh_grad_agreement(actor, micro) -> tuple[float, float, dict]:
     """The micro's gradient on the mesh (each rank its rows and its tp,
     pp and ep blocks; each layer's gradient reduce-scattered by its
     backward, the rest at the step, all summed) against one rank's on the
     whole micro through the one-device path (no pipeline), on the same
-    gathered weights: (cosine,
-    norm ratio) over every leaf, both gathered whole on every rank (the
-    same on both). The gradients are cleared after, so the fit's own
-    micros start clean."""
+    gathered weights: (cosine, norm ratio) over every leaf, and the same
+    pair for each leaf family (``LEAF_FAMILIES``), both gathered whole on
+    every rank (the same on both). The gradients are cleared after, so the
+    fit's own micros start clean."""
     from polyrl_tpu_torch.models.quant import named_leaves
 
     sharded = actor._fsdp
@@ -8528,16 +8873,20 @@ def mesh_grad_agreement(actor, micro) -> tuple[float, float]:
             loss.backward()
     finally:
         actor.params, actor._fsdp, actor.mesh, actor.layers_fn = keep
-    dot = na = nb = 0.0
+    sums: dict[str, list[float]] = {}
     for n in sharded.names:
         a, b = g_mesh.pop(0).reshape(-1).float(), leaves[n].grad.reshape(-1).float()
         leaves[n].grad = None
-        dot += float(torch.dot(a, b))
-        na += float(torch.dot(a, a))
-        nb += float(torch.dot(b, b))
+        leaf = n.rsplit(".", 1)[-1]
+        fam = sums.setdefault(LEAF_FAMILIES.get(leaf, leaf), [0.0, 0.0, 0.0])
+        fam[0] += float(torch.dot(a, b))
+        fam[1] += float(torch.dot(a, a))
+        fam[2] += float(torch.dot(b, b))
         del a, b
     del whole, leaves
-    return dot / (na * nb) ** 0.5, (na / nb) ** 0.5
+    cos, ratio = _cos_ratio(*(sum(f[i] for f in sums.values())
+                              for i in range(3)))
+    return cos, ratio, {k_: _cos_ratio(*f) for k_, f in sums.items()}
 
 
 def _step_walls(history: list[dict]) -> list[dict]:
@@ -8596,10 +8945,12 @@ def parallel_fsdp_fit(dev, rank: int,
             # gradients: its own peak is kept out of the fit's
             fit_peak.append(torch.cuda.max_memory_allocated(dev))
             with launches_apart(gate_launches):
-                cos, ratio = mesh_grad_agreement(actor, gate_micro(feed, dev))
+                cos, ratio, fams = mesh_grad_agreement(actor,
+                                                       gate_micro(feed, dev))
             torch.cuda.reset_peak_memory_stats(dev)
             step1.update(gap_max=float(gap.max()), gap_mean=float(gap.mean()),
-                         tokens=int(mask.sum()), grad_cos=cos, grad_ratio=ratio)
+                         tokens=int(mask.sum()), grad_cos=cos, grad_ratio=ratio,
+                         grad_families=fams)
             return out
 
         def record_then_digest(metrics, state, step_t0, n_traj, history):
@@ -8831,7 +9182,7 @@ def parallel_worker(out_dir: str) -> int:
         torch.cuda.empty_cache()
         t0 = time.monotonic()
         res["C"] = parallel_fsdp_fit(dev, rank, (
-            "parallel.tp=2", "parallel.fsdp=1", cut_depth(PARALLEL_CUT_LAYERS)))
+            "parallel.tp=2", "parallel.fsdp=1", cut_depth(TP_GRAD_LAYERS)))
         res["C"]["seconds"] = time.monotonic() - t0
         gc.collect()
         torch.cuda.empty_cache()
@@ -9004,6 +9355,14 @@ def parallel_phase(dev) -> dict:
     return dict(res=res, wall=wall, probe=probe, probe_s=probe_s)
 
 
+def family_line(ph: str, step1: dict) -> str:
+    """Step 1's micro gradient against one rank's, by leaf family."""
+    return (f"parallel {ph} gradient by leaf family, mesh vs one rank "
+            f"(cosine / norm ratio, rank 0): " + "; ".join(
+                f"{k_} {c:.6f} / {r:.5f}"
+                for k_, (c, r) in sorted(step1["grad_families"].items())))
+
+
 def parallel_lines(p: dict, smi: str) -> list[str]:
     r0, r1 = p["res"]
     a0, a1, b0, b1 = r0["A"], r1["A"], r0["B"], r1["B"]
@@ -9029,6 +9388,7 @@ def parallel_lines(p: dict, smi: str) -> list[str]:
         f"norm ratio {a0['step1']['grad_ratio']:.5f} (limit >= "
         f"{GRAD_COS_MIN_BF16}); gathered-weight digests {a0['digests']} on both "
         f"ranks",
+        family_line("A", a0["step1"]),
         f"parallel A launches: rank 0 " + json.dumps(a0["launches"]) + "; rank 1 "
         + json.dumps({k_: a1["launches"][k_] for k_ in k4})
         + "; the gates' own " + json.dumps(a0["gate_launches"]),
@@ -9071,6 +9431,7 @@ def parallel_lines(p: dict, smi: str) -> list[str]:
         f"cosine {c0['step1']['grad_cos']:.6f} / {c1['step1']['grad_cos']:.6f}, "
         f"norm ratio {c0['step1']['grad_ratio']:.5f} (limit >= "
         f"{GRAD_COS_MIN_BF16}); digests {c0['digests']} on both ranks",
+        family_line("C", c0["step1"]),
         f"parallel C launches: rank 0 " + json.dumps(c0["launches"]) + "; rank 1 "
         + json.dumps({k_: c1["launches"][k_] for k_ in k4})
         + f"; peak allocated {c0['peak_gb']:.2f} / {c1['peak_gb']:.2f} GB "
@@ -9101,6 +9462,7 @@ def parallel_lines(p: dict, smi: str) -> list[str]:
                + json.dumps({k_: round(v, 4) for k_, v in x0["moved"].items()})
                + ", rank 1 "
                + json.dumps({k_: round(v, 4) for k_, v in x1["moved"].items()})),
+            family_line(ph, x0["step1"]),
             f"parallel {ph} launches: rank 0 " + json.dumps(x0["launches"])
             + "; rank 1 " + json.dumps({k_: x1["launches"][k_] for k_ in k4})
             + f"; peak allocated {x0['peak_gb']:.2f} / {x1['peak_gb']:.2f} GB "
@@ -9179,6 +9541,9 @@ def main() -> int:
     with phase_wall("kernels"):
         rows = check_kernels(dev) + check_flash(dev)
         torch.cuda.empty_cache()
+        # the recipe phase's attention layout: rep 4, null norms
+        rep4_rows = layout_kernels(dev, RECIPE_HQ, RECIPE_HKV, RECIPE_MODEL,
+                                   "llama3-8b")
     # the MoE phase first, while the card's memory is empty: its serving
     # holds 61 GB of weights
     with phase_wall("moe"):
@@ -9316,6 +9681,14 @@ def main() -> int:
         f"{'; manager ' + ' '.join(MANAGER_ARGS) if MANAGER_ARGS else ''}): "
         f"{WALLS['autoscale']:.1f} s wall")
 
+    with phase_wall("recipe"):
+        recipe = recipe_phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for line in recipe_lines(recipe, rep4_rows, smi):
+            log(line)
+    log(f"phase recipe ({smi}, this run): {WALLS['recipe']:.1f} s wall")
+
     with phase_wall("parallel"):
         par = parallel_phase(dev)
         for line in parallel_lines(par, smi):
@@ -9329,12 +9702,13 @@ def main() -> int:
                     trained["launches"] if r["name"].startswith("flash")
                     else served["launches"])
         # plus the memory phase's (its tp spill check's too) and the
-        # disagg, hybrid, lora_delta, autoscale, moe and tp paths: the
+        # disagg, hybrid, lora_delta, autoscale, recipe, moe and tp paths: the
         # servers decode (the tp servers on both shards), the trainers run
         # K4, and the hybrid's trainer process decodes too (its local
         # engine)
         name = r["name"]
-        extra = moe["launches"][name] + tp_launches[name] + (
+        extra = moe["launches"][name] + tp_launches[name] + recipe[
+            "launches"][name] + (
             0 if name == "paged_kv_write" else
                  disagg["trainer_launches"][name]
                  + hybrid["trainer_launches"][name]
@@ -9351,6 +9725,12 @@ def main() -> int:
                  launches=launches[r["name"]] + extra)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    k3 = "grouped_paged_attention"
+    print(f"kernels line: each kernel's launches summed over its paths; the "
+          f"recipe's {k3} launches "
+          f"({recipe['launches'][k3] - recipe['fit_launches'][k3]}) are its "
+          f"spec-off group's, its fit's {recipe['fit_launches'][k3]} "
+          f"(speculation decodes without group tables)")
     print(smi)
     walls = {k: round(v, 1) for k, v in WALLS.items()}
     walls["total"] = round(time.monotonic() - t_start, 1)

@@ -49,10 +49,15 @@ reports current behaviour, not a run-lifetime average:
 
 The dispatch phases and the restore are also emitted as spans into the
 process tracer (``obs/trace.py``) when tracing is on.
+
+The engine's ``POLYRL_CB_TRACE`` counters (``CBEngine._tmark``) are kept
+here when the profiler is on: :meth:`mark_legacy` keeps the cumulative
+``{key: seconds, n_<key>}`` counters that ``/metrics`` renders.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -96,6 +101,7 @@ class EngineLoopProfiler:
         # readers sum both buckets -> window_s/2 .. window_s of loop wall
         self._win_cur = [0.0, 0.0, 0.0, 0.0]
         self._win_prev = [0.0, 0.0, 0.0, 0.0]
+        self._legacy: dict[str, float] = collections.defaultdict(float)
 
     # -- thread-local attribution state --------------------------------------
 
@@ -180,6 +186,17 @@ class EngineLoopProfiler:
                 if cur[0] >= self.window_s / 2.0:
                     self._win_prev = cur
                     self._win_cur = [0.0, 0.0, 0.0, 0.0]
+
+    # -- the POLYRL_CB_TRACE counters -------------------------------------
+
+    def mark_legacy(self, key: str, dt: float) -> None:
+        with self._lock:
+            self._legacy[key] += dt
+            self._legacy["n_" + key] += 1
+
+    def legacy_report(self) -> dict:
+        with self._lock:
+            return dict(self._legacy)
 
     # -- export ---------------------------------------------------------------
 

@@ -28,15 +28,19 @@ Phase taxonomy (seconds, non-overlapping, sum = ``goodput/step_wall_s``):
   disaggregated steps). And NET of ``fence_in_bubble_s``: pipelined,
   the part of the producer's ``prefetch_fence`` inside the wait, which
   the trainer passes as that timing (``weight_push`` counts it); the
-  reference adds the whole fence to a bubble that already holds it. These
-  two nets, the pipelined ``gen`` above and ``rtt_elsewhere_s`` below are
-  the differences kept.
+  reference adds the whole fence to a bubble that already holds it.
+  And NET of ``resume_in_bubble_s``: the seconds of the wait that the
+  stream's resume waits cover, which ``salvage_resume`` counts (the
+  reference counts them twice). These three nets, the pipelined ``gen``
+  above and the two ``*_elsewhere_s`` below are the differences kept.
 - ``process``   — reward / old+ref logprob / values / advantage / broadcast
 - ``update``    — actor + critic fwd/bwd and optimizer steps
 - ``weight_push`` — weight sync (``update_weight`` + the pipelined
   ``prefetch_fence``: its part inside the stream wait)
 - ``salvage_resume`` — stream-resume recovery waits
-  (``rollout/resume_wait_s`` observations)
+  (``rollout/resume_wait_s`` observations), less ``resume_elsewhere_s``:
+  the part of their total outside the stream waits (before the step, or,
+  pipelined, beside the foreground's work) or under another phase
 - ``manager_rtt``  — manager control-plane round trips outside streaming
   (``manager/rtt_s`` observations), less ``rtt_elsewhere_s``: the part of
   their total that the trainer does not count (round trips before the
@@ -139,7 +143,9 @@ class GoodputLedger:
                 mean_context_len: float = 0.0, n_chips: int = 1,
                 rtt_in_bubble_s: float = 0.0,
                 rtt_elsewhere_s: float = 0.0,
-                fence_in_bubble_s: float = 0.0) -> dict[str, float]:
+                fence_in_bubble_s: float = 0.0,
+                resume_in_bubble_s: float = 0.0,
+                resume_elsewhere_s: float = 0.0) -> dict[str, float]:
         """Attribute one step; returns the ``goodput/*`` metric dict.
 
         ``timings`` is the tracker's ``timing_s`` map (seconds per
@@ -153,7 +159,10 @@ class GoodputLedger:
         counts it; ``rtt_elsewhere_s`` is the part that another phase
         already holds or that predates the step, kept out of
         ``manager_rtt``. ``fence_in_bubble_s`` is the pipelined fence's
-        part inside the wait, netted out of ``bubble`` the same way."""
+        part inside the wait, netted out of ``bubble`` the same way.
+        ``resume_in_bubble_s`` and ``resume_elsewhere_s`` split the
+        ``rollout/resume_wait_s`` total as the two ``rtt_*`` inputs split
+        the round trips' total."""
         timings = timings or {}
         phases = {p: 0.0 for p in PHASES}
         for key, secs in timings.items():
@@ -163,13 +172,15 @@ class GoodputLedger:
         inside = sum(float(timings.get(k, 0.0)) for k in _INSIDE_BUBBLE)
         phases["bubble"] = max(
             0.0, float(bubble_s) - inside - float(rtt_in_bubble_s)
-            - float(fence_in_bubble_s))
+            - float(fence_in_bubble_s) - float(resume_in_bubble_s))
         for name, hist in (histograms or {}).items():
             phase = HIST_PHASE.get(name)
             if phase is not None:
                 phases[phase] += float(hist.total)
         phases["manager_rtt"] = max(
             0.0, phases["manager_rtt"] - float(rtt_elsewhere_s))
+        phases["salvage_resume"] = max(
+            0.0, phases["salvage_resume"] - float(resume_elsewhere_s))
         attributed = sum(phases.values())
         phases["other"] = max(0.0, float(step_time_s) - attributed)
 

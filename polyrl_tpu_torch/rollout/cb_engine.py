@@ -28,11 +28,12 @@ Counterpart of the core of ``polyrl_tpu/rollout/cb_engine.py``:
   ``(use_filters, k, group shape)`` key (the JAX step's jit key), replayed
   on the card; the first dispatch of a key runs eagerly on a side stream
   (the warm-up) and is then captured. On the CPU the eager body runs.
-- Run-ahead: up to ``pipeline_depth`` dispatches (default 16) run ahead of
-  emission. Each dispatch's ``[k, S]`` outputs are copied without blocking
-  into a pinned host ring and an event is recorded; a fetcher thread waits
-  on the events and hands the arrays back to the loop thread, which emits
-  them. Every output carries the weight version of its dispatch.
+- Run-ahead: up to ``pipeline_depth`` dispatches (default
+  ``POLYRL_CB_PIPELINE``, else 16) run ahead of emission. Each dispatch's
+  ``[k, S]`` outputs are copied without blocking into a pinned host ring
+  and an event is recorded; a fetcher thread waits on the events and
+  hands the arrays back to the loop thread, which emits them. Every
+  output carries the weight version of its dispatch.
   ``pipeline_depth=0`` drains every dispatch: the synchronous engine.
 - Salvage (``salvage_partials``, the default): an aborted slot stays active
   through a full drain, so every token its dispatches in flight decoded
@@ -67,6 +68,10 @@ Counterpart of the core of ``polyrl_tpu/rollout/cb_engine.py``:
   the ledger or the profiler off the outputs are bitwise the same; with
   the spill tier off only pressure acts otherwise (an eviction, then a
   full prefill, where a spill and a restore would keep the KV).
+- The phase trace (``trace``, default ``POLYRL_CB_TRACE``): cumulative
+  host seconds and counts of the warm-up, prefill, chunk, upload, decode,
+  spec and fetch calls (``trace_report``, the server's ``polyrl_engine_*``
+  counters), kept by the loop profiler when it is on. Clocks only.
 
 Tensor parallelism (``tp``, the reference's tp mesh and SGLang's
 ``--tp-size``): one process owns ``tp`` shards on ``tp_devices`` (on a
@@ -102,6 +107,7 @@ import collections
 import contextlib
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -267,7 +273,8 @@ class CBEngine:
         seed: int = 0,
         enable_prefix_cache: bool = True,
         steps_per_dispatch: int = 8,
-        pipeline_depth: int = 16,
+        pipeline_depth: int | None = None,
+        trace: bool | None = None,
         admit_wave: int | None = None,
         admit_reorder_window: int = 8,
         group_share: bool = True,
@@ -456,6 +463,8 @@ class CBEngine:
         # run-ahead: how many dispatch outputs may await emission. Cost: up
         # to this many dispatches of abort/admission latency. 0 = drain
         # every dispatch (synchronous).
+        if pipeline_depth is None:
+            pipeline_depth = int(os.environ.get("POLYRL_CB_PIPELINE") or 16)
         self.pipeline_depth = max(0, int(pipeline_depth))
         # emission queue: _emit_q (dispatched, not fetched), the fetcher's
         # in-flight count, _fetched_q (landed, not emitted), the fetch
@@ -534,6 +543,33 @@ class CBEngine:
         # the loop profiler: each loop iteration's wall split over the
         # phase taxonomy (None: no clocks around the loop)
         self.profiler = EngineLoopProfiler() if loop_profile else None
+        # POLYRL_CB_TRACE=1: cumulative host seconds per engine call (an
+        # explicit argument wins), kept by the profiler when it is on
+        if trace is None:
+            trace = bool(os.environ.get("POLYRL_CB_TRACE"))
+        self._trace_enabled = bool(trace)
+        self._trace: dict | None = (
+            collections.defaultdict(float)
+            if trace and self.profiler is None else None)
+        # the fetcher thread marks "fetch" beside the loop thread's marks
+        self._trace_lock = threading.Lock()
+
+    def trace_report(self) -> dict:
+        """Cumulative seconds and ``n_<key>`` counts per traced call
+        (``POLYRL_CB_TRACE=1``), else empty."""
+        if self.profiler is not None:
+            return (self.profiler.legacy_report() if self._trace_enabled
+                    else {})
+        return dict(self._trace or {})
+
+    def _tmark(self, key: str, t0: float) -> None:
+        if self.profiler is not None:
+            if self._trace_enabled:
+                self.profiler.mark_legacy(key, time.monotonic() - t0)
+        elif self._trace is not None:
+            with self._trace_lock:
+                self._trace[key] += time.monotonic() - t0
+                self._trace["n_" + key] += 1
 
     # -- the loop profiler (obs/engine_profile.py) ----------------------------
 
@@ -941,11 +977,13 @@ class CBEngine:
                     self._dev[name].fill_(1.0)
                 self._dev["stop_table"].fill_(-1)
                 for uf in filter_variants:
+                    t0 = time.monotonic()
                     if self.spec_tokens > 0:
                         self._launch(self._spec_key(uf),
                                      lambda uf=uf: self._spec_body(uf))
                     else:
                         self._launch_decode(uf, None)
+                    self._tmark("warmup_step", t0)
             finally:
                 for name, t in saved.items():
                     self._dev[name].copy_(t)
@@ -960,6 +998,7 @@ class CBEngine:
         first-token sampling, once per filter variant; every page id is
         the null page."""
         ps = self.page_size
+        t0 = time.monotonic()
         ids = self._tensor(np.full((nb, pb), self.pad_token_id, np.int32))
         lens = self._tensor(np.ones((nb,), np.int32))
         page_ids = self._tensor(np.zeros((nb, pb // ps), np.int32))
@@ -974,6 +1013,7 @@ class CBEngine:
         zeros = torch.zeros((nb,), dtype=torch.int32, device=self.device)
         for uf in filter_variants:
             sample_token_vec(last, self._gen, ones, ones, zeros, use_filters=uf)
+        self._tmark("warmup_prefill", t0)
 
     # -- memory lifecycle (a colocated trainer takes the KV pool back) -------
 
@@ -1144,8 +1184,10 @@ class CBEngine:
             if self._chunk_jobs:
                 # one chunk per iteration: a long prompt's admission
                 # interleaves with the decode dispatch below
+                t0 = time.monotonic()
                 with self._phase("prefill_dispatch"):
                     self._advance_chunk_job()
+                self._tmark("chunk_prefill", t0)
             if self._active.any():
                 self._step_once()
             elif self._pending and not self._chunk_jobs:
@@ -1208,6 +1250,7 @@ class CBEngine:
             if not wave:
                 break
             try:
+                t0 = time.monotonic()
                 with self._phase("prefill_dispatch"):
                     if kind == "attach" and len(wave) > 1:
                         self._prefill_attach_wave(wave)
@@ -1218,6 +1261,7 @@ class CBEngine:
                     else:
                         self._prefill_wave(wave)
                 self.prefill_dispatches += 1
+                self._tmark("prefill_dispatch", t0)
                 self.deck.on_admit_wave(len(wave))
             except Exception:
                 for req, slot, pages, _b, _mp, me in wave:
@@ -1874,8 +1918,10 @@ class CBEngine:
             if out:
                 self._drain_emit_q(keep=out - 1)
             return
+        t0 = time.monotonic()
         with self._phase("decode_dispatch_device"):
             self._ensure_dev_state()  # may drain, which may finish slots
+        self._tmark("upload", t0)
         if not self._active.any():
             return
         use_filters = bool(np.any((self._top_ps[self._active] < 1.0)
@@ -1891,6 +1937,7 @@ class CBEngine:
             self._launch_decode(use_filters, tables)
             out = self._ring_copy()
         self.decode_host_s += time.monotonic() - t0
+        self._tmark("step_dispatch", t0)
         self.decode_dispatches += 1
         if tables is not None:
             self.grouped_decode_dispatches += 1
@@ -1936,6 +1983,7 @@ class CBEngine:
                          lambda: self._spec_body(use_filters))
             out = self._ring_copy()
         self.decode_host_s += time.monotonic() - t0
+        self._tmark("spec_dispatch", t0)
         self.decode_dispatches += 1
         self.spec_dispatches += 1
         self.spec_token_ceiling += len(idxs) * self.spec_rounds * m
@@ -2362,6 +2410,7 @@ class CBEngine:
             handed_off = False
             try:
                 try:
+                    t0 = time.monotonic()
                     arrs = self._land(entry)
                 except Exception as exc:  # noqa: BLE001 — surface on the
                     # loop thread (next drain), where _recover resets
@@ -2373,6 +2422,7 @@ class CBEngine:
                         cv.notify_all()
                     handed_off = True
                     continue
+                self._tmark("fetch", t0)
                 with cv:
                     self._fetched_q.append((epoch, entry, arrs))
                     self._fetch_inflight = 0
@@ -2443,8 +2493,12 @@ class CBEngine:
             n = len(self._emit_q) - keep
             batch = [self._emit_q.popleft() for _ in range(max(0, n))]
             epoch = self._fetch_epoch
+        if not batch:
+            return
+        t0 = time.monotonic()
         with self._phase("sample_fetch"):
             landed = [(epoch, e, self._land(e)) for e in batch]
+        self._tmark("fetch", t0)
         with self._fetch_cv:
             self._fetched_q.extend(landed)
 

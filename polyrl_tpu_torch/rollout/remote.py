@@ -484,12 +484,13 @@ class RemoteRollout:
                 recovered = False
                 if budget > 0:
                     # recovery wait is attributable stall time: the goodput
-                    # ledger maps the rollout/resume_wait_s totals into the
-                    # salvage_resume phase
+                    # ledger holds its seconds inside the trainer's stream
+                    # waits as the salvage_resume phase, once (the interval
+                    # is kept for that)
                     t_rw = time.monotonic()
                     recovered = self._wait_manager_recovery()
                     obs.observe("rollout/resume_wait_s",
-                                time.monotonic() - t_rw)
+                                time.monotonic() - t_rw, t0=t_rw)
                 if recovered:
                     budget -= 1
                     self.stream_resumes += 1

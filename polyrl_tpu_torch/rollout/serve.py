@@ -53,7 +53,7 @@ def create_server(model: str, device: str = "cuda", host: str = "0.0.0.0",
                   max_slots: int = 64, page_size: int = 64,
                   max_seq_len: int = 16384, num_pages: int | None = None,
                   steps_per_dispatch: int = 8,
-                  pipeline_depth: int = 16,
+                  pipeline_depth: int | None = None,
                   admit_wave: int | None = None,
                   admit_reorder_window: int = 8,
                   group_share: bool = True,
@@ -301,10 +301,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="KV pool pages (default: half the slots at full length)")
     p.add_argument("--steps-per-dispatch", type=int, default=8,
                    help="fused decode steps per dispatch")
-    p.add_argument("--pipeline-depth", type=int, default=16,
+    p.add_argument("--pipeline-depth", type=int, default=None,
                    help="decode dispatches the engine may run ahead of "
-                        "emission (0 = drain every dispatch); lower it for "
-                        "tighter abort latency")
+                        "emission (0 = drain every dispatch; default 16 / "
+                        "POLYRL_CB_PIPELINE); lower it for tighter abort "
+                        "latency")
     p.add_argument("--prompt-buckets", type=int, nargs="+", default=None,
                    help="prompt-length padding buckets (default "
                         "128 256 512 1024 2048 4096)")

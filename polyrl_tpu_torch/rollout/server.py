@@ -788,6 +788,13 @@ class RolloutServer:
             kind = "counter" if k == "total_tokens_served" else "gauge"
             lines.append(f"# TYPE {name} {kind}")
             lines.append(f"{name} {fmt(v)}")
+        trace = getattr(self.engine, "trace_report", lambda: {})()
+        for k, v in sorted(trace.items()):
+            # every trace entry is cumulative (call counts and phase
+            # seconds both only increase)
+            name = f"polyrl_engine_{k}"
+            lines.append(f"# TYPE {name} counter")
+            lines.append(f"{name} {fmt(v)}")
         return "\n".join(lines) + "\n"
 
 

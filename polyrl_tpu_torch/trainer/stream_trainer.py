@@ -1225,9 +1225,13 @@ class StreamRLTrainer:
                     state = self._train_one_batch(source, metrics)
                     with marked_timer("update_weight", metrics):
                         self._push_weights(block=cfg.pipeline_depth == 0)
-                # free the optimizer's device memory for generation (a
-                # no-op unless actor.cfg.offload_optimizer)
-                self.actor.offload_opt_state()
+                # free the optimizer's device memory for generation, timed
+                # with the update: the first offload allocates the pinned
+                # host buffers (1.7 s for 7.7 GB on an H100 host), which
+                # the reference leaves to ``other``
+                if self.actor.cfg.offload_optimizer:
+                    with marked_timer("update_actor", metrics):
+                        self.actor.offload_opt_state()
                 self.global_step += 1
                 step_time = time.monotonic() - step_t0
                 throughput = state["n_tokens"] / step_time if step_time else 0.0
@@ -1314,6 +1318,17 @@ class StreamRLTrainer:
                                           minus=waits + timed)
         rtt_elsewhere = (max(0.0, hists["manager/rtt_s"].total - rtt_counted)
                          if "manager/rtt_s" in hists else 0.0)
+        # a stream's resume waits (the manager down) run in the reader
+        # thread while the trainer waits on the stream: salvage_resume
+        # holds the seconds of the waits they cover, less what the phases
+        # above hold (the health probes' round trips too), once, netted
+        # out of the bubble; the rest (before the step, pipelined beside
+        # the foreground's work) stays out
+        resume = spans.get("rollout/resume_wait_s", ())
+        resume_in_bubble = seconds_inside(resume, waits, minus=[*held, *rtt])
+        resume_elsewhere = (
+            max(0.0, hists["rollout/resume_wait_s"].total - resume_in_bubble)
+            if "rollout/resume_wait_s" in hists else 0.0)
         gp = self._goodput.account(
             step_time_s=step_t1 - step_t0,
             timings=timings, bubble_s=state["bubble"],
@@ -1321,7 +1336,9 @@ class StreamRLTrainer:
             histograms=hists, n_tokens=state["n_tokens"],
             mean_context_len=state["n_tokens"] / n_traj,
             rtt_in_bubble_s=rtt_in_bubble, rtt_elsewhere_s=rtt_elsewhere,
-            fence_in_bubble_s=fence_in_bubble)
+            fence_in_bubble_s=fence_in_bubble,
+            resume_in_bubble_s=resume_in_bubble,
+            resume_elsewhere_s=resume_elsewhere)
         metrics.update(gp)
         metrics.merge_histograms(hists)
         tracer = obs.get_tracer()

@@ -226,6 +226,26 @@ def test_cuda_kernels_at_rep_8(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_at_rep_4(cuda_device, dtype):
+    """K2 and K3 at llama3-8b's attention layout (32 q heads on 8 kv
+    heads, D 128, page 64): K2 pads each kv head's 4 rows to the mma's
+    16, and a group of 8 stacks G * rep = 32 query rows in two row blocks;
+    rows of 1 to 4096 tokens, a length-0 slot and a -1 seat."""
+    rng = np.random.default_rng(15)
+    case = grouped_case(
+        rng, groups=((8, 3, (1, 64, 200, 65)), (5, 1, (7, 130))), hkv=8,
+        rep=4, d=128, ungrouped_lens=(4096, 1, 257, 0, 1000), page=64,
+        n_pool=180)
+    case[5][1, 3] = -1  # a finished sibling's seat mid-row
+    assert case[0].shape[1] == 32
+    cuda_build.reset_launch_counts()
+    _both_against_plain(_t(case, cuda_device), dtype)
+    assert cuda_build.LAUNCHES["paged_attention"] == 2
+    assert cuda_build.LAUNCHES["grouped_paged_attention"] == 2
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     q = torch.zeros((2, 4, 48), device=cuda_device)  # D not a multiple of 32
     pool = torch.zeros((2, 4, 64, 48), device=cuda_device)
@@ -364,6 +384,27 @@ def test_cuda_fused_prologue_matches_plain(cuda_device, dtype, d, norm):
     cuda_build.reset_launch_counts()
     q, kp, vp = check_fused_against_plain(args, 1e-6, rel)
     q2, kp2, vp2 = check_fused_against_plain(args, 1e-6, rel)
+    assert torch.equal(q, q2) and torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    assert cuda_build.LAUNCHES["paged_kv_write_fused"] == 2
+    assert cuda_build.LAUNCHES["paged_kv_write"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_prologue_null_norms_at_rep_4(cuda_device, dtype):
+    """The fused prologue with both norm weights null at llama3-8b's
+    layout (Hq 32, Hkv 8, D 128, page 64, RoPE base 500,000): RoPE and the
+    write only, against the plain chain under the same bounds; twice
+    bitwise; one launch a call and no standalone K1."""
+    rng = np.random.default_rng(32)
+    case = fused_case(rng, s=16, hq=32, hkv=8, d=128, n=24, page=64,
+                      norm=False, theta=500000.0)
+    args = fused_operands(case, cuda_device, dtype)
+    assert args["q_norm"] is None and args["k_norm"] is None
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    cuda_build.reset_launch_counts()
+    q, kp, vp = check_fused_against_plain(args, 1e-5, rel)
+    q2, kp2, vp2 = check_fused_against_plain(args, 1e-5, rel)
     assert torch.equal(q, q2) and torch.equal(kp, kp2) and torch.equal(vp, vp2)
     assert cuda_build.LAUNCHES["paged_kv_write_fused"] == 2
     assert cuda_build.LAUNCHES["paged_kv_write"] == 0
@@ -519,6 +560,25 @@ def test_cuda_flash_at_rep_8(cuda_device, dtype):
     tolerances."""
     rng = np.random.default_rng(22)
     case = flash_case(rng, hq=32, hkv=4, d=128, packed=1)
+    cuda_build.reset_launch_counts()
+    (o, dq, dk, dv), (ro, rdq, rdk, rdv) = _flash_both(case, cuda_device, dtype)
+    assert cuda_build.LAUNCHES["flash_attention_fwd"] == 1
+    assert cuda_build.LAUNCHES["flash_attention_bwd"] == 1
+    tol, gtol = _tols(dtype)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    for name, g, rg in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        assert rel_err(g, rg) <= gtol, (name, rel_err(g, rg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_at_rep_4(cuda_device, dtype):
+    """K4 forward and backward at llama3-8b's layout (32 q heads on 8 kv
+    heads, D 128: a kv head's 4 q heads spread over blocks), with pads and
+    a packed row, under ``test_cuda_flash_matches_plain``'s tolerances."""
+    rng = np.random.default_rng(24)
+    case = flash_case(rng, hq=32, hkv=8, d=128, packed=1)
     cuda_build.reset_launch_counts()
     (o, dq, dk, dv), (ro, rdq, rdk, rdv) = _flash_both(case, cuda_device, dtype)
     assert cuda_build.LAUNCHES["flash_attention_fwd"] == 1

@@ -26,6 +26,7 @@ manager_rtt 2.36 s of a 2.52 s wall beside 0.37 s of update). The port counts th
 waits that their intervals cover, once.
 """
 
+import dataclasses
 import json
 import threading
 import time
@@ -35,9 +36,13 @@ import numpy as np
 import pytest
 
 from polyrl_tpu.obs import goodput as j_goodput
-from polyrl_tpu_torch.manager.client import ManagerClient
+from polyrl_tpu_torch.manager.client import (ManagerClient,
+                                             ManagerTransportError,
+                                             spawn_rollout_manager)
 from polyrl_tpu_torch.obs import goodput
 from polyrl_tpu_torch.obs.histogram import Histogram
+from polyrl_tpu_torch.rollout.remote import RemoteRollout
+from tests.fake_engine import FakeEngine
 from tests.test_torch_pipeline import FakeRollout, make_trainer
 
 # the retry of the push that failed the autoscale step on the card
@@ -274,6 +279,124 @@ def test_round_trips_inside_the_wait_are_counted_once(manager, depth, case):
                 == pytest.approx(r["goodput/step_wall_s"]))
 
 
+# seconds the manager's /health fails after the stream breaks
+DOWN_S = 1.0
+
+
+class _BreaksOnce:
+    """A ``ManagerClient`` whose ``at_call``-th stream breaks before its
+    first result and whose ``/health`` then fails for ``DOWN_S`` seconds,
+    as a manager that dies and is respawned: ``RemoteRollout`` waits for
+    it inside the stream and resumes the pending rids."""
+
+    def __init__(self, client: ManagerClient, at_call: int):
+        self._client = client
+        self.at_call = at_call
+        self.calls = 0
+        self.down_until = 0.0
+
+    def __getattr__(self, name):
+        return getattr(self._client, name)
+
+    def health(self) -> bool:
+        return time.monotonic() >= self.down_until and self._client.health()
+
+    def batch_generate_stream(self, requests, max_local_gen_s=None):
+        self.calls += 1
+        if self.calls == self.at_call:
+            self.down_until = time.monotonic() + DOWN_S
+            raise ManagerTransportError("injected: the manager went away")
+        return self._client.batch_generate_stream(
+            requests, max_local_gen_s=max_local_gen_s)
+
+
+@pytest.fixture(scope="module")
+def fleet():
+    """A manager with one fake engine (token ids inside ``tiny``'s vocab)."""
+    eng = FakeEngine(start_token=300, token_delay_s=0.005).start()
+    proc, port = spawn_rollout_manager(
+        "127.0.0.1:0", extra_args=["--health-check-interval-s", "0.1",
+                                   "--stats-poll-interval-s", "0.1"])
+    try:
+        client = ManagerClient(f"127.0.0.1:{port}")
+        client.wait_healthy()
+        client.register_rollout_instance(eng.endpoint)
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and not any(
+                i["healthy"] for i in client.get_instances_status()[
+                    "instances"]):
+            time.sleep(0.1)
+        yield client
+    finally:
+        proc.kill()
+        proc.wait(timeout=10)
+        eng.stop()
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_resume_wait_inside_the_wait_is_counted_once(fleet, depth):
+    """Step 2's stream breaks and the manager answers no ``/health`` for
+    DOWN_S seconds: the reader thread waits for it inside the stream
+    while the trainer waits on the stream. ``salvage_resume`` holds the
+    seconds of the waits that the resume wait covers, once, net of the
+    bubble; the reference adds the whole wait on top of a bubble that
+    holds it (``attributed_frac`` about 1 + DOWN_S / wall). Pipelined,
+    the part before the step's wall adds nothing."""
+    mgr = _BreaksOnce(fleet, at_call=2)
+    rollout = RemoteRollout(mgr, pad_token_id=0, resume_budget=2,
+                            resume_wait_s=10.0)
+    history = make_trainer(rollout, total_steps=3, depth=depth).fit()
+    assert rollout.stream_resumes == 1
+    waited = [r for r in history if r.get("rollout/resume_wait_s/count")]
+    assert len(waited) == 1
+    total = (waited[0]["rollout/resume_wait_s/mean"]
+             * waited[0]["rollout/resume_wait_s/count"])
+    assert total >= DOWN_S
+    rec = waited[0]
+    assert rec["goodput/salvage_resume_s"] <= total + EPS
+    if depth == 0:
+        # serial, the whole resume wait lies inside the step's stream wait
+        assert rec["goodput/salvage_resume_s"] > DOWN_S / 2
+    assert (rec["goodput/salvage_resume_s"] + rec["goodput/bubble_s"]
+            <= rec["perf/trainer_bubble_s"] + EPS)
+    for r in history:
+        assert r["goodput/attributed_frac"] <= 1.0 + ATTRIBUTED_TOL
+        assert (sum(r[f"goodput/{p}_s"] for p in goodput.PHASES)
+                == pytest.approx(r["goodput/step_wall_s"]))
+
+
+# seconds the first optimizer offload takes here: on the card it
+# allocates the AdamW moments' pinned host buffers (1.7 s for 7.7 GB at
+# llama3-8b's width and 4 layers, NVIDIA H100 80GB HBM3 at 700.00 W)
+FIRST_OFFLOAD_S = 0.5
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_first_offload_is_counted_as_update(depth):
+    """``offload_optimizer``: the step's offload after its push is timed
+    with the update, so the first one, which allocates the host buffers,
+    lands in ``update`` and not in ``other`` (the reference leaves it
+    untimed: ``attributed_frac`` 0.82 on step 1 of the llama3-8b recipe on
+    the card)."""
+    trainer = make_trainer(FakeRollout(), total_steps=2, depth=depth)
+    actor = trainer.actor
+    actor.cfg = dataclasses.replace(actor.cfg, offload_optimizer=True)
+    offload = actor.offload_opt_state
+
+    def first_is_slow():
+        if actor._opt_host is None:
+            time.sleep(FIRST_OFFLOAD_S)
+        offload()
+
+    actor.offload_opt_state = first_is_slow
+    history = trainer.fit()
+    assert actor._opt_offloaded
+    assert history[0]["goodput/update_s"] >= FIRST_OFFLOAD_S
+    for r in history:
+        assert r["goodput/other_s"] < FIRST_OFFLOAD_S / 2
+        assert r["goodput/attributed_frac"] <= 1.0 + ATTRIBUTED_TOL
+
+
 @pytest.mark.parametrize("spans,within,minus,want", [
     ([(0, 2), (1, 3)], [(0, 10)], [], 3.0),            # overlapping, once
     ([(0, 2), (0, 2)], [(1, 5)], [], 1.0),             # the same call twice
@@ -307,6 +430,8 @@ def test_serial_records_are_the_references_split():
         assert "prefetch_fence" not in kw["timings"]
         assert kw.pop("rtt_in_bubble_s") == 0.0
         assert kw.pop("rtt_elsewhere_s") == 0.0
+        assert kw.pop("resume_in_bubble_s") == 0.0
+        assert kw.pop("resume_elsewhere_s") == 0.0
         ref = j_goodput.GoodputLedger().account(**kw)
         for k, v in ref.items():
             assert rec[k] == v, k
@@ -332,16 +457,19 @@ def _hists(cls) -> dict:
 
 
 def test_account_equals_reference_with_no_fence_inside_the_bubble():
-    """With ``fence_in_bubble_s`` 0 (serial steps, or a fence that lies
-    outside the wait) the port's ledger is the reference's, key for key,
-    bit for bit, the per-step split and the cumulative snapshot."""
+    """With ``fence_in_bubble_s`` and the two ``resume_*`` inputs 0
+    (serial steps, or a fence that lies outside the wait; no stream
+    resumed) the port's ledger is the reference's, key for key, bit for
+    bit, the per-step split and the cumulative snapshot."""
     from polyrl_tpu.obs.histogram import Histogram as JHistogram
 
     port_led, ref_led = goodput.GoodputLedger(), j_goodput.GoodputLedger()
     for step in (STEP, dict(STEP, timings={"update_actor": 0.5},
                             bubble_s=0.25, step_time_s=1.5)):
         port = port_led.account(histograms=_hists(Histogram),
-                                fence_in_bubble_s=0.0, **step)
+                                fence_in_bubble_s=0.0,
+                                resume_in_bubble_s=0.0,
+                                resume_elsewhere_s=0.0, **step)
         ref = ref_led.account(histograms=_hists(JHistogram), **step)
         assert port == ref
     assert port_led.snapshot() == ref_led.snapshot()
